@@ -1,0 +1,33 @@
+"""eventgrad-tpu on PyTorch and CUDA: the port of the JAX package.
+
+The JAX package `eventgrad_tpu` is the reference; this package grows
+beside it slice by slice and mirrors its module paths, so every module
+here has a counterpart there (`eventgrad_tpu_torch/parallel/events.py`
+<-> `eventgrad_tpu/parallel/events.py`, and so on). It imports torch and
+numpy only — never JAX, flax, optax or the JAX package.
+
+The ranks of the simulated ring are a leading `[R, ...]` dimension on
+one device (the rank-stacked lift, `parallel/spmd.py`). The flat
+parameter arena (`parallel/arena.py`) holds each rank-stacked quantity
+as one `[R, n]` f32 tensor, and the gossip tail runs through three CUDA
+kernels written for Hopper (`csrc/*.cu`, bound in `ops/`), each beside
+its plain PyTorch version. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.
+
+Entry points (`train`, `evaluate`, `init_train_state`) take `device=`:
+None means CUDA and raises when CUDA is absent.
+"""
+
+from eventgrad_tpu_torch.parallel.topology import Ring, Topology
+from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
+from eventgrad_tpu_torch.models.resnet import ResNet, ResNet18
+from eventgrad_tpu_torch.train.state import TrainState, init_train_state
+from eventgrad_tpu_torch.train.loop import (
+    consensus_params, evaluate, rank0_slice, train,
+)
+
+__all__ = [
+    "Ring", "Topology", "EventConfig", "EventState", "ResNet", "ResNet18",
+    "TrainState", "init_train_state", "consensus_params", "evaluate",
+    "rank0_slice", "train",
+]

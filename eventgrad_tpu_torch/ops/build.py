@@ -1,0 +1,197 @@
+"""Build and load the port's CUDA kernels (`csrc/*.cu`).
+
+Each source compiles with `nvcc` for Hopper (`sm_90a`) into an object
+file, all sources at once in parallel, and the objects link into one
+shared library with a plain C interface, loaded with `ctypes`. The
+library is built on first use into
+`build/eventgrad_tpu_torch/<hash>/libeg_kernels.so` beside the package
+(or under `$EG_TORCH_BUILD_DIR`), keyed by a hash of the sources and the
+flags, so a checkout builds what it holds and a rebuilt source never
+meets a stale library. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import List, Tuple
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+LIB_NAME = "libeg_kernels.so"
+
+#: -fmad=false: no FMA contraction, so each kernel is bitwise its plain
+#: PyTorch version (the sources also use the _rn intrinsics)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-Xcompiler", "-fPIC",
+)
+
+
+def build_root() -> Path:
+    env = os.environ.get("EG_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return _PKG.parent / "build" / "eventgrad_tpu_torch"
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from $CUDA_HOME, else the toolkit's default
+    install prefix."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME): the port's CUDA kernels are "
+        "built from source on first use"
+    )
+
+
+def library_path() -> Path:
+    return build_root() / source_hash() / LIB_NAME
+
+
+def build(verbose: bool = False) -> Tuple[Path, float, str]:
+    """Build the library unless this source hash already has one.
+    Returns (path, seconds spent building, compiler output). With
+    `verbose`, ptxas reports registers, shared memory and spills."""
+    out = library_path()
+    if out.is_file():
+        return out, 0.0, ""
+    t0 = time.perf_counter()
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )))
+        logs = []
+        failed = None
+        for cmd, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(text)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, text)
+        if failed is not None:
+            raise RuntimeError(
+                f"nvcc failed: {' '.join(failed[0])}\n{failed[1]}"
+            )
+        lib_tmp = Path(tmp) / LIB_NAME
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib_tmp),
+                *(str(obj) for _, obj, _ in procs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed: {' '.join(link)}\n{res.stdout}{res.stderr}"
+            )
+        os.replace(lib_tmp, out)
+    return out, time.perf_counter() - t0, "".join(logs)
+
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_F = ctypes.c_float
+_I = ctypes.c_int
+
+_SIGNATURES = {
+    # flat, fire, out, n, vec, stream
+    "eg_masked_wire": [_P, _P, _P, _I64, _I, _P],
+    # p, g, t, cands*, keeps*, lasts*, p_out, t_out, bufs_out*, nb, n,
+    # lr, mom, w, mix_stale, vec, stream
+    "eg_mix_commit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64,
+                      _F, _F, _F, _I, _I, _P],
+    # p, buf_sum, g, t, p_out, t_out, n, lr, mom, w, vec, stream
+    "eg_mix_sgd": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_inputs(op: str, **tensors):
+    """Validate a kernel's tensor arguments: float32, contiguous, one
+    shape, one device. Returns (device, numel)."""
+    import torch
+
+    first = None
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{op}: {name} must be a torch.Tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{op}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+        if first is None:
+            first = (name, t)
+            continue
+        if t.shape != first[1].shape:
+            raise ValueError(
+                f"{op}: {name} has shape {tuple(t.shape)}, "
+                f"{first[0]} has {tuple(first[1].shape)}"
+            )
+        if t.device != first[1].device:
+            raise ValueError(
+                f"{op}: {name} is on {t.device}, {first[0]} on "
+                f"{first[1].device}"
+            )
+    t0 = first[1]
+    if t0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: unsupported device {t0.device}")
+    return t0.device, t0.numel()
+
+
+def launch(op: str, fn, *args) -> None:
+    """Call a C entry point and raise on a non-zero cudaError_t."""
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{op}: CUDA kernel launch failed (cudaError {rc})")
+
+
+def aligned(*tensors) -> int:
+    """1 when every tensor's storage pointer is 16-byte aligned (the
+    kernels' float4 path), else 0."""
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def stream_of(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,75 @@
+"""Flat-arena event engine: the sender pass and the masked-wire builder.
+
+Port of `eventgrad_tpu/ops/event_engine.py`: `event_propose_pack` (the
+`capacity=None` path of the dense/masked wires; the compact pack waits),
+`masked_wire` — the CUDA kernel `csrc/masked_wire.cu`, replacing the TPU
+kernel `_mask_kernel` — and its plain version `masked_wire_reference`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from eventgrad_tpu_torch.ops import build
+from eventgrad_tpu_torch.parallel.arena import ArenaSpec
+from eventgrad_tpu_torch.parallel.events import (
+    EventConfig, EventProposal, EventState, propose,
+)
+
+
+def event_propose_pack(
+    flat: torch.Tensor,
+    state: EventState,
+    pass_num: int,
+    cfg: EventConfig,
+    spec: ArenaSpec,
+) -> Tuple[EventProposal, torch.Tensor]:
+    """The sender side of one event pass on the parameter arena, for the
+    dense/masked wires (the JAX function's `capacity=None` path; the
+    compact pack waits): the trigger decision. Returns (proposal,
+    effective fire bits)."""
+    prop = propose(flat, state, pass_num, cfg, spec)
+    return prop, prop.fire_vec
+
+
+def masked_wire_reference(
+    flat: torch.Tensor,
+    fire_exp: torch.Tensor,
+    scale_exp: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of `masked_wire`: where(fire > 0, flat, 0)."""
+    if scale_exp is not None:
+        raise NotImplementedError("the int8 masked wire is not ported yet")
+    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+    return torch.where(fire_exp > 0, flat, zero)
+
+
+def masked_wire(
+    flat: torch.Tensor,
+    fire_exp: torch.Tensor,
+    scale_exp: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Build the masked wire buffer in one pass: zero the non-fired
+    positions (`fire_exp` = f32 per-position fire bits, fire_vec[seg]).
+    On a CPU tensor this is `masked_wire_reference`; on a CUDA tensor it
+    launches `csrc/masked_wire.cu` or raises."""
+    if scale_exp is not None:
+        raise NotImplementedError("the int8 masked wire is not ported yet")
+    device, n = build.check_inputs("masked_wire", flat=flat, fire_exp=fire_exp)
+    if device.type == "cpu":
+        return masked_wire_reference(flat, fire_exp)
+    out = torch.empty_like(flat)
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "masked_wire", lib.eg_masked_wire,
+            flat.data_ptr(), fire_exp.data_ptr(), out.data_ptr(), n,
+            build.aligned(flat, fire_exp, out), build.stream_of(device),
+        )
+    masked_wire.launches += 1
+    return out
+
+
+masked_wire.launches = 0

@@ -1,0 +1,139 @@
+"""Flat parameter arena: cached leaf metadata + flat views.
+
+Port of `eventgrad_tpu/parallel/arena.py` (`ArenaSpec`, `arena_spec`,
+`alloc_event_bufs` for f32 residency; buckets and carriers wait).
+
+Every rank-stacked quantity of the gossip hot path — parameters,
+gradients, momentum trace, neighbor buffers — is ONE `[R, n]` f32
+tensor. Leaves sit in the reference's leaf order: `jax.tree.flatten` of
+the flax parameter dict, which sorts keys at every level, so
+`BasicBlock_10` comes before `BasicBlock_2`. The `[L]` event-state
+vectors are indexed by the same order. Inside a segment each leaf is
+raveled in its torch layout (OIHW convolutions, `(out, in)` dense), so
+sizes, starts and the segment map equal the JAX spec's while the
+elements within a leaf follow torch's layout; `convert.py` maps leaves
+between the two layouts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Dict, Iterable, Mapping, Tuple
+
+import torch
+from torch import nn
+
+
+def flax_order(names: Iterable[str]) -> Tuple[str, ...]:
+    """Dotted parameter names ("BasicBlock_0.Conv_0.kernel") in the
+    order `jax.tree.flatten` visits the same leaves of the nested flax
+    dict: sorted by key at every level, i.e. by the path tuple."""
+    return tuple(sorted(names, key=lambda s: tuple(s.split("."))))
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaSpec:
+    """Static leaf-major layout of one parameter structure (plain Python,
+    hashable, computed once per structure and cached)."""
+
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    sizes: Tuple[int, ...]
+    starts: Tuple[int, ...]
+    n_total: int
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.sizes)
+
+    def sizes_tensor(self, device=None) -> torch.Tensor:
+        """[L] int32 leaf sizes on `device` (cached: read only)."""
+        return _device_constants(self.sizes, torch.device(device or "cpu"))[1]
+
+    def seg_expand(self, device=None) -> torch.Tensor:
+        """[n_total] int64 leaf index per flat position (the values of the
+        JAX spec's `seg_expand`; int64 because torch indexes with it).
+        Cached per device: read only."""
+        return _device_constants(self.sizes, torch.device(device or "cpu"))[0]
+
+    def ravel(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """One contiguous arena from a dict of leaves. Leading dimensions
+        beyond the leaf shape (the rank dimension) are kept: leaves of
+        shape `[R, *shape]` give an `[R, n_total]` arena."""
+        pieces = []
+        for name, shape in zip(self.names, self.shapes):
+            x = tree[name]
+            lead = tuple(x.shape[: x.dim() - len(shape)])
+            pieces.append(x.reshape(lead + (-1,)))
+        return torch.cat(pieces, dim=-1)
+
+    def leaf_views(self, flat: torch.Tensor):
+        """Per-leaf slices of the arena's last dimension (views, no copy)."""
+        return [flat.narrow(-1, s, z) for s, z in zip(self.starts, self.sizes)]
+
+    def unravel(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Dict of per-leaf views `[*lead, *shape]` into the arena."""
+        lead = tuple(flat.shape[:-1])
+        return {
+            name: v.reshape(lead + shape)
+            for name, v, shape in zip(
+                self.names, self.leaf_views(flat), self.shapes
+            )
+        }
+
+
+@functools.lru_cache(maxsize=16)
+def _device_constants(sizes: Tuple[int, ...], device: torch.device):
+    """(segment map, sizes) of one leaf layout on one device, built once."""
+    sizes_t = torch.tensor(sizes, dtype=torch.int32, device=device)
+    seg = torch.repeat_interleave(
+        torch.arange(len(sizes), device=device), sizes_t.long(),
+        output_size=sum(sizes),
+    )
+    return seg, sizes_t
+
+
+@functools.lru_cache(maxsize=64)
+def _spec_cached(items: Tuple[Tuple[str, Tuple[int, ...]], ...]) -> ArenaSpec:
+    names = tuple(n for n, _ in items)
+    shapes = tuple(s for _, s in items)
+    sizes = tuple(int(math.prod(s)) if s else 1 for s in shapes)
+    starts, acc = [], 0
+    for z in sizes:
+        starts.append(acc)
+        acc += z
+    return ArenaSpec(
+        names=names,
+        shapes=shapes,
+        sizes=sizes,
+        starts=tuple(starts),
+        n_total=acc,
+    )
+
+
+def arena_spec(tree: Any) -> ArenaSpec:
+    """The cached ArenaSpec of a model's parameters (an `nn.Module`) or of
+    a dict mapping parameter names to per-rank shapes or tensors."""
+    if isinstance(tree, nn.Module):
+        shapes = {n: tuple(p.shape) for n, p in tree.named_parameters()}
+    else:
+        shapes = {
+            n: tuple(v.shape) if hasattr(v, "shape") else tuple(v)
+            for n, v in tree.items()
+        }
+    return _spec_cached(tuple((n, shapes[n]) for n in flax_order(shapes)))
+
+
+def alloc_event_bufs(
+    spec: ArenaSpec, n_neighbors: int, n_ranks: int, *, device=None,
+) -> Tuple[torch.Tensor, ...]:
+    """The arena EventState.bufs allocation site: per-neighbor zero
+    `[R, n]` f32 receive buffers (the reference's zero RMA window). Only
+    f32 residency is ported: the carrier-resident and bucketed layouts
+    wait."""
+    return tuple(
+        torch.zeros((n_ranks, spec.n_total), dtype=torch.float32, device=device)
+        for _ in range(int(n_neighbors))
+    )

@@ -1,0 +1,207 @@
+"""EventGraD: per-parameter event-triggered communication state machine.
+
+Port of `eventgrad_tpu/parallel/events.py` (`EventConfig`, `EventState`
+with f32 arena buffers and no delivery queue, `propose`,
+`propose_from_norms`, `commit`; capacity gating and the bounded-async
+queues wait).
+
+  * event condition:  fire_i <- |‖p_i‖₂ − last_sent_norm_i| >= thres_i
+                                OR pass_num < warmup_passes
+                                OR iter_diff_i >= max_silence (if > 0)
+  * threshold decay BEFORE the check (adaptive: thres *= horizon;
+    constant mode: thres = constant)
+  * on fire (adaptive): the slope history shifts in value_diff/iter_diff
+    and thres becomes the history mean; last_sent_norm/iter update
+  * num_events += n_neighbors per fired parameter
+
+The state is a set of `[..., L]` vectors over the leaf axis (leaf order of
+`parallel/arena.py`); every op is elementwise over leading dimensions, so
+the same functions serve one rank (`[L]`) and the rank-stacked `[R, L]`
+state, with the same float32 arithmetic in the same order as the JAX
+package — bitwise on equal norms.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from eventgrad_tpu_torch.parallel import arena as arena_lib
+from eventgrad_tpu_torch.parallel.topology import Topology
+
+
+@dataclasses.dataclass(frozen=True)
+class EventConfig:
+    """Static event-trigger configuration (see the JAX EventConfig).
+
+    adaptive=True  -> thres decays by `horizon` each pass and resets to the
+                      mean send slope on fire.
+    adaptive=False -> thres is the fixed `constant` every pass.
+    max_silence > 0 fires a parameter that has been silent that many
+    passes regardless of its norm drift (0 disables).
+    """
+
+    adaptive: bool = True
+    horizon: float = 0.95
+    constant: float = 0.0
+    warmup_passes: int = 30
+    history: int = 2
+    max_silence: int = 0
+
+
+def _f32(x: float) -> float:
+    """A Python scalar rounded to float32 — the value a weakly typed
+    scalar takes in JAX's float32 arithmetic."""
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass
+class EventState:
+    """Sender-side per-parameter state + per-neighbor receive buffers.
+
+    thres / last_sent_norm / last_sent_iter: f32 `[..., L]`.
+    slopes: f32 `[..., L, history]`.
+    bufs:   one f32 `[R, n]` arena per topology neighbor (the RMA window
+            halves), zero-initialized like the reference.
+    num_events / num_deferred: int32 `[...]` cumulative counters.
+    """
+
+    thres: torch.Tensor
+    last_sent_norm: torch.Tensor
+    last_sent_iter: torch.Tensor
+    slopes: torch.Tensor
+    bufs: Tuple[torch.Tensor, ...]
+    num_events: torch.Tensor
+    num_deferred: torch.Tensor
+
+    def replace(self, **kw) -> "EventState":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def init(
+        cls, spec: "arena_lib.ArenaSpec", topo: Topology, cfg: EventConfig,
+        *, device=None,
+    ) -> "EventState":
+        """Rank-stacked zero state over `topo.n_ranks` ranks with flat
+        arena receive buffers."""
+        r, n = topo.n_ranks, spec.n_leaves
+        bufs = arena_lib.alloc_event_bufs(spec, topo.n_neighbors, r,
+                                          device=device)
+        zeros = lambda: torch.zeros((r, n), dtype=torch.float32, device=device)
+        return cls(
+            thres=zeros(),
+            last_sent_norm=zeros(),
+            last_sent_iter=zeros(),
+            slopes=torch.zeros((r, n, cfg.history), dtype=torch.float32,
+                               device=device),
+            bufs=bufs,
+            num_events=torch.zeros((r,), dtype=torch.int32, device=device),
+            num_deferred=torch.zeros((r,), dtype=torch.int32, device=device),
+        )
+
+
+@dataclasses.dataclass
+class EventProposal:
+    """Sender decision for one pass, before any wire-budget gating:
+    everything `commit` needs once the effective fire bits are known."""
+
+    fire_vec: torch.Tensor    # bool [..., L] — the un-gated decision
+    curr_norm: torch.Tensor   # f32 [..., L]
+    new_slopes: torch.Tensor  # f32 [..., L, history]
+    thres: torch.Tensor       # f32 [..., L] post-decay, pre-fire threshold
+    iter_diff: torch.Tensor   # f32 [..., L] passes since last send
+    pass_f: torch.Tensor      # f32 [] — this pass, as float
+    value_diff: torch.Tensor  # f32 [..., L] |‖p‖₂ − last_sent_norm|
+
+
+def leaf_norms(flat: torch.Tensor, spec: "arena_lib.ArenaSpec") -> torch.Tensor:
+    """Per-leaf L2 norms of an `[..., n]` arena, stacked to `[..., L]`.
+    The reduction order is torch's, so a norm may differ from the JAX
+    package's in the last bit (the one legitimate source of trigger
+    disagreement on equal parameters)."""
+    return torch.stack(
+        [torch.linalg.vector_norm(v, dim=-1) for v in spec.leaf_views(flat)],
+        dim=-1,
+    ).to(torch.float32)
+
+
+def propose(
+    flat: torch.Tensor,
+    state: EventState,
+    pass_num: int,
+    cfg: EventConfig,
+    spec: "arena_lib.ArenaSpec",
+) -> EventProposal:
+    """One pass of the sender trigger for every parameter at once, on the
+    parameter arena `flat`. `pass_num` is 1-based and already incremented
+    for this pass."""
+    return propose_from_norms(leaf_norms(flat, spec), state, pass_num, cfg)
+
+
+def propose_from_norms(
+    curr_norm: torch.Tensor,
+    state: EventState,
+    pass_num: int,
+    cfg: EventConfig,
+) -> EventProposal:
+    """`propose` with the `[..., L]` parameter norms precomputed."""
+    pass_f = torch.tensor(float(pass_num), dtype=torch.float32,
+                          device=curr_norm.device)
+    value_diff = torch.abs(curr_norm - state.last_sent_norm)
+    iter_diff = pass_f - state.last_sent_iter
+
+    # threshold decay/assignment happens before the check
+    if cfg.adaptive:
+        thres = state.thres * _f32(cfg.horizon)
+    else:
+        thres = torch.full_like(state.thres, _f32(cfg.constant))
+
+    fire_vec = value_diff >= thres
+    if int(pass_num) < cfg.warmup_passes:
+        fire_vec = torch.ones_like(fire_vec)
+    if cfg.max_silence > 0:  # bounded staleness (beyond-reference)
+        fire_vec = fire_vec | (iter_diff >= float(cfg.max_silence))
+
+    # slope ring buffer: drop oldest, append value_diff/iter_diff
+    new_slopes = torch.cat(
+        [state.slopes[..., 1:], (value_diff / iter_diff)[..., None]], dim=-1
+    )
+    return EventProposal(
+        fire_vec=fire_vec,
+        curr_norm=curr_norm,
+        new_slopes=new_slopes,
+        thres=thres,
+        iter_diff=iter_diff,
+        pass_f=pass_f,
+        value_diff=value_diff,
+    )
+
+
+def commit(
+    state: EventState,
+    prop: EventProposal,
+    fire_vec: torch.Tensor,
+    cfg: EventConfig,
+    n_neighbors: int,
+) -> EventState:
+    """Apply one pass's state update for the leaves that actually fired.
+    `fire_vec` is the effective decision; proposed-but-not-committed
+    leaves count into `num_deferred` and keep their state."""
+    slope_avg = torch.mean(prop.new_slopes, dim=-1)
+    thres_on_fire = slope_avg if cfg.adaptive else prop.thres
+    deferred = torch.sum(prop.fire_vec & ~fire_vec, dim=-1, dtype=torch.int32)
+    fired = torch.sum(fire_vec, dim=-1, dtype=torch.int32)
+    return state.replace(
+        thres=torch.where(fire_vec, thres_on_fire, prop.thres),
+        last_sent_norm=torch.where(fire_vec, prop.curr_norm,
+                                   state.last_sent_norm),
+        last_sent_iter=torch.where(fire_vec, prop.pass_f,
+                                   state.last_sent_iter),
+        slopes=torch.where(fire_vec[..., None], prop.new_slopes, state.slopes),
+        num_events=state.num_events + int(n_neighbors) * fired,
+        num_deferred=state.num_deferred + deferred,
+    )
+

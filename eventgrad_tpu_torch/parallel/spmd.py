@@ -1,0 +1,38 @@
+"""The rank-stacked lift: all ranks of a topology on one device.
+
+Port of the vmap path of `eventgrad_tpu/parallel/spmd.py`. The JAX
+package writes a per-rank function against named axes and lifts it with
+nested `jax.vmap`; here every rank-stacked quantity carries an explicit
+leading `[n_ranks]` dimension (row-major over `topo.shape`), the
+neighbor exchange is a `torch.roll` of that dimension
+(`collectives.recv_from`), and the one per-rank computation that needs a
+transform — the model's forward and backward — is batched with
+`torch.func.vmap` (`per_rank`). The device mesh lift (one rank per
+device, NCCL collectives) waits.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from eventgrad_tpu_torch.parallel.topology import Topology
+
+
+def stack_for_ranks(tree: Any, topo: Topology) -> Any:
+    """Copy a per-rank tensor (or dict / tuple of tensors) to the stacked
+    layout: every tensor gains a leading `n_ranks` dimension holding
+    identical copies (the reference seeds all ranks identically)."""
+    n = topo.n_ranks
+    if isinstance(tree, dict):
+        return {k: stack_for_ranks(v, topo) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(stack_for_ranks(v, topo) for v in tree)
+    return tree.unsqueeze(0).expand((n,) + tuple(tree.shape)).contiguous()
+
+
+def per_rank(fn: Callable) -> Callable:
+    """Lift a per-rank function over the leading rank dimension of every
+    argument and output (`torch.func.vmap` over dim 0)."""
+    return torch.func.vmap(fn)

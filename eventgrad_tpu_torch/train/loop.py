@@ -1,0 +1,172 @@
+"""Training loop, evaluation and consensus helpers.
+
+Port of `eventgrad_tpu/train/loop.py`: `train` (the per-epoch loop —
+one host step per pass, no K-epoch dispatch blocks, no dispatch
+pipeline, chaos, telemetry or checkpointing yet), `evaluate`,
+`consensus_params` and `rank0_slice`. History records carry the JAX
+records' keys for the fields the slice computes.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
+from eventgrad_tpu_torch.parallel.arena import arena_spec
+from eventgrad_tpu_torch.parallel.events import EventConfig
+from eventgrad_tpu_torch.parallel.topology import Topology
+from eventgrad_tpu_torch.train.state import TrainState, init_train_state
+from eventgrad_tpu_torch.train.steps import make_train_step
+from eventgrad_tpu_torch.utils.devices import resolve_device
+from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
+
+
+def consensus_params(stacked: Any) -> Any:
+    """Average the per-rank models (a `[R, n]` arena, or a dict of
+    rank-stacked tensors) into the consensus model."""
+    if isinstance(stacked, dict):
+        return {k: torch.mean(v, dim=0) for k, v in stacked.items()}
+    return torch.mean(stacked, dim=0)
+
+
+def rank0_slice(tree: Any) -> Any:
+    """Rank 0's slice of a rank-stacked tensor or dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: v[0] for k, v in tree.items()}
+    return tree[0]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def evaluate(model, params, batch_stats, x, y, batch_size: int = 1000,
+             device=None) -> Dict[str, float]:
+    """Test pass of one model: `params` is a `[n]` parameter arena (e.g.
+    `consensus_params(state.params)`), `batch_stats` a dict of `[C]`
+    running statistics. Whole batches only, unless the set is smaller
+    than one batch. Returns {"accuracy", "loss"}."""
+    device = resolve_device(device)
+    spec = arena_spec(model)
+    pdict = spec.unravel(params.to(device))
+    stats = {k: v.to(device) for k, v in batch_stats.items()}
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.int64)
+    bs = batch_size if len(x) >= batch_size else len(x)
+    n = (len(x) // bs) * bs
+    correct = torch.zeros((), dtype=torch.int64, device=device)
+    nll = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(0, n, bs):
+        xb = torch.from_numpy(x[i : i + bs]).to(device)
+        yb = torch.from_numpy(y[i : i + bs]).to(device)
+        out = torch.func.functional_call(model, pdict, (xb, stats, False))
+        logp = torch.log_softmax(out.to(torch.float32), dim=-1)
+        nll = nll - torch.gather(logp, -1, yb[:, None]).sum()
+        correct = correct + (out.argmax(-1) == yb).sum()
+    return {
+        "accuracy": 100.0 * int(correct) / n,
+        "loss": float(nll) / n,
+    }
+
+
+def train(
+    model,
+    topo: Topology,
+    x_train: np.ndarray,
+    y_train: np.ndarray,
+    *,
+    algo: str = "dpsgd",
+    epochs: int = 2,
+    batch_size: int = 64,
+    learning_rate: float = 0.05,
+    momentum: float = 0.0,
+    event_cfg: Optional[EventConfig] = None,
+    random_sampler: bool = False,
+    seed: int = 0,
+    x_test: Optional[np.ndarray] = None,
+    y_test: Optional[np.ndarray] = None,
+    log_every_epoch: bool = True,
+    trigger_policy: Optional[str] = None,
+    device=None,
+) -> Tuple[TrainState, List[Dict[str, Any]]]:
+    """Run the training job on `device` (None = CUDA, raising without it);
+    returns (final_state, per-epoch history). `batch_size` is per rank.
+    Each record carries `loss`, `train_acc`, `sent_bytes_per_step_per_chip`,
+    `steps` and `wall_s` (seconds of device work for the epoch's steps),
+    plus `msgs_saved_pct` for eventgrad and `test_accuracy`/`test_loss`
+    when a test set is given and `log_every_epoch`."""
+    device = resolve_device(device)
+    if algo == "eventgrad":
+        event_cfg = event_cfg or EventConfig()
+    x = np.ascontiguousarray(x_train, np.float32)
+    y = np.ascontiguousarray(y_train, np.int64)
+    n_ranks = topo.n_ranks
+    steps = epoch_steps(len(x), n_ranks, batch_size)
+    state = init_train_state(
+        model, x.shape[1:], topo, algo, event_cfg, seed,
+        momentum=momentum, device=device,
+    )
+    step = make_train_step(
+        model, topo, algo, event_cfg,
+        fused_sgd=(learning_rate, momentum), trigger_policy=trigger_policy,
+    )
+    spec = arena_spec(model)
+    eval_on = x_test is not None and log_every_epoch
+    history: List[Dict[str, Any]] = []
+    for epoch in range(1, epochs + 1):
+        idx = epoch_index_plan(
+            len(x), n_ranks, batch_size, random=random_sampler, seed=seed,
+            epoch=epoch,
+        )
+        xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, H, W, C]
+        yb = torch.from_numpy(y[idx]).to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        ms = []
+        for s in range(steps):
+            state, m = step(state, (xb[:, s], yb[:, s]))
+            ms.append(m)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        m_e = {
+            k: torch.stack([m[k] for m in ms]).cpu().numpy() for k in ms[0]
+        }
+        rec = {
+            "epoch": epoch,
+            "algo": algo,
+            "steps": steps,
+            "wall_s": dt,
+            "loss": float(m_e["loss"].mean()),
+            "train_acc": 100.0 * float(m_e["correct"].sum())
+            / (n_ranks * steps * batch_size),
+            "sent_bytes_per_step_per_chip": float(m_e["sent_bytes"][..., 0].mean()),
+            "sent_bytes_wire_real_per_step_per_chip": float(
+                m_e["sent_bytes_wire_real"][..., 0].mean()
+            ),
+            "n_params": spec.n_total,
+            "arena": True,
+            "device": str(device),
+        }
+        if algo == "eventgrad":
+            events_total = int(m_e["num_events"][-1].sum())
+            rec["num_deferred"] = int(m_e["num_deferred"][-1].sum())
+            rec["num_events"] = events_total
+            rec["msgs_saved_pct"] = msgs_saved_pct(
+                events_total, state.pass_num, spec.n_leaves,
+                topo.n_neighbors, n_ranks,
+            )
+            rec["fired_frac"] = float(m_e["fired_frac"].mean())
+        if eval_on:
+            test = evaluate(
+                model, consensus_params(state.params),
+                rank0_slice(state.batch_stats), x_test, y_test, device=device,
+            )
+            rec.update({"test_" + k: v for k, v in test.items()})
+        history.append(rec)
+    return state, history

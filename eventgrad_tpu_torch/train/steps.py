@@ -1,0 +1,204 @@
+"""Rank-stacked train steps for D-PSGD and EventGraD on the flat arena.
+
+Port of `eventgrad_tpu/train/steps.py` (`make_train_step`, `_xent`,
+`_fired_accounting`), covering the arena branches of algo="dpsgd" and
+algo="eventgrad" with the fused tail — the flagship path:
+
+  algo="dpsgd"     — every rank receives both ring neighbors' whole
+                     parameter arenas and runs the fused mix+SGD kernel
+                     (`ops/fused_update.fused_mix_sgd`).
+  algo="eventgrad" — the norm-delta trigger decides per leaf which
+                     parameters fire; the masked-wire kernel
+                     (`ops/event_engine.masked_wire`) zeroes the rest;
+                     the fused commit+mix+SGD kernel
+                     (`ops/arena_update.fused_mix_commit`) commits the
+                     received buffers and updates in one pass.
+
+The gradient is taken at the pre-mix parameters, the reference's exact
+D-PSGD ordering. The R ranks' forward and backward run batched:
+`torch.func.functional_call` + `torch.func.vmap` +
+`torch.func.grad_and_value`, with the BatchNorm statistics threaded as
+explicit tensors. The JAX package's unfused optax tail is documented
+bitwise equal to the fused one, so the port runs the fused tail only.
+The other algorithms, wires, schedules and engines are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from eventgrad_tpu_torch.ops import event_engine
+from eventgrad_tpu_torch.ops.arena_update import fused_mix_commit
+from eventgrad_tpu_torch.ops.fused_update import fused_mix_sgd
+from eventgrad_tpu_torch.parallel import collectives
+from eventgrad_tpu_torch.parallel import policy as policy_lib
+from eventgrad_tpu_torch.parallel.arena import arena_spec
+from eventgrad_tpu_torch.parallel.events import EventConfig
+from eventgrad_tpu_torch.parallel.spmd import per_rank
+from eventgrad_tpu_torch.parallel.topology import Topology
+
+ALGOS = ("dpsgd", "eventgrad")
+
+
+def _phase(name: str):
+    """A profiler span `step/<name>` over one phase of the step, named as
+    the JAX step's phases (grad, gate_pack, exchange, commit_mix); next
+    to free when no profiler runs."""
+    return torch.profiler.record_function("step/" + name)
+
+
+def _fired_accounting(
+    fire_vec: torch.Tensor, sizes_t: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fired payload elements, fired leaf count) per rank as f32, summed
+    in int32 (exact to 2^31 elements)."""
+    zero = torch.zeros((), dtype=torch.int32, device=fire_vec.device)
+    fired_elems = torch.sum(
+        torch.where(fire_vec, sizes_t, zero), dim=-1, dtype=torch.int32
+    ).to(torch.float32)
+    fired_leaves = torch.sum(fire_vec, dim=-1, dtype=torch.int32).to(
+        torch.float32
+    )
+    return fired_elems, fired_leaves
+
+
+def _xent(output: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy over the trailing class axis."""
+    logp = torch.log_softmax(output, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    return -torch.mean(ll)
+
+
+def make_train_step(
+    model,
+    topo: Topology,
+    algo: str = "dpsgd",
+    event_cfg: Optional[EventConfig] = None,
+    *,
+    fused_sgd: Tuple[float, float],
+    trace: bool = False,
+    trigger_policy: Optional[str] = None,
+) -> Callable:
+    """Build the rank-stacked step `step(state, (x, y)) -> (state,
+    metrics)`: `x` is `[R, B, H, W, C]`, `y` int64 `[R, B]`, and every
+    metric is a `[R]` tensor. `fused_sgd=(lr, momentum)` is the plain
+    SGD the state was initialized for (momentum 0 carries no trace).
+    `trace=True` (eventgrad) adds the per-leaf send-side vectors
+    `trace_norm`, `trace_thres`, `trace_fired` ([R, L]) to the metrics."""
+    if algo not in ALGOS:
+        raise NotImplementedError(
+            f"algo {algo!r} is not ported yet; ported: {ALGOS}"
+        )
+    lr, mom = float(fused_sgd[0]), float(fused_sgd[1])
+    event_cfg = event_cfg or EventConfig()
+    pol = policy_lib.resolve(trigger_policy, algo) if algo == "eventgrad" else None
+    spec = arena_spec(model)
+    n_nb = topo.n_neighbors
+    n_params, n_leaves = spec.n_total, spec.n_leaves
+    f32 = lambda v, dev: torch.tensor(v, dtype=torch.float32, device=dev)
+
+    def loss_fn(params, stats, x, y):
+        out, new_stats = torch.func.functional_call(model, params, (x, stats, True))
+        return _xent(out, y), (out, new_stats)
+
+    grad_fn = per_rank(torch.func.grad_and_value(loss_fn, has_aux=True))
+
+    def step(state, batch):
+        x, y = batch
+        pass_num = state.pass_num + 1
+        flat = state.params
+        dev = flat.device
+        r = flat.shape[0]
+        seg, sizes_t = spec.seg_expand(dev), spec.sizes_tensor(dev)
+
+        with _phase("grad"):
+            grads, (loss, (out, new_stats)) = grad_fn(
+                spec.unravel(flat), state.batch_stats, x, y
+            )
+            g_flat = spec.ravel(grads)
+        t_flat = state.trace if mom else torch.zeros_like(flat)
+
+        event_state = state.event
+        metrics = {}
+        if algo == "dpsgd":
+            with _phase("exchange"):
+                bufs = collectives.neighbor_vals_flat(flat, topo, spec)
+            with _phase("commit_mix"):
+                buf_sum = torch.zeros_like(flat)
+                for b in bufs:
+                    buf_sum = buf_sum + b
+                p_flat, new_t = fused_mix_sgd(
+                    flat, buf_sum, g_flat, t_flat, lr, mom, topo.mix_weight
+                )
+            total_bytes = collectives.WIRE_VAL_BYTES[None] * n_params
+            sent_bytes = f32(n_nb, dev) * f32(total_bytes, dev)
+            wire_real = f32(n_nb, dev) * f32(
+                collectives.wire_real_bytes_per_neighbor(n_params, n_leaves),
+                dev,
+            )
+            fired_elems = f32(n_params, dev)
+            fired_frac = f32(1.0, dev)
+            num_events = num_deferred = torch.zeros((), dtype=torch.int32,
+                                                    device=dev)
+        else:
+            with _phase("gate_pack"):
+                prop, fire_vec = event_engine.event_propose_pack(
+                    flat, event_state, pass_num, event_cfg, spec
+                )
+                event_state = pol.commit(event_state, prop, fire_vec,
+                                         event_cfg, n_nb)
+            with _phase("exchange"):
+                cands, effs, _ = collectives.masked_neighbor_vals_flat(
+                    flat, fire_vec, topo, spec,
+                    wire_builder=event_engine.masked_wire,
+                )
+            wire_real = f32(n_nb, dev) * f32(
+                collectives.wire_real_bytes_per_neighbor(
+                    n_params, n_leaves, fire_bits=True
+                ),
+                dev,
+            )
+            with _phase("commit_mix"):
+                keeps = tuple(e.to(torch.float32)[:, seg] for e in effs)
+                p_flat, new_t, new_bufs = fused_mix_commit(
+                    flat, cands, keeps, event_state.bufs, g_flat, t_flat, lr,
+                    mom, topo.mix_weight, mix_stale=False,
+                )
+            event_state = event_state.replace(bufs=new_bufs)
+            fired_elems, fired_leaves = _fired_accounting(fire_vec, sizes_t)
+            sent_bytes = f32(n_nb, dev) * (
+                collectives.WIRE_VAL_BYTES[None] * fired_elems
+            )
+            fired_frac = fired_leaves / n_leaves
+            num_events, num_deferred = (event_state.num_events,
+                                        event_state.num_deferred)
+            if trace:
+                metrics["trace_norm"] = prop.curr_norm
+                metrics["trace_thres"] = event_state.thres
+                metrics["trace_fired"] = fire_vec.to(torch.float32)
+
+        new_state = state.replace(
+            params=p_flat,
+            trace=new_t if mom else None,
+            batch_stats=new_stats,
+            pass_num=pass_num,
+            event=event_state,
+        )
+        bcast = lambda v: torch.broadcast_to(v, (r,))
+        metrics.update(
+            loss=loss,
+            correct=torch.sum(torch.argmax(out, dim=-1) == y, dim=-1,
+                              dtype=torch.int32),
+            fired_frac=bcast(fired_frac),
+            sent_bytes=bcast(sent_bytes),
+            fired_elems=bcast(fired_elems),
+            sent_bytes_wire_real=bcast(wire_real),
+            num_events=bcast(num_events),
+            num_deferred=bcast(num_deferred),
+        )
+        return new_state, metrics
+
+    return step
+

@@ -1,0 +1,126 @@
+"""Where a flagship train step's time goes on the card.
+
+    python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
+
+For each leg (EventGraD, then D-PSGD) at the flagship op-point —
+ResNet-18 with bf16 compute, Ring(8) stacked on one card, global batch
+256, SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon 1.05 and
+max_silence 50 (warmup 2) — it runs 3 warm-up steps, then:
+
+  * `step_ms`: the mean of `--steps` steps, host clock around work that
+    ends in a synchronize;
+  * a `torch.profiler` trace (CPU + CUDA) of `--steps` more steps: device
+    and host time of each step phase (the spans `step/grad`,
+    `step/gate_pack`, `step/exchange`, `step/commit_mix` of
+    `train/steps.py`), the device busy share
+    (kernel time over the traced wall time) and the kernels that take the
+    most device time.
+
+It prints one JSON line per leg and, last, the card's name and power
+limit. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+from eventgrad_tpu_torch.data.sharding import batched_epoch
+from eventgrad_tpu_torch.models.resnet import ResNet18
+from eventgrad_tpu_torch.parallel.events import EventConfig
+from eventgrad_tpu_torch.parallel.topology import Ring
+from eventgrad_tpu_torch.train.state import init_train_state
+from eventgrad_tpu_torch.train.steps import make_train_step
+from eventgrad_tpu_torch.utils.devices import resolve_device
+
+PHASES = ("grad", "gate_pack", "exchange", "commit_mix")
+RANKS, PER_RANK, WARMUP = 8, 32, 3
+
+
+def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12):
+    model = ResNet18(dtype=torch.bfloat16)
+    topo = Ring(RANKS)
+    cfg = EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                      max_silence=50)
+    state = init_train_state(model, (32, 32, 3), topo, algo, cfg, seed=0,
+                             momentum=0.9, device=device)
+    step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9))
+    n_steps = WARMUP + 2 * steps
+    x, y = synthetic_dataset(RANKS * PER_RANK * n_steps, (32, 32, 3))
+    xb, yb = batched_epoch(x, y.astype("int64"), RANKS, PER_RANK)
+    xb, yb = torch.from_numpy(xb).to(device), torch.from_numpy(yb).to(device)
+    batches = iter((xb[:, s], yb[:, s]) for s in range(n_steps))
+
+    for _ in range(WARMUP):
+        state, _ = step(state, next(batches))
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, next(batches))
+    torch.cuda.synchronize(device)
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, next(batches))
+        torch.cuda.synchronize(device)
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    gpu, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    is_kernel = lambda e: e.device_type == gpu and not e.is_user_annotation
+    busy_us = sum(e.device_time_total for e in prof.events() if is_kernel(e))
+    phases, phases_host = {}, {}
+    for e in prof.events():
+        name = e.name.removeprefix("step/")
+        if e.device_type == cpu and e.name.startswith("step/") and name in PHASES:
+            # device time of every kernel launched inside the span
+            phases[name] = phases.get(name, 0.0) + e.device_time_total / 1e3 / steps
+            phases_host[name] = (phases_host.get(name, 0.0)
+                                 + e.cpu_time_total / 1e3 / steps)
+    kernels = [e for e in prof.key_averages() if is_kernel(e)]
+    top_k = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {
+        "leg": algo,
+        "step_ms": step_ms,
+        "traced_step_ms": traced_ms / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_busy_share": busy_us / 1e3 / traced_ms,
+        "phase_device_ms_per_step": phases,
+        "phase_host_ms_per_step": phases_host,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "top_kernels": [
+            {"name": e.key[:90], "ms_per_step":
+             e.self_device_time_total / 1e3 / steps,
+             "calls_per_step": e.count / steps}
+            for e in top_k
+        ],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args(argv)
+    device = resolve_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for algo in ("eventgrad", "dpsgd"):
+        print(json.dumps(profile_leg(algo, args.steps, device)), flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,91 @@
+"""Port hygiene: the PyTorch package stands alone and runs on the card
+unless told otherwise.
+
+The import check is a scan of the source (AST), not of `sys.modules`:
+JAX may already be imported in the test process before the port is.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import eventgrad_tpu_torch as egt
+from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+from eventgrad_tpu_torch.models.resnet import ResNet
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eventgrad_tpu")
+
+
+def _port_sources():
+    files = sorted((ROOT / "eventgrad_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(mod, line) for mod, line in _imported_roots(tree)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """`device=None` means the card and raises without CUDA — never a
+    silent run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = ResNet(stage_sizes=(1, 1, 1, 1), num_filters=8)
+    x, y = synthetic_dataset(64, (32, 32, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        egt.train(model, egt.Ring(8), x, y, algo="eventgrad", epochs=1,
+                  batch_size=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        egt.init_train_state(model, (32, 32, 3), egt.Ring(8), "dpsgd")
+    params, stats = model.init_variables(0)
+    flat = torch.cat([v.reshape(-1) for v in params.values()])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        egt.evaluate(model, flat, stats, x, y)
+
+
+def test_train_on_cpu_records():
+    """A short CPU run of both algorithms through the public entry point:
+    finite losses, the JAX records' keys, and msgs_saved_pct within its
+    range."""
+    model = ResNet(stage_sizes=(1, 1, 1, 1), num_filters=8)
+    x, y = synthetic_dataset(64, (32, 32, 3))
+    xt, yt = synthetic_dataset(32, (32, 32, 3), split="test")
+    for algo in ("eventgrad", "dpsgd"):
+        state, hist = egt.train(
+            model, egt.Ring(8), x, y, algo=algo, epochs=2, batch_size=4,
+            learning_rate=0.01, momentum=0.9,
+            event_cfg=egt.EventConfig(horizon=1.05, warmup_passes=1,
+                                      max_silence=50),
+            x_test=xt, y_test=yt, device="cpu",
+        )
+        assert len(hist) == 2 and state.pass_num == 4
+        for rec in hist:
+            for key in ("loss", "train_acc", "steps", "wall_s",
+                        "sent_bytes_per_step_per_chip", "test_accuracy"):
+                assert key in rec, key
+            assert np.isfinite(rec["loss"])
+        if algo == "eventgrad":
+            assert 0.0 <= hist[-1]["msgs_saved_pct"] < 100.0
+        assert torch.isfinite(state.params).all()
