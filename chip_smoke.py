@@ -11,21 +11,32 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build — the hand-written kernels (`eventgrad_tpu_torch/csrc/*.cu`)
    compile with nvcc for sm_90a, one process per source, all at once;
 3. kernels — each kernel at the flagship shapes (Ring(8) x ResNet-18:
-   8 x 17,444,682 f32 elements, two neighbors), held bitwise against its
-   plain PyTorch version on the same inputs, then timed with CUDA events
-   (median of 20 after 3 warm-ups) beside its plain version, a one-call
-   PyTorch yardstick where one exists, and its bound on the card;
-4. reference — a small ResNet's EventGraD and D-PSGD steps on the card
-   against the same steps on the CPU (plain versions), float64 compute
-   and float32 state: parameters within rtol=1e-4, atol=1e-5 and equal
-   fire bits, except where a leaf sat on its threshold;
+   8 x 17,444,682 elements, two neighbors), held bitwise against its
+   plain PyTorch version on the same inputs (bit patterns compared at
+   each dtype's width), then timed with CUDA events (median of 20 after
+   3 warm-ups) beside its plain version, a one-call PyTorch yardstick
+   where one exists, and its bound on the card. The carrier commit runs
+   on int8 carriers (with scales) and on bf16 carriers, and on int8 it
+   must equal the f32 commit kernel fed the dequantized buffers, bitwise
+   (p', t' and the dequantized committed buffers);
+4. reference — a small ResNet's EventGraD, D-PSGD and int8
+   carrier-resident EventGraD steps on the card against the same steps
+   on the CPU (plain versions), float64 compute and float32 state:
+   parameters within rtol=1e-4, atol=1e-5 and equal fire bits, except
+   where a leaf sat on its threshold; int8 carriers within one quantum;
 5. main path — the flagship trainer through `eventgrad_tpu_torch.train`:
    full-width ResNet-18 (bf16 compute, 3 blocks per stage), Ring(8),
    global batch 256, SGD lr 0.01 momentum 0.9, the adaptive trigger at
-   horizon 1.05 and max_silence 50 with warmup 2, EventGraD then D-PSGD.
-   The kernels' launch counters are zeroed just before each leg and read
-   just after; a leg whose kernels did not launch, or a loss that is not
-   finite, fails the run;
+   horizon 1.05 and max_silence 50 with warmup 2, five legs of 3 steps x
+   2 epochs: EventGraD and D-PSGD on the f32 wire, EventGraD on the int8
+   wire with carrier-resident buffers, its D-PSGD int8 twin, and
+   EventGraD on the bf16 wire with carrier-resident buffers. The
+   kernels' launch counters are zeroed just before each leg and read
+   just after; a leg whose kernels did not launch, whose receive
+   buffers are not in the carrier dtype, whose int8 byte counts are not
+   exact (D-PSGD 34,890,052 sent bytes per step per chip, EventGraD
+   34,890,224 wire-real bytes), or whose loss is not finite fails the
+   run;
 6. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
@@ -106,16 +117,22 @@ def bound(n_elems: int, bytes_per_elem: int, ops_per_elem: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_abs_err(got, want) -> float:
+def max_abs_err(got, want, what="its plain version") -> float:
     """Largest |kernel - plain| over matching outputs; raises unless every
-    output is bitwise its plain version."""
+    output is bitwise `want`: bit patterns compared through a view of
+    each dtype's width (int32 for f32, int16 for bf16, int8 as is)."""
     import torch
 
+    width = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.int8: torch.int8}
     err = 0.0
     for g, w in zip(got, want):
-        err = max(err, float((g - w).abs().max()))
-        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-            raise SmokeError(f"kernel output not bitwise its plain version "
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise SmokeError(f"kernel output {g.dtype}{tuple(g.shape)} vs "
+                             f"{w.dtype}{tuple(w.shape)} of {what}")
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        if not torch.equal(g.view(width[g.dtype]), w.view(width[w.dtype])):
+            raise SmokeError(f"kernel output not bitwise {what} "
                              f"(max_abs_err {err})")
     return err
 
@@ -163,6 +180,7 @@ def phase_kernels():
 
     from eventgrad_tpu_torch.models.resnet import ResNet18
     from eventgrad_tpu_torch.ops import arena_update, event_engine, fused_update
+    from eventgrad_tpu_torch.parallel import collectives
     from eventgrad_tpu_torch.parallel.arena import arena_spec
 
     log("== kernels")
@@ -177,12 +195,27 @@ def phase_kernels():
                                 device=dev)
     seg = spec.seg_expand(dev)
 
-    def keep_bits():
-        # per-leaf fire bits, about half the leaves, expanded to positions
-        # the way the train step hands them to the kernels
-        fire = torch.rand((RANKS, spec.n_leaves), generator=gen,
+    def leaf_bits():
+        # per-leaf fire bits, about half the leaves
+        return torch.rand((RANKS, spec.n_leaves), generator=gen,
                           device=dev) < 0.5
-        return fire.to(torch.float32)[:, seg]
+
+    def expand(bits):
+        # to positions, the way the train step hands them to the kernels
+        return bits.to(torch.float32)[:, seg]
+
+    def keep_bits():
+        return expand(leaf_bits())
+
+    def leaf_scales():
+        # per-leaf int8 scales as the wire makes them (absmax / 127,
+        # truncated to 17 significand bits)
+        return collectives._contract_safe(torch.rand(
+            (RANKS, spec.n_leaves), generator=gen, device=dev) * 0.05 + 1e-3)
+
+    def int8_carrier():
+        return torch.randint(-127, 128, (RANKS, spec.n_total), generator=gen,
+                             device=dev, dtype=torch.int8)
 
     lr, mom, w = 0.01, 0.9, 1.0 / 3.0
     recs = {}
@@ -201,7 +234,26 @@ def phase_kernels():
         library_ms=time_ms(lambda: torch.where(fire > 0, flat, zero)),
         bound=bound(n, 12, 2),
     )
-    del flat, fire
+
+    # int8 masked wire: clip(rint(where(fire > 0, flat, 0) / scale), ±127)
+    # against the scales the wire derives from this arena
+    fire_leaf = leaf_bits()
+    fire = expand(fire_leaf)
+    scale = collectives._masked_scales(
+        collectives._leaf_absmax(flat, spec), fire_leaf)[:, seg]
+    args = (flat, fire, scale)
+    err = max_abs_err([event_engine.masked_wire_int8(*args)],
+                      [event_engine.masked_wire_reference(*args)])
+    recs["masked_wire_int8"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: event_engine.masked_wire_int8(*args)),
+        plain_ms=time_ms(lambda: event_engine.masked_wire_reference(*args)),
+        library_ms=None,
+        # reads flat, fire and scale, writes out (f32 each); a compare, a
+        # select, a division, a rounding and two clip compares
+        bound=bound(n, 16, 6),
+    )
+    del flat, fire, scale, args
 
     # fused commit + mix + SGD, two neighbors
     p, g, t = randn(), randn(), randn()
@@ -224,6 +276,71 @@ def phase_kernels():
         bound=bound(n, 4 * (3 + 3 * NB + 2 + NB), 3 * NB + 5),
     )
     del args, cands, lasts, keeps
+
+    # carrier-resident commit on int8 carriers: per-leaf keeps and
+    # scales, the committed scales expanded for the mix, as the step
+    # hands them over
+    effs = (leaf_bits(), leaf_bits())
+    keeps = tuple(expand(e) for e in effs)
+    cq, lq = (int8_carrier(), int8_carrier()), (int8_carrier(), int8_carrier())
+    cs, ls = (leaf_scales(), leaf_scales()), (leaf_scales(), leaf_scales())
+    new_s = collectives.commit_carrier_scales(cs, effs, ls)
+    kw = dict(mix_scales=tuple(sc[:, seg] for sc in new_s))
+    args = (p, cq, keeps, lq, g, t, lr, mom, w)
+    fmc = arena_update.fused_mix_commit_carrier
+    k_out = fmc(*args, **kw)
+    p_out = arena_update.mix_commit_carrier_reference(*args, **kw)
+    err = max_abs_err([k_out[0], k_out[1], *k_out[2]],
+                      [p_out[0], p_out[1], *p_out[2]])
+    del p_out
+    # the carrier contract: the f32 commit kernel on the dequantized
+    # buffers gives the same p', t' and (dequantized) committed buffers
+    deq = lambda bufs, scales: collectives.dequant_carrier_bufs(
+        bufs, scales, spec)
+    f_out = arena_update.fused_mix_commit(
+        p, deq(cq, cs), keeps, deq(lq, ls), g, t, lr, mom, w)
+    max_abs_err([k_out[0], k_out[1], *deq(k_out[2], new_s)],
+                [f_out[0], f_out[1], *f_out[2]],
+                "the f32 commit kernel on the dequantized buffers")
+    log("carrier contract: int8 carrier commit == f32 commit on the "
+        "dequantized buffers, bitwise")
+    del k_out, f_out
+    recs["fused_mix_commit_carrier"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fmc(*args, **kw)),
+        plain_ms=time_ms(
+            lambda: arena_update.mix_commit_carrier_reference(*args, **kw)),
+        library_ms=None,
+        # reads p, g, t (f32), per neighbor cand and last (int8), keep
+        # and scale (f32); writes p', t' (f32) and the committed buffers
+        # (int8). Per element per neighbor a compare, a select, a
+        # conversion, a multiply and an add, then 5 ops of mix and SGD
+        bound=bound(n, 4 * 3 + NB * (1 + 4 + 1 + 4) + 4 * 2 + NB,
+                    5 * NB + 5),
+    )
+    del args, kw, cq, lq, cs, ls, new_s
+
+    # the same kernel on bf16 carriers (no scales)
+    cb = tuple(randn().to(torch.bfloat16) for _ in range(NB))
+    lb = tuple(randn().to(torch.bfloat16) for _ in range(NB))
+    args = (p, cb, keeps, lb, g, t, lr, mom, w)
+    k_out = fmc(*args)
+    p_out = arena_update.mix_commit_carrier_reference(*args)
+    err = max_abs_err([k_out[0], k_out[1], *k_out[2]],
+                      [p_out[0], p_out[1], *p_out[2]])
+    del k_out, p_out
+    recs["fused_mix_commit_carrier"]["max_abs_err"] = max(
+        recs["fused_mix_commit_carrier"]["max_abs_err"], err)
+    recs["fused_mix_commit_carrier_bf16"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fmc(*args)),
+        plain_ms=time_ms(
+            lambda: arena_update.mix_commit_carrier_reference(*args)),
+        library_ms=None,
+        bound=bound(n, 4 * 3 + NB * (2 + 4 + 2) + 4 * 2 + 2 * NB,
+                    4 * NB + 5),
+    )
+    del args, cb, lb, keeps
 
     # fused mix + SGD (the D-PSGD tail)
     b = randn()
@@ -268,11 +385,16 @@ def phase_reference():
     x, y = synthetic_dataset(RANKS * per_rank * passes, (32, 32, 3), seed=4)
     x = x.reshape((passes, RANKS, per_rank, 32, 32, 3))
     y = y.reshape((passes, RANKS, per_rank)).astype(np.int64)
-    for algo in ("eventgrad", "dpsgd"):
+    cases = (("eventgrad", "eventgrad", {}), ("dpsgd", "dpsgd", {}),
+             ("eventgrad-int8-carrier", "eventgrad",
+              dict(wire="int8", carrier_resident=True)))
+    for name, algo, kw in cases:
         step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9),
-                               trace=True)
+                               trace=True, **kw)
+        resident = kw.get("wire") if kw.get("carrier_resident") else None
         st = {d: init_train_state(model, (32, 32, 3), topo, algo, cfg, 0,
-                                  momentum=0.9, device=d)
+                                  momentum=0.9, resident_wire=resident,
+                                  device=d)
               for d in (DEVICE, "cpu")}
         flips = 0
         for i in range(passes):
@@ -283,7 +405,7 @@ def phase_reference():
                 st[d], m = step(prev, tuple(v.to(d) for v in batch))
                 out[d] = (prev, {k: v.cpu().numpy() for k, v in m.items()})
             if not np.all(np.isfinite(out[DEVICE][1]["loss"])):
-                raise SmokeError(f"reference {algo}: loss not finite")
+                raise SmokeError(f"reference {name}: loss not finite")
             if algo == "eventgrad":
                 fg, fc = (out[d][1]["trace_fired"] > 0 for d in (DEVICE, "cpu"))
                 diff = fg != fc
@@ -293,23 +415,58 @@ def phase_reference():
                                 - prev.last_sent_norm.numpy())
                     th = prev.thres.numpy() * np.float32(cfg.horizon)
                     if not np.all(np.abs(vd - th)[diff] < 1e-5 * th[diff]):
-                        raise SmokeError(f"reference eventgrad pass {i + 1}: "
+                        raise SmokeError(f"reference {name} pass {i + 1}: "
                                          f"fire bits differ off the threshold")
                     flips += int(diff.sum())
             if flips == 0:
                 np.testing.assert_allclose(
                     st[DEVICE].params.cpu().numpy(), st["cpu"].params.numpy(),
                     rtol=1e-4, atol=1e-5,
-                    err_msg=f"reference {algo} pass {i + 1}: params",
+                    err_msg=f"reference {name} pass {i + 1}: params",
                 )
+                if resident:
+                    # parameters agree to rounding, so a carrier lane may
+                    # sit one quantum over at a rounding boundary
+                    for bg, bc in zip(st[DEVICE].event.bufs,
+                                      st["cpu"].event.bufs):
+                        if bg.dtype != torch.int8:
+                            raise SmokeError(f"reference {name}: buffers "
+                                             f"are {bg.dtype}")
+                        dq = (bg.cpu().float() - bc.float()).abs().max()
+                        if float(dq) > 1:
+                            raise SmokeError(f"reference {name} pass "
+                                             f"{i + 1}: carriers differ by "
+                                             f"{float(dq)} quanta")
         d = float((st[DEVICE].params.cpu() - st["cpu"].params).abs().max())
-        log(f"reference {algo}: {passes} passes, max |card - cpu| params "
+        log(f"reference {name}: {passes} passes, max |card - cpu| params "
             f"{d:.3e}, fire-bit flips at the threshold: {flips}")
 
 
+#: the main path's legs: (name, algo, train() wire options, kernels that
+#: must launch, receive-buffer dtype of an EventGraD leg)
+LEGS = (
+    ("eventgrad", "eventgrad", {}, ("masked_wire", "fused_mix_commit"),
+     "float32"),
+    ("dpsgd", "dpsgd", {}, ("fused_mix_sgd",), None),
+    ("eventgrad-int8-carrier", "eventgrad",
+     dict(wire="int8", carrier_resident=True),
+     ("masked_wire_int8", "fused_mix_commit_carrier"), "int8"),
+    ("dpsgd-int8", "dpsgd", dict(wire="int8"), ("fused_mix_sgd",), None),
+    ("eventgrad-bf16-carrier", "eventgrad",
+     dict(wire="bf16", carrier_resident=True),
+     ("masked_wire", "fused_mix_commit_carrier"), "bfloat16"),
+)
+
+#: exact int8 byte counts per step per chip at the flagship: two
+#: neighbors x (17,444,682 one-byte lanes + 86 f32 scales), plus on the
+#: event wire the 86 one-byte fire bits
+DPSGD_INT8_SENT = 2 * (FLAGSHIP_PARAMS + 4 * 86)
+EVENTGRAD_INT8_WIRE_REAL = 2 * (FLAGSHIP_PARAMS + 86 + 4 * 86)
+
+
 def phase_main_path():
-    """The flagship pair through the public entry point. Returns the
-    launches of each kernel summed over both legs."""
+    """The flagship legs through the public entry point. Returns the
+    launches of each kernel summed over the legs."""
     import torch
 
     import eventgrad_tpu_torch as egt
@@ -322,10 +479,8 @@ def phase_main_path():
     xt, yt = synthetic_dataset(512, (32, 32, 3), seed=0, split="test")
     cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                           max_silence=50)
-    must_launch = {"eventgrad": ("masked_wire", "fused_mix_commit"),
-                   "dpsgd": ("fused_mix_sgd",)}
-    totals = {}
-    for algo in ("eventgrad", "dpsgd"):
+    totals, test_acc = {}, {}
+    for leg, algo, wire_kw, must_launch, buf_dtype in LEGS:
         model = egt.ResNet18(dtype=torch.bfloat16)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -334,26 +489,27 @@ def phase_main_path():
             model, egt.Ring(RANKS), x, y, algo=algo, epochs=epochs,
             batch_size=per_rank, learning_rate=0.01, momentum=0.9,
             event_cfg=cfg, random_sampler=True, seed=0, x_test=xt,
-            y_test=yt, device=DEVICE,
+            y_test=yt, device=DEVICE, **wire_kw,
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
-        missing = [k for k in must_launch[algo] if counts[k] == 0]
+        missing = [k for k in must_launch if counts[k] == 0]
         if missing:
-            raise SmokeError(f"{algo}: kernels never launched: {missing}")
+            raise SmokeError(f"{leg}: kernels never launched: {missing}")
         losses = [r["loss"] for r in hist]
         if not all(math.isfinite(v) for v in losses):
-            raise SmokeError(f"{algo}: loss not finite: {losses}")
+            raise SmokeError(f"{leg}: loss not finite: {losses}")
         if not bool(torch.isfinite(state.params).all()):
-            raise SmokeError(f"{algo}: parameters not finite")
+            raise SmokeError(f"{leg}: parameters not finite")
         if tuple(state.params.shape) != (RANKS, FLAGSHIP_PARAMS):
-            raise SmokeError(f"{algo}: arena shape {tuple(state.params.shape)}")
+            raise SmokeError(f"{leg}: arena shape {tuple(state.params.shape)}")
         last = hist[-1]
         rec = {
-            "leg": algo, "passes": state.pass_num,
+            "leg": leg, "passes": state.pass_num,
+            "wire": last["wire"], "resident_dtype": last["resident_dtype"],
             "loss": losses, "train_acc": last["train_acc"],
             "test_accuracy": last["test_accuracy"],
             # the last epoch: no first-call set-up inside it
@@ -361,6 +517,8 @@ def phase_main_path():
             "first_epoch_step_ms": 1e3 * hist[0]["wall_s"] / hist[0]["steps"],
             "leg_wall_s": wall,
             "sent_bytes_per_step_per_chip": last["sent_bytes_per_step_per_chip"],
+            "sent_bytes_wire_real_per_step_per_chip":
+                last["sent_bytes_wire_real_per_step_per_chip"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": counts,
         }
@@ -368,9 +526,29 @@ def phase_main_path():
             rec["msgs_saved_pct"] = last["msgs_saved_pct"]
             if not 0.0 <= last["msgs_saved_pct"] < 100.0:
                 raise SmokeError(f"msgs_saved_pct {last['msgs_saved_pct']}")
+            dts = {str(b.dtype).removeprefix("torch.")
+                   for b in state.event.bufs}
+            if dts != {buf_dtype}:
+                raise SmokeError(f"{leg}: receive buffers are {dts}, "
+                                 f"expected {buf_dtype}")
+        if leg == "dpsgd-int8" and any(
+                r[k] != DPSGD_INT8_SENT for r in hist
+                for k in ("sent_bytes_per_step_per_chip",
+                          "sent_bytes_wire_real_per_step_per_chip")):
+            raise SmokeError(f"{leg}: sent bytes {rec} != {DPSGD_INT8_SENT}")
+        if leg == "eventgrad-int8-carrier" and any(
+                r["sent_bytes_wire_real_per_step_per_chip"]
+                != EVENTGRAD_INT8_WIRE_REAL for r in hist):
+            raise SmokeError(f"{leg}: wire-real bytes != "
+                             f"{EVENTGRAD_INT8_WIRE_REAL}")
+        test_acc[leg] = last["test_accuracy"]
         log(json.dumps(rec))
         del state, model
         torch.cuda.empty_cache()
+    log(json.dumps({"test_accuracy_gap_vs_dpsgd": {
+        "f32": test_acc["eventgrad"] - test_acc["dpsgd"],
+        "int8": test_acc["eventgrad-int8-carrier"] - test_acc["dpsgd-int8"],
+    }}))
     return totals
 
 
@@ -381,6 +559,11 @@ KERNELS = (
      "eventgrad_tpu/ops/arena_update.py:58"),
     ("fused_mix_sgd", "eventgrad_tpu_torch/csrc/mix_sgd.cu",
      "eventgrad_tpu/ops/fused_update.py:50"),
+    ("masked_wire_int8", "eventgrad_tpu_torch/csrc/mask_quant.cu",
+     "eventgrad_tpu/ops/event_engine.py:124"),
+    ("fused_mix_commit_carrier",
+     "eventgrad_tpu_torch/csrc/mix_commit_carrier.cu",
+     "eventgrad_tpu/ops/arena_update.py:205"),
 )
 
 

@@ -9,9 +9,10 @@ numpy only — never JAX, flax, optax or the JAX package.
 The ranks of the simulated ring are a leading `[R, ...]` dimension on
 one device (the rank-stacked lift, `parallel/spmd.py`). The flat
 parameter arena (`parallel/arena.py`) holds each rank-stacked quantity
-as one `[R, n]` f32 tensor, and the gossip tail runs through three CUDA
-kernels written for Hopper (`csrc/*.cu`, bound in `ops/`), each beside
-its plain PyTorch version. A CPU tensor takes the plain version; a CUDA
+as one `[R, n]` tensor (f32, or the bf16/int8 wire carrier for
+carrier-resident receive buffers), and the gossip tail runs through five
+CUDA kernels written for Hopper (`csrc/*.cu`, bound in `ops/`), each
+beside its plain PyTorch version. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
 
 Entry points (`train`, `evaluate`, `init_train_state`) take `device=`:

@@ -10,14 +10,20 @@ from typing import Dict
 
 
 def _wrappers():
-    from eventgrad_tpu_torch.ops.arena_update import fused_mix_commit
-    from eventgrad_tpu_torch.ops.event_engine import masked_wire
+    from eventgrad_tpu_torch.ops.arena_update import (
+        fused_mix_commit, fused_mix_commit_carrier,
+    )
+    from eventgrad_tpu_torch.ops.event_engine import (
+        masked_wire, masked_wire_int8,
+    )
     from eventgrad_tpu_torch.ops.fused_update import fused_mix_sgd
 
     return {
         "masked_wire": masked_wire,
+        "masked_wire_int8": masked_wire_int8,
         "fused_mix_commit": fused_mix_commit,
         "fused_mix_sgd": fused_mix_sgd,
+        "fused_mix_commit_carrier": fused_mix_commit_carrier,
     }
 
 

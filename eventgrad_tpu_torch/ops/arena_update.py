@@ -11,16 +11,25 @@ element and per neighbor:
     p_new     = mixed - lr * trace                        # optimizer step
 
 `mix_stale=True` mixes the stale buffers while committing the new ones.
-The carrier-resident variant (`fused_mix_commit_carrier`) is not ported
-yet. The scalars enter as float32 values, as JAX's weakly typed scalars
-do, so the plain version is bitwise the JAX one and the kernel bitwise
-the plain version.
+
+The carrier-resident variant `fused_mix_commit_carrier` — the CUDA
+kernel `csrc/mix_commit_carrier.cu`, replacing the TPU kernel
+`_carrier_commit_kernel` — and its plain version
+`mix_commit_carrier_reference` read the receive buffers in the wire
+carrier (bf16, or int8 with per-position f32 dequant scales): the select
+runs on the carrier, the committed buffers come back in the carrier
+dtype, and the mix reads `f32(val) * mix_scale` (int8) or `f32(val)`
+(bf16).
+
+The scalars enter as float32 values, as JAX's weakly typed scalars do,
+so the plain versions are bitwise the JAX ones and the kernels bitwise
+the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,3 +121,114 @@ def fused_mix_commit(
 
 
 fused_mix_commit.launches = 0
+
+
+#: carrier dtype -> the kernel's carrier code
+_CARRIERS = {torch.int8: 0, torch.bfloat16: 1}
+
+
+def mix_commit_carrier_reference(
+    p: torch.Tensor,
+    cands: Tensors,
+    keeps: Tensors,
+    lasts: Tensors,
+    g: torch.Tensor,
+    t: torch.Tensor,
+    lr: float,
+    momentum: float,
+    mix_weight: float,
+    mix_scales: Optional[Tensors] = None,
+    mix_stale: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
+    """Plain PyTorch version of `fused_mix_commit_carrier`."""
+    bufs = tuple(
+        torch.where(k.to(torch.float32) > 0, c, l)
+        for c, k, l in zip(cands, keeps, lasts)
+    )
+    acc = p
+    for i in range(len(bufs)):
+        val = (lasts[i] if mix_stale else bufs[i]).to(torch.float32)
+        if mix_scales is not None:
+            val = val * mix_scales[i]
+        acc = acc + val
+    mixed = acc * _f32(mix_weight)
+    trace = _f32(momentum) * t + g
+    return mixed - _f32(lr) * trace, trace, bufs
+
+
+def fused_mix_commit_carrier(
+    p: torch.Tensor,
+    cands: Tensors,
+    keeps: Tensors,
+    lasts: Tensors,
+    g: torch.Tensor,
+    t: torch.Tensor,
+    lr: float,
+    momentum: float,
+    mix_weight: float,
+    mix_scales: Optional[Tensors] = None,
+    mix_stale: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
+    """Fused commit+mix+SGD whose buffer reads stay in the carrier.
+    `cands`/`lasts` are per-neighbor carriers of one dtype — int8, with
+    `mix_scales` the per-position f32 dequant scales of the values the
+    mix reads (the committed scales, or the stale buffers' with
+    `mix_stale`), or bf16 with `mix_scales=None`. `keeps` are f32
+    per-position keep bits; `p`, `g`, `t` f32 arenas of the same shape.
+    Returns (p_new, trace_new, committed carrier buffers). On CPU tensors
+    this is `mix_commit_carrier_reference`; on CUDA tensors it launches
+    `csrc/mix_commit_carrier.cu` or raises."""
+    nb = len(cands)
+    if len(keeps) != nb or len(lasts) != nb:
+        raise ValueError(
+            "fused_mix_commit_carrier: cands/keeps/lasts lengths differ"
+        )
+    if not 1 <= nb <= 4:
+        raise ValueError(f"fused_mix_commit_carrier: 1..4 neighbors, got {nb}")
+    cdt = lasts[0].dtype
+    if cdt not in _CARRIERS:
+        raise TypeError(
+            f"fused_mix_commit_carrier: carriers must be int8 or bfloat16, "
+            f"got {cdt}"
+        )
+    if (cdt == torch.int8) != (mix_scales is not None):
+        raise ValueError(
+            "fused_mix_commit_carrier: int8 carriers take mix_scales, "
+            "bf16 carriers none"
+        )
+    if mix_scales is not None and len(mix_scales) != nb:
+        raise ValueError("fused_mix_commit_carrier: mix_scales length differs")
+    named, dtypes = {"p": p, "g": g, "t": t}, {}
+    for i in range(nb):
+        named.update({f"cand{i}": cands[i], f"keep{i}": keeps[i],
+                      f"last{i}": lasts[i]})
+        dtypes.update({f"cand{i}": cdt, f"last{i}": cdt})
+        if mix_scales is not None:
+            named[f"scale{i}"] = mix_scales[i]
+    device, n = build.check_inputs("fused_mix_commit_carrier",
+                                   dtypes=dtypes, **named)
+    if device.type == "cpu":
+        return mix_commit_carrier_reference(
+            p, cands, keeps, lasts, g, t, lr, momentum, mix_weight,
+            mix_scales=mix_scales, mix_stale=mix_stale,
+        )
+    p_out, t_out = torch.empty_like(p), torch.empty_like(p)
+    bufs = tuple(torch.empty_like(lasts[0]) for _ in range(nb))
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "fused_mix_commit_carrier", lib.eg_mix_commit_carrier,
+            p.data_ptr(), g.data_ptr(), t.data_ptr(),
+            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
+            None if mix_scales is None else _ptrs(mix_scales),
+            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
+            _f32(lr), _f32(momentum), _f32(mix_weight), int(bool(mix_stale)),
+            _CARRIERS[cdt],
+            build.aligned(*named.values(), p_out, t_out, *bufs),
+            build.stream_of(device),
+        )
+    fused_mix_commit_carrier.launches += 1
+    return p_out, t_out, bufs
+
+
+fused_mix_commit_carrier.launches = 0

@@ -125,12 +125,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # flat, fire, out, n, vec, stream
     "eg_masked_wire": [_P, _P, _P, _I64, _I, _P],
+    # flat, fire, scale, out, n, vec, stream
+    "eg_mask_quant": [_P, _P, _P, _P, _I64, _I, _P],
     # p, g, t, cands*, keeps*, lasts*, p_out, t_out, bufs_out*, nb, n,
     # lr, mom, w, mix_stale, vec, stream
     "eg_mix_commit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64,
                       _F, _F, _F, _I, _I, _P],
     # p, buf_sum, g, t, p_out, t_out, n, lr, mom, w, vec, stream
     "eg_mix_sgd": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _I, _P],
+    # p, g, t, cands*, keeps*, lasts*, scales*|NULL, p_out, t_out,
+    # bufs_out*, nb, n, lr, mom, w, mix_stale, carrier, vec, stream
+    "eg_mix_commit_carrier": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I64, _F, _F, _F, _I, _I, _I, _P],
 }
 
 
@@ -146,17 +152,20 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(op: str, **tensors):
-    """Validate a kernel's tensor arguments: float32, contiguous, one
-    shape, one device. Returns (device, numel)."""
+def check_inputs(op: str, *, dtypes=None, **tensors):
+    """Validate a kernel's tensor arguments: contiguous, one shape, one
+    device, and each of the dtype `dtypes` names for it (default
+    float32). Returns (device, numel)."""
     import torch
 
+    dtypes = dtypes or {}
     first = None
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{op}: {name} must be a torch.Tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: {name} must be float32, got {t.dtype}")
+        want = dtypes.get(name, torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"{op}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
         if first is None:
@@ -186,9 +195,11 @@ def launch(op: str, fn, *args) -> None:
 
 
 def aligned(*tensors) -> int:
-    """1 when every tensor's storage pointer is 16-byte aligned (the
-    kernels' float4 path), else 0."""
-    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+    """1 when every tensor's storage pointer is aligned for a load of 4
+    of its elements at once (the kernels' 4-wide path: 16 bytes for f32,
+    8 for bf16, 4 for int8), else 0."""
+    return int(all(t.data_ptr() % (4 * t.element_size()) == 0
+                   for t in tensors))
 
 
 def stream_of(device) -> int:

@@ -2,8 +2,11 @@
 
 Port of `eventgrad_tpu/ops/event_engine.py`: `event_propose_pack` (the
 `capacity=None` path of the dense/masked wires; the compact pack waits),
-`masked_wire` — the CUDA kernel `csrc/masked_wire.cu`, replacing the TPU
-kernel `_mask_kernel` — and its plain version `masked_wire_reference`.
+`masked_wire` and its plain version `masked_wire_reference`. Without
+scales `masked_wire` launches the CUDA kernel `csrc/masked_wire.cu`
+(replacing the TPU kernel `_mask_kernel`); with scales it is
+`masked_wire_int8`, the CUDA kernel `csrc/mask_quant.cu` (replacing
+`_mask_quant_kernel`). Each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -39,11 +42,14 @@ def masked_wire_reference(
     fire_exp: torch.Tensor,
     scale_exp: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `masked_wire`: where(fire > 0, flat, 0)."""
-    if scale_exp is not None:
-        raise NotImplementedError("the int8 masked wire is not ported yet")
+    """Plain PyTorch version of `masked_wire`: where(fire > 0, flat, 0),
+    and with `scale_exp` clip(round_half_even(masked / scale), -127, 127)
+    in f32 (the int8 cast happens at the ship site)."""
     zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
-    return torch.where(fire_exp > 0, flat, zero)
+    masked = torch.where(fire_exp > 0, flat, zero)
+    if scale_exp is None:
+        return masked
+    return torch.clamp(torch.round(masked / scale_exp), -127, 127)
 
 
 def masked_wire(
@@ -52,11 +58,13 @@ def masked_wire(
     scale_exp: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Build the masked wire buffer in one pass: zero the non-fired
-    positions (`fire_exp` = f32 per-position fire bits, fire_vec[seg]).
-    On a CPU tensor this is `masked_wire_reference`; on a CUDA tensor it
-    launches `csrc/masked_wire.cu` or raises."""
+    positions (`fire_exp` = f32 per-position fire bits, fire_vec[seg]),
+    quantizing against the f32 per-position `scale_exp` in the same pass
+    when it is given (`masked_wire_int8`). On a CPU tensor this is
+    `masked_wire_reference`; on a CUDA tensor it launches
+    `csrc/masked_wire.cu` or raises."""
     if scale_exp is not None:
-        raise NotImplementedError("the int8 masked wire is not ported yet")
+        return masked_wire_int8(flat, fire_exp, scale_exp)
     device, n = build.check_inputs("masked_wire", flat=flat, fire_exp=fire_exp)
     if device.type == "cpu":
         return masked_wire_reference(flat, fire_exp)
@@ -72,4 +80,32 @@ def masked_wire(
     return out
 
 
+def masked_wire_int8(
+    flat: torch.Tensor,
+    fire_exp: torch.Tensor,
+    scale_exp: torch.Tensor,
+) -> torch.Tensor:
+    """The int8 masked wire in one pass, as f32 values in [-127, 127]:
+    clip(round_half_even(where(fire > 0, flat, 0) / scale), -127, 127).
+    On a CPU tensor this is `masked_wire_reference`; on a CUDA tensor it
+    launches `csrc/mask_quant.cu` or raises."""
+    device, n = build.check_inputs(
+        "masked_wire_int8", flat=flat, fire_exp=fire_exp, scale_exp=scale_exp
+    )
+    if device.type == "cpu":
+        return masked_wire_reference(flat, fire_exp, scale_exp)
+    out = torch.empty_like(flat)
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "masked_wire_int8", lib.eg_mask_quant,
+            flat.data_ptr(), fire_exp.data_ptr(), scale_exp.data_ptr(),
+            out.data_ptr(), n, build.aligned(flat, fire_exp, scale_exp, out),
+            build.stream_of(device),
+        )
+    masked_wire_int8.launches += 1
+    return out
+
+
 masked_wire.launches = 0
+masked_wire_int8.launches = 0

@@ -1,7 +1,8 @@
 """Flat parameter arena: cached leaf metadata + flat views.
 
 Port of `eventgrad_tpu/parallel/arena.py` (`ArenaSpec`, `arena_spec`,
-`alloc_event_bufs` for f32 residency; buckets and carriers wait).
+`carrier_dtype`, `carrier_needs_scales`, `alloc_event_bufs` for f32 and
+carrier residency; buckets wait).
 
 Every rank-stacked quantity of the gossip hot path — parameters,
 gradients, momentum trace, neighbor buffers — is ONE `[R, n]` f32
@@ -20,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Iterable, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -126,14 +127,44 @@ def arena_spec(tree: Any) -> ArenaSpec:
     return _spec_cached(tuple((n, shapes[n]) for n in flax_order(shapes)))
 
 
+#: wire codes that have a resident carrier cheaper than f32
+_CARRIER_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def carrier_dtype(wire) -> "Optional[torch.dtype]":
+    """Resident dtype for a wire code — the carrier the bytes crossed the
+    wire in (bf16 -> bfloat16, int8 -> int8) — or None when the buffers
+    stay f32 (the f32 wire has no cheaper carrier)."""
+    return _CARRIER_DTYPES.get(wire)
+
+
+def carrier_needs_scales(wire) -> bool:
+    """int8 carriers dequantize through per-leaf f32 scales; bf16
+    dequant is a pure (exact) upcast and needs none."""
+    return wire == "int8"
+
+
 def alloc_event_bufs(
-    spec: ArenaSpec, n_neighbors: int, n_ranks: int, *, device=None,
-) -> Tuple[torch.Tensor, ...]:
-    """The arena EventState.bufs allocation site: per-neighbor zero
-    `[R, n]` f32 receive buffers (the reference's zero RMA window). Only
-    f32 residency is ported: the carrier-resident and bucketed layouts
-    wait."""
-    return tuple(
-        torch.zeros((n_ranks, spec.n_total), dtype=torch.float32, device=device)
+    spec: ArenaSpec, n_neighbors: int, n_ranks: int, *, wire=None,
+    device=None,
+) -> Tuple[Tuple[torch.Tensor, ...], Optional[Tuple[torch.Tensor, ...]]]:
+    """The arena EventState.bufs allocation site. Returns `(bufs,
+    buf_scales)`: per-neighbor zero `[R, n]` receive buffers in the
+    resident dtype — f32, or the wire carrier under carrier residency
+    (`wire` = "bf16" | "int8") — plus per-neighbor `[R, L]` f32 dequant
+    scales starting at 1.0 (int8 carrier only, else None). A zero carrier
+    dequantizes to exactly +0.0 under every scale, so the zero init is
+    bitwise the f32 zero init (the reference's zero RMA window). The
+    bucketed layout waits."""
+    dt = carrier_dtype(wire) or torch.float32
+    bufs = tuple(
+        torch.zeros((n_ranks, spec.n_total), dtype=dt, device=device)
+        for _ in range(int(n_neighbors))
+    )
+    if not carrier_needs_scales(wire):
+        return bufs, None
+    return bufs, tuple(
+        torch.ones((n_ranks, spec.n_leaves), dtype=torch.float32,
+                   device=device)
         for _ in range(int(n_neighbors))
     )

@@ -1,14 +1,22 @@
-"""Gossip exchanges over the rank-stacked dimension, f32 wire.
+"""Gossip exchanges over the rank-stacked dimension: the f32, bf16 and
+int8 wires.
 
 Port of `eventgrad_tpu/parallel/collectives.py`, the subset the flagship
-arena path runs: `recv_from`, `_wire_concat`, `neighbor_vals_flat`,
-`masked_neighbor_vals_flat`, `commit_bufs_flat` and the wire byte
-accounting. The bf16/int8 wires, the compact wire, the integrity riders
-and carrier-resident buffers are not ported yet and raise
-`NotImplementedError`.
+arena path runs: `recv_from`, `_wire_concat`, the wire codecs
+(`_wire_out`, `_contract_safe`, `_leaf_absmax`, `_masked_scales`,
+`_int8_encode_flat`), `neighbor_vals_flat`, `masked_neighbor_vals_flat`
+(with the carrier-resident contract), `commit_bufs_flat`,
+`commit_carrier_scales`, `dequant_carrier_bufs` and the wire byte
+accounting. The compact wire and the integrity riders are not ported
+yet and raise `NotImplementedError`; the unfused mixes
+(`mix_flat_into_tree`, `mix_carrier_flat_into_tree`) are absent, since
+the port's step always runs the fused tail kernels.
 
 Each `[R, ...]` argument holds every rank of the topology; a ppermute of
-the JAX package is a `torch.roll` of the rank dimension.
+the JAX package is a `torch.roll` of the rank dimension. The int8 codec
+is bitwise the JAX one: per-leaf absmax scales divided by 127 in IEEE
+float32, truncated to 17 significand bits, then
+`clip(round_half_even(x / s))`.
 """
 
 from __future__ import annotations
@@ -20,16 +28,19 @@ import torch
 from eventgrad_tpu_torch.parallel import arena
 from eventgrad_tpu_torch.parallel.topology import NeighborSpec, Topology
 
+#: wire modes: None = f32; "bf16" = bfloat16 transfer (2 B/elem);
+#: "int8" = per-leaf absmax-scaled int8 transfer (1 B/elem + one f32
+#: scale per leaf). Local state stays f32.
+WIRE_MODES = (None, "bf16", "int8")
+
 #: wire bytes per payload element (the reference's f32 MPI wire is the
 #: 4-byte baseline; accounting and wire-real numbers share the constants)
-WIRE_VAL_BYTES = {None: 4.0}
+WIRE_VAL_BYTES = {None: 4.0, "bf16": 2.0, "int8": 1.0}
 
 
-def _require_f32_wire(wire) -> None:
-    if wire is not None:
-        raise NotImplementedError(
-            f"wire={wire!r} is not ported yet; only the f32 wire (None)"
-        )
+def check_wire(wire) -> None:
+    if wire not in WIRE_MODES:
+        raise ValueError(f"wire must be one of {WIRE_MODES}")
 
 
 def recv_from(x: torch.Tensor, topo: Topology, nb: NeighborSpec) -> torch.Tensor:
@@ -49,13 +60,82 @@ def _wire_concat(pieces, dtype=torch.float32) -> torch.Tensor:
     return torch.cat([p.to(dtype) for p in pieces], dim=-1)
 
 
+def _wire_out(x: torch.Tensor, wire) -> torch.Tensor:
+    """Downcast a floating wire payload for transfer (bf16 mode; int8 has
+    its own codec below)."""
+    if wire == "bf16" and x.is_floating_point() and x.dtype != torch.bfloat16:
+        return x.to(torch.bfloat16)
+    return x
+
+
+def _contract_safe(scale: torch.Tensor) -> torch.Tensor:
+    """Truncate an f32 quantization scale to 17 significand bits (clear
+    the low 7 stored mantissa bits), so every dequantized product `q * s`
+    with |q| <= 127 is exact in f32 and the receive path gives the same
+    bits whether or not a compiler fuses the multiply into an add."""
+    bits = scale.to(torch.float32).contiguous().view(torch.int32)
+    return (bits & ~0x7F).view(torch.float32)
+
+
+def _int8_scales(absmax_vec: torch.Tensor) -> torch.Tensor:
+    """Per-leaf int8 wire scales: contract_safe(max(absmax, 1e-30) / 127),
+    divided in IEEE float32 on any device (the divisor is a device
+    tensor: a host scalar divisor becomes a reciprocal multiply on
+    CUDA)."""
+    div = torch.full((), 127.0, dtype=torch.float32, device=absmax_vec.device)
+    return _contract_safe(torch.clamp_min(absmax_vec, 1e-30) / div)
+
+
+def _leaf_absmax(flat: torch.Tensor, spec: "arena.ArenaSpec") -> torch.Tensor:
+    """`[..., L]` per-leaf absmax of an `[..., n]` arena: one multi-tensor
+    reduction over the per-rank leaf views (max is exact, so any order
+    gives the JAX bits). The contiguous arena is rank-major, so one split
+    of its flat view makes every (rank, leaf) view."""
+    lead = tuple(flat.shape[:-1])
+    rows = flat.numel() // flat.shape[-1]
+    views = flat.contiguous().reshape(-1).split(list(spec.sizes) * rows)
+    maxes = torch._foreach_norm(views, float("inf"))
+    return torch.stack(maxes).reshape(lead + (spec.n_leaves,))
+
+
+def _masked_scales(absmax_vec: torch.Tensor, fire_vec: torch.Tensor) -> torch.Tensor:
+    """Per-leaf int8 wire scales with non-fired leaves bottomed out —
+    `_int8_scales` of the zero-masked arena's absmax."""
+    zero = torch.zeros((), dtype=torch.float32, device=absmax_vec.device)
+    return _int8_scales(torch.where(fire_vec, absmax_vec, zero))
+
+
+def _int8_encode_flat(masked_flat: torch.Tensor, scale_vec: torch.Tensor,
+                      seg: torch.Tensor) -> torch.Tensor:
+    """Quantize an `[..., n]` (masked) arena against `[..., L]` per-leaf
+    scales: clip(round_half_even(x / scale[seg]), -127, 127) as int8."""
+    return torch.clamp(
+        torch.round(masked_flat / scale_vec[..., seg]), -127, 127
+    ).to(torch.int8)
+
+
 def neighbor_vals_flat(
     payload: torch.Tensor, topo: Topology, spec: "arena.ArenaSpec", wire=None,
 ) -> Tuple[torch.Tensor, ...]:
     """D-PSGD exchange on the arena: each neighbor's whole `[R, n]`
-    parameter arena, one flat buffer per neighbor."""
-    _require_f32_wire(wire)
-    return tuple(recv_from(payload, topo, nb) for nb in topo.neighbors)
+    parameter arena, one flat buffer per neighbor, already decoded to
+    f32."""
+    check_wire(wire)
+    if wire == "int8":
+        seg = spec.seg_expand(payload.device)
+        scale_vec = _int8_scales(_leaf_absmax(payload, spec))
+        q = _int8_encode_flat(payload, scale_vec, seg)
+
+        def one(nb):
+            got_q, got_s = recv_from(q, topo, nb), recv_from(scale_vec, topo, nb)
+            return got_q.to(torch.float32) * got_s[:, seg]
+    else:
+        wire_buf = _wire_out(payload, wire)
+
+        def one(nb):
+            return recv_from(wire_buf, topo, nb).to(payload.dtype)
+
+    return tuple(one(nb) for nb in topo.neighbors)
 
 
 def masked_neighbor_vals_flat(
@@ -73,31 +153,77 @@ def masked_neighbor_vals_flat(
     """Event-triggered masked exchange on the arena.
 
     `payload` is the `[R, n]` parameter arena and `fire_vec` the `[R, L]`
-    fire bits. The wire zeroes every non-fired leaf; `wire_builder` — a
-    callable (flat, fire_exp, scale_exp|None) -> f32 wire, the masked-wire
-    kernel `ops.event_engine.masked_wire` — builds it in one pass over
-    the arena, else the mask is fused into a per-leaf concatenation.
-    Returns (candidate `[R, n]` values, effective `[R, L]` fire bits, raw
-    `[R, L]` sender bits) per neighbor; the caller commits
+    fire bits. The wire zeroes every non-fired leaf (and, for int8,
+    quantizes against per-leaf scales that bottom out on non-fired
+    leaves); `wire_builder` — a callable (flat, fire_exp, scale_exp|None)
+    -> f32 wire, the masked-wire kernels `ops.event_engine.masked_wire` —
+    builds it in one pass over the arena, else plain tensor ops build the
+    same bits. Returns (candidate `[R, n]` values, effective `[R, L]` fire
+    bits, raw `[R, L]` sender bits) per neighbor; the caller commits
     `where(eff, candidate, stale)`. Without chaos the effective bits are
-    the sender's."""
-    if checksum or finite or corrupt is not None:
-        raise NotImplementedError("the integrity riders are not ported yet")
+    the sender's.
+
+    `carrier=True` (bf16/int8 wires, no integrity riders) returns the
+    candidates still in the wire dtype plus a fourth value: the
+    per-neighbor received `[R, L]` dequant scales (int8; None for bf16)
+    — the carrier-resident contract, where the dequant multiply happens
+    in the commit/mix reads."""
+    integrity = checksum or finite or corrupt is not None
     if carrier:
-        raise NotImplementedError("carrier-resident exchange is not ported yet")
-    _require_f32_wire(wire)
-    if wire_builder is not None:
-        fire_exp = fire_vec.to(torch.float32)[:, spec.seg_expand(payload.device)]
-        wire_buf = wire_builder(payload, fire_exp, None)
+        if integrity:
+            raise ValueError(
+                "carrier-resident exchange does not compose with the "
+                "integrity riders (their verdicts read dequantized "
+                "values) — use carrier=False"
+            )
+        if wire not in ("bf16", "int8"):
+            raise ValueError(
+                f"carrier-resident exchange needs a bf16/int8 wire; "
+                f"got {wire!r}"
+            )
+    if integrity:
+        raise NotImplementedError("the integrity riders are not ported yet")
+    check_wire(wire)
+    seg = spec.seg_expand(payload.device)
+    fire_f32 = fire_vec.to(torch.float32)
+    scale_vec = None
+    if wire == "int8":
+        scale_vec = _masked_scales(_leaf_absmax(payload, spec), fire_vec)
+        if wire_builder is not None:
+            q = wire_builder(payload, fire_f32[:, seg], scale_vec[:, seg])
+            wire_buf = q.to(torch.int8)
+        else:
+            zero = torch.zeros((), dtype=payload.dtype, device=payload.device)
+            wire_buf = _int8_encode_flat(
+                torch.where(fire_vec[:, seg], payload, zero), scale_vec, seg
+            )
     else:
-        zero = torch.zeros((), dtype=payload.dtype, device=payload.device)
-        wire_buf = _wire_concat([
-            torch.where(fire_vec[:, k : k + 1], v, zero)
-            for k, v in enumerate(spec.leaf_views(payload))
-        ], payload.dtype)
-    cands = tuple(recv_from(wire_buf, topo, nb) for nb in topo.neighbors)
-    raws = tuple(recv_from(fire_vec, topo, nb) for nb in topo.neighbors)
-    return cands, raws, raws
+        if wire_builder is not None:
+            masked = wire_builder(payload, fire_f32[:, seg], None)
+        else:
+            zero = torch.zeros((), dtype=payload.dtype, device=payload.device)
+            masked = _wire_concat([
+                torch.where(fire_vec[:, k : k + 1], v, zero)
+                for k, v in enumerate(spec.leaf_views(payload))
+            ], payload.dtype)
+        wire_buf = _wire_out(masked, wire)
+
+    cands, raws, scls = [], [], []
+    for nb in topo.neighbors:
+        got = recv_from(wire_buf, topo, nb)
+        got_s = None if scale_vec is None else recv_from(scale_vec, topo, nb)
+        if not carrier:
+            got = got.to(payload.dtype)
+            if got_s is not None:
+                got = got * got_s[:, seg]
+        cands.append(got)
+        raws.append(recv_from(fire_vec, topo, nb))
+        scls.append(got_s)
+    if carrier:
+        return tuple(cands), tuple(raws), tuple(raws), (
+            tuple(scls) if wire == "int8" else None
+        )
+    return tuple(cands), tuple(raws), tuple(raws)
 
 
 def commit_bufs_flat(
@@ -107,11 +233,44 @@ def commit_bufs_flat(
     spec: "arena.ArenaSpec",
 ) -> Tuple[torch.Tensor, ...]:
     """new_buf_i = where(eff_i per position, candidate_i, stale_i): the
-    receive-buffer commit, one wide select per neighbor."""
+    receive-buffer commit, one wide select per neighbor (any dtype, so
+    carriers commit through it too)."""
     seg = spec.seg_expand(lasts[0].device if lasts else None)
     return tuple(
         torch.where(e[:, seg], c, l) for c, e, l in zip(cands, effs, lasts)
     )
+
+
+def commit_carrier_scales(
+    cand_scales: Tuple[torch.Tensor, ...],
+    effs: Tuple[torch.Tensor, ...],
+    last_scales: Tuple[torch.Tensor, ...],
+) -> Tuple[torch.Tensor, ...]:
+    """Per-neighbor `[R, L]` scale commit riding the carrier buffer
+    commit: a fired leaf adopts the scale its candidate crossed the wire
+    with, a stale leaf keeps the scale of its resident carrier."""
+    return tuple(
+        torch.where(e, sc, sl)
+        for sc, e, sl in zip(cand_scales, effs, last_scales)
+    )
+
+
+def dequant_carrier_bufs(
+    bufs: Tuple[torch.Tensor, ...],
+    scales: "Optional[Tuple[torch.Tensor, ...]]",
+    spec: "arena.ArenaSpec",
+) -> Tuple[torch.Tensor, ...]:
+    """The f32 view of carrier-resident `[..., n]` receive buffers —
+    exactly what the f32-resident layout would have stored (the test
+    shim; the hot path never materializes it). Monolithic layout only:
+    the bucketed layout is not ported yet."""
+    out = []
+    for i, buf in enumerate(bufs):
+        val = buf.to(torch.float32)
+        if scales is not None:
+            val = val * scales[i][..., spec.seg_expand(buf.device)]
+        out.append(val)
+    return tuple(out)
 
 
 def wire_real_bytes_per_neighbor(
@@ -123,11 +282,14 @@ def wire_real_bytes_per_neighbor(
 ) -> float:
     """Bytes ONE neighbor exchange actually moves: `n_params` value lanes
     regardless of fire bits (the masked wire is dense), plus the
-    `[n_leaves]` bool fire vector on the event path."""
-    _require_f32_wire(wire)
+    `[n_leaves]` bool fire vector on the event path and the `[n_leaves]`
+    f32 scale vector the int8 wire always ships."""
+    check_wire(wire)
     if compact_capacity is not None:
         raise NotImplementedError("the compact wire is not ported yet")
     b = WIRE_VAL_BYTES[wire] * float(n_params)
     if fire_bits:
         b += 1.0 * n_leaves
+    if wire == "int8":
+        b += 4.0 * n_leaves
     return b

@@ -1,7 +1,7 @@
 """EventGraD: per-parameter event-triggered communication state machine.
 
 Port of `eventgrad_tpu/parallel/events.py` (`EventConfig`, `EventState`
-with f32 arena buffers and no delivery queue, `propose`,
+with f32 or carrier-resident arena buffers and no delivery queue, `propose`,
 `propose_from_norms`, `commit`; capacity gating and the bounded-async
 queues wait).
 
@@ -24,7 +24,7 @@ package — bitwise on equal norms.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,9 +64,12 @@ class EventState:
 
     thres / last_sent_norm / last_sent_iter: f32 `[..., L]`.
     slopes: f32 `[..., L, history]`.
-    bufs:   one f32 `[R, n]` arena per topology neighbor (the RMA window
-            halves), zero-initialized like the reference.
+    bufs:   one `[R, n]` arena per topology neighbor (the RMA window
+            halves), zero-initialized like the reference: f32, or the
+            wire carrier (bf16/int8) under carrier residency.
     num_events / num_deferred: int32 `[...]` cumulative counters.
+    buf_scales: per-neighbor f32 `[R, L]` dequant scales of int8-resident
+            buffers; None for f32/bf16 residency.
     """
 
     thres: torch.Tensor
@@ -76,6 +79,7 @@ class EventState:
     bufs: Tuple[torch.Tensor, ...]
     num_events: torch.Tensor
     num_deferred: torch.Tensor
+    buf_scales: Optional[Tuple[torch.Tensor, ...]] = None
 
     def replace(self, **kw) -> "EventState":
         return dataclasses.replace(self, **kw)
@@ -83,13 +87,16 @@ class EventState:
     @classmethod
     def init(
         cls, spec: "arena_lib.ArenaSpec", topo: Topology, cfg: EventConfig,
-        *, device=None,
+        *, resident_wire=None, device=None,
     ) -> "EventState":
         """Rank-stacked zero state over `topo.n_ranks` ranks with flat
-        arena receive buffers."""
+        arena receive buffers. `resident_wire` ("bf16" | "int8") stores
+        them carrier-resident: in the wire dtype, plus the per-leaf int8
+        dequant scales in `buf_scales`."""
         r, n = topo.n_ranks, spec.n_leaves
-        bufs = arena_lib.alloc_event_bufs(spec, topo.n_neighbors, r,
-                                          device=device)
+        bufs, buf_scales = arena_lib.alloc_event_bufs(
+            spec, topo.n_neighbors, r, wire=resident_wire, device=device,
+        )
         zeros = lambda: torch.zeros((r, n), dtype=torch.float32, device=device)
         return cls(
             thres=zeros(),
@@ -100,6 +107,7 @@ class EventState:
             bufs=bufs,
             num_events=torch.zeros((r,), dtype=torch.int32, device=device),
             num_deferred=torch.zeros((r,), dtype=torch.int32, device=device),
+            buf_scales=buf_scales,
         )
 
 

@@ -93,14 +93,24 @@ def train(
     y_test: Optional[np.ndarray] = None,
     log_every_epoch: bool = True,
     trigger_policy: Optional[str] = None,
+    wire: Optional[str] = None,
+    staleness: int = 0,
+    carrier_resident: Optional[bool] = None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
     returns (final_state, per-epoch history). `batch_size` is per rank.
     Each record carries `loss`, `train_acc`, `sent_bytes_per_step_per_chip`,
-    `steps` and `wall_s` (seconds of device work for the epoch's steps),
+    `steps`, `wall_s` (seconds of device work for the epoch's steps),
+    `wire`, `resident_dtype` ("f32" | "bf16" | "int8") and `staleness`,
     plus `msgs_saved_pct` for eventgrad and `test_accuracy`/`test_loss`
-    when a test set is given and `log_every_epoch`."""
+    when a test set is given and `log_every_epoch`.
+
+    `wire` (None = f32, "bf16", "int8") compresses the gossip exchange;
+    `staleness=1` (eventgrad) mixes with the previous step's buffers;
+    `carrier_resident=True` (eventgrad, bf16/int8 wire; None = off)
+    keeps the receive buffers in the wire dtype, bitwise the f32-resident
+    run (see `train/steps.make_train_step`)."""
     device = resolve_device(device)
     if algo == "eventgrad":
         event_cfg = event_cfg or EventConfig()
@@ -108,13 +118,17 @@ def train(
     y = np.ascontiguousarray(y_train, np.int64)
     n_ranks = topo.n_ranks
     steps = epoch_steps(len(x), n_ranks, batch_size)
-    state = init_train_state(
-        model, x.shape[1:], topo, algo, event_cfg, seed,
-        momentum=momentum, device=device,
-    )
+    # make_train_step checks the wire/staleness/carrier combination
+    # before the state layout (carrier-resident or f32) is built from it
     step = make_train_step(
         model, topo, algo, event_cfg,
         fused_sgd=(learning_rate, momentum), trigger_policy=trigger_policy,
+        wire=wire, staleness=staleness, carrier_resident=carrier_resident,
+    )
+    resident_wire = wire if carrier_resident else None
+    state = init_train_state(
+        model, x.shape[1:], topo, algo, event_cfg, seed,
+        momentum=momentum, resident_wire=resident_wire, device=device,
     )
     spec = arena_spec(model)
     eval_on = x_test is not None and log_every_epoch
@@ -151,6 +165,9 @@ def train(
             ),
             "n_params": spec.n_total,
             "arena": True,
+            "wire": wire,
+            "resident_dtype": resident_wire or "f32",
+            "staleness": int(staleness),
             "device": str(device),
         }
         if algo == "eventgrad":

@@ -48,12 +48,16 @@ def init_train_state(
     seed: int = 0,
     *,
     momentum: float = 0.0,
+    resident_wire=None,
     device=None,
 ) -> TrainState:
     """A rank-stacked TrainState for `topo.n_ranks` ranks, initialized
     like flax from `seed` (`ResNet.init_variables`). `momentum` nonzero
-    carries a momentum trace (optax.sgd(momentum=...)). `device=None`
-    means CUDA and raises without it."""
+    carries a momentum trace (optax.sgd(momentum=...)). `resident_wire`
+    ("bf16" | "int8"; eventgrad) holds the receive buffers carrier-
+    resident: in the wire dtype, with the int8 dequant scales in
+    `EventState.buf_scales` — the layout of a `carrier_resident` step.
+    `device=None` means CUDA and raises without it."""
     device = resolve_device(device)
     if algo not in ("eventgrad", "dpsgd"):
         raise NotImplementedError(
@@ -70,7 +74,7 @@ def init_train_state(
     event = None
     if algo == "eventgrad":
         event = EventState.init(spec, topo, event_cfg or EventConfig(),
-                                device=device)
+                                resident_wire=resident_wire, device=device)
     return TrainState(
         params=flat,
         trace=torch.zeros_like(flat) if momentum else None,

@@ -14,13 +14,21 @@ algo="eventgrad" with the fused tail — the flagship path:
                      (`ops/arena_update.fused_mix_commit`) commits the
                      received buffers and updates in one pass.
 
+`wire="bf16"|"int8"` compresses the exchange (the int8 wire through the
+int8 masked-wire kernel `ops/event_engine.masked_wire_int8` on the
+EventGraD leg), `carrier_resident=True` keeps the EventGraD receive
+buffers in the wire dtype and runs the carrier tail kernel
+(`ops/arena_update.fused_mix_commit_carrier`), and `staleness=1` mixes
+the previous step's buffers while committing this step's.
+
 The gradient is taken at the pre-mix parameters, the reference's exact
 D-PSGD ordering. The R ranks' forward and backward run batched:
 `torch.func.functional_call` + `torch.func.vmap` +
 `torch.func.grad_and_value`, with the BatchNorm statistics threaded as
 explicit tensors. The JAX package's unfused optax tail is documented
 bitwise equal to the fused one, so the port runs the fused tail only.
-The other algorithms, wires, schedules and engines are not ported yet.
+The other algorithms, the compact wire, staleness >= 2, the bucketed
+schedule and the engines are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from eventgrad_tpu_torch.ops import event_engine
-from eventgrad_tpu_torch.ops.arena_update import fused_mix_commit
+from eventgrad_tpu_torch.ops.arena_update import (
+    fused_mix_commit, fused_mix_commit_carrier,
+)
 from eventgrad_tpu_torch.ops.fused_update import fused_mix_sgd
 from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
@@ -80,17 +90,65 @@ def make_train_step(
     fused_sgd: Tuple[float, float],
     trace: bool = False,
     trigger_policy: Optional[str] = None,
+    wire: Optional[str] = None,
+    staleness: int = 0,
+    carrier_resident: Optional[bool] = None,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
     metrics)`: `x` is `[R, B, H, W, C]`, `y` int64 `[R, B]`, and every
     metric is a `[R]` tensor. `fused_sgd=(lr, momentum)` is the plain
     SGD the state was initialized for (momentum 0 carries no trace).
     `trace=True` (eventgrad) adds the per-leaf send-side vectors
-    `trace_norm`, `trace_thres`, `trace_fired` ([R, L]) to the metrics."""
+    `trace_norm`, `trace_thres`, `trace_fired` ([R, L]) to the metrics.
+
+    `wire` (None = f32, "bf16", "int8") is the exchange's wire format;
+    the accounting charges 2 or 1 B per payload element and, for int8,
+    4 B per fired leaf's scale. `staleness=1` (eventgrad) mixes the
+    buffers as they stood before this step's exchange. `carrier_resident
+    =True` (eventgrad, bf16/int8 wire) keeps the receive buffers in the
+    wire dtype; the state must come from `init_train_state(...,
+    resident_wire=wire)`. Both residencies give the same bits."""
     if algo not in ALGOS:
         raise NotImplementedError(
             f"algo {algo!r} is not ported yet; ported: {ALGOS}"
         )
+    staleness = int(staleness)
+    if staleness < 0:
+        raise ValueError(
+            f"staleness must be >= 0, got {staleness}: 0 = synchronous "
+            "mixing, 1 = one-pass-stale (the deterministic RMA model)"
+        )
+    if staleness and algo != "eventgrad":
+        raise ValueError(
+            f"staleness={staleness} models the one-sided RMA asynchrony "
+            "of the event algorithms (eventgrad); dpsgd is synchronous "
+            "in the reference"
+        )
+    if staleness and trace:
+        raise ValueError(
+            "trace records model the synchronous exchange; not available "
+            "with staleness > 0"
+        )
+    if staleness >= 2:
+        raise NotImplementedError(
+            f"staleness={staleness}: the bounded-async delivery queues "
+            "are not ported yet (staleness 0 or 1)"
+        )
+    collectives.check_wire(wire)
+    carrier_wire = None
+    if carrier_resident:
+        if algo != "eventgrad":
+            raise ValueError(
+                "carrier_resident=True re-dtypes the event exchange's "
+                f"receive buffers (algo='eventgrad'); got algo={algo!r}"
+            )
+        if wire not in ("bf16", "int8"):
+            raise ValueError(
+                "carrier_resident=True keeps the buffers in the wire "
+                f"carrier dtype, but wire={wire!r} has none — use "
+                "wire='bf16'/'int8' (f32 wires are already resident)"
+            )
+        carrier_wire = wire
     lr, mom = float(fused_sgd[0]), float(fused_sgd[1])
     event_cfg = event_cfg or EventConfig()
     pol = policy_lib.resolve(trigger_policy, algo) if algo == "eventgrad" else None
@@ -98,6 +156,12 @@ def make_train_step(
     n_nb = topo.n_neighbors
     n_params, n_leaves = spec.n_total, spec.n_leaves
     f32 = lambda v, dev: torch.tensor(v, dtype=torch.float32, device=dev)
+    # wire accounting (the reference's MPI wire): bytes per payload
+    # element, plus one f32 scale per leaf on the int8 wire — per FIRED
+    # leaf on the event path, where a non-fired leaf sends nothing
+    val_bytes = collectives.WIRE_VAL_BYTES[wire]
+    scale_bytes_per_leaf = 4.0 if wire == "int8" else 0.0
+    total_bytes = val_bytes * n_params + scale_bytes_per_leaf * n_leaves
 
     def loss_fn(params, stats, x, y):
         out, new_stats = torch.func.functional_call(model, params, (x, stats, True))
@@ -124,7 +188,7 @@ def make_train_step(
         metrics = {}
         if algo == "dpsgd":
             with _phase("exchange"):
-                bufs = collectives.neighbor_vals_flat(flat, topo, spec)
+                bufs = collectives.neighbor_vals_flat(flat, topo, spec, wire)
             with _phase("commit_mix"):
                 buf_sum = torch.zeros_like(flat)
                 for b in bufs:
@@ -132,10 +196,11 @@ def make_train_step(
                 p_flat, new_t = fused_mix_sgd(
                     flat, buf_sum, g_flat, t_flat, lr, mom, topo.mix_weight
                 )
-            total_bytes = collectives.WIRE_VAL_BYTES[None] * n_params
             sent_bytes = f32(n_nb, dev) * f32(total_bytes, dev)
             wire_real = f32(n_nb, dev) * f32(
-                collectives.wire_real_bytes_per_neighbor(n_params, n_leaves),
+                collectives.wire_real_bytes_per_neighbor(
+                    n_params, n_leaves, wire
+                ),
                 dev,
             )
             fired_elems = f32(n_params, dev)
@@ -150,26 +215,48 @@ def make_train_step(
                 event_state = pol.commit(event_state, prop, fire_vec,
                                          event_cfg, n_nb)
             with _phase("exchange"):
-                cands, effs, _ = collectives.masked_neighbor_vals_flat(
-                    flat, fire_vec, topo, spec,
+                res = collectives.masked_neighbor_vals_flat(
+                    flat, fire_vec, topo, spec, wire,
                     wire_builder=event_engine.masked_wire,
+                    carrier=carrier_wire is not None,
                 )
             wire_real = f32(n_nb, dev) * f32(
                 collectives.wire_real_bytes_per_neighbor(
-                    n_params, n_leaves, fire_bits=True
+                    n_params, n_leaves, wire, fire_bits=True
                 ),
                 dev,
             )
             with _phase("commit_mix"):
+                cands, effs = res[:2]
                 keeps = tuple(e.to(torch.float32)[:, seg] for e in effs)
-                p_flat, new_t, new_bufs = fused_mix_commit(
-                    flat, cands, keeps, event_state.bufs, g_flat, t_flat, lr,
-                    mom, topo.mix_weight, mix_stale=False,
-                )
-            event_state = event_state.replace(bufs=new_bufs)
+                if carrier_wire is None:
+                    p_flat, new_t, new_bufs = fused_mix_commit(
+                        flat, cands, keeps, event_state.bufs, g_flat, t_flat,
+                        lr, mom, topo.mix_weight, mix_stale=bool(staleness),
+                    )
+                    event_state = event_state.replace(bufs=new_bufs)
+                else:
+                    # the scales commit outside the kernel (an [R, L]
+                    # select) and ride in per position for the mix dequant
+                    cand_scales, last_scales = res[3], event_state.buf_scales
+                    new_scales, mix_scales = last_scales, None
+                    if cand_scales is not None:
+                        new_scales = collectives.commit_carrier_scales(
+                            cand_scales, effs, last_scales
+                        )
+                        src = last_scales if staleness else new_scales
+                        mix_scales = tuple(sc[:, seg] for sc in src)
+                    p_flat, new_t, new_bufs = fused_mix_commit_carrier(
+                        flat, cands, keeps, event_state.bufs, g_flat, t_flat,
+                        lr, mom, topo.mix_weight, mix_scales=mix_scales,
+                        mix_stale=bool(staleness),
+                    )
+                    event_state = event_state.replace(
+                        bufs=new_bufs, buf_scales=new_scales
+                    )
             fired_elems, fired_leaves = _fired_accounting(fire_vec, sizes_t)
             sent_bytes = f32(n_nb, dev) * (
-                collectives.WIRE_VAL_BYTES[None] * fired_elems
+                val_bytes * fired_elems + scale_bytes_per_leaf * fired_leaves
             )
             fired_frac = fired_leaves / n_leaves
             num_events, num_deferred = (event_state.num_events,

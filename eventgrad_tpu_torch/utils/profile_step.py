@@ -1,11 +1,13 @@
 """Where a flagship train step's time goes on the card.
 
     python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
+        [--wire {bf16,int8}] [--staleness {0,1}] [--carrier-resident]
 
 For each leg (EventGraD, then D-PSGD) at the flagship op-point —
 ResNet-18 with bf16 compute, Ring(8) stacked on one card, global batch
 256, SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon 1.05 and
-max_silence 50 (warmup 2) — it runs 3 warm-up steps, then:
+max_silence 50 (warmup 2), the f32 wire unless `--wire` names another —
+it runs 3 warm-up steps, then:
 
   * `step_ms`: the mean of `--steps` steps, host clock around work that
     ends in a synchronize;
@@ -13,11 +15,13 @@ max_silence 50 (warmup 2) — it runs 3 warm-up steps, then:
     and host time of each step phase (the spans `step/grad`,
     `step/gate_pack`, `step/exchange`, `step/commit_mix` of
     `train/steps.py`), the device busy share
-    (kernel time over the traced wall time) and the kernels that take the
-    most device time.
+    (kernel time over the traced wall time), the stream synchronizations
+    the step makes the host wait on (`cudaStreamSynchronize` calls), and
+    the kernels that take the most device time.
 
-It prints one JSON line per leg and, last, the card's name and power
-limit. It needs a CUDA device.
+`--staleness` and `--carrier-resident` apply to the EventGraD leg only
+(D-PSGD has neither). It prints one JSON line per leg and, last, the
+card's name and power limit. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,14 +46,21 @@ PHASES = ("grad", "gate_pack", "exchange", "commit_mix")
 RANKS, PER_RANK, WARMUP = 8, 32, 3
 
 
-def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12):
+def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
+                wire=None, staleness: int = 0, carrier_resident=None):
     model = ResNet18(dtype=torch.bfloat16)
     topo = Ring(RANKS)
     cfg = EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                       max_silence=50)
-    state = init_train_state(model, (32, 32, 3), topo, algo, cfg, seed=0,
-                             momentum=0.9, device=device)
-    step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9))
+    if algo != "eventgrad":
+        staleness, carrier_resident = 0, None
+    step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9),
+                           wire=wire, staleness=staleness,
+                           carrier_resident=carrier_resident)
+    state = init_train_state(
+        model, (32, 32, 3), topo, algo, cfg, seed=0, momentum=0.9,
+        resident_wire=wire if carrier_resident else None, device=device,
+    )
     n_steps = WARMUP + 2 * steps
     x, y = synthetic_dataset(RANKS * PER_RANK * n_steps, (32, 32, 3))
     xb, yb = batched_epoch(x, y.astype("int64"), RANKS, PER_RANK)
@@ -88,6 +99,9 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12):
     top_k = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return {
         "leg": algo,
+        "wire": wire,
+        "staleness": staleness,
+        "resident_dtype": (wire if carrier_resident else None) or "f32",
         "step_ms": step_ms,
         "traced_step_ms": traced_ms / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -95,6 +109,9 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12):
         "phase_device_ms_per_step": phases,
         "phase_host_ms_per_step": phases_host,
         "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "stream_syncs_per_step": sum(
+            e.count for e in prof.key_averages()
+            if e.key == "cudaStreamSynchronize") / steps,
         "top_kernels": [
             {"name": e.key[:90], "ms_per_step":
              e.self_device_time_total / 1e3 / steps,
@@ -107,12 +124,18 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--wire", choices=("bf16", "int8"), default=None)
+    ap.add_argument("--staleness", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--carrier-resident", action="store_true")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for algo in ("eventgrad", "dpsgd"):
-        print(json.dumps(profile_leg(algo, args.steps, device)), flush=True)
+        rec = profile_leg(algo, args.steps, device, wire=args.wire,
+                          staleness=args.staleness,
+                          carrier_resident=args.carrier_resident or None)
+        print(json.dumps(rec), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

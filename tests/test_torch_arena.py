@@ -129,15 +129,17 @@ def test_flat_exchanges_match_jax(builder):
 
 
 def test_wire_accounting_matches_jax():
-    for fire_bits in (False, True):
-        assert collectives.wire_real_bytes_per_neighbor(
-            17_444_682, 86, fire_bits=fire_bits
-        ) == jax_collectives.wire_real_bytes_per_neighbor(
-            17_444_682, 86, fire_bits=fire_bits
-        )
-    assert collectives.WIRE_VAL_BYTES[None] == jax_collectives.WIRE_VAL_BYTES[None]
-    with pytest.raises(NotImplementedError):
-        collectives.wire_real_bytes_per_neighbor(10, 2, wire="int8")
+    for wire in (None, "bf16", "int8"):
+        for fire_bits in (False, True):
+            assert collectives.wire_real_bytes_per_neighbor(
+                17_444_682, 86, wire, fire_bits=fire_bits
+            ) == jax_collectives.wire_real_bytes_per_neighbor(
+                17_444_682, 86, wire, fire_bits=fire_bits
+            )
+        assert (collectives.WIRE_VAL_BYTES[wire]
+                == jax_collectives.WIRE_VAL_BYTES[wire])
+    with pytest.raises(NotImplementedError):  # the compact wire waits
+        collectives.wire_real_bytes_per_neighbor(10, 2, compact_capacity=4)
 
 
 @pytest.mark.parametrize("split", ["train", "test"])

@@ -19,11 +19,18 @@ kernel equals the contracted formula bitwise, so contraction is the
 only difference: at each of the two sites the JAX kernel skips exactly
 one rounding the port performs. Everything else —
 the committed buffers, the masked wire, `fused_mix_sgd`'s jnp path for
-leaves under 2^16 elements — is bitwise. The CUDA kernels are held
-bitwise against the same plain versions on the card by chip_smoke.py.
+leaves under 2^16 elements — is bitwise. The carrier-resident commit
+(`fused_mix_commit_carrier`) contracts at the same two sites; its
+dequant products `q * s` are exact (the scales are truncated to 17
+significand bits, as `collectives._contract_safe` does), so the
+contraction of the mix adds changes no bit. The int8 masked wire is
+bitwise, signed zeros, .5 ties and the clip included. The CUDA kernels
+are held bitwise against the same plain versions on the card by
+chip_smoke.py.
 """
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -143,6 +150,126 @@ def test_masked_wire_plain_matches_jax(n):
     )
 
 
+def _contract_safe(s):
+    return (np.asarray(s, np.float32).view(np.int32) & ~0x7F).view(np.float32)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_masked_wire_int8_plain_matches_jax(n):
+    (flat,), rng = _inputs(n + 9, n, 1)
+    scale = _contract_safe(rng.uniform(0.01, 0.05, n))
+    kind = np.arange(n) % 10
+    flat[kind == 0] = -0.0                       # signed zeros survive
+    for k, v in ((1, 2.5), (2, -3.5), (3, 300.0), (4, -300.0)):
+        flat[kind == k] = v * scale[kind == k]   # exact ties; the clip
+    fire = (rng.random(n) > 0.3).astype(np.float32)
+    want = jax_event_engine.masked_wire(
+        jnp.asarray(flat), jnp.asarray(fire), jnp.asarray(scale),
+        interpret=True,
+    )
+    T = torch.from_numpy
+    before = ops.launch_counts()
+    got = event_engine.masked_wire(T(flat), T(fire), T(scale))
+    assert ops.launch_counts() == before  # CPU tensors: the plain version
+    _assert_bitwise(got, want, "int8 wire")
+    assert got.dtype == torch.float32
+    on, q = fire > 0, got.numpy()
+    for k, v in ((1, 2.0), (2, -4.0), (3, 127.0), (4, -127.0)):
+        np.testing.assert_array_equal(q[on & (kind == k)], v)
+    assert np.all(_bits(q[on & (kind == 0)]) == 0x80000000)  # -0.0
+    _assert_bitwise(
+        event_engine.masked_wire_reference(T(flat), T(fire), T(scale)),
+        jax_event_engine.masked_wire_reference(
+            jnp.asarray(flat), jnp.asarray(fire) > 0, jnp.asarray(scale)
+        ),
+        "reference",
+    )
+
+
+def _carriers(rng, carrier, n):
+    """Two random carriers as (torch, jax) pairs of the same bits."""
+    out = []
+    for _ in range(2):
+        if carrier == "int8":
+            a = rng.integers(-127, 128, n).astype(np.int8)
+            out.append((torch.from_numpy(a), jnp.asarray(a)))
+        else:
+            a = rng.standard_normal(n).astype(np.float32)
+            t = torch.from_numpy(a).to(torch.bfloat16)
+            j = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+            out.append((t, jnp.asarray(j)))
+    return out
+
+
+@pytest.mark.parametrize("mix_stale", [False, True])
+@pytest.mark.parametrize("carrier", ["int8", "bf16"])
+@pytest.mark.parametrize("n", SIZES)
+def test_fused_mix_commit_carrier_plain_matches_jax(n, carrier, mix_stale):
+    (p, g, t), rng = _inputs(n + 17 + 2 * mix_stale, n, 3)
+    cands, lasts = _carriers(rng, carrier, n), _carriers(rng, carrier, n)
+    keeps = [(rng.random(n) > f).astype(np.float32) for f in (0.5, 0.3)]
+    scales = None
+    if carrier == "int8":
+        scales = [_contract_safe(rng.uniform(1e-3, 0.1, n)) for _ in range(2)]
+    lr, mom, w = 0.01, 0.9, 1 / 3
+    jtup = lambda xs: tuple(jnp.asarray(x) for x in xs)
+    want = jax_arena_update.fused_mix_commit_carrier(
+        jnp.asarray(p), tuple(c[1] for c in cands), jtup(keeps),
+        tuple(l[1] for l in lasts), jnp.asarray(g), jnp.asarray(t),
+        lr, mom, w, mix_scales=None if scales is None else jtup(scales),
+        mix_stale=mix_stale, interpret=True,
+    )
+    T = torch.from_numpy
+    args = (T(p), tuple(c[0] for c in cands), tuple(T(k) for k in keeps),
+            tuple(l[0] for l in lasts), T(g), T(t), lr, mom, w)
+    skw = dict(mix_scales=None if scales is None else tuple(T(s) for s in scales),
+               mix_stale=mix_stale)
+    before = ops.launch_counts()
+    got = arena_update.fused_mix_commit_carrier(*args, **skw)
+    assert ops.launch_counts() == before
+    to_np = lambda b: (b.view(torch.int16).numpy().view(np.uint16)
+                       if b.dtype == torch.bfloat16 else b.numpy())
+    for i in range(2):
+        assert got[2][i].dtype == lasts[0][0].dtype
+        np.testing.assert_array_equal(
+            to_np(got[2][i]), np.asarray(want[2][i]).view(to_np(got[2][i]).dtype),
+            err_msg=f"buf{i}")
+    mixed_in = [l[0] if mix_stale else b for l, b in zip(lasts, got[2])]
+    vals = [x.to(torch.float32).numpy() for x in mixed_in]
+    if scales is not None:
+        vals = [v * s for v, s in zip(vals, scales)]
+    acc = p + vals[0] + vals[1]
+    _assert_tail(got, want, acc, g, t, lr, mom, w, contracted=True)
+    # the plain twins agree bitwise (neither contracts)
+    ref = jax_arena_update.mix_commit_carrier_reference(
+        jnp.asarray(p), tuple(c[1] for c in cands), jtup(keeps),
+        tuple(l[1] for l in lasts), jnp.asarray(g), jnp.asarray(t),
+        lr, mom, w, mix_scales=None if scales is None else jtup(scales),
+        mix_stale=mix_stale,
+    )
+    plain = arena_update.mix_commit_carrier_reference(*args, **skw)
+    _assert_bitwise(plain[0], ref[0], "reference p_new")
+    _assert_bitwise(plain[1], ref[1], "reference trace")
+
+
+def test_carrier_wrapper_validates_inputs():
+    x = torch.zeros(64)
+    q = torch.zeros(64, dtype=torch.int8)
+    b = torch.zeros(64, dtype=torch.bfloat16)
+    fmc = arena_update.fused_mix_commit_carrier
+    with pytest.raises(ValueError, match="mix_scales"):
+        fmc(x, (q,), (x,), (q,), x, x, 0.1, 0.9, 0.5)
+    with pytest.raises(ValueError, match="mix_scales"):
+        fmc(x, (b,), (x,), (b,), x, x, 0.1, 0.9, 0.5, mix_scales=(x,))
+    with pytest.raises(TypeError):
+        fmc(x, (x,), (x,), (x,), x, x, 0.1, 0.9, 0.5)
+    with pytest.raises(TypeError):  # candidates and stale buffers differ
+        fmc(x, (b,), (x,), (q,), x, x, 0.1, 0.9, 0.5, mix_scales=(x,))
+    with pytest.raises(ValueError):
+        fmc(x, (q,) * 5, (x,) * 5, (q,) * 5, x, x, 0.1, 0.9, 1 / 6,
+            mix_scales=(x,) * 5)
+
+
 def test_wrappers_validate_inputs():
     x = torch.zeros(64)
     with pytest.raises(TypeError):
@@ -158,5 +285,7 @@ def test_wrappers_validate_inputs():
         arena_update.fused_mix_commit(
             x, (x,) * 5, (x,) * 5, (x,) * 5, x, x, 0.1, 0.9, 1 / 6
         )
-    with pytest.raises(NotImplementedError):
-        event_engine.masked_wire(x, x, scale_exp=x)
+    with pytest.raises(TypeError):  # the int8 wire's scales are f32
+        event_engine.masked_wire(x, x, scale_exp=x.double())
+    with pytest.raises(ValueError):
+        event_engine.masked_wire(x, x, scale_exp=torch.ones(65))

@@ -23,7 +23,18 @@ Tolerances, and why:
     differ only where the trigger sat on its threshold,
     |value_diff - thres| < 1e-5 * thres (the leaf norms reduce in
     another order), and `msgs_saved_pct` then differs by at most the
-    share of those flipped bits.
+    share of those flipped bits;
+  * the bf16/int8 wires (`make_train_step(wire=..., carrier_resident=...,
+    staleness=...)`): after the first pass the committed receive
+    buffers — carriers or f32 — and the int8 scales are bitwise the JAX
+    ones (the wire is built from identical parameters), and `sent_bytes`
+    and `sent_bytes_wire_real` are exact. Past the first pass the
+    parameters agree only to the tolerance above, so an int8 lane may
+    differ by one quantum at a rounding boundary: |dq| <= 1.
+
+The port's own contract, as the JAX package pins its own
+(tests/test_arena.py): carrier residency on and off give the same bits
+in every state field and metric over 5 passes.
 """
 
 import jax
@@ -42,12 +53,14 @@ from eventgrad_tpu.parallel.topology import Ring as JaxRing
 from eventgrad_tpu.train.state import init_train_state as jax_init_state
 from eventgrad_tpu.train.steps import make_train_step as jax_make_step
 from eventgrad_tpu.utils.metrics import msgs_saved_pct as jax_msgs_saved
+import eventgrad_tpu_torch as egt
 from eventgrad_tpu_torch import convert, ops
 from eventgrad_tpu_torch.models.resnet import ResNet
+from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
 from eventgrad_tpu_torch.parallel.topology import Ring
-from eventgrad_tpu_torch.train.state import TrainState
+from eventgrad_tpu_torch.train.state import TrainState, init_train_state
 from eventgrad_tpu_torch.train.steps import make_train_step
 from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
 
@@ -75,7 +88,7 @@ def _flat_of(jparams, spec):
     return spec.ravel(tp)
 
 
-def _port_state(jstate, spec, topo, algo):
+def _port_state(jstate, spec, topo, algo, resident_wire=None):
     """The port's TrainState holding the JAX state's values."""
     tp, ts = convert.params_from_jax(
         jax.tree.map(np.asarray, jstate.params),
@@ -84,27 +97,33 @@ def _port_state(jstate, spec, topo, algo):
     flat = spec.ravel(tp)
     event = None
     if algo == "eventgrad":
-        event = EventState.init(spec, topo, EventConfig(**CFG), device="cpu")
+        event = EventState.init(spec, topo, EventConfig(**CFG),
+                                resident_wire=resident_wire, device="cpu")
     return TrainState(params=flat, trace=torch.zeros_like(flat),
                       batch_stats=ts, pass_num=0, event=event)
 
 
-def _run_both(algo, n_steps):
+def _run_both(algo, n_steps, trace=True, **wire_kw):
+    """Both packages' steps from the same state over `n_steps` passes;
+    `wire_kw` (wire, carrier_resident, staleness) goes to both."""
     jmodel = JaxResNet(block_cls=JaxBasicBlock, dtype=jnp.float64, **SMALL)
     tmodel = ResNet(dtype=torch.float64, **SMALL)
     spec = arena_spec(tmodel)
     jtopo, topo = JaxRing(R), Ring(R)
     tx = optax.sgd(LR, momentum=MOM)
+    resident = wire_kw["wire"] if wire_kw.get("carrier_resident") else None
     tstep = make_train_step(tmodel, topo, algo, EventConfig(**CFG),
-                            fused_sgd=(LR, MOM), trace=True)
+                            fused_sgd=(LR, MOM), trace=trace, **wire_kw)
     passes = []
     with jax.enable_x64(True):
         jstate = jax_init_state(jmodel, SHAPE, tx, jtopo, algo,
-                                JaxEventConfig(**CFG), seed=0, arena=True)
-        tstate = _port_state(jstate, spec, topo, algo)
+                                JaxEventConfig(**CFG), seed=0, arena=True,
+                                staleness=wire_kw.get("staleness", 0),
+                                resident_wire=resident)
+        tstate = _port_state(jstate, spec, topo, algo, resident)
         jstep = jax.jit(spmd(jax_make_step(
             jmodel, tx, jtopo, algo, JaxEventConfig(**CFG),
-            fused_sgd=(LR, MOM), trace=True, arena=True,
+            fused_sgd=(LR, MOM), trace=trace, arena=True, **wire_kw,
         ), jtopo))
         for x, y in _batches(n_steps):
             jprev = jstate
@@ -237,5 +256,151 @@ def test_step_runs_the_kernels_only_on_cuda(eventgrad_run):
     x, y = _batches(1)[0]
     step(tstate, (torch.from_numpy(x), torch.from_numpy(y).long()))
     assert ops.launch_counts() == {
-        "masked_wire": 0, "fused_mix_commit": 0, "fused_mix_sgd": 0,
+        "masked_wire": 0, "masked_wire_int8": 0, "fused_mix_commit": 0,
+        "fused_mix_sgd": 0, "fused_mix_commit_carrier": 0,
     }
+
+
+#: the wire cases held against the JAX step: (algo, passes, step kwargs)
+WIRE_CASES = {
+    "eventgrad-int8-carrier": ("eventgrad", 1,
+                               dict(wire="int8", carrier_resident=True)),
+    "eventgrad-int8-f32": ("eventgrad", 1, dict(wire="int8")),
+    "eventgrad-bf16-carrier": ("eventgrad", 1,
+                               dict(wire="bf16", carrier_resident=True)),
+    "eventgrad-int8-stale1": ("eventgrad", 2,
+                              dict(wire="int8", carrier_resident=True,
+                                   staleness=1)),
+    "dpsgd-int8": ("dpsgd", 1, dict(wire="int8")),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(WIRE_CASES))
+def wire_run(request):
+    algo, n_steps, kw = WIRE_CASES[request.param]
+    spec, passes = _run_both(algo, n_steps, trace=not kw.get("staleness"),
+                             **kw)
+    return algo, kw, spec, passes
+
+
+def _f32_bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+def test_wire_step_matches_jax(wire_run):
+    algo, kw, spec, passes = wire_run
+    _assert_first_step(spec, passes)
+    _, jstate, _, tstate, _ = passes[0]
+    if algo == "eventgrad":
+        want_dt = {"int8": torch.int8, "bf16": torch.bfloat16}[kw["wire"]]
+        for tb, jb in zip(tstate.event.bufs, jstate.event.bufs):
+            assert tb.dtype == (want_dt if kw.get("carrier_resident")
+                                else torch.float32)
+            np.testing.assert_array_equal(
+                _f32_bits(tb.to(torch.float32)),
+                _f32_bits(_flat_of_bufs(np.asarray(jb, np.float32), spec)),
+                err_msg="first-pass receive buffers",
+            )
+        assert (tstate.event.buf_scales is None) == (
+            jstate.event.buf_scales is None)
+        for ts, js in zip(tstate.event.buf_scales or (),
+                          jstate.event.buf_scales or ()):
+            np.testing.assert_array_equal(_f32_bits(ts), _f32_bits(js),
+                                          err_msg="first-pass scales")
+    for _, jstate, jm, tstate, tm in passes[1:]:
+        np.testing.assert_allclose(
+            tstate.params.numpy(), _flat_of(jstate.params, spec).numpy(),
+            **TOL)
+        for tb, jb in zip(tstate.event.bufs, jstate.event.bufs):
+            dq = np.abs(tb.to(torch.float32).numpy()
+                        - _flat_of_bufs(np.asarray(jb, np.float32), spec))
+            assert dq.max() <= 1, dq.max()
+
+
+#: carrier residency on vs off, the port against itself
+RESIDENT_CASES = {
+    "int8": dict(wire="int8"),
+    "bf16": dict(wire="bf16"),
+    "int8-stale1": dict(wire="int8", staleness=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESIDENT_CASES))
+def test_carrier_resident_bitwise_matches_f32_resident(name):
+    kw = RESIDENT_CASES[name]
+    model, topo, cfg = ResNet(**SMALL), Ring(R), EventConfig(**CFG)
+    batches = _batches(5)
+    runs = []
+    for carrier in (None, True):
+        step = make_train_step(model, topo, "eventgrad", cfg,
+                               fused_sgd=(LR, MOM), carrier_resident=carrier,
+                               **kw)
+        st = init_train_state(
+            model, SHAPE, topo, "eventgrad", cfg, 0, momentum=MOM,
+            resident_wire=kw["wire"] if carrier else None, device="cpu",
+        )
+        for x, y in batches:
+            st, m = step(st, (torch.from_numpy(x), torch.from_numpy(y).long()))
+        runs.append((st, m))
+    (sf, mf), (sc, mc) = runs
+    want_dt = {"int8": torch.int8, "bf16": torch.bfloat16}[kw["wire"]]
+    assert all(b.dtype == want_dt for b in sc.event.bufs)
+    assert all(b.dtype == torch.float32 for b in sf.event.bufs)
+    eq = lambda a, b, what: np.testing.assert_array_equal(
+        _f32_bits(a), _f32_bits(b), err_msg=what)
+    eq(sc.params, sf.params, "params")
+    eq(sc.trace, sf.trace, "trace")
+    for k in sf.batch_stats:
+        eq(sc.batch_stats[k], sf.batch_stats[k], k)
+    for f in ("thres", "last_sent_norm", "last_sent_iter", "slopes"):
+        eq(getattr(sc.event, f), getattr(sf.event, f), f)
+    for f in ("num_events", "num_deferred"):
+        np.testing.assert_array_equal(getattr(sc.event, f),
+                                      getattr(sf.event, f), err_msg=f)
+    deq = collectives.dequant_carrier_bufs(sc.event.bufs, sc.event.buf_scales,
+                                           arena_spec(model))
+    for d, b in zip(deq, sf.event.bufs):
+        eq(d, b, "bufs")
+    for k in mf:
+        np.testing.assert_array_equal(mc[k].numpy(), mf[k].numpy(),
+                                      err_msg=f"metric {k}")
+
+
+def test_wire_guards():
+    """The JAX step's guards that apply to the port, with their
+    messages, plus the port's own refusal of staleness >= 2."""
+    model, topo = ResNet(**SMALL), Ring(R)
+
+    def mk(algo, **kw):
+        return make_train_step(model, topo, algo, EventConfig(**CFG),
+                               fused_sgd=(LR, MOM), **kw)
+
+    with pytest.raises(ValueError, match="algo='eventgrad'"):
+        mk("dpsgd", wire="int8", carrier_resident=True)
+    with pytest.raises(ValueError, match="wire="):
+        mk("eventgrad", carrier_resident=True)
+    with pytest.raises(ValueError, match="wire must be one of"):
+        mk("eventgrad", wire="fp8")
+    with pytest.raises(ValueError, match="RMA asynchrony"):
+        mk("dpsgd", staleness=1)
+    with pytest.raises(ValueError, match="trace records"):
+        mk("eventgrad", staleness=1, trace=True)
+    with pytest.raises(ValueError, match="staleness must be"):
+        mk("eventgrad", staleness=-1)
+    with pytest.raises(NotImplementedError, match="bounded-async"):
+        mk("eventgrad", wire="int8", carrier_resident=True, staleness=2)
+    x, y = _batches(1)[0]
+    with pytest.raises(ValueError, match="algo='eventgrad'"):
+        egt.train(model, topo, x.reshape((-1,) + SHAPE), y.reshape(-1),
+                  algo="dpsgd", wire="int8", carrier_resident=True,
+                  epochs=1, batch_size=PER_RANK, device="cpu")
+    # the exchange's carrier contract
+    spec = arena_spec(model)
+    flat = torch.zeros((R, spec.n_total))
+    fire = torch.ones((R, spec.n_leaves), dtype=torch.bool)
+    with pytest.raises(ValueError, match="integrity"):
+        collectives.masked_neighbor_vals_flat(
+            flat, fire, topo, spec, "int8", checksum=True, carrier=True)
+    with pytest.raises(ValueError, match="bf16/int8"):
+        collectives.masked_neighbor_vals_flat(flat, fire, topo, spec,
+                                              carrier=True)
