@@ -10,33 +10,57 @@ Phases, in order; any failure exits non-zero and prints no result:
    card stays float32);
 2. build — the hand-written kernels (`eventgrad_tpu_torch/csrc/*.cu`)
    compile with nvcc for sm_90a, one process per source, all at once;
-3. kernels — each kernel at the flagship shapes (Ring(8) x ResNet-18:
-   8 x 17,444,682 elements, two neighbors), held bitwise against its
-   plain PyTorch version on the same inputs (bit patterns compared at
-   each dtype's width), then timed with CUDA events (median of 20 after
-   3 warm-ups) beside its plain version, a one-call PyTorch yardstick
-   where one exists, and its bound on the card. The carrier commit runs
-   on int8 carriers (with scales) and on bf16 carriers, and on int8 it
-   must equal the f32 commit kernel fed the dequantized buffers, bitwise
-   (p', t' and the dequantized committed buffers);
+3. kernels — each gossip-tail kernel at the flagship shapes (Ring(8) x
+   ResNet-18: 8 x 17,444,682 elements, two neighbors), held bitwise
+   against its plain PyTorch version on the same inputs (bit patterns
+   compared at each dtype's width), then timed with CUDA events (median
+   of 20 after 3 warm-ups) beside its plain version, a one-call PyTorch
+   yardstick where one exists, and its bound on the card. The carrier
+   commit runs on int8 carriers (with scales) and on bf16 carriers, and
+   on int8 it must equal the f32 commit kernel fed the dequantized
+   buffers, bitwise (p', t' and the dequantized committed buffers).
+   Then the three flash-attention kernels (forward, dQ, dK/dV) at the
+   transformer legs' shapes (B = 32 = 8 ranks x 4, T = 1024, H = 8,
+   D = 64, causal, q/k/v as strided views of one fused projection), in
+   float32 and in bfloat16, each against its plain version on the same
+   inputs and, in float32, the autograd Function end to end against
+   autograd through the plain attention: float32 forward atol = rtol =
+   2e-5, float32 gradients atol = 5e-5, rtol = 5e-4, bfloat16 atol =
+   rtol = 5e-2; timed beside the plain versions and
+   `scaled_dot_product_attention` (forward, and its whole backward), with
+   the bound from the products' flops at the dense rate of the input
+   type (float32: 67 TFLOP/s outside the tensor cores; bfloat16: 989
+   TFLOP/s) or the bytes at 3.35 TB/s, whichever is larger. Small
+   float32 cases follow: non-causal, ragged T = 160 / D = 24, one row,
+   the offset variant on a fully visible, a diagonal and a fully masked
+   hop, per-group offsets, each with the cotangent of lse;
 4. reference — a small ResNet's EventGraD, D-PSGD and int8
    carrier-resident EventGraD steps on the card against the same steps
    on the CPU (plain versions), float64 compute and float32 state:
    parameters within rtol=1e-4, atol=1e-5 and equal fire bits, except
-   where a leaf sat on its threshold; int8 carriers within one quantum;
+   where a leaf sat on its threshold; int8 carriers within one quantum.
+   The same for a small transformer (flash attention, float32 compute,
+   T = 96), and stacked ring attention through the flash kernels over 4
+   shards against plain attention on the whole sequence, forward and
+   gradients;
 5. main path — the flagship trainer through `eventgrad_tpu_torch.train`:
    full-width ResNet-18 (bf16 compute, 3 blocks per stage), Ring(8),
    global batch 256, SGD lr 0.01 momentum 0.9, the adaptive trigger at
    horizon 1.05 and max_silence 50 with warmup 2, five legs of 3 steps x
    2 epochs: EventGraD and D-PSGD on the f32 wire, EventGraD on the int8
    wire with carrier-resident buffers, its D-PSGD int8 twin, and
-   EventGraD on the bf16 wire with carrier-resident buffers. The
-   kernels' launch counters are zeroed just before each leg and read
-   just after; a leg whose kernels did not launch, whose receive
-   buffers are not in the carrier dtype, whose int8 byte counts are not
-   exact (D-PSGD 34,890,052 sent bytes per step per chip, EventGraD
-   34,890,224 wire-real bytes), or whose loss is not finite fails the
-   run;
+   EventGraD on the bf16 wire with carrier-resident buffers. Then two
+   transformer legs at the same optimizer and trigger: EventGraD and
+   D-PSGD on `TransformerLM(vocab=256, dim=512, n_heads=8, n_layers=4,
+   max_len=1024, attn="flash")` in float32, 4 sequences of 1024 tokens
+   per rank, the f32 wire (13,389,056 parameters per rank in 46
+   leaves). The kernels' launch counters are zeroed just before each
+   leg and read just after; a leg whose kernels did not launch, whose
+   receive buffers are not in the carrier dtype, whose int8 byte counts
+   are not exact (D-PSGD 34,890,052 sent bytes per step per chip,
+   EventGraD 34,890,224 wire-real bytes), whose flash kernels did not
+   launch once per layer per step (forward: plus once per layer per
+   test pass), or whose loss is not finite fails the run;
 6. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
@@ -57,15 +81,23 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
+#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the
 #: float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: dense bf16 rate of the tensor cores
+BF16_OPS_PER_S = 989e12
 
 #: the flagship shapes: ResNet-18 as the reference instantiates it
 FLAGSHIP_PARAMS = 17_444_682
 RANKS = 8
 NB = 2
+
+#: the flash-attention shapes of the transformer legs: batch 8 ranks x 4
+#: sequences, T = 1024, 8 heads of 64 (dim 512), causal
+FLASH_SHAPE = (RANKS * 4, 1024, 8, 64)
+LM = dict(vocab=256, dim=512, n_heads=8, n_layers=4, max_len=1024)
+LM_PARAMS, LM_LEAVES, LM_PER_RANK = 13_389_056, 46, 4
 
 TIMING_REPS, TIMING_WARMUP = 20, 3
 DEVICE = "cuda"
@@ -364,82 +396,315 @@ def phase_kernels():
     return recs
 
 
-def phase_reference():
-    """The train step on the card against the same step on the CPU."""
+def within(got, want, atol, rtol, what) -> float:
+    """Largest |got - want|; raises unless |got - want| <= atol + rtol *
+    |want| everywhere and `got` is finite."""
+    import torch
+
+    g, w = got.detach().float(), want.detach().float()
+    err = float((g - w).abs().max())
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()) or not bool(
+            ((g - w).abs() <= atol + rtol * w.abs()).all()):
+        raise SmokeError(f"{what}: max_abs_err {err} outside atol={atol}, "
+                         f"rtol={rtol}")
+    return err
+
+
+def flash_bound(products: int, n_tensors: int, n_rows: int, shape, dtype):
+    """(bound_ms, bound_by) of one causal flash kernel: `products` matrix
+    products of 2*T*T*D flops per (batch, head), halved by the causal
+    mask, at the dense rate of the input type (float32: the FMA rate
+    outside the tensor cores; bfloat16: the tensor cores), against
+    `n_tensors` [B, T, H, D] tensors and `n_rows` f32 [B, H, T] vectors
+    moved once."""
+    import torch
+
+    b, t, h, d = shape
+    flops = products * 2 * b * h * t * t * d / 2
+    rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    nbytes = (n_tensors * b * t * h * d * torch.finfo(dtype).bits // 8
+              + n_rows * b * h * t * 4)
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash_kernels():
+    """The three flash-attention kernels against their plain versions:
+    at the transformer legs' shapes in float32 (the legs' dtype) and
+    bfloat16, timed; then small cases (non-causal, ragged T and D, the
+    offset variant's three kinds of hop, the lse cotangent, per-group
+    offsets). Returns {name: partial kernel record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventgrad_tpu_torch.ops import attention as fa
+
+    log("== flash-attention kernels")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, t, h, d = FLASH_SHAPE
+    recs = {}
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        f32 = dtype == torch.float32
+        # f32: tests/test_flash_attention.py's tolerances; bf16: one part
+        # in 20 (8 significand bits through two products and a softmax)
+        tol_o = dict(atol=2e-5, rtol=2e-5) if f32 else dict(atol=5e-2, rtol=5e-2)
+        tol_g = dict(atol=5e-5, rtol=5e-4) if f32 else dict(atol=5e-2, rtol=5e-2)
+        # q, k, v as the model hands them over: strided views of one
+        # fused projection [B, T, 3H, D]
+        qkv = torch.randn((b, t, 3 * h, d), generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.split(h, dim=2)
+        do = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+
+        out, lse = fa.flash_fwd(q, k, v, None, True, 1)
+        ref_out, ref_lse = fa.lse_reference(q, k, v, None, True, 1)
+        err_f = within(out, ref_out, what=f"flash_fwd{tag} out", **tol_o)
+        within(lse, ref_lse, what=f"flash_fwd{tag} lse", **tol_o)
+        within(out, fa.flash_attention_reference(q, k, v, causal=True),
+               what=f"flash_fwd{tag} vs full_attention", **tol_o)
+        # the backward kernels on the plain forward's (out, lse), each
+        # against its plain version on the same inputs
+        lse_bht = ref_lse.transpose(1, 2).contiguous()
+        delta = (do.float() * ref_out.float()).sum(-1).transpose(
+            1, 2).contiguous()  # rowsum(dO * O) as [B, H, T]
+        bargs = (q, k, v, do, lse_bht, delta, None, True, 1)
+        dq = fa.flash_dq(*bargs)
+        dk, dv = fa.flash_dkv(*bargs)
+        err_q = within(dq, fa.dq_reference(*bargs), what=f"flash_dq{tag}",
+                       **tol_g)
+        rk, rv = fa.dkv_reference(*bargs)
+        err_kv = max(within(dk, rk, what=f"flash_dkv{tag} dk", **tol_g),
+                     within(dv, rv, what=f"flash_dkv{tag} dv", **tol_g))
+        del rk, rv, ref_out, ref_lse
+        if f32:
+            # end to end: the autograd Function against autograd through
+            # the plain attention
+            leaf = qkv.clone().requires_grad_()
+            g_k, = torch.autograd.grad(
+                fa.flash_attention(*leaf.split(h, dim=2), causal=True), leaf,
+                do)
+            g_p, = torch.autograd.grad(
+                fa.flash_attention_reference(*leaf.split(h, dim=2),
+                                             causal=True), leaf, do)
+            e = within(g_k, g_p, what="flash backward vs autograd", **tol_g)
+            err_q, err_kv = max(err_q, e), max(err_kv, e)
+            del leaf, g_k, g_p
+
+        # the library yardstick: one fused call, [B, H, T, D] views
+        lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv,
+                                                      is_causal=True)
+        lib_out = sdpa()
+        lib_do = do.transpose(1, 2)
+        lib_fwd = time_ms(lambda: sdpa())
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, (lq, lk, lv), lib_do, retain_graph=True))
+        del lib_out
+        with torch.no_grad():
+            recs["flash_fwd" + tag] = dict(
+                max_abs_err=err_f,
+                ms=time_ms(lambda: fa.flash_fwd(q, k, v, None, True, 1)),
+                plain_ms=time_ms(
+                    lambda: fa.lse_reference(q, k, v, None, True, 1)),
+                library_ms=lib_fwd,
+                # reads q, k, v, writes out and lse; two products
+                bound=flash_bound(2, 4, 1, FLASH_SHAPE, dtype),
+            )
+            recs["flash_dq" + tag] = dict(
+                max_abs_err=err_q,
+                ms=time_ms(lambda: fa.flash_dq(*bargs)),
+                plain_ms=time_ms(lambda: fa.dq_reference(*bargs)),
+                library_ms=lib_bwd,  # the library's whole backward
+                # reads q, k, v, dO, lse, delta, writes dQ; three products
+                bound=flash_bound(3, 5, 2, FLASH_SHAPE, dtype),
+            )
+            recs["flash_dkv" + tag] = dict(
+                max_abs_err=err_kv,
+                ms=time_ms(lambda: fa.flash_dkv(*bargs)),
+                plain_ms=time_ms(lambda: fa.dkv_reference(*bargs)),
+                library_ms=lib_bwd,  # the library's whole backward
+                # reads q, k, v, dO, lse, delta, writes dK, dV; four products
+                bound=flash_bound(4, 6, 2, FLASH_SHAPE, dtype),
+            )
+        del qkv, q, k, v, do, out, lse, dq, dk, dv, bargs, lq, lk, lv
+        torch.cuda.empty_cache()
+
+    # small cases, float32: (B, T, H, D, causal, q_offset, k_offset)
+    def offs(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    cases = (
+        ("non-causal", 2, 160, 2, 24, False, 0, 0),
+        ("ragged causal", 2, 160, 2, 24, True, 0, 0),
+        ("one row", 1, 1, 1, 16, True, 0, 0),
+        ("hop fully visible", 2, 96, 2, 32, True, 96, 0),
+        ("hop diagonal", 2, 96, 2, 32, True, 96, 96),
+        ("hop fully masked", 2, 96, 2, 32, True, 0, 96),
+        # two groups of two batch rows, each with its own offset pair
+        ("per-group offsets", 4, 80, 2, 64, True, offs(80, 40), offs(40, 80)),
+    )
+    for name, cb, ct, ch, cd, causal, qo, ko in cases:
+        ins = [torch.randn((cb, ct, ch, cd), generator=gen,
+                           device=dev).requires_grad_() for _ in range(3)]
+        w_o = torch.randn((cb, ct, ch, cd), generator=gen, device=dev)
+        w_l = torch.randn((cb, ct, ch), generator=gen, device=dev)
+        got = fa.flash_attention_lse(*ins, causal, qo, ko)
+        want = fa.attention_lse_reference(*ins, causal, qo, ko)
+        errs = [within(got[0], want[0], 2e-5, 2e-5, f"{name}: out"),
+                within(got[1], want[1], 2e-5, 2e-5, f"{name}: lse")]
+        # the cotangent of lse rides along (it folds into delta)
+        g_k = torch.autograd.grad(got, ins, (w_o, w_l))
+        g_p = torch.autograd.grad(want, ins, (w_o, w_l))
+        errs += [within(a, c, 5e-5, 5e-4, f"{name}: grad")
+                 for a, c in zip(g_k, g_p)]
+        recs["flash_fwd"]["max_abs_err"] = max(
+            recs["flash_fwd"]["max_abs_err"], *errs[:2])
+        recs["flash_dq"]["max_abs_err"] = max(
+            recs["flash_dq"]["max_abs_err"], errs[2])
+        recs["flash_dkv"]["max_abs_err"] = max(
+            recs["flash_dkv"]["max_abs_err"], *errs[3:])
+        log(f"flash {name}: B{cb} T{ct} H{ch} D{cd} max_abs_err "
+            f"{max(errs):.3e}")
+    torch.cuda.synchronize()
+    for name, r in recs.items():
+        log(json.dumps({"kernel": name, "shape": list(FLASH_SHAPE), **{
+            k: v for k, v in r.items() if k != "bound"},
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}))
+    return recs
+
+
+def _reference_steps(name, model, algo, kw, cfg, batches, tol):
+    """`len(batches)` train steps on the card against the same steps on
+    the CPU (plain versions) from one initial state."""
     import numpy as np
     import torch
 
-    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
-    from eventgrad_tpu_torch.models.resnet import ResNet
-    from eventgrad_tpu_torch.parallel.events import EventConfig
     from eventgrad_tpu_torch.parallel.topology import Ring
     from eventgrad_tpu_torch.train.state import init_train_state
     from eventgrad_tpu_torch.train.steps import make_train_step
 
+    topo = Ring(RANKS)
+    step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9),
+                           trace=True, **kw)
+    resident = kw.get("wire") if kw.get("carrier_resident") else None
+    st = {d: init_train_state(model, batches[0][0].shape[2:], topo, algo, cfg,
+                              0, momentum=0.9, resident_wire=resident,
+                              device=d)
+          for d in (DEVICE, "cpu")}
+    flips = 0
+    for i, (xb, yb) in enumerate(batches):
+        batch = (torch.from_numpy(xb), torch.from_numpy(yb))
+        out = {}
+        for d in st:
+            prev = st[d]
+            st[d], m = step(prev, tuple(v.to(d) for v in batch))
+            out[d] = (prev, {k: v.cpu().numpy() for k, v in m.items()})
+        if not np.all(np.isfinite(out[DEVICE][1]["loss"])):
+            raise SmokeError(f"reference {name}: loss not finite")
+        if algo == "eventgrad":
+            fg, fc = (out[d][1]["trace_fired"] > 0 for d in (DEVICE, "cpu"))
+            diff = fg != fc
+            if diff.any():
+                prev = out["cpu"][0].event
+                vd = np.abs(out["cpu"][1]["trace_norm"]
+                            - prev.last_sent_norm.numpy())
+                th = prev.thres.numpy() * np.float32(cfg.horizon)
+                if not np.all(np.abs(vd - th)[diff] < 1e-5 * th[diff]):
+                    raise SmokeError(f"reference {name} pass {i + 1}: "
+                                     f"fire bits differ off the threshold")
+                flips += int(diff.sum())
+        if flips == 0:
+            np.testing.assert_allclose(
+                st[DEVICE].params.cpu().numpy(), st["cpu"].params.numpy(),
+                err_msg=f"reference {name} pass {i + 1}: params", **tol,
+            )
+            if resident:
+                # parameters agree to rounding, so a carrier lane may
+                # sit one quantum over at a rounding boundary
+                for bg, bc in zip(st[DEVICE].event.bufs,
+                                  st["cpu"].event.bufs):
+                    if bg.dtype != torch.int8:
+                        raise SmokeError(f"reference {name}: buffers "
+                                         f"are {bg.dtype}")
+                    dq = (bg.cpu().float() - bc.float()).abs().max()
+                    if float(dq) > 1:
+                        raise SmokeError(f"reference {name} pass "
+                                         f"{i + 1}: carriers differ by "
+                                         f"{float(dq)} quanta")
+    d = float((st[DEVICE].params.cpu() - st["cpu"].params).abs().max())
+    log(f"reference {name}: {len(batches)} passes, max |card - cpu| params "
+        f"{d:.3e}, fire-bit flips at the threshold: {flips}")
+
+
+def phase_reference():
+    """The train step on the card against the same step on the CPU, for
+    a small ResNet and a small transformer; then stacked ring attention
+    through the flash kernels against plain attention on the whole
+    sequence."""
+    import numpy as np
+    import torch
+
+    from eventgrad_tpu_torch.data.datasets import (
+        synthetic_dataset, synthetic_lm_dataset,
+    )
+    from eventgrad_tpu_torch.models.resnet import ResNet
+    from eventgrad_tpu_torch.models.transformer import TransformerLM
+    from eventgrad_tpu_torch.parallel.events import EventConfig
+    from eventgrad_tpu_torch.parallel.ring_attention import (
+        full_attention, ring_attention,
+    )
+    from eventgrad_tpu_torch.parallel.topology import Ring
+
     log("== reference: card vs CPU, small ResNet, float64 compute")
     model = ResNet(stage_sizes=(1, 1, 1, 1), num_filters=8,
                    dtype=torch.float64)
-    topo, per_rank, passes = Ring(RANKS), 4, 4
+    per_rank, passes = 4, 4
     cfg = EventConfig(adaptive=True, horizon=0.6, warmup_passes=2,
                       max_silence=3)
     x, y = synthetic_dataset(RANKS * per_rank * passes, (32, 32, 3), seed=4)
     x = x.reshape((passes, RANKS, per_rank, 32, 32, 3))
     y = y.reshape((passes, RANKS, per_rank)).astype(np.int64)
-    cases = (("eventgrad", "eventgrad", {}), ("dpsgd", "dpsgd", {}),
-             ("eventgrad-int8-carrier", "eventgrad",
-              dict(wire="int8", carrier_resident=True)))
-    for name, algo, kw in cases:
-        step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9),
-                               trace=True, **kw)
-        resident = kw.get("wire") if kw.get("carrier_resident") else None
-        st = {d: init_train_state(model, (32, 32, 3), topo, algo, cfg, 0,
-                                  momentum=0.9, resident_wire=resident,
-                                  device=d)
-              for d in (DEVICE, "cpu")}
-        flips = 0
-        for i in range(passes):
-            batch = (torch.from_numpy(x[i]), torch.from_numpy(y[i]))
-            out = {}
-            for d in st:
-                prev = st[d]
-                st[d], m = step(prev, tuple(v.to(d) for v in batch))
-                out[d] = (prev, {k: v.cpu().numpy() for k, v in m.items()})
-            if not np.all(np.isfinite(out[DEVICE][1]["loss"])):
-                raise SmokeError(f"reference {name}: loss not finite")
-            if algo == "eventgrad":
-                fg, fc = (out[d][1]["trace_fired"] > 0 for d in (DEVICE, "cpu"))
-                diff = fg != fc
-                if diff.any():
-                    prev = out["cpu"][0].event
-                    vd = np.abs(out["cpu"][1]["trace_norm"]
-                                - prev.last_sent_norm.numpy())
-                    th = prev.thres.numpy() * np.float32(cfg.horizon)
-                    if not np.all(np.abs(vd - th)[diff] < 1e-5 * th[diff]):
-                        raise SmokeError(f"reference {name} pass {i + 1}: "
-                                         f"fire bits differ off the threshold")
-                    flips += int(diff.sum())
-            if flips == 0:
-                np.testing.assert_allclose(
-                    st[DEVICE].params.cpu().numpy(), st["cpu"].params.numpy(),
-                    rtol=1e-4, atol=1e-5,
-                    err_msg=f"reference {name} pass {i + 1}: params",
-                )
-                if resident:
-                    # parameters agree to rounding, so a carrier lane may
-                    # sit one quantum over at a rounding boundary
-                    for bg, bc in zip(st[DEVICE].event.bufs,
-                                      st["cpu"].event.bufs):
-                        if bg.dtype != torch.int8:
-                            raise SmokeError(f"reference {name}: buffers "
-                                             f"are {bg.dtype}")
-                        dq = (bg.cpu().float() - bc.float()).abs().max()
-                        if float(dq) > 1:
-                            raise SmokeError(f"reference {name} pass "
-                                             f"{i + 1}: carriers differ by "
-                                             f"{float(dq)} quanta")
-        d = float((st[DEVICE].params.cpu() - st["cpu"].params).abs().max())
-        log(f"reference {name}: {passes} passes, max |card - cpu| params "
-            f"{d:.3e}, fire-bit flips at the threshold: {flips}")
+    batches = list(zip(x, y))
+    tol = dict(rtol=1e-4, atol=1e-5)
+    for name, algo, kw in (
+            ("eventgrad", "eventgrad", {}), ("dpsgd", "dpsgd", {}),
+            ("eventgrad-int8-carrier", "eventgrad",
+             dict(wire="int8", carrier_resident=True))):
+        _reference_steps(name, model, algo, kw, cfg, batches, tol)
+
+    # float32 compute (the flash kernels take float32 and bfloat16); T = 96
+    # leaves a ragged second tile. The same tolerance holds: the net has
+    # no ReLU for a rounding to flip
+    log("== reference: card vs CPU, small transformer (flash), float32")
+    seq, per_rank = 96, 2
+    lm = TransformerLM(vocab=64, dim=64, n_heads=4, n_layers=2, max_len=seq,
+                       attn="flash")
+    x, y = synthetic_lm_dataset(RANKS * per_rank * passes, seq, 64, seed=4)
+    x = x.reshape((passes, RANKS, per_rank, seq)).astype(np.int64)
+    y = y.reshape((passes, RANKS, per_rank, seq)).astype(np.int64)
+    for algo in ("eventgrad", "dpsgd"):
+        _reference_steps(f"transformer-{algo}", lm, algo, {}, cfg,
+                         list(zip(x, y)), tol)
+
+    log("== reference: stacked ring attention (flash hops) vs full attention")
+    n, b, t_local, h, d = 4, 2, 96, 4, 32
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    qs, ks, vs = (torch.randn((n, b, t_local, h, d), generator=gen,
+                              device=DEVICE).requires_grad_()
+                  for _ in range(3))
+    w = torch.randn((b, n * t_local, h, d), generator=gen, device=DEVICE)
+    whole = lambda z: z.permute(1, 0, 2, 3, 4).reshape(b, n * t_local, h, d)
+    for causal in (True, False):
+        got = whole(ring_attention(qs, ks, vs, Ring(n), causal=causal,
+                                   use_flash=True))
+        want = full_attention(whole(qs), whole(ks), whole(vs), causal=causal)
+        errs = [within(got, want, 2e-5, 2e-5, "ring attention: out")]
+        errs += [within(a, c, 5e-5, 5e-4, "ring attention: grad")
+                 for a, c in zip(torch.autograd.grad(got, (qs, ks, vs), w),
+                                 torch.autograd.grad(want, (qs, ks, vs), w))]
+        log(f"ring attention causal={causal}: {n} shards x T_local "
+            f"{t_local}, max_abs_err {max(errs):.3e}")
 
 
 #: the main path's legs: (name, algo, train() wire options, kernels that
@@ -552,6 +817,104 @@ def phase_main_path():
     return totals
 
 
+#: the transformer legs: (name, algo, gossip kernels that must launch)
+LM_LEGS = (
+    ("transformer-eventgrad", "eventgrad", ("masked_wire", "fused_mix_commit")),
+    ("transformer-dpsgd", "dpsgd", ("fused_mix_sgd",)),
+)
+
+
+def phase_main_path_lm():
+    """The transformer LM legs through the public entry point, flash
+    attention on. Returns the launches of each kernel summed over the
+    legs."""
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+
+    seq, steps, epochs = LM["max_len"], 3, 2
+    log(f"== main path: TransformerLM dim {LM['dim']} x {LM['n_heads']} heads "
+        f"x {LM['n_layers']} layers, T={seq}, flash attention (f32) x "
+        f"Ring(8), {LM_PER_RANK} sequences per rank")
+    x, y = synthetic_lm_dataset(RANKS * LM_PER_RANK * steps, seq,
+                                LM["vocab"], seed=0)
+    xt, yt = synthetic_lm_dataset(32, seq, LM["vocab"], seed=0, split="test")
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                          max_silence=50)
+    spec = arena_spec(egt.TransformerLM(attn="flash", **LM))
+    if (spec.n_total, spec.n_leaves) != (LM_PARAMS, LM_LEAVES):
+        raise SmokeError(f"TransformerLM has {spec.n_total} parameters in "
+                         f"{spec.n_leaves} leaves, expected {LM_PARAMS} in "
+                         f"{LM_LEAVES}")
+    totals = {}
+    for leg, algo, must_launch in LM_LEGS:
+        model = egt.TransformerLM(attn="flash", **LM)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = egt.train(
+            model, egt.Ring(RANKS), x, y, algo=algo, epochs=epochs,
+            batch_size=LM_PER_RANK, learning_rate=0.01, momentum=0.9,
+            event_cfg=cfg, random_sampler=True, seed=0, x_test=xt,
+            y_test=yt, device=DEVICE,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        missing = [k for k in must_launch if counts[k] == 0]
+        if missing:
+            raise SmokeError(f"{leg}: kernels never launched: {missing}")
+        # per step one launch per layer of each flash kernel (the ranks
+        # fold into the batch); each epoch's test pass adds one forward
+        # per layer
+        passes, layers = state.pass_num, LM["n_layers"]
+        want = {"flash_fwd": layers * (passes + epochs),
+                "flash_dq": layers * passes, "flash_dkv": layers * passes}
+        if passes != steps * epochs or any(counts[k] != n
+                                           for k, n in want.items()):
+            raise SmokeError(f"{leg}: {passes} passes, flash launches "
+                             f"{counts}, expected {want}")
+        losses = [r["loss"] for r in hist]
+        if not all(math.isfinite(v) for v in losses):
+            raise SmokeError(f"{leg}: loss not finite: {losses}")
+        if not bool(torch.isfinite(state.params).all()):
+            raise SmokeError(f"{leg}: parameters not finite")
+        if (tuple(state.params.shape) != (RANKS, LM_PARAMS)
+                or hist[-1]["n_params"] != LM_PARAMS):
+            raise SmokeError(f"{leg}: arena shape {tuple(state.params.shape)}")
+        last = hist[-1]
+        rec = {
+            "leg": leg, "passes": passes, "loss": losses,
+            "train_acc": last["train_acc"],
+            "test_accuracy": last["test_accuracy"],
+            "test_loss": last["test_loss"],
+            # the last epoch: no first-call set-up inside it
+            "step_ms": 1e3 * last["wall_s"] / last["steps"],
+            "first_epoch_step_ms": 1e3 * hist[0]["wall_s"] / hist[0]["steps"],
+            "leg_wall_s": wall,
+            "sent_bytes_per_step_per_chip": last["sent_bytes_per_step_per_chip"],
+            "sent_bytes_wire_real_per_step_per_chip":
+                last["sent_bytes_wire_real_per_step_per_chip"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": counts,
+        }
+        if algo == "eventgrad":
+            rec["msgs_saved_pct"] = last["msgs_saved_pct"]
+            if not 0.0 <= last["msgs_saved_pct"] < 100.0:
+                raise SmokeError(f"msgs_saved_pct {last['msgs_saved_pct']}")
+        elif last["sent_bytes_per_step_per_chip"] != NB * 4 * LM_PARAMS:
+            raise SmokeError(f"{leg}: sent bytes {rec}")
+        log(json.dumps(rec))
+        del state, model
+        torch.cuda.empty_cache()
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -564,6 +927,12 @@ KERNELS = (
     ("fused_mix_commit_carrier",
      "eventgrad_tpu_torch/csrc/mix_commit_carrier.cu",
      "eventgrad_tpu/ops/arena_update.py:205"),
+    ("flash_fwd", "eventgrad_tpu_torch/csrc/flash_fwd.cu",
+     "eventgrad_tpu/ops/attention.py:128"),
+    ("flash_dq", "eventgrad_tpu_torch/csrc/flash_dq.cu",
+     "eventgrad_tpu/ops/attention.py:169"),
+    ("flash_dkv", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
+     "eventgrad_tpu/ops/attention.py:205"),
 )
 
 
@@ -590,8 +959,11 @@ def main() -> int:
         card = phase_toolchain()
         phase_build()
         recs = phase_kernels()
+        recs.update(phase_flash_kernels())
         phase_reference()
         launches = phase_main_path()
+        for k, v in phase_main_path_lm().items():
+            launches[k] = launches.get(k, 0) + v
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,8 +1,9 @@
-"""Datasets: the synthetic CIFAR/MNIST-shaped stand-in.
+"""Datasets: the synthetic CIFAR/MNIST-shaped stand-in and the synthetic
+language-modeling task.
 
-Port of `eventgrad_tpu/data/datasets.py`: `synthetic_dataset` and the
-synthetic branch of `load_or_synthesize`, verbatim in numpy so the two
-packages train on identical arrays. The real-data loaders (MNIST,
+Port of `eventgrad_tpu/data/datasets.py`: `synthetic_dataset`, the
+synthetic branch of `load_or_synthesize` and `synthetic_lm_dataset`,
+verbatim in numpy so the two packages train on identical arrays. The real-data loaders (MNIST,
 CIFAR-10, the bundled digits) are not ported yet.
 """
 
@@ -55,3 +56,40 @@ def load_or_synthesize(
         raise NotImplementedError(f"dataset {dataset!r} is not ported yet")
     shape = (28, 28, 1) if dataset == "mnist" else (32, 32, 3)
     return synthetic_dataset(n_synth, shape, seed=seed, split=split)
+
+
+def synthetic_lm_dataset(
+    n: int,
+    seq_len: int = 128,
+    vocab: int = 256,
+    seed: int = 0,
+    split: str = "train",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic learnable language-modeling task.
+
+    Sequences are sampled from a fixed random first-order Markov chain with
+    peaked transition rows (each token has a few likely successors), so a
+    next-token model genuinely learns — cross-entropy falls from log(vocab)
+    toward the chain's conditional entropy. Returns (tokens[n, seq_len],
+    targets[n, seq_len]) int32 with targets the next token. `split` offsets
+    the sample stream so train/test are disjoint.
+    """
+    rng = np.random.default_rng(seed)
+    # peaked rows: logits ~ N(0, 3) -> a handful of high-probability successors
+    logits = 3.0 * rng.standard_normal((vocab, vocab))
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    cum = np.cumsum(probs, axis=1)
+
+    offset = 0 if split == "train" else 1_000_003
+    sample_rng = np.random.default_rng(seed + 29 + offset)
+    toks = np.empty((n, seq_len + 1), np.int32)
+    toks[:, 0] = sample_rng.integers(0, vocab, n)
+    u = sample_rng.random((n, seq_len))
+    for t in range(seq_len):  # vectorized over sequences; seq_len steps
+        # clamp: float cumsum can top out a few ulps below 1.0, and a draw
+        # above it would index one past the vocabulary
+        toks[:, t + 1] = np.minimum(
+            (cum[toks[:, t]] < u[:, t : t + 1]).sum(axis=1), vocab - 1
+        ).astype(np.int32)
+    return toks[:, :-1].copy(), toks[:, 1:].copy()

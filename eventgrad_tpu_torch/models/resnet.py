@@ -41,6 +41,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -117,15 +118,16 @@ class BatchNorm(nn.Module):
 class Dense(nn.Module):
     """flax `nn.Dense`, kernel `(out, in)`."""
 
-    def __init__(self, cin, cout, *, dtype, device):
+    def __init__(self, cin, cout, *, dtype, device, use_bias=True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(cout, cin, device=device))
-        self.bias = nn.Parameter(torch.empty(cout, device=device))
+        self.bias = (nn.Parameter(torch.empty(cout, device=device))
+                     if use_bias else None)
         self.dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.kernel.to(self.dtype),
-                        self.bias.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.kernel.to(self.dtype), bias)
 
 
 class BasicBlock(nn.Module):
@@ -163,6 +165,9 @@ class ResNet(nn.Module):
     """`forward(x, batch_stats, train)` takes NHWC images and returns
     float32 logits, plus the updated batch statistics in train mode."""
 
+    #: what the training loop feeds `forward`: float32 images
+    input_dtype = np.float32
+
     def __init__(
         self,
         stage_sizes: Sequence[int],
@@ -196,6 +201,14 @@ class ResNet(nn.Module):
         for name, m in self.named_modules():
             if isinstance(m, BatchNorm):
                 m.stat_key = name
+
+    def check_input_shape(self, input_shape) -> None:
+        cin = self.stem_conv.kernel.shape[1]
+        if tuple(input_shape)[-1] != cin:
+            raise ValueError(
+                f"input_shape {tuple(input_shape)} (NHWC) does not match the "
+                f"model's {cin} input channels"
+            )
 
     def stat_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Batch-statistics names and shapes, in flax order."""

@@ -10,6 +10,7 @@ from typing import Dict
 
 
 def _wrappers():
+    from eventgrad_tpu_torch.ops import attention
     from eventgrad_tpu_torch.ops.arena_update import (
         fused_mix_commit, fused_mix_commit_carrier,
     )
@@ -24,6 +25,9 @@ def _wrappers():
         "fused_mix_commit": fused_mix_commit,
         "fused_mix_sgd": fused_mix_sgd,
         "fused_mix_commit_carrier": fused_mix_commit_carrier,
+        "flash_fwd": attention.flash_fwd,
+        "flash_dq": attention.flash_dq,
+        "flash_dkv": attention.flash_dkv,
     }
 
 

@@ -137,6 +137,15 @@ _SIGNATURES = {
     # bufs_out*, nb, n, lr, mom, w, mix_stale, carrier, vec, stream
     "eg_mix_commit_carrier": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I64, _F, _F, _F, _I, _I, _I, _P],
+    # q, k, v, out, lse, offs|NULL, strides (host int64[9]), b, t, h, d,
+    # n_off, per, causal, dtype, stream
+    "eg_flash_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, dout, lse, delta, dq, offs|NULL, strides (host int64[12]),
+    # b, t, h, d, n_off, per, causal, dtype, stream
+    "eg_flash_dq": [_P] * 9 + [_I] * 8 + [_P],
+    # q, k, v, dout, lse, delta, dk, dv, offs|NULL, strides (host
+    # int64[12]), b, t, h, d, n_off, per, causal, dtype, stream
+    "eg_flash_dkv": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 

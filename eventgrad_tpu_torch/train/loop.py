@@ -40,6 +40,12 @@ def rank0_slice(tree: Any) -> Any:
     return tree[0]
 
 
+def _as_input(model, x) -> np.ndarray:
+    """Model inputs as a contiguous array of the model's `input_dtype`:
+    float32 images, int64 tokens (what torch indexes with)."""
+    return np.ascontiguousarray(x, model.input_dtype)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -50,16 +56,19 @@ def evaluate(model, params, batch_stats, x, y, batch_size: int = 1000,
              device=None) -> Dict[str, float]:
     """Test pass of one model: `params` is a `[n]` parameter arena (e.g.
     `consensus_params(state.params)`), `batch_stats` a dict of `[C]`
-    running statistics. Whole batches only, unless the set is smaller
+    running statistics (empty without BatchNorm). `x` is images with
+    one label each, or integer tokens `[n, T]` with a label per token. Whole batches only, unless the set is smaller
     than one batch. Returns {"accuracy", "loss"}."""
     device = resolve_device(device)
     spec = arena_spec(model)
     pdict = spec.unravel(params.to(device))
     stats = {k: v.to(device) for k, v in batch_stats.items()}
-    x = np.asarray(x, np.float32)
+    x = _as_input(model, x)
     y = np.asarray(y, np.int64)
     bs = batch_size if len(x) >= batch_size else len(x)
     n = (len(x) // bs) * bs
+    # labels scored: samples, or every token of a language model
+    n_labels = n * int(np.prod(y.shape[1:]))
     correct = torch.zeros((), dtype=torch.int64, device=device)
     nll = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(0, n, bs):
@@ -67,11 +76,11 @@ def evaluate(model, params, batch_stats, x, y, batch_size: int = 1000,
         yb = torch.from_numpy(y[i : i + bs]).to(device)
         out = torch.func.functional_call(model, pdict, (xb, stats, False))
         logp = torch.log_softmax(out.to(torch.float32), dim=-1)
-        nll = nll - torch.gather(logp, -1, yb[:, None]).sum()
+        nll = nll - torch.gather(logp, -1, yb[..., None]).sum()
         correct = correct + (out.argmax(-1) == yb).sum()
     return {
-        "accuracy": 100.0 * int(correct) / n,
-        "loss": float(nll) / n,
+        "accuracy": 100.0 * int(correct) / n_labels,
+        "loss": float(nll) / n_labels,
     }
 
 
@@ -100,6 +109,9 @@ def train(
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
     returns (final_state, per-epoch history). `batch_size` is per rank.
+    `x_train` is float images with `y_train` one label each, or integer
+    tokens `[n, T]` with next-token labels `[n, T]` (`train_acc` then
+    counts tokens).
     Each record carries `loss`, `train_acc`, `sent_bytes_per_step_per_chip`,
     `steps`, `wall_s` (seconds of device work for the epoch's steps),
     `wire`, `resident_dtype` ("f32" | "bf16" | "int8") and `staleness`,
@@ -114,8 +126,10 @@ def train(
     device = resolve_device(device)
     if algo == "eventgrad":
         event_cfg = event_cfg or EventConfig()
-    x = np.ascontiguousarray(x_train, np.float32)
+    x = _as_input(model, x_train)
     y = np.ascontiguousarray(y_train, np.int64)
+    # labels per sample: 1 for a classifier, T for a language model
+    labels_per_sample = int(np.prod(y.shape[1:]))
     n_ranks = topo.n_ranks
     steps = epoch_steps(len(x), n_ranks, batch_size)
     # make_train_step checks the wire/staleness/carrier combination
@@ -138,7 +152,7 @@ def train(
             len(x), n_ranks, batch_size, random=random_sampler, seed=seed,
             epoch=epoch,
         )
-        xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, H, W, C]
+        xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, ...]
         yb = torch.from_numpy(y[idx]).to(device)
         _sync(device)
         t0 = time.perf_counter()
@@ -158,7 +172,7 @@ def train(
             "wall_s": dt,
             "loss": float(m_e["loss"].mean()),
             "train_acc": 100.0 * float(m_e["correct"].sum())
-            / (n_ranks * steps * batch_size),
+            / (n_ranks * steps * batch_size * labels_per_sample),
             "sent_bytes_per_step_per_chip": float(m_e["sent_bytes"][..., 0].mean()),
             "sent_bytes_wire_real_per_step_per_chip": float(
                 m_e["sent_bytes_wire_real"][..., 0].mean()

@@ -4,7 +4,7 @@ Port of `eventgrad_tpu/train/state.py` (`TrainState`,
 `init_train_state`). The state holds every rank of the topology:
 parameters and the momentum trace as `[R, n]` f32 arenas
 (`parallel/arena.py`), BatchNorm statistics as a dict of `[R, C]`
-tensors (rank-local, never gossiped), the event state for EventGraD,
+tensors (rank-local, never gossiped; empty for a model without BatchNorm), the event state for EventGraD,
 and the pass counter. Every rank starts from the same parameters (the
 reference seeds every rank identically).
 """
@@ -52,7 +52,9 @@ def init_train_state(
     device=None,
 ) -> TrainState:
     """A rank-stacked TrainState for `topo.n_ranks` ranks, initialized
-    like flax from `seed` (`ResNet.init_variables`). `momentum` nonzero
+    like flax from `seed` (the model's `init_variables`; `input_shape` is
+    one sample's shape, checked by the model's `check_input_shape`). A
+    model without BatchNorm has an empty `batch_stats` dict, as flax's. `momentum` nonzero
     carries a momentum trace (optax.sgd(momentum=...)). `resident_wire`
     ("bf16" | "int8"; eventgrad) holds the receive buffers carrier-
     resident: in the wire dtype, with the int8 dequant scales in
@@ -63,11 +65,7 @@ def init_train_state(
         raise NotImplementedError(
             f"algo {algo!r} is not ported yet (eventgrad, dpsgd)"
         )
-    if tuple(input_shape)[-1] != model.stem_conv.kernel.shape[1]:
-        raise ValueError(
-            f"input_shape {tuple(input_shape)} (NHWC) does not match the "
-            f"model's {model.stem_conv.kernel.shape[1]} input channels"
-        )
+    model.check_input_shape(input_shape)
     spec = arena_spec(model)
     params, stats = model.init_variables(seed, device=device)
     flat = stack_for_ranks(spec.ravel(params), topo)

@@ -25,7 +25,9 @@ The gradient is taken at the pre-mix parameters, the reference's exact
 D-PSGD ordering. The R ranks' forward and backward run batched:
 `torch.func.functional_call` + `torch.func.vmap` +
 `torch.func.grad_and_value`, with the BatchNorm statistics threaded as
-explicit tensors. The JAX package's unfused optax tail is documented
+explicit tensors (an empty dict for the transformer, whose flash
+attention joins the batched forward and backward through its own `vmap`
+rule, `ops/attention.py`). The JAX package's unfused optax tail is documented
 bitwise equal to the fused one, so the port runs the fused tail only.
 The other algorithms, the compact wire, staleness >= 2, the bucketed
 schedule and the engines are not ported yet.
@@ -95,8 +97,11 @@ def make_train_step(
     carrier_resident: Optional[bool] = None,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
-    metrics)`: `x` is `[R, B, H, W, C]`, `y` int64 `[R, B]`, and every
-    metric is a `[R]` tensor. `fused_sgd=(lr, momentum)` is the plain
+    metrics)`: `x` is `[R, B, H, W, C]` images with `y` int64 `[R, B]`,
+    or `[R, B, T]` integer tokens with `y` int64 `[R, B, T]`, and every
+    metric is a `[R]` tensor. The model is called as `model(x,
+    batch_stats, True)` and returns `(output, new_batch_stats)`; a model
+    without BatchNorm carries an empty statistics dict. `fused_sgd=(lr, momentum)` is the plain
     SGD the state was initialized for (momentum 0 carries no trace).
     `trace=True` (eventgrad) adds the per-leaf send-side vectors
     `trace_norm`, `trace_thres`, `trace_fired` ([R, L]) to the metrics.
@@ -276,8 +281,10 @@ def make_train_step(
         bcast = lambda v: torch.broadcast_to(v, (r,))
         metrics.update(
             loss=loss,
-            correct=torch.sum(torch.argmax(out, dim=-1) == y, dim=-1,
-                              dtype=torch.int32),
+            # per rank, over every label axis: samples of a classifier
+            # `[R, B]`, tokens of a language model `[R, B, T]`
+            correct=torch.sum((torch.argmax(out, dim=-1) == y).flatten(1),
+                              dim=-1, dtype=torch.int32),
             fired_frac=bcast(fired_frac),
             sent_bytes=bcast(sent_bytes),
             fired_elems=bcast(fired_elems),

@@ -1,13 +1,16 @@
 """Where a flagship train step's time goes on the card.
 
     python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
+        [--model {resnet,transformer}]
         [--wire {bf16,int8}] [--staleness {0,1}] [--carrier-resident]
 
 For each leg (EventGraD, then D-PSGD) at the flagship op-point —
-ResNet-18 with bf16 compute, Ring(8) stacked on one card, global batch
-256, SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon 1.05 and
-max_silence 50 (warmup 2), the f32 wire unless `--wire` names another —
-it runs 3 warm-up steps, then:
+ResNet-18 with bf16 compute, global batch 256; or, with `--model
+transformer`, the LM of 4 layers, dim 512, 8 heads with flash attention
+in float32 on 4 sequences of 1024 tokens per rank — on Ring(8) stacked
+on one card, SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon
+1.05 and max_silence 50 (warmup 2), the f32 wire unless `--wire` names
+another — it runs 3 warm-up steps, then:
 
   * `step_ms`: the mean of `--steps` steps, host clock around work that
     ends in a synchronize;
@@ -33,9 +36,12 @@ import time
 
 import torch
 
-from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+from eventgrad_tpu_torch.data.datasets import (
+    synthetic_dataset, synthetic_lm_dataset,
+)
 from eventgrad_tpu_torch.data.sharding import batched_epoch
 from eventgrad_tpu_torch.models.resnet import ResNet18
+from eventgrad_tpu_torch.models.transformer import TransformerLM
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.topology import Ring
 from eventgrad_tpu_torch.train.state import init_train_state
@@ -43,12 +49,32 @@ from eventgrad_tpu_torch.train.steps import make_train_step
 from eventgrad_tpu_torch.utils.devices import resolve_device
 
 PHASES = ("grad", "gate_pack", "exchange", "commit_mix")
-RANKS, PER_RANK, WARMUP = 8, 32, 3
+RANKS, WARMUP = 8, 3
+LM_SEQ = 1024
+
+
+def _op_point(model_name: str, n_steps: int):
+    """(model, one sample's shape, x, y) of a flagship op-point with
+    `n_steps` steps of data."""
+    if model_name == "transformer":
+        model = TransformerLM(vocab=256, dim=512, n_heads=8, n_layers=4,
+                              max_len=LM_SEQ, attn="flash")
+        per_rank = 4
+        x, y = synthetic_lm_dataset(RANKS * per_rank * n_steps, LM_SEQ, 256)
+        x, shape = x.astype("int64"), (LM_SEQ,)
+    else:
+        model = ResNet18(dtype=torch.bfloat16)
+        per_rank, shape = 32, (32, 32, 3)
+        x, y = synthetic_dataset(RANKS * per_rank * n_steps, shape)
+    xb, yb = batched_epoch(x, y.astype("int64"), RANKS, per_rank)
+    return model, shape, xb, yb
 
 
 def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
-                wire=None, staleness: int = 0, carrier_resident=None):
-    model = ResNet18(dtype=torch.bfloat16)
+                wire=None, staleness: int = 0, carrier_resident=None,
+                model_name: str = "resnet"):
+    n_steps = WARMUP + 2 * steps
+    model, shape, xb, yb = _op_point(model_name, n_steps)
     topo = Ring(RANKS)
     cfg = EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                       max_silence=50)
@@ -58,12 +84,9 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                            wire=wire, staleness=staleness,
                            carrier_resident=carrier_resident)
     state = init_train_state(
-        model, (32, 32, 3), topo, algo, cfg, seed=0, momentum=0.9,
+        model, shape, topo, algo, cfg, seed=0, momentum=0.9,
         resident_wire=wire if carrier_resident else None, device=device,
     )
-    n_steps = WARMUP + 2 * steps
-    x, y = synthetic_dataset(RANKS * PER_RANK * n_steps, (32, 32, 3))
-    xb, yb = batched_epoch(x, y.astype("int64"), RANKS, PER_RANK)
     xb, yb = torch.from_numpy(xb).to(device), torch.from_numpy(yb).to(device)
     batches = iter((xb[:, s], yb[:, s]) for s in range(n_steps))
 
@@ -99,6 +122,7 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
     top_k = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return {
         "leg": algo,
+        "model": model_name,
         "wire": wire,
         "staleness": staleness,
         "resident_dtype": (wire if carrier_resident else None) or "f32",
@@ -124,6 +148,8 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--model", choices=("resnet", "transformer"),
+                    default="resnet")
     ap.add_argument("--wire", choices=("bf16", "int8"), default=None)
     ap.add_argument("--staleness", type=int, choices=(0, 1), default=0)
     ap.add_argument("--carrier-resident", action="store_true")
@@ -134,7 +160,8 @@ def main(argv=None) -> int:
     for algo in ("eventgrad", "dpsgd"):
         rec = profile_leg(algo, args.steps, device, wire=args.wire,
                           staleness=args.staleness,
-                          carrier_resident=args.carrier_resident or None)
+                          carrier_resident=args.carrier_resident or None,
+                          model_name=args.model)
         print(json.dumps(rec), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

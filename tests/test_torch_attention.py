@@ -1,0 +1,234 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+The same numpy inputs (one seed per case) go through both packages. The
+JAX side runs its Pallas kernels in interpret mode (`interpret=True`),
+as the JAX package's own tests do on the CPU; the port runs the plain
+versions its wrappers take for CPU tensors, through the same
+`torch.autograd.Function`s (and their `vmap` rules) that launch the CUDA
+kernels on the card.
+
+Tolerances are those of `tests/test_flash_attention.py`, float32: the two
+sides sum the same products in another order.
+  * forward (out, lse): atol = rtol = 2e-5;
+  * gradients: atol = 5e-5, rtol = 5e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eventgrad_tpu.ops.attention import flash_attention as jax_flash
+from eventgrad_tpu.ops.attention import flash_attention_lse as jax_flash_lse
+from eventgrad_tpu.parallel.ring_attention import full_attention as jax_full
+from eventgrad_tpu.parallel.ring_attention import ring_attention as jax_ring
+from eventgrad_tpu.parallel.ring_attention import (
+    ulysses_attention as jax_ulysses,
+)
+from eventgrad_tpu.parallel.spmd import spmd
+from eventgrad_tpu.parallel.topology import Ring as JaxRing
+from eventgrad_tpu_torch.ops import attention as fa
+from eventgrad_tpu_torch.parallel.ring_attention import (
+    full_attention, ring_attention, ulysses_attention,
+)
+from eventgrad_tpu_torch.parallel.topology import Ring, Topology
+
+FWD = dict(atol=2e-5, rtol=2e-5)
+GRAD = dict(atol=5e-5, rtol=5e-4)
+SHAPES = [(48, 32), (160, 24)]  # (T, D): one tile, and ragged in both
+
+
+def _inputs(seed, *shape, n=3):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def _leaves(arrays):
+    return [torch.from_numpy(a).requires_grad_() for a in arrays]
+
+
+def _close(got, want, tol, what=""):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want), err_msg=what, **tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,d", SHAPES)
+def test_flash_attention_matches_jax(t, d, causal):
+    q, k, v, w = _inputs(t + d, 2, t, 2, d, n=4)
+    tq = _leaves([q, k, v])
+    out = fa.flash_attention(*tq, causal=causal)
+    _close(out, jax_flash(q, k, v, causal, interpret=True), FWD, "out")
+    _close(out, jax_full(q, k, v, causal), FWD, "out vs full")
+    _close(fa.flash_attention_reference(*tq, causal=causal),
+           jax_full(q, k, v, causal), FWD, "reference")
+    grads = torch.autograd.grad(out, tq, torch.from_numpy(w))
+    jgrads = jax.grad(
+        lambda q, k, v: jnp.sum(jax_flash(q, k, v, causal, interpret=True) * w),
+        argnums=(0, 1, 2),
+    )(q, k, v)
+    for name, g, jg in zip("qkv", grads, jgrads):
+        _close(g, jg, GRAD, f"d{name}")
+
+
+#: (q_offset, k_offset) at T = 48: every key in the past, the diagonal
+#: block, a partly visible block, every key in the future
+OFFSETS = {"visible": (48, 0), "diagonal": (96, 96), "partial": (48, 24),
+           "masked": (0, 48)}
+
+
+@pytest.mark.parametrize("hop", sorted(OFFSETS))
+def test_flash_attention_lse_offsets_and_dlse_match_jax(hop):
+    qo, ko = OFFSETS[hop]
+    t, d = 48, 32
+    q, k, v, w = _inputs(7, 2, t, 2, d, n=4)
+    w_lse = _inputs(8, 2, t, 2, n=1)[0]
+    tq = _leaves([q, k, v])
+    out, lse = fa.flash_attention_lse(*tq, causal=True, q_offset=qo,
+                                      k_offset=ko)
+    jfn = lambda q, k, v: jax_flash_lse(q, k, v, causal=True, q_offset=qo,
+                                        k_offset=ko, interpret=True)
+    jout, jlse = jfn(q, k, v)
+    _close(out, jout, FWD, "out")
+    _close(lse, jlse, FWD, "lse")
+    out_d, lse_d = out.detach(), lse.detach()
+    assert torch.isfinite(out_d).all() and torch.isfinite(lse_d).all()
+    if hop == "masked":  # no visible key: zero output, lse near -1e30
+        assert float(out_d.abs().max()) == 0.0 and float(lse_d.max()) < -1e29
+    # both cotangents: the one of lse folds into the delta term
+    grads = torch.autograd.grad(
+        (out, lse), tq, (torch.from_numpy(w), torch.from_numpy(w_lse)))
+
+    def jloss(q, k, v):
+        o, l = jfn(q, k, v)
+        return jnp.sum(o * w) + jnp.sum(l * w_lse)
+
+    for name, g, jg in zip("qkv", grads,
+                           jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)):
+        assert torch.isfinite(g).all()
+        _close(g, jg, GRAD, f"d{name}")
+
+
+@pytest.mark.parametrize("t,d", SHAPES)
+def test_plain_backward_equals_autograd_of_plain_forward(t, d):
+    """The FA2 backward written out (`attention_bwd_reference`, what the
+    Functions' backward runs on the CPU) against autograd through the
+    plain forward."""
+    q, k, v, w = _inputs(3, 2, t, 2, d, n=4)
+    w_lse = _inputs(4, 2, t, 2, n=1)[0]
+    tq = _leaves([q, k, v])
+    out, lse = fa.attention_lse_reference(*tq, causal=True, q_offset=5,
+                                          k_offset=2)
+    do, dlse = torch.from_numpy(w), torch.from_numpy(w_lse)
+    want = torch.autograd.grad((out, lse), tq, (do, dlse))
+    got = fa.attention_bwd_reference(*tq, out, lse, do, dlse, causal=True,
+                                     q_offset=5, k_offset=2)
+    for name, g, wg in zip("qkv", got, want):
+        _close(g, wg.numpy(), GRAD, f"d{name}")
+
+
+def test_offsets_per_group_of_batch_rows():
+    """A length-N offset tensor gives one (q_offset, k_offset) pair per
+    group of B / N consecutive batch rows."""
+    t, d = 40, 16
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5, 6, t, 2, d))
+    qo = torch.tensor([0, 40, 80])
+    ko = torch.tensor([40, 40, 0])
+    out, lse = fa.flash_attention_lse(q, k, v, True, qo, ko)
+    for g in range(3):
+        rows = slice(2 * g, 2 * g + 2)
+        o1, l1 = fa.flash_attention_lse(q[rows], k[rows], v[rows], True,
+                                        int(qo[g]), int(ko[g]))
+        _close(out[rows], o1.numpy(), dict(atol=0, rtol=0))
+        _close(lse[rows], l1.numpy(), dict(atol=0, rtol=0))
+    with pytest.raises(ValueError, match="do not divide"):
+        fa.flash_attention_lse(q, k, v, True, torch.arange(4), 0)
+
+
+def test_wrapper_refuses_mismatched_inputs():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(6, 1, 8, 2, 16))
+    with pytest.raises(ValueError, match="share one"):
+        fa.flash_attention(q, k[:, :4], v)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        fa.flash_attention(q, k.double(), v)
+
+
+def test_vmap_of_grad_folds_ranks_into_the_batch():
+    """`vmap(grad(loss))` over stacked ranks — the train step's lift —
+    equals the per-rank gradients, forward and backward each running once
+    on the folded `[R * B, T, H, D]` batch."""
+    r, t, h, d = 3, 48, 2, 16
+    qs, ks, vs = (torch.from_numpy(a) for a in _inputs(9, r, 2, t, h, d))
+    calls = []
+    plain_fwd = fa.lse_reference
+
+    def counting(q, *a):
+        calls.append(tuple(q.shape))
+        return plain_fwd(q, *a)
+
+    def loss(q, k, v):
+        qkv = torch.cat([q, k, v], dim=2)  # strided views, as in the model
+        return (fa.flash_attention(*qkv.split(h, dim=2), causal=True) ** 2
+                ).sum()
+
+    fa.lse_reference = counting
+    try:
+        got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
+            qs, ks, vs)
+    finally:
+        fa.lse_reference = plain_fwd
+    assert calls == [(r * 2, t, h, d)]
+    for i in range(r):
+        leaves = [x[i].clone().requires_grad_() for x in (qs, ks, vs)]
+        want = torch.autograd.grad(
+            (full_attention(*leaves, causal=True) ** 2).sum(), leaves)
+        for g, wg in zip(got, want):
+            _close(g[i], wg.numpy(), GRAD)
+
+
+N_SP = 4
+
+
+def _sp_case(seed):
+    b, t, h, d = 2, 32, 8, 16  # global sequence T, T // N per rank
+    full = _inputs(seed, b, t, h, d, n=4)
+    shard = lambda x: np.stack(np.split(x, N_SP, axis=1))
+    return full, [shard(x) for x in full]
+
+
+def _jax_sp(fn, causal, use_flash):
+    topo = JaxRing(N_SP)
+    return spmd(lambda q, k, v: fn(q, k, v, topo, causal=causal,
+                                   use_flash=use_flash), topo)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_flash", [False, True])
+@pytest.mark.parametrize("kind", ["ring", "ulysses"])
+def test_stacked_sequence_parallel_attention_matches_jax(kind, use_flash,
+                                                         causal):
+    (q, k, v, _), (qs, ks, vs, ws) = _sp_case(11)
+    fn, jfn = {"ring": (ring_attention, jax_ring),
+               "ulysses": (ulysses_attention, jax_ulysses)}[kind]
+    leaves = _leaves([qs, ks, vs])
+    out = fn(*leaves, Ring(N_SP), causal=causal, use_flash=use_flash)
+    jlift = _jax_sp(jfn, causal, use_flash)
+    _close(out, jlift(qs, ks, vs), FWD, "out")
+    whole = np.concatenate(list(out.detach().numpy()), axis=1)
+    _close(whole, jax_full(q, k, v, causal), FWD, "out vs full attention")
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(ws))
+    jgrads = jax.grad(lambda q, k, v: jnp.sum(jlift(q, k, v) * ws),
+                      argnums=(0, 1, 2))(qs, ks, vs)
+    for name, g, jg in zip("qkv", grads, jgrads):
+        _close(g, jg, GRAD, f"d{name}")
+
+
+def test_sequence_parallel_guards():
+    qs = torch.zeros((4, 1, 8, 6, 4))
+    with pytest.raises(ValueError, match="not divisible"):
+        ulysses_attention(qs, qs, qs, Ring(4))
+    with pytest.raises(ValueError, match="rank-stacked shards"):
+        ring_attention(qs[:2], qs[:2], qs[:2], Ring(4))
+    with pytest.raises(NotImplementedError, match="multi-axis"):
+        ring_attention(qs, qs, qs, Topology(axes=("dp", "sp"), shape=(2, 2)))

@@ -48,6 +48,31 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+#: packages of finished kernels the port must not come to need
+KERNEL_PACKAGES = ("flash_attn", "xformers", "apex", "transformer_engine",
+                   "cutlass", "cudnn")
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "eventgrad_tpu_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_kernel(path):
+    """Every kernel of the port is written by hand: no module of the
+    package calls `scaled_dot_product_attention` or `torch.compile`, or
+    imports a package of finished kernels (`chip_smoke.py` alone times
+    the library's attention, as a yardstick)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(mod, line) for mod, line in _imported_roots(tree)
+           if mod in KERNEL_PACKAGES]
+    for node in ast.walk(tree):
+        name = getattr(node, "attr", getattr(node, "id", None))
+        if name == "scaled_dot_product_attention" or (
+                name == "compile" and isinstance(node, ast.Attribute)
+                and getattr(node.value, "id", "") == "torch"):
+            bad.append((name, node.lineno))
+    assert not bad, f"{path.relative_to(ROOT)} uses {bad}"
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     """`device=None` means the card and raises without CUDA — never a
     silent run on the CPU."""
@@ -63,6 +88,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     flat = torch.cat([v.reshape(-1) for v in params.values()])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         egt.evaluate(model, flat, stats, x, y)
+    lm = egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1, max_len=8,
+                           attn="flash")
+    tokens = np.zeros((16, 8), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        egt.train(lm, egt.Ring(4), tokens, tokens, algo="dpsgd", epochs=1,
+                  batch_size=2)
 
 
 def test_train_on_cpu_records():

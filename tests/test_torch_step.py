@@ -258,6 +258,7 @@ def test_step_runs_the_kernels_only_on_cuda(eventgrad_run):
     assert ops.launch_counts() == {
         "masked_wire": 0, "masked_wire_int8": 0, "fused_mix_commit": 0,
         "fused_mix_sgd": 0, "fused_mix_commit_carrier": 0,
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     }
 
 
