@@ -10,6 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    card stays float32);
 2. build — the hand-written kernels (`eventgrad_tpu_torch/csrc/*.cu`)
    compile with nvcc for sm_90a, one process per source, all at once;
+   each flash instantiation's registers, spills and shared memory
+   (`-Xptxas -v`), and, where the toolkit has cuobjdump, its count of
+   tensor-core (HMMA) instructions: the run fails if a forward or dK/dV
+   instantiation has none;
 3. kernels — each gossip-tail kernel at the flagship shapes (Ring(8) x
    ResNet-18: 8 x 17,444,682 elements, two neighbors), held bitwise
    against its plain PyTorch version on the same inputs (bit patterns
@@ -28,12 +32,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    2e-5, float32 gradients atol = 5e-5, rtol = 5e-4, bfloat16 atol =
    rtol = 5e-2; timed beside the plain versions and
    `scaled_dot_product_attention` (forward, and its whole backward), with
-   the bound from the products' flops at the dense rate of the input
-   type (float32: 67 TFLOP/s outside the tensor cores; bfloat16: 989
-   TFLOP/s) or the bytes at 3.35 TB/s, whichever is larger. Small
-   float32 cases follow: non-causal, ragged T = 160 / D = 24, one row,
-   the offset variant on a fully visible, a diagonal and a fully masked
-   hop, per-group offsets, each with the cotangent of lse;
+   the bound from the products' flops on the tensor cores (bfloat16: 989
+   TFLOP/s; float32: three TF32 products each at 495 TFLOP/s, the least
+   work that keeps float32 accuracy) or the bytes at 3.35 TB/s,
+   whichever is larger. Small cases follow in float32 and bfloat16:
+   non-causal, ragged T = 160 / D = 24, one row, the offset variant on a
+   fully visible, a diagonal and a fully masked hop, per-group offsets,
+   each with the cotangent of lse;
 4. reference — a small ResNet's EventGraD, D-PSGD and int8
    carrier-resident EventGraD steps on the card against the same steps
    on the CPU (plain versions), float64 compute and float32 state:
@@ -72,6 +77,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -85,8 +91,9 @@ HERE = Path(__file__).resolve().parent
 #: float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-#: dense bf16 rate of the tensor cores
+#: dense bf16 and TF32 rates of the tensor cores
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 #: the flagship shapes: ResNet-18 as the reference instantiates it
 FLAGSHIP_PARAMS = 17_444_682
@@ -192,17 +199,92 @@ def phase_toolchain():
     return card
 
 
+#: a flash kernel instantiation in a mangled name: kernel, type, DMAX
+FLASH_INST = re.compile(
+    r"(flash_(?:fwd|dq|dkv))_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def inst_name(found) -> str:
+    kernel, ty, dmax = found.groups()
+    return f"{kernel}<{'float' if ty == 'f' else 'bf16'}, {dmax}>"
+
+
+def flash_smem_bytes(kernel: str, elem: int, dmax: int) -> int:
+    """Dynamic shared memory of one flash instantiation, as its `run`
+    sizes it: the tensor-core kernels hold [64][DMAX + 16 bytes] tiles
+    (forward q + two stages of k and v; dK/dV k, v + two stages of q and
+    dO, and of lse and delta), the dQ kernel float32 tiles."""
+    if kernel == "flash_fwd":
+        return 5 * 64 * (dmax + 16 // elem) * elem
+    if kernel == "flash_dkv":
+        return 6 * 64 * (dmax + 16 // elem) * elem + 4 * 64 * 4
+    return 4 * (4 * dmax * 68 + 64 * (dmax + 8) + 64 * 68)
+
+
+def ptxas_report(text: str):
+    """Per flash instantiation, ptxas's registers and spills (-Xptxas -v)
+    beside its dynamic shared memory."""
+    inst = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            inst = FLASH_INST.search(m.group(1))
+            continue
+        if inst is None:
+            continue
+        kernel, ty, dmax = inst.groups()
+        name = inst_name(inst)
+        if "spill" in line:
+            log(f"  ptxas {name}: {line.strip()}")
+        elif "Used" in line:
+            smem = flash_smem_bytes(kernel, 4 if ty == "f" else 2, int(dmax))
+            log(f"  ptxas {name}: {line.split(':', 1)[1].strip()}; "
+                f"{smem} bytes dynamic shared memory")
+
+
+def hmma_counts(lib_path) -> dict:
+    """{instantiation: HMMA instructions} of the flash kernels in the
+    built library, from cuobjdump's SASS; {} without cuobjdump."""
+    from eventgrad_tpu_torch.ops import build
+
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, inst = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            found = FLASH_INST.search(m.group(1))
+            inst = inst_name(found) if found else None
+            if inst:
+                counts.setdefault(inst, 0)
+        elif inst and "HMMA" in line:
+            counts[inst] += 1
+    return counts
+
+
 def phase_build():
     from eventgrad_tpu_torch.ops import build
 
     log("== build")
     path, secs, text = build.build(verbose=True)
-    for line in text.splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    if not text:
+        log("  (library already built from these sources: no ptxas report)")
+    ptxas_report(text)
     build.library()
     log(f"built {path.relative_to(HERE) if HERE in path.parents else path} "
         f"in {secs:.2f} s")
+    counts = hmma_counts(path)
+    if counts:
+        log(f"HMMA instructions per flash instantiation: {json.dumps(counts)}")
+        idle = [k for k, n in counts.items()
+                if k.startswith(("flash_fwd", "flash_dkv")) and n == 0]
+        if idle:
+            raise SmokeError(f"no tensor-core instructions in {idle}")
+    else:
+        log("cuobjdump not in the toolkit: HMMA count skipped")
 
 
 def phase_kernels():
@@ -413,27 +495,28 @@ def within(got, want, atol, rtol, what) -> float:
 def flash_bound(products: int, n_tensors: int, n_rows: int, shape, dtype):
     """(bound_ms, bound_by) of one causal flash kernel: `products` matrix
     products of 2*T*T*D flops per (batch, head), halved by the causal
-    mask, at the dense rate of the input type (float32: the FMA rate
-    outside the tensor cores; bfloat16: the tensor cores), against
-    `n_tensors` [B, T, H, D] tensors and `n_rows` f32 [B, H, T] vectors
-    moved once."""
+    mask, on the tensor cores (bfloat16: 989 TFLOP/s; float32: three TF32
+    products each at 495 TFLOP/s, the least that keeps float32 accuracy),
+    against `n_tensors` [B, T, H, D] tensors and `n_rows` f32 [B, H, T]
+    vectors moved once."""
     import torch
 
     b, t, h, d = shape
     flops = products * 2 * b * h * t * t * d / 2
-    rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    t_ops = (3 * flops / TF32_OPS_PER_S if dtype == torch.float32
+             else flops / BF16_OPS_PER_S) * 1e3
     nbytes = (n_tensors * b * t * h * d * torch.finfo(dtype).bits // 8
               + n_rows * b * h * t * 4)
-    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_flash_kernels():
     """The three flash-attention kernels against their plain versions:
     at the transformer legs' shapes in float32 (the legs' dtype) and
-    bfloat16, timed; then small cases (non-causal, ragged T and D, the
-    offset variant's three kinds of hop, the lse cotangent, per-group
-    offsets). Returns {name: partial kernel record}."""
+    bfloat16, timed; then small cases in both dtypes (non-causal, ragged
+    T and D, the offset variant's three kinds of hop, the lse cotangent,
+    per-group offsets). Returns {name: partial kernel record}."""
     import torch
     import torch.nn.functional as F
 
@@ -530,7 +613,8 @@ def phase_flash_kernels():
         del qkv, q, k, v, do, out, lse, dq, dk, dv, bargs, lq, lk, lv
         torch.cuda.empty_cache()
 
-    # small cases, float32: (B, T, H, D, causal, q_offset, k_offset)
+    # small cases, float32 and bfloat16: (B, T, H, D, causal, q_offset,
+    # k_offset); bfloat16 pads D to the k16 step of its products
     def offs(*v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
@@ -544,28 +628,33 @@ def phase_flash_kernels():
         # two groups of two batch rows, each with its own offset pair
         ("per-group offsets", 4, 80, 2, 64, True, offs(80, 40), offs(40, 80)),
     )
-    for name, cb, ct, ch, cd, causal, qo, ko in cases:
-        ins = [torch.randn((cb, ct, ch, cd), generator=gen,
-                           device=dev).requires_grad_() for _ in range(3)]
-        w_o = torch.randn((cb, ct, ch, cd), generator=gen, device=dev)
-        w_l = torch.randn((cb, ct, ch), generator=gen, device=dev)
-        got = fa.flash_attention_lse(*ins, causal, qo, ko)
-        want = fa.attention_lse_reference(*ins, causal, qo, ko)
-        errs = [within(got[0], want[0], 2e-5, 2e-5, f"{name}: out"),
-                within(got[1], want[1], 2e-5, 2e-5, f"{name}: lse")]
-        # the cotangent of lse rides along (it folds into delta)
-        g_k = torch.autograd.grad(got, ins, (w_o, w_l))
-        g_p = torch.autograd.grad(want, ins, (w_o, w_l))
-        errs += [within(a, c, 5e-5, 5e-4, f"{name}: grad")
-                 for a, c in zip(g_k, g_p)]
-        recs["flash_fwd"]["max_abs_err"] = max(
-            recs["flash_fwd"]["max_abs_err"], *errs[:2])
-        recs["flash_dq"]["max_abs_err"] = max(
-            recs["flash_dq"]["max_abs_err"], errs[2])
-        recs["flash_dkv"]["max_abs_err"] = max(
-            recs["flash_dkv"]["max_abs_err"], *errs[3:])
-        log(f"flash {name}: B{cb} T{ct} H{ch} D{cd} max_abs_err "
-            f"{max(errs):.3e}")
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        f32 = dtype == torch.float32
+        tol_o = (2e-5, 2e-5) if f32 else (5e-2, 5e-2)
+        tol_g = (5e-5, 5e-4) if f32 else (5e-2, 5e-2)
+        for name, cb, ct, ch, cd, causal, qo, ko in cases:
+            ins = [torch.randn((cb, ct, ch, cd), generator=gen, device=dev)
+                   .to(dtype).requires_grad_() for _ in range(3)]
+            w_o = torch.randn((cb, ct, ch, cd), generator=gen,
+                              device=dev).to(dtype)
+            w_l = torch.randn((cb, ct, ch), generator=gen, device=dev)
+            got = fa.flash_attention_lse(*ins, causal, qo, ko)
+            want = fa.attention_lse_reference(*ins, causal, qo, ko)
+            what = f"{name}{tag}"
+            errs = [within(got[0], want[0], *tol_o, f"{what}: out"),
+                    within(got[1], want[1], *tol_o, f"{what}: lse")]
+            # the cotangent of lse rides along (it folds into delta)
+            g_k = torch.autograd.grad(got, ins, (w_o, w_l))
+            g_p = torch.autograd.grad(want, ins, (w_o, w_l))
+            errs += [within(a, c, *tol_g, f"{what}: grad")
+                     for a, c in zip(g_k, g_p)]
+            for kname, err in (("flash_fwd", max(errs[:2])),
+                               ("flash_dq", errs[2]),
+                               ("flash_dkv", max(errs[3:]))):
+                r = recs[kname + tag]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+            log(f"flash {what}: B{cb} T{ct} H{ch} D{cd} max_abs_err "
+                f"{max(errs):.3e}")
     torch.cuda.synchronize()
     for name, r in recs.items():
         log(json.dumps({"kernel": name, "shape": list(FLASH_SHAPE), **{

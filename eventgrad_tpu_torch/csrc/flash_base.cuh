@@ -1,0 +1,96 @@
+// What every flash-attention kernel shares, whatever its body: the shape
+// and strides it is launched with, the per-rank causal offsets, the
+// validity rule of a score, the dtype/head-width dispatch and the launch.
+//
+// Masking is finite: an invalid score is -1e30 and its p is exactly 0,
+// so a fully masked row ends with out = 0 and a finite lse.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace egf {
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLFloor = 1e-30f;
+
+// (batch, time, head) element strides of up to four [B, T, H, D] tensors
+struct Strides {
+  int64_t v[12];
+};
+
+struct Shape {
+  int b, t, h, d;
+  int n_off, per, causal;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// The causal offsets of batch row b: entry (b / per) % n_off of the
+// [n_off, 2] table, or (0, 0) without a table.
+__device__ __forceinline__ void load_offsets(const int* offs, const Shape& s,
+                                             int b, int& q_off, int& k_off) {
+  q_off = k_off = 0;
+  if (offs != nullptr) {
+    const int oi = (b / s.per) % s.n_off;
+    q_off = offs[2 * oi];
+    k_off = offs[2 * oi + 1];
+  }
+}
+
+__device__ __forceinline__ bool valid_at(int qpos, int kpos, int t, int causal,
+                                         int q_off, int k_off) {
+  return kpos < t && (!causal || q_off + qpos >= k_off + kpos);
+}
+
+// Call FN<T, DMAX>(...) for the element type of `dtype` (0 = float32,
+// 1 = bfloat16) and the smaller DMAX of {32, 64} holding d;
+// cudaErrorInvalidValue for anything else. (DMAX = 128 is not
+// instantiated yet.)
+#define EGF_DISPATCH(dtype, d, FN, ...)                               \
+  (((d) < 1 || (d) > 64 || ((dtype) != 0 && (dtype) != 1))            \
+       ? cudaErrorInvalidValue                                        \
+   : (dtype) == 0 ? ((d) <= 32 ? FN<float, 32>(__VA_ARGS__)           \
+                               : FN<float, 64>(__VA_ARGS__))          \
+                  : ((d) <= 32 ? FN<__nv_bfloat16, 32>(__VA_ARGS__)   \
+                               : FN<__nv_bfloat16, 64>(__VA_ARGS__)))
+
+// Opt a kernel into `bytes` of dynamic shared memory and launch it on
+// `grid` blocks of THREADS threads; returns the launch's error.
+template <int THREADS = 256, typename K, typename... A>
+inline cudaError_t launch_kernel(K kernel, int64_t grid, size_t bytes,
+                                 void* stream, A... args) {
+  if (grid < 1 || grid > 2147483647LL) return cudaErrorInvalidValue;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<(unsigned)grid, THREADS, bytes, (cudaStream_t)stream>>>(args...);
+  return cudaGetLastError();
+}
+
+inline Strides strides_from(const int64_t* host, int n_tensors) {
+  Strides s{};
+  for (int i = 0; i < 3 * n_tensors; ++i) s.v[i] = host[i];
+  return s;
+}
+
+inline bool shape_ok(const Shape& s, const int* offs) {
+  return s.b >= 1 && s.t >= 1 && s.h >= 1 && s.d >= 1 &&
+         (offs == nullptr ? s.n_off == 0 : (s.n_off >= 1 && s.per >= 1));
+}
+
+// 1 / sqrt(D), rounded once from double as the plain version's is
+inline float softmax_scale(int d) {
+  return (float)(1.0 / sqrt((double)d));
+}
+
+}  // namespace egf

@@ -3,58 +3,74 @@
 //
 // Replaces the TPU kernel eventgrad_tpu/ops/attention.py:_dkv_kernel
 // (launched by _run_bwd). Per (batch, head, 64-row K/V tile), over the Q
-// tiles qi:
+// tiles qi, in the transposed orientation (rows are keys):
 //
-//   s  = scale * (q_i k^T), invalid entries masked
-//   p  = exp(s - lse) * valid
-//   dV += p^T dO_i
-//   dp = dO_i v^T
-//   ds = p * (dp - delta) * scale
-//   dK += ds^T q_i
+//   s^T  = scale * (k q_i^T), invalid entries masked
+//   p^T  = exp(s^T - lse_i) * valid
+//   dV  += p^T dO_i
+//   dp^T = v dO_i^T
+//   ds^T = p^T * (dp^T - delta_i) * scale
+//   dK  += ds^T q_i
 //
 // The Q sweep that was the TPU grid's sequential last dimension is the
-// loop inside the block; dK and dV accumulate in registers, the K and V
-// tiles stay in shared memory for the whole sweep. A causal block
-// without offsets starts its sweep at the diagonal tile (earlier Q tiles
-// see none of these keys); with offsets every tile is visited and the
-// mask decides. Query rows past T are staged as zeros and masked, so
-// they add nothing.
+// loop inside the block. Four warps each own 16 keys: their score tiles
+// come out of the products (flash_mma.cuh: mma.sync on bf16, 3xTF32 on
+// float32) already transposed, so p^T and ds^T are the left operands of
+// the dV and dK products straight from their accumulators, and nothing
+// of p or ds goes through shared memory. dK and dV accumulate in
+// registers; the K and V tiles stay in shared memory for the whole
+// sweep. Q, dO, lse and delta tiles come through cp.async in a two-stage
+// ring: tile i + 1 loads while tile i is computed, one barrier per tile.
 //
-// Bound on the card: operations for float32 inputs (four products of
-// 2*T*T*D flops per (batch, head), halved when causal), bytes for
-// bfloat16. This first version runs float32 FMAs from shared memory for
-// both types. dV and dK accumulate transposed (dV^T = dO^T p, dK^T =
-// q^T ds), so both products read the same transposed q and dO tiles as
-// the score products and nothing is staged twice: six tiles, 104 KB at
-// D = 64, two blocks per SM.
-#include "flash_common.cuh"
+// A causal block sweeps only the Q tiles that can hold a valid entry for
+// one of its keys: from the tile of query k_off - q_off + (first key of
+// the tile) on, the diagonal tile without offsets, none for a ring hop
+// that lies wholly in the future. A skipped tile would have added
+// exactly 0 (its p and ds are 0). Query rows past T are staged as zeros
+// and masked. The heaviest blocks (the first K tiles of every (batch,
+// head), which sweep the most) come first in the grid, then the next
+// heaviest, so the tail of the launch holds the short sweeps.
+//
+// Bound on the card: operations at the main shape (four products of
+// 2*T*T*D flops per (batch, head), halved when causal: the tensor cores'
+// bf16 rate, or three TF32 products each for float32), against q, k, v,
+// dO, lse, delta read and dK, dV written once.
+#include "flash_mma.cuh"
 
 namespace {
 
 using namespace egf;
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, const int* __restrict__ offs,
-                     Strides st, Shape s, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* k_t = smem;                           // [DMAX][68]
-  float* v_t = k_t + trans_floats(DMAX);       // [DMAX][68]
-  float* q_t = v_t + trans_floats(DMAX);       // [DMAX][68]
-  float* do_t = q_t + trans_floats(DMAX);      // [DMAX][68]
-  float* p_s = do_t + trans_floats(DMAX);      // [64][68]
-  float* ds_s = p_s + score_floats();          // [64][68]
+                     Strides st, Shape s, float scale, int vec) {
+  using M = Tc<T>;
+  using G = Tile<T, DMAX>;
+  constexpr int kLd = G::kLd;
+  constexpr int kNs = kRows / 8;        // n8 tiles of a score row block
+  constexpr int kNo = DMAX / 8;         // n8 tiles of a dK/dV row block
+  constexpr int kKd = DMAX / M::kK;     // k steps over the head dimension
+  constexpr int kKq = kRows / M::kK;    // k steps over the Q tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
+  T* v_s = k_s + G::kElems;
+  T* q_s = v_s + G::kElems;                 // two stages
+  T* do_s = q_s + 2 * G::kElems;            // two stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * G::kElems);  // 2 x 64
+  float* dl_s = lse_s + 2 * kRows;                                // 2 x 64
 
-  constexpr int RPT = DMAX / 16;  // head elements per thread
-  const int nt = (s.t + kTile - 1) / kTile;
-  const int kj = (int)(blockIdx.x % nt);  // the first K tile sweeps the most
-  const int bh = blockIdx.x / nt;
+  const int nt = (s.t + kRows - 1) / kRows;
+  const int bhn = s.b * s.h;
+  const int kj = (int)(blockIdx.x / bhn);
+  const int bh = (int)(blockIdx.x % bhn);
   const int b = bh / s.h, hh = bh % s.h;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
 
   int q_off, k_off;
   load_offsets(offs, s, b, q_off, k_off);
@@ -62,53 +78,140 @@ __global__ void __launch_bounds__(kThreads)
   const T* kp = k + b * st.v[3] + hh * st.v[5];
   const T* vp = v + b * st.v[6] + hh * st.v[8];
   const T* dop = dout + b * st.v[9] + hh * st.v[11];
+  const float* lse_p = lse + (int64_t)bh * s.t;
+  const float* dl_p = delta + (int64_t)bh * s.t;
 
-  load_tile<T, DMAX, true, false>(kp, st.v[4], kj * kTile, s.t, s.d, 1.f,
-                                  k_t, nullptr);
-  load_tile<T, DMAX, true, false>(vp, st.v[7], kj * kTile, s.t, s.d, 1.f,
-                                  v_t, nullptr);
-
-  float acc_k[RPT][4] = {}, acc_v[RPT][4] = {};  // dK^T, dV^T patches
-
-  const int q_begin = (s.causal && offs == nullptr) ? kj : 0;
-  for (int qi = q_begin; qi < nt; ++qi) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DMAX, true, false>(qp, st.v[1], qi * kTile, s.t, s.d, 1.f,
-                                    q_t, nullptr);
-    load_tile<T, DMAX, true, false>(dop, st.v[10], qi * kTile, s.t, s.d, 1.f,
-                                    do_t, nullptr);
-    __syncthreads();
-
-    // score rows are Q rows (ty), score columns are K rows (tx)
-    float sc[4][4] = {}, dp[4][4] = {};
-    mma_tt2(q_t, k_t, do_t, v_t, s.d, ty, tx, sc, dp);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = qi * kTile + ty * 4 + i;
-      const bool row_ok = qpos < s.t;
-      const float lse_i = row_ok ? lse[(int64_t)bh * s.t + qpos] : 0.f;
-      const float delta_i = row_ok ? delta[(int64_t)bh * s.t + qpos] : 0.f;
-      float p[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = row_ok && valid_at(qpos, kj * kTile + tx * 4 + j, s.t,
-                                           s.causal, q_off, k_off);
-        p[j] = ok ? expf(scale * sc[i][j] - lse_i) : 0.f;
-        ds[j] = p[j] * (dp[i][j] - delta_i) * scale;
-      }
-      *reinterpret_cast<float4*>(p_s + (ty * 4 + i) * kLdT + tx * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(ds_s + (ty * 4 + i) * kLdT + tx * 4) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
-    // reduce over the Q rows of the tile, into the transposed patches
-    mma_ts<RPT>(do_t, p_s, ty, tx, acc_v);
-    mma_ts<RPT>(q_t, ds_s, ty, tx, acc_k);
+  // the first Q tile with a query that may see some key of this K tile
+  int q_begin = 0;
+  if (s.causal) {
+    const int first_query = k_off - q_off + kj * kRows;
+    q_begin = first_query <= 0 ? 0 : min(nt, first_query / kRows);
   }
-  write_patch_t<T, RPT>(dk, s, b, hh, kj * kTile, ty, tx, acc_k);
-  write_patch_t<T, RPT>(dv, s, b, hh, kj * kTile, ty, tx, acc_v);
+
+  auto load_q_tile = [&](int qi, int stage) {
+    load_tile_async<T, DMAX>(q_s + stage * G::kElems, qp, st.v[1], qi * kRows,
+                             s.t, s.d, vec);
+    load_tile_async<T, DMAX>(do_s + stage * G::kElems, dop, st.v[10],
+                             qi * kRows, s.t, s.d, vec);
+    load_vec_async(lse_s + stage * kRows, lse_p, qi * kRows, s.t);
+    load_vec_async(dl_s + stage * kRows, dl_p, qi * kRows, s.t);
+  };
+  if (q_begin < nt) {
+    load_tile_async<T, DMAX>(k_s, kp, st.v[4], kj * kRows, s.t, s.d, vec);
+    load_tile_async<T, DMAX>(v_s, vp, st.v[7], kj * kRows, s.t, s.d, vec);
+    load_q_tile(q_begin, 0);
+  }
+  cp_async_commit();
+
+  const int key0 = kj * kRows + warp * 16;  // this warp's first key
+  const float c = scale * kLog2e;
+  float acc_k[kNo][4], acc_v[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int qi = q_begin; qi < nt; ++qi) {
+    const int cur = (qi - q_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile qi is in; every warp is done with tile qi - 1
+    if (qi + 1 < nt) load_q_tile(qi + 1, cur ^ 1);
+    cp_async_commit();
+    const T* qs = q_s + cur * G::kElems;
+    const T* dos = do_s + cur * G::kElems;
+    const float* lse_t = lse_s + cur * kRows;
+    const float* dl_t = dl_s + cur * kRows;
+
+    // s^T = k q^T and dp^T = v dO^T: rows are this warp's 16 keys,
+    // columns the 64 queries of the tile
+    float sc[kNs][4], dp[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kKd; ++kc) {
+      const typename M::A ka = M::load_a(k_s, kLd, warp * 16, kc * M::kK, lane);
+      const typename M::A va = M::load_a(v_s, kLd, warp * 16, kc * M::kK, lane);
+#pragma unroll
+      for (int n = 0; n < kNs; n += 2) {
+        typename M::B b0, b1;
+        M::load_bt2(b0, b1, qs, kLd, n * 8, kc * M::kK, lane);
+        M::mma(sc[n], ka, b0);
+        M::mma(sc[n + 1], ka, b1);
+        M::load_bt2(b0, b1, dos, kLd, n * 8, kc * M::kK, lane);
+        M::mma(dp[n], va, b0);
+        M::mma(dp[n + 1], va, b1);
+      }
+    }
+
+    // p^T and ds^T in place; lane holds keys g (e < 2) and g + 8 (e >= 2),
+    // queries 8n + 2tq + (e & 1). p = 2^(c s - log2(e) lse), c = scale *
+    // log2(e); a masked score is -inf, so its p and ds are exactly 0.
+    // Only tiles that cross the causal diagonal or the end of T are masked.
+    const int qrow0 = qi * kRows;
+    const bool full = qrow0 + kRows <= s.t && key0 + 16 <= s.t &&
+                      (!s.causal || q_off + qrow0 >= k_off + key0 + 15);
+    if (!full) {
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = qrow0 + n * 8 + 2 * tq + (e & 1);
+          if (qpos >= s.t || !valid_at(qpos, key0 + g + 8 * (e >> 1), s.t,
+                                       s.causal, q_off, k_off))
+            sc[n][e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int j2 = 0; j2 < 2; ++j2) {
+        const int col = n * 8 + 2 * tq + j2;
+        const float lse_c = lse_t[col] * kLog2e, dl = dl_t[col];
+#pragma unroll
+        for (int e = j2; e < 4; e += 2) {
+          const float p = fast_exp2(fmaf(sc[n][e], c, -lse_c));
+          sc[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - dl) * scale;
+        }
+      }
+
+    // dV += p^T dO and dK += ds^T q, reducing over the tile's queries
+#pragma unroll
+    for (int kc = 0; kc < kKq; ++kc) {
+      const typename M::A pa = M::from_acc(sc, kc);
+      const typename M::A da = M::from_acc(dp, kc);
+#pragma unroll
+      for (int n = 0; n < kNo; n += 2) {
+        typename M::B b0, b1;
+        M::load_b2(b0, b1, dos, kLd, kc * M::kK, n * 8, lane);
+        M::mma(acc_v[n], pa, b0);
+        M::mma(acc_v[n + 1], pa, b1);
+        M::load_b2(b0, b1, qs, kLd, kc * M::kK, n * 8, lane);
+        M::mma(acc_k[n], da, b0);
+        M::mma(acc_k[n + 1], da, b1);
+      }
+    }
+  }
+  cp_async_wait_all();  // nothing left in flight when the block exits
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = key0 + g + 8 * i;
+    if (row >= s.t) continue;
+    const int64_t at = (((int64_t)b * s.t + row) * s.h + hh) * s.d;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = n * 8 + 2 * tq + c;
+        if (col < s.d) {
+          store(dk + at + col, acc_k[n][2 * i + c]);
+          store(dv + at + col, acc_v[n][2 * i + c]);
+        }
+      }
+  }
 }
 
 template <typename T, int DMAX>
@@ -116,13 +219,16 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 const int* offs, const Strides& st, const Shape& s,
                 void* stream) {
+  // k, v, 2 x q, 2 x dO, 2 x (lse, delta)
   constexpr size_t bytes =
-      sizeof(float) * (4 * trans_floats(DMAX) + 2 * score_floats());
-  const int64_t nt = (s.t + kTile - 1) / kTile;
-  return launch_kernel(flash_dkv_kernel<T, DMAX>, nt * s.b * s.h, bytes,
-                       stream, (const T*)q, (const T*)k, (const T*)v,
-                       (const T*)dout, lse, delta, (T*)dk, (T*)dv, offs, st, s,
-                       softmax_scale(s.d));
+      6 * Tile<T, DMAX>::kBytes + 4 * kRows * sizeof(float);
+  const void* ptrs[4] = {q, k, v, dout};
+  const int vec = rows_aligned16(ptrs, st, 4, sizeof(T));
+  const int64_t nt = (s.t + kRows - 1) / kRows;
+  return launch_kernel<kBlock>(flash_dkv_kernel<T, DMAX>, nt * s.b * s.h,
+                               bytes, stream, (const T*)q, (const T*)k,
+                               (const T*)v, (const T*)dout, lse, delta, (T*)dk,
+                               (T*)dv, offs, st, s, softmax_scale(s.d), vec);
 }
 
 }  // namespace

@@ -5,7 +5,7 @@
 // (launched by _run_fwd; entries flash_attention, flash_attention_lse).
 // Per (batch, head, 64-row Q tile), over the K/V tiles kj:
 //
-//   s      = (q * scale) k_j^T, invalid entries set to -1e30
+//   s      = scale * (q k_j^T), invalid entries masked
 //   m'     = max(m, rowmax(s));  p = exp(s - m') * valid
 //   l      = l * exp(m - m') + rowsum(p)
 //   acc    = acc * exp(m - m') + p v_j
@@ -16,42 +16,60 @@
 //
 // What the TPU kernel's grid did in sequence (the K sweep as the last
 // grid dimension, m/l/acc carried in scratch) is the loop inside the
-// block here; m, l and acc live in registers. A causal block without
-// offsets stops its sweep at the diagonal tile; with offsets the
-// diagonal depends on the data, so every tile is visited and the mask
-// decides. The heaviest blocks come first in the grid (the last Q tile
-// sweeps the most K tiles).
+// block here. Four warps each own 16 query rows of a 64-row Q tile; the
+// scores, p, m, l and acc live in registers (flash_mma.cuh: mma.sync on
+// bf16, 3xTF32 on float32), and p feeds the p v product from its
+// accumulators without touching shared memory. The scale multiplies the
+// float32 scores, so a D whose 1/sqrt(D) is not a power of two loses
+// nothing to a rounded q; the softmax runs in base 2 (one FFMA and one
+// MUFU.EX2 per score). K and V tiles come through cp.async in a
+// two-stage ring: tile j + 1 loads while tile j is computed, one barrier
+// per tile.
 //
-// Bound on the card: operations for float32 inputs (two products of
-// 2*T*T*D flops per (batch, head), halved when causal, against the
-// float32 FMA rate), bytes for bfloat16 inputs (q, k, v read and out
-// written once against the tensor-core rate). This first version runs
-// every product as float32 FMAs from shared memory for both types; it
-// uses no tensor cores, no asynchronous copies and no double buffering.
-#include "flash_common.cuh"
+// A causal block sweeps only the K tiles that can hold a valid entry for
+// one of its rows: up to the tile of key q_off - k_off + (last row of
+// the tile), the diagonal tile without offsets, none for a ring hop that
+// lies wholly in the future. A skipped tile would have left m, l and acc
+// bitwise as they were (its p is exactly 0). The heaviest blocks (the
+// last Q tiles of every (batch, head), which sweep the most) come first
+// in the grid, then the next heaviest, so the tail of the launch holds
+// the short sweeps.
+//
+// Bound on the card: operations at the main shape (two products of
+// 2*T*T*D flops per (batch, head), halved when causal: the tensor cores'
+// bf16 rate, or three TF32 products each for float32), against q, k, v
+// read and out, lse written once.
+#include "flash_mma.cuh"
 
 namespace {
 
 using namespace egf;
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, const int* __restrict__ offs,
-                     Strides st, Shape s, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* q_t = smem;                          // [DMAX][68], q * scale
-  float* k_t = q_t + trans_floats(DMAX);      // [DMAX][68]
-  float* v_r = k_t + trans_floats(DMAX);      // [64][DMAX+8]
-  float* p_s = v_r + rows_floats(DMAX);       // [64][68]
+                     Strides st, Shape s, float scale, int vec) {
+  using M = Tc<T>;
+  using G = Tile<T, DMAX>;
+  constexpr int kLd = G::kLd;
+  constexpr int kNs = kRows / 8;        // n8 tiles of a score row block
+  constexpr int kNo = DMAX / 8;         // n8 tiles of an output row block
+  constexpr int kKq = DMAX / M::kK;     // k steps of q k^T
+  constexpr int kKp = kRows / M::kK;    // k steps of p v
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
+  T* k_s = q_s + G::kElems;                 // two stages
+  T* v_s = k_s + 2 * G::kElems;             // two stages
 
-  using C = Cols<DMAX>;
-  const int nt = (s.t + kTile - 1) / kTile;
-  const int qi = nt - 1 - (int)(blockIdx.x % nt);
-  const int bh = blockIdx.x / nt;
+  const int nt = (s.t + kRows - 1) / kRows;
+  const int bhn = s.b * s.h;
+  const int qi = nt - 1 - (int)(blockIdx.x / bhn);
+  const int bh = (int)(blockIdx.x % bhn);
   const int b = bh / s.h, hh = bh % s.h;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
 
   int q_off, k_off;
   load_offsets(offs, s, b, q_off, k_off);
@@ -59,84 +77,151 @@ __global__ void __launch_bounds__(kThreads)
   const T* kp = k + b * st.v[3] + hh * st.v[5];
   const T* vp = v + b * st.v[6] + hh * st.v[8];
 
-  load_tile<T, DMAX, true, false>(qp, st.v[1], qi * kTile, s.t, s.d, scale,
-                                  q_t, nullptr);
-
-  float m[4], l[4], acc[4][C::CW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::CW; ++c) acc[i][c] = 0.f;
+  // the last K tile with a key that some row of this Q tile may see
+  int k_end = nt - 1;
+  if (s.causal) {
+    const int last_key = q_off - k_off + qi * kRows + kRows - 1;
+    k_end = last_key < 0 ? -1 : min(k_end, last_key / kRows);
   }
 
-  const int k_end = (s.causal && offs == nullptr) ? qi : nt - 1;
+  load_tile_async<T, DMAX>(q_s, qp, st.v[1], qi * kRows, s.t, s.d, vec);
+  if (k_end >= 0) {
+    load_tile_async<T, DMAX>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
+    load_tile_async<T, DMAX>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+  }
+  cp_async_commit();
+
+  const int row0 = qi * kRows + warp * 16;  // this warp's first query row
+  // rows g and g + 8: the max of the unscaled scores (kNegInf while every
+  // key so far was masked) and this lane's share of the row sum
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float c = scale * kLog2e;
+
   for (int kj = 0; kj <= k_end; ++kj) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DMAX, true, false>(kp, st.v[4], kj * kTile, s.t, s.d, 1.f,
-                                    k_t, nullptr);
-    load_tile<T, DMAX, false, true>(vp, st.v[7], kj * kTile, s.t, s.d, 1.f,
-                                    nullptr, v_r);
-    __syncthreads();
-
-    float sc[4][4] = {};
-    mma_tt(q_t, k_t, s.d, ty, tx, sc);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = qi * kTile + ty * 4 + i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = valid_at(qpos, kj * kTile + tx * 4 + j, s.t, s.causal, q_off,
-                         k_off);
-        sc[i][j] = ok[j] ? sc[i][j] : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float p[4], sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = ok[j] ? expf(sc[i][j] - m_new) : 0.f;  // masked p is exactly 0
-        sum += p[j];
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C::CW; ++c) acc[i][c] *= corr;
-      *reinterpret_cast<float4*>(p_s + (ty * 4 + i) * kLdT + tx * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
+    cp_async_wait_all();
+    __syncthreads();  // tile kj is in; every warp is done with tile kj - 1
+    if (kj < k_end) {
+      const int nxt = (kj + 1) & 1;
+      load_tile_async<T, DMAX>(k_s + nxt * G::kElems, kp, st.v[4],
+                               (kj + 1) * kRows, s.t, s.d, vec);
+      load_tile_async<T, DMAX>(v_s + nxt * G::kElems, vp, st.v[7],
+                               (kj + 1) * kRows, s.t, s.d, vec);
     }
-    __syncthreads();
-    mma_pn<DMAX>(p_s, v_r, ty, tx, acc);
+    cp_async_commit();
+    const T* ks = k_s + (kj & 1) * G::kElems;
+    const T* vs = v_s + (kj & 1) * G::kElems;
+
+    float sc[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kKq; ++kc) {
+      const typename M::A a = M::load_a(q_s, kLd, warp * 16, kc * M::kK, lane);
+#pragma unroll
+      for (int n = 0; n < kNs; n += 2) {
+        typename M::B b0, b1;
+        M::load_bt2(b0, b1, ks, kLd, n * 8, kc * M::kK, lane);
+        M::mma(sc[n], a, b0);
+        M::mma(sc[n + 1], a, b1);
+      }
+    }
+
+    // mask, then the online softmax on the unscaled scores in base 2:
+    // p = 2^(c s - c m), c = scale * log2(e), m the row max of s. A masked
+    // score is -inf, so its p is exactly 0 and it leaves m alone. Only
+    // tiles that cross the causal diagonal or the end of T are masked.
+    const int key0 = kj * kRows;
+    const bool full = key0 + kRows <= s.t &&
+                      (!s.causal || q_off + row0 >= k_off + key0 + kRows - 1);
+    if (!full) {
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!valid_at(row0 + g + 8 * (e >> 1),
+                        key0 + n * 8 + 2 * tq + (e & 1), s.t, s.causal, q_off,
+                        k_off))
+            sc[n][e] = -INFINITY;
+    }
+    float mx[2] = {m[0], m[1]}, mc[2];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      const float corr = fast_exp2((m[i] - mx[i]) * c);
+      m[i] = mx[i];
+      mc[i] = mx[i] * c;
+      l[i] *= corr;  // this lane's share of the row sum
+#pragma unroll
+      for (int n = 0; n < kNo; ++n) {
+        acc[n][2 * i] *= corr;
+        acc[n][2 * i + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = fast_exp2(fmaf(sc[n][e], c, -mc[e >> 1]));
+        l[e >> 1] += sc[n][e];
+      }
+
+    // acc += p v, p from its accumulators
+#pragma unroll
+    for (int kc = 0; kc < kKp; ++kc) {
+      const typename M::A a = M::from_acc(sc, kc);
+#pragma unroll
+      for (int n = 0; n < kNo; n += 2) {
+        typename M::B b0, b1;
+        M::load_b2(b0, b1, vs, kLd, kc * M::kK, n * 8, lane);
+        M::mma(acc[n], a, b0);
+        M::mma(acc[n + 1], a, b1);
+      }
+    }
   }
+  cp_async_wait_all();  // nothing left in flight when the block exits
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l_safe = fmaxf(l[i], kLFloor);
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    const float l_safe = fmaxf(quad_sum(l[i]), kLFloor);
+    if (row >= s.t) continue;
+    // a fully masked row keeps m = -1e30 unscaled, as the plain version
+    const float m_s = m[i] == kNegInf ? kNegInf : m[i] * scale;
+    if (tq == 0) lse[(int64_t)bh * s.t + row] = m_s + logf(l_safe);
+    T* dst = out + (((int64_t)b * s.t + row) * s.h + hh) * s.d;
 #pragma unroll
-    for (int c = 0; c < C::CW; ++c) acc[i][c] = acc[i][c] / l_safe;
-    const int row = qi * kTile + ty * 4 + i;
-    if (tx == 0 && row < s.t)
-      lse[(int64_t)bh * s.t + row] = m[i] + logf(l_safe);
+    for (int n = 0; n < kNo; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n * 8 + 2 * tq + j;
+        if (col < s.d) store(dst + col, acc[n][2 * i + j] / l_safe);
+      }
   }
-  write_patch<T, DMAX>(out, s, b, hh, qi * kTile, ty, tx, acc);
 }
 
 template <typename T, int DMAX>
 cudaError_t run(const void* q, const void* k, const void* v, void* out,
                 float* lse, const int* offs, const Strides& st,
                 const Shape& s, void* stream) {
-  constexpr size_t bytes =
-      sizeof(float) * (2 * trans_floats(DMAX) + rows_floats(DMAX) +
-                       score_floats());
-  const int64_t nt = (s.t + kTile - 1) / kTile;
-  return launch_kernel(flash_fwd_kernel<T, DMAX>, nt * s.b * s.h, bytes,
-                       stream, (const T*)q, (const T*)k, (const T*)v, (T*)out,
-                       lse, offs, st, s, softmax_scale(s.d));
+  constexpr size_t bytes = 5 * Tile<T, DMAX>::kBytes;  // q, 2 x k, 2 x v
+  const void* ptrs[3] = {q, k, v};
+  const int vec = rows_aligned16(ptrs, st, 3, sizeof(T));
+  const int64_t nt = (s.t + kRows - 1) / kRows;
+  return launch_kernel<kBlock>(flash_fwd_kernel<T, DMAX>, nt * s.b * s.h,
+                               bytes, stream, (const T*)q, (const T*)k,
+                               (const T*)v, (T*)out, lse, offs, st, s,
+                               softmax_scale(s.d), vec);
 }
 
 }  // namespace

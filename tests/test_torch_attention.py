@@ -232,3 +232,97 @@ def test_sequence_parallel_guards():
         ring_attention(qs[:2], qs[:2], qs[:2], Ring(4))
     with pytest.raises(NotImplementedError, match="multi-axis"):
         ring_attention(qs, qs, qs, Topology(axes=("dp", "sp"), shape=(2, 2)))
+
+
+# --------------------------------------------------------------------------
+# the float32 products of the forward and dK/dV kernels: 3xTF32
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """`cvt.rna.tf32.f32`: round the low 13 bits of a float32
+    significand away, to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _mm_3xtf32(a, b):
+    """`a @ b` as the kernels' float32 path sums it: each operand split
+    into big = tf32(x) and small = tf32(x - big), and small*big +
+    big*small + big*big summed in float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return (a_s @ bb + ab @ b_s) + ab @ bb
+
+
+def _split_forward(q, k, v, mm):
+    """The forward kernel's arithmetic on `[B, T, H, D]`, causal: the
+    scale on the float32 scores, p from the row max."""
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    t = q.shape[1]
+    s = mm(qh, kh.transpose(-1, -2)) * (1.0 / np.sqrt(q.shape[-1]))
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_sum = p.sum(-1, keepdim=True)
+    out = mm(p, vh) / l_sum
+    return out.transpose(1, 2), (m + torch.log(l_sum))[..., 0].transpose(1, 2)
+
+
+def _split_dkv(q, k, v, do, lse, delta, mm):
+    """The dK/dV kernel's arithmetic, causal; lse, delta `[B, H, T]`."""
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    t = q.shape[1]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -torch.inf)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (mm(doh, vh.transpose(-1, -2)) - delta[..., None]) * scale
+    dk = mm(ds.transpose(-1, -2), qh)
+    dv = mm(p.transpose(-1, -2), doh)
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _holds(got, want, tol) -> bool:
+    return all(np.allclose(g.numpy(), w.numpy(), **tol)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("split,holds", [("3xtf32", True), ("1xtf32", False)])
+@pytest.mark.parametrize("kernel", ["forward", "dkv"])
+def test_tf32_split_against_float32_tolerances(kernel, split, holds):
+    """At B2 x T256 x H2 x D64, causal, the float32 products summed as
+    3xTF32 stay within the float32 tolerances of the plain versions
+    (forward 2e-5; gradients atol 5e-5, rtol 5e-4), and one TF32 product
+    (about three decimal digits) does not: the reason the kernels split
+    every float32 operand in two."""
+    mm = {"3xtf32": _mm_3xtf32, "1xtf32": _mm_1xtf32}[split]
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(12, 2, 256, 2, 64,
+                                                        n=4))
+    out, lse = fa.lse_reference(q, k, v, None, True, 1)
+    if kernel == "forward":
+        assert _holds(_split_forward(q, k, v, mm), (out, lse), FWD) is holds
+        return
+    lse_bht = lse.transpose(1, 2).contiguous()
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    want = fa.dkv_reference(q, k, v, do, lse_bht, delta, None, True, 1)
+    got = _split_dkv(q, k, v, do, lse_bht, delta, mm)
+    assert _holds(got, want, GRAD) is holds
+
+
+def test_tf32_rounding_and_split():
+    """`_tf32` keeps 10 explicit significand bits, rounds ties away from
+    zero, and big + small carries a float32 to about 2^-22 of itself."""
+    x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-12,
+                      3.0, -0.1])
+    t = _tf32(x)
+    assert t[0] == 1.0 + 2.0**-10 and t[1] == -(1.0 + 2.0**-10)
+    assert t[2] == 1.0 and t[3] == 3.0
+    assert (t.view(torch.int32) & 0x1FFF).eq(0).all()
+    y = torch.from_numpy(_inputs(13, 4096, n=1)[0])
+    big = _tf32(y)
+    rel = ((big + _tf32(y - big)) - y).abs() / y.abs()
+    assert float(rel.max()) <= 2.0**-22
