@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    compile with nvcc for sm_90a, one process per source, all at once;
    each flash instantiation's registers, spills and shared memory
    (`-Xptxas -v`), and, where the toolkit has cuobjdump, its count of
-   tensor-core (HMMA) instructions: the run fails if a forward or dK/dV
-   instantiation has none;
+   tensor-core (HMMA) instructions: the run fails if a forward, dQ or
+   dK/dV instantiation is missing or has none;
 3. kernels — each gossip-tail kernel at the flagship shapes (Ring(8) x
    ResNet-18: 8 x 17,444,682 elements, two neighbors), held bitwise
    against its plain PyTorch version on the same inputs (bit patterns
@@ -36,9 +36,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    TFLOP/s; float32: three TF32 products each at 495 TFLOP/s, the least
    work that keeps float32 accuracy) or the bytes at 3.35 TB/s,
    whichever is larger. Small cases follow in float32 and bfloat16:
-   non-causal, ragged T = 160 / D = 24, one row, the offset variant on a
-   fully visible, a diagonal and a fully masked hop, per-group offsets,
-   each with the cotangent of lse;
+   non-causal, ragged T = 160 / D = 24 (also with rows only 4-byte
+   aligned: 4-byte copies in float32, plain loads in bfloat16), one row,
+   the offset variant on a fully visible, a diagonal, a past-the-diagonal
+   (keys 40 ahead) and a fully masked hop (gradients exactly 0),
+   per-group offsets, each with the cotangent of lse;
 4. reference — a small ResNet's EventGraD, D-PSGD and int8
    carrier-resident EventGraD steps on the card against the same steps
    on the CPU (plain versions), float64 compute and float32 state:
@@ -211,14 +213,15 @@ def inst_name(found) -> str:
 
 def flash_smem_bytes(kernel: str, elem: int, dmax: int) -> int:
     """Dynamic shared memory of one flash instantiation, as its `run`
-    sizes it: the tensor-core kernels hold [64][DMAX + 16 bytes] tiles
-    (forward q + two stages of k and v; dK/dV k, v + two stages of q and
-    dO, and of lse and delta), the dQ kernel float32 tiles."""
+    sizes it, in [64][DMAX + 16 bytes] tiles: forward q + two stages of k
+    and v; dQ q, dO + two stages of k and v; dK/dV k, v + two stages of q
+    and dO, and of lse and delta."""
+    tile = 64 * (dmax + 16 // elem) * elem
     if kernel == "flash_fwd":
-        return 5 * 64 * (dmax + 16 // elem) * elem
-    if kernel == "flash_dkv":
-        return 6 * 64 * (dmax + 16 // elem) * elem + 4 * 64 * 4
-    return 4 * (4 * dmax * 68 + 64 * (dmax + 8) + 64 * 68)
+        return 5 * tile
+    if kernel == "flash_dq":
+        return 6 * tile
+    return 6 * tile + 4 * 64 * 4
 
 
 def ptxas_report(text: str):
@@ -279,8 +282,10 @@ def phase_build():
     counts = hmma_counts(path)
     if counts:
         log(f"HMMA instructions per flash instantiation: {json.dumps(counts)}")
-        idle = [k for k, n in counts.items()
-                if k.startswith(("flash_fwd", "flash_dkv")) and n == 0]
+        want = {f"{k}<{ty}, {dmax}>" for k in ("flash_fwd", "flash_dq",
+                                                "flash_dkv")
+                for ty in ("float", "bf16") for dmax in (32, 64)}
+        idle = sorted(k for k in want if counts.get(k, 0) == 0)
         if idle:
             raise SmokeError(f"no tensor-core instructions in {idle}")
     else:
@@ -618,23 +623,31 @@ def phase_flash_kernels():
     def offs(*v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
+    # `lead` head elements before each q/k/v row: 1 leaves the rows only
+    # 4-byte aligned (4-byte copies in float32, plain loads in bfloat16)
     cases = (
-        ("non-causal", 2, 160, 2, 24, False, 0, 0),
-        ("ragged causal", 2, 160, 2, 24, True, 0, 0),
-        ("one row", 1, 1, 1, 16, True, 0, 0),
-        ("hop fully visible", 2, 96, 2, 32, True, 96, 0),
-        ("hop diagonal", 2, 96, 2, 32, True, 96, 96),
-        ("hop fully masked", 2, 96, 2, 32, True, 0, 96),
+        ("non-causal", 2, 160, 2, 24, False, 0, 0, 0),
+        ("ragged causal", 2, 160, 2, 24, True, 0, 0, 0),
+        ("ragged causal, rows 4-byte aligned", 2, 160, 2, 24, True, 0, 0, 1),
+        ("one row", 1, 1, 1, 16, True, 0, 0, 0),
+        ("hop fully visible", 2, 96, 2, 32, True, 96, 0, 0),
+        ("hop diagonal", 2, 96, 2, 32, True, 96, 96, 0),
+        # keys 40 ahead: the first 40 rows see nothing, the sweep ends
+        # off the tile grid
+        ("hop past the diagonal", 2, 160, 2, 32, True, 0, 40, 0),
+        ("hop fully masked", 2, 96, 2, 32, True, 0, 96, 0),
         # two groups of two batch rows, each with its own offset pair
-        ("per-group offsets", 4, 80, 2, 64, True, offs(80, 40), offs(40, 80)),
+        ("per-group offsets", 4, 80, 2, 64, True, offs(80, 40), offs(40, 80),
+         0),
     )
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         f32 = dtype == torch.float32
         tol_o = (2e-5, 2e-5) if f32 else (5e-2, 5e-2)
         tol_g = (5e-5, 5e-4) if f32 else (5e-2, 5e-2)
-        for name, cb, ct, ch, cd, causal, qo, ko in cases:
-            ins = [torch.randn((cb, ct, ch, cd), generator=gen, device=dev)
-                   .to(dtype).requires_grad_() for _ in range(3)]
+        for name, cb, ct, ch, cd, causal, qo, ko, lead in cases:
+            ins = [torch.randn((cb, ct, ch, lead + cd), generator=gen,
+                               device=dev).to(dtype)[..., lead:].detach()
+                   .requires_grad_() for _ in range(3)]
             w_o = torch.randn((cb, ct, ch, cd), generator=gen,
                               device=dev).to(dtype)
             w_l = torch.randn((cb, ct, ch), generator=gen, device=dev)
@@ -648,6 +661,9 @@ def phase_flash_kernels():
             g_p = torch.autograd.grad(want, ins, (w_o, w_l))
             errs += [within(a, c, *tol_g, f"{what}: grad")
                      for a, c in zip(g_k, g_p)]
+            if name == "hop fully masked" and any(bool(g.any())
+                                                  for g in g_k):
+                raise SmokeError(f"{what}: gradients not exactly 0")
             for kname, err in (("flash_fwd", max(errs[:2])),
                                ("flash_dq", errs[2]),
                                ("flash_dkv", max(errs[3:]))):

@@ -2,8 +2,9 @@
 // and strides it is launched with, the per-rank causal offsets, the
 // validity rule of a score, the dtype/head-width dispatch and the launch.
 //
-// Masking is finite: an invalid score is -1e30 and its p is exactly 0,
-// so a fully masked row ends with out = 0 and a finite lse.
+// Masking keeps the results finite: an invalid score's p is exactly 0
+// and a row max starts at -1e30, so a fully masked row ends with out = 0
+// and a finite lse.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,10 +27,6 @@ struct Shape {
   int n_off, per, causal;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -66,7 +63,7 @@ __device__ __forceinline__ bool valid_at(int qpos, int kpos, int t, int causal,
 
 // Opt a kernel into `bytes` of dynamic shared memory and launch it on
 // `grid` blocks of THREADS threads; returns the launch's error.
-template <int THREADS = 256, typename K, typename... A>
+template <int THREADS, typename K, typename... A>
 inline cudaError_t launch_kernel(K kernel, int64_t grid, size_t bytes,
                                  void* stream, A... args) {
   if (grid < 1 || grid > 2147483647LL) return cudaErrorInvalidValue;

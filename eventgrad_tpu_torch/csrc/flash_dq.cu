@@ -5,7 +5,7 @@
 // (launched by _run_bwd). Per (batch, head, 64-row Q tile), over the K/V
 // tiles kj:
 //
-//   s  = (q * scale) k_j^T, invalid entries masked
+//   s  = scale * (q k_j^T), invalid entries masked
 //   p  = exp(s - lse) * valid
 //   dp = dO v_j^T
 //   ds = p * (dp - delta) * scale
@@ -13,43 +13,64 @@
 //
 // delta = rowsum(dO * O) - dlse comes in precomputed, as on the TPU. The
 // K sweep that was the TPU grid's sequential last dimension is the loop
-// inside the block; dQ accumulates in registers. s and dp share one loop
-// over the head dimension. A causal block without offsets stops at the
-// diagonal tile; with offsets every tile is visited and the mask
-// decides.
+// inside the block. Four warps each own 16 query rows of a 64-row Q
+// tile; s, dp and dQ live in registers (flash_mma.cuh: mma.sync on bf16,
+// 3xTF32 on float32), and ds feeds the ds k product from its
+// accumulators, against the same K tile the first product read
+// transposed, without touching shared memory. The q and dO tiles stay in
+// shared memory for the whole sweep; K and V tiles come through cp.async
+// in a two-stage ring: tile j + 1 loads while tile j is computed, one
+// barrier per tile. lse (times log2(e)) and delta of a lane's two rows
+// are read once into registers, and p = 2^(c s - log2(e) lse), c =
+// scale * log2(e), one FFMA and one MUFU.EX2 per score.
 //
-// Bound on the card: operations for float32 inputs (three products of
-// 2*T*T*D flops per (batch, head), halved when causal), bytes for
-// bfloat16. This first version runs float32 FMAs from shared memory for
-// both types, as the forward does.
-#include "flash_common.cuh"
+// A causal block sweeps only the K tiles that can hold a valid entry for
+// one of its rows: up to the tile of key q_off - k_off + (last row of
+// the tile), the diagonal tile without offsets, none for a ring hop that
+// lies wholly in the future, whose dQ rows are written as zeros. A
+// skipped tile would have added exactly 0 (its p and ds are 0). The
+// heaviest blocks (the last Q tiles of every (batch, head), which sweep
+// the most) come first in the grid, then the next heaviest, so the tail
+// of the launch holds the short sweeps.
+//
+// Bound on the card: operations at the main shape (three products of
+// 2*T*T*D flops per (batch, head), halved when causal: the tensor cores'
+// bf16 rate, or three TF32 products each for float32), against q, k, v,
+// dO, lse, delta read and dQ written once.
+#include "flash_mma.cuh"
 
 namespace {
 
 using namespace egf;
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     const int* __restrict__ offs, Strides st, Shape s,
-                    float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* q_t = smem;                           // [DMAX][68], q * scale
-  float* do_t = q_t + trans_floats(DMAX);      // [DMAX][68]
-  float* k_t = do_t + trans_floats(DMAX);      // [DMAX][68]
-  float* v_t = k_t + trans_floats(DMAX);       // [DMAX][68]
-  float* k_r = v_t + trans_floats(DMAX);       // [64][DMAX+8]
-  float* ds_s = k_r + rows_floats(DMAX);       // [64][68]
+                    float scale, int vec) {
+  using M = Tc<T>;
+  using G = Tile<T, DMAX>;
+  constexpr int kLd = G::kLd;
+  constexpr int kNs = kRows / 8;        // n8 tiles of a score row block
+  constexpr int kNo = DMAX / 8;         // n8 tiles of a dQ row block
+  constexpr int kKd = DMAX / M::kK;     // k steps over the head dimension
+  constexpr int kKs = kRows / M::kK;    // k steps over the K tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
+  T* do_s = q_s + G::kElems;
+  T* k_s = do_s + G::kElems;                // two stages
+  T* v_s = k_s + 2 * G::kElems;             // two stages
 
-  using C = Cols<DMAX>;
-  const int nt = (s.t + kTile - 1) / kTile;
-  const int qi = nt - 1 - (int)(blockIdx.x % nt);
-  const int bh = blockIdx.x / nt;
+  const int nt = (s.t + kRows - 1) / kRows;
+  const int bhn = s.b * s.h;
+  const int qi = nt - 1 - (int)(blockIdx.x / bhn);
+  const int bh = (int)(blockIdx.x % bhn);
   const int b = bh / s.h, hh = bh % s.h;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
 
   int q_off, k_off;
   load_offsets(offs, s, b, q_off, k_off);
@@ -58,51 +79,130 @@ __global__ void __launch_bounds__(kThreads)
   const T* vp = v + b * st.v[6] + hh * st.v[8];
   const T* dop = dout + b * st.v[9] + hh * st.v[11];
 
-  load_tile<T, DMAX, true, false>(qp, st.v[1], qi * kTile, s.t, s.d, scale,
-                                  q_t, nullptr);
-  load_tile<T, DMAX, true, false>(dop, st.v[10], qi * kTile, s.t, s.d, 1.f,
-                                  do_t, nullptr);
-
-  float lse_r[4], delta_r[4], acc[4][C::CW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = qi * kTile + ty * 4 + i;
-    lse_r[i] = row < s.t ? lse[(int64_t)bh * s.t + row] : 0.f;
-    delta_r[i] = row < s.t ? delta[(int64_t)bh * s.t + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < C::CW; ++c) acc[i][c] = 0.f;
+  // the last K tile with a key that some row of this Q tile may see
+  int k_end = nt - 1;
+  if (s.causal) {
+    const int last_key = q_off - k_off + qi * kRows + kRows - 1;
+    k_end = last_key < 0 ? -1 : min(k_end, last_key / kRows);
   }
 
-  const int k_end = (s.causal && offs == nullptr) ? qi : nt - 1;
+  if (k_end >= 0) {
+    load_tile_async<T, DMAX>(q_s, qp, st.v[1], qi * kRows, s.t, s.d, vec);
+    load_tile_async<T, DMAX>(do_s, dop, st.v[10], qi * kRows, s.t, s.d, vec);
+    load_tile_async<T, DMAX>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
+    load_tile_async<T, DMAX>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+  }
+  cp_async_commit();
+
+  const int row0 = qi * kRows + warp * 16;  // this warp's first query row
+  // rows g and g + 8: log2(e) lse and delta (0 past t, where nothing is
+  // written)
+  float lse_c[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    const bool in = k_end >= 0 && row < s.t;
+    lse_c[i] = in ? lse[(int64_t)bh * s.t + row] * kLog2e : 0.f;
+    dl[i] = in ? delta[(int64_t)bh * s.t + row] : 0.f;
+  }
+  float acc[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float c = scale * kLog2e;
+
   for (int kj = 0; kj <= k_end; ++kj) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DMAX, true, true>(kp, st.v[4], kj * kTile, s.t, s.d, 1.f,
-                                   k_t, k_r);
-    load_tile<T, DMAX, true, false>(vp, st.v[7], kj * kTile, s.t, s.d, 1.f,
-                                    v_t, nullptr);
-    __syncthreads();
-
-    float sc[4][4] = {}, dp[4][4] = {};
-    mma_tt2(q_t, k_t, do_t, v_t, s.d, ty, tx, sc, dp);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = qi * kTile + ty * 4 + i;
-      float ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = valid_at(qpos, kj * kTile + tx * 4 + j, s.t, s.causal,
-                                 q_off, k_off);
-        const float p = ok ? expf(sc[i][j] - lse_r[i]) : 0.f;
-        ds[j] = p * (dp[i][j] - delta_r[i]) * scale;
-      }
-      *reinterpret_cast<float4*>(ds_s + (ty * 4 + i) * kLdT + tx * 4) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    cp_async_wait_all();
+    __syncthreads();  // tile kj is in; every warp is done with tile kj - 1
+    if (kj < k_end) {
+      const int nxt = (kj + 1) & 1;
+      load_tile_async<T, DMAX>(k_s + nxt * G::kElems, kp, st.v[4],
+                               (kj + 1) * kRows, s.t, s.d, vec);
+      load_tile_async<T, DMAX>(v_s + nxt * G::kElems, vp, st.v[7],
+                               (kj + 1) * kRows, s.t, s.d, vec);
     }
-    __syncthreads();
-    mma_pn<DMAX>(ds_s, k_r, ty, tx, acc);
+    cp_async_commit();
+    const T* ks = k_s + (kj & 1) * G::kElems;
+    const T* vs = v_s + (kj & 1) * G::kElems;
+
+    // s = q k^T and dp = dO v^T: rows are this warp's 16 queries,
+    // columns the 64 keys of the tile
+    float sc[kNs][4], dp[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kKd; ++kc) {
+      const typename M::A qa = M::load_a(q_s, kLd, warp * 16, kc * M::kK, lane);
+      const typename M::A da = M::load_a(do_s, kLd, warp * 16, kc * M::kK,
+                                         lane);
+#pragma unroll
+      for (int n = 0; n < kNs; n += 2) {
+        typename M::B b0, b1;
+        M::load_bt2(b0, b1, ks, kLd, n * 8, kc * M::kK, lane);
+        M::mma(sc[n], qa, b0);
+        M::mma(sc[n + 1], qa, b1);
+        M::load_bt2(b0, b1, vs, kLd, n * 8, kc * M::kK, lane);
+        M::mma(dp[n], da, b0);
+        M::mma(dp[n + 1], da, b1);
+      }
+    }
+
+    // ds in place of dp; lane holds rows g (e < 2) and g + 8 (e >= 2),
+    // keys 8n + 2tq + (e & 1). A masked score is -inf, so its p and ds
+    // are exactly 0. Only tiles that cross the causal diagonal or the end
+    // of T are masked.
+    const int key0 = kj * kRows;
+    const bool full = key0 + kRows <= s.t &&
+                      (!s.causal || q_off + row0 >= k_off + key0 + kRows - 1);
+    if (!full) {
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!valid_at(row0 + g + 8 * (e >> 1),
+                        key0 + n * 8 + 2 * tq + (e & 1), s.t, s.causal, q_off,
+                        k_off))
+            sc[n][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(fmaf(sc[n][e], c, -lse_c[e >> 1]));
+        dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;
+      }
+
+    // dQ += ds k, reducing over the tile's keys: k read by rows now
+#pragma unroll
+    for (int kc = 0; kc < kKs; ++kc) {
+      const typename M::A a = M::from_acc(dp, kc);
+#pragma unroll
+      for (int n = 0; n < kNo; n += 2) {
+        typename M::B b0, b1;
+        M::load_b2(b0, b1, ks, kLd, kc * M::kK, n * 8, lane);
+        M::mma(acc[n], a, b0);
+        M::mma(acc[n + 1], a, b1);
+      }
+    }
   }
-  write_patch<T, DMAX>(dq, s, b, hh, qi * kTile, ty, tx, acc);
+  cp_async_wait_all();  // nothing left in flight when the block exits
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= s.t) continue;
+    T* dst = dq + (((int64_t)b * s.t + row) * s.h + hh) * s.d;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n * 8 + 2 * tq + j;
+        if (col < s.d) store(dst + col, acc[n][2 * i + j]);
+      }
+  }
 }
 
 template <typename T, int DMAX>
@@ -110,14 +210,14 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dq,
                 const int* offs, const Strides& st, const Shape& s,
                 void* stream) {
-  constexpr size_t bytes =
-      sizeof(float) * (4 * trans_floats(DMAX) + rows_floats(DMAX) +
-                       score_floats());
-  const int64_t nt = (s.t + kTile - 1) / kTile;
-  return launch_kernel(flash_dq_kernel<T, DMAX>, nt * s.b * s.h, bytes,
-                       stream, (const T*)q, (const T*)k, (const T*)v,
-                       (const T*)dout, lse, delta, (T*)dq, offs, st, s,
-                       softmax_scale(s.d));
+  constexpr size_t bytes = 6 * Tile<T, DMAX>::kBytes;  // q, dO, 2 x k, 2 x v
+  const void* ptrs[4] = {q, k, v, dout};
+  const int vec = rows_aligned16(ptrs, st, 4, sizeof(T));
+  const int64_t nt = (s.t + kRows - 1) / kRows;
+  return launch_kernel<kBlock>(flash_dq_kernel<T, DMAX>, nt * s.b * s.h,
+                               bytes, stream, (const T*)q, (const T*)k,
+                               (const T*)v, (const T*)dout, lse, delta,
+                               (T*)dq, offs, st, s, softmax_scale(s.d), vec);
 }
 
 }  // namespace

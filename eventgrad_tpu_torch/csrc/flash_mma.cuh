@@ -1,5 +1,5 @@
-// Tensor-core machinery of the flash-attention forward and dK/dV kernels
-// (flash_fwd.cu, flash_dkv.cu): asynchronous tile copies, fragment loads
+// Tensor-core machinery of the flash-attention kernels (flash_fwd.cu,
+// flash_dq.cu, flash_dkv.cu): asynchronous tile copies, fragment loads
 // and warp-level matrix products for bfloat16 and float32 inputs.
 //
 // A block has 4 warps; a warp owns 16 rows of its block's 64-row tile
@@ -10,10 +10,11 @@
 //
 // bfloat16 (Tc<__nv_bfloat16>): mma.m16n8k16 with bf16 operands; A and B
 // come from shared memory through ldmatrix (ldmatrix.trans for a B stored
-// [k][n]). A product whose left operand is a score tile (p v, p^T dO,
-// ds^T q) takes it from the accumulators of the score product as they
-// lie, rounded to bf16: two adjacent n8 accumulator tiles are one k16 A
-// fragment. (The TPU kernel keeps p and ds in float32 for that product.)
+// [k][n]). A product whose left operand is a score tile (p v, ds k,
+// p^T dO, ds^T q) takes it from the accumulators of the score product as
+// they lie, rounded to bf16: two adjacent n8 accumulator tiles are one
+// k16 A fragment. (The TPU kernel keeps p and ds in float32 for that
+// product.)
 //
 // float32 (Tc<float>): 3xTF32 on mma.m16n8k8.tf32. Each operand x is
 // split into big = tf32(x) and small = tf32(x - big), both rounded as

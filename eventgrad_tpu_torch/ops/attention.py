@@ -10,8 +10,10 @@ kernels replace the three TPU kernels:
   `csrc/flash_dkv.cu`  <- `_dkv_kernel`: dK and dV, sweeping Q tiles.
 
 The score matrix never reaches device memory: each kernel rebuilds it
-one 64 x 64 tile at a time from (q, k, lse). Beside the wrappers
-`flash_fwd`, `flash_dq` and `flash_dkv` stand their plain PyTorch
+one 64 x 64 tile at a time from (q, k, lse), on the tensor cores
+(`csrc/flash_mma.cuh`: bf16 operands for bfloat16, which round p and ds
+to bf16 before their second product; 3xTF32 for float32). Beside the
+wrappers `flash_fwd`, `flash_dq` and `flash_dkv` stand their plain PyTorch
 versions on materialized scores, `lse_reference`, `dq_reference` and
 `dkv_reference` (by their public arguments: `attention_lse_reference`,
 the forward with the logsumexp and the offset-aware causal mask, and
@@ -93,7 +95,7 @@ def _valid_mask(t: int, causal: bool, offs, per: int, b: int, device):
 
 def _scores(q, k, scale_q: bool):
     """f32 (at least) scaled scores `[B, H, T, T]`. The forward scales q
-    before the product, the dK/dV kernel scales the product."""
+    before the product, the backward kernels scale the product."""
     ct = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf = q.to(ct), k.to(ct)

@@ -272,8 +272,9 @@ def _split_forward(q, k, v, mm):
     return out.transpose(1, 2), (m + torch.log(l_sum))[..., 0].transpose(1, 2)
 
 
-def _split_dkv(q, k, v, do, lse, delta, mm):
-    """The dK/dV kernel's arithmetic, causal; lse, delta `[B, H, T]`."""
+def _split_bwd_terms(q, k, v, do, lse, delta, mm):
+    """`(qh, kh, doh, p, ds)` of the backward kernels' arithmetic, causal,
+    on `[B, H, T, *]` views; lse, delta `[B, H, T]`."""
     qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
     t = q.shape[1]
     scale = 1.0 / np.sqrt(q.shape[-1])
@@ -281,6 +282,18 @@ def _split_dkv(q, k, v, do, lse, delta, mm):
     s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -torch.inf)
     p = torch.exp(s - lse[..., None])
     ds = p * (mm(doh, vh.transpose(-1, -2)) - delta[..., None]) * scale
+    return qh, kh, doh, p, ds
+
+
+def _split_dq(q, k, v, do, lse, delta, mm):
+    """The dQ kernel's arithmetic: `(dq,)`."""
+    _, kh, _, _, ds = _split_bwd_terms(q, k, v, do, lse, delta, mm)
+    return (mm(ds, kh).transpose(1, 2),)
+
+
+def _split_dkv(q, k, v, do, lse, delta, mm):
+    """The dK/dV kernel's arithmetic: `(dk, dv)`."""
+    qh, _, doh, p, ds = _split_bwd_terms(q, k, v, do, lse, delta, mm)
     dk = mm(ds.transpose(-1, -2), qh)
     dv = mm(p.transpose(-1, -2), doh)
     return dk.transpose(1, 2), dv.transpose(1, 2)
@@ -292,7 +305,7 @@ def _holds(got, want, tol) -> bool:
 
 
 @pytest.mark.parametrize("split,holds", [("3xtf32", True), ("1xtf32", False)])
-@pytest.mark.parametrize("kernel", ["forward", "dkv"])
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
 def test_tf32_split_against_float32_tolerances(kernel, split, holds):
     """At B2 x T256 x H2 x D64, causal, the float32 products summed as
     3xTF32 stay within the float32 tolerances of the plain versions
@@ -308,8 +321,13 @@ def test_tf32_split_against_float32_tolerances(kernel, split, holds):
         return
     lse_bht = lse.transpose(1, 2).contiguous()
     delta = (do * out).sum(-1).transpose(1, 2).contiguous()
-    want = fa.dkv_reference(q, k, v, do, lse_bht, delta, None, True, 1)
-    got = _split_dkv(q, k, v, do, lse_bht, delta, mm)
+    args = (q, k, v, do, lse_bht, delta)
+    if kernel == "dq":
+        want = (fa.dq_reference(*args, None, True, 1),)
+        got = _split_dq(*args, mm)
+    else:
+        want = fa.dkv_reference(*args, None, True, 1)
+        got = _split_dkv(*args, mm)
     assert _holds(got, want, GRAD) is holds
 
 
