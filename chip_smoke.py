@@ -41,11 +41,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    the offset variant on a fully visible, a diagonal, a past-the-diagonal
    (keys 40 ahead) and a fully masked hop (gradients exactly 0),
    per-group offsets, each with the cotangent of lse;
-4. reference — a small ResNet's EventGraD, D-PSGD and int8
-   carrier-resident EventGraD steps on the card against the same steps
-   on the CPU (plain versions), float64 compute and float32 state:
-   parameters within rtol=1e-4, atol=1e-5 and equal fire bits, except
-   where a leaf sat on its threshold; int8 carriers within one quantum.
+4. reference — a small ResNet's EventGraD, D-PSGD, int8
+   carrier-resident EventGraD, allreduce and sparsified EventGraD (top-k
+   10%, f32 and int8 wires) steps on Ring(8), and its EventGraD step on
+   Torus(2, 4), on the card against the same steps on the CPU (plain
+   versions), float64 compute and float32 state: parameters within
+   rtol=1e-4, atol=1e-5 and equal fire bits, except where a leaf sat on
+   its threshold; int8 carriers within one quantum.
    The same for a small transformer (flash attention, float32 compute,
    T = 96), and stacked ring attention through the flash kernels over 4
    shards against plain attention on the whole sequence, forward and
@@ -53,23 +55,41 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. main path — the flagship trainer through `eventgrad_tpu_torch.train`:
    full-width ResNet-18 (bf16 compute, 3 blocks per stage), Ring(8),
    global batch 256, SGD lr 0.01 momentum 0.9, the adaptive trigger at
-   horizon 1.05 and max_silence 50 with warmup 2, five legs of 3 steps x
+   horizon 1.05 and max_silence 50 with warmup 2, seven legs of 3 steps x
    2 epochs: EventGraD and D-PSGD on the f32 wire, EventGraD on the int8
-   wire with carrier-resident buffers, its D-PSGD int8 twin, and
-   EventGraD on the bf16 wire with carrier-resident buffers. Then two
+   wire with carrier-resident buffers, its D-PSGD int8 twin, EventGraD on
+   the bf16 wire with carrier-resident buffers, sparsified EventGraD at
+   top-k 10% on the f32 wire, and allreduce. Then two
    transformer legs at the same optimizer and trigger: EventGraD and
    D-PSGD on `TransformerLM(vocab=256, dim=512, n_heads=8, n_layers=4,
    max_len=1024, attn="flash")` in float32, 4 sequences of 1024 tokens
    per rank, the f32 wire (13,389,056 parameters per rank in 46
    leaves). The kernels' launch counters are zeroed just before each
    leg and read just after; a leg whose kernels did not launch, whose
-   receive buffers are not in the carrier dtype, whose int8 byte counts
-   are not exact (D-PSGD 34,890,052 sent bytes per step per chip,
-   EventGraD 34,890,224 wire-real bytes), whose flash kernels did not
+   receive buffers are not in the carrier dtype, whose byte counts
+   are not exact (D-PSGD int8 34,890,052 sent bytes per step per chip,
+   EventGraD int8 34,890,224 wire-real bytes, sparsified EventGraD f32
+   2 x (8 x sum of the leaves' k + 86) wire-real bytes, allreduce 4 x
+   17,444,682 sent bytes: each derived from the model's leaf sizes),
+   whose flash kernels did not
    launch once per layer per step (forward: plus once per layer per
    test pass), or whose loss is not finite fails the run;
-6. summary — one JSON line of every kernel's numbers, the card's name and
+6. real data — the port trained to a test accuracy on the bundled
+   digit scans (`eventgrad_tpu_torch/utils/realdata.py`), seed 0, 540
+   passes per leg on Ring(8): CNN2 on "digits" (EventGraD with the
+   reference-pure trigger, and D-PSGD) and LeNetCifar on "digits32"
+   with augmentation (sparsified EventGraD at top-k 10%, and D-PSGD),
+   held to the JAX package's committed runs of the same operating
+   points (`artifacts/realdata_digits_r3_cpu.json`,
+   `artifacts/realdata_cifar_r4_cpu.json`): every leg's test accuracy
+   at least the reference leg's less 4.0 points, the event legs'
+   msgs-saved-% within 6.0 points of the reference's, every loss
+   finite, and the kernels of each algorithm launched (counters zeroed
+   just before each leg and read just after);
+7. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
+
+Each phase's seconds are logged as it ends.
 
 It needs the repository beside it (it imports the port from its own
 directory) and a CUDA device; it never falls back to the CPU.
@@ -679,17 +699,18 @@ def phase_flash_kernels():
     return recs
 
 
-def _reference_steps(name, model, algo, kw, cfg, batches, tol):
+def _reference_steps(name, model, algo, kw, cfg, batches, tol, topo=None):
     """`len(batches)` train steps on the card against the same steps on
-    the CPU (plain versions) from one initial state."""
+    the CPU (plain versions) from one initial state, on `topo` (default
+    Ring(8))."""
     import numpy as np
     import torch
 
     from eventgrad_tpu_torch.parallel.topology import Ring
     from eventgrad_tpu_torch.train.state import init_train_state
-    from eventgrad_tpu_torch.train.steps import make_train_step
+    from eventgrad_tpu_torch.train.steps import EVENT_ALGOS, make_train_step
 
-    topo = Ring(RANKS)
+    topo = topo or Ring(RANKS)
     step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9),
                            trace=True, **kw)
     resident = kw.get("wire") if kw.get("carrier_resident") else None
@@ -707,7 +728,7 @@ def _reference_steps(name, model, algo, kw, cfg, batches, tol):
             out[d] = (prev, {k: v.cpu().numpy() for k, v in m.items()})
         if not np.all(np.isfinite(out[DEVICE][1]["loss"])):
             raise SmokeError(f"reference {name}: loss not finite")
-        if algo == "eventgrad":
+        if algo in EVENT_ALGOS:
             fg, fc = (out[d][1]["trace_fired"] > 0 for d in (DEVICE, "cpu"))
             diff = fg != fc
             if diff.any():
@@ -759,7 +780,8 @@ def phase_reference():
     from eventgrad_tpu_torch.parallel.ring_attention import (
         full_attention, ring_attention,
     )
-    from eventgrad_tpu_torch.parallel.topology import Ring
+    from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
+    from eventgrad_tpu_torch.parallel.topology import Ring, Torus
 
     log("== reference: card vs CPU, small ResNet, float64 compute")
     model = ResNet(stage_sizes=(1, 1, 1, 1), num_filters=8,
@@ -772,11 +794,18 @@ def phase_reference():
     y = y.reshape((passes, RANKS, per_rank)).astype(np.int64)
     batches = list(zip(x, y))
     tol = dict(rtol=1e-4, atol=1e-5)
+    top10 = SparseConfig(10.0)
     for name, algo, kw in (
             ("eventgrad", "eventgrad", {}), ("dpsgd", "dpsgd", {}),
             ("eventgrad-int8-carrier", "eventgrad",
-             dict(wire="int8", carrier_resident=True))):
+             dict(wire="int8", carrier_resident=True)),
+            ("allreduce", "allreduce", {}),
+            ("sp_eventgrad", "sp_eventgrad", dict(sparse_cfg=top10)),
+            ("sp_eventgrad-int8", "sp_eventgrad",
+             dict(sparse_cfg=top10, wire="int8"))):
         _reference_steps(name, model, algo, kw, cfg, batches, tol)
+    _reference_steps("eventgrad-torus2x4", model, "eventgrad", {}, cfg,
+                     batches, tol, topo=Torus(2, 4))
 
     # float32 compute (the flash kernels take float32 and bfloat16); T = 96
     # leaves a ragged second tile. The same tolerance holds: the net has
@@ -812,8 +841,9 @@ def phase_reference():
             f"{t_local}, max_abs_err {max(errs):.3e}")
 
 
-#: the main path's legs: (name, algo, train() wire options, kernels that
-#: must launch, receive-buffer dtype of an EventGraD leg)
+#: the main path's legs: (name, algo, train() options — "topk_percent"
+#: becomes a SparseConfig —, kernels that must launch, receive-buffer
+#: dtype of an EventGraD leg)
 LEGS = (
     ("eventgrad", "eventgrad", {}, ("masked_wire", "fused_mix_commit"),
      "float32"),
@@ -825,6 +855,9 @@ LEGS = (
     ("eventgrad-bf16-carrier", "eventgrad",
      dict(wire="bf16", carrier_resident=True),
      ("masked_wire", "fused_mix_commit_carrier"), "bfloat16"),
+    ("sp_eventgrad", "sp_eventgrad", dict(topk_percent=10.0),
+     ("fused_mix_sgd",), None),
+    ("allreduce", "allreduce", {}, ("fused_mix_sgd",), None),
 )
 
 #: exact int8 byte counts per step per chip at the flagship: two
@@ -842,8 +875,22 @@ def phase_main_path():
     import eventgrad_tpu_torch as egt
     from eventgrad_tpu_torch import ops
     from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
 
     log("== main path: ResNet-18 (bf16 compute) x Ring(8), global batch 256")
+    spec = arena_spec(egt.ResNet18())
+    top10 = egt.SparseConfig(10.0)
+    k_total = sum(top10.ks(spec))
+    # exact per step per chip, from the leaf sizes: the top-k lanes (f32
+    # value + int32 index) and one fire byte per leaf to two neighbors;
+    # allreduce's full-precision gradients
+    exact = {
+        "sp_eventgrad": ("sent_bytes_wire_real_per_step_per_chip",
+                         NB * (8 * k_total + spec.n_leaves)),
+        "allreduce": ("sent_bytes_per_step_per_chip", 4 * spec.n_total),
+    }
+    log(f"ResNet-18: {spec.n_total} parameters in {spec.n_leaves} leaves, "
+        f"sum of top-10% k {k_total}; exact bytes {exact}")
     per_rank, steps, epochs = 32, 3, 2
     x, y = synthetic_dataset(RANKS * per_rank * steps, (32, 32, 3), seed=0)
     xt, yt = synthetic_dataset(512, (32, 32, 3), seed=0, split="test")
@@ -851,6 +898,8 @@ def phase_main_path():
                           max_silence=50)
     totals, test_acc = {}, {}
     for leg, algo, wire_kw, must_launch, buf_dtype in LEGS:
+        if "topk_percent" in wire_kw:
+            wire_kw = {"sparse_cfg": egt.SparseConfig(wire_kw["topk_percent"])}
         model = egt.ResNet18(dtype=torch.bfloat16)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -892,10 +941,11 @@ def phase_main_path():
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": counts,
         }
-        if algo == "eventgrad":
+        if algo in ("eventgrad", "sp_eventgrad"):
             rec["msgs_saved_pct"] = last["msgs_saved_pct"]
             if not 0.0 <= last["msgs_saved_pct"] < 100.0:
                 raise SmokeError(f"msgs_saved_pct {last['msgs_saved_pct']}")
+        if algo == "eventgrad":
             dts = {str(b.dtype).removeprefix("torch.")
                    for b in state.event.bufs}
             if dts != {buf_dtype}:
@@ -911,6 +961,14 @@ def phase_main_path():
                 != EVENTGRAD_INT8_WIRE_REAL for r in hist):
             raise SmokeError(f"{leg}: wire-real bytes != "
                              f"{EVENTGRAD_INT8_WIRE_REAL}")
+        if leg in exact:
+            key, want = exact[leg]
+            if any(r[key] != want for r in hist):
+                raise SmokeError(f"{leg}: {key} {[r[key] for r in hist]} "
+                                 f"!= {want}")
+        if leg == "allreduce" and not bool(
+                (state.params == state.params[:1]).all()):
+            raise SmokeError("allreduce: the ranks' parameters differ")
         test_acc[leg] = last["test_accuracy"]
         log(json.dumps(rec))
         del state, model
@@ -1020,6 +1078,67 @@ def phase_main_path_lm():
     return totals
 
 
+#: the real-data band, stated before the first card run: each leg's test
+#: accuracy at least the reference leg's less ACC_BAND points, an event
+#: leg's msgs-saved-% within MSGS_BAND points of the reference leg's
+ACC_BAND, MSGS_BAND = 4.0, 6.0
+
+#: real-data leg -> (artifact, section, reference leg tag, kernels that
+#: must launch)
+REALDATA = {
+    "digits-eventgrad": ("realdata_digits_r3_cpu.json", None, "refpure",
+                         ("masked_wire", "fused_mix_commit")),
+    "digits-dpsgd": ("realdata_digits_r3_cpu.json", None, "dpsgd",
+                     ("fused_mix_sgd",)),
+    "digits32-sp_eventgrad": ("realdata_cifar_r4_cpu.json", "lenetcifar",
+                              "spevent", ("fused_mix_sgd",)),
+    "digits32-dpsgd": ("realdata_cifar_r4_cpu.json", "lenetcifar", "dpsgd",
+                       ("fused_mix_sgd",)),
+}
+
+
+def phase_realdata():
+    """The real-data legs (seed 0) against the JAX package's committed
+    runs of the same operating points, within the band. Returns the
+    launches of each kernel summed over the legs."""
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.utils import realdata
+
+    log("== real data: CNN2 on digits, LeNetCifar on digits32, Ring(8), "
+        "540 passes per leg")
+    totals, failures = {}, []
+    for leg, (artifact, section, tag, must_launch) in REALDATA.items():
+        ref = json.loads((HERE / "artifacts" / artifact).read_text())
+        ref = ref[section] if section else ref
+        want_acc = ref[f"test_acc_{tag}"]
+        want_msgs = ref.get(f"msgs_saved_pct_{tag}")
+        ops.reset_launch_counts()
+        rec = realdata.run_leg(leg, seed=0, device=DEVICE)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        rec.update(reference_test_accuracy=want_acc,
+                   reference_msgs_saved_pct=want_msgs,
+                   launches={k: v for k, v in counts.items() if v})
+        log(json.dumps(rec))
+        if not rec["losses_finite"]:
+            failures.append(f"{leg}: a loss is not finite")
+        missing = [k for k in must_launch if counts[k] == 0]
+        if missing:
+            failures.append(f"{leg}: kernels never launched: {missing}")
+        if not rec["test_accuracy"] >= want_acc - ACC_BAND:
+            failures.append(f"{leg}: test accuracy {rec['test_accuracy']:.2f} "
+                            f"< {want_acc} - {ACC_BAND}")
+        if want_msgs is not None and not (
+                abs(rec["msgs_saved_pct"] - want_msgs) <= MSGS_BAND):
+            failures.append(f"{leg}: msgs_saved_pct "
+                            f"{rec['msgs_saved_pct']:.2f} not within "
+                            f"{MSGS_BAND} of {want_msgs}")
+    if failures:
+        raise SmokeError("real data outside the band: " + "; ".join(failures))
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -1039,6 +1158,14 @@ KERNELS = (
     ("flash_dkv", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
      "eventgrad_tpu/ops/attention.py:205"),
 )
+
+
+def timed(phase):
+    """Run one phase and log its seconds."""
+    t0 = time.perf_counter()
+    out = phase()
+    log(f"-- {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1061,14 +1188,15 @@ def main() -> int:
               "this checkout", file=sys.stderr)
         return 2
     try:
-        card = phase_toolchain()
-        phase_build()
-        recs = phase_kernels()
-        recs.update(phase_flash_kernels())
-        phase_reference()
-        launches = phase_main_path()
-        for k, v in phase_main_path_lm().items():
-            launches[k] = launches.get(k, 0) + v
+        card = timed(phase_toolchain)
+        timed(phase_build)
+        recs = timed(phase_kernels)
+        recs.update(timed(phase_flash_kernels))
+        timed(phase_reference)
+        launches = {}
+        for phase in (phase_main_path, phase_main_path_lm, phase_realdata):
+            for k, v in timed(phase).items():
+                launches[k] = launches.get(k, 0) + v
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -6,8 +6,11 @@ here has a counterpart there (`eventgrad_tpu_torch/parallel/events.py`
 <-> `eventgrad_tpu/parallel/events.py`, and so on). It imports torch and
 numpy only — never JAX, flax, optax or the JAX package.
 
-The ranks of the simulated ring are a leading `[R, ...]` dimension on
-one device (the rank-stacked lift, `parallel/spmd.py`). The flat
+It trains the four algorithm families of the JAX package (allreduce,
+D-PSGD, EventGraD, sparsified EventGraD) on the MLP, the MNIST CNNs, the
+CIFAR LeNet, the BasicBlock ResNets and the transformer LM, over rings
+and 2-D tori. The ranks of the simulated topology are a leading
+`[R, ...]` dimension on one device (the rank-stacked lift, `parallel/spmd.py`). The flat
 parameter arena (`parallel/arena.py`) holds each rank-stacked quantity
 as one `[R, n]` tensor (f32, or the bf16/int8 wire carrier for
 carrier-resident receive buffers), and the gossip tail runs through five
@@ -21,9 +24,12 @@ Entry points (`train`, `evaluate`, `init_train_state`) take `device=`:
 None means CUDA and raises when CUDA is absent.
 """
 
-from eventgrad_tpu_torch.parallel.topology import Ring, Topology
+from eventgrad_tpu_torch.parallel.topology import Ring, Topology, Torus
 from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
-from eventgrad_tpu_torch.models.resnet import ResNet, ResNet18
+from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
+from eventgrad_tpu_torch.models import (
+    CNN1, CNN2, MLP, MODEL_REGISTRY, LeNetCifar, ResNet, ResNet18, ResNet34,
+)
 from eventgrad_tpu_torch.models.transformer import TransformerLM
 from eventgrad_tpu_torch.train.state import TrainState, init_train_state
 from eventgrad_tpu_torch.train.loop import (
@@ -31,8 +37,9 @@ from eventgrad_tpu_torch.train.loop import (
 )
 
 __all__ = [
-    "Ring", "Topology", "EventConfig", "EventState", "ResNet", "ResNet18",
-    "TransformerLM",
+    "Ring", "Topology", "Torus", "EventConfig", "EventState", "SparseConfig",
+    "CNN1", "CNN2", "MLP", "MODEL_REGISTRY", "LeNetCifar", "ResNet",
+    "ResNet18", "ResNet34", "TransformerLM",
     "TrainState", "init_train_state", "consensus_params", "evaluate",
     "rank0_slice", "train",
 ]

@@ -18,7 +18,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from eventgrad_tpu_torch.parallel.arena import flax_order
+from eventgrad_tpu_torch.parallel.arena import flax_axes, flax_order
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -45,17 +45,13 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 def _kernel_perm(name: str, ndim: int, lead: int, to_torch: bool):
     """Axis permutation of a leaf between the flax and torch layouts
-    (None when the layouts agree)."""
-    if not name.endswith("kernel"):
+    (None when the layouts agree; `arena.flax_axes` is the rule)."""
+    axes = flax_axes(name, ndim - lead)
+    if axes is None:
         return None
-    base = tuple(range(lead))
-    if ndim - lead == 4:   # conv: HWIO <-> OIHW
-        perm = (3, 2, 0, 1) if to_torch else (2, 3, 1, 0)
-    elif ndim - lead == 2:  # dense: (in, out) <-> (out, in)
-        perm = (1, 0)
-    else:
-        return None
-    return base + tuple(lead + p for p in perm)
+    if to_torch:
+        axes = tuple(int(i) for i in np.argsort(axes))
+    return tuple(range(lead)) + tuple(lead + p for p in axes)
 
 
 def params_from_jax(

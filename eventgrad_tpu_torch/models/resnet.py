@@ -1,5 +1,6 @@
 """ResNet family — port of `eventgrad_tpu/models/resnet.py` (`ResNet`,
-`BasicBlock`, `ResNet18`; `Bottleneck` and the deeper variants wait).
+`BasicBlock`, `ResNet18`, `ResNet34`; `Bottleneck` and the ResNets built
+of it wait).
 
 CIFAR-adapted ResNet: 3x3 stem stride 1, no stem maxpool, stages
 64/128/256/512 with strides 1/2/2/2, avg_pool(4) head, dense to
@@ -270,3 +271,7 @@ def ResNet18(**kw) -> ResNet:
     """As instantiated by the reference: {2,2,2,2} -> 3 blocks/stage with
     extra_block=True."""
     return ResNet(stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock, **kw)
+
+
+def ResNet34(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=BasicBlock, **kw)

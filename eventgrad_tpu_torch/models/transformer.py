@@ -138,7 +138,7 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"attn={attn!r} inside the model needs the hybrid dp x sp "
                 "topology in the train step, which is not ported yet "
-                "(ROADMAP queue 1, item 15); the stacked functions are in "
+                "(ROADMAP queue 1, item 7); the stacked functions are in "
                 "parallel/ring_attention.py"
             )
         if attn not in ATTN_MODES:

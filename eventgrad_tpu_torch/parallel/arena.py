@@ -27,6 +27,15 @@ import torch
 from torch import nn
 
 
+def flax_axes(name: str, ndim: int) -> Optional[Tuple[int, ...]]:
+    """The permutation of a torch-layout leaf's axes that gives flax's
+    layout (None where they agree): convolution kernels OIHW -> HWIO,
+    dense kernels `(out, in)` -> `(in, out)`."""
+    if not name.endswith("kernel"):
+        return None
+    return {4: (2, 3, 1, 0), 2: (1, 0)}.get(ndim)
+
+
 def flax_order(names: Iterable[str]) -> Tuple[str, ...]:
     """Dotted parameter names ("BasicBlock_0.Conv_0.kernel") in the
     order `jax.tree.flatten` visits the same leaves of the nested flax
@@ -94,6 +103,23 @@ def _device_constants(sizes: Tuple[int, ...], device: torch.device):
         output_size=sum(sizes),
     )
     return seg, sizes_t
+
+
+@functools.lru_cache(maxsize=16)
+def flax_positions(spec: "ArenaSpec", device=None) -> torch.Tensor:
+    """`[n_total]` int64: the arena position of each element of the JAX
+    package's flat arena, whose leaves are raveled in flax's layout —
+    `flat[:, flax_positions(spec)]` is the JAX arena. Cached per device:
+    read only."""
+    pieces = []
+    for name, shape, start, size in zip(spec.names, spec.shapes, spec.starts,
+                                        spec.sizes):
+        idx = torch.arange(start, start + size).reshape(shape)
+        axes = flax_axes(name, len(shape))
+        if axes is not None:
+            idx = idx.permute(axes)
+        pieces.append(idx.reshape(-1))
+    return torch.cat(pieces).to(device)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,8 +1,8 @@
 """Gossip exchanges over the rank-stacked dimension: the f32, bf16 and
 int8 wires.
 
-Port of `eventgrad_tpu/parallel/collectives.py`, the subset the flagship
-arena path runs: `recv_from`, `_wire_concat`, the wire codecs
+Port of `eventgrad_tpu/parallel/collectives.py`, the subset the port's
+steps run: `allreduce_mean`, `recv_from`, `_wire_concat`, the wire codecs
 (`_wire_out`, `_contract_safe`, `_leaf_absmax`, `_masked_scales`,
 `_int8_encode_flat`), `neighbor_vals_flat`, `masked_neighbor_vals_flat`
 (with the carrier-resident contract), `commit_bufs_flat`,
@@ -41,6 +41,17 @@ WIRE_VAL_BYTES = {None: 4.0, "bf16": 2.0, "int8": 1.0}
 def check_wire(wire) -> None:
     if wire not in WIRE_MODES:
         raise ValueError(f"wire must be one of {WIRE_MODES}")
+
+
+def allreduce_mean(x: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """Mean over every rank of the topology: each rank's slice of the
+    `[R, ...]` result holds the mean, taken axis by axis in the
+    topology's axis order as the JAX package's chain of `pmean`s takes
+    it."""
+    grid = x.reshape(tuple(topo.shape) + tuple(x.shape[1:]))
+    for ax in range(len(topo.shape)):
+        grid = torch.mean(grid, dim=ax, keepdim=True)
+    return grid.reshape((1,) + tuple(x.shape[1:])).expand(x.shape)
 
 
 def recv_from(x: torch.Tensor, topo: Topology, nb: NeighborSpec) -> torch.Tensor:
@@ -182,7 +193,10 @@ def masked_neighbor_vals_flat(
                 f"got {wire!r}"
             )
     if integrity:
-        raise NotImplementedError("the integrity riders are not ported yet")
+        raise NotImplementedError(
+            "the integrity riders are not ported yet (ROADMAP queue 1, "
+            "item 6)"
+        )
     check_wire(wire)
     seg = spec.seg_expand(payload.device)
     fire_f32 = fire_vec.to(torch.float32)
@@ -286,7 +300,9 @@ def wire_real_bytes_per_neighbor(
     f32 scale vector the int8 wire always ships."""
     check_wire(wire)
     if compact_capacity is not None:
-        raise NotImplementedError("the compact wire is not ported yet")
+        raise NotImplementedError(
+            "the compact wire is not ported yet (ROADMAP queue 1, item 4)"
+        )
     b = WIRE_VAL_BYTES[wire] * float(n_params)
     if fire_bits:
         b += 1.0 * n_leaves

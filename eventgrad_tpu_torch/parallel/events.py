@@ -87,15 +87,17 @@ class EventState:
     @classmethod
     def init(
         cls, spec: "arena_lib.ArenaSpec", topo: Topology, cfg: EventConfig,
-        *, resident_wire=None, device=None,
+        *, resident_wire=None, device=None, with_bufs: bool = True,
     ) -> "EventState":
         """Rank-stacked zero state over `topo.n_ranks` ranks with flat
         arena receive buffers. `resident_wire` ("bf16" | "int8") stores
         them carrier-resident: in the wire dtype, plus the per-leaf int8
-        dequant scales in `buf_scales`."""
+        dequant scales in `buf_scales`. `with_bufs=False` leaves them out
+        (sp_eventgrad keeps its replicas in a `SparseState`)."""
         r, n = topo.n_ranks, spec.n_leaves
         bufs, buf_scales = arena_lib.alloc_event_bufs(
-            spec, topo.n_neighbors, r, wire=resident_wire, device=device,
+            spec, topo.n_neighbors if with_bufs else 0, r,
+            wire=resident_wire, device=device,
         )
         zeros = lambda: torch.zeros((r, n), dtype=torch.float32, device=device)
         return cls(

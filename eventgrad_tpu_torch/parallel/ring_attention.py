@@ -74,7 +74,8 @@ def _axis_size(topo: Topology, axis: Optional[str], x: torch.Tensor) -> int:
     if len(topo.axes) != 1:
         raise NotImplementedError(
             "sequence parallelism over one axis of a multi-axis (dp x sp) "
-            "topology is not ported yet; pass a one-axis topology"
+            "topology is not ported yet (ROADMAP queue 1, item 7); pass "
+            "a one-axis topology"
         )
     if axis is not None and axis != topo.axes[0]:
         raise ValueError(f"axis {axis!r} is not an axis of {topo.axes}")

@@ -1,13 +1,15 @@
 """Neighbor topologies over the rank-stacked dimension.
 
-Port of `eventgrad_tpu/parallel/topology.py` (the `Ring` subset; `Torus`
-waits). A topology names its axes and enumerates neighbor *shifts*; in
-the port each shift is a `torch.roll` of the leading rank dimension
-(`collectives.recv_from`).
+Port of `eventgrad_tpu/parallel/topology.py` (`Ring` and `Torus`; the
+aux and sharded axes of the hybrid topologies wait). A topology names
+its axes and enumerates neighbor *shifts*; in the port each shift is a
+`torch.roll` of the leading rank dimension, reshaped to the topology's
+grid (`collectives.recv_from`).
 
 A `Ring` has two neighbors (offset -1 and +1) and reproduces the
-reference's `left = (rank-1+N) % N`, `right = (rank+1) % N`, with
-uniform 1/(1+n_neighbors) mixing.
+reference's `left = (rank-1+N) % N`, `right = (rank+1) % N`; a `Torus`
+has those two along each of its axes. Mixing is uniform,
+1/(1+n_neighbors): 1/3 on a ring, 1/5 on a 2-D torus.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ class Topology:
 
     @property
     def mix_weight(self) -> float:
-        """Uniform gossip mixing weight: 1/3 on a ring."""
+        """Uniform gossip mixing weight: 1/3 on a ring, 1/5 on a torus."""
         return 1.0 / (1.0 + self.n_neighbors)
 
     def neighbor_source(self, rank: int, spec: NeighborSpec) -> int:
@@ -83,3 +85,8 @@ class Topology:
 def Ring(n: int, axis: str = "ring") -> Topology:
     """1-D ring of `n` ranks — the reference's only topology."""
     return Topology(axes=(axis,), shape=(n,))
+
+
+def Torus(nx: int, ny: int, axes: Tuple[str, str] = ("x", "y")) -> Topology:
+    """2-D torus (nx x ny) with 4 neighbors per rank."""
+    return Topology(axes=tuple(axes), shape=(nx, ny))

@@ -16,10 +16,14 @@ import numpy as np
 import torch
 
 from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
+from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
+from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
 from eventgrad_tpu_torch.parallel.topology import Topology
-from eventgrad_tpu_torch.train.state import TrainState, init_train_state
+from eventgrad_tpu_torch.train.state import (
+    EVENT_ALGOS, TrainState, init_train_state,
+)
 from eventgrad_tpu_torch.train.steps import make_train_step
 from eventgrad_tpu_torch.utils.devices import resolve_device
 from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
@@ -44,6 +48,15 @@ def _as_input(model, x) -> np.ndarray:
     """Model inputs as a contiguous array of the model's `input_dtype`:
     float32 images, int64 tokens (what torch indexes with)."""
     return np.ascontiguousarray(x, model.input_dtype)
+
+
+def _step_mean(per_step: np.ndarray) -> float:
+    """Rank 0's mean over the epoch's steps of a `[steps, R]` float32
+    byte count, summed in float64: the counts are exact integers in
+    float32 (up to 2^24 per ulp step), and a float32 sum of 27,912,332
+    three times already rounds (the JAX loop's float32 mean reads
+    27,912,330 for it)."""
+    return float(per_step[..., 0].mean(dtype=np.float64))
 
 
 def _sync(device: torch.device) -> None:
@@ -96,6 +109,8 @@ def train(
     learning_rate: float = 0.05,
     momentum: float = 0.0,
     event_cfg: Optional[EventConfig] = None,
+    sparse_cfg: Optional[SparseConfig] = None,
+    augment: bool = False,
     random_sampler: bool = False,
     seed: int = 0,
     x_test: Optional[np.ndarray] = None,
@@ -115,8 +130,13 @@ def train(
     Each record carries `loss`, `train_acc`, `sent_bytes_per_step_per_chip`,
     `steps`, `wall_s` (seconds of device work for the epoch's steps),
     `wire`, `resident_dtype` ("f32" | "bf16" | "int8") and `staleness`,
-    plus `msgs_saved_pct` for eventgrad and `test_accuracy`/`test_loss`
-    when a test set is given and `log_every_epoch`.
+    plus `policy`, `num_events`, `num_deferred`, `msgs_saved_pct` and
+    `fired_frac` for eventgrad and sp_eventgrad, and `test_accuracy` /
+    `test_loss` when a test set is given and `log_every_epoch`.
+
+    `algo` is one of "allreduce", "dpsgd", "eventgrad", "sp_eventgrad";
+    `sparse_cfg` sets sp_eventgrad's top-k percent (default 10%), and
+    `augment=True` pads, flips and crops every rank's images each step.
 
     `wire` (None = f32, "bf16", "int8") compresses the gossip exchange;
     `staleness=1` (eventgrad) mixes with the previous step's buffers;
@@ -124,7 +144,7 @@ def train(
     keeps the receive buffers in the wire dtype, bitwise the f32-resident
     run (see `train/steps.make_train_step`)."""
     device = resolve_device(device)
-    if algo == "eventgrad":
+    if algo in EVENT_ALGOS:
         event_cfg = event_cfg or EventConfig()
     x = _as_input(model, x_train)
     y = np.ascontiguousarray(y_train, np.int64)
@@ -138,6 +158,7 @@ def train(
         model, topo, algo, event_cfg,
         fused_sgd=(learning_rate, momentum), trigger_policy=trigger_policy,
         wire=wire, staleness=staleness, carrier_resident=carrier_resident,
+        sparse_cfg=sparse_cfg, augment=augment,
     )
     resident_wire = wire if carrier_resident else None
     state = init_train_state(
@@ -173,9 +194,9 @@ def train(
             "loss": float(m_e["loss"].mean()),
             "train_acc": 100.0 * float(m_e["correct"].sum())
             / (n_ranks * steps * batch_size * labels_per_sample),
-            "sent_bytes_per_step_per_chip": float(m_e["sent_bytes"][..., 0].mean()),
-            "sent_bytes_wire_real_per_step_per_chip": float(
-                m_e["sent_bytes_wire_real"][..., 0].mean()
+            "sent_bytes_per_step_per_chip": _step_mean(m_e["sent_bytes"]),
+            "sent_bytes_wire_real_per_step_per_chip": _step_mean(
+                m_e["sent_bytes_wire_real"]
             ),
             "n_params": spec.n_total,
             "arena": True,
@@ -184,7 +205,8 @@ def train(
             "staleness": int(staleness),
             "device": str(device),
         }
-        if algo == "eventgrad":
+        if algo in EVENT_ALGOS:
+            rec["policy"] = policy_lib.resolve(trigger_policy, algo).name
             events_total = int(m_e["num_events"][-1].sum())
             rec["num_deferred"] = int(m_e["num_deferred"][-1].sum())
             rec["num_events"] = events_total

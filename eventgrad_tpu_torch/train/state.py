@@ -4,9 +4,12 @@ Port of `eventgrad_tpu/train/state.py` (`TrainState`,
 `init_train_state`). The state holds every rank of the topology:
 parameters and the momentum trace as `[R, n]` f32 arenas
 (`parallel/arena.py`), BatchNorm statistics as a dict of `[R, C]`
-tensors (rank-local, never gossiped; empty for a model without BatchNorm), the event state for EventGraD,
-and the pass counter. Every rank starts from the same parameters (the
-reference seeds every rank identically).
+tensors (rank-local, never gossiped; empty for a model without BatchNorm), the event state for
+EventGraD and sparsified EventGraD, the top-k shadows and replicas for
+the latter, the pass counter, and the step's random stream. Every rank
+starts from the same parameters (the reference seeds every rank
+identically); the random stream draws each rank's own dropout and
+augmentation.
 """
 
 from __future__ import annotations
@@ -14,13 +17,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
+from eventgrad_tpu_torch.parallel.sparsify import SparseState
 from eventgrad_tpu_torch.parallel.spmd import stack_for_ranks
 from eventgrad_tpu_torch.parallel.topology import Topology
 from eventgrad_tpu_torch.utils.devices import resolve_device
+
+#: the four algorithm families, and those with an event trigger
+ALGOS = ("allreduce", "dpsgd", "eventgrad", "sp_eventgrad")
+EVENT_ALGOS = ("eventgrad", "sp_eventgrad")
 
 
 @dataclasses.dataclass
@@ -34,6 +43,11 @@ class TrainState:
     #: passes run so far (the same on every rank)
     pass_num: int = 0
     event: Optional[EventState] = None
+    sparse: Optional[SparseState] = None
+    #: the step's random stream on the state's device (dropout keep bits,
+    #: augmentation draws); a model without dropout and a step without
+    #: augmentation draw nothing from it
+    rng: Optional[torch.Generator] = None
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)
@@ -59,24 +73,34 @@ def init_train_state(
     ("bf16" | "int8"; eventgrad) holds the receive buffers carrier-
     resident: in the wire dtype, with the int8 dequant scales in
     `EventState.buf_scales` — the layout of a `carrier_resident` step.
+    sp_eventgrad carries the trigger's event state (no receive buffers)
+    and a `SparseState` whose shadows start as copies of the parameters
+    (its layout does not depend on the top-k percent, so unlike the JAX
+    function this one takes no `sparse_cfg`). The random stream is
+    seeded from `seed`.
     `device=None` means CUDA and raises without it."""
     device = resolve_device(device)
-    if algo not in ("eventgrad", "dpsgd"):
-        raise NotImplementedError(
-            f"algo {algo!r} is not ported yet (eventgrad, dpsgd)"
-        )
+    if algo not in ALGOS:
+        raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     model.check_input_shape(input_shape)
     spec = arena_spec(model)
     params, stats = model.init_variables(seed, device=device)
     flat = stack_for_ranks(spec.ravel(params), topo)
-    event = None
-    if algo == "eventgrad":
+    event = sparse = None
+    if algo in EVENT_ALGOS:
         event = EventState.init(spec, topo, event_cfg or EventConfig(),
-                                resident_wire=resident_wire, device=device)
+                                resident_wire=resident_wire, device=device,
+                                with_bufs=algo == "eventgrad")
+    if algo == "sp_eventgrad":
+        sparse = SparseState.init(flat, topo)
+    # a stream of its own, apart from the weights' (seeded with `seed`)
+    rng_seed = int(np.random.SeedSequence([int(seed), 1]).generate_state(1)[0])
     return TrainState(
         params=flat,
         trace=torch.zeros_like(flat) if momentum else None,
         batch_stats=stack_for_ranks(stats, topo),
         pass_num=0,
         event=event,
+        sparse=sparse,
+        rng=torch.Generator(device=device).manual_seed(rng_seed),
     )

@@ -1,36 +1,49 @@
-"""Rank-stacked train steps for D-PSGD and EventGraD on the flat arena.
+"""Rank-stacked train steps for the four algorithm families on the flat
+arena.
 
 Port of `eventgrad_tpu/train/steps.py` (`make_train_step`, `_xent`,
-`_fired_accounting`), covering the arena branches of algo="dpsgd" and
-algo="eventgrad" with the fused tail — the flagship path:
+`_fired_accounting`), covering the arena branches with the fused tail:
 
-  algo="dpsgd"     — every rank receives both ring neighbors' whole
-                     parameter arenas and runs the fused mix+SGD kernel
-                     (`ops/fused_update.fused_mix_sgd`).
-  algo="eventgrad" — the norm-delta trigger decides per leaf which
-                     parameters fire; the masked-wire kernel
-                     (`ops/event_engine.masked_wire`) zeroes the rest;
-                     the fused commit+mix+SGD kernel
-                     (`ops/arena_update.fused_mix_commit`) commits the
-                     received buffers and updates in one pass.
+  algo="allreduce"    — the gradients average over every rank
+                        (`collectives.allreduce_mean`), then momentum SGD;
+                        the tail rides the fused mix+SGD kernel with a
+                        zero buffer sum and mixing weight 1, which is
+                        exactly SGD: `(p + 0)·1 − lr·(m·t + g)`.
+  algo="dpsgd"        — every rank receives both ring neighbors' whole
+                        parameter arenas and runs the fused mix+SGD kernel
+                        (`ops/fused_update.fused_mix_sgd`).
+  algo="eventgrad"    — the norm-delta trigger decides per leaf which
+                        parameters fire; the masked-wire kernel
+                        (`ops/event_engine.masked_wire`) zeroes the rest;
+                        the fused commit+mix+SGD kernel
+                        (`ops/arena_update.fused_mix_commit`) commits the
+                        received buffers and updates in one pass.
+  algo="sp_eventgrad" — the same trigger; fired leaves ship their top-k
+                        (value, index) lanes (`parallel/sparsify.py`)
+                        into the neighbors' persistent replicas, and the
+                        fused mix+SGD kernel mixes the summed replicas.
 
 `wire="bf16"|"int8"` compresses the exchange (the int8 wire through the
 int8 masked-wire kernel `ops/event_engine.masked_wire_int8` on the
-EventGraD leg), `carrier_resident=True` keeps the EventGraD receive
-buffers in the wire dtype and runs the carrier tail kernel
+EventGraD leg; the top-k values with per-leaf scales on the sparse
+leg), `carrier_resident=True` keeps the EventGraD receive buffers in the
+wire dtype and runs the carrier tail kernel
 (`ops/arena_update.fused_mix_commit_carrier`), and `staleness=1` mixes
-the previous step's buffers while committing this step's.
+the previous step's buffers (or replicas) while committing this step's.
+`augment=True` pads, flips and crops every rank's images
+(`data/augment.py`), and a model with dropout gets its keep bits: both
+drawn from the state's generator before the batched forward.
 
 The gradient is taken at the pre-mix parameters, the reference's exact
 D-PSGD ordering. The R ranks' forward and backward run batched:
 `torch.func.functional_call` + `torch.func.vmap` +
 `torch.func.grad_and_value`, with the BatchNorm statistics threaded as
-explicit tensors (an empty dict for the transformer, whose flash
-attention joins the batched forward and backward through its own `vmap`
-rule, `ops/attention.py`). The JAX package's unfused optax tail is documented
-bitwise equal to the fused one, so the port runs the fused tail only.
-The other algorithms, the compact wire, staleness >= 2, the bucketed
-schedule and the engines are not ported yet.
+explicit tensors (an empty dict for a model without BatchNorm; the
+transformer's flash attention joins the batched forward and backward
+through its own `vmap` rule, `ops/attention.py`). The JAX package's
+unfused optax tail is documented bitwise equal to the fused one, so the
+port runs the fused tail only. The compact wire, staleness >= 2, the
+bucketed schedule and the engines are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from eventgrad_tpu_torch.data.augment import draw_pad_flip_crop, pad_flip_crop
+from eventgrad_tpu_torch.models.common import draw_dropout
 from eventgrad_tpu_torch.ops import event_engine
 from eventgrad_tpu_torch.ops.arena_update import (
     fused_mix_commit, fused_mix_commit_carrier,
@@ -48,10 +63,10 @@ from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
+from eventgrad_tpu_torch.parallel.sparsify import SparseConfig, sparse_exchange
 from eventgrad_tpu_torch.parallel.spmd import per_rank
 from eventgrad_tpu_torch.parallel.topology import Topology
-
-ALGOS = ("dpsgd", "eventgrad")
+from eventgrad_tpu_torch.train.state import ALGOS, EVENT_ALGOS
 
 
 def _phase(name: str):
@@ -95,39 +110,44 @@ def make_train_step(
     wire: Optional[str] = None,
     staleness: int = 0,
     carrier_resident: Optional[bool] = None,
+    sparse_cfg: Optional[SparseConfig] = None,
+    augment: bool = False,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
     metrics)`: `x` is `[R, B, H, W, C]` images with `y` int64 `[R, B]`,
     or `[R, B, T]` integer tokens with `y` int64 `[R, B, T]`, and every
     metric is a `[R]` tensor. The model is called as `model(x,
-    batch_stats, True)` and returns `(output, new_batch_stats)`; a model
-    without BatchNorm carries an empty statistics dict. `fused_sgd=(lr, momentum)` is the plain
+    batch_stats, True)` (plus `drop=` keep bits for a model with
+    dropout) and returns `(output, new_batch_stats)`; a model without
+    BatchNorm carries an empty statistics dict. `fused_sgd=(lr, momentum)` is the plain
     SGD the state was initialized for (momentum 0 carries no trace).
-    `trace=True` (eventgrad) adds the per-leaf send-side vectors
-    `trace_norm`, `trace_thres`, `trace_fired` ([R, L]) to the metrics.
+    `trace=True` (eventgrad, sp_eventgrad) adds the per-leaf send-side
+    vectors `trace_norm`, `trace_thres`, `trace_fired` ([R, L]) to the
+    metrics.
 
     `wire` (None = f32, "bf16", "int8") is the exchange's wire format;
     the accounting charges 2 or 1 B per payload element and, for int8,
-    4 B per fired leaf's scale. `staleness=1` (eventgrad) mixes the
-    buffers as they stood before this step's exchange. `carrier_resident
-    =True` (eventgrad, bf16/int8 wire) keeps the receive buffers in the
-    wire dtype; the state must come from `init_train_state(...,
-    resident_wire=wire)`. Both residencies give the same bits."""
+    4 B per fired leaf's scale (allreduce ships full-precision
+    gradients whatever the wire). `staleness=1` (event algorithms) mixes
+    the buffers or replicas as they stood before this step's exchange.
+    `carrier_resident=True` (eventgrad, bf16/int8 wire) keeps the
+    receive buffers in the wire dtype; the state must come from
+    `init_train_state(..., resident_wire=wire)`. Both residencies give
+    the same bits. `sparse_cfg` (sp_eventgrad; default top-k 10%) sets
+    the per-leaf k. `augment=True` pads, flips and crops the images."""
     if algo not in ALGOS:
-        raise NotImplementedError(
-            f"algo {algo!r} is not ported yet; ported: {ALGOS}"
-        )
+        raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     staleness = int(staleness)
     if staleness < 0:
         raise ValueError(
             f"staleness must be >= 0, got {staleness}: 0 = synchronous "
             "mixing, 1 = one-pass-stale (the deterministic RMA model)"
         )
-    if staleness and algo != "eventgrad":
+    if staleness and algo not in EVENT_ALGOS:
         raise ValueError(
             f"staleness={staleness} models the one-sided RMA asynchrony "
-            "of the event algorithms (eventgrad); dpsgd is synchronous "
-            "in the reference"
+            "of the event algorithms (eventgrad, sp_eventgrad); "
+            "allreduce/dpsgd are synchronous in the reference"
         )
     if staleness and trace:
         raise ValueError(
@@ -137,7 +157,7 @@ def make_train_step(
     if staleness >= 2:
         raise NotImplementedError(
             f"staleness={staleness}: the bounded-async delivery queues "
-            "are not ported yet (staleness 0 or 1)"
+            "are not ported yet (ROADMAP queue 1, item 5; staleness 0 or 1)"
         )
     collectives.check_wire(wire)
     carrier_wire = None
@@ -156,23 +176,31 @@ def make_train_step(
         carrier_wire = wire
     lr, mom = float(fused_sgd[0]), float(fused_sgd[1])
     event_cfg = event_cfg or EventConfig()
-    pol = policy_lib.resolve(trigger_policy, algo) if algo == "eventgrad" else None
+    sparse_cfg = sparse_cfg or SparseConfig()
+    pol = None
+    if algo in EVENT_ALGOS or trigger_policy is not None:
+        pol = policy_lib.resolve(trigger_policy, algo)
     spec = arena_spec(model)
     n_nb = topo.n_neighbors
     n_params, n_leaves = spec.n_total, spec.n_leaves
     f32 = lambda v, dev: torch.tensor(v, dtype=torch.float32, device=dev)
     # wire accounting (the reference's MPI wire): bytes per payload
     # element, plus one f32 scale per leaf on the int8 wire — per FIRED
-    # leaf on the event path, where a non-fired leaf sends nothing
+    # leaf on the event paths, where a non-fired leaf sends nothing
     val_bytes = collectives.WIRE_VAL_BYTES[wire]
     scale_bytes_per_leaf = 4.0 if wire == "int8" else 0.0
     total_bytes = val_bytes * n_params + scale_bytes_per_leaf * n_leaves
+    ks = sparse_cfg.ks(spec)
 
-    def loss_fn(params, stats, x, y):
-        out, new_stats = torch.func.functional_call(model, params, (x, stats, True))
+    def loss_fn(params, stats, x, y, drop):
+        kw = {"drop": drop} if drop else {}
+        out, new_stats = torch.func.functional_call(
+            model, params, (x, stats, True), kw)
         return _xent(out, y), (out, new_stats)
 
     grad_fn = per_rank(torch.func.grad_and_value(loss_fn, has_aux=True))
+    sites = getattr(model, "dropout_sites", lambda b: {})
+    draws = augment or bool(sites(1))
 
     def step(state, batch):
         x, y = batch
@@ -181,17 +209,46 @@ def make_train_step(
         dev = flat.device
         r = flat.shape[0]
         seg, sizes_t = spec.seg_expand(dev), spec.sizes_tensor(dev)
+        if draws and state.rng is None:
+            raise ValueError(
+                "augmentation and dropout draw from the state's generator "
+                "(TrainState.rng, set by init_train_state); this state has "
+                "none"
+            )
+        if augment:
+            x = pad_flip_crop(x, *draw_pad_flip_crop(x.shape[:2], state.rng,
+                                                     dev))
+        drop = draw_dropout(sites(x.shape[1]), (r,), state.rng, dev)
 
         with _phase("grad"):
             grads, (loss, (out, new_stats)) = grad_fn(
-                spec.unravel(flat), state.batch_stats, x, y
+                spec.unravel(flat), state.batch_stats, x, y, drop
             )
             g_flat = spec.ravel(grads)
         t_flat = state.trace if mom else torch.zeros_like(flat)
 
-        event_state = state.event
+        event_state, sparse_state = state.event, state.sparse
         metrics = {}
-        if algo == "dpsgd":
+        fired_leaves = None
+        if algo in EVENT_ALGOS:
+            with _phase("gate_pack"):
+                prop, fire_vec = event_engine.event_propose_pack(
+                    flat, event_state, pass_num, event_cfg, spec
+                )
+                event_state = pol.commit(event_state, prop, fire_vec,
+                                         event_cfg, n_nb)
+        if algo == "allreduce":
+            # the gradients average over the ranks; the tail is SGD
+            # through the mix kernel with nothing mixed in
+            g_flat = collectives.allreduce_mean(g_flat, topo).contiguous()
+            with _phase("commit_mix"):
+                p_flat, new_t = fused_mix_sgd(
+                    flat, torch.zeros_like(flat), g_flat, t_flat, lr, mom, 1.0
+                )
+            # full-precision gradients, whatever the gossip wire
+            sent_bytes = wire_real = f32(4.0 * n_params, dev)
+            fired_elems = f32(n_params, dev)
+        elif algo == "dpsgd":
             with _phase("exchange"):
                 bufs = collectives.neighbor_vals_flat(flat, topo, spec, wire)
             with _phase("commit_mix"):
@@ -209,16 +266,36 @@ def make_train_step(
                 dev,
             )
             fired_elems = f32(n_params, dev)
-            fired_frac = f32(1.0, dev)
-            num_events = num_deferred = torch.zeros((), dtype=torch.int32,
-                                                    device=dev)
-        else:
-            with _phase("gate_pack"):
-                prop, fire_vec = event_engine.event_propose_pack(
-                    flat, event_state, pass_num, event_cfg, spec
+        elif algo == "sp_eventgrad":
+            stale = sparse_state.replicas
+            with _phase("exchange"):
+                sparse_state = sparse_exchange(
+                    flat, fire_vec, sparse_state, topo, sparse_cfg, spec, wire
                 )
-                event_state = pol.commit(event_state, prop, fire_vec,
-                                         event_cfg, n_nb)
+            # staleness 1 mixes the replicas as they stood before this
+            # exchange; this step's payloads land for the next one
+            bufs = stale if staleness else sparse_state.replicas
+            with _phase("commit_mix"):
+                buf_sum = torch.zeros_like(flat)
+                for b in bufs:
+                    buf_sum = buf_sum + b
+                p_flat, new_t = fused_mix_sgd(
+                    flat, buf_sum, g_flat, t_flat, lr, mom, topo.mix_weight
+                )
+            # values + int32 indices per selected element per neighbor
+            fired_elems, fired_leaves = _fired_accounting(
+                fire_vec, policy_lib.topk_layout(spec, ks).sizes_tensor(dev))
+            sent_bytes = f32(n_nb, dev) * (
+                (val_bytes + 4.0) * fired_elems
+                + scale_bytes_per_leaf * fired_leaves
+            )
+            # the top-k lanes ship every pass (masked on receipt): k
+            # values and k indices per leaf, the fire bits, int8 scales
+            wire_real = f32(n_nb * (
+                (val_bytes + 4.0) * sum(ks) + 1.0 * n_leaves
+                + scale_bytes_per_leaf * n_leaves
+            ), dev)
+        else:
             with _phase("exchange"):
                 res = collectives.masked_neighbor_vals_flat(
                     flat, fire_vec, topo, spec, wire,
@@ -263,6 +340,7 @@ def make_train_step(
             sent_bytes = f32(n_nb, dev) * (
                 val_bytes * fired_elems + scale_bytes_per_leaf * fired_leaves
             )
+        if algo in EVENT_ALGOS:
             fired_frac = fired_leaves / n_leaves
             num_events, num_deferred = (event_state.num_events,
                                         event_state.num_deferred)
@@ -270,6 +348,10 @@ def make_train_step(
                 metrics["trace_norm"] = prop.curr_norm
                 metrics["trace_thres"] = event_state.thres
                 metrics["trace_fired"] = fire_vec.to(torch.float32)
+        else:
+            fired_frac = f32(1.0, dev)
+            num_events = num_deferred = torch.zeros((), dtype=torch.int32,
+                                                    device=dev)
 
         new_state = state.replace(
             params=p_flat,
@@ -277,6 +359,7 @@ def make_train_step(
             batch_stats=new_stats,
             pass_num=pass_num,
             event=event_state,
+            sparse=sparse_state,
         )
         bcast = lambda v: torch.broadcast_to(v, (r,))
         metrics.update(
@@ -295,4 +378,3 @@ def make_train_step(
         return new_state, metrics
 
     return step
-

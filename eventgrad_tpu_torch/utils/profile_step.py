@@ -1,10 +1,11 @@
 """Where a flagship train step's time goes on the card.
 
     python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
-        [--model {resnet,transformer}]
+        [--model {resnet,transformer}] [--algos ALGO ...]
         [--wire {bf16,int8}] [--staleness {0,1}] [--carrier-resident]
 
-For each leg (EventGraD, then D-PSGD) at the flagship op-point —
+For each leg (EventGraD, then D-PSGD, or the `--algos` named: allreduce,
+dpsgd, eventgrad, sp_eventgrad at top-k 10%) at the flagship op-point —
 ResNet-18 with bf16 compute, global batch 256; or, with `--model
 transformer`, the LM of 4 layers, dim 512, 8 heads with flash attention
 in float32 on 4 sequences of 1024 tokens per rank — on Ring(8) stacked
@@ -44,7 +45,7 @@ from eventgrad_tpu_torch.models.resnet import ResNet18
 from eventgrad_tpu_torch.models.transformer import TransformerLM
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.topology import Ring
-from eventgrad_tpu_torch.train.state import init_train_state
+from eventgrad_tpu_torch.train.state import ALGOS, init_train_state
 from eventgrad_tpu_torch.train.steps import make_train_step
 from eventgrad_tpu_torch.utils.devices import resolve_device
 
@@ -150,6 +151,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--model", choices=("resnet", "transformer"),
                     default="resnet")
+    ap.add_argument("--algos", nargs="+", choices=ALGOS,
+                    default=["eventgrad", "dpsgd"])
     ap.add_argument("--wire", choices=("bf16", "int8"), default=None)
     ap.add_argument("--staleness", type=int, choices=(0, 1), default=0)
     ap.add_argument("--carrier-resident", action="store_true")
@@ -157,7 +160,7 @@ def main(argv=None) -> int:
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for algo in ("eventgrad", "dpsgd"):
+    for algo in args.algos:
         rec = profile_leg(algo, args.steps, device, wire=args.wire,
                           staleness=args.staleness,
                           carrier_resident=args.carrier_resident or None,

@@ -17,7 +17,7 @@ from eventgrad_tpu_torch.data.datasets import synthetic_dataset
 from eventgrad_tpu_torch.models.resnet import ResNet
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eventgrad_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "eventgrad_tpu")
 
 
 def _port_sources():
@@ -120,3 +120,53 @@ def test_train_on_cpu_records():
         if algo == "eventgrad":
             assert 0.0 <= hist[-1]["msgs_saved_pct"] < 100.0
         assert torch.isfinite(state.params).all()
+
+
+def test_refusals_name_their_roadmap_item():
+    """Every feature the port refuses raises NotImplementedError naming
+    the ROADMAP queue-1 item that ports it."""
+    from eventgrad_tpu_torch.data.datasets import load_or_synthesize
+    from eventgrad_tpu_torch.parallel import collectives, policy
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+    from eventgrad_tpu_torch.parallel.ring_attention import ring_attention
+    from eventgrad_tpu_torch.parallel.sparsify import (
+        SparseConfig, SparseState, sparse_exchange,
+    )
+    from eventgrad_tpu_torch.train.steps import make_train_step
+
+    model = egt.MLP()
+    spec = arena_spec(model)
+    flat = torch.zeros((8, spec.n_total))
+    fire = torch.ones((8, spec.n_leaves), dtype=torch.bool)
+    q = torch.zeros((4, 1, 8, 2, 4))
+    refusals = {
+        "item 4": [
+            lambda: collectives.wire_real_bytes_per_neighbor(
+                10, 2, compact_capacity=4),
+            lambda: policy.resolve("micro", "eventgrad"),
+            lambda: policy.resolve("hybrid", "eventgrad"),
+        ],
+        "item 5": [
+            lambda: make_train_step(model, egt.Ring(8), "eventgrad",
+                                    fused_sgd=(0.1, 0.0), staleness=2),
+            lambda: sparse_exchange(flat, fire,
+                                    SparseState.init(flat, egt.Ring(8)),
+                                    egt.Ring(8), SparseConfig(), spec,
+                                    staleness=2),
+        ],
+        "item 6": [
+            lambda: collectives.masked_neighbor_vals_flat(
+                flat, fire, egt.Ring(8), spec, checksum=True),
+            lambda: load_or_synthesize("mnist", "/data", "train"),
+        ],
+        "item 7": [
+            lambda: egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,
+                                      max_len=8, attn="ring"),
+            lambda: ring_attention(q, q, q, egt.Torus(2, 2)),
+        ],
+    }
+    for item, calls in refusals.items():
+        for call in calls:
+            with pytest.raises(NotImplementedError,
+                               match=rf"ROADMAP queue 1, {item}\b"):
+                call()
