@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    each flash instantiation's registers, spills and shared memory
    (`-Xptxas -v`), and, where the toolkit has cuobjdump, its count of
    tensor-core (HMMA) instructions: the run fails if a forward, dQ or
-   dK/dV instantiation is missing or has none;
+   dK/dV instantiation (float32 and bfloat16, DMAX 32, 64 and 128) is
+   missing or has none;
 3. kernels — each gossip-tail kernel at the flagship shapes (Ring(8) x
    ResNet-18: 8 x 17,444,682 elements, two neighbors), held bitwise
    against its plain PyTorch version on the same inputs (bit patterns
@@ -24,8 +25,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    on int8 it must equal the f32 commit kernel fed the dequantized
    buffers, bitwise (p', t' and the dequantized committed buffers).
    Then the three flash-attention kernels (forward, dQ, dK/dV) at the
-   transformer legs' shapes (B = 32 = 8 ranks x 4, T = 1024, H = 8,
-   D = 64, causal, q/k/v as strided views of one fused projection), in
+   transformer legs' shapes (B = 32 = 8 ranks x 4, T = 1024, and H = 8,
+   D = 64 or H = 16, D = 128; causal, q/k/v as strided views of one
+   fused projection), in
    float32 and in bfloat16, each against its plain version on the same
    inputs and, in float32, the autograd Function end to end against
    autograd through the plain attention: float32 forward atol = rtol =
@@ -35,12 +37,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the bound from the products' flops on the tensor cores (bfloat16: 989
    TFLOP/s; float32: three TF32 products each at 495 TFLOP/s, the least
    work that keeps float32 accuracy) or the bytes at 3.35 TB/s,
-   whichever is larger. Small cases follow in float32 and bfloat16:
-   non-causal, ragged T = 160 / D = 24 (also with rows only 4-byte
-   aligned: 4-byte copies in float32, plain loads in bfloat16), one row,
-   the offset variant on a fully visible, a diagonal, a past-the-diagonal
-   (keys 40 ahead) and a fully masked hop (gradients exactly 0),
-   per-group offsets, each with the cotangent of lse;
+   whichever is larger. Small cases follow in float32 and bfloat16, at
+   D = 24-64 and again at D = 80, 96 and 128 (the DMAX = 128 kernels;
+   80 and 96 on zero-filled columns): non-causal, ragged T = 160 (also
+   with rows only 4-byte aligned: 4-byte copies in float32, plain loads
+   in bfloat16), one row, the offset variant on a fully visible, a
+   diagonal, a past-the-diagonal (keys 40 ahead) and a fully masked hop
+   (output and gradients exactly 0), per-group offsets, each with the
+   cotangent of lse; then a head dimension of 160, which must raise
+   naming its ROADMAP item;
 4. reference — a small ResNet's EventGraD, D-PSGD, int8
    carrier-resident EventGraD, allreduce and sparsified EventGraD (top-k
    10%, f32 and int8 wires) steps on Ring(8), and its EventGraD step on
@@ -50,8 +55,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    its threshold; int8 carriers within one quantum.
    The same for a small transformer (flash attention, float32 compute,
    T = 96), and stacked ring attention through the flash kernels over 4
-   shards against plain attention on the whole sequence, forward and
-   gradients;
+   shards (D = 32 and 128) against plain attention on the whole
+   sequence, forward and gradients;
 5. main path — the flagship trainer through `eventgrad_tpu_torch.train`:
    full-width ResNet-18 (bf16 compute, 3 blocks per stage), Ring(8),
    global batch 256, SGD lr 0.01 momentum 0.9, the adaptive trigger at
@@ -59,21 +64,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    2 epochs: EventGraD and D-PSGD on the f32 wire, EventGraD on the int8
    wire with carrier-resident buffers, its D-PSGD int8 twin, EventGraD on
    the bf16 wire with carrier-resident buffers, sparsified EventGraD at
-   top-k 10% on the f32 wire, and allreduce. Then two
+   top-k 10% on the f32 wire, and allreduce. Then four
    transformer legs at the same optimizer and trigger: EventGraD and
    D-PSGD on `TransformerLM(vocab=256, dim=512, n_heads=8, n_layers=4,
-   max_len=1024, attn="flash")` in float32, 4 sequences of 1024 tokens
-   per rank, the f32 wire (13,389,056 parameters per rank in 46
-   leaves). The kernels' launch counters are zeroed just before each
-   leg and read just after; a leg whose kernels did not launch, whose
+   max_len=1024, attn="flash")` (13,389,056 parameters per rank in 46
+   leaves), and on `TransformerLM(vocab=256, dim=2048, n_heads=16,
+   n_layers=2, max_len=1024, attn="flash")`, the `transformer-d128` legs
+   (heads of 128: Pythia-1.4B's attention width, cut to 2 layers;
+   103,850,240 parameters in 26 leaves), in float32, 4 sequences of 1024
+   tokens per rank, the f32 wire. The kernels' launch counters are
+   zeroed just before each leg and read just after (the
+   `transformer-d128` legs' flash launches report as the DMAX = 128
+   records "flash_*_d128"); a leg whose kernels did not launch, whose
    receive buffers are not in the carrier dtype, whose byte counts
    are not exact (D-PSGD int8 34,890,052 sent bytes per step per chip,
    EventGraD int8 34,890,224 wire-real bytes, sparsified EventGraD f32
    2 x (8 x sum of the leaves' k + 86) wire-real bytes, allreduce 4 x
-   17,444,682 sent bytes: each derived from the model's leaf sizes),
-   whose flash kernels did not
-   launch once per layer per step (forward: plus once per layer per
-   test pass), or whose loss is not finite fails the run;
+   17,444,682 sent bytes: each derived from the model's leaf sizes; on
+   the LM, D-PSGD's sent and wire-real bytes both 2 x 4 B per parameter
+   and EventGraD's wire-real that plus the fire bytes, as the step
+   reckons it in float32, with the fired payload at most that), whose
+   flash kernels did not launch once per layer per step (forward: plus
+   once per layer per test pass), or whose loss is not finite fails the
+   run;
 6. real data — the port trained to a test accuracy on the bundled
    digit scans (`eventgrad_tpu_torch/utils/realdata.py`), seed 0, 540
    passes per leg on Ring(8): CNN2 on "digits" (EventGraD with the
@@ -125,8 +138,16 @@ NB = 2
 #: the flash-attention shapes of the transformer legs: batch 8 ranks x 4
 #: sequences, T = 1024, 8 heads of 64 (dim 512), causal
 FLASH_SHAPE = (RANKS * 4, 1024, 8, 64)
+#: ... and of the legs at head dimension 128: 16 heads of 128 (dim 2048,
+#: the attention width of Pythia-1.4B)
+FLASH_SHAPE_D128 = (RANKS * 4, 1024, 16, 128)
 LM = dict(vocab=256, dim=512, n_heads=8, n_layers=4, max_len=1024)
 LM_PARAMS, LM_LEAVES, LM_PER_RANK = 13_389_056, 46, 4
+#: the legs at head dimension 128: Pythia-1.4B's attention width
+#: (EleutherAI; d_model 2048, 16 heads of 128) in the repo's GPT-style
+#: block, cut to 2 layers, vocab 256
+LM_D128 = dict(vocab=256, dim=2048, n_heads=16, n_layers=2, max_len=1024)
+LM_D128_PARAMS, LM_D128_LEAVES = 103_850_240, 26
 
 TIMING_REPS, TIMING_WARMUP = 20, 3
 DEVICE = "cuda"
@@ -304,7 +325,7 @@ def phase_build():
         log(f"HMMA instructions per flash instantiation: {json.dumps(counts)}")
         want = {f"{k}<{ty}, {dmax}>" for k in ("flash_fwd", "flash_dq",
                                                 "flash_dkv")
-                for ty in ("float", "bf16") for dmax in (32, 64)}
+                for ty in ("float", "bf16") for dmax in (32, 64, 128)}
         idle = sorted(k for k in want if counts.get(k, 0) == 0)
         if idle:
             raise SmokeError(f"no tensor-core instructions in {idle}")
@@ -536,21 +557,21 @@ def flash_bound(products: int, n_tensors: int, n_rows: int, shape, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_flash_kernels():
-    """The three flash-attention kernels against their plain versions:
-    at the transformer legs' shapes in float32 (the legs' dtype) and
-    bfloat16, timed; then small cases in both dtypes (non-causal, ragged
-    T and D, the offset variant's three kinds of hop, the lse cotangent,
-    per-group offsets). Returns {name: partial kernel record}."""
+def _flash_main_shape(shape, suffix, gen):
+    """The three flash kernels at one main shape (causal, q/k/v as strided
+    views of one fused projection), float32 and bfloat16: each against
+    its plain version on the same inputs, in float32 the autograd
+    Function end to end against autograd through the plain attention,
+    then timed beside the plain versions and
+    `scaled_dot_product_attention`. Returns {name + dtype tag + suffix:
+    partial kernel record}."""
     import torch
     import torch.nn.functional as F
 
     from eventgrad_tpu_torch.ops import attention as fa
 
-    log("== flash-attention kernels")
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    b, t, h, d = FLASH_SHAPE
+    b, t, h, d = shape
     recs = {}
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         f32 = dtype == torch.float32
@@ -558,6 +579,7 @@ def phase_flash_kernels():
         # in 20 (8 significand bits through two products and a softmax)
         tol_o = dict(atol=2e-5, rtol=2e-5) if f32 else dict(atol=5e-2, rtol=5e-2)
         tol_g = dict(atol=5e-5, rtol=5e-4) if f32 else dict(atol=5e-2, rtol=5e-2)
+        tag += suffix
         # q, k, v as the model hands them over: strided views of one
         # fused projection [B, T, 3H, D]
         qkv = torch.randn((b, t, 3 * h, d), generator=gen, device=dev).to(dtype)
@@ -594,9 +616,11 @@ def phase_flash_kernels():
             g_p, = torch.autograd.grad(
                 fa.flash_attention_reference(*leaf.split(h, dim=2),
                                              causal=True), leaf, do)
-            e = within(g_k, g_p, what="flash backward vs autograd", **tol_g)
+            e = within(g_k, g_p, what=f"flash backward{tag} vs autograd",
+                       **tol_g)
             err_q, err_kv = max(err_q, e), max(err_kv, e)
             del leaf, g_k, g_p
+        torch.cuda.empty_cache()
 
         # the library yardstick: one fused call, [B, H, T, D] views
         lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_()
@@ -617,7 +641,7 @@ def phase_flash_kernels():
                     lambda: fa.lse_reference(q, k, v, None, True, 1)),
                 library_ms=lib_fwd,
                 # reads q, k, v, writes out and lse; two products
-                bound=flash_bound(2, 4, 1, FLASH_SHAPE, dtype),
+                bound=flash_bound(2, 4, 1, shape, dtype),
             )
             recs["flash_dq" + tag] = dict(
                 max_abs_err=err_q,
@@ -625,7 +649,7 @@ def phase_flash_kernels():
                 plain_ms=time_ms(lambda: fa.dq_reference(*bargs)),
                 library_ms=lib_bwd,  # the library's whole backward
                 # reads q, k, v, dO, lse, delta, writes dQ; three products
-                bound=flash_bound(3, 5, 2, FLASH_SHAPE, dtype),
+                bound=flash_bound(3, 5, 2, shape, dtype),
             )
             recs["flash_dkv" + tag] = dict(
                 max_abs_err=err_kv,
@@ -633,38 +657,72 @@ def phase_flash_kernels():
                 plain_ms=time_ms(lambda: fa.dkv_reference(*bargs)),
                 library_ms=lib_bwd,  # the library's whole backward
                 # reads q, k, v, dO, lse, delta, writes dK, dV; four products
-                bound=flash_bound(4, 6, 2, FLASH_SHAPE, dtype),
+                bound=flash_bound(4, 6, 2, shape, dtype),
             )
         del qkv, q, k, v, do, out, lse, dq, dk, dv, bargs, lq, lk, lv
         torch.cuda.empty_cache()
+    return recs
 
-    # small cases, float32 and bfloat16: (B, T, H, D, causal, q_offset,
-    # k_offset); bfloat16 pads D to the k16 step of its products
+
+def _flash_small_cases():
+    """(name, B, T, H, D, causal, q_offset, k_offset, lead) of the small
+    cases; bfloat16 pads D to the k16 step of its products. `lead` head
+    elements before each q/k/v row: 1 leaves the rows only 4-byte aligned
+    (4-byte copies in float32, plain loads in bfloat16)."""
+    import torch
+
     def offs(*v):
-        return torch.tensor(v, dtype=torch.int32, device=dev)
+        return torch.tensor(v, dtype=torch.int32, device=DEVICE)
 
-    # `lead` head elements before each q/k/v row: 1 leaves the rows only
-    # 4-byte aligned (4-byte copies in float32, plain loads in bfloat16)
-    cases = (
-        ("non-causal", 2, 160, 2, 24, False, 0, 0, 0),
-        ("ragged causal", 2, 160, 2, 24, True, 0, 0, 0),
-        ("ragged causal, rows 4-byte aligned", 2, 160, 2, 24, True, 0, 0, 1),
+    cases = [
         ("one row", 1, 1, 1, 16, True, 0, 0, 0),
-        ("hop fully visible", 2, 96, 2, 32, True, 96, 0, 0),
-        ("hop diagonal", 2, 96, 2, 32, True, 96, 96, 0),
-        # keys 40 ahead: the first 40 rows see nothing, the sweep ends
-        # off the tile grid
-        ("hop past the diagonal", 2, 160, 2, 32, True, 0, 40, 0),
-        ("hop fully masked", 2, 96, 2, 32, True, 0, 96, 0),
-        # two groups of two batch rows, each with its own offset pair
-        ("per-group offsets", 4, 80, 2, 64, True, offs(80, 40), offs(40, 80),
-         0),
-    )
+    ]
+    # D = 24 and 32 run the DMAX = 32 instantiation; 64 the DMAX = 64;
+    # 80, 96 (zero-filled columns) and 128 the DMAX = 128
+    for d_ragged, d_hop, d_group in ((24, 32, 64), (80, 80, 80),
+                                     (96, 96, 96), (128, 128, 128)):
+        cases += [
+            ("non-causal", 2, 160, 2, d_ragged, False, 0, 0, 0),
+            ("ragged causal", 2, 160, 2, d_ragged, True, 0, 0, 0),
+            ("ragged causal, rows 4-byte aligned", 2, 160, 2, d_ragged,
+             True, 0, 0, 1),
+            ("hop fully visible", 2, 96, 2, d_hop, True, 96, 0, 0),
+            ("hop diagonal", 2, 96, 2, d_hop, True, 96, 96, 0),
+            # keys 40 ahead: the first 40 rows see nothing, the sweep
+            # ends off the tile grid
+            ("hop past the diagonal", 2, 160, 2, d_hop, True, 0, 40, 0),
+            ("hop fully masked", 2, 96, 2, d_hop, True, 0, 96, 0),
+            # two groups of two batch rows, each with its own offset pair
+            ("per-group offsets", 4, 80, 2, d_group, True, offs(80, 40),
+             offs(40, 80), 0),
+        ]
+    return cases
+
+
+def phase_flash_kernels():
+    """The three flash-attention kernels against their plain versions:
+    at the transformer legs' shapes (head dimensions 64 and 128) in
+    float32 (the legs' dtype) and bfloat16, timed; then small cases in
+    both dtypes at D from 16 to 128 (non-causal, ragged T and D, the
+    offset variant's three kinds of hop, the lse cotangent, per-group
+    offsets); then a head dimension of 160, which must raise naming its
+    ROADMAP item. Returns {name: partial kernel record}: the DMAX = 128
+    instantiations' under names ending in "_d128"."""
+    import torch
+
+    from eventgrad_tpu_torch.ops import attention as fa
+
+    log("== flash-attention kernels")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    recs = _flash_main_shape(FLASH_SHAPE, "", gen)
+    recs.update(_flash_main_shape(FLASH_SHAPE_D128, "_d128", gen))
+
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         f32 = dtype == torch.float32
         tol_o = (2e-5, 2e-5) if f32 else (5e-2, 5e-2)
         tol_g = (5e-5, 5e-4) if f32 else (5e-2, 5e-2)
-        for name, cb, ct, ch, cd, causal, qo, ko, lead in cases:
+        for name, cb, ct, ch, cd, causal, qo, ko, lead in _flash_small_cases():
             ins = [torch.randn((cb, ct, ch, lead + cd), generator=gen,
                                device=dev).to(dtype)[..., lead:].detach()
                    .requires_grad_() for _ in range(3)]
@@ -673,7 +731,7 @@ def phase_flash_kernels():
             w_l = torch.randn((cb, ct, ch), generator=gen, device=dev)
             got = fa.flash_attention_lse(*ins, causal, qo, ko)
             want = fa.attention_lse_reference(*ins, causal, qo, ko)
-            what = f"{name}{tag}"
+            what = f"{name}{tag} D{cd}"
             errs = [within(got[0], want[0], *tol_o, f"{what}: out"),
                     within(got[1], want[1], *tol_o, f"{what}: lse")]
             # the cotangent of lse rides along (it folds into delta)
@@ -681,19 +739,33 @@ def phase_flash_kernels():
             g_p = torch.autograd.grad(want, ins, (w_o, w_l))
             errs += [within(a, c, *tol_g, f"{what}: grad")
                      for a, c in zip(g_k, g_p)]
-            if name == "hop fully masked" and any(bool(g.any())
-                                                  for g in g_k):
-                raise SmokeError(f"{what}: gradients not exactly 0")
+            if name == "hop fully masked" and (
+                    any(bool(g.any()) for g in g_k) or bool(got[0].any())):
+                raise SmokeError(f"{what}: output or gradients not exactly 0")
+            suffix = "_d128" if cd > 64 else ""
             for kname, err in (("flash_fwd", max(errs[:2])),
                                ("flash_dq", errs[2]),
                                ("flash_dkv", max(errs[3:]))):
-                r = recs[kname + tag]
+                r = recs[kname + tag + suffix]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
-            log(f"flash {what}: B{cb} T{ct} H{ch} D{cd} max_abs_err "
+            log(f"flash {what}: B{cb} T{ct} H{ch} max_abs_err "
                 f"{max(errs):.3e}")
+
+    # above the widest instantiation the wrapper refuses, naming the item
+    wide = torch.zeros((1, 8, 1, fa.MAX_HEAD_DIM + 32), device=dev)
+    try:
+        fa.flash_attention(wide, wide, wide)
+    except NotImplementedError as e:
+        if "ROADMAP queue 1, item 10" not in str(e):
+            raise SmokeError(f"D={wide.shape[-1]} refusal: {e}") from e
+        log(f"D={wide.shape[-1]} refused: {e}")
+    else:
+        raise SmokeError(f"D={wide.shape[-1]} ran; the kernels stop at "
+                         f"{fa.MAX_HEAD_DIM}")
     torch.cuda.synchronize()
     for name, r in recs.items():
-        log(json.dumps({"kernel": name, "shape": list(FLASH_SHAPE), **{
+        shape = FLASH_SHAPE_D128 if name.endswith("_d128") else FLASH_SHAPE
+        log(json.dumps({"kernel": name, "shape": list(shape), **{
             k: v for k, v in r.items() if k != "bound"},
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}))
     return recs
@@ -822,23 +894,28 @@ def phase_reference():
                          list(zip(x, y)), tol)
 
     log("== reference: stacked ring attention (flash hops) vs full attention")
-    n, b, t_local, h, d = 4, 2, 96, 4, 32
+    n, b, t_local = 4, 2, 96
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    qs, ks, vs = (torch.randn((n, b, t_local, h, d), generator=gen,
-                              device=DEVICE).requires_grad_()
-                  for _ in range(3))
-    w = torch.randn((b, n * t_local, h, d), generator=gen, device=DEVICE)
-    whole = lambda z: z.permute(1, 0, 2, 3, 4).reshape(b, n * t_local, h, d)
-    for causal in (True, False):
-        got = whole(ring_attention(qs, ks, vs, Ring(n), causal=causal,
-                                   use_flash=True))
-        want = full_attention(whole(qs), whole(ks), whole(vs), causal=causal)
-        errs = [within(got, want, 2e-5, 2e-5, "ring attention: out")]
-        errs += [within(a, c, 5e-5, 5e-4, "ring attention: grad")
-                 for a, c in zip(torch.autograd.grad(got, (qs, ks, vs), w),
-                                 torch.autograd.grad(want, (qs, ks, vs), w))]
-        log(f"ring attention causal={causal}: {n} shards x T_local "
-            f"{t_local}, max_abs_err {max(errs):.3e}")
+    # head dimension 32, and 128 (the DMAX = 128 kernels)
+    for h, d in ((4, 32), (2, 128)):
+        qs, ks, vs = (torch.randn((n, b, t_local, h, d), generator=gen,
+                                  device=DEVICE).requires_grad_()
+                      for _ in range(3))
+        w = torch.randn((b, n * t_local, h, d), generator=gen, device=DEVICE)
+        whole = lambda z: z.permute(1, 0, 2, 3, 4).reshape(b, n * t_local,
+                                                           h, d)
+        for causal in (True, False):
+            got = whole(ring_attention(qs, ks, vs, Ring(n), causal=causal,
+                                       use_flash=True))
+            want = full_attention(whole(qs), whole(ks), whole(vs),
+                                  causal=causal)
+            errs = [within(got, want, 2e-5, 2e-5, "ring attention: out")]
+            errs += [within(a, c, 5e-5, 5e-4, "ring attention: grad")
+                     for a, c in zip(
+                         torch.autograd.grad(got, (qs, ks, vs), w),
+                         torch.autograd.grad(want, (qs, ks, vs), w))]
+            log(f"ring attention causal={causal}: {n} shards x T_local "
+                f"{t_local}, H{h} D{d}, max_abs_err {max(errs):.3e}")
 
 
 #: the main path's legs: (name, algo, train() options — "topk_percent"
@@ -982,15 +1059,16 @@ def phase_main_path():
 
 #: the transformer legs: (name, algo, gossip kernels that must launch)
 LM_LEGS = (
-    ("transformer-eventgrad", "eventgrad", ("masked_wire", "fused_mix_commit")),
-    ("transformer-dpsgd", "dpsgd", ("fused_mix_sgd",)),
+    ("eventgrad", "eventgrad", ("masked_wire", "fused_mix_commit")),
+    ("dpsgd", "dpsgd", ("fused_mix_sgd",)),
 )
 
 
-def phase_main_path_lm():
-    """The transformer LM legs through the public entry point, flash
-    attention on. Returns the launches of each kernel summed over the
-    legs."""
+def _lm_legs(prefix, lm, n_params, n_leaves):
+    """The transformer LM `lm` through the public entry point, flash
+    attention on, one leg per entry of LM_LEGS. Returns the launches of
+    each kernel summed over the legs."""
+    import numpy as np
     import torch
 
     import eventgrad_tpu_torch as egt
@@ -998,23 +1076,29 @@ def phase_main_path_lm():
     from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
     from eventgrad_tpu_torch.parallel.arena import arena_spec
 
-    seq, steps, epochs = LM["max_len"], 3, 2
-    log(f"== main path: TransformerLM dim {LM['dim']} x {LM['n_heads']} heads "
-        f"x {LM['n_layers']} layers, T={seq}, flash attention (f32) x "
-        f"Ring(8), {LM_PER_RANK} sequences per rank")
+    seq, steps, epochs = lm["max_len"], 3, 2
+    log(f"== main path: TransformerLM dim {lm['dim']} x {lm['n_heads']} heads "
+        f"of {lm['dim'] // lm['n_heads']} x {lm['n_layers']} layers, T={seq}, "
+        f"flash attention (f32) x Ring(8), {LM_PER_RANK} sequences per rank")
     x, y = synthetic_lm_dataset(RANKS * LM_PER_RANK * steps, seq,
-                                LM["vocab"], seed=0)
-    xt, yt = synthetic_lm_dataset(32, seq, LM["vocab"], seed=0, split="test")
+                                lm["vocab"], seed=0)
+    xt, yt = synthetic_lm_dataset(32, seq, lm["vocab"], seed=0, split="test")
     cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                           max_silence=50)
-    spec = arena_spec(egt.TransformerLM(attn="flash", **LM))
-    if (spec.n_total, spec.n_leaves) != (LM_PARAMS, LM_LEAVES):
+    spec = arena_spec(egt.TransformerLM(attn="flash", **lm))
+    if (spec.n_total, spec.n_leaves) != (n_params, n_leaves):
         raise SmokeError(f"TransformerLM has {spec.n_total} parameters in "
-                         f"{spec.n_leaves} leaves, expected {LM_PARAMS} in "
-                         f"{LM_LEAVES}")
+                         f"{spec.n_leaves} leaves, expected {n_params} in "
+                         f"{n_leaves}")
+    # bytes per step per chip, as the step reckons them in float32: the
+    # dense f32 payload to two neighbors, and on the event wire the fire
+    # byte of each leaf besides (what float32 keeps of it)
+    dense = NB * 4 * n_params
+    event_wire = float(np.float32(NB) * np.float32(4 * n_params + n_leaves))
     totals = {}
     for leg, algo, must_launch in LM_LEGS:
-        model = egt.TransformerLM(attn="flash", **LM)
+        leg = f"{prefix}-{leg}"
+        model = egt.TransformerLM(attn="flash", **lm)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1035,7 +1119,7 @@ def phase_main_path_lm():
         # per step one launch per layer of each flash kernel (the ranks
         # fold into the batch); each epoch's test pass adds one forward
         # per layer
-        passes, layers = state.pass_num, LM["n_layers"]
+        passes, layers = state.pass_num, lm["n_layers"]
         want = {"flash_fwd": layers * (passes + epochs),
                 "flash_dq": layers * passes, "flash_dkv": layers * passes}
         if passes != steps * epochs or any(counts[k] != n
@@ -1047,8 +1131,8 @@ def phase_main_path_lm():
             raise SmokeError(f"{leg}: loss not finite: {losses}")
         if not bool(torch.isfinite(state.params).all()):
             raise SmokeError(f"{leg}: parameters not finite")
-        if (tuple(state.params.shape) != (RANKS, LM_PARAMS)
-                or hist[-1]["n_params"] != LM_PARAMS):
+        if (tuple(state.params.shape) != (RANKS, n_params)
+                or hist[-1]["n_params"] != n_params):
             raise SmokeError(f"{leg}: arena shape {tuple(state.params.shape)}")
         last = hist[-1]
         rec = {
@@ -1066,16 +1150,41 @@ def phase_main_path_lm():
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": counts,
         }
+        sent = [r["sent_bytes_per_step_per_chip"] for r in hist]
+        real = [r["sent_bytes_wire_real_per_step_per_chip"] for r in hist]
         if algo == "eventgrad":
             rec["msgs_saved_pct"] = last["msgs_saved_pct"]
             if not 0.0 <= last["msgs_saved_pct"] < 100.0:
                 raise SmokeError(f"msgs_saved_pct {last['msgs_saved_pct']}")
-        elif last["sent_bytes_per_step_per_chip"] != NB * 4 * LM_PARAMS:
-            raise SmokeError(f"{leg}: sent bytes {rec}")
+            # the dense wire moves every lane; the fired payloads are a
+            # part of it
+            if any(r != event_wire for r in real) or any(
+                    a > b for a, b in zip(sent, real)):
+                raise SmokeError(f"{leg}: sent {sent}, wire-real {real}, "
+                                 f"expected wire-real {event_wire}")
+        elif any(a != dense or b != dense for a, b in zip(sent, real)):
+            raise SmokeError(f"{leg}: sent {sent}, wire-real {real}, "
+                             f"expected both {dense}")
         log(json.dumps(rec))
         del state, model
         torch.cuda.empty_cache()
     return totals
+
+
+def phase_main_path_lm():
+    """The transformer LM legs at 8 heads of 64. Returns the launches of
+    each kernel summed over the legs."""
+    return _lm_legs("transformer", LM, LM_PARAMS, LM_LEAVES)
+
+
+def phase_main_path_lm_d128():
+    """The transformer LM legs at 16 heads of 128 (the DMAX = 128 flash
+    kernels). Returns the launches of each kernel summed over the legs,
+    the flash kernels' under names ending in "_d128"."""
+    totals = _lm_legs("transformer-d128", LM_D128, LM_D128_PARAMS,
+                      LM_D128_LEAVES)
+    return {k + ("_d128" if k.startswith("flash_") else ""): v
+            for k, v in totals.items()}
 
 
 #: the real-data band, stated before the first card run: each leg's test
@@ -1157,6 +1266,14 @@ KERNELS = (
      "eventgrad_tpu/ops/attention.py:169"),
     ("flash_dkv", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
      "eventgrad_tpu/ops/attention.py:205"),
+    # the DMAX = 128 instantiations (float32, the legs' dtype), timed at
+    # FLASH_SHAPE_D128 and counted on the transformer-d128 legs
+    ("flash_fwd_d128", "eventgrad_tpu_torch/csrc/flash_fwd.cu",
+     "eventgrad_tpu/ops/attention.py:128"),
+    ("flash_dq_d128", "eventgrad_tpu_torch/csrc/flash_dq.cu",
+     "eventgrad_tpu/ops/attention.py:169"),
+    ("flash_dkv_d128", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
+     "eventgrad_tpu/ops/attention.py:205"),
 )
 
 
@@ -1194,7 +1311,8 @@ def main() -> int:
         recs.update(timed(phase_flash_kernels))
         timed(phase_reference)
         launches = {}
-        for phase in (phase_main_path, phase_main_path_lm, phase_realdata):
+        for phase in (phase_main_path, phase_main_path_lm,
+                      phase_main_path_lm_d128, phase_realdata):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

@@ -50,16 +50,20 @@ __device__ __forceinline__ bool valid_at(int qpos, int kpos, int t, int causal,
 }
 
 // Call FN<T, DMAX>(...) for the element type of `dtype` (0 = float32,
-// 1 = bfloat16) and the smaller DMAX of {32, 64} holding d;
-// cudaErrorInvalidValue for anything else. (DMAX = 128 is not
-// instantiated yet.)
+// 1 = bfloat16) and the smallest DMAX of {32, 64, 128} holding d;
+// cudaErrorInvalidValue for anything else. A d below its DMAX runs on
+// zero-filled columns (every tile load fills the columns at and past d
+// with zeros, as the reference pads D to its 128 lanes) and stores only
+// its d columns.
+#define EGF_DISPATCH_D(T, d, FN, ...)                                 \
+  ((d) <= 32   ? FN<T, 32>(__VA_ARGS__)                               \
+   : (d) <= 64 ? FN<T, 64>(__VA_ARGS__)                               \
+               : FN<T, 128>(__VA_ARGS__))
 #define EGF_DISPATCH(dtype, d, FN, ...)                               \
-  (((d) < 1 || (d) > 64 || ((dtype) != 0 && (dtype) != 1))            \
+  (((d) < 1 || (d) > 128 || ((dtype) != 0 && (dtype) != 1))           \
        ? cudaErrorInvalidValue                                        \
-   : (dtype) == 0 ? ((d) <= 32 ? FN<float, 32>(__VA_ARGS__)           \
-                               : FN<float, 64>(__VA_ARGS__))          \
-                  : ((d) <= 32 ? FN<__nv_bfloat16, 32>(__VA_ARGS__)   \
-                               : FN<__nv_bfloat16, 64>(__VA_ARGS__)))
+   : (dtype) == 0 ? EGF_DISPATCH_D(float, d, FN, __VA_ARGS__)         \
+                  : EGF_DISPATCH_D(__nv_bfloat16, d, FN, __VA_ARGS__))
 
 // Opt a kernel into `bytes` of dynamic shared memory and launch it on
 // `grid` blocks of THREADS threads; returns the launch's error.

@@ -22,6 +22,17 @@
 // sweep. Q, dO, lse and delta tiles come through cp.async in a two-stage
 // ring: tile i + 1 loads while tile i is computed, one barrier per tile.
 //
+// At DMAX = 128 one warp cannot hold it all: dK and dV of 16 keys take
+// 16 x 128 x 2 / 32 = 128 accumulator registers a thread, beside the 64
+// of s^T and dp^T (and the hi/lo operand splits of float32). So the D
+// axis is split between warps: eight warps, two to each 16 keys, and
+// each warp of a pair owns one 64-column half of dK and dV (64
+// accumulator registers, as at DMAX = 64). Both warps of a pair compute
+// s^T and dp^T over the full D, which repeats two of the four products,
+// and no score crosses shared memory: each warp keeps feeding p^T and
+// ds^T from its own accumulators. Every dK/dV element is still summed
+// by one warp in the same order as without the split.
+//
 // A causal block sweeps only the Q tiles that can hold a valid entry for
 // one of its keys: from the tile of query k_off - q_off + (first key of
 // the tile) on, the diagonal tile without offsets, none for a ring hop
@@ -41,8 +52,15 @@ namespace {
 
 using namespace egf;
 
+// Warps sharing one 16-key row block, each owning DMAX / split of the
+// dK/dV columns
+template <int DMAX>
+__host__ __device__ constexpr int dkv_split() {
+  return DMAX > 64 ? 2 : 1;
+}
+
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -51,9 +69,11 @@ __global__ void __launch_bounds__(kBlock)
                      Strides st, Shape s, float scale, int vec) {
   using M = Tc<T>;
   using G = Tile<T, DMAX>;
+  constexpr int kSplit = dkv_split<DMAX>();
+  constexpr int kThreads = kBlock * kSplit;
   constexpr int kLd = G::kLd;
   constexpr int kNs = kRows / 8;        // n8 tiles of a score row block
-  constexpr int kNo = DMAX / 8;         // n8 tiles of a dK/dV row block
+  constexpr int kNo = DMAX / 8 / kSplit;  // n8 tiles of a warp's dK/dV
   constexpr int kKd = DMAX / M::kK;     // k steps over the head dimension
   constexpr int kKq = kRows / M::kK;    // k steps over the Q tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -71,6 +91,8 @@ __global__ void __launch_bounds__(kBlock)
   const int b = bh / s.h, hh = bh % s.h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
+  const int kw = warp / kSplit;  // this warp's block of 16 keys
+  const int col0 = (warp % kSplit) * (DMAX / kSplit);  // its dK/dV columns
 
   int q_off, k_off;
   load_offsets(offs, s, b, q_off, k_off);
@@ -89,21 +111,23 @@ __global__ void __launch_bounds__(kBlock)
   }
 
   auto load_q_tile = [&](int qi, int stage) {
-    load_tile_async<T, DMAX>(q_s + stage * G::kElems, qp, st.v[1], qi * kRows,
-                             s.t, s.d, vec);
-    load_tile_async<T, DMAX>(do_s + stage * G::kElems, dop, st.v[10],
-                             qi * kRows, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(q_s + stage * G::kElems, qp, st.v[1],
+                                       qi * kRows, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(do_s + stage * G::kElems, dop,
+                                       st.v[10], qi * kRows, s.t, s.d, vec);
     load_vec_async(lse_s + stage * kRows, lse_p, qi * kRows, s.t);
     load_vec_async(dl_s + stage * kRows, dl_p, qi * kRows, s.t);
   };
   if (q_begin < nt) {
-    load_tile_async<T, DMAX>(k_s, kp, st.v[4], kj * kRows, s.t, s.d, vec);
-    load_tile_async<T, DMAX>(v_s, vp, st.v[7], kj * kRows, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], kj * kRows, s.t,
+                                       s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], kj * kRows, s.t,
+                                       s.d, vec);
     load_q_tile(q_begin, 0);
   }
   cp_async_commit();
 
-  const int key0 = kj * kRows + warp * 16;  // this warp's first key
+  const int key0 = kj * kRows + kw * 16;  // this warp's first key
   const float c = scale * kLog2e;
   float acc_k[kNo][4], acc_v[kNo][4];
 #pragma unroll
@@ -122,8 +146,8 @@ __global__ void __launch_bounds__(kBlock)
     const float* lse_t = lse_s + cur * kRows;
     const float* dl_t = dl_s + cur * kRows;
 
-    // s^T = k q^T and dp^T = v dO^T: rows are this warp's 16 keys,
-    // columns the 64 queries of the tile
+    // s^T = k q^T and dp^T = v dO^T over the full D: rows are this
+    // warp's 16 keys, columns the 64 queries of the tile
     float sc[kNs][4], dp[kNs][4];
 #pragma unroll
     for (int n = 0; n < kNs; ++n)
@@ -131,8 +155,8 @@ __global__ void __launch_bounds__(kBlock)
       for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < kKd; ++kc) {
-      const typename M::A ka = M::load_a(k_s, kLd, warp * 16, kc * M::kK, lane);
-      const typename M::A va = M::load_a(v_s, kLd, warp * 16, kc * M::kK, lane);
+      const typename M::A ka = M::load_a(k_s, kLd, kw * 16, kc * M::kK, lane);
+      const typename M::A va = M::load_a(v_s, kLd, kw * 16, kc * M::kK, lane);
 #pragma unroll
       for (int n = 0; n < kNs; n += 2) {
         typename M::B b0, b1;
@@ -177,7 +201,8 @@ __global__ void __launch_bounds__(kBlock)
         }
       }
 
-    // dV += p^T dO and dK += ds^T q, reducing over the tile's queries
+    // dV += p^T dO and dK += ds^T q in this warp's columns, reducing
+    // over the tile's queries
 #pragma unroll
     for (int kc = 0; kc < kKq; ++kc) {
       const typename M::A pa = M::from_acc(sc, kc);
@@ -185,10 +210,10 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int n = 0; n < kNo; n += 2) {
         typename M::B b0, b1;
-        M::load_b2(b0, b1, dos, kLd, kc * M::kK, n * 8, lane);
+        M::load_b2(b0, b1, dos, kLd, kc * M::kK, col0 + n * 8, lane);
         M::mma(acc_v[n], pa, b0);
         M::mma(acc_v[n + 1], pa, b1);
-        M::load_b2(b0, b1, qs, kLd, kc * M::kK, n * 8, lane);
+        M::load_b2(b0, b1, qs, kLd, kc * M::kK, col0 + n * 8, lane);
         M::mma(acc_k[n], da, b0);
         M::mma(acc_k[n + 1], da, b1);
       }
@@ -205,7 +230,7 @@ __global__ void __launch_bounds__(kBlock)
     for (int n = 0; n < kNo; ++n)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = n * 8 + 2 * tq + c;
+        const int col = col0 + n * 8 + 2 * tq + c;
         if (col < s.d) {
           store(dk + at + col, acc_k[n][2 * i + c]);
           store(dv + at + col, acc_v[n][2 * i + c]);
@@ -225,10 +250,12 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
   const void* ptrs[4] = {q, k, v, dout};
   const int vec = rows_aligned16(ptrs, st, 4, sizeof(T));
   const int64_t nt = (s.t + kRows - 1) / kRows;
-  return launch_kernel<kBlock>(flash_dkv_kernel<T, DMAX>, nt * s.b * s.h,
-                               bytes, stream, (const T*)q, (const T*)k,
-                               (const T*)v, (const T*)dout, lse, delta, (T*)dk,
-                               (T*)dv, offs, st, s, softmax_scale(s.d), vec);
+  constexpr int threads = kBlock * dkv_split<DMAX>();
+  return launch_kernel<threads>(flash_dkv_kernel<T, DMAX>, nt * s.b * s.h,
+                                bytes, stream, (const T*)q, (const T*)k,
+                                (const T*)v, (const T*)dout, lse, delta,
+                                (T*)dk, (T*)dv, offs, st, s,
+                                softmax_scale(s.d), vec);
 }
 
 }  // namespace

@@ -24,6 +24,19 @@
 // are read once into registers, and p = 2^(c s - log2(e) lse), c =
 // scale * log2(e), one FFMA and one MUFU.EX2 per score.
 //
+// float32 at DMAX = 128: one warp would hold dQ's 64 accumulator
+// registers a thread beside the 64 of s and dp and the hi/lo operand
+// splits, and spills (255 registers, 104 bytes of stack). So each 16
+// query rows go to two warps (eight a block), and each warp of a pair
+// sweeps one 32-key half of every K tile: s and dp of 16 x 32 (32
+// registers), ds k over its 32 keys into a dQ partial over the full D.
+// No product is repeated. After the sweep the pair's partials meet in
+// shared memory (the K/V ring, free by then) and one warp of the pair
+// adds and stores them: a dQ element sums its two halves' keys
+// separately, then adds the two sums. bfloat16 does not spill at
+// DMAX = 128 (168 registers) and ran slower split on the H100 (1.09 ->
+// 1.41 ms at B32 x T1024 x H16 x D128), so it keeps one warp to 16 rows.
+//
 // A causal block sweeps only the K tiles that can hold a valid entry for
 // one of its rows: up to the tile of key q_off - k_off + (last row of
 // the tile), the diagonal tile without offsets, none for a ring hop that
@@ -43,8 +56,15 @@ namespace {
 
 using namespace egf;
 
+// Warps sharing one 16-row block of queries, each sweeping kRows / split
+// keys of every K tile
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kBlock)
+__host__ __device__ constexpr int dq_split() {
+  return sizeof(T) == 4 && DMAX > 64 ? 2 : 1;
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -53,11 +73,14 @@ __global__ void __launch_bounds__(kBlock)
                     float scale, int vec) {
   using M = Tc<T>;
   using G = Tile<T, DMAX>;
+  constexpr int kSplit = dq_split<T, DMAX>();
+  constexpr int kThreads = kBlock * kSplit;
+  constexpr int kKeys = kRows / kSplit;  // keys of a K tile per warp
   constexpr int kLd = G::kLd;
-  constexpr int kNs = kRows / 8;        // n8 tiles of a score row block
+  constexpr int kNs = kKeys / 8;        // n8 tiles of a warp's score block
   constexpr int kNo = DMAX / 8;         // n8 tiles of a dQ row block
   constexpr int kKd = DMAX / M::kK;     // k steps over the head dimension
-  constexpr int kKs = kRows / M::kK;    // k steps over the K tile
+  constexpr int kKs = kKeys / M::kK;    // k steps over a warp's keys
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
   T* do_s = q_s + G::kElems;
@@ -71,6 +94,8 @@ __global__ void __launch_bounds__(kBlock)
   const int b = bh / s.h, hh = bh % s.h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
+  const int qw = warp / kSplit;                 // this warp's 16 queries
+  const int kofs = (warp % kSplit) * kKeys;     // its keys of a K tile
 
   int q_off, k_off;
   load_offsets(offs, s, b, q_off, k_off);
@@ -87,14 +112,16 @@ __global__ void __launch_bounds__(kBlock)
   }
 
   if (k_end >= 0) {
-    load_tile_async<T, DMAX>(q_s, qp, st.v[1], qi * kRows, s.t, s.d, vec);
-    load_tile_async<T, DMAX>(do_s, dop, st.v[10], qi * kRows, s.t, s.d, vec);
-    load_tile_async<T, DMAX>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
-    load_tile_async<T, DMAX>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(q_s, qp, st.v[1], qi * kRows, s.t,
+                                       s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(do_s, dop, st.v[10], qi * kRows, s.t,
+                                       s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
   }
   cp_async_commit();
 
-  const int row0 = qi * kRows + warp * 16;  // this warp's first query row
+  const int row0 = qi * kRows + qw * 16;  // this warp's first query row
   // rows g and g + 8: log2(e) lse and delta (0 past t, where nothing is
   // written)
   float lse_c[2], dl[2];
@@ -117,17 +144,17 @@ __global__ void __launch_bounds__(kBlock)
     __syncthreads();  // tile kj is in; every warp is done with tile kj - 1
     if (kj < k_end) {
       const int nxt = (kj + 1) & 1;
-      load_tile_async<T, DMAX>(k_s + nxt * G::kElems, kp, st.v[4],
-                               (kj + 1) * kRows, s.t, s.d, vec);
-      load_tile_async<T, DMAX>(v_s + nxt * G::kElems, vp, st.v[7],
-                               (kj + 1) * kRows, s.t, s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(k_s + nxt * G::kElems, kp, st.v[4],
+                                         (kj + 1) * kRows, s.t, s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(v_s + nxt * G::kElems, vp, st.v[7],
+                                         (kj + 1) * kRows, s.t, s.d, vec);
     }
     cp_async_commit();
     const T* ks = k_s + (kj & 1) * G::kElems;
     const T* vs = v_s + (kj & 1) * G::kElems;
 
     // s = q k^T and dp = dO v^T: rows are this warp's 16 queries,
-    // columns the 64 keys of the tile
+    // columns its keys of the tile
     float sc[kNs][4], dp[kNs][4];
 #pragma unroll
     for (int n = 0; n < kNs; ++n)
@@ -135,16 +162,16 @@ __global__ void __launch_bounds__(kBlock)
       for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < kKd; ++kc) {
-      const typename M::A qa = M::load_a(q_s, kLd, warp * 16, kc * M::kK, lane);
-      const typename M::A da = M::load_a(do_s, kLd, warp * 16, kc * M::kK,
+      const typename M::A qa = M::load_a(q_s, kLd, qw * 16, kc * M::kK, lane);
+      const typename M::A da = M::load_a(do_s, kLd, qw * 16, kc * M::kK,
                                          lane);
 #pragma unroll
       for (int n = 0; n < kNs; n += 2) {
         typename M::B b0, b1;
-        M::load_bt2(b0, b1, ks, kLd, n * 8, kc * M::kK, lane);
+        M::load_bt2(b0, b1, ks, kLd, kofs + n * 8, kc * M::kK, lane);
         M::mma(sc[n], qa, b0);
         M::mma(sc[n + 1], qa, b1);
-        M::load_bt2(b0, b1, vs, kLd, n * 8, kc * M::kK, lane);
+        M::load_bt2(b0, b1, vs, kLd, kofs + n * 8, kc * M::kK, lane);
         M::mma(dp[n], da, b0);
         M::mma(dp[n + 1], da, b1);
       }
@@ -163,8 +190,8 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (!valid_at(row0 + g + 8 * (e >> 1),
-                        key0 + n * 8 + 2 * tq + (e & 1), s.t, s.causal, q_off,
-                        k_off))
+                        key0 + kofs + n * 8 + 2 * tq + (e & 1), s.t,
+                        s.causal, q_off, k_off))
             sc[n][e] = -INFINITY;
     }
 #pragma unroll
@@ -175,20 +202,42 @@ __global__ void __launch_bounds__(kBlock)
         dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;
       }
 
-    // dQ += ds k, reducing over the tile's keys: k read by rows now
+    // dQ += ds k, reducing over this warp's keys: k read by rows now
 #pragma unroll
     for (int kc = 0; kc < kKs; ++kc) {
       const typename M::A a = M::from_acc(dp, kc);
 #pragma unroll
       for (int n = 0; n < kNo; n += 2) {
         typename M::B b0, b1;
-        M::load_b2(b0, b1, ks, kLd, kc * M::kK, n * 8, lane);
+        M::load_b2(b0, b1, ks, kLd, kofs + kc * M::kK, n * 8, lane);
         M::mma(acc[n], a, b0);
         M::mma(acc[n + 1], a, b1);
       }
     }
   }
   cp_async_wait_all();  // nothing left in flight when the block exits
+
+  if constexpr (kSplit > 1) {
+    // the second warp of each pair hands its partial to the first through
+    // the K/V ring, lane-minor so that a warp's 32 lanes hit 32 banks
+    static_assert(kSplit == 2, "warp pairs");
+    static_assert(4 * G::kBytes >= kBlock / 32 * kNo * 4 * 32 * 4,
+                  "the partials fit the K/V ring");
+    float* part = reinterpret_cast<float*>(k_s) + qw * (kNo * 4 * 32);
+    __syncthreads();  // every warp is done with the last K/V tile
+    if (kofs != 0) {
+#pragma unroll
+      for (int n = 0; n < kNo; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(n * 4 + e) * 32 + lane] = acc[n][e];
+    }
+    __syncthreads();
+    if (kofs != 0) return;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[(n * 4 + e) * 32 + lane];
+  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -214,10 +263,11 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
   const void* ptrs[4] = {q, k, v, dout};
   const int vec = rows_aligned16(ptrs, st, 4, sizeof(T));
   const int64_t nt = (s.t + kRows - 1) / kRows;
-  return launch_kernel<kBlock>(flash_dq_kernel<T, DMAX>, nt * s.b * s.h,
-                               bytes, stream, (const T*)q, (const T*)k,
-                               (const T*)v, (const T*)dout, lse, delta,
-                               (T*)dq, offs, st, s, softmax_scale(s.d), vec);
+  constexpr int threads = kBlock * dq_split<T, DMAX>();
+  return launch_kernel<threads>(flash_dq_kernel<T, DMAX>, nt * s.b * s.h,
+                                bytes, stream, (const T*)q, (const T*)k,
+                                (const T*)v, (const T*)dout, lse, delta,
+                                (T*)dq, offs, st, s, softmax_scale(s.d), vec);
 }
 
 }  // namespace

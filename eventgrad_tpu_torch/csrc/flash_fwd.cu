@@ -26,6 +26,19 @@
 // two-stage ring: tile j + 1 loads while tile j is computed, one barrier
 // per tile.
 //
+// float32 at DMAX = 128: the output block alone takes 64 accumulator
+// registers a thread (254 registers in all), and 168,960 bytes of shared
+// memory leave one block of 4 warps on an SM. So each 16 query rows go
+// to two warps (eight a block), and each warp of a pair sweeps one 32-key
+// half of every K/V tile with its own online softmax (m, l, acc). No
+// product is repeated. After the sweep the pair's states meet in shared
+// memory (the K/V ring, free by then) and one warp of the pair merges
+// them, as ring attention merges two hops: m = max(m_a, m_b), each side
+// rescaled by 2^(c (m_side - m)). On the H100 that took the float32
+// forward at B32 x T1024 x H16 x D128 from 4.87 to 3.28 ms; bfloat16,
+// whose smaller tiles already fit two blocks an SM, gained nothing from
+// it (1.01 -> 1.05 ms) and keeps one warp to 16 rows.
+//
 // A causal block sweeps only the K tiles that can hold a valid entry for
 // one of its rows: up to the tile of key q_off - k_off + (last row of
 // the tile), the diagonal tile without offsets, none for a ring hop that
@@ -45,19 +58,29 @@ namespace {
 
 using namespace egf;
 
+// Warps sharing one 16-row block of queries, each sweeping kRows / split
+// keys of every K/V tile
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kBlock)
+__host__ __device__ constexpr int fwd_split() {
+  return sizeof(T) == 4 && DMAX > 64 ? 2 : 1;
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, const int* __restrict__ offs,
                      Strides st, Shape s, float scale, int vec) {
   using M = Tc<T>;
   using G = Tile<T, DMAX>;
+  constexpr int kSplit = fwd_split<T, DMAX>();
+  constexpr int kThreads = kBlock * kSplit;
+  constexpr int kKeys = kRows / kSplit;  // keys of a K/V tile per warp
   constexpr int kLd = G::kLd;
-  constexpr int kNs = kRows / 8;        // n8 tiles of a score row block
+  constexpr int kNs = kKeys / 8;        // n8 tiles of a warp's score block
   constexpr int kNo = DMAX / 8;         // n8 tiles of an output row block
   constexpr int kKq = DMAX / M::kK;     // k steps of q k^T
-  constexpr int kKp = kRows / M::kK;    // k steps of p v
+  constexpr int kKp = kKeys / M::kK;    // k steps of p v
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
   T* k_s = q_s + G::kElems;                 // two stages
@@ -70,6 +93,8 @@ __global__ void __launch_bounds__(kBlock)
   const int b = bh / s.h, hh = bh % s.h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
+  const int qw = warp / kSplit;                 // this warp's 16 queries
+  const int kofs = (warp % kSplit) * kKeys;     // its keys of a K/V tile
 
   int q_off, k_off;
   load_offsets(offs, s, b, q_off, k_off);
@@ -84,14 +109,15 @@ __global__ void __launch_bounds__(kBlock)
     k_end = last_key < 0 ? -1 : min(k_end, last_key / kRows);
   }
 
-  load_tile_async<T, DMAX>(q_s, qp, st.v[1], qi * kRows, s.t, s.d, vec);
+  load_tile_async<T, DMAX, kThreads>(q_s, qp, st.v[1], qi * kRows, s.t, s.d,
+                                     vec);
   if (k_end >= 0) {
-    load_tile_async<T, DMAX>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
-    load_tile_async<T, DMAX>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
   }
   cp_async_commit();
 
-  const int row0 = qi * kRows + warp * 16;  // this warp's first query row
+  const int row0 = qi * kRows + qw * 16;  // this warp's first query row
   // rows g and g + 8: the max of the unscaled scores (kNegInf while every
   // key so far was masked) and this lane's share of the row sum
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -107,10 +133,10 @@ __global__ void __launch_bounds__(kBlock)
     __syncthreads();  // tile kj is in; every warp is done with tile kj - 1
     if (kj < k_end) {
       const int nxt = (kj + 1) & 1;
-      load_tile_async<T, DMAX>(k_s + nxt * G::kElems, kp, st.v[4],
-                               (kj + 1) * kRows, s.t, s.d, vec);
-      load_tile_async<T, DMAX>(v_s + nxt * G::kElems, vp, st.v[7],
-                               (kj + 1) * kRows, s.t, s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(k_s + nxt * G::kElems, kp, st.v[4],
+                                         (kj + 1) * kRows, s.t, s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(v_s + nxt * G::kElems, vp, st.v[7],
+                                         (kj + 1) * kRows, s.t, s.d, vec);
     }
     cp_async_commit();
     const T* ks = k_s + (kj & 1) * G::kElems;
@@ -123,11 +149,11 @@ __global__ void __launch_bounds__(kBlock)
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < kKq; ++kc) {
-      const typename M::A a = M::load_a(q_s, kLd, warp * 16, kc * M::kK, lane);
+      const typename M::A a = M::load_a(q_s, kLd, qw * 16, kc * M::kK, lane);
 #pragma unroll
       for (int n = 0; n < kNs; n += 2) {
         typename M::B b0, b1;
-        M::load_bt2(b0, b1, ks, kLd, n * 8, kc * M::kK, lane);
+        M::load_bt2(b0, b1, ks, kLd, kofs + n * 8, kc * M::kK, lane);
         M::mma(sc[n], a, b0);
         M::mma(sc[n + 1], a, b1);
       }
@@ -146,8 +172,8 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (!valid_at(row0 + g + 8 * (e >> 1),
-                        key0 + n * 8 + 2 * tq + (e & 1), s.t, s.causal, q_off,
-                        k_off))
+                        key0 + kofs + n * 8 + 2 * tq + (e & 1), s.t,
+                        s.causal, q_off, k_off))
             sc[n][e] = -INFINITY;
     }
     float mx[2] = {m[0], m[1]}, mc[2];
@@ -183,13 +209,55 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int n = 0; n < kNo; n += 2) {
         typename M::B b0, b1;
-        M::load_b2(b0, b1, vs, kLd, kc * M::kK, n * 8, lane);
+        M::load_b2(b0, b1, vs, kLd, kofs + kc * M::kK, n * 8, lane);
         M::mma(acc[n], a, b0);
         M::mma(acc[n + 1], a, b1);
       }
     }
   }
   cp_async_wait_all();  // nothing left in flight when the block exits
+
+  if constexpr (kSplit > 1) {
+    // the second warp of each pair hands its (m, l, acc) to the first
+    // through the K/V ring, lane-minor so that a warp's 32 lanes hit 32
+    // banks; the first merges them
+    static_assert(kSplit == 2, "warp pairs");
+    constexpr int kPart = 4 + kNo * 4;  // floats a lane hands over
+    static_assert(4 * G::kBytes >= kBlock / 32 * kPart * 32 * 4,
+                  "the states fit the K/V ring");
+    float* part = reinterpret_cast<float*>(k_s) + qw * (kPart * 32);
+    __syncthreads();  // every warp is done with the last K/V tile
+    if (kofs != 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        part[i * 32 + lane] = m[i];
+        part[(2 + i) * 32 + lane] = l[i];
+      }
+#pragma unroll
+      for (int n = 0; n < kNo; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[(4 + n * 4 + e) * 32 + lane] = acc[n][e];
+    }
+    __syncthreads();
+    if (kofs != 0) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mo = part[i * 32 + lane];
+      const float mn = fmaxf(m[i], mo);
+      const float ca = fast_exp2((m[i] - mn) * c);
+      const float cb = fast_exp2((mo - mn) * c);
+      m[i] = mn;
+      l[i] = l[i] * ca + part[(2 + i) * 32 + lane] * cb;
+#pragma unroll
+      for (int n = 0; n < kNo; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j;
+          acc[n][e] = acc[n][e] * ca + part[(4 + n * 4 + e) * 32 + lane] * cb;
+        }
+    }
+  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -218,10 +286,11 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out,
   const void* ptrs[3] = {q, k, v};
   const int vec = rows_aligned16(ptrs, st, 3, sizeof(T));
   const int64_t nt = (s.t + kRows - 1) / kRows;
-  return launch_kernel<kBlock>(flash_fwd_kernel<T, DMAX>, nt * s.b * s.h,
-                               bytes, stream, (const T*)q, (const T*)k,
-                               (const T*)v, (T*)out, lse, offs, st, s,
-                               softmax_scale(s.d), vec);
+  constexpr int threads = kBlock * fwd_split<T, DMAX>();
+  return launch_kernel<threads>(flash_fwd_kernel<T, DMAX>, nt * s.b * s.h,
+                                bytes, stream, (const T*)q, (const T*)k,
+                                (const T*)v, (T*)out, lse, offs, st, s,
+                                softmax_scale(s.d), vec);
 }
 
 }  // namespace

@@ -3,7 +3,9 @@
 // and warp-level matrix products for bfloat16 and float32 inputs.
 //
 // A block has 4 warps; a warp owns 16 rows of its block's 64-row tile
-// and computes 16 x 64 score tiles with mma.sync, sums in float32. Tiles
+// and computes 16 x 64 score tiles with mma.sync, sums in float32 (the
+// dK/dV kernel at DMAX = 128, and the float32 forward and dQ there, have
+// 8 warps, two to each 16 rows). Tiles
 // sit in shared memory by rows, [64][DMAX + 16 bytes]: the 16 bytes of
 // padding keep every ldmatrix (8 rows of 16 bytes) and the float32
 // path's paired scalar reads free of bank conflicts.
@@ -163,8 +165,9 @@ struct Tile {
 // cp.async; rows past t and elements past d are zero-filled. With `vec`
 // every row starts 16-byte aligned and moves in 16-byte copies (the last
 // one of a row cut at d). Otherwise float32 moves in 4-byte copies and
-// bfloat16, which no cp.async size fits, by plain loads.
-template <typename T, int DMAX>
+// bfloat16, which no cp.async size fits, by plain loads. The block's
+// NT threads share the copies.
+template <typename T, int DMAX, int NT = kBlock>
 __device__ __forceinline__ void load_tile_async(T* dst,
                                                 const T* __restrict__ src,
                                                 int64_t st, int row0, int t,
@@ -173,10 +176,10 @@ __device__ __forceinline__ void load_tile_async(T* dst,
   if (vec) {
     constexpr int kPer = 16 / (int)sizeof(T);  // elements per copy
     constexpr int kCopies = DMAX / kPer;       // copies per row
-    static_assert(kRows * kCopies % kBlock == 0, "whole copies per thread");
+    static_assert(kRows * kCopies % NT == 0, "whole copies per thread");
 #pragma unroll
-    for (int i = 0; i < kRows * kCopies / kBlock; ++i) {
-      const int c = i * kBlock + (int)threadIdx.x;
+    for (int i = 0; i < kRows * kCopies / NT; ++i) {
+      const int c = i * NT + (int)threadIdx.x;
       const int r = c / kCopies, e = (c % kCopies) * kPer;
       const int row = row0 + r;
       const bool ok = row < t && e < d;
@@ -186,8 +189,8 @@ __device__ __forceinline__ void load_tile_async(T* dst,
     return;
   }
 #pragma unroll 4
-  for (int i = 0; i < kRows * DMAX / kBlock; ++i) {
-    const int c = i * kBlock + (int)threadIdx.x;
+  for (int i = 0; i < kRows * DMAX / NT; ++i) {
+    const int c = i * NT + (int)threadIdx.x;
     const int r = c / DMAX, e = c % DMAX;
     const int row = row0 + r;
     const bool ok = row < t && e < d;

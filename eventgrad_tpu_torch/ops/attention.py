@@ -25,8 +25,11 @@ Layout follows the models: q, k, v are `[B, T, H, D]` and share one
 sequence length. The kernels read them through their strides (batch,
 time, head; the head dimension contiguous), so the strided views a fused
 QKV projection splits into need no copy; outputs are contiguous. Any
-`T >= 1` and any `D <= 64` run: ragged tiles are masked (keys past `T`
-are invalid, query rows past `T` write nothing).
+`T >= 1` and any `D <= 128` run: ragged tiles are masked (keys past `T`
+are invalid, query rows past `T` write nothing), and a `D` short of the
+instantiation's 32, 64 or 128 runs on zero-filled columns, as the
+reference pads `D` to its 128 lanes. Above 128 the CUDA path raises
+(ROADMAP queue 1, item 10).
 
 Masking is finite: invalid scores are `-1e30` and `p` is multiplied by
 the validity, so a fully masked row gives a zero output and a finite
@@ -61,7 +64,7 @@ from eventgrad_tpu_torch.parallel.ring_attention import full_attention
 _NEG_INF = -1e30  # finite mask value; exact zeros guaranteed by masking p
 _L_FLOOR = 1e-30
 #: widest head dimension the kernels are instantiated for
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 flash_attention_reference = full_attention
@@ -206,8 +209,11 @@ def _check_cuda(op: str, q):
         raise TypeError(f"{op}: the CUDA kernels take float32 or bfloat16, "
                         f"got {q.dtype}")
     if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"{op}: head dimension {q.shape[-1]} exceeds the "
-                         f"kernels' {MAX_HEAD_DIM}")
+        raise NotImplementedError(
+            f"{op}: head dimension {q.shape[-1]} is above the kernels' "
+            f"{MAX_HEAD_DIM}; head dimensions above 128 are not ported yet "
+            f"(the reference pads to any multiple of 128 lanes; ROADMAP "
+            f"queue 1, item 10)")
     if min(q.shape) < 1:
         raise ValueError(f"{op}: empty shape {tuple(q.shape)}")
 

@@ -1,17 +1,20 @@
 """Time the flash-attention kernels of two checkouts in turns, on one card.
 
-    python -m eventgrad_tpu_torch.utils.flash_turns --other DIR [--out FILE]
+    python -m eventgrad_tpu_torch.utils.flash_turns --other DIR
+        [--shape B,T,H,D] [--out FILE]
 
 `DIR` is another checkout of the repository (for example a `git archive`
 of the parent commit unpacked beside this one). The kernels of the two
 trees run in turns, other, this, this, other, each turn in a process of
 its own that builds its tree's kernels and imports its tree's port. A
-turn times the forward, dQ and dK/dV kernels at the transformer legs'
-shapes (B = 32, T = 1024, H = 8, D = 64, causal, q/k/v as strided views
-of one fused projection), in float32 and bfloat16, as `chip_smoke.py`
-does: median of 20 CUDA-event timings after 3 warm-ups. Prints one JSON
-line per turn, then the card's name and power limit, then a summary line
-`{"turns": [...], "card": ...}` (also written to `--out`).
+turn times the forward, dQ and dK/dV kernels at `--shape` (default the
+transformer legs' B = 32, T = 1024, H = 8, D = 64; causal, q/k/v as
+strided views of one fused projection), in float32 and bfloat16, as
+`chip_smoke.py` does: median of 20 CUDA-event timings after 3 warm-ups.
+Prints one JSON line per turn, then the card's name and power limit,
+then a summary line `{"turns": [...], "card": ...}` (also written to
+`--out`). Both trees must take the shape: a tree whose kernels stop at
+D = 64 refuses D = 128.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def one_turn(root: Path) -> dict:
-    """The kernels of the checkout at `root`, timed."""
+def one_turn(root: Path, shape) -> dict:
+    """The kernels of the checkout at `root`, timed at `shape`."""
     sys.path.insert(0, str(root))
     import torch
 
@@ -59,8 +62,8 @@ def one_turn(root: Path) -> dict:
         raise RuntimeError(f"imported the port from outside {root}")
     build.library()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, t, h, d = SHAPE
-    rec = {"root": str(root)}
+    b, t, h, d = shape
+    rec = {"root": str(root), "shape": list(shape)}
     with torch.no_grad():
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             qkv = torch.randn((b, t, 3 * h, d), generator=gen,
@@ -85,11 +88,16 @@ def one_turn(root: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other checkout")
+    ap.add_argument("--shape", default=",".join(map(str, SHAPE)),
+                    help="B,T,H,D of q, k, v (default %(default)s)")
     ap.add_argument("--out", type=Path, help="also write the summary here")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
+    shape = tuple(int(v) for v in a.shape.split(","))
+    if len(shape) != 4:
+        ap.error(f"--shape takes B,T,H,D, got {a.shape}")
     if a.turn is not None:
-        print(json.dumps(one_turn(a.turn.resolve())), flush=True)
+        print(json.dumps(one_turn(a.turn.resolve(), shape)), flush=True)
         return 0
     if a.other is None:
         ap.error("--other is required")
@@ -97,7 +105,8 @@ def main(argv=None) -> int:
     turns = []
     for root, label in ((other, "other"), (HERE, "this"), (HERE, "this"),
                         (other, "other")):
-        res = subprocess.run([sys.executable, __file__, "--turn", str(root)],
+        res = subprocess.run([sys.executable, __file__, "--turn", str(root),
+                              "--shape", a.shape],
                              capture_output=True, text=True, cwd=root)
         if res.returncode != 0:
             print(res.stdout, res.stderr, file=sys.stderr)

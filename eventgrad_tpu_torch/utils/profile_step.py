@@ -1,14 +1,16 @@
 """Where a flagship train step's time goes on the card.
 
     python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
-        [--model {resnet,transformer}] [--algos ALGO ...]
+        [--model {resnet,transformer,transformer-d128}] [--algos ALGO ...]
         [--wire {bf16,int8}] [--staleness {0,1}] [--carrier-resident]
 
 For each leg (EventGraD, then D-PSGD, or the `--algos` named: allreduce,
 dpsgd, eventgrad, sp_eventgrad at top-k 10%) at the flagship op-point —
 ResNet-18 with bf16 compute, global batch 256; or, with `--model
-transformer`, the LM of 4 layers, dim 512, 8 heads with flash attention
-in float32 on 4 sequences of 1024 tokens per rank — on Ring(8) stacked
+transformer`, the LM of 4 layers, dim 512, 8 heads of 64 with flash
+attention in float32 on 4 sequences of 1024 tokens per rank, and with
+`--model transformer-d128` the LM of 2 layers, dim 2048, 16 heads of 128
+(Pythia-1.4B's attention width) on the same tokens — on Ring(8) stacked
 on one card, SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon
 1.05 and max_silence 50 (warmup 2), the f32 wire unless `--wire` names
 another — it runs 3 warm-up steps, then:
@@ -52,14 +54,19 @@ from eventgrad_tpu_torch.utils.devices import resolve_device
 PHASES = ("grad", "gate_pack", "exchange", "commit_mix")
 RANKS, WARMUP = 8, 3
 LM_SEQ = 1024
+#: the LM op-points: 8 heads of 64, and 16 heads of 128
+LM_WIDTHS = {
+    "transformer": dict(dim=512, n_heads=8, n_layers=4),
+    "transformer-d128": dict(dim=2048, n_heads=16, n_layers=2),
+}
 
 
 def _op_point(model_name: str, n_steps: int):
     """(model, one sample's shape, x, y) of a flagship op-point with
     `n_steps` steps of data."""
-    if model_name == "transformer":
-        model = TransformerLM(vocab=256, dim=512, n_heads=8, n_layers=4,
-                              max_len=LM_SEQ, attn="flash")
+    if model_name in LM_WIDTHS:
+        model = TransformerLM(vocab=256, max_len=LM_SEQ, attn="flash",
+                              **LM_WIDTHS[model_name])
         per_rank = 4
         x, y = synthetic_lm_dataset(RANKS * per_rank * n_steps, LM_SEQ, 256)
         x, shape = x.astype("int64"), (LM_SEQ,)
@@ -149,7 +156,7 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--model", choices=("resnet", "transformer"),
+    ap.add_argument("--model", choices=("resnet", *LM_WIDTHS),
                     default="resnet")
     ap.add_argument("--algos", nargs="+", choices=ALGOS,
                     default=["eventgrad", "dpsgd"])

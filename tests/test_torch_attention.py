@@ -36,7 +36,9 @@ from eventgrad_tpu_torch.parallel.topology import Ring, Topology
 
 FWD = dict(atol=2e-5, rtol=2e-5)
 GRAD = dict(atol=5e-5, rtol=5e-4)
-SHAPES = [(48, 32), (160, 24)]  # (T, D): one tile, and ragged in both
+#: (T, D): one tile, and ragged in both; then the DMAX = 128 kernels'
+#: widths, whole and zero-padded (D = 80 runs on 48 zero columns)
+SHAPES = [(48, 32), (160, 24), (48, 128), (160, 80)]
 
 
 def _inputs(seed, *shape, n=3):
@@ -78,10 +80,9 @@ OFFSETS = {"visible": (48, 0), "diagonal": (96, 96), "partial": (48, 24),
            "masked": (0, 48)}
 
 
-@pytest.mark.parametrize("hop", sorted(OFFSETS))
-def test_flash_attention_lse_offsets_and_dlse_match_jax(hop):
+def _check_offsets_and_dlse(hop, d):
     qo, ko = OFFSETS[hop]
-    t, d = 48, 32
+    t = 48
     q, k, v, w = _inputs(7, 2, t, 2, d, n=4)
     w_lse = _inputs(8, 2, t, 2, n=1)[0]
     tq = _leaves([q, k, v])
@@ -108,6 +109,18 @@ def test_flash_attention_lse_offsets_and_dlse_match_jax(hop):
                            jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)):
         assert torch.isfinite(g).all()
         _close(g, jg, GRAD, f"d{name}")
+
+
+@pytest.mark.parametrize("hop", sorted(OFFSETS))
+def test_flash_attention_lse_offsets_and_dlse_match_jax(hop):
+    _check_offsets_and_dlse(hop, 32)
+
+
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("hop", sorted(OFFSETS))
+def test_flash_attention_lse_offsets_at_wide_heads_match_jax(hop, d):
+    """The offset variant at the head widths of the DMAX = 128 kernels."""
+    _check_offsets_and_dlse(hop, d)
 
 
 @pytest.mark.parametrize("t,d", SHAPES)
@@ -329,6 +342,92 @@ def test_tf32_split_against_float32_tolerances(kernel, split, holds):
         want = fa.dkv_reference(*args, None, True, 1)
         got = _split_dkv(*args, mm)
     assert _holds(got, want, GRAD) is holds
+
+
+def _key_halves(t):
+    """The keys each warp of a pair sweeps in the float32 forward and dQ
+    kernels at DMAX = 128: the first and the second 32 of every 64-key
+    tile, as `[T]` masks."""
+    first = (torch.arange(t) % 64) < 32
+    return first, ~first
+
+
+def _pair_forward(q, k, v, mm):
+    """The float32 forward at DMAX = 128: each warp of a pair runs its
+    own softmax over its key halves (row max floored at -1e30, as the
+    kernel starts it), then the pair merges (m, l, acc) as two ring
+    hops merge."""
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    t = q.shape[1]
+    s = mm(qh, kh.transpose(-1, -2)) * (1.0 / np.sqrt(q.shape[-1]))
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -torch.inf)
+    parts = []
+    for half in _key_halves(t):
+        sh = s.masked_fill(~half, -torch.inf)
+        m = sh.amax(-1, keepdim=True).clamp_min(-1e30)
+        p = torch.exp(sh - m)
+        parts.append((m, p.sum(-1, keepdim=True), mm(p, vh)))
+    (ma, la, acc_a), (mb, lb, acc_b) = parts
+    m = torch.maximum(ma, mb)
+    ca, cb = torch.exp(ma - m), torch.exp(mb - m)
+    l_sum = la * ca + lb * cb
+    out = (acc_a * ca + acc_b * cb) / l_sum
+    return out.transpose(1, 2), (m + torch.log(l_sum))[..., 0].transpose(1, 2)
+
+
+def _pair_dq(q, k, v, do, lse, delta, mm):
+    """The float32 dQ kernel at DMAX = 128: each warp of a pair sums ds k
+    over its key halves; the two partials add at the end."""
+    _, kh, _, _, ds = _split_bwd_terms(q, k, v, do, lse, delta, mm)
+    a, b = (mm(ds * half, kh) for half in _key_halves(q.shape[1]))
+    return ((a + b).transpose(1, 2),)
+
+
+@pytest.mark.parametrize("split,holds", [("3xtf32", True), ("1xtf32", False)])
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
+def test_tf32_split_at_head_dim_128(kernel, split, holds):
+    """As above at D = 128 (B2 x T256 x H2), the main path's head width:
+    twice the terms in each score's sum, in the order of the DMAX = 128
+    kernels. The float32 forward and dQ split each K tile's keys between
+    two warps and merge the halves (`_pair_forward`, `_pair_dq`). dK/dV
+    splits D between two warps instead, but each dK/dV element is still
+    summed by one warp, over the same queries in the same order, so its
+    emulation is the unsplit one."""
+    mm = {"3xtf32": _mm_3xtf32, "1xtf32": _mm_1xtf32}[split]
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(14, 2, 256, 2, 128,
+                                                        n=4))
+    out, lse = fa.lse_reference(q, k, v, None, True, 1)
+    if kernel == "forward":
+        assert _holds(_pair_forward(q, k, v, mm), (out, lse), FWD) is holds
+        return
+    args = (q, k, v, do, lse.transpose(1, 2).contiguous(),
+            (do * out).sum(-1).transpose(1, 2).contiguous())
+    if kernel == "dq":
+        want = (fa.dq_reference(*args, None, True, 1),)
+        got = _pair_dq(*args, mm)
+    else:
+        want = fa.dkv_reference(*args, None, True, 1)
+        got = _split_dkv(*args, mm)
+    assert _holds(got, want, GRAD) is holds
+
+
+def test_pair_emulation_is_the_plain_arithmetic_in_float64():
+    """The pair merge itself is exact arithmetic: in float64 with exact
+    products, `_pair_forward` and `_pair_dq` equal the plain versions to
+    rounding, the first row (whose second half sees no key) included
+    (the plain lse is float32 whatever the inputs)."""
+    q, k, v, do = (torch.from_numpy(a).double()
+                   for a in _inputs(15, 1, 160, 2, 128, n=4))
+    exact = lambda a, b: a @ b
+    out, lse = fa.lse_reference(q, k, v, None, True, 1)
+    tight = dict(atol=1e-12, rtol=1e-10)
+    got_out, got_lse = _pair_forward(q, k, v, exact)
+    assert _holds((got_out,), (out,), tight)
+    assert _holds((got_lse.float(),), (lse,), dict(atol=0, rtol=2e-7))
+    args = (q, k, v, do, lse.transpose(1, 2).contiguous(),
+            (do * out).sum(-1).transpose(1, 2).contiguous())
+    assert _holds(_pair_dq(*args, exact),
+                  (fa.dq_reference(*args, None, True, 1),), tight)
 
 
 def test_tf32_rounding_and_split():

@@ -126,6 +126,7 @@ def test_refusals_name_their_roadmap_item():
     """Every feature the port refuses raises NotImplementedError naming
     the ROADMAP queue-1 item that ports it."""
     from eventgrad_tpu_torch.data.datasets import load_or_synthesize
+    from eventgrad_tpu_torch.ops import attention
     from eventgrad_tpu_torch.parallel import collectives, policy
     from eventgrad_tpu_torch.parallel.arena import arena_spec
     from eventgrad_tpu_torch.parallel.ring_attention import ring_attention
@@ -163,6 +164,12 @@ def test_refusals_name_their_roadmap_item():
             lambda: egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,
                                       max_len=8, attn="ring"),
             lambda: ring_attention(q, q, q, egt.Torus(2, 2)),
+        ],
+        # the CUDA kernels' head-width check; no CPU call reaches it (CPU
+        # tensors take the plain versions, which accept any width)
+        "item 10": [
+            lambda: attention._check_cuda("flash_attention",
+                                          torch.zeros((1, 8, 1, 160))),
         ],
     }
     for item, calls in refusals.items():

@@ -3,10 +3,13 @@
 Same numpy inputs through both packages at a small size (`dim=32,
 n_heads=2, n_layers=2, vocab=32, T=16`): the synthetic LM dataset, the
 weight conversion, the model's forward and parameter gradients from
-weights carried across by `convert.params_from_jax`, and one EventGraD and
-one D-PSGD step on `Ring(4)` from identical state. The JAX side runs
-`attn="flash"` through its Pallas kernels in interpret mode; the port
-runs its flash Functions on their plain versions (CPU tensors).
+weights carried across by `convert.params_from_jax`, and EventGraD and
+D-PSGD steps on `Ring(4)` from identical state; then one step of each at
+head dimension 128 (`dim=256, n_heads=2, T=48`), the head width of the
+card's `transformer-d128` legs, which the DMAX = 128 flash kernels run
+there. The JAX side runs `attn="flash"` through its Pallas kernels in
+interpret mode; the port runs its flash Functions on their plain
+versions (CPU tensors).
 
 All in float32 — unlike the small ResNet of `test_torch_step.py`, this
 net has no ReLU for a rounding to flip, so float32 compute pins the step.
@@ -46,6 +49,8 @@ from eventgrad_tpu_torch.train.steps import _xent, make_train_step
 TOL = dict(rtol=1e-4, atol=1e-5)
 SMALL = dict(vocab=32, dim=32, n_heads=2, n_layers=2, max_len=16)
 R, PER_RANK, T = 4, 2, 16
+#: two heads of 128 at T = 48
+WIDE = dict(vocab=32, dim=256, n_heads=2, n_layers=2, max_len=48)
 LR, MOM = 0.01, 0.9
 CFG = dict(adaptive=True, horizon=0.6, warmup_passes=1, max_silence=4)
 
@@ -116,8 +121,8 @@ def test_init_variables_follow_flax_init():
                                        rtol=0.15, err_msg=name)
 
 
-def _tokens(n, seed=1):
-    x, y = jax_lm_dataset(n, seq_len=T, vocab=SMALL["vocab"], seed=seed)
+def _tokens(n, seed=1, t=T):
+    x, y = jax_lm_dataset(n, seq_len=t, vocab=SMALL["vocab"], seed=seed)
     return x, y
 
 
@@ -169,13 +174,14 @@ def _flat_of(jparams, spec):
     return spec.ravel(tp)
 
 
-def _run_both(algo, n_steps):
-    jmodel = JaxTransformerLM(attn="flash", **SMALL)
-    tmodel = TransformerLM(attn="flash", **SMALL)
+def _run_both(algo, n_steps, sizes=SMALL):
+    jmodel = JaxTransformerLM(attn="flash", **sizes)
+    tmodel = TransformerLM(attn="flash", **sizes)
     spec = arena_spec(tmodel)
     jtopo, topo = JaxRing(R), Ring(R)
     tx = optax.sgd(LR, momentum=MOM)
-    jstate = jax_init_state(jmodel, (T,), tx, jtopo, algo,
+    t = sizes["max_len"]
+    jstate = jax_init_state(jmodel, (t,), tx, jtopo, algo,
                             JaxEventConfig(**CFG), seed=0,
                             input_dtype=jnp.int32, arena=True)
     assert jstate.batch_stats == {}
@@ -190,9 +196,9 @@ def _run_both(algo, n_steps):
         trace=True, arena=True), jtopo))
     tstep = make_train_step(tmodel, topo, algo, EventConfig(**CFG),
                             fused_sgd=(LR, MOM), trace=True)
-    x, y = _tokens(n_steps * R * PER_RANK)
-    x = x.reshape(n_steps, R, PER_RANK, T)
-    y = y.reshape(n_steps, R, PER_RANK, T)
+    x, y = _tokens(n_steps * R * PER_RANK, t=t)
+    x = x.reshape(n_steps, R, PER_RANK, t)
+    y = y.reshape(n_steps, R, PER_RANK, t)
     passes = []
     for i in range(n_steps):
         jstate, jm = jstep(jstate, (jnp.asarray(x[i]), jnp.asarray(y[i])))
@@ -204,12 +210,10 @@ def _run_both(algo, n_steps):
     return spec, passes
 
 
-@pytest.mark.parametrize("algo", ["eventgrad", "dpsgd"])
-def test_transformer_step_matches_jax(algo):
-    """Three passes (warmup 1, then the trigger decides): parameters,
-    trace, loss and token counts within tolerance; fire bits, events and
-    bytes equal."""
-    spec, passes = _run_both(algo, 3)
+def _check_passes(algo, spec, passes):
+    """Parameters, trace, loss and token counts within tolerance; fire
+    bits, events and bytes equal. Returns the fire bits set past
+    warmup."""
     fired_past_warmup = 0
     for p, (jstate, jm, tstate, tm) in enumerate(passes, start=1):
         np.testing.assert_allclose(
@@ -234,8 +238,26 @@ def test_transformer_step_matches_jax(algo):
                                        **TOL)
             if p > CFG["warmup_passes"]:
                 fired_past_warmup += int(tm["trace_fired"].sum())
+    return fired_past_warmup
+
+
+@pytest.mark.parametrize("algo", ["eventgrad", "dpsgd"])
+def test_transformer_step_matches_jax(algo):
+    """Three passes (warmup 1, then the trigger decides)."""
+    spec, passes = _run_both(algo, 3)
+    fired_past_warmup = _check_passes(algo, spec, passes)
     if algo == "eventgrad":  # the trigger, not only warmup, was exercised
         assert 0 < fired_past_warmup < 2 * R * spec.n_leaves
+
+
+@pytest.mark.parametrize("algo", ["eventgrad", "dpsgd"])
+def test_transformer_step_at_head_dim_128_matches_jax(algo):
+    """One pass at two heads of 128, weights carried across by
+    `convert.py`: the port's flash Functions against the JAX package's
+    Pallas kernels (interpret mode), which pad nothing at D = 128."""
+    assert WIDE["dim"] // WIDE["n_heads"] == 128
+    spec, passes = _run_both(algo, 1, WIDE)
+    _check_passes(algo, spec, passes)
 
 
 @pytest.mark.parametrize("attn", ["full", "flash"])
