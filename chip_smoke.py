@@ -52,7 +52,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    Torus(2, 4), on the card against the same steps on the CPU (plain
    versions), float64 compute and float32 state: parameters within
    rtol=1e-4, atol=1e-5 and equal fire bits, except where a leaf sat on
-   its threshold; int8 carriers within one quantum.
+   its threshold; int8 carriers within one quantum. The same for its
+   compact-wire EventGraD steps (f32, and int8 carrier-resident, at a
+   third of the arena: the gate defers) and its micro step on the
+   compact wire (capacity the largest of 8 partitions).
    The same for a small transformer (flash attention, float32 compute,
    T = 96), and stacked ring attention through the flash kernels over 4
    shards (D = 32 and 128) against plain attention on the whole
@@ -60,11 +63,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. main path — the flagship trainer through `eventgrad_tpu_torch.train`:
    full-width ResNet-18 (bf16 compute, 3 blocks per stage), Ring(8),
    global batch 256, SGD lr 0.01 momentum 0.9, the adaptive trigger at
-   horizon 1.05 and max_silence 50 with warmup 2, seven legs of 3 steps x
+   horizon 1.05 and max_silence 50 with warmup 2, nine legs of 3 steps x
    2 epochs: EventGraD and D-PSGD on the f32 wire, EventGraD on the int8
    wire with carrier-resident buffers, its D-PSGD int8 twin, EventGraD on
    the bf16 wire with carrier-resident buffers, sparsified EventGraD at
-   top-k 10% on the f32 wire, and allreduce. Then four
+   top-k 10% on the f32 wire, allreduce, and EventGraD on the compact
+   wire at `compact_frac=0.375` (dense through the first epoch, compact
+   in the second), f32 and int8 carrier-resident, each logged beside
+   its masked twin (step_ms, peak memory). Then four
    transformer legs at the same optimizer and trigger: EventGraD and
    D-PSGD on `TransformerLM(vocab=256, dim=512, n_heads=8, n_layers=4,
    max_len=1024, attn="flash")` (13,389,056 parameters per rank in 46
@@ -86,7 +92,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    reckons it in float32, with the fired payload at most that), whose
    flash kernels did not launch once per layer per step (forward: plus
    once per layer per test pass), or whose loss is not finite fails the
-   run;
+   run; a compact leg fails unless its last epoch ran the compact wire
+   at capacity ceil(0.375 x 17,444,682) = 6,541,756 with wire-real bytes
+   exactly 2 x (4 B x capacity + 86) = 52,334,220 (f32) or 2 x (capacity
+   + 86 + 4 x 86) = 13,084,372 (int8), derived from the record's
+   capacity and the leaf sizes;
 6. real data — the port trained to a test accuracy on the bundled
    digit scans (`eventgrad_tpu_torch/utils/realdata.py`), seed 0, 540
    passes per leg on Ring(8): CNN2 on "digits" (EventGraD with the
@@ -99,7 +109,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    msgs-saved-% within 6.0 points of the reference's, every loss
    finite, and the kernels of each algorithm launched (counters zeroed
    just before each leg and read just after);
-7. summary — one JSON line of every kernel's numbers, the card's name and
+7. frontier — the JAX package's frontier op-point
+   (`tools/frontier_sweep.py`; `eventgrad_tpu_torch/utils/frontier.py`):
+   LeNetCifar on Ring(8), 14 epochs, the four trigger policies
+   (norm_delta, topk, micro, hybrid) at one compact capacity (the
+   largest of 8 partitions, 48,000 elements) on the f32 and int8 wires,
+   8 legs, held to `artifacts/frontier_cpu.json`: bytes per step per
+   chip exact (norm_delta, micro, hybrid 384,020 / 96,100; topk 768,100
+   / 480,150), micro's msgs-saved-% exactly 86.71875 and fired_frac
+   0.125, the other legs' msgs-saved-% within 6.0 points of the
+   reference leg's, every test accuracy at least the reference leg's
+   less 4.0 points, every loss finite, the kernels launched;
+8. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -848,7 +869,9 @@ def phase_reference():
     )
     from eventgrad_tpu_torch.models.resnet import ResNet
     from eventgrad_tpu_torch.models.transformer import TransformerLM
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
     from eventgrad_tpu_torch.parallel.events import EventConfig
+    from eventgrad_tpu_torch.parallel.policy import max_partition_elems
     from eventgrad_tpu_torch.parallel.ring_attention import (
         full_attention, ring_attention,
     )
@@ -867,6 +890,10 @@ def phase_reference():
     batches = list(zip(x, y))
     tol = dict(rtol=1e-4, atol=1e-5)
     top10 = SparseConfig(10.0)
+    spec = arena_spec(model)
+    # compact: a third of the arena (the gate defers), and micro's floor
+    compact = dict(gossip_wire="compact",
+                   compact_capacity=max(spec.floor, spec.n_total // 3))
     for name, algo, kw in (
             ("eventgrad", "eventgrad", {}), ("dpsgd", "dpsgd", {}),
             ("eventgrad-int8-carrier", "eventgrad",
@@ -874,7 +901,13 @@ def phase_reference():
             ("allreduce", "allreduce", {}),
             ("sp_eventgrad", "sp_eventgrad", dict(sparse_cfg=top10)),
             ("sp_eventgrad-int8", "sp_eventgrad",
-             dict(sparse_cfg=top10, wire="int8"))):
+             dict(sparse_cfg=top10, wire="int8")),
+            ("eventgrad-compact", "eventgrad", compact),
+            ("eventgrad-int8-carrier-compact", "eventgrad",
+             dict(compact, wire="int8", carrier_resident=True)),
+            ("micro-compact", "eventgrad",
+             dict(trigger_policy="micro", gossip_wire="compact",
+                  compact_capacity=max_partition_elems(spec, RANKS)))):
         _reference_steps(name, model, algo, kw, cfg, batches, tol)
     _reference_steps("eventgrad-torus2x4", model, "eventgrad", {}, cfg,
                      batches, tol, topo=Torus(2, 4))
@@ -935,7 +968,23 @@ LEGS = (
     ("sp_eventgrad", "sp_eventgrad", dict(topk_percent=10.0),
      ("fused_mix_sgd",), None),
     ("allreduce", "allreduce", {}, ("fused_mix_sgd",), None),
+    ("eventgrad-compact", "eventgrad",
+     dict(gossip_wire="compact", compact_frac=0.375),
+     ("masked_wire", "fused_mix_commit"), "float32"),
+    ("eventgrad-int8-carrier-compact", "eventgrad",
+     dict(wire="int8", carrier_resident=True, gossip_wire="compact",
+          compact_frac=0.375),
+     ("masked_wire_int8", "fused_mix_commit_carrier"), "int8"),
 )
+
+#: the compact legs' masked twins
+COMPACT_TWINS = {"eventgrad-compact": "eventgrad",
+                 "eventgrad-int8-carrier-compact": "eventgrad-int8-carrier"}
+#: exact wire-real bytes per step per chip of the compact legs: two
+#: neighbors x (capacity lanes + 86 fire bits (+ 86 int8 scales)), at
+#: capacity ceil(0.375 x 17,444,682) = 6,541,756
+COMPACT_WIRE_REAL = {"eventgrad-compact": 52_334_220,
+                     "eventgrad-int8-carrier-compact": 13_084_372}
 
 #: exact int8 byte counts per step per chip at the flagship: two
 #: neighbors x (17,444,682 one-byte lanes + 86 f32 scales), plus on the
@@ -973,7 +1022,7 @@ def phase_main_path():
     xt, yt = synthetic_dataset(512, (32, 32, 3), seed=0, split="test")
     cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                           max_silence=50)
-    totals, test_acc = {}, {}
+    totals, test_acc, recs = {}, {}, {}
     for leg, algo, wire_kw, must_launch, buf_dtype in LEGS:
         if "topk_percent" in wire_kw:
             wire_kw = {"sparse_cfg": egt.SparseConfig(wire_kw["topk_percent"])}
@@ -1046,7 +1095,11 @@ def phase_main_path():
         if leg == "allreduce" and not bool(
                 (state.params == state.params[:1]).all()):
             raise SmokeError("allreduce: the ranks' parameters differ")
+        if leg in COMPACT_WIRE_REAL:
+            _check_compact_leg(leg, hist, spec)
+            rec["compact_capacity"] = last["compact_capacity"]
         test_acc[leg] = last["test_accuracy"]
+        recs[leg] = rec
         log(json.dumps(rec))
         del state, model
         torch.cuda.empty_cache()
@@ -1054,7 +1107,33 @@ def phase_main_path():
         "f32": test_acc["eventgrad"] - test_acc["dpsgd"],
         "int8": test_acc["eventgrad-int8-carrier"] - test_acc["dpsgd-int8"],
     }}))
+    log(json.dumps({"compact_vs_masked": {
+        leg: {k: [recs[leg][k], recs[twin][k]]
+              for k in ("step_ms", "peak_mem_gib",
+                        "sent_bytes_wire_real_per_step_per_chip",
+                        "msgs_saved_pct", "test_accuracy")}
+        for leg, twin in COMPACT_TWINS.items()}}))
     return totals
+
+
+def _check_compact_leg(leg, hist, spec):
+    """A compact leg: dense through the first epoch, then the compact
+    wire at ceil(0.375 n) lanes, its wire-real bytes exact."""
+    last = hist[-1]
+    cap = last.get("compact_capacity")
+    if [r["gossip_wire"] for r in hist] != ["dense", "compact"]:
+        raise SmokeError(f"{leg}: wire modes "
+                         f"{[r['gossip_wire'] for r in hist]}")
+    if cap != min(spec.n_total, max(spec.floor,
+                                    math.ceil(0.375 * spec.n_total))):
+        raise SmokeError(f"{leg}: compact capacity {cap}")
+    int8 = last["wire"] == "int8"
+    want = NB * ((1 if int8 else 4) * cap + spec.n_leaves
+                 + (4 * spec.n_leaves if int8 else 0))
+    got = last["sent_bytes_wire_real_per_step_per_chip"]
+    if not got == want == COMPACT_WIRE_REAL[leg]:
+        raise SmokeError(f"{leg}: wire-real bytes {got}, derived {want}, "
+                         f"stated {COMPACT_WIRE_REAL[leg]}")
 
 
 #: the transformer legs: (name, algo, gossip kernels that must launch)
@@ -1248,6 +1327,86 @@ def phase_realdata():
     return totals
 
 
+#: frontier policy -> exact bytes per step per chip on the f32 and int8
+#: wires (two neighbors; 10 leaves, capacity 48,000): 4 B or 1 B a lane
+#: plus the fire bits (plus the int8 scales); topk's lanes carry an int32
+#: index each
+FRONTIER_BYTES = {
+    "norm_delta": (384_020, 96_100), "micro": (384_020, 96_100),
+    "hybrid": (384_020, 96_100), "topk": (768_100, 480_150),
+}
+#: micro's sends depend only on position: exact over 448 passes
+MICRO_MSGS_SAVED, MICRO_FIRED_FRAC = 86.71875, 0.125
+
+
+def phase_frontier():
+    """The JAX package's frontier op-point through the port: four
+    policies x the f32 and int8 wires, held to the committed reference
+    run. Returns the launches of each kernel summed over the legs."""
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.utils import frontier
+
+    log("== frontier: LeNetCifar x Ring(8), 14 epochs, four policies at "
+        f"capacity {frontier.capacity()}, f32 and int8 wires")
+    ref = json.loads((HERE / "artifacts" / "frontier_cpu.json").read_text())
+    if frontier.capacity() != ref["capacity"]:
+        raise SmokeError(f"frontier capacity {frontier.capacity()} != "
+                         f"{ref['capacity']}")
+    ref_legs = {(l["policy"], l["wire"]): l for l in ref["legs"]}
+    totals, failures = {}, []
+    for pol in frontier.POLICIES:
+        for i, wire_name in enumerate(("f32", "int8")):
+            # the event legs' first epoch runs the masked wire
+            must_launch = (("fused_mix_sgd",) if pol == "topk" else (
+                "fused_mix_commit",
+                "masked_wire_int8" if i else "masked_wire"))
+            want = ref_legs[(pol, wire_name)]
+            ops.reset_launch_counts()
+            rec = frontier.run_leg(pol, wire_name, device=DEVICE)
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            rec.update(reference_test_accuracy=want["test_accuracy"],
+                       reference_msgs_saved_pct=want["msgs_saved_pct"],
+                       launches={k: v for k, v in counts.items() if v})
+            log(json.dumps(rec))
+            leg = f"{pol}/{wire_name}"
+            if not rec["losses_finite"]:
+                failures.append(f"{leg}: a loss is not finite")
+            missing = [k for k in must_launch if counts[k] == 0]
+            if missing:
+                failures.append(f"{leg}: kernels never launched: {missing}")
+            got_b = rec["bytes_per_step_per_chip"]
+            if not got_b == FRONTIER_BYTES[pol][i] == want[
+                    "bytes_per_step_per_chip"]:
+                failures.append(f"{leg}: bytes {got_b}, stated "
+                                f"{FRONTIER_BYTES[pol][i]}, reference "
+                                f"{want['bytes_per_step_per_chip']}")
+            if rec["gossip_wire"] != "compact":
+                failures.append(f"{leg}: ended on the {rec['gossip_wire']} "
+                                "wire")
+            if pol == "micro":
+                if (rec["msgs_saved_pct"] != MICRO_MSGS_SAVED
+                        or rec["fired_frac"] != MICRO_FIRED_FRAC):
+                    failures.append(
+                        f"{leg}: msgs_saved_pct {rec['msgs_saved_pct']} and "
+                        f"fired_frac {rec['fired_frac']} are not exactly "
+                        f"{MICRO_MSGS_SAVED} and {MICRO_FIRED_FRAC}")
+            elif not abs(rec["msgs_saved_pct"]
+                         - want["msgs_saved_pct"]) <= MSGS_BAND:
+                failures.append(f"{leg}: msgs_saved_pct "
+                                f"{rec['msgs_saved_pct']:.3f} not within "
+                                f"{MSGS_BAND} of {want['msgs_saved_pct']}")
+            if not rec["test_accuracy"] >= want["test_accuracy"] - ACC_BAND:
+                failures.append(f"{leg}: test accuracy "
+                                f"{rec['test_accuracy']:.2f} < "
+                                f"{want['test_accuracy']} - {ACC_BAND}")
+    if failures:
+        raise SmokeError("frontier outside the reference: "
+                         + "; ".join(failures))
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -1312,7 +1471,8 @@ def main() -> int:
         timed(phase_reference)
         launches = {}
         for phase in (phase_main_path, phase_main_path_lm,
-                      phase_main_path_lm_d128, phase_realdata):
+                      phase_main_path_lm_d128, phase_realdata,
+                      phase_frontier):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

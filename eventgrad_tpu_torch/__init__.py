@@ -13,7 +13,10 @@ and 2-D tori. The ranks of the simulated topology are a leading
 `[R, ...]` dimension on one device (the rank-stacked lift, `parallel/spmd.py`). The flat
 parameter arena (`parallel/arena.py`) holds each rank-stacked quantity
 as one `[R, n]` tensor (f32, or the bf16/int8 wire carrier for
-carrier-resident receive buffers), and the gossip tail runs through five
+carrier-resident receive buffers); the event exchange ships on the
+masked wire or the compact static-capacity wire, under the norm-delta,
+top-k, micro or hybrid trigger policy (`parallel/policy.py`); and the
+gossip tail runs through five
 CUDA kernels written for Hopper (`csrc/*.cu`, bound in `ops/`). The
 transformer LM (`models/transformer.py`) adds three more, the
 flash-attention forward, dQ and dK/dV kernels (`ops/attention.py`).

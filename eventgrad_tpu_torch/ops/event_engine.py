@@ -1,8 +1,10 @@
 """Flat-arena event engine: the sender pass and the masked-wire builder.
 
 Port of `eventgrad_tpu/ops/event_engine.py`: `event_propose_pack` (the
-`capacity=None` path of the dense/masked wires; the compact pack waits),
-`masked_wire` and its plain version `masked_wire_reference`. Without
+sender pass: trigger, then on the compact wire the capacity gate and the
+pack), `masked_wire` and its plain version `masked_wire_reference`. The
+gate and the pack are plain PyTorch, as in the JAX package, where they
+are jnp outside any Pallas kernel. Without
 scales `masked_wire` launches the CUDA kernel `csrc/masked_wire.cu`
 (replacing the TPU kernel `_mask_kernel`); with scales it is
 `masked_wire_int8`, the CUDA kernel `csrc/mask_quant.cu` (replacing
@@ -17,8 +19,9 @@ import torch
 
 from eventgrad_tpu_torch.ops import build
 from eventgrad_tpu_torch.parallel.arena import ArenaSpec
+from eventgrad_tpu_torch.parallel.collectives import _compact_pack
 from eventgrad_tpu_torch.parallel.events import (
-    EventConfig, EventProposal, EventState, propose,
+    EventConfig, EventProposal, EventState, capacity_gate, propose,
 )
 
 
@@ -28,13 +31,40 @@ def event_propose_pack(
     pass_num: int,
     cfg: EventConfig,
     spec: ArenaSpec,
-) -> Tuple[EventProposal, torch.Tensor]:
-    """The sender side of one event pass on the parameter arena, for the
-    dense/masked wires (the JAX function's `capacity=None` path; the
-    compact pack waits): the trigger decision. Returns (proposal,
-    effective fire bits)."""
-    prop = propose(flat, state, pass_num, cfg, spec)
-    return prop, prop.fire_vec
+    capacity: Optional[int] = None,
+    force_fire: Optional[torch.Tensor] = None,
+    suppress_fire: Optional[torch.Tensor] = None,
+) -> Tuple[EventProposal, torch.Tensor, Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
+    """The sender side of one event pass on the parameter arena: trigger
+    -> suppress -> gate -> pack.
+
+    `force_fire` (bool, broadcast to `[R, L]`) ORs into the trigger;
+    `suppress_fire` then clears fire bits before the gate and the pack
+    (it wins over force and over the silence bound), and the suppressed
+    leaves, never committed, re-contend next pass. Returns (proposal,
+    effective fire bits, packed wire buffer, per-position leaf ids). With
+    `capacity=None` (dense/masked wires) the pack outputs are None; with
+    a compact capacity the bits are the `capacity_gate`d subset
+    (max_silence-overdue and forced leaves claim budget first) and
+    `packed` holds the admitted leaves' elements (`_compact_pack`)."""
+    prop = propose(flat, state, pass_num, cfg, spec, force_fire=force_fire)
+    fire_vec = prop.fire_vec
+    if suppress_fire is not None:
+        fire_vec = fire_vec & ~torch.broadcast_to(suppress_fire,
+                                                  fire_vec.shape)
+    packed = leaf_id = None
+    if capacity is not None:
+        pri = None
+        if cfg.max_silence > 0:
+            pri = prop.iter_diff >= float(cfg.max_silence)
+        if force_fire is not None:
+            ff = torch.broadcast_to(force_fire, fire_vec.shape)
+            pri = ff if pri is None else (pri | ff)
+        fire_vec = capacity_gate(fire_vec, spec.sizes_tensor(flat.device),
+                                 int(capacity), priority=pri)
+        packed, leaf_id = _compact_pack(flat, fire_vec, spec, int(capacity))
+    return prop, fire_vec, packed, leaf_id
 
 
 def masked_wire_reference(

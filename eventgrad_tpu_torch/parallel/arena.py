@@ -1,8 +1,10 @@
 """Flat parameter arena: cached leaf metadata + flat views.
 
-Port of `eventgrad_tpu/parallel/arena.py` (`ArenaSpec`, `arena_spec`,
-`carrier_dtype`, `carrier_needs_scales`, `alloc_event_bufs` for f32 and
-carrier residency; buckets wait).
+Port of `eventgrad_tpu/parallel/arena.py` (`ArenaSpec` with its
+leaf-aligned `buckets`, `BucketSpec`, `arena_spec`, `carrier_dtype`,
+`carrier_needs_scales`, `alloc_event_bufs` for f32 and carrier
+residency). The buckets serve the partitioned trigger policies'
+geometry (`parallel/policy.py`); the bucketed schedule waits.
 
 Every rank-stacked quantity of the gossip hot path — parameters,
 gradients, momentum trace, neighbor buffers — is ONE `[R, n]` f32
@@ -58,6 +60,18 @@ class ArenaSpec:
     def n_leaves(self) -> int:
         return len(self.sizes)
 
+    @property
+    def floor(self) -> int:
+        """The largest leaf: the smallest legal compact capacity."""
+        return max(self.sizes) if self.sizes else 0
+
+    def buckets(self, k: int) -> Tuple["BucketSpec", ...]:
+        """Up to `k` contiguous leaf-aligned buckets of the arena: each
+        interior cut lands on the leaf edge nearest `i * n_total / k`
+        (ties to the earlier edge), every bucket keeps at least one
+        leaf, and `k` clamps to the leaf count. Cached per (spec, k)."""
+        return _buckets_cached(self, int(k))
+
     def sizes_tensor(self, device=None) -> torch.Tensor:
         """[L] int32 leaf sizes on `device` (cached: read only)."""
         return _device_constants(self.sizes, torch.device(device or "cpu"))[1]
@@ -92,6 +106,55 @@ class ArenaSpec:
                 self.names, self.leaf_views(flat), self.shapes
             )
         }
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSpec:
+    """One contiguous leaf-aligned segment of an arena: leaves `[lo, hi)`
+    of the parent spec, elements `[start, start + size)`, the
+    bucket-local leaf sizes and starts (`starts_rel[0] == 0`), and
+    `floor`, its largest leaf."""
+
+    index: int
+    lo: int
+    hi: int
+    start: int
+    size: int
+    sizes: Tuple[int, ...]
+    starts_rel: Tuple[int, ...]
+    floor: int
+
+    @property
+    def n_leaves(self) -> int:
+        return self.hi - self.lo
+
+
+@functools.lru_cache(maxsize=256)
+def _buckets_cached(spec: ArenaSpec, k: int) -> Tuple[BucketSpec, ...]:
+    n_leaves = spec.n_leaves
+    k = max(1, min(int(k), n_leaves))
+    ends = [s + z for s, z in zip(spec.starts, spec.sizes)]
+    cuts, prev = [], 0
+    for i in range(1, k):
+        target = i * spec.n_total / k
+        # the leaf edge nearest the target, leaving every later bucket
+        # at least one leaf
+        lo_c, hi_c = prev + 1, n_leaves - (k - i)
+        prev = min(range(lo_c, hi_c + 1),
+                   key=lambda c: (abs(ends[c - 1] - target), c))
+        cuts.append(prev)
+    bounds = [0] + cuts + [n_leaves]
+    out = []
+    for b in range(k):
+        lo, hi = bounds[b], bounds[b + 1]
+        sizes = spec.sizes[lo:hi]
+        base = spec.starts[lo]
+        out.append(BucketSpec(
+            index=b, lo=lo, hi=hi, start=base, size=int(sum(sizes)),
+            sizes=sizes, starts_rel=tuple(s - base for s in spec.starts[lo:hi]),
+            floor=max(sizes),
+        ))
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,16 +1,18 @@
 """Gossip exchanges over the rank-stacked dimension: the f32, bf16 and
-int8 wires.
+int8 wires, masked or compact.
 
 Port of `eventgrad_tpu/parallel/collectives.py`, the subset the port's
 steps run: `allreduce_mean`, `recv_from`, `_wire_concat`, the wire codecs
 (`_wire_out`, `_contract_safe`, `_leaf_absmax`, `_masked_scales`,
 `_int8_encode_flat`), `neighbor_vals_flat`, `masked_neighbor_vals_flat`
-(with the carrier-resident contract), `commit_bufs_flat`,
-`commit_carrier_scales`, `dequant_carrier_bufs` and the wire byte
-accounting. The compact wire and the integrity riders are not ported
-yet and raise `NotImplementedError`; the unfused mixes
-(`mix_flat_into_tree`, `mix_carrier_flat_into_tree`) are absent, since
-the port's step always runs the fused tail kernels.
+and `compact_neighbor_vals_flat` (both with the carrier-resident
+contract), the compact wire's `_compact_pack`, `compact_capacity_floor`
+and `choose_capacity`, `commit_bufs_flat`, `commit_carrier_scales`,
+`dequant_carrier_bufs` and the wire byte accounting. The integrity
+riders and chaos delivery are not ported yet and raise
+`NotImplementedError`; the tree-path `compact_neighbor_vals` and the
+unfused mixes (`mix_flat_into_tree`, `mix_carrier_flat_into_tree`) are
+absent, since the port runs the arena and the fused tail kernels only.
 
 Each `[R, ...]` argument holds every rank of the topology; a ppermute of
 the JAX package is a `torch.roll` of the rank dimension. The int8 codec
@@ -21,6 +23,8 @@ float32, truncated to 17 significand bits, then
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -119,10 +123,15 @@ def _masked_scales(absmax_vec: torch.Tensor, fire_vec: torch.Tensor) -> torch.Te
 def _int8_encode_flat(masked_flat: torch.Tensor, scale_vec: torch.Tensor,
                       seg: torch.Tensor) -> torch.Tensor:
     """Quantize an `[..., n]` (masked) arena against `[..., L]` per-leaf
-    scales: clip(round_half_even(x / scale[seg]), -127, 127) as int8."""
-    return torch.clamp(
-        torch.round(masked_flat / scale_vec[..., seg]), -127, 127
-    ).to(torch.int8)
+    scales: clip(round_half_even(x / scale[seg]), -127, 127) as int8.
+    `seg` is the `[n]` leaf of each position, or per row (`[R, n]`, the
+    compact pack's `leaf_id`)."""
+    if seg.dim() == 1:
+        scale = scale_vec[..., seg]
+    else:
+        scale = torch.gather(scale_vec, -1, seg)
+    return torch.clamp(torch.round(masked_flat / scale), -127, 127).to(
+        torch.int8)
 
 
 def neighbor_vals_flat(
@@ -240,6 +249,174 @@ def masked_neighbor_vals_flat(
     return tuple(cands), tuple(raws), tuple(raws)
 
 
+# ---------------------------------------------------------------------------
+# the compact static-capacity wire: only fired leaves' elements travel
+
+
+def compact_capacity_floor(sizes) -> int:
+    """Smallest legal compact capacity: the largest leaf must fit whole
+    (a leaf bigger than the buffer could never ship and would starve)."""
+    return max(int(s) for s in sizes)
+
+
+def choose_capacity(
+    n_params: int,
+    max_fired_elems: float,
+    floor: int,
+    headroom: float = 1.25,
+    granularity: int = 8192,
+) -> int:
+    """Static compact-buffer capacity from an observed post-warmup fired
+    peak: `headroom` over the peak, rounded up to `granularity` elements
+    so nearby observations give the same capacity, clamped to
+    `[floor, n_params]`. An underestimate is safe: the overflow defers,
+    bounded by max_silence."""
+    want = int(math.ceil(float(max_fired_elems) * float(headroom)))
+    c = max(int(floor), want, 1)
+    c = ((c + granularity - 1) // granularity) * granularity
+    return int(min(int(n_params), c))
+
+
+@functools.lru_cache(maxsize=16)
+def _compact_constants(spec: "arena.ArenaSpec", device: torch.device):
+    """(int32 `[L]` leaf sizes, int64 `[L]` leaf starts, int64 `[n]`
+    position of each arena element within its leaf) on one device,
+    built once: read only."""
+    sizes_t = spec.sizes_tensor(device)
+    starts_t = torch.tensor(spec.starts, dtype=torch.int64, device=device)
+    seg = spec.seg_expand(device)
+    pos_in_leaf = torch.arange(spec.n_total, device=device) - starts_t[seg]
+    return sizes_t, starts_t, pos_in_leaf
+
+
+def _fired_offsets(fire_vec: torch.Tensor, sizes_t: torch.Tensor):
+    """(exclusive, inclusive) int32 `[R, L]` cumsums of the fired leaves'
+    sizes in leaf order: where each fired leaf starts and ends in the
+    packed buffer."""
+    fired = torch.where(fire_vec, sizes_t, torch.zeros_like(sizes_t))
+    ends = torch.cumsum(fired, dim=-1, dtype=torch.int32)
+    return ends - fired, ends
+
+
+def _compact_pack(
+    flat: torch.Tensor,
+    fire_vec: torch.Tensor,
+    spec: "arena.ArenaSpec",
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather each rank's fired leaves' elements, in leaf order, into a
+    `[R, capacity]` wire buffer. Every packed position finds its source
+    leaf with one searchsorted over the fired ends; positions past the
+    fired total hold zero. The caller guarantees (`events.capacity_gate`)
+    that the fired total fits. Returns (packed `[R, capacity]`, leaf_id
+    `[R, capacity]` int64: each position's source leaf, clamped to L-1,
+    which the int8 codec reads for the per-position scale)."""
+    dev = flat.device
+    sizes_t, starts_t, _ = _compact_constants(spec, dev)
+    offsets, ends = _fired_offsets(fire_vec, sizes_t)
+    j = torch.arange(capacity, dtype=torch.int32, device=dev).expand(
+        flat.shape[0], capacity).contiguous()
+    leaf_id = torch.searchsorted(ends, j, right=True).clamp_max_(
+        spec.n_leaves - 1)
+    # source = starts[leaf] + (j - offsets[leaf])
+    src = torch.gather(starts_t - offsets, -1, leaf_id).add_(j)
+    vals = torch.gather(flat, -1, src.clamp_(0, spec.n_total - 1))
+    packed = torch.where(j < ends[:, -1:], vals, torch.zeros_like(vals))
+    return packed, leaf_id
+
+
+def compact_neighbor_vals_flat(
+    payload: torch.Tensor,
+    fire_vec: torch.Tensor,
+    packed: torch.Tensor,
+    leaf_id: torch.Tensor,
+    topo: Topology,
+    capacity: int,
+    spec: "arena.ArenaSpec",
+    wire=None,
+    deliver=None,
+    checksum: bool = False,
+    finite: bool = False,
+    corrupt=None,
+    carrier: bool = False,
+):
+    """Budgeted compact exchange on the arena.
+
+    `packed` / `leaf_id` come from `ops.event_engine.event_propose_pack`
+    with a capacity, whose gated `fire_vec` this must be. Each neighbor
+    ships `(packed [R, capacity], fire_vec [R, L])`, plus the `[R, L]`
+    scales on the int8 wire (`_masked_scales` of the gated bits; the
+    pack quantizes with the masked wire's codec, per packed position's
+    source leaf). The receiver recomputes the packed offsets from the
+    received fire bits and gathers position i of leaf k from
+    `packed[offsets[k] + (i - starts[k])]`, clipped into the buffer, so
+    the candidates are `[R, n]` like the masked exchange's: a non-fired
+    leaf's positions hold clipped garbage that the commit's `where(eff,
+    candidate, stale)` discards. Returns (candidates, effective bits,
+    raw sender bits) per neighbor, and with `carrier=True` (bf16/int8)
+    the candidates in the wire dtype plus the per-neighbor received
+    `[R, L]` int8 scales (None for bf16)."""
+    if carrier:
+        if checksum or finite or corrupt is not None:
+            raise ValueError(
+                "carrier-resident exchange does not compose with the "
+                "integrity riders (their verdicts read dequantized "
+                "values) — use carrier=False"
+            )
+        if wire not in ("bf16", "int8"):
+            raise ValueError(
+                f"carrier-resident exchange needs a bf16/int8 wire; "
+                f"got {wire!r}"
+            )
+    if deliver is not None or checksum or finite or corrupt is not None:
+        raise NotImplementedError(
+            "chaos delivery and the integrity riders are not ported yet "
+            "(ROADMAP queue 1, item 6)"
+        )
+    check_wire(wire)
+    capacity = int(capacity)
+    if capacity < spec.floor:
+        raise ValueError(
+            f"compact capacity {capacity} is below the largest leaf "
+            f"({spec.floor} elements): that leaf could never ship and "
+            "would starve"
+        )
+    dev = payload.device
+    scale_vec = None
+    if wire == "int8":
+        scale_vec = _masked_scales(_leaf_absmax(payload, spec), fire_vec)
+        wire_packed = _int8_encode_flat(packed, scale_vec, leaf_id)
+    else:
+        wire_packed = _wire_out(packed, wire)
+    seg = spec.seg_expand(dev)
+    sizes_t, _, pos_in_leaf = _compact_constants(spec, dev)
+    cands, raws, scls = [], [], []
+    for nb in topo.neighbors:
+        got_packed = recv_from(wire_packed, topo, nb)
+        got_vec = recv_from(fire_vec, topo, nb)
+        got_s = None if scale_vec is None else recv_from(scale_vec, topo, nb)
+        # the offsets ride implicitly: recomputed from the fire bits
+        got_offsets, _ = _fired_offsets(got_vec, sizes_t)
+        src = got_offsets.long()[:, seg].add_(pos_in_leaf).clamp_(
+            0, capacity - 1)
+        val = torch.gather(got_packed, -1, src)
+        # free the [R, n] int64 index before the next neighbour builds its
+        # own: one lives at a time
+        del src
+        if not carrier:
+            val = val.to(payload.dtype)
+            if got_s is not None:
+                val = val * got_s[:, seg]
+        cands.append(val)
+        raws.append(got_vec)
+        scls.append(got_s)
+    if carrier:
+        return tuple(cands), tuple(raws), tuple(raws), (
+            tuple(scls) if wire == "int8" else None
+        )
+    return tuple(cands), tuple(raws), tuple(raws)
+
+
 def commit_bufs_flat(
     cands: Tuple[torch.Tensor, ...],
     effs: Tuple[torch.Tensor, ...],
@@ -295,17 +472,29 @@ def wire_real_bytes_per_neighbor(
     fire_bits: bool = False,
 ) -> float:
     """Bytes ONE neighbor exchange actually moves: `n_params` value lanes
-    regardless of fire bits (the masked wire is dense), plus the
-    `[n_leaves]` bool fire vector on the event path and the `[n_leaves]`
-    f32 scale vector the int8 wire always ships."""
+    regardless of fire bits on the dense and masked wires,
+    `compact_capacity` lanes on the compact wire, plus the `[n_leaves]`
+    bool fire vector on the event path and the `[n_leaves]` f32 scale
+    vector the int8 wire always ships."""
     check_wire(wire)
-    if compact_capacity is not None:
-        raise NotImplementedError(
-            "the compact wire is not ported yet (ROADMAP queue 1, item 4)"
-        )
-    b = WIRE_VAL_BYTES[wire] * float(n_params)
+    elems = n_params if compact_capacity is None else int(compact_capacity)
+    b = WIRE_VAL_BYTES[wire] * float(elems)
     if fire_bits:
         b += 1.0 * n_leaves
     if wire == "int8":
         b += 4.0 * n_leaves
+    return b
+
+
+def fired_wire_bytes_per_neighbor(
+    fired_elems: float, fired_leaves: float, wire=None,
+) -> float:
+    """Bytes of useful (fired) payload one neighbor exchange carries: the
+    compact wire's capacity-utilization numerator, beside the static
+    capacity `wire_real_bytes_per_neighbor` counts. The accounting's
+    constants: WIRE_VAL_BYTES per element, one f32 scale per fired leaf
+    on the int8 wire."""
+    b = WIRE_VAL_BYTES[wire] * float(fired_elems)
+    if wire == "int8":
+        b += 4.0 * float(fired_leaves)
     return b

@@ -2,8 +2,8 @@
 
 Port of `eventgrad_tpu/parallel/events.py` (`EventConfig`, `EventState`
 with f32 or carrier-resident arena buffers and no delivery queue, `propose`,
-`propose_from_norms`, `commit`; capacity gating and the bounded-async
-queues wait).
+`propose_from_norms`, `commit`, the compact wire's `capacity_gate`; the
+bounded-async queues wait).
 
   * event condition:  fire_i <- |‖p_i‖₂ − last_sent_norm_i| >= thres_i
                                 OR pass_num < warmup_passes
@@ -144,11 +144,15 @@ def propose(
     pass_num: int,
     cfg: EventConfig,
     spec: "arena_lib.ArenaSpec",
+    force_fire: Optional[torch.Tensor] = None,
 ) -> EventProposal:
     """One pass of the sender trigger for every parameter at once, on the
     parameter arena `flat`. `pass_num` is 1-based and already incremented
-    for this pass."""
-    return propose_from_norms(leaf_norms(flat, spec), state, pass_num, cfg)
+    for this pass. `force_fire` (bool, broadcast to `[..., L]`) ORs into
+    the decision: a forced fire updates the state and counters like any
+    fire (the micro policy's owned partition)."""
+    return propose_from_norms(leaf_norms(flat, spec), state, pass_num, cfg,
+                              force_fire=force_fire)
 
 
 def propose_from_norms(
@@ -156,6 +160,7 @@ def propose_from_norms(
     state: EventState,
     pass_num: int,
     cfg: EventConfig,
+    force_fire: Optional[torch.Tensor] = None,
 ) -> EventProposal:
     """`propose` with the `[..., L]` parameter norms precomputed."""
     pass_f = torch.tensor(float(pass_num), dtype=torch.float32,
@@ -174,6 +179,8 @@ def propose_from_norms(
         fire_vec = torch.ones_like(fire_vec)
     if cfg.max_silence > 0:  # bounded staleness (beyond-reference)
         fire_vec = fire_vec | (iter_diff >= float(cfg.max_silence))
+    if force_fire is not None:
+        fire_vec = fire_vec | force_fire
 
     # slope ring buffer: drop oldest, append value_diff/iter_diff
     new_slopes = torch.cat(
@@ -215,3 +222,40 @@ def commit(
         num_deferred=state.num_deferred + deferred,
     )
 
+
+def capacity_gate(
+    fire_vec: torch.Tensor,
+    sizes,
+    capacity: int,
+    priority: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Admit fired leaves into a static wire budget of `capacity`
+    elements; defer the overflow.
+
+    Greedy prefix admission over the cumulative fired sizes of each
+    `[..., L]` row, in a stable priority order: fired leaves flagged in
+    `priority` (overdue per max_silence, forced) claim budget first, then
+    the rest, each group in leaf order. A mid-list overflow also defers
+    later leaves that would still fit: the offsets must be a pure
+    function of the admitted bits, which the receiver recomputes.
+    Returns the effective fire bits, a subset of `fire_vec`; the caller
+    commits the event state with them, so a deferred leaf re-contends
+    next pass. `sizes` is the `[L]` leaf sizes (a tensor or a
+    sequence)."""
+    sizes_t = torch.as_tensor(sizes, dtype=torch.int32,
+                              device=fire_vec.device)
+    zero = torch.zeros((), dtype=torch.int32, device=fire_vec.device)
+    if priority is None:
+        ends = torch.cumsum(torch.where(fire_vec, sizes_t, zero), dim=-1,
+                            dtype=torch.int32)
+        return fire_vec & (ends <= capacity)
+    pri = torch.broadcast_to(priority, fire_vec.shape)
+    # a stable argsort of the not-priority bit: priority-fired leaves
+    # first, then the rest, each in leaf order
+    order = torch.argsort((~(pri & fire_vec)).to(torch.int32), dim=-1,
+                          stable=True)
+    fire_p = torch.gather(fire_vec, -1, order)
+    ends_p = torch.cumsum(torch.where(fire_p, sizes_t[order], zero), dim=-1,
+                          dtype=torch.int32)
+    keep_p = fire_p & (ends_p <= capacity)
+    return torch.zeros_like(fire_vec).scatter(-1, order, keep_p)

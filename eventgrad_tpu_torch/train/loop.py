@@ -2,13 +2,15 @@
 
 Port of `eventgrad_tpu/train/loop.py`: `train` (the per-epoch loop —
 one host step per pass, no K-epoch dispatch blocks, no dispatch
-pipeline, chaos, telemetry or checkpointing yet), `evaluate`,
-`consensus_params` and `rank0_slice`. History records carry the JAX
-records' keys for the fields the slice computes.
+pipeline, chaos, telemetry or checkpointing yet; the compact wire's
+warmup-then-rebuild capacity autotune), `evaluate`, `consensus_params`
+and `rank0_slice`. History records carry the JAX records' keys for the
+fields the slice computes.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
+from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
@@ -57,6 +60,11 @@ def _step_mean(per_step: np.ndarray) -> float:
     three times already rounds (the JAX loop's float32 mean reads
     27,912,330 for it)."""
     return float(per_step[..., 0].mean(dtype=np.float64))
+
+
+#: post-warmup steps of fired sizes the capacity autotune observes
+#: before it sizes the compact buffer
+COMPACT_MIN_SAMPLES = 16
 
 
 def _sync(device: torch.device) -> None:
@@ -120,6 +128,8 @@ def train(
     wire: Optional[str] = None,
     staleness: int = 0,
     carrier_resident: Optional[bool] = None,
+    gossip_wire: str = "dense",
+    compact_frac: Optional[float] = None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
@@ -142,8 +152,48 @@ def train(
     `staleness=1` (eventgrad) mixes with the previous step's buffers;
     `carrier_resident=True` (eventgrad, bf16/int8 wire; None = off)
     keeps the receive buffers in the wire dtype, bitwise the f32-resident
-    run (see `train/steps.make_train_step`)."""
+    run (see `train/steps.make_train_step`).
+
+    `gossip_wire="compact"` (eventgrad; `trigger_policy` norm_delta,
+    micro or hybrid) runs dense through the trigger's warmup, then sizes
+    a static capacity once and rebuilds the step on the same state: with
+    `compact_frac`, `min(n, max(largest leaf, ceil(frac * n)))` at the
+    first epoch whose last pass is past warmup; else
+    `collectives.choose_capacity` of the post-warmup peak of fired
+    elements over at least 16 steps, and if that reaches the whole model
+    the run stays dense (`compact_skipped`). sp_eventgrad's top-k wire
+    takes "compact" as a no-op alias from the first step. Records then
+    carry `gossip_wire` ("dense" until the switch), `compact_capacity`,
+    and on the first compact epoch `compact_autotuned` (plus
+    `compact_fired_peak_elems`, and `compact_skipped` where it stayed
+    dense)."""
     device = resolve_device(device)
+    if gossip_wire not in ("dense", "compact"):
+        raise ValueError(
+            f"gossip_wire must be 'dense' or 'compact', got {gossip_wire!r}"
+        )
+    pol = None
+    if algo in EVENT_ALGOS or trigger_policy is not None:
+        pol = policy_lib.resolve(trigger_policy, algo)
+    if gossip_wire == "compact":
+        policy_lib.check_compact(pol, algo)
+    # a capacity-free compact wire (sp_eventgrad's top-k lanes) is
+    # statically sized from the first step: no dense warmup, no autotune
+    compact_static = (gossip_wire == "compact"
+                      and not pol.compact_needs_capacity)
+    if compact_frac is not None and compact_static:
+        raise ValueError(
+            f"compact_frac sizes the capacity autotune; the "
+            f"{pol.name!r} policy's compact wire is capacity-free "
+            "(its top-k lanes are already statically sized)"
+        )
+    if compact_frac is not None:
+        if gossip_wire != "compact":
+            raise ValueError("compact_frac needs gossip_wire='compact'")
+        if not 0.0 < float(compact_frac) <= 1.0:
+            raise ValueError(
+                f"compact_frac must be in (0, 1], got {compact_frac}"
+            )
     if algo in EVENT_ALGOS:
         event_cfg = event_cfg or EventConfig()
     x = _as_input(model, x_train)
@@ -152,14 +202,22 @@ def train(
     labels_per_sample = int(np.prod(y.shape[1:]))
     n_ranks = topo.n_ranks
     steps = epoch_steps(len(x), n_ranks, batch_size)
+
+    def build(wire_mode: str, capacity: Optional[int] = None):
+        return make_train_step(
+            model, topo, algo, event_cfg,
+            fused_sgd=(learning_rate, momentum),
+            trigger_policy=trigger_policy, wire=wire, staleness=staleness,
+            carrier_resident=carrier_resident, sparse_cfg=sparse_cfg,
+            augment=augment, gossip_wire=wire_mode,
+            compact_capacity=capacity,
+        )
+
     # make_train_step checks the wire/staleness/carrier combination
-    # before the state layout (carrier-resident or f32) is built from it
-    step = make_train_step(
-        model, topo, algo, event_cfg,
-        fused_sgd=(learning_rate, momentum), trigger_policy=trigger_policy,
-        wire=wire, staleness=staleness, carrier_resident=carrier_resident,
-        sparse_cfg=sparse_cfg, augment=augment,
-    )
+    # before the state layout (carrier-resident or f32) is built from it.
+    # A capacity-budgeted compact run starts dense: warmup fires
+    # everything, and the autotune needs post-warmup fired sizes
+    step = build("compact" if compact_static else "dense")
     resident_wire = wire if carrier_resident else None
     state = init_train_state(
         model, x.shape[1:], topo, algo, event_cfg, seed,
@@ -168,7 +226,16 @@ def train(
     spec = arena_spec(model)
     eval_on = x_test is not None and log_every_epoch
     history: List[Dict[str, Any]] = []
+    # the compact autotune: sized once, then the step is rebuilt once
+    compact_capacity: Optional[int] = None
+    compact_done = gossip_wire != "compact" or compact_static
+    compact_note: Optional[Dict[str, Any]] = None
+    compact_fired_peak, compact_post_steps = 0.0, 0
+    warmup_passes = (event_cfg or EventConfig()).warmup_passes
     for epoch in range(1, epochs + 1):
+        mode_now = ("compact" if compact_capacity is not None
+                    or compact_static else "dense")
+        pass_base = state.pass_num
         idx = epoch_index_plan(
             len(x), n_ranks, batch_size, random=random_sampler, seed=seed,
             epoch=epoch,
@@ -205,8 +272,15 @@ def train(
             "staleness": int(staleness),
             "device": str(device),
         }
+        if gossip_wire == "compact":
+            rec["gossip_wire"] = mode_now
+            if compact_capacity is not None:
+                rec["compact_capacity"] = int(compact_capacity)
+            if compact_note is not None:
+                rec.update(compact_note)
+                compact_note = None
         if algo in EVENT_ALGOS:
-            rec["policy"] = policy_lib.resolve(trigger_policy, algo).name
+            rec["policy"] = pol.name
             events_total = int(m_e["num_events"][-1].sum())
             rec["num_deferred"] = int(m_e["num_deferred"][-1].sum())
             rec["num_events"] = events_total
@@ -222,4 +296,42 @@ def train(
             )
             rec.update({"test_" + k: v for k, v in test.items()})
         history.append(rec)
+        if not compact_done:
+            # the capacity is one static number for every rank: the peak
+            # is over the ranks of the post-warmup steps (pass ==
+            # warmup_passes is already real trigger data)
+            pnums = pass_base + 1 + np.arange(steps)
+            post = m_e["fired_elems"][pnums >= warmup_passes]
+            if post.size:
+                compact_fired_peak = max(compact_fired_peak,
+                                         float(post.max()))
+                compact_post_steps += int(post.shape[0])
+            if compact_frac is None:
+                enough = compact_post_steps >= COMPACT_MIN_SAMPLES
+            else:
+                enough = bool(pnums[-1] >= warmup_passes)
+            if enough:
+                n = spec.n_total
+                floor = collectives.compact_capacity_floor(spec.sizes)
+                autotuned = compact_frac is None
+                if autotuned:
+                    cap = collectives.choose_capacity(
+                        n, compact_fired_peak, floor)
+                    compact_note = {
+                        "compact_autotuned": True,
+                        "compact_fired_peak_elems": compact_fired_peak,
+                    }
+                else:
+                    cap = min(n, max(floor, int(math.ceil(
+                        float(compact_frac) * n))))
+                    compact_note = {"compact_autotuned": False}
+                if autotuned and cap >= n:
+                    # fire rate ~1: the budget would be the whole model
+                    compact_note["compact_skipped"] = (
+                        "observed fire rate needs capacity >= n_params"
+                    )
+                else:
+                    compact_capacity = cap
+                    step = build("compact", cap)
+                compact_done = True
     return state, history

@@ -23,6 +23,13 @@ Port of `eventgrad_tpu/train/steps.py` (`make_train_step`, `_xent`,
                         into the neighbors' persistent replicas, and the
                         fused mix+SGD kernel mixes the summed replicas.
 
+`gossip_wire="compact"` (eventgrad) ships only the fired leaves'
+elements, through a static buffer of `compact_capacity` elements
+(`collectives.compact_neighbor_vals_flat`); the overflow defers
+(`events.capacity_gate`), and the commit runs the same tail kernels.
+The `micro` and `hybrid` trigger policies feed their partition masks
+into the sender pass as forced and suppressed fires.
+
 `wire="bf16"|"int8"` compresses the exchange (the int8 wire through the
 int8 masked-wire kernel `ops/event_engine.masked_wire_int8` on the
 EventGraD leg; the top-k values with per-leaf scales on the sparse
@@ -42,14 +49,15 @@ explicit tensors (an empty dict for a model without BatchNorm; the
 transformer's flash attention joins the batched forward and backward
 through its own `vmap` rule, `ops/attention.py`). The JAX package's
 unfused optax tail is documented bitwise equal to the fused one, so the
-port runs the fused tail only. The compact wire, staleness >= 2, the
-bucketed schedule and the engines are not ported yet.
+port runs the fused tail only. Staleness >= 2, the bucketed schedule
+and the engines are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from eventgrad_tpu_torch.data.augment import draw_pad_flip_crop, pad_flip_crop
@@ -112,6 +120,8 @@ def make_train_step(
     carrier_resident: Optional[bool] = None,
     sparse_cfg: Optional[SparseConfig] = None,
     augment: bool = False,
+    gossip_wire: str = "dense",
+    compact_capacity: Optional[int] = None,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
     metrics)`: `x` is `[R, B, H, W, C]` images with `y` int64 `[R, B]`,
@@ -134,7 +144,13 @@ def make_train_step(
     receive buffers in the wire dtype; the state must come from
     `init_train_state(..., resident_wire=wire)`. Both residencies give
     the same bits. `sparse_cfg` (sp_eventgrad; default top-k 10%) sets
-    the per-leaf k. `augment=True` pads, flips and crops the images."""
+    the per-leaf k. `augment=True` pads, flips and crops the images.
+
+    `gossip_wire="compact"` needs a policy that declares the compact wire
+    (eventgrad's norm_delta, micro, hybrid; sp_eventgrad's topk takes it
+    as a no-op alias) and, where the policy needs one, a static
+    `compact_capacity` of at least the largest leaf (pick it with
+    `collectives.choose_capacity`, or let `train` autotune it)."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     staleness = int(staleness)
@@ -174,12 +190,32 @@ def make_train_step(
                 "wire='bf16'/'int8' (f32 wires are already resident)"
             )
         carrier_wire = wire
+    if gossip_wire not in ("dense", "compact"):
+        raise ValueError(
+            f"gossip_wire must be 'dense' or 'compact', got {gossip_wire!r}"
+        )
     lr, mom = float(fused_sgd[0]), float(fused_sgd[1])
     event_cfg = event_cfg or EventConfig()
     sparse_cfg = sparse_cfg or SparseConfig()
     pol = None
     if algo in EVENT_ALGOS or trigger_policy is not None:
         pol = policy_lib.resolve(trigger_policy, algo)
+    if gossip_wire == "compact":
+        policy_lib.check_compact(pol, algo)
+        if pol.compact_needs_capacity:
+            if compact_capacity is None or int(compact_capacity) < 1:
+                raise ValueError(
+                    "gossip_wire='compact' needs a static compact_capacity "
+                    "(elements); pick one with collectives.choose_capacity "
+                    "or let train(gossip_wire='compact') autotune it"
+                )
+            compact_capacity = int(compact_capacity)
+        else:
+            # the top-k lanes are already statically sized: compact is a
+            # no-op alias of the native wire
+            compact_capacity = None
+    else:
+        compact_capacity = None
     spec = arena_spec(model)
     n_nb = topo.n_neighbors
     n_params, n_leaves = spec.n_total, spec.n_leaves
@@ -231,9 +267,16 @@ def make_train_step(
         metrics = {}
         fired_leaves = None
         if algo in EVENT_ALGOS:
+            # the partitioned policies' masks ride the sender pass's
+            # force/suppress seams (suppression wins)
+            force, suppress = pol.masks(spec, topo, pass_num, event_cfg, dev)
             with _phase("gate_pack"):
-                prop, fire_vec = event_engine.event_propose_pack(
-                    flat, event_state, pass_num, event_cfg, spec
+                prop, fire_vec, packed, leaf_id = (
+                    event_engine.event_propose_pack(
+                        flat, event_state, pass_num, event_cfg, spec,
+                        capacity=compact_capacity, force_fire=force,
+                        suppress_fire=suppress,
+                    )
                 )
                 event_state = pol.commit(event_state, prop, fire_vec,
                                          event_cfg, n_nb)
@@ -297,14 +340,22 @@ def make_train_step(
             ), dev)
         else:
             with _phase("exchange"):
-                res = collectives.masked_neighbor_vals_flat(
-                    flat, fire_vec, topo, spec, wire,
-                    wire_builder=event_engine.masked_wire,
-                    carrier=carrier_wire is not None,
-                )
+                if compact_capacity is not None:
+                    res = collectives.compact_neighbor_vals_flat(
+                        flat, fire_vec, packed, leaf_id, topo,
+                        compact_capacity, spec, wire,
+                        carrier=carrier_wire is not None,
+                    )
+                else:
+                    res = collectives.masked_neighbor_vals_flat(
+                        flat, fire_vec, topo, spec, wire,
+                        wire_builder=event_engine.masked_wire,
+                        carrier=carrier_wire is not None,
+                    )
             wire_real = f32(n_nb, dev) * f32(
                 collectives.wire_real_bytes_per_neighbor(
-                    n_params, n_leaves, wire, fire_bits=True
+                    n_params, n_leaves, wire,
+                    compact_capacity=compact_capacity, fire_bits=True,
                 ),
                 dev,
             )
@@ -341,7 +392,11 @@ def make_train_step(
                 val_bytes * fired_elems + scale_bytes_per_leaf * fired_leaves
             )
         if algo in EVENT_ALGOS:
-            fired_frac = fired_leaves / n_leaves
+            # times the float32 reciprocal, as XLA rewrites the JAX
+            # package's division by the constant leaf count (an IEEE
+            # quotient can sit one ulp off it)
+            fired_frac = fired_leaves * float(
+                np.float32(1.0) / np.float32(n_leaves))
             num_events, num_deferred = (event_state.num_events,
                                         event_state.num_deferred)
             if trace:

@@ -3,6 +3,7 @@
     python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
         [--model {resnet,transformer,transformer-d128}] [--algos ALGO ...]
         [--wire {bf16,int8}] [--staleness {0,1}] [--carrier-resident]
+        [--compact-frac F]
 
 For each leg (EventGraD, then D-PSGD, or the `--algos` named: allreduce,
 dpsgd, eventgrad, sp_eventgrad at top-k 10%) at the flagship op-point —
@@ -25,15 +26,21 @@ another — it runs 3 warm-up steps, then:
     the step makes the host wait on (`cudaStreamSynchronize` calls), and
     the kernels that take the most device time.
 
-`--staleness` and `--carrier-resident` apply to the EventGraD leg only
-(D-PSGD has neither). It prints one JSON line per leg and, last, the
-card's name and power limit. It needs a CUDA device.
+Each leg also sums the device time of the kernel families the exchange
+runs (gathers and index selects, searchsorted, sorts, rolls, scans).
+
+`--staleness`, `--carrier-resident` and `--compact-frac` apply to the
+EventGraD leg only (D-PSGD has none of them). `--compact-frac F` runs
+it on the compact wire at the capacity `train(compact_frac=F)` sizes,
+`min(n, max(largest leaf, ceil(F * n)))`. It prints one JSON line per
+leg and, last, the card's name and power limit. It needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import time
 
@@ -45,6 +52,7 @@ from eventgrad_tpu_torch.data.datasets import (
 from eventgrad_tpu_torch.data.sharding import batched_epoch
 from eventgrad_tpu_torch.models.resnet import ResNet18
 from eventgrad_tpu_torch.models.transformer import TransformerLM
+from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.topology import Ring
 from eventgrad_tpu_torch.train.state import ALGOS, init_train_state
@@ -52,6 +60,15 @@ from eventgrad_tpu_torch.train.steps import make_train_step
 from eventgrad_tpu_torch.utils.devices import resolve_device
 
 PHASES = ("grad", "gate_pack", "exchange", "commit_mix")
+#: kernel families by name fragment; a kernel counts in the first family
+#: whose fragment its name holds
+KERNEL_FAMILIES = (
+    ("gather", ("gather", "index_elementwise")),
+    ("searchsorted", ("searchsorted",)),
+    ("sort", ("sort",)),
+    ("roll", ("roll",)),
+    ("scan", ("scan",)),
+)
 RANKS, WARMUP = 8, 3
 LM_SEQ = 1024
 #: the LM op-points: 8 heads of 64, and 16 heads of 128
@@ -78,19 +95,35 @@ def _op_point(model_name: str, n_steps: int):
     return model, shape, xb, yb
 
 
+def _family(name: str):
+    low = name.lower()
+    for fam, frags in KERNEL_FAMILIES:
+        if any(f in low for f in frags):
+            return fam
+    return None
+
+
 def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                 wire=None, staleness: int = 0, carrier_resident=None,
-                model_name: str = "resnet"):
+                model_name: str = "resnet", compact_frac=None):
     n_steps = WARMUP + 2 * steps
     model, shape, xb, yb = _op_point(model_name, n_steps)
     topo = Ring(RANKS)
     cfg = EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                       max_silence=50)
     if algo != "eventgrad":
-        staleness, carrier_resident = 0, None
+        staleness, carrier_resident, compact_frac = 0, None, None
+    capacity = None
+    if compact_frac is not None:
+        spec = arena_spec(model)
+        capacity = min(spec.n_total, max(spec.floor, math.ceil(
+            compact_frac * spec.n_total)))
     step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9),
                            wire=wire, staleness=staleness,
-                           carrier_resident=carrier_resident)
+                           carrier_resident=carrier_resident,
+                           gossip_wire="dense" if capacity is None
+                           else "compact", compact_capacity=capacity)
+    torch.cuda.reset_peak_memory_stats(device)
     state = init_train_state(
         model, shape, topo, algo, cfg, seed=0, momentum=0.9,
         resident_wire=wire if carrier_resident else None, device=device,
@@ -128,13 +161,21 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                                  + e.cpu_time_total / 1e3 / steps)
     kernels = [e for e in prof.key_averages() if is_kernel(e)]
     top_k = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    families = {}
+    for e in kernels:
+        fam = _family(e.key)
+        if fam is not None:
+            families[fam] = (families.get(fam, 0.0)
+                             + e.self_device_time_total / 1e3 / steps)
     return {
         "leg": algo,
         "model": model_name,
         "wire": wire,
         "staleness": staleness,
         "resident_dtype": (wire if carrier_resident else None) or "f32",
+        "compact_capacity": capacity,
         "step_ms": step_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
         "traced_step_ms": traced_ms / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_busy_share": busy_us / 1e3 / traced_ms,
@@ -144,6 +185,7 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
         "stream_syncs_per_step": sum(
             e.count for e in prof.key_averages()
             if e.key == "cudaStreamSynchronize") / steps,
+        "kernel_family_ms_per_step": families,
         "top_kernels": [
             {"name": e.key[:90], "ms_per_step":
              e.self_device_time_total / 1e3 / steps,
@@ -163,6 +205,7 @@ def main(argv=None) -> int:
     ap.add_argument("--wire", choices=("bf16", "int8"), default=None)
     ap.add_argument("--staleness", type=int, choices=(0, 1), default=0)
     ap.add_argument("--carrier-resident", action="store_true")
+    ap.add_argument("--compact-frac", type=float, default=None)
     args = ap.parse_args(argv)
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,7 +214,8 @@ def main(argv=None) -> int:
         rec = profile_leg(algo, args.steps, device, wire=args.wire,
                           staleness=args.staleness,
                           carrier_resident=args.carrier_resident or None,
-                          model_name=args.model)
+                          model_name=args.model,
+                          compact_frac=args.compact_frac)
         print(json.dumps(rec), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

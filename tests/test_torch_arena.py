@@ -138,8 +138,11 @@ def test_wire_accounting_matches_jax():
             )
         assert (collectives.WIRE_VAL_BYTES[wire]
                 == jax_collectives.WIRE_VAL_BYTES[wire])
-    with pytest.raises(NotImplementedError):  # the compact wire waits
-        collectives.wire_real_bytes_per_neighbor(10, 2, compact_capacity=4)
+    # the compact wire ships its capacity's lanes
+    assert collectives.wire_real_bytes_per_neighbor(
+        10, 2, compact_capacity=4
+    ) == jax_collectives.wire_real_bytes_per_neighbor(
+        10, 2, compact_capacity=4)
 
 
 @pytest.mark.parametrize("split", ["train", "test"])

@@ -127,7 +127,7 @@ def test_refusals_name_their_roadmap_item():
     the ROADMAP queue-1 item that ports it."""
     from eventgrad_tpu_torch.data.datasets import load_or_synthesize
     from eventgrad_tpu_torch.ops import attention
-    from eventgrad_tpu_torch.parallel import collectives, policy
+    from eventgrad_tpu_torch.parallel import collectives
     from eventgrad_tpu_torch.parallel.arena import arena_spec
     from eventgrad_tpu_torch.parallel.ring_attention import ring_attention
     from eventgrad_tpu_torch.parallel.sparsify import (
@@ -140,13 +140,11 @@ def test_refusals_name_their_roadmap_item():
     flat = torch.zeros((8, spec.n_total))
     fire = torch.ones((8, spec.n_leaves), dtype=torch.bool)
     q = torch.zeros((4, 1, 8, 2, 4))
+    packed = torch.zeros((8, spec.floor))
+    leaf_id = torch.zeros((8, spec.floor), dtype=torch.int64)
+    compact = lambda **kw: collectives.compact_neighbor_vals_flat(
+        flat, fire, packed, leaf_id, egt.Ring(8), spec.floor, spec, **kw)
     refusals = {
-        "item 4": [
-            lambda: collectives.wire_real_bytes_per_neighbor(
-                10, 2, compact_capacity=4),
-            lambda: policy.resolve("micro", "eventgrad"),
-            lambda: policy.resolve("hybrid", "eventgrad"),
-        ],
         "item 5": [
             lambda: make_train_step(model, egt.Ring(8), "eventgrad",
                                     fused_sgd=(0.1, 0.0), staleness=2),
@@ -158,6 +156,11 @@ def test_refusals_name_their_roadmap_item():
         "item 6": [
             lambda: collectives.masked_neighbor_vals_flat(
                 flat, fire, egt.Ring(8), spec, checksum=True),
+            # the compact exchange's chaos delivery and integrity riders
+            lambda: compact(deliver=torch.ones(2, dtype=torch.bool)),
+            lambda: compact(checksum=True),
+            lambda: compact(finite=True),
+            lambda: compact(corrupt=lambda i, x: x),
             lambda: load_or_synthesize("mnist", "/data", "train"),
         ],
         "item 7": [

@@ -28,7 +28,7 @@ from eventgrad_tpu.parallel.topology import Torus as JaxTorus
 from eventgrad_tpu_torch import convert
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.policy import (
-    UNPORTED, resolve, scatter_into, topk_payload,
+    resolve, scatter_into, topk_payload,
 )
 from eventgrad_tpu_torch.parallel.sparsify import (
     SparseConfig, SparseState, sparse_exchange,
@@ -159,10 +159,8 @@ def test_policies_and_refusals(spec):
     assert resolve(None, "sp_eventgrad").name == "topk"
     assert resolve(None, "eventgrad").name == "norm_delta"
     assert resolve("topk", "sp_eventgrad").algos == ("sp_eventgrad",)
-    assert UNPORTED == ("micro", "hybrid")
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="item 4"):
-            resolve(name, "eventgrad")
+    for name in ("micro", "hybrid"):  # ported with the compact wire
+        assert resolve(name, "eventgrad").name == name
     with pytest.raises(ValueError, match="drives"):
         resolve("topk", "eventgrad")
     with pytest.raises(ValueError, match="no event trigger"):

@@ -318,11 +318,17 @@ def test_wire_step_matches_jax(wire_run):
             assert dq.max() <= 1, dq.max()
 
 
-#: carrier residency on vs off, the port against itself
+#: carrier residency on vs off, the port against itself (the compact
+#: cases at a third of the arena: the gate defers leaves)
+COMPACT = dict(gossip_wire="compact", compact_capacity=max(
+    arena_spec(ResNet(**SMALL)).floor,
+    arena_spec(ResNet(**SMALL)).n_total // 3))
 RESIDENT_CASES = {
     "int8": dict(wire="int8"),
     "bf16": dict(wire="bf16"),
     "int8-stale1": dict(wire="int8", staleness=1),
+    "bf16-compact": dict(wire="bf16", **COMPACT),
+    "int8-compact-stale1": dict(wire="int8", staleness=1, **COMPACT),
 }
 
 

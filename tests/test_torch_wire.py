@@ -140,8 +140,10 @@ def test_wire_out_and_bytes_match_jax():
     assert 2 * per_nb(17_444_682, 86, "int8", fire_bits=True) == 34_890_224
     with pytest.raises(ValueError, match="wire must be one of"):
         per_nb(10, 2, wire="fp8")
-    with pytest.raises(NotImplementedError):
-        per_nb(10, 2, wire="int8", compact_capacity=4)
+    # the compact wire ships its capacity's lanes
+    assert per_nb(10, 2, wire="int8", compact_capacity=4) == (
+        jax_coll.wire_real_bytes_per_neighbor(10, 2, wire="int8",
+                                              compact_capacity=4))
 
 
 @pytest.mark.parametrize("builder", [False, True], ids=["inline", "kernel"])
