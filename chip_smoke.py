@@ -45,7 +45,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    diagonal, a past-the-diagonal (keys 40 ahead) and a fully masked hop
    (output and gradients exactly 0), per-group offsets, each with the
    cotangent of lse; then a head dimension of 160, which must raise
-   naming its ROADMAP item;
+   naming its ROADMAP item. Last, kernel 9, the auditor's seeded
+   unregistered kernel (`eg::leak_kernel`, `csrc/audit_leak.cu`),
+   bitwise `x * 2.0` at the JAX fixture's (8, 128) block and at 8 x
+   17,444,682 elements, timed beside `x * 2.0` and `torch.mul`;
 4. reference — a small ResNet's EventGraD, D-PSGD, int8
    carrier-resident EventGraD, allreduce and sparsified EventGraD (top-k
    10%, f32 and int8 wires) steps on Ring(8), and its EventGraD step on
@@ -120,7 +123,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    0.125, the other legs' msgs-saved-% within 6.0 points of the
    reference leg's, every test accuracy at least the reference leg's
    less 4.0 points, every loss finite, the kernels launched;
-8. summary — one JSON line of every kernel's numbers, the card's name and
+8. audit — the static-analysis path on the card: the audit CLI
+   (`python -m eventgrad_tpu_torch.analysis.audit --device cuda`) over
+   the 21 ported cells of the JAX auditor's matrix and its 11 oracles,
+   plus the lint: every cell clean (rank isolation, the declared ring
+   offsets, bytes per neighbour derived from the traced exchange lanes
+   == the accounting formula == the step's `sent_bytes_wire_real`,
+   exactly), each cell's traced `eg::` kernel ops equal to the launches
+   the same call made, every oracle detected and kernel 9 launched by
+   the unregistered-kernel oracle. Then the flagship op-point audited:
+   Ring(8), ResNet-18 in bf16, global batch 256, one step each of
+   EventGraD on the masked f32 wire, D-PSGD f32, EventGraD compact f32
+   and compact int8 carrier-resident at capacity 6,541,756, each clean
+   with derived bytes per neighbour 69,778,814 / 69,778,728 /
+   26,167,110 / 6,542,186 equal to the formula, and the float32 metric
+   139,557,632 / 139,557,456 / 52,334,220 / 13,084,372;
+9. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -1407,6 +1425,175 @@ def phase_frontier():
     return totals
 
 
+def phase_leak_kernel():
+    """Kernel 9, the auditor's seeded unregistered kernel
+    (`eg::leak_kernel`, `csrc/audit_leak.cu`): bitwise `x * 2.0` at the
+    JAX fixture's (8, 128) block and at the flagship arena, then timed."""
+    import torch
+
+    from eventgrad_tpu_torch.analysis import audit
+
+    log("== kernel 9: eg::leak_kernel")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    small = torch.randn((8, 128), generator=gen, device=dev)
+    err = max_abs_err([audit.leak_kernel(small)],
+                      [audit.leak_reference(small)])
+    x = torch.randn((RANKS, FLAGSHIP_PARAMS), generator=gen, device=dev)
+    err = max(err, max_abs_err([audit.leak_kernel(x)],
+                               [audit.leak_reference(x)]))
+    rec = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: audit.leak_kernel(x)),
+        plain_ms=time_ms(lambda: audit.leak_reference(x)),
+        library_ms=time_ms(lambda: torch.mul(x, 2.0)),
+        # reads x, writes o (f32); one multiply
+        bound=bound(x.numel(), 8, 1),
+    )
+    del x
+    torch.cuda.empty_cache()
+    log(json.dumps({"kernel": "leak_kernel", "elements": RANKS
+                    * FLAGSHIP_PARAMS, **{k: v for k, v in rec.items()
+                                          if k != "bound"},
+                    "bound_ms": rec["bound"][0],
+                    "bound_by": rec["bound"][1]}))
+    return {"leak_kernel": rec}
+
+
+#: the flagship op-point audited: (leg, algo, wire, gossip wire, compact
+#: capacity, carrier, per-neighbour bytes derived from the traced lanes,
+#: the step's float32 `sent_bytes_wire_real`). Derived bytes: the f32
+#: value lanes (4 B x 17,444,682, or x 6,541,756 = ceil(0.375 n) on the
+#: compact wire; 1 B on int8) plus 86 fire bytes on the event legs and
+#: 4 x 86 int8 scale bytes; the metric is two neighbours' worth in float32
+FLAGSHIP_AUDIT = (
+    ("eventgrad-f32", "eventgrad", None, "dense", None, False,
+     69_778_814, 139_557_632),
+    ("dpsgd-f32", "dpsgd", None, "dense", None, False,
+     69_778_728, 139_557_456),
+    ("eventgrad-compact-f32", "eventgrad", None, "compact", 6_541_756,
+     False, 26_167_110, 52_334_220),
+    ("eventgrad-compact-int8-carrier", "eventgrad", "int8", "compact",
+     6_541_756, True, 6_542_186, 13_084_372),
+)
+
+
+def _check_audit_cell(rep, what):
+    """A clean report whose traced kernel ops each launched once per
+    node."""
+    from eventgrad_tpu_torch.analysis import audit
+
+    if not audit.clean(rep):
+        raise SmokeError(f"audit {what} not clean: "
+                         f"{json.dumps({k: rep[k] for k in ('violation_details', 'wire_problems', 'undeclared_offsets', 'missing_offsets', 'metric_match', 'ravel_count', 'callbacks', 'partitions_ok')})}")
+    if not rep["kernel_ops"] or rep["kernel_ops"] != rep["kernel_launches"]:
+        raise SmokeError(f"audit {what}: traced kernel ops "
+                         f"{rep['kernel_ops']} != launches "
+                         f"{rep['kernel_launches']}")
+
+
+def phase_audit():
+    """The static-analysis path on the card: the audit CLI over the 21
+    ported cells and the 11 oracles (`--device cuda`), then the flagship
+    op-point audited. Returns the kernel launches of the phase."""
+    import numpy as np
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.analysis import audit
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.train.steps import make_train_step
+
+    log("== audit: 21 cells and 11 oracles on the card "
+        "(python -m eventgrad_tpu_torch.analysis.audit --device cuda)")
+    ops.reset_launch_counts()
+    audit.leak_kernel.launches = 0
+    out = HERE / "build" / "audit_cuda.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    rc = audit.main(["--device", "cuda", "--out", str(out)])
+    rec = json.loads(out.read_text())
+    log(f"audit CLI: exit {rc}, {rec['n_clean']}/{rec['n_configs']} clean, "
+        f"{rec['n_detected']}/{rec['n_oracles']} oracles, "
+        f"{rec['lint_violations']} lint violations, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for c in rec["configs"]:
+        log(json.dumps({k: c[k] for k in (
+            "name", "wire_bytes_per_neighbor_derived", "wire_metric_total",
+            "kernel_ops", "kernel_launches", "graph_nodes", "wall_s")}))
+        _check_audit_cell(c, c["name"])
+    want = {
+        "event_masked_f32_tree": {"masked_wire": 1, "fused_mix_commit": 1},
+        "xfmr_flash_masked_f32_tree": {"masked_wire": 1,
+                                       "fused_mix_commit": 1,
+                                       "flash_fwd": 1, "flash_dq": 1,
+                                       "flash_dkv": 1},
+    }
+    for name, ops_want in want.items():
+        got = next(c for c in rec["configs"] if c["name"] == name)
+        if got["kernel_ops"] != ops_want:
+            raise SmokeError(f"audit {name}: kernel ops {got['kernel_ops']} "
+                             f"!= {ops_want}")
+    for o in rec["oracles"]:
+        log(json.dumps(o))
+    missed = [o["name"] for o in rec["oracles"] if not o["detected"]]
+    if rc != 0 or missed or rec["n_configs"] != 21 or rec["n_oracles"] != 11:
+        raise SmokeError(f"audit CLI failed: exit {rc}, oracles missed "
+                         f"{missed}")
+    if audit.leak_kernel.launches < 1:
+        raise SmokeError("the unregistered-kernel oracle never launched "
+                         "kernel 9")
+
+    log("== audit: the flagship op-point, ResNet-18 (bf16 compute) x "
+        "Ring(8), global batch 256")
+    topo = egt.Ring(RANKS)
+    per_rank = 32
+    x, y = synthetic_dataset(RANKS * per_rank, (32, 32, 3), seed=0)
+    batch = (torch.as_tensor(x.reshape(RANKS, per_rank, 32, 32, 3),
+                             device=DEVICE),
+             torch.as_tensor(y.reshape(RANKS, per_rank).astype(np.int64),
+                             device=DEVICE))
+    ev = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                         max_silence=50)
+    t0 = time.perf_counter()
+    for leg, algo, wire, gw, cap, carrier, want_b, want_m in FLAGSHIP_AUDIT:
+        cfg = audit.AuditConfig(f"flagship_{leg}", algo=algo,
+                                model="resnet18", wire=wire, gossip_wire=gw,
+                                capacity=cap, arena=True, carrier=carrier)
+        model = egt.ResNet18(dtype=torch.bfloat16, device=DEVICE)
+        state = egt.init_train_state(
+            model, (32, 32, 3), topo, algo, ev, 0, momentum=0.9,
+            resident_wire=wire if carrier else None, device=DEVICE)
+        step = make_train_step(
+            model, topo, algo, ev, fused_sgd=(0.01, 0.9), wire=wire,
+            gossip_wire=gw, compact_capacity=cap, carrier_resident=carrier)
+        t1 = time.perf_counter()
+        rep = audit.audit_step(cfg, step, state, batch, model, topo)
+        trace_s = time.perf_counter() - t1
+        log(json.dumps({"leg": leg, "trace_s": trace_s, **{k: rep[k] for k in (
+            "n_params", "n_leaves", "capacity", "graph_nodes",
+            "wire_bytes_per_neighbor_derived",
+            "wire_bytes_per_neighbor_formula", "wire_metric_total",
+            "kernel_ops", "kernel_launches")}}))
+        _check_audit_cell(rep, leg)
+        if (rep["n_params"], rep["n_leaves"]) != (FLAGSHIP_PARAMS, 86):
+            raise SmokeError(f"{leg}: {rep['n_params']} parameters in "
+                             f"{rep['n_leaves']} leaves")
+        got = (rep["wire_bytes_per_neighbor_derived"],
+               rep["wire_bytes_per_neighbor_formula"],
+               rep["wire_metric_total"])
+        if got != (want_b, want_b, want_m):
+            raise SmokeError(f"{leg}: derived / formula / metric {got} != "
+                             f"{(want_b, want_b, want_m)}")
+        del state, step, model, rep
+        torch.cuda.empty_cache()
+    log(f"flagship legs audited in {time.perf_counter() - t0:.1f} s")
+    counts = ops.launch_counts()
+    counts["leak_kernel"] = audit.leak_kernel.launches
+    return counts
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -1433,6 +1620,10 @@ KERNELS = (
      "eventgrad_tpu/ops/attention.py:169"),
     ("flash_dkv_d128", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
      "eventgrad_tpu/ops/attention.py:205"),
+    # kernel 9, the auditor's seeded unregistered kernel: launched by the
+    # audit phase's unregistered_kernel oracle only
+    ("leak_kernel", "eventgrad_tpu_torch/csrc/audit_leak.cu",
+     "eventgrad_tpu/analysis/audit.py:1208"),
 )
 
 
@@ -1468,11 +1659,12 @@ def main() -> int:
         timed(phase_build)
         recs = timed(phase_kernels)
         recs.update(timed(phase_flash_kernels))
+        recs.update(timed(phase_leak_kernel))
         timed(phase_reference)
         launches = {}
         for phase in (phase_main_path, phase_main_path_lm,
                       phase_main_path_lm_d128, phase_realdata,
-                      phase_frontier):
+                      phase_frontier, phase_audit):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:
@@ -1484,7 +1676,7 @@ def main() -> int:
         r = recs[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -1,0 +1,916 @@
+"""The trace auditor: machine-checked invariants of the train step.
+
+Port of `eventgrad_tpu/analysis/audit.py`. For each configuration of the
+step (model geometry x algo x wire x gossip wire x policy x carrier x
+staleness) the auditor traces the rank-stacked step into an ATen graph
+(`walker.trace`, which also runs it) and proves, on the models the
+headline numbers ship (LeNetCifar, ResNet18, a small TransformerLM with
+full and flash attention) beside the cheap MLP base:
+
+  1. RANK ISOLATION (`analysis/rankflow.py`): the only cross-rank flow is
+     the declared neighbour exchange — rolls of the rank dimension whose
+     ring offsets are the topology's; no reduction, slice, gather, sort or
+     convolution crosses ranks, and every kernel op is registered.
+  2. WIRE-BYTE TRUTH: the bytes each exchange moves, derived from the
+     rolled lanes' shapes and dtypes, equal the accounting formula
+     (`collectives.wire_real_bytes_per_neighbor`, or sparsified
+     EventGraD's inline formula) and the `sent_bytes_wire_real` metric the
+     same traced run reports — exactly, in the metric's float32.
+  3. STEP HYGIENE: no host round trip inside the step (`.item()`, a copy
+     to the host); full-model concatenations within the cell's budget;
+     wire value lanes at the declared wire dtype.
+
+Every check has a seeded ORACLE violation (`run_oracles`) proving it can
+fire. One of them runs the seeded unregistered kernel, `eg::leak_kernel`
+(`csrc/audit_leak.cu`, the port of the JAX auditor's `_leak_kernel`),
+which stays out of the kernel registry on purpose.
+
+The matrix is the JAX package's, under its cell names, for every cell
+whose dimensions the port has (21 of 31). The port runs only the flat
+arena, so the `_tree` cells run on it (the JAX record shows tree and
+arena cells carry the same bytes), and it has no telemetry, so the `_obs`
+cells run without it; each report lists its substitutions. Donation
+aliasing has no torch counterpart and reports `null`.
+
+CLI: `python -m eventgrad_tpu_torch.analysis.audit --device cuda|cpu
+[--out FILE] [--census]` writes one JSON record shaped like the JAX
+package's `artifacts/audit_cpu.json`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from eventgrad_tpu_torch.analysis import kernels, rankflow, walker
+from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+from eventgrad_tpu_torch.models import MLP, LeNetCifar, ResNet18
+from eventgrad_tpu_torch.models.transformer import TransformerLM
+from eventgrad_tpu_torch.ops import build as kbuild
+from eventgrad_tpu_torch.ops import launch_counts
+from eventgrad_tpu_torch.parallel import collectives
+from eventgrad_tpu_torch.parallel import policy as policy_lib
+from eventgrad_tpu_torch.parallel.arena import arena_spec
+from eventgrad_tpu_torch.parallel.events import EventConfig
+from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
+from eventgrad_tpu_torch.parallel.topology import NeighborSpec, Ring
+from eventgrad_tpu_torch.train.state import init_train_state
+from eventgrad_tpu_torch.train.steps import make_train_step
+from eventgrad_tpu_torch.utils.devices import resolve_device
+
+N_RANKS = 4
+IN_SHAPE = (8, 8, 1)
+PER_RANK = 4
+#: the production geometries trace bigger programs: 2 samples a rank
+PER_RANK_PROD = 2
+SEQ_LEN = 16
+VOCAB = 32
+MODEL = dict(hidden=16)
+#: the SGD of the JAX matrix (`optax.sgd(0.05)`): lr, momentum
+SGD = (0.05, 0.0)
+
+
+def _transformer(attn, device):
+    return TransformerLM(vocab=VOCAB, dim=16, n_heads=2, n_layers=1,
+                         max_len=SEQ_LEN, attn=attn, device=device)
+
+
+#: model name -> (constructor(attn, device), one sample's shape, tokens?,
+#: per-rank batch)
+GEOMETRIES = {
+    "mlp": (lambda attn, dev: MLP(**MODEL, input_shape=IN_SHAPE, device=dev),
+            IN_SHAPE, False, PER_RANK),
+    "lenet": (lambda attn, dev: LeNetCifar(device=dev), (32, 32, 3), False,
+              PER_RANK_PROD),
+    "resnet18": (lambda attn, dev: ResNet18(device=dev), (32, 32, 3), False,
+                 PER_RANK_PROD),
+    "transformer": (_transformer, (SEQ_LEN,), True, PER_RANK_PROD),
+}
+CFG = EventConfig(adaptive=True, horizon=0.95, warmup_passes=2,
+                  max_silence=4)
+#: fits Dense_0's kernel+bias, defers the second layer when all fire
+CAPACITY = 1100
+
+_ITEMSIZE = {
+    "float32": 4.0, "bfloat16": 2.0, "float16": 2.0, "int8": 1.0,
+    "uint8": 1.0, "bool": 1.0, "int32": 4.0, "float64": 8.0, "int64": 8.0,
+}
+_WIRE_DTYPE = {None: "float32", "bf16": "bfloat16", "int8": "int8"}
+_DONATION_NOTE = (
+    "no torch counterpart: the step returns new tensors, and XLA's "
+    "donation aliasing has no equivalent to check")
+
+
+@dataclasses.dataclass(frozen=True)
+class AuditConfig:
+    """One cell of the audit matrix (the JAX package's fields; the port
+    runs the cells whose dimensions it has)."""
+
+    name: str
+    algo: str = "eventgrad"
+    #: GEOMETRIES key: mlp | lenet | resnet18 | transformer
+    model: str = "mlp"
+    #: attention of the transformer geometry: "full" | "flash"
+    attn: str = "full"
+    wire: Optional[str] = None
+    gossip_wire: str = "dense"
+    #: compact capacity; -1 = the model's static floor (its largest leaf)
+    capacity: Optional[int] = None
+    #: the JAX cell's arena flag (the port always runs the arena)
+    arena: bool = False
+    #: the JAX cell's telemetry flag (the port runs without telemetry)
+    obs: bool = False
+    staleness: int = 0
+    #: full-model concatenations allowed in the traced step
+    ravel_budget: int = 1
+    policy: Optional[str] = None
+    carrier: bool = False
+
+
+#: the JAX matrix's cells whose dimensions the port has, under their
+#: JAX names (the JAX package's `audit.CONFIGS`)
+CONFIGS: Tuple[AuditConfig, ...] = (
+    AuditConfig("dpsgd_f32_tree", algo="dpsgd"),
+    AuditConfig("dpsgd_int8_arena", algo="dpsgd", wire="int8", arena=True),
+    AuditConfig("event_masked_f32_tree"),
+    AuditConfig("event_masked_f32_arena_obs", arena=True, obs=True),
+    AuditConfig("event_masked_bf16_arena", arena=True, wire="bf16"),
+    AuditConfig("event_compact_f32_tree", gossip_wire="compact",
+                capacity=CAPACITY),
+    AuditConfig("event_compact_int8_arena_obs", gossip_wire="compact",
+                capacity=CAPACITY, wire="int8", arena=True, obs=True),
+    AuditConfig("event_compact_bf16_arena_stale", gossip_wire="compact",
+                capacity=CAPACITY, wire="bf16", arena=True, staleness=1),
+    AuditConfig("sp_f32_tree", algo="sp_eventgrad"),
+    AuditConfig("event_masked_int8_arena_carrier", wire="int8",
+                arena=True, carrier=True),
+    AuditConfig("event_compact_bf16_arena_carrier", gossip_wire="compact",
+                capacity=CAPACITY, wire="bf16", arena=True, carrier=True),
+    AuditConfig("event_micro_compact_f32_arena", gossip_wire="compact",
+                capacity=-1, arena=True, policy="micro"),
+    AuditConfig("event_micro_masked_int8_tree", wire="int8",
+                policy="micro"),
+    AuditConfig("event_hybrid_masked_f32_arena_obs", arena=True,
+                obs=True, policy="hybrid"),
+    AuditConfig("lenet_masked_f32_arena", model="lenet", arena=True),
+    AuditConfig("lenet_compact_int8_arena", model="lenet",
+                gossip_wire="compact", capacity=-1, wire="int8",
+                arena=True),
+    AuditConfig("resnet18_masked_f32_arena", model="resnet18", arena=True),
+    AuditConfig("resnet18_compact_f32_arena", model="resnet18",
+                gossip_wire="compact", capacity=-1, arena=True),
+    AuditConfig("xfmr_masked_f32_arena", model="transformer", arena=True),
+    AuditConfig("xfmr_compact_int8_tree", model="transformer",
+                gossip_wire="compact", capacity=-1, wire="int8"),
+    AuditConfig("xfmr_flash_masked_f32_tree", model="transformer",
+                attn="flash"),
+)
+
+#: the JAX cells that wait, and what for
+WAITING = {
+    "event_masked_int8_tree_chaos": "chaos (ROADMAP queue 1, item 6)",
+    "event_masked_f32_arena_integrity":
+        "the integrity riders (ROADMAP queue 1, item 6)",
+    "event_masked_f32_arena_stale2_chaos":
+        "staleness >= 2 (ROADMAP queue 1, item 5) and chaos (item 6)",
+    "event_compact_int8_arena_stale4":
+        "staleness >= 2 (ROADMAP queue 1, item 5)",
+    "event_compact_int8_arena_b4_stale2_carrier":
+        "buckets and staleness >= 2 (ROADMAP queue 1, item 5)",
+    "sp_f32_tree_stale2": "staleness >= 2 (ROADMAP queue 1, item 5)",
+    "event_hybrid_compact_int8_arena_b4": "buckets (ROADMAP queue 1, item 5)",
+    "event_masked_f32_arena_b4": "buckets (ROADMAP queue 1, item 5)",
+    "event_compact_int8_arena_b4": "buckets (ROADMAP queue 1, item 5)",
+    "lenet_masked_f32_arena_b4": "buckets (ROADMAP queue 1, item 5)",
+}
+
+
+def config_by_name(name: str) -> AuditConfig:
+    for c in CONFIGS:
+        if c.name == name:
+            return c
+    if name in WAITING:
+        raise NotImplementedError(
+            f"audit cell {name!r} is not ported yet: it needs "
+            f"{WAITING[name]}")
+    raise KeyError(f"unknown audit config {name!r}")
+
+
+def substitutions(cfg: AuditConfig) -> List[str]:
+    """How the port's run of a cell differs from the JAX cell."""
+    out = []
+    if not cfg.arena:
+        out.append("tree -> arena (the port runs only the flat arena)")
+    if cfg.obs:
+        out.append("obs -> off (telemetry is not ported: ROADMAP queue 1, "
+                   "item 6)")
+    return out
+
+
+# --- the seeded unregistered kernel (TPU kernel 9) --------------------------
+
+
+def leak_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of `leak_kernel`: `x * 2.0`."""
+    return x * 2.0
+
+
+def _check_leak(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("leak_kernel: x must be contiguous float32, got "
+                         f"{x.dtype}")
+
+
+@torch.library.custom_op("eg::leak_kernel", mutates_args=(),
+                         device_types="cpu")
+def _leak_op(x: torch.Tensor) -> torch.Tensor:
+    _check_leak(x)
+    return leak_reference(x)
+
+
+@_leak_op.register_kernel("cuda")
+def _leak_cuda(x):
+    _check_leak(x)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        kbuild.launch("leak_kernel", kbuild.library().eg_leak_x2,
+                      x.data_ptr(), out.data_ptr(), x.numel(),
+                      kbuild.stream_of(x.device))
+    leak_kernel.launches += 1
+    return out
+
+
+@_leak_op.register_fake
+def _leak_fake(x):
+    return torch.empty_like(x)
+
+
+def leak_kernel(x: torch.Tensor) -> torch.Tensor:
+    """`x * 2.0`, the operator `eg::leak_kernel`: on a CPU tensor
+    `leak_reference`, on a CUDA tensor a launch of `csrc/audit_leak.cu`
+    (or an error). Deliberately absent from `kernels.REGISTRY`: the
+    `unregistered_kernel` oracle puts it in the audited step, and the
+    audit must refuse it."""
+    return _leak_op(x)
+
+
+leak_kernel.launches = 0
+
+
+# --- building the step under audit -----------------------------------------
+
+
+def _model(cfg: AuditConfig, device):
+    make, in_shape, _, _ = GEOMETRIES[cfg.model]
+    return make(cfg.attn, device), in_shape
+
+
+def _batch(cfg: AuditConfig, device=None):
+    """`(x, y)` for the cell: synthetic images (the JAX package's
+    `synthetic_dataset`, seed 0), or tokens from a numpy seed with
+    next-token targets."""
+    _, in_shape, tokens, per_rank = GEOMETRIES[cfg.model]
+    device = resolve_device(device)
+    if tokens:
+        toks = np.random.default_rng(0).integers(
+            0, VOCAB, (N_RANKS, per_rank) + tuple(in_shape))
+        toks = torch.as_tensor(toks, dtype=torch.int64, device=device)
+        return toks, torch.roll(toks, -1, dims=-1)
+    x, y = synthetic_dataset(N_RANKS * per_rank, in_shape, seed=0)
+    return (
+        torch.as_tensor(x.reshape((N_RANKS, per_rank) + tuple(in_shape)),
+                        device=device),
+        torch.as_tensor(y.reshape(N_RANKS, per_rank), dtype=torch.int64,
+                        device=device),
+    )
+
+
+def resolved_capacity(cfg: AuditConfig, model) -> Optional[int]:
+    """The compact capacity a cell runs at: `capacity=-1` is the model's
+    static floor (its largest leaf), from the same arena spec the step
+    uses."""
+    if cfg.gossip_wire != "compact":
+        return None
+    if cfg.capacity is not None and cfg.capacity >= 0:
+        return cfg.capacity
+    return int(collectives.compact_capacity_floor(arena_spec(model).sizes))
+
+
+def build(cfg: AuditConfig, device=None):
+    """(state, step, topo, model) of one audit cell on `device` (None:
+    CUDA)."""
+    device = resolve_device(device)
+    topo = Ring(N_RANKS)
+    model, in_shape = _model(cfg, device)
+    state = init_train_state(
+        model, in_shape, topo, cfg.algo, CFG, seed=0, momentum=SGD[1],
+        resident_wire=(cfg.wire if cfg.carrier and cfg.algo == "eventgrad"
+                       else None),
+        device=device,
+    )
+    step = make_train_step(
+        model, topo, cfg.algo, CFG, fused_sgd=SGD, wire=cfg.wire,
+        gossip_wire=cfg.gossip_wire,
+        compact_capacity=resolved_capacity(cfg, model),
+        staleness=cfg.staleness, trigger_policy=cfg.policy,
+        carrier_resident=cfg.carrier,
+    )
+    return state, step, topo, model
+
+
+def _meta(model) -> Tuple[int, int, int]:
+    """(parameters, leaves, top-k lanes at the default 10%) per rank."""
+    spec = arena_spec(model)
+    return spec.n_total, spec.n_leaves, sum(SparseConfig().ks(spec))
+
+
+# --- wire classification ----------------------------------------------------
+
+
+def _expected_lanes(cfg: AuditConfig, n_params: int, n_leaves: int,
+                    capacity: Optional[int] = None):
+    """[(role, elems, dtype)] one neighbour's exchange must ship; None for
+    sparsified EventGraD, whose top-k lanes compare by totals. (The JAX
+    auditor's riders, the integrity checksum, wait with the integrity
+    engine.)"""
+    if cfg.algo == "sp_eventgrad":
+        return None
+    val_elems = capacity if cfg.gossip_wire == "compact" else n_params
+    lanes = [("value", val_elems, _WIRE_DTYPE[cfg.wire])]
+    if cfg.algo == "eventgrad":
+        lanes.append(("fire", n_leaves, "bool"))
+    if cfg.wire == "int8":
+        lanes.append(("scale", n_leaves, "float32"))
+    return lanes
+
+
+def _formula_bytes_per_neighbor(
+    cfg: AuditConfig, n_params: int, n_leaves: int, k_total: int,
+    capacity: Optional[int] = None,
+) -> float:
+    """The accounting formula the step's metric is built from: what the
+    graph-derived bytes are checked against."""
+    if cfg.algo == "sp_eventgrad":
+        val = collectives.WIRE_VAL_BYTES[cfg.wire]
+        scale = 4.0 if cfg.wire == "int8" else 0.0
+        return (val + 4.0) * k_total + 1.0 * n_leaves + scale * n_leaves
+    return collectives.wire_real_bytes_per_neighbor(
+        n_params, n_leaves, cfg.wire,
+        compact_capacity=(capacity if cfg.gossip_wire == "compact"
+                          else None),
+        fire_bits=(cfg.algo == "eventgrad"),
+    )
+
+
+def _classify_exchanges(
+    cfg: AuditConfig,
+    report: rankflow.RankFlowReport,
+    n_params: int,
+    n_leaves: int,
+    capacity: Optional[int] = None,
+) -> Dict[str, Any]:
+    """Group the rolled lanes by ring offset and check them against the
+    expected wire; returns the per-neighbour derived bytes and the lane
+    problems."""
+    groups: Dict[int, List[rankflow.Exchange]] = {}
+    for ex in report.exchanges:
+        groups.setdefault(ex.offset, []).append(ex)
+    problems: List[str] = []
+    per_offset_bytes: Dict[int, float] = {}
+    want = _expected_lanes(cfg, n_params, n_leaves, capacity)
+    for off, lanes in groups.items():
+        got = sorted((e.lane_elems, e.dtype) for e in lanes)
+        # derived from the lanes the graph actually rolls, never from the
+        # expectation, or an upcast would launder itself
+        per_offset_bytes[off] = sum(n * _ITEMSIZE[dt] for n, dt in got)
+        if want is None:
+            continue
+        remaining = list(got)
+        for _, elems, dt in want:
+            if (elems, dt) in remaining:
+                remaining.remove((elems, dt))
+            else:
+                problems.append(f"offset {off:+d}: missing expected lane "
+                                f"{elems} elems of {dt}")
+        for elems, dt in remaining:
+            problems.append(f"offset {off:+d}: UNDECLARED lane {elems} "
+                            f"elems of {dt} on the wire")
+        for role, elems, dt in want:
+            if role == "value" and (elems, dt) not in got:
+                problems.append(
+                    f"offset {off:+d}: value lane not carried as {dt} "
+                    f"({cfg.wire or 'native f32'} wire) — silent dtype "
+                    "promotion")
+    return {"offsets": sorted(groups), "per_offset_bytes": per_offset_bytes,
+            "problems": problems}
+
+
+# --- hygiene ---------------------------------------------------------------
+
+
+def count_callbacks(gm: torch.fx.GraphModule) -> int:
+    """Host round trips inside the traced step: a read of a tensor into a
+    Python number (`.item()`, `.tolist()`: `aten::_local_scalar_dense`),
+    or a copy to the host (`.cpu()`: `aten::_to_copy` to a CPU device)."""
+    total = 0
+    for node, _ in walker.iter_nodes(gm):
+        name = walker.op_name(node)
+        if name == "aten::_local_scalar_dense":
+            total += 1
+        elif name == "aten::_to_copy":
+            dev = node.kwargs.get("device")
+            if dev is not None and torch.device(dev).type == "cpu":
+                total += 1
+    return total
+
+
+# --- the per-configuration audit -------------------------------------------
+
+
+def _analyze(cfg, fn, state, batch, model, topo) -> Dict[str, Any]:
+    """Trace `fn(state, batch)` and run every check on the graph; the
+    shared body of `audit_step` and the oracles."""
+    before = launch_counts()
+    before["leak_kernel"] = leak_kernel.launches
+    tr = walker.trace(fn, state, batch)
+    after = launch_counts()
+    after["leak_kernel"] = leak_kernel.launches
+    n_params, n_leaves, k_total = _meta(model)
+    capacity = resolved_capacity(cfg, model)
+    report = rankflow.analyze(tr.graph, topo.n_ranks)
+    declared = sorted(nb.offset for nb in topo.neighbors)
+    wire = _classify_exchanges(cfg, report, n_params, n_leaves, capacity)
+    formula = _formula_bytes_per_neighbor(cfg, n_params, n_leaves, k_total,
+                                          capacity)
+    derived = list(wire["per_offset_bytes"].values())
+    metric = float(tr.out[1]["sent_bytes_wire_real"][0])
+    graph_ops = {
+        name: walker.count_ops(tr.graph, f"eg::{name}")
+        for name in sorted(set(kernels.registered_names())
+                           | {"leak_kernel"})
+    }
+    return {
+        "trace": tr,
+        "report": report,
+        "n_params": n_params,
+        "n_leaves": n_leaves,
+        "capacity": capacity,
+        "declared": declared,
+        "wire": wire,
+        "formula": float(formula),
+        "derived": derived,
+        "derived_total": float(sum(derived)),
+        "metric_total": metric,
+        "kernel_ops": {k: v for k, v in graph_ops.items() if v},
+        "kernel_launches": {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]},
+        "ravels": walker.count_full_ravels(tr.graph, int(n_params)),
+        "callbacks": count_callbacks(tr.graph),
+    }
+
+
+def audit_step(cfg: AuditConfig, step, state, batch, model, topo,
+               run_metric: bool = True,
+               census: bool = False) -> Dict[str, Any]:
+    """Trace one built step (`cfg` describes its wire: algo, wire, gossip
+    wire, capacity, policy) and run every check; returns the report
+    `main` serializes (findings only: the caller decides what is
+    fatal). The device is the state's."""
+    t0 = time.perf_counter()
+    res = _analyze(cfg, step, state, batch, model, topo)
+    report, wire = res["report"], res["wire"]
+    violations = [{"prim": f.prim, "reason": f.reason,
+                   "path": "/".join(f.path)} for f in report.violations]
+    undeclared = sorted(set(wire["offsets"]) - set(res["declared"]))
+    missing = sorted(set(res["declared"]) - set(wire["offsets"]))
+    wire_match = (not wire["problems"] and not undeclared and not missing
+                  and all(b == res["formula"] for b in res["derived"]))
+    metric_total = metric_match = None
+    if run_metric:
+        metric_total = res["metric_total"]
+        # the step carries the metric as an f32 scalar: the derived total
+        # is compared after the same quantization, still exactly
+        metric_match = metric_total == float(np.float32(res["derived_total"]))
+    partitions = partitions_ok = None
+    if cfg.policy in ("micro", "hybrid"):
+        spec = arena_spec(model)
+        partitions = list(policy_lib.partition_table(spec, topo.n_ranks))
+        partitions_ok = bool(policy_lib.validate_partitions(
+            spec, topo.n_ranks)["ok"])
+    out = {
+        "name": cfg.name,
+        "algo": cfg.algo,
+        "model": cfg.model,
+        "attn": cfg.attn,
+        "capacity": res["capacity"],
+        "wire": cfg.wire,
+        "gossip_wire": cfg.gossip_wire,
+        "arena": cfg.arena,
+        "obs": cfg.obs,
+        "staleness": cfg.staleness,
+        "policy": cfg.policy,
+        "carrier": cfg.carrier,
+        "substitutions": substitutions(cfg),
+        "partitions": partitions,
+        "partitions_ok": partitions_ok,
+        "n_ranks": topo.n_ranks,
+        "n_params": int(res["n_params"]),
+        "n_leaves": int(res["n_leaves"]),
+        "graph_nodes": len(res["trace"].graph.graph.nodes),
+        "violations": len(violations),
+        "violation_details": violations,
+        "exchange_offsets": wire["offsets"],
+        "declared_offsets": res["declared"],
+        "undeclared_offsets": undeclared,
+        "missing_offsets": missing,
+        "wire_problems": wire["problems"],
+        "wire_bytes_per_neighbor_derived": (res["derived"][0]
+                                            if res["derived"] else 0.0),
+        "wire_bytes_per_neighbor_formula": res["formula"],
+        "wire_rider_bytes_per_neighbor": 0.0,
+        "wire_metric_total": metric_total,
+        "wire_match": bool(wire_match),
+        "metric_match": metric_match,
+        "ravel_count": int(res["ravels"]),
+        "ravel_budget": int(cfg.ravel_budget),
+        "ravel_ok": res["ravels"] <= cfg.ravel_budget,
+        "callbacks": int(res["callbacks"]),
+        "kernel_ops": res["kernel_ops"],
+        "kernel_launches": res["kernel_launches"],
+        "donation_ok": None,
+        "donation_note": _DONATION_NOTE,
+        "device": str(state.params.device),
+        "wall_s": time.perf_counter() - t0,
+    }
+    if census:
+        out["census"] = walker.op_census(res["trace"].graph)
+    return out
+
+
+def audit_config(cfg: AuditConfig, run_metric: bool = True,
+                 device=None, census: bool = False) -> Dict[str, Any]:
+    """Build one audit cell on `device` (None: CUDA) and audit its
+    step."""
+    state, step, topo, model = build(cfg, device)
+    return audit_step(cfg, step, state, _batch(cfg, device), model, topo,
+                      run_metric=run_metric, census=census)
+
+
+def clean(report: Dict[str, Any]) -> bool:
+    """The acceptance predicate for one cell."""
+    return (
+        report["violations"] == 0
+        and report["wire_match"]
+        and report["metric_match"] in (None, True)
+        and report["ravel_ok"]
+        and report["callbacks"] == 0
+        and report["donation_ok"] in (None, True)
+        and report.get("partitions_ok") in (None, True)
+    )
+
+
+def audit_matrix(run_metric: bool = True, device=None,
+                 census: bool = False) -> List[Dict[str, Any]]:
+    return [audit_config(c, run_metric=run_metric, device=device,
+                         census=census) for c in CONFIGS]
+
+
+# --- seeded oracle violations ----------------------------------------------
+#
+# Each oracle sabotages a CLEAN cell in exactly one way and returns
+# (detected, reason). A check that cannot fire proves nothing.
+
+
+def _audit_with(cfg_name: str, wrap, device, run_metric: bool = False):
+    """Audit cell `cfg_name` with its step wrapped by `wrap(step, topo,
+    model)`; returns `_analyze`'s result plus the verdict fields."""
+    cfg = config_by_name(cfg_name)
+    state, step, topo, model = build(cfg, device)
+    fn = step if wrap is None else wrap(step, topo, model)
+    res = _analyze(cfg, fn, state, _batch(cfg, device), model, topo)
+    res["violation_details"] = [f.reason for f in res["report"].violations]
+    res["undeclared_offsets"] = sorted(
+        set(res["wire"]["offsets"]) - set(res["declared"]))
+    res["formula_match"] = all(b == res["formula"] for b in res["derived"])
+    res["metric_match"] = (res["metric_total"]
+                           == float(np.float32(res["derived_total"])))
+    return res
+
+
+def _with_metric(fn):
+    """Wrap a step so that `extra(new_state, metrics, batch)` adds to its
+    metrics."""
+    def wrap(step, topo, model):
+        def bad(state, batch):
+            ns, m = step(state, batch)
+            m = dict(m)
+            fn(ns, m, batch, topo, model)
+            return ns, m
+        return bad
+    return wrap
+
+
+def oracle_rank_coupling(device=None) -> Tuple[bool, str]:
+    """A roll by an undeclared ring offset (+2) smuggled into the
+    metrics: cross-rank flow outside the declared exchange."""
+    def leak(ns, m, batch, topo, model):
+        m["leak"] = collectives.recv_from(
+            m["loss"], topo, NeighborSpec(topo.axes[0], 2))
+
+    rep = _audit_with("event_masked_f32_arena_obs", _with_metric(leak),
+                      device)
+    detected = bool(rep["undeclared_offsets"]) or bool(
+        rep["wire"]["problems"])
+    return detected, f"undeclared exchange offsets {rep['undeclared_offsets']}"
+
+
+def oracle_rank_roll(device=None) -> Tuple[bool, str]:
+    """A read of the neighbour through the stacked rank dimension by
+    slices and a concatenation (the way `jnp.roll` lowers): 'peek at your
+    neighbour through the lift'."""
+    def leak(ns, m, batch, topo, model):
+        p = ns.params
+        m["leak"] = torch.sum(p * torch.cat([p[-1:], p[:-1]], dim=0), dim=1)
+
+    rep = _audit_with("event_masked_f32_tree", _with_metric(leak), device)
+    n = len(rep["violation_details"])
+    return n > 0, (f"{n} rank-flow violations: "
+                   f"{rep['violation_details'][:2]}")
+
+
+def oracle_wire_dtype_upcast(device=None) -> Tuple[bool, str]:
+    """The bf16 wire's downcast silently dropped: lanes ship f32 while
+    the accounting still claims 2 bytes an element."""
+    orig = collectives._wire_out
+    try:
+        collectives._wire_out = lambda x, wire: x  # the sabotage
+        rep = _audit_with("event_masked_bf16_arena", None, device)
+    finally:
+        collectives._wire_out = orig
+    problems = rep["wire"]["problems"]
+    return bool(problems) and not rep["formula_match"], (
+        f"wire problems {problems[:2]}")
+
+
+def oracle_extra_ravel(device=None) -> Tuple[bool, str]:
+    """A second full-model flatten in the arena step: the regression the
+    ravel budget stops."""
+    def leak(ns, m, batch, topo, model):
+        spec = arena_spec(model)
+        m["extra"] = torch.sum(spec.ravel(spec.unravel(ns.params)))
+
+    cfg = config_by_name("event_masked_f32_arena_obs")
+    rep = _audit_with(cfg.name, _with_metric(leak), device)
+    return rep["ravels"] > cfg.ravel_budget, (
+        f"{rep['ravels']} full-model ravels > budget {cfg.ravel_budget}")
+
+
+def oracle_byte_formula_drift(device=None) -> Tuple[bool, str]:
+    """The accounting formula forgets the fire-bit lane: the metric the
+    step reports no longer equals what the graph ships."""
+    orig = collectives.wire_real_bytes_per_neighbor
+
+    def broken(n_params, n_leaves, wire=None, compact_capacity=None,
+               fire_bits=False):
+        return orig(n_params, n_leaves, wire,
+                    compact_capacity=compact_capacity, fire_bits=False)
+
+    try:
+        collectives.wire_real_bytes_per_neighbor = broken
+        rep = _audit_with("event_masked_f32_tree", None, device)
+    finally:
+        collectives.wire_real_bytes_per_neighbor = orig
+    return rep["metric_match"] is False, (
+        f"metric {rep['metric_total']} != derived wire truth")
+
+
+def oracle_host_callback(device=None) -> Tuple[bool, str]:
+    """A host round trip inside the step: the sync a pipelined loop
+    exists to delete."""
+    def leak(ns, m, batch, topo, model):
+        m["loss_host"] = float(m["loss"][0].item())
+
+    rep = _audit_with("event_masked_f32_tree", _with_metric(leak), device)
+    return rep["callbacks"] > 0, f"{rep['callbacks']} host callbacks"
+
+
+def oracle_conv_rank_merge(device=None) -> Tuple[bool, str]:
+    """The ranks merged rank-major into the channels (the legal layout
+    `vmap` gives a convolution) but convolved with groups=1: every output
+    channel reads every rank's channels. The legal merge carries groups
+    divisible by the rank count and audits clean in the lenet and resnet
+    cells."""
+    def leak(ns, m, batch, topo, model):
+        x = batch[0]  # [R, B, H, W, C]
+        r, b, h, w, c = x.shape
+        merged = x.permute(1, 0, 4, 2, 3).reshape(b, r * c, h, w)
+        kern = torch.ones((2, r * c, 3, 3), dtype=x.dtype, device=x.device)
+        m["leak"] = torch.sum(torch.nn.functional.conv2d(merged, kern))
+
+    rep = _audit_with("lenet_masked_f32_arena", _with_metric(leak), device)
+    hits = [r for r in rep["violation_details"]
+            if "feature groups" in r or "conv" in r]
+    return bool(hits), (f"{len(rep['violation_details'])} violations: "
+                        f"{hits[:1]}")
+
+
+def oracle_unregistered_kernel(device=None) -> Tuple[bool, str]:
+    """A kernel op with no declared rank layout (`eg::leak_kernel`, TPU
+    kernel 9): an opaque boundary the dataflow cannot see through must
+    stay a violation, or any new kernel would bypass the audit."""
+    def leak(ns, m, batch, topo, model):
+        val = torch.broadcast_to(m["loss"][:, None, None],
+                                 (m["loss"].shape[0], 8, 128))
+        val = val.to(torch.float32).contiguous()
+        m["leak"] = torch.sum(leak_kernel(val), dim=(1, 2))
+
+    rep = _audit_with("event_masked_f32_arena_obs", _with_metric(leak),
+                      device)
+    hits = [r for r in rep["violation_details"]
+            if "unregistered kernel" in r]
+    return bool(hits), f"{hits[:1]}"
+
+
+def oracle_attention_cross_rank_gather(device=None) -> Tuple[bool, str]:
+    """A data-dependent gather across the rank dimension: each rank reads
+    the parameters of a peer chosen by the losses instead of the
+    topology's declared offsets."""
+    def leak(ns, m, batch, topo, model):
+        idx = torch.argsort(m["loss"])
+        m["leak"] = torch.sum(torch.index_select(ns.params, 0, idx), dim=1)
+
+    rep = _audit_with("xfmr_masked_f32_arena", _with_metric(leak), device)
+    det = rep["violation_details"]
+    detected = any("across the rank axis" in r for r in det)
+    return detected, f"{len(det)} violations: {det[:1]}"
+
+
+def oracle_partition_overlap(device=None) -> Tuple[bool, str]:
+    """A partition geometry that double-claims a leaf: overlapping sends
+    are last-writer-wins on the receive buffer, so training runs, just
+    wrong. The micro cell's `partitions_ok` must go false."""
+    orig = policy_lib.partition_masks
+
+    def overlapping(spec, n_parts):
+        masks = [list(mk) for mk in orig(spec, n_parts)]
+        if len(masks) >= 2:
+            grab = next((i for i, on in enumerate(masks[1]) if on), None)
+            if grab is not None:
+                masks[0][grab] = True
+        return tuple(tuple(mk) for mk in masks)
+
+    try:
+        policy_lib.partition_masks = overlapping
+        rep = audit_config(config_by_name("event_micro_compact_f32_arena"),
+                           run_metric=False, device=device)
+    finally:
+        policy_lib.partition_masks = orig
+    return rep["partitions_ok"] is False and not clean(rep), (
+        f"partitions_ok={rep['partitions_ok']} "
+        f"(sizes {[p['size'] for p in (rep['partitions'] or [])]})")
+
+
+def oracle_stale_scale_reuse(device=None) -> Tuple[bool, str]:
+    """The carrier commit sabotaged to keep the resident int8 scales: a
+    fired leaf's carrier takes the candidate's values but the previous
+    scale. Carrier-resident buffers are bitwise their f32-resident twin,
+    so the clean carrier cell matches the f32 reference and the torn one
+    diverges."""
+    cfgc = config_by_name("event_masked_int8_arena_carrier")
+    cfgf = dataclasses.replace(cfgc, name="carrier_f32_ref", carrier=False)
+
+    def run(cfg, sabotage=None):
+        orig = collectives.commit_carrier_scales
+        try:
+            if sabotage is not None:
+                collectives.commit_carrier_scales = sabotage
+            state, step, topo, _ = build(cfg, device)
+            batch = _batch(cfg, device)
+            for _ in range(4):
+                state, _m = step(state, batch)
+        finally:
+            collectives.commit_carrier_scales = orig
+        return state
+
+    ref = run(cfgf)
+    good = run(cfgc)
+    bad = run(cfgc, sabotage=lambda cand, effs, last: last)
+    clean_holds = torch.equal(ref.params, good.params)
+    detected = clean_holds and not torch.equal(ref.params, bad.params)
+    return detected, (
+        "clean carrier cell == f32-resident twin bitwise; the scale-reuse "
+        "commit diverges" if detected
+        else "carrier equivalence harness failed to fire")
+
+
+ORACLES = {
+    "rank_coupling_ppermute": oracle_rank_coupling,
+    "rank_coupling_roll": oracle_rank_roll,
+    "wire_dtype_upcast": oracle_wire_dtype_upcast,
+    "extra_full_ravel": oracle_extra_ravel,
+    "byte_formula_drift": oracle_byte_formula_drift,
+    "host_callback": oracle_host_callback,
+    "conv_rank_merge": oracle_conv_rank_merge,
+    "unregistered_kernel": oracle_unregistered_kernel,
+    "attention_cross_rank_gather": oracle_attention_cross_rank_gather,
+    "partition_overlap": oracle_partition_overlap,
+    "stale_scale_reuse": oracle_stale_scale_reuse,
+}
+
+#: the JAX oracles that wait, and what for
+WAITING_ORACLES = {
+    "late_delivery_drift": "staleness >= 2 (ROADMAP queue 1, item 5)",
+    "bucket_queue_skew":
+        "buckets and staleness >= 2 (ROADMAP queue 1, item 5)",
+    "bucket_undeclared_offset": "buckets (ROADMAP queue 1, item 5)",
+    "mesh_undeclared_offset":
+        "the multi-GPU backend (ROADMAP queue 1, item 8)",
+}
+
+
+def oracle(name: str):
+    """The oracle function `name` (of `ORACLES`); a JAX oracle that is
+    not ported yet raises, naming what it waits for."""
+    if name in WAITING_ORACLES:
+        raise NotImplementedError(
+            f"oracle {name!r} is not ported yet: it needs "
+            f"{WAITING_ORACLES[name]}")
+    return ORACLES[name]
+
+
+def run_oracles(device=None) -> List[Dict[str, Any]]:
+    out = []
+    for name in ORACLES:
+        detected, reason = oracle(name)(device=device)
+        out.append({"name": name, "detected": bool(detected),
+                    "reason": reason})
+    return out
+
+
+# --- CLI --------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Audit the port's train step: rank isolation, wire-byte "
+        "truth, step hygiene, and the seeded oracles.")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default=None, help="write the JSON record here")
+    ap.add_argument("--census", action="store_true",
+                    help="add each cell's op census to its report")
+    args = ap.parse_args(argv)
+    from eventgrad_tpu_torch.analysis import lint
+
+    t0 = time.perf_counter()
+    configs = audit_matrix(device=args.device, census=args.census)
+    oracles = run_oracles(device=args.device)
+    lint_v = lint.run()
+    rec = {
+        "bench": "audit",
+        "impl": "torch",
+        "platform": args.device,
+        "device": (torch.cuda.get_device_name(0) if args.device == "cuda"
+                   else "cpu"),
+        "op_point": (f"Ring({N_RANKS}) geometries "
+                     f"{'+'.join(sorted(GEOMETRIES))} "
+                     f"mlp_capacity={CAPACITY}"),
+        "models": sorted(GEOMETRIES),
+        "configs": configs,
+        "n_configs": len(configs),
+        "n_clean": sum(clean(c) for c in configs),
+        "waiting_configs": WAITING,
+        "oracles": oracles,
+        "n_oracles": len(oracles),
+        "n_detected": sum(o["detected"] for o in oracles),
+        "waiting_oracles": WAITING_ORACLES,
+        "lint_rules": len(lint.RULES),
+        "lint_violations": len(lint_v),
+        "wall_s": time.perf_counter() - t0,
+    }
+    text = json.dumps(rec, indent=1, sort_keys=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+    for c in configs:
+        print(f"{c['name']:40s} clean={clean(c)!s:5s} "
+              f"derived={c['wire_bytes_per_neighbor_derived']} "
+              f"metric={c['wire_metric_total']} ops={c['kernel_ops']}",
+              file=sys.stderr)
+    print(f"{rec['n_clean']}/{rec['n_configs']} configs clean, "
+          f"{rec['n_detected']}/{rec['n_oracles']} oracles detected, "
+          f"{rec['lint_violations']} lint violations", file=sys.stderr)
+    ok = (rec["n_clean"] == rec["n_configs"]
+          and rec["n_detected"] == rec["n_oracles"]
+          and rec["lint_violations"] == 0)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

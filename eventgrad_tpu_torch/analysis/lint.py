@@ -1,0 +1,382 @@
+"""AST lint of the port's sources.
+
+Port of `eventgrad_tpu/analysis/lint.py`: the framework (`Violation`,
+`SourceFile`, `collect_sources`, `Rule`, `RULES`, `run`, `main`) and the
+rules that apply to what the port has. Each rule walks parsed ASTs, so
+docstrings and comments never match.
+
+  * no-host-sync-in-traced — `.item()`, `.cpu()`, `.tolist()`,
+    `.numpy()` and `torch.cuda.synchronize` in the port's `parallel/`,
+    `ops/` or `train/steps.py`: a host round trip on the step's path
+    (the torch spelling of the JAX rule's `block_until_ready` and
+    `device_get`). The auditor sees the same syncs in the traced graph.
+  * kernel-registered — every `eg::` operator defined in the package
+    (`torch.library.custom_op("eg::<name>")`) and every kernel launch
+    through the library (`lib.eg_<entry>`) names an entry of
+    `analysis/kernels.py` declared for that module; every entry still
+    names a live op and launch in its module (stale entries flag). The
+    one named exemption is the auditor's seeded unregistered kernel in
+    `analysis/audit.py`, honesty-checked: it must still define an
+    unregistered op and launch, and must stay out of the registry.
+  * trigger-policy-registered — every trigger-policy name given as a
+    string (`trigger_policy=`, `AuditConfig(policy=...)`) is an entry of
+    `parallel/policy.py` `POLICIES`.
+  * carrier-dtype-declared — the receive buffers' resident dtype is
+    declared once, by `parallel/arena.py` `alloc_event_bufs`: an ad-hoc
+    `.to(...)` inside a `bufs=` / `buf_scales=` keyword flags, and the
+    EventState owner must still allocate through the helper.
+
+The exit-code, `os._exit`, crashpoint, wall-clock, telemetry-ledger and
+shard_map rules of the JAX lint wait for the engines they guard (ROADMAP
+queue 1, items 6 and 8).
+
+CLI: `python -m eventgrad_tpu_torch.analysis.lint`.
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import os
+import sys
+from functools import cached_property
+from typing import Dict, Iterable, List, Optional, Sequence, Set
+
+PACKAGE = "eventgrad_tpu_torch"
+REPO_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Violation:
+    rule: str
+    path: str  #: repo-relative, with forward slashes
+    line: int
+    message: str
+
+    def __str__(self):
+        return f"{self.path}:{self.line}: [{self.rule}] {self.message}"
+
+
+@dataclasses.dataclass(frozen=True)
+class SourceFile:
+    path: str
+    rel: str  #: repo-relative, with forward slashes
+    text: str
+
+    @cached_property
+    def tree(self) -> ast.AST:
+        return ast.parse(self.text, filename=self.rel)
+
+
+def collect_sources(root: str = REPO_ROOT,
+                    subdirs: Sequence[str] = (PACKAGE,)) -> List[SourceFile]:
+    out = []
+    for sub in subdirs:
+        base = os.path.join(root, sub)
+        for dirpath, dirnames, filenames in os.walk(base):
+            dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
+            for name in sorted(filenames):
+                if not name.endswith(".py"):
+                    continue
+                path = os.path.join(dirpath, name)
+                with open(path, encoding="utf-8") as fh:
+                    out.append(SourceFile(
+                        path=path,
+                        rel=os.path.relpath(path, root).replace(os.sep, "/"),
+                        text=fh.read(),
+                    ))
+    return out
+
+
+class Rule:
+    name: str = "rule"
+
+    def check(self, files: Sequence[SourceFile]) -> List[Violation]:
+        raise NotImplementedError
+
+    def _v(self, sf: SourceFile, line: int, message: str) -> Violation:
+        return Violation(self.name, sf.rel, line, message)
+
+
+def _in_package(sf: SourceFile) -> bool:
+    return sf.rel.startswith(PACKAGE + "/")
+
+
+def _call_name(node: ast.Call) -> Optional[str]:
+    fn = node.func
+    if isinstance(fn, ast.Name):
+        return fn.id
+    if isinstance(fn, ast.Attribute):
+        return fn.attr
+    return None
+
+
+def _const_str(node) -> Optional[str]:
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    return None
+
+
+class NoHostSyncInTraced(Rule):
+    """No host round trips on the step's paths."""
+
+    name = "no-host-sync-in-traced"
+    SCOPES = (f"{PACKAGE}/parallel/", f"{PACKAGE}/ops/",
+              f"{PACKAGE}/train/steps.py")
+    BANNED_ATTRS = ("item", "cpu", "tolist", "numpy")
+
+    def check(self, files):
+        out = []
+        for sf in files:
+            if not any(sf.rel.startswith(s) for s in self.SCOPES):
+                continue
+            for node in ast.walk(sf.tree):
+                if not isinstance(node, ast.Attribute):
+                    continue
+                what = None
+                if node.attr in self.BANNED_ATTRS:
+                    what = f".{node.attr}()"
+                elif (node.attr == "synchronize"
+                      and isinstance(node.value, ast.Attribute)
+                      and node.value.attr == "cuda"):
+                    what = "torch.cuda.synchronize"
+                if what is not None:
+                    out.append(self._v(
+                        sf, node.lineno,
+                        f"{what} on a traced path — a host sync the step "
+                        "cannot hide; read back at the loop boundary "
+                        "instead",
+                    ))
+        return out
+
+
+class KernelRegistered(Rule):
+    """Every kernel op and launch names a registered kernel
+    (`analysis/kernels.py`) of its module; every entry still has both.
+    The trace auditor refuses an unregistered op when a cell reaches
+    it; this rule catches the drift in the source."""
+
+    name = "kernel-registered"
+    #: the one named exemption: the auditor's seeded unregistered kernel
+    #: (the violation that proves the registry check fires)
+    EXEMPT = {
+        f"{PACKAGE}/analysis/audit.py":
+            "oracle_unregistered_kernel's seeded eg::leak_kernel "
+            "(csrc/audit_leak.cu, launched as eg_leak_x2)",
+    }
+
+    @staticmethod
+    def _op_defs(sf):
+        """(line, name) of every `custom_op("eg::<name>", ...)`."""
+        for node in ast.walk(sf.tree):
+            if isinstance(node, ast.Call) and _call_name(node) == "custom_op" \
+                    and node.args:
+                s = _const_str(node.args[0])
+                if s is not None and s.startswith("eg::"):
+                    yield node.lineno, s[len("eg::"):]
+
+    @staticmethod
+    def _launches(sf):
+        """(line, entry) of every `<library>.eg_<entry>` attribute."""
+        for node in ast.walk(sf.tree):
+            if isinstance(node, ast.Attribute) and node.attr.startswith("eg_"):
+                yield node.lineno, node.attr
+
+    def check(self, files):
+        from eventgrad_tpu_torch.analysis import kernels
+
+        out = []
+        ops_seen: Dict[str, Set[str]] = {}
+        entries_seen: Dict[str, Set[str]] = {}
+        by_entry = {sig.entry: sig for sig in kernels.REGISTRY.values()}
+        for sf in files:
+            if not _in_package(sf):
+                continue
+            own: List[Violation] = []
+            for line, name in self._op_defs(sf):
+                sig = kernels.REGISTRY.get(name)
+                if sig is None:
+                    own.append(self._v(
+                        sf, line,
+                        f"kernel op 'eg::{name}' has no declared rank "
+                        "layout — register it in analysis/kernels.py (the "
+                        "trace auditor refuses unregistered kernels; "
+                        "ROADMAP 'Registering a kernel')"))
+                elif sig.module != sf.rel:
+                    own.append(self._v(
+                        sf, line,
+                        f"kernel op 'eg::{name}' is registered for "
+                        f"{sig.module}, defined in {sf.rel}"))
+                else:
+                    ops_seen.setdefault(sf.rel, set()).add(name)
+            for line, entry in self._launches(sf):
+                sig = by_entry.get(entry)
+                if sig is None:
+                    own.append(self._v(
+                        sf, line,
+                        f"kernel launch '{entry}' names no registered "
+                        "kernel — register its op in analysis/kernels.py"))
+                elif sig.module != sf.rel:
+                    own.append(self._v(
+                        sf, line,
+                        f"kernel launch '{entry}' is registered for "
+                        f"{sig.module}, launched from {sf.rel}"))
+                else:
+                    entries_seen.setdefault(sf.rel, set()).add(entry)
+            if sf.rel in self.EXEMPT:
+                defined = {n for _, n in self._op_defs(sf)}
+                registered = sorted(defined & set(kernels.REGISTRY))
+                if registered:
+                    out.append(self._v(
+                        sf, 1,
+                        f"the exempt fixture's op {registered} is "
+                        "registered — the unregistered-kernel oracle would "
+                        "pass it; drop it from analysis/kernels.py"))
+                unreg_ops = defined - set(kernels.REGISTRY)
+                unreg_launches = {e for _, e in self._launches(sf)
+                                  if e not in by_entry}
+                if not (unreg_ops and unreg_launches):
+                    out.append(self._v(
+                        sf, 1,
+                        "exempt file no longer defines and launches an "
+                        "unregistered kernel — drop it from "
+                        f"KernelRegistered.EXEMPT ({self.EXEMPT[sf.rel]})"))
+                continue
+            out.extend(own)
+        scanned = {sf.rel for sf in files}
+        for name, sig in sorted(kernels.REGISTRY.items()):
+            if sig.module not in scanned:
+                continue
+            if name not in ops_seen.get(sig.module, set()):
+                out.append(Violation(
+                    self.name, sig.module, 1,
+                    f"registered kernel 'eg::{name}' is not defined in "
+                    f"{sig.module} — the registry entry has gone stale"))
+            if sig.entry not in entries_seen.get(sig.module, set()):
+                out.append(Violation(
+                    self.name, sig.module, 1,
+                    f"registered kernel 'eg::{name}' never launches "
+                    f"'{sig.entry}' in {sig.module} — the registry entry "
+                    "has gone stale"))
+        return out
+
+
+class TriggerPolicyRegistered(Rule):
+    """Every trigger-policy name given as a string resolves to a
+    `parallel/policy.py` `POLICIES` entry (a typo fails only at run
+    time, deep inside a training run). The port has no CLI yet, so the
+    JAX rule's other direction (every entry reachable from the CLI's
+    choices) waits with it."""
+
+    name = "trigger-policy-registered"
+
+    def check(self, files):
+        from eventgrad_tpu_torch.parallel import policy as policy_lib
+
+        out = []
+        for sf in files:
+            if not _in_package(sf):
+                continue
+            for node in ast.walk(sf.tree):
+                if not isinstance(node, ast.Call):
+                    continue
+                fn_name = _call_name(node)
+                for kw in node.keywords:
+                    if not (kw.arg == "trigger_policy" or (
+                            kw.arg == "policy" and fn_name == "AuditConfig")):
+                        continue
+                    s = _const_str(kw.value)
+                    if s is not None and s not in policy_lib.POLICIES:
+                        out.append(self._v(
+                            sf, kw.value.lineno,
+                            f"trigger policy '{s}' is not a registry entry "
+                            "— register it in parallel/policy.py POLICIES "
+                            f"(known: {', '.join(sorted(policy_lib.POLICIES))})"))
+        return out
+
+
+class CarrierDtypeDeclared(Rule):
+    """The resident dtype of EventState's receive buffers is declared
+    once, by `parallel/arena.py` `alloc_event_bufs` (the carrier arenas
+    and their int8 scales together). An ad-hoc `.to(...)` inside a
+    `bufs=` / `buf_scales=` keyword re-dtypes them outside that
+    declaration; and the EventState owner must still allocate through the
+    helper, or the rule covers nothing."""
+
+    name = "carrier-dtype-declared"
+    OWNER = f"{PACKAGE}/parallel/events.py"
+    HELPER = "alloc_event_bufs"
+    BUF_KWARGS = frozenset({"bufs", "buf_scales"})
+
+    def check(self, files):
+        out = []
+        owner_seen = owner_routes = False
+        for sf in files:
+            if not _in_package(sf):
+                continue
+            owner = sf.rel == self.OWNER
+            owner_seen = owner_seen or owner
+            for node in ast.walk(sf.tree):
+                if not isinstance(node, ast.Call):
+                    continue
+                if owner and _call_name(node) == self.HELPER:
+                    owner_routes = True
+                for kw in node.keywords:
+                    if kw.arg not in self.BUF_KWARGS:
+                        continue
+                    for sub in ast.walk(kw.value):
+                        if (isinstance(sub, ast.Call)
+                                and isinstance(sub.func, ast.Attribute)
+                                and sub.func.attr == "to"):
+                            out.append(self._v(
+                                sf, sub.lineno,
+                                f"ad-hoc .to() inside an EventState "
+                                f"{kw.arg}= site — the resident dtype of "
+                                "the receive buffers is declared once by "
+                                "parallel/arena.py alloc_event_bufs "
+                                "(carrier layout + dequant scales "
+                                "together)"))
+        if owner_seen and not owner_routes:
+            out.append(Violation(
+                self.name, self.OWNER, 1,
+                "EventState's owner no longer allocates its buffers "
+                "through alloc_event_bufs — the one place the resident "
+                "dtype (and its scales) is declared"))
+        return out
+
+
+RULES: Sequence[Rule] = (
+    NoHostSyncInTraced(),
+    KernelRegistered(),
+    TriggerPolicyRegistered(),
+    CarrierDtypeDeclared(),
+)
+
+
+def run(
+    rules: Optional[Iterable[Rule]] = None,
+    root: str = REPO_ROOT,
+    files: Optional[Sequence[SourceFile]] = None,
+) -> List[Violation]:
+    """Run every rule over the port's sources (or an injected file set:
+    the tests feed seeded violations through here)."""
+    if files is None:
+        files = collect_sources(root)
+    out: List[Violation] = []
+    for rule in rules if rules is not None else RULES:
+        out.extend(rule.check(files))
+    return out
+
+
+def main(argv=None) -> int:
+    violations = run()
+    for v in violations:
+        print(str(v), file=sys.stderr)
+    print(f"lint: {len(RULES)} rules, {len(violations)} violations")
+    return 1 if violations else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

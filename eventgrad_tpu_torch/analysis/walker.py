@@ -1,0 +1,183 @@
+"""Tracing the step into an ATen graph, and counting its nodes.
+
+Port of `eventgrad_tpu/analysis/walker.py`. `trace` is the counterpart of
+`jax.make_jaxpr`: `make_fx` in real mode records every ATen op (and every
+`eg::` kernel op) the step dispatches, while the same call computes its
+results, so an audit reads the step's metrics from the traced run
+itself. The step's arguments and results are dataclasses, dicts and
+tuples of tensors (`TrainState`, `EventState`, the metrics): they are
+flattened to tensors at the boundary and rebuilt inside.
+
+`iter_nodes` walks every node, into nested graph modules; `count_ops`,
+`op_census` and `count_full_ravels` are the op accounting the audit's
+hygiene checks are made of. The bucketed-schedule check of the JAX walker
+waits for the bucketed schedule (ROADMAP queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Iterator, List, Optional, Tuple
+
+import torch
+from torch.fx.experimental.proxy_tensor import (
+    disable_proxy_modes_tracing, make_fx,
+)
+from torch.fx.passes.shape_prop import _extract_tensor_metadata
+from torch.overrides import TorchFunctionMode
+
+
+def flatten(obj: Any) -> Tuple[List[torch.Tensor], Callable]:
+    """(tensor leaves, rebuild): the tensors of a structure of
+    dataclasses, dicts, tuples and lists in field order, and a function
+    that puts a list of the same length back in their places. Anything
+    else is a constant leaf that stays as it is."""
+    if isinstance(obj, torch.Tensor):
+        return [obj], lambda xs: xs[0]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        names = [f.name for f in dataclasses.fields(obj)]
+        kids = [flatten(getattr(obj, n)) for n in names]
+
+        def rebuild(xs):
+            vals = _split(kids, xs)
+            return dataclasses.replace(obj, **dict(zip(names, vals)))
+    elif isinstance(obj, dict):
+        keys = list(obj)
+        kids = [flatten(obj[k]) for k in keys]
+
+        def rebuild(xs):
+            return dict(zip(keys, _split(kids, xs)))
+    elif isinstance(obj, (tuple, list)):
+        kids = [flatten(v) for v in obj]
+
+        def rebuild(xs):
+            return type(obj)(_split(kids, xs))
+    else:
+        return [], lambda xs: obj
+    return [t for leaves, _ in kids for t in leaves], rebuild
+
+
+def _split(kids, xs):
+    out, i = [], 0
+    for leaves, rebuild in kids:
+        out.append(rebuild(xs[i:i + len(leaves)]))
+        i += len(leaves)
+    return out
+
+
+@dataclasses.dataclass
+class Trace:
+    """A traced call: the ATen graph and the call's real result."""
+
+    graph: torch.fx.GraphModule
+    out: Any
+
+
+class _DrawsAsConstants(TorchFunctionMode):
+    """Run the step's draws from a `torch.Generator` (dropout keep bits,
+    augmentation) outside the trace: they enter the graph as constants,
+    as values that depend on no argument (and fx cannot record a
+    generator argument)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if isinstance(kwargs.get("generator"), torch.Generator):
+            with disable_proxy_modes_tracing():
+                return func(*args, **kwargs)
+        return func(*args, **kwargs)
+
+
+def trace(fn: Callable, *args) -> Trace:
+    """Trace `fn(*args)` into an ATen `GraphModule` with `make_fx`
+    (`tracing_mode="real"`): the call runs once, on the arguments' device,
+    and its result comes back beside the graph. A read of a tensor into
+    Python (`.item()`) is recorded, not refused: the audit counts it."""
+    leaves, rebuild = flatten(args)
+    result = {}
+
+    def flat_fn(*xs):
+        with _DrawsAsConstants():
+            out = fn(*rebuild(list(xs)))
+        out_leaves, out_rebuild = flatten(out)
+        result["leaves"], result["rebuild"] = out_leaves, out_rebuild
+        return out_leaves
+
+    gm = make_fx(flat_fn, tracing_mode="real",
+                 _error_on_data_dependent_ops=False)(*leaves)
+    for node in gm.graph.nodes:
+        # tensors the step closed over (cached constants) enter as
+        # attributes; give them the metadata the op nodes carry
+        if node.op == "get_attr" and "tensor_meta" not in node.meta:
+            val = getattr(gm, node.target, None)
+            if isinstance(val, torch.Tensor):
+                node.meta["tensor_meta"] = _extract_tensor_metadata(val)
+    return Trace(gm, result["rebuild"](result["leaves"]))
+
+
+def op_name(node: torch.fx.Node) -> Optional[str]:
+    """`namespace::name` of a call node's operator (`aten::add`,
+    `eg::masked_wire`), the Python name of any other callable
+    (`getitem`), None for a node that calls nothing."""
+    if node.op != "call_function":
+        return None
+    t = node.target
+    if isinstance(t, torch._ops.OpOverload):
+        return t._schema.name
+    return getattr(t, "__name__", str(t))
+
+
+def sub_graphs(gm: torch.fx.GraphModule) -> Iterator[Tuple[str, torch.fx.GraphModule]]:
+    """Graph modules nested in `gm` (the bodies of higher-order ops)."""
+    for name, mod in gm.named_children():
+        if isinstance(mod, torch.fx.GraphModule):
+            yield name, mod
+
+
+def iter_nodes(
+    gm: torch.fx.GraphModule, path: Tuple[str, ...] = ()
+) -> Iterator[Tuple[torch.fx.Node, Tuple[str, ...]]]:
+    """(node, path) for every node, depth-first into nested graph
+    modules; `path` names the enclosing submodules."""
+    for node in gm.graph.nodes:
+        yield node, path
+    for name, sub in sub_graphs(gm):
+        yield from iter_nodes(sub, path + (name,))
+
+
+def count_ops(gm: torch.fx.GraphModule, name: Optional[str] = None) -> int:
+    """Call nodes in all (or the calls of operator `name`, as `op_name`
+    spells it), nested graphs included."""
+    return sum(
+        1 for node, _ in iter_nodes(gm)
+        if node.op == "call_function" and (name is None
+                                           or op_name(node) == name)
+    )
+
+
+def op_census(gm: torch.fx.GraphModule) -> dict:
+    """{operator: count} over every call node (the inventory the audit
+    CLI prints with `--census`)."""
+    out: dict = {}
+    for node, _ in iter_nodes(gm):
+        name = op_name(node)
+        if name is not None:
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def count_full_ravels(gm: torch.fx.GraphModule, n_total: int) -> int:
+    """Concatenations that materialize a full `[..., n_total]` model
+    buffer: the per-step footprint of a flatten of the parameter tree.
+    The rank-stacked buffer is `[R, n_total]`, so the check reads the
+    trailing dimension. A model buffer holds floating-point values: an
+    integer index over the arena (a cached position map built on the
+    step's first call) is not one."""
+    total = 0
+    for node, _ in iter_nodes(gm):
+        if op_name(node) != "aten::cat":
+            continue
+        tm = node.meta.get("tensor_meta")
+        if (tm is not None and len(tm.shape) and tm.shape[-1] == n_total
+                and tm.dtype.is_floating_point):
+            total += 1
+    return total

@@ -23,13 +23,15 @@ dtype, and the mix reads `f32(val) * mix_scale` (int8) or `f32(val)`
 
 The scalars enter as float32 values, as JAX's weakly typed scalars do,
 so the plain versions are bitwise the JAX ones and the kernels bitwise
-the plain versions.
+the plain versions. Both are dispatcher operators (`eg::fused_mix_commit`,
+`eg::fused_mix_commit_carrier`): the plain version is the CPU
+implementation and the launch the CUDA one.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +74,74 @@ def _ptrs(ts: Tensors):
     return (ctypes.c_void_p * len(ts))(*(x.data_ptr() for x in ts))
 
 
+def _check_lengths(op, cands, keeps, lasts) -> int:
+    nb = len(cands)
+    if len(keeps) != nb or len(lasts) != nb:
+        raise ValueError(f"{op}: cands/keeps/lasts lengths differ")
+    if not 1 <= nb <= 4:
+        raise ValueError(f"{op}: 1..4 neighbors, got {nb}")
+    return nb
+
+
+def _check_commit(op, p, cands, keeps, lasts, g, t, mix_scales=None,
+                  carrier=None):
+    """Validate a commit's arguments; returns (device, n, named tensors)."""
+    nb = _check_lengths(op, cands, keeps, lasts)
+    named, dtypes = {"p": p, "g": g, "t": t}, {}
+    for i in range(nb):
+        named.update({f"cand{i}": cands[i], f"keep{i}": keeps[i],
+                      f"last{i}": lasts[i]})
+        if carrier is not None:
+            dtypes.update({f"cand{i}": carrier, f"last{i}": carrier})
+        if mix_scales:
+            named[f"scale{i}"] = mix_scales[i]
+    device, n = build.check_inputs(op, dtypes=dtypes, **named)
+    return device, n, named
+
+
+@torch.library.custom_op("eg::fused_mix_commit", mutates_args=(),
+                         device_types="cpu")
+def _fused_mix_commit_op(
+    p: torch.Tensor, cands: List[torch.Tensor], keeps: List[torch.Tensor],
+    lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
+    momentum: float, mix_weight: float, mix_stale: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+    _check_commit("fused_mix_commit", p, cands, keeps, lasts, g, t)
+    p_new, t_new, bufs = mix_commit_reference(
+        p, cands, keeps, lasts, g, t, lr, momentum, mix_weight, mix_stale)
+    return p_new, t_new, list(bufs)
+
+
+@_fused_mix_commit_op.register_kernel("cuda")
+def _fused_mix_commit_cuda(p, cands, keeps, lasts, g, t, lr, momentum,
+                           mix_weight, mix_stale):
+    device, n, named = _check_commit("fused_mix_commit", p, cands, keeps,
+                                     lasts, g, t)
+    nb = len(cands)
+    p_out, t_out = torch.empty_like(p), torch.empty_like(p)
+    bufs = [torch.empty_like(p) for _ in range(nb)]
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "fused_mix_commit", lib.eg_mix_commit,
+            p.data_ptr(), g.data_ptr(), t.data_ptr(),
+            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
+            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
+            _f32(lr), _f32(momentum), _f32(mix_weight), int(bool(mix_stale)),
+            build.aligned(*named.values(), p_out, t_out, *bufs),
+            build.stream_of(device),
+        )
+    fused_mix_commit.launches += 1
+    return p_out, t_out, bufs
+
+
+@_fused_mix_commit_op.register_fake
+def _fused_mix_commit_fake(p, cands, keeps, lasts, g, t, lr, momentum,
+                           mix_weight, mix_stale):
+    return (torch.empty_like(p), torch.empty_like(p),
+            [torch.empty_like(p) for _ in cands])
+
+
 def fused_mix_commit(
     p: torch.Tensor,
     cands: Tensors,
@@ -87,37 +157,13 @@ def fused_mix_commit(
     """Fused commit+mix+SGD over flat f32 arenas of one shape (`[R, n]`
     for all ranks in one launch). `cands`/`keeps`/`lasts` hold one entry
     per neighbor: received candidates, per-POSITION f32 keep bits and the
-    stale buffers. Returns (p_new, trace_new, committed_bufs). On CPU
-    tensors this is `mix_commit_reference`; on CUDA tensors it launches
-    `csrc/mix_commit.cu` or raises."""
-    nb = len(cands)
-    if len(keeps) != nb or len(lasts) != nb:
-        raise ValueError("fused_mix_commit: cands/keeps/lasts lengths differ")
-    if not 1 <= nb <= 4:
-        raise ValueError(f"fused_mix_commit: 1..4 neighbors, got {nb}")
-    named = {"p": p, "g": g, "t": t}
-    for i in range(nb):
-        named.update({f"cand{i}": cands[i], f"keep{i}": keeps[i],
-                      f"last{i}": lasts[i]})
-    device, n = build.check_inputs("fused_mix_commit", **named)
-    if device.type == "cpu":
-        return mix_commit_reference(p, cands, keeps, lasts, g, t, lr,
-                                    momentum, mix_weight, mix_stale)
-    p_out, t_out = torch.empty_like(p), torch.empty_like(p)
-    bufs = tuple(torch.empty_like(p) for _ in range(nb))
-    lib = build.library()
-    with torch.cuda.device(device):
-        build.launch(
-            "fused_mix_commit", lib.eg_mix_commit,
-            p.data_ptr(), g.data_ptr(), t.data_ptr(),
-            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
-            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
-            _f32(lr), _f32(momentum), _f32(mix_weight), int(bool(mix_stale)),
-            build.aligned(*named.values(), p_out, t_out, *bufs),
-            build.stream_of(device),
-        )
-    fused_mix_commit.launches += 1
-    return p_out, t_out, bufs
+    stale buffers. Returns (p_new, trace_new, committed_bufs). The
+    operator `eg::fused_mix_commit`: on CPU tensors `mix_commit_reference`,
+    on CUDA tensors a launch of `csrc/mix_commit.cu` (or an error)."""
+    p_new, t_new, bufs = _fused_mix_commit_op(
+        p, list(cands), list(keeps), list(lasts), g, t, float(lr),
+        float(momentum), float(mix_weight), bool(mix_stale))
+    return p_new, t_new, tuple(bufs)
 
 
 fused_mix_commit.launches = 0
@@ -156,6 +202,73 @@ def mix_commit_carrier_reference(
     return mixed - _f32(lr) * trace, trace, bufs
 
 
+def _check_carrier(p, cands, keeps, lasts, g, t, mix_scales):
+    op = "fused_mix_commit_carrier"
+    _check_lengths(op, cands, keeps, lasts)
+    cdt = lasts[0].dtype
+    if cdt not in _CARRIERS:
+        raise TypeError(
+            f"{op}: carriers must be int8 or bfloat16, got {cdt}"
+        )
+    if (cdt == torch.int8) != bool(mix_scales):
+        raise ValueError(f"{op}: int8 carriers take mix_scales, bf16 "
+                         "carriers none")
+    if mix_scales and len(mix_scales) != len(cands):
+        raise ValueError(f"{op}: mix_scales length differs")
+    return _check_commit(op, p, cands, keeps, lasts, g, t, mix_scales,
+                         carrier=cdt)
+
+
+@torch.library.custom_op("eg::fused_mix_commit_carrier", mutates_args=(),
+                         device_types="cpu")
+def _fused_mix_commit_carrier_op(
+    p: torch.Tensor, cands: List[torch.Tensor], keeps: List[torch.Tensor],
+    lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
+    momentum: float, mix_weight: float, mix_scales: List[torch.Tensor],
+    mix_stale: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+    _check_carrier(p, cands, keeps, lasts, g, t, mix_scales)
+    p_new, t_new, bufs = mix_commit_carrier_reference(
+        p, cands, keeps, lasts, g, t, lr, momentum, mix_weight,
+        mix_scales=mix_scales or None, mix_stale=mix_stale,
+    )
+    return p_new, t_new, list(bufs)
+
+
+@_fused_mix_commit_carrier_op.register_kernel("cuda")
+def _fused_mix_commit_carrier_cuda(p, cands, keeps, lasts, g, t, lr,
+                                   momentum, mix_weight, mix_scales,
+                                   mix_stale):
+    device, n, named = _check_carrier(p, cands, keeps, lasts, g, t,
+                                      mix_scales)
+    nb = len(cands)
+    p_out, t_out = torch.empty_like(p), torch.empty_like(p)
+    bufs = [torch.empty_like(lasts[0]) for _ in range(nb)]
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "fused_mix_commit_carrier", lib.eg_mix_commit_carrier,
+            p.data_ptr(), g.data_ptr(), t.data_ptr(),
+            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
+            _ptrs(mix_scales) if mix_scales else None,
+            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
+            _f32(lr), _f32(momentum), _f32(mix_weight), int(bool(mix_stale)),
+            _CARRIERS[lasts[0].dtype],
+            build.aligned(*named.values(), p_out, t_out, *bufs),
+            build.stream_of(device),
+        )
+    fused_mix_commit_carrier.launches += 1
+    return p_out, t_out, bufs
+
+
+@_fused_mix_commit_carrier_op.register_fake
+def _fused_mix_commit_carrier_fake(p, cands, keeps, lasts, g, t, lr,
+                                   momentum, mix_weight, mix_scales,
+                                   mix_stale):
+    return (torch.empty_like(p), torch.empty_like(p),
+            [torch.empty_like(x) for x in lasts])
+
+
 def fused_mix_commit_carrier(
     p: torch.Tensor,
     cands: Tensors,
@@ -175,60 +288,15 @@ def fused_mix_commit_carrier(
     mix reads (the committed scales, or the stale buffers' with
     `mix_stale`), or bf16 with `mix_scales=None`. `keeps` are f32
     per-position keep bits; `p`, `g`, `t` f32 arenas of the same shape.
-    Returns (p_new, trace_new, committed carrier buffers). On CPU tensors
-    this is `mix_commit_carrier_reference`; on CUDA tensors it launches
-    `csrc/mix_commit_carrier.cu` or raises."""
-    nb = len(cands)
-    if len(keeps) != nb or len(lasts) != nb:
-        raise ValueError(
-            "fused_mix_commit_carrier: cands/keeps/lasts lengths differ"
-        )
-    if not 1 <= nb <= 4:
-        raise ValueError(f"fused_mix_commit_carrier: 1..4 neighbors, got {nb}")
-    cdt = lasts[0].dtype
-    if cdt not in _CARRIERS:
-        raise TypeError(
-            f"fused_mix_commit_carrier: carriers must be int8 or bfloat16, "
-            f"got {cdt}"
-        )
-    if (cdt == torch.int8) != (mix_scales is not None):
-        raise ValueError(
-            "fused_mix_commit_carrier: int8 carriers take mix_scales, "
-            "bf16 carriers none"
-        )
-    if mix_scales is not None and len(mix_scales) != nb:
-        raise ValueError("fused_mix_commit_carrier: mix_scales length differs")
-    named, dtypes = {"p": p, "g": g, "t": t}, {}
-    for i in range(nb):
-        named.update({f"cand{i}": cands[i], f"keep{i}": keeps[i],
-                      f"last{i}": lasts[i]})
-        dtypes.update({f"cand{i}": cdt, f"last{i}": cdt})
-        if mix_scales is not None:
-            named[f"scale{i}"] = mix_scales[i]
-    device, n = build.check_inputs("fused_mix_commit_carrier",
-                                   dtypes=dtypes, **named)
-    if device.type == "cpu":
-        return mix_commit_carrier_reference(
-            p, cands, keeps, lasts, g, t, lr, momentum, mix_weight,
-            mix_scales=mix_scales, mix_stale=mix_stale,
-        )
-    p_out, t_out = torch.empty_like(p), torch.empty_like(p)
-    bufs = tuple(torch.empty_like(lasts[0]) for _ in range(nb))
-    lib = build.library()
-    with torch.cuda.device(device):
-        build.launch(
-            "fused_mix_commit_carrier", lib.eg_mix_commit_carrier,
-            p.data_ptr(), g.data_ptr(), t.data_ptr(),
-            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
-            None if mix_scales is None else _ptrs(mix_scales),
-            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
-            _f32(lr), _f32(momentum), _f32(mix_weight), int(bool(mix_stale)),
-            _CARRIERS[cdt],
-            build.aligned(*named.values(), p_out, t_out, *bufs),
-            build.stream_of(device),
-        )
-    fused_mix_commit_carrier.launches += 1
-    return p_out, t_out, bufs
+    Returns (p_new, trace_new, committed carrier buffers). The operator
+    `eg::fused_mix_commit_carrier`: on CPU tensors
+    `mix_commit_carrier_reference`, on CUDA tensors a launch of
+    `csrc/mix_commit_carrier.cu` (or an error)."""
+    p_new, t_new, bufs = _fused_mix_commit_carrier_op(
+        p, list(cands), list(keeps), list(lasts), g, t, float(lr),
+        float(momentum), float(mix_weight),
+        [] if mix_scales is None else list(mix_scales), bool(mix_stale))
+    return p_new, t_new, tuple(bufs)
 
 
 fused_mix_commit_carrier.launches = 0

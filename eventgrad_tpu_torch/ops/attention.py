@@ -47,7 +47,10 @@ Functions carry a `vmap` rule that folds the mapped dimension into the
 batch, so the train step's `vmap(grad(loss))` over the ranks runs
 forward and backward as one launch per kernel. On CPU tensors the
 Functions run the plain versions; on CUDA tensors they launch the
-kernels or raise.
+kernels or raise. The three launches are dispatcher operators
+(`eg::flash_fwd`, `eg::flash_dq`, `eg::flash_dkv`), each with its plain
+version as the CPU implementation, so a traced step shows one node per
+kernel.
 """
 
 from __future__ import annotations
@@ -260,11 +263,16 @@ def _bwd_args(op, q, k, v, do, lse, delta, offs, causal, per):
     return head, tail
 
 
-def flash_fwd(q, k, v, offs, causal: bool, per: int):
-    """Forward on `[B, T, H, D]`: `(out, lse [B, T, H])`. CPU tensors run
-    the plain version; CUDA tensors launch `csrc/flash_fwd.cu`."""
-    if q.device.type == "cpu":
-        return lse_reference(q, k, v, offs, causal, per)
+@torch.library.custom_op("eg::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  offs: Optional[torch.Tensor], causal: bool,
+                  per: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return lse_reference(q, k, v, offs, causal, per)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, offs, causal, per):
     _check_cuda("flash_attention", q)
     q, k, v = _rows(q), _rows(k), _rows(v)
     b, t, h, d = q.shape
@@ -283,12 +291,31 @@ def flash_fwd(q, k, v, offs, causal: bool, per: int):
     return out, lse.transpose(1, 2)
 
 
-def flash_dq(q, k, v, do, lse, delta, offs, causal: bool, per: int):
-    """dQ `[B, T, H, D]` from q, k, v, dO (head dimension contiguous) and
-    `lse`, `delta` (f32 `[B, H, T]`). CPU tensors run the plain version;
-    CUDA tensors launch `csrc/flash_dq.cu`."""
-    if q.device.type == "cpu":
-        return dq_reference(q, k, v, do, lse, delta, offs, causal, per)
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, offs, causal, per):
+    b, t, h, _ = q.shape
+    lse = q.new_empty((b, h, t), dtype=torch.float32)
+    return torch.empty_like(q, memory_format=torch.contiguous_format), \
+        lse.transpose(1, 2)
+
+
+def flash_fwd(q, k, v, offs, causal: bool, per: int):
+    """Forward on `[B, T, H, D]`: `(out, lse [B, T, H])`. The operator
+    `eg::flash_fwd`: CPU tensors run the plain version, CUDA tensors
+    launch `csrc/flash_fwd.cu`."""
+    return _flash_fwd_op(q, k, v, offs, bool(causal), int(per))
+
+
+@torch.library.custom_op("eg::flash_dq", mutates_args=(), device_types="cpu")
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 offs: Optional[torch.Tensor], causal: bool,
+                 per: int) -> torch.Tensor:
+    return dq_reference(q, k, v, do, lse, delta, offs, causal, per)
+
+
+@_flash_dq_op.register_kernel("cuda")
+def _flash_dq_cuda(q, k, v, do, lse, delta, offs, causal, per):
     head, tail = _bwd_args("flash_attention dQ", q, k, v, do, lse, delta,
                            offs, causal, per)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -299,11 +326,31 @@ def flash_dq(q, k, v, do, lse, delta, offs, causal: bool, per: int):
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, offs, causal: bool, per: int):
-    """`(dK, dV)`, with `flash_dq`'s arguments. CPU tensors run the plain
-    version; CUDA tensors launch `csrc/flash_dkv.cu`."""
-    if q.device.type == "cpu":
-        return dkv_reference(q, k, v, do, lse, delta, offs, causal, per)
+@_flash_dq_op.register_fake
+def _flash_dq_fake(q, k, v, do, lse, delta, offs, causal, per):
+    return q.new_empty(q.shape)
+
+
+def flash_dq(q, k, v, do, lse, delta, offs, causal: bool, per: int):
+    """dQ `[B, T, H, D]` from q, k, v, dO (head dimension contiguous) and
+    `lse`, `delta` (f32 `[B, H, T]`). The operator `eg::flash_dq`: CPU
+    tensors run the plain version, CUDA tensors launch
+    `csrc/flash_dq.cu`."""
+    return _flash_dq_op(q, k, v, do, lse, delta, offs, bool(causal),
+                        int(per))
+
+
+@torch.library.custom_op("eg::flash_dkv", mutates_args=(),
+                         device_types="cpu")
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  offs: Optional[torch.Tensor], causal: bool,
+                  per: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return dkv_reference(q, k, v, do, lse, delta, offs, causal, per)
+
+
+@_flash_dkv_op.register_kernel("cuda")
+def _flash_dkv_cuda(q, k, v, do, lse, delta, offs, causal, per):
     head, tail = _bwd_args("flash_attention dK/dV", q, k, v, do, lse, delta,
                            offs, causal, per)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -313,6 +360,19 @@ def flash_dkv(q, k, v, do, lse, delta, offs, causal: bool, per: int):
                      *head, dk.data_ptr(), dv.data_ptr(), *tail)
     flash_dkv.launches += 1
     return dk, dv
+
+
+@_flash_dkv_op.register_fake
+def _flash_dkv_fake(q, k, v, do, lse, delta, offs, causal, per):
+    return q.new_empty(q.shape), q.new_empty(q.shape)
+
+
+def flash_dkv(q, k, v, do, lse, delta, offs, causal: bool, per: int):
+    """`(dK, dV)`, with `flash_dq`'s arguments. The operator
+    `eg::flash_dkv`: CPU tensors run the plain version, CUDA tensors
+    launch `csrc/flash_dkv.cu`."""
+    return _flash_dkv_op(q, k, v, do, lse, delta, offs, bool(causal),
+                         int(per))
 
 
 def flash_bwd(q, k, v, out, lse, do, dlse, offs, causal: bool, per: int):

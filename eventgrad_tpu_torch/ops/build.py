@@ -146,6 +146,9 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, offs|NULL, strides (host
     # int64[12]), b, t, h, d, n_off, per, causal, dtype, stream
     "eg_flash_dkv": [_P] * 10 + [_I] * 8 + [_P],
+    # x, o, n, stream: the auditor's seeded unregistered kernel
+    # (analysis/audit.py, eg::leak_kernel)
+    "eg_leak_x2": [_P, _P, _I64, _P],
 }
 
 

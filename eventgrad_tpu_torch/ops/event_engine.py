@@ -8,7 +8,10 @@ are jnp outside any Pallas kernel. Without
 scales `masked_wire` launches the CUDA kernel `csrc/masked_wire.cu`
 (replacing the TPU kernel `_mask_kernel`); with scales it is
 `masked_wire_int8`, the CUDA kernel `csrc/mask_quant.cu` (replacing
-`_mask_quant_kernel`). Each wrapper counts its own launches.
+`_mask_quant_kernel`). Each is a dispatcher operator (`eg::masked_wire`,
+`eg::masked_wire_int8`): the plain version is its CPU implementation and
+the launch its CUDA one, so a traced step shows the kernel as one node.
+Each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -82,22 +85,23 @@ def masked_wire_reference(
     return torch.clamp(torch.round(masked / scale_exp), -127, 127)
 
 
-def masked_wire(
-    flat: torch.Tensor,
-    fire_exp: torch.Tensor,
-    scale_exp: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Build the masked wire buffer in one pass: zero the non-fired
-    positions (`fire_exp` = f32 per-position fire bits, fire_vec[seg]),
-    quantizing against the f32 per-position `scale_exp` in the same pass
-    when it is given (`masked_wire_int8`). On a CPU tensor this is
-    `masked_wire_reference`; on a CUDA tensor it launches
-    `csrc/masked_wire.cu` or raises."""
+def _check_masked(op, flat, fire_exp, scale_exp=None):
+    named = {"flat": flat, "fire_exp": fire_exp}
     if scale_exp is not None:
-        return masked_wire_int8(flat, fire_exp, scale_exp)
-    device, n = build.check_inputs("masked_wire", flat=flat, fire_exp=fire_exp)
-    if device.type == "cpu":
-        return masked_wire_reference(flat, fire_exp)
+        named["scale_exp"] = scale_exp
+    return build.check_inputs(op, **named)
+
+
+@torch.library.custom_op("eg::masked_wire", mutates_args=(),
+                         device_types="cpu")
+def _masked_wire_op(flat: torch.Tensor, fire_exp: torch.Tensor) -> torch.Tensor:
+    _check_masked("masked_wire", flat, fire_exp)
+    return masked_wire_reference(flat, fire_exp)
+
+
+@_masked_wire_op.register_kernel("cuda")
+def _masked_wire_cuda(flat, fire_exp):
+    device, n = _check_masked("masked_wire", flat, fire_exp)
     out = torch.empty_like(flat)
     lib = build.library()
     with torch.cuda.device(device):
@@ -110,20 +114,22 @@ def masked_wire(
     return out
 
 
-def masked_wire_int8(
-    flat: torch.Tensor,
-    fire_exp: torch.Tensor,
-    scale_exp: torch.Tensor,
-) -> torch.Tensor:
-    """The int8 masked wire in one pass, as f32 values in [-127, 127]:
-    clip(round_half_even(where(fire > 0, flat, 0) / scale), -127, 127).
-    On a CPU tensor this is `masked_wire_reference`; on a CUDA tensor it
-    launches `csrc/mask_quant.cu` or raises."""
-    device, n = build.check_inputs(
-        "masked_wire_int8", flat=flat, fire_exp=fire_exp, scale_exp=scale_exp
-    )
-    if device.type == "cpu":
-        return masked_wire_reference(flat, fire_exp, scale_exp)
+@_masked_wire_op.register_fake
+def _masked_wire_fake(flat, fire_exp):
+    return torch.empty_like(flat)
+
+
+@torch.library.custom_op("eg::masked_wire_int8", mutates_args=(),
+                         device_types="cpu")
+def _masked_wire_int8_op(flat: torch.Tensor, fire_exp: torch.Tensor,
+                         scale_exp: torch.Tensor) -> torch.Tensor:
+    _check_masked("masked_wire_int8", flat, fire_exp, scale_exp)
+    return masked_wire_reference(flat, fire_exp, scale_exp)
+
+
+@_masked_wire_int8_op.register_kernel("cuda")
+def _masked_wire_int8_cuda(flat, fire_exp, scale_exp):
+    device, n = _check_masked("masked_wire_int8", flat, fire_exp, scale_exp)
     out = torch.empty_like(flat)
     lib = build.library()
     with torch.cuda.device(device):
@@ -135,6 +141,40 @@ def masked_wire_int8(
         )
     masked_wire_int8.launches += 1
     return out
+
+
+@_masked_wire_int8_op.register_fake
+def _masked_wire_int8_fake(flat, fire_exp, scale_exp):
+    return torch.empty_like(flat)
+
+
+def masked_wire(
+    flat: torch.Tensor,
+    fire_exp: torch.Tensor,
+    scale_exp: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Build the masked wire buffer in one pass: zero the non-fired
+    positions (`fire_exp` = f32 per-position fire bits, fire_vec[seg]),
+    quantizing against the f32 per-position `scale_exp` in the same pass
+    when it is given (`masked_wire_int8`). The operator `eg::masked_wire`:
+    on a CPU tensor `masked_wire_reference`, on a CUDA tensor a launch of
+    `csrc/masked_wire.cu` (or an error)."""
+    if scale_exp is not None:
+        return masked_wire_int8(flat, fire_exp, scale_exp)
+    return _masked_wire_op(flat, fire_exp)
+
+
+def masked_wire_int8(
+    flat: torch.Tensor,
+    fire_exp: torch.Tensor,
+    scale_exp: torch.Tensor,
+) -> torch.Tensor:
+    """The int8 masked wire in one pass, as f32 values in [-127, 127]:
+    clip(round_half_even(where(fire > 0, flat, 0) / scale), -127, 127).
+    The operator `eg::masked_wire_int8`: on a CPU tensor
+    `masked_wire_reference`, on a CUDA tensor a launch of
+    `csrc/mask_quant.cu` (or an error)."""
+    return _masked_wire_int8_op(flat, fire_exp, scale_exp)
 
 
 masked_wire.launches = 0

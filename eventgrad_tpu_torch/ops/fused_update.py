@@ -10,7 +10,9 @@ plain version `mix_sgd_reference`:
 
 The port calls it on the flat arena (one `[R, n]` tensor, one launch),
 the JAX package's single-flat-leaf case; the per-leaf pytree dispatch of
-the JAX function is not needed there.
+the JAX function is not needed there. It is the dispatcher operator
+`eg::fused_mix_sgd`: the plain version is its CPU implementation and the
+launch its CUDA one.
 """
 
 from __future__ import annotations
@@ -37,26 +39,28 @@ def mix_sgd_reference(
     return mixed - _f32(lr) * new_trace, new_trace
 
 
-def fused_mix_sgd(
-    params: torch.Tensor,
-    buf_sum: torch.Tensor,
-    grads: torch.Tensor,
-    trace: torch.Tensor,
-    lr: float,
-    momentum: float,
-    mix_weight: float,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused mix + SGD over f32 arenas of one shape. `buf_sum` is the
-    elementwise sum of the neighbor buffers. Returns (new_params,
-    new_trace). On CPU tensors this is `mix_sgd_reference`; on CUDA
-    tensors it launches `csrc/mix_sgd.cu` or raises."""
-    device, n = build.check_inputs(
+def _check(params, buf_sum, grads, trace):
+    return build.check_inputs(
         "fused_mix_sgd", params=params, buf_sum=buf_sum, grads=grads,
         trace=trace,
     )
-    if device.type == "cpu":
-        return mix_sgd_reference(params, buf_sum, grads, trace, lr,
-                                 momentum, mix_weight)
+
+
+@torch.library.custom_op("eg::fused_mix_sgd", mutates_args=(),
+                         device_types="cpu")
+def _fused_mix_sgd_op(
+    params: torch.Tensor, buf_sum: torch.Tensor, grads: torch.Tensor,
+    trace: torch.Tensor, lr: float, momentum: float, mix_weight: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(params, buf_sum, grads, trace)
+    return mix_sgd_reference(params, buf_sum, grads, trace, lr, momentum,
+                             mix_weight)
+
+
+@_fused_mix_sgd_op.register_kernel("cuda")
+def _fused_mix_sgd_cuda(params, buf_sum, grads, trace, lr, momentum,
+                        mix_weight):
+    device, n = _check(params, buf_sum, grads, trace)
     p_out, t_out = torch.empty_like(params), torch.empty_like(params)
     lib = build.library()
     with torch.cuda.device(device):
@@ -70,6 +74,30 @@ def fused_mix_sgd(
         )
     fused_mix_sgd.launches += 1
     return p_out, t_out
+
+
+@_fused_mix_sgd_op.register_fake
+def _fused_mix_sgd_fake(params, buf_sum, grads, trace, lr, momentum,
+                        mix_weight):
+    return torch.empty_like(params), torch.empty_like(params)
+
+
+def fused_mix_sgd(
+    params: torch.Tensor,
+    buf_sum: torch.Tensor,
+    grads: torch.Tensor,
+    trace: torch.Tensor,
+    lr: float,
+    momentum: float,
+    mix_weight: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused mix + SGD over f32 arenas of one shape. `buf_sum` is the
+    elementwise sum of the neighbor buffers. Returns (new_params,
+    new_trace). The operator `eg::fused_mix_sgd`: on CPU tensors
+    `mix_sgd_reference`, on CUDA tensors a launch of `csrc/mix_sgd.cu`
+    (or an error)."""
+    return _fused_mix_sgd_op(params, buf_sum, grads, trace, float(lr),
+                             float(momentum), float(mix_weight))
 
 
 fused_mix_sgd.launches = 0

@@ -86,6 +86,26 @@ CASES = {
 }
 
 
+class _InitOnce:
+    """A JAX model whose flax `init` runs once per test module: every
+    case here starts from the same seed, so the initial variables are
+    shared (the JAX `init_train_state` calls nothing else of the model).
+    The small ResNet's flax init is the costliest JAX call of the file
+    after the step compiles."""
+
+    _variables: dict = {}
+
+    def __init__(self, model):
+        self.model = model
+
+    def init(self, rng, x):
+        key = (repr(self.model), tuple(x.shape), str(x.dtype),
+               bool(jax.config.jax_enable_x64), np.asarray(rng).tobytes())
+        if key not in self._variables:
+            self._variables[key] = self.model.init(rng, x)
+        return self._variables[key]
+
+
 def _models(name):
     if name == "mlp":
         return JaxMLP(), MLP(), (28, 28, 1)
@@ -162,8 +182,9 @@ def _run(case):
     out = []
     with jax.enable_x64(model_name == "resnet"):
         jstate = jax_init_state(
-            jmodel, shape, tx, jtopo, algo, JaxEventConfig(**CFG), seed=0,
-            arena=True, staleness=kw.get("staleness", 0),
+            _InitOnce(jmodel), shape, tx, jtopo, algo,
+            JaxEventConfig(**CFG), seed=0, arena=True,
+            staleness=kw.get("staleness", 0),
             sparse_cfg=JaxSparseConfig(TOPK))
         jstep = jax.jit(spmd(jax_make_step(
             jmodel, tx, jtopo, algo, JaxEventConfig(**CFG),

@@ -1,0 +1,199 @@
+"""The port's source lint against the JAX package's.
+
+The port's sources lint clean; each ported rule fires on a seeded
+violation written under `tmp_path`, with the same count as the JAX rule
+on the JAX-spelled twin of that seed; and the auditor's named exemption
+(the seeded unregistered kernel in `analysis/audit.py`) stays honest.
+"""
+
+import pytest
+
+from eventgrad_tpu.analysis import lint as jax_lint
+from eventgrad_tpu_torch.analysis import kernels, lint
+
+RULES = {r.name: r for r in lint.RULES}
+JAX_RULES = {r.name: r for r in jax_lint.RULES}
+
+#: (port rule, JAX rule, port seed (path, source), JAX twin (path,
+#: source), violations each must report)
+SEEDS = {
+    "host-sync": (
+        "no-host-sync-in-traced", "no-host-sync-in-traced",
+        ("eventgrad_tpu_torch/parallel/seeded.py",
+         "def f(x):\n    a = x.sum().item()\n"
+         "    torch.cuda.synchronize()\n    return a\n"),
+        ("eventgrad_tpu/parallel/seeded.py",
+         "def f(x):\n    a = x.sum().block_until_ready()\n"
+         "    jax.device_get(a)\n    return a\n"),
+        2,
+    ),
+    "host-sync-outside-scope": (
+        "no-host-sync-in-traced", "no-host-sync-in-traced",
+        ("eventgrad_tpu_torch/utils/seeded.py",
+         "def f(x):\n    return x.sum().item()\n"),
+        ("eventgrad_tpu/utils/seeded.py",
+         "def f(x):\n    return x.sum().block_until_ready()\n"),
+        0,
+    ),
+    "kernel-op": (
+        "kernel-registered", "pallas-kernel-registered",
+        ("eventgrad_tpu_torch/ops/seeded.py",
+         "import torch\n\n"
+         "@torch.library.custom_op('eg::rogue', mutates_args=())\n"
+         "def rogue(x: torch.Tensor) -> torch.Tensor:\n"
+         "    return x * 3.0\n"),
+        ("eventgrad_tpu/ops/seeded.py",
+         "from jax.experimental import pallas as pl\n\n"
+         "def _rogue_kernel(x_ref, o_ref):\n"
+         "    o_ref[...] = x_ref[...] * 3.0\n\n"
+         "def rogue(x):\n"
+         "    return pl.pallas_call(_rogue_kernel, out_shape=x)(x)\n"),
+        1,
+    ),
+    "kernel-launch": (
+        "kernel-registered", "pallas-kernel-registered",
+        ("eventgrad_tpu_torch/ops/seeded.py",
+         "def rogue(lib, x, o):\n"
+         "    lib.eg_rogue(x.data_ptr(), o.data_ptr(), x.numel(), None)\n"),
+        ("eventgrad_tpu/ops/seeded.py",
+         "from jax.experimental import pallas as pl\n\n"
+         "def rogue(x):\n"
+         "    return pl.pallas_call(_rogue_kernel, out_shape=x)(x)\n"),
+        1,
+    ),
+    "kernel-registered-elsewhere": (
+        "kernel-registered", "pallas-kernel-registered",
+        ("eventgrad_tpu_torch/ops/seeded.py",
+         "import torch\n\n"
+         "@torch.library.custom_op('eg::masked_wire', mutates_args=())\n"
+         "def again(x: torch.Tensor) -> torch.Tensor:\n"
+         "    return x\n"),
+        ("eventgrad_tpu/ops/seeded.py",
+         "from jax.experimental import pallas as pl\n\n"
+         "def again(x):\n"
+         "    return pl.pallas_call(_mask_kernel, out_shape=x)(x)\n"),
+        1,
+    ),
+    "trigger-policy": (
+        "trigger-policy-registered", "trigger-policy-registered",
+        ("eventgrad_tpu_torch/train/seeded.py",
+         "def f(train):\n"
+         "    return train(trigger_policy='nope'), train(trigger_policy="
+         "'micro')\n"),
+        ("eventgrad_tpu/train/seeded.py",
+         "def f(train):\n"
+         "    return train(trigger_policy='nope'), train(trigger_policy="
+         "'micro')\n"),
+        1,
+    ),
+    "carrier-dtype": (
+        "carrier-dtype-declared", "carrier-dtype-declared",
+        ("eventgrad_tpu_torch/train/seeded.py",
+         "import torch\n\n"
+         "def f(state, bufs):\n"
+         "    return state.replace(bufs=tuple(b.to(torch.int8) "
+         "for b in bufs))\n"),
+        ("eventgrad_tpu/train/seeded.py",
+         "import jax.numpy as jnp\n\n"
+         "def f(state, bufs):\n"
+         "    return state.replace(bufs=tuple(b.astype(jnp.int8) "
+         "for b in bufs))\n"),
+        1,
+    ),
+}
+
+
+def _source(tmp_path, rel, text, module):
+    path = tmp_path / rel
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return module.SourceFile(path=str(path), rel=rel, text=text)
+
+
+def test_port_sources_lint_clean():
+    assert lint.run() == []
+    assert [r.name for r in lint.RULES] == [
+        "no-host-sync-in-traced", "kernel-registered",
+        "trigger-policy-registered", "carrier-dtype-declared"]
+
+
+@pytest.mark.parametrize("seed", list(SEEDS))
+def test_rule_fires_like_its_jax_twin(seed, tmp_path):
+    rule, jax_rule, (rel, text), (jrel, jtext), want = SEEDS[seed]
+    port = lint.run([RULES[rule]],
+                    files=[_source(tmp_path / "port", rel, text, lint)])
+    jax_v = jax_lint.run([JAX_RULES[jax_rule]],
+                         files=[_source(tmp_path / "jax", jrel, jtext,
+                                        jax_lint)])
+    assert len(port) == len(jax_v) == want, (port, jax_v)
+    assert all(v.rule == rule and v.path == rel for v in port)
+
+
+def _package_files(drop=None, replace=None):
+    """The port's sources, with one file's text edited."""
+    files = lint.collect_sources()
+    out = []
+    for sf in files:
+        if sf.rel == drop:
+            text = sf.text.replace(*replace)
+            assert text != sf.text
+            sf = lint.SourceFile(path=sf.path, rel=sf.rel, text=text)
+        out.append(sf)
+    return out
+
+
+def test_stale_registry_entry_flags_like_its_jax_twin():
+    """A registry entry whose module no longer defines its op has gone
+    stale, as a JAX entry whose module no longer calls its kernel."""
+    port = lint.run([RULES["kernel-registered"]], files=_package_files(
+        "eventgrad_tpu_torch/ops/fused_update.py",
+        ('custom_op("eg::fused_mix_sgd"', 'custom_op("eg::renamed"')))
+    # the renamed op is unregistered, and the entry stale
+    assert sorted(v.message.split(" —")[0] for v in port) == [
+        "kernel op 'eg::renamed' has no declared rank layout",
+        "registered kernel 'eg::fused_mix_sgd' is not defined in "
+        "eventgrad_tpu_torch/ops/fused_update.py",
+    ]
+    jfiles = [
+        jax_lint.SourceFile(path=sf.path, rel=sf.rel,
+                            text=sf.text.replace("partial(_kernel,",
+                                                 "partial(_renamed,")
+                            if sf.rel == "eventgrad_tpu/ops/fused_update.py"
+                            else sf.text)
+        for sf in jax_lint.collect_sources(subdirs=("eventgrad_tpu",))
+    ]
+    jax_v = jax_lint.run([JAX_RULES["pallas-kernel-registered"]],
+                         files=jfiles)
+    assert len(jax_v) == len(port) == 2, jax_v
+
+
+def test_leak_exemption_stays_honest(monkeypatch):
+    """The auditor's seeded kernel is exempt only while it is what the
+    exemption says: an unregistered op with an unregistered launch."""
+    audit_rel = "eventgrad_tpu_torch/analysis/audit.py"
+    rule = RULES["kernel-registered"]
+    assert audit_rel in rule.EXEMPT
+    # without the fixture's op the exemption has gone stale
+    stale = lint.run([rule], files=_package_files(
+        audit_rel, ('custom_op("eg::leak_kernel"', 'custom_op(None')))
+    assert [v.path for v in stale] == [audit_rel]
+    assert "no longer defines and launches" in stale[0].message
+    # registering the fixture would let the oracle pass it
+    monkeypatch.setitem(kernels.REGISTRY, "leak_kernel", kernels.KernelSig(
+        "leak_kernel", audit_rel, "eg_leak_x2"))
+    registered = lint.run([rule])
+    assert any("is registered" in v.message for v in registered)
+    # the JAX rule's exemption flags the same way when its seed is gone
+    jfiles = [
+        jax_lint.SourceFile(path=sf.path, rel=sf.rel,
+                            text=sf.text.replace("pl.pallas_call(\n"
+                                                 "            _leak_kernel",
+                                                 "pl.pallas_kall(\n"
+                                                 "            _leak_kernel")
+                            if sf.rel == "eventgrad_tpu/analysis/audit.py"
+                            else sf.text)
+        for sf in jax_lint.collect_sources(subdirs=("eventgrad_tpu",))
+    ]
+    jax_v = jax_lint.run([JAX_RULES["pallas-kernel-registered"]],
+                         files=jfiles)
+    assert [v.path for v in jax_v] == ["eventgrad_tpu/analysis/audit.py"]

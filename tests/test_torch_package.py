@@ -19,6 +19,14 @@ from eventgrad_tpu_torch.models.resnet import ResNet
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "eventgrad_tpu")
 
+# The tier-1 command runs the suite in several xdist workers on one host,
+# and each worker collects (imports) every test module before it runs any
+# test, so this sets the whole session. Torch's intra-op pool, one thread
+# per core in every worker, oversubscribed the cores: the port's files
+# took 1,165 s under 6 workers with it and 312 s with one thread (all
+# 376 cases passing both ways; CHANGES.md, PR 9).
+torch.set_num_threads(1)
+
 
 def _port_sources():
     files = sorted((ROOT / "eventgrad_tpu_torch").rglob("*.py"))
@@ -37,6 +45,18 @@ def _imported_roots(tree):
               in ("import_module", "__import__")
               and node.args and isinstance(node.args[0], ast.Constant)):
             yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+def test_import_scan_covers_the_analysis_subpackage():
+    """The scan below reads every module of `eventgrad_tpu_torch/analysis/`
+    (the auditor and the lint keep their own copies of what they need
+    from the JAX package's analysis modules, which import no JAX
+    themselves) and `chip_smoke.py`."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in ("__init__", "walker", "kernels", "rankflow", "audit",
+                 "lint"):
+        assert f"eventgrad_tpu_torch/analysis/{name}.py" in scanned
+    assert "chip_smoke.py" in scanned
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -125,6 +145,7 @@ def test_train_on_cpu_records():
 def test_refusals_name_their_roadmap_item():
     """Every feature the port refuses raises NotImplementedError naming
     the ROADMAP queue-1 item that ports it."""
+    from eventgrad_tpu_torch.analysis import audit
     from eventgrad_tpu_torch.data.datasets import load_or_synthesize
     from eventgrad_tpu_torch.ops import attention
     from eventgrad_tpu_torch.parallel import collectives
@@ -152,6 +173,11 @@ def test_refusals_name_their_roadmap_item():
                                     SparseState.init(flat, egt.Ring(8)),
                                     egt.Ring(8), SparseConfig(), spec,
                                     staleness=2),
+            # the audit cells and oracles of buckets and staleness >= 2
+            lambda: audit.config_by_name("event_masked_f32_arena_b4"),
+            lambda: audit.config_by_name("sp_f32_tree_stale2"),
+            lambda: audit.oracle("late_delivery_drift"),
+            lambda: audit.oracle("bucket_undeclared_offset"),
         ],
         "item 6": [
             lambda: collectives.masked_neighbor_vals_flat(
@@ -162,12 +188,16 @@ def test_refusals_name_their_roadmap_item():
             lambda: compact(finite=True),
             lambda: compact(corrupt=lambda i, x: x),
             lambda: load_or_synthesize("mnist", "/data", "train"),
+            lambda: audit.config_by_name("event_masked_int8_tree_chaos"),
+            lambda: audit.config_by_name("event_masked_f32_arena_integrity"),
         ],
         "item 7": [
             lambda: egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,
                                       max_len=8, attn="ring"),
             lambda: ring_attention(q, q, q, egt.Torus(2, 2)),
         ],
+        # the multi-GPU backend's audit oracle
+        "item 8": [lambda: audit.oracle("mesh_undeclared_offset")],
         # the CUDA kernels' head-width check; no CPU call reaches it (CPU
         # tensors take the plain versions, which accept any width)
         "item 10": [

@@ -74,6 +74,26 @@ PASSES = 6
 CFG = dict(adaptive=True, horizon=0.6, warmup_passes=2, max_silence=4)
 
 
+class _InitOnce:
+    """A JAX model whose flax `init` runs once per test module: every
+    case here starts from the same seed, so the initial variables are
+    shared (the JAX `init_train_state` calls nothing else of the model).
+    The small ResNet's flax init is the costliest JAX call of the file
+    after the step compiles."""
+
+    _variables: dict = {}
+
+    def __init__(self, model):
+        self.model = model
+
+    def init(self, rng, x):
+        key = (repr(self.model), tuple(x.shape), str(x.dtype),
+               bool(jax.config.jax_enable_x64), np.asarray(rng).tobytes())
+        if key not in self._variables:
+            self._variables[key] = self.model.init(rng, x)
+        return self._variables[key]
+
+
 def _batches(n_steps):
     x, y = jax_synthetic(R * PER_RANK * n_steps, SHAPE, seed=4)
     x = x.reshape((n_steps, R, PER_RANK) + SHAPE)
@@ -116,8 +136,9 @@ def _run_both(algo, n_steps, trace=True, **wire_kw):
                             fused_sgd=(LR, MOM), trace=trace, **wire_kw)
     passes = []
     with jax.enable_x64(True):
-        jstate = jax_init_state(jmodel, SHAPE, tx, jtopo, algo,
-                                JaxEventConfig(**CFG), seed=0, arena=True,
+        jstate = jax_init_state(_InitOnce(jmodel), SHAPE, tx, jtopo,
+                                algo, JaxEventConfig(**CFG), seed=0,
+                                arena=True,
                                 staleness=wire_kw.get("staleness", 0),
                                 resident_wire=resident)
         tstate = _port_state(jstate, spec, topo, algo, resident)
