@@ -24,6 +24,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    commit runs on int8 carriers (with scales) and on bf16 carriers, and
    on int8 it must equal the f32 commit kernel fed the dequantized
    buffers, bitwise (p', t' and the dequantized committed buffers).
+   Then the pitched (bucket) forms of kernels 1, 2, 3 and 5 over the
+   ResNet-18 arena cut into 4 leaf-aligned buckets, as the bucketed step
+   calls them (the arenas read and written in place at each bucket's
+   columns): each bucket bitwise its plain version, the four launches
+   timed beside the plain versions and the contiguous form.
    Then the three flash-attention kernels (forward, dQ, dK/dV) at the
    transformer legs' shapes (B = 32 = 8 ranks x 4, T = 1024, and H = 8,
    D = 64 or H = 16, D = 128; causal, q/k/v as strided views of one
@@ -123,9 +128,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    0.125, the other legs' msgs-saved-% within 6.0 points of the
    reference leg's, every test accuracy at least the reference leg's
    less 4.0 points, every loss finite, the kernels launched;
-8. audit — the static-analysis path on the card: the audit CLI
+8. bucketed + bounded-async — on the flagship op-point (ResNet-18 in
+   bf16, Ring(8), global batch 256, SGD lr 0.01 momentum 0.9, the
+   adaptive trigger; 6 passes a leg through `train`), under
+   `torch.use_deterministic_algorithms(True)` (CUBLAS_WORKSPACE_CONFIG
+   set before CUDA is first used; the setting restored after): (a)
+   EventGraD masked f32 and masked int8 carrier-resident at K = 4
+   buckets against the monolithic schedule, bitwise (parameters, trace,
+   trigger state, receive buffers and scales, records), the bucketed
+   kernels launched 4 times a pass on the bucket's columns (the pitched
+   forms), wire-real exactly 139,557,632 / 34,890,224; (b) D = 2 at the
+   baseline lag against staleness 1 on both wires, bitwise, no late
+   commits; (c) the composed stack, K = 4 x compact int8 carrier at
+   compact_frac 0.375 (capacity raised to the bucketed floor 7,667,712)
+   x D = 4 under `slow=1@7`: the staleness gauge exactly 4 on the edges
+   rank 1 feeds and 1 elsewhere, late commits > 0, wire-real 34,890,224
+   (dense first epoch) then exactly 15,336,284, and a second run
+   bitwise the first (queues included); (d) sparsified EventGraD top-k
+   10% at K = 4: D = 2 against staleness 1 bitwise, wire-real exactly
+   27,912,332. Then (e) the straggler op-point
+   (`eventgrad_tpu_torch/utils/straggler.py`: MLP 16, 1,440 passes,
+   the composed stack, `slow=2@6`, D = 1, 2, 4): late commits exactly
+   the JAX artifact's (`artifacts/straggler_ablation_cpu.json`: 2,876 /
+   2,872), the gauge exactly D, msgs-saved-% within 6.0 points of the
+   JAX legs, test accuracy at least the JAX leg's less 4.0 points
+   (98.05 / 98.24 / 98.44) and the bounded legs' at least the lockstep
+   leg's less 4.0, every loss finite;
+9. audit — the static-analysis path on the card: the audit CLI
    (`python -m eventgrad_tpu_torch.analysis.audit --device cuda`) over
-   the 21 ported cells of the JAX auditor's matrix and its 11 oracles,
+   the 28 ported cells of the JAX auditor's matrix and its 14 oracles,
    plus the lint: every cell clean (rank isolation, the declared ring
    offsets, bytes per neighbour derived from the traced exchange lanes
    == the accounting formula == the step's `sent_bytes_wire_real`,
@@ -138,7 +169,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    with derived bytes per neighbour 69,778,814 / 69,778,728 /
    26,167,110 / 6,542,186 equal to the formula, and the float32 metric
    139,557,632 / 139,557,456 / 52,334,220 / 13,084,372;
-9. summary — one JSON line of every kernel's numbers, the card's name and
+10. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -560,7 +591,151 @@ def phase_kernels():
         log(json.dumps({"kernel": name, "elements": n, **{
             k: v for k, v in r.items() if k != "bound"},
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}))
+    recs["pitched"] = _pitched_kernels(spec, gen, recs)
     return recs
+
+
+#: buckets of the bucketed schedule on the flagship legs
+BUCKETS = 4
+
+
+def _pitched_kernels(spec, gen, recs):
+    """The pitched (bucket) forms of kernels 1, 2, 3 and 5 over the
+    ResNet-18 arena cut into BUCKETS leaf-aligned buckets, as the
+    bucketed step calls them: the arena operands whole `[8, n]` arenas
+    read (and written) at each bucket's columns, the bucket operands `[8,
+    n_b]`. Each bucket's outputs are held bitwise against the plain
+    version on the same inputs; the four launches together (the whole
+    arena) are timed beside the plain versions and the contiguous form.
+    Returns {kernel: record}."""
+    import torch
+
+    from eventgrad_tpu_torch.ops import arena_update, event_engine
+    from eventgrad_tpu_torch.parallel import collectives
+
+    dev = torch.device(DEVICE)
+    buckets = spec.buckets(BUCKETS)
+    log(f"== pitched forms: {BUCKETS} buckets of "
+        f"{[b.size for b in buckets]} columns (offsets "
+        f"{[b.start for b in buckets]})")
+    arena = lambda: torch.randn((RANKS, spec.n_total), generator=gen,
+                                device=dev)
+    per_b = lambda make: [make(b) for b in buckets]
+    randb = lambda b: torch.randn((RANKS, b.size), generator=gen, device=dev)
+    bitsb = lambda b: (torch.rand((RANKS, b.size), generator=gen, device=dev)
+                       < 0.5).to(torch.float32)
+    int8b = lambda b: torch.randint(-127, 128, (RANKS, b.size), generator=gen,
+                                    device=dev, dtype=torch.int8)
+    scaleb = lambda b: collectives._contract_safe(torch.rand(
+        (RANKS, b.size), generator=gen, device=dev) * 0.05 + 1e-3)
+    lr, mom, w = 0.01, 0.9, 1.0 / 3.0
+    view = lambda x, b: x[:, b.start:b.start + b.size]
+    out = {}
+
+    flat = arena()
+    fire, scale = per_b(bitsb), per_b(scaleb)
+    err = 0.0
+    for i, b in enumerate(buckets):
+        err = max(err, max_abs_err(
+            [event_engine.masked_wire(flat, fire[i], off=b.start)],
+            [event_engine.masked_wire_reference(view(flat, b), fire[i])]))
+    out["masked_wire"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: [event_engine.masked_wire(flat, fire[i],
+                                                     off=b.start)
+                            for i, b in enumerate(buckets)]),
+        plain_ms=time_ms(lambda: [event_engine.masked_wire_reference(
+            view(flat, b), fire[i]) for i, b in enumerate(buckets)]))
+    err = 0.0
+    for i, b in enumerate(buckets):
+        err = max(err, max_abs_err(
+            [event_engine.masked_wire_int8(flat, fire[i], scale[i],
+                                           off=b.start)],
+            [event_engine.masked_wire_reference(view(flat, b), fire[i],
+                                                scale[i])]))
+    out["masked_wire_int8"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: [event_engine.masked_wire_int8(
+            flat, fire[i], scale[i], off=b.start)
+            for i, b in enumerate(buckets)]),
+        plain_ms=time_ms(lambda: [event_engine.masked_wire_reference(
+            view(flat, b), fire[i], scale[i])
+            for i, b in enumerate(buckets)]))
+    del flat, fire, scale
+
+    p, g, t = arena(), arena(), arena()
+    cands = [per_b(randb) for _ in range(NB)]
+    keeps = [per_b(bitsb) for _ in range(NB)]
+    lasts = [per_b(randb) for _ in range(NB)]
+    nbr = lambda xs, i: tuple(x[i] for x in xs)
+    p_out, t_out = torch.empty_like(p), torch.empty_like(p)
+
+    def commit_all():
+        for i, b in enumerate(buckets):
+            arena_update.fused_mix_commit(
+                p, nbr(cands, i), nbr(keeps, i), nbr(lasts, i), g, t, lr,
+                mom, w, off=b.start, out=(p_out, t_out))
+
+    def commit_plain():
+        for i, b in enumerate(buckets):
+            arena_update.mix_commit_reference(
+                view(p, b), nbr(cands, i), nbr(keeps, i), nbr(lasts, i),
+                view(g, b), view(t, b), lr, mom, w)
+
+    err = 0.0
+    for i, b in enumerate(buckets):
+        _, _, bufs = arena_update.fused_mix_commit(
+            p, nbr(cands, i), nbr(keeps, i), nbr(lasts, i), g, t, lr, mom,
+            w, off=b.start, out=(p_out, t_out))
+        pr, tr, br = arena_update.mix_commit_reference(
+            view(p, b), nbr(cands, i), nbr(keeps, i), nbr(lasts, i),
+            view(g, b), view(t, b), lr, mom, w)
+        err = max(err, max_abs_err(
+            [view(p_out, b).contiguous(), view(t_out, b).contiguous(), *bufs],
+            [pr, tr, *br]))
+    out["fused_mix_commit"] = dict(max_abs_err=err, ms=time_ms(commit_all),
+                                   plain_ms=time_ms(commit_plain))
+    del cands, lasts
+
+    cq = [per_b(int8b) for _ in range(NB)]
+    lq = [per_b(int8b) for _ in range(NB)]
+    sc = [per_b(scaleb) for _ in range(NB)]
+    fmc = arena_update.fused_mix_commit_carrier
+
+    def carrier_all():
+        for i, b in enumerate(buckets):
+            fmc(p, nbr(cq, i), nbr(keeps, i), nbr(lq, i), g, t, lr, mom, w,
+                mix_scales=nbr(sc, i), off=b.start, out=(p_out, t_out))
+
+    def carrier_plain():
+        for i, b in enumerate(buckets):
+            arena_update.mix_commit_carrier_reference(
+                view(p, b), nbr(cq, i), nbr(keeps, i), nbr(lq, i),
+                view(g, b), view(t, b), lr, mom, w, mix_scales=nbr(sc, i))
+
+    err = 0.0
+    for i, b in enumerate(buckets):
+        _, _, bufs = fmc(p, nbr(cq, i), nbr(keeps, i), nbr(lq, i), g, t, lr,
+                         mom, w, mix_scales=nbr(sc, i), off=b.start,
+                         out=(p_out, t_out))
+        pr, tr, br = arena_update.mix_commit_carrier_reference(
+            view(p, b), nbr(cq, i), nbr(keeps, i), nbr(lq, i), view(g, b),
+            view(t, b), lr, mom, w, mix_scales=nbr(sc, i))
+        err = max(err, max_abs_err(
+            [view(p_out, b).contiguous(), view(t_out, b).contiguous(), *bufs],
+            [pr, tr, *br]))
+    out["fused_mix_commit_carrier"] = dict(
+        max_abs_err=err, ms=time_ms(carrier_all),
+        plain_ms=time_ms(carrier_plain))
+    del p, g, t, keeps, cq, lq, sc, p_out, t_out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        r["contiguous_ms"] = recs[name]["ms"]
+        r["bound_ms"] = recs[name]["bound"][0]
+        log(json.dumps({"pitched": name, "buckets": BUCKETS,
+                        "launches": BUCKETS, **r}))
+    return out
 
 
 def within(got, want, atol, rtol, what) -> float:
@@ -1425,6 +1600,272 @@ def phase_frontier():
     return totals
 
 
+#: the composed leg (c): K = 4, compact int8 carrier at compact_frac
+#: 0.375, D = 4, rank 1 a straggler 7 passes late. At K = 4 the bucketed
+#: floor (the four buckets' largest leaves, 7,667,712) is above
+#: ceil(0.375 n) = 6,541,756, and train() raises the capacity to it as
+#: the JAX loop does: wire-real 2 x (7,667,712 + 86 + 4 x 86)
+COMPOSED_CAPACITY = 7_667_712
+COMPOSED_WIRE_REAL = 2 * (COMPOSED_CAPACITY + 86 + 4 * 86)
+#: wire-real of the masked f32 / int8 legs and sparsified EventGraD at
+#: top-k 10%, per step per chip
+MASKED_F32_WIRE_REAL = 139_557_632
+SP_TOP10_WIRE_REAL = 27_912_332
+
+
+def _same_bits(a, b, what):
+    import torch
+
+    if a is None and b is None:
+        return
+    if isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise SmokeError(f"{what}: structure differs")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_bits(x, y, f"{what}[{i}]")
+        return
+    width = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+            a.view(width.get(a.dtype, a.dtype)),
+            b.view(width.get(b.dtype, b.dtype))):
+        raise SmokeError(f"{what}: not bitwise equal")
+
+
+def _flat_bufs(bufs):
+    import torch
+
+    return tuple(torch.cat(b, dim=-1) if isinstance(b, tuple) else b
+                 for b in bufs)
+
+
+def _same_state(a, b, what, bufs=True):
+    """Parameters, momentum trace, trigger state (and receive buffers and
+    scales, in either layout) bitwise."""
+    _same_bits(a.params, b.params, f"{what} params")
+    _same_bits(a.trace, b.trace, f"{what} trace")
+    for f in ("thres", "last_sent_norm", "last_sent_iter", "slopes",
+              "num_events", "num_deferred"):
+        _same_bits(getattr(a.event, f), getattr(b.event, f), f"{what} {f}")
+    if bufs and a.event.bufs:
+        _same_bits(_flat_bufs(a.event.bufs), _flat_bufs(b.event.bufs),
+                   f"{what} bufs")
+        if a.event.buf_scales is not None:
+            _same_bits(_flat_bufs(a.event.buf_scales),
+                       _flat_bufs(b.event.buf_scales), f"{what} scales")
+
+
+def _same_records(ha, hb, what, keys=("loss", "train_acc", "msgs_saved_pct",
+                                      "sent_bytes_per_step_per_chip",
+                                      "sent_bytes_wire_real_per_step_per_chip",
+                                      "num_events", "num_deferred")):
+    for ra, rb in zip(ha, hb):
+        for k in keys:
+            if ra.get(k) != rb.get(k):
+                raise SmokeError(f"{what}: record {k} {ra.get(k)} != "
+                                 f"{rb.get(k)}")
+
+
+def phase_bucketed_async():
+    """The bucketed schedule and bounded-async EventGraD on the flagship:
+    bitwise legs under deterministic algorithms, the composed stack under
+    a straggler, sparsified EventGraD's payload queue, and the straggler
+    op-point's accuracy legs. Returns the launches of each kernel."""
+    import os
+
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.chaos import inject
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.parallel import collectives
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+    from eventgrad_tpu_torch.utils import straggler
+
+    log(f"== bucketed + bounded-async: ResNet-18 (bf16 compute) x Ring(8), "
+        f"global batch 256, K = {BUCKETS}")
+    spec = arena_spec(egt.ResNet18())
+    buckets = spec.buckets(BUCKETS)
+    floor = collectives.bucketed_capacity_floor(buckets)
+    cap = min(spec.n_total, max(spec.floor, floor,
+                                math.ceil(0.375 * spec.n_total)))
+    if cap != COMPOSED_CAPACITY or floor != COMPOSED_CAPACITY:
+        raise SmokeError(f"bucketed floor {floor}, capacity {cap}")
+    per_rank, steps, epochs = 32, 3, 2
+    passes = steps * epochs
+    x, y = synthetic_dataset(RANKS * per_rank * steps, (32, 32, 3), seed=0)
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                          max_silence=50)
+    totals, recs = {}, {}
+
+    def run(leg, algo="eventgrad", must=None, **kw):
+        if "topk_percent" in kw:
+            kw["sparse_cfg"] = egt.SparseConfig(kw.pop("topk_percent"))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        state, hist = egt.train(
+            egt.ResNet18(dtype=torch.bfloat16), egt.Ring(RANKS), x, y,
+            algo=algo, epochs=epochs, batch_size=per_rank,
+            learning_rate=0.01, momentum=0.9, event_cfg=cfg,
+            random_sampler=True, seed=0, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for k, n in (must or {}).items():
+            if counts[k] != n:
+                raise SmokeError(f"{leg}: {k} launched {counts[k]} times, "
+                                 f"expected {n}")
+        if not all(math.isfinite(r["loss"]) for r in hist):
+            raise SmokeError(f"{leg}: a loss is not finite")
+        last = hist[-1]
+        rec = {"leg": leg, "step_ms": 1e3 * last["wall_s"] / last["steps"],
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "wire_real": [r["sent_bytes_wire_real_per_step_per_chip"]
+                             for r in hist],
+               "launches_per_step": {k: v / passes for k, v in counts.items()
+                                     if v},
+               **{k: last[k] for k in ("loss", "msgs_saved_pct",
+                                       "edge_staleness_max", "late_commits",
+                                       "compact_capacity", "buckets")
+                  if k in last}}
+        recs[leg] = rec
+        log(json.dumps(rec))
+        return state, hist
+
+    def wire_real(leg, hist, want):
+        got = [r["sent_bytes_wire_real_per_step_per_chip"] for r in hist]
+        if got != list(want):
+            raise SmokeError(f"{leg}: wire-real {got} != {list(want)}")
+
+    # bitwise legs: deterministic convolutions and reductions for the
+    # phase (CUBLAS_WORKSPACE_CONFIG is set before CUDA is first used)
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        raise SmokeError("CUBLAS_WORKSPACE_CONFIG unset: the bitwise legs "
+                         "need deterministic cuBLAS")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        k4 = {"bucketed": BUCKETS}
+        # (a) the bucketed schedule is the monolithic one, bitwise; its
+        # kernels launch once per bucket, on the bucket's columns
+        for wire, kw, wr, wk, ck in (
+                ("f32", {}, MASKED_F32_WIRE_REAL, "masked_wire",
+                 "fused_mix_commit"),
+                ("int8-carrier", dict(wire="int8", carrier_resident=True),
+                 EVENTGRAD_INT8_WIRE_REAL, "masked_wire_int8",
+                 "fused_mix_commit_carrier")):
+            s_m, h_m = run(f"eventgrad-{wire}", must={wk: passes,
+                                                      ck: passes}, **kw)
+            s_b, h_b = run(f"eventgrad-{wire}-k4",
+                           must={wk: BUCKETS * passes,
+                                 ck: BUCKETS * passes}, **kw, **k4)
+            _same_state(s_m, s_b, f"(a) {wire} K=4 vs monolithic")
+            _same_records(h_m, h_b, f"(a) {wire}")
+            wire_real(f"(a) {wire}", h_m, [wr] * epochs)
+            wire_real(f"(a) {wire} K=4", h_b, [wr] * epochs)
+            del s_m, s_b
+            # (b) D = 2 at the baseline lag is staleness 1, bitwise
+            s_1, h_1 = run(f"eventgrad-{wire}-d1", staleness=1, **kw)
+            s_2, h_2 = run(f"eventgrad-{wire}-d2", staleness=2, **kw)
+            _same_state(s_1, s_2, f"(b) {wire} D=2 vs staleness 1",
+                        bufs=False)
+            _same_records(h_1, h_2, f"(b) {wire}")
+            if h_2[-1]["late_commits"] != 0 or h_2[-1][
+                    "edge_staleness_max"] != 1:
+                raise SmokeError(f"(b) {wire}: late commits or staleness "
+                                 f"at the baseline lag: {recs}")
+            del s_1, s_2
+            torch.cuda.empty_cache()
+        # (c) the composed stack under the straggler, twice
+        composed = dict(bucketed=BUCKETS, gossip_wire="compact",
+                        compact_frac=0.375, wire="int8",
+                        carrier_resident=True, staleness=4,
+                        chaos="seed=5,slow=1@7")
+        s_c, h_c = run("composed-d4", must={
+            "masked_wire_int8": BUCKETS * steps,
+            "fused_mix_commit_carrier": BUCKETS * passes}, **composed)
+        s_r, h_r = run("composed-d4-replay", **composed)
+        _same_state(s_c, s_r, "(c) replay")
+        _same_bits(s_c.event.pending, s_r.event.pending, "(c) replay queue")
+        _same_records(h_c, h_r, "(c) replay", keys=(
+            "loss", "msgs_saved_pct", "edge_staleness_max", "late_commits"))
+        wire_real("(c)", h_c, [EVENTGRAD_INT8_WIRE_REAL, COMPOSED_WIRE_REAL])
+        if h_c[-1]["compact_capacity"] != COMPOSED_CAPACITY:
+            raise SmokeError(f"(c) capacity {h_c[-1]['compact_capacity']}")
+        stale = s_c.pass_num - s_c.event.edge_clock.cpu()
+        srcs = inject.rank_and_sources(egt.Ring(RANKS))[1]
+        if int(stale.max()) != 4 or not torch.equal(stale == 4, srcs == 1):
+            raise SmokeError(f"(c) the gauge {stale.tolist()} is not 4 "
+                             "exactly on the edges fed by rank 1")
+        if not h_c[-1]["late_commits"] > 0:
+            raise SmokeError("(c) no late commits")
+        del s_c, s_r
+        torch.cuda.empty_cache()
+        # (d) sparsified EventGraD's payload queue, bucketed
+        s_1, h_1 = run("sp-top10-k4-d1", "sp_eventgrad", topk_percent=10.0,
+                       staleness=1, **k4)
+        s_2, h_2 = run("sp-top10-k4-d2", "sp_eventgrad", topk_percent=10.0,
+                       staleness=2, **k4)
+        _same_bits(s_1.params, s_2.params, "(d) D=2 vs staleness 1 params")
+        _same_records(h_1, h_2, "(d)")
+        wire_real("(d)", h_2, [SP_TOP10_WIRE_REAL] * epochs)
+        del s_1, s_2
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+    # (e) the straggler op-point's accuracy legs (utils/straggler.py),
+    # held to the JAX package's committed run of the same op-point
+    ref = json.loads((HERE / "artifacts" /
+                      "straggler_ablation_cpu.json").read_text())
+    ref_legs = {leg["staleness"]: leg for leg in ref["legs"]}
+    failures, acc = [], {}
+    for bound in straggler.BOUNDS:
+        ops.reset_launch_counts()
+        rec = straggler.run_leg(bound, device=DEVICE)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        want = ref_legs[bound]
+        rec.update(reference_test_accuracy=want["test_accuracy"],
+                   reference_msgs_saved_pct=want["msgs_saved_pct"],
+                   launches={k: v for k, v in counts.items() if v})
+        log(json.dumps(rec))
+        acc[bound] = rec["test_accuracy"]
+        leg = f"(e) D={bound}"
+        if not rec["losses_finite"]:
+            failures.append(f"{leg}: a loss is not finite")
+        for k in ("masked_wire_int8", "fused_mix_commit_carrier"):
+            if not counts[k]:
+                failures.append(f"{leg}: {k} never launched")
+        if bound >= 2 and (rec["edge_staleness_max"] != bound
+                           or rec["late_commits"] != want["late_commits"]):
+            failures.append(
+                f"{leg}: gauge {rec['edge_staleness_max']}, late commits "
+                f"{rec['late_commits']} != the reference's "
+                f"{want['late_commits']}")
+        if not abs(rec["msgs_saved_pct"]
+                   - want["msgs_saved_pct"]) <= MSGS_BAND:
+            failures.append(f"{leg}: msgs_saved_pct {rec['msgs_saved_pct']}"
+                            f" not within {MSGS_BAND} of "
+                            f"{want['msgs_saved_pct']}")
+        if not rec["test_accuracy"] >= want["test_accuracy"] - ACC_BAND:
+            failures.append(f"{leg}: test accuracy {rec['test_accuracy']} < "
+                            f"{want['test_accuracy']} - {ACC_BAND}")
+    for bound in straggler.BOUNDS:
+        if bound >= 2 and not acc[bound] >= acc[1] - ACC_BAND:
+            failures.append(f"(e) D={bound}: test accuracy {acc[bound]} < "
+                            f"lockstep {acc[1]} - {ACC_BAND}")
+    if failures:
+        raise SmokeError("straggler legs: " + "; ".join(failures))
+    log(json.dumps({"bucketed_async_vs_twins": {
+        leg: {k: recs[leg][k] for k in ("step_ms", "peak_mem_gib",
+                                        "launches_per_step")}
+        for leg in recs}}))
+    return totals
+
+
 def phase_leak_kernel():
     """Kernel 9, the auditor's seeded unregistered kernel
     (`eg::leak_kernel`, `csrc/audit_leak.cu`): bitwise `x * 2.0` at the
@@ -1493,8 +1934,8 @@ def _check_audit_cell(rep, what):
 
 
 def phase_audit():
-    """The static-analysis path on the card: the audit CLI over the 21
-    ported cells and the 11 oracles (`--device cuda`), then the flagship
+    """The static-analysis path on the card: the audit CLI over the 28
+    ported cells and the 14 oracles (`--device cuda`), then the flagship
     op-point audited. Returns the kernel launches of the phase."""
     import numpy as np
     import torch
@@ -1505,7 +1946,7 @@ def phase_audit():
     from eventgrad_tpu_torch.data.datasets import synthetic_dataset
     from eventgrad_tpu_torch.train.steps import make_train_step
 
-    log("== audit: 21 cells and 11 oracles on the card "
+    log("== audit: 28 cells and 14 oracles on the card "
         "(python -m eventgrad_tpu_torch.analysis.audit --device cuda)")
     ops.reset_launch_counts()
     audit.leak_kernel.launches = 0
@@ -1538,7 +1979,7 @@ def phase_audit():
     for o in rec["oracles"]:
         log(json.dumps(o))
     missed = [o["name"] for o in rec["oracles"] if not o["detected"]]
-    if rc != 0 or missed or rec["n_configs"] != 21 or rec["n_oracles"] != 11:
+    if rc != 0 or missed or rec["n_configs"] != 28 or rec["n_oracles"] != 14:
         raise SmokeError(f"audit CLI failed: exit {rc}, oracles missed "
                          f"{missed}")
     if audit.leak_kernel.launches < 1:
@@ -1637,6 +2078,11 @@ def timed(phase):
 
 def main() -> int:
     t_start = time.perf_counter()
+    import os
+
+    # deterministic cuBLAS for the bucketed phase's bitwise legs: read
+    # when the first cuBLAS handle is made, so set before any CUDA work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1664,7 +2110,7 @@ def main() -> int:
         launches = {}
         for phase in (phase_main_path, phase_main_path_lm,
                       phase_main_path_lm_d128, phase_realdata,
-                      phase_frontier, phase_audit):
+                      phase_frontier, phase_bucketed_async, phase_audit):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

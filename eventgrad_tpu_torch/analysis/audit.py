@@ -26,7 +26,10 @@ fire. One of them runs the seeded unregistered kernel, `eg::leak_kernel`
 which stays out of the kernel registry on purpose.
 
 The matrix is the JAX package's, under its cell names, for every cell
-whose dimensions the port has (21 of 31). The port runs only the flat
+whose dimensions the port has (28 of 31). A bucketed cell's exchanges
+are K lane groups per neighbour, one per bucket; its trace must also
+show the bucketed schedule's emission (`walker.bucket_schedule`: a
+bucket's exchange between the tails of its neighbouring buckets). The port runs only the flat
 arena, so the `_tree` cells run on it (the JAX record shows tree and
 arena cells carry the same bytes), and it has no telemetry, so the `_obs`
 cells run without it; each report lists its substitutions. Donation
@@ -97,6 +100,9 @@ CFG = EventConfig(adaptive=True, horizon=0.95, warmup_passes=2,
                   max_silence=4)
 #: fits Dense_0's kernel+bias, defers the second layer when all fire
 CAPACITY = 1100
+#: bucketed compact cells need the sum of per-bucket floors; with K = 4
+#: on the 4-leaf MLP every leaf is its own bucket: the whole model
+BUCKETED_CAPACITY = 1210
 
 _ITEMSIZE = {
     "float32": 4.0, "bfloat16": 2.0, "float16": 2.0, "int8": 1.0,
@@ -132,6 +138,8 @@ class AuditConfig:
     ravel_budget: int = 1
     policy: Optional[str] = None
     carrier: bool = False
+    #: the bucketed schedule's K (0 = off)
+    bucketed: int = 0
 
 
 #: the JAX matrix's cells whose dimensions the port has, under their
@@ -148,7 +156,14 @@ CONFIGS: Tuple[AuditConfig, ...] = (
                 capacity=CAPACITY, wire="int8", arena=True, obs=True),
     AuditConfig("event_compact_bf16_arena_stale", gossip_wire="compact",
                 capacity=CAPACITY, wire="bf16", arena=True, staleness=1),
+    AuditConfig("event_compact_int8_arena_stale4", gossip_wire="compact",
+                capacity=CAPACITY, wire="int8", arena=True, staleness=4),
     AuditConfig("sp_f32_tree", algo="sp_eventgrad"),
+    AuditConfig("event_compact_int8_arena_b4_stale2_carrier",
+                gossip_wire="compact", capacity=BUCKETED_CAPACITY,
+                wire="int8", arena=True, bucketed=4, staleness=2,
+                carrier=True),
+    AuditConfig("sp_f32_tree_stale2", algo="sp_eventgrad", staleness=2),
     AuditConfig("event_masked_int8_arena_carrier", wire="int8",
                 arena=True, carrier=True),
     AuditConfig("event_compact_bf16_arena_carrier", gossip_wire="compact",
@@ -159,10 +174,19 @@ CONFIGS: Tuple[AuditConfig, ...] = (
                 policy="micro"),
     AuditConfig("event_hybrid_masked_f32_arena_obs", arena=True,
                 obs=True, policy="hybrid"),
+    AuditConfig("event_hybrid_compact_int8_arena_b4",
+                gossip_wire="compact", capacity=BUCKETED_CAPACITY,
+                wire="int8", arena=True, bucketed=4, policy="hybrid"),
+    AuditConfig("event_masked_f32_arena_b4", arena=True, bucketed=4),
+    AuditConfig("event_compact_int8_arena_b4", gossip_wire="compact",
+                capacity=BUCKETED_CAPACITY, wire="int8", arena=True,
+                bucketed=4),
     AuditConfig("lenet_masked_f32_arena", model="lenet", arena=True),
     AuditConfig("lenet_compact_int8_arena", model="lenet",
                 gossip_wire="compact", capacity=-1, wire="int8",
                 arena=True),
+    AuditConfig("lenet_masked_f32_arena_b4", model="lenet", arena=True,
+                bucketed=4),
     AuditConfig("resnet18_masked_f32_arena", model="resnet18", arena=True),
     AuditConfig("resnet18_compact_f32_arena", model="resnet18",
                 gossip_wire="compact", capacity=-1, arena=True),
@@ -179,16 +203,8 @@ WAITING = {
     "event_masked_f32_arena_integrity":
         "the integrity riders (ROADMAP queue 1, item 6)",
     "event_masked_f32_arena_stale2_chaos":
-        "staleness >= 2 (ROADMAP queue 1, item 5) and chaos (item 6)",
-    "event_compact_int8_arena_stale4":
-        "staleness >= 2 (ROADMAP queue 1, item 5)",
-    "event_compact_int8_arena_b4_stale2_carrier":
-        "buckets and staleness >= 2 (ROADMAP queue 1, item 5)",
-    "sp_f32_tree_stale2": "staleness >= 2 (ROADMAP queue 1, item 5)",
-    "event_hybrid_compact_int8_arena_b4": "buckets (ROADMAP queue 1, item 5)",
-    "event_masked_f32_arena_b4": "buckets (ROADMAP queue 1, item 5)",
-    "event_compact_int8_arena_b4": "buckets (ROADMAP queue 1, item 5)",
-    "lenet_masked_f32_arena_b4": "buckets (ROADMAP queue 1, item 5)",
+        "the chaos drop clause (ROADMAP queue 1, item 6): its schedule "
+        "drops messages (drop_p=0.4) beside its slow= straggler",
 }
 
 
@@ -294,13 +310,29 @@ def _batch(cfg: AuditConfig, device=None):
 
 def resolved_capacity(cfg: AuditConfig, model) -> Optional[int]:
     """The compact capacity a cell runs at: `capacity=-1` is the model's
-    static floor (its largest leaf), from the same arena spec the step
-    uses."""
+    static floor (its largest leaf, or the sum of the buckets' under the
+    bucketed schedule), from the same arena spec the step uses."""
     if cfg.gossip_wire != "compact":
         return None
     if cfg.capacity is not None and cfg.capacity >= 0:
         return cfg.capacity
-    return int(collectives.compact_capacity_floor(arena_spec(model).sizes))
+    spec = arena_spec(model)
+    if cfg.bucketed >= 2:
+        return int(collectives.bucketed_capacity_floor(
+            spec.buckets(cfg.bucketed)))
+    return int(collectives.compact_capacity_floor(spec.sizes))
+
+
+def bucket_info(cfg: AuditConfig, model):
+    """(buckets, capacity split) of a bucketed cell, None otherwise: the
+    step's own `ArenaSpec.buckets` and `split_capacity`."""
+    if cfg.bucketed < 2:
+        return None
+    buckets = arena_spec(model).buckets(cfg.bucketed)
+    caps = (collectives.split_capacity(resolved_capacity(cfg, model),
+                                       buckets)
+            if cfg.gossip_wire == "compact" else None)
+    return buckets, caps
 
 
 def build(cfg: AuditConfig, device=None):
@@ -313,6 +345,7 @@ def build(cfg: AuditConfig, device=None):
         model, in_shape, topo, cfg.algo, CFG, seed=0, momentum=SGD[1],
         resident_wire=(cfg.wire if cfg.carrier and cfg.algo == "eventgrad"
                        else None),
+        bucketed=cfg.bucketed or None, staleness=cfg.staleness,
         device=device,
     )
     step = make_train_step(
@@ -320,7 +353,7 @@ def build(cfg: AuditConfig, device=None):
         gossip_wire=cfg.gossip_wire,
         compact_capacity=resolved_capacity(cfg, model),
         staleness=cfg.staleness, trigger_policy=cfg.policy,
-        carrier_resident=cfg.carrier,
+        carrier_resident=cfg.carrier, bucketed=cfg.bucketed or None,
     )
     return state, step, topo, model
 
@@ -335,13 +368,24 @@ def _meta(model) -> Tuple[int, int, int]:
 
 
 def _expected_lanes(cfg: AuditConfig, n_params: int, n_leaves: int,
-                    capacity: Optional[int] = None):
+                    capacity: Optional[int] = None, binfo=None):
     """[(role, elems, dtype)] one neighbour's exchange must ship; None for
-    sparsified EventGraD, whose top-k lanes compare by totals. (The JAX
-    auditor's riders, the integrity checksum, wait with the integrity
-    engine.)"""
+    sparsified EventGraD, whose top-k lanes compare by totals. A bucketed
+    cell ships K lane groups: per bucket its value lane (its elements or
+    its capacity share), fire bits (and int8 scales). (The JAX auditor's
+    riders, the integrity checksum, wait with the integrity engine.)"""
     if cfg.algo == "sp_eventgrad":
         return None
+    if binfo is not None:
+        buckets, caps = binfo
+        lanes = []
+        for i, b in enumerate(buckets):
+            lanes.append(("value", b.size if caps is None else caps[i],
+                          _WIRE_DTYPE[cfg.wire]))
+            lanes.append(("fire", b.n_leaves, "bool"))
+            if cfg.wire == "int8":
+                lanes.append(("scale", b.n_leaves, "float32"))
+        return lanes
     val_elems = capacity if cfg.gossip_wire == "compact" else n_params
     lanes = [("value", val_elems, _WIRE_DTYPE[cfg.wire])]
     if cfg.algo == "eventgrad":
@@ -353,14 +397,19 @@ def _expected_lanes(cfg: AuditConfig, n_params: int, n_leaves: int,
 
 def _formula_bytes_per_neighbor(
     cfg: AuditConfig, n_params: int, n_leaves: int, k_total: int,
-    capacity: Optional[int] = None,
+    capacity: Optional[int] = None, binfo=None,
 ) -> float:
     """The accounting formula the step's metric is built from: what the
-    graph-derived bytes are checked against."""
+    graph-derived bytes are checked against (a bucketed cell: the sum of
+    the per-bucket formula, the step's own definition)."""
     if cfg.algo == "sp_eventgrad":
         val = collectives.WIRE_VAL_BYTES[cfg.wire]
         scale = 4.0 if cfg.wire == "int8" else 0.0
         return (val + 4.0) * k_total + 1.0 * n_leaves + scale * n_leaves
+    if binfo is not None:
+        buckets, caps = binfo
+        return float(sum(collectives.bucketed_wire_real_bytes_per_neighbor(
+            buckets, cfg.wire, caps)))
     return collectives.wire_real_bytes_per_neighbor(
         n_params, n_leaves, cfg.wire,
         compact_capacity=(capacity if cfg.gossip_wire == "compact"
@@ -375,6 +424,7 @@ def _classify_exchanges(
     n_params: int,
     n_leaves: int,
     capacity: Optional[int] = None,
+    binfo=None,
 ) -> Dict[str, Any]:
     """Group the rolled lanes by ring offset and check them against the
     expected wire; returns the per-neighbour derived bytes and the lane
@@ -384,7 +434,7 @@ def _classify_exchanges(
         groups.setdefault(ex.offset, []).append(ex)
     problems: List[str] = []
     per_offset_bytes: Dict[int, float] = {}
-    want = _expected_lanes(cfg, n_params, n_leaves, capacity)
+    want = _expected_lanes(cfg, n_params, n_leaves, capacity, binfo)
     for off, lanes in groups.items():
         got = sorted((e.lane_elems, e.dtype) for e in lanes)
         # derived from the lanes the graph actually rolls, never from the
@@ -446,16 +496,27 @@ def _analyze(cfg, fn, state, batch, model, topo) -> Dict[str, Any]:
     capacity = resolved_capacity(cfg, model)
     report = rankflow.analyze(tr.graph, topo.n_ranks)
     declared = sorted(nb.offset for nb in topo.neighbors)
-    wire = _classify_exchanges(cfg, report, n_params, n_leaves, capacity)
+    binfo = bucket_info(cfg, model)
+    wire = _classify_exchanges(cfg, report, n_params, n_leaves, capacity,
+                               binfo)
     formula = _formula_bytes_per_neighbor(cfg, n_params, n_leaves, k_total,
-                                          capacity)
+                                          capacity, binfo)
+    schedule = None
+    if binfo is not None and cfg.algo == "eventgrad":
+        buckets, caps = binfo
+        schedule = walker.bucket_schedule(
+            tr.graph, [b.size if caps is None else caps[i]
+                       for i, b in enumerate(buckets)],
+            [b.size for b in buckets])
     derived = list(wire["per_offset_bytes"].values())
     metric = float(tr.out[1]["sent_bytes_wire_real"][0])
-    graph_ops = {
-        name: walker.count_ops(tr.graph, f"eg::{name}")
-        for name in sorted(set(kernels.registered_names())
-                           | {"leak_kernel"})
-    }
+    # traced kernel ops by the kernel they launch (a pitched form counts
+    # in its kernel, as its wrapper's launch counter does)
+    graph_ops = {"leak_kernel": walker.count_ops(tr.graph, "eg::leak_kernel")}
+    for name in kernels.registered_names():
+        key = kernels.REGISTRY[name].counter
+        graph_ops[key] = (graph_ops.get(key, 0)
+                          + walker.count_ops(tr.graph, f"eg::{name}"))
     return {
         "trace": tr,
         "report": report,
@@ -473,6 +534,7 @@ def _analyze(cfg, fn, state, batch, model, topo) -> Dict[str, Any]:
                             if after[k] != before[k]},
         "ravels": walker.count_full_ravels(tr.graph, int(n_params)),
         "callbacks": count_callbacks(tr.graph),
+        "schedule": schedule,
     }
 
 
@@ -517,6 +579,13 @@ def audit_step(cfg: AuditConfig, step, state, batch, model, topo,
         "staleness": cfg.staleness,
         "policy": cfg.policy,
         "carrier": cfg.carrier,
+        "bucketed": cfg.bucketed,
+        # the bucketed schedule's emission (None: not a bucketed
+        # EventGraD cell): a bucket's exchange between the tails of the
+        # buckets before and after it
+        "bucket_schedule_interleaved": (
+            None if res["schedule"] is None
+            else res["schedule"]["interleaved"]),
         "substitutions": substitutions(cfg),
         "partitions": partitions,
         "partitions_ok": partitions_ok,
@@ -573,6 +642,7 @@ def clean(report: Dict[str, Any]) -> bool:
         and report["callbacks"] == 0
         and report["donation_ok"] in (None, True)
         and report.get("partitions_ok") in (None, True)
+        and report.get("bucket_schedule_interleaved") in (None, True)
     )
 
 
@@ -810,6 +880,107 @@ def oracle_stale_scale_reuse(device=None) -> Tuple[bool, str]:
         else "carrier equivalence harness failed to fire")
 
 
+def _run_steps(cfg: AuditConfig, device, n_steps: int = 4,
+               sabotage_bucket=None):
+    """The state after `n_steps` steps of one cell on one batch: the
+    value harness of the bounded-async oracles. `sabotage_bucket`
+    replaces the step's queue seam (`events.async_bucket_commit`, which
+    the step looks up at each call) for the run."""
+    from eventgrad_tpu_torch.train import steps as steps_mod
+
+    orig = steps_mod.async_bucket_commit
+    try:
+        if sabotage_bucket is not None:
+            steps_mod.async_bucket_commit = sabotage_bucket
+        state, step, _, _ = build(cfg, device)
+        batch = _batch(cfg, device)
+        for _ in range(n_steps):
+            state, _m = step(state, batch)
+    finally:
+        steps_mod.async_bucket_commit = orig
+    return state
+
+
+def _queue_oracle(cfg2: AuditConfig, sabotage, device, what: str):
+    """The bounded-async equivalence harness: staleness 2 at the
+    baseline lag is bitwise staleness 1 (a late delivery is a deferred
+    fire), so the clean D = 2 run equals the D = 1 reference and a
+    sabotaged queue seam must leave it."""
+    cfg1 = dataclasses.replace(cfg2, name=cfg2.name + "_stale1_ref",
+                               staleness=1)
+    ref = _run_steps(cfg1, device)
+    good = _run_steps(cfg2, device)
+    bad = _run_steps(cfg2, device, sabotage_bucket=sabotage)
+    clean_holds = torch.equal(ref.params, good.params)
+    detected = clean_holds and not torch.equal(ref.params, bad.params)
+    return detected, (
+        f"clean D=2 == D=1 bitwise; {what} diverges" if detected
+        else "equivalence harness failed to fire")
+
+
+def oracle_late_delivery_drift(device=None) -> Tuple[bool, str]:
+    """The bounded-async arrival sabotaged by one pass: the commit takes
+    queue slot 1 instead of slot 0, so every delivery lands a pass late
+    (an off-by-one between commit-on-arrival and the queue). The
+    staleness-2 == staleness-1 contract at the baseline lag must catch
+    it."""
+    from eventgrad_tpu_torch.parallel import events as events_mod
+
+    cfg2 = dataclasses.replace(config_by_name("event_masked_f32_tree"),
+                               name="masked_f32_arena_stale2", arena=True,
+                               staleness=2)
+
+    def late(slots, here, cand, eff, seg, bucket=None, cand_scale=None,
+             last_scale=None):
+        arr, ncs, nes, nss, bs = events_mod.async_bucket_commit(
+            slots, here, cand, eff, seg, bucket=bucket,
+            cand_scale=cand_scale, last_scale=last_scale)
+        pick = lambda v: v if bucket is None else v[bucket]
+        return (pick(slots[1][0]), pick(slots[1][1])), ncs, nes, nss, bs
+
+    return _queue_oracle(cfg2, late, device,
+                         "the arrival read a slot late")
+
+
+def oracle_bucket_queue_skew(device=None) -> Tuple[bool, str]:
+    """One bucket's delivery queue rotated by a slot without its clock
+    (the per-bucket queue carry out of step with the shared sent/late
+    stamps): the bucket commits another pass's payload, and the composed
+    bucketed D = 2 == D = 1 contract must catch it."""
+    from eventgrad_tpu_torch.parallel import events as events_mod
+
+    cfg2 = dataclasses.replace(config_by_name("event_masked_f32_arena_b4"),
+                               name="b4_stale2", staleness=2)
+
+    def skewed(slots, here, cand, eff, seg, bucket=None, cand_scale=None,
+               last_scale=None):
+        arr, ncs, nes, nss, bs = events_mod.async_bucket_commit(
+            slots, here, cand, eff, seg, bucket=bucket,
+            cand_scale=cand_scale, last_scale=last_scale)
+        if bucket == 0:
+            ncs = tuple(ncs[1:]) + (ncs[0],)
+            nes = tuple(nes[1:]) + (nes[0],)
+        return arr, ncs, nes, nss, bs
+
+    return _queue_oracle(cfg2, skewed, device,
+                         "skewing one bucket's queue against its clock")
+
+
+def oracle_bucket_undeclared_offset(device=None) -> Tuple[bool, str]:
+    """One bucket's receive buffer re-shipped at an undeclared offset
+    (+2) in the bucketed schedule: per-bucket exchanges must stay on the
+    topology's declared offsets like every monolithic lane."""
+    def leak(ns, m, batch, topo, model):
+        m["leak"] = collectives.recv_from(
+            ns.event.bufs[0][1], topo, NeighborSpec(topo.axes[0], 2))
+
+    rep = _audit_with("event_masked_f32_arena_b4", _with_metric(leak),
+                      device)
+    detected = bool(rep["undeclared_offsets"]) or bool(
+        rep["wire"]["problems"])
+    return detected, f"undeclared exchange offsets {rep['undeclared_offsets']}"
+
+
 ORACLES = {
     "rank_coupling_ppermute": oracle_rank_coupling,
     "rank_coupling_roll": oracle_rank_roll,
@@ -822,14 +993,13 @@ ORACLES = {
     "attention_cross_rank_gather": oracle_attention_cross_rank_gather,
     "partition_overlap": oracle_partition_overlap,
     "stale_scale_reuse": oracle_stale_scale_reuse,
+    "late_delivery_drift": oracle_late_delivery_drift,
+    "bucket_queue_skew": oracle_bucket_queue_skew,
+    "bucket_undeclared_offset": oracle_bucket_undeclared_offset,
 }
 
 #: the JAX oracles that wait, and what for
 WAITING_ORACLES = {
-    "late_delivery_drift": "staleness >= 2 (ROADMAP queue 1, item 5)",
-    "bucket_queue_skew":
-        "buckets and staleness >= 2 (ROADMAP queue 1, item 5)",
-    "bucket_undeclared_offset": "buckets (ROADMAP queue 1, item 5)",
     "mesh_undeclared_offset":
         "the multi-GPU backend (ROADMAP queue 1, item 8)",
 }

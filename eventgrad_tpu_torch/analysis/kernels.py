@@ -9,8 +9,10 @@ registered here, and rankflow checks every call site against the
 declared layout:
 
   * `ARENA` — the kernel is elementwise over `[R, n]` arenas (kernels
-    1-5): every rank-carrying tensor argument holds the rank, pure, at
-    dimension 0, and every output carries it there;
+    1-5, and the pitched forms of 1, 2, 3 and 5 over `[R, c]` buckets):
+    every rank-carrying tensor argument holds the rank, pure, at
+    dimension 0, and every output (a mutated output argument too)
+    carries it there;
   * `FOLDED` — the ranks are folded into the batch, rank-major (the
     flash kernels 6-8, called from the `vmap` rules of
     `ops/attention.py`, `_fold`): every rank-carrying argument holds the
@@ -47,6 +49,9 @@ class KernelSig:
     `entry` — the C entry point the op's CUDA implementation launches.
     `layout` — `ARENA` or `FOLDED` (module docstring).
     `reviewed` — one line: why the kernel is rank-pointwise there.
+    `kernel` — the kernel whose launch counter the op's launches count
+    in (`ops.launch_counts`): its own name, or for a pitched form the
+    kernel it is a form of.
     """
 
     name: str
@@ -54,10 +59,15 @@ class KernelSig:
     entry: str
     layout: str = ARENA
     reviewed: str = ""
+    kernel: str = ""
 
     @property
     def qualname(self) -> str:
         return "eg::" + self.name
+
+    @property
+    def counter(self) -> str:
+        return self.kernel or self.name
 
 
 REGISTRY: Dict[str, KernelSig] = {}
@@ -103,6 +113,36 @@ for _sig in (
         "fused_mix_commit_carrier", _ARENA, "eg_mix_commit_carrier",
         reviewed="csrc/mix_commit_carrier.cu: kernel 1 on bf16/int8 "
         "carriers; the dequant multiplies element i by scale i",
+    ),
+    # the pitched (bucket) forms of kernels 1, 2, 3 and 5: the arena
+    # operands are whole [R, n] arenas read (and, for p', t', written) at
+    # one bucket's columns, the bucket operands [R, c]; row r of every
+    # operand is rank r's
+    KernelSig(
+        "masked_wire_bucket", _EVENTS, "eg_masked_wire_pitched",
+        reviewed="csrc/masked_wire.cu pitched form: out[r, j] = fire[r, j] "
+        "> 0 ? flat[r, off + j] : 0; row r reads row r of each operand",
+        kernel="masked_wire",
+    ),
+    KernelSig(
+        "masked_wire_int8_bucket", _EVENTS, "eg_mask_quant_pitched",
+        reviewed="csrc/mask_quant.cu pitched form: the masked select and "
+        "quantize of flat[r, off + j] against scale[r, j], row by row",
+        kernel="masked_wire_int8",
+    ),
+    KernelSig(
+        "fused_mix_commit_bucket", _ARENA, "eg_mix_commit_pitched",
+        reviewed="csrc/mix_commit.cu pitched form: element (r, j) reads "
+        "p/g/t[r, off + j] and each neighbour's [r, j], writes p'/t'[r, "
+        "off + j] and the buffers' [r, j]; no index crosses a row",
+        kernel="fused_mix_commit",
+    ),
+    KernelSig(
+        "fused_mix_commit_carrier_bucket", _ARENA,
+        "eg_mix_commit_carrier_pitched",
+        reviewed="csrc/mix_commit_carrier.cu pitched form: the bucket "
+        "form of kernel 5, row by row as fused_mix_commit_bucket",
+        kernel="fused_mix_commit_carrier",
     ),
     KernelSig(
         "flash_fwd", _ATTN, "eg_flash_fwd", FOLDED,

@@ -361,6 +361,15 @@ class _Flow:
                     f"registered kernel '{qual}' reached with its rank in "
                     f"the wrong layout ({lay}; declared {sig.layout})")
             want = lay
+        # a mutated output argument (the pitched forms' p_out, t_out)
+        # holds the kernel's result from here on
+        for arg, val in zip(node.target._schema.arguments,
+                            list(node.args) + [node.kwargs.get(a.name) for a
+                                               in node.target._schema.arguments
+                                               [len(node.args):]]):
+            if (arg.alias_info is not None and arg.alias_info.is_write
+                    and isinstance(val, torch.fx.Node)):
+                self.env[val] = want
         n = self.out_count()
         return want if n is None else tuple([want] * n)
 
@@ -944,13 +953,14 @@ def _r_scalar(f, node, a):
 
 _POINTWISE = frozenset("""
 abs add sub mul div neg relu threshold_backward gelu gelu_backward pow
-rsqrt maximum clamp clamp_min clamp_max round remainder eq ge le lt
+rsqrt maximum clamp clamp_min clamp_max round remainder eq ge gt le lt
 bitwise_and bitwise_or bitwise_not where masked_fill _to_copy clone detach
 lift_fresh_copy
 """.split())
 
 _FACTORY = frozenset("""
 arange zeros ones full scalar_tensor zeros_like ones_like new_zeros
+empty empty_like
 """.split())
 
 #: gathers whose indexing of the rank axis is checked even with a

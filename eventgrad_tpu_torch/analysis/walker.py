@@ -10,8 +10,8 @@ flattened to tensors at the boundary and rebuilt inside.
 
 `iter_nodes` walks every node, into nested graph modules; `count_ops`,
 `op_census` and `count_full_ravels` are the op accounting the audit's
-hygiene checks are made of. The bucketed-schedule check of the JAX walker
-waits for the bucketed schedule (ROADMAP queue 1, item 5).
+hygiene checks are made of, and `bucket_schedule` the machine check of
+the bucketed schedule's emission order.
 """
 
 from __future__ import annotations
@@ -181,3 +181,70 @@ def count_full_ravels(gm: torch.fx.GraphModule, n_total: int) -> int:
                 and tm.dtype.is_floating_point):
             total += 1
     return total
+
+
+#: the commit + mix + SGD tails of the bucketed schedule: the pitched
+#: forms of kernels 1 and 5
+_BUCKET_TAILS = ("eg::fused_mix_commit_bucket",
+                 "eg::fused_mix_commit_carrier_bucket")
+
+
+def _last_dim(node: torch.fx.Node) -> Optional[int]:
+    tm = node.meta.get("tensor_meta")
+    if isinstance(tm, (list, tuple)) and tm and not hasattr(tm, "shape"):
+        tm = tm[0]
+    shape = getattr(tm, "shape", None)
+    return int(shape[-1]) if shape is not None and len(shape) == 2 else None
+
+
+def bucket_schedule(gm: torch.fx.GraphModule, wire_dims, commit_dims) -> dict:
+    """Machine check of the bucketed schedule's emission order (the JAX
+    walker's gate): in the traced step, at least one exchange-side op of
+    bucket k must appear between update-side ops of buckets k-1 and k+1
+    — the exchanges interleave with the update work instead of forming
+    one prefix block (the monolithic shape).
+
+    Exchange-side: an `aten::roll` of a `[R, d]` lane (the rank-dim roll
+    of `collectives.recv_from`) with d == wire_dims[b], the bucket's value
+    lane. Update-side: a bucket tail (the pitched kernel ops) whose `[R,
+    d]` candidates have d == commit_dims[b], after the bucket's
+    first exchange (a tail consumes its exchange and never precedes it).
+    Each list must be collision-free or the attribution is refused.
+    Returns {"exchange": {b: [ordinal, ...]}, "update": {...},
+    "interleaved": bool, "witnesses": [(k, ordinal), ...]}."""
+    wire_dims = [int(d) for d in wire_dims]
+    commit_dims = [int(d) for d in commit_dims]
+    if len(set(wire_dims)) != len(wire_dims):
+        raise ValueError(f"wire_dims collide: {wire_dims}")
+    if len(set(commit_dims)) != len(commit_dims):
+        raise ValueError(f"commit_dims collide: {commit_dims}")
+    k = len(wire_dims)
+    ex = {b: [] for b in range(k)}
+    upd = {b: [] for b in range(k)}
+    for ordinal, (node, _) in enumerate(iter_nodes(gm)):
+        name = op_name(node)
+        if name not in ("aten::roll",) + _BUCKET_TAILS:
+            continue
+        if name == "aten::roll":
+            d = _last_dim(node)
+            if d in wire_dims:
+                ex[wire_dims.index(d)].append(ordinal)
+            continue
+        # a tail's bucket: its candidates' `[R, d]` (the op's list output
+        # carries no tensor metadata of its own)
+        d = _last_dim(node.args[1][0])
+        if d in commit_dims:
+            upd[commit_dims.index(d)].append(ordinal)
+    for b in range(k):
+        upd[b] = ([o for o in upd[b] if o > min(ex[b])] if ex[b] else [])
+    witnesses = []
+    for b in range(1, k - 1):
+        if not (ex[b] and upd[b - 1] and upd[b + 1]):
+            continue
+        lo, hi = min(upd[b - 1]), max(upd[b + 1])
+        for e in ex[b]:
+            if lo < e < hi:
+                witnesses.append((b, e))
+                break
+    return {"exchange": ex, "update": upd, "interleaved": bool(witnesses),
+            "witnesses": witnesses}

@@ -63,3 +63,49 @@ extern "C" int eg_mask_quant(const float* flat, const float* fire,
                       (cudaStream_t)stream>>>(flat, fire, scale, out, n, vec);
   return (int)cudaGetLastError();
 }
+
+// --- the pitched (bucket) form -----------------------------------------
+//
+// The int8 masked wire of one bucket: `flat` is the [rows, ld] parameter
+// arena read in place at columns [off, off + cols); `fire`, `scale` and
+// `out` are the bucket's contiguous [rows, cols] arrays (common.cuh "the
+// pitched forms"). Same bytes per element as the contiguous form.
+
+namespace {
+
+struct QuantBody {
+  const float* flat;
+  const float* fire;
+  const float* scale;
+  float* out;
+
+  template <int W>
+  __device__ __forceinline__ void at(int64_t a, int64_t b) const {
+    const eg::Vec<float, W> f = eg::ldv<W>(flat + a), k = eg::ldv<W>(fire + b),
+                            s = eg::ldv<W>(scale + b);
+    eg::Vec<float, W> o;
+#pragma unroll
+    for (int q = 0; q < W; ++q) o.v[q] = quant(f.v[q], k.v[q], s.v[q]);
+    eg::stv<W>(out + b, o);
+  }
+};
+
+__global__ void mask_quant_pitched_kernel(QuantBody body, eg::Pitch g,
+                                          int vec) {
+  eg::pitched_row(g, vec, body);
+}
+
+}  // namespace
+
+extern "C" int eg_mask_quant_pitched(const float* flat, const float* fire,
+                                     const float* scale, float* out,
+                                     int64_t rows, int64_t cols, int64_t ld,
+                                     int64_t off, int vec, void* stream) {
+  const eg::Pitch g = {rows, cols, ld, off};
+  if (!eg::pitch_ok(g)) return (int)cudaErrorInvalidValue;
+  if (cols == 0) return 0;
+  mask_quant_pitched_kernel<<<eg::grid_pitched(rows, cols), eg::kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      QuantBody{flat, fire, scale, out}, g, vec);
+  return (int)cudaGetLastError();
+}

@@ -47,3 +47,47 @@ extern "C" int eg_masked_wire(const float* flat, const float* fire, float* out,
                        (cudaStream_t)stream>>>(flat, fire, out, n, vec);
   return (int)cudaGetLastError();
 }
+
+// --- the pitched (bucket) form -----------------------------------------
+//
+// out[b] = where(fire[b] > 0, flat[a], 0) over one bucket: `flat` is the
+// [rows, ld] parameter arena read in place at columns [off, off + cols),
+// `fire` and `out` the bucket's contiguous [rows, cols] arrays (common.cuh
+// "the pitched forms"). Same bytes per element as the contiguous form.
+
+namespace {
+
+struct MaskBody {
+  const float* flat;
+  const float* fire;
+  float* out;
+
+  template <int W>
+  __device__ __forceinline__ void at(int64_t a, int64_t b) const {
+    const eg::Vec<float, W> f = eg::ldv<W>(flat + a), k = eg::ldv<W>(fire + b);
+    eg::Vec<float, W> o;
+#pragma unroll
+    for (int q = 0; q < W; ++q) o.v[q] = k.v[q] > 0.f ? f.v[q] : 0.f;
+    eg::stv<W>(out + b, o);
+  }
+};
+
+__global__ void masked_wire_pitched_kernel(MaskBody body, eg::Pitch g,
+                                           int vec) {
+  eg::pitched_row(g, vec, body);
+}
+
+}  // namespace
+
+extern "C" int eg_masked_wire_pitched(const float* flat, const float* fire,
+                                      float* out, int64_t rows, int64_t cols,
+                                      int64_t ld, int64_t off, int vec,
+                                      void* stream) {
+  const eg::Pitch g = {rows, cols, ld, off};
+  if (!eg::pitch_ok(g)) return (int)cudaErrorInvalidValue;
+  if (cols == 0) return 0;
+  masked_wire_pitched_kernel<<<eg::grid_pitched(rows, cols), eg::kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      MaskBody{flat, fire, out}, g, vec);
+  return (int)cudaGetLastError();
+}

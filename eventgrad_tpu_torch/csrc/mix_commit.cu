@@ -154,3 +154,106 @@ extern "C" int eg_mix_commit(const float* p, const float* g, const float* t,
   }
   return (int)cudaGetLastError();
 }
+
+// --- the pitched (bucket) form -----------------------------------------
+//
+// The commit + mix + SGD of one bucket of the bucketed schedule: p, g, t
+// are the [rows, ld] arenas read in place at columns [off, off + cols),
+// and p', t' are written into the same columns of the [rows, ld] output
+// arenas; the candidates, keeps, stale and committed buffers are the
+// bucket's contiguous [rows, cols] arrays (common.cuh "the pitched
+// forms"). Same arithmetic and bytes per element as the contiguous form.
+
+namespace {
+
+template <int NB>
+struct CommitBody {
+  const float* p;
+  const float* g;
+  const float* t;
+  Neighbors nbp;
+  float* p_out;
+  float* t_out;
+  Scalars s;
+
+  template <int W>
+  __device__ __forceinline__ void at(int64_t a, int64_t b) const {
+    const eg::Vec<float, W> pv = eg::ldv<W>(p + a), gv = eg::ldv<W>(g + a),
+                            tv = eg::ldv<W>(t + a);
+    eg::Vec<float, W> cv[NB], kv[NB], lv[NB], bv[NB], pov, tov;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      cv[j] = eg::ldv<W>(nbp.cand[j] + b);
+      kv[j] = eg::ldv<W>(nbp.keep[j] + b);
+      lv[j] = eg::ldv<W>(nbp.last[j] + b);
+    }
+    float c[NB], k[NB], l[NB], bo[NB];
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        c[j] = cv[j].v[q];
+        k[j] = kv[j].v[q];
+        l[j] = lv[j].v[q];
+      }
+      commit_elem<NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s, pov.v[q],
+                      tov.v[q], bo);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) bv[j].v[q] = bo[j];
+    }
+    eg::stv<W>(p_out + a, pov);
+    eg::stv<W>(t_out + a, tov);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) eg::stv<W>(nbp.out[j] + b, bv[j]);
+  }
+};
+
+template <int NB>
+__global__ void mix_commit_pitched_kernel(CommitBody<NB> body, eg::Pitch g,
+                                          int vec) {
+  eg::pitched_row(g, vec, body);
+}
+
+template <int NB>
+void launch_pitched(const float* p, const float* g, const float* t,
+                    const Neighbors& nbp, float* p_out, float* t_out,
+                    const eg::Pitch& pg, const Scalars& s, int vec,
+                    cudaStream_t stream) {
+  mix_commit_pitched_kernel<NB>
+      <<<eg::grid_pitched(pg.rows, pg.cols), eg::kThreads, 0, stream>>>(
+          CommitBody<NB>{p, g, t, nbp, p_out, t_out, s}, pg, vec);
+}
+
+}  // namespace
+
+// As eg_mix_commit, over one bucket: p, g, t, p_out, t_out are
+// [rows, ld] arenas (columns [off, off + cols) read and written),
+// cands/keeps/lasts/bufs_out host arrays of nb [rows, cols] device
+// arrays.
+extern "C" int eg_mix_commit_pitched(
+    const float* p, const float* g, const float* t, const float* const* cands,
+    const float* const* keeps, const float* const* lasts, float* p_out,
+    float* t_out, float* const* bufs_out, int nb, int64_t rows, int64_t cols,
+    int64_t ld, int64_t off, float lr, float mom, float w, int mix_stale,
+    int vec, void* stream) {
+  const eg::Pitch pg = {rows, cols, ld, off};
+  if (nb < 1 || nb > kMaxNb || !eg::pitch_ok(pg))
+    return (int)cudaErrorInvalidValue;
+  if (cols == 0) return 0;
+  Neighbors nbp = {};
+  for (int i = 0; i < nb; ++i) {
+    nbp.cand[i] = cands[i];
+    nbp.keep[i] = keeps[i];
+    nbp.last[i] = lasts[i];
+    nbp.out[i] = bufs_out[i];
+  }
+  const Scalars s = {lr, mom, w, mix_stale};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nb) {
+    case 1: launch_pitched<1>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
+    case 2: launch_pitched<2>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
+    case 3: launch_pitched<3>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
+    default: launch_pitched<4>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
+  }
+  return (int)cudaGetLastError();
+}

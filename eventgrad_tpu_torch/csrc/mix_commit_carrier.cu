@@ -208,3 +208,130 @@ extern "C" int eg_mix_commit_carrier(
                                  st);
   return (int)cudaGetLastError();
 }
+
+// --- the pitched (bucket) form -----------------------------------------
+//
+// The carrier commit + mix + SGD of one bucket: p, g, t are the [rows,
+// ld] arenas read in place at columns [off, off + cols), p' and t' are
+// written into the same columns of the output arenas; candidates,
+// keeps, stale buffers, scales and committed buffers are the bucket's
+// contiguous [rows, cols] arrays (common.cuh "the pitched forms"). Same
+// arithmetic and bytes per element as the contiguous form.
+
+namespace {
+
+template <typename C, bool S, int NB>
+struct CarrierBody {
+  const float* p;
+  const float* g;
+  const float* t;
+  Neighbors nbp;
+  float* p_out;
+  float* t_out;
+  Scalars sc;
+
+  template <int W>
+  __device__ __forceinline__ void at(int64_t a, int64_t b) const {
+    const eg::Vec<float, W> pv = eg::ldv<W>(p + a), gv = eg::ldv<W>(g + a),
+                            tv = eg::ldv<W>(t + a);
+    eg::Vec<C, W> cv[NB], lv[NB], bv[NB];
+    eg::Vec<float, W> kv[NB], sv[NB], pov, tov;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      cv[j] = eg::ldv<W>(static_cast<const C*>(nbp.cand[j]) + b);
+      kv[j] = eg::ldv<W>(nbp.keep[j] + b);
+      lv[j] = eg::ldv<W>(static_cast<const C*>(nbp.last[j]) + b);
+      if constexpr (S) sv[j] = eg::ldv<W>(nbp.scale[j] + b);
+    }
+    C c[NB], l[NB], bo[NB];
+    float k[NB], s[NB];
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        c[j] = cv[j].v[q];
+        k[j] = kv[j].v[q];
+        l[j] = lv[j].v[q];
+        if constexpr (S) s[j] = sv[j].v[q];
+      }
+      carrier_elem<C, S, NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s, sc,
+                             pov.v[q], tov.v[q], bo);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) bv[j].v[q] = bo[j];
+    }
+    eg::stv<W>(p_out + a, pov);
+    eg::stv<W>(t_out + a, tov);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      eg::stv<W>(static_cast<C*>(nbp.out[j]) + b, bv[j]);
+  }
+};
+
+template <typename C, bool S, int NB>
+__global__ void mix_commit_carrier_pitched_kernel(CarrierBody<C, S, NB> body,
+                                                  eg::Pitch g, int vec) {
+  eg::pitched_row(g, vec, body);
+}
+
+template <typename C, bool S>
+void launch_pitched(int nb, const float* p, const float* g, const float* t,
+                    const Neighbors& nbp, float* p_out, float* t_out,
+                    const eg::Pitch& pg, const Scalars& sc, int vec,
+                    cudaStream_t st) {
+  const dim3 grid = eg::grid_pitched(pg.rows, pg.cols);
+  switch (nb) {
+    case 1:
+      mix_commit_carrier_pitched_kernel<C, S, 1><<<grid, eg::kThreads, 0, st>>>(
+          CarrierBody<C, S, 1>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+      break;
+    case 2:
+      mix_commit_carrier_pitched_kernel<C, S, 2><<<grid, eg::kThreads, 0, st>>>(
+          CarrierBody<C, S, 2>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+      break;
+    case 3:
+      mix_commit_carrier_pitched_kernel<C, S, 3><<<grid, eg::kThreads, 0, st>>>(
+          CarrierBody<C, S, 3>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+      break;
+    default:
+      mix_commit_carrier_pitched_kernel<C, S, 4><<<grid, eg::kThreads, 0, st>>>(
+          CarrierBody<C, S, 4>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+      break;
+  }
+}
+
+}  // namespace
+
+// As eg_mix_commit_carrier, over one bucket: p, g, t, p_out, t_out are
+// [rows, ld] arenas (columns [off, off + cols) read and written), the
+// per-neighbor arrays [rows, cols].
+extern "C" int eg_mix_commit_carrier_pitched(
+    const float* p, const float* g, const float* t, const void* const* cands,
+    const float* const* keeps, const void* const* lasts,
+    const float* const* scales, float* p_out, float* t_out,
+    void* const* bufs_out, int nb, int64_t rows, int64_t cols, int64_t ld,
+    int64_t off, float lr, float mom, float w, int mix_stale, int carrier,
+    int vec, void* stream) {
+  const eg::Pitch pg = {rows, cols, ld, off};
+  if (nb < 1 || nb > kMaxNb || !eg::pitch_ok(pg))
+    return (int)cudaErrorInvalidValue;
+  if ((carrier == 0) != (scales != nullptr)) return (int)cudaErrorInvalidValue;
+  if (carrier != 0 && carrier != 1) return (int)cudaErrorInvalidValue;
+  if (cols == 0) return 0;
+  Neighbors nbp = {};
+  for (int i = 0; i < nb; ++i) {
+    nbp.cand[i] = cands[i];
+    nbp.keep[i] = keeps[i];
+    nbp.last[i] = lasts[i];
+    nbp.scale[i] = scales ? scales[i] : nullptr;
+    nbp.out[i] = bufs_out[i];
+  }
+  const Scalars sc = {lr, mom, w, mix_stale};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (carrier == 0)
+    launch_pitched<int8_t, true>(nb, p, g, t, nbp, p_out, t_out, pg, sc, vec,
+                                 st);
+  else
+    launch_pitched<__nv_bfloat16, false>(nb, p, g, t, nbp, p_out, t_out, pg,
+                                         sc, vec, st);
+  return (int)cudaGetLastError();
+}

@@ -21,6 +21,12 @@ runs on the carrier, the committed buffers come back in the carrier
 dtype, and the mix reads `f32(val) * mix_scale` (int8) or `f32(val)`
 (bf16).
 
+Both take `off=` and `out=` for one bucket of the bucketed schedule:
+the pitched forms (`eg::fused_mix_commit_bucket`,
+`eg::fused_mix_commit_carrier_bucket`, the same kernels' `_pitched`
+entry points) read the bucket's columns of the `[R, n]` arenas in place
+and write p', t' into the same columns of the output arenas.
+
 The scalars enter as float32 values, as JAX's weakly typed scalars do,
 so the plain versions are bitwise the JAX ones and the kernels bitwise
 the plain versions. Both are dispatcher operators (`eg::fused_mix_commit`,
@@ -142,6 +148,80 @@ def _fused_mix_commit_fake(p, cands, keeps, lasts, g, t, lr, momentum,
             [torch.empty_like(p) for _ in cands])
 
 
+def _check_commit_bucket(op, p, cands, keeps, lasts, g, t, off, p_out,
+                         t_out, mix_scales=None, carrier=None):
+    """Validate a pitched commit's arguments; returns (device, rows,
+    cols, ld, named tensors)."""
+    nb = _check_lengths(op, cands, keeps, lasts)
+    arena = {"p": p, "g": g, "t": t, "p_out": p_out, "t_out": t_out}
+    bucket, dtypes = {}, {}
+    for i in range(nb):
+        bucket.update({f"cand{i}": cands[i], f"keep{i}": keeps[i],
+                       f"last{i}": lasts[i]})
+        if carrier is not None:
+            dtypes.update({f"cand{i}": carrier, f"last{i}": carrier})
+        if mix_scales:
+            bucket[f"scale{i}"] = mix_scales[i]
+    device, rows, cols, ld = build.check_bucket(op, arena, bucket, off,
+                                                dtypes=dtypes)
+    return device, rows, cols, ld, {**arena, **bucket}
+
+
+def _commit_into(p_out, t_out, off, p_new, t_new):
+    """Write a bucket's p', t' into its columns of the output arenas."""
+    cols = p_new.shape[-1]
+    p_out[:, off:off + cols].copy_(p_new)
+    t_out[:, off:off + cols].copy_(t_new)
+
+
+@torch.library.custom_op("eg::fused_mix_commit_bucket",
+                         mutates_args=("p_out", "t_out"), device_types="cpu")
+def _fused_mix_commit_bucket_op(
+    p: torch.Tensor, cands: List[torch.Tensor], keeps: List[torch.Tensor],
+    lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
+    momentum: float, mix_weight: float, mix_stale: bool, off: int,
+    p_out: torch.Tensor, t_out: torch.Tensor,
+) -> List[torch.Tensor]:
+    _check_commit_bucket("fused_mix_commit_bucket", p, cands, keeps, lasts,
+                         g, t, off, p_out, t_out)
+    cols = cands[0].shape[1]
+    view = lambda x: x[:, off:off + cols]
+    p_new, t_new, bufs = mix_commit_reference(
+        view(p), cands, keeps, lasts, view(g), view(t), lr, momentum,
+        mix_weight, mix_stale)
+    _commit_into(p_out, t_out, off, p_new, t_new)
+    return list(bufs)
+
+
+@_fused_mix_commit_bucket_op.register_kernel("cuda")
+def _fused_mix_commit_bucket_cuda(p, cands, keeps, lasts, g, t, lr, momentum,
+                                  mix_weight, mix_stale, off, p_out, t_out):
+    device, rows, cols, ld, named = _check_commit_bucket(
+        "fused_mix_commit_bucket", p, cands, keeps, lasts, g, t, off, p_out,
+        t_out)
+    nb = len(cands)
+    bufs = [torch.empty_like(cands[0]) for _ in range(nb)]
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "fused_mix_commit_bucket", lib.eg_mix_commit_pitched,
+            p.data_ptr(), g.data_ptr(), t.data_ptr(),
+            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
+            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows, cols,
+            ld, int(off), _f32(lr), _f32(momentum), _f32(mix_weight),
+            int(bool(mix_stale)), build.aligned(*named.values(), *bufs),
+            build.stream_of(device),
+        )
+    fused_mix_commit.launches += 1
+    return bufs
+
+
+@_fused_mix_commit_bucket_op.register_fake
+def _fused_mix_commit_bucket_fake(p, cands, keeps, lasts, g, t, lr, momentum,
+                                  mix_weight, mix_stale, off, p_out, t_out):
+    return [torch.empty_like(c) for c in cands]
+
+
 def fused_mix_commit(
     p: torch.Tensor,
     cands: Tensors,
@@ -153,13 +233,29 @@ def fused_mix_commit(
     momentum: float,
     mix_weight: float,
     mix_stale: bool = False,
+    off: Optional[int] = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
     """Fused commit+mix+SGD over flat f32 arenas of one shape (`[R, n]`
     for all ranks in one launch). `cands`/`keeps`/`lasts` hold one entry
     per neighbor: received candidates, per-POSITION f32 keep bits and the
     stale buffers. Returns (p_new, trace_new, committed_bufs). The
     operator `eg::fused_mix_commit`: on CPU tensors `mix_commit_reference`,
-    on CUDA tensors a launch of `csrc/mix_commit.cu` (or an error)."""
+    on CUDA tensors a launch of `csrc/mix_commit.cu` (or an error).
+
+    With `off` it is the pitched form over one bucket of the bucketed
+    schedule (`eg::fused_mix_commit_bucket`): `p`, `g`, `t` are the whole
+    `[R, n]` arenas, read in place at the columns `[off, off + c)`, the
+    per-neighbor tensors the bucket's `[R, c]` arrays, and p', t' are
+    written into the same columns of `out = (p_out, t_out)`, `[R, n]`
+    arenas, which come back in place of p_new, trace_new."""
+    if off is not None:
+        p_out, t_out = out
+        bufs = _fused_mix_commit_bucket_op(
+            p, list(cands), list(keeps), list(lasts), g, t, float(lr),
+            float(momentum), float(mix_weight), bool(mix_stale), int(off),
+            p_out, t_out)
+        return p_out, t_out, tuple(bufs)
     p_new, t_new, bufs = _fused_mix_commit_op(
         p, list(cands), list(keeps), list(lasts), g, t, float(lr),
         float(momentum), float(mix_weight), bool(mix_stale))
@@ -202,8 +298,9 @@ def mix_commit_carrier_reference(
     return mixed - _f32(lr) * trace, trace, bufs
 
 
-def _check_carrier(p, cands, keeps, lasts, g, t, mix_scales):
-    op = "fused_mix_commit_carrier"
+def _check_carrier_common(op, cands, keeps, lasts, mix_scales):
+    """The carrier dtype of a carrier commit's buffers, after the checks
+    both forms share."""
     _check_lengths(op, cands, keeps, lasts)
     cdt = lasts[0].dtype
     if cdt not in _CARRIERS:
@@ -215,6 +312,12 @@ def _check_carrier(p, cands, keeps, lasts, g, t, mix_scales):
                          "carriers none")
     if mix_scales and len(mix_scales) != len(cands):
         raise ValueError(f"{op}: mix_scales length differs")
+    return cdt
+
+
+def _check_carrier(p, cands, keeps, lasts, g, t, mix_scales):
+    op = "fused_mix_commit_carrier"
+    cdt = _check_carrier_common(op, cands, keeps, lasts, mix_scales)
     return _check_commit(op, p, cands, keeps, lasts, g, t, mix_scales,
                          carrier=cdt)
 
@@ -269,6 +372,67 @@ def _fused_mix_commit_carrier_fake(p, cands, keeps, lasts, g, t, lr,
             [torch.empty_like(x) for x in lasts])
 
 
+def _check_carrier_bucket(p, cands, keeps, lasts, g, t, off, p_out, t_out,
+                          mix_scales):
+    op = "fused_mix_commit_carrier_bucket"
+    cdt = _check_carrier_common(op, cands, keeps, lasts, mix_scales)
+    return _check_commit_bucket(op, p, cands, keeps, lasts, g, t, off, p_out,
+                                t_out, mix_scales, carrier=cdt)
+
+
+@torch.library.custom_op("eg::fused_mix_commit_carrier_bucket",
+                         mutates_args=("p_out", "t_out"), device_types="cpu")
+def _fused_mix_commit_carrier_bucket_op(
+    p: torch.Tensor, cands: List[torch.Tensor], keeps: List[torch.Tensor],
+    lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
+    momentum: float, mix_weight: float, mix_scales: List[torch.Tensor],
+    mix_stale: bool, off: int, p_out: torch.Tensor, t_out: torch.Tensor,
+) -> List[torch.Tensor]:
+    _check_carrier_bucket(p, cands, keeps, lasts, g, t, off, p_out, t_out,
+                          mix_scales)
+    cols = cands[0].shape[1]
+    view = lambda x: x[:, off:off + cols]
+    p_new, t_new, bufs = mix_commit_carrier_reference(
+        view(p), cands, keeps, lasts, view(g), view(t), lr, momentum,
+        mix_weight, mix_scales=mix_scales or None, mix_stale=mix_stale,
+    )
+    _commit_into(p_out, t_out, off, p_new, t_new)
+    return list(bufs)
+
+
+@_fused_mix_commit_carrier_bucket_op.register_kernel("cuda")
+def _fused_mix_commit_carrier_bucket_cuda(p, cands, keeps, lasts, g, t, lr,
+                                          momentum, mix_weight, mix_scales,
+                                          mix_stale, off, p_out, t_out):
+    device, rows, cols, ld, named = _check_carrier_bucket(
+        p, cands, keeps, lasts, g, t, off, p_out, t_out, mix_scales)
+    nb = len(cands)
+    bufs = [torch.empty_like(lasts[0]) for _ in range(nb)]
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "fused_mix_commit_carrier_bucket",
+            lib.eg_mix_commit_carrier_pitched,
+            p.data_ptr(), g.data_ptr(), t.data_ptr(),
+            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
+            _ptrs(mix_scales) if mix_scales else None,
+            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows, cols,
+            ld, int(off), _f32(lr), _f32(momentum), _f32(mix_weight),
+            int(bool(mix_stale)), _CARRIERS[lasts[0].dtype],
+            build.aligned(*named.values(), *bufs),
+            build.stream_of(device),
+        )
+    fused_mix_commit_carrier.launches += 1
+    return bufs
+
+
+@_fused_mix_commit_carrier_bucket_op.register_fake
+def _fused_mix_commit_carrier_bucket_fake(p, cands, keeps, lasts, g, t, lr,
+                                          momentum, mix_weight, mix_scales,
+                                          mix_stale, off, p_out, t_out):
+    return [torch.empty_like(x) for x in lasts]
+
+
 def fused_mix_commit_carrier(
     p: torch.Tensor,
     cands: Tensors,
@@ -281,6 +445,8 @@ def fused_mix_commit_carrier(
     mix_weight: float,
     mix_scales: Optional[Tensors] = None,
     mix_stale: bool = False,
+    off: Optional[int] = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
     """Fused commit+mix+SGD whose buffer reads stay in the carrier.
     `cands`/`lasts` are per-neighbor carriers of one dtype — int8, with
@@ -291,7 +457,17 @@ def fused_mix_commit_carrier(
     Returns (p_new, trace_new, committed carrier buffers). The operator
     `eg::fused_mix_commit_carrier`: on CPU tensors
     `mix_commit_carrier_reference`, on CUDA tensors a launch of
-    `csrc/mix_commit_carrier.cu` (or an error)."""
+    `csrc/mix_commit_carrier.cu` (or an error). With `off` and `out`, the
+    pitched form over one bucket (`eg::fused_mix_commit_carrier_bucket`,
+    as `fused_mix_commit`)."""
+    if off is not None:
+        p_out, t_out = out
+        bufs = _fused_mix_commit_carrier_bucket_op(
+            p, list(cands), list(keeps), list(lasts), g, t, float(lr),
+            float(momentum), float(mix_weight),
+            [] if mix_scales is None else list(mix_scales), bool(mix_stale),
+            int(off), p_out, t_out)
+        return p_out, t_out, tuple(bufs)
     p_new, t_new, bufs = _fused_mix_commit_carrier_op(
         p, list(cands), list(keeps), list(lasts), g, t, float(lr),
         float(momentum), float(mix_weight),

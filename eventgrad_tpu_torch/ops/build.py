@@ -146,6 +146,17 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, offs|NULL, strides (host
     # int64[12]), b, t, h, d, n_off, per, causal, dtype, stream
     "eg_flash_dkv": [_P] * 10 + [_I] * 8 + [_P],
+    # the pitched (bucket) forms: the contiguous form's pointers, then
+    # rows, cols, ld (the arena row pitch), off (the bucket's first
+    # column) in place of n
+    "eg_masked_wire_pitched": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
+    "eg_mask_quant_pitched": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
+                              _P],
+    "eg_mix_commit_pitched": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64,
+                              _I64, _I64, _I64, _F, _F, _F, _I, _I, _P],
+    "eg_mix_commit_carrier_pitched": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _I, _I64, _I64, _I64, _I64, _F,
+                                      _F, _F, _I, _I, _I, _P],
     # x, o, n, stream: the auditor's seeded unregistered kernel
     # (analysis/audit.py, eg::leak_kernel)
     "eg_leak_x2": [_P, _P, _I64, _P],
@@ -197,6 +208,28 @@ def check_inputs(op: str, *, dtypes=None, **tensors):
     if t0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: unsupported device {t0.device}")
     return t0.device, t0.numel()
+
+
+def check_bucket(op: str, arena: dict, bucket: dict, off: int, *,
+                 dtypes=None):
+    """Validate a pitched (bucket) form's arguments: the `arena` tensors
+    `[R, n]` and the `bucket` tensors `[R, c]`, all contiguous, on one
+    device, each of the dtype `dtypes` names for it (default float32),
+    with the bucket's columns `[off, off + c)` inside the arena row.
+    Returns (device, R, c, n)."""
+    device, _ = check_inputs(op, dtypes=dtypes, **arena)
+    bdev, _ = check_inputs(op, dtypes=dtypes, **bucket)
+    a0, b0 = next(iter(arena.values())), next(iter(bucket.values()))
+    if a0.dim() != 2 or b0.dim() != 2 or a0.shape[0] != b0.shape[0]:
+        raise ValueError(f"{op}: arena {tuple(a0.shape)} and bucket "
+                         f"{tuple(b0.shape)} must be [R, n] and [R, c]")
+    if bdev != device:
+        raise ValueError(f"{op}: bucket tensors on {bdev}, arena on {device}")
+    rows, cols, ld = a0.shape[0], b0.shape[1], a0.shape[1]
+    if not 0 <= int(off) <= ld - cols:
+        raise ValueError(f"{op}: columns [{off}, {off + cols}) outside the "
+                         f"arena row of {ld}")
+    return device, rows, cols, ld
 
 
 def launch(op: str, fn, *args) -> None:

@@ -11,7 +11,10 @@ scales `masked_wire` launches the CUDA kernel `csrc/masked_wire.cu`
 `_mask_quant_kernel`). Each is a dispatcher operator (`eg::masked_wire`,
 `eg::masked_wire_int8`): the plain version is its CPU implementation and
 the launch its CUDA one, so a traced step shows the kernel as one node.
-Each wrapper counts its own launches.
+Each wrapper counts its own launches. With `off=` each builds one bucket
+of the bucketed schedule through its kernel's pitched form
+(`eg::masked_wire_bucket`, `eg::masked_wire_int8_bucket`), reading the
+bucket's columns of the parameter arena in place.
 """
 
 from __future__ import annotations
@@ -148,19 +151,106 @@ def _masked_wire_int8_fake(flat, fire_exp, scale_exp):
     return torch.empty_like(flat)
 
 
+def _check_masked_bucket(op, flat, fire_exp, off, scale_exp=None):
+    bucket = {"fire_exp": fire_exp}
+    if scale_exp is not None:
+        bucket["scale_exp"] = scale_exp
+    return build.check_bucket(op, {"flat": flat}, bucket, off)
+
+
+def _bucket_view(flat: torch.Tensor, off: int, cols: int) -> torch.Tensor:
+    """The bucket's columns `[off, off + cols)` of an `[R, n]` arena (a
+    strided view once R > 1)."""
+    return flat[:, off:off + cols]
+
+
+@torch.library.custom_op("eg::masked_wire_bucket", mutates_args=(),
+                         device_types="cpu")
+def _masked_wire_bucket_op(flat: torch.Tensor, fire_exp: torch.Tensor,
+                           off: int) -> torch.Tensor:
+    _check_masked_bucket("masked_wire_bucket", flat, fire_exp, off)
+    return masked_wire_reference(
+        _bucket_view(flat, off, fire_exp.shape[1]), fire_exp)
+
+
+@_masked_wire_bucket_op.register_kernel("cuda")
+def _masked_wire_bucket_cuda(flat, fire_exp, off):
+    device, rows, cols, ld = _check_masked_bucket("masked_wire_bucket", flat,
+                                                  fire_exp, off)
+    out = torch.empty_like(fire_exp)
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "masked_wire_bucket", lib.eg_masked_wire_pitched,
+            flat.data_ptr(), fire_exp.data_ptr(), out.data_ptr(), rows, cols,
+            ld, int(off), build.aligned(flat, fire_exp, out),
+            build.stream_of(device),
+        )
+    masked_wire.launches += 1
+    return out
+
+
+@_masked_wire_bucket_op.register_fake
+def _masked_wire_bucket_fake(flat, fire_exp, off):
+    return torch.empty_like(fire_exp)
+
+
+@torch.library.custom_op("eg::masked_wire_int8_bucket", mutates_args=(),
+                         device_types="cpu")
+def _masked_wire_int8_bucket_op(flat: torch.Tensor, fire_exp: torch.Tensor,
+                                scale_exp: torch.Tensor,
+                                off: int) -> torch.Tensor:
+    _check_masked_bucket("masked_wire_int8_bucket", flat, fire_exp, off,
+                         scale_exp)
+    return masked_wire_reference(
+        _bucket_view(flat, off, fire_exp.shape[1]), fire_exp, scale_exp)
+
+
+@_masked_wire_int8_bucket_op.register_kernel("cuda")
+def _masked_wire_int8_bucket_cuda(flat, fire_exp, scale_exp, off):
+    device, rows, cols, ld = _check_masked_bucket(
+        "masked_wire_int8_bucket", flat, fire_exp, off, scale_exp)
+    out = torch.empty_like(fire_exp)
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.launch(
+            "masked_wire_int8_bucket", lib.eg_mask_quant_pitched,
+            flat.data_ptr(), fire_exp.data_ptr(), scale_exp.data_ptr(),
+            out.data_ptr(), rows, cols, ld, int(off),
+            build.aligned(flat, fire_exp, scale_exp, out),
+            build.stream_of(device),
+        )
+    masked_wire_int8.launches += 1
+    return out
+
+
+@_masked_wire_int8_bucket_op.register_fake
+def _masked_wire_int8_bucket_fake(flat, fire_exp, scale_exp, off):
+    return torch.empty_like(fire_exp)
+
+
 def masked_wire(
     flat: torch.Tensor,
     fire_exp: torch.Tensor,
     scale_exp: Optional[torch.Tensor] = None,
+    off: Optional[int] = None,
 ) -> torch.Tensor:
     """Build the masked wire buffer in one pass: zero the non-fired
     positions (`fire_exp` = f32 per-position fire bits, fire_vec[seg]),
     quantizing against the f32 per-position `scale_exp` in the same pass
     when it is given (`masked_wire_int8`). The operator `eg::masked_wire`:
     on a CPU tensor `masked_wire_reference`, on a CUDA tensor a launch of
-    `csrc/masked_wire.cu` (or an error)."""
+    `csrc/masked_wire.cu` (or an error).
+
+    With `off` it is the pitched form over one bucket of the bucketed
+    schedule (`eg::masked_wire_bucket`): `flat` is the whole `[R, n]`
+    arena, read in place at the columns `[off, off + c)`, and `fire_exp`
+    (and `scale_exp`) are the bucket's `[R, c]` arrays; the wire comes
+    back `[R, c]`, bitwise the same columns of the contiguous form's."""
     if scale_exp is not None:
-        return masked_wire_int8(flat, fire_exp, scale_exp)
+        return masked_wire_int8(flat, fire_exp, scale_exp, off)
+    if off is not None:
+        return _masked_wire_bucket_op(flat, fire_exp, int(off))
     return _masked_wire_op(flat, fire_exp)
 
 
@@ -168,12 +258,17 @@ def masked_wire_int8(
     flat: torch.Tensor,
     fire_exp: torch.Tensor,
     scale_exp: torch.Tensor,
+    off: Optional[int] = None,
 ) -> torch.Tensor:
     """The int8 masked wire in one pass, as f32 values in [-127, 127]:
     clip(round_half_even(where(fire > 0, flat, 0) / scale), -127, 127).
     The operator `eg::masked_wire_int8`: on a CPU tensor
     `masked_wire_reference`, on a CUDA tensor a launch of
-    `csrc/mask_quant.cu` (or an error)."""
+    `csrc/mask_quant.cu` (or an error). With `off`, the pitched form
+    over one bucket (`eg::masked_wire_int8_bucket`, as `masked_wire`)."""
+    if off is not None:
+        return _masked_wire_int8_bucket_op(flat, fire_exp, scale_exp,
+                                           int(off))
     return _masked_wire_int8_op(flat, fire_exp, scale_exp)
 
 

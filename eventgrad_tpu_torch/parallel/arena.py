@@ -2,9 +2,10 @@
 
 Port of `eventgrad_tpu/parallel/arena.py` (`ArenaSpec` with its
 leaf-aligned `buckets`, `BucketSpec`, `arena_spec`, `carrier_dtype`,
-`carrier_needs_scales`, `alloc_event_bufs` for f32 and carrier
-residency). The buckets serve the partitioned trigger policies'
-geometry (`parallel/policy.py`); the bucketed schedule waits.
+`carrier_needs_scales`, `alloc_event_bufs` and `alloc_event_queue` for
+f32 and carrier residency, monolithic or per bucket). The buckets serve
+the bucketed gossip schedule (`train/steps.py`, `bucketed=K`) and the
+partitioned trigger policies' geometry (`parallel/policy.py`).
 
 Every rank-stacked quantity of the gossip hot path — parameters,
 gradients, momentum trace, neighbor buffers — is ONE `[R, n]` f32
@@ -128,6 +129,17 @@ class BucketSpec:
     def n_leaves(self) -> int:
         return self.hi - self.lo
 
+    def sizes_tensor(self, device=None) -> torch.Tensor:
+        """[L_b] int32 bucket-local leaf sizes (cached: read only)."""
+        return _device_constants(self.sizes,
+                                 torch.device(device or "cpu"))[1]
+
+    def seg_expand(self, device=None) -> torch.Tensor:
+        """[size] int64 bucket-local leaf index (0 .. L_b - 1) per element
+        of the bucket (cached per device: read only)."""
+        return _device_constants(self.sizes,
+                                 torch.device(device or "cpu"))[0]
+
 
 @functools.lru_cache(maxsize=256)
 def _buckets_cached(spec: ArenaSpec, k: int) -> Tuple[BucketSpec, ...]:
@@ -235,25 +247,80 @@ def carrier_needs_scales(wire) -> bool:
 
 def alloc_event_bufs(
     spec: ArenaSpec, n_neighbors: int, n_ranks: int, *, wire=None,
-    device=None,
-) -> Tuple[Tuple[torch.Tensor, ...], Optional[Tuple[torch.Tensor, ...]]]:
+    device=None, buckets: int = 1,
+):
     """The arena EventState.bufs allocation site. Returns `(bufs,
     buf_scales)`: per-neighbor zero `[R, n]` receive buffers in the
     resident dtype — f32, or the wire carrier under carrier residency
     (`wire` = "bf16" | "int8") — plus per-neighbor `[R, L]` f32 dequant
     scales starting at 1.0 (int8 carrier only, else None). A zero carrier
     dequantizes to exactly +0.0 under every scale, so the zero init is
-    bitwise the f32 zero init (the reference's zero RMA window). The
-    bucketed layout waits."""
+    bitwise the f32 zero init (the reference's zero RMA window).
+    `buckets=K` (K >= 2) gives the JAX package's per-bucket layout of the
+    bucketed schedule: per neighbor a tuple of `[R, n_b]` buffers (and of
+    `[R, L_b]` scales), one per bucket of `spec.buckets(K)`."""
     dt = carrier_dtype(wire) or torch.float32
-    bufs = tuple(
-        torch.zeros((n_ranks, spec.n_total), dtype=dt, device=device)
-        for _ in range(int(n_neighbors))
-    )
-    if not carrier_needs_scales(wire):
+    k = int(buckets) if buckets else 1
+    scaled = carrier_needs_scales(wire)
+
+    def one():
+        if k > 1:
+            return tuple(torch.zeros((n_ranks, b.size), dtype=dt,
+                                     device=device)
+                         for b in spec.buckets(k))
+        return torch.zeros((n_ranks, spec.n_total), dtype=dt, device=device)
+
+    def one_scale():
+        if k > 1:
+            return tuple(torch.ones((n_ranks, b.n_leaves),
+                                    dtype=torch.float32, device=device)
+                         for b in spec.buckets(k))
+        return torch.ones((n_ranks, spec.n_leaves), dtype=torch.float32,
+                          device=device)
+
+    bufs = tuple(one() for _ in range(int(n_neighbors)))
+    if not scaled:
         return bufs, None
-    return bufs, tuple(
-        torch.ones((n_ranks, spec.n_leaves), dtype=torch.float32,
-                   device=device)
+    return bufs, tuple(one_scale() for _ in range(int(n_neighbors)))
+
+
+def alloc_event_queue(
+    spec: ArenaSpec, n_neighbors: int, n_ranks: int, depth: int, *,
+    wire=None, device=None, buckets: int = 1,
+):
+    """The bounded-async delivery queues (`EventState.pending` for
+    staleness=D >= 2), allocated through `alloc_event_bufs` so the
+    carrier layout is declared in one place. Per neighbor, `depth` slots
+    of
+
+        (candidate, eff fire bits, sent pass, late count[, scales])
+
+    where the candidate (and the int8 carrier's dequant scales) take the
+    receive buffers' own layout — `[R, n]`, or the per-bucket tuple under
+    `buckets=K`, in the wire dtype under carrier residency — the eff bits
+    are bool `[R, L]` (per-bucket `[R, L_b]`), and the sent pass and late
+    count int32 `[R]`. An empty slot (eff all False, sent pass 0) commits
+    nothing, so the zero init is the empty queue. Every slot holds its
+    own tensors."""
+    k = int(buckets) if buckets else 1
+
+    def eff0():
+        if k > 1:
+            return tuple(torch.zeros((n_ranks, b.n_leaves), dtype=torch.bool,
+                                     device=device)
+                         for b in spec.buckets(k))
+        return torch.zeros((n_ranks, spec.n_leaves), dtype=torch.bool,
+                           device=device)
+
+    def slot():
+        bufs, scales = alloc_event_bufs(spec, 1, n_ranks, wire=wire,
+                                        device=device, buckets=k)
+        stamp = lambda: torch.zeros((n_ranks,), dtype=torch.int32,
+                                    device=device)
+        out = (bufs[0], eff0(), stamp(), stamp())
+        return out if scales is None else out + (scales[0],)
+
+    return tuple(
+        tuple(slot() for _ in range(int(depth)))
         for _ in range(int(n_neighbors))
     )

@@ -8,11 +8,15 @@ steps run: `allreduce_mean`, `recv_from`, `_wire_concat`, the wire codecs
 and `compact_neighbor_vals_flat` (both with the carrier-resident
 contract), the compact wire's `_compact_pack`, `compact_capacity_floor`
 and `choose_capacity`, `commit_bufs_flat`, `commit_carrier_scales`,
-`dequant_carrier_bufs` and the wire byte accounting. The integrity
-riders and chaos delivery are not ported yet and raise
-`NotImplementedError`; the tree-path `compact_neighbor_vals` and the
-unfused mixes (`mix_flat_into_tree`, `mix_carrier_flat_into_tree`) are
-absent, since the port runs the arena and the fused tail kernels only.
+`dequant_carrier_bufs` and the wire byte accounting; and the bucketed
+schedule's family: `bucketed_capacity_floor`, `split_capacity`,
+`bucketed_wire_real_bytes_per_neighbor`, `masked_neighbor_vals_bucket`,
+`compact_neighbor_vals_bucket`, and `mix_carrier_flat_into_tree` (the
+carrier mix the step's fused tail computes inside kernel 5; here the
+plain per-leaf twin). The integrity riders and chaos delivery are not
+ported yet and raise `NotImplementedError`; the tree-path
+`compact_neighbor_vals` and `mix_flat_into_tree` are absent, since the
+port runs the arena and the fused tail kernels only.
 
 Each `[R, ...]` argument holds every rank of the topology; a ppermute of
 the JAX package is a `torch.roll` of the rank dimension. The int8 codec
@@ -25,8 +29,9 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from eventgrad_tpu_torch.parallel import arena
@@ -453,15 +458,27 @@ def dequant_carrier_bufs(
 ) -> Tuple[torch.Tensor, ...]:
     """The f32 view of carrier-resident `[..., n]` receive buffers —
     exactly what the f32-resident layout would have stored (the test
-    shim; the hot path never materializes it). Monolithic layout only:
-    the bucketed layout is not ported yet."""
+    shim; the hot path never materializes it). A bucketed buffer (a
+    tuple of per-bucket carriers, with per-bucket scales) dequantizes
+    bucket by bucket and comes back as the same tuple."""
     out = []
     for i, buf in enumerate(bufs):
-        val = buf.to(torch.float32)
-        if scales is not None:
-            val = val * scales[i][..., spec.seg_expand(buf.device)]
-        out.append(val)
+        if isinstance(buf, tuple):
+            ks = len(buf)
+            out.append(tuple(
+                _dequant(buf[b], None if scales is None else scales[i][b],
+                         spec.buckets(ks)[b].seg_expand(buf[b].device))
+                for b in range(ks)))
+        else:
+            out.append(_dequant(
+                buf, None if scales is None else scales[i],
+                spec.seg_expand(buf.device)))
     return tuple(out)
+
+
+def _dequant(buf, scale, seg):
+    val = buf.to(torch.float32)
+    return val if scale is None else val * scale[..., seg]
 
 
 def wire_real_bytes_per_neighbor(
@@ -498,3 +515,247 @@ def fired_wire_bytes_per_neighbor(
     if wire == "int8":
         b += 4.0 * float(fired_leaves)
     return b
+
+
+# ---------------------------------------------------------------------------
+# the bucketed schedule: one leaf-aligned bucket of the arena per call
+# (`arena.BucketSpec`), the wire semantics of the flat functions above.
+# Each bucket's lanes are bitwise the bucket's columns of the monolithic
+# wire (per-leaf int8 scales do not depend on the bucket), so the K-bucket
+# schedule reproduces the monolithic step exactly.
+
+
+def bucketed_capacity_floor(buckets) -> int:
+    """Smallest legal total compact capacity under a bucketed schedule:
+    every bucket must ship its own largest leaf whole, so the floor is
+    the sum of the per-bucket floors."""
+    return int(sum(b.floor for b in buckets))
+
+
+def split_capacity(capacity: int, buckets) -> Tuple[int, ...]:
+    """Split a total compact capacity into per-bucket static budgets:
+    element-proportional shares, each at least its bucket's floor, that
+    sum exactly to `capacity` (largest remainder first, ties to the lower
+    index), so the bucketed wire moves the monolithic wire's total value
+    lanes. Raises below `bucketed_capacity_floor`."""
+    capacity = int(capacity)
+    floors = [int(b.floor) for b in buckets]
+    if sum(floors) > capacity:
+        raise ValueError(
+            f"compact capacity {capacity} is below the bucketed floor "
+            f"{sum(floors)} (sum of per-bucket largest leaves): some "
+            "bucket's largest leaf could never ship and would starve — "
+            "raise the capacity or lower the bucket count"
+        )
+    total = sum(int(b.size) for b in buckets)
+    raw = [capacity * int(b.size) / total for b in buckets]
+    caps = [max(f, int(r)) for f, r in zip(floors, raw)]
+    rem = capacity - sum(caps)
+    order = sorted(range(len(caps)),
+                   key=lambda i: (-(raw[i] - int(raw[i])), i))
+    j = 0
+    while rem != 0:
+        i = order[j % len(order)]
+        if rem > 0:
+            caps[i] += 1
+            rem -= 1
+        elif caps[i] > floors[i]:
+            caps[i] -= 1
+            rem += 1
+        j += 1
+    return tuple(caps)
+
+
+def bucketed_wire_real_bytes_per_neighbor(
+    buckets, wire=None, caps: "Optional[Tuple[int, ...]]" = None,
+) -> Tuple[float, ...]:
+    """Per-bucket wire truth of the bucketed schedule: bucket b ships its
+    value lanes (`caps[b]` on the compact wire, its element count
+    otherwise) plus its own fire-bit vector (and int8 scale vector). The
+    sum over buckets equals the monolithic number exactly."""
+    return tuple(
+        wire_real_bytes_per_neighbor(
+            int(b.size), b.n_leaves, wire,
+            compact_capacity=None if caps is None else int(caps[i]),
+            fire_bits=True,
+        )
+        for i, b in enumerate(buckets)
+    )
+
+
+def _carrier_check(carrier: bool, wire) -> None:
+    if carrier and wire not in ("bf16", "int8"):
+        raise ValueError(
+            f"carrier-resident exchange needs a bf16/int8 wire; got {wire!r}"
+        )
+
+
+def masked_neighbor_vals_bucket(
+    payload: torch.Tensor,
+    fire_vec: torch.Tensor,
+    topo: Topology,
+    bucket: "arena.BucketSpec",
+    wire=None,
+    scale_vec: "Optional[torch.Tensor]" = None,
+    wire_builder=None,
+    carrier: bool = False,
+):
+    """One bucket of the event-triggered masked exchange.
+
+    `payload` is the whole `[R, n]` parameter arena (the bucket's columns
+    `[start, start + size)` are read in place), `fire_vec` the
+    bucket-local `[R, L_b]` fire bits, `scale_vec` the bucket's `[R, L_b]`
+    columns of the per-leaf int8 scales (required for int8).
+    `wire_builder` — a callable (flat, fire_exp, scale_exp|None, off) ->
+    f32 wire, the pitched forms of the masked-wire kernels — builds the
+    bucket's wire in one pass; else plain tensor ops build the same bits.
+    Returns the flat exchange's (candidates, effective bits, raw bits),
+    every array bucket-sized, and with `carrier=True` the candidates in
+    the wire dtype plus the per-neighbor received `[R, L_b]` scales
+    (int8; None for bf16)."""
+    _carrier_check(carrier, wire)
+    check_wire(wire)
+    dev = payload.device
+    seg = bucket.seg_expand(dev)
+    fire_exp = fire_vec.to(torch.float32)[:, seg]
+    view = payload[:, bucket.start:bucket.start + bucket.size]
+    if wire == "int8":
+        scale_exp = scale_vec[:, seg]
+        if wire_builder is not None:
+            q = wire_builder(payload, fire_exp, scale_exp, bucket.start)
+            wire_buf = q.to(torch.int8)
+        else:
+            zero = torch.zeros((), dtype=payload.dtype, device=dev)
+            wire_buf = torch.clamp(torch.round(
+                torch.where(fire_exp > 0, view, zero) / scale_exp),
+                -127, 127).to(torch.int8)
+    else:
+        if wire_builder is not None:
+            masked = wire_builder(payload, fire_exp, None, bucket.start)
+        else:
+            zero = torch.zeros((), dtype=payload.dtype, device=dev)
+            masked = torch.where(fire_exp > 0, view, zero)
+        wire_buf = _wire_out(masked, wire)
+    cands, raws, scls = [], [], []
+    for nb in topo.neighbors:
+        got = recv_from(wire_buf, topo, nb)
+        got_s = None if scale_vec is None else recv_from(scale_vec, topo, nb)
+        if not carrier:
+            got = got.to(payload.dtype)
+            if got_s is not None:
+                got = got * got_s[:, seg]
+        cands.append(got)
+        raws.append(recv_from(fire_vec, topo, nb))
+        scls.append(got_s)
+    if carrier:
+        return tuple(cands), tuple(raws), tuple(raws), (
+            tuple(scls) if wire == "int8" else None
+        )
+    return tuple(cands), tuple(raws), tuple(raws)
+
+
+def compact_neighbor_vals_bucket(
+    packed: torch.Tensor,
+    leaf_id: torch.Tensor,
+    fire_vec: torch.Tensor,
+    topo: Topology,
+    bucket: "arena.BucketSpec",
+    capacity: int,
+    dtype=torch.float32,
+    wire=None,
+    scale_vec: "Optional[torch.Tensor]" = None,
+    carrier: bool = False,
+):
+    """One bucket of the budgeted compact exchange.
+
+    `packed` / `leaf_id` come from `_compact_pack` over the bucket's
+    columns with its bucket-local `capacity` (one share of
+    `split_capacity`); `fire_vec` is the bucket-local capacity-gated
+    `[R, L_b]` bits, `scale_vec` the bucket's `[R, L_b]` int8 scales. The
+    offsets stay implicit: the receiver recomputes them from the bucket's
+    fire bits, so deferral re-contends within the bucket. Returns the
+    flat exchange's triple (carrier: plus the received scales), every
+    array bucket-sized."""
+    _carrier_check(carrier, wire)
+    check_wire(wire)
+    capacity = int(capacity)
+    if capacity < bucket.floor:
+        raise ValueError(
+            f"bucket {bucket.index}: compact capacity {capacity} is "
+            f"below its largest leaf ({bucket.floor} elements) — use "
+            "split_capacity, which enforces per-bucket floors"
+        )
+    dev = packed.device
+    if wire == "int8":
+        wire_packed = _int8_encode_flat(packed, scale_vec, leaf_id)
+    else:
+        wire_packed = _wire_out(packed, wire)
+    seg = bucket.seg_expand(dev)
+    sizes_t, _, pos_in_leaf = _compact_constants(
+        bucket_spec_of(bucket), dev)
+    cands, raws, scls = [], [], []
+    for nb in topo.neighbors:
+        got_packed = recv_from(wire_packed, topo, nb)
+        got_vec = recv_from(fire_vec, topo, nb)
+        got_s = None if scale_vec is None else recv_from(scale_vec, topo, nb)
+        got_offsets, _ = _fired_offsets(got_vec, sizes_t)
+        src = got_offsets.long()[:, seg].add_(pos_in_leaf).clamp_(
+            0, capacity - 1)
+        val = torch.gather(got_packed, -1, src)
+        del src
+        if not carrier:
+            val = val.to(dtype)
+            if got_s is not None:
+                val = val * got_s[:, seg]
+        cands.append(val)
+        raws.append(got_vec)
+        scls.append(got_s)
+    if carrier:
+        return tuple(cands), tuple(raws), tuple(raws), (
+            tuple(scls) if wire == "int8" else None
+        )
+    return tuple(cands), tuple(raws), tuple(raws)
+
+
+def bucket_spec_of(bucket: "arena.BucketSpec") -> "arena.ArenaSpec":
+    """A bucket's leaf layout as an ArenaSpec (sizes and bucket-local
+    starts; the names are placeholders): the compact constants' key."""
+    return _bucket_layout(bucket.sizes, bucket.starts_rel, bucket.size)
+
+
+@functools.lru_cache(maxsize=64)
+def _bucket_layout(sizes, starts, total) -> "arena.ArenaSpec":
+    return arena.ArenaSpec(
+        names=tuple(f"leaf{i}" for i in range(len(sizes))),
+        shapes=tuple((z,) for z in sizes), sizes=sizes, starts=starts,
+        n_total=total,
+    )
+
+
+def mix_carrier_flat_into_tree(
+    params: Dict[str, torch.Tensor],
+    bufs: Tuple[torch.Tensor, ...],
+    scales: "Optional[Tuple[torch.Tensor, ...]]",
+    spec: "arena.ArenaSpec",
+    topo: Topology,
+) -> Dict[str, torch.Tensor]:
+    """The gossip mix of per-leaf parameters (a dict of `[R, *shape]`
+    leaves in flax order, torch layout) with carrier-resident flat `[R,
+    n]` buffers: per leaf `(p + dq(buf_0) + dq(buf_1) + ...) * w`, each
+    buffer slice upcast and, for int8, multiplied by the leaf's scalar
+    scale. Elementwise the dequantized slice equals what the f32-resident
+    buffer stored, so the mix is bitwise the f32-resident mix (the plain
+    twin of the mix kernel 5 runs in the step)."""
+    w = float(np.float32(topo.mix_weight))
+    out = {}
+    for k, (name, shape, start, size) in enumerate(zip(
+            spec.names, spec.shapes, spec.starts, spec.sizes)):
+        p = params[name]
+        acc = p
+        for i, buf in enumerate(bufs):
+            piece = buf[:, start:start + size].to(p.dtype)
+            if scales is not None:
+                piece = piece * scales[i][:, k:k + 1].to(p.dtype)
+            acc = acc + piece.reshape(p.shape)
+        out[name] = acc * w
+    return out

@@ -164,15 +164,25 @@ def _k_starts(spec: ArenaSpec, ks: Tuple[int, ...], device) -> torch.Tensor:
 def scatter_into(
     full: torch.Tensor, vals: torch.Tensor, idxs: torch.Tensor,
     gate: torch.Tensor, ks: Tuple[int, ...], spec: ArenaSpec,
+    lanes: Optional[Tuple[int, int]] = None,
+    leaves: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Write the `[R, K]` `vals` at the leaf positions `idxs` (flax
     layout) of the `[R, n]` arena `full`, for the leaves whose `[R, L]`
     `gate` bit is set; every other leaf keeps its values. The receiver's
-    replica update and the sender's prev_sent update (gate = fire)."""
+    replica update and the sender's prev_sent update (gate = fire).
+    `lanes=(k0, k1)` and `leaves=(l0, l1)` scatter one bucket's share:
+    `vals`/`idxs` are then the payload lanes `[k0, k1)` and `gate` the
+    bits of leaves `[l0, l1)`."""
     dev = full.device
     lay = topk_layout(spec, ks)
-    pos = flax_positions(spec, dev)[idxs.to(torch.int64) + _k_starts(spec, ks, dev)]
-    v = torch.where(gate[:, lay.seg_expand(dev)], vals, torch.gather(full, 1, pos))
+    starts, kseg = _k_starts(spec, ks, dev), lay.seg_expand(dev)
+    if lanes is not None:
+        # one bucket: its lanes, and its leaves' gate bits re-based
+        starts, kseg = starts[lanes[0]:lanes[1]], kseg[lanes[0]:lanes[1]]
+        kseg = kseg - leaves[0]
+    pos = flax_positions(spec, dev)[idxs.to(torch.int64) + starts]
+    v = torch.where(gate[:, kseg], vals, torch.gather(full, 1, pos))
     return torch.scatter(full, 1, pos, v)
 
 

@@ -2,9 +2,10 @@
 
 Port of `eventgrad_tpu/train/loop.py`: `train` (the per-epoch loop —
 one host step per pass, no K-epoch dispatch blocks, no dispatch
-pipeline, chaos, telemetry or checkpointing yet; the compact wire's
-warmup-then-rebuild capacity autotune), `evaluate`, `consensus_params`
-and `rank0_slice`. History records carry the JAX records' keys for the
+pipeline, telemetry or checkpointing yet; the compact wire's
+warmup-then-rebuild capacity autotune; the bucketed schedule, the
+bounded-async staleness D >= 2 and the chaos schedule's straggler
+clauses), `evaluate`, `consensus_params` and `rank0_slice`. History records carry the JAX records' keys for the
 fields the slice computes.
 """
 
@@ -17,6 +18,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
+from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
 from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
@@ -130,6 +133,8 @@ def train(
     carrier_resident: Optional[bool] = None,
     gossip_wire: str = "dense",
     compact_frac: Optional[float] = None,
+    bucketed: Optional[int] = None,
+    chaos=None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
@@ -166,7 +171,21 @@ def train(
     carry `gossip_wire` ("dense" until the switch), `compact_capacity`,
     and on the first compact epoch `compact_autotuned` (plus
     `compact_fired_peak_elems`, and `compact_skipped` where it stayed
-    dense)."""
+    dense).
+
+    `bucketed=K` (eventgrad, sp_eventgrad) runs the bucketed schedule
+    (records add `buckets` and `sent_bytes_wire_real_per_bucket`; the
+    compact capacity is at least the bucketed floor, the sum of the
+    buckets' largest leaves). `staleness=D >= 2` (eventgrad,
+    sp_eventgrad) runs the bounded-async delivery queues; eventgrad's
+    records add `edge_staleness_max` (the end-of-epoch per-edge peak)
+    and `late_commits` (cumulative). `chaos` (a `ChaosSchedule`, spec
+    string or dict; eventgrad, dpsgd) sets the `lag=` / `slow=` clauses:
+    the first record carries the schedule as `chaos`, every record the
+    per-edge `edge_silence_max`, `edge_status` and `chaos_drops`. Unlike
+    the JAX loop, a bucketed run never demotes to the monolithic fused
+    tail: the kernels are the card path, with pitched forms per
+    bucket."""
     device = resolve_device(device)
     if gossip_wire not in ("dense", "compact"):
         raise ValueError(
@@ -196,6 +215,8 @@ def train(
             )
     if algo in EVENT_ALGOS:
         event_cfg = event_cfg or EventConfig()
+    chaos_sched = resolve_chaos(chaos) if chaos is not None else None
+    bucketed_k = int(bucketed) if bucketed else 1
     x = _as_input(model, x_train)
     y = np.ascontiguousarray(y_train, np.int64)
     # labels per sample: 1 for a classifier, T for a language model
@@ -210,7 +231,7 @@ def train(
             trigger_policy=trigger_policy, wire=wire, staleness=staleness,
             carrier_resident=carrier_resident, sparse_cfg=sparse_cfg,
             augment=augment, gossip_wire=wire_mode,
-            compact_capacity=capacity,
+            compact_capacity=capacity, bucketed=bucketed, chaos=chaos_sched,
         )
 
     # make_train_step checks the wire/staleness/carrier combination
@@ -221,8 +242,13 @@ def train(
     resident_wire = wire if carrier_resident else None
     state = init_train_state(
         model, x.shape[1:], topo, algo, event_cfg, seed,
-        momentum=momentum, resident_wire=resident_wire, device=device,
+        momentum=momentum, resident_wire=resident_wire,
+        bucketed=bucketed_k, staleness=staleness, sparse_cfg=sparse_cfg,
+        device=device,
     )
+    if chaos_sched is not None:
+        state = state.replace(chaos=chaos_monitor.PeerHealth.init(topo,
+                                                                  device))
     spec = arena_spec(model)
     eval_on = x_test is not None and log_every_epoch
     history: List[Dict[str, Any]] = []
@@ -272,6 +298,12 @@ def train(
             "staleness": int(staleness),
             "device": str(device),
         }
+        if bucketed_k > 1:
+            rec["buckets"] = min(bucketed_k, spec.n_leaves)
+            if "sent_bytes_wire_real_per_bucket" in m_e:
+                rec["sent_bytes_wire_real_per_bucket"] = [
+                    float(v) for v in
+                    m_e["sent_bytes_wire_real_per_bucket"][-1, 0]]
         if gossip_wire == "compact":
             rec["gossip_wire"] = mode_now
             if compact_capacity is not None:
@@ -289,6 +321,18 @@ def train(
                 topo.n_neighbors, n_ranks,
             )
             rec["fired_frac"] = float(m_e["fired_frac"].mean())
+            if "edge_staleness" in m_e:
+                # the end-of-epoch per-edge staleness peak and the
+                # cumulative late commits
+                rec["edge_staleness_max"] = int(
+                    m_e["edge_staleness"][-1].max())
+                rec["late_commits"] = int(m_e["late_commits"][-1].sum())
+        if chaos_sched is not None:
+            if not history:
+                rec["chaos"] = chaos_sched.to_dict()
+            rec.update(chaos_monitor.health_record(
+                m_e["edge_silence"][-1], m_e["chaos_drops"][-1],
+                event_cfg.max_silence if event_cfg else 0))
         if eval_on:
             test = evaluate(
                 model, consensus_params(state.params),
@@ -313,6 +357,10 @@ def train(
             if enough:
                 n = spec.n_total
                 floor = collectives.compact_capacity_floor(spec.sizes)
+                if bucketed_k > 1 and algo == "eventgrad":
+                    # every bucket must fit its own largest leaf
+                    floor = max(floor, collectives.bucketed_capacity_floor(
+                        spec.buckets(bucketed_k)))
                 autotuned = compact_frac is None
                 if autotuned:
                     cap = collectives.choose_capacity(

@@ -6,7 +6,8 @@ parameters and the momentum trace as `[R, n]` f32 arenas
 (`parallel/arena.py`), BatchNorm statistics as a dict of `[R, C]`
 tensors (rank-local, never gossiped; empty for a model without BatchNorm), the event state for
 EventGraD and sparsified EventGraD, the top-k shadows and replicas for
-the latter, the pass counter, and the step's random stream. Every rank
+the latter, the pass counter, the step's random stream, and the
+per-edge peer health of a run with a chaos schedule. Every rank
 starts from the same parameters (the reference seeds every rank
 identically); the random stream draws each rank's own dropout and
 augmentation.
@@ -20,9 +21,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from eventgrad_tpu_torch.chaos.monitor import PeerHealth
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
-from eventgrad_tpu_torch.parallel.sparsify import SparseState
+from eventgrad_tpu_torch.parallel.sparsify import SparseConfig, SparseState
 from eventgrad_tpu_torch.parallel.spmd import stack_for_ranks
 from eventgrad_tpu_torch.parallel.topology import Topology
 from eventgrad_tpu_torch.utils.devices import resolve_device
@@ -48,6 +50,9 @@ class TrainState:
     #: augmentation draws); a model without dropout and a step without
     #: augmentation draw nothing from it
     rng: Optional[torch.Generator] = None
+    #: per-edge peer health (`chaos/monitor.py`), carried when the step
+    #: runs a chaos schedule; None otherwise
+    chaos: Optional[PeerHealth] = None
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)
@@ -63,6 +68,9 @@ def init_train_state(
     *,
     momentum: float = 0.0,
     resident_wire=None,
+    bucketed: Optional[int] = None,
+    staleness: int = 0,
+    sparse_cfg: Optional[SparseConfig] = None,
     device=None,
 ) -> TrainState:
     """A rank-stacked TrainState for `topo.n_ranks` ranks, initialized
@@ -76,7 +84,12 @@ def init_train_state(
     sp_eventgrad carries the trigger's event state (no receive buffers)
     and a `SparseState` whose shadows start as copies of the parameters
     (its layout does not depend on the top-k percent, so unlike the JAX
-    function this one takes no `sparse_cfg`). The random stream is
+    function this one needs `sparse_cfg` only for staleness >= 2, whose
+    payload queues hold the top-k lanes). `bucketed=K` (eventgrad) holds
+    the receive buffers per bucket, the layout of a `bucketed=K` step;
+    `staleness=D` (D >= 2) adds the bounded-async delivery queues
+    (EventGraD: `EventState.pending`, `edge_clock`, `late_commits`;
+    sparsified EventGraD: `SparseState.pending`). The random stream is
     seeded from `seed`.
     `device=None` means CUDA and raises without it."""
     device = resolve_device(device)
@@ -90,9 +103,11 @@ def init_train_state(
     if algo in EVENT_ALGOS:
         event = EventState.init(spec, topo, event_cfg or EventConfig(),
                                 resident_wire=resident_wire, device=device,
-                                with_bufs=algo == "eventgrad")
+                                with_bufs=algo == "eventgrad",
+                                buckets=bucketed or 1, staleness=staleness)
     if algo == "sp_eventgrad":
-        sparse = SparseState.init(flat, topo)
+        sparse = SparseState.init(flat, topo, sparse_cfg or SparseConfig(),
+                                  spec, staleness=staleness)
     # a stream of its own, apart from the weights' (seeded with `seed`)
     rng_seed = int(np.random.SeedSequence([int(seed), 1]).generate_state(1)[0])
     return TrainState(

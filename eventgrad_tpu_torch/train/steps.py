@@ -41,6 +41,27 @@ the previous step's buffers (or replicas) while committing this step's.
 (`data/augment.py`), and a model with dropout gets its keep bits: both
 drawn from the state's generator before the batched forward.
 
+`bucketed=K` (eventgrad, sp_eventgrad) runs the bucketed gossip
+schedule: the arena is cut into K leaf-aligned buckets
+(`ArenaSpec.buckets`) and each bucket's wire, exchange and commit + mix +
+SGD tail run on their own, the kernels through their pitched forms on
+the bucket's columns of the `[R, n]` arenas; training is bitwise the
+monolithic schedule, except that the compact wire's capacity splits per
+bucket (`collectives.split_capacity`) and deferral re-contends within
+the bucket. `staleness=D >= 2` runs the bounded-async engine: each edge
+carries a D-slot delivery queue (`EventState.pending`,
+`SparseState.pending`), a message commits when its scheduled lag (the
+`lag=` / `slow=` clauses of `chaos`, clamped to D) elapses, and the mix
+reads what has arrived; at the baseline lag it is bitwise staleness 1.
+The arrival commit `where(e0[seg], c0, last)` and the mix of the
+post-arrival buffers are exactly kernel 1 (or 5) fed slot 0's candidates
+and eff bits with `mix_stale=False`, so the port runs D >= 2 on its
+fused tail, where the JAX package's step refuses fused + D >= 2; the
+queue's shift, merge and enqueue stay plain PyTorch, as they are jnp
+there. `chaos` (a lag/slow `chaos.ChaosSchedule`) sets the lags and
+carries the per-edge health (`TrainState.chaos`); every message of such
+a schedule is delivered, so the mix stays the uniform one.
+
 The gradient is taken at the pre-mix parameters, the reference's exact
 D-PSGD ordering. The R ranks' forward and backward run batched:
 `torch.func.functional_call` + `torch.func.vmap` +
@@ -49,8 +70,8 @@ explicit tensors (an empty dict for a model without BatchNorm; the
 transformer's flash attention joins the batched forward and backward
 through its own `vmap` rule, `ops/attention.py`). The JAX package's
 unfused optax tail is documented bitwise equal to the fused one, so the
-port runs the fused tail only. Staleness >= 2, the bucketed schedule
-and the engines are not ported yet.
+port runs the fused tail only. The telemetry, integrity and recovery
+engines are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,6 +81,10 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from eventgrad_tpu_torch.chaos import inject as chaos_inject
+from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
+from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
+from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.augment import draw_pad_flip_crop, pad_flip_crop
 from eventgrad_tpu_torch.models.common import draw_dropout
 from eventgrad_tpu_torch.ops import event_engine
@@ -70,7 +95,9 @@ from eventgrad_tpu_torch.ops.fused_update import fused_mix_sgd
 from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
-from eventgrad_tpu_torch.parallel.events import EventConfig
+from eventgrad_tpu_torch.parallel.events import (
+    EventConfig, async_bucket_commit, async_delivery_plan, capacity_gate,
+)
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig, sparse_exchange
 from eventgrad_tpu_torch.parallel.spmd import per_rank
 from eventgrad_tpu_torch.parallel.topology import Topology
@@ -79,8 +106,10 @@ from eventgrad_tpu_torch.train.state import ALGOS, EVENT_ALGOS
 
 def _phase(name: str):
     """A profiler span `step/<name>` over one phase of the step, named as
-    the JAX step's phases (grad, gate_pack, exchange, commit_mix); next
-    to free when no profiler runs."""
+    the JAX step's phases (grad, gate_pack, exchange, commit_mix; a
+    bucket's as `exchange.b<k>`, `commit_mix.b<k>`), plus `enqueue`, the
+    bounded-async queue's shift and merge inside `commit_mix`; next to
+    free when no profiler runs."""
     return torch.profiler.record_function("step/" + name)
 
 
@@ -122,6 +151,8 @@ def make_train_step(
     augment: bool = False,
     gossip_wire: str = "dense",
     compact_capacity: Optional[int] = None,
+    bucketed: Optional[int] = None,
+    chaos: Optional[ChaosSchedule] = None,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
     metrics)`: `x` is `[R, B, H, W, C]` images with `y` int64 `[R, B]`,
@@ -150,7 +181,20 @@ def make_train_step(
     (eventgrad's norm_delta, micro, hybrid; sp_eventgrad's topk takes it
     as a no-op alias) and, where the policy needs one, a static
     `compact_capacity` of at least the largest leaf (pick it with
-    `collectives.choose_capacity`, or let `train` autotune it)."""
+    `collectives.choose_capacity`, or let `train` autotune it).
+
+    `bucketed=K` (eventgrad, sp_eventgrad; None or 1 = off) runs the
+    bucketed schedule: eventgrad's state must come from
+    `init_train_state(..., bucketed=K)` (the per-bucket buffer layout),
+    and the compact capacity must reach the bucketed floor (the sum of
+    the buckets' largest leaves). `staleness=D >= 2` (eventgrad,
+    sp_eventgrad) runs the bounded-async engine on the queues of
+    `init_train_state(..., staleness=D)`; its metrics add
+    `edge_staleness` (`[R, n_nb]`) and `late_commits` (`[R]`). `chaos`
+    (a `ChaosSchedule` or its spec string; eventgrad, dpsgd) takes the
+    `lag=` / `slow=` clauses, and the state then carries `chaos`
+    (`PeerHealth.init`); the metrics add `edge_silence` and
+    `chaos_drops`."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     staleness = int(staleness)
@@ -170,10 +214,20 @@ def make_train_step(
             "trace records model the synchronous exchange; not available "
             "with staleness > 0"
         )
-    if staleness >= 2:
-        raise NotImplementedError(
-            f"staleness={staleness}: the bounded-async delivery queues "
-            "are not ported yet (ROADMAP queue 1, item 5; staleness 0 or 1)"
+    if chaos is not None:
+        chaos = resolve_chaos(chaos)
+        if algo not in ("dpsgd", "eventgrad"):
+            raise ValueError(
+                "chaos injection targets the gossip exchange algorithms "
+                f"(dpsgd, eventgrad); got algo={algo!r}"
+            )
+    n_buckets = int(bucketed) if bucketed else 1
+    if n_buckets < 1:
+        raise ValueError(f"bucketed must be >= 1 (or None), got {bucketed}")
+    if n_buckets > 1 and algo not in EVENT_ALGOS:
+        raise ValueError(
+            "bucketed=K pipelines the event-exchange hot path "
+            f"(eventgrad, sp_eventgrad); got algo={algo!r}"
         )
     collectives.check_wire(wire)
     carrier_wire = None
@@ -227,6 +281,23 @@ def make_train_step(
     scale_bytes_per_leaf = 4.0 if wire == "int8" else 0.0
     total_bytes = val_bytes * n_params + scale_bytes_per_leaf * n_leaves
     ks = sparse_cfg.ks(spec)
+    buckets = spec.buckets(n_buckets) if n_buckets > 1 else None
+    caps = None
+    if buckets is not None and compact_capacity is not None:
+        # per-bucket static budgets summing to the capacity; raises
+        # below the bucketed floor
+        caps = collectives.split_capacity(compact_capacity, buckets)
+    # the bucketed wire's per-bucket bytes (the metric's split)
+    per_bucket = None
+    if buckets is not None and algo == "eventgrad":
+        per_bucket = collectives.bucketed_wire_real_bytes_per_neighbor(
+            buckets, wire, caps)
+    elif buckets is not None:
+        per_bucket = tuple(
+            (val_bytes + 4.0) * sum(ks[b.lo:b.hi]) + 1.0 * b.n_leaves
+            + scale_bytes_per_leaf * b.n_leaves for b in buckets)
+    # {device: the per-bucket metric row}, made on the step's first call
+    per_bucket_metric = {}
 
     def loss_fn(params, stats, x, y, drop):
         kw = {"drop": drop} if drop else {}
@@ -237,6 +308,178 @@ def make_train_step(
     grad_fn = per_rank(torch.func.grad_and_value(loss_fn, has_aux=True))
     sites = getattr(model, "dropout_sites", lambda b: {})
     draws = augment or bool(sites(1))
+
+    carrier = carrier_wire is not None
+
+    def _bucket_gate(prop, fire_vec, force):
+        """The per-bucket fire bits: each bucket's columns of the
+        sender's bits, gated within the bucket's share of the compact
+        capacity (max_silence-overdue and forced leaves first)."""
+        if caps is None:
+            return [fire_vec[:, b.lo:b.hi] for b in buckets]
+        pri = None
+        if event_cfg.max_silence > 0:
+            pri = prop.iter_diff >= float(event_cfg.max_silence)
+        if force is not None:
+            ff = torch.broadcast_to(force, fire_vec.shape)
+            pri = ff if pri is None else (pri | ff)
+        dev = fire_vec.device
+        return [
+            capacity_gate(fire_vec[:, b.lo:b.hi], b.sizes_tensor(dev),
+                          caps[i],
+                          priority=None if pri is None else pri[:, b.lo:b.hi])
+            for i, b in enumerate(buckets)
+        ]
+
+    def _ship(flat, fire_vec, fire_bs, packed, leaf_id, scale_vec, bi):
+        """One exchange: the whole arena (`bi` None) or bucket `bi`."""
+        if bi is None:
+            if compact_capacity is not None:
+                return collectives.compact_neighbor_vals_flat(
+                    flat, fire_vec, packed, leaf_id, topo, compact_capacity,
+                    spec, wire, carrier=carrier)
+            return collectives.masked_neighbor_vals_flat(
+                flat, fire_vec, topo, spec, wire,
+                wire_builder=event_engine.masked_wire, carrier=carrier)
+        b = buckets[bi]
+        sv = None if scale_vec is None else scale_vec[:, b.lo:b.hi]
+        if caps is not None:
+            pk, lid = collectives._compact_pack(
+                flat[:, b.start:b.start + b.size], fire_bs[bi],
+                collectives.bucket_spec_of(b), caps[bi])
+            return collectives.compact_neighbor_vals_bucket(
+                pk, lid, fire_bs[bi], topo, b, caps[bi], flat.dtype, wire,
+                scale_vec=sv, carrier=carrier)
+        return collectives.masked_neighbor_vals_bucket(
+            flat, fire_bs[bi], topo, b, wire, scale_vec=sv,
+            wire_builder=event_engine.masked_wire, carrier=carrier)
+
+    def _tail(flat, g_flat, t_flat, event_state, res, q_plan, out, bi):
+        """One commit + mix + SGD tail through kernel 1 (or 5 on a
+        carrier): the whole arena (`bi` None) or bucket `bi`, whose
+        pitched form writes p', t' into the bucket's columns of `out`.
+        Under staleness >= 2 the queue's arrival (slot 0) is what
+        commits, and the mix reads the post-arrival buffers. Returns (p',
+        t', committed buffers, their scales, the queue's new slots)."""
+        dev = flat.device
+        cands, effs = res[:2]
+        cand_scales = res[3] if carrier else None
+        seg = (spec.seg_expand(dev) if bi is None
+               else buckets[bi].seg_expand(dev))
+        pick = (lambda x: x) if bi is None else (lambda x: x[bi])
+        lasts = tuple(pick(b) for b in event_state.bufs)
+        last_scales = (None if event_state.buf_scales is None
+                       else tuple(pick(sc) for sc in event_state.buf_scales))
+        new_scales, mix_scales, pend = last_scales, None, None
+        if q_plan is not None:
+            pend, arrivals, arrived_scales = [], [], []
+            with _phase("enqueue"):
+                for i in range(n_nb):
+                    arr, ncs, nes, nss, bsc = async_bucket_commit(
+                        event_state.pending[i], q_plan[0][i], cands[i],
+                        effs[i], seg, bucket=bi,
+                        cand_scale=None if cand_scales is None
+                        else cand_scales[i],
+                        last_scale=None if last_scales is None
+                        else last_scales[i],
+                    )
+                    arrivals.append(arr)
+                    arrived_scales.append(bsc)
+                    pend.append((ncs, nes, nss))
+            cands = tuple(a[0] for a in arrivals)
+            effs = tuple(a[1] for a in arrivals)
+            if last_scales is not None:
+                new_scales = tuple(arrived_scales)
+                mix_scales = tuple(sc[:, seg] for sc in new_scales)
+            mix_stale = False
+        else:
+            if cand_scales is not None:
+                # the scales commit outside the kernel (an [R, L] select)
+                # and ride in per position for the mix dequant
+                new_scales = collectives.commit_carrier_scales(
+                    cand_scales, effs, last_scales)
+                src = last_scales if staleness else new_scales
+                mix_scales = tuple(sc[:, seg] for sc in src)
+            mix_stale = bool(staleness)
+        keeps = tuple(e.to(torch.float32)[:, seg] for e in effs)
+        kw = {} if bi is None else dict(off=buckets[bi].start, out=out)
+        if carrier:
+            p_new, t_new, bufs = fused_mix_commit_carrier(
+                flat, cands, keeps, lasts, g_flat, t_flat, lr, mom,
+                topo.mix_weight, mix_scales=mix_scales, mix_stale=mix_stale,
+                **kw)
+        else:
+            p_new, t_new, bufs = fused_mix_commit(
+                flat, cands, keeps, lasts, g_flat, t_flat, lr, mom,
+                topo.mix_weight, mix_stale=mix_stale, **kw)
+        return p_new, t_new, bufs, new_scales, pend
+
+    def _event_exchange(flat, g_flat, t_flat, fire_vec, fire_bs, packed,
+                        leaf_id, event_state, pass_num, deliver, dev):
+        """EventGraD's exchange and tail, monolithic or bucket by bucket
+        (bucket k's exchange, then its tail). Returns (p', t', the event
+        state with its buffers, scales and queues committed, the raw
+        `[R, L]` fire bits received per neighbor, the edge staleness
+        gauge or None)."""
+        q_plan = None
+        if staleness >= 2:
+            lag_vec = chaos_inject.lag_vector(chaos, topo, pass_num,
+                                              staleness, dev)
+            q_plan = async_delivery_plan(event_state, deliver, lag_vec,
+                                         pass_num, staleness)
+        scale_vec = out = None
+        parts = [None]
+        if buckets is not None:
+            parts = list(range(len(buckets)))
+            out = (torch.empty_like(flat), torch.empty_like(flat))
+            if wire == "int8":
+                # per-leaf scales do not depend on the bucket: one pass
+                # over the arena, sliced per bucket
+                scale_vec = collectives._masked_scales(
+                    collectives._leaf_absmax(flat, spec), fire_vec)
+        done = []
+        for bi in parts:
+            sfx = "" if bi is None else f".b{bi}"
+            with _phase("exchange" + sfx):
+                res = _ship(flat, fire_vec, fire_bs, packed, leaf_id,
+                            scale_vec, bi)
+            with _phase("commit_mix" + sfx):
+                p_new, t_new, bufs, scales, pend = _tail(
+                    flat, g_flat, t_flat, event_state, res, q_plan, out, bi)
+            done.append((res[2], bufs, scales, pend))
+        join = ((lambda xs: xs[0]) if buckets is None
+                else (lambda xs: tuple(xs)))
+        raws = tuple(
+            done[0][0][i] if buckets is None
+            else torch.cat([d[0][i] for d in done], dim=-1)
+            for i in range(n_nb))
+        new_bufs = tuple(join([d[1][i] for d in done]) for i in range(n_nb))
+        new_scales = event_state.buf_scales
+        if done[0][2] is not None:
+            new_scales = tuple(join([d[2][i] for d in done])
+                               for i in range(n_nb))
+        event_state = event_state.replace(bufs=new_bufs,
+                                          buf_scales=new_scales)
+        edge_stale = None
+        if q_plan is not None:
+            _, sent_all, late_all, clock, late = q_plan
+            slots = []
+            for i in range(n_nb):
+                per_edge = []
+                for rr in range(staleness):
+                    slot = (join([d[3][i][0][rr] for d in done]),
+                            join([d[3][i][1][rr] for d in done]),
+                            sent_all[i][rr], late_all[i][rr])
+                    if done[0][3][i][2] is not None:
+                        slot = slot + (join([d[3][i][2][rr] for d in done]),)
+                    per_edge.append(slot)
+                slots.append(tuple(per_edge))
+            event_state = event_state.replace(
+                pending=tuple(slots), edge_clock=clock,
+                late_commits=event_state.late_commits + late)
+            edge_stale = torch.full((), int(pass_num), dtype=torch.int32,
+                                    device=dev) - clock
+        return p_new, t_new, event_state, raws, edge_stale
 
     def step(state, batch):
         x, y = batch
@@ -264,20 +507,41 @@ def make_train_step(
         t_flat = state.trace if mom else torch.zeros_like(flat)
 
         event_state, sparse_state = state.event, state.sparse
+        health = state.chaos
         metrics = {}
         fired_leaves = None
+        # bounded-async: the per-edge staleness gauge and this pass's
+        # late commits (staleness >= 2 only)
+        edge_stale = None
+        deliver = None
+        if chaos is not None:
+            if health is None:
+                raise ValueError(
+                    "a chaos step carries the per-edge peer health "
+                    "(TrainState.chaos = chaos.PeerHealth.init(topo)); "
+                    "this state has none"
+                )
+            deliver = chaos_inject.delivery_mask(chaos, topo, pass_num, dev)
         if algo in EVENT_ALGOS:
             # the partitioned policies' masks ride the sender pass's
             # force/suppress seams (suppression wins)
             force, suppress = pol.masks(spec, topo, pass_num, event_cfg, dev)
             with _phase("gate_pack"):
+                # the bucketed schedule gates per bucket below, so the
+                # sender pass proposes without a capacity there
                 prop, fire_vec, packed, leaf_id = (
                     event_engine.event_propose_pack(
                         flat, event_state, pass_num, event_cfg, spec,
-                        capacity=compact_capacity, force_fire=force,
-                        suppress_fire=suppress,
+                        capacity=None if buckets is not None
+                        else compact_capacity,
+                        force_fire=force, suppress_fire=suppress,
                     )
                 )
+                fire_bs = None
+                if buckets is not None:
+                    fire_bs = _bucket_gate(prop, fire_vec, force)
+                    fire_vec = (fire_bs[0] if len(fire_bs) == 1
+                                else torch.cat(fire_bs, dim=-1))
                 event_state = pol.commit(event_state, prop, fire_vec,
                                          event_cfg, n_nb)
         if algo == "allreduce":
@@ -294,6 +558,10 @@ def make_train_step(
         elif algo == "dpsgd":
             with _phase("exchange"):
                 bufs = collectives.neighbor_vals_flat(flat, topo, spec, wire)
+            if deliver is not None:
+                # every message of a lag schedule arrives: the mix keeps
+                # its uniform weight
+                health = chaos_monitor.update(health, deliver, ~deliver)
             with _phase("commit_mix"):
                 buf_sum = torch.zeros_like(flat)
                 for b in bufs:
@@ -313,11 +581,13 @@ def make_train_step(
             stale = sparse_state.replicas
             with _phase("exchange"):
                 sparse_state = sparse_exchange(
-                    flat, fire_vec, sparse_state, topo, sparse_cfg, spec, wire
+                    flat, fire_vec, sparse_state, topo, sparse_cfg, spec,
+                    wire, buckets=buckets, staleness=staleness,
                 )
             # staleness 1 mixes the replicas as they stood before this
-            # exchange; this step's payloads land for the next one
-            bufs = stale if staleness else sparse_state.replicas
+            # exchange; D >= 2 mixes the post-exchange replicas, whose
+            # newest payloads are the queue's slot 0 of the last pass
+            bufs = stale if staleness == 1 else sparse_state.replicas
             with _phase("commit_mix"):
                 buf_sum = torch.zeros_like(flat)
                 for b in bufs:
@@ -339,54 +609,27 @@ def make_train_step(
                 + scale_bytes_per_leaf * n_leaves
             ), dev)
         else:
-            with _phase("exchange"):
-                if compact_capacity is not None:
-                    res = collectives.compact_neighbor_vals_flat(
-                        flat, fire_vec, packed, leaf_id, topo,
-                        compact_capacity, spec, wire,
-                        carrier=carrier_wire is not None,
-                    )
-                else:
-                    res = collectives.masked_neighbor_vals_flat(
-                        flat, fire_vec, topo, spec, wire,
-                        wire_builder=event_engine.masked_wire,
-                        carrier=carrier_wire is not None,
-                    )
-            wire_real = f32(n_nb, dev) * f32(
-                collectives.wire_real_bytes_per_neighbor(
-                    n_params, n_leaves, wire,
-                    compact_capacity=compact_capacity, fire_bits=True,
-                ),
-                dev,
-            )
-            with _phase("commit_mix"):
-                cands, effs = res[:2]
-                keeps = tuple(e.to(torch.float32)[:, seg] for e in effs)
-                if carrier_wire is None:
-                    p_flat, new_t, new_bufs = fused_mix_commit(
-                        flat, cands, keeps, event_state.bufs, g_flat, t_flat,
-                        lr, mom, topo.mix_weight, mix_stale=bool(staleness),
-                    )
-                    event_state = event_state.replace(bufs=new_bufs)
-                else:
-                    # the scales commit outside the kernel (an [R, L]
-                    # select) and ride in per position for the mix dequant
-                    cand_scales, last_scales = res[3], event_state.buf_scales
-                    new_scales, mix_scales = last_scales, None
-                    if cand_scales is not None:
-                        new_scales = collectives.commit_carrier_scales(
-                            cand_scales, effs, last_scales
-                        )
-                        src = last_scales if staleness else new_scales
-                        mix_scales = tuple(sc[:, seg] for sc in src)
-                    p_flat, new_t, new_bufs = fused_mix_commit_carrier(
-                        flat, cands, keeps, event_state.bufs, g_flat, t_flat,
-                        lr, mom, topo.mix_weight, mix_scales=mix_scales,
-                        mix_stale=bool(staleness),
-                    )
-                    event_state = event_state.replace(
-                        bufs=new_bufs, buf_scales=new_scales
-                    )
+            p_flat, new_t, event_state, raws, edge_stale = _event_exchange(
+                flat, g_flat, t_flat, fire_vec, fire_bs, packed, leaf_id,
+                event_state, pass_num, deliver, dev)
+            if deliver is not None:
+                # a sender that fired any leaf this pass sent a message;
+                # every message of a lag schedule is delivered
+                sent_any = torch.stack([r.any(dim=-1) for r in raws], dim=-1)
+                health = chaos_monitor.update(health, sent_any & deliver,
+                                              sent_any & ~deliver)
+            if per_bucket is not None:
+                # the same f32(n_nb) * python-float shape as the
+                # monolithic metric, so the bits agree across schedules
+                wire_real = f32(n_nb, dev) * f32(float(sum(per_bucket)), dev)
+            else:
+                wire_real = f32(n_nb, dev) * f32(
+                    collectives.wire_real_bytes_per_neighbor(
+                        n_params, n_leaves, wire,
+                        compact_capacity=compact_capacity, fire_bits=True,
+                    ),
+                    dev,
+                )
             fired_elems, fired_leaves = _fired_accounting(fire_vec, sizes_t)
             sent_bytes = f32(n_nb, dev) * (
                 val_bytes * fired_elems + scale_bytes_per_leaf * fired_leaves
@@ -415,6 +658,7 @@ def make_train_step(
             pass_num=pass_num,
             event=event_state,
             sparse=sparse_state,
+            chaos=health,
         )
         bcast = lambda v: torch.broadcast_to(v, (r,))
         metrics.update(
@@ -430,6 +674,23 @@ def make_train_step(
             num_events=bcast(num_events),
             num_deferred=bcast(num_deferred),
         )
+        if per_bucket is not None:
+            # per-bucket wire truth; the sum is sent_bytes_wire_real. A
+            # constant of the step, made once per device (a host copy
+            # waits for the stream)
+            if dev not in per_bucket_metric:
+                per_bucket_metric[dev] = f32(n_nb, dev) * torch.tensor(
+                    per_bucket, dtype=torch.float32, device=dev)
+            metrics["sent_bytes_wire_real_per_bucket"] = torch.broadcast_to(
+                per_bucket_metric[dev], (r, len(per_bucket)))
+        if edge_stale is not None:
+            # how stale each edge's view is (passes since the newest
+            # committed delivery was sent) and the cumulative late commits
+            metrics["edge_staleness"] = edge_stale
+            metrics["late_commits"] = event_state.late_commits
+        if chaos is not None:
+            metrics["edge_silence"] = health.silence
+            metrics["chaos_drops"] = health.drops
         return new_state, metrics
 
     return step

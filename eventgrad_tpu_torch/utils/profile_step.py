@@ -2,8 +2,8 @@
 
     python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
         [--model {resnet,transformer,transformer-d128}] [--algos ALGO ...]
-        [--wire {bf16,int8}] [--staleness {0,1}] [--carrier-resident]
-        [--compact-frac F]
+        [--wire {bf16,int8}] [--staleness D] [--carrier-resident]
+        [--compact-frac F] [--bucketed K] [--chaos SPEC]
 
 For each leg (EventGraD, then D-PSGD, or the `--algos` named: allreduce,
 dpsgd, eventgrad, sp_eventgrad at top-k 10%) at the flagship op-point —
@@ -29,10 +29,16 @@ another — it runs 3 warm-up steps, then:
 Each leg also sums the device time of the kernel families the exchange
 runs (gathers and index selects, searchsorted, sorts, rolls, scans).
 
-`--staleness`, `--carrier-resident` and `--compact-frac` apply to the
-EventGraD leg only (D-PSGD has none of them). `--compact-frac F` runs
-it on the compact wire at the capacity `train(compact_frac=F)` sizes,
-`min(n, max(largest leaf, ceil(F * n)))`. It prints one JSON line per
+`--staleness`, `--carrier-resident`, `--compact-frac`, `--bucketed` and
+`--chaos` apply to the EventGraD leg only (D-PSGD has none of them).
+`--compact-frac F` runs it on the compact wire at the capacity
+`train(compact_frac=F)` sizes, `min(n, max(floor, ceil(F * n)))` (the
+floor: the largest leaf, or under `--bucketed K` the sum of the K
+buckets' largest leaves). `--staleness D` (D >= 2) runs the
+bounded-async queues, whose shift and merge is the `step/enqueue` span
+inside `step/commit_mix`; `--chaos` takes a lag/slow schedule
+(`seed=5,slow=1@7`). A bucket's spans (`exchange.b<k>`,
+`commit_mix.b<k>`) count into their phase. It prints one JSON line per
 leg and, last, the card's name and power limit. It needs a CUDA device.
 """
 
@@ -46,12 +52,14 @@ import time
 
 import torch
 
+from eventgrad_tpu_torch.chaos.monitor import PeerHealth
 from eventgrad_tpu_torch.data.datasets import (
     synthetic_dataset, synthetic_lm_dataset,
 )
 from eventgrad_tpu_torch.data.sharding import batched_epoch
 from eventgrad_tpu_torch.models.resnet import ResNet18
 from eventgrad_tpu_torch.models.transformer import TransformerLM
+from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.topology import Ring
@@ -59,7 +67,7 @@ from eventgrad_tpu_torch.train.state import ALGOS, init_train_state
 from eventgrad_tpu_torch.train.steps import make_train_step
 from eventgrad_tpu_torch.utils.devices import resolve_device
 
-PHASES = ("grad", "gate_pack", "exchange", "commit_mix")
+PHASES = ("grad", "gate_pack", "exchange", "commit_mix", "enqueue")
 #: kernel families by name fragment; a kernel counts in the first family
 #: whose fragment its name holds
 KERNEL_FAMILIES = (
@@ -105,7 +113,8 @@ def _family(name: str):
 
 def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                 wire=None, staleness: int = 0, carrier_resident=None,
-                model_name: str = "resnet", compact_frac=None):
+                model_name: str = "resnet", compact_frac=None,
+                bucketed=None, chaos=None):
     n_steps = WARMUP + 2 * steps
     model, shape, xb, yb = _op_point(model_name, n_steps)
     topo = Ring(RANKS)
@@ -113,21 +122,30 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                       max_silence=50)
     if algo != "eventgrad":
         staleness, carrier_resident, compact_frac = 0, None, None
+        bucketed = chaos = None
     capacity = None
     if compact_frac is not None:
         spec = arena_spec(model)
-        capacity = min(spec.n_total, max(spec.floor, math.ceil(
+        floor = spec.floor
+        if bucketed:
+            floor = max(floor, collectives.bucketed_capacity_floor(
+                spec.buckets(bucketed)))
+        capacity = min(spec.n_total, max(floor, math.ceil(
             compact_frac * spec.n_total)))
     step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9),
                            wire=wire, staleness=staleness,
                            carrier_resident=carrier_resident,
                            gossip_wire="dense" if capacity is None
-                           else "compact", compact_capacity=capacity)
+                           else "compact", compact_capacity=capacity,
+                           bucketed=bucketed, chaos=chaos)
     torch.cuda.reset_peak_memory_stats(device)
     state = init_train_state(
         model, shape, topo, algo, cfg, seed=0, momentum=0.9,
-        resident_wire=wire if carrier_resident else None, device=device,
+        resident_wire=wire if carrier_resident else None,
+        bucketed=bucketed, staleness=staleness, device=device,
     )
+    if chaos is not None:
+        state = state.replace(chaos=PeerHealth.init(topo, device))
     xb, yb = torch.from_numpy(xb).to(device), torch.from_numpy(yb).to(device)
     batches = iter((xb[:, s], yb[:, s]) for s in range(n_steps))
 
@@ -153,7 +171,8 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
     busy_us = sum(e.device_time_total for e in prof.events() if is_kernel(e))
     phases, phases_host = {}, {}
     for e in prof.events():
-        name = e.name.removeprefix("step/")
+        # a bucket's span counts into its phase
+        name = e.name.removeprefix("step/").split(".b")[0]
         if e.device_type == cpu and e.name.startswith("step/") and name in PHASES:
             # device time of every kernel launched inside the span
             phases[name] = phases.get(name, 0.0) + e.device_time_total / 1e3 / steps
@@ -174,6 +193,8 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
         "staleness": staleness,
         "resident_dtype": (wire if carrier_resident else None) or "f32",
         "compact_capacity": capacity,
+        "bucketed": bucketed,
+        "chaos": None if chaos is None else str(chaos),
         "step_ms": step_ms,
         "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
         "traced_step_ms": traced_ms / steps,
@@ -203,9 +224,11 @@ def main(argv=None) -> int:
     ap.add_argument("--algos", nargs="+", choices=ALGOS,
                     default=["eventgrad", "dpsgd"])
     ap.add_argument("--wire", choices=("bf16", "int8"), default=None)
-    ap.add_argument("--staleness", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--staleness", type=int, default=0)
     ap.add_argument("--carrier-resident", action="store_true")
     ap.add_argument("--compact-frac", type=float, default=None)
+    ap.add_argument("--bucketed", type=int, default=None)
+    ap.add_argument("--chaos", default=None)
     args = ap.parse_args(argv)
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -215,7 +238,8 @@ def main(argv=None) -> int:
                           staleness=args.staleness,
                           carrier_resident=args.carrier_resident or None,
                           model_name=args.model,
-                          compact_frac=args.compact_frac)
+                          compact_frac=args.compact_frac,
+                          bucketed=args.bucketed, chaos=args.chaos)
         print(json.dumps(rec), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -65,6 +65,10 @@ ORACLE_PHRASES = {
     "partition_overlap": "partitions_ok=False (sizes [16, 1024, 10, 160])",
     "stale_scale_reuse": "clean carrier cell == f32-resident twin bitwise; "
                          "the scale-reuse commit diverges",
+    "late_delivery_drift": "clean D=2 == D=1 bitwise",
+    "bucket_queue_skew": "skewing one bucket's queue against its clock "
+                         "diverges",
+    "bucket_undeclared_offset": "undeclared exchange offsets [2]",
 }
 
 

@@ -144,8 +144,10 @@ def test_train_on_cpu_records():
 
 def test_refusals_name_their_roadmap_item():
     """Every feature the port refuses raises NotImplementedError naming
-    the ROADMAP queue-1 item that ports it."""
+    the ROADMAP queue-1 item that ports it; the calls of item 5, once
+    refused, now run."""
     from eventgrad_tpu_torch.analysis import audit
+    from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
     from eventgrad_tpu_torch.data.datasets import load_or_synthesize
     from eventgrad_tpu_torch.ops import attention
     from eventgrad_tpu_torch.parallel import collectives
@@ -165,21 +167,27 @@ def test_refusals_name_their_roadmap_item():
     leaf_id = torch.zeros((8, spec.floor), dtype=torch.int64)
     compact = lambda **kw: collectives.compact_neighbor_vals_flat(
         flat, fire, packed, leaf_id, egt.Ring(8), spec.floor, spec, **kw)
+    # item 5 (the bucketed schedule, staleness >= 2, the straggler
+    # clauses) is ported: its calls, once refused, now run
+    make_train_step(model, egt.Ring(8), "eventgrad", fused_sgd=(0.1, 0.0),
+                    staleness=2, bucketed=4, chaos="seed=1,slow=1@3")
+    sparse_exchange(flat, fire,
+                    SparseState.init(flat, egt.Ring(8), SparseConfig(), spec,
+                                     staleness=2),
+                    egt.Ring(8), SparseConfig(), spec, staleness=2,
+                    buckets=spec.buckets(2))
+    for name in ("event_masked_f32_arena_b4", "sp_f32_tree_stale2"):
+        assert audit.config_by_name(name).name == name
+    for name in ("late_delivery_drift", "bucket_queue_skew",
+                 "bucket_undeclared_offset"):
+        assert callable(audit.oracle(name))
     refusals = {
-        "item 5": [
-            lambda: make_train_step(model, egt.Ring(8), "eventgrad",
-                                    fused_sgd=(0.1, 0.0), staleness=2),
-            lambda: sparse_exchange(flat, fire,
-                                    SparseState.init(flat, egt.Ring(8)),
-                                    egt.Ring(8), SparseConfig(), spec,
-                                    staleness=2),
-            # the audit cells and oracles of buckets and staleness >= 2
-            lambda: audit.config_by_name("event_masked_f32_arena_b4"),
-            lambda: audit.config_by_name("sp_f32_tree_stale2"),
-            lambda: audit.oracle("late_delivery_drift"),
-            lambda: audit.oracle("bucket_undeclared_offset"),
-        ],
         "item 6": [
+            # every chaos clause beyond the straggler ones
+            lambda: ChaosSchedule(seed=3, drop_p=0.4),
+            lambda: ChaosSchedule.parse("seed=1,leave=1@3"),
+            lambda: audit.config_by_name(
+                "event_masked_f32_arena_stale2_chaos"),
             lambda: collectives.masked_neighbor_vals_flat(
                 flat, fire, egt.Ring(8), spec, checksum=True),
             # the compact exchange's chaos delivery and integrity riders

@@ -165,10 +165,24 @@ def test_policies_and_refusals(spec):
         resolve("topk", "eventgrad")
     with pytest.raises(ValueError, match="no event trigger"):
         resolve(None, "allreduce")
-    flat = torch.zeros((R, spec.n_total))
+    # the bucketed emission and the staleness >= 2 payload queues, once
+    # refused (ROADMAP queue 1, item 5), now run: a bucketed exchange
+    # gives the monolithic state, and the queue fills its slot 0
+    flat = torch.randn((R, spec.n_total), generator=torch.Generator()
+                       .manual_seed(0))
     fire = torch.ones((R, spec.n_leaves), dtype=torch.bool)
-    sp = SparseState.init(flat, Ring(R))
-    for kw in (dict(buckets=(0,)), dict(staleness=2)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            sparse_exchange(flat, fire, sp, Ring(R), SparseConfig(), spec,
-                            **kw)
+    sp = SparseState.init(torch.zeros_like(flat), Ring(R))
+    mono = sparse_exchange(flat, fire, sp, Ring(R), SparseConfig(), spec)
+    got = sparse_exchange(flat, fire, sp, Ring(R), SparseConfig(), spec,
+                          buckets=spec.buckets(2))
+    for a, b in zip((mono.prev_sent,) + mono.replicas,
+                    (got.prev_sent,) + got.replicas):
+        assert torch.equal(a, b)
+    sp2 = SparseState.init(torch.zeros_like(flat), Ring(R), SparseConfig(),
+                           spec, staleness=2)
+    q = sparse_exchange(flat, fire, sp2, Ring(R), SparseConfig(), spec,
+                        staleness=2)
+    # slot 0 was empty: the replicas keep their values, and this pass's
+    # payload (every leaf fired) waits in the new slot 0
+    assert all(torch.equal(r, torch.zeros_like(flat)) for r in q.replicas)
+    assert all(bool(edge[0][2].all()) for edge in q.pending)
