@@ -28,7 +28,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    ResNet-18 arena cut into 4 leaf-aligned buckets, as the bucketed step
    calls them (the arenas read and written in place at each bucket's
    columns): each bucket bitwise its plain version, the four launches
-   timed beside the plain versions and the contiguous form.
+   timed beside the plain versions and the contiguous form. Then the
+   gated forms of kernels 1, 4 and 5 (per-row mix weights, edge gates,
+   poison and quarantine) on a mixed pattern — rank 1's first edge off,
+   rank 3 quarantined, rank 5 poisoned — each bitwise its plain version
+   (NaNs read as one pattern), the quarantined row the mixed one, and
+   with null or all-open operands bitwise the ungated launch; timed
+   beside the plain versions, against the ungated kernel's bound.
    Then the three flash-attention kernels (forward, dQ, dK/dV) at the
    transformer legs' shapes (B = 32 = 8 ranks x 4, T = 1024, and H = 8,
    D = 64 or H = 16, D = 128; causal, q/k/v as strided views of one
@@ -154,9 +160,45 @@ Phases, in order; any failure exits non-zero and prints no result:
    JAX legs, test accuracy at least the JAX leg's less 4.0 points
    (98.05 / 98.24 / 98.44) and the bounded legs' at least the lockstep
    leg's less 4.0, every loss finite;
-9. audit — the static-analysis path on the card: the audit CLI
+9. chaos + integrity — the fault clauses, the recovery policies and
+   the integrity engine on the gossip path. On the flagship op-point
+   with the JAX bench's 30 warmup passes (6 passes a leg, under
+   deterministic algorithms): (a) EventGraD f32 with `ChaosSchedule()`
+   and a recovery policy that never trips, and D-PSGD with
+   `ChaosSchedule()`, bitwise `chaos=None` (parameters, trace, trigger
+   state, buffers, records) while the gated kernels launch every pass;
+   (b) D-PSGD under `die=5@2` with `freeze_after=2` through kernel 4's
+   gated form (the mix weight 1/2 on the dead rank's neighbours, 1 on
+   the dead rank), EventGraD f32 and int8 carrier-resident at
+   `drop=0.2,seed=0` (kernels 1 and 5 gated): `chaos_drops` exactly the
+   host delivery table's undelivered edges (every edge sends in warmup);
+   (c) EventGraD f32 with integrity on under
+   `bitflip=1-7@0.3,nanstep=2@4`: rejections exactly the corruption
+   table's (0 silent acceptances), exactly one quarantined step, every
+   parameter finite, and one step with rank 2 poisoned whose p' row is
+   bitwise the mixed row (`mix_weighted`) and t' row the old trace. Then
+   (d) the chaos sweep (`eventgrad_tpu_torch/utils/chaos_sweep.py`:
+   mlp32, Ring(4), 192 passes; drop 0 / 0.2 / 0.5, the flaky window,
+   the ring heal of `die=2@15`) and (e) the integrity leg
+   (`utils/integrity_sweep.py`: `bitflip=64-128@0.15,nanstep=2@144`,
+   checksums on, quarantine off, rollback and escalation), drawn in the
+   artifacts' Threefry layout and held to
+   `artifacts/chaos_sweep_cpu.json` (drop 0 bitwise and 0 drops, drops
+   at most the table's and within 10% of 284 / 623, survivors [0, 1,
+   3], detection within 5 passes of pass 29, msgs-saved-% within 6.0,
+   each point's accuracy cost against the same run's fault-free
+   baseline at most the artifact's cost plus 4.0, and each point's
+   accuracy at least the port's CPU seeds 0-9 minimum at that point
+   less 4.0, `artifacts/torch_chaos_seeds_cpu.json`) and
+   `artifacts/integrity_cpu.json` (83 injected = 83 rejected, 0 silent,
+   1 rollback, 1 quarantined step, the fault-free leg above the same
+   seeds' floor, the faulted leg's accuracy gap at most the artifact's
+   0.39 plus 4.0, the replay and the off leg bitwise). The op-point's ReLU logits make its accuracy multimodal
+   (a dead class ends near 90%): the accuracy bands hold the cost of
+   the faults, not one seed's mode;
+10. audit — the static-analysis path on the card: the audit CLI
    (`python -m eventgrad_tpu_torch.analysis.audit --device cuda`) over
-   the 28 ported cells of the JAX auditor's matrix and its 14 oracles,
+   the 31 cells of the JAX auditor's matrix and its 14 oracles,
    plus the lint: every cell clean (rank isolation, the declared ring
    offsets, bytes per neighbour derived from the traced exchange lanes
    == the accounting formula == the step's `sent_bytes_wire_real`,
@@ -169,7 +211,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    with derived bytes per neighbour 69,778,814 / 69,778,728 /
    26,167,110 / 6,542,186 equal to the formula, and the float32 metric
    139,557,632 / 139,557,456 / 52,334,220 / 13,084,372;
-10. summary — one JSON line of every kernel's numbers, the card's name and
+11. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -592,7 +634,155 @@ def phase_kernels():
             k: v for k, v in r.items() if k != "bound"},
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}))
     recs["pitched"] = _pitched_kernels(spec, gen, recs)
+    recs.update(_gated_kernels(spec, gen, recs))
     return recs
+
+
+def _same_or_nan(got, want, what) -> float:
+    """`max_abs_err` with every NaN read as one canonical pattern: a
+    poisoned row is NaN in both, and the kernel and the plain version
+    need not agree on a NaN's payload bits. Logs whether they did."""
+    import torch
+
+    canon = lambda x: torch.where(torch.isnan(x), torch.full_like(
+        x, float("nan")), x)
+    raw = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+              for g, w in zip(got, want) if g.dtype == torch.float32)
+    err = max_abs_err([canon(g) if g.is_floating_point() else g
+                       for g in got],
+                      [canon(w) if w.is_floating_point() else w
+                       for w in want], what)
+    log(f"{what}: bitwise (NaN payloads {'equal' if raw else 'differ'})")
+    return err
+
+
+def _gated_kernels(spec, gen, recs):
+    """The gated forms of kernels 1, 4 and 5 at the flagship shapes with a
+    mixed pattern — rank 1's first edge gated off (weight 1/2), rank 3
+    quarantined, rank 5 poisoned (NaN), the rest open — each bitwise its
+    plain version; and with null operands and with every gate open
+    (weight float32(1/3), poison 1, no quarantine) bitwise the ungated
+    launch. The quarantined row of kernel 1 must equal the mixed row the
+    plain version computes (its new trace the old one). Timed beside the
+    plain versions; the per-row operands add no bytes worth counting, so
+    the bound is the ungated kernel's. Returns {name_gated: record}."""
+    import torch
+
+    from eventgrad_tpu_torch.ops import arena_update, fused_update
+    from eventgrad_tpu_torch.parallel import collectives
+
+    dev = torch.device(DEVICE)
+    log("== gated forms (kernels 1, 4, 5): rank 1 edge 0 off, rank 3 "
+        "quarantined, rank 5 poisoned")
+    seg = spec.seg_expand(dev)
+    randn = lambda: torch.randn((RANKS, spec.n_total), generator=gen,
+                                device=dev)
+    keep = lambda: (torch.rand((RANKS, spec.n_leaves), generator=gen,
+                               device=dev) < 0.5).to(torch.float32)[:, seg]
+    lr, mom, w = 0.01, 0.9, 1.0 / 3.0
+    gate = torch.ones((RANKS, NB), dtype=torch.bool, device=dev)
+    gate[1, 0] = False
+    w_rows = collectives.mix_weights(gate)
+    if float(w_rows[1]) != 0.5 or float(w_rows[0]) != float(
+            torch.tensor(w, dtype=torch.float32)):
+        raise SmokeError(f"mix weights {w_rows.tolist()}")
+    poison = torch.ones(RANKS, device=dev)
+    poison[5] = float("nan")
+    quar = torch.zeros(RANKS, dtype=torch.bool, device=dev)
+    quar[3] = True
+    open_kw = dict(w_rows=collectives.mix_weights(torch.ones_like(gate)),
+                   gate=torch.ones_like(gate), poison=torch.ones_like(poison),
+                   quar=torch.zeros_like(quar))
+    out = {}
+
+    p, g, t = randn(), randn(), randn()
+    cands, lasts = (randn(), randn()), (randn(), randn())
+    keeps = (keep(), keep())
+    args = (p, cands, keeps, lasts, g, t, lr, mom, w)
+    kw = dict(w_rows=w_rows, gate=gate, poison=poison, quar=quar)
+    fmc = arena_update.fused_mix_commit
+    k_out = fmc(*args, **kw)
+    p_out = arena_update.mix_commit_reference(*args, **kw)
+    err = _same_or_nan([k_out[0], k_out[1], *k_out[2]],
+                       [p_out[0], p_out[1], *p_out[2]],
+                       "fused_mix_commit gated")
+    mixed = collectives.mix_weighted(p, p_out[2], gate)
+    _same_bits(k_out[0][3], mixed[3], "fused_mix_commit quarantined row")
+    _same_bits(k_out[1][3], t[3], "fused_mix_commit quarantined trace")
+    if not (torch.isnan(k_out[0][5]).all() and torch.isnan(k_out[1][5]).all()
+            and torch.isfinite(k_out[0][[0, 1, 2, 3, 4, 6, 7]]).all()):
+        raise SmokeError("fused_mix_commit gated: poison not on rank 5 only")
+    ungated = fmc(*args)
+    for name, gk in (("null", {}), ("open", open_kw)):
+        got = fmc(*args, **gk)
+        max_abs_err([got[0], got[1], *got[2]],
+                    [ungated[0], ungated[1], *ungated[2]],
+                    f"the ungated launch ({name} operands)")
+    del k_out, p_out, ungated, got, mixed
+    out["fused_mix_commit_gated"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: fmc(*args, **kw)),
+        plain_ms=time_ms(
+            lambda: arena_update.mix_commit_reference(*args, **kw)),
+        ungated_ms=recs["fused_mix_commit"]["ms"], library_ms=None,
+        bound=recs["fused_mix_commit"]["bound"])
+    del args, cands, lasts
+
+    # kernel 5 on int8 carriers: gate and w_rows
+    int8 = lambda: torch.randint(-127, 128, (RANKS, spec.n_total),
+                                 generator=gen, device=dev, dtype=torch.int8)
+    scales = lambda: collectives._contract_safe(torch.rand(
+        (RANKS, spec.n_total), generator=gen, device=dev) * 0.05 + 1e-3)
+    cq, lq = (int8(), int8()), (int8(), int8())
+    args = (p, cq, keeps, lq, g, t, lr, mom, w)
+    ckw = dict(mix_scales=(scales(), scales()))
+    gkw = dict(w_rows=w_rows, gate=gate)
+    fcc = arena_update.fused_mix_commit_carrier
+    k_out = fcc(*args, **ckw, **gkw)
+    p_out = arena_update.mix_commit_carrier_reference(*args, **ckw, **gkw)
+    err = max_abs_err([k_out[0], k_out[1], *k_out[2]],
+                      [p_out[0], p_out[1], *p_out[2]])
+    ungated = fcc(*args, **ckw)
+    for name, gk in (("null", {}), ("open", dict(
+            w_rows=open_kw["w_rows"], gate=open_kw["gate"]))):
+        got = fcc(*args, **ckw, **gk)
+        max_abs_err([got[0], got[1], *got[2]],
+                    [ungated[0], ungated[1], *ungated[2]],
+                    f"the ungated carrier launch ({name} operands)")
+    del k_out, p_out, ungated, got
+    out["fused_mix_commit_carrier_gated"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: fcc(*args, **ckw, **gkw)),
+        plain_ms=time_ms(lambda: arena_update.mix_commit_carrier_reference(
+            *args, **ckw, **gkw)),
+        ungated_ms=recs["fused_mix_commit_carrier"]["ms"], library_ms=None,
+        bound=recs["fused_mix_commit_carrier"]["bound"])
+    del args, cq, lq, ckw, keeps
+
+    # kernel 4: w_rows, the gated buf_sum built outside as the step does
+    bufs = (randn(), randn())
+    zero = torch.zeros((), device=dev)
+    b = torch.zeros_like(p)
+    for i, x in enumerate(bufs):
+        b = b + torch.where(gate[:, i:i + 1], x, zero)
+    args = (p, b, g, t, lr, mom, w)
+    fms = fused_update.fused_mix_sgd
+    err = max_abs_err(fms(*args, w_rows=w_rows),
+                      fused_update.mix_sgd_reference(*args, w_rows=w_rows))
+    max_abs_err(fms(*args, w_rows=open_kw["w_rows"]), fms(*args),
+                "the ungated launch (open weights)")
+    out["fused_mix_sgd_gated"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: fms(*args, w_rows=w_rows)),
+        plain_ms=time_ms(lambda: fused_update.mix_sgd_reference(
+            *args, w_rows=w_rows)),
+        ungated_ms=recs["fused_mix_sgd"]["ms"], library_ms=None,
+        bound=recs["fused_mix_sgd"]["bound"])
+    del args, p, g, t, b, bufs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(json.dumps({"kernel": name, **{
+            k: v for k, v in r.items() if k != "bound"},
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}))
+    return out
 
 
 #: buckets of the bucketed schedule on the flagship legs
@@ -1866,6 +2056,279 @@ def phase_bucketed_async():
     return totals
 
 
+#: the chaos phase's flagship trigger: the JAX bench's 30 warmup passes,
+#: so every edge sends on each of a leg's 6 passes and EventGraD's drop
+#: count is the delivery table's
+CHAOS_WARMUP = 30
+#: a recovery policy whose bounds a 6-pass leg never reaches (both above
+#: the trigger's max_silence of 50): its gates stay open
+IDLE_POLICY = dict(sync_after=60, freeze_after=80)
+
+
+def phase_chaos():
+    """The chaos fault clauses and the integrity engine on the gossip
+    path: the flagship legs under deterministic algorithms (drop 0 and an
+    idle policy bitwise no chaos, through the gated kernels; exact drop
+    and reject counts; the quarantined row the mixed one), then the
+    chaos sweep and integrity legs held to the JAX package's artifacts.
+    Returns the launches of each kernel."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.chaos import inject
+    from eventgrad_tpu_torch.chaos.monitor import PeerHealth
+    from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
+    from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.parallel import collectives
+    from eventgrad_tpu_torch.train.steps import make_train_step
+    from eventgrad_tpu_torch.utils import chaos_sweep, integrity_sweep
+
+    log("== chaos + integrity: ResNet-18 (bf16 compute) x Ring(8), global "
+        f"batch 256, warmup {CHAOS_WARMUP}")
+    topo = egt.Ring(RANKS)
+    per_rank, steps, epochs = 32, 3, 2
+    passes = steps * epochs
+    x, y = synthetic_dataset(RANKS * per_rank * steps, (32, 32, 3), seed=0)
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05,
+                          warmup_passes=CHAOS_WARMUP, max_silence=50)
+    idle = RecoveryPolicy(**IDLE_POLICY)
+    totals, recs = {}, {}
+
+    def run(leg, algo="eventgrad", must=None, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        state, hist = egt.train(
+            egt.ResNet18(dtype=torch.bfloat16), topo, x, y, algo=algo,
+            epochs=epochs, batch_size=per_rank, learning_rate=0.01,
+            momentum=0.9, event_cfg=cfg if algo == "eventgrad" else None,
+            random_sampler=True, seed=0, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for k, n in (must or {}).items():
+            if counts[k] != n:
+                raise SmokeError(f"{leg}: {k} launched {counts[k]} times, "
+                                 f"expected {n}")
+        last = hist[-1]
+        rec = {"leg": leg, "step_ms": 1e3 * last["wall_s"] / last["steps"],
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches_per_step": {k: v / passes for k, v in counts.items()
+                                     if v},
+               **{k: last[k] for k in ("loss", "msgs_saved_pct",
+                                       "chaos_drops", "wire_rejects",
+                                       "quarantined_steps",
+                                       "consensus_err_max") if k in last}}
+        recs[leg] = rec
+        log(json.dumps(rec))
+        return state, hist
+
+    def undelivered(spec):
+        return int((~inject.delivery_table(ChaosSchedule.parse(spec), topo,
+                                           passes)).sum())
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        raise SmokeError("CUBLAS_WORKSPACE_CONFIG unset: the bitwise legs "
+                         "need deterministic cuBLAS")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) drop 0 with a policy that never trips is no chaos, bitwise:
+        # the gated kernels run every pass with every gate open
+        for algo, gk in (("eventgrad", "fused_mix_commit_gated"),
+                         ("dpsgd", "fused_mix_sgd_gated")):
+            kw = ({} if algo == "dpsgd" else {"chaos_policy": idle})
+            s_n, h_n = run(f"{algo}-f32", algo)
+            s_c, h_c = run(f"{algo}-f32-drop0", algo, must={gk: passes},
+                           chaos=ChaosSchedule(), **kw)
+            _same_bits(s_n.params, s_c.params, f"(a) {algo} params")
+            _same_bits(s_n.trace, s_c.trace, f"(a) {algo} trace")
+            if algo == "eventgrad":
+                _same_state(s_n, s_c, f"(a) {algo}")
+            _same_records(h_n, h_c, f"(a) {algo}")
+            if h_c[-1]["chaos_drops"] != 0:
+                raise SmokeError(f"(a) {algo}: drops at drop 0")
+            del s_n, s_c
+        # (b) D-PSGD under a death with the freeze: kernel 4's gated form
+        # weighs the dead rank's neighbours 1/2; every undelivered edge
+        # counts. EventGraD at drop 0.2: all 6 passes are warmup, so each
+        # sender fired and the count is the table's
+        spec = "seed=0,die=5@2"
+        s_d, h_d = run("dpsgd-die5-freeze2", "dpsgd",
+                       must={"fused_mix_sgd_gated": passes}, chaos=spec,
+                       chaos_policy=RecoveryPolicy(freeze_after=2))
+        deliver = torch.as_tensor(inject.delivery_table(
+            ChaosSchedule.parse(spec), topo, passes)[-1], device=DEVICE)
+        w_rows = collectives.mix_weights(deliver & (s_d.chaos.silence < 2))
+        third = float(np.float32(1.0 / 3.0))
+        want_w = [third] * RANKS
+        want_w[4] = want_w[6] = 0.5
+        want_w[5] = 1.0
+        if w_rows.tolist() != want_w:
+            raise SmokeError(f"(b) mix weights {w_rows.tolist()}")
+        if h_d[-1]["chaos_drops"] != undelivered(spec):
+            raise SmokeError(f"(b) D-PSGD drops {h_d[-1]['chaos_drops']} != "
+                             f"{undelivered(spec)}")
+        if not torch.isfinite(s_d.params).all():
+            raise SmokeError("(b) D-PSGD parameters not finite")
+        del s_d
+        spec = "drop=0.2,seed=0"
+        for leg, kw, gk in (
+                ("eventgrad-f32-drop0.2", {}, "fused_mix_commit_gated"),
+                ("eventgrad-int8-carrier-drop0.2",
+                 dict(wire="int8", carrier_resident=True),
+                 "fused_mix_commit_carrier_gated")):
+            s_e, h_e = run(leg, must={gk: passes}, chaos=spec,
+                           chaos_policy=idle, **kw)
+            if h_e[-1]["chaos_drops"] != undelivered(spec):
+                raise SmokeError(f"(b) {leg} drops {h_e[-1]['chaos_drops']} "
+                                 f"!= the table's {undelivered(spec)}")
+            del s_e
+        # (c) the checksums and the quarantine under bitflips and a
+        # nanstep: rejections are the corruption table, one quarantine
+        spec = "seed=0,bitflip=1-7@0.3,nanstep=2@4"
+        s_i, h_i = run("eventgrad-f32-integrity", chaos=spec,
+                       integrity="on",
+                       must={"fused_mix_commit_gated": passes})
+        flips = int(inject.corruption_table(ChaosSchedule.parse(spec), topo,
+                                            passes).sum())
+        rejects = sum(r["wire_rejects"] for r in h_i)
+        quar = sum(r["quarantined_steps"] for r in h_i)
+        if rejects != flips or not flips or quar != 1:
+            raise SmokeError(f"(c) rejects {rejects} (injected {flips}, "
+                             f"silent {flips - rejects}), quarantined {quar}")
+        if not torch.isfinite(s_i.params).all():
+            raise SmokeError("(c) parameters not finite")
+        log(json.dumps({"integrity_flagship": {
+            "injected": flips, "rejected": rejects,
+            "silent_acceptances": flips - rejects, "quarantined": quar}}))
+        del s_i
+        # the quarantined row is the mixed row: one step, rank 2 poisoned
+        model = egt.ResNet18(dtype=torch.bfloat16, device=DEVICE)
+        state = egt.init_train_state(model, (32, 32, 3), topo, "eventgrad",
+                                     cfg, 0, momentum=0.9, device=DEVICE)
+        state = state.replace(chaos=PeerHealth.init(topo, DEVICE))
+        step = make_train_step(model, topo, "eventgrad", cfg,
+                               fused_sgd=(0.01, 0.9), chaos="seed=0,"
+                               "nanstep=2@1", integrity="on", n_passes=1)
+        xb = torch.as_tensor(x[:RANKS * per_rank].reshape(
+            RANKS, per_rank, 32, 32, 3), device=DEVICE)
+        yb = torch.as_tensor(y[:RANKS * per_rank].reshape(
+            RANKS, per_rank).astype(np.int64), device=DEVICE)
+        new, m = step(state, (xb, yb))
+        mixed = collectives.mix_weighted(
+            state.params, new.event.bufs,
+            torch.ones((RANKS, NB), dtype=torch.bool, device=DEVICE))
+        _same_bits(new.params[2], mixed[2], "(c) quarantined row")
+        _same_bits(new.trace[2], state.trace[2], "(c) quarantined trace")
+        if m["integrity_quarantined"].tolist() != [0, 0, 1] + [0] * 5:
+            raise SmokeError(f"(c) verdicts {m['integrity_quarantined']}")
+        del state, new, mixed, model
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+    # (d) the chaos sweep's legs, held to the JAX package's artifact
+    ref = json.loads((HERE / "artifacts" / "chaos_sweep_cpu.json")
+                     .read_text())
+    ops.reset_launch_counts()
+    sweep = chaos_sweep.run_sweep(DEVICE)
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    log(json.dumps({"chaos_sweep": sweep, "launches": {
+        k: v for k, v in counts.items() if v}}))
+    failures = []
+    ref_pts = {p["drop_p"]: p for p in ref["points"]}
+    # the op-point is multimodal (ReLU logits can leave a class dead):
+    # one seed's fault-free accuracy is not the reference seed's, so each
+    # point is held by its cost against this run's fault-free baseline,
+    # at most the artifact's cost plus the band, and each accuracy by a
+    # floor: the port's CPU seeds 0-9 minimum at that point less the band
+    spread = json.loads((HERE / "artifacts" / "torch_chaos_seeds_cpu.json")
+                        .read_text())["seeds"]
+    floors = {0.0: min(r["baseline_test_acc"] for r in spread) - ACC_BAND}
+    for p in chaos_sweep.DROPS[1:]:
+        floors[p] = min(r[f"test_acc_drop{p}"] for r in spread) - ACC_BAND
+    base, ref_base = sweep["baseline_test_acc"], ref["baseline_test_acc"]
+    log(json.dumps({"chaos_baseline_test_acc": base,
+                    "artifact_baseline_test_acc": ref_base,
+                    "accuracy_floors": floors}))
+    for pt in sweep["points"]:
+        want = ref_pts[pt["drop_p"]]
+        leg = f"(d) drop {pt['drop_p']}"
+        if not pt["test_acc"] >= floors[pt["drop_p"]]:
+            failures.append(f"{leg}: test accuracy {pt['test_acc']} under "
+                            f"the CPU seeds' floor {floors[pt['drop_p']]}")
+        if pt["drop_p"] == 0.0:
+            if pt["chaos_drops"] != 0 or not pt[
+                    "bitwise_identical_to_baseline"]:
+                failures.append(f"{leg}: drops or not bitwise no chaos")
+        elif not (pt["chaos_drops"] <= pt["undelivered"] and abs(
+                pt["chaos_drops"] - want["chaos_drops"])
+                <= 0.1 * want["chaos_drops"]):
+            failures.append(f"{leg}: drops {pt['chaos_drops']} (table "
+                            f"{pt['undelivered']}, artifact "
+                            f"{want['chaos_drops']})")
+        cost, ref_cost = base - pt["test_acc"], ref_base - want["test_acc"]
+        if not cost <= ref_cost + ACC_BAND:
+            failures.append(f"{leg}: accuracy cost {cost} (test accuracy "
+                            f"{pt['test_acc']} against {base}) > the "
+                            f"artifact's {ref_cost} + {ACC_BAND}")
+        if not abs(pt["msgs_saved_pct"] - want["msgs_saved_pct"]) \
+                <= MSGS_BAND:
+            failures.append(f"{leg}: msgs_saved_pct {pt['msgs_saved_pct']} "
+                            f"not within {MSGS_BAND} of "
+                            f"{want['msgs_saved_pct']}")
+    heal, want = sweep["ring_heal"], ref["ring_heal"]
+    if heal["survivors"] != want["survivors"] or heal["detect_pass"] is None \
+            or abs(heal["detect_pass"] - want["detect_pass"]) > 5:
+        failures.append(f"(d) ring heal: survivors {heal['survivors']}, "
+                        f"detected at {heal['detect_pass']} (artifact "
+                        f"{want['detect_pass']})")
+    if not (heal["recovered"] and sweep["flaky_recovery"]["recovered"]):
+        failures.append("(d) a recovery leg did not recover")
+    if not counts["fused_mix_commit_gated"]:
+        failures.append("(d) the gated commit never launched")
+    # (e) the integrity leg, held to the JAX package's artifact
+    ref = json.loads((HERE / "artifacts" / "integrity_cpu.json").read_text())
+    ops.reset_launch_counts()
+    integ = integrity_sweep.run_sweep(DEVICE)
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    log(json.dumps({"integrity_sweep": integ, "launches": {
+        k: v for k, v in counts.items() if v}}))
+    for k in ("injected_bitflips", "wire_rejects", "silent_acceptances",
+              "rollbacks", "quarantined_steps"):
+        if integ[k] != ref[k]:
+            failures.append(f"(e) {k} {integ[k]} != the artifact's {ref[k]}")
+    if not integ["final_acc_baseline"] >= floors[0.0]:
+        failures.append(f"(e) fault-free accuracy "
+                        f"{integ['final_acc_baseline']} under the CPU "
+                        f"seeds' floor {floors[0.0]}")
+    if not integ["acc_gap_pt"] <= ref["acc_gap_pt"] + ACC_BAND:
+        failures.append(f"(e) faulted accuracy {integ['final_acc_faulted']}"
+                        f" against {integ['final_acc_baseline']}: gap > the "
+                        f"artifact's {ref['acc_gap_pt']} + {ACC_BAND}")
+    if not (integ["replay_bitwise"] and integ["integrity_off_bitwise"]
+            and integ["params_finite"]):
+        failures.append("(e) replay or off leg not bitwise, or params not "
+                        "finite")
+    if failures:
+        raise SmokeError("chaos legs: " + "; ".join(failures))
+    log(json.dumps({"chaos_vs_twins": {
+        leg: {k: recs[leg][k] for k in ("step_ms", "peak_mem_gib",
+                                        "launches_per_step")}
+        for leg in recs}}))
+    return totals
+
+
 def phase_leak_kernel():
     """Kernel 9, the auditor's seeded unregistered kernel
     (`eg::leak_kernel`, `csrc/audit_leak.cu`): bitwise `x * 2.0` at the
@@ -1934,8 +2397,8 @@ def _check_audit_cell(rep, what):
 
 
 def phase_audit():
-    """The static-analysis path on the card: the audit CLI over the 28
-    ported cells and the 14 oracles (`--device cuda`), then the flagship
+    """The static-analysis path on the card: the audit CLI over the 31
+    cells and the 14 oracles (`--device cuda`), then the flagship
     op-point audited. Returns the kernel launches of the phase."""
     import numpy as np
     import torch
@@ -1946,7 +2409,7 @@ def phase_audit():
     from eventgrad_tpu_torch.data.datasets import synthetic_dataset
     from eventgrad_tpu_torch.train.steps import make_train_step
 
-    log("== audit: 28 cells and 14 oracles on the card "
+    log("== audit: 31 cells and 14 oracles on the card "
         "(python -m eventgrad_tpu_torch.analysis.audit --device cuda)")
     ops.reset_launch_counts()
     audit.leak_kernel.launches = 0
@@ -1979,7 +2442,7 @@ def phase_audit():
     for o in rec["oracles"]:
         log(json.dumps(o))
     missed = [o["name"] for o in rec["oracles"] if not o["detected"]]
-    if rc != 0 or missed or rec["n_configs"] != 28 or rec["n_oracles"] != 14:
+    if rc != 0 or missed or rec["n_configs"] != 31 or rec["n_oracles"] != 14:
         raise SmokeError(f"audit CLI failed: exit {rc}, oracles missed "
                          f"{missed}")
     if audit.leak_kernel.launches < 1:
@@ -2047,7 +2510,16 @@ KERNELS = (
     ("fused_mix_commit_carrier",
      "eventgrad_tpu_torch/csrc/mix_commit_carrier.cu",
      "eventgrad_tpu/ops/arena_update.py:205"),
-    ("flash_fwd", "eventgrad_tpu_torch/csrc/flash_fwd.cu",
+    # the gated forms (chaos and integrity on the fused tail), timed on
+    # the mixed pattern and counted on the chaos phase's legs
+    ("fused_mix_commit_gated", "eventgrad_tpu_torch/csrc/mix_commit.cu",
+     "eventgrad_tpu/ops/arena_update.py:58"),
+    ("fused_mix_sgd_gated", "eventgrad_tpu_torch/csrc/mix_sgd.cu",
+     "eventgrad_tpu/ops/fused_update.py:50"),
+    ("fused_mix_commit_carrier_gated",
+     "eventgrad_tpu_torch/csrc/mix_commit_carrier.cu",
+     "eventgrad_tpu/ops/arena_update.py:205"),
+    ("flash_fwd","eventgrad_tpu_torch/csrc/flash_fwd.cu",
      "eventgrad_tpu/ops/attention.py:128"),
     ("flash_dq", "eventgrad_tpu_torch/csrc/flash_dq.cu",
      "eventgrad_tpu/ops/attention.py:169"),
@@ -2110,7 +2582,8 @@ def main() -> int:
         launches = {}
         for phase in (phase_main_path, phase_main_path_lm,
                       phase_main_path_lm_d128, phase_realdata,
-                      phase_frontier, phase_bucketed_async, phase_audit):
+                      phase_frontier, phase_bucketed_async, phase_chaos,
+                      phase_audit):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

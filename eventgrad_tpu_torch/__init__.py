@@ -17,8 +17,9 @@ carrier-resident receive buffers); the event exchange ships on the
 masked wire or the compact static-capacity wire, under the norm-delta,
 top-k, micro or hybrid trigger policy (`parallel/policy.py`), monolithic
 or bucket by bucket (the bucketed schedule), with staleness 0, 1 or the
-bounded-async D >= 2 delivery queues under the chaos straggler clauses
-(`chaos/`); and the gossip tail runs through five
+bounded-async D >= 2 delivery queues, under the seeded fault clauses,
+the recovery policies and the integrity engine (`chaos/`); and the
+gossip tail runs through five
 CUDA kernels written for Hopper (`csrc/*.cu`, bound in `ops/`). The
 transformer LM (`models/transformer.py`) adds three more, the
 flash-attention forward, dQ and dK/dV kernels (`ops/attention.py`).

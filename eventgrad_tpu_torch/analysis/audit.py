@@ -25,8 +25,11 @@ fire. One of them runs the seeded unregistered kernel, `eg::leak_kernel`
 (`csrc/audit_leak.cu`, the port of the JAX auditor's `_leak_kernel`),
 which stays out of the kernel registry on purpose.
 
-The matrix is the JAX package's, under its cell names, for every cell
-whose dimensions the port has (28 of 31). A bucketed cell's exchanges
+The matrix is the JAX package's, under its cell names, all 31 cells: the
+chaos cells run a seeded drop schedule (beside a straggler at D >= 2),
+and the integrity cell ships each payload's checksum beside it, a
+declared one-element rider lane outside the byte formula (as the JAX
+auditor declares it). A bucketed cell's exchanges
 are K lane groups per neighbour, one per bucket; its trace must also
 show the bucketed schedule's emission (`walker.bucket_schedule`: a
 bucket's exchange between the tails of its neighbouring buckets). The port runs only the flat
@@ -53,6 +56,9 @@ import numpy as np
 import torch
 
 from eventgrad_tpu_torch.analysis import kernels, rankflow, walker
+from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
+from eventgrad_tpu_torch.chaos.integrity import IntegrityConfig
+from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
 from eventgrad_tpu_torch.data.datasets import synthetic_dataset
 from eventgrad_tpu_torch.models import MLP, LeNetCifar, ResNet18
 from eventgrad_tpu_torch.models.transformer import TransformerLM
@@ -140,6 +146,11 @@ class AuditConfig:
     carrier: bool = False
     #: the bucketed schedule's K (0 = off)
     bucketed: int = 0
+    #: a seeded drop schedule (drop 0.4; at D >= 2 also rank 1 three
+    #: passes late)
+    chaos: bool = False
+    #: the in-step integrity defenses (checksums and quarantine)
+    integrity: bool = False
 
 
 #: the JAX matrix's cells whose dimensions the port has, under their
@@ -177,6 +188,11 @@ CONFIGS: Tuple[AuditConfig, ...] = (
     AuditConfig("event_hybrid_compact_int8_arena_b4",
                 gossip_wire="compact", capacity=BUCKETED_CAPACITY,
                 wire="int8", arena=True, bucketed=4, policy="hybrid"),
+    AuditConfig("event_masked_int8_tree_chaos", wire="int8", chaos=True),
+    AuditConfig("event_masked_f32_arena_integrity", arena=True,
+                integrity=True),
+    AuditConfig("event_masked_f32_arena_stale2_chaos", arena=True,
+                staleness=2, chaos=True),
     AuditConfig("event_masked_f32_arena_b4", arena=True, bucketed=4),
     AuditConfig("event_compact_int8_arena_b4", gossip_wire="compact",
                 capacity=BUCKETED_CAPACITY, wire="int8", arena=True,
@@ -197,15 +213,8 @@ CONFIGS: Tuple[AuditConfig, ...] = (
                 attn="flash"),
 )
 
-#: the JAX cells that wait, and what for
-WAITING = {
-    "event_masked_int8_tree_chaos": "chaos (ROADMAP queue 1, item 6)",
-    "event_masked_f32_arena_integrity":
-        "the integrity riders (ROADMAP queue 1, item 6)",
-    "event_masked_f32_arena_stale2_chaos":
-        "the chaos drop clause (ROADMAP queue 1, item 6): its schedule "
-        "drops messages (drop_p=0.4) beside its slow= straggler",
-}
+#: the JAX cells that wait, and what for (none: all 31 run)
+WAITING: Dict[str, str] = {}
 
 
 def config_by_name(name: str) -> AuditConfig:
@@ -348,12 +357,21 @@ def build(cfg: AuditConfig, device=None):
         bucketed=cfg.bucketed or None, staleness=cfg.staleness,
         device=device,
     )
+    chaos = None
+    if cfg.chaos:
+        # the JAX cells' schedule; a bounded-async cell adds a straggler
+        # so the lag path is in the audited step too
+        slow = ((1, 3),) if cfg.staleness >= 2 else ()
+        chaos = ChaosSchedule(seed=3, drop_p=0.4, slow=slow)
+        state = state.replace(chaos=chaos_monitor.PeerHealth.init(
+            topo, device))
     step = make_train_step(
         model, topo, cfg.algo, CFG, fused_sgd=SGD, wire=cfg.wire,
         gossip_wire=cfg.gossip_wire,
         compact_capacity=resolved_capacity(cfg, model),
         staleness=cfg.staleness, trigger_policy=cfg.policy,
         carrier_resident=cfg.carrier, bucketed=cfg.bucketed or None,
+        chaos=chaos, integrity=IntegrityConfig() if cfg.integrity else None,
     )
     return state, step, topo, model
 
@@ -372,8 +390,7 @@ def _expected_lanes(cfg: AuditConfig, n_params: int, n_leaves: int,
     """[(role, elems, dtype)] one neighbour's exchange must ship; None for
     sparsified EventGraD, whose top-k lanes compare by totals. A bucketed
     cell ships K lane groups: per bucket its value lane (its elements or
-    its capacity share), fire bits (and int8 scales). (The JAX auditor's
-    riders, the integrity checksum, wait with the integrity engine.)"""
+    its capacity share), fire bits (and int8 scales)."""
     if cfg.algo == "sp_eventgrad":
         return None
     if binfo is not None:
@@ -393,6 +410,12 @@ def _expected_lanes(cfg: AuditConfig, n_params: int, n_leaves: int,
     if cfg.wire == "int8":
         lanes.append(("scale", n_leaves, "float32"))
     return lanes
+
+
+def _riders(cfg: AuditConfig):
+    """[(role, elems, dtype)] of the transfer metadata a neighbour's
+    exchange ships outside the byte formula: the integrity checksum."""
+    return [("checksum", 1, "int32")] if cfg.integrity else []
 
 
 def _formula_bytes_per_neighbor(
@@ -434,12 +457,15 @@ def _classify_exchanges(
         groups.setdefault(ex.offset, []).append(ex)
     problems: List[str] = []
     per_offset_bytes: Dict[int, float] = {}
+    rider_bytes: Dict[int, float] = {}
     want = _expected_lanes(cfg, n_params, n_leaves, capacity, binfo)
     for off, lanes in groups.items():
         got = sorted((e.lane_elems, e.dtype) for e in lanes)
         # derived from the lanes the graph actually rolls, never from the
-        # expectation, or an upcast would launder itself
+        # expectation, or an upcast would launder itself; the declared
+        # riders are counted apart
         per_offset_bytes[off] = sum(n * _ITEMSIZE[dt] for n, dt in got)
+        rider_bytes[off] = 0.0
         if want is None:
             continue
         remaining = list(got)
@@ -449,6 +475,14 @@ def _classify_exchanges(
             else:
                 problems.append(f"offset {off:+d}: missing expected lane "
                                 f"{elems} elems of {dt}")
+        for _, elems, dt in _riders(cfg):
+            if (elems, dt) in remaining:
+                remaining.remove((elems, dt))
+                rider_bytes[off] += elems * _ITEMSIZE[dt]
+            else:
+                problems.append(f"offset {off:+d}: missing declared rider "
+                                f"{elems} elems of {dt}")
+        per_offset_bytes[off] -= rider_bytes[off]
         for elems, dt in remaining:
             problems.append(f"offset {off:+d}: UNDECLARED lane {elems} "
                             f"elems of {dt} on the wire")
@@ -459,7 +493,7 @@ def _classify_exchanges(
                     f"({cfg.wire or 'native f32'} wire) — silent dtype "
                     "promotion")
     return {"offsets": sorted(groups), "per_offset_bytes": per_offset_bytes,
-            "problems": problems}
+            "rider_bytes": rider_bytes, "problems": problems}
 
 
 # --- hygiene ---------------------------------------------------------------
@@ -484,14 +518,22 @@ def count_callbacks(gm: torch.fx.GraphModule) -> int:
 # --- the per-configuration audit -------------------------------------------
 
 
+def _kernel_launches() -> Dict[str, int]:
+    """Launches per kernel, as the trace names its ops: a gated launch
+    already counts in its kernel, so the `<kernel>_gated` counts stay
+    out."""
+    out = {k: v for k, v in launch_counts().items()
+           if not k.endswith("_gated")}
+    out["leak_kernel"] = leak_kernel.launches
+    return out
+
+
 def _analyze(cfg, fn, state, batch, model, topo) -> Dict[str, Any]:
     """Trace `fn(state, batch)` and run every check on the graph; the
     shared body of `audit_step` and the oracles."""
-    before = launch_counts()
-    before["leak_kernel"] = leak_kernel.launches
+    before = _kernel_launches()
     tr = walker.trace(fn, state, batch)
-    after = launch_counts()
-    after["leak_kernel"] = leak_kernel.launches
+    after = _kernel_launches()
     n_params, n_leaves, k_total = _meta(model)
     capacity = resolved_capacity(cfg, model)
     report = rankflow.analyze(tr.graph, topo.n_ranks)
@@ -580,6 +622,8 @@ def audit_step(cfg: AuditConfig, step, state, batch, model, topo,
         "policy": cfg.policy,
         "carrier": cfg.carrier,
         "bucketed": cfg.bucketed,
+        "chaos": cfg.chaos,
+        "integrity": cfg.integrity,
         # the bucketed schedule's emission (None: not a bucketed
         # EventGraD cell): a bucket's exchange between the tails of the
         # buckets before and after it
@@ -603,7 +647,9 @@ def audit_step(cfg: AuditConfig, step, state, batch, model, topo,
         "wire_bytes_per_neighbor_derived": (res["derived"][0]
                                             if res["derived"] else 0.0),
         "wire_bytes_per_neighbor_formula": res["formula"],
-        "wire_rider_bytes_per_neighbor": 0.0,
+        "wire_rider_bytes_per_neighbor": (
+            max(wire["rider_bytes"].values()) if wire["rider_bytes"]
+            else 0.0),
         "wire_metric_total": metric_total,
         "wire_match": bool(wire_match),
         "metric_match": metric_match,

@@ -9,10 +9,11 @@ registered here, and rankflow checks every call site against the
 declared layout:
 
   * `ARENA` — the kernel is elementwise over `[R, n]` arenas (kernels
-    1-5, and the pitched forms of 1, 2, 3 and 5 over `[R, c]` buckets):
-    every rank-carrying tensor argument holds the rank, pure, at
-    dimension 0, and every output (a mutated output argument too)
-    carries it there;
+    1-5, and the pitched forms of 1, 2, 3 and 5 over `[R, c]` buckets),
+    and the gated forms' per-row operands (`[R]`, `[R, n_nb]`) are read
+    at the row they describe: every rank-carrying tensor argument holds
+    the rank, pure, at dimension 0, and every output (a mutated output
+    argument too) carries it there;
   * `FOLDED` — the ranks are folded into the batch, rank-major (the
     flash kernels 6-8, called from the `vmap` rules of
     `ops/attention.py`, `_fold`): every rank-carrying argument holds the
@@ -101,18 +102,23 @@ for _sig in (
         "fused_mix_sgd", "eventgrad_tpu_torch/ops/fused_update.py",
         "eg_mix_sgd",
         reviewed="csrc/mix_sgd.cu: p' = (p + buf_sum) w - lr (m t + g), "
-        "element i reads element i of each [R, n] input only",
+        "element i reads element i of each [R, n] input only; the gated "
+        "form's w_rows[r] is read by row r's blocks only",
     ),
     KernelSig(
         "fused_mix_commit", _ARENA, "eg_mix_commit",
         reviewed="csrc/mix_commit.cu: per element, the commit select and "
         "the mix read element i of every neighbour's [R, n] buffers; the "
-        "neighbours' rows arrive already rolled by the exchange",
+        "neighbours' rows arrive already rolled by the exchange; the gated "
+        "form's w_rows, gate, poison, quar are read at row r only, by row "
+        "r's blocks",
     ),
     KernelSig(
         "fused_mix_commit_carrier", _ARENA, "eg_mix_commit_carrier",
         reviewed="csrc/mix_commit_carrier.cu: kernel 1 on bf16/int8 "
-        "carriers; the dequant multiplies element i by scale i",
+        "carriers; the dequant multiplies element i by scale i; the gated "
+        "form's w_rows and gate are read at row r only, by row r's "
+        "blocks",
     ),
     # the pitched (bucket) forms of kernels 1, 2, 3 and 5: the arena
     # operands are whole [R, n] arenas read (and, for p', t', written) at

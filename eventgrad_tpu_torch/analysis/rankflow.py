@@ -953,9 +953,9 @@ def _r_scalar(f, node, a):
 
 _POINTWISE = frozenset("""
 abs add sub mul div neg relu threshold_backward gelu gelu_backward pow
-rsqrt maximum clamp clamp_min clamp_max round remainder eq ge gt le lt
-bitwise_and bitwise_or bitwise_not where masked_fill _to_copy clone detach
-lift_fresh_copy
+rsqrt maximum clamp clamp_min clamp_max round remainder eq ne ge gt le lt
+bitwise_and bitwise_or bitwise_not bitwise_xor logical_not isfinite isnan
+where masked_fill _to_copy clone detach lift_fresh_copy
 """.split())
 
 _FACTORY = frozenset("""
@@ -978,6 +978,7 @@ _RULES = {
     "split": _r_split, "split_with_sizes": _r_split,
     "select_backward": _r_select_backward,
     "sum": _r_reduce, "mean": _r_reduce, "argmax": _r_reduce,
+    "all": _r_reduce, "any": _r_reduce,
     "linalg_vector_norm": _r_reduce,
     "cumsum": _along("cumulative op"), "sort": _along("sort"),
     "topk": _along("topk"),

@@ -1,20 +1,29 @@
-"""Chaos subsystem of the port: the straggler clauses.
+"""Chaos subsystem of the port: the fault clauses, recovery policies and
+the integrity engine.
 
-Port of `eventgrad_tpu/chaos/`, the part the bounded-async engine needs
-(`train(staleness=D >= 2, chaos=...)`): `schedule` (the `lag=` and
-`slow=` clauses of `ChaosSchedule`, their parse, spec, dict round trip,
-`has_lags` and `max_scheduled_lag`), `inject` (`rank_and_sources`,
-`lag_vector`, `lag_table`, and the all-delivered `delivery_mask` of a
-lag-only schedule) and `monitor` (`PeerHealth` and its update, the
-records' `health_record`). Every other clause — message drops, flaky
-windows, delivery thinning, peer death, bitflips, NaN steps, preemption,
-membership — raises NotImplementedError naming ROADMAP queue 1, item 6,
-as do the recovery policies.
+Port of `eventgrad_tpu/chaos/`: `schedule` (the clauses `drop=`,
+`flaky=`, `delay=`, `die=`, `bitflip=`, `nanstep=`, `lag=`, `slow=`,
+their parse, spec and dict round trip), `prng` (the port's own copy of
+JAX's Threefry draws, bitwise `jax.random`), `inject` (the per-pass
+delivery, corruption and nanstep tables, built on the host once per run
+and read on the device by pass; `flip_one_bit`; the lags), `monitor`
+(`PeerHealth`, `sync_requests`, `consensus_error`, the records'
+`health_record`), `policy` (`RecoveryPolicy`, `alive_mask`, the ring
+heal), `integrity` (`IntegrityConfig`, `DivergenceSentinel`,
+`IntegrityEscalation`) and `membership.force_refresh`. The `preempt=`
+clause and the `leave=` / `join=` membership transitions wait (ROADMAP
+queue 1, item 6, parts 6b and 6d).
 """
 
+from eventgrad_tpu_torch.chaos.integrity import (
+    DivergenceSentinel, IntegrityConfig, IntegrityEscalation,
+)
 from eventgrad_tpu_torch.chaos.monitor import PeerHealth
+from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
 from eventgrad_tpu_torch.chaos.schedule import (
     ChaosSchedule, FlakyWindow, LagWindow,
 )
 
-__all__ = ["ChaosSchedule", "FlakyWindow", "LagWindow", "PeerHealth"]
+__all__ = ["ChaosSchedule", "DivergenceSentinel", "FlakyWindow",
+           "IntegrityConfig", "IntegrityEscalation", "LagWindow",
+           "PeerHealth", "RecoveryPolicy"]

@@ -1,10 +1,13 @@
 """Peer-health monitoring: per-edge silence and observed drops.
 
 Port of `eventgrad_tpu/chaos/monitor.py` (`PeerHealth`, `update`,
-`edge_status`, `health_record`; the forced-sync gossip `sync_requests`
-and the consensus-error probe wait with the recovery policies, ROADMAP
-queue 1, item 6). The state is rank-stacked: `silence` is `[R,
-n_neighbors]`, `sync_req` and `drops` are `[R]`.
+`sync_requests`, `consensus_error`, `edge_status`, `health_record`).
+The state is rank-stacked: `silence` is `[R, n_neighbors]`, `sync_req`
+and `drops` are `[R]`. With the sender's `max_silence = M > 0` a healthy
+incoming edge is silent at most M passes (plus wire loss), so silence
+far beyond M is evidence of a dead or lossy link; the consensus-error
+probe `||p_r - mean(p)||` is the host-side drift metric of the
+records.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from eventgrad_tpu_torch.parallel.topology import Topology
+from eventgrad_tpu_torch.parallel import collectives
+from eventgrad_tpu_torch.parallel.topology import NeighborSpec, Topology
 
 
 @dataclasses.dataclass
@@ -26,7 +30,7 @@ class PeerHealth:
               arrived on each incoming edge (an unfired or undelivered
               pass counts).
     sync_req: bool [R] — a neighbour asked this rank to force-fire next
-              pass (never set without the recovery policies).
+              pass (`sync_requests`, under `RecoveryPolicy.sync_after`).
     drops:    int32 [R] — cumulative injected drops observed.
     """
 
@@ -59,6 +63,29 @@ def update(health: PeerHealth, delivered_any: torch.Tensor,
         drops=health.drops + torch.sum(dropped_any, dim=-1,
                                        dtype=torch.int32),
     )
+
+
+def sync_requests(need: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """Gossip each rank's per-edge force-sync requests (`need`, bool `[R,
+    n_neighbors]`) back to the edge sources; returns each rank's
+    aggregated incoming request, bool `[R]`. The incoming edge with shift
+    +o sources from rank me+o, which receives the request through the
+    reverse shift -o: a roll of the rank dimension, one bool per edge."""
+    got = torch.zeros(need.shape[:1], dtype=torch.bool, device=need.device)
+    for i, nb in enumerate(topo.neighbors):
+        rev = NeighborSpec(nb.axis, -nb.offset)
+        got = got | collectives.recv_from(need[:, i].contiguous(), topo, rev)
+    return got
+
+
+@torch.no_grad()
+def consensus_error(params: torch.Tensor) -> torch.Tensor:
+    """Per-rank consensus error ||p_r - mean_r(p)||_2 of an `[R, n]`
+    arena, f32 `[R]`: the drift metric that tells a healthy quiet
+    network from a partitioned one."""
+    flat = params.to(torch.float32)
+    return torch.linalg.vector_norm(flat - flat.mean(dim=0, keepdim=True),
+                                    dim=1)
 
 
 def edge_status(silence: int, max_silence: int,

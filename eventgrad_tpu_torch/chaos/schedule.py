@@ -1,30 +1,44 @@
-"""Seeded, reproducible fault schedules for the gossip path: the
-straggler clauses.
+"""Seeded, reproducible fault schedules for the gossip path.
 
 Port of `eventgrad_tpu/chaos/schedule.py`. A schedule is pure data: it
 names what faults happen when, never how they apply (`chaos.inject`).
-The port runs the two queueing-delay clauses, which the bounded-async
-engine (`train(staleness=D)`, D >= 2) services with per-edge delivery
-queues:
+Every draw is a function of (seed, pass, receiving rank, edge), so two
+runs of one schedule meet the same faults and a schedule serialized into
+a record replays exactly. The clauses the port runs:
 
-  * `lag`  — `lag=S-E@d`: every message sent during passes [S, E)
-             arrives d passes after its send (d >= 1; the no-fault
-             baseline is lag 1, the one-pass asynchrony staleness=1
-             models); a bare `lag=d` covers the whole run;
-  * `slow` — `slow=R@f`: every message rank R sends arrives f passes
-             late for the whole run (a persistent straggler); composes
-             with `lag=` windows by max.
+  * `drop`    — `drop=p`: iid per-edge per-pass message-drop probability;
+  * `flaky`   — `flaky=S-E@p`: the drop probability raised to max(drop,
+                p) for passes in [S, E);
+  * `delay`   — `delay=k` (`deliver_every`): an edge refreshes its
+                buffer at most every k passes, at a seed-derived phase
+                (the skipped payloads are lost: a lossy slow link);
+  * `die`     — `die=R@P`: rank R neither sends nor receives from pass P
+                on (recovery: `policy.heal_ring`);
+  * `bitflip` — `bitflip=S-E@p` (a bare `bitflip=p` covers the run):
+                per-edge per-pass probability that one bit of the
+                received payload flips in transit (the defense: the wire
+                checksums of `chaos/integrity.py`);
+  * `nanstep` — `nanstep=R@P`: rank R's update goes NaN on pass P (the
+                defense: the non-finite quarantine);
+  * `lag`     — `lag=S-E@d`: every message sent during [S, E) arrives d
+                passes after its send (d >= 1; a bare `lag=d` covers the
+                run), a lossless late link the bounded-async engine
+                (`train(staleness=D >= 2)`) queues;
+  * `slow`    — `slow=R@f`: every message rank R sends arrives f passes
+                late (composes with `lag=` by max).
 
-The effective lag clamps to the bound D (the fast rank waits rather
-than run further ahead); under staleness <= 1 the clamp makes the
-clauses no-ops in the step.
+The effective lag clamps to the bound D; under staleness <= 1 the clamp
+makes `lag=` / `slow=` no-ops in the step. Two clauses of the JAX
+vocabulary wait: `preempt=` (ROADMAP queue 1, item 6, part 6b) and the
+membership events `leave=` / `join=` (part 6d); a schedule that sets one
+raises NotImplementedError. The dict form keeps the JAX package's keys,
+so a schedule serializes to the same record.
 
-The rest of the JAX vocabulary — `drop`, `flaky`, `delay`, `die`,
-`bitflip`, `nanstep`, `preempt`, `leave`/`join` — is accepted by the
-grammar and the dataclass at its no-fault value only; a schedule that
-sets one raises NotImplementedError naming ROADMAP queue 1, item 6. The
-dict form keeps the JAX package's keys, so a lag-only schedule
-serializes to the same record.
+Spec grammar (comma-separated clauses; `flaky=`, `die=`, `bitflip=`,
+`nanstep=`, `lag=`, `slow=` accumulate):
+
+    drop=0.2,seed=7,flaky=100-200@0.8,delay=3,die=3@500,
+    bitflip=40-60@0.5,nanstep=2@45,lag=50-90@3,slow=2@4
 """
 
 from __future__ import annotations
@@ -32,19 +46,29 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
-#: where the clauses beyond the straggler ones wait
+#: where the clauses still to port wait
 ITEM6 = "ROADMAP queue 1, item 6"
+_PREEMPT = f"{ITEM6}, part 6b"
+_MEMBERSHIP = f"{ITEM6}, part 6d"
 
 
 @dataclasses.dataclass(frozen=True)
 class FlakyWindow:
     """Drop probability raised to `drop_p` for passes in [start, end)
-    (the JAX package's value type; a schedule holding one is not
-    ported)."""
+    (also the bitflip windows' type, `drop_p` then the flip
+    probability)."""
 
     start_pass: int
     end_pass: int
     drop_p: float = 1.0
+
+    def __post_init__(self):
+        if self.start_pass < 0 or self.end_pass < self.start_pass:
+            raise ValueError(
+                f"flaky window [{self.start_pass}, {self.end_pass}) invalid"
+            )
+        if not 0.0 <= self.drop_p <= 1.0:
+            raise ValueError(f"flaky drop_p {self.drop_p} outside [0, 1]")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +93,15 @@ class LagWindow:
             )
 
 
+def _sorted_windows(ws):
+    return tuple(sorted(ws, key=lambda w: (w.start_pass, w.end_pass)))
+
+
 @dataclasses.dataclass(frozen=True)
 class ChaosSchedule:
-    """A replayable fault schedule: `lag` (LagWindow tuples) and `slow`
-    ((rank, lag) pairs). The other fields are the JAX schedule's, held at
-    their no-fault values: setting one raises NotImplementedError."""
+    """A replayable fault schedule (the JAX package's fields). `death`
+    and `nanstep` are ((rank, pass), ...) pairs, `slow` ((rank, lag),
+    ...); `membership` and `preempt` must stay empty."""
 
     seed: int = 0
     drop_p: float = 0.0
@@ -88,23 +116,30 @@ class ChaosSchedule:
     slow: Tuple[Tuple[int, int], ...] = ()
 
     def __post_init__(self):
-        unported = [name for name, on in (
-            ("drop", self.drop_p != 0.0), ("flaky", bool(self.flaky)),
-            ("delay", self.deliver_every != 1), ("die", bool(self.death)),
-            ("leave/join", bool(self.membership)),
-            ("bitflip", bool(self.bitflip)), ("nanstep", bool(self.nanstep)),
-            ("preempt", bool(self.preempt)),
-        ) if on]
-        if unported:
+        if self.preempt:
             raise NotImplementedError(
-                f"chaos clauses {unported} are not ported yet ({ITEM6}); "
-                "the port runs the straggler clauses lag= and slow="
-            )
+                f"chaos clause preempt= is not ported yet ({_PREEMPT})")
+        if self.membership:
+            raise NotImplementedError(
+                "chaos clauses leave= / join= (membership transitions) are "
+                f"not ported yet ({_MEMBERSHIP})")
+        if not 0.0 <= self.drop_p <= 1.0:
+            raise ValueError(f"drop_p {self.drop_p} outside [0, 1]")
+        if self.deliver_every < 1:
+            raise ValueError(
+                f"deliver_every must be >= 1, got {self.deliver_every}")
         # normalize so equal schedules compare and serialize equal
-        object.__setattr__(
-            self, "lag",
-            tuple(sorted(self.lag, key=lambda w: (w.start_pass, w.end_pass))),
-        )
+        object.__setattr__(self, "flaky", _sorted_windows(self.flaky))
+        object.__setattr__(self, "death", tuple(sorted(self.death)))
+        for r, t in self.death:
+            if r < 0 or t < 0:
+                raise ValueError(f"death ({r}, {t}) invalid")
+        object.__setattr__(self, "bitflip", _sorted_windows(self.bitflip))
+        object.__setattr__(self, "nanstep", tuple(sorted(self.nanstep)))
+        for r, t in self.nanstep:
+            if r < 0 or t < 0:
+                raise ValueError(f"nanstep ({r}, {t}) invalid")
+        object.__setattr__(self, "lag", _sorted_windows(self.lag))
         object.__setattr__(self, "slow", tuple(sorted(self.slow)))
         for r, f in self.slow:
             if r < 0 or f < 1:
@@ -115,14 +150,26 @@ class ChaosSchedule:
 
     @property
     def is_noop(self) -> bool:
-        """True when the schedule injects nothing."""
-        return not self.lag and not self.slow
+        """True when the schedule injects nothing (the drop-rate-0 point,
+        bitwise the chaos=None trajectory)."""
+        return (self.drop_p == 0.0 and not self.flaky
+                and self.deliver_every == 1 and not self.death
+                and not self.bitflip and not self.nanstep and not self.lag
+                and not self.slow)
 
     @property
     def has_lags(self) -> bool:
         """True when any clause can deliver a message late (the
         bounded-async engine then services per-edge delivery queues)."""
         return bool(self.lag or self.slow)
+
+    @property
+    def has_drops(self) -> bool:
+        """True when any clause can keep a message from arriving (drop,
+        flaky, delay, die)."""
+        return bool(self.drop_p > 0.0 or any(w.drop_p > 0.0
+                                             for w in self.flaky)
+                    or self.deliver_every > 1 or self.death)
 
     def max_scheduled_lag(self) -> int:
         """The largest lag any clause can schedule (1 = the no-fault
@@ -136,20 +183,34 @@ class ChaosSchedule:
 
     @property
     def has_bitflips(self) -> bool:
-        return False
+        """True when any pass could corrupt a payload."""
+        return any(w.drop_p > 0.0 for w in self.bitflip)
 
     @property
     def has_nansteps(self) -> bool:
-        return False
+        return bool(self.nanstep)
+
+    def dead_ranks(self, up_to_pass: int) -> Tuple[int, ...]:
+        """Ranks whose death pass is <= `up_to_pass`."""
+        return tuple(sorted({r for r, t in self.death if t <= up_to_pass}))
 
     # --- serialization (records) ---------------------------------------
 
     def to_dict(self) -> Dict[str, Any]:
         """The JAX package's dict of the same schedule."""
         d: Dict[str, Any] = {
-            "seed": self.seed, "drop_p": self.drop_p, "flaky": [],
-            "deliver_every": self.deliver_every, "death": [],
+            "seed": self.seed,
+            "drop_p": self.drop_p,
+            "flaky": [[w.start_pass, w.end_pass, w.drop_p]
+                      for w in self.flaky],
+            "deliver_every": self.deliver_every,
+            "death": [list(e) for e in self.death],
         }
+        if self.bitflip:
+            d["bitflip"] = [[w.start_pass, w.end_pass, w.drop_p]
+                            for w in self.bitflip]
+        if self.nanstep:
+            d["nanstep"] = [list(e) for e in self.nanstep]
         if self.lag:
             d["lag"] = [[w.start_pass, w.end_pass, w.lag] for w in self.lag]
         if self.slow:
@@ -158,6 +219,10 @@ class ChaosSchedule:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ChaosSchedule":
+        if d.get("membership"):
+            raise NotImplementedError(
+                "chaos clauses leave= / join= (membership transitions) are "
+                f"not ported yet ({_MEMBERSHIP})")
         return cls(
             seed=int(d.get("seed", 0)),
             drop_p=float(d.get("drop_p", 0.0)),
@@ -165,7 +230,6 @@ class ChaosSchedule:
                         for s, e, p in d.get("flaky", ())),
             deliver_every=int(d.get("deliver_every", 1)),
             death=tuple((int(r), int(t)) for r, t in d.get("death", ())),
-            membership=tuple(d.get("membership", ()) or ()),
             bitflip=tuple(FlakyWindow(int(s), int(e), float(p))
                           for s, e, p in d.get("bitflip", ())),
             nanstep=tuple((int(r), int(t)) for r, t in d.get("nanstep", ())),
@@ -175,10 +239,20 @@ class ChaosSchedule:
             slow=tuple((int(r), int(f)) for r, f in d.get("slow", ())),
         )
 
-    # --- CLI spec round trip -------------------------------------------
+    # --- spec round trip -----------------------------------------------
 
     def to_spec(self) -> str:
         parts = [f"drop={self.drop_p:g}", f"seed={self.seed}"]
+        for w in self.flaky:
+            parts.append(f"flaky={w.start_pass}-{w.end_pass}@{w.drop_p:g}")
+        if self.deliver_every != 1:
+            parts.append(f"delay={self.deliver_every}")
+        for r, t in self.death:
+            parts.append(f"die={r}@{t}")
+        for w in self.bitflip:
+            parts.append(f"bitflip={w.start_pass}-{w.end_pass}@{w.drop_p:g}")
+        for r, t in self.nanstep:
+            parts.append(f"nanstep={r}@{t}")
         for w in self.lag:
             parts.append(f"lag={w.start_pass}-{w.end_pass}@{w.lag}")
         for r, f in self.slow:
@@ -187,9 +261,8 @@ class ChaosSchedule:
 
     @classmethod
     def parse(cls, spec: str) -> "ChaosSchedule":
-        """Parse the JAX package's grammar, e.g. `seed=5,slow=1@7,
-        lag=50-90@3`. A clause beyond the straggler ones parses, and the
-        schedule then refuses it (NotImplementedError, item 6)."""
+        """Parse the JAX package's grammar, e.g. `drop=0.2,seed=7,
+        flaky=10-20@0.8`."""
         kw: Dict[str, Any] = {"flaky": [], "death": [], "bitflip": [],
                               "nanstep": [], "preempt": [], "lag": [],
                               "slow": []}
@@ -205,7 +278,7 @@ class ChaosSchedule:
             if key in ("leave", "join"):
                 raise NotImplementedError(
                     f"chaos clause {clause!r}: membership transitions are "
-                    f"not ported yet ({ITEM6})"
+                    f"not ported yet ({_MEMBERSHIP})"
                 )
             try:
                 if key == "drop":
@@ -214,15 +287,33 @@ class ChaosSchedule:
                     kw["seed"] = int(val)
                 elif key == "delay":
                     kw["deliver_every"] = int(val)
-                elif key in ("flaky", "bitflip"):
+                elif key == "flaky":
                     span, _, p = val.partition("@")
                     s, _, e = span.partition("-")
-                    kw[key].append(FlakyWindow(
-                        int(s), int(e or 2**31 - 1), float(p) if p else 1.0))
-                elif key in ("die", "nanstep", "preempt"):
+                    kw["flaky"].append(
+                        FlakyWindow(int(s), int(e), float(p) if p else 1.0))
+                elif key == "bitflip":
+                    # a bare probability covers the run, tried first so
+                    # `bitflip=1e-3` is not read as a pass range
+                    try:
+                        p_whole = float(val)
+                    except ValueError:
+                        p_whole = None
+                    if p_whole is not None:
+                        kw["bitflip"].append(
+                            FlakyWindow(0, 2**31 - 1, p_whole))
+                    else:
+                        span, _, p = val.partition("@")
+                        s, _, e = span.partition("-")
+                        kw["bitflip"].append(FlakyWindow(
+                            int(s), int(e), float(p) if p else 1.0))
+                elif key in ("die", "nanstep"):
                     r, _, t = val.partition("@")
                     kw["death" if key == "die" else key].append(
-                        (int(r), int(t) if t else 1))
+                        (int(r), int(t)))
+                elif key == "preempt":
+                    e, _, s = val.partition("@")
+                    kw["preempt"].append((int(e), int(s) if s else 1))
                 elif key == "lag":
                     span, sep_at, f = val.partition("@")
                     if sep_at:

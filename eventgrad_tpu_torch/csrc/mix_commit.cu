@@ -12,6 +12,25 @@
 //
 // writing (p', t', buf_0'..buf_{nb-1}').
 //
+// The gated form (chaos and integrity on the fused tail) takes optional
+// per-row operands, each a null pointer when unused: w_rows (f32 [R],
+// the mix weight 1/(1 + n_alive) per rank), gate (u8 [R, nb]: 0 takes
+// the edge out of the mix, which then adds +0.0f), poison (f32 [R], NaN
+// or 1: the factor optax's poisoned tail puts on the update and the new
+// trace) and quar (u8 [R], quarantine: p' = mixed, t' = t). In optax's
+// order:
+//
+//   acc    = p;  acc += gate_i ? (mix_stale ? last_i : buf_i') : +0.0f
+//   mixed  = acc * w_r
+//   t'     = (mom * t + g) * poison_r
+//   p'     = mixed - (lr * (mom * t + g)) * poison_r
+//   quar_r:  p' = mixed, t' = t
+//
+// With every gate open, w_r = w and poison_r = 1 it is bitwise the
+// ungated form (x * 1.0f is exact). It runs as the pitched body over the
+// whole [R, n] arena, one grid row per rank, so each block reads its
+// row's operands once, before the row's elements.
+//
 // Bound on the card: bytes. With nb = 2 it reads p, g, t and per
 // neighbor cand, keep, last (9 f32 reads) and writes p', t' and two
 // buffers (4 f32 writes): 52 B/elem, about 7.26 GB for the flagship
@@ -54,6 +73,55 @@ __device__ __forceinline__ void commit_elem(float p, float g, float t,
   const float tr = __fadd_rn(__fmul_rn(s.mom, t), g);
   po = __fsub_rn(mixed, __fmul_rn(s.lr, tr));
   to = tr;
+}
+
+// the gated form's per-row operands (null = unused)
+struct Gates {
+  const float* w_rows;
+  const uint8_t* gate;
+  const float* poison;
+  const uint8_t* quar;
+};
+
+// one row's gated operands
+struct RowOps {
+  float w, pz;
+  bool q;
+  bool on[kMaxNb];
+};
+
+__device__ __forceinline__ RowOps row_ops(const Gates& gt, int nb,
+                                          const Scalars& s, int64_t r) {
+  RowOps o;
+  o.w = gt.w_rows ? gt.w_rows[r] : s.w;
+  o.pz = gt.poison ? gt.poison[r] : 1.0f;
+  o.q = gt.quar ? gt.quar[r] != 0 : false;
+#pragma unroll
+  for (int i = 0; i < kMaxNb; ++i)
+    o.on[i] = (gt.gate && i < nb) ? gt.gate[r * nb + i] != 0 : true;
+  return o;
+}
+
+// the gated element: a closed gate adds +0.0f (an accumulator of -0.0
+// becomes +0.0, as where(False, b, 0) does); the poison factor and the
+// quarantine select follow optax's tail
+template <int NB>
+__device__ __forceinline__ void commit_elem_gated(
+    float p, float g, float t, const float* c, const float* k,
+    const float* l, const Scalars& s, const RowOps& o, float& po, float& to,
+    float* bo) {
+  float acc = p;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const float nb = k[i] > 0.f ? c[i] : l[i];
+    bo[i] = nb;
+    acc = __fadd_rn(acc, o.on[i] ? (s.mix_stale ? l[i] : nb) : 0.0f);
+  }
+  const float mixed = __fmul_rn(acc, o.w);
+  const float tr = __fadd_rn(__fmul_rn(s.mom, t), g);
+  const float upd = __fmul_rn(__fmul_rn(s.lr, tr), o.pz);
+  po = o.q ? mixed : __fsub_rn(mixed, upd);
+  to = o.q ? t : __fmul_rn(tr, o.pz);
 }
 
 template <int NB>
@@ -175,6 +243,10 @@ struct CommitBody {
   float* p_out;
   float* t_out;
   Scalars s;
+  Gates gt;
+  // the gated form: set per block from gt
+  bool gated;
+  RowOps o;
 
   template <int W>
   __device__ __forceinline__ void at(int64_t a, int64_t b) const {
@@ -196,8 +268,12 @@ struct CommitBody {
         k[j] = kv[j].v[q];
         l[j] = lv[j].v[q];
       }
-      commit_elem<NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s, pov.v[q],
-                      tov.v[q], bo);
+      if (gated)
+        commit_elem_gated<NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s, o,
+                              pov.v[q], tov.v[q], bo);
+      else
+        commit_elem<NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s, pov.v[q],
+                        tov.v[q], bo);
 #pragma unroll
       for (int j = 0; j < NB; ++j) bv[j].v[q] = bo[j];
     }
@@ -211,17 +287,30 @@ struct CommitBody {
 template <int NB>
 __global__ void mix_commit_pitched_kernel(CommitBody<NB> body, eg::Pitch g,
                                           int vec) {
+  // the gated form's row operands: read once per block, before the row
+  body.gated = body.gt.w_rows || body.gt.gate || body.gt.poison ||
+               body.gt.quar;
+  if (body.gated) body.o = row_ops(body.gt, NB, body.s, blockIdx.y);
   eg::pitched_row(g, vec, body);
 }
 
 template <int NB>
 void launch_pitched(const float* p, const float* g, const float* t,
                     const Neighbors& nbp, float* p_out, float* t_out,
-                    const eg::Pitch& pg, const Scalars& s, int vec,
-                    cudaStream_t stream) {
+                    const eg::Pitch& pg, const Scalars& s, const Gates& gt,
+                    int vec, cudaStream_t stream) {
+  CommitBody<NB> body = {};
+  body.p = p;
+  body.g = g;
+  body.t = t;
+  body.nbp = nbp;
+  body.p_out = p_out;
+  body.t_out = t_out;
+  body.s = s;
+  body.gt = gt;
   mix_commit_pitched_kernel<NB>
       <<<eg::grid_pitched(pg.rows, pg.cols), eg::kThreads, 0, stream>>>(
-          CommitBody<NB>{p, g, t, nbp, p_out, t_out, s}, pg, vec);
+          body, pg, vec);
 }
 
 }  // namespace
@@ -229,13 +318,16 @@ void launch_pitched(const float* p, const float* g, const float* t,
 // As eg_mix_commit, over one bucket: p, g, t, p_out, t_out are
 // [rows, ld] arenas (columns [off, off + cols) read and written),
 // cands/keeps/lasts/bufs_out host arrays of nb [rows, cols] device
-// arrays.
+// arrays. w_rows, gate, poison, quar: the gated form's per-row operands
+// (each NULL when unused); the gated form over a whole [R, n] arena is
+// this entry at off = 0, ld = cols = n.
 extern "C" int eg_mix_commit_pitched(
     const float* p, const float* g, const float* t, const float* const* cands,
     const float* const* keeps, const float* const* lasts, float* p_out,
     float* t_out, float* const* bufs_out, int nb, int64_t rows, int64_t cols,
     int64_t ld, int64_t off, float lr, float mom, float w, int mix_stale,
-    int vec, void* stream) {
+    const float* w_rows, const uint8_t* gate, const float* poison,
+    const uint8_t* quar, int vec, void* stream) {
   const eg::Pitch pg = {rows, cols, ld, off};
   if (nb < 1 || nb > kMaxNb || !eg::pitch_ok(pg))
     return (int)cudaErrorInvalidValue;
@@ -248,12 +340,13 @@ extern "C" int eg_mix_commit_pitched(
     nbp.out[i] = bufs_out[i];
   }
   const Scalars s = {lr, mom, w, mix_stale};
+  const Gates gt = {w_rows, gate, poison, quar};
   cudaStream_t st = (cudaStream_t)stream;
   switch (nb) {
-    case 1: launch_pitched<1>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
-    case 2: launch_pitched<2>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
-    case 3: launch_pitched<3>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
-    default: launch_pitched<4>(p, g, t, nbp, p_out, t_out, pg, s, vec, st); break;
+    case 1: launch_pitched<1>(p, g, t, nbp, p_out, t_out, pg, s, gt, vec, st); break;
+    case 2: launch_pitched<2>(p, g, t, nbp, p_out, t_out, pg, s, gt, vec, st); break;
+    case 3: launch_pitched<3>(p, g, t, nbp, p_out, t_out, pg, s, gt, vec, st); break;
+    default: launch_pitched<4>(p, g, t, nbp, p_out, t_out, pg, s, gt, vec, st); break;
   }
   return (int)cudaGetLastError();
 }

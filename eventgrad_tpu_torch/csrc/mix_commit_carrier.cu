@@ -31,6 +31,15 @@
 // neighbor pointers in a by-value struct, one instantiation per carrier
 // type and neighbor count. The per-position f32 keeps and scales are 16
 // of the 42 bytes (a per-leaf lookup is later work).
+//
+// The gated form (chaos on the carrier tail) takes two optional per-row
+// operands, null when unused: w_rows (f32 [R], the mix weight 1/(1 +
+// n_alive) per rank) and gate (u8 [R, nb]: 0 takes the edge out of the
+// mix, which then adds +0.0f): acc += gate_i ? v_i : +0.0f, mixed = acc
+// * w_r. It runs as the pitched body over the whole [R, n] arena, one
+// grid row per rank, each block reading its row's operands once. The
+// integrity riders and the nanstep poison never reach a carrier (the
+// step refuses them, as the JAX step does).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -79,6 +88,49 @@ __device__ __forceinline__ void carrier_elem(float p, float g, float t,
     acc = __fadd_rn(acc, v);
   }
   const float mixed = __fmul_rn(acc, sc.w);
+  const float tr = __fadd_rn(__fmul_rn(sc.mom, t), g);
+  po = __fsub_rn(mixed, __fmul_rn(sc.lr, tr));
+  to = tr;
+}
+
+// the gated form's per-row operands (null = unused)
+struct Gates {
+  const float* w_rows;
+  const uint8_t* gate;
+};
+
+// one row's gated operands
+struct RowOps {
+  float w;
+  bool on[kMaxNb];
+};
+
+__device__ __forceinline__ RowOps row_ops(const Gates& gt, int nb,
+                                          const Scalars& sc, int64_t r) {
+  RowOps o;
+  o.w = gt.w_rows ? gt.w_rows[r] : sc.w;
+#pragma unroll
+  for (int i = 0; i < kMaxNb; ++i)
+    o.on[i] = (gt.gate && i < nb) ? gt.gate[r * nb + i] != 0 : true;
+  return o;
+}
+
+// the gated element: a closed gate adds +0.0f, the row's weight mixes
+template <typename C, bool S, int NB>
+__device__ __forceinline__ void carrier_elem_gated(
+    float p, float g, float t, const C* c, const float* k, const C* l,
+    const float* s, const Scalars& sc, const RowOps& o, float& po, float& to,
+    C* bo) {
+  float acc = p;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const C nq = k[i] > 0.f ? c[i] : l[i];
+    bo[i] = nq;
+    float v = to_f32(sc.mix_stale ? l[i] : nq);
+    if constexpr (S) v = __fmul_rn(v, s[i]);
+    acc = __fadd_rn(acc, o.on[i] ? v : 0.0f);
+  }
+  const float mixed = __fmul_rn(acc, o.w);
   const float tr = __fadd_rn(__fmul_rn(sc.mom, t), g);
   po = __fsub_rn(mixed, __fmul_rn(sc.lr, tr));
   to = tr;
@@ -229,6 +281,10 @@ struct CarrierBody {
   float* p_out;
   float* t_out;
   Scalars sc;
+  Gates gt;
+  // the gated form: set per block from gt
+  bool gated;
+  RowOps o;
 
   template <int W>
   __device__ __forceinline__ void at(int64_t a, int64_t b) const {
@@ -254,8 +310,12 @@ struct CarrierBody {
         l[j] = lv[j].v[q];
         if constexpr (S) s[j] = sv[j].v[q];
       }
-      carrier_elem<C, S, NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s, sc,
-                             pov.v[q], tov.v[q], bo);
+      if (gated)
+        carrier_elem_gated<C, S, NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s,
+                                     sc, o, pov.v[q], tov.v[q], bo);
+      else
+        carrier_elem<C, S, NB>(pv.v[q], gv.v[q], tv.v[q], c, k, l, s, sc,
+                               pov.v[q], tov.v[q], bo);
 #pragma unroll
       for (int j = 0; j < NB; ++j) bv[j].v[q] = bo[j];
     }
@@ -270,31 +330,55 @@ struct CarrierBody {
 template <typename C, bool S, int NB>
 __global__ void mix_commit_carrier_pitched_kernel(CarrierBody<C, S, NB> body,
                                                   eg::Pitch g, int vec) {
+  // the gated form's row operands: read once per block, before the row
+  body.gated = body.gt.w_rows || body.gt.gate;
+  if (body.gated) body.o = row_ops(body.gt, NB, body.sc, blockIdx.y);
   eg::pitched_row(g, vec, body);
+}
+
+template <typename C, bool S, int NB>
+CarrierBody<C, S, NB> carrier_body(const float* p, const float* g,
+                                   const float* t, const Neighbors& nbp,
+                                   float* p_out, float* t_out,
+                                   const Scalars& sc, const Gates& gt) {
+  CarrierBody<C, S, NB> b = {};
+  b.p = p;
+  b.g = g;
+  b.t = t;
+  b.nbp = nbp;
+  b.p_out = p_out;
+  b.t_out = t_out;
+  b.sc = sc;
+  b.gt = gt;
+  return b;
 }
 
 template <typename C, bool S>
 void launch_pitched(int nb, const float* p, const float* g, const float* t,
                     const Neighbors& nbp, float* p_out, float* t_out,
-                    const eg::Pitch& pg, const Scalars& sc, int vec,
-                    cudaStream_t st) {
+                    const eg::Pitch& pg, const Scalars& sc, const Gates& gt,
+                    int vec, cudaStream_t st) {
   const dim3 grid = eg::grid_pitched(pg.rows, pg.cols);
   switch (nb) {
     case 1:
       mix_commit_carrier_pitched_kernel<C, S, 1><<<grid, eg::kThreads, 0, st>>>(
-          CarrierBody<C, S, 1>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+          carrier_body<C, S, 1>(p, g, t, nbp, p_out, t_out, sc, gt), pg,
+          vec);
       break;
     case 2:
       mix_commit_carrier_pitched_kernel<C, S, 2><<<grid, eg::kThreads, 0, st>>>(
-          CarrierBody<C, S, 2>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+          carrier_body<C, S, 2>(p, g, t, nbp, p_out, t_out, sc, gt), pg,
+          vec);
       break;
     case 3:
       mix_commit_carrier_pitched_kernel<C, S, 3><<<grid, eg::kThreads, 0, st>>>(
-          CarrierBody<C, S, 3>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+          carrier_body<C, S, 3>(p, g, t, nbp, p_out, t_out, sc, gt), pg,
+          vec);
       break;
     default:
       mix_commit_carrier_pitched_kernel<C, S, 4><<<grid, eg::kThreads, 0, st>>>(
-          CarrierBody<C, S, 4>{p, g, t, nbp, p_out, t_out, sc}, pg, vec);
+          carrier_body<C, S, 4>(p, g, t, nbp, p_out, t_out, sc, gt), pg,
+          vec);
       break;
   }
 }
@@ -303,14 +387,16 @@ void launch_pitched(int nb, const float* p, const float* g, const float* t,
 
 // As eg_mix_commit_carrier, over one bucket: p, g, t, p_out, t_out are
 // [rows, ld] arenas (columns [off, off + cols) read and written), the
-// per-neighbor arrays [rows, cols].
+// per-neighbor arrays [rows, cols]. w_rows, gate: the gated form's
+// per-row operands (each NULL when unused); the gated form over a whole
+// [R, n] arena is this entry at off = 0, ld = cols = n.
 extern "C" int eg_mix_commit_carrier_pitched(
     const float* p, const float* g, const float* t, const void* const* cands,
     const float* const* keeps, const void* const* lasts,
     const float* const* scales, float* p_out, float* t_out,
     void* const* bufs_out, int nb, int64_t rows, int64_t cols, int64_t ld,
     int64_t off, float lr, float mom, float w, int mix_stale, int carrier,
-    int vec, void* stream) {
+    const float* w_rows, const uint8_t* gate, int vec, void* stream) {
   const eg::Pitch pg = {rows, cols, ld, off};
   if (nb < 1 || nb > kMaxNb || !eg::pitch_ok(pg))
     return (int)cudaErrorInvalidValue;
@@ -326,12 +412,13 @@ extern "C" int eg_mix_commit_carrier_pitched(
     nbp.out[i] = bufs_out[i];
   }
   const Scalars sc = {lr, mom, w, mix_stale};
+  const Gates gt = {w_rows, gate};
   cudaStream_t st = (cudaStream_t)stream;
   if (carrier == 0)
-    launch_pitched<int8_t, true>(nb, p, g, t, nbp, p_out, t_out, pg, sc, vec,
-                                 st);
+    launch_pitched<int8_t, true>(nb, p, g, t, nbp, p_out, t_out, pg, sc, gt,
+                                 vec, st);
   else
     launch_pitched<__nv_bfloat16, false>(nb, p, g, t, nbp, p_out, t_out, pg,
-                                         sc, vec, st);
+                                         sc, gt, vec, st);
   return (int)cudaGetLastError();
 }

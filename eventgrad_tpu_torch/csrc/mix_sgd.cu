@@ -14,6 +14,13 @@
 // grid-stride float4 stream over all ranks. The neighbor sum is formed
 // outside, as in the JAX step (folding it in, reading the neighbor
 // buffers directly, is later work).
+//
+// The gated form (D-PSGD under drops, death and freeze) takes one
+// per-row operand, w_rows (f32 [R]: the mix weight 1/(1 + n_alive) of
+// each rank, whose gated edges the caller already left out of buf_sum):
+// mixed = (p + buf_sum) * w_r. It runs over the [R, n] arena one grid
+// row per rank (the pitched layout at offset 0), each block reading its
+// row's weight once; with w_r = w it is bitwise the ungated form.
 #include "common.cuh"
 
 namespace {
@@ -60,13 +67,56 @@ __global__ void mix_sgd_kernel(const float* __restrict__ p,
     sgd_elem(p[i], b[i], g[i], t[i], lr, mom, w, p_out[i], t_out[i]);
 }
 
+// the gated form's body: row r's elements at a = b = r * cols + j
+struct SgdBody {
+  const float* p;
+  const float* b;
+  const float* g;
+  const float* t;
+  float* p_out;
+  float* t_out;
+  float lr, mom, w;
+
+  template <int W>
+  __device__ __forceinline__ void at(int64_t a, int64_t) const {
+    const eg::Vec<float, W> pv = eg::ldv<W>(p + a), bv = eg::ldv<W>(b + a),
+                            gv = eg::ldv<W>(g + a), tv = eg::ldv<W>(t + a);
+    eg::Vec<float, W> pov, tov;
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      sgd_elem(pv.v[q], bv.v[q], gv.v[q], tv.v[q], lr, mom, w, pov.v[q],
+               tov.v[q]);
+    eg::stv<W>(p_out + a, pov);
+    eg::stv<W>(t_out + a, tov);
+  }
+};
+
+__global__ void mix_sgd_rows_kernel(SgdBody body, const float* w_rows,
+                                    eg::Pitch pg, int vec) {
+  body.w = w_rows[blockIdx.y];  // once per block, before the row
+  eg::pitched_row(pg, vec, body);
+}
+
 }  // namespace
 
+// n elements in all; with w_rows (the gated form) they are rows rows of
+// n / rows, row r mixed with weight w_rows[r] (w unused), else one flat
+// stream mixed with w.
 extern "C" int eg_mix_sgd(const float* p, const float* b, const float* g,
                           const float* t, float* p_out, float* t_out,
-                          int64_t n, float lr, float mom, float w, int vec,
+                          int64_t n, float lr, float mom, float w,
+                          int64_t rows, const float* w_rows, int vec,
                           void* stream) {
   if (n <= 0) return 0;
+  if (w_rows) {
+    if (rows < 1 || n % rows) return (int)cudaErrorInvalidValue;
+    const eg::Pitch pg = {rows, n / rows, n / rows, 0};
+    if (!eg::pitch_ok(pg)) return (int)cudaErrorInvalidValue;
+    mix_sgd_rows_kernel<<<eg::grid_pitched(pg.rows, pg.cols), eg::kThreads,
+                          0, (cudaStream_t)stream>>>(
+        SgdBody{p, b, g, t, p_out, t_out, lr, mom, w}, w_rows, pg, vec);
+    return (int)cudaGetLastError();
+  }
   const int64_t work = vec ? n / 4 + 1 : n;
   mix_sgd_kernel<<<eg::grid_for(work), eg::kThreads, 0,
                    (cudaStream_t)stream>>>(p, b, g, t, p_out, t_out, n, lr,

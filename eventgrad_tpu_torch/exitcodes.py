@@ -1,0 +1,35 @@
+"""Process exit codes of the port's training runs.
+
+Port of `eventgrad_tpu/exitcodes.py`, the exit-code contract between a
+training child and a supervisor that relaunches it: one import-bare
+module, because the codes cross processes.
+
+  * 0                        — the run completed.
+  * ``PREEMPTED_EXIT``       — graceful preemption: the child drained,
+    snapshotted and exited on purpose; relaunch at once (75, sysexits.h
+    EX_TEMPFAIL). The port's preemption clause waits (ROADMAP queue 1,
+    item 6, part 6b); the code is kept so the contract stays whole.
+  * ``INTEGRITY_ABORT_EXIT`` — the divergence sentinel tripped beyond
+    the rollback budget (`chaos/integrity.py`): a relaunch would restore
+    the same last-known-good state and replay the same divergence, so
+    it is permanent.
+  * ``CRASHPOINT_EXIT``      — an armed crash drill fired (part 6b).
+  * anything else nonzero    — a crash.
+"""
+
+#: graceful preemption: relaunch immediately, charge nothing
+PREEMPTED_EXIT = 75
+
+#: integrity engine gave up (divergence sentinel beyond max_rollbacks):
+#: permanent — restarting would replay the same divergence
+INTEGRITY_ABORT_EXIT = 77
+
+#: an armed crash drill killed the process on purpose
+CRASHPOINT_EXIT = 83
+
+#: name table for logs
+EXIT_CODE_NAMES = {
+    PREEMPTED_EXIT: "PREEMPTED",
+    INTEGRITY_ABORT_EXIT: "INTEGRITY_ABORT",
+    CRASHPOINT_EXIT: "CRASHPOINT",
+}

@@ -2,7 +2,8 @@
 version. A wrapper takes the plain version for a CPU tensor and, for a
 CUDA tensor, launches its kernel (built from `csrc/` on first use) or
 raises. `launch_counts()` / `reset_launch_counts()` read and clear the
-per-wrapper counters of kernel launches."""
+per-wrapper counters of kernel launches (a gated launch counts in its
+kernel, and again under `<kernel>_gated`)."""
 
 from __future__ import annotations
 
@@ -31,10 +32,23 @@ def _wrappers():
     }
 
 
+#: the kernels with a gated form (chaos and integrity on the fused tail),
+#: whose gated launches count again under "<name>_gated"
+GATED = ("fused_mix_commit", "fused_mix_sgd", "fused_mix_commit_carrier")
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """{kernel: launches}, and {"<kernel>_gated": its gated launches}
+    for the kernels of `GATED`."""
+    wr = _wrappers()
+    out = {name: fn.launches for name, fn in wr.items()}
+    out.update({f"{name}_gated": wr[name].gated_launches for name in GATED})
+    return out
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
+    wr = _wrappers()
+    for fn in wr.values():
         fn.launches = 0
+    for name in GATED:
+        wr[name].gated_launches = 0

@@ -21,6 +21,25 @@ runs on the carrier, the committed buffers come back in the carrier
 dtype, and the mix reads `f32(val) * mix_scale` (int8) or `f32(val)`
 (bf16).
 
+Both take the gated form's optional per-row operands (chaos and
+integrity on the fused tail; kernel 5 the first two only): `w_rows` (f32
+`[R]`, the mix weight 1/(1 + n_alive) of each rank, replacing
+`mix_weight`), `gate` (bool `[R, n_nb]`: a closed gate takes the edge
+out of the mix, which then adds +0.0), `poison` (f32 `[R]`, NaN or 1:
+the factor on the update and the new trace of a poisoned rank) and
+`quar` (bool `[R]`, quarantine: p' = mixed, t' = t). In optax's order:
+
+    mixed = (p + sum(where(gate_i, buf_mix_i, 0))) * w_rows
+    trace = (momentum * trace + grad) * poison
+    p_new = mixed - (lr * (momentum * trace + grad)) * poison
+    quar:   p_new = mixed, trace = trace_old
+
+With every gate open, `w_rows` = float32(mix_weight) and poison 1 the
+gated form is bitwise the ungated one. On a CUDA tensor it launches the
+kernel's pitched body over the whole `[R, n]` arena, one grid row per
+rank (the `_pitched` entry at offset 0), and counts in the kernel's
+launches and in its `gated_launches`.
+
 Both take `off=` and `out=` for one bucket of the bucketed schedule:
 the pitched forms (`eg::fused_mix_commit_bucket`,
 `eg::fused_mix_commit_carrier_bucket`, the same kernels' `_pitched`
@@ -62,6 +81,10 @@ def mix_commit_reference(
     momentum: float,
     mix_weight: float,
     mix_stale: bool = False,
+    w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+    poison: Optional[torch.Tensor] = None,
+    quar: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
     """Plain PyTorch version of `fused_mix_commit`."""
     bufs = tuple(
@@ -70,10 +93,68 @@ def mix_commit_reference(
     )
     acc = p
     for i in range(len(bufs)):
-        acc = acc + (lasts[i] if mix_stale else bufs[i])
-    mixed = acc * _f32(mix_weight)
+        acc = acc + _gated(lasts[i] if mix_stale else bufs[i], gate, i)
+    mixed = acc * _weight(mix_weight, w_rows)
     trace = _f32(momentum) * t + g
-    return mixed - _f32(lr) * trace, trace, bufs
+    return _sgd_tail(mixed, trace, t, lr, poison, quar) + (bufs,)
+
+
+def _gated(v: torch.Tensor, gate: Optional[torch.Tensor], i: int):
+    """Neighbour i's mix term: `v`, or `where(gate_i, v, +0.0)`."""
+    if gate is None:
+        return v
+    return torch.where(gate[:, i:i + 1], v, torch.zeros((), dtype=v.dtype,
+                                                        device=v.device))
+
+
+def _weight(mix_weight: float, w_rows: Optional[torch.Tensor]):
+    return _f32(mix_weight) if w_rows is None else w_rows[:, None]
+
+
+def _sgd_tail(mixed, trace, t, lr, poison, quar):
+    """(p', t') of optax's tail on the mixed parameters: the update
+    `lr * trace` and the new trace times the poison factor, and the
+    quarantined rows' p' = mixed, t' = t."""
+    upd = _f32(lr) * trace
+    if poison is not None:
+        upd = upd * poison[:, None]
+        trace = trace * poison[:, None]
+    p_new = mixed - upd
+    if quar is not None:
+        p_new = torch.where(quar[:, None], mixed, p_new)
+        trace = torch.where(quar[:, None], t, trace)
+    return p_new, trace
+
+
+def _check_gates(op, p, nb, w_rows=None, gate=None, poison=None, quar=None):
+    """Validate the gated form's per-row operands against the `[R, n]`
+    arena `p`; returns True when any is given."""
+    given = {k: v for k, v in (("w_rows", w_rows), ("gate", gate),
+                                ("poison", poison), ("quar", quar))
+             if v is not None}
+    if not given:
+        return False
+    if p.dim() != 2:
+        raise ValueError(f"{op}: the gated form takes [R, n] arenas, got "
+                         f"{tuple(p.shape)}")
+    rows = p.shape[0]
+    want = {"w_rows": ((rows,), torch.float32),
+            "gate": ((rows, nb), torch.bool),
+            "poison": ((rows,), torch.float32),
+            "quar": ((rows,), torch.bool)}
+    for name, x in given.items():
+        shape, dt = want[name]
+        if tuple(x.shape) != shape or x.dtype != dt:
+            raise ValueError(f"{op}: {name} must be {dt} {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != p.device or not x.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous on "
+                             f"{p.device}")
+    return True
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
 
 
 def _ptrs(ts: Tensors):
@@ -111,39 +192,67 @@ def _fused_mix_commit_op(
     p: torch.Tensor, cands: List[torch.Tensor], keeps: List[torch.Tensor],
     lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
     momentum: float, mix_weight: float, mix_stale: bool,
+    w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+    poison: Optional[torch.Tensor] = None,
+    quar: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     _check_commit("fused_mix_commit", p, cands, keeps, lasts, g, t)
+    _check_gates("fused_mix_commit", p, len(cands), w_rows, gate, poison,
+                 quar)
     p_new, t_new, bufs = mix_commit_reference(
-        p, cands, keeps, lasts, g, t, lr, momentum, mix_weight, mix_stale)
+        p, cands, keeps, lasts, g, t, lr, momentum, mix_weight, mix_stale,
+        w_rows, gate, poison, quar)
     return p_new, t_new, list(bufs)
 
 
 @_fused_mix_commit_op.register_kernel("cuda")
 def _fused_mix_commit_cuda(p, cands, keeps, lasts, g, t, lr, momentum,
-                           mix_weight, mix_stale):
+                           mix_weight, mix_stale, w_rows=None, gate=None,
+                           poison=None, quar=None):
     device, n, named = _check_commit("fused_mix_commit", p, cands, keeps,
                                      lasts, g, t)
+    gated = _check_gates("fused_mix_commit", p, len(cands), w_rows, gate,
+                         poison, quar)
     nb = len(cands)
     p_out, t_out = torch.empty_like(p), torch.empty_like(p)
     bufs = [torch.empty_like(p) for _ in range(nb)]
     lib = build.library()
     with torch.cuda.device(device):
-        build.launch(
-            "fused_mix_commit", lib.eg_mix_commit,
-            p.data_ptr(), g.data_ptr(), t.data_ptr(),
-            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
-            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
-            _f32(lr), _f32(momentum), _f32(mix_weight), int(bool(mix_stale)),
-            build.aligned(*named.values(), p_out, t_out, *bufs),
-            build.stream_of(device),
-        )
+        if gated:
+            # the pitched body over the whole arena: one grid row per rank
+            rows, cols = p.shape
+            build.launch(
+                "fused_mix_commit", lib.eg_mix_commit_pitched,
+                p.data_ptr(), g.data_ptr(), t.data_ptr(),
+                _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
+                p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows,
+                cols, cols, 0, _f32(lr), _f32(momentum), _f32(mix_weight),
+                int(bool(mix_stale)), _ptr(w_rows), _ptr(gate), _ptr(poison),
+                _ptr(quar), build.aligned(*named.values(), p_out, t_out,
+                                          *bufs),
+                build.stream_of(device),
+            )
+        else:
+            build.launch(
+                "fused_mix_commit", lib.eg_mix_commit,
+                p.data_ptr(), g.data_ptr(), t.data_ptr(),
+                _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
+                p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
+                _f32(lr), _f32(momentum), _f32(mix_weight),
+                int(bool(mix_stale)),
+                build.aligned(*named.values(), p_out, t_out, *bufs),
+                build.stream_of(device),
+            )
     fused_mix_commit.launches += 1
+    fused_mix_commit.gated_launches += int(gated)
     return p_out, t_out, bufs
 
 
 @_fused_mix_commit_op.register_fake
 def _fused_mix_commit_fake(p, cands, keeps, lasts, g, t, lr, momentum,
-                           mix_weight, mix_stale):
+                           mix_weight, mix_stale, w_rows=None, gate=None,
+                           poison=None, quar=None):
     return (torch.empty_like(p), torch.empty_like(p),
             [torch.empty_like(p) for _ in cands])
 
@@ -209,8 +318,8 @@ def _fused_mix_commit_bucket_cuda(p, cands, keeps, lasts, g, t, lr, momentum,
             _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
             p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows, cols,
             ld, int(off), _f32(lr), _f32(momentum), _f32(mix_weight),
-            int(bool(mix_stale)), build.aligned(*named.values(), *bufs),
-            build.stream_of(device),
+            int(bool(mix_stale)), None, None, None, None,
+            build.aligned(*named.values(), *bufs), build.stream_of(device),
         )
     fused_mix_commit.launches += 1
     return bufs
@@ -235,6 +344,10 @@ def fused_mix_commit(
     mix_stale: bool = False,
     off: Optional[int] = None,
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+    poison: Optional[torch.Tensor] = None,
+    quar: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
     """Fused commit+mix+SGD over flat f32 arenas of one shape (`[R, n]`
     for all ranks in one launch). `cands`/`keeps`/`lasts` hold one entry
@@ -248,8 +361,18 @@ def fused_mix_commit(
     `[R, n]` arenas, read in place at the columns `[off, off + c)`, the
     per-neighbor tensors the bucket's `[R, c]` arrays, and p', t' are
     written into the same columns of `out = (p_out, t_out)`, `[R, n]`
-    arenas, which come back in place of p_new, trace_new."""
+    arenas, which come back in place of p_new, trace_new.
+
+    `w_rows`, `gate`, `poison`, `quar` select the gated form (module
+    docstring); the bucketed schedule under the fault clauses waits
+    (ROADMAP queue 1, item 12), so the pitched form takes none."""
+    gates = (w_rows, gate, poison, quar)
     if off is not None:
+        if any(x is not None for x in gates):
+            raise NotImplementedError(
+                "the gated form of a bucket's tail: the bucketed schedule "
+                "under the fault clauses is not ported yet (ROADMAP queue "
+                "1, item 12)")
         p_out, t_out = out
         bufs = _fused_mix_commit_bucket_op(
             p, list(cands), list(keeps), list(lasts), g, t, float(lr),
@@ -258,11 +381,12 @@ def fused_mix_commit(
         return p_out, t_out, tuple(bufs)
     p_new, t_new, bufs = _fused_mix_commit_op(
         p, list(cands), list(keeps), list(lasts), g, t, float(lr),
-        float(momentum), float(mix_weight), bool(mix_stale))
+        float(momentum), float(mix_weight), bool(mix_stale), *gates)
     return p_new, t_new, tuple(bufs)
 
 
 fused_mix_commit.launches = 0
+fused_mix_commit.gated_launches = 0
 
 
 #: carrier dtype -> the kernel's carrier code
@@ -281,6 +405,8 @@ def mix_commit_carrier_reference(
     mix_weight: float,
     mix_scales: Optional[Tensors] = None,
     mix_stale: bool = False,
+    w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
     """Plain PyTorch version of `fused_mix_commit_carrier`."""
     bufs = tuple(
@@ -292,8 +418,8 @@ def mix_commit_carrier_reference(
         val = (lasts[i] if mix_stale else bufs[i]).to(torch.float32)
         if mix_scales is not None:
             val = val * mix_scales[i]
-        acc = acc + val
-    mixed = acc * _f32(mix_weight)
+        acc = acc + _gated(val, gate, i)
+    mixed = acc * _weight(mix_weight, w_rows)
     trace = _f32(momentum) * t + g
     return mixed - _f32(lr) * trace, trace, bufs
 
@@ -328,12 +454,15 @@ def _fused_mix_commit_carrier_op(
     p: torch.Tensor, cands: List[torch.Tensor], keeps: List[torch.Tensor],
     lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
     momentum: float, mix_weight: float, mix_scales: List[torch.Tensor],
-    mix_stale: bool,
+    mix_stale: bool, w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     _check_carrier(p, cands, keeps, lasts, g, t, mix_scales)
+    _check_gates("fused_mix_commit_carrier", p, len(cands), w_rows, gate)
     p_new, t_new, bufs = mix_commit_carrier_reference(
         p, cands, keeps, lasts, g, t, lr, momentum, mix_weight,
-        mix_scales=mix_scales or None, mix_stale=mix_stale,
+        mix_scales=mix_scales or None, mix_stale=mix_stale, w_rows=w_rows,
+        gate=gate,
     )
     return p_new, t_new, list(bufs)
 
@@ -341,33 +470,52 @@ def _fused_mix_commit_carrier_op(
 @_fused_mix_commit_carrier_op.register_kernel("cuda")
 def _fused_mix_commit_carrier_cuda(p, cands, keeps, lasts, g, t, lr,
                                    momentum, mix_weight, mix_scales,
-                                   mix_stale):
+                                   mix_stale, w_rows=None, gate=None):
     device, n, named = _check_carrier(p, cands, keeps, lasts, g, t,
                                       mix_scales)
+    gated = _check_gates("fused_mix_commit_carrier", p, len(cands), w_rows,
+                         gate)
     nb = len(cands)
     p_out, t_out = torch.empty_like(p), torch.empty_like(p)
     bufs = [torch.empty_like(lasts[0]) for _ in range(nb)]
     lib = build.library()
+    scales = _ptrs(mix_scales) if mix_scales else None
     with torch.cuda.device(device):
-        build.launch(
-            "fused_mix_commit_carrier", lib.eg_mix_commit_carrier,
-            p.data_ptr(), g.data_ptr(), t.data_ptr(),
-            _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
-            _ptrs(mix_scales) if mix_scales else None,
-            p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
-            _f32(lr), _f32(momentum), _f32(mix_weight), int(bool(mix_stale)),
-            _CARRIERS[lasts[0].dtype],
-            build.aligned(*named.values(), p_out, t_out, *bufs),
-            build.stream_of(device),
-        )
+        if gated:
+            # the pitched body over the whole arena: one grid row per rank
+            rows, cols = p.shape
+            build.launch(
+                "fused_mix_commit_carrier",
+                lib.eg_mix_commit_carrier_pitched,
+                p.data_ptr(), g.data_ptr(), t.data_ptr(),
+                _ptrs(cands), _ptrs(keeps), _ptrs(lasts), scales,
+                p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows,
+                cols, cols, 0, _f32(lr), _f32(momentum), _f32(mix_weight),
+                int(bool(mix_stale)), _CARRIERS[lasts[0].dtype],
+                _ptr(w_rows), _ptr(gate),
+                build.aligned(*named.values(), p_out, t_out, *bufs),
+                build.stream_of(device),
+            )
+        else:
+            build.launch(
+                "fused_mix_commit_carrier", lib.eg_mix_commit_carrier,
+                p.data_ptr(), g.data_ptr(), t.data_ptr(),
+                _ptrs(cands), _ptrs(keeps), _ptrs(lasts), scales,
+                p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, n,
+                _f32(lr), _f32(momentum), _f32(mix_weight),
+                int(bool(mix_stale)), _CARRIERS[lasts[0].dtype],
+                build.aligned(*named.values(), p_out, t_out, *bufs),
+                build.stream_of(device),
+            )
     fused_mix_commit_carrier.launches += 1
+    fused_mix_commit_carrier.gated_launches += int(gated)
     return p_out, t_out, bufs
 
 
 @_fused_mix_commit_carrier_op.register_fake
 def _fused_mix_commit_carrier_fake(p, cands, keeps, lasts, g, t, lr,
                                    momentum, mix_weight, mix_scales,
-                                   mix_stale):
+                                   mix_stale, w_rows=None, gate=None):
     return (torch.empty_like(p), torch.empty_like(p),
             [torch.empty_like(x) for x in lasts])
 
@@ -418,7 +566,7 @@ def _fused_mix_commit_carrier_bucket_cuda(p, cands, keeps, lasts, g, t, lr,
             _ptrs(mix_scales) if mix_scales else None,
             p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows, cols,
             ld, int(off), _f32(lr), _f32(momentum), _f32(mix_weight),
-            int(bool(mix_stale)), _CARRIERS[lasts[0].dtype],
+            int(bool(mix_stale)), _CARRIERS[lasts[0].dtype], None, None,
             build.aligned(*named.values(), *bufs),
             build.stream_of(device),
         )
@@ -447,6 +595,8 @@ def fused_mix_commit_carrier(
     mix_stale: bool = False,
     off: Optional[int] = None,
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tensors]:
     """Fused commit+mix+SGD whose buffer reads stay in the carrier.
     `cands`/`lasts` are per-neighbor carriers of one dtype — int8, with
@@ -459,8 +609,14 @@ def fused_mix_commit_carrier(
     `mix_commit_carrier_reference`, on CUDA tensors a launch of
     `csrc/mix_commit_carrier.cu` (or an error). With `off` and `out`, the
     pitched form over one bucket (`eg::fused_mix_commit_carrier_bucket`,
-    as `fused_mix_commit`)."""
+    as `fused_mix_commit`). `w_rows` and `gate` select the gated form
+    (module docstring; not on a bucket, ROADMAP queue 1, item 12)."""
     if off is not None:
+        if w_rows is not None or gate is not None:
+            raise NotImplementedError(
+                "the gated form of a bucket's tail: the bucketed schedule "
+                "under the fault clauses is not ported yet (ROADMAP queue "
+                "1, item 12)")
         p_out, t_out = out
         bufs = _fused_mix_commit_carrier_bucket_op(
             p, list(cands), list(keeps), list(lasts), g, t, float(lr),
@@ -471,8 +627,10 @@ def fused_mix_commit_carrier(
     p_new, t_new, bufs = _fused_mix_commit_carrier_op(
         p, list(cands), list(keeps), list(lasts), g, t, float(lr),
         float(momentum), float(mix_weight),
-        [] if mix_scales is None else list(mix_scales), bool(mix_stale))
+        [] if mix_scales is None else list(mix_scales), bool(mix_stale),
+        w_rows, gate)
     return p_new, t_new, tuple(bufs)
 
 
 fused_mix_commit_carrier.launches = 0
+fused_mix_commit_carrier.gated_launches = 0

@@ -131,8 +131,10 @@ _SIGNATURES = {
     # lr, mom, w, mix_stale, vec, stream
     "eg_mix_commit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64,
                       _F, _F, _F, _I, _I, _P],
-    # p, buf_sum, g, t, p_out, t_out, n, lr, mom, w, vec, stream
-    "eg_mix_sgd": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _I, _P],
+    # p, buf_sum, g, t, p_out, t_out, n, lr, mom, w, rows, w_rows|NULL,
+    # vec, stream
+    "eg_mix_sgd": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _I64, _P, _I,
+                   _P],
     # p, g, t, cands*, keeps*, lasts*, scales*|NULL, p_out, t_out,
     # bufs_out*, nb, n, lr, mom, w, mix_stale, carrier, vec, stream
     "eg_mix_commit_carrier": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -148,15 +150,18 @@ _SIGNATURES = {
     "eg_flash_dkv": [_P] * 10 + [_I] * 8 + [_P],
     # the pitched (bucket) forms: the contiguous form's pointers, then
     # rows, cols, ld (the arena row pitch), off (the bucket's first
-    # column) in place of n
+    # column) in place of n; the commit forms then take the gated form's
+    # per-row operands (w_rows, gate, poison, quar; carrier: w_rows,
+    # gate), each NULL when unused
     "eg_masked_wire_pitched": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "eg_mask_quant_pitched": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
                               _P],
     "eg_mix_commit_pitched": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64,
-                              _I64, _I64, _I64, _F, _F, _F, _I, _I, _P],
+                              _I64, _I64, _I64, _F, _F, _F, _I, _P, _P, _P,
+                              _P, _I, _P],
     "eg_mix_commit_carrier_pitched": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _I, _I64, _I64, _I64, _I64, _F,
-                                      _F, _F, _I, _I, _I, _P],
+                                      _F, _F, _I, _I, _P, _P, _I, _P],
     # x, o, n, stream: the auditor's seeded unregistered kernel
     # (analysis/audit.py, eg::leak_kernel)
     "eg_leak_x2": [_P, _P, _I64, _P],

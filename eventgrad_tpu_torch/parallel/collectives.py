@@ -13,8 +13,11 @@ schedule's family: `bucketed_capacity_floor`, `split_capacity`,
 `bucketed_wire_real_bytes_per_neighbor`, `masked_neighbor_vals_bucket`,
 `compact_neighbor_vals_bucket`, and `mix_carrier_flat_into_tree` (the
 carrier mix the step's fused tail computes inside kernel 5; here the
-plain per-leaf twin). The integrity riders and chaos delivery are not
-ported yet and raise `NotImplementedError`; the tree-path
+plain per-leaf twin). The masked and compact arena exchanges take the
+chaos delivery bits and the integrity riders (`wire_checksum`,
+`_verify_wire`, the in-transit corruption); `mix_weighted` is the gated
+mix over a data-dependent subset of edges, whose per-row weights the
+gated forms of kernels 1, 4 and 5 take (`mix_weights`). The tree-path
 `compact_neighbor_vals` and `mix_flat_into_tree` are absent, since the
 port runs the arena and the fused tail kernels only.
 
@@ -139,6 +142,58 @@ def _int8_encode_flat(masked_flat: torch.Tensor, scale_vec: torch.Tensor,
         torch.int8)
 
 
+# ---------------------------------------------------------------------------
+# wire integrity: per-neighbour payload checksums (chaos/integrity.py)
+
+
+def wire_checksum(buf: torch.Tensor) -> torch.Tensor:
+    """int32 `[R]` checksum of each row's exact wire bits: the storage
+    words (f32 and bf16 as int32 and int16, int8 as is), sign-extended
+    to int32 and summed with int32 wraparound (summed in int64, then
+    cast back), so any single flipped bit changes it and any reduction
+    order gives the JAX package's value."""
+    if buf.is_floating_point():
+        int_dt = {32: torch.int32, 16: torch.int16}[torch.finfo(buf.dtype).bits]
+        buf = buf.contiguous().view(int_dt)
+    return torch.sum(buf, dim=-1, dtype=torch.int64).to(torch.int32)
+
+
+def _verify_wire(got_buf, got_csum, decoded, checksum: bool,
+                 finite: bool) -> torch.Tensor:
+    """bool `[R]` per-neighbour wire verdict: the received buffer's
+    checksum matches the sender's, and (with `finite`) the decoded
+    payload is finite."""
+    ok = torch.ones(got_buf.shape[:1], dtype=torch.bool,
+                    device=got_buf.device)
+    if checksum:
+        ok = ok & (wire_checksum(got_buf) == got_csum)
+    if finite:
+        ok = ok & torch.isfinite(decoded).all(dim=-1)
+    return ok
+
+
+def mix_weights(gate: torch.Tensor) -> torch.Tensor:
+    """f32 `[R]` mix weight per rank over the gated edges (`gate` bool
+    `[R, n_nb]`): 1 / (1 + n_alive), an IEEE float32 quotient on any
+    device. With every gate on it equals float32(topo.mix_weight)."""
+    n_alive = torch.sum(gate.to(torch.float32), dim=-1)
+    return torch.ones_like(n_alive) / (1.0 + n_alive)
+
+
+def mix_weighted(params: torch.Tensor, bufs: Tuple[torch.Tensor, ...],
+                 gate: torch.Tensor) -> torch.Tensor:
+    """Gossip averaging over a data-dependent subset of edges:
+    p <- (p + sum(where(gate_i, buf_i, 0))) / (1 + sum(gate_i)), per rank
+    (`gate` bool `[R, n_nb]`, the freeze mask and D-PSGD's delivered
+    bits). A gated-off edge adds +0.0, as the JAX function's where
+    does. With every gate on this is the uniform mix, bitwise."""
+    zero = torch.zeros((), dtype=params.dtype, device=params.device)
+    acc = params
+    for i, b in enumerate(bufs):
+        acc = acc + torch.where(gate[:, i:i + 1], b, zero)
+    return acc * mix_weights(gate)[:, None]
+
+
 def neighbor_vals_flat(
     payload: torch.Tensor, topo: Topology, spec: "arena.ArenaSpec", wire=None,
 ) -> Tuple[torch.Tensor, ...]:
@@ -169,6 +224,7 @@ def masked_neighbor_vals_flat(
     topo: Topology,
     spec: "arena.ArenaSpec",
     wire=None,
+    deliver=None,
     wire_builder=None,
     checksum: bool = False,
     finite: bool = False,
@@ -186,7 +242,19 @@ def masked_neighbor_vals_flat(
     same bits. Returns (candidate `[R, n]` values, effective `[R, L]` fire
     bits, raw `[R, L]` sender bits) per neighbor; the caller commits
     `where(eff, candidate, stale)`. Without chaos the effective bits are
-    the sender's.
+    the sender's; `deliver` (bool `[R, n_nb]`, `chaos.inject`) clears a
+    dropped edge's effective bits, so a drop is bitwise an event that
+    did not fire, while the raw bits stay what was on the wire.
+
+    Integrity: `checksum` ships an int32 `wire_checksum` of each row's
+    wire buffer beside it (a one-element lane per rank) and verifies it
+    on receipt; `finite` also rejects a decoded payload carrying
+    NaN/Inf; `corrupt` is an `(edge_index, received_buffer) -> buffer`
+    transform modelling in-transit corruption
+    (`chaos.inject.flip_one_bit`), applied before the verification. A
+    failed check clears the edge's effective bits like an undelivered
+    message. With any of the three set, a fourth value comes back: the
+    per-edge verdicts, bool `[R, n_nb]`.
 
     `carrier=True` (bf16/int8 wires, no integrity riders) returns the
     candidates still in the wire dtype plus a fourth value: the
@@ -206,11 +274,6 @@ def masked_neighbor_vals_flat(
                 f"carrier-resident exchange needs a bf16/int8 wire; "
                 f"got {wire!r}"
             )
-    if integrity:
-        raise NotImplementedError(
-            "the integrity riders are not ported yet (ROADMAP queue 1, "
-            "item 6)"
-        )
     check_wire(wire)
     seg = spec.seg_expand(payload.device)
     fire_f32 = fire_vec.to(torch.float32)
@@ -235,23 +298,40 @@ def masked_neighbor_vals_flat(
                 for k, v in enumerate(spec.leaf_views(payload))
             ], payload.dtype)
         wire_buf = _wire_out(masked, wire)
+    csum = wire_checksum(wire_buf) if checksum else None
 
-    cands, raws, scls = [], [], []
-    for nb in topo.neighbors:
+    cands, effs, raws, oks, scls = [], [], [], [], []
+    for i, nb in enumerate(topo.neighbors):
         got = recv_from(wire_buf, topo, nb)
         got_s = None if scale_vec is None else recv_from(scale_vec, topo, nb)
+        if corrupt is not None:
+            got = corrupt(i, got)
+        cand = got
         if not carrier:
-            got = got.to(payload.dtype)
+            cand = got.to(payload.dtype)
             if got_s is not None:
-                got = got * got_s[:, seg]
-        cands.append(got)
-        raws.append(recv_from(fire_vec, topo, nb))
+                cand = cand * got_s[:, seg]
+        raw = recv_from(fire_vec, topo, nb)
+        eff = raw
+        if integrity:
+            ok = _verify_wire(
+                got, recv_from(csum, topo, nb) if checksum else None, cand,
+                checksum, finite)
+            eff = eff & ok[:, None]
+            oks.append(ok)
+        if deliver is not None:
+            eff = eff & deliver[:, i:i + 1]
+        cands.append(cand)
+        effs.append(eff)
+        raws.append(raw)
         scls.append(got_s)
     if carrier:
-        return tuple(cands), tuple(raws), tuple(raws), (
+        return tuple(cands), tuple(effs), tuple(raws), (
             tuple(scls) if wire == "int8" else None
         )
-    return tuple(cands), tuple(raws), tuple(raws)
+    if integrity:
+        return tuple(cands), tuple(effs), tuple(raws), torch.stack(oks, -1)
+    return tuple(cands), tuple(effs), tuple(raws)
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +440,10 @@ def compact_neighbor_vals_flat(
     candidate, stale)` discards. Returns (candidates, effective bits,
     raw sender bits) per neighbor, and with `carrier=True` (bf16/int8)
     the candidates in the wire dtype plus the per-neighbor received
-    `[R, L]` int8 scales (None for bf16)."""
+    `[R, L]` int8 scales (None for bf16). `deliver`, `checksum`,
+    `finite` and `corrupt` are the masked exchange's (the checksum covers
+    the packed buffer; the finite check reads the packed float values,
+    or the received scales on the int8 wire, as the JAX function's)."""
     if carrier:
         if checksum or finite or corrupt is not None:
             raise ValueError(
@@ -373,11 +456,7 @@ def compact_neighbor_vals_flat(
                 f"carrier-resident exchange needs a bf16/int8 wire; "
                 f"got {wire!r}"
             )
-    if deliver is not None or checksum or finite or corrupt is not None:
-        raise NotImplementedError(
-            "chaos delivery and the integrity riders are not ported yet "
-            "(ROADMAP queue 1, item 6)"
-        )
+    integrity = checksum or finite or corrupt is not None
     check_wire(wire)
     capacity = int(capacity)
     if capacity < spec.floor:
@@ -393,13 +472,27 @@ def compact_neighbor_vals_flat(
         wire_packed = _int8_encode_flat(packed, scale_vec, leaf_id)
     else:
         wire_packed = _wire_out(packed, wire)
+    csum = wire_checksum(wire_packed) if checksum else None
     seg = spec.seg_expand(dev)
     sizes_t, _, pos_in_leaf = _compact_constants(spec, dev)
-    cands, raws, scls = [], [], []
-    for nb in topo.neighbors:
+    cands, effs, raws, oks, scls = [], [], [], [], []
+    for i, nb in enumerate(topo.neighbors):
         got_packed = recv_from(wire_packed, topo, nb)
         got_vec = recv_from(fire_vec, topo, nb)
         got_s = None if scale_vec is None else recv_from(scale_vec, topo, nb)
+        if corrupt is not None:
+            got_packed = corrupt(i, got_packed)
+        eff = got_vec
+        if integrity:
+            dec = (got_packed.to(torch.float32)
+                   if got_packed.is_floating_point() else got_s)
+            ok = _verify_wire(
+                got_packed, recv_from(csum, topo, nb) if checksum else None,
+                dec, checksum, finite)
+            eff = eff & ok[:, None]
+            oks.append(ok)
+        if deliver is not None:
+            eff = eff & deliver[:, i:i + 1]
         # the offsets ride implicitly: recomputed from the fire bits
         got_offsets, _ = _fired_offsets(got_vec, sizes_t)
         src = got_offsets.long()[:, seg].add_(pos_in_leaf).clamp_(
@@ -413,13 +506,16 @@ def compact_neighbor_vals_flat(
             if got_s is not None:
                 val = val * got_s[:, seg]
         cands.append(val)
+        effs.append(eff)
         raws.append(got_vec)
         scls.append(got_s)
     if carrier:
-        return tuple(cands), tuple(raws), tuple(raws), (
+        return tuple(cands), tuple(effs), tuple(raws), (
             tuple(scls) if wire == "int8" else None
         )
-    return tuple(cands), tuple(raws), tuple(raws)
+    if integrity:
+        return tuple(cands), tuple(effs), tuple(raws), torch.stack(oks, -1)
+    return tuple(cands), tuple(effs), tuple(raws)
 
 
 def commit_bufs_flat(

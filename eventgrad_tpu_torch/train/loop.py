@@ -4,13 +4,16 @@ Port of `eventgrad_tpu/train/loop.py`: `train` (the per-epoch loop —
 one host step per pass, no K-epoch dispatch blocks, no dispatch
 pipeline, telemetry or checkpointing yet; the compact wire's
 warmup-then-rebuild capacity autotune; the bucketed schedule, the
-bounded-async staleness D >= 2 and the chaos schedule's straggler
-clauses), `evaluate`, `consensus_params` and `rank0_slice`. History records carry the JAX records' keys for the
-fields the slice computes.
+bounded-async staleness D >= 2, the chaos schedule's fault clauses with
+the recovery policies, and the integrity engine's sentinel and
+in-memory rollback), `evaluate`, `consensus_params` and `rank0_slice`.
+History records carry the JAX records' keys for the fields the slice
+computes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -18,7 +21,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from eventgrad_tpu_torch.chaos import integrity as chaos_integrity
 from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
+from eventgrad_tpu_torch.chaos.membership import force_refresh
+from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
 from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
 from eventgrad_tpu_torch.parallel import collectives
@@ -73,6 +79,28 @@ COMPACT_MIN_SAMPLES = 16
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _clone(x):
+    """A deep copy of a train state (the integrity engine's in-memory
+    last-known-good, and a rollback's owned copy of it): tensors cloned,
+    a generator as a new one in the same state, the nesting
+    (dataclasses, tuples, lists, dicts) kept."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, torch.Generator):
+        g = torch.Generator(device=x.device)
+        g.set_state(x.get_state())
+        return g
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _clone(getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    return x
 
 
 @torch.no_grad()
@@ -135,6 +163,9 @@ def train(
     compact_frac: Optional[float] = None,
     bucketed: Optional[int] = None,
     chaos=None,
+    chaos_policy: Optional[RecoveryPolicy] = None,
+    integrity=None,
+    checkpoint_dir: Optional[str] = None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
@@ -180,12 +211,30 @@ def train(
     sp_eventgrad) runs the bounded-async delivery queues; eventgrad's
     records add `edge_staleness_max` (the end-of-epoch per-edge peak)
     and `late_commits` (cumulative). `chaos` (a `ChaosSchedule`, spec
-    string or dict; eventgrad, dpsgd) sets the `lag=` / `slow=` clauses:
-    the first record carries the schedule as `chaos`, every record the
-    per-edge `edge_silence_max`, `edge_status` and `chaos_drops`. Unlike
+    string or dict; eventgrad, dpsgd) injects its faults and lags: the
+    first record carries the schedule as `chaos` (and `chaos_policy`, the
+    `RecoveryPolicy` of forced sync and edge freeze), every record the
+    per-edge `edge_silence_max`, `edge_status`, `chaos_drops` and the
+    end-of-epoch consensus error `consensus_err_max` / `_mean`. Unlike
     the JAX loop, a bucketed run never demotes to the monolithic fused
     tail: the kernels are the card path, with pitched forms per
-    bucket."""
+    bucket.
+
+    `integrity` (an `IntegrityConfig`, spec or dict) runs the integrity
+    engine: the step's checksums and quarantine (eventgrad), and the
+    divergence sentinel, which judges each epoch (the port's block) by
+    its mean loss and end-of-epoch consensus error. With `rollback` an
+    in-memory last-known-good snapshot follows every healthy epoch; a
+    trip restores it, re-arms every event buffer
+    (`membership.force_refresh`), with `escalate` rebuilds the step
+    hardened (checksums and quarantine on) and replays from the next
+    epoch; a trip beyond `max_rollbacks` (or with rollback off) raises
+    `IntegrityEscalation`. Records add `wire_rejects`,
+    `quarantined_steps` and `integrity_rollbacks`, the first one the
+    config as `integrity`, the first after a rollback
+    `integrity_rollback` (reason, tripped and restored epochs, hardened).
+    A `checkpoint_dir` (the JAX loop's on-disk retention and
+    checkpoints) is not ported yet (ROADMAP queue 1, item 6, part 6b)."""
     device = resolve_device(device)
     if gossip_wire not in ("dense", "compact"):
         raise ValueError(
@@ -215,7 +264,31 @@ def train(
             )
     if algo in EVENT_ALGOS:
         event_cfg = event_cfg or EventConfig()
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpoint_dir (checkpoints, resume and the integrity engine's "
+            "on-disk retention) is not ported yet (ROADMAP queue 1, item 6, "
+            "part 6b); the rollback's last-known-good is held in memory")
     chaos_sched = resolve_chaos(chaos) if chaos is not None else None
+    integ_cfg = chaos_integrity.resolve(integrity)
+    integ_engine_on = integ_cfg is not None and integ_cfg.sentinel
+    integ_rollback_on = integ_engine_on and integ_cfg.rollback
+    if integ_cfg is not None:
+        if (integ_cfg.checksum or integ_cfg.quarantine) and algo != "eventgrad":
+            raise ValueError(
+                "integrity checksums/quarantine ride the event exchange "
+                f"(algo='eventgrad'); got algo={algo!r} — for the host-"
+                "side sentinel alone pass IntegrityConfig(checksum="
+                "False, quarantine=False)"
+            )
+        if integ_rollback_on and integ_cfg.escalate and algo != "eventgrad":
+            raise ValueError(
+                "integrity escalate=True hardens the event exchange "
+                "after a rollback (checksums + quarantine on), which "
+                f"needs algo='eventgrad'; got algo={algo!r} — pass "
+                "escalate=False"
+            )
+    integ_now = integ_cfg
     bucketed_k = int(bucketed) if bucketed else 1
     x = _as_input(model, x_train)
     y = np.ascontiguousarray(y_train, np.int64)
@@ -232,6 +305,8 @@ def train(
             carrier_resident=carrier_resident, sparse_cfg=sparse_cfg,
             augment=augment, gossip_wire=wire_mode,
             compact_capacity=capacity, bucketed=bucketed, chaos=chaos_sched,
+            chaos_policy=chaos_policy, integrity=integ_now,
+            n_passes=epochs * steps,
         )
 
     # make_train_step checks the wire/staleness/carrier combination
@@ -258,7 +333,20 @@ def train(
     compact_note: Optional[Dict[str, Any]] = None
     compact_fired_peak, compact_post_steps = 0.0, 0
     warmup_passes = (event_cfg or EventConfig()).warmup_passes
-    for epoch in range(1, epochs + 1):
+    # the integrity engine (chaos/integrity.py): the sentinel judges each
+    # epoch; the last-known-good starts as the initial state, so a trip
+    # in the first epoch rolls back to the start
+    probe_on = chaos_sched is not None or integ_cfg is not None
+    sentinel = (chaos_integrity.DivergenceSentinel(integ_cfg)
+                if integ_engine_on else None)
+    good = None
+    if integ_rollback_on:
+        good = {"state": _clone(state), "epoch": 0,
+                "sentinel": sentinel.snapshot()}
+    rollbacks, rollback_info = 0, None
+    epoch = 0
+    while epoch < epochs:
+        epoch += 1
         mode_now = ("compact" if compact_capacity is not None
                     or compact_static else "dense")
         pass_base = state.pass_num
@@ -330,9 +418,28 @@ def train(
         if chaos_sched is not None:
             if not history:
                 rec["chaos"] = chaos_sched.to_dict()
+                if chaos_policy is not None:
+                    rec["chaos_policy"] = chaos_policy.to_dict()
             rec.update(chaos_monitor.health_record(
                 m_e["edge_silence"][-1], m_e["chaos_drops"][-1],
                 event_cfg.max_silence if event_cfg else 0))
+        if integ_cfg is not None:
+            if not history:
+                rec["integrity"] = integ_cfg.to_dict()
+            rec["wire_rejects"] = int(m_e["integrity_wire_reject"].sum())
+            rec["quarantined_steps"] = int(
+                m_e["integrity_quarantined"].sum())
+            rec["integrity_rollbacks"] = rollbacks
+            if rollback_info is not None:
+                rec["integrity_rollback"] = rollback_info
+                rollback_info = None
+        cerr = None
+        if probe_on:
+            # the consensus error ||p_r - mean(p)|| at the epoch's end:
+            # the drift that tells quiet links from a partition
+            cerr = chaos_monitor.consensus_error(state.params).cpu().numpy()
+            rec["consensus_err_max"] = float(cerr.max())
+            rec["consensus_err_mean"] = float(cerr.mean())
         if eval_on:
             test = evaluate(
                 model, consensus_params(state.params),
@@ -340,6 +447,41 @@ def train(
             )
             rec.update({"test_" + k: v for k, v in test.items()})
         history.append(rec)
+        if sentinel is not None:
+            reason = sentinel.observe(
+                float(np.asarray(m_e["loss"], np.float64).mean()),
+                None if cerr is None else float(cerr.max()))
+            if reason is not None:
+                if not integ_rollback_on or rollbacks >= integ_cfg.max_rollbacks:
+                    raise chaos_integrity.IntegrityEscalation(
+                        f"divergence sentinel tripped ({reason}) at epoch "
+                        f"{epoch} with "
+                        + ("rollback disarmed" if not integ_rollback_on
+                           else "the rollback budget spent "
+                           f"({rollbacks}/{integ_cfg.max_rollbacks})")
+                        + "; the retained last-known-good state cannot "
+                        "outrun this fault — restarting would replay the "
+                        "same divergence")
+                rollbacks += 1
+                # every rank from last-known-good, every event buffer
+                # re-armed: the next pass force-fires every exchange
+                state = force_refresh(_clone(good["state"]), event_cfg)
+                hardened = False
+                if integ_cfg.escalate and integ_now.hardened() != integ_now:
+                    # the replay meets the same pass-keyed faults: without
+                    # checksums and quarantine it would diverge again
+                    integ_now = integ_now.hardened()
+                    hardened = True
+                    step = build(mode_now, compact_capacity)
+                sentinel.rewind(good["sentinel"])
+                rollback_info = {"reason": reason, "tripped_epoch": epoch,
+                                 "restored_epoch": good["epoch"],
+                                 "hardened": hardened}
+                epoch = good["epoch"]
+                continue
+            if integ_rollback_on:
+                good = {"state": _clone(state), "epoch": epoch,
+                        "sentinel": sentinel.snapshot()}
         if not compact_done:
             # the capacity is one static number for every rank: the peak
             # is over the ranks of the post-warmup steps (pass ==

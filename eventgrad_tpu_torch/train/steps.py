@@ -58,9 +58,21 @@ post-arrival buffers are exactly kernel 1 (or 5) fed slot 0's candidates
 and eff bits with `mix_stale=False`, so the port runs D >= 2 on its
 fused tail, where the JAX package's step refuses fused + D >= 2; the
 queue's shift, merge and enqueue stay plain PyTorch, as they are jnp
-there. `chaos` (a lag/slow `chaos.ChaosSchedule`) sets the lags and
-carries the per-edge health (`TrainState.chaos`); every message of such
-a schedule is delivered, so the mix stays the uniform one.
+there. `chaos` (a `chaos.ChaosSchedule`) sets the lags and the faults
+and carries the per-edge health (`TrainState.chaos`): its per-pass
+delivery, corruption and nanstep draws come from tables built on the
+host once per run and read on the device by pass (`chaos.inject
+.FaultTables`). A dropped message clears the edge's effective fire bits
+(EventGraD keeps its stale buffer; D-PSGD's mix leaves the edge out),
+`chaos_policy` adds the forced sync and the edge freeze, and
+`integrity` the wire checksums and the non-finite quarantine. The JAX
+step refuses chaos and integrity with its fused tail (its Pallas kernels
+bake in one scalar mix weight) and runs them on the optax tail with
+`mix_weighted`; the port has only the fused tail, so kernels 1, 4 and 5
+take per-row operands instead: the mix weight 1/(1 + n_alive) and the
+edge gates (the freeze; D-PSGD's drops), and on kernel 1 the nanstep
+poison and the quarantine. D-PSGD's gated `buf_sum` adds `p + (b0 + b1)`
+where `mix_weighted` adds `p + b0 + b1`: one rounding apart at most.
 
 The gradient is taken at the pre-mix parameters, the reference's exact
 D-PSGD ordering. The R ranks' forward and backward run batched:
@@ -70,8 +82,7 @@ explicit tensors (an empty dict for a model without BatchNorm; the
 transformer's flash attention joins the batched forward and backward
 through its own `vmap` rule, `ops/attention.py`). The JAX package's
 unfused optax tail is documented bitwise equal to the fused one, so the
-port runs the fused tail only. The telemetry, integrity and recovery
-engines are not ported yet.
+port runs the fused tail only. The telemetry engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -82,7 +93,9 @@ import numpy as np
 import torch
 
 from eventgrad_tpu_torch.chaos import inject as chaos_inject
+from eventgrad_tpu_torch.chaos import integrity as chaos_integrity
 from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
+from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy, alive_mask
 from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
 from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.augment import draw_pad_flip_crop, pad_flip_crop
@@ -96,7 +109,8 @@ from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import (
-    EventConfig, async_bucket_commit, async_delivery_plan, capacity_gate,
+    EventConfig, _rows, async_bucket_commit, async_delivery_plan,
+    capacity_gate,
 )
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig, sparse_exchange
 from eventgrad_tpu_torch.parallel.spmd import per_rank
@@ -153,6 +167,9 @@ def make_train_step(
     compact_capacity: Optional[int] = None,
     bucketed: Optional[int] = None,
     chaos: Optional[ChaosSchedule] = None,
+    chaos_policy: Optional[RecoveryPolicy] = None,
+    integrity=None,
+    n_passes: Optional[int] = None,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
     metrics)`: `x` is `[R, B, H, W, C]` images with `y` int64 `[R, B]`,
@@ -191,10 +208,22 @@ def make_train_step(
     sp_eventgrad) runs the bounded-async engine on the queues of
     `init_train_state(..., staleness=D)`; its metrics add
     `edge_staleness` (`[R, n_nb]`) and `late_commits` (`[R]`). `chaos`
-    (a `ChaosSchedule` or its spec string; eventgrad, dpsgd) takes the
-    `lag=` / `slow=` clauses, and the state then carries `chaos`
-    (`PeerHealth.init`); the metrics add `edge_silence` and
-    `chaos_drops`."""
+    (a `ChaosSchedule` or its spec string; eventgrad, dpsgd; `bitflip=`
+    and `nanstep=` eventgrad only) injects its faults, and the state then
+    carries `chaos` (`PeerHealth.init`); the metrics add `edge_silence`
+    and `chaos_drops` (cumulative: D-PSGD counts every undelivered edge,
+    EventGraD the undelivered edges whose sender fired). `n_passes` sizes
+    the fault tables (the run's passes; they grow if a pass runs past
+    them). `chaos_policy` (a `RecoveryPolicy`, with `chaos`) adds the
+    forced sync (eventgrad) and the edge freeze. `integrity` (an
+    `IntegrityConfig`, spec or dict) with `checksum` / `quarantine`
+    (eventgrad) adds the wire checksums and the non-finite quarantine;
+    with any integrity config the metrics add `integrity_wire_reject`
+    (`[R, n_nb]`) and `integrity_quarantined` (`[R]`).
+
+    The bucketed schedule under the fault clauses (drop, flaky, delay,
+    die, nanstep, the freeze) waits (ROADMAP queue 1, item 12); it
+    refuses the integrity riders and `bitflip=` as the JAX step does."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     staleness = int(staleness)
@@ -221,6 +250,25 @@ def make_train_step(
                 "chaos injection targets the gossip exchange algorithms "
                 f"(dpsgd, eventgrad); got algo={algo!r}"
             )
+    if chaos_policy is not None and chaos is None:
+        raise ValueError(
+            "chaos_policy requires chaos (pass ChaosSchedule() to run "
+            "monitoring/recovery without injected faults)"
+        )
+    integrity = chaos_integrity.resolve(integrity)
+    integ_checksum = integrity is not None and integrity.checksum
+    integ_quar = integrity is not None and integrity.quarantine
+    if (integ_checksum or integ_quar) and algo != "eventgrad":
+        raise ValueError(
+            "integrity checksums/quarantine ride the event exchange's "
+            f"not-fired semantics (algo='eventgrad'); got algo={algo!r}"
+        )
+    if chaos is not None and (chaos.has_bitflips or chaos.has_nansteps):
+        if algo != "eventgrad":
+            raise ValueError(
+                "bitflip=/nanstep= faults target the event exchange "
+                f"(algo='eventgrad'); got algo={algo!r}"
+            )
     n_buckets = int(bucketed) if bucketed else 1
     if n_buckets < 1:
         raise ValueError(f"bucketed must be >= 1 (or None), got {bucketed}")
@@ -229,6 +277,37 @@ def make_train_step(
             "bucketed=K pipelines the event-exchange hot path "
             f"(eventgrad, sp_eventgrad); got algo={algo!r}"
         )
+    chaos_policy = chaos_policy or RecoveryPolicy()
+    if n_buckets > 1:
+        if integ_checksum or integ_quar:
+            raise ValueError(
+                "bucketed is not combinable with the in-step integrity "
+                "defenses: checksums and rejection verdicts are "
+                "whole-wire per-edge contracts, not per-bucket ones"
+            )
+        if chaos is not None and chaos.has_bitflips:
+            raise ValueError(
+                "bucketed is not combinable with chaos bitflip= faults: "
+                "the corruption transform targets ONE wire buffer per "
+                "edge, which the bucketed schedule splits K ways"
+            )
+        if chaos is not None and (chaos.has_drops or chaos.has_nansteps
+                                  or chaos_policy.freeze_after):
+            raise NotImplementedError(
+                "the bucketed schedule under the fault clauses (drop, "
+                "flaky, delay, die, nanstep, the edge freeze) is not "
+                "ported yet (ROADMAP queue 1, item 12): it needs the "
+                "per-bucket gated tails"
+            )
+    if chaos is not None:
+        chaos_policy.validate_against(
+            event_cfg.max_silence if event_cfg else 0)
+        if chaos_policy.sync_after and algo != "eventgrad":
+            raise ValueError(
+                "sync_after rides the event fire decision (force_fire); "
+                "dpsgd already sends everything every pass — a dropped "
+                "message there is final (use freeze_after / ring heal)"
+            )
     collectives.check_wire(wire)
     carrier_wire = None
     if carrier_resident:
@@ -242,6 +321,18 @@ def make_train_step(
                 "carrier_resident=True keeps the buffers in the wire "
                 f"carrier dtype, but wire={wire!r} has none — use "
                 "wire='bf16'/'int8' (f32 wires are already resident)"
+            )
+        if integ_checksum or integ_quar:
+            raise ValueError(
+                "carrier_resident=True is not combinable with the "
+                "in-step integrity defenses (their verdicts read "
+                "dequantized wire values)"
+            )
+        if chaos is not None and (chaos.has_bitflips or chaos.has_nansteps):
+            raise ValueError(
+                "carrier_resident=True is not combinable with chaos "
+                "bitflip=/nanstep= faults (the corruption transform "
+                "targets the dequantized wire buffer)"
             )
         carrier_wire = wire
     if gossip_wire not in ("dense", "compact"):
@@ -310,6 +401,12 @@ def make_train_step(
     draws = augment or bool(sites(1))
 
     carrier = carrier_wire is not None
+    # the in-step integrity riders and the in-transit corruption: the
+    # exchange then returns its per-edge verdicts
+    bitflips = chaos is not None and chaos.has_bitflips
+    integ_wire = bool(integ_checksum or integ_quar or bitflips)
+    # {device: chaos.inject.FaultTables}, made on the step's first call
+    fault_tables = {}
 
     def _bucket_gate(prop, fire_vec, force):
         """The per-bucket fire bits: each bucket's columns of the
@@ -331,16 +428,19 @@ def make_train_step(
             for i, b in enumerate(buckets)
         ]
 
-    def _ship(flat, fire_vec, fire_bs, packed, leaf_id, scale_vec, bi):
-        """One exchange: the whole arena (`bi` None) or bucket `bi`."""
+    def _ship(flat, fire_vec, fire_bs, packed, leaf_id, scale_vec, bi,
+              faults=None):
+        """One exchange: the whole arena (`bi` None), with the pass's
+        delivered bits and integrity riders (`faults`), or bucket `bi`."""
         if bi is None:
+            kw = dict(faults or {}, carrier=carrier)
             if compact_capacity is not None:
                 return collectives.compact_neighbor_vals_flat(
                     flat, fire_vec, packed, leaf_id, topo, compact_capacity,
-                    spec, wire, carrier=carrier)
+                    spec, wire, **kw)
             return collectives.masked_neighbor_vals_flat(
                 flat, fire_vec, topo, spec, wire,
-                wire_builder=event_engine.masked_wire, carrier=carrier)
+                wire_builder=event_engine.masked_wire, **kw)
         b = buckets[bi]
         sv = None if scale_vec is None else scale_vec[:, b.lo:b.hi]
         if caps is not None:
@@ -354,13 +454,16 @@ def make_train_step(
             flat, fire_bs[bi], topo, b, wire, scale_vec=sv,
             wire_builder=event_engine.masked_wire, carrier=carrier)
 
-    def _tail(flat, g_flat, t_flat, event_state, res, q_plan, out, bi):
+    def _tail(flat, g_flat, t_flat, event_state, res, q_plan, out, bi,
+              gates=None):
         """One commit + mix + SGD tail through kernel 1 (or 5 on a
         carrier): the whole arena (`bi` None) or bucket `bi`, whose
         pitched form writes p', t' into the bucket's columns of `out`.
         Under staleness >= 2 the queue's arrival (slot 0) is what
-        commits, and the mix reads the post-arrival buffers. Returns (p',
-        t', committed buffers, their scales, the queue's new slots)."""
+        commits, and the mix reads the post-arrival buffers. `gates` (the
+        whole arena only) holds the gated form's per-row operands.
+        Returns (p', t', committed buffers, their scales, the queue's new
+        slots)."""
         dev = flat.device
         cands, effs = res[:2]
         cand_scales = res[3] if carrier else None
@@ -402,7 +505,8 @@ def make_train_step(
                 mix_scales = tuple(sc[:, seg] for sc in src)
             mix_stale = bool(staleness)
         keeps = tuple(e.to(torch.float32)[:, seg] for e in effs)
-        kw = {} if bi is None else dict(off=buckets[bi].start, out=out)
+        kw = dict(gates or {}) if bi is None else dict(
+            off=buckets[bi].start, out=out)
         if carrier:
             p_new, t_new, bufs = fused_mix_commit_carrier(
                 flat, cands, keeps, lasts, g_flat, t_flat, lr, mom,
@@ -414,19 +518,45 @@ def make_train_step(
                 topo.mix_weight, mix_stale=mix_stale, **kw)
         return p_new, t_new, bufs, new_scales, pend
 
+    def _plan(event_state, delivered, pass_num, dev):
+        """The bounded-async queue's scalar half for this pass."""
+        lag_vec = chaos_inject.lag_vector(chaos, topo, pass_num, staleness,
+                                          dev)
+        return async_delivery_plan(event_state, delivered, lag_vec,
+                                   pass_num, staleness)
+
+    def _health(health, raws, deliver, oks):
+        """EventGraD's peer health after an exchange: a sender that fired
+        any leaf sent a message; it arrived unless the schedule dropped
+        it or the integrity verdict rejected it (a rejection keeps the
+        edge's silence growing); the drops count sent & ~deliver."""
+        sent_any = torch.stack([r.any(dim=-1) for r in raws], dim=-1)
+        delivered = sent_any & deliver
+        if oks is not None:
+            delivered = delivered & oks
+        health = chaos_monitor.update(health, delivered, sent_any & ~deliver)
+        if chaos_policy.sync_after:
+            health = health.replace(sync_req=chaos_monitor.sync_requests(
+                health.silence >= chaos_policy.sync_after, topo))
+        return health
+
     def _event_exchange(flat, g_flat, t_flat, fire_vec, fire_bs, packed,
-                        leaf_id, event_state, pass_num, deliver, dev):
+                        leaf_id, event_state, pass_num, faults, health,
+                        poison, quar, dev):
         """EventGraD's exchange and tail, monolithic or bucket by bucket
-        (bucket k's exchange, then its tail). Returns (p', t', the event
-        state with its buffers, scales and queues committed, the raw
-        `[R, L]` fire bits received per neighbor, the edge staleness
-        gauge or None)."""
-        q_plan = None
-        if staleness >= 2:
-            lag_vec = chaos_inject.lag_vector(chaos, topo, pass_num,
-                                              staleness, dev)
-            q_plan = async_delivery_plan(event_state, deliver, lag_vec,
-                                         pass_num, staleness)
+        (bucket k's exchange, then its tail). On the monolithic schedule
+        the exchange carries the pass's faults (`faults`: the delivered
+        bits and integrity riders), its verdicts and the updated health
+        gate the tail (the freeze, the poison, the quarantine) and, at
+        D >= 2, fold into the queue's delivered bits. Returns (p', t',
+        the event state with its buffers, scales and queues committed,
+        the raw `[R, L]` fire bits received per neighbor, the edge
+        staleness gauge or None, the health, the verdicts `[R, n_nb]` or
+        None)."""
+        deliver = faults.get("deliver") if faults else None
+        q_plan = oks = None
+        if staleness >= 2 and buckets is not None:
+            q_plan = _plan(event_state, deliver, pass_num, dev)
         scale_vec = out = None
         parts = [None]
         if buckets is not None:
@@ -440,12 +570,26 @@ def make_train_step(
         done = []
         for bi in parts:
             sfx = "" if bi is None else f".b{bi}"
+            gates = None
             with _phase("exchange" + sfx):
                 res = _ship(flat, fire_vec, fire_bs, packed, leaf_id,
-                            scale_vec, bi)
+                            scale_vec, bi, faults if bi is None else None)
+            if bi is None:
+                if integ_wire:
+                    res, oks = res[:3], res[3]
+                if health is not None:
+                    health = _health(health, res[2], deliver, oks)
+                if staleness >= 2:
+                    delivered = deliver
+                    if oks is not None:
+                        delivered = oks if delivered is None else (
+                            delivered & oks)
+                    q_plan = _plan(event_state, delivered, pass_num, dev)
+                gates = _gates(health, poison, quar)
             with _phase("commit_mix" + sfx):
                 p_new, t_new, bufs, scales, pend = _tail(
-                    flat, g_flat, t_flat, event_state, res, q_plan, out, bi)
+                    flat, g_flat, t_flat, event_state, res, q_plan, out, bi,
+                    gates)
             done.append((res[2], bufs, scales, pend))
         join = ((lambda xs: xs[0]) if buckets is None
                 else (lambda xs: tuple(xs)))
@@ -479,7 +623,25 @@ def make_train_step(
                 late_commits=event_state.late_commits + late)
             edge_stale = torch.full((), int(pass_num), dtype=torch.int32,
                                     device=dev) - clock
-        return p_new, t_new, event_state, raws, edge_stale
+        if buckets is not None and health is not None:
+            health = _health(health, raws, deliver, None)
+        return p_new, t_new, event_state, raws, edge_stale, health, oks
+
+    def _gates(health, poison, quar):
+        """The gated tail's per-row operands (EventGraD): the frozen
+        edges leave the mix (its weight renormalizes), a poisoned rank's
+        update and trace take the NaN factor, a quarantined rank keeps
+        the mixed parameters and its trace. Empty when nothing gates."""
+        g = {}
+        gate = (alive_mask(health.silence, chaos_policy)
+                if health is not None else None)
+        if gate is not None:
+            g.update(w_rows=collectives.mix_weights(gate), gate=gate)
+        if poison is not None:
+            g["poison"] = poison
+        if quar is not None:
+            g["quar"] = quar
+        return g
 
     def step(state, batch):
         x, y = batch
@@ -513,7 +675,7 @@ def make_train_step(
         # bounded-async: the per-edge staleness gauge and this pass's
         # late commits (staleness >= 2 only)
         edge_stale = None
-        deliver = None
+        deliver = corrupt_bits = salts = poison = None
         if chaos is not None:
             if health is None:
                 raise ValueError(
@@ -521,11 +683,42 @@ def make_train_step(
                     "(TrainState.chaos = chaos.PeerHealth.init(topo)); "
                     "this state has none"
                 )
-            deliver = chaos_inject.delivery_mask(chaos, topo, pass_num, dev)
+            if dev not in fault_tables:
+                fault_tables[dev] = chaos_inject.FaultTables(
+                    chaos, topo, n_passes or pass_num, dev)
+            deliver, corrupt_bits, salts, poison = fault_tables[dev].at(
+                pass_num)
+        # the nanstep poison: NaN or 1 per rank on the update and the new
+        # trace (optax's poisoned tail); the non-finite quarantine reads
+        # the pristine gradients, or'd with the poison
+        bad = quar = None
+        if poison is not None:
+            bad = torch.where(poison, torch.full((), float("nan"),
+                                                 device=dev),
+                              torch.ones((), device=dev))
+        if integ_quar:
+            quar = ~torch.isfinite(g_flat).all(dim=-1)
+            if poison is not None:
+                quar = quar | poison
+        faults = None
+        if algo == "eventgrad" and (deliver is not None or integ_wire):
+            faults = dict(deliver=deliver, checksum=integ_checksum,
+                          finite=integ_quar)
+            if bitflips:
+                faults["corrupt"] = lambda i, buf: chaos_inject.flip_one_bit(
+                    buf, corrupt_bits[:, i], salts[:, i])
+        oks = None
         if algo in EVENT_ALGOS:
             # the partitioned policies' masks ride the sender pass's
-            # force/suppress seams (suppression wins)
+            # force/suppress seams (suppression wins), as do the forced
+            # sync and the quarantine
             force, suppress = pol.masks(spec, topo, pass_num, event_cfg, dev)
+            if chaos is not None and chaos_policy.sync_after:
+                req = health.sync_req[:, None]
+                force = req if force is None else (force | req)
+            if quar is not None:
+                q = quar[:, None]
+                suppress = q if suppress is None else (suppress | q)
             with _phase("gate_pack"):
                 # the bucketed schedule gates per bucket below, so the
                 # sender pass proposes without a capacity there
@@ -558,17 +751,24 @@ def make_train_step(
         elif algo == "dpsgd":
             with _phase("exchange"):
                 bufs = collectives.neighbor_vals_flat(flat, topo, spec, wire)
+            gate = None
             if deliver is not None:
-                # every message of a lag schedule arrives: the mix keeps
-                # its uniform weight
+                # lossy D-PSGD has no stale buffer to fall back to: a
+                # dropped (or frozen) edge leaves this pass's mix and the
+                # weight renormalizes — kernel 4's gated form
                 health = chaos_monitor.update(health, deliver, ~deliver)
+                alive = alive_mask(health.silence, chaos_policy)
+                gate = deliver if alive is None else deliver & alive
             with _phase("commit_mix"):
                 buf_sum = torch.zeros_like(flat)
-                for b in bufs:
-                    buf_sum = buf_sum + b
+                zero = torch.zeros((), dtype=flat.dtype, device=dev)
+                for i, b in enumerate(bufs):
+                    buf_sum = buf_sum + (b if gate is None else torch.where(
+                        gate[:, i:i + 1], b, zero))
                 p_flat, new_t = fused_mix_sgd(
-                    flat, buf_sum, g_flat, t_flat, lr, mom, topo.mix_weight
-                )
+                    flat, buf_sum, g_flat, t_flat, lr, mom, topo.mix_weight,
+                    w_rows=(None if gate is None
+                            else collectives.mix_weights(gate)))
             sent_bytes = f32(n_nb, dev) * f32(total_bytes, dev)
             wire_real = f32(n_nb, dev) * f32(
                 collectives.wire_real_bytes_per_neighbor(
@@ -609,15 +809,10 @@ def make_train_step(
                 + scale_bytes_per_leaf * n_leaves
             ), dev)
         else:
-            p_flat, new_t, event_state, raws, edge_stale = _event_exchange(
+            (p_flat, new_t, event_state, raws, edge_stale, health,
+             oks) = _event_exchange(
                 flat, g_flat, t_flat, fire_vec, fire_bs, packed, leaf_id,
-                event_state, pass_num, deliver, dev)
-            if deliver is not None:
-                # a sender that fired any leaf this pass sent a message;
-                # every message of a lag schedule is delivered
-                sent_any = torch.stack([r.any(dim=-1) for r in raws], dim=-1)
-                health = chaos_monitor.update(health, sent_any & deliver,
-                                              sent_any & ~deliver)
+                event_state, pass_num, faults, health, bad, quar, dev)
             if per_bucket is not None:
                 # the same f32(n_nb) * python-float shape as the
                 # monolithic metric, so the bits agree across schedules
@@ -650,6 +845,21 @@ def make_train_step(
             fired_frac = f32(1.0, dev)
             num_events = num_deferred = torch.zeros((), dtype=torch.int32,
                                                     device=dev)
+
+        quar_eff = None
+        if integ_quar:
+            # the quarantine tail: kernel 1 kept a quarantined rank's mixed
+            # parameters and trace; its BatchNorm statistics stay too. A
+            # non-finite post-update parameter set (an lr blowup, which
+            # the gradient guard cannot see) rolls the whole rank back to
+            # its pre-step parameters and trace.
+            new_stats = {k: torch.where(_rows(quar, v), state.batch_stats[k],
+                                        v) for k, v in new_stats.items()}
+            params_ok = torch.isfinite(p_flat).all(dim=-1)
+            p_flat = torch.where(params_ok[:, None], p_flat, flat)
+            if mom:
+                new_t = torch.where(params_ok[:, None], new_t, t_flat)
+            quar_eff = quar | ~params_ok
 
         new_state = state.replace(
             params=p_flat,
@@ -691,6 +901,14 @@ def make_train_step(
         if chaos is not None:
             metrics["edge_silence"] = health.silence
             metrics["chaos_drops"] = health.drops
+        if integrity is not None:
+            # per-step verdicts (the loop sums them into the records)
+            metrics["integrity_wire_reject"] = (
+                (~oks).to(torch.int32) if oks is not None
+                else torch.zeros((r, n_nb), dtype=torch.int32, device=dev))
+            metrics["integrity_quarantined"] = (
+                quar_eff.to(torch.int32) if quar_eff is not None
+                else torch.zeros((r,), dtype=torch.int32, device=dev))
         return new_state, metrics
 
     return step

@@ -4,6 +4,7 @@
         [--model {resnet,transformer,transformer-d128}] [--algos ALGO ...]
         [--wire {bf16,int8}] [--staleness D] [--carrier-resident]
         [--compact-frac F] [--bucketed K] [--chaos SPEC]
+        [--integrity SPEC]
 
 For each leg (EventGraD, then D-PSGD, or the `--algos` named: allreduce,
 dpsgd, eventgrad, sp_eventgrad at top-k 10%) at the flagship op-point —
@@ -29,15 +30,18 @@ another — it runs 3 warm-up steps, then:
 Each leg also sums the device time of the kernel families the exchange
 runs (gathers and index selects, searchsorted, sorts, rolls, scans).
 
-`--staleness`, `--carrier-resident`, `--compact-frac`, `--bucketed` and
-`--chaos` apply to the EventGraD leg only (D-PSGD has none of them).
+`--staleness`, `--carrier-resident`, `--compact-frac`, `--bucketed`,
+`--chaos` and `--integrity` apply to the EventGraD leg only.
 `--compact-frac F` runs it on the compact wire at the capacity
 `train(compact_frac=F)` sizes, `min(n, max(floor, ceil(F * n)))` (the
 floor: the largest leaf, or under `--bucketed K` the sum of the K
 buckets' largest leaves). `--staleness D` (D >= 2) runs the
 bounded-async queues, whose shift and merge is the `step/enqueue` span
-inside `step/commit_mix`; `--chaos` takes a lag/slow schedule
-(`seed=5,slow=1@7`). A bucket's spans (`exchange.b<k>`,
+inside `step/commit_mix`; `--chaos` takes a fault schedule
+(`seed=5,slow=1@7`, `drop=0.2,seed=0`), and `--integrity` an integrity
+config (`on`: the checksums and the finite checks ride
+`step/exchange`, the quarantine kernel 1's gated form and the tail's
+post-update check). A bucket's spans (`exchange.b<k>`,
 `commit_mix.b<k>`) count into their phase. It prints one JSON line per
 leg and, last, the card's name and power limit. It needs a CUDA device.
 """
@@ -114,7 +118,7 @@ def _family(name: str):
 def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                 wire=None, staleness: int = 0, carrier_resident=None,
                 model_name: str = "resnet", compact_frac=None,
-                bucketed=None, chaos=None):
+                bucketed=None, chaos=None, integrity=None):
     n_steps = WARMUP + 2 * steps
     model, shape, xb, yb = _op_point(model_name, n_steps)
     topo = Ring(RANKS)
@@ -122,7 +126,7 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                       max_silence=50)
     if algo != "eventgrad":
         staleness, carrier_resident, compact_frac = 0, None, None
-        bucketed = chaos = None
+        bucketed = chaos = integrity = None
     capacity = None
     if compact_frac is not None:
         spec = arena_spec(model)
@@ -137,7 +141,8 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
                            carrier_resident=carrier_resident,
                            gossip_wire="dense" if capacity is None
                            else "compact", compact_capacity=capacity,
-                           bucketed=bucketed, chaos=chaos)
+                           bucketed=bucketed, chaos=chaos,
+                           integrity=integrity, n_passes=n_steps)
     torch.cuda.reset_peak_memory_stats(device)
     state = init_train_state(
         model, shape, topo, algo, cfg, seed=0, momentum=0.9,
@@ -195,6 +200,7 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
         "compact_capacity": capacity,
         "bucketed": bucketed,
         "chaos": None if chaos is None else str(chaos),
+        "integrity": integrity,
         "step_ms": step_ms,
         "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
         "traced_step_ms": traced_ms / steps,
@@ -229,6 +235,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compact-frac", type=float, default=None)
     ap.add_argument("--bucketed", type=int, default=None)
     ap.add_argument("--chaos", default=None)
+    ap.add_argument("--integrity", default=None)
     args = ap.parse_args(argv)
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,7 +246,8 @@ def main(argv=None) -> int:
                           carrier_resident=args.carrier_resident or None,
                           model_name=args.model,
                           compact_frac=args.compact_frac,
-                          bucketed=args.bucketed, chaos=args.chaos)
+                          bucketed=args.bucketed, chaos=args.chaos,
+                          integrity=args.integrity)
         print(json.dumps(rec), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

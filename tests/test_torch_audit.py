@@ -181,6 +181,25 @@ def test_traced_steps_show_the_kernel_ops():
     assert _port("event_masked_f32_tree")["kernel_launches"] == {}
 
 
+def test_audit_counts_a_gated_launch_once():
+    """A gated launch counts in its kernel and again under
+    `<kernel>_gated` in `ops.launch_counts()`; the audit matches launches
+    to traced ops by kernel name, so it reads that launch once."""
+    from eventgrad_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    fn = ops._wrappers()["fused_mix_commit"]
+    fn.launches += 1
+    fn.gated_launches += 1
+    try:
+        assert ops.launch_counts()["fused_mix_commit_gated"] == 1
+        got = audit._kernel_launches()
+        assert got["fused_mix_commit"] == 1
+        assert set(got) - {"leak_kernel"} <= set(kernels.registered_names())
+    finally:
+        ops.reset_launch_counts()
+
+
 @pytest.mark.parametrize("name", list(audit.ORACLES))
 def test_oracle_detected(name):
     """Each seeded violation is detected, with the key phrase of the JAX

@@ -147,6 +147,7 @@ def test_refusals_name_their_roadmap_item():
     the ROADMAP queue-1 item that ports it; the calls of item 5, once
     refused, now run."""
     from eventgrad_tpu_torch.analysis import audit
+    from eventgrad_tpu_torch.chaos.membership import MembershipSchedule
     from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
     from eventgrad_tpu_torch.data.datasets import load_or_synthesize
     from eventgrad_tpu_torch.ops import attention
@@ -181,23 +182,40 @@ def test_refusals_name_their_roadmap_item():
     for name in ("late_delivery_drift", "bucket_queue_skew",
                  "bucket_undeclared_offset"):
         assert callable(audit.oracle(name))
+    # item 6a (the chaos fault clauses, the recovery policies and the
+    # integrity engine) is ported: its calls, once refused, now run
+    ChaosSchedule(seed=3, drop_p=0.4)
+    for name in ("event_masked_f32_arena_stale2_chaos",
+                 "event_masked_int8_tree_chaos",
+                 "event_masked_f32_arena_integrity"):
+        assert audit.config_by_name(name).name == name
+    assert not audit.WAITING
+    collectives.masked_neighbor_vals_flat(flat, fire, egt.Ring(8), spec,
+                                          checksum=True)
+    compact(deliver=torch.ones((8, 2), dtype=torch.bool))
+    compact(checksum=True)
+    compact(finite=True)
+    compact(corrupt=lambda i, x: x)
+    x, y = synthetic_dataset(32, (8, 8, 1))
+    train_mlp = lambda **kw: egt.train(
+        egt.MLP(input_shape=(8, 8, 1)), egt.Ring(4), x, y, algo="eventgrad",
+        epochs=1, batch_size=8, device="cpu", **kw)
     refusals = {
         "item 6": [
-            # every chaos clause beyond the straggler ones
-            lambda: ChaosSchedule(seed=3, drop_p=0.4),
+            # the clauses still to port: preemption (6b), membership (6d)
+            lambda: ChaosSchedule.parse("seed=1,preempt=2@1"),
             lambda: ChaosSchedule.parse("seed=1,leave=1@3"),
-            lambda: audit.config_by_name(
-                "event_masked_f32_arena_stale2_chaos"),
-            lambda: collectives.masked_neighbor_vals_flat(
-                flat, fire, egt.Ring(8), spec, checksum=True),
-            # the compact exchange's chaos delivery and integrity riders
-            lambda: compact(deliver=torch.ones(2, dtype=torch.bool)),
-            lambda: compact(checksum=True),
-            lambda: compact(finite=True),
-            lambda: compact(corrupt=lambda i, x: x),
+            lambda: ChaosSchedule.parse("seed=1,join=1@3"),
             lambda: load_or_synthesize("mnist", "/data", "train"),
-            lambda: audit.config_by_name("event_masked_int8_tree_chaos"),
-            lambda: audit.config_by_name("event_masked_f32_arena_integrity"),
+            lambda: MembershipSchedule(),
+            # checkpoints and the integrity engine's on-disk retention
+            lambda: train_mlp(integrity="on", checkpoint_dir="/tmp/ck"),
+        ],
+        # the bucketed schedule under the fault clauses
+        "item 12": [
+            lambda: make_train_step(model, egt.Ring(8), "eventgrad",
+                                    fused_sgd=(0.1, 0.0), bucketed=4,
+                                    chaos="seed=1,drop=0.2"),
         ],
         "item 7": [
             lambda: egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,

@@ -280,6 +280,8 @@ def test_step_runs_the_kernels_only_on_cuda(eventgrad_run):
         "masked_wire": 0, "masked_wire_int8": 0, "fused_mix_commit": 0,
         "fused_mix_sgd": 0, "fused_mix_commit_carrier": 0,
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+        "fused_mix_commit_gated": 0, "fused_mix_sgd_gated": 0,
+        "fused_mix_commit_carrier_gated": 0,
     }
 
 
