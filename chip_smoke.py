@@ -196,7 +196,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    0.39 plus 4.0, the replay and the off leg bitwise). The op-point's ReLU logits make its accuracy multimodal
    (a dead class ends near 90%): the accuracy bands hold the cost of
    the faults, not one seed's mode;
-10. audit — the static-analysis path on the card: the audit CLI
+10. resume — checkpoint/resume, graceful preemption and the crash
+   drills on the flagship op-point at 2 passes an epoch (512 samples),
+   3 epochs, under deterministic algorithms (cuDNN benchmark off): (a)
+   EventGraD on the masked f32 wire, run uninterrupted in this process,
+   then with a save every epoch in a child process armed at
+   `ckpt.mid_swap:2` (forked from the crash matrix's forkserver), which
+   must exit 83 leaving `ckpt.prev` and no primary, then relaunched with
+   `resume=True`: every state tensor (parameters, trace, buffers,
+   thresholds, the CUDA generator's bytes) bitwise the uninterrupted
+   run's, the records of epochs 2-3 value for value; (b) the int8
+   carrier-resident leg: its snapshot restored onto the card bitwise
+   (buffers and scales included), and resumes into an f32-resident run
+   and into `bucketed=4` raising the JAX loop's causes; (c) D-PSGD under
+   `drop=0,seed=1,preempt=2@1`: `GracefulPreemption` at epoch 2 with the
+   marker on disk, the resume consuming it, recomputing no epoch and
+   bitwise the run under `drop=0,seed=1`; (d) the chaos phase's
+   integrity leg with a `checkpoint_dir` (`keep_good=1`): bitwise the
+   leg without one, one snapshot retained; (e) the crash matrix
+   (`eventgrad_tpu_torch/utils/crash_matrix.py --device cuda`: 11 cells
+   and 2 preemption legs in child processes on the card, on 6 worker
+   threads beside (a)'s kill child and relaunch and (d); the timed
+   saves of (a)-(c) run before it starts), every verdict
+   equal to `artifacts/crash_matrix_cpu.json`'s. Each leg logs its
+   launches, snapshot bytes and save (fsync included) and restore
+   seconds beside the card's name and power limit;
+11. audit — the static-analysis path on the card: the audit CLI
    (`python -m eventgrad_tpu_torch.analysis.audit --device cuda`) over
    the 31 cells of the JAX auditor's matrix and its 14 oracles,
    plus the lint: every cell clean (rank isolation, the declared ring
@@ -211,7 +236,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    with derived bytes per neighbour 69,778,814 / 69,778,728 /
    26,167,110 / 6,542,186 equal to the formula, and the float32 metric
    139,557,632 / 139,557,456 / 52,334,220 / 13,084,372;
-11. summary — one JSON line of every kernel's numbers, the card's name and
+12. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -2498,6 +2523,356 @@ def phase_audit():
     return counts
 
 
+#: the resume phase's op-point: the flagship at 2 passes an epoch
+#: (512 synthetic CIFAR-shaped samples at global batch 256), 3 epochs
+RESUME_EPOCHS, RESUME_STEPS, RESUME_PER_RANK = 3, 2, 32
+
+#: the crash matrix's worker threads on the card, beside the phase's own
+#: legs and the kill child (the card machine has 8 host cores)
+MATRIX_WORKERS = 6
+
+
+def _resume_train(ck, epochs=RESUME_EPOCHS, **kw):
+    """The resume legs' run: ResNet-18 (bf16 compute), Ring(8), global
+    batch 256, SGD lr 0.01 momentum 0.9, the adaptive trigger; `ck` the
+    checkpoint_dir (a save every epoch unless `save_every` says else).
+    The kill child runs it too."""
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+
+    x, y = synthetic_dataset(RANKS * RESUME_PER_RANK * RESUME_STEPS,
+                             (32, 32, 3), seed=0)
+    kw.setdefault("algo", "eventgrad")
+    kw.setdefault("save_every", 1 if ck is not None else 0)
+    return egt.train(
+        egt.ResNet18(dtype=torch.bfloat16), egt.Ring(RANKS), x, y,
+        epochs=epochs, batch_size=RESUME_PER_RANK, learning_rate=0.01,
+        momentum=0.9,
+        event_cfg=egt.EventConfig(adaptive=True, horizon=1.05,
+                                  warmup_passes=2, max_silence=50),
+        random_sampler=True, seed=0, checkpoint_dir=ck, device=DEVICE, **kw)
+
+
+def resume_child(ck: str, log_path: str) -> int:
+    """Leg (a)'s run in a process of its own (forked from the crash
+    matrix's forkserver), records to `log_path`, killed by the crash
+    site its parent arms."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    with open(log_path, "a") as log:
+        def on_epoch(rec):
+            log.write(json.dumps(rec) + "\n")
+            log.flush()
+
+        _resume_train(ck, on_epoch=on_epoch)
+    return 0
+
+
+def _tree_bits(a, b, what):
+    """Every tensor of two states' flat forms (`train/state.to_flat`:
+    parameters, trace, statistics, event state with its buffers, scales
+    and queues, peer health, the random stream's bytes) bitwise."""
+    import torch
+
+    from eventgrad_tpu_torch.train import state as state_lib
+
+    fa, fb = state_lib.to_flat(a), state_lib.to_flat(b)
+    if fa.keys() != fb.keys():
+        raise SmokeError(f"{what}: fields differ "
+                         f"{sorted(set(fa) ^ set(fb))}")
+    for k in fa:
+        x, y = fa[k], fb[k]
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.contiguous().reshape(-1).view(torch.uint8),
+                y.contiguous().reshape(-1).view(torch.uint8)):
+            raise SmokeError(f"{what}: {k} not bitwise equal")
+
+
+def phase_resume():
+    """Checkpoint/resume, graceful preemption and the crash drills on the
+    flagship (deterministic algorithms): (a) a kill at `ckpt.mid_swap:2`
+    and a resume bitwise the run that never stopped; (b) the int8
+    carrier snapshot's round trip and two layout guards; (c) a scheduled
+    preemption of D-PSGD resumed bitwise; (d) the integrity leg with its
+    on-disk retention, bitwise the leg without; (e) the crash matrix on
+    the card against the JAX artifact, started once the timed saves of
+    (a)-(c) are done and run beside (a)'s kill child, its relaunch and
+    (d). Returns the launches of each kernel."""
+    import concurrent.futures
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.chaos.crashpoint import (
+        GracefulPreemption, marker_path,
+    )
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.exitcodes import CRASHPOINT_EXIT
+    from eventgrad_tpu_torch.train import state as state_lib
+    from eventgrad_tpu_torch.utils import checkpoint, crash_matrix
+
+    card = nvidia_smi("name,power.limit")
+    log(f"== resume: ResNet-18 (bf16 compute) x Ring(8), global batch 256, "
+        f"{RESUME_STEPS} passes x {RESUME_EPOCHS} epochs ({card})")
+    passes = RESUME_STEPS * RESUME_EPOCHS
+    totals = {}
+    root = tempfile.mkdtemp(prefix="eg-resume-")
+
+    def counted(leg, fn, must=None):
+        """`fn()` with its launches counted (also when it raises, as a
+        drained run does)."""
+        ops.reset_launch_counts()
+        try:
+            out = fn()
+        finally:
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            log(json.dumps({"leg": leg, "launches": {
+                k: v for k, v in counts.items() if v}, "card": card}))
+        for k, n in (must or {}).items():
+            if counts[k] != n:
+                raise SmokeError(f"{leg}: {k} launched {counts[k]} times, "
+                                 f"expected {n}")
+        return out
+
+    def timed_round_trip(leg, state, template):
+        """Save (fsync included) and restore seconds of `state`'s
+        snapshot after the last epoch, its bytes, and the restore onto
+        `template` bitwise the state."""
+        path = os.path.join(root, f"{leg}-timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, *state_lib.payload(state, RESUME_EPOCHS,
+                                                 "eventgrad"))
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, checkpoint.TENSORS))
+        t0 = time.perf_counter()
+        raw, meta = checkpoint.peek(path, device=DEVICE)
+        back = state_lib.from_flat(template, checkpoint.restore(
+            raw, state_lib.to_flat(template)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        _tree_bits(state, back, f"{leg} snapshot round trip")
+        shutil.rmtree(path)
+        log(json.dumps({"leg": leg, "snapshot_bytes": nbytes,
+                        "save_s": save_s, "restore_s": restore_s,
+                        "layout": meta["layout"], "card": card}))
+
+    def template(resident_wire=None):
+        return egt.init_train_state(
+            egt.ResNet18(dtype=torch.bfloat16), (32, 32, 3),
+            egt.Ring(RANKS), "eventgrad",
+            egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                            max_silence=50), 0, momentum=0.9,
+            resident_wire=resident_wire, device=DEVICE)
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        raise SmokeError("CUBLAS_WORKSPACE_CONFIG unset: the bitwise legs "
+                         "need deterministic cuBLAS")
+    was = torch.are_deterministic_algorithms_enabled()
+    was_bench = torch.backends.cudnn.benchmark
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    bg = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        # (a) the masked f32 wire: uninterrupted, then (beside the crash
+        # matrix, below) a child saving every epoch killed inside its
+        # epoch-3 save's swap, then the relaunch
+        s_u, h_u = counted("(a) eventgrad-f32",
+                           lambda: _resume_train(None),
+                           must={"masked_wire": passes,
+                                 "fused_mix_commit": passes})
+        timed_round_trip("(a) eventgrad-f32", s_u, template())
+
+        # (b) the int8 carrier (one save, at the end): the snapshot
+        # bitwise, the guards raise
+        ck_b = os.path.join(root, "b-int8")
+        carrier = dict(wire="int8", carrier_resident=True)
+        s_b, _ = counted("(b) eventgrad-int8-carrier",
+                         lambda: _resume_train(ck_b, save_every=0,
+                                               **carrier),
+                         must={"masked_wire_int8": passes,
+                               "fused_mix_commit_carrier": passes})
+        timed_round_trip("(b) eventgrad-int8-carrier", s_b,
+                         template(resident_wire="int8"))
+        for what, kw, cause in (
+                ("f32-resident", dict(wire="int8"),
+                 "checkpoint restore failed with carrier_resident=off: "
+                 "this snapshot was written by a carrier-resident "
+                 "wire='int8' run"),
+                ("bucketed=4", dict(carrier, bucketed=4),
+                 "checkpoint restore failed with bucketed=4: this snapshot "
+                 "was written by a monolithic (bucketed off) layout run")):
+            try:
+                _resume_train(ck_b, epochs=RESUME_EPOCHS + 1, resume=True,
+                              **kw)
+            except RuntimeError as e:
+                if not str(e).startswith(cause):
+                    raise SmokeError(f"(b) {what}: {e}") from e
+            else:
+                raise SmokeError(f"(b) a resume into {what} did not raise")
+        log(json.dumps({"leg": "(b) guards", "raised": ["f32-resident",
+                                                        "bucketed=4"]}))
+        del s_b
+        shutil.rmtree(ck_b)
+        torch.cuda.empty_cache()
+
+        # (c) D-PSGD preempted by schedule at epoch 2 (no save due: the
+        # drain forces one), resumed bitwise the run never preempted
+        spec = "drop=0,seed=1"
+        s_n, h_n = counted("(c) dpsgd-chaos", lambda: _resume_train(
+            None, algo="dpsgd", chaos=spec),
+            must={"fused_mix_sgd_gated": passes})
+        ck_c = os.path.join(root, "c-preempt")
+        try:
+            counted("(c) dpsgd-preempted", lambda: _resume_train(
+                ck_c, algo="dpsgd", chaos=spec + ",preempt=2@1",
+                save_every=0))
+        except GracefulPreemption as e:
+            info = e.info
+        else:
+            raise SmokeError("(c) no GracefulPreemption")
+        if info["epoch"] != 2 or not os.path.exists(marker_path(ck_c)):
+            raise SmokeError(f"(c) drain {info}")
+        nbytes = os.path.getsize(os.path.join(ck_c, "ckpt",
+                                              checkpoint.TENSORS))
+        t0 = time.perf_counter()
+        s_c, h_c = counted("(c) dpsgd-resumed", lambda: _resume_train(
+            ck_c, algo="dpsgd", chaos=spec + ",preempt=2@1", save_every=0,
+            resume=True), must={"fused_mix_sgd_gated": RESUME_STEPS})
+        resume_s = time.perf_counter() - t0
+        if os.path.exists(marker_path(ck_c)):
+            raise SmokeError("(c) the marker was not consumed")
+        if [r["epoch"] for r in h_c] != [3]:
+            raise SmokeError(f"(c) resumed epochs {[r['epoch'] for r in h_c]}")
+        _tree_bits(s_n, s_c, "(c) resumed vs never preempted")
+        _same_records(h_n[2:], h_c, "(c) epoch 3")
+        log(json.dumps({"leg": "(c) preempt + resume", "drain": info,
+                        "snapshot_bytes": nbytes, "resumed_run_s": resume_s,
+                        "card": card}))
+        del s_n, s_c
+        shutil.rmtree(ck_c)
+        torch.cuda.empty_cache()
+
+        # the crash matrix (e) runs from here beside the legs left, in
+        # child processes on the card; the timed saves above ran alone
+        matrix_fut = bg.submit(crash_matrix.run_matrix, "cuda",
+                               MATRIX_WORKERS)
+        t_matrix = time.perf_counter()
+
+        # (a), continued: the kill child and its relaunch
+        ck_a = os.path.join(root, "a-killed")
+        log_a = os.path.join(root, "a-killed.jsonl")
+        out_a = os.path.join(root, "a-killed.out")
+        t0 = time.perf_counter()
+        rc, out = crash_matrix.finish_child(crash_matrix.start_process(
+            resume_child, (ck_a, log_a), out_a, "ckpt.mid_swap:2"), out_a)
+        child_s = time.perf_counter() - t0
+        if (rc != CRASHPOINT_EXIT
+                or "crashpoint ckpt.mid_swap hit 2" not in out):
+            raise SmokeError(f"(a) kill child: exit {rc}, output "
+                             f"{out[-1500:]}")
+        left = sorted(n for n in os.listdir(ck_a) if n.startswith("ckpt"))
+        if "ckpt" in left or "ckpt.prev" not in left:
+            raise SmokeError(f"(a) after the kill: {left}")
+        with open(log_a) as f:
+            killed = [json.loads(line) for line in f if line.strip()]
+        if killed[0].get("crashpoint") != {"site": "ckpt.mid_swap", "hit": 2}:
+            raise SmokeError(f"(a) first record's rider "
+                             f"{killed[0].get('crashpoint')}")
+        t0 = time.perf_counter()
+        s_r, h_r = counted("(a) eventgrad-f32 resumed",
+                           lambda: _resume_train(ck_a, resume=True),
+                           must={"masked_wire": RESUME_STEPS,
+                                 "fused_mix_commit": RESUME_STEPS})
+        resume_s = time.perf_counter() - t0
+        if [r["epoch"] for r in h_r] != [RESUME_EPOCHS]:
+            raise SmokeError(f"(a) resumed epochs {[r['epoch'] for r in h_r]}")
+        _tree_bits(s_u, s_r, "(a) resumed vs uninterrupted")
+        _same_records(h_u[1:], [killed[1]] + h_r, "(a) epochs 2-3")
+        log(json.dumps({"leg": "(a) kill + resume", "left_after_kill": left,
+                        "child_s": child_s, "resumed_run_s": resume_s,
+                        "card": card}))
+        del s_u, s_r
+        shutil.rmtree(ck_a)
+        torch.cuda.empty_cache()
+
+        # (d) phase_chaos's integrity leg, with and without its on-disk
+        # retention (keep_good=1, so the second epoch prunes the first)
+        xc, yc = synthetic_dataset(RANKS * 32 * 3, (32, 32, 3), seed=0)
+
+        def integrity_leg(ck):
+            return egt.train(
+                egt.ResNet18(dtype=torch.bfloat16), egt.Ring(RANKS), xc, yc,
+                algo="eventgrad", epochs=2, batch_size=32,
+                learning_rate=0.01, momentum=0.9,
+                event_cfg=egt.EventConfig(adaptive=True, horizon=1.05,
+                                          warmup_passes=CHAOS_WARMUP,
+                                          max_silence=50),
+                random_sampler=True, seed=0,
+                chaos="seed=0,bitflip=1-7@0.3,nanstep=2@4",
+                integrity="keep_good=1", checkpoint_dir=ck,
+                save_every=1 if ck else 0, device=DEVICE)
+
+        s_0, h_0 = counted("(d) integrity", lambda: integrity_leg(None),
+                           must={"fused_mix_commit_gated": 6})
+        ck_d = os.path.join(root, "d-integrity")
+        s_1, h_1 = counted("(d) integrity-retained",
+                           lambda: integrity_leg(ck_d),
+                           must={"fused_mix_commit_gated": 6})
+        _tree_bits(s_0, s_1, "(d) with vs without a checkpoint_dir")
+        _same_records(h_0, h_1, "(d)", keys=(
+            "loss", "wire_rejects", "quarantined_steps",
+            "integrity_rollbacks", "msgs_saved_pct"))
+        good = checkpoint.RollingRetention(os.path.join(ck_d, "good"),
+                                           keep=1).snapshots()
+        if [e for e, _ in good] != [2]:
+            raise SmokeError(f"(d) retained {good}")
+        log(json.dumps({"leg": "(d) integrity retention",
+                        "retained_epochs": [e for e, _ in good],
+                        "card": card}))
+        del s_0, s_1
+        shutil.rmtree(ck_d)
+        torch.cuda.empty_cache()
+        matrix = matrix_fut.result()
+    finally:
+        # a failed leg still waits for the matrix's children; then the
+        # forkserver they and the kill child came from stops
+        bg.shutdown(wait=True)
+        crash_matrix.stop_forkserver()
+        torch.use_deterministic_algorithms(was)
+        torch.backends.cudnn.benchmark = was_bench
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) the crash matrix against the JAX artifact
+    ref = json.loads((HERE / "artifacts" / "crash_matrix_cpu.json")
+                     .read_text())
+    diffs = crash_matrix.compare(ref, matrix)
+    log(json.dumps({"leg": "(e) crash matrix", "n_cells": matrix["n_cells"],
+                    "preemption_legs": len(matrix["preemption"]["cells"]),
+                    "unresumable": matrix["unresumable"],
+                    "silent_data_loss": matrix["silent_data_loss"],
+                    "lost_epochs": [c["lost_epochs"]
+                                    for c in matrix["cells"]],
+                    "wall_s": matrix["wall_s"], "workers": matrix["workers"],
+                    "joined_after_s": time.perf_counter() - t_matrix,
+                    "card": card}))
+    if diffs:
+        raise SmokeError("(e) crash matrix vs the JAX artifact: "
+                         + "; ".join(diffs))
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -2583,7 +2958,7 @@ def main() -> int:
         for phase in (phase_main_path, phase_main_path_lm,
                       phase_main_path_lm_d128, phase_realdata,
                       phase_frontier, phase_bucketed_async, phase_chaos,
-                      phase_audit):
+                      phase_resume, phase_audit):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

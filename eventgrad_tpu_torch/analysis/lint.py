@@ -25,10 +25,18 @@ docstrings and comments never match.
     declared once, by `parallel/arena.py` `alloc_event_bufs`: an ad-hoc
     `.to(...)` inside a `bufs=` / `buf_scales=` keyword flags, and the
     EventState owner must still allocate through the helper.
+  * exit-code-literals — the exit codes are a contract: outside
+    `exitcodes.py` the package spells them `exitcodes.<NAME>`, never by
+    value.
+  * os-exit-confined — `os._exit` belongs to `chaos/crashpoint.py`.
+  * crashpoint-instrumented — every registered crash site is
+    instrumented at exactly one literal `crashpoint.hit("<name>")` call,
+    and no unregistered name is; a site whose seam the port does not
+    have yet is declared in `WAITING` with its ROADMAP item, and must
+    stay uninstrumented while it waits.
 
-The exit-code, `os._exit`, crashpoint, wall-clock, telemetry-ledger and
-shard_map rules of the JAX lint wait for the engines they guard (ROADMAP
-queue 1, items 6 and 8).
+The wall-clock, telemetry-ledger and shard_map rules of the JAX lint
+wait for the engines they guard (ROADMAP queue 1, items 6 and 8).
 
 CLI: `python -m eventgrad_tpu_torch.analysis.lint`.
 """
@@ -41,6 +49,8 @@ import os
 import sys
 from functools import cached_property
 from typing import Dict, Iterable, List, Optional, Sequence, Set
+
+from eventgrad_tpu_torch import exitcodes
 
 PACKAGE = "eventgrad_tpu_torch"
 REPO_ROOT = os.path.dirname(
@@ -347,11 +357,131 @@ class CarrierDtypeDeclared(Rule):
         return out
 
 
+class ExitCodeLiterals(Rule):
+    """The exit codes are a contract; the package spells them
+    `exitcodes.<NAME>`, never by value."""
+
+    name = "exit-code-literals"
+    CODES = frozenset(exitcodes.EXIT_CODE_NAMES)
+    ALLOWED = f"{PACKAGE}/exitcodes.py"
+
+    def check(self, files):
+        out = []
+        for sf in files:
+            if not _in_package(sf) or sf.rel == self.ALLOWED:
+                continue
+            for node in ast.walk(sf.tree):
+                if (isinstance(node, ast.Constant)
+                        and type(node.value) is int
+                        and node.value in self.CODES):
+                    out.append(self._v(
+                        sf, node.lineno,
+                        f"exit-code literal {node.value} outside "
+                        f"exitcodes.py — import {PACKAGE}.exitcodes "
+                        f"({exitcodes.EXIT_CODE_NAMES[node.value]}) "
+                        "instead of re-declaring the contract by value"))
+        return out
+
+
+class OsExitConfined(Rule):
+    """`os._exit` belongs to the crashpoint engine."""
+
+    name = "os-exit-confined"
+    OWNER = f"{PACKAGE}/chaos/crashpoint.py"
+
+    def check(self, files):
+        out = []
+        for sf in files:
+            if not _in_package(sf) or sf.rel == self.OWNER:
+                continue
+            for node in ast.walk(sf.tree):
+                if (isinstance(node, ast.Call)
+                        and isinstance(node.func, ast.Attribute)
+                        and node.func.attr == "_exit"
+                        and isinstance(node.func.value, ast.Name)
+                        and node.func.value.id == "os"):
+                    out.append(self._v(
+                        sf, node.lineno,
+                        "os._exit outside chaos/crashpoint.py — the hard-"
+                        "kill model belongs to the crashpoint engine "
+                        "(raise, or register a crash site)"))
+        return out
+
+
+class CrashpointInstrumented(Rule):
+    """Every registered crash site is instrumented at exactly one literal
+    `crashpoint.hit("<name>")` call, except a declared waiting site,
+    which must stay uninstrumented until its seam is ported."""
+
+    name = "crashpoint-instrumented"
+    OWNER = f"{PACKAGE}/chaos/crashpoint.py"
+    #: registered sites whose seam the port has not got yet, with the
+    #: ROADMAP item that brings it
+    WAITING = {
+        "membership.bootstrap":
+            "the membership join engine and its bootstrap stream "
+            "(ROADMAP queue 1, item 6, part 6d)",
+    }
+
+    def check(self, files):
+        from eventgrad_tpu_torch.chaos import crashpoint
+
+        out = []
+        used: Dict[str, List[str]] = {}
+        for sf in files:
+            if not _in_package(sf) or sf.rel == self.OWNER:
+                continue
+            for node in ast.walk(sf.tree):
+                if not (isinstance(node, ast.Call)
+                        and isinstance(node.func, ast.Attribute)
+                        and node.func.attr == "hit"
+                        and isinstance(node.func.value, ast.Name)
+                        and node.func.value.id == "crashpoint"):
+                    continue
+                site = _const_str(node.args[0]) if node.args else None
+                if site is None:
+                    out.append(self._v(
+                        sf, node.lineno,
+                        "crashpoint.hit() must take a string literal "
+                        "(the instrumentation lint counts literal sites)"))
+                    continue
+                used.setdefault(site, []).append(sf.rel)
+        unregistered = set(used) - set(crashpoint.SITES)
+        dead = set(crashpoint.SITES) - set(used) - set(self.WAITING)
+        dupes = {n: fs for n, fs in used.items() if len(fs) > 1}
+        stale = {n for n in self.WAITING
+                 if n in used or n not in crashpoint.SITES
+                 or "ROADMAP queue 1, item" not in self.WAITING[n]}
+        if unregistered:
+            out.append(Violation(
+                self.name, PACKAGE, 1,
+                f"unregistered crashpoint names instrumented: "
+                f"{sorted(unregistered)}"))
+        if dead:
+            out.append(Violation(
+                self.name, PACKAGE, 1,
+                f"registered crashpoints with NO instrumented site: "
+                f"{sorted(dead)}"))
+        if dupes:
+            out.append(Violation(
+                self.name, PACKAGE, 1,
+                f"crashpoints instrumented at more than one site: {dupes}"))
+        if stale:
+            out.append(Violation(
+                self.name, PACKAGE, 1,
+                f"waiting crashpoints {sorted(stale)}: a waiting site is "
+                "registered, uninstrumented and names its ROADMAP item"))
+        return out
+
+
 RULES: Sequence[Rule] = (
     NoHostSyncInTraced(),
     KernelRegistered(),
     TriggerPolicyRegistered(),
     CarrierDtypeDeclared(),
+    ExitCodeLiterals(),
+    OsExitConfined(),
+    CrashpointInstrumented(),
 )
 
 

@@ -10,11 +10,15 @@ and read on the device by pass; `flip_one_bit`; the lags), `monitor`
 (`PeerHealth`, `sync_requests`, `consensus_error`, the records'
 `health_record`), `policy` (`RecoveryPolicy`, `alive_mask`, the ring
 heal), `integrity` (`IntegrityConfig`, `DivergenceSentinel`,
-`IntegrityEscalation`) and `membership.force_refresh`. The `preempt=`
-clause and the `leave=` / `join=` membership transitions wait (ROADMAP
-queue 1, item 6, parts 6b and 6d).
+`IntegrityEscalation`), `membership.force_refresh` and `crashpoint`
+(the crash sites, `PreemptGuard`, `GracefulPreemption` and the
+PREEMPTED marker, with the `preempt=` clause). The `leave=` / `join=`
+membership transitions wait (ROADMAP queue 1, item 6, part 6d).
 """
 
+from eventgrad_tpu_torch.chaos.crashpoint import (
+    GracefulPreemption, PreemptGuard,
+)
 from eventgrad_tpu_torch.chaos.integrity import (
     DivergenceSentinel, IntegrityConfig, IntegrityEscalation,
 )
@@ -25,5 +29,5 @@ from eventgrad_tpu_torch.chaos.schedule import (
 )
 
 __all__ = ["ChaosSchedule", "DivergenceSentinel", "FlakyWindow",
-           "IntegrityConfig", "IntegrityEscalation", "LagWindow",
-           "PeerHealth", "RecoveryPolicy"]
+           "GracefulPreemption", "IntegrityConfig", "IntegrityEscalation",
+           "LagWindow", "PeerHealth", "PreemptGuard", "RecoveryPolicy"]

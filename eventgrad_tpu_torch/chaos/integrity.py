@@ -20,9 +20,11 @@ Port of `eventgrad_tpu/chaos/integrity.py`. Three defense layers:
     block (one epoch in the port); on a trip the loop restores every
     rank from the in-memory last-known-good snapshot, re-arms every
     event buffer (`membership.force_refresh`), hardens the step
-    (`escalate`: checksums and quarantine on) and replays. A trip beyond
-    `max_rollbacks` raises `IntegrityEscalation`; the process exit code
-    for it is `INTEGRITY_ABORT_EXIT`.
+    (`escalate`: checksums and quarantine on) and replays. With a
+    `checkpoint_dir` a healthy epoch at checkpoint cadence is also
+    retained on disk (`<checkpoint_dir>/good`, the newest `keep_good`).
+    A trip beyond `max_rollbacks` raises `IntegrityEscalation`; the
+    process exit code for it is `INTEGRITY_ABORT_EXIT`.
 """
 
 from __future__ import annotations
@@ -73,8 +75,8 @@ class IntegrityConfig:
     consensus_floor: float = 10.0
     #: rollbacks allowed before IntegrityEscalation
     max_rollbacks: int = 1
-    #: last-known-good snapshots retained on disk by the JAX loop (kept
-    #: for the record's round trip; the port holds one in memory)
+    #: last-known-good snapshots retained on disk (with a checkpoint_dir:
+    #: `<checkpoint_dir>/good`, `utils/checkpoint.RollingRetention`)
     keep_good: int = 2
 
     def __post_init__(self):

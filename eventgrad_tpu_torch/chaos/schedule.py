@@ -25,20 +25,26 @@ a record replays exactly. The clauses the port runs:
                 run), a lossless late link the bounded-async engine
                 (`train(staleness=D >= 2)`) queues;
   * `slow`    — `slow=R@f`: every message rank R sends arrives f passes
-                late (composes with `lag=` by max).
+                late (composes with `lag=` by max);
+  * `preempt` — `preempt=E@S` (a bare `preempt=E` means step 1): a
+                graceful-preemption notice arriving in epoch E at step
+                S, host-side (never inside the step): the training loop
+                drains at the end of that epoch (`chaos/crashpoint.py`).
+                A resume ignores notices at or before its start epoch,
+                so later clauses preempt later incarnations.
 
 The effective lag clamps to the bound D; under staleness <= 1 the clamp
-makes `lag=` / `slow=` no-ops in the step. Two clauses of the JAX
-vocabulary wait: `preempt=` (ROADMAP queue 1, item 6, part 6b) and the
-membership events `leave=` / `join=` (part 6d); a schedule that sets one
-raises NotImplementedError. The dict form keeps the JAX package's keys,
-so a schedule serializes to the same record.
+makes `lag=` / `slow=` no-ops in the step. The membership events
+`leave=` / `join=` of the JAX vocabulary wait (ROADMAP queue 1, item 6,
+part 6d); a schedule that sets one raises NotImplementedError. The dict
+form keeps the JAX package's keys, so a schedule serializes to the same
+record.
 
 Spec grammar (comma-separated clauses; `flaky=`, `die=`, `bitflip=`,
-`nanstep=`, `lag=`, `slow=` accumulate):
+`nanstep=`, `preempt=`, `lag=`, `slow=` accumulate):
 
     drop=0.2,seed=7,flaky=100-200@0.8,delay=3,die=3@500,
-    bitflip=40-60@0.5,nanstep=2@45,lag=50-90@3,slow=2@4
+    bitflip=40-60@0.5,nanstep=2@45,preempt=6@2,lag=50-90@3,slow=2@4
 """
 
 from __future__ import annotations
@@ -48,7 +54,6 @@ from typing import Any, Dict, Tuple
 
 #: where the clauses still to port wait
 ITEM6 = "ROADMAP queue 1, item 6"
-_PREEMPT = f"{ITEM6}, part 6b"
 _MEMBERSHIP = f"{ITEM6}, part 6d"
 
 
@@ -101,7 +106,8 @@ def _sorted_windows(ws):
 class ChaosSchedule:
     """A replayable fault schedule (the JAX package's fields). `death`
     and `nanstep` are ((rank, pass), ...) pairs, `slow` ((rank, lag),
-    ...); `membership` and `preempt` must stay empty."""
+    ...), `preempt` ((epoch, step), ...); `membership` must stay
+    empty."""
 
     seed: int = 0
     drop_p: float = 0.0
@@ -116,9 +122,6 @@ class ChaosSchedule:
     slow: Tuple[Tuple[int, int], ...] = ()
 
     def __post_init__(self):
-        if self.preempt:
-            raise NotImplementedError(
-                f"chaos clause preempt= is not ported yet ({_PREEMPT})")
         if self.membership:
             raise NotImplementedError(
                 "chaos clauses leave= / join= (membership transitions) are "
@@ -139,6 +142,13 @@ class ChaosSchedule:
         for r, t in self.nanstep:
             if r < 0 or t < 0:
                 raise ValueError(f"nanstep ({r}, {t}) invalid")
+        object.__setattr__(self, "preempt", tuple(sorted(self.preempt)))
+        for e, s in self.preempt:
+            if e < 1 or s < 1:
+                raise ValueError(
+                    f"preempt ({e}, {s}) invalid: epoch and step are "
+                    "1-based"
+                )
         object.__setattr__(self, "lag", _sorted_windows(self.lag))
         object.__setattr__(self, "slow", tuple(sorted(self.slow)))
         for r, f in self.slow:
@@ -151,11 +161,12 @@ class ChaosSchedule:
     @property
     def is_noop(self) -> bool:
         """True when the schedule injects nothing (the drop-rate-0 point,
-        bitwise the chaos=None trajectory)."""
+        bitwise the chaos=None trajectory); a preemption notice counts,
+        as in the JAX schedule."""
         return (self.drop_p == 0.0 and not self.flaky
                 and self.deliver_every == 1 and not self.death
-                and not self.bitflip and not self.nanstep and not self.lag
-                and not self.slow)
+                and not self.bitflip and not self.nanstep
+                and not self.preempt and not self.lag and not self.slow)
 
     @property
     def has_lags(self) -> bool:
@@ -211,6 +222,8 @@ class ChaosSchedule:
                             for w in self.bitflip]
         if self.nanstep:
             d["nanstep"] = [list(e) for e in self.nanstep]
+        if self.preempt:
+            d["preempt"] = [list(e) for e in self.preempt]
         if self.lag:
             d["lag"] = [[w.start_pass, w.end_pass, w.lag] for w in self.lag]
         if self.slow:
@@ -253,6 +266,8 @@ class ChaosSchedule:
             parts.append(f"bitflip={w.start_pass}-{w.end_pass}@{w.drop_p:g}")
         for r, t in self.nanstep:
             parts.append(f"nanstep={r}@{t}")
+        for e, s in self.preempt:
+            parts.append(f"preempt={e}@{s}")
         for w in self.lag:
             parts.append(f"lag={w.start_pass}-{w.end_pass}@{w.lag}")
         for r, f in self.slow:

@@ -7,13 +7,15 @@ module, because the codes cross processes.
   * 0                        — the run completed.
   * ``PREEMPTED_EXIT``       — graceful preemption: the child drained,
     snapshotted and exited on purpose; relaunch at once (75, sysexits.h
-    EX_TEMPFAIL). The port's preemption clause waits (ROADMAP queue 1,
-    item 6, part 6b); the code is kept so the contract stays whole.
+    EX_TEMPFAIL). A run exits with it on `chaos.GracefulPreemption`
+    (a SIGTERM/SIGINT or a `preempt=` notice; `utils/crash_matrix.py`'s
+    children do).
   * ``INTEGRITY_ABORT_EXIT`` — the divergence sentinel tripped beyond
     the rollback budget (`chaos/integrity.py`): a relaunch would restore
     the same last-known-good state and replay the same divergence, so
     it is permanent.
-  * ``CRASHPOINT_EXIT``      — an armed crash drill fired (part 6b).
+  * ``CRASHPOINT_EXIT``      — an armed crash drill fired
+    (`chaos/crashpoint.py`'s `os._exit`).
   * anything else nonzero    — a crash.
 """
 

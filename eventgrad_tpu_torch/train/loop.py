@@ -2,11 +2,12 @@
 
 Port of `eventgrad_tpu/train/loop.py`: `train` (the per-epoch loop —
 one host step per pass, no K-epoch dispatch blocks, no dispatch
-pipeline, telemetry or checkpointing yet; the compact wire's
-warmup-then-rebuild capacity autotune; the bucketed schedule, the
-bounded-async staleness D >= 2, the chaos schedule's fault clauses with
-the recovery policies, and the integrity engine's sentinel and
-in-memory rollback), `evaluate`, `consensus_params` and `rank0_slice`.
+pipeline or telemetry yet; the compact wire's warmup-then-rebuild
+capacity autotune; the bucketed schedule, the bounded-async staleness
+D >= 2, the chaos schedule's fault clauses with the recovery policies,
+the integrity engine's sentinel and rollback; crash-safe snapshots,
+resume, graceful preemption and the crash sites), `evaluate`,
+`consensus_params` and `rank0_slice`.
 History records carry the JAX records' keys for the fields the slice
 computes.
 """
@@ -15,12 +16,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from eventgrad_tpu_torch.chaos import crashpoint
 from eventgrad_tpu_torch.chaos import integrity as chaos_integrity
 from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
 from eventgrad_tpu_torch.chaos.membership import force_refresh
@@ -33,10 +37,12 @@ from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
 from eventgrad_tpu_torch.parallel.topology import Topology
+from eventgrad_tpu_torch.train import state as state_lib
 from eventgrad_tpu_torch.train.state import (
     EVENT_ALGOS, TrainState, init_train_state,
 )
 from eventgrad_tpu_torch.train.steps import make_train_step
+from eventgrad_tpu_torch.utils import checkpoint
 from eventgrad_tpu_torch.utils.devices import resolve_device
 from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
 
@@ -103,6 +109,108 @@ def _clone(x):
     return x
 
 
+def _known_added(path: str) -> bool:
+    """State fields added after a snapshot could have been written, which
+    a resume may fill from their initial values (the JAX loop's list)."""
+    return (path == "state/event/num_deferred"
+            or path.startswith("state/telemetry")
+            or path.startswith("trace_carry"))
+
+
+def _resume(found: str, template: TrainState, *, algo: str, staleness: int,
+            resident_wire: Optional[str], bucketed_k: int, device
+            ) -> Tuple[TrainState, int]:
+    """(the state restored from the snapshot `found`, its epoch). A
+    snapshot of another algorithm or written on another device type
+    raises. The three layout guards run next, both directions, with the
+    JAX loop's causes: the queue depth D, the receive buffers' resident
+    dtype and the bucket count K are checkpoint layout. Then the restore
+    onto `template`; a snapshot that lacks only known-added fields
+    resumes with them at their initial values, loudly. Anything else
+    raises."""
+    raw, meta = checkpoint.peek(found, device=device)
+    lay = meta["layout"]
+    if lay["algo"] != algo:
+        raise RuntimeError(
+            f"checkpoint restore failed with algo={algo!r}: this snapshot "
+            f"was written by an algo={lay['algo']!r} run, and the "
+            "algorithm fixes the state's layout (trigger state, receive "
+            "buffers); resume with the snapshot's algorithm")
+    if meta["device"] != device.type:
+        raise RuntimeError(
+            f"checkpoint restore failed on device {device.type!r}: this "
+            f"snapshot was written on {meta['device']!r}, and a snapshot "
+            "restores onto the device type it was written on (the random "
+            "stream's state is the device's generator's)")
+    snap_depth = int(lay["staleness_depth"])
+    if snap_depth != (staleness if staleness >= 2 else 0) and algo in (
+            "eventgrad", "sp_eventgrad"):
+        snap_word = (
+            f"staleness={snap_depth} (bounded-async, "
+            f"{snap_depth}-deep per-edge delivery queues)"
+            if snap_depth else "staleness<=1 (no delivery queues)"
+        )
+        raise RuntimeError(
+            f"checkpoint restore failed with staleness="
+            f"{staleness}: this snapshot was written by a "
+            f"{snap_word} run, and the bounded-async queue "
+            "depth D is part of the state layout (EventState"
+            ".pending / SparseState.pending) — "
+            "resuming across a different D would "
+            + ("silently drop the snapshot's in-flight "
+               "messages" if snap_depth else
+               "fabricate empty in-flight queues")
+            + "; resume with the snapshot's original "
+            f"staleness={'%d' % snap_depth if snap_depth >= 2 else '0/1'}"
+            " setting, then re-snapshot to migrate"
+        )
+    snap_res = (None if lay["resident_dtype"] == "f32"
+                else lay["resident_dtype"])
+    if snap_res != resident_wire and algo == "eventgrad":
+        res_word = (f"carrier-resident wire={snap_res!r}" if snap_res
+                    else "f32-resident")
+        raise RuntimeError(
+            "checkpoint restore failed with carrier_resident="
+            f"{'on (wire=%r)' % resident_wire if resident_wire else 'off'}: "
+            f"this snapshot was written by a "
+            f"{res_word} run, and the resident dtype "
+            "of the EventState receive buffers is part of the "
+            "checkpoint layout — a cross-resident restore would "
+            "silently cast the buffers (and orphan or fabricate "
+            "the int8 dequant scales); resume with the "
+            "snapshot's original carrier_resident/wire setting, "
+            "then re-snapshot to migrate"
+        )
+    snap_k = int(lay["buckets"])
+    if snap_k != bucketed_k and algo == "eventgrad":
+        snap_kword = (
+            f"bucketed={snap_k} (per-bucket EventState buffers)"
+            if snap_k > 1 else
+            "monolithic (bucketed off) layout"
+        )
+        raise RuntimeError(
+            "checkpoint restore failed with bucketed="
+            f"{bucketed_k if bucketed_k > 1 else 'off'}: this "
+            f"snapshot was written by a {snap_kword} run, and "
+            "the bucket count K is part of the EventState "
+            "layout (receive buffers, dequant scales, and "
+            "bounded-async delivery queues are carried "
+            "per-bucket) — resume with the snapshot's original "
+            "bucketed="
+            f"{'%d' % snap_k if snap_k > 1 else 'off'} setting, "
+            "then re-snapshot to migrate"
+        )
+    flat, missing = checkpoint.restore_with_fill(
+        raw, state_lib.to_flat(template))
+    unknown = [m for m in missing if not _known_added(m)]
+    if unknown:
+        raise ValueError(f"snapshot lacks leaves {unknown}")
+    if missing:
+        warnings.warn(f"snapshot predates state fields {missing}; they "
+                      "resume from init values")
+    return state_lib.from_flat(template, flat), int(meta["epoch"])
+
+
 @torch.no_grad()
 def evaluate(model, params, batch_stats, x, y, batch_size: int = 1000,
              device=None) -> Dict[str, float]:
@@ -166,6 +274,9 @@ def train(
     chaos_policy: Optional[RecoveryPolicy] = None,
     integrity=None,
     checkpoint_dir: Optional[str] = None,
+    save_every: int = 0,
+    resume: bool = False,
+    on_epoch: Optional[Callable[[Dict[str, Any]], None]] = None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
@@ -233,8 +344,42 @@ def train(
     `quarantined_steps` and `integrity_rollbacks`, the first one the
     config as `integrity`, the first after a rollback
     `integrity_rollback` (reason, tripped and restored epochs, hardened).
-    A `checkpoint_dir` (the JAX loop's on-disk retention and
-    checkpoints) is not ported yet (ROADMAP queue 1, item 6, part 6b)."""
+
+    With a `checkpoint_dir` the whole state (`train/state.to_flat`:
+    parameters, trace, BatchNorm statistics, pass counter, the event
+    state with its buffers, scales and queues, the top-k state, the peer
+    health and the random stream) is snapshotted to
+    `<checkpoint_dir>/ckpt` every `save_every` epochs and at the end
+    (`utils/checkpoint.save`, crash-safe). `resume=True` restores the
+    newest complete snapshot (`latest`, falling back to `ckpt.prev`, and
+    loudly from a corrupt primary to its twin) after the layout guards:
+    a snapshot of another queue depth D, resident dtype or bucket count
+    K raises RuntimeError with the JAX loop's cause. The run then goes
+    on from the snapshot's epoch + 1 (no snapshot: from the start), and
+    is bitwise the run that never stopped, except that the compact
+    wire's capacity autotune starts again (the snapshot holds no
+    autotune state, as the JAX snapshot holds none: a resumed compact
+    run is dense until it re-decides). A drained predecessor's
+    PREEMPTED marker is consumed at start. With the integrity rollback
+    on, a healthy epoch where a save is due is also retained in
+    `<checkpoint_dir>/good` (`RollingRetention`, the newest
+    `keep_good`); the rollback itself restores the in-memory copy.
+
+    Graceful preemption: with a `checkpoint_dir`, SIGTERM / SIGINT set a
+    flag (`chaos.crashpoint.PreemptGuard`, the previous handlers back on
+    exit), and the first `preempt=E@S` notice of the chaos schedule past
+    the start epoch arrives in epoch E. Either drains at the end of the
+    epoch (the port's block): a snapshot of it, the PREEMPTED marker,
+    then `chaos.GracefulPreemption` (`info`: reason, epoch, snapshot,
+    drain_s, marker), for the exit code `exitcodes.PREEMPTED_EXIT`.
+    `EG_CRASHPOINT=site[:n]` arms a hard kill at a named seam
+    (`chaos/crashpoint.py`): `loop.block_dispatched` after an epoch's
+    steps ran and before any readback, `loop.block_end` after the
+    epoch's host work and any due save, `integrity.rollback` between a
+    rollback's restore and its replay, and the three sites of
+    `checkpoint.save`; the first record then carries `crashpoint`
+    ({site, hit}). `on_epoch(rec)` is called with each record as it is
+    appended."""
     device = resolve_device(device)
     if gossip_wire not in ("dense", "compact"):
         raise ValueError(
@@ -264,11 +409,17 @@ def train(
             )
     if algo in EVENT_ALGOS:
         event_cfg = event_cfg or EventConfig()
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir (checkpoints, resume and the integrity engine's "
-            "on-disk retention) is not ported yet (ROADMAP queue 1, item 6, "
-            "part 6b); the rollback's last-known-good is held in memory")
+    if save_every < 0:
+        raise ValueError(f"save_every must be >= 0, got {save_every}")
+    if resume and checkpoint_dir is None:
+        raise ValueError("resume=True needs a checkpoint_dir to resume from")
+    ckpt_path = (os.path.join(checkpoint_dir, "ckpt") if checkpoint_dir
+                 else None)
+    if checkpoint_dir:
+        # a drained predecessor's PREEMPTED marker: this run supersedes it
+        crashpoint.consume_marker(checkpoint_dir)
+    # the armed crash drill, stamped on the first record
+    crash_armed = crashpoint.armed()
     chaos_sched = resolve_chaos(chaos) if chaos is not None else None
     integ_cfg = chaos_integrity.resolve(integrity)
     integ_engine_on = integ_cfg is not None and integ_cfg.sentinel
@@ -324,6 +475,14 @@ def train(
     if chaos_sched is not None:
         state = state.replace(chaos=chaos_monitor.PeerHealth.init(topo,
                                                                   device))
+    start_epoch = 0
+    if ckpt_path and resume:
+        found = checkpoint.latest(ckpt_path)
+        if found:
+            state, start_epoch = _resume(
+                found, state, algo=algo, staleness=staleness,
+                resident_wire=resident_wire, bucketed_k=bucketed_k,
+                device=device)
     spec = arena_spec(model)
     eval_on = x_test is not None and log_every_epoch
     history: List[Dict[str, Any]] = []
@@ -341,187 +500,240 @@ def train(
                 if integ_engine_on else None)
     good = None
     if integ_rollback_on:
-        good = {"state": _clone(state), "epoch": 0,
+        good = {"state": _clone(state), "epoch": start_epoch,
                 "sentinel": sentinel.snapshot()}
+    # the on-disk retention of healthy epochs at checkpoint cadence
+    retention = (checkpoint.RollingRetention(
+        os.path.join(checkpoint_dir, "good"), keep=integ_cfg.keep_good)
+        if integ_rollback_on and checkpoint_dir else None)
     rollbacks, rollback_info = 0, None
-    epoch = 0
-    while epoch < epochs:
-        epoch += 1
-        mode_now = ("compact" if compact_capacity is not None
-                    or compact_static else "dense")
-        pass_base = state.pass_num
-        idx = epoch_index_plan(
-            len(x), n_ranks, batch_size, random=random_sampler, seed=seed,
-            epoch=epoch,
-        )
-        xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, ...]
-        yb = torch.from_numpy(y[idx]).to(device)
-        _sync(device)
-        t0 = time.perf_counter()
-        ms = []
-        for s in range(steps):
-            state, m = step(state, (xb[:, s], yb[:, s]))
-            ms.append(m)
-        _sync(device)
-        dt = time.perf_counter() - t0
-        m_e = {
-            k: torch.stack([m[k] for m in ms]).cpu().numpy() for k in ms[0]
-        }
-        rec = {
-            "epoch": epoch,
-            "algo": algo,
-            "steps": steps,
-            "wall_s": dt,
-            "loss": float(m_e["loss"].mean()),
-            "train_acc": 100.0 * float(m_e["correct"].sum())
-            / (n_ranks * steps * batch_size * labels_per_sample),
-            "sent_bytes_per_step_per_chip": _step_mean(m_e["sent_bytes"]),
-            "sent_bytes_wire_real_per_step_per_chip": _step_mean(
-                m_e["sent_bytes_wire_real"]
-            ),
-            "n_params": spec.n_total,
-            "arena": True,
-            "wire": wire,
-            "resident_dtype": resident_wire or "f32",
-            "staleness": int(staleness),
-            "device": str(device),
-        }
-        if bucketed_k > 1:
-            rec["buckets"] = min(bucketed_k, spec.n_leaves)
-            if "sent_bytes_wire_real_per_bucket" in m_e:
-                rec["sent_bytes_wire_real_per_bucket"] = [
-                    float(v) for v in
-                    m_e["sent_bytes_wire_real_per_bucket"][-1, 0]]
-        if gossip_wire == "compact":
-            rec["gossip_wire"] = mode_now
-            if compact_capacity is not None:
-                rec["compact_capacity"] = int(compact_capacity)
-            if compact_note is not None:
-                rec.update(compact_note)
-                compact_note = None
-        if algo in EVENT_ALGOS:
-            rec["policy"] = pol.name
-            events_total = int(m_e["num_events"][-1].sum())
-            rec["num_deferred"] = int(m_e["num_deferred"][-1].sum())
-            rec["num_events"] = events_total
-            rec["msgs_saved_pct"] = msgs_saved_pct(
-                events_total, state.pass_num, spec.n_leaves,
-                topo.n_neighbors, n_ranks,
+    # the first preempt= notice past the start epoch is this
+    # incarnation's (a resume ignores the notices its drained
+    # predecessor honoured)
+    preempt_at = None
+    if chaos_sched is not None and chaos_sched.preempt:
+        preempt_at = next(((e, s) for e, s in chaos_sched.preempt
+                           if e > start_epoch), None)
+
+    def boundary_payload():
+        """The snapshot at the current epoch boundary: one definition
+        for the periodic save and the preemption drain."""
+        return state_lib.payload(state, epoch, algo)
+
+    epoch = start_epoch
+    with crashpoint.PreemptGuard(enabled=ckpt_path is not None) as guard:
+        while epoch < epochs:
+            epoch += 1
+            mode_now = ("compact" if compact_capacity is not None
+                        or compact_static else "dense")
+            pass_base = state.pass_num
+            idx = epoch_index_plan(
+                len(x), n_ranks, batch_size, random=random_sampler, seed=seed,
+                epoch=epoch,
             )
-            rec["fired_frac"] = float(m_e["fired_frac"].mean())
-            if "edge_staleness" in m_e:
-                # the end-of-epoch per-edge staleness peak and the
-                # cumulative late commits
-                rec["edge_staleness_max"] = int(
-                    m_e["edge_staleness"][-1].max())
-                rec["late_commits"] = int(m_e["late_commits"][-1].sum())
-        if chaos_sched is not None:
-            if not history:
-                rec["chaos"] = chaos_sched.to_dict()
-                if chaos_policy is not None:
-                    rec["chaos_policy"] = chaos_policy.to_dict()
-            rec.update(chaos_monitor.health_record(
-                m_e["edge_silence"][-1], m_e["chaos_drops"][-1],
-                event_cfg.max_silence if event_cfg else 0))
-        if integ_cfg is not None:
-            if not history:
-                rec["integrity"] = integ_cfg.to_dict()
-            rec["wire_rejects"] = int(m_e["integrity_wire_reject"].sum())
-            rec["quarantined_steps"] = int(
-                m_e["integrity_quarantined"].sum())
-            rec["integrity_rollbacks"] = rollbacks
-            if rollback_info is not None:
-                rec["integrity_rollback"] = rollback_info
-                rollback_info = None
-        cerr = None
-        if probe_on:
-            # the consensus error ||p_r - mean(p)|| at the epoch's end:
-            # the drift that tells quiet links from a partition
-            cerr = chaos_monitor.consensus_error(state.params).cpu().numpy()
-            rec["consensus_err_max"] = float(cerr.max())
-            rec["consensus_err_mean"] = float(cerr.mean())
-        if eval_on:
-            test = evaluate(
-                model, consensus_params(state.params),
-                rank0_slice(state.batch_stats), x_test, y_test, device=device,
-            )
-            rec.update({"test_" + k: v for k, v in test.items()})
-        history.append(rec)
-        if sentinel is not None:
-            reason = sentinel.observe(
-                float(np.asarray(m_e["loss"], np.float64).mean()),
-                None if cerr is None else float(cerr.max()))
-            if reason is not None:
-                if not integ_rollback_on or rollbacks >= integ_cfg.max_rollbacks:
-                    raise chaos_integrity.IntegrityEscalation(
-                        f"divergence sentinel tripped ({reason}) at epoch "
-                        f"{epoch} with "
-                        + ("rollback disarmed" if not integ_rollback_on
-                           else "the rollback budget spent "
-                           f"({rollbacks}/{integ_cfg.max_rollbacks})")
-                        + "; the retained last-known-good state cannot "
-                        "outrun this fault — restarting would replay the "
-                        "same divergence")
-                rollbacks += 1
-                # every rank from last-known-good, every event buffer
-                # re-armed: the next pass force-fires every exchange
-                state = force_refresh(_clone(good["state"]), event_cfg)
-                hardened = False
-                if integ_cfg.escalate and integ_now.hardened() != integ_now:
-                    # the replay meets the same pass-keyed faults: without
-                    # checksums and quarantine it would diverge again
-                    integ_now = integ_now.hardened()
-                    hardened = True
-                    step = build(mode_now, compact_capacity)
-                sentinel.rewind(good["sentinel"])
-                rollback_info = {"reason": reason, "tripped_epoch": epoch,
-                                 "restored_epoch": good["epoch"],
-                                 "hardened": hardened}
-                epoch = good["epoch"]
-                continue
-            if integ_rollback_on:
-                good = {"state": _clone(state), "epoch": epoch,
-                        "sentinel": sentinel.snapshot()}
-        if not compact_done:
-            # the capacity is one static number for every rank: the peak
-            # is over the ranks of the post-warmup steps (pass ==
-            # warmup_passes is already real trigger data)
-            pnums = pass_base + 1 + np.arange(steps)
-            post = m_e["fired_elems"][pnums >= warmup_passes]
-            if post.size:
-                compact_fired_peak = max(compact_fired_peak,
-                                         float(post.max()))
-                compact_post_steps += int(post.shape[0])
-            if compact_frac is None:
-                enough = compact_post_steps >= COMPACT_MIN_SAMPLES
-            else:
-                enough = bool(pnums[-1] >= warmup_passes)
-            if enough:
-                n = spec.n_total
-                floor = collectives.compact_capacity_floor(spec.sizes)
-                if bucketed_k > 1 and algo == "eventgrad":
-                    # every bucket must fit its own largest leaf
-                    floor = max(floor, collectives.bucketed_capacity_floor(
-                        spec.buckets(bucketed_k)))
-                autotuned = compact_frac is None
-                if autotuned:
-                    cap = collectives.choose_capacity(
-                        n, compact_fired_peak, floor)
-                    compact_note = {
-                        "compact_autotuned": True,
-                        "compact_fired_peak_elems": compact_fired_peak,
-                    }
+            xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, ...]
+            yb = torch.from_numpy(y[idx]).to(device)
+            _sync(device)
+            t0 = time.perf_counter()
+            ms = []
+            for s in range(steps):
+                state, m = step(state, (xb[:, s], yb[:, s]))
+                ms.append(m)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            # the epoch's steps ran; none of its host work has
+            crashpoint.hit("loop.block_dispatched")
+            m_e = {
+                k: torch.stack([m[k] for m in ms]).cpu().numpy() for k in ms[0]
+            }
+            rec = {
+                "epoch": epoch,
+                "algo": algo,
+                "steps": steps,
+                "wall_s": dt,
+                "loss": float(m_e["loss"].mean()),
+                "train_acc": 100.0 * float(m_e["correct"].sum())
+                / (n_ranks * steps * batch_size * labels_per_sample),
+                "sent_bytes_per_step_per_chip": _step_mean(m_e["sent_bytes"]),
+                "sent_bytes_wire_real_per_step_per_chip": _step_mean(
+                    m_e["sent_bytes_wire_real"]
+                ),
+                "n_params": spec.n_total,
+                "arena": True,
+                "wire": wire,
+                "resident_dtype": resident_wire or "f32",
+                "staleness": int(staleness),
+                "device": str(device),
+            }
+            if bucketed_k > 1:
+                rec["buckets"] = min(bucketed_k, spec.n_leaves)
+                if "sent_bytes_wire_real_per_bucket" in m_e:
+                    rec["sent_bytes_wire_real_per_bucket"] = [
+                        float(v) for v in
+                        m_e["sent_bytes_wire_real_per_bucket"][-1, 0]]
+            if gossip_wire == "compact":
+                rec["gossip_wire"] = mode_now
+                if compact_capacity is not None:
+                    rec["compact_capacity"] = int(compact_capacity)
+                if compact_note is not None:
+                    rec.update(compact_note)
+                    compact_note = None
+            if algo in EVENT_ALGOS:
+                rec["policy"] = pol.name
+                events_total = int(m_e["num_events"][-1].sum())
+                rec["num_deferred"] = int(m_e["num_deferred"][-1].sum())
+                rec["num_events"] = events_total
+                rec["msgs_saved_pct"] = msgs_saved_pct(
+                    events_total, state.pass_num, spec.n_leaves,
+                    topo.n_neighbors, n_ranks,
+                )
+                rec["fired_frac"] = float(m_e["fired_frac"].mean())
+                if "edge_staleness" in m_e:
+                    # the end-of-epoch per-edge staleness peak and the
+                    # cumulative late commits
+                    rec["edge_staleness_max"] = int(
+                        m_e["edge_staleness"][-1].max())
+                    rec["late_commits"] = int(m_e["late_commits"][-1].sum())
+            if crash_armed is not None and not history:
+                rec["crashpoint"] = dict(crash_armed)
+            if chaos_sched is not None:
+                if not history:
+                    rec["chaos"] = chaos_sched.to_dict()
+                    if chaos_policy is not None:
+                        rec["chaos_policy"] = chaos_policy.to_dict()
+                rec.update(chaos_monitor.health_record(
+                    m_e["edge_silence"][-1], m_e["chaos_drops"][-1],
+                    event_cfg.max_silence if event_cfg else 0))
+            if integ_cfg is not None:
+                if not history:
+                    rec["integrity"] = integ_cfg.to_dict()
+                rec["wire_rejects"] = int(m_e["integrity_wire_reject"].sum())
+                rec["quarantined_steps"] = int(
+                    m_e["integrity_quarantined"].sum())
+                rec["integrity_rollbacks"] = rollbacks
+                if rollback_info is not None:
+                    rec["integrity_rollback"] = rollback_info
+                    rollback_info = None
+            cerr = None
+            if probe_on:
+                # the consensus error ||p_r - mean(p)|| at the epoch's end:
+                # the drift that tells quiet links from a partition
+                cerr = chaos_monitor.consensus_error(state.params).cpu().numpy()
+                rec["consensus_err_max"] = float(cerr.max())
+                rec["consensus_err_mean"] = float(cerr.mean())
+            if eval_on:
+                test = evaluate(
+                    model, consensus_params(state.params),
+                    rank0_slice(state.batch_stats), x_test, y_test, device=device,
+                )
+                rec.update({"test_" + k: v for k, v in test.items()})
+            history.append(rec)
+            if on_epoch is not None:
+                on_epoch(rec)
+            ckpt_due = bool(ckpt_path and (
+                epoch == epochs or (save_every and epoch % save_every == 0)))
+            if sentinel is not None:
+                reason = sentinel.observe(
+                    float(np.asarray(m_e["loss"], np.float64).mean()),
+                    None if cerr is None else float(cerr.max()))
+                if reason is not None:
+                    if not integ_rollback_on or rollbacks >= integ_cfg.max_rollbacks:
+                        raise chaos_integrity.IntegrityEscalation(
+                            f"divergence sentinel tripped ({reason}) at epoch "
+                            f"{epoch} with "
+                            + ("rollback disarmed" if not integ_rollback_on
+                               else "the rollback budget spent "
+                               f"({rollbacks}/{integ_cfg.max_rollbacks})")
+                            + "; the retained last-known-good state cannot "
+                            "outrun this fault — restarting would replay the "
+                            "same divergence")
+                    rollbacks += 1
+                    # every rank from last-known-good, every event buffer
+                    # re-armed: the next pass force-fires every exchange
+                    state = force_refresh(_clone(good["state"]), event_cfg)
+                    # restored in memory, the replay not yet started
+                    crashpoint.hit("integrity.rollback")
+                    hardened = False
+                    if integ_cfg.escalate and integ_now.hardened() != integ_now:
+                        # the replay meets the same pass-keyed faults: without
+                        # checksums and quarantine it would diverge again
+                        integ_now = integ_now.hardened()
+                        hardened = True
+                        step = build(mode_now, compact_capacity)
+                    sentinel.rewind(good["sentinel"])
+                    rollback_info = {"reason": reason, "tripped_epoch": epoch,
+                                     "restored_epoch": good["epoch"],
+                                     "hardened": hardened}
+                    epoch = good["epoch"]
+                    continue
+                if integ_rollback_on:
+                    good = {"state": _clone(state), "epoch": epoch,
+                            "sentinel": sentinel.snapshot()}
+                    if retention is not None and ckpt_due:
+                        retention.save_good(epoch, *state_lib.payload(
+                            good["state"], epoch, algo))
+            if not compact_done:
+                # the capacity is one static number for every rank: the peak
+                # is over the ranks of the post-warmup steps (pass ==
+                # warmup_passes is already real trigger data)
+                pnums = pass_base + 1 + np.arange(steps)
+                post = m_e["fired_elems"][pnums >= warmup_passes]
+                if post.size:
+                    compact_fired_peak = max(compact_fired_peak,
+                                             float(post.max()))
+                    compact_post_steps += int(post.shape[0])
+                if compact_frac is None:
+                    enough = compact_post_steps >= COMPACT_MIN_SAMPLES
                 else:
-                    cap = min(n, max(floor, int(math.ceil(
-                        float(compact_frac) * n))))
-                    compact_note = {"compact_autotuned": False}
-                if autotuned and cap >= n:
-                    # fire rate ~1: the budget would be the whole model
-                    compact_note["compact_skipped"] = (
-                        "observed fire rate needs capacity >= n_params"
-                    )
-                else:
-                    compact_capacity = cap
-                    step = build("compact", cap)
-                compact_done = True
+                    enough = bool(pnums[-1] >= warmup_passes)
+                if enough:
+                    n = spec.n_total
+                    floor = collectives.compact_capacity_floor(spec.sizes)
+                    if bucketed_k > 1 and algo == "eventgrad":
+                        # every bucket must fit its own largest leaf
+                        floor = max(floor, collectives.bucketed_capacity_floor(
+                            spec.buckets(bucketed_k)))
+                    autotuned = compact_frac is None
+                    if autotuned:
+                        cap = collectives.choose_capacity(
+                            n, compact_fired_peak, floor)
+                        compact_note = {
+                            "compact_autotuned": True,
+                            "compact_fired_peak_elems": compact_fired_peak,
+                        }
+                    else:
+                        cap = min(n, max(floor, int(math.ceil(
+                            float(compact_frac) * n))))
+                        compact_note = {"compact_autotuned": False}
+                    if autotuned and cap >= n:
+                        # fire rate ~1: the budget would be the whole model
+                        compact_note["compact_skipped"] = (
+                            "observed fire rate needs capacity >= n_params"
+                        )
+                    else:
+                        compact_capacity = cap
+                        step = build("compact", cap)
+                    compact_done = True
+            if ckpt_due:
+                checkpoint.save(ckpt_path, *boundary_payload())
+            # graceful preemption: a signal since the last boundary, or a
+            # notice scheduled in this epoch, drains here
+            preempt_reason = None
+            if guard.requested is not None:
+                preempt_reason = f"signal:{guard.requested}"
+            elif preempt_at is not None and epoch >= preempt_at[0]:
+                preempt_reason = f"schedule:{preempt_at[0]}@{preempt_at[1]}"
+            if preempt_reason is not None:
+                t_drain = time.perf_counter()
+                if ckpt_path and not ckpt_due:
+                    checkpoint.save(ckpt_path, *boundary_payload())
+                info = {"reason": preempt_reason, "epoch": int(epoch),
+                        "snapshot": bool(ckpt_path),
+                        "drain_s": round(time.perf_counter() - t_drain, 4)}
+                if checkpoint_dir:
+                    info["marker"] = crashpoint.write_marker(checkpoint_dir,
+                                                             info)
+                raise crashpoint.GracefulPreemption(info)
+            # the boundary is processed: records, any due save
+            crashpoint.hit("loop.block_end")
     return state, history

@@ -11,12 +11,19 @@ per-edge peer health of a run with a chaos schedule. Every rank
 starts from the same parameters (the reference seeds every rank
 identically); the random stream draws each rank's own dropout and
 augmentation.
+
+`to_flat` / `from_flat` carry a state through a flat ``{path: tensor}``
+dict, every field included (the random stream as its
+`torch.Generator.get_state()` bytes), with the paths spelled as the JAX
+package's checkpoint spells its leaves (``state/event/bufs/0``);
+`layout` names what a resume must match, and `payload` is the
+(tensors, manifest) pair `utils/checkpoint.save` writes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,3 +126,102 @@ def init_train_state(
         sparse=sparse,
         rng=torch.Generator(device=device).manual_seed(rng_seed),
     )
+
+
+def _flatten(x, path: str, out: Dict[str, torch.Tensor]) -> None:
+    if x is None:
+        return
+    if isinstance(x, torch.Tensor):
+        out[path] = x
+    elif isinstance(x, torch.Generator):
+        out[path] = x.get_state()
+    elif isinstance(x, int):
+        out[path] = torch.tensor(x, dtype=torch.int64)
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            _flatten(v, f"{path}/{i}", out)
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            _flatten(v, f"{path}/{k.replace('.', '/')}", out)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            _flatten(getattr(x, f.name), f"{path}/{f.name}", out)
+    else:
+        raise TypeError(f"{path}: no flat form for {type(x).__name__}")
+
+
+def _rebuild(x, path: str, flat: Dict[str, torch.Tensor]):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return flat[path]
+    if isinstance(x, torch.Generator):
+        # the state bytes live on the host; set_state runs on the
+        # template's generator device (a CUDA stream stays on the card)
+        g = torch.Generator(device=x.device)
+        g.set_state(flat[path].cpu())
+        return g
+    if isinstance(x, int):
+        return int(flat[path])
+    if isinstance(x, (tuple, list)):
+        return type(x)(_rebuild(v, f"{path}/{i}", flat)
+                       for i, v in enumerate(x))
+    if isinstance(x, dict):
+        return {k: _rebuild(v, f"{path}/{k.replace('.', '/')}", flat)
+                for k, v in x.items()}
+    return dataclasses.replace(x, **{
+        f.name: _rebuild(getattr(x, f.name), f"{path}/{f.name}", flat)
+        for f in dataclasses.fields(x)})
+
+
+def to_flat(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every field of `state` as a flat ``{path: tensor}`` dict (the
+    tensors themselves, not copies): nested dataclasses by field name,
+    tuples by index, BatchNorm keys with `/` for `.`, `pass_num` as an
+    int64 scalar, the random stream as its state bytes; None fields
+    have no entry."""
+    out: Dict[str, torch.Tensor] = {}
+    _flatten(state, "state", out)
+    return out
+
+
+def from_flat(template: TrainState, flat: Dict[str, torch.Tensor]
+              ) -> TrainState:
+    """The state of `template`'s structure holding `flat`'s values (a
+    `to_flat` dict of the same structure, e.g. restored from a
+    snapshot); the random stream is rebuilt on the template's device."""
+    return _rebuild(template, "state", flat)
+
+
+def layout(state: TrainState, algo: str) -> Dict[str, Any]:
+    """The layout keys a resume must match: algo, ranks R, arena size n,
+    the receive buffers' resident dtype ("f32" | "bf16" | "int8"), the
+    bounded-async queue depth D (0 = no queues) and the bucket count K
+    of the receive buffers."""
+    r, n = state.params.shape
+    resident, depth, k = "f32", 0, 1
+    ev, sp = state.event, state.sparse
+    if ev is not None:
+        if ev.bufs:
+            b0 = ev.bufs[0]
+            if isinstance(b0, tuple):
+                k, b0 = len(b0), b0[0]
+            resident = {torch.int8: "int8",
+                        torch.bfloat16: "bf16"}.get(b0.dtype, "f32")
+        if ev.pending:
+            depth = len(ev.pending[0])
+    if sp is not None and sp.pending:
+        depth = len(sp.pending[0])
+    return {"algo": algo, "ranks": int(r), "n_params": int(n),
+            "resident_dtype": resident, "staleness_depth": depth,
+            "buckets": k}
+
+
+def payload(state: TrainState, epoch: int, algo: str
+            ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """The snapshot of `state` after `epoch`: (its `to_flat` tensors, the
+    manifest entries `utils/checkpoint.save` writes beside them)."""
+    return to_flat(state), {
+        "epoch": int(epoch), "layout": layout(state, algo),
+        "device": state.params.device.type,
+    }

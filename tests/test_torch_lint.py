@@ -114,7 +114,8 @@ def test_port_sources_lint_clean():
     assert lint.run() == []
     assert [r.name for r in lint.RULES] == [
         "no-host-sync-in-traced", "kernel-registered",
-        "trigger-policy-registered", "carrier-dtype-declared"]
+        "trigger-policy-registered", "carrier-dtype-declared",
+        "exit-code-literals", "os-exit-confined", "crashpoint-instrumented"]
 
 
 @pytest.mark.parametrize("seed", list(SEEDS))

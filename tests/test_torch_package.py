@@ -142,7 +142,7 @@ def test_train_on_cpu_records():
         assert torch.isfinite(state.params).all()
 
 
-def test_refusals_name_their_roadmap_item():
+def test_refusals_name_their_roadmap_item(tmp_path):
     """Every feature the port refuses raises NotImplementedError naming
     the ROADMAP queue-1 item that ports it; the calls of item 5, once
     refused, now run."""
@@ -200,16 +200,18 @@ def test_refusals_name_their_roadmap_item():
     train_mlp = lambda **kw: egt.train(
         egt.MLP(input_shape=(8, 8, 1)), egt.Ring(4), x, y, algo="eventgrad",
         epochs=1, batch_size=8, device="cpu", **kw)
+    # item 6b (checkpoints, resume, preemption, the integrity engine's
+    # on-disk retention) is ported: its calls, once refused, now run
+    assert ChaosSchedule.parse("seed=1,preempt=2@1").preempt == ((2, 1),)
+    train_mlp(integrity="on", checkpoint_dir=str(tmp_path))
+    assert (tmp_path / "ckpt").is_dir() and (tmp_path / "good").is_dir()
     refusals = {
         "item 6": [
-            # the clauses still to port: preemption (6b), membership (6d)
-            lambda: ChaosSchedule.parse("seed=1,preempt=2@1"),
+            # the clauses still to port: membership (6d)
             lambda: ChaosSchedule.parse("seed=1,leave=1@3"),
             lambda: ChaosSchedule.parse("seed=1,join=1@3"),
             lambda: load_or_synthesize("mnist", "/data", "train"),
             lambda: MembershipSchedule(),
-            # checkpoints and the integrity engine's on-disk retention
-            lambda: train_mlp(integrity="on", checkpoint_dir="/tmp/ck"),
         ],
         # the bucketed schedule under the fault clauses
         "item 12": [
