@@ -236,7 +236,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    with derived bytes per neighbour 69,778,814 / 69,778,728 /
    26,167,110 / 6,542,186 equal to the formula, and the float32 metric
    139,557,632 / 139,557,456 / 52,334,220 / 13,084,372;
-12. summary — one JSON line of every kernel's numbers, the card's name and
+12. obs — the on-device telemetry, the message-lifecycle ledger and the
+   host registry on the flagship op-point (3 passes x 2 epochs a leg,
+   each with `obs="off"` and `obs="epoch"`, under deterministic
+   algorithms): (a) EventGraD masked f32 with a `Registry`, (b) D-PSGD,
+   (c) EventGraD int8 carrier-resident: every state tensor bitwise the
+   obs-off run's, the records equal but for `obs`, the consensus probe
+   and `wall_s`, every window's ledger audit clean with proposed =
+   suppressed + deferred + fired exactly, (a)'s fire counts x 2
+   neighbours = its num_events change per window, (b)'s census exactly
+   86 x 3 x 8 messages fired and delivered per edge per window, kernels
+   1-5 launched as their legs say; (d) the composed ledger op-point
+   (`eventgrad_tpu_torch/utils/ledger_audit.py`: MLP 16, Ring(4), D = 2,
+   compact 0.5, drops, bitflips, lags, nansteps, checksums and
+   quarantine): 0 violations, every disposition row above 0, both seeded
+   leaks caught naming their law, obs off bitwise on, kernel 1's gated
+   form launched; the silence bucket of 0..2^20 on the card against the
+   CPU's (logged); (e) the overhead (`utils/obs_overhead.measure_pair`):
+   obs off and on in one process, pass by pass on the same batches, 20
+   timed passes after 3 warm-ups, then 3 profiled passes each: pass ms,
+   the paired difference, launches, device-busy ms and host syncs per
+   pass, which must be equal off and on; (f) (a)'s Chrome trace written,
+   reloaded and every span inside `train`, the bubble decomposition, the
+   run report from (a)'s JSONL (`obs/report.py`) and the Prometheus
+   ledger gauges; the phase's launches and seconds;
+13. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -2873,6 +2897,244 @@ def phase_resume():
     return totals
 
 
+#: the telemetry phase's legs: 3 passes an epoch, 2 epochs
+OBS_STEPS, OBS_EPOCHS = 3, 2
+#: timed and profiled passes per config of the overhead leg
+OBS_TIMED, OBS_WARMUP, OBS_PROFILED = 20, 3, 3
+
+
+def phase_obs():
+    """The on-device telemetry, the message ledger and the host registry
+    on the flagship (legs (a)-(c) under deterministic algorithms, each
+    with obs off and on): (a) EventGraD masked f32 with a Registry, (b)
+    D-PSGD (the dense census), (c) EventGraD int8 carrier-resident; every
+    state tensor bitwise the obs-off run's, the records equal but for
+    `obs`, the probe and the timings, the ledger's laws per window. (d)
+    the composed ledger op-point (`utils/ledger_audit.py`) on the card;
+    (e) the overhead of the telemetry on the flagship pass (pass ms,
+    launches and host syncs per pass, obs off then on: the syncs must be
+    equal); (f) (a)'s Chrome trace reloaded, its spans nested under
+    `train`, the bubble decomposition, the run report from (a)'s JSONL
+    and the Prometheus ledger gauges. Returns the launches of each
+    kernel."""
+    import os
+    import tempfile
+
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.obs import Registry, bubble
+    from eventgrad_tpu_torch.obs import device as obs_device
+    from eventgrad_tpu_torch.obs.report import (
+        build_report, load_history_jsonl, render_text,
+    )
+    from eventgrad_tpu_torch.utils import ledger_audit, obs_overhead
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi("name,power.limit")
+    log(f"== obs: ResNet-18 (bf16 compute) x Ring(8), global batch 256, "
+        f"{OBS_STEPS} passes x {OBS_EPOCHS} epochs ({card})")
+    passes = OBS_STEPS * OBS_EPOCHS
+    x, y = synthetic_dataset(RANKS * 32 * OBS_STEPS, (32, 32, 3), seed=0)
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                          max_silence=50)
+    totals = {}
+    tmp = tempfile.mkdtemp(prefix="eg-obs-")
+
+    def run(leg, algo="eventgrad", must=None, registry=None, **kw):
+        ops.reset_launch_counts()
+        state, hist = egt.train(
+            egt.ResNet18(dtype=torch.bfloat16), egt.Ring(RANKS), x, y,
+            algo=algo, epochs=OBS_EPOCHS, batch_size=32, learning_rate=0.01,
+            momentum=0.9, event_cfg=cfg, random_sampler=True, seed=0,
+            registry=registry,
+            on_epoch=None if registry is None else registry.record,
+            device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for k, n in (must or {}).items():
+            if counts[k] != n:
+                raise SmokeError(f"{leg}: {k} launched {counts[k]} times, "
+                                 f"expected {n}")
+        if not all(math.isfinite(r["loss"]) for r in hist):
+            raise SmokeError(f"{leg}: a loss is not finite")
+        return state, hist
+
+    timing = ("wall_s", "obs", "consensus_err_max", "consensus_err_mean")
+
+    def pair(leg, algo="eventgrad", must=None, registry=None, **kw):
+        """The leg with obs off, then on: the whole state bitwise (the
+        telemetry aside), the records equal but for `timing`, and every
+        window's ledger audit clean with the sender law exact."""
+        s_off, h_off = run(f"{leg} obs=off", algo, must, **kw)
+        s_on, h_on = run(f"{leg} obs=epoch", algo, must, registry,
+                         obs="epoch", **kw)
+        if s_on.telemetry is None:
+            raise SmokeError(f"{leg}: no telemetry in the obs run's state")
+        _tree_bits(s_off, s_on.replace(telemetry=None),
+                   f"{leg} obs on vs off")
+        for a, b in zip(h_off, h_on):
+            if ({k: v for k, v in a.items() if k not in timing}
+                    != {k: v for k, v in b.items() if k not in timing}):
+                raise SmokeError(f"{leg}: records differ with obs on")
+        for h in h_on:
+            o = h["obs"]
+            aud, led = o["ledger_audit"], o["message_ledger"]
+            tot = {k: sum(v) for k, v in led.items()}
+            if not aud["ok"] or aud["violations"] or not aud["checks"]:
+                raise SmokeError(f"{leg} epoch {h['epoch']}: ledger audit "
+                                 f"{aud}")
+            if tot["proposed"] != (tot["suppressed"] + tot["deferred"]
+                                   + tot["fired"]):
+                raise SmokeError(f"{leg} epoch {h['epoch']}: sender law "
+                                 f"{tot}")
+            if o["steps"] != OBS_STEPS:
+                raise SmokeError(f"{leg}: window of {o['steps']} passes")
+        log(json.dumps({"leg": leg, "ledger": [
+            {k: sum(v) for k, v in h["obs"]["message_ledger"].items()}
+            for h in h_on], "card": card}))
+        return s_on, h_on
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        raise SmokeError("CUBLAS_WORKSPACE_CONFIG unset: the bitwise legs "
+                         "need deterministic cuBLAS")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    jsonl = os.path.join(tmp, "history.jsonl")
+    reg = Registry(jsonl_path=jsonl)
+    try:
+        # (a) EventGraD masked f32: kernels 1 and 2, with the registry
+        s_a, h_a = pair("(a) eventgrad-f32",
+                        must={"masked_wire": passes,
+                              "fused_mix_commit": passes}, registry=reg)
+        prev = 0
+        for h in h_a:
+            fires = sum(h["obs"]["fire_count"])
+            if fires * NB != h["num_events"] - prev:
+                raise SmokeError(f"(a) epoch {h['epoch']}: {fires} fires x "
+                                 f"{NB} != num_events change "
+                                 f"{h['num_events'] - prev}")
+            prev = h["num_events"]
+        leaves = h_a[0]["obs"]["meta"]["leaves"]
+        if len(leaves) != 86 or h_a[0]["obs"]["meta"]["n_ranks"] != RANKS:
+            raise SmokeError(f"(a) meta {h_a[0]['obs']['meta']}")
+        del s_a
+        # (b) D-PSGD: kernel 4 and the dense census, 86 leaves x passes x
+        # ranks on each edge, all delivered
+        s_b, h_b = pair("(b) dpsgd", "dpsgd", must={"fused_mix_sgd": passes})
+        for h in h_b:
+            led = h["obs"]["message_ledger"]
+            want = [86 * OBS_STEPS * RANKS] * NB
+            if led["fired"] != want or led["delivered"] != want:
+                raise SmokeError(f"(b) epoch {h['epoch']}: census {led}")
+        del s_b
+        # (c) EventGraD int8 carrier-resident: kernels 3 and 5
+        s_c, _ = pair("(c) eventgrad-int8-carrier",
+                      must={"masked_wire_int8": passes,
+                            "fused_mix_commit_carrier": passes},
+                      wire="int8", carrier_resident=True)
+        del s_c
+        torch.cuda.empty_cache()
+        # (d) the composed ledger op-point on the card
+        ops.reset_launch_counts()
+        rec_d = ledger_audit.run(device=DEVICE)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        log(json.dumps({"leg": "(d) ledger audit", "totals": rec_d["totals"],
+                        "in_flight_final": rec_d["in_flight_final"],
+                        "conservation": rec_d["conservation"],
+                        "dispositions_exercised":
+                            rec_d["dispositions_exercised"],
+                        "leak_oracles": [
+                            (o["leak"], o["caught"], o["violated_laws"])
+                            for o in rec_d["leak_oracles"]],
+                        "obs_off_matches_obs_run":
+                            rec_d["obs_off_matches_obs_run"],
+                        "launches": {k: v for k, v in counts.items() if v},
+                        "wall_s": rec_d["wall_s"], "card": card}))
+        if not ledger_audit.ok(rec_d):
+            raise SmokeError("(d) the ledger op-point's gates fail")
+        if not counts["fused_mix_commit_gated"]:
+            raise SmokeError("(d) the gated kernel 1 never launched")
+    finally:
+        torch.use_deterministic_algorithms(was)
+        reg.close()
+    # the bucket of every silence 0..2^20 on the card against the CPU's
+    # (the JAX expression: log(s) / log(2) in float32, floored)
+    s = torch.arange(0, 2 ** 20 + 1, dtype=torch.float32)
+    b_card = obs_device.silence_bucket(s.to(DEVICE)).cpu()
+    b_cpu = obs_device.silence_bucket(s)
+    diff = torch.nonzero(b_card != b_cpu).flatten()[:8]
+    log(json.dumps({"silence_bucket_card_vs_cpu_mismatches":
+                    int((b_card != b_cpu).sum()),
+                    "at": [[int(i), int(b_card[i]), int(b_cpu[i])]
+                           for i in diff], "card": card}))
+
+    # (e) the telemetry's overhead on the flagship pass: obs off and on
+    # in one process, pass by pass on the same batches (the host's drift
+    # between processes is tens of ms), then each profiled
+    ops.reset_launch_counts()
+    over = obs_overhead.measure_pair("resnet18", OBS_TIMED, DEVICE,
+                                     warmup=OBS_WARMUP, profile=OBS_PROFILED)
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    off, on = over["obs_off"], over["obs_on"]
+    log(json.dumps({"leg": "(e) overhead, EventGraD masked f32",
+                    "timed_passes": OBS_TIMED, "profiled_passes":
+                    OBS_PROFILED, **over,
+                    "launches_added_per_pass":
+                        on["launches_per_pass"] - off["launches_per_pass"],
+                    "device_busy_ms_added_per_pass":
+                        on["device_busy_ms_per_pass"]
+                        - off["device_busy_ms_per_pass"],
+                    "card": card}))
+    if on["host_syncs_per_pass"] != off["host_syncs_per_pass"]:
+        raise SmokeError(f"(e) host syncs per pass {off['host_syncs_per_pass']}"
+                         f" (off) != {on['host_syncs_per_pass']} (on)")
+
+    # (f) the registry: the trace, the bubble, the report, the gauges
+    trace_path = os.path.join(tmp, "trace.json")
+    reg.write_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    roots = [e for e in events if e["name"] == "train"]
+    if len(roots) != 1:
+        raise SmokeError(f"(f) {len(roots)} train spans, expected 1")
+    root = roots[0]
+    for e in events:
+        if e["name"] != "train" and not (
+                root["ts"] - 1 <= e["ts"]
+                and e["ts"] + e["dur"] <= root["ts"] + root["dur"] + 1):
+            raise SmokeError(f"(f) span {e['name']} outside the train span")
+    names = {e["name"] for e in events}
+    if not {"data", "dispatch_block", "block_ready", "obs_flush"} <= names:
+        raise SmokeError(f"(f) spans {sorted(names)}")
+    d = bubble.decompose(events)
+    log(bubble.render_text(d, label="(a) eventgrad-f32, obs on"))
+    if d["n_blocks"] != OBS_EPOCHS or "missing_spans" in d:
+        raise SmokeError(f"(f) bubble {d}")
+    hist = load_history_jsonl(jsonl)
+    report = build_report(hist)
+    if len(hist) != OBS_EPOCHS or not report["message_lifecycle"]["audit"][
+            "ok"]:
+        raise SmokeError("(f) the report from (a)'s JSONL")
+    log(render_text(report))
+    log("\n".join(ln for ln in reg.prometheus_text().splitlines()
+                   if "ledger" in ln))
+    log(json.dumps({"obs_phase_launches": {k: v for k, v in totals.items()
+                                           if v},
+                    "obs_phase_s": time.perf_counter() - t_phase,
+                    "card": card}))
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -2958,7 +3220,7 @@ def main() -> int:
         for phase in (phase_main_path, phase_main_path_lm,
                       phase_main_path_lm_d128, phase_realdata,
                       phase_frontier, phase_bucketed_async, phase_chaos,
-                      phase_resume, phase_audit):
+                      phase_resume, phase_audit, phase_obs):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

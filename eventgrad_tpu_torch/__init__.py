@@ -24,7 +24,9 @@ CUDA kernels written for Hopper (`csrc/*.cu`, bound in `ops/`). The
 transformer LM (`models/transformer.py`) adds three more, the
 flash-attention forward, dQ and dK/dV kernels (`ops/attention.py`).
 Each kernel stands beside its plain PyTorch version. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. The on-device telemetry, the
+message-lifecycle ledger and the host registry of spans, gauges and
+records (`obs/`) observe a run without changing it.
 
 Entry points (`train`, `evaluate`, `init_train_state`) take `device=`:
 None means CUDA and raises when CUDA is absent.

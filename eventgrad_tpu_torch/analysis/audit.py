@@ -34,8 +34,11 @@ are K lane groups per neighbour, one per bucket; its trace must also
 show the bucketed schedule's emission (`walker.bucket_schedule`: a
 bucket's exchange between the tails of its neighbouring buckets). The port runs only the flat
 arena, so the `_tree` cells run on it (the JAX record shows tree and
-arena cells carry the same bytes), and it has no telemetry, so the `_obs`
-cells run without it; each report lists its substitutions. Donation
+arena cells carry the same bytes); each report lists its substitutions.
+The three `_obs` cells trace the step with the telemetry and the message
+ledger on: the ledger's receiver census sums the fire bits the exchange
+delivered, so it reaches the rank-flow analysis through the declared
+exchange. Donation
 aliasing has no torch counterpart and reports `null`.
 
 CLI: `python -m eventgrad_tpu_torch.analysis.audit --device cuda|cpu
@@ -137,7 +140,7 @@ class AuditConfig:
     capacity: Optional[int] = None
     #: the JAX cell's arena flag (the port always runs the arena)
     arena: bool = False
-    #: the JAX cell's telemetry flag (the port runs without telemetry)
+    #: the telemetry and the message ledger in the traced step
     obs: bool = False
     staleness: int = 0
     #: full-model concatenations allowed in the traced step
@@ -233,9 +236,6 @@ def substitutions(cfg: AuditConfig) -> List[str]:
     out = []
     if not cfg.arena:
         out.append("tree -> arena (the port runs only the flat arena)")
-    if cfg.obs:
-        out.append("obs -> off (telemetry is not ported: ROADMAP queue 1, "
-                   "item 6)")
     return out
 
 
@@ -355,7 +355,7 @@ def build(cfg: AuditConfig, device=None):
         resident_wire=(cfg.wire if cfg.carrier and cfg.algo == "eventgrad"
                        else None),
         bucketed=cfg.bucketed or None, staleness=cfg.staleness,
-        device=device,
+        obs=cfg.obs, device=device,
     )
     chaos = None
     if cfg.chaos:
@@ -372,6 +372,7 @@ def build(cfg: AuditConfig, device=None):
         staleness=cfg.staleness, trigger_policy=cfg.policy,
         carrier_resident=cfg.carrier, bucketed=cfg.bucketed or None,
         chaos=chaos, integrity=IntegrityConfig() if cfg.integrity else None,
+        obs=cfg.obs,
     )
     return state, step, topo, model
 

@@ -34,9 +34,21 @@ docstrings and comments never match.
     and no unregistered name is; a site whose seam the port does not
     have yet is declared in `WAITING` with its ROADMAP item, and must
     stay uninstrumented while it waits.
+  * wall-clock-confined — wall-clock reads (`time.time`,
+    `perf_counter`, `monotonic` and their `_ns` forms, through any alias)
+    belong to `obs/` (Registry spans); every other file that reads the
+    clock has a named `EXEMPT` entry with its reason, honesty-checked
+    (an exempt file that no longer reads the clock flags).
+  * telemetry-counter-ledgered — the message ledger's counters
+    (`counts`, `queue`, `late_queue`) move only inside
+    `obs/ledger.py` `ledger_update`: an in-place add on them
+    (`index_add_`, `scatter_add_`, `add_`, `index_put_`, `+=`, `[...]
+    +=`) anywhere else flags, as does a `ledger=` keyword computed at the
+    call site; and `ledger_update` must still add to the counters
+    itself, or the rule covers nothing.
 
-The wall-clock, telemetry-ledger and shard_map rules of the JAX lint
-wait for the engines they guard (ROADMAP queue 1, items 6 and 8).
+The shard_map rules of the JAX lint wait for the device-mesh lift
+(ROADMAP queue 1, item 8).
 
 CLI: `python -m eventgrad_tpu_torch.analysis.lint`.
 """
@@ -474,6 +486,207 @@ class CrashpointInstrumented(Rule):
         return out
 
 
+class WallClockConfined(Rule):
+    """Wall-clock timing belongs to the observability layer: `obs/` owns
+    durations (Registry spans). A stray `time.perf_counter()` elsewhere in
+    the package is a timing fragment the span trace cannot see. The files
+    that read the clock for a metric of their own are exempt BY NAME with
+    the reason on record; each exemption is honesty-checked (the file must
+    still read the clock, or the exemption has gone stale)."""
+
+    name = "wall-clock-confined"
+    ALLOWED_PREFIX = f"{PACKAGE}/obs/"
+    #: banned attribute reads on the `time` module (calls and aliases)
+    BANNED = frozenset({
+        "time", "perf_counter", "perf_counter_ns", "monotonic",
+        "monotonic_ns",
+    })
+    EXEMPT = {
+        f"{PACKAGE}/train/loop.py":
+            "the records' wall_s (the epoch's steps to its synchronize) "
+            "and the preemption drain_s: the numbers the dispatch_block "
+            "span wraps, record fields older than the registry",
+        f"{PACKAGE}/utils/metrics.py":
+            "JsonlLogger's per-record `ts` wall TIMESTAMP (not a duration "
+            "measurement)",
+        f"{PACKAGE}/ops/build.py":
+            "the kernel build's seconds (nvcc, link) in the build record "
+            "the chip smoke prints",
+        f"{PACKAGE}/analysis/audit.py":
+            "each audited cell's wall_s in the audit record (the JAX "
+            "record's field)",
+        f"{PACKAGE}/utils/frontier.py":
+            "the frontier legs' seconds in their artifact",
+        f"{PACKAGE}/utils/realdata.py":
+            "the real-data legs' seconds in their artifact",
+        f"{PACKAGE}/utils/straggler.py":
+            "the straggler legs' seconds in their artifact",
+        f"{PACKAGE}/utils/profile_step.py":
+            "the profiled step's host wall beside the profiler's device "
+            "times (the host-bound share)",
+        f"{PACKAGE}/utils/chaos_sweep.py":
+            "the sweep's per-leg seconds and its total in the artifact",
+        f"{PACKAGE}/utils/crash_matrix.py":
+            "the child processes' deadlines and each cell's seconds",
+        f"{PACKAGE}/utils/integrity_sweep.py":
+            "the sweep's per-leg seconds in the artifact",
+    }
+
+    def _hits(self, sf: SourceFile):
+        # every local name the time module is bound to, so an alias
+        # (`import time as clock`) cannot dodge the rule
+        aliases = {"time"}
+        for node in ast.walk(sf.tree):
+            if isinstance(node, ast.Import):
+                for a in node.names:
+                    if a.name == "time":
+                        aliases.add(a.asname or "time")
+        for node in ast.walk(sf.tree):
+            if (isinstance(node, ast.Attribute)
+                    and node.attr in self.BANNED
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id in aliases):
+                yield node.lineno
+            elif (isinstance(node, ast.ImportFrom)
+                  and node.module == "time"
+                  and any(a.name in self.BANNED for a in node.names)):
+                yield node.lineno
+
+    def check(self, files):
+        out = []
+        for sf in files:
+            if not _in_package(sf) or sf.rel.startswith(self.ALLOWED_PREFIX):
+                continue
+            hits = list(self._hits(sf))
+            if sf.rel in self.EXEMPT:
+                if not hits:
+                    out.append(self._v(
+                        sf, 1,
+                        "exempt file no longer reads the wall clock — drop "
+                        "it from WallClockConfined.EXEMPT "
+                        f"({self.EXEMPT[sf.rel]})"))
+                continue
+            for line in hits:
+                out.append(self._v(
+                    sf, line,
+                    "wall-clock timing outside obs/ — spans are the one "
+                    "timing API (obs.Registry.span); a metric that needs "
+                    "its own clock gets a named EXEMPT entry"))
+        return out
+
+
+class TelemetryCounterLedgered(Rule):
+    """The message ledger's disposition counters move ONLY through
+    `obs/ledger.py` `ledger_update`: that single site is what makes the
+    conservation laws auditable (`utils/ledger_audit.py`). A path that
+    adds to `counts` / `queue` / `late_queue` in place can double-count or
+    skip a fate, the leaks the auditor exists to catch. Outside the
+    helper, an in-place add on a ledger counter (`index_add_`,
+    `scatter_add_`, `add_`, `index_put_`, `+=`, `[...] +=`) flags; a
+    `ledger=` keyword must be a pass-through (a name, an attribute, None,
+    or a call of the helper, `init` or `replace`). The stale direction
+    flags too: `ledger_update` must still add to the counters itself."""
+
+    name = "telemetry-counter-ledgered"
+    OWNER = f"{PACKAGE}/obs/ledger.py"
+    HELPER = "ledger_update"
+    COUNTERS = frozenset({"counts", "queue", "late_queue"})
+    INPLACE = frozenset({"index_add_", "scatter_add_", "add_", "index_put_",
+                         "put_", "scatter_"})
+    ALLOWED_CALLS = frozenset({"ledger_update", "init", "replace"})
+
+    @staticmethod
+    def _chain(node) -> List[str]:
+        """Names along `a.b.c` / `a.b[i]` -> ['a', 'b', 'c']."""
+        parts = []
+        while isinstance(node, (ast.Attribute, ast.Subscript)):
+            if isinstance(node, ast.Attribute):
+                parts.append(node.attr)
+            node = node.value
+        if isinstance(node, ast.Name):
+            parts.append(node.id)
+        return parts[::-1]
+
+    def _is_counter(self, node) -> bool:
+        chain = self._chain(node)
+        return bool(chain) and chain[-1] in self.COUNTERS and (
+            any("ledger" in p or p == "led" for p in chain[:-1]))
+
+    def _mutations(self, tree, skip=None):
+        """(line) of every in-place add on a ledger counter, outside the
+        function node `skip`."""
+        skipped = set()
+        if skip is not None:
+            skipped = {id(n) for n in ast.walk(skip)}
+        for node in ast.walk(tree):
+            if id(node) in skipped:
+                continue
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in self.INPLACE
+                    and self._is_counter(node.func.value)):
+                yield node.lineno
+            elif (isinstance(node, ast.AugAssign)
+                  and self._is_counter(node.target)):
+                yield node.lineno
+
+    def check(self, files):
+        out = []
+        owner_adds = None
+        for sf in files:
+            if not _in_package(sf):
+                continue
+            helper = None
+            if sf.rel == self.OWNER:
+                helper = next((n for n in ast.walk(sf.tree)
+                               if isinstance(n, ast.FunctionDef)
+                               and n.name == self.HELPER), None)
+                owner_adds = helper is not None and any(
+                    isinstance(n, ast.BinOp) and isinstance(n.op, ast.Add)
+                    and any(isinstance(o, ast.Name) and o.id == "counts"
+                            for o in (n.left, n.right))
+                    for n in ast.walk(helper))
+            for line in self._mutations(sf.tree, skip=helper):
+                out.append(self._v(
+                    sf, line,
+                    "in-place add on the message ledger's counters outside "
+                    "obs.ledger.ledger_update — disposition counters move "
+                    "only through the helper (the one site the "
+                    "conservation auditor can hold to account)"))
+            for node in ast.walk(sf.tree):
+                if not isinstance(node, ast.Call):
+                    continue
+                for kw in node.keywords:
+                    if kw.arg != "ledger":
+                        continue
+                    v = kw.value
+                    if isinstance(v, (ast.Name, ast.Attribute)):
+                        continue
+                    if isinstance(v, ast.Constant) and v.value is None:
+                        continue
+                    if (isinstance(v, ast.Call)
+                            and isinstance(v.func, ast.Attribute)
+                            and v.func.attr in self.ALLOWED_CALLS):
+                        continue
+                    if (isinstance(v, ast.Call) and isinstance(v.func, ast.Name)
+                            and v.func.id == self.HELPER):
+                        continue
+                    out.append(self._v(
+                        sf, v.lineno,
+                        "computed ledger= value — disposition accounting "
+                        "lives in obs.ledger.ledger_update; pass the "
+                        "branch's raw observables (ledger_inputs=) "
+                        "instead of counter math at the call site"))
+        if owner_adds is False:
+            out.append(Violation(
+                self.name, self.OWNER, 1,
+                "obs/ledger.py's ledger_update no longer adds to the "
+                "disposition counters itself — the helper is the ONE place "
+                "message counters move; without it this rule covers "
+                "nothing"))
+        return out
+
+
 RULES: Sequence[Rule] = (
     NoHostSyncInTraced(),
     KernelRegistered(),
@@ -482,6 +695,8 @@ RULES: Sequence[Rule] = (
     ExitCodeLiterals(),
     OsExitConfined(),
     CrashpointInstrumented(),
+    WallClockConfined(),
+    TelemetryCounterLedgered(),
 )
 
 

@@ -953,7 +953,7 @@ def _r_scalar(f, node, a):
 
 _POINTWISE = frozenset("""
 abs add sub mul div neg relu threshold_backward gelu gelu_backward pow
-rsqrt maximum clamp clamp_min clamp_max round remainder eq ne ge gt le lt
+rsqrt log floor maximum clamp clamp_min clamp_max round remainder eq ne ge gt le lt
 bitwise_and bitwise_or bitwise_not bitwise_xor logical_not isfinite isnan
 where masked_fill _to_copy clone detach lift_fresh_copy
 """.split())

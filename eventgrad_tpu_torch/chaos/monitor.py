@@ -97,16 +97,23 @@ def edge_status(silence: int, max_silence: int,
     return "suspect" if silence > suspect_factor * max_silence else "healthy"
 
 
-def health_record(silence, drops, max_silence: int) -> Dict[str, object]:
+def health_record(silence, drops, max_silence: int,
+                  edges=None) -> Dict[str, object]:
     """The records' fields from host copies of the counters: per-edge max
     silence across ranks, its status, and the total drops. `silence` is
-    `[R, n_neighbors]`, `drops` any array of per-rank counts."""
+    `[R, n_neighbors]`, `drops` any array of per-rank counts. `edges`
+    (neighbor names, topology order) labels the edges in the record (the
+    registry's per-edge gauges pass them); omitted, the lists stay
+    positional."""
     silence = np.asarray(silence)
     per_edge_max = (silence.max(axis=0) if silence.size
                     else np.zeros((0,), np.int64))
-    return {
+    rec = {
         "edge_silence_max": [int(v) for v in per_edge_max],
         "edge_status": [edge_status(int(v), max_silence)
                         for v in per_edge_max],
         "chaos_drops": int(np.asarray(drops).sum()),
     }
+    if edges is not None:
+        rec["edges"] = list(edges)
+    return rec

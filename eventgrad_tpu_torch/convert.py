@@ -210,3 +210,24 @@ def sparse_state_from_jax(sp, spec: ArenaSpec, device=None):
     return SparseState(prev_sent=arena(sp.prev_sent),
                        replicas=tuple(arena(r) for r in sp.replicas),
                        pending=pending)
+
+
+def telemetry_from_jax(tel, device=None):
+    """The port's `TelemetryState` holding a rank-stacked JAX
+    `TelemetryState`'s values (numpy arrays), the message ledger
+    included: field for field, the same dtypes (the None fields stay
+    None)."""
+    import dataclasses
+
+    from eventgrad_tpu_torch.obs.device import TelemetryState
+    from eventgrad_tpu_torch.obs.ledger import MessageLedger
+
+    opt = lambda v: None if v is None else _tensor(v).to(device)
+    led = tel.ledger
+    if led is not None:
+        led = MessageLedger(counts=opt(led.counts), queue=opt(led.queue),
+                            late_queue=opt(led.late_queue))
+    return TelemetryState(**{
+        f.name: opt(getattr(tel, f.name))
+        for f in dataclasses.fields(TelemetryState) if f.name != "ledger"
+    }, ledger=led)

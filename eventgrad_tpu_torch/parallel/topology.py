@@ -32,6 +32,12 @@ class NeighborSpec:
     axis: str
     offset: int
 
+    @property
+    def name(self) -> str:
+        """The edge's label in records and gauges ("ring_m1", "x_p1")."""
+        sign = "m" if self.offset < 0 else "p"
+        return f"{self.axis}_{sign}{abs(self.offset)}"
+
 
 @dataclasses.dataclass(frozen=True)
 class Topology:

@@ -1,19 +1,22 @@
 """Training loop, evaluation and consensus helpers.
 
 Port of `eventgrad_tpu/train/loop.py`: `train` (the per-epoch loop —
-one host step per pass, no K-epoch dispatch blocks, no dispatch
-pipeline or telemetry yet; the compact wire's warmup-then-rebuild
-capacity autotune; the bucketed schedule, the bounded-async staleness
-D >= 2, the chaos schedule's fault clauses with the recovery policies,
-the integrity engine's sentinel and rollback; crash-safe snapshots,
-resume, graceful preemption and the crash sites), `evaluate`,
-`consensus_params` and `rank0_slice`.
+one host step per pass, no K-epoch dispatch blocks and no dispatch
+pipeline yet, so an epoch is a dispatch block; the compact wire's
+warmup-then-rebuild capacity autotune; the bucketed schedule, the
+bounded-async staleness D >= 2, the chaos schedule's fault clauses with
+the recovery policies, the integrity engine's sentinel and rollback;
+crash-safe snapshots, resume, graceful preemption and the crash sites;
+the on-device telemetry with the message ledger's audit, and the
+registry's spans and gauges), `evaluate`, `consensus_params` and
+`rank0_slice`.
 History records carry the JAX records' keys for the fields the slice
 computes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -31,6 +34,9 @@ from eventgrad_tpu_torch.chaos.membership import force_refresh
 from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
 from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
+from eventgrad_tpu_torch.obs import OBS_MODES
+from eventgrad_tpu_torch.obs import device as obs_device
+from eventgrad_tpu_torch.obs import ledger as obs_ledger
 from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
@@ -277,6 +283,8 @@ def train(
     save_every: int = 0,
     resume: bool = False,
     on_epoch: Optional[Callable[[Dict[str, Any]], None]] = None,
+    obs: str = "off",
+    registry: Optional[Any] = None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
@@ -379,8 +387,48 @@ def train(
     rollback's restore and its replay, and the three sites of
     `checkpoint.save`; the first record then carries `crashpoint`
     ({site, hit}). `on_epoch(rec)` is called with each record as it is
-    appended."""
+    appended.
+
+    `obs` ("off" | "block" | "epoch") turns on the on-device telemetry
+    (`obs/device.py`: per-leaf fire and deferral counts, threshold and
+    drift sums, the silence histogram, per-edge and per-bucket wire
+    bytes, the integrity and bounded-async counters, and the
+    message-lifecycle ledger). The counters are cumulative device tensors
+    in `state.telemetry`, part of every snapshot, and are read to the
+    host once per dispatch block, in one copy, after the block's
+    synchronize: no host sync is added to any pass. The port's block is
+    one epoch, so "block" and "epoch" give the same records. Each
+    record then carries `rec["obs"]` (`window_record` of the block, the
+    first one with `meta`: leaves, edges, silence buckets, ranks,
+    neighbours, wire) and, on the gossip algorithms, the block's
+    conservation audit `rec["obs"]["ledger_audit"]`
+    (`obs.ledger.audit_window`); the consensus error is probed at each
+    epoch end. "off" leaves the run exactly as without telemetry.
+
+    `registry` (an `obs.Registry`) records the loop's host spans: `train`
+    (the root), `data`, `dispatch_block` (the epoch's steps and the
+    synchronize after them, with `block_ready` around the synchronize,
+    so its length is device time), `obs_flush`, `eval` and
+    `checkpoint`; and after each epoch the gauges `active_ranks`,
+    `edge_staleness{edge}` and `late_commits_total` (staleness D >= 2),
+    `ledger_disposition_total{disposition}`, `ledger_in_flight` and
+    `ledger_audit_failures_total` (telemetry on a gossip algorithm), and
+    `wire_rejects_total`, `quarantined_steps_total` and
+    `integrity_rollbacks_total` (with `integrity`). The loop never closes
+    the registry. `wall_s` stays the seconds from the epoch's first
+    launch to the synchronize after its last pass."""
     device = resolve_device(device)
+    if obs not in OBS_MODES:
+        raise ValueError(f"obs must be one of {OBS_MODES}, got {obs!r}")
+    obs_on = obs != "off"
+
+    def _span(name: str, **args):
+        # without a registry a span is a null context: the control flow
+        # is the same either way
+        if registry is None:
+            return contextlib.nullcontext()
+        return registry.span(name, **args)
+
     if gossip_wire not in ("dense", "compact"):
         raise ValueError(
             f"gossip_wire must be 'dense' or 'compact', got {gossip_wire!r}"
@@ -457,7 +505,7 @@ def train(
             augment=augment, gossip_wire=wire_mode,
             compact_capacity=capacity, bucketed=bucketed, chaos=chaos_sched,
             chaos_policy=chaos_policy, integrity=integ_now,
-            n_passes=epochs * steps,
+            n_passes=epochs * steps, obs=obs_on,
         )
 
     # make_train_step checks the wire/staleness/carrier combination
@@ -470,7 +518,7 @@ def train(
         model, x.shape[1:], topo, algo, event_cfg, seed,
         momentum=momentum, resident_wire=resident_wire,
         bucketed=bucketed_k, staleness=staleness, sparse_cfg=sparse_cfg,
-        device=device,
+        obs=obs_on, device=device,
     )
     if chaos_sched is not None:
         state = state.replace(chaos=chaos_monitor.PeerHealth.init(topo,
@@ -495,13 +543,20 @@ def train(
     # the integrity engine (chaos/integrity.py): the sentinel judges each
     # epoch; the last-known-good starts as the initial state, so a trip
     # in the first epoch rolls back to the start
-    probe_on = chaos_sched is not None or integ_cfg is not None
+    probe_on = chaos_sched is not None or integ_cfg is not None or obs_on
     sentinel = (chaos_integrity.DivergenceSentinel(integ_cfg)
                 if integ_engine_on else None)
+    # the telemetry flush: the previous cumulative host snapshot (the diff
+    # base), the one-time meta rider, and the count of flush windows whose
+    # conservation audit failed
+    obs_prev = None
+    obs_meta_pending = obs_on
+    ledger_audit_fails = 0
+    integ_totals = {"wire_rejects": 0, "quarantined_steps": 0}
     good = None
     if integ_rollback_on:
         good = {"state": _clone(state), "epoch": start_epoch,
-                "sentinel": sentinel.snapshot()}
+                "sentinel": sentinel.snapshot(), "obs_prev": obs_prev}
     # the on-disk retention of healthy epochs at checkpoint cadence
     retention = (checkpoint.RollingRetention(
         os.path.join(checkpoint_dir, "good"), keep=integ_cfg.keep_good)
@@ -520,29 +575,95 @@ def train(
         for the periodic save and the preemption drain."""
         return state_lib.payload(state, epoch, algo)
 
+    def flush(blk: int) -> Dict[str, Any]:
+        """The epoch's telemetry window: ONE device-to-host read of the
+        cumulative counters (packed into one buffer), diffed on the host
+        against the previous snapshot, plus the ledger's conservation
+        audit of the window and, on the first flush, the run meta."""
+        nonlocal obs_prev, obs_meta_pending, ledger_audit_fails
+        with _span("obs_flush", cat="obs", block=blk):
+            tel_host = obs_device.unpack(
+                obs_device.pack(state.telemetry).cpu().numpy(),
+                state.telemetry)
+            obs_rec = obs_device.window_record(tel_host, obs_prev)
+            if tel_host.ledger is not None:
+                obs_rec["ledger_audit"] = obs_ledger.audit_window(
+                    tel_host.ledger,
+                    None if obs_prev is None else obs_prev.ledger, topo)
+                if not obs_rec["ledger_audit"]["ok"]:
+                    ledger_audit_fails += 1
+            obs_prev = tel_host
+        if obs_meta_pending:
+            obs_rec["meta"] = {
+                "leaves": [n.replace(".", "/") for n in spec.names],
+                "edges": [nb.name for nb in topo.neighbors],
+                "silence_buckets": int(tel_host.silence_hist.shape[-1]),
+                "n_ranks": n_ranks,
+                "n_neighbors": topo.n_neighbors,
+                "wire": wire,
+            }
+            obs_meta_pending = False
+        return obs_rec
+
+    def gauges(m_e, obs_rec) -> None:
+        """The registry's gauges after an epoch's record."""
+        registry.gauge("active_ranks", n_ranks)
+        if "edge_staleness" in m_e:
+            # the per-edge staleness (max over ranks at the epoch's last
+            # pass) and the cumulative late commits
+            es = m_e["edge_staleness"][-1]
+            for k, nb in enumerate(topo.neighbors):
+                registry.gauge("edge_staleness", float(es[..., k].max()),
+                               labels={"edge": nb.name})
+            registry.gauge("late_commits_total",
+                           float(m_e["late_commits"][-1].sum()))
+        if obs_rec is not None and "message_ledger" in obs_rec:
+            cum = np.asarray(obs_prev.ledger.counts, np.int64)
+            for name, ri in obs_ledger.ROW.items():
+                registry.gauge("ledger_disposition_total",
+                               float(cum[:, ri, :].sum()),
+                               labels={"disposition": name})
+            registry.gauge("ledger_in_flight",
+                           float(sum(obs_rec["message_ledger"]["in_flight"])))
+            registry.gauge("ledger_audit_failures_total",
+                           float(ledger_audit_fails))
+        if integ_cfg is not None:
+            registry.gauge("wire_rejects_total",
+                           float(integ_totals["wire_rejects"]))
+            registry.gauge("quarantined_steps_total",
+                           float(integ_totals["quarantined_steps"]))
+            registry.gauge("integrity_rollbacks_total", float(rollbacks))
+
     epoch = start_epoch
-    with crashpoint.PreemptGuard(enabled=ckpt_path is not None) as guard:
+    with _span("train", cat="run", algo=algo, pipelined=False), \
+            crashpoint.PreemptGuard(enabled=ckpt_path is not None) as guard:
         while epoch < epochs:
             epoch += 1
+            blk = epoch - start_epoch - 1
             mode_now = ("compact" if compact_capacity is not None
                         or compact_static else "dense")
             pass_base = state.pass_num
-            idx = epoch_index_plan(
-                len(x), n_ranks, batch_size, random=random_sampler, seed=seed,
-                epoch=epoch,
-            )
-            xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, ...]
-            yb = torch.from_numpy(y[idx]).to(device)
-            _sync(device)
-            t0 = time.perf_counter()
-            ms = []
-            for s in range(steps):
-                state, m = step(state, (xb[:, s], yb[:, s]))
-                ms.append(m)
-            _sync(device)
-            dt = time.perf_counter() - t0
+            with _span("data", cat="host", block=blk):
+                idx = epoch_index_plan(
+                    len(x), n_ranks, batch_size, random=random_sampler,
+                    seed=seed, epoch=epoch,
+                )
+                xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, ...]
+                yb = torch.from_numpy(y[idx]).to(device)
+                _sync(device)
+            with _span("dispatch_block", cat="device", block=blk, epochs=1,
+                       wire=mode_now, pipelined=False):
+                t0 = time.perf_counter()
+                ms = []
+                for s in range(steps):
+                    state, m = step(state, (xb[:, s], yb[:, s]))
+                    ms.append(m)
+                with _span("block_ready", cat="device", block=blk):
+                    _sync(device)
+                dt = time.perf_counter() - t0
             # the epoch's steps ran; none of its host work has
             crashpoint.hit("loop.block_dispatched")
+            obs_rec = flush(blk) if obs_on else None
             m_e = {
                 k: torch.stack([m[k] for m in ms]).cpu().numpy() for k in ms[0]
             }
@@ -610,10 +731,14 @@ def train(
                 rec["wire_rejects"] = int(m_e["integrity_wire_reject"].sum())
                 rec["quarantined_steps"] = int(
                     m_e["integrity_quarantined"].sum())
+                integ_totals["wire_rejects"] += rec["wire_rejects"]
+                integ_totals["quarantined_steps"] += rec["quarantined_steps"]
                 rec["integrity_rollbacks"] = rollbacks
                 if rollback_info is not None:
                     rec["integrity_rollback"] = rollback_info
                     rollback_info = None
+            if obs_rec is not None:
+                rec["obs"] = obs_rec
             cerr = None
             if probe_on:
                 # the consensus error ||p_r - mean(p)|| at the epoch's end:
@@ -622,14 +747,18 @@ def train(
                 rec["consensus_err_max"] = float(cerr.max())
                 rec["consensus_err_mean"] = float(cerr.mean())
             if eval_on:
-                test = evaluate(
-                    model, consensus_params(state.params),
-                    rank0_slice(state.batch_stats), x_test, y_test, device=device,
-                )
+                with _span("eval", cat="device", epoch=epoch):
+                    test = evaluate(
+                        model, consensus_params(state.params),
+                        rank0_slice(state.batch_stats), x_test, y_test,
+                        device=device,
+                    )
                 rec.update({"test_" + k: v for k, v in test.items()})
             history.append(rec)
             if on_epoch is not None:
                 on_epoch(rec)
+            if registry is not None:
+                gauges(m_e, obs_rec)
             ckpt_due = bool(ckpt_path and (
                 epoch == epochs or (save_every and epoch % save_every == 0)))
             if sentinel is not None:
@@ -661,6 +790,8 @@ def train(
                         hardened = True
                         step = build(mode_now, compact_capacity)
                     sentinel.rewind(good["sentinel"])
+                    # the telemetry diff base follows the restored counters
+                    obs_prev = good["obs_prev"]
                     rollback_info = {"reason": reason, "tripped_epoch": epoch,
                                      "restored_epoch": good["epoch"],
                                      "hardened": hardened}
@@ -668,7 +799,8 @@ def train(
                     continue
                 if integ_rollback_on:
                     good = {"state": _clone(state), "epoch": epoch,
-                            "sentinel": sentinel.snapshot()}
+                            "sentinel": sentinel.snapshot(),
+                            "obs_prev": obs_prev}
                     if retention is not None and ckpt_due:
                         retention.save_good(epoch, *state_lib.payload(
                             good["state"], epoch, algo))
@@ -715,7 +847,8 @@ def train(
                         step = build("compact", cap)
                     compact_done = True
             if ckpt_due:
-                checkpoint.save(ckpt_path, *boundary_payload())
+                with _span("checkpoint", cat="host", epoch=epoch):
+                    checkpoint.save(ckpt_path, *boundary_payload())
             # graceful preemption: a signal since the last boundary, or a
             # notice scheduled in this epoch, drains here
             preempt_reason = None
@@ -726,7 +859,8 @@ def train(
             if preempt_reason is not None:
                 t_drain = time.perf_counter()
                 if ckpt_path and not ckpt_due:
-                    checkpoint.save(ckpt_path, *boundary_payload())
+                    with _span("checkpoint", cat="host", epoch=epoch):
+                        checkpoint.save(ckpt_path, *boundary_payload())
                 info = {"reason": preempt_reason, "epoch": int(epoch),
                         "snapshot": bool(ckpt_path),
                         "drain_s": round(time.perf_counter() - t_drain, 4)}

@@ -6,8 +6,9 @@ parameters and the momentum trace as `[R, n]` f32 arenas
 (`parallel/arena.py`), BatchNorm statistics as a dict of `[R, C]`
 tensors (rank-local, never gossiped; empty for a model without BatchNorm), the event state for
 EventGraD and sparsified EventGraD, the top-k shadows and replicas for
-the latter, the pass counter, the step's random stream, and the
-per-edge peer health of a run with a chaos schedule. Every rank
+the latter, the pass counter, the step's random stream, the
+per-edge peer health of a run with a chaos schedule, and the cumulative
+telemetry counters of a run with telemetry on (`obs/device.py`). Every rank
 starts from the same parameters (the reference seeds every rank
 identically); the random stream draws each rank's own dropout and
 augmentation.
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from eventgrad_tpu_torch.chaos.monitor import PeerHealth
+from eventgrad_tpu_torch.obs.device import TelemetryState
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig, SparseState
@@ -60,6 +62,9 @@ class TrainState:
     #: per-edge peer health (`chaos/monitor.py`), carried when the step
     #: runs a chaos schedule; None otherwise
     chaos: Optional[PeerHealth] = None
+    #: cumulative telemetry counters and the message ledger
+    #: (`obs/device.py`), carried when telemetry is on; None otherwise
+    telemetry: Optional[TelemetryState] = None
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)
@@ -78,6 +83,7 @@ def init_train_state(
     bucketed: Optional[int] = None,
     staleness: int = 0,
     sparse_cfg: Optional[SparseConfig] = None,
+    obs: bool = False,
     device=None,
 ) -> TrainState:
     """A rank-stacked TrainState for `topo.n_ranks` ranks, initialized
@@ -96,8 +102,11 @@ def init_train_state(
     the receive buffers per bucket, the layout of a `bucketed=K` step;
     `staleness=D` (D >= 2) adds the bounded-async delivery queues
     (EventGraD: `EventState.pending`, `edge_clock`, `late_commits`;
-    sparsified EventGraD: `SparseState.pending`). The random stream is
-    seeded from `seed`.
+    sparsified EventGraD: `SparseState.pending`). `obs=True` adds the
+    zeroed telemetry counters (`TelemetryState`, with the message
+    ledger's in-flight queues D deep at staleness D >= 2), the state of
+    a `make_train_step(..., obs=True)` step. The random stream is seeded
+    from `seed`.
     `device=None` means CUDA and raises without it."""
     device = resolve_device(device)
     if algo not in ALGOS:
@@ -115,6 +124,13 @@ def init_train_state(
     if algo == "sp_eventgrad":
         sparse = SparseState.init(flat, topo, sparse_cfg or SparseConfig(),
                                   spec, staleness=staleness)
+    telemetry = None
+    if obs:
+        telemetry = TelemetryState.init(
+            spec.n_leaves, topo.n_neighbors,
+            n_buckets=min(bucketed or 1, spec.n_leaves),
+            queue_depth=staleness if staleness >= 2 else 0,
+            n_ranks=topo.n_ranks, device=device)
     # a stream of its own, apart from the weights' (seeded with `seed`)
     rng_seed = int(np.random.SeedSequence([int(seed), 1]).generate_state(1)[0])
     return TrainState(
@@ -125,6 +141,7 @@ def init_train_state(
         event=event,
         sparse=sparse,
         rng=torch.Generator(device=device).manual_seed(rng_seed),
+        telemetry=telemetry,
     )
 
 

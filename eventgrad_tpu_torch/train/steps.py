@@ -82,7 +82,15 @@ explicit tensors (an empty dict for a model without BatchNorm; the
 transformer's flash attention joins the batched forward and backward
 through its own `vmap` rule, `ops/attention.py`). The JAX package's
 unfused optax tail is documented bitwise equal to the fused one, so the
-port runs the fused tail only. The telemetry engine is not ported yet.
+port runs the fused tail only.
+
+`obs=True` accumulates the on-device telemetry (`obs/device.py`: per-leaf
+fire and deferral counts, threshold and drift sums, the silence
+histogram, per-edge and per-bucket wire bytes, the integrity and
+bounded-async counters) and the message-lifecycle ledger (`obs/ledger.py`)
+into `state.telemetry`, once per pass, from the observables the branch
+already computed: plain PyTorch on device tensors, no host sync. With
+`obs=False` the step is the step without telemetry, launch for launch.
 """
 
 from __future__ import annotations
@@ -100,6 +108,8 @@ from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
 from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.augment import draw_pad_flip_crop, pad_flip_crop
 from eventgrad_tpu_torch.models.common import draw_dropout
+from eventgrad_tpu_torch.obs import device as obs_device
+from eventgrad_tpu_torch.obs import ledger as obs_ledger
 from eventgrad_tpu_torch.ops import event_engine
 from eventgrad_tpu_torch.ops.arena_update import (
     fused_mix_commit, fused_mix_commit_carrier,
@@ -170,6 +180,7 @@ def make_train_step(
     chaos_policy: Optional[RecoveryPolicy] = None,
     integrity=None,
     n_passes: Optional[int] = None,
+    obs: bool = False,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
     metrics)`: `x` is `[R, B, H, W, C]` images with `y` int64 `[R, B]`,
@@ -223,7 +234,19 @@ def make_train_step(
 
     The bucketed schedule under the fault clauses (drop, flaky, delay,
     die, nanstep, the freeze) waits (ROADMAP queue 1, item 12); it
-    refuses the integrity riders and `bitflip=` as the JAX step does."""
+    refuses the integrity riders and `bitflip=` as the JAX step does.
+
+    `obs=True` accumulates the telemetry and the message ledger into
+    `state.telemetry` (from `init_train_state(..., obs=True)`), at the
+    point and from the inputs of the JAX step: the proposal's fire bits,
+    threshold, drift and silence, the effective fire bits, the fired
+    elements, the wire-real bytes split evenly over the edges and per
+    bucket, the integrity verdicts and quarantine, the bounded-async
+    staleness and late commits, and for the ledger the applied suppress
+    mask, the per-edge census of the neighbour's raw fire bits, the
+    delivery bits and the lags. D-PSGD books the dense census (every leaf
+    proposes and fires), allreduce only the pass. `EG_LEDGER_LEAK` is
+    read here, when the step is built (`obs.ledger.leak`)."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     staleness = int(staleness)
@@ -340,6 +363,8 @@ def make_train_step(
             f"gossip_wire must be 'dense' or 'compact', got {gossip_wire!r}"
         )
     lr, mom = float(fused_sgd[0]), float(fused_sgd[1])
+    # the seeded ledger leak of the oracle runs, read at build time
+    leak_mode = obs_ledger.leak() if obs else ""
     event_cfg = event_cfg or EventConfig()
     sparse_cfg = sparse_cfg or SparseConfig()
     pol = None
@@ -389,6 +414,9 @@ def make_train_step(
             + scale_bytes_per_leaf * b.n_leaves for b in buckets)
     # {device: the per-bucket metric row}, made on the step's first call
     per_bucket_metric = {}
+    # {(device, ranks): D-PSGD's dense census (all-fire bits, L messages
+    # an edge)}
+    dense_census = {}
 
     def loss_fn(params, stats, x, y, drop):
         kw = {"drop": drop} if drop else {}
@@ -519,11 +547,12 @@ def make_train_step(
         return p_new, t_new, bufs, new_scales, pend
 
     def _plan(event_state, delivered, pass_num, dev):
-        """The bounded-async queue's scalar half for this pass."""
+        """(the bounded-async queue's scalar half for this pass, the
+        per-edge lags it used)."""
         lag_vec = chaos_inject.lag_vector(chaos, topo, pass_num, staleness,
                                           dev)
         return async_delivery_plan(event_state, delivered, lag_vec,
-                                   pass_num, staleness)
+                                   pass_num, staleness), lag_vec
 
     def _health(health, raws, deliver, oks):
         """EventGraD's peer health after an exchange: a sender that fired
@@ -551,12 +580,12 @@ def make_train_step(
         D >= 2, fold into the queue's delivered bits. Returns (p', t',
         the event state with its buffers, scales and queues committed,
         the raw `[R, L]` fire bits received per neighbor, the edge
-        staleness gauge or None, the health, the verdicts `[R, n_nb]` or
-        None)."""
+        staleness gauge, this pass's late commits and the lags (each None
+        below D = 2), the health, the verdicts `[R, n_nb]` or None)."""
         deliver = faults.get("deliver") if faults else None
-        q_plan = oks = None
+        q_plan = oks = lag_vec = None
         if staleness >= 2 and buckets is not None:
-            q_plan = _plan(event_state, deliver, pass_num, dev)
+            q_plan, lag_vec = _plan(event_state, deliver, pass_num, dev)
         scale_vec = out = None
         parts = [None]
         if buckets is not None:
@@ -584,7 +613,8 @@ def make_train_step(
                     if oks is not None:
                         delivered = oks if delivered is None else (
                             delivered & oks)
-                    q_plan = _plan(event_state, delivered, pass_num, dev)
+                    q_plan, lag_vec = _plan(event_state, delivered,
+                                            pass_num, dev)
                 gates = _gates(health, poison, quar)
             with _phase("commit_mix" + sfx):
                 p_new, t_new, bufs, scales, pend = _tail(
@@ -604,7 +634,7 @@ def make_train_step(
                                for i in range(n_nb))
         event_state = event_state.replace(bufs=new_bufs,
                                           buf_scales=new_scales)
-        edge_stale = None
+        edge_stale = late = None
         if q_plan is not None:
             _, sent_all, late_all, clock, late = q_plan
             slots = []
@@ -625,7 +655,8 @@ def make_train_step(
                                     device=dev) - clock
         if buckets is not None and health is not None:
             health = _health(health, raws, deliver, None)
-        return p_new, t_new, event_state, raws, edge_stale, health, oks
+        return (p_new, t_new, event_state, raws, (edge_stale, late, lag_vec),
+                health, oks)
 
     def _gates(health, poison, quar):
         """The gated tail's per-row operands (EventGraD): the frozen
@@ -642,6 +673,63 @@ def make_train_step(
         if quar is not None:
             g["quar"] = quar
         return g
+
+    def _bucket_row(dev):
+        """The per-bucket wire-real bytes `[K]`: a constant of the step,
+        made once per device (a host copy waits for the stream)."""
+        if dev not in per_bucket_metric:
+            per_bucket_metric[dev] = f32(n_nb, dev) * torch.tensor(
+                per_bucket, dtype=torch.float32, device=dev)
+        return per_bucket_metric[dev]
+
+    def _accumulate(tel, o, r, dev):
+        """One pass of telemetry from the branch's observables `o` (the
+        JAX step's `obs=True` block): event algorithms book the proposal
+        and the ledger's sender and receiver sides, D-PSGD the dense
+        census, allreduce the pass alone."""
+        per_edge = per_bucket_tel = None
+        if algo != "allreduce" and n_nb:
+            # the exchange ships the same payload to every neighbour: the
+            # wire-real bytes split evenly over the edges (times the f32
+            # reciprocal, as XLA rewrites the JAX package's division)
+            per_edge = (o["wire_real"] * float(
+                np.float32(1.0) / np.float32(n_nb))).expand(r, n_nb)
+            per_bucket_tel = (_bucket_row(dev) if per_bucket is not None
+                              else o["wire_real"].reshape(1))
+        if algo in EVENT_ALGOS:
+            prop, fire_vec = o["prop"], o["fire_vec"]
+            ledger_inputs = None
+            if o["n_msgs"] is not None:
+                ledger_inputs = dict(
+                    prop_fire=prop.fire_vec, suppress=o["suppress"],
+                    fire_vec=fire_vec, n_msgs=o["n_msgs"],
+                    deliver=o["deliver"], oks=o["oks"],
+                    lag_vec=o["lag_vec"], leak_mode=leak_mode)
+            oks = o["oks"]
+            return obs_device.accumulate(
+                tel, fire_vec=fire_vec, defer_vec=prop.fire_vec & ~fire_vec,
+                thres=prop.thres, drift=prop.value_diff,
+                silence=prop.iter_diff, fired_elems=o["fired_elems"],
+                edge_bytes=per_edge, bucket_bytes=per_bucket_tel,
+                wire_reject=None if oks is None else ~oks,
+                quarantined=o["quar_eff"], edge_staleness=o["edge_stale"],
+                late_commits=o["late_now"], ledger_inputs=ledger_inputs)
+        ledger_inputs = None
+        if algo == "dpsgd" and n_nb:
+            # dense gossip: every leaf proposes and fires every pass, and
+            # a chaos drop is the only non-delivery
+            if (dev, r) not in dense_census:
+                dense_census[dev, r] = (
+                    torch.ones((r, n_leaves), dtype=torch.bool, device=dev),
+                    torch.full((r, n_nb), n_leaves, dtype=torch.int32,
+                               device=dev))
+            ones_l, full = dense_census[dev, r]
+            ledger_inputs = dict(prop_fire=ones_l, fire_vec=ones_l,
+                                 n_msgs=full, deliver=o["deliver"],
+                                 leak_mode=leak_mode)
+        return obs_device.accumulate(
+            tel, edge_bytes=per_edge, bucket_bytes=per_bucket_tel,
+            ledger_inputs=ledger_inputs)
 
     def step(state, batch):
         x, y = batch
@@ -672,9 +760,12 @@ def make_train_step(
         health = state.chaos
         metrics = {}
         fired_leaves = None
-        # bounded-async: the per-edge staleness gauge and this pass's
-        # late commits (staleness >= 2 only)
-        edge_stale = None
+        # bounded-async: the per-edge staleness gauge, this pass's late
+        # commits and the lags (staleness >= 2 only)
+        edge_stale = late_now = lag_vec = None
+        # the ledger's receiver census: per edge, the neighbour's raw fire
+        # bits on the wire (telemetry only)
+        n_msgs = None
         deliver = corrupt_bits = salts = poison = None
         if chaos is not None:
             if health is None:
@@ -798,6 +889,18 @@ def make_train_step(
             # values + int32 indices per selected element per neighbor
             fired_elems, fired_leaves = _fired_accounting(
                 fire_vec, policy_lib.topk_layout(spec, ks).sizes_tensor(dev))
+            if obs:
+                # the top-k lanes carry no raw fire bits to count (they are
+                # masked on receipt), so the census is the neighbour's
+                # fired-leaf count itself, received like the payload;
+                # sparsified EventGraD runs no chaos and no integrity, and
+                # its queue sees every message at lag 1
+                cnt = torch.sum(fire_vec, dim=-1, dtype=torch.int32)
+                n_msgs = torch.stack([collectives.recv_from(cnt, topo, nb)
+                                      for nb in topo.neighbors], dim=-1)
+                if staleness >= 2:
+                    lag_vec = torch.ones((r, n_nb), dtype=torch.int32,
+                                         device=dev)
             sent_bytes = f32(n_nb, dev) * (
                 (val_bytes + 4.0) * fired_elems
                 + scale_bytes_per_leaf * fired_leaves
@@ -809,10 +912,15 @@ def make_train_step(
                 + scale_bytes_per_leaf * n_leaves
             ), dev)
         else:
-            (p_flat, new_t, event_state, raws, edge_stale, health,
-             oks) = _event_exchange(
+            (p_flat, new_t, event_state, raws, (edge_stale, late_now, lag_vec),
+             health, oks) = _event_exchange(
                 flat, g_flat, t_flat, fire_vec, fire_bs, packed, leaf_id,
                 event_state, pass_num, faults, health, bad, quar, dev)
+            if obs:
+                # every bucket of an edge is in `raws` (concatenated), and
+                # a leaf lives in exactly one bucket
+                n_msgs = torch.sum(torch.stack(raws, dim=1), dim=-1,
+                                   dtype=torch.int32)
             if per_bucket is not None:
                 # the same f32(n_nb) * python-float shape as the
                 # monolithic metric, so the bits agree across schedules
@@ -861,6 +969,23 @@ def make_train_step(
                 new_t = torch.where(params_ok[:, None], new_t, t_flat)
             quar_eff = quar | ~params_ok
 
+        telemetry = state.telemetry
+        if obs:
+            if telemetry is None:
+                raise ValueError(
+                    "an obs=True step accumulates into state.telemetry "
+                    "(init_train_state(..., obs=True)); this state has none"
+                )
+            telemetry = _accumulate(
+                telemetry, dict(
+                    prop=prop if algo in EVENT_ALGOS else None,
+                    fire_vec=fire_vec if algo in EVENT_ALGOS else None,
+                    suppress=suppress if algo in EVENT_ALGOS else None,
+                    fired_elems=fired_elems, wire_real=wire_real,
+                    n_msgs=n_msgs, deliver=deliver, oks=oks,
+                    lag_vec=lag_vec, quar_eff=quar_eff,
+                    edge_stale=edge_stale, late_now=late_now), r, dev)
+
         new_state = state.replace(
             params=p_flat,
             trace=new_t if mom else None,
@@ -869,6 +994,7 @@ def make_train_step(
             event=event_state,
             sparse=sparse_state,
             chaos=health,
+            telemetry=telemetry,
         )
         bcast = lambda v: torch.broadcast_to(v, (r,))
         metrics.update(
@@ -885,14 +1011,9 @@ def make_train_step(
             num_deferred=bcast(num_deferred),
         )
         if per_bucket is not None:
-            # per-bucket wire truth; the sum is sent_bytes_wire_real. A
-            # constant of the step, made once per device (a host copy
-            # waits for the stream)
-            if dev not in per_bucket_metric:
-                per_bucket_metric[dev] = f32(n_nb, dev) * torch.tensor(
-                    per_bucket, dtype=torch.float32, device=dev)
+            # per-bucket wire truth; the sum is sent_bytes_wire_real
             metrics["sent_bytes_wire_real_per_bucket"] = torch.broadcast_to(
-                per_bucket_metric[dev], (r, len(per_bucket)))
+                _bucket_row(dev), (r, len(per_bucket)))
         if edge_stale is not None:
             # how stale each edge's view is (passes since the newest
             # committed delivery was sent) and the cumulative late commits

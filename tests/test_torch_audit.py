@@ -163,6 +163,33 @@ def test_cell_audits_clean_with_exact_bytes(name, jax_cells):
         assert metric == rep["wire_metric_total"]
 
 
+OBS_CELLS = [c.name for c in audit.CONFIGS if c.obs]
+
+
+@pytest.mark.parametrize("name", OBS_CELLS)
+def test_obs_cells_trace_the_telemetry(name):
+    """The three `_obs` cells run their step with the telemetry and the
+    message ledger on (no substitution), audit clean with exact bytes
+    (`test_cell_audits_clean_with_exact_bytes`), and the traced step
+    books one pass: every rank's census reached it through the exchange,
+    so the ledger's receiver law holds on the one-pass window."""
+    from eventgrad_tpu_torch.obs import ledger as obs_ledger
+
+    assert len(OBS_CELLS) == 3
+    rep = _port(name)
+    assert rep["obs"] and rep["substitutions"] == []
+    assert audit.clean(rep)
+    cfg = audit.config_by_name(name)
+    state, step, topo, _ = audit.build(cfg, "cpu")
+    assert state.telemetry is not None
+    new, _ = step(state, audit._batch(cfg, "cpu"))
+    tel = new.telemetry
+    assert tel.steps.tolist() == [1] * topo.n_ranks
+    assert int(tel.ledger.counts.sum()) > 0
+    verdict = obs_ledger.audit_window(tel.ledger, None, topo)
+    assert verdict["ok"], verdict["violations"]
+
+
 def test_traced_steps_show_the_kernel_ops():
     """On the CPU the kernels' plain versions run inside `eg::` ops, so
     the traced step carries one node per kernel: the masked EventGraD

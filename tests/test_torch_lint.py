@@ -2,8 +2,11 @@
 
 The port's sources lint clean; each ported rule fires on a seeded
 violation written under `tmp_path`, with the same count as the JAX rule
-on the JAX-spelled twin of that seed; and the auditor's named exemption
-(the seeded unregistered kernel in `analysis/audit.py`) stays honest.
+on the JAX-spelled twin of that seed; the auditor's named exemption
+(the seeded unregistered kernel in `analysis/audit.py`) stays honest;
+and the wall-clock and ledger rules flag their stale direction (an
+exempt file that no longer reads the clock, a `ledger_update` that no
+longer adds to the counters) as the JAX rules do.
 """
 
 import pytest
@@ -100,6 +103,42 @@ SEEDS = {
          "for b in bufs))\n"),
         1,
     ),
+    "wall-clock": (
+        "wall-clock-confined", "wall-clock-confined",
+        ("eventgrad_tpu_torch/train/seeded.py",
+         "import time as clock\nfrom time import perf_counter\n\n"
+         "def f():\n    return clock.perf_counter(), clock.sleep(0)\n"),
+        ("eventgrad_tpu/train/seeded.py",
+         "import time as clock\nfrom time import perf_counter\n\n"
+         "def f():\n    return clock.perf_counter(), clock.sleep(0)\n"),
+        2,
+    ),
+    "wall-clock-in-obs": (
+        "wall-clock-confined", "wall-clock-confined",
+        ("eventgrad_tpu_torch/obs/seeded.py",
+         "import time\n\ndef f():\n    return time.perf_counter()\n"),
+        ("eventgrad_tpu/obs/seeded.py",
+         "import time\n\ndef f():\n    return time.perf_counter()\n"),
+        0,
+    ),
+    "ledger-mutation": (
+        "telemetry-counter-ledgered", "telemetry-counter-ledgered",
+        ("eventgrad_tpu_torch/train/seeded.py",
+         "def f(tel, i, v, g):\n"
+         "    tel.ledger.counts += 1\n"
+         "    tel.ledger.queue.index_add_(0, i, v)\n"
+         "    tel.ledger.late_queue[0] += 2\n"
+         "    tel.fire_count += 1\n"
+         "    return g(ledger=tel.ledger), g(ledger=tel.ledger + 1)\n"),
+        ("eventgrad_tpu/train/seeded.py",
+         "def f(tel, i, v, g):\n"
+         "    a = tel.ledger.counts.at[0].add(1)\n"
+         "    b = tel.ledger.queue.at[i].add(v)\n"
+         "    c = tel.ledger.late_queue.at[0].add(2)\n"
+         "    d = tel.fire_count + 1\n"
+         "    return g(ledger=tel.ledger), g(ledger=tel.ledger + 1)\n"),
+        4,
+    ),
 }
 
 
@@ -115,7 +154,8 @@ def test_port_sources_lint_clean():
     assert [r.name for r in lint.RULES] == [
         "no-host-sync-in-traced", "kernel-registered",
         "trigger-policy-registered", "carrier-dtype-declared",
-        "exit-code-literals", "os-exit-confined", "crashpoint-instrumented"]
+        "exit-code-literals", "os-exit-confined", "crashpoint-instrumented",
+        "wall-clock-confined", "telemetry-counter-ledgered"]
 
 
 @pytest.mark.parametrize("seed", list(SEEDS))
@@ -198,3 +238,35 @@ def test_leak_exemption_stays_honest(monkeypatch):
     jax_v = jax_lint.run([JAX_RULES["pallas-kernel-registered"]],
                          files=jfiles)
     assert [v.path for v in jax_v] == ["eventgrad_tpu/analysis/audit.py"]
+
+
+def test_wall_clock_exemption_stays_honest():
+    """An exempt file that no longer reads the clock flags as stale, as
+    the JAX rule's exemption does."""
+    rel = "eventgrad_tpu_torch/utils/realdata.py"
+    rule = RULES["wall-clock-confined"]
+    assert rel in rule.EXEMPT
+    stale = lint.run([rule], files=_package_files(
+        rel, ("time.perf_counter()", "0.0")))
+    assert [v.path for v in stale] == [rel]
+    assert "no longer reads the wall clock" in stale[0].message
+    jrel = "eventgrad_tpu/chaos/membership.py"
+    jfiles = [
+        jax_lint.SourceFile(path=sf.path, rel=sf.rel,
+                            text=sf.text.replace("time.perf_counter()", "0.0")
+                            if sf.rel == jrel else sf.text)
+        for sf in jax_lint.collect_sources(subdirs=("eventgrad_tpu",))
+    ]
+    jax_v = jax_lint.run([JAX_RULES["wall-clock-confined"]], files=jfiles)
+    assert [v.path for v in jax_v] == [jrel]
+
+
+def test_ledger_helper_must_still_add_the_counters():
+    """A `ledger_update` that no longer adds to the counters leaves the
+    rule covering nothing: the owner flags."""
+    owner = "eventgrad_tpu_torch/obs/ledger.py"
+    stale = lint.run([RULES["telemetry-counter-ledgered"]],
+                     files=_package_files(
+                         owner, ("counts = counts + inc", "counts = inc")))
+    assert [v.path for v in stale] == [owner]
+    assert "no longer adds" in stale[0].message

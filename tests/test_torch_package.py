@@ -59,6 +59,18 @@ def test_import_scan_covers_the_analysis_subpackage():
     assert "chip_smoke.py" in scanned
 
 
+def test_import_scan_covers_the_obs_subpackage():
+    """The scan reads every module of `eventgrad_tpu_torch/obs/` (the
+    schema, bubble and report modules are copies of JAX modules that
+    import no JAX themselves) and the telemetry's command-line tools."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in ("__init__", "schema", "ledger", "device", "registry",
+                 "report", "bubble"):
+        assert f"eventgrad_tpu_torch/obs/{name}.py" in scanned
+    for name in ("metrics", "ledger_audit", "obs_report", "obs_overhead"):
+        assert f"eventgrad_tpu_torch/utils/{name}.py" in scanned
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax(path):
@@ -108,6 +120,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     flat = torch.cat([v.reshape(-1) for v in params.values()])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         egt.evaluate(model, flat, stats, x, y)
+    from eventgrad_tpu_torch.utils import ledger_audit, obs_overhead
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ledger_audit.run(epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        obs_overhead.measure_pair(n_steps=1)
     lm = egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1, max_len=8,
                            attn="flash")
     tokens = np.zeros((16, 8), np.int32)
