@@ -64,14 +64,13 @@ class TelemetryState:
 
     @classmethod
     def init(cls, n_leaves: int, n_edges: int, n_buckets: int = 1,
-             queue_depth: int = 0, *, n_ranks: Optional[int] = None,
+             queue_depth: int = 0, *, n_ranks: int,
              device=None) -> "TelemetryState":
-        """Zero counters (`n_ranks` None: one rank's tensors, as the JAX
-        function; else stacked over the ranks)."""
-        lead = () if n_ranks is None else (int(n_ranks),)
+        """Zero counters, stacked over the `n_ranks` ranks."""
 
         def z(dtype, *shape):
-            return torch.zeros(lead + shape, dtype=dtype, device=device)
+            return torch.zeros((int(n_ranks),) + shape, dtype=dtype,
+                               device=device)
 
         i32, f32 = torch.int32, torch.float32
         return cls(

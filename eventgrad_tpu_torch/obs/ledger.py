@@ -2,8 +2,7 @@
 
 Port of `eventgrad_tpu/obs/ledger.py` on the rank-stacked layout: every
 tensor carries the leading `[R]` rank dimension the JAX package's vmap
-adds (a per-rank tensor without it works too: the arithmetic reads the
-trailing dimensions only).
+adds.
 
 EventGraD's value claim is an accounting claim ("~70% of messages saved
 at no accuracy cost"), and the counters that tell each message's fate
@@ -87,13 +86,13 @@ class MessageLedger:
 
     @classmethod
     def init(cls, n_edges: int, queue_depth: int = 0, *,
-             n_ranks: Optional[int] = None, device=None) -> "MessageLedger":
-        """Zero counters for `n_edges` edges (`n_ranks` None: one rank's
-        tensors, as the JAX function; else stacked over the ranks)."""
-        lead = () if n_ranks is None else (int(n_ranks),)
+             n_ranks: int, device=None) -> "MessageLedger":
+        """Zero counters for `n_edges` edges, stacked over the `n_ranks`
+        ranks."""
 
         def z(*shape):
-            return torch.zeros(lead + shape, dtype=torch.int32, device=device)
+            return torch.zeros((int(n_ranks),) + shape, dtype=torch.int32,
+                               device=device)
 
         return cls(
             counts=z(len(LEDGER_COUNTER_ROWS), n_edges),
@@ -102,10 +101,9 @@ class MessageLedger:
         )
 
     def in_flight(self) -> torch.Tensor:
-        """Gauge: queued-but-uncommitted messages per edge, i32 [..., E]."""
+        """Gauge: queued-but-uncommitted messages per edge, i32 [R, E]."""
         if self.queue is None:
-            return torch.zeros(self.counts.shape[:-2] + self.counts.shape[-1:],
-                               dtype=torch.int32, device=self.counts.device)
+            return torch.zeros_like(self.counts[:, 0])
         return torch.sum(self.queue, dim=-2, dtype=torch.int32)
 
 

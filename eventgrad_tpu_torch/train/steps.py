@@ -132,8 +132,9 @@ def _phase(name: str):
     """A profiler span `step/<name>` over one phase of the step, named as
     the JAX step's phases (grad, gate_pack, exchange, commit_mix; a
     bucket's as `exchange.b<k>`, `commit_mix.b<k>`), plus `enqueue`, the
-    bounded-async queue's shift and merge inside `commit_mix`; next to
-    free when no profiler runs."""
+    bounded-async queue's shift and merge inside `commit_mix`, and
+    `telemetry`, the obs step's counters and ledger; next to free when no
+    profiler runs."""
     return torch.profiler.record_function("step/" + name)
 
 
@@ -976,15 +977,16 @@ def make_train_step(
                     "an obs=True step accumulates into state.telemetry "
                     "(init_train_state(..., obs=True)); this state has none"
                 )
-            telemetry = _accumulate(
-                telemetry, dict(
-                    prop=prop if algo in EVENT_ALGOS else None,
-                    fire_vec=fire_vec if algo in EVENT_ALGOS else None,
-                    suppress=suppress if algo in EVENT_ALGOS else None,
-                    fired_elems=fired_elems, wire_real=wire_real,
-                    n_msgs=n_msgs, deliver=deliver, oks=oks,
-                    lag_vec=lag_vec, quar_eff=quar_eff,
-                    edge_stale=edge_stale, late_now=late_now), r, dev)
+            with _phase("telemetry"):
+                telemetry = _accumulate(
+                    telemetry, dict(
+                        prop=prop if algo in EVENT_ALGOS else None,
+                        fire_vec=fire_vec if algo in EVENT_ALGOS else None,
+                        suppress=suppress if algo in EVENT_ALGOS else None,
+                        fired_elems=fired_elems, wire_real=wire_real,
+                        n_msgs=n_msgs, deliver=deliver, oks=oks,
+                        lag_vec=lag_vec, quar_eff=quar_eff,
+                        edge_stale=edge_stale, late_now=late_now), r, dev)
 
         new_state = state.replace(
             params=p_flat,

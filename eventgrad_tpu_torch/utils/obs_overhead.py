@@ -22,11 +22,13 @@ Op-points:
     adaptive trigger at horizon 1.05, warmup 2, max_silence 50; the f32
     masked wire.
 
-With `--profile N` each config also runs N passes under `torch.profiler`
-and reports the launches per pass (CUDA kernels; on the CPU, the ATen
-ops), the kernels' device-busy ms per pass (0 on the CPU) and the host
-syncs per pass (`cudaStreamSynchronize` /
-`cudaDeviceSynchronize` calls and device-to-host or pageable copies).
+With `--profile N` each config also runs two windows of N passes under
+`torch.profiler` (off, on, on, off) and reports the launches per pass
+(CUDA kernels; on the CPU, the ATen ops), the kernels' device-busy ms
+per pass and per window, the device ms of the kernels under the step's
+`step/telemetry` span (both 0 on the CPU) and the host syncs per pass
+(`cudaStreamSynchronize` / `cudaDeviceSynchronize` calls and
+device-to-host or pageable copies).
 
     python -m eventgrad_tpu_torch.utils.obs_overhead --device cpu \\
         [--model cnn2|resnet18] [--steps 40] [--reps 3] [--profile N] \\
@@ -80,8 +82,10 @@ def _sync(device):
 
 
 def _profile(step, state, batches, device):
-    """(state, launches, host syncs, device-busy ms) over the passes of
-    `batches` (the busy ms: the kernels' device time, 0 on the CPU)."""
+    """(state, {launches, host syncs, device-busy ms, telemetry ms}) over
+    the passes of `batches` (the busy ms: the kernels' device time; the
+    telemetry ms: that of the kernels under the step's `step/telemetry`
+    span; both 0 on the CPU)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -90,7 +94,7 @@ def _profile(step, state, batches, device):
             state, _ = step(state, b)
         _sync(device)
     evs = prof.key_averages()
-    busy_ms = 0.0
+    busy_ms = tel_ms = 0.0
     if device.type == "cuda":
         gpu = torch.autograd.DeviceType.CUDA
         kernels = [e for e in evs if e.device_type == gpu
@@ -99,6 +103,9 @@ def _profile(step, state, batches, device):
                    and not e.key.startswith("Memset")]
         launches = sum(e.count for e in kernels)
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        tel_ms = sum(e.device_time_total for e in evs
+                     if e.key == "step/telemetry"
+                     and e.device_type != gpu) / 1e3
     else:
         launches = sum(e.count for e in evs if e.key.startswith("aten::"))
     syncs = sum(e.count for e in evs
@@ -107,7 +114,8 @@ def _profile(step, state, batches, device):
                     and any(s in e.key for s in SYNC_COPIES)))
     # the profiler's own final synchronize is not the step's
     syncs -= 1 if device.type == "cuda" else 0
-    return state, launches, syncs, busy_ms
+    return state, {"launches": launches, "syncs": syncs, "busy_ms": busy_ms,
+                   "telemetry_ms": tel_ms}
 
 
 def _config(obs: bool, model_name: str, device, seed: int = 0):
@@ -137,11 +145,16 @@ def measure_pair(model_name: str = "cnn2", n_steps: int = 40, device=None,
     and first-call set-up), and `paired`: the median over passes of the
     on - off difference and of the on / off ratio, which the host's slow
     drift (tens of ms between processes on a shared host) leaves out.
-    With `profile`, each config then runs that many more passes under the
-    profiler: launches, host syncs and device-busy ms per pass."""
+    With `profile`, each config then runs two windows of that many more
+    passes under the profiler, in the order off, on, on, off: launches,
+    host syncs, device-busy ms and telemetry device ms per pass over both
+    windows, and the device-busy ms of each window (off's two windows
+    bracket on's, so their spread is the window-to-window noise that a
+    difference of the busy ms has to clear)."""
     device = resolve_device(device)
     _, shape, ranks, per_rank, _, _ = OP_POINTS[model_name]
-    total = warmup + n_steps + profile
+    timed = warmup + n_steps
+    total = timed + 2 * profile
     x, y = synthetic_dataset(ranks * per_rank * total, shape, seed=3)
     xb, yb = batched_epoch(x, y.astype(np.int64), ranks, per_rank)
     xb, yb = torch.from_numpy(xb).to(device), torch.from_numpy(yb).to(device)
@@ -151,7 +164,7 @@ def measure_pair(model_name: str = "cnn2", n_steps: int = 40, device=None,
             for name in names}
     reg = Registry()
     _sync(device)
-    for s in range(total - profile):
+    for s in range(timed):
         for name in (names if s % 2 == 0 else names[::-1]):
             state, step = runs[name]
             with reg.span(name, cat="device", timed=s >= warmup):
@@ -163,13 +176,25 @@ def measure_pair(model_name: str = "cnn2", n_steps: int = 40, device=None,
         ms = [sp.dur_us / 1e3 for sp in spans if sp.args["timed"]]
         out[name] = {"compile_s": spans[0].dur_us / 1e6, **_summary(ms)}
         out[name]["_ms"] = ms
-        if profile:
+    if profile:
+        prof = {name: [] for name in names}
+        for w, name in enumerate(names + names[::-1]):
             state, step = runs[name]
-            runs[name][0], launches, syncs, busy_ms = _profile(
-                step, state, batches[total - profile:], device)
-            out[name].update(launches_per_pass=launches / profile,
-                             host_syncs_per_pass=syncs / profile,
-                             device_busy_ms_per_pass=busy_ms / profile)
+            lo = timed + (w // 2) * profile
+            runs[name][0], p = _profile(step, state,
+                                        batches[lo:lo + profile], device)
+            prof[name].append(p)
+        for name in names:
+            n = 2 * profile
+            ws = prof[name]
+            out[name].update(
+                launches_per_pass=sum(p["launches"] for p in ws) / n,
+                host_syncs_per_pass=sum(p["syncs"] for p in ws) / n,
+                device_busy_ms_per_pass=sum(p["busy_ms"] for p in ws) / n,
+                device_busy_ms_per_pass_windows=[
+                    p["busy_ms"] / profile for p in ws],
+                telemetry_device_ms_per_pass=sum(
+                    p["telemetry_ms"] for p in ws) / n)
     off, on = out["obs_off"].pop("_ms"), out["obs_on"].pop("_ms")
     out["paired"] = {
         "delta_ms_p50": float(median([b - a for a, b in zip(off, on)])),
@@ -182,7 +207,8 @@ def run(model_name: str = "cnn2", n_steps: int = 40, reps: int = 3,
         device=None, warmup: int = 5, profile: int = 0) -> Dict[str, Any]:
     """`reps` paired measurements (`measure_pair`, a fresh pair of states
     each); each config keeps its best-p50 rep, and the paired delta and
-    ratio are the median over the reps. Returns the artifact record."""
+    ratio are the median over the reps; with `profile`, every rep's
+    device-busy windows are kept too. Returns the artifact record."""
     device = resolve_device(device)
     reps_out = [measure_pair(model_name, n_steps, device, warmup, profile)
                 for _ in range(reps)]
@@ -207,6 +233,10 @@ def run(model_name: str = "cnn2", n_steps: int = 40, reps: int = 3,
         "results": results,
         "rep_p50_ms": {name: [r[name]["step_ms_p50"] for r in reps_out]
                        for name in ("obs_off", "obs_on")},
+        **({"rep_device_busy_ms_windows": {
+            name: [r[name]["device_busy_ms_per_pass_windows"]
+                   for r in reps_out] for name in ("obs_off", "obs_on")}}
+           if profile else {}),
         "paired_delta_ms_p50": delta,
         "overhead_pct_paired": round(100.0 * (ratio - 1.0), 2),
         "overhead_pct_p50": round(
