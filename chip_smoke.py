@@ -13,8 +13,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    each flash instantiation's registers, spills and shared memory
    (`-Xptxas -v`), and, where the toolkit has cuobjdump, its count of
    tensor-core (HMMA) instructions: the run fails if a forward, dQ or
-   dK/dV instantiation (float32 and bfloat16, DMAX 32, 64 and 128) is
-   missing or has none;
+   dK/dV instantiation (float32 and bfloat16, DMAX 32, 64 and 128, and
+   the wide form for head dimensions above 128) is missing or has none;
 3. kernels — each gossip-tail kernel at the flagship shapes (Ring(8) x
    ResNet-18: 8 x 17,444,682 elements, two neighbors), held bitwise
    against its plain PyTorch version on the same inputs (bit patterns
@@ -37,8 +37,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    beside the plain versions, against the ungated kernel's bound.
    Then the three flash-attention kernels (forward, dQ, dK/dV) at the
    transformer legs' shapes (B = 32 = 8 ranks x 4, T = 1024, and H = 8,
-   D = 64 or H = 16, D = 128; causal, q/k/v as strided views of one
-   fused projection), in
+   D = 64, H = 16, D = 128 or H = 8, D = 256; causal, q/k/v as strided
+   views of one fused projection), in
    float32 and in bfloat16, each against its plain version on the same
    inputs and, in float32, the autograd Function end to end against
    autograd through the plain attention: float32 forward atol = rtol =
@@ -49,14 +49,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    TFLOP/s; float32: three TF32 products each at 495 TFLOP/s, the least
    work that keeps float32 accuracy) or the bytes at 3.35 TB/s,
    whichever is larger. Small cases follow in float32 and bfloat16, at
-   D = 24-64 and again at D = 80, 96 and 128 (the DMAX = 128 kernels;
-   80 and 96 on zero-filled columns): non-causal, ragged T = 160 (also
+   D = 24-64, again at D = 80, 96 and 128 (the DMAX = 128 kernels;
+   80 and 96 on zero-filled columns) and at D = 160, 256, 320 and 512
+   (the wide form; 160 and 320 on zero-filled columns of their last
+   128-column chunk): non-causal, ragged T = 160 (also
    with rows only 4-byte aligned: 4-byte copies in float32, plain loads
    in bfloat16), one row, the offset variant on a fully visible, a
    diagonal, a past-the-diagonal (keys 40 ahead) and a fully masked hop
    (output and gradients exactly 0), per-group offsets, each with the
-   cotangent of lse; then a head dimension of 160, which must raise
-   naming its ROADMAP item. Last, kernel 9, the auditor's seeded
+   cotangent of lse; then head dimensions 160 and 512 through the
+   autograd Function against autograd through the plain attention (no
+   width is refused). Last, kernel 9, the auditor's seeded
    unregistered kernel (`eg::leak_kernel`, `csrc/audit_leak.cu`),
    bitwise `x * 2.0` at the JAX fixture's (8, 128) block and at 8 x
    17,444,682 elements, timed beside `x * 2.0` and `torch.mul`;
@@ -72,7 +75,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    compact wire (capacity the largest of 8 partitions).
    The same for a small transformer (flash attention, float32 compute,
    T = 96), and stacked ring attention through the flash kernels over 4
-   shards (D = 32 and 128) against plain attention on the whole
+   shards (D = 32, 128 and 256) against plain attention on the whole
    sequence, forward and gradients;
 5. main path — the flagship trainer through `eventgrad_tpu_torch.train`:
    full-width ResNet-18 (bf16 compute, 3 blocks per stage), Ring(8),
@@ -84,26 +87,33 @@ Phases, in order; any failure exits non-zero and prints no result:
    top-k 10% on the f32 wire, allreduce, and EventGraD on the compact
    wire at `compact_frac=0.375` (dense through the first epoch, compact
    in the second), f32 and int8 carrier-resident, each logged beside
-   its masked twin (step_ms, peak memory). Then four
+   its masked twin (step_ms, peak memory). Then ResNet-50 (Bottleneck
+   blocks, `MODEL_REGISTRY["resnet50"]`: 29,451,082 parameters in 197
+   leaves) on the same op-point, EventGraD and D-PSGD on the dense
+   masked f32 wire, 3 steps x 2 epochs each. Then six
    transformer legs at the same optimizer and trigger: EventGraD and
    D-PSGD on `TransformerLM(vocab=256, dim=512, n_heads=8, n_layers=4,
    max_len=1024, attn="flash")` (13,389,056 parameters per rank in 46
-   leaves), and on `TransformerLM(vocab=256, dim=2048, n_heads=16,
+   leaves), on `TransformerLM(vocab=256, dim=2048, n_heads=16,
    n_layers=2, max_len=1024, attn="flash")`, the `transformer-d128` legs
    (heads of 128: Pythia-1.4B's attention width, cut to 2 layers;
-   103,850,240 parameters in 26 leaves), in float32, 4 sequences of 1024
-   tokens per rank, the f32 wire. The kernels' launch counters are
-   zeroed just before each leg and read just after (the
+   103,850,240 parameters in 26 leaves), and on the same LM in 8 heads
+   of 256, the `transformer-d256` legs (Gemma-2B's attention width, cut
+   to 2 of its 18 layers; the same parameters), in float32, 4 sequences
+   of 1024 tokens per rank, the f32 wire. The kernels' launch counters
+   are zeroed just before each leg and read just after (the
    `transformer-d128` legs' flash launches report as the DMAX = 128
-   records "flash_*_d128"); a leg whose kernels did not launch, whose
+   records "flash_*_d128", the `transformer-d256` legs' as the wide
+   form's "flash_*_d256"); a leg whose kernels did not launch, whose
    receive buffers are not in the carrier dtype, whose byte counts
    are not exact (D-PSGD int8 34,890,052 sent bytes per step per chip,
    EventGraD int8 34,890,224 wire-real bytes, sparsified EventGraD f32
    2 x (8 x sum of the leaves' k + 86) wire-real bytes, allreduce 4 x
    17,444,682 sent bytes: each derived from the model's leaf sizes; on
-   the LM, D-PSGD's sent and wire-real bytes both 2 x 4 B per parameter
-   and EventGraD's wire-real that plus the fire bytes, as the step
-   reckons it in float32, with the fired payload at most that), whose
+   the LM and ResNet-50, D-PSGD's sent and wire-real bytes both 2 x 4 B
+   per parameter (ResNet-50: 235,608,656) and EventGraD's wire-real that
+   plus the fire bytes, as the step reckons it in float32 (ResNet-50:
+   235,609,056), with the fired payload at most that), whose
    flash kernels did not launch once per layer per step (forward: plus
    once per layer per test pass), or whose loss is not finite fails the
    run; a compact leg fails unless its last epoch ran the compact wire
@@ -304,6 +314,9 @@ FLASH_SHAPE = (RANKS * 4, 1024, 8, 64)
 #: ... and of the legs at head dimension 128: 16 heads of 128 (dim 2048,
 #: the attention width of Pythia-1.4B)
 FLASH_SHAPE_D128 = (RANKS * 4, 1024, 16, 128)
+#: ... and at head dimension 256: 8 heads of 256 (dim 2048, the attention
+#: width of Gemma-2B), the kernels' wide form
+FLASH_SHAPE_D256 = (RANKS * 4, 1024, 8, 256)
 LM = dict(vocab=256, dim=512, n_heads=8, n_layers=4, max_len=1024)
 LM_PARAMS, LM_LEAVES, LM_PER_RANK = 13_389_056, 46, 4
 #: the legs at head dimension 128: Pythia-1.4B's attention width
@@ -311,6 +324,10 @@ LM_PARAMS, LM_LEAVES, LM_PER_RANK = 13_389_056, 46, 4
 #: block, cut to 2 layers, vocab 256
 LM_D128 = dict(vocab=256, dim=2048, n_heads=16, n_layers=2, max_len=1024)
 LM_D128_PARAMS, LM_D128_LEAVES = 103_850_240, 26
+#: the legs at head dimension 256: Gemma-2B's attention width (google;
+#: d_model 2048, 8 heads of 256) in the same block, cut to 2 of its 18
+#: layers, vocab 256: the d128 legs' parameters in other heads
+LM_D256 = dict(vocab=256, dim=2048, n_heads=8, n_layers=2, max_len=1024)
 
 TIMING_REPS, TIMING_WARMUP = 20, 3
 DEVICE = "cuda"
@@ -405,27 +422,40 @@ def phase_toolchain():
     return card
 
 
-#: a flash kernel instantiation in a mangled name: kernel, type, DMAX
+#: a flash kernel instantiation in a mangled name: kernel, type, DMAX,
+#: wide form (0 or 1)
 FLASH_INST = re.compile(
-    r"(flash_(?:fwd|dq|dkv))_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    r"(flash_(?:fwd|dq|dkv))_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
+#: the most dynamic shared memory a block may opt into on the H100
+SMEM_MAX = 232_448
 
 
 def inst_name(found) -> str:
-    kernel, ty, dmax = found.groups()
-    return f"{kernel}<{'float' if ty == 'f' else 'bf16'}, {dmax}>"
+    kernel, ty, dmax, wide = found.groups()
+    return (f"{kernel}<{'float' if ty == 'f' else 'bf16'}, {dmax}"
+            f"{', wide' if wide == '1' else ''}>")
 
 
-def flash_smem_bytes(kernel: str, elem: int, dmax: int) -> int:
+def flash_smem_bytes(kernel: str, elem: int, dmax: int, wide: bool) -> int:
     """Dynamic shared memory of one flash instantiation, as its `run`
-    sizes it, in [64][DMAX + 16 bytes] tiles: forward q + two stages of k
-    and v; dQ q, dO + two stages of k and v; dK/dV k, v + two stages of q
-    and dO, and of lse and delta."""
+    sizes it, in [64][DMAX + 16 bytes] tiles. DMAX <= 128: forward q + two
+    stages of k and v; dQ q, dO + two stages of k and v; dK/dV k, v + two
+    stages of q and dO, and of lse and delta. Wide (128-column chunks):
+    forward two stages of (q, k, v); dQ stages of (q, dO, k, v) and the k
+    tile of the block's dQ columns; dK/dV stages of (k, v, q, dO), the q
+    and dO tiles of its columns, lse and delta; two stages where they fit
+    in SMEM_MAX, else one."""
     tile = 64 * (dmax + 16 // elem) * elem
+    slots = lambda stage, extra: 2 if 2 * stage + extra <= SMEM_MAX else 1
     if kernel == "flash_fwd":
-        return 5 * tile
+        return (6 if wide else 5) * tile
     if kernel == "flash_dq":
-        return 6 * tile
-    return 6 * tile + 4 * 64 * 4
+        if not wide:
+            return 6 * tile
+        return (4 * slots(4 * tile, tile) + 1) * tile
+    if not wide:
+        return 6 * tile + 4 * 64 * 4
+    return (4 * slots(4 * tile, 2 * tile + 2 * 64 * 4) + 2) * tile + 2 * 64 * 4
 
 
 def ptxas_report(text: str):
@@ -439,12 +469,13 @@ def ptxas_report(text: str):
             continue
         if inst is None:
             continue
-        kernel, ty, dmax = inst.groups()
+        kernel, ty, dmax, wide = inst.groups()
         name = inst_name(inst)
         if "spill" in line:
             log(f"  ptxas {name}: {line.strip()}")
         elif "Used" in line:
-            smem = flash_smem_bytes(kernel, 4 if ty == "f" else 2, int(dmax))
+            smem = flash_smem_bytes(kernel, 4 if ty == "f" else 2, int(dmax),
+                                    wide == "1")
             log(f"  ptxas {name}: {line.split(':', 1)[1].strip()}; "
                 f"{smem} bytes dynamic shared memory")
 
@@ -488,7 +519,8 @@ def phase_build():
         log(f"HMMA instructions per flash instantiation: {json.dumps(counts)}")
         want = {f"{k}<{ty}, {dmax}>" for k in ("flash_fwd", "flash_dq",
                                                 "flash_dkv")
-                for ty in ("float", "bf16") for dmax in (32, 64, 128)}
+                for ty in ("float", "bf16")
+                for dmax in ("32", "64", "128", "128, wide")}
         idle = sorted(k for k in want if counts.get(k, 0) == 0)
         if idle:
             raise SmokeError(f"no tensor-core instructions in {idle}")
@@ -1133,9 +1165,12 @@ def _flash_small_cases():
         ("one row", 1, 1, 1, 16, True, 0, 0, 0),
     ]
     # D = 24 and 32 run the DMAX = 32 instantiation; 64 the DMAX = 64;
-    # 80, 96 (zero-filled columns) and 128 the DMAX = 128
+    # 80, 96 (zero-filled columns) and 128 the DMAX = 128; 160 (the second
+    # chunk zero-filled past 32 columns), 256, 320 and 512 the wide form
     for d_ragged, d_hop, d_group in ((24, 32, 64), (80, 80, 80),
-                                     (96, 96, 96), (128, 128, 128)):
+                                     (96, 96, 96), (128, 128, 128),
+                                     (160, 160, 160), (256, 256, 256),
+                                     (320, 320, 320), (512, 512, 512)):
         cases += [
             ("non-causal", 2, 160, 2, d_ragged, False, 0, 0, 0),
             ("ragged causal", 2, 160, 2, d_ragged, True, 0, 0, 0),
@@ -1154,15 +1189,22 @@ def _flash_small_cases():
     return cases
 
 
+def flash_suffix(d: int) -> str:
+    """The record suffix of the instantiation a head dimension runs:
+    "_d256" for the wide form (d > 128), "_d128" for DMAX = 128."""
+    return "_d256" if d > 128 else "_d128" if d > 64 else ""
+
+
 def phase_flash_kernels():
     """The three flash-attention kernels against their plain versions:
-    at the transformer legs' shapes (head dimensions 64 and 128) in
+    at the transformer legs' shapes (head dimensions 64, 128 and 256) in
     float32 (the legs' dtype) and bfloat16, timed; then small cases in
-    both dtypes at D from 16 to 128 (non-causal, ragged T and D, the
+    both dtypes at D from 16 to 512 (non-causal, ragged T and D, the
     offset variant's three kinds of hop, the lse cotangent, per-group
-    offsets); then a head dimension of 160, which must raise naming its
-    ROADMAP item. Returns {name: partial kernel record}: the DMAX = 128
-    instantiations' under names ending in "_d128"."""
+    offsets); then head dimensions 160 and 512 through the autograd
+    Function against autograd through the plain attention. Returns
+    {name: partial kernel record}: the DMAX = 128 instantiations' under
+    names ending in "_d128", the wide form's in "_d256"."""
     import torch
 
     from eventgrad_tpu_torch.ops import attention as fa
@@ -1172,6 +1214,7 @@ def phase_flash_kernels():
     gen = torch.Generator(device=dev).manual_seed(1)
     recs = _flash_main_shape(FLASH_SHAPE, "", gen)
     recs.update(_flash_main_shape(FLASH_SHAPE_D128, "_d128", gen))
+    recs.update(_flash_main_shape(FLASH_SHAPE_D256, "_d256", gen))
 
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         f32 = dtype == torch.float32
@@ -1197,7 +1240,7 @@ def phase_flash_kernels():
             if name == "hop fully masked" and (
                     any(bool(g.any()) for g in g_k) or bool(got[0].any())):
                 raise SmokeError(f"{what}: output or gradients not exactly 0")
-            suffix = "_d128" if cd > 64 else ""
+            suffix = flash_suffix(cd)
             for kname, err in (("flash_fwd", max(errs[:2])),
                                ("flash_dq", errs[2]),
                                ("flash_dkv", max(errs[3:]))):
@@ -1206,20 +1249,25 @@ def phase_flash_kernels():
             log(f"flash {what}: B{cb} T{ct} H{ch} max_abs_err "
                 f"{max(errs):.3e}")
 
-    # above the widest instantiation the wrapper refuses, naming the item
-    wide = torch.zeros((1, 8, 1, fa.MAX_HEAD_DIM + 32), device=dev)
-    try:
-        fa.flash_attention(wide, wide, wide)
-    except NotImplementedError as e:
-        if "ROADMAP queue 1, item 10" not in str(e):
-            raise SmokeError(f"D={wide.shape[-1]} refusal: {e}") from e
-        log(f"D={wide.shape[-1]} refused: {e}")
-    else:
-        raise SmokeError(f"D={wide.shape[-1]} ran; the kernels stop at "
-                         f"{fa.MAX_HEAD_DIM}")
+    # no width is refused: D = 160 (once refused) and 512 through the
+    # autograd Function, against autograd through the plain attention
+    for cd in (160, 512):
+        ins = [torch.randn((2, 72, 2, cd), generator=gen, device=dev)
+               .requires_grad_() for _ in range(3)]
+        w_o = torch.randn((2, 72, 2, cd), generator=gen, device=dev)
+        got = fa.flash_attention(*ins, causal=True)
+        want = fa.flash_attention_reference(*ins, causal=True)
+        errs = [within(got, want, 2e-5, 2e-5, f"D{cd} flash_attention")]
+        errs += [within(a, c, 5e-5, 5e-4, f"D{cd} flash_attention grad")
+                 for a, c in zip(torch.autograd.grad(got, ins, w_o),
+                                 torch.autograd.grad(want, ins, w_o))]
+        log(f"D={cd} runs: flash_attention vs full_attention, max_abs_err "
+            f"{max(errs):.3e}")
     torch.cuda.synchronize()
+    shapes = {"": FLASH_SHAPE, "_d128": FLASH_SHAPE_D128,
+              "_d256": FLASH_SHAPE_D256}
     for name, r in recs.items():
-        shape = FLASH_SHAPE_D128 if name.endswith("_d128") else FLASH_SHAPE
+        shape = shapes[name[-5:] if name[-5:] in shapes else ""]
         log(json.dumps({"kernel": name, "shape": list(shape), **{
             k: v for k, v in r.items() if k != "bound"},
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}))
@@ -1363,8 +1411,9 @@ def phase_reference():
     log("== reference: stacked ring attention (flash hops) vs full attention")
     n, b, t_local = 4, 2, 96
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    # head dimension 32, and 128 (the DMAX = 128 kernels)
-    for h, d in ((4, 32), (2, 128)):
+    # head dimension 32, 128 (the DMAX = 128 kernels) and 256 (the wide
+    # form)
+    for h, d in ((4, 32), (2, 128), (2, 256)):
         qs, ks, vs = (torch.randn((n, b, t_local, h, d), generator=gen,
                                   device=DEVICE).requires_grad_()
                       for _ in range(3))
@@ -1577,47 +1626,38 @@ LM_LEGS = (
 )
 
 
-def _lm_legs(prefix, lm, n_params, n_leaves):
-    """The transformer LM `lm` through the public entry point, flash
-    attention on, one leg per entry of LM_LEGS. Returns the launches of
-    each kernel summed over the legs."""
-    import numpy as np
+def _dense_legs(prefix, make_model, data, per_rank, n_params, n_leaves,
+                flash_layers=0):
+    """One leg per entry of LM_LEGS through the public entry point, on
+    the dense masked f32 wire at the flagship's optimizer and trigger: 3
+    steps x 2 epochs of `make_model()` on `data` = (x, y, x_test,
+    y_test), `per_rank` samples a rank. Each leg's counters are zeroed
+    just before it and read just after; it fails unless its gossip
+    kernels launched, the passes ran, loss and parameters are finite,
+    the arena is `[8, n_params]` and the bytes are exact
+    (`_check_dense_bytes`). With `flash_layers`, each flash kernel must
+    launch once per layer per step (the forward also once per layer per
+    test pass). Returns the launches of each kernel summed over the
+    legs."""
     import torch
 
     import eventgrad_tpu_torch as egt
     from eventgrad_tpu_torch import ops
-    from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
-    from eventgrad_tpu_torch.parallel.arena import arena_spec
 
-    seq, steps, epochs = lm["max_len"], 3, 2
-    log(f"== main path: TransformerLM dim {lm['dim']} x {lm['n_heads']} heads "
-        f"of {lm['dim'] // lm['n_heads']} x {lm['n_layers']} layers, T={seq}, "
-        f"flash attention (f32) x Ring(8), {LM_PER_RANK} sequences per rank")
-    x, y = synthetic_lm_dataset(RANKS * LM_PER_RANK * steps, seq,
-                                lm["vocab"], seed=0)
-    xt, yt = synthetic_lm_dataset(32, seq, lm["vocab"], seed=0, split="test")
+    steps, epochs = 3, 2
+    x, y, xt, yt = data
     cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                           max_silence=50)
-    spec = arena_spec(egt.TransformerLM(attn="flash", **lm))
-    if (spec.n_total, spec.n_leaves) != (n_params, n_leaves):
-        raise SmokeError(f"TransformerLM has {spec.n_total} parameters in "
-                         f"{spec.n_leaves} leaves, expected {n_params} in "
-                         f"{n_leaves}")
-    # bytes per step per chip, as the step reckons them in float32: the
-    # dense f32 payload to two neighbors, and on the event wire the fire
-    # byte of each leaf besides (what float32 keeps of it)
-    dense = NB * 4 * n_params
-    event_wire = float(np.float32(NB) * np.float32(4 * n_params + n_leaves))
     totals = {}
     for leg, algo, must_launch in LM_LEGS:
         leg = f"{prefix}-{leg}"
-        model = egt.TransformerLM(attn="flash", **lm)
+        model = make_model()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         state, hist = egt.train(
             model, egt.Ring(RANKS), x, y, algo=algo, epochs=epochs,
-            batch_size=LM_PER_RANK, learning_rate=0.01, momentum=0.9,
+            batch_size=per_rank, learning_rate=0.01, momentum=0.9,
             event_cfg=cfg, random_sampler=True, seed=0, x_test=xt,
             y_test=yt, device=DEVICE,
         )
@@ -1629,16 +1669,19 @@ def _lm_legs(prefix, lm, n_params, n_leaves):
         missing = [k for k in must_launch if counts[k] == 0]
         if missing:
             raise SmokeError(f"{leg}: kernels never launched: {missing}")
-        # per step one launch per layer of each flash kernel (the ranks
-        # fold into the batch); each epoch's test pass adds one forward
-        # per layer
-        passes, layers = state.pass_num, lm["n_layers"]
-        want = {"flash_fwd": layers * (passes + epochs),
-                "flash_dq": layers * passes, "flash_dkv": layers * passes}
-        if passes != steps * epochs or any(counts[k] != n
-                                           for k, n in want.items()):
-            raise SmokeError(f"{leg}: {passes} passes, flash launches "
-                             f"{counts}, expected {want}")
+        passes = state.pass_num
+        if passes != steps * epochs:
+            raise SmokeError(f"{leg}: {passes} passes")
+        if flash_layers:
+            # per step one launch per layer of each flash kernel (the
+            # ranks fold into the batch); each epoch's test pass adds one
+            # forward per layer
+            want = {"flash_fwd": flash_layers * (passes + epochs),
+                    "flash_dq": flash_layers * passes,
+                    "flash_dkv": flash_layers * passes}
+            if any(counts[k] != n for k, n in want.items()):
+                raise SmokeError(f"{leg}: flash launches {counts}, "
+                                 f"expected {want}")
         losses = [r["loss"] for r in hist]
         if not all(math.isfinite(v) for v in losses):
             raise SmokeError(f"{leg}: loss not finite: {losses}")
@@ -1652,7 +1695,7 @@ def _lm_legs(prefix, lm, n_params, n_leaves):
             "leg": leg, "passes": passes, "loss": losses,
             "train_acc": last["train_acc"],
             "test_accuracy": last["test_accuracy"],
-            "test_loss": last["test_loss"],
+            "test_loss": last.get("test_loss"),
             # the last epoch: no first-call set-up inside it
             "step_ms": 1e3 * last["wall_s"] / last["steps"],
             "first_epoch_step_ms": 1e3 * hist[0]["wall_s"] / hist[0]["steps"],
@@ -1663,25 +1706,64 @@ def _lm_legs(prefix, lm, n_params, n_leaves):
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": counts,
         }
-        sent = [r["sent_bytes_per_step_per_chip"] for r in hist]
-        real = [r["sent_bytes_wire_real_per_step_per_chip"] for r in hist]
-        if algo == "eventgrad":
-            rec["msgs_saved_pct"] = last["msgs_saved_pct"]
-            if not 0.0 <= last["msgs_saved_pct"] < 100.0:
-                raise SmokeError(f"msgs_saved_pct {last['msgs_saved_pct']}")
-            # the dense wire moves every lane; the fired payloads are a
-            # part of it
-            if any(r != event_wire for r in real) or any(
-                    a > b for a, b in zip(sent, real)):
-                raise SmokeError(f"{leg}: sent {sent}, wire-real {real}, "
-                                 f"expected wire-real {event_wire}")
-        elif any(a != dense or b != dense for a, b in zip(sent, real)):
-            raise SmokeError(f"{leg}: sent {sent}, wire-real {real}, "
-                             f"expected both {dense}")
+        _check_dense_bytes(leg, algo, hist, n_params, n_leaves, rec)
         log(json.dumps(rec))
         del state, model
         torch.cuda.empty_cache()
     return totals
+
+
+def _lm_legs(prefix, lm, n_params, n_leaves):
+    """The transformer LM `lm` through the public entry point, flash
+    attention on, 4 sequences of 1024 tokens a rank (`_dense_legs`)."""
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+
+    seq = lm["max_len"]
+    log(f"== main path: TransformerLM dim {lm['dim']} x {lm['n_heads']} heads "
+        f"of {lm['dim'] // lm['n_heads']} x {lm['n_layers']} layers, T={seq}, "
+        f"flash attention (f32) x Ring(8), {LM_PER_RANK} sequences per rank")
+    x, y = synthetic_lm_dataset(RANKS * LM_PER_RANK * 3, seq, lm["vocab"],
+                                seed=0)
+    xt, yt = synthetic_lm_dataset(32, seq, lm["vocab"], seed=0, split="test")
+    spec = arena_spec(egt.TransformerLM(attn="flash", **lm))
+    if (spec.n_total, spec.n_leaves) != (n_params, n_leaves):
+        raise SmokeError(f"TransformerLM has {spec.n_total} parameters in "
+                         f"{spec.n_leaves} leaves, expected {n_params} in "
+                         f"{n_leaves}")
+    return _dense_legs(prefix, lambda: egt.TransformerLM(attn="flash", **lm),
+                       (x, y, xt, yt), LM_PER_RANK, n_params, n_leaves,
+                       flash_layers=lm["n_layers"])
+
+
+def _check_dense_bytes(leg, algo, hist, n_params, n_leaves, rec):
+    """Bytes per step per chip of a leg on the dense masked f32 wire, as
+    the step reckons them in float32: D-PSGD's sent and wire-real bytes
+    both the f32 payload to two neighbors, 2 x 4 B x n_params; EventGraD's
+    wire-real that plus the fire byte of each leaf, float32(2) x
+    float32(4 n_params + n_leaves), and its fired payload at most that.
+    Sets rec["msgs_saved_pct"] on an EventGraD leg."""
+    import numpy as np
+
+    dense = NB * 4 * n_params
+    event_wire = float(np.float32(NB) * np.float32(4 * n_params + n_leaves))
+    sent = [r["sent_bytes_per_step_per_chip"] for r in hist]
+    real = [r["sent_bytes_wire_real_per_step_per_chip"] for r in hist]
+    if algo == "eventgrad":
+        last = hist[-1]
+        rec["msgs_saved_pct"] = last["msgs_saved_pct"]
+        if not 0.0 <= last["msgs_saved_pct"] < 100.0:
+            raise SmokeError(f"msgs_saved_pct {last['msgs_saved_pct']}")
+        # the dense wire moves every lane; the fired payloads are a part
+        # of it
+        if any(r != event_wire for r in real) or any(
+                a > b for a, b in zip(sent, real)):
+            raise SmokeError(f"{leg}: sent {sent}, wire-real {real}, "
+                             f"expected wire-real {event_wire}")
+    elif any(a != dense or b != dense for a, b in zip(sent, real)):
+        raise SmokeError(f"{leg}: sent {sent}, wire-real {real}, "
+                         f"expected both {dense}")
 
 
 def phase_main_path_lm():
@@ -1698,6 +1780,60 @@ def phase_main_path_lm_d128():
                       LM_D128_LEAVES)
     return {k + ("_d128" if k.startswith("flash_") else ""): v
             for k, v in totals.items()}
+
+
+def phase_main_path_lm_d256():
+    """The transformer LM legs at 8 heads of 256 (the flash kernels' wide
+    form; the d128 legs' parameters). Returns the launches of each kernel
+    summed over the legs, the flash kernels' under names ending in
+    "_d256"."""
+    totals = _lm_legs("transformer-d256", LM_D256, LM_D128_PARAMS,
+                      LM_D128_LEAVES)
+    return {k + ("_d256" if k.startswith("flash_") else ""): v
+            for k, v in totals.items()}
+
+
+#: ResNet-50 as the reference instantiates it (3/4/6/3 Bottleneck stages,
+#: each with the extra block) at 32 x 32 inputs and 10 classes
+RESNET50_PARAMS, RESNET50_LEAVES = 29_451_082, 197
+#: ... its bytes per step per chip on the dense masked f32 wire
+#: (`_check_dense_bytes`): D-PSGD 2 x 4 B x 29,451,082 = 235,608,656 sent
+#: and wire-real; EventGraD wire-real float32(2) x float32(4 x 29,451,082
+#: + 197) = 235,609,056 (the exact 235,609,050 as float32 keeps it)
+RESNET50_DPSGD_BYTES, RESNET50_EVENT_WIRE = 235_608_656, 235_609_056
+
+
+def phase_main_path_resnet50():
+    """ResNet-50 (Bottleneck blocks, bf16 compute) on the flagship
+    op-point through the public entry point: Ring(8), global batch 256,
+    SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon 1.05, the
+    dense masked f32 wire; EventGraD and D-PSGD, 3 steps x 2 epochs each
+    like the ResNet-18 legs. Returns the launches of each kernel summed
+    over the legs."""
+    import numpy as np
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+
+    log("== main path: ResNet-50 (bf16 compute) x Ring(8), global batch 256")
+    spec = arena_spec(egt.MODEL_REGISTRY["resnet50"]())
+    if (spec.n_total, spec.n_leaves) != (RESNET50_PARAMS, RESNET50_LEAVES):
+        raise SmokeError(f"ResNet-50 has {spec.n_total} parameters in "
+                         f"{spec.n_leaves} leaves")
+    if (NB * 4 * spec.n_total != RESNET50_DPSGD_BYTES
+            or float(np.float32(NB) * np.float32(4 * spec.n_total
+                                                 + spec.n_leaves))
+            != RESNET50_EVENT_WIRE):
+        raise SmokeError("ResNet-50's byte formula disagrees with the "
+                         "stated numbers")
+    x, y = synthetic_dataset(RANKS * 32 * 3, (32, 32, 3), seed=0)
+    xt, yt = synthetic_dataset(512, (32, 32, 3), seed=0, split="test")
+    return _dense_legs(
+        "resnet50",
+        lambda: egt.MODEL_REGISTRY["resnet50"](dtype=torch.bfloat16),
+        (x, y, xt, yt), 32, RESNET50_PARAMS, RESNET50_LEAVES)
 
 
 #: the real-data band, stated before the first card run: each leg's test
@@ -3180,6 +3316,14 @@ KERNELS = (
      "eventgrad_tpu/ops/attention.py:169"),
     ("flash_dkv_d128", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
      "eventgrad_tpu/ops/attention.py:205"),
+    # the wide form (head dimensions above 128; float32, the legs' dtype),
+    # timed at FLASH_SHAPE_D256 and counted on the transformer-d256 legs
+    ("flash_fwd_d256", "eventgrad_tpu_torch/csrc/flash_fwd.cu",
+     "eventgrad_tpu/ops/attention.py:128"),
+    ("flash_dq_d256", "eventgrad_tpu_torch/csrc/flash_dq.cu",
+     "eventgrad_tpu/ops/attention.py:169"),
+    ("flash_dkv_d256", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
+     "eventgrad_tpu/ops/attention.py:205"),
     # kernel 9, the auditor's seeded unregistered kernel: launched by the
     # audit phase's unregistered_kernel oracle only
     ("leak_kernel", "eventgrad_tpu_torch/csrc/audit_leak.cu",
@@ -3227,8 +3371,9 @@ def main() -> int:
         recs.update(timed(phase_leak_kernel))
         timed(phase_reference)
         launches = {}
-        for phase in (phase_main_path, phase_main_path_lm,
-                      phase_main_path_lm_d128, phase_realdata,
+        for phase in (phase_main_path, phase_main_path_resnet50,
+                      phase_main_path_lm, phase_main_path_lm_d128,
+                      phase_main_path_lm_d256, phase_realdata,
                       phase_frontier, phase_bucketed_async, phase_chaos,
                       phase_resume, phase_audit, phase_obs):
             for k, v in timed(phase).items():

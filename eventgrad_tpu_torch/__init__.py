@@ -8,7 +8,7 @@ numpy only — never JAX, flax, optax or the JAX package.
 
 It trains the four algorithm families of the JAX package (allreduce,
 D-PSGD, EventGraD, sparsified EventGraD) on the MLP, the MNIST CNNs, the
-CIFAR LeNet, the BasicBlock ResNets and the transformer LM, over rings
+CIFAR LeNet, the BasicBlock and Bottleneck ResNets and the transformer LM, over rings
 and 2-D tori. The ranks of the simulated topology are a leading
 `[R, ...]` dimension on one device (the rank-stacked lift, `parallel/spmd.py`). The flat
 parameter arena (`parallel/arena.py`) holds each rank-stacked quantity
@@ -37,6 +37,7 @@ from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
 from eventgrad_tpu_torch.models import (
     CNN1, CNN2, MLP, MODEL_REGISTRY, LeNetCifar, ResNet, ResNet18, ResNet34,
+    ResNet50, ResNet101, ResNet152,
 )
 from eventgrad_tpu_torch.models.transformer import TransformerLM
 from eventgrad_tpu_torch.train.state import TrainState, init_train_state
@@ -47,7 +48,8 @@ from eventgrad_tpu_torch.train.loop import (
 __all__ = [
     "Ring", "Topology", "Torus", "EventConfig", "EventState", "SparseConfig",
     "CNN1", "CNN2", "MLP", "MODEL_REGISTRY", "LeNetCifar", "ResNet",
-    "ResNet18", "ResNet34", "TransformerLM",
+    "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
+    "TransformerLM",
     "TrainState", "init_train_state", "consensus_params", "evaluate",
     "rank0_slice", "train",
 ]

@@ -49,18 +49,29 @@ __device__ __forceinline__ bool valid_at(int qpos, int kpos, int t, int causal,
   return kpos < t && (!causal || q_off + qpos >= k_off + kpos);
 }
 
-// Call FN<T, DMAX>(...) for the element type of `dtype` (0 = float32,
-// 1 = bfloat16) and the smallest DMAX of {32, 64, 128} holding d;
-// cudaErrorInvalidValue for anything else. A d below its DMAX runs on
-// zero-filled columns (every tile load fills the columns at and past d
-// with zeros, as the reference pads D to its 128 lanes) and stores only
-// its d columns.
+// Call FN<T, DMAX, WIDE>(...) for the element type of `dtype` (0 =
+// float32, 1 = bfloat16) and the head width d >= 1; cudaErrorInvalidValue
+// for anything else. The instantiations and the widths each serves:
+//
+//   <T, 32, false>   d in [1, 32]
+//   <T, 64, false>   d in [33, 64]
+//   <T, 128, false>  d in [65, 128]
+//   <T, 128, true>   every d > 128: the wide form, which streams the
+//                    head dimension through the score products in
+//                    chunks of 128 columns and gives each block one
+//                    128-column chunk of the output (flash_mma.cuh)
+//
+// A d short of its instantiation's columns (or of the wide form's last
+// chunk) runs on zero-filled columns (every tile load fills the columns
+// at and past d with zeros, as the reference pads D to a multiple of its
+// 128 lanes) and stores only its d columns.
 #define EGF_DISPATCH_D(T, d, FN, ...)                                 \
-  ((d) <= 32   ? FN<T, 32>(__VA_ARGS__)                               \
-   : (d) <= 64 ? FN<T, 64>(__VA_ARGS__)                               \
-               : FN<T, 128>(__VA_ARGS__))
+  ((d) <= 32    ? FN<T, 32, false>(__VA_ARGS__)                       \
+   : (d) <= 64  ? FN<T, 64, false>(__VA_ARGS__)                       \
+   : (d) <= 128 ? FN<T, 128, false>(__VA_ARGS__)                      \
+                : FN<T, 128, true>(__VA_ARGS__))
 #define EGF_DISPATCH(dtype, d, FN, ...)                               \
-  (((d) < 1 || (d) > 128 || ((dtype) != 0 && (dtype) != 1))           \
+  (((d) < 1 || ((dtype) != 0 && (dtype) != 1))                        \
        ? cudaErrorInvalidValue                                        \
    : (dtype) == 0 ? EGF_DISPATCH_D(float, d, FN, __VA_ARGS__)         \
                   : EGF_DISPATCH_D(__nv_bfloat16, d, FN, __VA_ARGS__))

@@ -42,6 +42,20 @@
 // head), which sweep the most) come first in the grid, then the next
 // heaviest, so the tail of the launch holds the short sweeps.
 //
+// Head widths above 128 (WIDE, flash_mma.cuh): a block owns one
+// 128-column chunk of dK and dV, split between its warp pairs as at
+// DMAX = 128. For each Q tile it streams (k, v, q, dO) chunks through
+// s^T and dp^T (k and v are re-read per Q tile: they no longer fit
+// beside the ring), and with the last chunk the q and dO tiles of its
+// columns, lse and delta. s^T and dp^T are rebuilt by both warps of a
+// pair and once per output chunk: at D = 256 the work is 2 x 2 x (k q^T
+// + v dO^T) + p^T dO + ds^T q, ten products of the width where four
+// would do (DMAX = 128: six). float32 keeps one stage (203,264 bytes
+// with the column tiles, lse and delta), bfloat16 two (174,592). ptxas
+// (the H100 build of chip_smoke.py): float32 254 registers with 8 bytes
+// of spill stores and 16 of spill loads, bfloat16 244 registers and no
+// spills.
+//
 // Bound on the card: operations at the main shape (four products of
 // 2*T*T*D flops per (batch, head), halved when causal: the tensor cores'
 // bf16 rate, or three TF32 products each for float32), against q, k, v,
@@ -59,7 +73,18 @@ __host__ __device__ constexpr int dkv_split() {
   return DMAX > 64 ? 2 : 1;
 }
 
-template <typename T, int DMAX>
+// Stages of the copy ring: DMAX <= 128 double-buffers (q, dO, lse,
+// delta) (k and v stay resident); wide, a stage is (k, v, q, dO) chunks,
+// two where they fit beside the q and dO tiles of this block's dK/dV
+// columns and lse and delta (bfloat16), else one (float32)
+template <typename T, int DMAX, bool WIDE>
+__host__ __device__ constexpr int dkv_slots() {
+  return WIDE ? ring_slots(4 * Tile<T, DMAX>::kBytes,
+                           2 * Tile<T, DMAX>::kBytes + 2 * kRows * 4)
+              : 2;
+}
+
+template <typename T, int DMAX, bool WIDE>
 __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -72,27 +97,37 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
   constexpr int kSplit = dkv_split<DMAX>();
   constexpr int kThreads = kBlock * kSplit;
   constexpr int kLd = G::kLd;
+  constexpr int kE = G::kElems;
+  constexpr int kSlots = dkv_slots<T, DMAX, WIDE>();
   constexpr int kNs = kRows / 8;        // n8 tiles of a score row block
   constexpr int kNo = DMAX / 8 / kSplit;  // n8 tiles of a warp's dK/dV
-  constexpr int kKd = DMAX / M::kK;     // k steps over the head dimension
+  constexpr int kKd = DMAX / M::kK;     // k steps over a head-dim chunk
   constexpr int kKq = kRows / M::kK;    // k steps over the Q tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
-  T* v_s = k_s + G::kElems;
-  T* q_s = v_s + G::kElems;                 // two stages
-  T* do_s = q_s + 2 * G::kElems;            // two stages
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * G::kElems);  // 2 x 64
-  float* dl_s = lse_s + 2 * kRows;                                // 2 x 64
+  // DMAX <= 128: k, v [64][kLd], then two stages of q, two of dO, then
+  // two of (lse, delta) [64] each. Wide: kSlots stages of (k, v, q, dO)
+  // chunks, then the q and dO tiles of this block's dK/dV columns, then
+  // lse and delta of the Q tile
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  T* const ring = WIDE ? smem : smem + 2 * kE;  // the stages
+  float* const vecs = reinterpret_cast<float*>(
+      WIDE ? ring + (4 * kSlots + 2) * kE : ring + 4 * kE);
 
+  // wide: ceil(d / 128) chunks of the head dimension, this block's dK/dV
+  // chunk innermost in the grid
+  const int nch = WIDE ? (s.d + DMAX - 1) / DMAX : 1;
+  const int oc = WIDE ? (int)(blockIdx.x % nch) : 0;
+  const unsigned blk = WIDE ? blockIdx.x / nch : blockIdx.x;
   const int nt = (s.t + kRows - 1) / kRows;
   const int bhn = s.b * s.h;
-  const int kj = (int)(blockIdx.x / bhn);
-  const int bh = (int)(blockIdx.x % bhn);
+  const int kj = (int)(blk / bhn);
+  const int bh = (int)(blk % bhn);
   const int b = bh / s.h, hh = bh % s.h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int kw = warp / kSplit;  // this warp's block of 16 keys
   const int col0 = (warp % kSplit) * (DMAX / kSplit);  // its dK/dV columns
+  const int c_out = oc * DMAX + col0;  // ... of the head dimension
 
   int q_off, k_off;
   load_offsets(offs, s, b, q_off, k_off);
@@ -110,20 +145,59 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
     q_begin = first_query <= 0 ? 0 : min(nt, first_query / kRows);
   }
 
+  // DMAX <= 128: k and v stay, (q, dO, lse, delta) tiles come through
+  // the two-stage ring
+  T* const k_s = smem;
+  T* const v_s = smem + kE;
+  T* const q_s = ring;                        // two stages
+  T* const do_s = ring + 2 * kE;              // two stages
+  float* const lse_s = vecs;                  // 2 x 64
+  float* const dl_s = vecs + 2 * kRows;       // 2 x 64
   auto load_q_tile = [&](int qi, int stage) {
-    load_tile_async<T, DMAX, kThreads>(q_s + stage * G::kElems, qp, st.v[1],
+    load_tile_async<T, DMAX, kThreads>(q_s + stage * kE, qp, st.v[1],
                                        qi * kRows, s.t, s.d, vec);
-    load_tile_async<T, DMAX, kThreads>(do_s + stage * G::kElems, dop,
-                                       st.v[10], qi * kRows, s.t, s.d, vec);
+    load_tile_async<T, DMAX, kThreads>(do_s + stage * kE, dop, st.v[10],
+                                       qi * kRows, s.t, s.d, vec);
     load_vec_async(lse_s + stage * kRows, lse_p, qi * kRows, s.t);
     load_vec_async(dl_s + stage * kRows, dl_p, qi * kRows, s.t);
   };
-  if (q_begin < nt) {
-    load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], kj * kRows, s.t,
-                                       s.d, vec);
-    load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], kj * kRows, s.t,
-                                       s.d, vec);
-    load_q_tile(q_begin, 0);
+  // wide: step i is Q tile q_begin + i / nch, head-dimension chunk i %
+  // nch, in stage i % kSlots as (k, v, q, dO) chunks; the q and dO tiles
+  // of this block's dK/dV columns, lse and delta come with the last
+  // chunk. With one stage each step loads after the last is computed.
+  T* const q_out = ring + 4 * kSlots * kE;
+  T* const do_out = q_out + kE;
+  const int n_steps = (nt - q_begin) * nch;
+  auto stage = [&](int step) {
+    const int qi = q_begin + step / nch, dc = step % nch;
+    T* const base = ring + 4 * (kSlots == 2 ? step & 1 : 0) * kE;
+    load_tile_async<T, DMAX, kThreads>(base, kp, st.v[4], kj * kRows, s.t,
+                                       s.d, vec, dc * DMAX);
+    load_tile_async<T, DMAX, kThreads>(base + kE, vp, st.v[7], kj * kRows,
+                                       s.t, s.d, vec, dc * DMAX);
+    load_tile_async<T, DMAX, kThreads>(base + 2 * kE, qp, st.v[1],
+                                       qi * kRows, s.t, s.d, vec, dc * DMAX);
+    load_tile_async<T, DMAX, kThreads>(base + 3 * kE, dop, st.v[10],
+                                       qi * kRows, s.t, s.d, vec, dc * DMAX);
+    if (dc == nch - 1) {
+      load_tile_async<T, DMAX, kThreads>(q_out, qp, st.v[1], qi * kRows, s.t,
+                                         s.d, vec, oc * DMAX);
+      load_tile_async<T, DMAX, kThreads>(do_out, dop, st.v[10], qi * kRows,
+                                         s.t, s.d, vec, oc * DMAX);
+      load_vec_async(vecs, lse_p, qi * kRows, s.t);
+      load_vec_async(vecs + kRows, dl_p, qi * kRows, s.t);
+    }
+  };
+  if constexpr (!WIDE) {
+    if (q_begin < nt) {
+      load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], kj * kRows, s.t,
+                                         s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], kj * kRows, s.t,
+                                         s.d, vec);
+      load_q_tile(q_begin, 0);
+    }
+  } else if (n_steps > 0) {
+    stage(0);
   }
   cp_async_commit();
 
@@ -135,28 +209,15 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  for (int qi = q_begin; qi < nt; ++qi) {
-    const int cur = (qi - q_begin) & 1;
-    cp_async_wait_all();
-    __syncthreads();  // tile qi is in; every warp is done with tile qi - 1
-    if (qi + 1 < nt) load_q_tile(qi + 1, cur ^ 1);
-    cp_async_commit();
-    const T* qs = q_s + cur * G::kElems;
-    const T* dos = do_s + cur * G::kElems;
-    const float* lse_t = lse_s + cur * kRows;
-    const float* dl_t = dl_s + cur * kRows;
-
-    // s^T = k q^T and dp^T = v dO^T over the full D: rows are this
-    // warp's 16 keys, columns the 64 queries of the tile
-    float sc[kNs][4], dp[kNs][4];
-#pragma unroll
-    for (int n = 0; n < kNs; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+  // s^T += k q^T and dp^T += v dO^T over one tile's DMAX columns (the
+  // whole D, or one chunk): rows are this warp's 16 keys, columns the 64
+  // queries of the tile
+  auto products = [&](float (&sc)[kNs][4], float (&dp)[kNs][4],
+                      const T* ks, const T* vs, const T* qs, const T* dos) {
 #pragma unroll
     for (int kc = 0; kc < kKd; ++kc) {
-      const typename M::A ka = M::load_a(k_s, kLd, kw * 16, kc * M::kK, lane);
-      const typename M::A va = M::load_a(v_s, kLd, kw * 16, kc * M::kK, lane);
+      const typename M::A ka = M::load_a(ks, kLd, kw * 16, kc * M::kK, lane);
+      const typename M::A va = M::load_a(vs, kLd, kw * 16, kc * M::kK, lane);
 #pragma unroll
       for (int n = 0; n < kNs; n += 2) {
         typename M::B b0, b1;
@@ -168,11 +229,18 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
         M::mma(dp[n + 1], va, b1);
       }
     }
+  };
 
-    // p^T and ds^T in place; lane holds keys g (e < 2) and g + 8 (e >= 2),
-    // queries 8n + 2tq + (e & 1). p = 2^(c s - log2(e) lse), c = scale *
-    // log2(e); a masked score is -inf, so its p and ds are exactly 0.
-    // Only tiles that cross the causal diagonal or the end of T are masked.
+  // Q tile qi's s^T and dp^T done: p^T and ds^T in place; lane holds
+  // keys g (e < 2) and g + 8 (e >= 2), queries 8n + 2tq + (e & 1). p =
+  // 2^(c s - log2(e) lse), c = scale * log2(e); a masked score is -inf,
+  // so its p and ds are exactly 0. Only tiles that cross the causal
+  // diagonal or the end of T are masked. Then dV += p^T dO and dK +=
+  // ds^T q in this warp's columns (of the tiles qs, dos of the block's
+  // columns), reducing over the tile's queries.
+  auto p_ds_acc = [&](float (&sc)[kNs][4], float (&dp)[kNs][4], int qi,
+                      const float* lse_t, const float* dl_t, const T* qs,
+                      const T* dos) {
     const int qrow0 = qi * kRows;
     const bool full = qrow0 + kRows <= s.t && key0 + 16 <= s.t &&
                       (!s.causal || q_off + qrow0 >= k_off + key0 + 15);
@@ -200,9 +268,6 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
           dp[n][e] = p * (dp[n][e] - dl) * scale;
         }
       }
-
-    // dV += p^T dO and dK += ds^T q in this warp's columns, reducing
-    // over the tile's queries
 #pragma unroll
     for (int kc = 0; kc < kKq; ++kc) {
       const typename M::A pa = M::from_acc(sc, kc);
@@ -218,6 +283,49 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
         M::mma(acc_k[n + 1], da, b1);
       }
     }
+  };
+
+  if constexpr (!WIDE) {
+    for (int qi = q_begin; qi < nt; ++qi) {
+      const int cur = (qi - q_begin) & 1;
+      cp_async_wait_all();
+      __syncthreads();  // tile qi is in; every warp is done with qi - 1
+      if (qi + 1 < nt) load_q_tile(qi + 1, cur ^ 1);
+      cp_async_commit();
+      const T* qs = q_s + cur * kE;
+      const T* dos = do_s + cur * kE;
+      float sc[kNs][4], dp[kNs][4];
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      products(sc, dp, k_s, v_s, qs, dos);
+      p_ds_acc(sc, dp, qi, lse_s + cur * kRows, dl_s + cur * kRows, qs, dos);
+    }
+  } else {
+    float sc[kNs][4], dp[kNs][4];
+    for (int step = 0; step < n_steps; ++step) {
+      const int qi = q_begin + step / nch, dc = step % nch;
+      cp_async_wait_all();
+      __syncthreads();  // step is in; every warp is done with step - 1
+      if (kSlots == 2 && step + 1 < n_steps) stage(step + 1);
+      cp_async_commit();
+      const T* base = ring + 4 * (kSlots == 2 ? step & 1 : 0) * kE;
+      if (dc == 0) {
+#pragma unroll
+        for (int n = 0; n < kNs; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      }
+      products(sc, dp, base, base + kE, base + 2 * kE, base + 3 * kE);
+      if (dc == nch - 1)
+        p_ds_acc(sc, dp, qi, vecs, vecs + kRows, q_out, do_out);
+      if (kSlots == 1 && step + 1 < n_steps) {
+        __syncthreads();  // every warp is done with this stage
+        stage(step + 1);
+        cp_async_commit();
+      }
+    }
   }
   cp_async_wait_all();  // nothing left in flight when the block exits
 
@@ -225,13 +333,13 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
   for (int i = 0; i < 2; ++i) {
     const int row = key0 + g + 8 * i;
     if (row >= s.t) continue;
-    const int64_t at = (((int64_t)b * s.t + row) * s.h + hh) * s.d;
+    const int64_t at = (((int64_t)b * s.t + row) * s.h + hh) * s.d + c_out;
 #pragma unroll
     for (int n = 0; n < kNo; ++n)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = col0 + n * 8 + 2 * tq + c;
-        if (col < s.d) {
+        const int col = n * 8 + 2 * tq + c;
+        if (c_out + col < s.d) {
           store(dk + at + col, acc_k[n][2 * i + c]);
           store(dv + at + col, acc_v[n][2 * i + c]);
         }
@@ -239,23 +347,33 @@ __global__ void __launch_bounds__(kBlock * dkv_split<DMAX>())
   }
 }
 
-template <typename T, int DMAX>
+// Dynamic shared memory: k, v + two stages of (q, dO) and of (lse,
+// delta), or, wide, the stages of (k, v, q, dO) chunks, the q and dO
+// tiles of the dK/dV columns, and lse and delta
+template <typename T, int DMAX, bool WIDE>
+constexpr size_t dkv_smem_bytes() {
+  return (WIDE ? 4 * dkv_slots<T, DMAX, WIDE>() + 2 : 6) *
+             (size_t)Tile<T, DMAX>::kBytes +
+         (WIDE ? 2 : 4) * kRows * sizeof(float);
+}
+
+template <typename T, int DMAX, bool WIDE>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 const int* offs, const Strides& st, const Shape& s,
                 void* stream) {
-  // k, v, 2 x q, 2 x dO, 2 x (lse, delta)
-  constexpr size_t bytes =
-      6 * Tile<T, DMAX>::kBytes + 4 * kRows * sizeof(float);
+  constexpr size_t bytes = dkv_smem_bytes<T, DMAX, WIDE>();
+  static_assert(bytes <= kSmemMax, "the stages fit a block");
   const void* ptrs[4] = {q, k, v, dout};
   const int vec = rows_aligned16(ptrs, st, 4, sizeof(T));
   const int64_t nt = (s.t + kRows - 1) / kRows;
+  const int64_t nch = WIDE ? (s.d + DMAX - 1) / DMAX : 1;
   constexpr int threads = kBlock * dkv_split<DMAX>();
-  return launch_kernel<threads>(flash_dkv_kernel<T, DMAX>, nt * s.b * s.h,
-                                bytes, stream, (const T*)q, (const T*)k,
-                                (const T*)v, (const T*)dout, lse, delta,
-                                (T*)dk, (T*)dv, offs, st, s,
-                                softmax_scale(s.d), vec);
+  return launch_kernel<threads>(flash_dkv_kernel<T, DMAX, WIDE>,
+                                nt * s.b * s.h * nch, bytes, stream,
+                                (const T*)q, (const T*)k, (const T*)v,
+                                (const T*)dout, lse, delta, (T*)dk, (T*)dv,
+                                offs, st, s, softmax_scale(s.d), vec);
 }
 
 }  // namespace

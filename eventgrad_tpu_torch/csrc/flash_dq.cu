@@ -33,7 +33,7 @@
 // No product is repeated. After the sweep the pair's partials meet in
 // shared memory (the K/V ring, free by then) and one warp of the pair
 // adds and stores them: a dQ element sums its two halves' keys
-// separately, then adds the two sums. bfloat16 does not spill at
+// separately, then adds the two sums. bfloat16 spills at most 8 bytes at
 // DMAX = 128 (168 registers) and ran slower split on the H100 (1.09 ->
 // 1.41 ms at B32 x T1024 x H16 x D128), so it keeps one warp to 16 rows.
 //
@@ -45,6 +45,18 @@
 // heaviest blocks (the last Q tiles of every (batch, head), which sweep
 // the most) come first in the grid, then the next heaviest, so the tail
 // of the launch holds the short sweeps.
+//
+// Head widths above 128 (WIDE, flash_mma.cuh): a block owns one
+// 128-column chunk of dQ. For each K tile it streams (q, dO, k, v)
+// chunks through the scores s and dp, and with the last chunk the k
+// tile of its columns for ds k; the key split of the float32 warp pairs
+// is DMAX = 128's. s and dp are rebuilt once per output chunk: at D =
+// 256 the work is 2 x (q k^T + dO v^T) + ds k, five products of the
+// width where three would do. A stage of four chunk tiles is 135,168
+// bytes in float32, so float32 keeps one stage (168,960 bytes with the
+// k tile; each chunk loads after the last is computed) and bfloat16 two
+// (156,672). ptxas (the H100 build of chip_smoke.py): 255 registers in
+// float32, 248 in bfloat16, no spills.
 //
 // Bound on the card: operations at the main shape (three products of
 // 2*T*T*D flops per (batch, head), halved when causal: the tensor cores'
@@ -63,7 +75,17 @@ __host__ __device__ constexpr int dq_split() {
   return sizeof(T) == 4 && DMAX > 64 ? 2 : 1;
 }
 
-template <typename T, int DMAX>
+// Stages of the copy ring: DMAX <= 128 double-buffers K/V (q and dO stay
+// resident); wide, a stage is (q, dO, k, v) chunks, two where they fit
+// beside the k tile of this block's dQ columns (bfloat16), else one
+// (float32)
+template <typename T, int DMAX, bool WIDE>
+__host__ __device__ constexpr int dq_slots() {
+  return WIDE ? ring_slots(4 * Tile<T, DMAX>::kBytes, Tile<T, DMAX>::kBytes)
+              : 2;
+}
+
+template <typename T, int DMAX, bool WIDE>
 __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -77,20 +99,29 @@ __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
   constexpr int kThreads = kBlock * kSplit;
   constexpr int kKeys = kRows / kSplit;  // keys of a K tile per warp
   constexpr int kLd = G::kLd;
+  constexpr int kE = G::kElems;
+  constexpr int kSlots = dq_slots<T, DMAX, WIDE>();
   constexpr int kNs = kKeys / 8;        // n8 tiles of a warp's score block
   constexpr int kNo = DMAX / 8;         // n8 tiles of a dQ row block
-  constexpr int kKd = DMAX / M::kK;     // k steps over the head dimension
+  constexpr int kKd = DMAX / M::kK;     // k steps over a head-dim chunk
   constexpr int kKs = kKeys / M::kK;    // k steps over a warp's keys
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
-  T* do_s = q_s + G::kElems;
-  T* k_s = do_s + G::kElems;                // two stages
-  T* v_s = k_s + 2 * G::kElems;             // two stages
+  // DMAX <= 128: q, dO [64][kLd], then two stages of k, then two of v.
+  // Wide: kSlots stages of (q, dO, k, v) chunks, then the k tile of this
+  // block's dQ columns
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  T* const ring = WIDE ? smem : smem + 2 * kE;  // the stages
 
+  // wide: ceil(d / 128) chunks of the head dimension, this block's dQ
+  // chunk innermost in the grid
+  const int nch = WIDE ? (s.d + DMAX - 1) / DMAX : 1;
+  const int oc = WIDE ? (int)(blockIdx.x % nch) : 0;
+  const unsigned blk = WIDE ? blockIdx.x / nch : blockIdx.x;
+  const int c_out = oc * DMAX;  // this block's first dQ column
   const int nt = (s.t + kRows - 1) / kRows;
   const int bhn = s.b * s.h;
-  const int qi = nt - 1 - (int)(blockIdx.x / bhn);
-  const int bh = (int)(blockIdx.x % bhn);
+  const int qi = nt - 1 - (int)(blk / bhn);
+  const int bh = (int)(blk % bhn);
   const int b = bh / s.h, hh = bh % s.h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -111,13 +142,44 @@ __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
     k_end = last_key < 0 ? -1 : min(k_end, last_key / kRows);
   }
 
-  if (k_end >= 0) {
-    load_tile_async<T, DMAX, kThreads>(q_s, qp, st.v[1], qi * kRows, s.t,
-                                       s.d, vec);
-    load_tile_async<T, DMAX, kThreads>(do_s, dop, st.v[10], qi * kRows, s.t,
-                                       s.d, vec);
-    load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
-    load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+  // DMAX <= 128: q and dO stay, K and V tiles come through the two-stage
+  // ring
+  T* const q_s = smem;
+  T* const do_s = smem + kE;
+  T* const k_s = ring;           // two stages
+  T* const v_s = ring + 2 * kE;  // two stages
+  // wide: step i is K tile i / nch, head-dimension chunk i % nch, in
+  // stage i % kSlots as (q, dO, k, v) chunks; the k tile of this block's
+  // dQ columns comes with the last chunk. With one stage each step loads
+  // after the last is computed.
+  T* const k_out = ring + 4 * kSlots * kE;
+  const int n_steps = (k_end + 1) * nch;
+  auto stage = [&](int step) {
+    const int kj = step / nch, dc = step % nch;
+    T* const base = ring + 4 * (kSlots == 2 ? step & 1 : 0) * kE;
+    load_tile_async<T, DMAX, kThreads>(base, qp, st.v[1], qi * kRows, s.t,
+                                       s.d, vec, dc * DMAX);
+    load_tile_async<T, DMAX, kThreads>(base + kE, dop, st.v[10], qi * kRows,
+                                       s.t, s.d, vec, dc * DMAX);
+    load_tile_async<T, DMAX, kThreads>(base + 2 * kE, kp, st.v[4],
+                                       kj * kRows, s.t, s.d, vec, dc * DMAX);
+    load_tile_async<T, DMAX, kThreads>(base + 3 * kE, vp, st.v[7],
+                                       kj * kRows, s.t, s.d, vec, dc * DMAX);
+    if (dc == nch - 1)
+      load_tile_async<T, DMAX, kThreads>(k_out, kp, st.v[4], kj * kRows,
+                                         s.t, s.d, vec, c_out);
+  };
+  if constexpr (!WIDE) {
+    if (k_end >= 0) {
+      load_tile_async<T, DMAX, kThreads>(q_s, qp, st.v[1], qi * kRows, s.t,
+                                         s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(do_s, dop, st.v[10], qi * kRows,
+                                         s.t, s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+    }
+  } else if (n_steps > 0) {
+    stage(0);
   }
   cp_async_commit();
 
@@ -139,31 +201,15 @@ __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   const float c = scale * kLog2e;
 
-  for (int kj = 0; kj <= k_end; ++kj) {
-    cp_async_wait_all();
-    __syncthreads();  // tile kj is in; every warp is done with tile kj - 1
-    if (kj < k_end) {
-      const int nxt = (kj + 1) & 1;
-      load_tile_async<T, DMAX, kThreads>(k_s + nxt * G::kElems, kp, st.v[4],
-                                         (kj + 1) * kRows, s.t, s.d, vec);
-      load_tile_async<T, DMAX, kThreads>(v_s + nxt * G::kElems, vp, st.v[7],
-                                         (kj + 1) * kRows, s.t, s.d, vec);
-    }
-    cp_async_commit();
-    const T* ks = k_s + (kj & 1) * G::kElems;
-    const T* vs = v_s + (kj & 1) * G::kElems;
-
-    // s = q k^T and dp = dO v^T: rows are this warp's 16 queries,
-    // columns its keys of the tile
-    float sc[kNs][4], dp[kNs][4];
-#pragma unroll
-    for (int n = 0; n < kNs; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+  // s += q k^T and dp += dO v^T over one tile's DMAX columns (the whole
+  // D, or one chunk): rows are this warp's 16 queries, columns its keys
+  // of the tile
+  auto products = [&](float (&sc)[kNs][4], float (&dp)[kNs][4],
+                      const T* qs, const T* dos, const T* ks, const T* vs) {
 #pragma unroll
     for (int kc = 0; kc < kKd; ++kc) {
-      const typename M::A qa = M::load_a(q_s, kLd, qw * 16, kc * M::kK, lane);
-      const typename M::A da = M::load_a(do_s, kLd, qw * 16, kc * M::kK,
+      const typename M::A qa = M::load_a(qs, kLd, qw * 16, kc * M::kK, lane);
+      const typename M::A da = M::load_a(dos, kLd, qw * 16, kc * M::kK,
                                          lane);
 #pragma unroll
       for (int n = 0; n < kNs; n += 2) {
@@ -176,11 +222,16 @@ __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
         M::mma(dp[n + 1], da, b1);
       }
     }
+  };
 
-    // ds in place of dp; lane holds rows g (e < 2) and g + 8 (e >= 2),
-    // keys 8n + 2tq + (e & 1). A masked score is -inf, so its p and ds
-    // are exactly 0. Only tiles that cross the causal diagonal or the end
-    // of T are masked.
+  // K tile kj's s and dp done: ds in place of dp; lane holds rows g (e <
+  // 2) and g + 8 (e >= 2), keys 8n + 2tq + (e & 1). A masked score is
+  // -inf, so its p and ds are exactly 0. Only tiles that cross the causal
+  // diagonal or the end of T are masked. Then dQ += ds k, reducing over
+  // this warp's keys, k (the tile of this block's dQ columns) read by
+  // rows.
+  auto ds_dq = [&](float (&sc)[kNs][4], float (&dp)[kNs][4], int kj,
+                   const T* ks) {
     const int key0 = kj * kRows;
     const bool full = key0 + kRows <= s.t &&
                       (!s.causal || q_off + row0 >= k_off + key0 + kRows - 1);
@@ -201,8 +252,6 @@ __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
         const float p = fast_exp2(fmaf(sc[n][e], c, -lse_c[e >> 1]));
         dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;
       }
-
-    // dQ += ds k, reducing over this warp's keys: k read by rows now
 #pragma unroll
     for (int kc = 0; kc < kKs; ++kc) {
       const typename M::A a = M::from_acc(dp, kc);
@@ -214,17 +263,63 @@ __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
         M::mma(acc[n + 1], a, b1);
       }
     }
+  };
+
+  if constexpr (!WIDE) {
+    for (int kj = 0; kj <= k_end; ++kj) {
+      cp_async_wait_all();
+      __syncthreads();  // tile kj is in; every warp is done with kj - 1
+      if (kj < k_end) {
+        const int nxt = (kj + 1) & 1;
+        load_tile_async<T, DMAX, kThreads>(k_s + nxt * kE, kp, st.v[4],
+                                           (kj + 1) * kRows, s.t, s.d, vec);
+        load_tile_async<T, DMAX, kThreads>(v_s + nxt * kE, vp, st.v[7],
+                                           (kj + 1) * kRows, s.t, s.d, vec);
+      }
+      cp_async_commit();
+      const T* ks = k_s + (kj & 1) * kE;
+      float sc[kNs][4], dp[kNs][4];
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      products(sc, dp, q_s, do_s, ks, v_s + (kj & 1) * kE);
+      ds_dq(sc, dp, kj, ks);
+    }
+  } else {
+    float sc[kNs][4], dp[kNs][4];
+    for (int step = 0; step < n_steps; ++step) {
+      const int kj = step / nch, dc = step % nch;
+      cp_async_wait_all();
+      __syncthreads();  // step is in; every warp is done with step - 1
+      if (kSlots == 2 && step + 1 < n_steps) stage(step + 1);
+      cp_async_commit();
+      const T* base = ring + 4 * (kSlots == 2 ? step & 1 : 0) * kE;
+      if (dc == 0) {
+#pragma unroll
+        for (int n = 0; n < kNs; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      }
+      products(sc, dp, base, base + kE, base + 2 * kE, base + 3 * kE);
+      if (dc == nch - 1) ds_dq(sc, dp, kj, k_out);
+      if (kSlots == 1 && step + 1 < n_steps) {
+        __syncthreads();  // every warp is done with this stage
+        stage(step + 1);
+        cp_async_commit();
+      }
+    }
   }
   cp_async_wait_all();  // nothing left in flight when the block exits
 
   if constexpr (kSplit > 1) {
     // the second warp of each pair hands its partial to the first through
-    // the K/V ring, lane-minor so that a warp's 32 lanes hit 32 banks
+    // the copy ring, lane-minor so that a warp's 32 lanes hit 32 banks
     static_assert(kSplit == 2, "warp pairs");
     static_assert(4 * G::kBytes >= kBlock / 32 * kNo * 4 * 32 * 4,
-                  "the partials fit the K/V ring");
-    float* part = reinterpret_cast<float*>(k_s) + qw * (kNo * 4 * 32);
-    __syncthreads();  // every warp is done with the last K/V tile
+                  "the partials fit the copy ring");
+    float* part = reinterpret_cast<float*>(ring) + qw * (kNo * 4 * 32);
+    __syncthreads();  // every warp is done with the last stage
     if (kofs != 0) {
 #pragma unroll
       for (int n = 0; n < kNo; ++n)
@@ -243,31 +338,42 @@ __global__ void __launch_bounds__(kBlock * dq_split<T, DMAX>())
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + g + 8 * i;
     if (row >= s.t) continue;
-    T* dst = dq + (((int64_t)b * s.t + row) * s.h + hh) * s.d;
+    T* dst = dq + (((int64_t)b * s.t + row) * s.h + hh) * s.d + c_out;
 #pragma unroll
     for (int n = 0; n < kNo; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = n * 8 + 2 * tq + j;
-        if (col < s.d) store(dst + col, acc[n][2 * i + j]);
+        if (c_out + col < s.d) store(dst + col, acc[n][2 * i + j]);
       }
   }
 }
 
-template <typename T, int DMAX>
+// Dynamic shared memory: q, dO + two stages of (k, v), or, wide, the
+// stages of (q, dO, k, v) chunks and the k tile of the dQ columns
+template <typename T, int DMAX, bool WIDE>
+constexpr size_t dq_smem_bytes() {
+  return (WIDE ? 4 * dq_slots<T, DMAX, WIDE>() + 1 : 6) *
+         (size_t)Tile<T, DMAX>::kBytes;
+}
+
+template <typename T, int DMAX, bool WIDE>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dq,
                 const int* offs, const Strides& st, const Shape& s,
                 void* stream) {
-  constexpr size_t bytes = 6 * Tile<T, DMAX>::kBytes;  // q, dO, 2 x k, 2 x v
+  constexpr size_t bytes = dq_smem_bytes<T, DMAX, WIDE>();
+  static_assert(bytes <= kSmemMax, "the stages fit a block");
   const void* ptrs[4] = {q, k, v, dout};
   const int vec = rows_aligned16(ptrs, st, 4, sizeof(T));
   const int64_t nt = (s.t + kRows - 1) / kRows;
+  const int64_t nch = WIDE ? (s.d + DMAX - 1) / DMAX : 1;
   constexpr int threads = kBlock * dq_split<T, DMAX>();
-  return launch_kernel<threads>(flash_dq_kernel<T, DMAX>, nt * s.b * s.h,
-                                bytes, stream, (const T*)q, (const T*)k,
-                                (const T*)v, (const T*)dout, lse, delta,
-                                (T*)dq, offs, st, s, softmax_scale(s.d), vec);
+  return launch_kernel<threads>(flash_dq_kernel<T, DMAX, WIDE>,
+                                nt * s.b * s.h * nch, bytes, stream,
+                                (const T*)q, (const T*)k, (const T*)v,
+                                (const T*)dout, lse, delta, (T*)dq, offs, st,
+                                s, softmax_scale(s.d), vec);
 }
 
 }  // namespace

@@ -48,6 +48,20 @@
 // in the grid, then the next heaviest, so the tail of the launch holds
 // the short sweeps.
 //
+// Head widths above 128 (WIDE, flash_mma.cuh): a block owns one
+// 128-column chunk of out. For each K tile it streams q and k through
+// two shared-memory stages chunk by chunk into the scores (q is re-read
+// per K tile: it no longer fits beside the ring), and with the last
+// chunk the v tile of its columns; the key split of the float32 warp
+// pairs and their merge are DMAX = 128's. The scores are rebuilt once
+// per output chunk, so at D = 256 the work is 2 x (q k^T) + p v, three
+// products of the width where two would do. Every block computes the
+// same m and l (the same scores, summed in the same order); the block
+// of chunk 0 writes lse. Shared memory two stages of (q, k, v): 202,752
+// bytes in float32, 104,448 in bfloat16. ptxas (nvcc 12.9, sm_90a, the
+// H100 build of chip_smoke.py): 212 registers float32, 172 bfloat16, no
+// spills.
+//
 // Bound on the card: operations at the main shape (two products of
 // 2*T*T*D flops per (batch, head), halved when causal: the tensor cores'
 // bf16 rate, or three TF32 products each for float32), against q, k, v
@@ -65,7 +79,7 @@ __host__ __device__ constexpr int fwd_split() {
   return sizeof(T) == 4 && DMAX > 64 ? 2 : 1;
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool WIDE>
 __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
@@ -77,19 +91,27 @@ __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
   constexpr int kThreads = kBlock * kSplit;
   constexpr int kKeys = kRows / kSplit;  // keys of a K/V tile per warp
   constexpr int kLd = G::kLd;
+  constexpr int kE = G::kElems;
   constexpr int kNs = kKeys / 8;        // n8 tiles of a warp's score block
   constexpr int kNo = DMAX / 8;         // n8 tiles of an output row block
-  constexpr int kKq = DMAX / M::kK;     // k steps of q k^T
+  constexpr int kKq = DMAX / M::kK;     // k steps of q k^T (one chunk)
   constexpr int kKp = kKeys / M::kK;    // k steps of p v
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][kLd]
-  T* k_s = q_s + G::kElems;                 // two stages
-  T* v_s = k_s + 2 * G::kElems;             // two stages
+  // DMAX <= 128: q [64][kLd], then two stages of k, then two of v. Wide:
+  // two stages of (q chunk, k chunk, v chunk of this block's columns)
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  T* const ring = WIDE ? smem : smem + kE;  // the stages
 
+  // wide: ceil(d / 128) chunks of the head dimension, this block's
+  // output chunk innermost in the grid
+  const int nch = WIDE ? (s.d + DMAX - 1) / DMAX : 1;
+  const int oc = WIDE ? (int)(blockIdx.x % nch) : 0;
+  const unsigned blk = WIDE ? blockIdx.x / nch : blockIdx.x;
+  const int c_out = oc * DMAX;  // this block's first output column
   const int nt = (s.t + kRows - 1) / kRows;
   const int bhn = s.b * s.h;
-  const int qi = nt - 1 - (int)(blockIdx.x / bhn);
-  const int bh = (int)(blockIdx.x % bhn);
+  const int qi = nt - 1 - (int)(blk / bhn);
+  const int bh = (int)(blk % bhn);
   const int b = bh / s.h, hh = bh % s.h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -109,11 +131,34 @@ __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
     k_end = last_key < 0 ? -1 : min(k_end, last_key / kRows);
   }
 
-  load_tile_async<T, DMAX, kThreads>(q_s, qp, st.v[1], qi * kRows, s.t, s.d,
-                                     vec);
-  if (k_end >= 0) {
-    load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
-    load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+  // DMAX <= 128: q stays, K and V tiles come through the two-stage ring
+  T* const q_s = smem;
+  T* const k_s = ring;           // two stages
+  T* const v_s = ring + 2 * kE;  // two stages
+  // wide: step i is K tile i / nch, head-dimension chunk i % nch, in
+  // stage i & 1 as (q chunk, k chunk, and with the last chunk the v tile
+  // of this block's columns)
+  const int n_steps = (k_end + 1) * nch;
+  auto stage = [&](int step) {
+    const int kj = step / nch, dc = step % nch;
+    T* const base = ring + 3 * (step & 1) * kE;
+    load_tile_async<T, DMAX, kThreads>(base, qp, st.v[1], qi * kRows, s.t,
+                                       s.d, vec, dc * DMAX);
+    load_tile_async<T, DMAX, kThreads>(base + kE, kp, st.v[4], kj * kRows,
+                                       s.t, s.d, vec, dc * DMAX);
+    if (dc == nch - 1)
+      load_tile_async<T, DMAX, kThreads>(base + 2 * kE, vp, st.v[7],
+                                         kj * kRows, s.t, s.d, vec, c_out);
+  };
+  if constexpr (!WIDE) {
+    load_tile_async<T, DMAX, kThreads>(q_s, qp, st.v[1], qi * kRows, s.t,
+                                       s.d, vec);
+    if (k_end >= 0) {
+      load_tile_async<T, DMAX, kThreads>(k_s, kp, st.v[4], 0, s.t, s.d, vec);
+      load_tile_async<T, DMAX, kThreads>(v_s, vp, st.v[7], 0, s.t, s.d, vec);
+    }
+  } else if (n_steps > 0) {
+    stage(0);
   }
   cp_async_commit();
 
@@ -128,28 +173,11 @@ __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   const float c = scale * kLog2e;
 
-  for (int kj = 0; kj <= k_end; ++kj) {
-    cp_async_wait_all();
-    __syncthreads();  // tile kj is in; every warp is done with tile kj - 1
-    if (kj < k_end) {
-      const int nxt = (kj + 1) & 1;
-      load_tile_async<T, DMAX, kThreads>(k_s + nxt * G::kElems, kp, st.v[4],
-                                         (kj + 1) * kRows, s.t, s.d, vec);
-      load_tile_async<T, DMAX, kThreads>(v_s + nxt * G::kElems, vp, st.v[7],
-                                         (kj + 1) * kRows, s.t, s.d, vec);
-    }
-    cp_async_commit();
-    const T* ks = k_s + (kj & 1) * G::kElems;
-    const T* vs = v_s + (kj & 1) * G::kElems;
-
-    float sc[kNs][4];
-#pragma unroll
-    for (int n = 0; n < kNs; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+  // sc += q k^T over one tile's DMAX columns (the whole D, or one chunk)
+  auto scores = [&](float (&sc)[kNs][4], const T* qs, const T* ks) {
 #pragma unroll
     for (int kc = 0; kc < kKq; ++kc) {
-      const typename M::A a = M::load_a(q_s, kLd, qw * 16, kc * M::kK, lane);
+      const typename M::A a = M::load_a(qs, kLd, qw * 16, kc * M::kK, lane);
 #pragma unroll
       for (int n = 0; n < kNs; n += 2) {
         typename M::B b0, b1;
@@ -158,11 +186,14 @@ __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
         M::mma(sc[n + 1], a, b1);
       }
     }
+  };
 
-    // mask, then the online softmax on the unscaled scores in base 2:
-    // p = 2^(c s - c m), c = scale * log2(e), m the row max of s. A masked
-    // score is -inf, so its p is exactly 0 and it leaves m alone. Only
-    // tiles that cross the causal diagonal or the end of T are masked.
+  // K/V tile kj's scores done: mask, then the online softmax on the
+  // unscaled scores in base 2: p = 2^(c s - c m), c = scale * log2(e), m
+  // the row max of s. A masked score is -inf, so its p is exactly 0 and
+  // it leaves m alone. Only tiles that cross the causal diagonal or the
+  // end of T are masked. Then acc += p v, p from its accumulators.
+  auto softmax_pv = [&](float (&sc)[kNs][4], int kj, const T* vs) {
     const int key0 = kj * kRows;
     const bool full = key0 + kRows <= s.t &&
                       (!s.causal || q_off + row0 >= k_off + key0 + kRows - 1);
@@ -201,8 +232,6 @@ __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
         sc[n][e] = fast_exp2(fmaf(sc[n][e], c, -mc[e >> 1]));
         l[e >> 1] += sc[n][e];
       }
-
-    // acc += p v, p from its accumulators
 #pragma unroll
     for (int kc = 0; kc < kKp; ++kc) {
       const typename M::A a = M::from_acc(sc, kc);
@@ -214,19 +243,59 @@ __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
         M::mma(acc[n + 1], a, b1);
       }
     }
+  };
+
+  if constexpr (!WIDE) {
+    for (int kj = 0; kj <= k_end; ++kj) {
+      cp_async_wait_all();
+      __syncthreads();  // tile kj is in; every warp is done with kj - 1
+      if (kj < k_end) {
+        const int nxt = (kj + 1) & 1;
+        load_tile_async<T, DMAX, kThreads>(k_s + nxt * kE, kp, st.v[4],
+                                           (kj + 1) * kRows, s.t, s.d, vec);
+        load_tile_async<T, DMAX, kThreads>(v_s + nxt * kE, vp, st.v[7],
+                                           (kj + 1) * kRows, s.t, s.d, vec);
+      }
+      cp_async_commit();
+      float sc[kNs][4];
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      scores(sc, q_s, k_s + (kj & 1) * kE);
+      softmax_pv(sc, kj, v_s + (kj & 1) * kE);
+    }
+  } else {
+    float sc[kNs][4];
+    for (int step = 0; step < n_steps; ++step) {
+      const int kj = step / nch, dc = step % nch;
+      cp_async_wait_all();
+      __syncthreads();  // step is in; every warp is done with step - 1
+      if (step + 1 < n_steps) stage(step + 1);
+      cp_async_commit();
+      const T* base = ring + 3 * (step & 1) * kE;
+      if (dc == 0) {
+#pragma unroll
+        for (int n = 0; n < kNs; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      }
+      scores(sc, base, base + kE);
+      if (dc == nch - 1) softmax_pv(sc, kj, base + 2 * kE);
+    }
   }
   cp_async_wait_all();  // nothing left in flight when the block exits
 
   if constexpr (kSplit > 1) {
     // the second warp of each pair hands its (m, l, acc) to the first
-    // through the K/V ring, lane-minor so that a warp's 32 lanes hit 32
+    // through the copy ring, lane-minor so that a warp's 32 lanes hit 32
     // banks; the first merges them
     static_assert(kSplit == 2, "warp pairs");
     constexpr int kPart = 4 + kNo * 4;  // floats a lane hands over
     static_assert(4 * G::kBytes >= kBlock / 32 * kPart * 32 * 4,
-                  "the states fit the K/V ring");
-    float* part = reinterpret_cast<float*>(k_s) + qw * (kPart * 32);
-    __syncthreads();  // every warp is done with the last K/V tile
+                  "the states fit the copy ring");
+    float* part = reinterpret_cast<float*>(ring) + qw * (kPart * 32);
+    __syncthreads();  // every warp is done with the last stage
     if (kofs != 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -264,33 +333,44 @@ __global__ void __launch_bounds__(kBlock * fwd_split<T, DMAX>())
     const int row = row0 + g + 8 * i;
     const float l_safe = fmaxf(quad_sum(l[i]), kLFloor);
     if (row >= s.t) continue;
-    // a fully masked row keeps m = -1e30 unscaled, as the plain version
+    // a fully masked row keeps m = -1e30 unscaled, as the plain version;
+    // one block of the row writes its lse
     const float m_s = m[i] == kNegInf ? kNegInf : m[i] * scale;
-    if (tq == 0) lse[(int64_t)bh * s.t + row] = m_s + logf(l_safe);
-    T* dst = out + (((int64_t)b * s.t + row) * s.h + hh) * s.d;
+    if (tq == 0 && oc == 0) lse[(int64_t)bh * s.t + row] = m_s + logf(l_safe);
+    T* dst = out + (((int64_t)b * s.t + row) * s.h + hh) * s.d + c_out;
 #pragma unroll
     for (int n = 0; n < kNo; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = n * 8 + 2 * tq + j;
-        if (col < s.d) store(dst + col, acc[n][2 * i + j] / l_safe);
+        if (c_out + col < s.d) store(dst + col, acc[n][2 * i + j] / l_safe);
       }
   }
 }
 
-template <typename T, int DMAX>
+// Dynamic shared memory: q + two stages of (k, v), or, wide, two stages
+// of (q, k, v) chunks
+template <typename T, int DMAX, bool WIDE>
+constexpr size_t fwd_smem_bytes() {
+  return (WIDE ? 6 : 5) * (size_t)Tile<T, DMAX>::kBytes;
+}
+
+template <typename T, int DMAX, bool WIDE>
 cudaError_t run(const void* q, const void* k, const void* v, void* out,
                 float* lse, const int* offs, const Strides& st,
                 const Shape& s, void* stream) {
-  constexpr size_t bytes = 5 * Tile<T, DMAX>::kBytes;  // q, 2 x k, 2 x v
+  constexpr size_t bytes = fwd_smem_bytes<T, DMAX, WIDE>();
+  static_assert(bytes <= kSmemMax, "the stages fit a block");
   const void* ptrs[3] = {q, k, v};
   const int vec = rows_aligned16(ptrs, st, 3, sizeof(T));
   const int64_t nt = (s.t + kRows - 1) / kRows;
+  const int64_t nch = WIDE ? (s.d + DMAX - 1) / DMAX : 1;
   constexpr int threads = kBlock * fwd_split<T, DMAX>();
-  return launch_kernel<threads>(flash_fwd_kernel<T, DMAX>, nt * s.b * s.h,
-                                bytes, stream, (const T*)q, (const T*)k,
-                                (const T*)v, (T*)out, lse, offs, st, s,
-                                softmax_scale(s.d), vec);
+  return launch_kernel<threads>(flash_fwd_kernel<T, DMAX, WIDE>,
+                                nt * s.b * s.h * nch, bytes, stream,
+                                (const T*)q, (const T*)k, (const T*)v,
+                                (T*)out, lse, offs, st, s, softmax_scale(s.d),
+                                vec);
 }
 
 }  // namespace

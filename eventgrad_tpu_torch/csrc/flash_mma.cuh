@@ -10,6 +10,19 @@
 // padding keep every ldmatrix (8 rows of 16 bytes) and the float32
 // path's paired scalar reads free of bank conflicts.
 //
+// Head widths above 128 run the wide form of each kernel (WIDE = true,
+// DMAX = 128): a [64][256] float32 tile is 66,560 bytes, so no kernel's
+// five or six whole-width tiles fit the 232,448 bytes a block may use,
+// and a 16-row accumulator over 256 float32 columns alone is 128
+// registers a thread. So the tiles hold 128-column chunks of a row
+// (`load_tile_async` takes the chunk's first column), the score products
+// stream the head dimension through them chunk by chunk (0, 1, ... in
+// order, summing each score in the order a whole-width product would),
+// and each block owns one 128-column chunk of the output, whose
+// accumulators are those of DMAX = 128. The scores are rebuilt once per
+// output chunk: ceil(D / 128) times. The copy ring keeps two stages
+// where they fit (`ring_slots`), else one.
+//
 // bfloat16 (Tc<__nv_bfloat16>): mma.m16n8k16 with bf16 operands; A and B
 // come from shared memory through ldmatrix (ldmatrix.trans for a B stored
 // [k][n]). A product whose left operand is a score tile (p v, ds k,
@@ -40,6 +53,15 @@ namespace egf {
 constexpr int kRows = 64;    // rows of a tile
 constexpr int kBlock = 128;  // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
+// the most dynamic shared memory a block may opt into on the H100
+constexpr int kSmemMax = 232448;
+
+// Stages of a copy ring whose stage takes `stage_bytes`, beside `extra`
+// bytes: two (stage i + 1 loads while stage i is computed) where they
+// fit, else one (each stage loads after the last is computed).
+__host__ __device__ constexpr int ring_slots(int stage_bytes, int extra) {
+  return 2 * stage_bytes + extra <= kSmemMax ? 2 : 1;
+}
 
 // --- PTX primitives ---------------------------------------------------
 
@@ -160,19 +182,22 @@ struct Tile {
   static constexpr int kBytes = kElems * (int)sizeof(T);
 };
 
-// Stage rows [row0, row0 + 64) of one (batch, head) slice (row stride
-// `st` elements, head dimension contiguous) into a tile through
-// cp.async; rows past t and elements past d are zero-filled. With `vec`
-// every row starts 16-byte aligned and moves in 16-byte copies (the last
-// one of a row cut at d). Otherwise float32 moves in 4-byte copies and
-// bfloat16, which no cp.async size fits, by plain loads. The block's
-// NT threads share the copies.
+// Stage rows [row0, row0 + 64), columns [c0, c0 + DMAX) of one (batch,
+// head) slice (row stride `st` elements, head dimension contiguous, c0 a
+// multiple of DMAX below d) into a tile through cp.async; rows past t
+// and elements past d are zero-filled. With `vec` every row starts
+// 16-byte aligned and moves in 16-byte copies (the last one of a row cut
+// at d). Otherwise float32 moves in 4-byte copies and bfloat16, which no
+// cp.async size fits, by plain loads. The block's NT threads share the
+// copies.
 template <typename T, int DMAX, int NT = kBlock>
 __device__ __forceinline__ void load_tile_async(T* dst,
                                                 const T* __restrict__ src,
                                                 int64_t st, int row0, int t,
-                                                int d, bool vec) {
+                                                int d, bool vec, int c0 = 0) {
   constexpr int kLd = Tile<T, DMAX>::kLd;
+  src += c0;
+  d -= c0;
   if (vec) {
     constexpr int kPer = 16 / (int)sizeof(T);  // elements per copy
     constexpr int kCopies = DMAX / kPer;       // copies per row

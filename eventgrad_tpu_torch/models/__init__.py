@@ -1,22 +1,11 @@
 from eventgrad_tpu_torch.models.cnn import CNN1, CNN2, LeNetCifar
 from eventgrad_tpu_torch.models.mlp import MLP
 from eventgrad_tpu_torch.models.resnet import (
-    BasicBlock, ResNet, ResNet18, ResNet34,
+    BasicBlock, Bottleneck, ResNet, ResNet18, ResNet34, ResNet50, ResNet101,
+    ResNet152,
 )
 
-
-def _bottleneck(name: str):
-    def refuse(**kw):
-        raise NotImplementedError(
-            f"{name} is built of Bottleneck blocks, which are not ported "
-            "yet (models/resnet.py takes BasicBlock only)"
-        )
-
-    refuse.__name__ = name
-    return refuse
-
-
-#: the JAX package's registry keys; the Bottleneck ResNets raise
+#: the JAX package's registry keys
 MODEL_REGISTRY = {
     "mlp": MLP,
     "cnn1": CNN1,
@@ -24,10 +13,11 @@ MODEL_REGISTRY = {
     "lenet_cifar": LeNetCifar,
     "resnet18": ResNet18,
     "resnet34": ResNet34,
-    "resnet50": _bottleneck("ResNet50"),
-    "resnet101": _bottleneck("ResNet101"),
-    "resnet152": _bottleneck("ResNet152"),
+    "resnet50": ResNet50,
+    "resnet101": ResNet101,
+    "resnet152": ResNet152,
 }
 
-__all__ = ["BasicBlock", "CNN1", "CNN2", "LeNetCifar", "MLP",
-           "MODEL_REGISTRY", "ResNet", "ResNet18", "ResNet34"]
+__all__ = ["BasicBlock", "Bottleneck", "CNN1", "CNN2", "LeNetCifar", "MLP",
+           "MODEL_REGISTRY", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+           "ResNet101", "ResNet152"]

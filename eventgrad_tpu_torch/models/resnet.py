@@ -1,15 +1,16 @@
 """ResNet family — port of `eventgrad_tpu/models/resnet.py` (`ResNet`,
-`BasicBlock`, `ResNet18`, `ResNet34`; `Bottleneck` and the ResNets built
-of it wait).
+`BasicBlock`, `Bottleneck`, `ResNet18`, `ResNet34`, `ResNet50`,
+`ResNet101`, `ResNet152`).
 
 CIFAR-adapted ResNet: 3x3 stem stride 1, no stem maxpool, stages
 64/128/256/512 with strides 1/2/2/2, avg_pool(4) head, dense to
 num_classes. `extra_block=True` keeps the reference's make_layer
 off-by-one: the nominal {2,2,2,2} "ResNet18" has 3 blocks per stage
-(86 parameter tensors, 17,444,682 parameters).
+(86 parameter tensors, 17,444,682 parameters); ResNet-50 built of
+Bottleneck blocks has 197 (29,451,082 parameters at 10 classes).
 
 The modules mirror flax's: module and parameter names are flax's
-(`stem_conv`, `BasicBlock_<i>`, `Conv_0`, `BatchNorm_1`,
+(`stem_conv`, `BasicBlock_<i>` / `Bottleneck_<i>`, `Conv_0`, `BatchNorm_1`,
 `downsample_conv`, `Dense_0`, `kernel`/`scale`/`bias`), so a dotted
 parameter name is the flax path joined by dots. What differs from flax
 and is matched here by hand:
@@ -162,6 +163,40 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
+class Bottleneck(nn.Module):
+    """1x1, 3x3 (carrying the stride, torchvision-style) and 1x1 to
+    4 x filters, each with BN, plus a 1x1 strided projection when the
+    residual's shape changes. expansion = 4."""
+
+    expansion = 4
+
+    def __init__(self, cin, filters, stride, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        cout = filters * self.expansion
+        self.Conv_0 = Conv(cin, filters, 1, 1, **kw)
+        self.BatchNorm_0 = BatchNorm(filters, **kw)
+        self.Conv_1 = Conv(filters, filters, 3, stride, **kw)
+        self.BatchNorm_1 = BatchNorm(filters, **kw)
+        self.Conv_2 = Conv(filters, cout, 1, 1, **kw)
+        self.BatchNorm_2 = BatchNorm(cout, **kw)
+        self.has_downsample = stride != 1 or cin != cout
+        if self.has_downsample:
+            self.downsample_conv = Conv(cin, cout, 1, stride, **kw)
+            self.downsample_bn = BatchNorm(cout, **kw)
+
+    def forward(self, x, stats, new_stats, train):
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x), stats, new_stats, train))
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y), stats, new_stats, train))
+        y = self.BatchNorm_2(self.Conv_2(y), stats, new_stats, train)
+        residual = x
+        if self.has_downsample:
+            residual = self.downsample_bn(
+                self.downsample_conv(x), stats, new_stats, train
+            )
+        return F.relu(y + residual)
+
+
 class ResNet(nn.Module):
     """`forward(x, batch_stats, train)` takes NHWC images and returns
     float32 logits, plus the updated batch statistics in train mode."""
@@ -181,8 +216,6 @@ class ResNet(nn.Module):
         device="meta",
     ):
         super().__init__()
-        if block_cls is not BasicBlock:
-            raise NotImplementedError("only BasicBlock is ported yet")
         kw = dict(dtype=dtype, device=device)
         self.dtype = dtype
         self.stem_conv = Conv(in_channels, num_filters, 3, 1, **kw)
@@ -194,7 +227,7 @@ class ResNet(nn.Module):
             n_blocks = blocks + 1 if extra_block else blocks
             for b in range(n_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
-                name = f"BasicBlock_{i}"
+                name = f"{block_cls.__name__}_{i}"  # flax's module name
                 setattr(self, name, block_cls(cin, filters, stride, **kw))
                 self.block_names.append(name)
                 cin, i = filters * block_cls.expansion, i + 1
@@ -275,3 +308,15 @@ def ResNet18(**kw) -> ResNet:
 
 def ResNet34(**kw) -> ResNet:
     return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=BasicBlock, **kw)
+
+
+def ResNet50(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=Bottleneck, **kw)
+
+
+def ResNet101(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), block_cls=Bottleneck, **kw)
+
+
+def ResNet152(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 8, 36, 3), block_cls=Bottleneck, **kw)

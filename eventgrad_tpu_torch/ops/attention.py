@@ -25,11 +25,13 @@ Layout follows the models: q, k, v are `[B, T, H, D]` and share one
 sequence length. The kernels read them through their strides (batch,
 time, head; the head dimension contiguous), so the strided views a fused
 QKV projection splits into need no copy; outputs are contiguous. Any
-`T >= 1` and any `D <= 128` run: ragged tiles are masked (keys past `T`
+`T >= 1` and any `D >= 1` run: ragged tiles are masked (keys past `T`
 are invalid, query rows past `T` write nothing), and a `D` short of the
-instantiation's 32, 64 or 128 runs on zero-filled columns, as the
-reference pads `D` to its 128 lanes. Above 128 the CUDA path raises
-(ROADMAP queue 1, item 10).
+instantiation's 32, 64 or 128 columns runs on zero-filled columns, as
+the reference pads `D` to a multiple of its 128 lanes. Above 128 the
+kernels' wide form streams the head dimension through the score
+products in chunks of 128 columns, each block owning one 128-column
+chunk of the output (`csrc/flash_mma.cuh`).
 
 Masking is finite: invalid scores are `-1e30` and `p` is multiplied by
 the validity, so a fully masked row gives a zero output and a finite
@@ -66,8 +68,6 @@ from eventgrad_tpu_torch.parallel.ring_attention import full_attention
 
 _NEG_INF = -1e30  # finite mask value; exact zeros guaranteed by masking p
 _L_FLOOR = 1e-30
-#: widest head dimension the kernels are instantiated for
-MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 flash_attention_reference = full_attention
@@ -211,12 +211,6 @@ def _check_cuda(op: str, q):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{op}: the CUDA kernels take float32 or bfloat16, "
                         f"got {q.dtype}")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{op}: head dimension {q.shape[-1]} is above the kernels' "
-            f"{MAX_HEAD_DIM}; head dimensions above 128 are not ported yet "
-            f"(the reference pads to any multiple of 128 lanes; ROADMAP "
-            f"queue 1, item 10)")
     if min(q.shape) < 1:
         raise ValueError(f"{op}: empty shape {tuple(q.shape)}")
 

@@ -14,7 +14,8 @@ strided views of one fused projection), in float32 and bfloat16, as
 Prints one JSON line per turn, then the card's name and power limit,
 then a summary line `{"turns": [...], "card": ...}` (also written to
 `--out`). Both trees must take the shape: a tree whose kernels stop at
-D = 64 refuses D = 128.
+D = 64 refuses D = 128, and one that stops at 128 refuses the wide
+form's `--shape 32,1024,8,256`.
 """
 
 from __future__ import annotations

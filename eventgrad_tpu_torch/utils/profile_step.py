@@ -1,18 +1,22 @@
 """Where a flagship train step's time goes on the card.
 
     python -m eventgrad_tpu_torch.utils.profile_step [--steps 5]
-        [--model {resnet,transformer,transformer-d128}] [--algos ALGO ...]
+        [--model {resnet,resnet50,transformer,transformer-d128,
+                  transformer-d256}] [--algos ALGO ...]
         [--wire {bf16,int8}] [--staleness D] [--carrier-resident]
         [--compact-frac F] [--bucketed K] [--chaos SPEC]
         [--integrity SPEC]
 
 For each leg (EventGraD, then D-PSGD, or the `--algos` named: allreduce,
 dpsgd, eventgrad, sp_eventgrad at top-k 10%) at the flagship op-point —
-ResNet-18 with bf16 compute, global batch 256; or, with `--model
-transformer`, the LM of 4 layers, dim 512, 8 heads of 64 with flash
-attention in float32 on 4 sequences of 1024 tokens per rank, and with
-`--model transformer-d128` the LM of 2 layers, dim 2048, 16 heads of 128
-(Pythia-1.4B's attention width) on the same tokens — on Ring(8) stacked
+ResNet-18 with bf16 compute, global batch 256 (with `--model resnet50`,
+ResNet-50 of Bottleneck blocks); or, with `--model transformer`, the LM
+of 4 layers, dim 512, 8 heads of 64 with flash attention in float32 on 4
+sequences of 1024 tokens per rank, with `--model transformer-d128` the
+LM of 2 layers, dim 2048, 16 heads of 128 (Pythia-1.4B's attention
+width) and with `--model transformer-d256` the same LM in 8 heads of 256
+(Gemma-2B's attention width, the flash kernels' wide form) on the same
+tokens — on Ring(8) stacked
 on one card, SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon
 1.05 and max_silence 50 (warmup 2), the f32 wire unless `--wire` names
 another — it runs 3 warm-up steps, then:
@@ -61,7 +65,7 @@ from eventgrad_tpu_torch.data.datasets import (
     synthetic_dataset, synthetic_lm_dataset,
 )
 from eventgrad_tpu_torch.data.sharding import batched_epoch
-from eventgrad_tpu_torch.models.resnet import ResNet18
+from eventgrad_tpu_torch.models.resnet import ResNet18, ResNet50
 from eventgrad_tpu_torch.models.transformer import TransformerLM
 from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel.arena import arena_spec
@@ -83,11 +87,14 @@ KERNEL_FAMILIES = (
 )
 RANKS, WARMUP = 8, 3
 LM_SEQ = 1024
-#: the LM op-points: 8 heads of 64, and 16 heads of 128
+#: the LM op-points: 8 heads of 64, 16 heads of 128 and 8 of 256
 LM_WIDTHS = {
     "transformer": dict(dim=512, n_heads=8, n_layers=4),
     "transformer-d128": dict(dim=2048, n_heads=16, n_layers=2),
+    "transformer-d256": dict(dim=2048, n_heads=8, n_layers=2),
 }
+#: the ResNet op-points (bf16 compute, 32 images a rank)
+RESNETS = {"resnet": ResNet18, "resnet50": ResNet50}
 
 
 def _op_point(model_name: str, n_steps: int):
@@ -100,7 +107,7 @@ def _op_point(model_name: str, n_steps: int):
         x, y = synthetic_lm_dataset(RANKS * per_rank * n_steps, LM_SEQ, 256)
         x, shape = x.astype("int64"), (LM_SEQ,)
     else:
-        model = ResNet18(dtype=torch.bfloat16)
+        model = RESNETS[model_name](dtype=torch.bfloat16)
         per_rank, shape = 32, (32, 32, 3)
         x, y = synthetic_dataset(RANKS * per_rank * n_steps, shape)
     xb, yb = batched_epoch(x, y.astype("int64"), RANKS, per_rank)
@@ -225,7 +232,7 @@ def profile_leg(algo: str, steps: int, device: torch.device, top: int = 12,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--model", choices=("resnet", *LM_WIDTHS),
+    ap.add_argument("--model", choices=(*RESNETS, *LM_WIDTHS),
                     default="resnet")
     ap.add_argument("--algos", nargs="+", choices=ALGOS,
                     default=["eventgrad", "dpsgd"])

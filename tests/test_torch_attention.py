@@ -37,8 +37,10 @@ from eventgrad_tpu_torch.parallel.topology import Ring, Topology
 FWD = dict(atol=2e-5, rtol=2e-5)
 GRAD = dict(atol=5e-5, rtol=5e-4)
 #: (T, D): one tile, and ragged in both; then the DMAX = 128 kernels'
-#: widths, whole and zero-padded (D = 80 runs on 48 zero columns)
-SHAPES = [(48, 32), (160, 24), (48, 128), (160, 80)]
+#: widths, whole and zero-padded (D = 80 runs on 48 zero columns); then
+#: the wide form's (two 128-column chunks; D = 192 runs on 64 zero
+#: columns of the second, as the reference pads it to 256)
+SHAPES = [(48, 32), (160, 24), (48, 128), (160, 80), (48, 256), (160, 192)]
 
 
 def _inputs(seed, *shape, n=3):
@@ -55,9 +57,7 @@ def _close(got, want, tol, what=""):
     np.testing.assert_allclose(got, np.asarray(want), err_msg=what, **tol)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t,d", SHAPES)
-def test_flash_attention_matches_jax(t, d, causal):
+def _check_flash_attention(t, d, causal):
     q, k, v, w = _inputs(t + d, 2, t, 2, d, n=4)
     tq = _leaves([q, k, v])
     out = fa.flash_attention(*tq, causal=causal)
@@ -72,6 +72,18 @@ def test_flash_attention_matches_jax(t, d, causal):
     )(q, k, v)
     for name, g, jg in zip("qkv", grads, jgrads):
         _close(g, jg, GRAD, f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,d", SHAPES)
+def test_flash_attention_matches_jax(t, d, causal):
+    _check_flash_attention(t, d, causal)
+
+
+def test_flash_attention_at_head_dim_320_matches_jax():
+    """Three 128-column chunks, the last on 64 zero columns: the
+    reference pads D = 320 to 384 lanes."""
+    _check_flash_attention(80, 320, True)
 
 
 #: (q_offset, k_offset) at T = 48: every key in the past, the diagonal
@@ -116,10 +128,11 @@ def test_flash_attention_lse_offsets_and_dlse_match_jax(hop):
     _check_offsets_and_dlse(hop, 32)
 
 
-@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("d", [80, 128, 256])
 @pytest.mark.parametrize("hop", sorted(OFFSETS))
 def test_flash_attention_lse_offsets_at_wide_heads_match_jax(hop, d):
-    """The offset variant at the head widths of the DMAX = 128 kernels."""
+    """The offset variant at the head widths of the DMAX = 128 kernels
+    and of the wide form."""
     _check_offsets_and_dlse(hop, d)
 
 
@@ -383,18 +396,9 @@ def _pair_dq(q, k, v, do, lse, delta, mm):
     return ((a + b).transpose(1, 2),)
 
 
-@pytest.mark.parametrize("split,holds", [("3xtf32", True), ("1xtf32", False)])
-@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
-def test_tf32_split_at_head_dim_128(kernel, split, holds):
-    """As above at D = 128 (B2 x T256 x H2), the main path's head width:
-    twice the terms in each score's sum, in the order of the DMAX = 128
-    kernels. The float32 forward and dQ split each K tile's keys between
-    two warps and merge the halves (`_pair_forward`, `_pair_dq`). dK/dV
-    splits D between two warps instead, but each dK/dV element is still
-    summed by one warp, over the same queries in the same order, so its
-    emulation is the unsplit one."""
+def _check_pair_split(kernel, split, holds, d, seed):
     mm = {"3xtf32": _mm_3xtf32, "1xtf32": _mm_1xtf32}[split]
-    q, k, v, do = (torch.from_numpy(a) for a in _inputs(14, 2, 256, 2, 128,
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(seed, 2, 256, 2, d,
                                                         n=4))
     out, lse = fa.lse_reference(q, k, v, None, True, 1)
     if kernel == "forward":
@@ -409,6 +413,31 @@ def test_tf32_split_at_head_dim_128(kernel, split, holds):
         want = fa.dkv_reference(*args, None, True, 1)
         got = _split_dkv(*args, mm)
     assert _holds(got, want, GRAD) is holds
+
+
+@pytest.mark.parametrize("split,holds", [("3xtf32", True), ("1xtf32", False)])
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
+def test_tf32_split_at_head_dim_128(kernel, split, holds):
+    """As above at D = 128 (B2 x T256 x H2), the main path's head width:
+    twice the terms in each score's sum, in the order of the DMAX = 128
+    kernels. The float32 forward and dQ split each K tile's keys between
+    two warps and merge the halves (`_pair_forward`, `_pair_dq`). dK/dV
+    splits D between two warps instead, but each dK/dV element is still
+    summed by one warp, over the same queries in the same order, so its
+    emulation is the unsplit one."""
+    _check_pair_split(kernel, split, holds, 128, 14)
+
+
+@pytest.mark.parametrize("split,holds", [("3xtf32", True), ("1xtf32", False)])
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
+def test_tf32_split_at_head_dim_256(kernel, split, holds):
+    """As above at D = 256 (B2 x T256 x H2), the transformer-d256 legs'
+    head width: the wide form streams the head dimension through the
+    score products in two 128-column chunks, in order, so each score sums
+    its 256 terms in the order of one whole-width product, and the warp
+    pairs split keys (forward, dQ) or columns (dK/dV) as at DMAX = 128:
+    the same emulations, at twice the terms."""
+    _check_pair_split(kernel, split, holds, 256, 16)
 
 
 def test_pair_emulation_is_the_plain_arithmetic_in_float64():

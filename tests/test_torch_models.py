@@ -7,6 +7,10 @@ must agree within rtol=1e-4, atol=1e-5 in float32 — the convolutions
 and reductions sum in another order than XLA:CPU's, so bitwise is not
 on offer. The gradients are held against the flax model run in float64
 (see `test_gradients_match_flax`).
+
+Each check runs on the BasicBlock ResNet (`test_<check>`) and on the
+Bottleneck one (`test_bottleneck_<check>`), both at the small geometry
+(one block a stage, plus the reference's extra block; 8 base filters).
 """
 
 import jax
@@ -16,10 +20,11 @@ import pytest
 import torch
 
 from eventgrad_tpu.models.resnet import BasicBlock as JaxBasicBlock
+from eventgrad_tpu.models.resnet import Bottleneck as JaxBottleneck
 from eventgrad_tpu.models.resnet import ResNet as JaxResNet
 from eventgrad_tpu.train.steps import _xent as jax_xent
 from eventgrad_tpu_torch import convert
-from eventgrad_tpu_torch.models.resnet import ResNet
+from eventgrad_tpu_torch.models.resnet import BasicBlock, Bottleneck, ResNet
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.spmd import per_rank
 from eventgrad_tpu_torch.train.steps import _xent
@@ -28,10 +33,11 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 SMALL = dict(stage_sizes=(1, 1, 1, 1), num_filters=8)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jmodel = JaxResNet(block_cls=JaxBasicBlock, **SMALL)
-    tmodel = ResNet(**SMALL)
+def _setup(jblock, tblock):
+    """(jmodel, tmodel, x, y, params_np, stats_np, jblock): the flax and
+    the port's ResNet of one block type, a batch, and flax weights."""
+    jmodel = JaxResNet(block_cls=jblock, **SMALL)
+    tmodel = ResNet(block_cls=tblock, **SMALL)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
     y = rng.integers(0, 10, 4).astype(np.int32)
@@ -43,7 +49,17 @@ def setup():
     )
     params_np = jax.tree.map(np.asarray, variables["params"])
     stats_np = jax.tree.map(np.asarray, stats)
-    return jmodel, tmodel, x, y, params_np, stats_np
+    return jmodel, tmodel, x, y, params_np, stats_np, jblock
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(JaxBasicBlock, BasicBlock)
+
+
+@pytest.fixture(scope="module")
+def bottleneck():
+    return _setup(JaxBottleneck, Bottleneck)
 
 
 def _flat(tree):
@@ -53,8 +69,8 @@ def _flat(tree):
     }
 
 
-def test_convert_round_trip(setup):
-    _, tmodel, _, _, params_np, stats_np = setup
+def _convert_round_trip(setup):
+    _, tmodel, _, _, params_np, stats_np, _ = setup
     tp, ts = convert.params_from_jax(params_np, stats_np)
     assert list(tp) == list(arena_spec(tmodel).names)
     for name, t in tp.items():
@@ -67,8 +83,8 @@ def test_convert_round_trip(setup):
             np.testing.assert_array_equal(fg[k], fw[k])
 
 
-def test_forward_train_and_eval_match_flax(setup):
-    jmodel, tmodel, x, _, params_np, stats_np = setup
+def _forward_train_and_eval(setup):
+    jmodel, tmodel, x, _, params_np, stats_np, _ = setup
     variables = {"params": params_np, "batch_stats": stats_np}
     out_j, upd = jmodel.apply(variables, jnp.asarray(x), train=True,
                               mutable=["batch_stats"])
@@ -87,7 +103,7 @@ def test_forward_train_and_eval_match_flax(setup):
     np.testing.assert_allclose(ev_t.numpy(), np.asarray(ev_j), **TOL)
 
 
-def test_gradients_match_flax(setup):
+def _gradients(setup):
     """The oracle is the flax model's gradient in float64. In float32
     the gradient of this net on a 4-sample batch is ill-conditioned: a
     ReLU input within rounding of zero can land on the other side, and
@@ -96,8 +112,8 @@ def test_gradients_match_flax(setup):
     BasicBlock_5.BatchNorm_0) while the port's float32 gradient stays
     within ~1e-6 of it. The float32 JAX gradient therefore cannot serve
     as the reference at this tolerance."""
-    _, tmodel, x, y, params_np, stats_np = setup
-    jmodel64 = JaxResNet(block_cls=JaxBasicBlock, dtype=jnp.float64, **SMALL)
+    _, tmodel, x, y, params_np, stats_np, jblock = setup
+    jmodel64 = JaxResNet(block_cls=jblock, dtype=jnp.float64, **SMALL)
 
     with jax.enable_x64(True):
         to64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
@@ -129,9 +145,9 @@ def test_gradients_match_flax(setup):
         np.testing.assert_allclose(ft[k], fj[k], err_msg=k, **TOL)
 
 
-def test_rank_vmap_matches_per_rank_calls(setup):
+def _rank_vmap(setup):
     """`per_rank` over the leading rank dimension equals separate calls."""
-    _, tmodel, x, y, params_np, stats_np = setup
+    _, tmodel, x, y, params_np, stats_np, _ = setup
     tp, ts = convert.params_from_jax(params_np, stats_np)
     rng = np.random.default_rng(2)
     r = 3
@@ -153,8 +169,8 @@ def test_rank_vmap_matches_per_rank_calls(setup):
             np.testing.assert_allclose(new[k][i].numpy(), ns[k].numpy(), **TOL)
 
 
-def test_init_is_flax_like(setup):
-    jmodel, tmodel, x, _, _, _ = setup
+def _init_flax_like(setup):
+    jmodel, tmodel, x, _, _, _, _ = setup
     params, stats = tmodel.init_variables(seed=3)
     shapes_j = {
         ".".join(str(k.key) for k in path): v
@@ -183,3 +199,70 @@ def test_init_is_flax_like(setup):
     again, _ = tmodel.init_variables(seed=3)
     for k in params:
         assert torch.equal(params[k], again[k])
+
+
+CHECKS = {
+    "convert_round_trip": _convert_round_trip,
+    "forward_train_and_eval_match_flax": _forward_train_and_eval,
+    "gradients_match_flax": _gradients,
+    "rank_vmap_matches_per_rank_calls": _rank_vmap,
+    "init_is_flax_like": _init_flax_like,
+}
+
+
+def test_convert_round_trip(setup):
+    _convert_round_trip(setup)
+
+
+def test_forward_train_and_eval_match_flax(setup):
+    _forward_train_and_eval(setup)
+
+
+def test_gradients_match_flax(setup):
+    _gradients(setup)
+
+
+def test_rank_vmap_matches_per_rank_calls(setup):
+    _rank_vmap(setup)
+
+
+def test_init_is_flax_like(setup):
+    _init_flax_like(setup)
+
+
+@pytest.mark.parametrize("check", sorted(CHECKS))
+def test_bottleneck(bottleneck, check):
+    """Every check above on the Bottleneck ResNet: 1x1, 3x3 (the stride),
+    1x1 to 4 x filters, a projection wherever the shapes differ (the
+    first block of every stage here, stride 1 in the first stage), and
+    flax's key order in the leaves (`BatchNorm_*` < `Conv_*` <
+    `downsample_*` inside a block; `Bottleneck_10` < `Bottleneck_2`)."""
+    CHECKS[check](bottleneck)
+
+
+def test_bottleneck_leaf_order_on_equal_shapes(bottleneck):
+    """A wrong leaf order fails no shape check where leaves share a shape:
+    the Bottleneck's BatchNorm_0/1 (and bias/scale) are all [filters]. The
+    converted values land on their own names: each flax leaf filled with
+    its own index comes back in the port's dict under its name, in flax
+    order, and the arena's segments hold them in that order."""
+    _, tmodel, _, _, params_np, _, _ = bottleneck
+    names = list(_flat(params_np))
+    tagged = {}
+    for i, name in enumerate(names):
+        node = tagged
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.full(_flat(params_np)[name].shape, float(i),
+                             np.float32)
+    tp, _ = convert.params_from_jax(tagged)
+    spec = arena_spec(tmodel)
+    assert list(tp) == names == list(spec.names)
+    flat = spec.ravel({k: v[None] for k, v in tp.items()})[0]
+    for i, (start, size) in enumerate(zip(spec.starts, spec.sizes)):
+        assert bool((flat[start:start + size] == float(i)).all()), names[i]
+    same = [n for n in names
+            if n.startswith(("Bottleneck_1.BatchNorm_0.",
+                             "Bottleneck_1.BatchNorm_1."))]
+    assert len({tuple(tp[n].shape) for n in same}) == 1 and len(same) == 4

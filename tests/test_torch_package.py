@@ -223,6 +223,10 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     assert ChaosSchedule.parse("seed=1,preempt=2@1").preempt == ((2, 1),)
     train_mlp(integrity="on", checkpoint_dir=str(tmp_path))
     assert (tmp_path / "ckpt").is_dir() and (tmp_path / "good").is_dir()
+    # item 10 (flash attention above 128 head columns) is ported: the
+    # CUDA kernels' check, once refused, now takes any width
+    for d in (160, 256, 512):
+        attention._check_cuda("flash_attention", torch.zeros((1, 8, 1, d)))
     refusals = {
         "item 6": [
             # the clauses still to port: membership (6d)
@@ -244,12 +248,6 @@ def test_refusals_name_their_roadmap_item(tmp_path):
         ],
         # the multi-GPU backend's audit oracle
         "item 8": [lambda: audit.oracle("mesh_undeclared_offset")],
-        # the CUDA kernels' head-width check; no CPU call reaches it (CPU
-        # tensors take the plain versions, which accept any width)
-        "item 10": [
-            lambda: attention._check_cuda("flash_attention",
-                                          torch.zeros((1, 8, 1, 160))),
-        ],
     }
     for item, calls in refusals.items():
         for call in calls:

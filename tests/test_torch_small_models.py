@@ -240,13 +240,19 @@ def test_dropout_keep_bits_statistics():
 
 def test_registry_matches_jax_keys():
     assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY)
-    for key in ("resnet50", "resnet101", "resnet152"):
-        with pytest.raises(NotImplementedError, match="Bottleneck"):
-            MODEL_REGISTRY[key]()
-    # ResNet34 is BasicBlock: ported, with the JAX model's leaves
-    jparams = jax.eval_shape(
-        JAX_REGISTRY["resnet34"]().init, jax.random.PRNGKey(0),
-        jnp.zeros((1, 32, 32, 3)))["params"]
-    spec = arena_spec(MODEL_REGISTRY["resnet34"]())
-    sizes = [int(np.prod(v.shape)) for v in jax.tree.leaves(jparams)]
-    assert spec.n_total == sum(sizes) and spec.n_leaves == len(sizes)
+    # the BasicBlock and Bottleneck ResNets, built on the meta device, with
+    # the JAX model's leaves: names and sizes in JAX's leaf order
+    for key in ("resnet34", "resnet50", "resnet101", "resnet152"):
+        jparams = jax.eval_shape(
+            JAX_REGISTRY[key]().init, jax.random.PRNGKey(0),
+            jnp.zeros((1, 32, 32, 3)))["params"]
+        model = MODEL_REGISTRY[key]()
+        assert next(model.parameters()).device.type == "meta"
+        spec = arena_spec(model)
+        flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+        names = [".".join(str(k.key) for k in path) for path, _ in flat]
+        sizes = [int(np.prod(v.shape)) for _, v in flat]
+        assert list(spec.names) == names, key
+        assert list(spec.sizes) == sizes, key
+        if key == "resnet50":
+            assert (spec.n_total, spec.n_leaves) == (29_451_082, 197)

@@ -46,6 +46,7 @@ import torch
 
 from eventgrad_tpu.data.datasets import synthetic_dataset as jax_synthetic
 from eventgrad_tpu.models.resnet import BasicBlock as JaxBasicBlock
+from eventgrad_tpu.models.resnet import Bottleneck as JaxBottleneck
 from eventgrad_tpu.models.resnet import ResNet as JaxResNet
 from eventgrad_tpu.parallel.events import EventConfig as JaxEventConfig
 from eventgrad_tpu.parallel.spmd import spmd
@@ -55,7 +56,7 @@ from eventgrad_tpu.train.steps import make_train_step as jax_make_step
 from eventgrad_tpu.utils.metrics import msgs_saved_pct as jax_msgs_saved
 import eventgrad_tpu_torch as egt
 from eventgrad_tpu_torch import convert, ops
-from eventgrad_tpu_torch.models.resnet import ResNet
+from eventgrad_tpu_torch.models.resnet import BasicBlock, Bottleneck, ResNet
 from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
@@ -123,11 +124,17 @@ def _port_state(jstate, spec, topo, algo, resident_wire=None):
                       batch_stats=ts, pass_num=0, event=event)
 
 
-def _run_both(algo, n_steps, trace=True, **wire_kw):
+#: the block types: (flax, port)
+BLOCKS = {"basic": (JaxBasicBlock, BasicBlock),
+          "bottleneck": (JaxBottleneck, Bottleneck)}
+
+
+def _run_both(algo, n_steps, trace=True, block="basic", **wire_kw):
     """Both packages' steps from the same state over `n_steps` passes;
     `wire_kw` (wire, carrier_resident, staleness) goes to both."""
-    jmodel = JaxResNet(block_cls=JaxBasicBlock, dtype=jnp.float64, **SMALL)
-    tmodel = ResNet(dtype=torch.float64, **SMALL)
+    jblock, tblock = BLOCKS[block]
+    jmodel = JaxResNet(block_cls=jblock, dtype=jnp.float64, **SMALL)
+    tmodel = ResNet(block_cls=tblock, dtype=torch.float64, **SMALL)
     spec = arena_spec(tmodel)
     jtopo, topo = JaxRing(R), Ring(R)
     tx = optax.sgd(LR, momentum=MOM)
@@ -199,7 +206,22 @@ def test_dpsgd_step_matches_jax(dpsgd_run):
 
 
 def test_eventgrad_step_matches_jax(eventgrad_run):
-    spec, passes = eventgrad_run
+    _assert_first_event_step(*eventgrad_run)
+
+
+@pytest.mark.parametrize("algo", ["eventgrad", "dpsgd"])
+def test_bottleneck_step_matches_jax(algo):
+    """One step on the small ResNet built of Bottleneck blocks (ResNet-50's
+    block), weights carried across by `convert.py`."""
+    spec, passes = _run_both(algo, 1, block="bottleneck")
+    assert spec.names[0].startswith("Bottleneck_0.")
+    if algo == "eventgrad":
+        _assert_first_event_step(spec, passes)
+    else:
+        _assert_first_step(spec, passes)
+
+
+def _assert_first_event_step(spec, passes):
     _assert_first_step(spec, passes)
     _, jstate, jm, tstate, tm = passes[0]
     np.testing.assert_array_equal(tm["trace_fired"], jm["trace_fired"])

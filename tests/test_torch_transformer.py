@@ -7,7 +7,9 @@ weights carried across by `convert.params_from_jax`, and EventGraD and
 D-PSGD steps on `Ring(4)` from identical state; then one step of each at
 head dimension 128 (`dim=256, n_heads=2, T=48`), the head width of the
 card's `transformer-d128` legs, which the DMAX = 128 flash kernels run
-there. The JAX side runs `attn="flash"` through its Pallas kernels in
+there, and at head dimension 256 (`dim=512, n_heads=2, T=48`), the
+`transformer-d256` legs' width, which the kernels' wide form runs. The
+JAX side runs `attn="flash"` through its Pallas kernels in
 interpret mode; the port runs its flash Functions on their plain
 versions (CPU tensors).
 
@@ -51,6 +53,8 @@ SMALL = dict(vocab=32, dim=32, n_heads=2, n_layers=2, max_len=16)
 R, PER_RANK, T = 4, 2, 16
 #: two heads of 128 at T = 48
 WIDE = dict(vocab=32, dim=256, n_heads=2, n_layers=2, max_len=48)
+#: two heads of 256 at T = 48
+WIDER = dict(vocab=32, dim=512, n_heads=2, n_layers=2, max_len=48)
 LR, MOM = 0.01, 0.9
 CFG = dict(adaptive=True, horizon=0.6, warmup_passes=1, max_silence=4)
 
@@ -257,6 +261,17 @@ def test_transformer_step_at_head_dim_128_matches_jax(algo):
     Pallas kernels (interpret mode), which pad nothing at D = 128."""
     assert WIDE["dim"] // WIDE["n_heads"] == 128
     spec, passes = _run_both(algo, 1, WIDE)
+    _check_passes(algo, spec, passes)
+
+
+@pytest.mark.parametrize("algo", ["eventgrad", "dpsgd"])
+def test_transformer_step_at_head_dim_256_matches_jax(algo):
+    """One pass at two heads of 256, weights carried across by
+    `convert.py`: the port's flash Functions against the JAX package's
+    Pallas kernels (interpret mode), which take D = 256 as two 128-lane
+    blocks."""
+    assert WIDER["dim"] // WIDER["n_heads"] == 256
+    spec, passes = _run_both(algo, 1, WIDER)
     _check_passes(algo, spec, passes)
 
 
