@@ -48,7 +48,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the bound from the products' flops on the tensor cores (bfloat16: 989
    TFLOP/s; float32: three TF32 products each at 495 TFLOP/s, the least
    work that keeps float32 accuracy) or the bytes at 3.35 TB/s,
-   whichever is larger. Small cases follow in float32 and bfloat16, at
+   whichever is larger (every bound: the work of `ops/work.py` over the
+   H100 row of `obs/devicespec.py`). Small cases follow in float32 and bfloat16, at
    D = 24-64, again at D = 80, 96 and 128 (the DMAX = 128 kernels;
    80 and 96 on zero-filled columns) and at D = 160, 256, 320 and 512
    (the wide form; 160 and 320 on zero-filled columns of their last
@@ -272,7 +273,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    reloaded and every span inside `train`, the bubble decomposition, the
    run report from (a)'s JSONL (`obs/report.py`) and the Prometheus
    ledger gauges; the phase's launches and seconds;
-13. summary — one JSON line of every kernel's numbers, the card's name and
+13. costmodel — the analytic cost model (`obs/costmodel.py`) on the
+   card: one step each of the ResNet-18 flagship (EventGraD and D-PSGD;
+   Ring(8), bf16 compute, global batch 256), ResNet-50 (EventGraD) and
+   the `transformer-d256` LM (EventGraD; Gemma-2B's attention width, 8
+   heads of 256, 4 sequences of 1024 a rank) traced by `analyze_step`,
+   then timed over 4 more passes (CUDA events): FLOPs and no-fusion
+   bytes per step and per phase, the step time, MFU and roofline
+   against `device_spec()`, beside the card's name and power limit;
+   fails unless `device_spec()` is the H100 row, the phases sum to the
+   totals, each traced `eg::` op is charged its closed form
+   (`ops/work.py`, the bounds of phase 3) times its calls, and every MFU
+   and roofline share lies in (0, 1];
+14. membership — elastic membership on the flagship (the resume phase's
+   op-point: 2 passes an epoch at 8 ranks and at 7, under deterministic
+   algorithms): EventGraD and D-PSGD under `leave=1@2,join=1@4` over 6
+   epochs, the join's row streamed through `<checkpoint_dir>/bootstrap`,
+   each again with the row handed over in memory, bitwise the first
+   (every state tensor, the records); kernels 1 and 2 (EventGraD) and 4
+   (D-PSGD) launched once every pass of every epoch, at 7 rows and at 8;
+   the transitions the schedule's; every loss finite; then the first
+   pass after each transition (the run cut at epochs 2 and 4, the
+   step rebuilt on the new ring) fires every leaf on every rank, the
+   exact forced count 2 x 86 messages a rank;
+15. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -295,13 +319,6 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the
-#: float32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-#: dense bf16 and TF32 rates of the tensor cores
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
 
 #: the flagship shapes: ResNet-18 as the reference instantiates it
 FLAGSHIP_PARAMS = 17_444_682
@@ -371,12 +388,33 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound(n_elems: int, bytes_per_elem: int, ops_per_elem: int):
+def card_spec():
+    """The card's row of the port's one peak table
+    (`eventgrad_tpu_torch/obs/devicespec.py`, the H100 SXM's published
+    peaks: HBM3 bandwidth, the dense bf16 and TF32 tensor-core rates and
+    the float32 rate outside the tensor cores): the kernels' bounds here
+    and the cost model's MFU divide by the same numbers."""
+    from eventgrad_tpu_torch.obs.devicespec import H100
+
+    return H100
+
+
+def bound(flops: float, nbytes: float):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the float32 operations over the card's float32 rate."""
-    t_bytes = n_elems * bytes_per_elem / HBM_BYTES_PER_S * 1e3
-    t_ops = n_elems * ops_per_elem / F32_OPS_PER_S * 1e3
+    spec = card_spec()
+    t_bytes = nbytes / spec.peak_hbm_bytes_per_s * 1e3
+    t_ops = flops / spec.peak_f32_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tail_bound(kernel: str, n_elems: int, carrier=None):
+    """The bound of one elementwise kernel call over `n_elems` elements
+    with NB neighbours: its work from `eventgrad_tpu_torch/ops/work.py`,
+    the closed form the cost model charges the same call."""
+    from eventgrad_tpu_torch.ops import work
+
+    return bound(*work.tail(kernel, n_elems, NB, carrier))
 
 
 def max_abs_err(got, want, what="its plain version") -> float:
@@ -587,7 +625,7 @@ def phase_kernels():
         ms=time_ms(lambda: event_engine.masked_wire(flat, fire)),
         plain_ms=time_ms(lambda: event_engine.masked_wire_reference(flat, fire)),
         library_ms=time_ms(lambda: torch.where(fire > 0, flat, zero)),
-        bound=bound(n, 12, 2),
+        bound=tail_bound("masked_wire", n),
     )
 
     # int8 masked wire: clip(rint(where(fire > 0, flat, 0) / scale), ±127)
@@ -606,7 +644,7 @@ def phase_kernels():
         library_ms=None,
         # reads flat, fire and scale, writes out (f32 each); a compare, a
         # select, a division, a rounding and two clip compares
-        bound=bound(n, 16, 6),
+        bound=tail_bound("masked_wire_int8", n),
     )
     del flat, fire, scale, args
 
@@ -628,7 +666,7 @@ def phase_kernels():
         # reads p, g, t and per neighbor cand, keep, last; writes p', t'
         # and the committed buffers. Per element per neighbor a compare,
         # a select and an add, then 5 ops of mix and SGD
-        bound=bound(n, 4 * (3 + 3 * NB + 2 + NB), 3 * NB + 5),
+        bound=tail_bound("fused_mix_commit", n),
     )
     del args, cands, lasts, keeps
 
@@ -670,8 +708,7 @@ def phase_kernels():
         # and scale (f32); writes p', t' (f32) and the committed buffers
         # (int8). Per element per neighbor a compare, a select, a
         # conversion, a multiply and an add, then 5 ops of mix and SGD
-        bound=bound(n, 4 * 3 + NB * (1 + 4 + 1 + 4) + 4 * 2 + NB,
-                    5 * NB + 5),
+        bound=tail_bound("fused_mix_commit_carrier", n, "int8"),
     )
     del args, kw, cq, lq, cs, ls, new_s
 
@@ -692,8 +729,7 @@ def phase_kernels():
         plain_ms=time_ms(
             lambda: arena_update.mix_commit_carrier_reference(*args)),
         library_ms=None,
-        bound=bound(n, 4 * 3 + NB * (2 + 4 + 2) + 4 * 2 + 2 * NB,
-                    4 * NB + 5),
+        bound=tail_bound("fused_mix_commit_carrier", n, "bf16"),
     )
     del args, cb, lb, keeps
 
@@ -707,7 +743,7 @@ def phase_kernels():
         ms=time_ms(lambda: fused_update.fused_mix_sgd(*args)),
         plain_ms=time_ms(lambda: fused_update.mix_sgd_reference(*args)),
         library_ms=None,
-        bound=bound(n, 24, 6),
+        bound=tail_bound("fused_mix_sgd", n),
     )
     del args, p, g, t, b
     torch.cuda.synchronize()
@@ -1025,22 +1061,23 @@ def within(got, want, atol, rtol, what) -> float:
     return err
 
 
-def flash_bound(products: int, n_tensors: int, n_rows: int, shape, dtype):
-    """(bound_ms, bound_by) of one causal flash kernel: `products` matrix
-    products of 2*T*T*D flops per (batch, head), halved by the causal
-    mask, on the tensor cores (bfloat16: 989 TFLOP/s; float32: three TF32
-    products each at 495 TFLOP/s, the least that keeps float32 accuracy),
-    against `n_tensors` [B, T, H, D] tensors and `n_rows` f32 [B, H, T]
-    vectors moved once."""
+def flash_bound(kernel: str, shape, dtype):
+    """(bound_ms, bound_by) of one causal flash kernel: its matrix
+    products (2*T*T*D flops each per (batch, head), halved by the causal
+    mask) on the tensor cores (bfloat16: the card's dense bf16 rate;
+    float32: three TF32 products each at the TF32 rate, the least that
+    keeps float32 accuracy), against its [B, T, H, D] tensors and f32
+    [B, H, T] rows moved once — the work of `ops/work.flash`, the closed
+    form the cost model charges."""
     import torch
 
-    b, t, h, d = shape
-    flops = products * 2 * b * h * t * t * d / 2
-    t_ops = (3 * flops / TF32_OPS_PER_S if dtype == torch.float32
-             else flops / BF16_OPS_PER_S) * 1e3
-    nbytes = (n_tensors * b * t * h * d * torch.finfo(dtype).bits // 8
-              + n_rows * b * h * t * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    from eventgrad_tpu_torch.ops import work
+
+    spec = card_spec()
+    flops, nbytes = work.flash(kernel, shape, torch.finfo(dtype).bits // 8)
+    t_ops = (3 * flops / spec.peak_tf32_flops if dtype == torch.float32
+             else flops / spec.peak_flops) * 1e3
+    t_bytes = nbytes / spec.peak_hbm_bytes_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1128,7 +1165,7 @@ def _flash_main_shape(shape, suffix, gen):
                     lambda: fa.lse_reference(q, k, v, None, True, 1)),
                 library_ms=lib_fwd,
                 # reads q, k, v, writes out and lse; two products
-                bound=flash_bound(2, 4, 1, shape, dtype),
+                bound=flash_bound("flash_fwd", shape, dtype),
             )
             recs["flash_dq" + tag] = dict(
                 max_abs_err=err_q,
@@ -1136,7 +1173,7 @@ def _flash_main_shape(shape, suffix, gen):
                 plain_ms=time_ms(lambda: fa.dq_reference(*bargs)),
                 library_ms=lib_bwd,  # the library's whole backward
                 # reads q, k, v, dO, lse, delta, writes dQ; three products
-                bound=flash_bound(3, 5, 2, shape, dtype),
+                bound=flash_bound("flash_dq", shape, dtype),
             )
             recs["flash_dkv" + tag] = dict(
                 max_abs_err=err_kv,
@@ -1144,7 +1181,7 @@ def _flash_main_shape(shape, suffix, gen):
                 plain_ms=time_ms(lambda: fa.dkv_reference(*bargs)),
                 library_ms=lib_bwd,  # the library's whole backward
                 # reads q, k, v, dO, lse, delta, writes dK, dV; four products
-                bound=flash_bound(4, 6, 2, shape, dtype),
+                bound=flash_bound("flash_dkv", shape, dtype),
             )
         del qkv, q, k, v, do, out, lse, dq, dk, dv, bargs, lq, lk, lv
         torch.cuda.empty_cache()
@@ -2539,7 +2576,7 @@ def phase_leak_kernel():
         plain_ms=time_ms(lambda: audit.leak_reference(x)),
         library_ms=time_ms(lambda: torch.mul(x, 2.0)),
         # reads x, writes o (f32); one multiply
-        bound=bound(x.numel(), 8, 1),
+        bound=tail_bound("leak_kernel", x.numel()),
     )
     del x
     torch.cuda.empty_cache()
@@ -3281,6 +3318,313 @@ def phase_obs():
     return totals
 
 
+#: the cost model's steps: (tag, model name, algo), each on the flagship
+#: op-point (Ring(8), SGD lr 0.01 momentum 0.9, the adaptive trigger)
+COSTMODEL_STEPS = (
+    ("resnet18-eventgrad", "resnet18", "eventgrad"),
+    ("resnet18-dpsgd", "resnet18", "dpsgd"),
+    ("resnet50-eventgrad", "resnet50", "eventgrad"),
+    ("transformer-d256-eventgrad", "transformer-d256", "eventgrad"),
+)
+#: passes each cost-model step is timed over (CUDA events, after the
+#: traced pass and one more)
+COSTMODEL_TIMED = 4
+
+
+def _costmodel_step(model_name, algo, cfg):
+    """(model, state, x, y, per rank, flash shape or None) of one cost-model
+    step on the card: the ResNets in bf16 at 32 images a rank (global
+    batch 256), the LM at Gemma-2B's attention width (dim 2048, 8 heads of
+    256, 2 layers, float32, flash attention) at 4 sequences of 1024
+    tokens a rank."""
+    import numpy as np
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+
+    topo = egt.Ring(RANKS)
+    if model_name.startswith("resnet"):
+        model = egt.MODEL_REGISTRY[model_name](dtype=torch.bfloat16)
+        per_rank, shape = 32, (32, 32, 3)
+        x, y = synthetic_dataset(RANKS * per_rank * 8, shape, seed=0)
+        flash = None
+    else:
+        model = egt.TransformerLM(**LM_D256, attn="flash", device=DEVICE)
+        per_rank, shape = 4, (LM_D256["max_len"],)
+        toks = np.random.default_rng(0).integers(
+            0, LM_D256["vocab"], (RANKS * per_rank * 8,) + shape)
+        x, y = toks, np.roll(toks, -1, axis=-1)
+        flash = FLASH_SHAPE_D256
+    state = egt.init_train_state(model, shape, topo, algo, cfg, seed=0,
+                                 momentum=0.9, device=DEVICE)
+    return model, topo, state, x, y, per_rank, flash
+
+
+def phase_costmodel():
+    """The cost model on the card (`obs/costmodel.py`): one step each of
+    the ResNet-18 flagship (EventGraD and D-PSGD), ResNet-50 (EventGraD)
+    and the transformer at Gemma-2B's attention width (EventGraD, the
+    flash kernels' wide form) traced by `analyze_step`, then timed over
+    COSTMODEL_TIMED more passes (CUDA events); per step the analytic
+    FLOPs and bytes, their phase split, the step time, the MFU and the
+    roofline against `device_spec()`. Fails unless `device_spec()` is the
+    H100 row, the phases sum to the totals, each traced kernel op's
+    FLOPs and bytes are its closed form (`ops/work.py`, the kernels'
+    bounds) times its calls, and every MFU and roofline share lies in
+    (0, 1]. Returns the launches of each kernel."""
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.obs import costmodel
+    from eventgrad_tpu_torch.obs.devicespec import H100, device_spec
+    from eventgrad_tpu_torch.ops import work
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+    from eventgrad_tpu_torch.train.steps import make_train_step
+    from eventgrad_tpu_torch.utils import flops as flops_lib
+    from eventgrad_tpu_torch.utils import profiling
+
+    card = nvidia_smi("name,power.limit")
+    log(f"== costmodel: analytic FLOPs / bytes, MFU and roofline ({card})")
+    spec = device_spec()
+    if spec is not H100:
+        raise SmokeError(f"device_spec() is {spec.name}, not the H100 row")
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                          max_silence=50)
+    totals = {}
+    for tag, model_name, algo in COSTMODEL_STEPS:
+        model, topo, state, x, y, per_rank, flash = _costmodel_step(
+            model_name, algo, cfg)
+        n = RANKS * arena_spec(model).n_total
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cm = costmodel.analyze_step(model, topo, algo, cfg, x, y, per_rank,
+                                    state, fused_sgd=(0.01, 0.9))
+        trace_s = time.perf_counter() - t0
+        step = make_train_step(model, topo, algo, cfg, fused_sgd=(0.01, 0.9))
+        batches = [costmodel.step_batch(x[i * RANKS * per_rank:],
+                                        y[i * RANKS * per_rank:], topo,
+                                        per_rank, DEVICE)
+                   for i in range(COSTMODEL_TIMED + 1)]
+        timed_out = profiling.timed_steps(step, state, batches, warmup=1)
+        del timed_out["state"]
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            # the LM's flash launches run the wide form: its records
+            k += "_d256" if k.startswith("flash_") else ""
+            totals[k] = totals.get(k, 0) + v
+        step_s = timed_out["step_ms_p50"] / 1e3
+        # the phases reproduce the totals
+        for key, field in (("flops_total", "flops"),
+                           ("hbm_bytes_total", "hbm_bytes")):
+            got = sum(p[field] for p in cm["by_phase"].values())
+            if got != cm[key]:
+                raise SmokeError(f"{tag}: phases sum to {got} {field}, "
+                                 f"the total is {cm[key]}")
+        # each kernel op: calls x its closed form
+        want_ops = (("eg::masked_wire", "eg::fused_mix_commit")
+                    if algo == "eventgrad" else ("eg::fused_mix_sgd",))
+        if flash is not None:
+            want_ops += ("eg::flash_fwd", "eg::flash_dq", "eg::flash_dkv")
+        if set(cm["kernels"]) != set(want_ops):
+            raise SmokeError(f"{tag}: traced kernel ops "
+                             f"{sorted(cm['kernels'])}, expected "
+                             f"{sorted(want_ops)}")
+        for op, k in cm["kernels"].items():
+            kernel = op[len("eg::"):]
+            one = (work.flash(kernel, flash, 4) if kernel.startswith("flash")
+                   else work.tail(kernel, n, NB))
+            if (k["flops"], k["hbm_bytes"]) != (k["calls"] * one[0],
+                                                k["calls"] * one[1]):
+                raise SmokeError(f"{tag}: {op} charged {k}, its closed "
+                                 f"form is {one} a call")
+        rl = costmodel.roofline(cm["flops_total"], cm["hbm_bytes_total"],
+                                step_s, spec)
+        mfu = flops_lib.mfu(cm["flops_total"], step_s)
+        if mfu is None or abs(mfu - rl["mfu"]) > 1e-12 * rl["mfu"]:
+            raise SmokeError(f"{tag}: utils.flops.mfu {mfu} disagrees with "
+                             f"the roofline's {rl['mfu']}")
+        for what in ("mfu", "roofline_frac"):
+            if not 0.0 < rl[what] <= 1.0:
+                raise SmokeError(f"{tag}: {what} {rl[what]} outside (0, 1]")
+        log(json.dumps({"costmodel": tag, "card": card,
+                        "flops_total": cm["flops_total"],
+                        "hbm_bytes_total": cm["hbm_bytes_total"],
+                        "by_phase": cm["by_phase"],
+                        "kernels": cm["kernels"],
+                        "dot_flops": cm["dot_flops"],
+                        "conv_flops": cm["conv_flops"],
+                        "n_eqns": cm["n_eqns"], "trace_s": trace_s,
+                        "step": timed_out,
+                        "block": costmodel.record_block(cm, rl)}))
+        del model, state, step, batches, cm
+        torch.cuda.empty_cache()
+    return totals
+
+
+#: the membership phase's op-point: the resume phase's (2 passes an
+#: epoch at 8 ranks and at 7), 6 epochs, one rank leaving after epoch 2
+#: and a newcomer joining after epoch 4
+MEMB_EPOCHS, MEMB_SCHEDULE = 6, "leave=1@2,join=1@4"
+
+
+def phase_membership():
+    """Elastic membership on the flagship (ResNet-18 in bf16, global batch
+    256 over the live ranks, under deterministic algorithms): EventGraD
+    and D-PSGD under `leave=1@2,join=1@4` over 6 epochs of 2 passes, the
+    joins streamed through `<checkpoint_dir>/bootstrap`; each run again
+    without a checkpoint_dir (the join handed over in memory) must be
+    bitwise the first (every state tensor and the records). Kernels 1 and
+    2 (EventGraD) and 4 (D-PSGD) must launch once every pass of every
+    epoch, at 8 rows and at 7; the transitions must be the schedule's,
+    every loss finite. Then the EventGraD run cut at each transition's
+    epoch (the state train() returns is the post-transition one): one
+    more pass of the rebuilt step fires every leaf on every rank, the
+    exact forced count. Returns the launches of each kernel."""
+    import math
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.chaos.membership import MembershipSchedule
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+    from eventgrad_tpu_torch.train.steps import make_train_step
+
+    card = nvidia_smi("name,power.limit")
+    log(f"== membership: ResNet-18 (bf16 compute) x Ring(8) -> Ring(7) -> "
+        f"Ring(8), {MEMB_SCHEDULE}, {RESUME_STEPS} passes x {MEMB_EPOCHS} "
+        f"epochs ({card})")
+    spec = arena_spec(egt.ResNet18())
+    kernels = {"eventgrad": ("masked_wire", "fused_mix_commit"),
+               "dpsgd": ("fused_mix_sgd",)}
+    ranks_by_epoch = [8, 8, 7, 7, 8, 8]
+    totals = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    was_bench = torch.backends.cudnn.benchmark
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="eg-membership-")
+    try:
+        for algo in ("eventgrad", "dpsgd"):
+            runs = []
+            for ck in (os.path.join(root, algo), None):
+                per_epoch = []
+
+                def on_epoch(rec, per_epoch=per_epoch):
+                    torch.cuda.synchronize()
+                    per_epoch.append(dict(ops.launch_counts()))
+
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                state, hist = _resume_train(
+                    ck, epochs=MEMB_EPOCHS, algo=algo, save_every=0,
+                    membership=MEMB_SCHEDULE, on_epoch=on_epoch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                for k, v in ops.launch_counts().items():
+                    totals[k] = totals.get(k, 0) + v
+                runs.append((state, hist))
+                what = f"{algo} ({'bootstrap dir' if ck else 'in memory'})"
+                if [h["active_ranks"] for h in hist] != ranks_by_epoch:
+                    raise SmokeError(f"{what}: active ranks "
+                                     f"{[h['active_ranks'] for h in hist]}")
+                if any(h["steps"] < 2 for h in hist):
+                    raise SmokeError(f"{what}: fewer than 2 passes an epoch")
+                if not all(math.isfinite(h["loss"]) for h in hist):
+                    raise SmokeError(f"{what}: a loss is not finite")
+                tr = [(h["epoch"], t["kind"], t["index"], t["n_ranks_after"],
+                       bool(t.get("bootstrap_streamed")))
+                      for h in hist for t in h.get("membership_transitions",
+                                                   ())]
+                want_tr = [(3, "leave", 1, 7, False),
+                           (5, "join", 1, 8, ck is not None)]
+                if tr != want_tr:
+                    raise SmokeError(f"{what}: transitions {tr}, the "
+                                     f"schedule's are {want_tr}")
+                if hist[0]["membership"] != MembershipSchedule.parse(
+                        MEMB_SCHEDULE).to_dict():
+                    raise SmokeError(f"{what}: the schedule rider differs")
+                prev = {}
+                for h, counts in zip(hist, per_epoch):
+                    for k in kernels[algo]:
+                        got = counts.get(k, 0) - prev.get(k, 0)
+                        if got != h["steps"]:
+                            raise SmokeError(
+                                f"{what}: {k} launched {got} times in epoch "
+                                f"{h['epoch']} at {h['active_ranks']} ranks, "
+                                f"{h['steps']} passes")
+                    prev = counts
+                log(json.dumps({"leg": f"membership {what}", "card": card,
+                                "wall_s": wall,
+                                "steps": [h["steps"] for h in hist],
+                                "epoch_wall_s": [h["wall_s"] for h in hist],
+                                "loss": [h["loss"] for h in hist],
+                                "msgs_saved_pct": [h.get("msgs_saved_pct")
+                                                   for h in hist],
+                                "transitions": hist[2].get(
+                                    "membership_transitions", [])
+                                + hist[4].get("membership_transitions", []),
+                                "launches": {k: per_epoch[-1].get(k, 0)
+                                             for k in kernels[algo]}}))
+            _tree_bits(runs[0][0], runs[1][0],
+                       f"membership {algo}: the replay")
+            _same_records(runs[0][1], runs[1][1],
+                          f"membership {algo}: the replay")
+            del runs
+            torch.cuda.empty_cache()
+        # the forced fire after each transition, on the run's own state
+        cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                              max_silence=50)
+        x, y = synthetic_dataset(RANKS * RESUME_PER_RANK * RESUME_STEPS,
+                                 (32, 32, 3), seed=0)
+        for cut, n_after in ((2, 7), (4, 8)):
+            ops.reset_launch_counts()
+            with warnings.catch_warnings():
+                # the cut run leaves the later event unapplied, knowingly
+                warnings.simplefilter("ignore", RuntimeWarning)
+                state, _ = _resume_train(None, epochs=cut, save_every=0,
+                                         membership=MEMB_SCHEDULE)
+            topo = egt.Ring(n_after)
+            if state.params.shape[0] != n_after:
+                raise SmokeError(f"cut at {cut}: {state.params.shape[0]} "
+                                 f"rows, expected {n_after}")
+            step = make_train_step(egt.ResNet18(dtype=torch.bfloat16), topo,
+                                   "eventgrad", cfg, fused_sgd=(0.01, 0.9))
+            before = state.event.num_events.clone()
+            b = n_after * RESUME_PER_RANK
+            xb = torch.as_tensor(x[:b]).reshape(
+                (n_after, RESUME_PER_RANK, 32, 32, 3)).to(DEVICE)
+            yb = torch.as_tensor(y[:b]).long().reshape(
+                (n_after, RESUME_PER_RANK)).to(DEVICE)
+            state, m = step(state, (xb, yb))
+            fired = (state.event.num_events - before).cpu()
+            want = NB * spec.n_leaves
+            torch.cuda.synchronize()
+            for k, v in ops.launch_counts().items():
+                totals[k] = totals.get(k, 0) + v
+            if fired.tolist() != [want] * n_after:
+                raise SmokeError(f"cut at {cut}: the first pass after the "
+                                 f"transition fired {fired.tolist()} "
+                                 f"messages a rank, the forced count is "
+                                 f"{want} on each of {n_after}")
+            log(json.dumps({"leg": f"membership forced fire after epoch "
+                            f"{cut}", "ranks": n_after,
+                            "messages_per_rank": want, "card": card}))
+            del state, step, m
+    finally:
+        torch.use_deterministic_algorithms(was)
+        torch.backends.cudnn.benchmark = was_bench
+        shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -3375,7 +3719,8 @@ def main() -> int:
                       phase_main_path_lm, phase_main_path_lm_d128,
                       phase_main_path_lm_d256, phase_realdata,
                       phase_frontier, phase_bucketed_async, phase_chaos,
-                      phase_resume, phase_audit, phase_obs):
+                      phase_resume, phase_audit, phase_obs, phase_costmodel,
+                      phase_membership):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

@@ -428,12 +428,8 @@ class CrashpointInstrumented(Rule):
     name = "crashpoint-instrumented"
     OWNER = f"{PACKAGE}/chaos/crashpoint.py"
     #: registered sites whose seam the port has not got yet, with the
-    #: ROADMAP item that brings it
-    WAITING = {
-        "membership.bootstrap":
-            "the membership join engine and its bootstrap stream "
-            "(ROADMAP queue 1, item 6, part 6d)",
-    }
+    #: ROADMAP item that brings it (none: every site is instrumented)
+    WAITING: Dict[str, str] = {}
 
     def check(self, files):
         from eventgrad_tpu_torch.chaos import crashpoint
@@ -530,6 +526,12 @@ class WallClockConfined(Rule):
             "the child processes' deadlines and each cell's seconds",
         f"{PACKAGE}/utils/integrity_sweep.py":
             "the sweep's per-leg seconds in the artifact",
+        f"{PACKAGE}/chaos/membership.py":
+            "each membership transition's apply_s in its info record "
+            "(the JAX record's field, same vintage as loop.py's wall_s)",
+        f"{PACKAGE}/utils/profiling.py":
+            "timed_steps: the first call's seconds and, off the card, the "
+            "host-clock step times (the JAX helper's fields)",
     }
 
     def _hits(self, sf: SourceFile):

@@ -21,7 +21,7 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 from torch.fx.experimental.proxy_tensor import (
-    disable_proxy_modes_tracing, make_fx,
+    disable_proxy_modes_tracing, get_proxy_mode, make_fx,
 )
 from torch.fx.passes.shape_prop import _extract_tensor_metadata
 from torch.overrides import TorchFunctionMode
@@ -91,9 +91,24 @@ def trace(fn: Callable, *args) -> Trace:
     """Trace `fn(*args)` into an ATen `GraphModule` with `make_fx`
     (`tracing_mode="real"`): the call runs once, on the arguments' device,
     and its result comes back beside the graph. A read of a tensor into
-    Python (`.item()`) is recorded, not refused: the audit counts it."""
+    Python (`.item()`) is recorded, not refused: the audit counts it.
+
+    Each recorded node carries the step phase it was recorded in
+    (`obs.costmodel.phase_scope`, entered by the step's `_phase`) as
+    `node.meta["eg_phase"]`: at every phase change the last node of the
+    graph so far is marked, and after the trace the labels are laid
+    along the graph's nodes in order (the order they were recorded
+    in)."""
+    from eventgrad_tpu_torch.obs import costmodel
+
     leaves, rebuild = flatten(args)
     result = {}
+    marks = {}
+
+    def on_phase(label):
+        mode = get_proxy_mode()
+        if mode is not None:
+            marks[next(iter(reversed(mode.tracer.graph.nodes)))] = label
 
     def flat_fn(*xs):
         with _DrawsAsConstants():
@@ -102,8 +117,15 @@ def trace(fn: Callable, *args) -> Trace:
         result["leaves"], result["rebuild"] = out_leaves, out_rebuild
         return out_leaves
 
-    gm = make_fx(flat_fn, tracing_mode="real",
-                 _error_on_data_dependent_ops=False)(*leaves)
+    start = costmodel.current_phase()
+    with costmodel.listening(on_phase):
+        gm = make_fx(flat_fn, tracing_mode="real",
+                     _error_on_data_dependent_ops=False)(*leaves)
+    label = start
+    for node in gm.graph.nodes:
+        if label is not None:
+            node.meta[costmodel.META_KEY] = label
+        label = marks.get(node, label)
     for node in gm.graph.nodes:
         # tensors the step closed over (cached constants) enter as
         # attributes; give them the metadata the op nodes carry

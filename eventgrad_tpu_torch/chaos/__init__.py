@@ -10,10 +10,10 @@ and read on the device by pass; `flip_one_bit`; the lags), `monitor`
 (`PeerHealth`, `sync_requests`, `consensus_error`, the records'
 `health_record`), `policy` (`RecoveryPolicy`, `alive_mask`, the ring
 heal), `integrity` (`IntegrityConfig`, `DivergenceSentinel`,
-`IntegrityEscalation`), `membership.force_refresh` and `crashpoint`
-(the crash sites, `PreemptGuard`, `GracefulPreemption` and the
-PREEMPTED marker, with the `preempt=` clause). The `leave=` / `join=`
-membership transitions wait (ROADMAP queue 1, item 6, part 6d).
+`IntegrityEscalation`), `membership` (the `leave=` / `join=` schedule,
+the `MembershipEngine` and `force_refresh`) and `crashpoint` (the crash
+sites, `PreemptGuard`, `GracefulPreemption` and the PREEMPTED marker,
+with the `preempt=` clause).
 """
 
 from eventgrad_tpu_torch.chaos.crashpoint import (
@@ -21,6 +21,9 @@ from eventgrad_tpu_torch.chaos.crashpoint import (
 )
 from eventgrad_tpu_torch.chaos.integrity import (
     DivergenceSentinel, IntegrityConfig, IntegrityEscalation,
+)
+from eventgrad_tpu_torch.chaos.membership import (
+    MembershipEngine, MembershipEvent, MembershipSchedule,
 )
 from eventgrad_tpu_torch.chaos.monitor import PeerHealth
 from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
@@ -30,4 +33,6 @@ from eventgrad_tpu_torch.chaos.schedule import (
 
 __all__ = ["ChaosSchedule", "DivergenceSentinel", "FlakyWindow",
            "GracefulPreemption", "IntegrityConfig", "IntegrityEscalation",
-           "LagWindow", "PeerHealth", "PreemptGuard", "RecoveryPolicy"]
+           "LagWindow", "MembershipEngine", "MembershipEvent",
+           "MembershipSchedule", "PeerHealth", "PreemptGuard",
+           "RecoveryPolicy"]

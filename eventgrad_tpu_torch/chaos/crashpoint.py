@@ -32,11 +32,12 @@ The scheduled twin of the signal is the chaos clause
 ``preempt=EPOCH@STEP`` (`chaos/schedule.py`): a replayable notice that
 arrives in that epoch and drains at its end.
 
-Two JAX sites have no seam in the port yet: `writer.bg_save` is
-instrumented inside `utils/checkpoint.AsyncWriter`, which the loop does
-not use until the dispatch pipeline is ported (ROADMAP queue 1, item 6,
-part 6e), and `membership.bootstrap` waits for the membership engine
-(part 6d; the lint declares it a waiting site).
+`writer.bg_save` is instrumented inside `utils/checkpoint.AsyncWriter`,
+which the loop does not use until the dispatch pipeline is ported
+(ROADMAP queue 1, item 6, part 6e); `membership.bootstrap` sits in the
+membership engine's bootstrap stream (`chaos/membership.py`), between a
+join's on-disk commit of its neighbour's row and the newcomer's
+restore.
 """
 
 from __future__ import annotations

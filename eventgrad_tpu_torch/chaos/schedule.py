@@ -32,18 +32,23 @@ a record replays exactly. The clauses the port runs:
                 drains at the end of that epoch (`chaos/crashpoint.py`).
                 A resume ignores notices at or before its start epoch,
                 so later clauses preempt later incarnations.
+  * `leave` / `join` — MEMBERSHIP events (`chaos/membership.py`),
+                applied at epoch ends by the training loop, never inside
+                the step: `leave=1@3` removes rank 1 after epoch 3,
+                `join=1@5[:SRC]` inserts a newcomer at position 1 after
+                epoch 5, bootstrapped from rank SRC (default its left
+                neighbour). `membership_schedule()` lifts them into a
+                `MembershipSchedule`.
 
 The effective lag clamps to the bound D; under staleness <= 1 the clamp
-makes `lag=` / `slow=` no-ops in the step. The membership events
-`leave=` / `join=` of the JAX vocabulary wait (ROADMAP queue 1, item 6,
-part 6d); a schedule that sets one raises NotImplementedError. The dict
-form keeps the JAX package's keys, so a schedule serializes to the same
-record.
+makes `lag=` / `slow=` no-ops in the step. The dict form keeps the JAX
+package's keys, so a schedule serializes to the same record.
 
-Spec grammar (comma-separated clauses; `flaky=`, `die=`, `bitflip=`,
-`nanstep=`, `preempt=`, `lag=`, `slow=` accumulate):
+Spec grammar (comma-separated clauses; `flaky=`, `die=`, `leave=`,
+`join=`, `bitflip=`, `nanstep=`, `preempt=`, `lag=`, `slow=`
+accumulate):
 
-    drop=0.2,seed=7,flaky=100-200@0.8,delay=3,die=3@500,
+    drop=0.2,seed=7,flaky=100-200@0.8,delay=3,die=3@500,leave=1@3,join=1@5,
     bitflip=40-60@0.5,nanstep=2@45,preempt=6@2,lag=50-90@3,slow=2@4
 """
 
@@ -51,11 +56,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Tuple
-
-#: where the clauses still to port wait
-ITEM6 = "ROADMAP queue 1, item 6"
-_MEMBERSHIP = f"{ITEM6}, part 6d"
-
 
 @dataclasses.dataclass(frozen=True)
 class FlakyWindow:
@@ -106,8 +106,8 @@ def _sorted_windows(ws):
 class ChaosSchedule:
     """A replayable fault schedule (the JAX package's fields). `death`
     and `nanstep` are ((rank, pass), ...) pairs, `slow` ((rank, lag),
-    ...), `preempt` ((epoch, step), ...); `membership` must stay
-    empty."""
+    ...), `preempt` ((epoch, step), ...); `membership` holds the
+    epoch-keyed join/leave events (`membership.MembershipEvent`)."""
 
     seed: int = 0
     drop_p: float = 0.0
@@ -122,10 +122,6 @@ class ChaosSchedule:
     slow: Tuple[Tuple[int, int], ...] = ()
 
     def __post_init__(self):
-        if self.membership:
-            raise NotImplementedError(
-                "chaos clauses leave= / join= (membership transitions) are "
-                f"not ported yet ({_MEMBERSHIP})")
         if not 0.0 <= self.drop_p <= 1.0:
             raise ValueError(f"drop_p {self.drop_p} outside [0, 1]")
         if self.deliver_every < 1:
@@ -137,6 +133,8 @@ class ChaosSchedule:
         for r, t in self.death:
             if r < 0 or t < 0:
                 raise ValueError(f"death ({r}, {t}) invalid")
+        object.__setattr__(self, "membership", tuple(
+            sorted(self.membership, key=lambda e: e.epoch)))
         object.__setattr__(self, "bitflip", _sorted_windows(self.bitflip))
         object.__setattr__(self, "nanstep", tuple(sorted(self.nanstep)))
         for r, t in self.nanstep:
@@ -161,11 +159,11 @@ class ChaosSchedule:
     @property
     def is_noop(self) -> bool:
         """True when the schedule injects nothing (the drop-rate-0 point,
-        bitwise the chaos=None trajectory); a preemption notice counts,
-        as in the JAX schedule."""
+        bitwise the chaos=None trajectory); a preemption notice and a
+        membership event count, as in the JAX schedule."""
         return (self.drop_p == 0.0 and not self.flaky
                 and self.deliver_every == 1 and not self.death
-                and not self.bitflip and not self.nanstep
+                and not self.membership and not self.bitflip and not self.nanstep
                 and not self.preempt and not self.lag and not self.slow)
 
     @property
@@ -201,6 +199,13 @@ class ChaosSchedule:
     def has_nansteps(self) -> bool:
         return bool(self.nanstep)
 
+    def membership_schedule(self):
+        """The epoch-keyed join/leave events as a MembershipSchedule (for
+        the MembershipEngine); no events -> an is_noop schedule."""
+        from eventgrad_tpu_torch.chaos.membership import MembershipSchedule
+
+        return MembershipSchedule(seed=self.seed, events=self.membership)
+
     def dead_ranks(self, up_to_pass: int) -> Tuple[int, ...]:
         """Ranks whose death pass is <= `up_to_pass`."""
         return tuple(sorted({r for r, t in self.death if t <= up_to_pass}))
@@ -217,6 +222,8 @@ class ChaosSchedule:
             "deliver_every": self.deliver_every,
             "death": [list(e) for e in self.death],
         }
+        if self.membership:
+            d["membership"] = self.membership_schedule().to_dict()["events"]
         if self.bitflip:
             d["bitflip"] = [[w.start_pass, w.end_pass, w.drop_p]
                             for w in self.bitflip]
@@ -232,10 +239,14 @@ class ChaosSchedule:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ChaosSchedule":
+        membership = ()
         if d.get("membership"):
-            raise NotImplementedError(
-                "chaos clauses leave= / join= (membership transitions) are "
-                f"not ported yet ({_MEMBERSHIP})")
+            from eventgrad_tpu_torch.chaos.membership import (
+                MembershipSchedule,
+            )
+
+            membership = MembershipSchedule.from_dict(
+                {"events": d["membership"]}).events
         return cls(
             seed=int(d.get("seed", 0)),
             drop_p=float(d.get("drop_p", 0.0)),
@@ -243,6 +254,7 @@ class ChaosSchedule:
                         for s, e, p in d.get("flaky", ())),
             deliver_every=int(d.get("deliver_every", 1)),
             death=tuple((int(r), int(t)) for r, t in d.get("death", ())),
+            membership=membership,
             bitflip=tuple(FlakyWindow(int(s), int(e), float(p))
                           for s, e, p in d.get("bitflip", ())),
             nanstep=tuple((int(r), int(t)) for r, t in d.get("nanstep", ())),
@@ -272,15 +284,21 @@ class ChaosSchedule:
             parts.append(f"lag={w.start_pass}-{w.end_pass}@{w.lag}")
         for r, f in self.slow:
             parts.append(f"slow={r}@{f}")
+        if self.membership:
+            from eventgrad_tpu_torch.chaos.membership import (
+                format_event_clause,
+            )
+
+            parts += [format_event_clause(e) for e in self.membership]
         return ",".join(parts)
 
     @classmethod
     def parse(cls, spec: str) -> "ChaosSchedule":
         """Parse the JAX package's grammar, e.g. `drop=0.2,seed=7,
         flaky=10-20@0.8`."""
-        kw: Dict[str, Any] = {"flaky": [], "death": [], "bitflip": [],
-                              "nanstep": [], "preempt": [], "lag": [],
-                              "slow": []}
+        kw: Dict[str, Any] = {"flaky": [], "death": [], "membership": [],
+                              "bitflip": [], "nanstep": [], "preempt": [],
+                              "lag": [], "slow": []}
         for clause in spec.split(","):
             clause = clause.strip()
             if not clause:
@@ -289,11 +307,6 @@ class ChaosSchedule:
             if not sep:
                 raise ValueError(
                     f"bad chaos clause {clause!r} (expected key=value)"
-                )
-            if key in ("leave", "join"):
-                raise NotImplementedError(
-                    f"chaos clause {clause!r}: membership transitions are "
-                    f"not ported yet ({_MEMBERSHIP})"
                 )
             try:
                 if key == "drop":
@@ -339,6 +352,12 @@ class ChaosSchedule:
                 elif key == "slow":
                     r, _, f = val.partition("@")
                     kw["slow"].append((int(r), int(f)))
+                elif key in ("leave", "join"):
+                    from eventgrad_tpu_torch.chaos.membership import (
+                        parse_event_clause,
+                    )
+
+                    kw["membership"].append(parse_event_clause(key, val))
                 else:
                     raise ValueError(f"unknown chaos key {key!r}")
             except ValueError as err:

@@ -8,8 +8,8 @@ bounded-async staleness D >= 2, the chaos schedule's fault clauses with
 the recovery policies, the integrity engine's sentinel and rollback;
 crash-safe snapshots, resume, graceful preemption and the crash sites;
 the on-device telemetry with the message ledger's audit, and the
-registry's spans and gauges), `evaluate`, `consensus_params` and
-`rank0_slice`.
+registry's spans and gauges; the elastic membership transitions at
+epoch ends), `evaluate`, `consensus_params` and `rank0_slice`.
 History records carry the JAX records' keys for the fields the slice
 computes.
 """
@@ -29,6 +29,7 @@ import torch
 
 from eventgrad_tpu_torch.chaos import crashpoint
 from eventgrad_tpu_torch.chaos import integrity as chaos_integrity
+from eventgrad_tpu_torch.chaos import membership as chaos_membership
 from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
 from eventgrad_tpu_torch.chaos.membership import force_refresh
 from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
@@ -285,6 +286,7 @@ def train(
     on_epoch: Optional[Callable[[Dict[str, Any]], None]] = None,
     obs: str = "off",
     registry: Optional[Any] = None,
+    membership=None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
@@ -410,13 +412,33 @@ def train(
     synchronize after them, with `block_ready` around the synchronize,
     so its length is device time), `obs_flush`, `eval` and
     `checkpoint`; and after each epoch the gauges `active_ranks`,
+    `membership_transitions_total` (with membership),
     `edge_staleness{edge}` and `late_commits_total` (staleness D >= 2),
     `ledger_disposition_total{disposition}`, `ledger_in_flight` and
     `ledger_audit_failures_total` (telemetry on a gossip algorithm), and
     `wire_rejects_total`, `quarantined_steps_total` and
     `integrity_rollbacks_total` (with `integrity`). The loop never closes
     the registry. `wall_s` stays the seconds from the epoch's first
-    launch to the synchronize after its last pass."""
+    launch to the synchronize after its last pass.
+
+    `membership` (a `chaos.MembershipSchedule`, spec string like
+    "leave=1@2,join=1@4" or dict; dpsgd and eventgrad on a single-axis
+    ring) runs the elastic membership engine (`chaos/membership.py`): at
+    the end of each named epoch, after its records and before any
+    snapshot, a leave re-slices the survivors onto `Ring(n-1)` and a join
+    bootstraps a newcomer's row from a neighbour's (through
+    `<checkpoint_dir>/bootstrap` when there is a checkpoint_dir) onto
+    `Ring(n+1)`; the step is rebuilt for the new ring and every receive
+    buffer force-refreshes on the next pass. The chaos spec's inline
+    `leave=` / `join=` clauses are the same schedule (both given: they
+    must agree). Steps per epoch follow the rank count; msgs-saved-% is
+    counted against cumulative rank-passes. Every record carries
+    `active_ranks`; the first also the schedule as `membership`, the
+    first after a transition `membership_transitions` (a transition at
+    the last epoch rides the last record). A resume rebuilds the
+    topology from the schedule at the snapshot's epoch. Refused with
+    `die=`, staleness D >= 2 and the integrity rollback, as the JAX loop
+    refuses them."""
     device = resolve_device(device)
     if obs not in OBS_MODES:
         raise ValueError(f"obs must be one of {OBS_MODES}, got {obs!r}")
@@ -493,6 +515,77 @@ def train(
     y = np.ascontiguousarray(y_train, np.int64)
     # labels per sample: 1 for a classifier, T for a language model
     labels_per_sample = int(np.prod(y.shape[1:]))
+
+    # --- elastic membership (chaos/membership.py) -------------------------
+    memb_sched = (chaos_membership.resolve(membership)
+                  if membership is not None else None)
+    if chaos_sched is not None and chaos_sched.membership:
+        inline = chaos_sched.membership_schedule()
+        # identical events are no conflict: a chaos-inline run stamps both
+        # riders, and a replay from its own log feeds both back
+        if (memb_sched is not None and not memb_sched.is_noop
+                and memb_sched.events != inline.events):
+            raise ValueError(
+                "membership events arrived both via membership= and "
+                "the chaos spec's join=/leave= clauses, and they "
+                "disagree; pass one schedule"
+            )
+        memb_sched = inline
+    memb_on = memb_sched is not None and not memb_sched.is_noop
+    memb_engine = None
+    memb_base_n = topo.n_ranks
+    if memb_on:
+        if algo not in ("dpsgd", "eventgrad"):
+            raise ValueError(
+                "membership transitions ride the gossip exchange "
+                f"(dpsgd, eventgrad); got algo={algo!r}"
+            )
+        if len(topo.axes) != 1:
+            raise ValueError(
+                "membership transitions handle single-axis gossip rings; "
+                f"got axes {topo.axes}"
+            )
+        if chaos_sched is not None and chaos_sched.death:
+            raise ValueError(
+                "chaos die= events are rank-indexed in the traced step "
+                "and do not compose with membership re-indexing; script "
+                "the removal as a membership leave= event"
+            )
+        if staleness >= 2:
+            raise ValueError(
+                f"staleness={staleness} does not compose with "
+                "membership transitions: a joining rank would inherit "
+                "its bootstrap source's in-flight delivery queues — "
+                "run bounded-async without membership, or staleness<=1"
+            )
+        if integ_rollback_on:
+            raise ValueError(
+                "integrity rollback does not compose with membership "
+                "transitions (a retained snapshot's rank count can disagree "
+                "with the post-transition ring); run the sentinel without "
+                "rollback (IntegrityConfig(rollback=False)) or drop the "
+                "membership schedule"
+            )
+        # fail fast on a schedule that ever shrinks the ring below 2 or
+        # names an index/src outside the ring it will meet
+        memb_sched.validate(topo.n_ranks)
+        beyond = [e for e in memb_sched.events if e.epoch > epochs]
+        if beyond:
+            warnings.warn(
+                f"{len(beyond)} membership event(s) land beyond "
+                f"epochs={epochs} (first: {beyond[0].kind}@"
+                f"{beyond[0].epoch}) and will not apply in this run",
+                RuntimeWarning,
+            )
+        if ckpt_path and resume:
+            # the snapshot's rank count follows from the membership log
+            # at its epoch: build the state (and the step) at that ring
+            found = checkpoint.latest(ckpt_path)
+            if found:
+                topo = memb_sched.topology_at(
+                    topo, int(checkpoint.peek(found)[1]["epoch"]))
+        memb_engine = chaos_membership.MembershipEngine(
+            memb_sched, event_cfg=event_cfg, bootstrap_dir=checkpoint_dir)
     n_ranks = topo.n_ranks
     steps = epoch_steps(len(x), n_ranks, batch_size)
 
@@ -634,6 +727,17 @@ def train(
                            float(integ_totals["quarantined_steps"]))
             registry.gauge("integrity_rollbacks_total", float(rollbacks))
 
+    # cumulative rank-passes: msgs-saved-%'s denominator under membership,
+    # where the rank count and the steps per epoch change at transitions
+    # (a resumed run rebuilds it from the schedule)
+    rank_passes = sum(
+        epoch_steps(len(x), nr, batch_size) * nr
+        for e in range(1, start_epoch + 1)
+        for nr in (memb_sched.n_ranks_at(memb_base_n, e - 1),)
+    ) if memb_on else 0
+    # transitions applied at the last boundary, for the next record
+    memb_pending: List[Dict[str, Any]] = []
+
     epoch = start_epoch
     with _span("train", cat="run", algo=algo, pipelined=False), \
             crashpoint.PreemptGuard(enabled=ckpt_path is not None) as guard:
@@ -671,6 +775,7 @@ def train(
                 "epoch": epoch,
                 "algo": algo,
                 "steps": steps,
+                "active_ranks": n_ranks,
                 "wall_s": dt,
                 "loss": float(m_e["loss"].mean()),
                 "train_acc": 100.0 * float(m_e["correct"].sum())
@@ -704,10 +809,18 @@ def train(
                 events_total = int(m_e["num_events"][-1].sum())
                 rec["num_deferred"] = int(m_e["num_deferred"][-1].sum())
                 rec["num_events"] = events_total
-                rec["msgs_saved_pct"] = msgs_saved_pct(
-                    events_total, state.pass_num, spec.n_leaves,
-                    topo.n_neighbors, n_ranks,
-                )
+                if memb_on:
+                    # cumulative RANK-passes: a departed rank takes its
+                    # events with it, a newcomer starts at zero
+                    rec["msgs_saved_pct"] = msgs_saved_pct(
+                        events_total, rank_passes + steps * n_ranks,
+                        spec.n_leaves, topo.n_neighbors, 1,
+                    )
+                else:
+                    rec["msgs_saved_pct"] = msgs_saved_pct(
+                        events_total, state.pass_num, spec.n_leaves,
+                        topo.n_neighbors, n_ranks,
+                    )
                 rec["fired_frac"] = float(m_e["fired_frac"].mean())
                 if "edge_staleness" in m_e:
                     # the end-of-epoch per-edge staleness peak and the
@@ -715,6 +828,13 @@ def train(
                     rec["edge_staleness_max"] = int(
                         m_e["edge_staleness"][-1].max())
                     rec["late_commits"] = int(m_e["late_commits"][-1].sum())
+            memb_opened = bool(memb_pending)
+            if memb_on:
+                if not history:  # the log alone replays the run bitwise
+                    rec["membership"] = memb_sched.to_dict()
+                if memb_pending:
+                    rec["membership_transitions"] = memb_pending
+                    memb_pending = []
             if crash_armed is not None and not history:
                 rec["crashpoint"] = dict(crash_armed)
             if chaos_sched is not None:
@@ -809,7 +929,14 @@ def train(
                 # is over the ranks of the post-warmup steps (pass ==
                 # warmup_passes is already real trigger data)
                 pnums = pass_base + 1 + np.arange(steps)
-                post = m_e["fired_elems"][pnums >= warmup_passes]
+                keep = pnums >= warmup_passes
+                if memb_opened:
+                    # an epoch that opens with a membership force-fire is
+                    # transient (the full-fire rewire pass, then the
+                    # thresholds re-adapt): sampling it would size the
+                    # budget toward the whole model
+                    keep[:] = False
+                post = m_e["fired_elems"][keep]
                 if post.size:
                     compact_fired_peak = max(compact_fired_peak,
                                              float(post.max()))
@@ -846,6 +973,31 @@ def train(
                         compact_capacity = cap
                         step = build("compact", cap)
                     compact_done = True
+            rank_passes += steps * n_ranks
+            if memb_engine is not None and memb_engine.events_at(epoch):
+                # transitions land after the epoch's host work and before
+                # any snapshot, so snapshots are always post-transition
+                for ev in memb_engine.events_at(epoch):
+                    state, topo, info = memb_engine.apply(state, topo, ev)
+                    memb_pending.append(info)
+                    if registry is not None:
+                        registry.gauge("membership_transitions_total",
+                                       float(len(memb_engine.log)))
+                    if obs_prev is not None:
+                        # the telemetry diff base follows the state's rows
+                        obs_prev = (
+                            chaos_membership.take_rows_host(
+                                obs_prev, tuple(info["survivors"]))
+                            if ev.kind == "leave" else
+                            chaos_membership.insert_zero_row_host(
+                                obs_prev, ev.index))
+                n_ranks = topo.n_ranks
+                steps = epoch_steps(len(x), n_ranks, batch_size)
+                if epoch < epochs:
+                    # a new ring: the step is rebuilt for it
+                    step = build(
+                        "compact" if compact_capacity is not None
+                        or compact_static else "dense", compact_capacity)
             if ckpt_due:
                 with _span("checkpoint", cat="host", epoch=epoch):
                     checkpoint.save(ckpt_path, *boundary_payload())
@@ -870,4 +1022,8 @@ def train(
                 raise crashpoint.GracefulPreemption(info)
             # the boundary is processed: records, any due save
             crashpoint.hit("loop.block_end")
+    if memb_pending and history:
+        # transitions at the final boundary have no next record to ride
+        history[-1].setdefault("membership_transitions", [])
+        history[-1]["membership_transitions"] += memb_pending
     return state, history

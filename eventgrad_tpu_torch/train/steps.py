@@ -95,6 +95,7 @@ already computed: plain PyTorch on device tensors, no host sync. With
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -108,6 +109,7 @@ from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
 from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.augment import draw_pad_flip_crop, pad_flip_crop
 from eventgrad_tpu_torch.models.common import draw_dropout
+from eventgrad_tpu_torch.obs import costmodel
 from eventgrad_tpu_torch.obs import device as obs_device
 from eventgrad_tpu_torch.obs import ledger as obs_ledger
 from eventgrad_tpu_torch.ops import event_engine
@@ -128,14 +130,18 @@ from eventgrad_tpu_torch.parallel.topology import Topology
 from eventgrad_tpu_torch.train.state import ALGOS, EVENT_ALGOS
 
 
+@contextlib.contextmanager
 def _phase(name: str):
     """A profiler span `step/<name>` over one phase of the step, named as
     the JAX step's phases (grad, gate_pack, exchange, commit_mix; a
     bucket's as `exchange.b<k>`, `commit_mix.b<k>`), plus `enqueue`, the
     bounded-async queue's shift and merge inside `commit_mix`, and
     `telemetry`, the obs step's counters and ledger; next to free when no
-    profiler runs."""
-    return torch.profiler.record_function("step/" + name)
+    profiler runs. The phase is also the cost model's label
+    (`obs.costmodel.phase_scope`) of the ops a trace records in it."""
+    with costmodel.phase_scope(name), \
+            torch.profiler.record_function("step/" + name):
+        yield
 
 
 def _fired_accounting(

@@ -4,10 +4,12 @@ resume, compare with the run that never stopped.
 The port's counterpart of the JAX package's `tools/crash_matrix.py`
 (reference verdicts in `artifacts/crash_matrix_cpu.json`), for the two
 configurations whose durability machinery the port has: `arena_serial`
-(the plain loop: one epoch per block, synchronous saves) and `integrity`
-(the sentinel with rollback and escalation, checksums and quarantine
-off so that the `nanstep=1@14` of `drop=0,seed=3,nanstep=1@14` lands and
-trips it). Each crash site is armed at the artifact's hit count
+(the plain loop: one epoch per block, synchronous saves), `membership`
+(`leave=1@2,join=1@4`: the join at epoch 4 streams its neighbour row
+through `<ck>/bootstrap`, where the `membership.bootstrap` site sits)
+and `integrity` (the sentinel with rollback and escalation, checksums
+and quarantine off so that the `nanstep=1@14` of
+`drop=0,seed=3,nanstep=1@14` lands and trips it). Each crash site is armed at the artifact's hit count
 (`EG_CRASHPOINT=site:n`), the child dies there with
 `exitcodes.CRASHPOINT_EXIT`, a relaunch resumes, and the cell records:
 
@@ -35,7 +37,7 @@ trigger at horizon 0.95 with warmup 2, max_silence 8). Each child is
 a process of its own running this module's `--child` entry, which
 calls `train()`; the children are forked from one forkserver that has
 imported torch and the port (`PRELOAD`), so each pays for its run and
-its CUDA start, not for the imports. One child runs the three
+its CUDA start, not for the imports. One child runs the four
 uninterrupted baselines in turn, and the cells run beside it on
 `WORKERS` threads (one a core), each a sequence of children. A cell is
 held to its baseline once both have run.
@@ -87,6 +89,12 @@ COMMON_SITES = {
 #: config name -> (train() keywords, {site: hit})
 CONFIGS: Dict[str, Tuple[Dict[str, str], Dict[str, int]]] = {
     "arena_serial": ({}, dict(COMMON_SITES)),
+    "membership": (
+        # leave at 2, join at 4: the join streams a neighbour row through
+        # the bootstrap path (<ck>/bootstrap) mid-matrix
+        {"membership": "leave=1@2,join=1@4"},
+        {**COMMON_SITES, "membership.bootstrap": 1},
+    ),
     "integrity": (
         {"integrity": "checksum=0,quarantine=0,sentinel=1,rollback=1,"
                       "escalate=1,max_rollbacks=1",
@@ -102,6 +110,7 @@ PREEMPT_BASE_CHAOS = "drop=0,seed=7"
 #: the uninterrupted runs: tag -> (config, chaos)
 BASELINES = {
     "arena_serial": ("arena_serial", None),
+    "membership": ("membership", None),
     "integrity": ("integrity", None),
     "preempt": ("arena_serial", PREEMPT_BASE_CHAOS),
 }
@@ -118,7 +127,7 @@ WORKERS = os.cpu_count() or 4
 
 
 def _child(args) -> int:
-    """One run of the op-point (`--child CONFIG`), or the three
+    """One run of the op-point (`--child CONFIG`), or the four
     uninterrupted baselines in turn (`--child baselines`, each under
     `<ck>/<tag>--base/`); the exit code tells a preemption and an
     integrity abort apart."""

@@ -250,9 +250,9 @@ def test_lag_vector_and_table_clamp_at_the_bound():
 
 
 def test_schedule_round_trips_and_refusals():
-    """The straggler clauses, and with them every clause of items 6a and
-    6b, parse, print and serialize as the JAX schedule does; the clauses
-    still to port (membership) raise naming item 6."""
+    """The straggler clauses, and with them every clause of items 6a, 6b
+    and 6d (membership, once refused), parse, print and serialize as the
+    JAX schedule does."""
     spec = "drop=0,seed=5,lag=3-9@2,slow=1@7"
     s, js = ChaosSchedule.parse(spec), JaxChaos.parse(spec)
     assert s.to_spec() == js.to_spec() and s.to_dict() == js.to_dict()
@@ -261,13 +261,8 @@ def test_schedule_round_trips_and_refusals():
                                                    js.max_scheduled_lag())
     for clause in ("drop=0.4", "flaky=1-5@0.5", "delay=3", "die=1@4",
                    "bitflip=1-5@0.5", "nanstep=1@3", "preempt=2@1",
-                   "leave=1@3"):
+                   "leave=1@3", "join=2@4:0"):
         spec = "seed=1," + clause
-        if clause.startswith("leave"):
-            with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP queue 1, item 6\b"):
-                ChaosSchedule.parse(spec)
-            continue
         s, js = ChaosSchedule.parse(spec), JaxChaos.parse(spec)
         assert s.to_spec() == js.to_spec() and s.to_dict() == js.to_dict()
         assert ChaosSchedule.from_dict(js.to_dict()) == s

@@ -310,17 +310,25 @@ def test_crash_rules_fire_like_their_jax_twins(rule, tmp_path):
     assert len(port) == len(jax_v) == want, (port, jax_v)
 
 
-def test_waiting_crash_site_stays_honest(tmp_path):
+def test_waiting_crash_site_stays_honest(tmp_path, monkeypatch):
     rule = next(r for r in lint.RULES if r.name == "crashpoint-instrumented")
-    assert "item 6, part 6d" in rule.WAITING["membership.bootstrap"]
+    # every registered site is instrumented now: the membership engine's
+    # bootstrap stream holds `membership.bootstrap`
+    assert rule.WAITING == {}
     assert lint.run([rule]) == []
-    # instrumenting a waiting site, or leaving a live one dead, flags
+    # declaring an instrumented site waiting, a second instrumentation,
+    # or leaving a live one dead, flags
+    monkeypatch.setattr(rule, "WAITING", {
+        "membership.bootstrap": "the membership engine "
+                                "(ROADMAP queue 1, item 6, part 6d)"})
+    assert any("waiting crashpoints" in v.message for v in lint.run([rule]))
+    monkeypatch.setattr(rule, "WAITING", {})
     seeded = _with_seed(lint, "eventgrad_tpu_torch",
                         "eventgrad_tpu_torch/chaos/seeded.py",
                         "def f(crashpoint):\n"
                         "    crashpoint.hit('membership.bootstrap')\n",
                         tmp_path)
-    assert any("waiting crashpoints" in v.message
+    assert any("more than one site" in v.message
                for v in lint.run([rule], files=seeded))
     files = [sf for sf in lint.collect_sources()
              if sf.rel != "eventgrad_tpu_torch/utils/checkpoint.py"]
@@ -338,7 +346,14 @@ def test_crash_matrix_artifact_matches_the_jax_artifact():
                            "torch_crash_matrix_cpu.json")) as f:
         got = json.load(f)
     assert crash_matrix.compare(ref, got) == []
-    assert got["n_cells"] == 11 and len(got["preemption"]["cells"]) == 2
+    # 5 cells of arena_serial, 6 of membership (with membership.bootstrap),
+    # 6 of integrity (with integrity.rollback)
+    assert got["n_cells"] == 17 and len(got["preemption"]["cells"]) == 2
+    memb = {c["site"]: c["lost_epochs"] for c in got["cells"]
+            if c["config"] == "membership"}
+    assert memb == {"ckpt.tmp_written": 2, "ckpt.mid_swap": 2,
+                    "ckpt.post_promote": 2, "loop.block_dispatched": 1,
+                    "loop.block_end": 0, "membership.bootstrap": 2}
     assert got["unresumable"] == got["silent_data_loss"] == 0
     assert got["recovery_ok"] and got["device"] == "cpu"
     assert got["op_point"] == dict(crash_matrix.OP, model="mlp",

@@ -47,6 +47,17 @@ def _imported_roots(tree):
             yield str(node.args[0].value).split(".")[0], node.lineno
 
 
+def test_import_scan_covers_the_cost_model_and_membership():
+    """The scan reads the cost model, the device specs, the kernels' work,
+    the FLOPs/MFU yardstick, the profiling and process-watch helpers and
+    the membership engine."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("obs/costmodel.py", "obs/devicespec.py", "ops/work.py",
+                "utils/flops.py", "utils/profiling.py", "utils/procwatch.py",
+                "chaos/membership.py"):
+        assert f"eventgrad_tpu_torch/{rel}" in scanned, rel
+
+
 def test_import_scan_covers_the_analysis_subpackage():
     """The scan below reads every module of `eventgrad_tpu_torch/analysis/`
     (the auditor and the lint keep their own copies of what they need
@@ -162,8 +173,8 @@ def test_train_on_cpu_records():
 
 def test_refusals_name_their_roadmap_item(tmp_path):
     """Every feature the port refuses raises NotImplementedError naming
-    the ROADMAP queue-1 item that ports it; the calls of item 5, once
-    refused, now run."""
+    the ROADMAP queue-1 item that ports it; the calls of items 5, 6a, 6b,
+    6d and 10, once refused, now run."""
     from eventgrad_tpu_torch.analysis import audit
     from eventgrad_tpu_torch.chaos.membership import MembershipSchedule
     from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
@@ -227,13 +238,18 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     # CUDA kernels' check, once refused, now takes any width
     for d in (160, 256, 512):
         attention._check_cuda("flash_attention", torch.zeros((1, 8, 1, d)))
+    # item 6d (the elastic membership: leave= / join=, the engine and
+    # train(membership=)) is ported: its calls, once refused, now run
+    assert len(ChaosSchedule.parse("seed=1,leave=1@3,join=1@3").membership) == 2
+    sched = MembershipSchedule.parse("leave=1@1,join=1@1")
+    assert sched.n_ranks_at(4, 1) == 4
+    _, hist = train_mlp(membership="leave=1@1")
+    assert hist[0]["membership"] == MembershipSchedule.parse(
+        "leave=1@1").to_dict()
     refusals = {
         "item 6": [
-            # the clauses still to port: membership (6d)
-            lambda: ChaosSchedule.parse("seed=1,leave=1@3"),
-            lambda: ChaosSchedule.parse("seed=1,join=1@3"),
+            # the file loaders still to port (6f)
             lambda: load_or_synthesize("mnist", "/data", "train"),
-            lambda: MembershipSchedule(),
         ],
         # the bucketed schedule under the fault clauses
         "item 12": [
