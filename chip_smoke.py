@@ -12,9 +12,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    compile with nvcc for sm_90a, one process per source, all at once;
    each flash instantiation's registers, spills and shared memory
    (`-Xptxas -v`), and, where the toolkit has cuobjdump, its count of
-   tensor-core (HMMA) instructions: the run fails if a forward, dQ or
-   dK/dV instantiation (float32 and bfloat16, DMAX 32, 64 and 128, and
-   the wide form for head dimensions above 128) is missing or has none;
+   tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma): the
+   run fails if an instantiation is missing or has none of its own kind
+   (`ops/flash_plan.instantiations`: the mma.sync form's forward, dQ and
+   dK/dV in float32 and bfloat16 at DMAX 32, 64, 128 and the wide form;
+   the wgmma form's bfloat16 forward and dK/dV at D 64, 128, 256, HGMMA;
+   the whole form's float32 forward and dK/dV at D 256);
 3. kernels — each gossip-tail kernel at the flagship shapes (Ring(8) x
    ResNet-18: 8 x 17,444,682 elements, two neighbors), held bitwise
    against its plain PyTorch version on the same inputs (bit patterns
@@ -49,8 +52,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    TFLOP/s; float32: three TF32 products each at 495 TFLOP/s, the least
    work that keeps float32 accuracy) or the bytes at 3.35 TB/s,
    whichever is larger (every bound: the work of `ops/work.py` over the
-   H100 row of `obs/devicespec.py`). Small cases follow in float32 and bfloat16, at
-   D = 24-64, again at D = 80, 96 and 128 (the DMAX = 128 kernels;
+   H100 row of `obs/devicespec.py`). Each main shape's record names the
+   form that served each kernel (`ops/flash_plan.py`: bfloat16 forward
+   and dK/dV on wgmma, float32 at D = 256 on the whole form, the rest on
+   mma.sync) and its launches; the run fails if a launch took another
+   form, or if the C dispatcher (`eg_flash_form`) and the Python mirror
+   disagree on a case's form or shared memory. Small cases follow in
+   float32 and bfloat16, at D = 24-64, again at D = 80, 96 and 128 (the DMAX = 128 kernels;
    80 and 96 on zero-filled columns) and at D = 160, 256, 320 and 512
    (the wide form; 160 and 320 on zero-filled columns of their last
    128-column chunk): non-causal, ragged T = 160 (also
@@ -104,9 +112,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    of 1024 tokens per rank, the f32 wire. The kernels' launch counters
    are zeroed just before each leg and read just after (the
    `transformer-d128` legs' flash launches report as the DMAX = 128
-   records "flash_*_d128", the `transformer-d256` legs' as the wide
-   form's "flash_*_d256"); a leg whose kernels did not launch, whose
-   receive buffers are not in the carrier dtype, whose byte counts
+   records "flash_*_d128", the `transformer-d256` legs' as
+   "flash_*_d256", and each leg fails unless every forward and dK/dV
+   launch took the form the rule names for float32 at its head width:
+   mma.sync at 64 and 128, the whole form at 256); a leg whose kernels
+   did not launch, whose receive buffers are not in the carrier dtype, whose byte counts
    are not exact (D-PSGD int8 34,890,052 sent bytes per step per chip,
    EventGraD int8 34,890,224 wire-real bytes, sparsified EventGraD f32
    2 x (8 x sum of the leaves' k + 86) wire-real bytes, allreduce 4 x
@@ -460,40 +470,48 @@ def phase_toolchain():
     return card
 
 
-#: a flash kernel instantiation in a mangled name: kernel, type, DMAX,
-#: wide form (0 or 1)
+#: a flash kernel instantiation in a mangled name: the mma.sync form's
+#: (kernel, type, DMAX, wide form 0 or 1) ...
 FLASH_INST = re.compile(
     r"(flash_(?:fwd|dq|dkv))_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
-#: the most dynamic shared memory a block may opt into on the H100
-SMEM_MAX = 232_448
+#: ... and the wgmma (bf16) and whole (float32) forms' (kernel, form, D)
+FLASH_FORM_INST = re.compile(
+    r"(flash_(?:fwd|dkv))_(wgmma|whole)_kernelILi(\d+)E")
 
 
-def inst_name(found) -> str:
-    kernel, ty, dmax, wide = found.groups()
-    return (f"{kernel}<{'float' if ty == 'f' else 'bf16'}, {dmax}"
-            f"{', wide' if wide == '1' else ''}>")
+def flash_inst(mangled: str):
+    """(kernel, form, element bytes, D, wide) of a flash instantiation's
+    mangled name, or None."""
+    m = FLASH_INST.search(mangled)
+    if m:
+        kernel, ty, dmax, wide = m.groups()
+        return kernel, "mma", 4 if ty == "f" else 2, int(dmax), wide == "1"
+    m = FLASH_FORM_INST.search(mangled)
+    if m:
+        kernel, form, d = m.groups()
+        return kernel, form, 2 if form == "wgmma" else 4, int(d), False
+    return None
 
 
-def flash_smem_bytes(kernel: str, elem: int, dmax: int, wide: bool) -> int:
-    """Dynamic shared memory of one flash instantiation, as its `run`
-    sizes it, in [64][DMAX + 16 bytes] tiles. DMAX <= 128: forward q + two
-    stages of k and v; dQ q, dO + two stages of k and v; dK/dV k, v + two
-    stages of q and dO, and of lse and delta. Wide (128-column chunks):
-    forward two stages of (q, k, v); dQ stages of (q, dO, k, v) and the k
-    tile of the block's dQ columns; dK/dV stages of (k, v, q, dO), the q
-    and dO tiles of its columns, lse and delta; two stages where they fit
-    in SMEM_MAX, else one."""
-    tile = 64 * (dmax + 16 // elem) * elem
-    slots = lambda stage, extra: 2 if 2 * stage + extra <= SMEM_MAX else 1
-    if kernel == "flash_fwd":
-        return (6 if wide else 5) * tile
-    if kernel == "flash_dq":
-        if not wide:
-            return 6 * tile
-        return (4 * slots(4 * tile, tile) + 1) * tile
-    if not wide:
-        return 6 * tile + 4 * 64 * 4
-    return (4 * slots(4 * tile, 2 * tile + 2 * 64 * 4) + 2) * tile + 2 * 64 * 4
+def inst_name(inst) -> str:
+    """"flash_fwd<bf16, 128, wide>" (the mma.sync form) or
+    "flash_fwd_wgmma<bf16, 256>"."""
+    kernel, form, elem, d, wide = inst
+    ty = "float" if elem == 4 else "bf16"
+    if form == "mma":
+        return f"{kernel}<{ty}, {d}{', wide' if wide else ''}>"
+    return f"{kernel}_{form}<{ty}, {d}>"
+
+
+def flash_smem_bytes(kernel: str, form: str, elem: int, d: int,
+                     wide: bool) -> int:
+    """Dynamic shared memory of one flash instantiation, as its launch
+    sizes it: `eventgrad_tpu_torch/ops/flash_plan.smem_bytes`, which the
+    CPU tests hold under the card's 232,448 bytes and the flash phase
+    holds against the C dispatcher's sizes."""
+    from eventgrad_tpu_torch.ops import flash_plan
+
+    return flash_plan.smem_bytes(kernel, form, elem, d, wide)
 
 
 def ptxas_report(text: str):
@@ -501,26 +519,27 @@ def ptxas_report(text: str):
     beside its dynamic shared memory."""
     inst = None
     for line in text.splitlines():
+        if "warning" in line:
+            log(f"  {line.strip()}")
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            inst = FLASH_INST.search(m.group(1))
+            inst = flash_inst(m.group(1))
             continue
         if inst is None:
             continue
-        kernel, ty, dmax, wide = inst.groups()
         name = inst_name(inst)
         if "spill" in line:
             log(f"  ptxas {name}: {line.strip()}")
         elif "Used" in line:
-            smem = flash_smem_bytes(kernel, 4 if ty == "f" else 2, int(dmax),
-                                    wide == "1")
+            smem = flash_smem_bytes(*inst)
             log(f"  ptxas {name}: {line.split(':', 1)[1].strip()}; "
                 f"{smem} bytes dynamic shared memory")
 
 
 def hmma_counts(lib_path) -> dict:
-    """{instantiation: HMMA instructions} of the flash kernels in the
-    built library, from cuobjdump's SASS; {} without cuobjdump."""
+    """{instantiation: {"HMMA": n, "HGMMA": m}} of the flash kernels in
+    the built library, from cuobjdump's SASS (mma.sync shows as HMMA,
+    wgmma as HGMMA); {} without cuobjdump."""
     from eventgrad_tpu_torch.ops import build
 
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
@@ -532,17 +551,19 @@ def hmma_counts(lib_path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            found = FLASH_INST.search(m.group(1))
+            found = flash_inst(m.group(1))
             inst = inst_name(found) if found else None
             if inst:
-                counts.setdefault(inst, 0)
+                counts.setdefault(inst, {"HMMA": 0, "HGMMA": 0})
+        elif inst and "HGMMA" in line:
+            counts[inst]["HGMMA"] += 1
         elif inst and "HMMA" in line:
-            counts[inst] += 1
+            counts[inst]["HMMA"] += 1
     return counts
 
 
 def phase_build():
-    from eventgrad_tpu_torch.ops import build
+    from eventgrad_tpu_torch.ops import build, flash_plan
 
     log("== build")
     path, secs, text = build.build(verbose=True)
@@ -554,16 +575,19 @@ def phase_build():
         f"in {secs:.2f} s")
     counts = hmma_counts(path)
     if counts:
-        log(f"HMMA instructions per flash instantiation: {json.dumps(counts)}")
-        want = {f"{k}<{ty}, {dmax}>" for k in ("flash_fwd", "flash_dq",
-                                                "flash_dkv")
-                for ty in ("float", "bf16")
-                for dmax in ("32", "64", "128", "128, wide")}
-        idle = sorted(k for k in want if counts.get(k, 0) == 0)
+        log(f"tensor-core instructions per flash instantiation: "
+            f"{json.dumps(counts)}")
+        # every instantiation the forms compile is in use: the wgmma form
+        # must issue wgmma (HGMMA), the others mma.sync (HMMA)
+        idle = []
+        for inst in flash_plan.instantiations():
+            op = "HGMMA" if inst[1] == "wgmma" else "HMMA"
+            if counts.get(inst_name(inst), {}).get(op, 0) == 0:
+                idle.append(f"{inst_name(inst)} ({op})")
         if idle:
-            raise SmokeError(f"no tensor-core instructions in {idle}")
+            raise SmokeError(f"no tensor-core instructions in {sorted(idle)}")
     else:
-        log("cuobjdump not in the toolkit: HMMA count skipped")
+        log("cuobjdump not in the toolkit: HMMA / HGMMA counts skipped")
 
 
 def phase_kernels():
@@ -1081,6 +1105,36 @@ def flash_bound(kernel: str, shape, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _check_form(kernel: str, tensors, what: str) -> str:
+    """The form `ops/flash_plan.tensor_form` names for a forward (q, k,
+    v) or dK/dV (q, k, v, dO) launch on `tensors`, held against the C
+    dispatcher's choice (`eg_flash_form`) and its shared memory against
+    `flash_plan.smem_bytes`."""
+    import ctypes
+
+    import torch
+
+    from eventgrad_tpu_torch.ops import build, flash_plan
+
+    form = flash_plan.tensor_form(*tensors)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    flat = [st for x in tensors for st in x.stride()[:3]]
+    smem = ctypes.c_int64(0)
+    f32 = tensors[0].dtype == torch.float32
+    d = tensors[0].shape[-1]
+    code = build.library().eg_flash_form(
+        0 if kernel == "flash_fwd" else 2, ptrs,
+        (ctypes.c_int64 * len(flat))(*flat), d, 0 if f32 else 1,
+        ctypes.byref(smem))
+    want = (0 if form == "mma" else
+            flash_plan.smem_bytes(kernel, form, 4 if f32 else 2, d))
+    if flash_plan.FORMS[code] != form or smem.value != want:
+        raise SmokeError(f"{what}: the C dispatcher picks "
+                         f"{flash_plan.FORMS[code]} ({smem.value} bytes), "
+                         f"ops/flash_plan.py {form} ({want} bytes)")
+    return form
+
+
 def _flash_main_shape(shape, suffix, gen):
     """The three flash kernels at one main shape (causal, q/k/v as strided
     views of one fused projection), float32 and bfloat16: each against
@@ -1092,6 +1146,7 @@ def _flash_main_shape(shape, suffix, gen):
     import torch
     import torch.nn.functional as F
 
+    from eventgrad_tpu_torch import ops
     from eventgrad_tpu_torch.ops import attention as fa
 
     dev = torch.device(DEVICE)
@@ -1099,6 +1154,7 @@ def _flash_main_shape(shape, suffix, gen):
     recs = {}
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         f32 = dtype == torch.float32
+        ops.reset_launch_counts()
         # f32: tests/test_flash_attention.py's tolerances; bf16: one part
         # in 20 (8 significand bits through two products and a softmax)
         tol_o = dict(atol=2e-5, rtol=2e-5) if f32 else dict(atol=5e-2, rtol=5e-2)
@@ -1109,6 +1165,11 @@ def _flash_main_shape(shape, suffix, gen):
         qkv = torch.randn((b, t, 3 * h, d), generator=gen, device=dev).to(dtype)
         q, k, v = qkv.split(h, dim=2)
         do = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+        forms = {"flash_fwd": _check_form("flash_fwd", (q, k, v),
+                                          f"flash_fwd{tag}"),
+                 "flash_dq": "mma",
+                 "flash_dkv": _check_form("flash_dkv", (q, k, v, do),
+                                          f"flash_dkv{tag}")}
 
         out, lse = fa.flash_fwd(q, k, v, None, True, 1)
         ref_out, ref_lse = fa.lse_reference(q, k, v, None, True, 1)
@@ -1183,6 +1244,15 @@ def _flash_main_shape(shape, suffix, gen):
                 # reads q, k, v, dO, lse, delta, writes dK, dV; four products
                 bound=flash_bound("flash_dkv", shape, dtype),
             )
+        # which form served each kernel, and its launches (the checks and
+        # the timings): every launch went to the form the rule names
+        counts = fa.form_counts()
+        for kname, form in forms.items():
+            got = counts[kname]
+            if got[form] == 0 or sum(got.values()) != got[form]:
+                raise SmokeError(f"{kname}{tag}: launches by form {got}, "
+                                 f"the rule names {form}")
+            recs[kname + tag].update(form=form, form_launches=got[form])
         del qkv, q, k, v, do, out, lse, dq, dk, dv, bargs, lq, lk, lv
         torch.cuda.empty_cache()
     return recs
@@ -1227,8 +1297,9 @@ def _flash_small_cases():
 
 
 def flash_suffix(d: int) -> str:
-    """The record suffix of the instantiation a head dimension runs:
-    "_d256" for the wide form (d > 128), "_d128" for DMAX = 128."""
+    """The record suffix a head dimension's small cases count under:
+    "_d256" above 128 (the main shape's D = 256; other widths run the
+    wide form), "_d128" for DMAX = 128."""
     return "_d256" if d > 128 else "_d128" if d > 64 else ""
 
 
@@ -1240,10 +1311,11 @@ def phase_flash_kernels():
     offset variant's three kinds of hop, the lse cotangent, per-group
     offsets); then head dimensions 160 and 512 through the autograd
     Function against autograd through the plain attention. Returns
-    {name: partial kernel record}: the DMAX = 128 instantiations' under
-    names ending in "_d128", the wide form's in "_d256"."""
+    {name: partial kernel record}: D = 128's under names ending in
+    "_d128", D = 256's (and the wider cases') in "_d256"."""
     import torch
 
+    from eventgrad_tpu_torch import ops
     from eventgrad_tpu_torch.ops import attention as fa
 
     log("== flash-attention kernels")
@@ -1264,9 +1336,11 @@ def phase_flash_kernels():
             w_o = torch.randn((cb, ct, ch, cd), generator=gen,
                               device=dev).to(dtype)
             w_l = torch.randn((cb, ct, ch), generator=gen, device=dev)
+            what = f"{name}{tag} D{cd}"
+            _check_form("flash_fwd", ins, what)
+            ops.reset_launch_counts()
             got = fa.flash_attention_lse(*ins, causal, qo, ko)
             want = fa.attention_lse_reference(*ins, causal, qo, ko)
-            what = f"{name}{tag} D{cd}"
             errs = [within(got[0], want[0], *tol_o, f"{what}: out"),
                     within(got[1], want[1], *tol_o, f"{what}: lse")]
             # the cotangent of lse rides along (it folds into delta)
@@ -1283,8 +1357,10 @@ def phase_flash_kernels():
                                ("flash_dkv", max(errs[3:]))):
                 r = recs[kname + tag + suffix]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
+            ran = {k: [f for f, n in v.items() if n]
+                   for k, v in fa.form_counts().items()}
             log(f"flash {what}: B{cb} T{ct} H{ch} max_abs_err "
-                f"{max(errs):.3e}")
+                f"{max(errs):.3e}; forms {json.dumps(ran)}")
 
     # no width is refused: D = 160 (once refused) and 512 through the
     # autograd Function, against autograd through the plain attention
@@ -1664,7 +1740,7 @@ LM_LEGS = (
 
 
 def _dense_legs(prefix, make_model, data, per_rank, n_params, n_leaves,
-                flash_layers=0):
+                flash_layers=0, flash_form=None):
     """One leg per entry of LM_LEGS through the public entry point, on
     the dense masked f32 wire at the flagship's optimizer and trigger: 3
     steps x 2 epochs of `make_model()` on `data` = (x, y, x_test,
@@ -1674,8 +1750,9 @@ def _dense_legs(prefix, make_model, data, per_rank, n_params, n_leaves,
     the arena is `[8, n_params]` and the bytes are exact
     (`_check_dense_bytes`). With `flash_layers`, each flash kernel must
     launch once per layer per step (the forward also once per layer per
-    test pass). Returns the launches of each kernel summed over the
-    legs."""
+    test pass), and with `flash_form` every forward and dK/dV launch must
+    have taken that form (`ops/flash_plan.py`; dQ has one). Returns the
+    launches of each kernel summed over the legs."""
     import torch
 
     import eventgrad_tpu_torch as egt
@@ -1719,6 +1796,16 @@ def _dense_legs(prefix, make_model, data, per_rank, n_params, n_leaves,
             if any(counts[k] != n for k, n in want.items()):
                 raise SmokeError(f"{leg}: flash launches {counts}, "
                                  f"expected {want}")
+        forms = None
+        if flash_form:
+            from eventgrad_tpu_torch.ops import attention as fa
+
+            forms = fa.form_counts()
+            for k in ("flash_fwd", "flash_dkv"):
+                if forms[k][flash_form] != counts[k] or counts[k] == 0:
+                    raise SmokeError(f"{leg}: {k} launches by form "
+                                     f"{forms[k]}, expected all "
+                                     f"{counts[k]} in {flash_form}")
         losses = [r["loss"] for r in hist]
         if not all(math.isfinite(v) for v in losses):
             raise SmokeError(f"{leg}: loss not finite: {losses}")
@@ -1743,6 +1830,8 @@ def _dense_legs(prefix, make_model, data, per_rank, n_params, n_leaves,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": counts,
         }
+        if forms:
+            rec["flash_forms"] = forms
         _check_dense_bytes(leg, algo, hist, n_params, n_leaves, rec)
         log(json.dumps(rec))
         del state, model
@@ -1769,9 +1858,13 @@ def _lm_legs(prefix, lm, n_params, n_leaves):
         raise SmokeError(f"TransformerLM has {spec.n_total} parameters in "
                          f"{spec.n_leaves} leaves, expected {n_params} in "
                          f"{n_leaves}")
+    from eventgrad_tpu_torch.ops import flash_plan
+
+    # the legs run float32: the form is the rule's at the head width
+    form = flash_plan.flash_form("float32", lm["dim"] // lm["n_heads"], (), ())
     return _dense_legs(prefix, lambda: egt.TransformerLM(attn="flash", **lm),
                        (x, y, xt, yt), LM_PER_RANK, n_params, n_leaves,
-                       flash_layers=lm["n_layers"])
+                       flash_layers=lm["n_layers"], flash_form=form)
 
 
 def _check_dense_bytes(leg, algo, hist, n_params, n_leaves, rec):
@@ -3660,13 +3753,14 @@ KERNELS = (
      "eventgrad_tpu/ops/attention.py:169"),
     ("flash_dkv_d128", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
      "eventgrad_tpu/ops/attention.py:205"),
-    # the wide form (head dimensions above 128; float32, the legs' dtype),
-    # timed at FLASH_SHAPE_D256 and counted on the transformer-d256 legs
-    ("flash_fwd_d256", "eventgrad_tpu_torch/csrc/flash_fwd.cu",
+    # head dimension 256 (float32, the legs' dtype: the forward and dK/dV
+    # on the whole form, dQ on the wide form), timed at FLASH_SHAPE_D256
+    # and counted on the transformer-d256 legs
+    ("flash_fwd_d256", "eventgrad_tpu_torch/csrc/flash_fwd_whole.cu",
      "eventgrad_tpu/ops/attention.py:128"),
     ("flash_dq_d256", "eventgrad_tpu_torch/csrc/flash_dq.cu",
      "eventgrad_tpu/ops/attention.py:169"),
-    ("flash_dkv_d256", "eventgrad_tpu_torch/csrc/flash_dkv.cu",
+    ("flash_dkv_d256", "eventgrad_tpu_torch/csrc/flash_dkv_whole.cu",
      "eventgrad_tpu/ops/attention.py:205"),
     # kernel 9, the auditor's seeded unregistered kernel: launched by the
     # audit phase's unregistered_kernel oracle only

@@ -152,9 +152,11 @@ for _sig in (
     ),
     KernelSig(
         "flash_fwd", _ATTN, "eg_flash_fwd", FOLDED,
-        reviewed="csrc/flash_fwd.cu: one block per (batch row, head, query "
-        "tile); keys and values are read from the same batch row only, "
-        "so ranks folded rank-major into the batch never meet",
+        reviewed="csrc/flash_fwd.cu (and its wgmma and whole forms, "
+        "flash_fwd_wgmma.cu, flash_fwd_whole.cu): one block per (batch "
+        "row, head, query tile); keys and values are read from the same "
+        "batch row only (a TMA box spans one batch row), so ranks folded "
+        "rank-major into the batch never meet",
     ),
     KernelSig(
         "flash_dq", _ATTN, "eg_flash_dq", FOLDED,
@@ -163,8 +165,9 @@ for _sig in (
     ),
     KernelSig(
         "flash_dkv", _ATTN, "eg_flash_dkv", FOLDED,
-        reviewed="csrc/flash_dkv.cu: the same grid, sweeping the queries "
-        "of the block's own batch row",
+        reviewed="csrc/flash_dkv.cu (and flash_dkv_wgmma.cu, "
+        "flash_dkv_whole.cu): the same grid, sweeping the queries of the "
+        "block's own batch row",
     ),
 ):
     register(_sig)

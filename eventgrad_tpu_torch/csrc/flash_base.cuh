@@ -76,6 +76,64 @@ __device__ __forceinline__ bool valid_at(int qpos, int kpos, int t, int causal,
    : (dtype) == 0 ? EGF_DISPATCH_D(float, d, FN, __VA_ARGS__)         \
                   : EGF_DISPATCH_D(__nv_bfloat16, d, FN, __VA_ARGS__))
 
+// The forms a launch takes, chosen by shape before it (never by a retry
+// after a failed launch), the same rule as ops/flash_plan.py's
+// flash_form:
+//
+//   kFormWgmma  bfloat16 at D = 64, 128 or 256 with every q/k/v (and dO)
+//               pointer 16-byte aligned and every (batch, time, head)
+//               stride a positive multiple of 16 bytes, which TMA needs:
+//               flash_fwd_wgmma.cu, flash_dkv_wgmma.cu (wgmma fed by TMA
+//               through an mbarrier ring);
+//   kFormWhole  float32 at D = 256: flash_fwd_whole.cu,
+//               flash_dkv_whole.cu (3xTF32 on mma.sync, the scores of a
+//               tile built once over all 256 columns and shared between
+//               warps through shared memory);
+//   kFormMma    everything else, the dQ kernel at every shape among it:
+//               the mma.sync kernels of EGF_DISPATCH below.
+enum Form { kFormMma = 0, kFormWgmma = 1, kFormWhole = 2 };
+
+inline bool tma_ok(const void* const* ptrs, const int64_t* st, int n) {
+  for (int i = 0; i < n; ++i) {
+    if ((uintptr_t)ptrs[i] % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (st[3 * i + j] <= 0 || (st[3 * i + j] * 2) % 16) return false;
+  }
+  return true;
+}
+
+// The form of a forward (n = 3: q, k, v) or dK/dV (n = 4: and dO)
+// launch; `st` holds each tensor's (batch, time, head) element strides.
+inline int flash_form(int dtype, int d, const void* const* ptrs,
+                      const int64_t* st, int n) {
+  if (dtype == 1 && (d == 64 || d == 128 || d == 256) && tma_ok(ptrs, st, n))
+    return kFormWgmma;
+  if (dtype == 0 && d == 256) return kFormWhole;
+  return kFormMma;
+}
+
+// The launches of the other forms (their own files); `st` as above.
+cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                      float* lse, const int* offs, const int64_t* st,
+                      const Shape& s, void* stream);
+cudaError_t fwd_whole(const void* q, const void* k, const void* v, void* out,
+                      float* lse, const int* offs, const int64_t* st,
+                      const Shape& s, void* stream);
+cudaError_t dkv_wgmma(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dk, void* dv, const int* offs, const int64_t* st,
+                      const Shape& s, void* stream);
+cudaError_t dkv_whole(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dk, void* dv, const int* offs, const int64_t* st,
+                      const Shape& s, void* stream);
+// Dynamic shared memory of each form's instantiation at head width d
+// (0 where the form has none): ops/flash_plan.py's arithmetic.
+size_t fwd_wgmma_smem(int d);
+size_t fwd_whole_smem(int d);
+size_t dkv_wgmma_smem(int d);
+size_t dkv_whole_smem(int d);
+
 // Opt a kernel into `bytes` of dynamic shared memory and launch it on
 // `grid` blocks of THREADS threads; returns the launch's error.
 template <int THREADS, typename K, typename... A>

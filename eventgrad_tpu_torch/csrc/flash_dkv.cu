@@ -42,6 +42,11 @@
 // head), which sweep the most) come first in the grid, then the next
 // heaviest, so the tail of the launch holds the short sweeps.
 //
+// This file holds the mma.sync form and the C entry point, which picks
+// the form by shape (flash_base.cuh's flash_form): bfloat16 at D = 64,
+// 128 and 256 on TMA-readable rows runs flash_dkv_wgmma.cu, float32 at
+// D = 256 flash_dkv_whole.cu, everything else the kernel below.
+//
 // Head widths above 128 (WIDE, flash_mma.cuh): a block owns one
 // 128-column chunk of dK and dV, split between its warp pairs as at
 // DMAX = 128. For each Q tile it streams (k, v, q, dO) chunks through
@@ -390,6 +395,17 @@ extern "C" int eg_flash_dkv(const void* q, const void* k, const void* v,
                             int causal, int dtype, void* stream) {
   const Shape s{b, t, h, d, n_off, per, causal};
   if (!shape_ok(s, offs)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, dout};
+  switch (flash_form(dtype, d, ptrs, strides, 4)) {
+    case kFormWgmma:
+      return (int)dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, offs, strides,
+                            s, stream);
+    case kFormWhole:
+      return (int)dkv_whole(q, k, v, dout, lse, delta, dk, dv, offs, strides,
+                            s, stream);
+    default:
+      break;
+  }
   const Strides st = strides_from(strides, 4);
   return (int)EGF_DISPATCH(dtype, d, run, q, k, v, dout, lse, delta, dk, dv,
                            offs, st, s, stream);

@@ -48,6 +48,11 @@
 // in the grid, then the next heaviest, so the tail of the launch holds
 // the short sweeps.
 //
+// This file holds the mma.sync form and the C entry point, which picks
+// the form by shape (flash_base.cuh's flash_form): bfloat16 at D = 64,
+// 128 and 256 on TMA-readable rows runs flash_fwd_wgmma.cu, float32 at
+// D = 256 flash_fwd_whole.cu, everything else the kernel below.
+//
 // Head widths above 128 (WIDE, flash_mma.cuh): a block owns one
 // 128-column chunk of out. For each K tile it streams q and k through
 // two shared-memory stages chunk by chunk into the scores (q is re-read
@@ -386,7 +391,34 @@ extern "C" int eg_flash_fwd(const void* q, const void* k, const void* v,
                             void* stream) {
   const Shape s{b, t, h, d, n_off, per, causal};
   if (!shape_ok(s, offs)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[3] = {q, k, v};
+  switch (flash_form(dtype, d, ptrs, strides, 3)) {
+    case kFormWgmma:
+      return (int)fwd_wgmma(q, k, v, out, lse, offs, strides, s, stream);
+    case kFormWhole:
+      return (int)fwd_whole(q, k, v, out, lse, offs, strides, s, stream);
+    default:
+      break;
+  }
   const Strides st = strides_from(strides, 3);
   return (int)EGF_DISPATCH(dtype, d, run, q, k, v, out, lse, offs, st, s,
                            stream);
+}
+
+// The form flash_form gives a forward (kernel 0) or dK/dV (kernel 2)
+// launch on these pointers and strides (n = 3 or 4 tensors), and the
+// dynamic shared memory of that form's instantiation at d in *smem (0
+// for the mma.sync form, whose sizes are the kernels' own): the card's
+// check of ops/flash_plan.py, the Python mirror.
+extern "C" int eg_flash_form(int kernel, const void* const* ptrs,
+                             const int64_t* strides, int d, int dtype,
+                             int64_t* smem) {
+  const int n = kernel == 0 ? 3 : 4;
+  const int form = flash_form(dtype, d, ptrs, strides, n);
+  *smem = form == kFormWgmma
+              ? (int64_t)(kernel == 0 ? fwd_wgmma_smem(d) : dkv_wgmma_smem(d))
+          : form == kFormWhole
+              ? (int64_t)(kernel == 0 ? fwd_whole_smem(d) : dkv_whole_smem(d))
+              : 0;
+  return form;
 }

@@ -11,10 +11,11 @@
 // path's paired scalar reads free of bank conflicts.
 //
 // Head widths above 128 run the wide form of each kernel (WIDE = true,
-// DMAX = 128): a [64][256] float32 tile is 66,560 bytes, so no kernel's
-// five or six whole-width tiles fit the 232,448 bytes a block may use,
-// and a 16-row accumulator over 256 float32 columns alone is 128
-// registers a thread. So the tiles hold 128-column chunks of a row
+// DMAX = 128) wherever flash_base.cuh's flash_form keeps the mma.sync
+// form: dQ at every width, the forward and dK/dV at widths other than
+// 256, and bfloat16 at 256 on rows TMA cannot read (bfloat16 at 256
+// otherwise runs the wgmma form, float32 the whole form, which build
+// each score tile once). The tiles hold 128-column chunks of a row
 // (`load_tile_async` takes the chunk's first column), the score products
 // stream the head dimension through them chunk by chunk (0, 1, ... in
 // order, summing each score in the order a whole-width product would),
@@ -94,6 +95,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every committed group but the newest is in
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Four 8 x 8 matrices of 16-bit elements: lanes 8i..8i+7 give the row
@@ -182,7 +188,7 @@ struct Tile {
   static constexpr int kBytes = kElems * (int)sizeof(T);
 };
 
-// Stage rows [row0, row0 + 64), columns [c0, c0 + DMAX) of one (batch,
+// Stage rows [row0, row0 + ROWS), columns [c0, c0 + DMAX) of one (batch,
 // head) slice (row stride `st` elements, head dimension contiguous, c0 a
 // multiple of DMAX below d) into a tile through cp.async; rows past t
 // and elements past d are zero-filled. With `vec` every row starts
@@ -190,7 +196,7 @@ struct Tile {
 // at d). Otherwise float32 moves in 4-byte copies and bfloat16, which no
 // cp.async size fits, by plain loads. The block's NT threads share the
 // copies.
-template <typename T, int DMAX, int NT = kBlock>
+template <typename T, int DMAX, int NT = kBlock, int ROWS = kRows>
 __device__ __forceinline__ void load_tile_async(T* dst,
                                                 const T* __restrict__ src,
                                                 int64_t st, int row0, int t,
@@ -201,9 +207,9 @@ __device__ __forceinline__ void load_tile_async(T* dst,
   if (vec) {
     constexpr int kPer = 16 / (int)sizeof(T);  // elements per copy
     constexpr int kCopies = DMAX / kPer;       // copies per row
-    static_assert(kRows * kCopies % NT == 0, "whole copies per thread");
+    static_assert(ROWS * kCopies % NT == 0, "whole copies per thread");
 #pragma unroll
-    for (int i = 0; i < kRows * kCopies / NT; ++i) {
+    for (int i = 0; i < ROWS * kCopies / NT; ++i) {
       const int c = i * NT + (int)threadIdx.x;
       const int r = c / kCopies, e = (c % kCopies) * kPer;
       const int row = row0 + r;
@@ -214,7 +220,7 @@ __device__ __forceinline__ void load_tile_async(T* dst,
     return;
   }
 #pragma unroll 4
-  for (int i = 0; i < kRows * DMAX / NT; ++i) {
+  for (int i = 0; i < ROWS * DMAX / NT; ++i) {
     const int c = i * NT + (int)threadIdx.x;
     const int r = c / DMAX, e = c % DMAX;
     const int row = row0 + r;

@@ -3,7 +3,8 @@ version. A wrapper takes the plain version for a CPU tensor and, for a
 CUDA tensor, launches its kernel (built from `csrc/` on first use) or
 raises. `launch_counts()` / `reset_launch_counts()` read and clear the
 per-wrapper counters of kernel launches (a gated launch counts in its
-kernel, and again under `<kernel>_gated`)."""
+kernel, and again under `<kernel>_gated`; the flash wrappers also count
+by form, `attention.form_counts()`, cleared with the rest)."""
 
 from __future__ import annotations
 
@@ -50,5 +51,7 @@ def reset_launch_counts() -> None:
     wr = _wrappers()
     for fn in wr.values():
         fn.launches = 0
+        if hasattr(fn, "forms"):
+            fn.forms = dict.fromkeys(fn.forms, 0)
     for name in GATED:
         wr[name].gated_launches = 0

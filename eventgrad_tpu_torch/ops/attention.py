@@ -21,6 +21,16 @@ the forward with the logsumexp and the offset-aware causal mask, and
 `flash_attention_reference` is `full_attention`, the plain softmax
 attention whose autograd the backward is held against.
 
+Each launch takes one of three forms, chosen by shape before it
+(`ops/flash_plan.py`, the mirror of the C dispatcher): bfloat16 at D =
+64, 128 and 256 on rows TMA can read runs the forward and dK/dV on
+Hopper's wgmma fed by TMA through an mbarrier ring
+(`csrc/flash_fwd_wgmma.cu`, `csrc/flash_dkv_wgmma.cu`); float32 at D =
+256 runs them with every score tile built once on mma.sync
+(`csrc/flash_fwd_whole.cu`, `csrc/flash_dkv_whole.cu`); everything
+else, and dQ everywhere, runs the mma.sync kernels above. Each wrapper
+counts its launches (`.launches`) and, by form, `.forms`.
+
 Layout follows the models: q, k, v are `[B, T, H, D]` and share one
 sequence length. The kernels read them through their strides (batch,
 time, head; the head dimension contiguous), so the strided views a fused
@@ -63,7 +73,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from eventgrad_tpu_torch.ops import build
+from eventgrad_tpu_torch.ops import build, flash_plan
 from eventgrad_tpu_torch.parallel.ring_attention import full_attention
 
 _NEG_INF = -1e30  # finite mask value; exact zeros guaranteed by masking p
@@ -282,6 +292,7 @@ def _flash_fwd_cuda(q, k, v, offs, causal, per):
             build.stream_of(q.device),
         )
     flash_fwd.launches += 1
+    flash_fwd.forms[flash_plan.tensor_form(q, k, v)] += 1
     return out, lse.transpose(1, 2)
 
 
@@ -317,6 +328,7 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, offs, causal, per):
         build.launch("flash_attention dQ", build.library().eg_flash_dq,
                      *head, dq.data_ptr(), *tail)
     flash_dq.launches += 1
+    flash_dq.forms["mma"] += 1
     return dq
 
 
@@ -353,6 +365,7 @@ def _flash_dkv_cuda(q, k, v, do, lse, delta, offs, causal, per):
         build.launch("flash_attention dK/dV", build.library().eg_flash_dkv,
                      *head, dk.data_ptr(), dv.data_ptr(), *tail)
     flash_dkv.launches += 1
+    flash_dkv.forms[flash_plan.tensor_form(q, k, v, do)] += 1
     return dk, dv
 
 
@@ -381,6 +394,15 @@ def flash_bwd(q, k, v, out, lse, do, dlse, offs, causal: bool, per: int):
 flash_fwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
+for _fn in (flash_fwd, flash_dq, flash_dkv):
+    _fn.forms = dict.fromkeys(flash_plan.FORMS, 0)
+
+
+def form_counts():
+    """{kernel: {form: launches}} of the three flash wrappers."""
+    return {name: dict(fn.forms) for name, fn in (
+        ("flash_fwd", flash_fwd), ("flash_dq", flash_dq),
+        ("flash_dkv", flash_dkv))}
 
 
 # --------------------------------------------------------------------------

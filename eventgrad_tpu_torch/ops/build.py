@@ -148,6 +148,10 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, offs|NULL, strides (host
     # int64[12]), b, t, h, d, n_off, per, causal, dtype, stream
     "eg_flash_dkv": [_P] * 10 + [_I] * 8 + [_P],
+    # kernel (0 forward, 2 dK/dV), ptrs (host void*[3 or 4]), strides
+    # (host int64[9 or 12]), d, dtype, smem (host int64*): the form the C
+    # dispatcher picks and its shared memory (chip_smoke.py's check)
+    "eg_flash_form": [_I, _P, _P, _I, _I, _P],
     # the pitched (bucket) forms: the contiguous form's pointers, then
     # rows, cols, ld (the arena row pitch), off (the bucket's first
     # column) in place of n; the commit forms then take the gated form's

@@ -396,13 +396,30 @@ def _pair_dq(q, k, v, do, lse, delta, mm):
     return ((a + b).transpose(1, 2),)
 
 
-def _check_pair_split(kernel, split, holds, d, seed):
+def _whole_forward(q, k, v, mm):
+    """The float32 forward of the whole form (D = 256): each score built
+    once over all columns, one row max for the two warps of a row block
+    (their 32-key halves' maxima meet in shared memory), each half's row
+    sum kept apart and added at the end, p v once."""
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    t = q.shape[1]
+    s = mm(qh, kh.transpose(-1, -2)) * (1.0 / np.sqrt(q.shape[-1]))
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    la, lb = ((p * half).sum(-1, keepdim=True) for half in _key_halves(t))
+    out = mm(p, vh) / (la + lb)
+    return (out.transpose(1, 2),
+            (m + torch.log(la + lb))[..., 0].transpose(1, 2))
+
+
+def _check_pair_split(kernel, split, holds, d, seed, forward=_pair_forward):
     mm = {"3xtf32": _mm_3xtf32, "1xtf32": _mm_1xtf32}[split]
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(seed, 2, 256, 2, d,
                                                         n=4))
     out, lse = fa.lse_reference(q, k, v, None, True, 1)
     if kernel == "forward":
-        assert _holds(_pair_forward(q, k, v, mm), (out, lse), FWD) is holds
+        assert _holds(forward(q, k, v, mm), (out, lse), FWD) is holds
         return
     args = (q, k, v, do, lse.transpose(1, 2).contiguous(),
             (do * out).sum(-1).transpose(1, 2).contiguous())
@@ -432,12 +449,14 @@ def test_tf32_split_at_head_dim_128(kernel, split, holds):
 @pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
 def test_tf32_split_at_head_dim_256(kernel, split, holds):
     """As above at D = 256 (B2 x T256 x H2), the transformer-d256 legs'
-    head width: the wide form streams the head dimension through the
-    score products in two 128-column chunks, in order, so each score sums
-    its 256 terms in the order of one whole-width product, and the warp
-    pairs split keys (forward, dQ) or columns (dK/dV) as at DMAX = 128:
-    the same emulations, at twice the terms."""
-    _check_pair_split(kernel, split, holds, 256, 16)
+    head width. The forward and dK/dV run the whole form
+    (`csrc/flash_*_whole.cu`): each score sums its 256 terms in order in
+    one product, the forward's two warps of a row block share one row max
+    and add their halves' row sums (`_whole_forward`), and each dK/dV
+    element is summed by one warp over the queries in order (the unsplit
+    emulation). dQ keeps the wide form: two 128-column chunks in order,
+    the keys split between a pair of warps (`_pair_dq`)."""
+    _check_pair_split(kernel, split, holds, 256, 16, forward=_whole_forward)
 
 
 def test_pair_emulation_is_the_plain_arithmetic_in_float64():
@@ -457,6 +476,19 @@ def test_pair_emulation_is_the_plain_arithmetic_in_float64():
             (do * out).sum(-1).transpose(1, 2).contiguous())
     assert _holds(_pair_dq(*args, exact),
                   (fa.dq_reference(*args, None, True, 1),), tight)
+
+
+def test_whole_emulation_is_the_plain_arithmetic_in_float64():
+    """`_whole_forward`'s shared row max and split row sums are exact
+    arithmetic: in float64 with exact products it equals the plain
+    forward to rounding at D = 256, the first row (whose second half sees
+    no key) included."""
+    q, k, v = (torch.from_numpy(a).double()
+               for a in _inputs(17, 1, 160, 2, 256, n=3))
+    out, lse = fa.lse_reference(q, k, v, None, True, 1)
+    got_out, got_lse = _whole_forward(q, k, v, lambda a, b: a @ b)
+    assert _holds((got_out,), (out,), dict(atol=1e-12, rtol=1e-10))
+    assert _holds((got_lse.float(),), (lse,), dict(atol=0, rtol=2e-7))
 
 
 def test_tf32_rounding_and_split():
