@@ -160,8 +160,9 @@ for _sig in (
     ),
     KernelSig(
         "flash_dq", _ATTN, "eg_flash_dq", FOLDED,
-        reviewed="csrc/flash_dq.cu: the same (batch row, head, tile) grid "
-        "as the forward; every read stays in the block's batch row",
+        reviewed="csrc/flash_dq.cu (and flash_dq_wgmma.cu, "
+        "flash_dq_whole.cu): the same (batch row, head, tile) grid as the "
+        "forward; every read stays in the block's batch row",
     ),
     KernelSig(
         "flash_dkv", _ATTN, "eg_flash_dkv", FOLDED,

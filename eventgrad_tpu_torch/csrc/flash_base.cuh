@@ -83,14 +83,14 @@ __device__ __forceinline__ bool valid_at(int qpos, int kpos, int t, int causal,
 //   kFormWgmma  bfloat16 at D = 64, 128 or 256 with every q/k/v (and dO)
 //               pointer 16-byte aligned and every (batch, time, head)
 //               stride a positive multiple of 16 bytes, which TMA needs:
-//               flash_fwd_wgmma.cu, flash_dkv_wgmma.cu (wgmma fed by TMA
-//               through an mbarrier ring);
-//   kFormWhole  float32 at D = 256: flash_fwd_whole.cu,
+//               flash_fwd_wgmma.cu, flash_dq_wgmma.cu, flash_dkv_wgmma.cu
+//               (wgmma fed by TMA through an mbarrier ring);
+//   kFormWhole  float32 at D = 256: flash_fwd_whole.cu, flash_dq_whole.cu,
 //               flash_dkv_whole.cu (3xTF32 on mma.sync, the scores of a
 //               tile built once over all 256 columns and shared between
 //               warps through shared memory);
-//   kFormMma    everything else, the dQ kernel at every shape among it:
-//               the mma.sync kernels of EGF_DISPATCH below.
+//   kFormMma    everything else: the mma.sync kernels of EGF_DISPATCH
+//               below.
 enum Form { kFormMma = 0, kFormWgmma = 1, kFormWhole = 2 };
 
 inline bool tma_ok(const void* const* ptrs, const int64_t* st, int n) {
@@ -102,8 +102,9 @@ inline bool tma_ok(const void* const* ptrs, const int64_t* st, int n) {
   return true;
 }
 
-// The form of a forward (n = 3: q, k, v) or dK/dV (n = 4: and dO)
-// launch; `st` holds each tensor's (batch, time, head) element strides.
+// The form of a forward (n = 3: q, k, v) or dQ or dK/dV (n = 4: and
+// dO) launch; `st` holds each tensor's (batch, time, head) element
+// strides.
 inline int flash_form(int dtype, int d, const void* const* ptrs,
                       const int64_t* st, int n) {
   if (dtype == 1 && (d == 64 || d == 128 || d == 256) && tma_ok(ptrs, st, n))
@@ -119,6 +120,14 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* out,
 cudaError_t fwd_whole(const void* q, const void* k, const void* v, void* out,
                       float* lse, const int* offs, const int64_t* st,
                       const Shape& s, void* stream);
+cudaError_t dq_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, const int* offs, const int64_t* st,
+                     const Shape& s, void* stream);
+cudaError_t dq_whole(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, const int* offs, const int64_t* st,
+                     const Shape& s, void* stream);
 cudaError_t dkv_wgmma(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dk, void* dv, const int* offs, const int64_t* st,
@@ -131,6 +140,8 @@ cudaError_t dkv_whole(const void* q, const void* k, const void* v,
 // (0 where the form has none): ops/flash_plan.py's arithmetic.
 size_t fwd_wgmma_smem(int d);
 size_t fwd_whole_smem(int d);
+size_t dq_wgmma_smem(int d);
+size_t dq_whole_smem(int d);
 size_t dkv_wgmma_smem(int d);
 size_t dkv_whole_smem(int d);
 

@@ -1,5 +1,7 @@
 // FlashAttention-2 backward, dQ: the score tiles are rebuilt from
-// (q, k, lse) and never reach device memory.
+// (q, k, lse) and never reach device memory. This file is the mma.sync
+// form and the C entry, which picks the form by shape before the launch
+// (flash_base.cuh's flash_form).
 //
 // Replaces the TPU kernel eventgrad_tpu/ops/attention.py:_dq_kernel
 // (launched by _run_bwd). Per (batch, head, 64-row Q tile), over the K/V
@@ -51,11 +53,14 @@
 // chunks through the scores s and dp, and with the last chunk the k
 // tile of its columns for ds k; the key split of the float32 warp pairs
 // is DMAX = 128's. s and dp are rebuilt once per output chunk: at D =
-// 256 the work is 2 x (q k^T + dO v^T) + ds k, five products of the
-// width where three would do. A stage of four chunk tiles is 135,168
-// bytes in float32, so float32 keeps one stage (168,960 bytes with the
-// k tile; each chunk loads after the last is computed) and bfloat16 two
-// (156,672). ptxas (the H100 build of chip_smoke.py): 255 registers in
+// 256 the work would be 2 x (q k^T + dO v^T) + ds k, five products of
+// the width where three do, so D = 256 runs the wgmma form in bfloat16
+// on TMA-readable rows (flash_dq_wgmma.cu) and the whole form in float32
+// (flash_dq_whole.cu), which build each score tile once; the wide form
+// serves the other widths above 128 and misaligned bfloat16 rows. A
+// stage of four chunk tiles is 135,168 bytes in float32, so float32
+// keeps one stage (168,960 bytes with the k tile; each chunk loads after
+// the last is computed) and bfloat16 two (156,672). ptxas (the H100 build of chip_smoke.py): 255 registers in
 // float32, 248 in bfloat16, no spills.
 //
 // Bound on the card: operations at the main shape (three products of
@@ -390,6 +395,17 @@ extern "C" int eg_flash_dq(const void* q, const void* k, const void* v,
                            void* stream) {
   const Shape s{b, t, h, d, n_off, per, causal};
   if (!shape_ok(s, offs)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, dout};
+  switch (flash_form(dtype, d, ptrs, strides, 4)) {
+    case kFormWgmma:
+      return (int)dq_wgmma(q, k, v, dout, lse, delta, dq, offs, strides, s,
+                           stream);
+    case kFormWhole:
+      return (int)dq_whole(q, k, v, dout, lse, delta, dq, offs, strides, s,
+                           stream);
+    default:
+      break;
+  }
   const Strides st = strides_from(strides, 4);
   return (int)EGF_DISPATCH(dtype, d, run, q, k, v, dout, lse, delta, dq, offs,
                            st, s, stream);

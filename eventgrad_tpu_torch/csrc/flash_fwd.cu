@@ -405,20 +405,25 @@ extern "C" int eg_flash_fwd(const void* q, const void* k, const void* v,
                            stream);
 }
 
-// The form flash_form gives a forward (kernel 0) or dK/dV (kernel 2)
-// launch on these pointers and strides (n = 3 or 4 tensors), and the
-// dynamic shared memory of that form's instantiation at d in *smem (0
-// for the mma.sync form, whose sizes are the kernels' own): the card's
-// check of ops/flash_plan.py, the Python mirror.
+// The form flash_form gives a forward (kernel 0), dQ (kernel 1) or
+// dK/dV (kernel 2) launch on these pointers and strides (n = 3 or 4
+// tensors), and the dynamic shared memory of that form's instantiation
+// at d in *smem (0 for the mma.sync form, whose sizes are the kernels'
+// own): the card's check of ops/flash_plan.py, the Python mirror.
 extern "C" int eg_flash_form(int kernel, const void* const* ptrs,
                              const int64_t* strides, int d, int dtype,
                              int64_t* smem) {
   const int n = kernel == 0 ? 3 : 4;
   const int form = flash_form(dtype, d, ptrs, strides, n);
-  *smem = form == kFormWgmma
-              ? (int64_t)(kernel == 0 ? fwd_wgmma_smem(d) : dkv_wgmma_smem(d))
-          : form == kFormWhole
-              ? (int64_t)(kernel == 0 ? fwd_whole_smem(d) : dkv_whole_smem(d))
-              : 0;
+  size_t bytes = 0;
+  if (form == kFormWgmma)
+    bytes = kernel == 0   ? fwd_wgmma_smem(d)
+            : kernel == 1 ? dq_wgmma_smem(d)
+                          : dkv_wgmma_smem(d);
+  else if (form == kFormWhole)
+    bytes = kernel == 0   ? fwd_whole_smem(d)
+            : kernel == 1 ? dq_whole_smem(d)
+                          : dkv_whole_smem(d);
+  *smem = (int64_t)bytes;
   return form;
 }

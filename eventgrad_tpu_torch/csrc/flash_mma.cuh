@@ -12,10 +12,9 @@
 //
 // Head widths above 128 run the wide form of each kernel (WIDE = true,
 // DMAX = 128) wherever flash_base.cuh's flash_form keeps the mma.sync
-// form: dQ at every width, the forward and dK/dV at widths other than
-// 256, and bfloat16 at 256 on rows TMA cannot read (bfloat16 at 256
-// otherwise runs the wgmma form, float32 the whole form, which build
-// each score tile once). The tiles hold 128-column chunks of a row
+// form: widths other than 256, and bfloat16 at 256 on rows TMA cannot
+// read (bfloat16 at 256 otherwise runs the wgmma form, float32 the whole
+// form, which build each score tile once). The tiles hold 128-column chunks of a row
 // (`load_tile_async` takes the chunk's first column), the score products
 // stream the head dimension through them chunk by chunk (0, 1, ... in
 // order, summing each score in the order a whole-width product would),

@@ -23,13 +23,13 @@ attention whose autograd the backward is held against.
 
 Each launch takes one of three forms, chosen by shape before it
 (`ops/flash_plan.py`, the mirror of the C dispatcher): bfloat16 at D =
-64, 128 and 256 on rows TMA can read runs the forward and dK/dV on
-Hopper's wgmma fed by TMA through an mbarrier ring
-(`csrc/flash_fwd_wgmma.cu`, `csrc/flash_dkv_wgmma.cu`); float32 at D =
-256 runs them with every score tile built once on mma.sync
-(`csrc/flash_fwd_whole.cu`, `csrc/flash_dkv_whole.cu`); everything
-else, and dQ everywhere, runs the mma.sync kernels above. Each wrapper
-counts its launches (`.launches`) and, by form, `.forms`.
+64, 128 and 256 on rows TMA can read runs the three kernels on Hopper's
+wgmma fed by TMA through an mbarrier ring
+(`csrc/flash_{fwd,dq,dkv}_wgmma.cu`); float32 at D = 256 runs them with
+every score tile built once on mma.sync
+(`csrc/flash_{fwd,dq,dkv}_whole.cu`); everything else runs the mma.sync
+kernels above. Each wrapper counts its launches (`.launches`) and, by
+form, `.forms`.
 
 Layout follows the models: q, k, v are `[B, T, H, D]` and share one
 sequence length. The kernels read them through their strides (batch,
@@ -328,7 +328,7 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, offs, causal, per):
         build.launch("flash_attention dQ", build.library().eg_flash_dq,
                      *head, dq.data_ptr(), *tail)
     flash_dq.launches += 1
-    flash_dq.forms["mma"] += 1
+    flash_dq.forms[flash_plan.tensor_form(q, k, v, do)] += 1
     return dq
 
 

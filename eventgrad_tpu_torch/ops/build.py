@@ -148,7 +148,7 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, offs|NULL, strides (host
     # int64[12]), b, t, h, d, n_off, per, causal, dtype, stream
     "eg_flash_dkv": [_P] * 10 + [_I] * 8 + [_P],
-    # kernel (0 forward, 2 dK/dV), ptrs (host void*[3 or 4]), strides
+    # kernel (0 forward, 1 dQ, 2 dK/dV), ptrs (host void*[3 or 4]), strides
     # (host int64[9 or 12]), d, dtype, smem (host int64*): the form the C
     # dispatcher picks and its shared memory (chip_smoke.py's check)
     "eg_flash_form": [_I, _P, _P, _I, _I, _P],

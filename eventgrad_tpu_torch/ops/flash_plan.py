@@ -2,23 +2,21 @@
 each instantiation asks for: the Python mirror of the C dispatcher
 (`csrc/flash_base.cuh`, `flash_form`) and of the kernels' layouts.
 
-Three forms serve the forward and dK/dV kernels:
+Three forms serve each of the three kernels (forward, dQ, dK/dV):
 
   "wgmma"  bfloat16 at D = 64, 128 or 256 with every q/k/v (and dO)
            pointer 16-byte aligned and every (batch, time, head) stride a
            positive multiple of 16 bytes, as TMA needs
-           (`csrc/flash_fwd_wgmma.cu`, `csrc/flash_dkv_wgmma.cu`);
-  "whole"  float32 at D = 256 (`csrc/flash_fwd_whole.cu`,
-           `csrc/flash_dkv_whole.cu`);
+           (`csrc/flash_{fwd,dq,dkv}_wgmma.cu`);
+  "whole"  float32 at D = 256 (`csrc/flash_{fwd,dq,dkv}_whole.cu`);
   "mma"    everything else: the mma.sync kernels (`csrc/flash_fwd.cu`,
-           `csrc/flash_dkv.cu`, their DMAX = 32, 64, 128 instantiations and
-           the wide form), and the dQ kernel (`csrc/flash_dq.cu`) at every
-           shape.
+           `csrc/flash_dq.cu`, `csrc/flash_dkv.cu`, their DMAX = 32, 64,
+           128 instantiations and the wide form).
 
 The choice is made by shape before the launch, never by a retry after a
 failed one. `chip_smoke.py` holds this module against the C dispatcher on
 the card (`eg_flash_form`) on the main shapes and on every small case's
-forward.
+forward, dQ and dK/dV.
 """
 
 from __future__ import annotations
@@ -43,7 +41,7 @@ def tma_ok(ptrs: Sequence[int], strides: Sequence[int]) -> bool:
 
 def flash_form(dtype: str, d: int, ptrs: Sequence[int],
                strides: Sequence[int]) -> str:
-    """The form of a forward (q, k, v) or dK/dV (q, k, v, dO) launch:
+    """The form of a forward (q, k, v), dQ or dK/dV (q, k, v, dO) launch:
     `dtype` "float32" or "bfloat16", head width `d`, the tensors' data
     pointers and their (batch, time, head) element strides."""
     if dtype == "bfloat16" and d in WGMMA_D and tma_ok(ptrs, strides):
@@ -72,13 +70,17 @@ def smem_bytes(kernel: str, form: str, elem: int, d: int,
 
     "wgmma" (bf16, D = d): 1,024 bytes of alignment slack and 8 a
     barrier beside the tiles. Forward: q [128, d], then per stage k and v
-    [64, d]; barriers q, and k full, v full, empty per stage. dK/dV: k, v
-    [64, d], per stage q and dO [64, d], the p exchange 32 x 128 float32;
-    barriers k and v, and full, empty per stage.
+    [64, d]; barriers q, and k full, v full, empty per stage. dQ: q, dO
+    [128, d] (d = 64, 128) or [64, d] and the p exchange 32 x 128
+    float32 (d = 256), per stage k and v [64, d]; barriers q and dO, and
+    full, empty per stage. dK/dV: k, v [64, d], per stage q and dO
+    [64, d], the p exchange; barriers k and v, and full, empty per stage
+    (at d = 256 dQ's sizes, with the roles of the tiles swapped).
 
     "whole" (float32, D = 256, [rows][D + 4] tiles): forward q, k, v
-    [64] and p [64][68], the row exchange [2][64]; dK/dV k, v [32], q, dO
-    [64], p^T, ds^T [32][68], lse and delta [64].
+    [64] and p [64][68], the row exchange [2][64]; dQ q, dO [64], k, v
+    [32] and the p / ds tile [64][36]; dK/dV k, v [32], q, dO [64], p^T,
+    ds^T [32][68], lse and delta [64].
 
     "mma" (`elem` bytes, DMAX = d, `wide` for the chunked form; tiles
     [64][DMAX + 16 bytes]): DMAX <= 128: forward q + two stages of k and
@@ -93,6 +95,8 @@ def smem_bytes(kernel: str, form: str, elem: int, d: int,
         stages = _wgmma_stages(d)
         if kernel == "flash_fwd":
             return 1024 + 2 * tile + 2 * stages * tile + 8 * (1 + 3 * stages)
+        if kernel == "flash_dq" and d != 256:
+            return 1024 + 4 * tile + 2 * stages * tile + 8 * (1 + 2 * stages)
         return (1024 + 2 * tile + 2 * stages * tile + 32 * 128 * 4
                 + 8 * (1 + 2 * stages))
     if form == "whole":
@@ -100,6 +104,8 @@ def smem_bytes(kernel: str, form: str, elem: int, d: int,
         p = 64 + 4
         if kernel == "flash_fwd":
             return 3 * 64 * ld + 64 * p * 4 + 2 * 64 * 4
+        if kernel == "flash_dq":
+            return 2 * 64 * ld + 2 * 32 * ld + 64 * (32 + 4) * 4
         return 2 * 32 * ld + 2 * 64 * ld + 2 * 32 * p * 4 + 2 * 64 * 4
     tile = 64 * (d + 16 // elem) * elem
 
@@ -120,9 +126,10 @@ def smem_bytes(kernel: str, form: str, elem: int, d: int,
 def instantiations():
     """(kernel, form, elem bytes, D, wide) of every instantiation the
     forms compile: the new forms' and the mma.sync form's 24."""
-    out = [(k, "wgmma", 2, d, False) for k in ("flash_fwd", "flash_dkv")
-           for d in WGMMA_D]
-    out += [(k, "whole", 4, 256, False) for k in ("flash_fwd", "flash_dkv")]
+    out = [(k, "wgmma", 2, d, False)
+           for k in ("flash_fwd", "flash_dq", "flash_dkv") for d in WGMMA_D]
+    out += [(k, "whole", 4, 256, False)
+            for k in ("flash_fwd", "flash_dq", "flash_dkv")]
     out += [(k, "mma", e, dmax, wide)
             for k in ("flash_fwd", "flash_dq", "flash_dkv") for e in (4, 2)
             for dmax, wide in ((32, False), (64, False), (128, False),

@@ -15,9 +15,8 @@ of 4 layers, dim 512, 8 heads of 64 with flash attention in float32 on 4
 sequences of 1024 tokens per rank, with `--model transformer-d128` the
 LM of 2 layers, dim 2048, 16 heads of 128 (Pythia-1.4B's attention
 width) and with `--model transformer-d256` the same LM in 8 heads of 256
-(Gemma-2B's attention width: the forward and dK/dV on the flash kernels'
-whole form, dQ on the wide form) on the same
-tokens — on Ring(8) stacked
+(Gemma-2B's attention width: the three flash kernels on their whole
+form) on the same tokens — on Ring(8) stacked
 on one card, SGD lr 0.01 momentum 0.9, the adaptive trigger at horizon
 1.05 and max_silence 50 (warmup 2), the f32 wire unless `--wire` names
 another — it runs 3 warm-up steps, then:

@@ -413,7 +413,20 @@ def _whole_forward(q, k, v, mm):
             (m + torch.log(la + lb))[..., 0].transpose(1, 2))
 
 
-def _check_pair_split(kernel, split, holds, d, seed, forward=_pair_forward):
+def _whole_dq(q, k, v, do, lse, delta, mm):
+    """The float32 dQ of the whole form (D = 256): s and dp each built
+    once over all columns; dQ += ds k summed by one warp over the keys,
+    one 32-key tile after another (the two column halves by two warps,
+    each the same sum over the same keys)."""
+    _, kh, _, _, ds = _split_bwd_terms(q, k, v, do, lse, delta, mm)
+    dq = torch.zeros(ds.shape[:-1] + kh.shape[-1:], dtype=ds.dtype)
+    for j in range(0, q.shape[1], 32):
+        dq = dq + mm(ds[..., j:j + 32], kh[..., j:j + 32, :])
+    return (dq.transpose(1, 2),)
+
+
+def _check_pair_split(kernel, split, holds, d, seed, forward=_pair_forward,
+                      dq=_pair_dq):
     mm = {"3xtf32": _mm_3xtf32, "1xtf32": _mm_1xtf32}[split]
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(seed, 2, 256, 2, d,
                                                         n=4))
@@ -425,7 +438,7 @@ def _check_pair_split(kernel, split, holds, d, seed, forward=_pair_forward):
             (do * out).sum(-1).transpose(1, 2).contiguous())
     if kernel == "dq":
         want = (fa.dq_reference(*args, None, True, 1),)
-        got = _pair_dq(*args, mm)
+        got = dq(*args, mm)
     else:
         want = fa.dkv_reference(*args, None, True, 1)
         got = _split_dkv(*args, mm)
@@ -449,14 +462,14 @@ def test_tf32_split_at_head_dim_128(kernel, split, holds):
 @pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
 def test_tf32_split_at_head_dim_256(kernel, split, holds):
     """As above at D = 256 (B2 x T256 x H2), the transformer-d256 legs'
-    head width. The forward and dK/dV run the whole form
-    (`csrc/flash_*_whole.cu`): each score sums its 256 terms in order in
-    one product, the forward's two warps of a row block share one row max
-    and add their halves' row sums (`_whole_forward`), and each dK/dV
-    element is summed by one warp over the queries in order (the unsplit
-    emulation). dQ keeps the wide form: two 128-column chunks in order,
-    the keys split between a pair of warps (`_pair_dq`)."""
-    _check_pair_split(kernel, split, holds, 256, 16, forward=_whole_forward)
+    head width. All three run the whole form (`csrc/flash_*_whole.cu`):
+    each score sums its 256 terms in order in one product, the forward's
+    two warps of a row block share one row max and add their halves' row
+    sums (`_whole_forward`), each dK/dV element is summed by one warp over
+    the queries in order (the unsplit emulation), and each dQ element by
+    one warp over the keys, 32-key tile by tile (`_whole_dq`)."""
+    _check_pair_split(kernel, split, holds, 256, 16, forward=_whole_forward,
+                      dq=_whole_dq)
 
 
 def test_pair_emulation_is_the_plain_arithmetic_in_float64():
@@ -489,6 +502,21 @@ def test_whole_emulation_is_the_plain_arithmetic_in_float64():
     got_out, got_lse = _whole_forward(q, k, v, lambda a, b: a @ b)
     assert _holds((got_out,), (out,), dict(atol=1e-12, rtol=1e-10))
     assert _holds((got_lse.float(),), (lse,), dict(atol=0, rtol=2e-7))
+
+
+def test_whole_dq_emulation_is_the_plain_arithmetic_in_float64():
+    """`_whole_dq`'s 32-key tiles summed in order are exact arithmetic:
+    in float64 with exact products it equals the plain dQ to rounding at
+    D = 256 on a ragged causal T (the last tile half full)."""
+    q, k, v, do = (torch.from_numpy(a).double()
+                   for a in _inputs(18, 1, 144, 2, 256, n=4))
+    exact = lambda a, b: a @ b
+    out, lse = fa.lse_reference(q, k, v, None, True, 1)
+    args = (q, k, v, do, lse.transpose(1, 2).contiguous(),
+            (do * out).sum(-1).transpose(1, 2).contiguous())
+    assert _holds(_whole_dq(*args, exact),
+                  (fa.dq_reference(*args, None, True, 1),),
+                  dict(atol=1e-12, rtol=1e-10))
 
 
 def test_tf32_rounding_and_split():
