@@ -37,7 +37,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    rank 3 quarantined, rank 5 poisoned — each bitwise its plain version
    (NaNs read as one pattern), the quarantined row the mixed one, and
    with null or all-open operands bitwise the ungated launch; timed
-   beside the plain versions, against the ungated kernel's bound.
+   beside the plain versions, against the ungated kernel's bound. Then
+   the gated pitched forms of kernels 1 and 5 (the bucketed schedule
+   under the fault clauses) over the 4 buckets on the same pattern,
+   each bucket bitwise its plain version, the four launches timed
+   beside the plain versions, the ungated pitched and the gated
+   whole-arena forms, against the bound of their work with the per-row
+   operands (`ops/work.gated_tail`).
    Then the three flash-attention kernels (forward, dQ, dK/dV) at the
    transformer legs' shapes (B = 32 = 8 ranks x 4, T = 1024, and H = 8,
    D = 64, H = 16, D = 128 or H = 8, D = 256; causal, q/k/v as strided
@@ -222,8 +228,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    seeds' floor, the faulted leg's accuracy gap at most the artifact's
    0.39 plus 4.0, the replay and the off leg bitwise). The op-point's ReLU logits make its accuracy multimodal
    (a dead class ends near 90%): the accuracy bands hold the cost of
-   the faults, not one seed's mode;
-10. resume — checkpoint/resume, graceful preemption and the crash
+   the faults, not one seed's mode. Then (f) the bucketed schedule
+   (K = 4) under `drop=0.2,seed=0,flaky=2-4@0.5,die=5@3` with the idle
+   freeze policy, on the f32 wire with `nanstep=2@4` and on the int8
+   carrier: every pass's tail is the gated pitched form of kernel 1
+   (or 5), 4 launches a pass and no other form, and the state (NaNs by
+   their bits), the peer health and the records are bitwise the
+   monolithic twin's (one gated whole-arena launch a pass);
+10. dispatch — the dispatch pipeline on the flagship (EventGraD masked
+   f32, bf16 compute, Ring(8), global batch 256, 4,096 samples: 16
+   passes an epoch, 4 epochs, a 512-sample test set, deterministic
+   algorithms): the serial twin (one epoch a block, the pipeline off,
+   the block prefetcher uploading pinned blocks on its own stream) and
+   `epochs_per_dispatch=2` pipelined with the dataset on the device,
+   both with a snapshot every 2 epochs, then K = 2 pipelined on the
+   prefetcher without saves: every state tensor, every record value
+   but `wall_s` and `dispatch_*`, the snapshots of epochs 2 and 4 as
+   they are staged and the final snapshots on disk bitwise the serial
+   twin's; kernels 1 and 2 once a pass; logs the wall per epoch, the
+   prefetcher's misses and host syncs per pass (the obs phase's count,
+   from twins at 4 passes an epoch under the profiler);
+11. resume — checkpoint/resume, graceful preemption and the crash
    drills on the flagship op-point at 2 passes an epoch (512 samples),
    3 epochs, under deterministic algorithms (cuDNN benchmark off): (a)
    EventGraD on the masked f32 wire, run uninterrupted in this process,
@@ -241,14 +266,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    bitwise the run under `drop=0,seed=1`; (d) the chaos phase's
    integrity leg with a `checkpoint_dir` (`keep_good=1`): bitwise the
    leg without one, one snapshot retained; (e) the crash matrix
-   (`eventgrad_tpu_torch/utils/crash_matrix.py --device cuda`: 11 cells
-   and 2 preemption legs in child processes on the card, on 6 worker
+   (`eventgrad_tpu_torch/utils/crash_matrix.py --device cuda`: 23 cells,
+   `arena_pipe`'s 6 with the writer's `writer.bg_save` among them, and
+   2 preemption legs in child processes on the card, on 6 worker
    threads beside (a)'s kill child and relaunch and (d); the timed
    saves of (a)-(c) run before it starts), every verdict
    equal to `artifacts/crash_matrix_cpu.json`'s. Each leg logs its
    launches, snapshot bytes and save (fsync included) and restore
    seconds beside the card's name and power limit;
-11. audit — the static-analysis path on the card: the audit CLI
+12. audit — the static-analysis path on the card: the audit CLI
    (`python -m eventgrad_tpu_torch.analysis.audit --device cuda`) over
    the 31 cells of the JAX auditor's matrix and its 14 oracles,
    plus the lint: every cell clean (rank isolation, the declared ring
@@ -263,7 +289,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    with derived bytes per neighbour 69,778,814 / 69,778,728 /
    26,167,110 / 6,542,186 equal to the formula, and the float32 metric
    139,557,632 / 139,557,456 / 52,334,220 / 13,084,372;
-12. obs — the on-device telemetry, the message-lifecycle ledger and the
+13. obs — the on-device telemetry, the message-lifecycle ledger and the
    host registry on the flagship op-point (3 passes x 2 epochs a leg,
    each with `obs="off"` and `obs="epoch"`, under deterministic
    algorithms): (a) EventGraD masked f32 with a `Registry`, (b) D-PSGD,
@@ -289,7 +315,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    reloaded and every span inside `train`, the bubble decomposition, the
    run report from (a)'s JSONL (`obs/report.py`) and the Prometheus
    ledger gauges; the phase's launches and seconds;
-13. costmodel — the analytic cost model (`obs/costmodel.py`) on the
+14. costmodel — the analytic cost model (`obs/costmodel.py`) on the
    card: one step each of the ResNet-18 flagship (EventGraD and D-PSGD;
    Ring(8), bf16 compute, global batch 256), ResNet-50 (EventGraD) and
    the `transformer-d256` LM (EventGraD; Gemma-2B's attention width, 8
@@ -301,7 +327,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    totals, each traced `eg::` op is charged its closed form
    (`ops/work.py`, the bounds of phase 3) times its calls, and every MFU
    and roofline share lies in (0, 1];
-14. membership — elastic membership on the flagship (the resume phase's
+15. membership — elastic membership on the flagship (the resume phase's
    op-point: 2 passes an epoch at 8 ranks and at 7, under deterministic
    algorithms): EventGraD and D-PSGD under `leave=1@2,join=1@4` over 6
    epochs, the join's row streamed through `<checkpoint_dir>/bootstrap`,
@@ -312,7 +338,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    pass after each transition (the run cut at epochs 2 and 4, the
    step rebuilt on the new ring) fires every leaf on every rank, the
    exact forced count 2 x 86 messages a rank;
-15. summary — one JSON line of every kernel's numbers, the card's name and
+16. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -798,6 +824,7 @@ def phase_kernels():
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}))
     recs["pitched"] = _pitched_kernels(spec, gen, recs)
     recs.update(_gated_kernels(spec, gen, recs))
+    recs.update(_pitched_gated_kernels(spec, gen, recs))
     return recs
 
 
@@ -1088,6 +1115,145 @@ def _pitched_kernels(spec, gen, recs):
         r["bound_ms"] = recs[name]["bound"][0]
         log(json.dumps({"pitched": name, "buckets": BUCKETS,
                         "launches": BUCKETS, **r}))
+    return out
+
+
+def _pitched_gated_kernels(spec, gen, recs):
+    """The gated pitched forms of kernels 1 and 5 (the bucketed schedule
+    under the fault clauses) over the ResNet-18 arena cut into BUCKETS
+    buckets, with `_gated_kernels`'s mixed pattern (rank 1's first edge
+    off, rank 3 quarantined and rank 5 poisoned on kernel 1; the edge
+    gate and weights on kernel 5's int8 carriers): each bucket bitwise
+    its plain version (NaNs read as one pattern), the four launches
+    timed beside the plain versions, the ungated pitched form and the
+    gated whole-arena form, against the bound of their work with the
+    per-row operands (`ops/work.gated_tail`, summed over the buckets).
+    Returns {"<kernel>_pitched_gated": record}."""
+    import torch
+
+    from eventgrad_tpu_torch.ops import arena_update, work
+    from eventgrad_tpu_torch.parallel import collectives
+
+    dev = torch.device(DEVICE)
+    buckets = spec.buckets(BUCKETS)
+    log(f"== gated pitched forms (kernels 1, 5): {BUCKETS} buckets, rank 1 "
+        "edge 0 off, rank 3 quarantined, rank 5 poisoned")
+    arena = lambda: torch.randn((RANKS, spec.n_total), generator=gen,
+                                device=dev)
+    randb = lambda b: torch.randn((RANKS, b.size), generator=gen, device=dev)
+    bitsb = lambda b: (torch.rand((RANKS, b.size), generator=gen, device=dev)
+                       < 0.5).to(torch.float32)
+    int8b = lambda b: torch.randint(-127, 128, (RANKS, b.size), generator=gen,
+                                    device=dev, dtype=torch.int8)
+    scaleb = lambda b: collectives._contract_safe(torch.rand(
+        (RANKS, b.size), generator=gen, device=dev) * 0.05 + 1e-3)
+    per_b = lambda make: [make(b) for b in buckets]
+    nbr = lambda xs, i: tuple(x[i] for x in xs)
+    view = lambda x, b: x[:, b.start:b.start + b.size]
+    lr, mom, w = 0.01, 0.9, 1.0 / 3.0
+    gate = torch.ones((RANKS, NB), dtype=torch.bool, device=dev)
+    gate[1, 0] = False
+    w_rows = collectives.mix_weights(gate)
+    poison = torch.ones(RANKS, device=dev)
+    poison[5] = float("nan")
+    quar = torch.zeros(RANKS, dtype=torch.bool, device=dev)
+    quar[3] = True
+    out = {}
+
+    def bound_of(kernel, carrier=None):
+        flops = nbytes = 0.0
+        for b in buckets:
+            f, nb_ = work.gated_tail(kernel, RANKS * b.size, RANKS, NB,
+                                     carrier)
+            flops, nbytes = flops + f, nbytes + nb_
+        return bound(flops, nbytes)
+
+    p, g, t = arena(), arena(), arena()
+    p_out, t_out = torch.empty_like(p), torch.empty_like(p)
+    keeps = [per_b(bitsb) for _ in range(NB)]
+    cands = [per_b(randb) for _ in range(NB)]
+    lasts = [per_b(randb) for _ in range(NB)]
+    kw = dict(w_rows=w_rows, gate=gate, poison=poison, quar=quar)
+    fmc = arena_update.fused_mix_commit
+
+    def commit_all():
+        for i, b in enumerate(buckets):
+            fmc(p, nbr(cands, i), nbr(keeps, i), nbr(lasts, i), g, t, lr,
+                mom, w, off=b.start, out=(p_out, t_out), **kw)
+
+    def commit_plain():
+        for i, b in enumerate(buckets):
+            arena_update.mix_commit_reference(
+                view(p, b), nbr(cands, i), nbr(keeps, i), nbr(lasts, i),
+                view(g, b), view(t, b), lr, mom, w, **kw)
+
+    err = 0.0
+    for i, b in enumerate(buckets):
+        _, _, bufs = fmc(p, nbr(cands, i), nbr(keeps, i), nbr(lasts, i), g,
+                         t, lr, mom, w, off=b.start, out=(p_out, t_out), **kw)
+        pr, tr, br = arena_update.mix_commit_reference(
+            view(p, b), nbr(cands, i), nbr(keeps, i), nbr(lasts, i),
+            view(g, b), view(t, b), lr, mom, w, **kw)
+        err = max(err, _same_or_nan(
+            [view(p_out, b).contiguous(), view(t_out, b).contiguous(), *bufs],
+            [pr, tr, *br], f"fused_mix_commit pitched gated, bucket {i}"))
+    _same_bits(t_out[3], t[3], "pitched gated quarantined trace")
+    if not (torch.isnan(p_out[5]).all() and torch.isfinite(
+            p_out[[0, 1, 2, 3, 4, 6, 7]]).all()):
+        raise SmokeError("pitched gated: poison not on rank 5 only")
+    out["fused_mix_commit_pitched_gated"] = dict(
+        max_abs_err=err, ms=time_ms(commit_all),
+        plain_ms=time_ms(commit_plain), library_ms=None,
+        pitched_ms=recs["pitched"]["fused_mix_commit"]["ms"],
+        gated_ms=recs["fused_mix_commit_gated"]["ms"],
+        bound=bound_of("fused_mix_commit"))
+    del cands, lasts
+
+    cq = [per_b(int8b) for _ in range(NB)]
+    lq = [per_b(int8b) for _ in range(NB)]
+    sc = [per_b(scaleb) for _ in range(NB)]
+    gkw = dict(w_rows=w_rows, gate=gate)
+    fcc = arena_update.fused_mix_commit_carrier
+
+    def carrier_all():
+        for i, b in enumerate(buckets):
+            fcc(p, nbr(cq, i), nbr(keeps, i), nbr(lq, i), g, t, lr, mom, w,
+                mix_scales=nbr(sc, i), off=b.start, out=(p_out, t_out),
+                **gkw)
+
+    def carrier_plain():
+        for i, b in enumerate(buckets):
+            arena_update.mix_commit_carrier_reference(
+                view(p, b), nbr(cq, i), nbr(keeps, i), nbr(lq, i),
+                view(g, b), view(t, b), lr, mom, w, mix_scales=nbr(sc, i),
+                **gkw)
+
+    err = 0.0
+    for i, b in enumerate(buckets):
+        _, _, bufs = fcc(p, nbr(cq, i), nbr(keeps, i), nbr(lq, i), g, t, lr,
+                         mom, w, mix_scales=nbr(sc, i), off=b.start,
+                         out=(p_out, t_out), **gkw)
+        pr, tr, br = arena_update.mix_commit_carrier_reference(
+            view(p, b), nbr(cq, i), nbr(keeps, i), nbr(lq, i), view(g, b),
+            view(t, b), lr, mom, w, mix_scales=nbr(sc, i), **gkw)
+        err = max(err, max_abs_err(
+            [view(p_out, b).contiguous(), view(t_out, b).contiguous(), *bufs],
+            [pr, tr, *br]))
+    out["fused_mix_commit_carrier_pitched_gated"] = dict(
+        max_abs_err=err, ms=time_ms(carrier_all),
+        plain_ms=time_ms(carrier_plain), library_ms=None,
+        pitched_ms=recs["pitched"]["fused_mix_commit_carrier"]["ms"],
+        gated_ms=recs["fused_mix_commit_carrier_gated"]["ms"],
+        bound=bound_of("fused_mix_commit_carrier", "int8"))
+    del p, g, t, keeps, cq, lq, sc, p_out, t_out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(json.dumps({"kernel": name, "buckets": BUCKETS,
+                        "launches": BUCKETS, **{
+                            k: v for k, v in r.items() if k != "bound"},
+                        "bound_ms": r["bound"][0],
+                        "bound_by": r["bound"][1]}))
     return out
 
 
@@ -2225,15 +2391,30 @@ def _same_state(a, b, what, bufs=True):
                        _flat_bufs(b.event.buf_scales), f"{what} scales")
 
 
+#: the riders of a block's last epoch, which a K-epoch block's other
+#: epochs lack
+BLOCK_END_RIDERS = ("test_accuracy", "test_loss", "consensus_err_max",
+                    "consensus_err_mean")
+
+
 def _same_records(ha, hb, what, keys=("loss", "train_acc", "msgs_saved_pct",
                                       "sent_bytes_per_step_per_chip",
                                       "sent_bytes_wire_real_per_step_per_chip",
-                                      "num_events", "num_deferred")):
+                                      "num_events", "num_deferred"),
+                  skip=()):
+    """The records equal, epoch by epoch, on `keys`, or with `keys=None`
+    on every key of either record but `skip` (a block-end rider may be
+    missing from `hb`'s). A NaN (a nanstep's loss) equals a NaN."""
     for ra, rb in zip(ha, hb):
-        for k in keys:
-            if ra.get(k) != rb.get(k):
-                raise SmokeError(f"{what}: record {k} {ra.get(k)} != "
-                                 f"{rb.get(k)}")
+        names = keys
+        if keys is None:
+            names = sorted((set(ra) | set(rb)) - set(skip)
+                           - (set(BLOCK_END_RIDERS) - set(rb)))
+        for k in names:
+            a, b = ra.get(k), rb.get(k)
+            if a != b and not (a != a and b != b):
+                raise SmokeError(f"{what}: epoch {ra.get('epoch')} record "
+                                 f"{k} {a} != {b}")
 
 
 def phase_bucketed_async():
@@ -2444,6 +2625,9 @@ CHAOS_WARMUP = 30
 #: a recovery policy whose bounds a 6-pass leg never reaches (both above
 #: the trigger's max_silence of 50): its gates stay open
 IDLE_POLICY = dict(sync_after=60, freeze_after=80)
+#: the bucketed chaos legs' faults: iid drops, a flaky window and a death
+#: (the f32 leg adds a nanstep, which a carrier refuses)
+BUCKETED_FAULTS = "drop=0.2,seed=0,flaky=2-4@0.5,die=5@3"
 
 
 def phase_chaos():
@@ -2611,6 +2795,45 @@ def phase_chaos():
             raise SmokeError(f"(c) verdicts {m['integrity_quarantined']}")
         del state, new, mixed, model
         torch.cuda.empty_cache()
+        # (f) the bucketed schedule (K = BUCKETS) under the fault clauses
+        # with the freeze policy: every pass's tail is the gated pitched
+        # form, BUCKETS launches a pass, bitwise the monolithic twin's
+        # gated whole-arena launch (NaNs of the nanstep by their bits)
+        for leg, spec, kw, k in (
+                ("eventgrad-f32", BUCKETED_FAULTS + ",nanstep=2@4", {},
+                 "fused_mix_commit"),
+                ("eventgrad-int8-carrier", BUCKETED_FAULTS,
+                 dict(wire="int8", carrier_resident=True),
+                 "fused_mix_commit_carrier")):
+            s_m, h_m = run(f"{leg}-faults", must={
+                f"{k}_gated": passes, f"{k}_pitched_gated": 0},
+                chaos=spec, chaos_policy=idle, **kw)
+            s_b, h_b = run(f"{leg}-faults-bucketed{BUCKETS}", must={
+                k: BUCKETS * passes, f"{k}_gated": BUCKETS * passes,
+                f"{k}_pitched_gated": BUCKETS * passes},
+                chaos=spec, chaos_policy=idle, bucketed=BUCKETS, **kw)
+            _same_state(s_m, s_b, f"(f) {leg} bucketed vs monolithic")
+            for f in ("silence", "sync_req", "drops"):
+                _same_bits(getattr(s_m.chaos, f), getattr(s_b.chaos, f),
+                           f"(f) {leg} health {f}")
+            _same_records(h_m, h_b, f"(f) {leg}", keys=(
+                "loss", "train_acc", "msgs_saved_pct", "num_events",
+                "chaos_drops", "sent_bytes_per_step_per_chip"))
+            nan_rows = torch.isnan(s_b.params).any(dim=1).tolist()
+            if h_b[-1]["chaos_drops"] == 0 or ("nanstep" in spec) != any(
+                    nan_rows):
+                raise SmokeError(f"(f) {leg}: drops {h_b[-1]['chaos_drops']}"
+                                 f", NaN rows {nan_rows}")
+            log(json.dumps({"leg": f"(f) {leg} bucketed under faults",
+                            "chaos": spec, "buckets": BUCKETS,
+                            "drops": h_b[-1]["chaos_drops"],
+                            "nan_rows": nan_rows,
+                            "step_ms": recs[f"{leg}-faults-bucketed"
+                                            f"{BUCKETS}"]["step_ms"],
+                            "monolithic_step_ms": recs[f"{leg}-faults"][
+                                "step_ms"]}))
+            del s_m, s_b
+            torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(was)
 
@@ -2707,6 +2930,206 @@ def phase_chaos():
         leg: {k: recs[leg][k] for k in ("step_ms", "peak_mem_gib",
                                         "launches_per_step")}
         for leg in recs}}))
+    return totals
+
+
+#: the dispatch phase's op-point: the flagship at 16 passes an epoch
+#: (4,096 synthetic CIFAR-shaped samples at global batch 256), 4 epochs,
+#: a test set of 512 and a snapshot every 2 epochs
+DISPATCH_SAMPLES, DISPATCH_TEST, DISPATCH_EPOCHS = 4096, 512, 4
+DISPATCH_K, DISPATCH_SAVE_EVERY = 2, 2
+#: the profiled twins' passes an epoch: host syncs per pass are the
+#: difference of two runs that differ only in their passes an epoch
+DISPATCH_PROFILED_PASSES = (1, 2)
+
+
+def _host_syncs(fn) -> int:
+    """Host syncs of `fn()` (a whole train() run) under the profiler: the
+    runtime's synchronizes and the copies that block the host, as the
+    obs phase counts them (`utils/obs_overhead`). CUDA activity alone
+    records the runtime calls and the copies; leaving out the CPU
+    operators keeps the trace of a whole run small."""
+    import torch
+
+    from eventgrad_tpu_torch.utils.obs_overhead import (
+        SYNC_CALLS, SYNC_COPIES,
+    )
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.key in SYNC_CALLS
+                or (e.key.startswith("Memcpy")
+                    and any(s in e.key for s in SYNC_COPIES)))
+    if syncs < 1:
+        # at least the profiler's own final synchronize
+        raise SmokeError("the profiler recorded no runtime synchronize")
+    # the profiler's own final synchronize is not the run's
+    return syncs - 1
+
+
+def phase_dispatch():
+    """The dispatch pipeline on the flagship (EventGraD on the masked f32
+    wire, Ring(8), bf16 compute, global batch 256; deterministic
+    algorithms): (a) the serial twin (one epoch a block, the pipeline
+    off, the prefetcher uploading each block pinned on its side stream)
+    and (b) K = 2 blocks pipelined with the dataset on the device, both
+    with the deferred eval and a snapshot every 2 epochs: every state
+    tensor, every record value but `wall_s` and `dispatch_*` (the eval
+    and consensus error on the blocks' last epochs) and the snapshots of
+    epochs 2 and 4 (as staged) bitwise; (c) K = 2 pipelined on the
+    prefetcher without saves (every block's host work deferred) bitwise
+    too. Kernels 1 and 2 launch once a pass in each. Logs the wall per
+    epoch, the prefetcher's misses, and host syncs per pass from twins of
+    (a) and (b) profiled at 1 and at 2 passes an epoch (the same epochs,
+    blocks and evals: their difference over the passes is what a pass
+    adds; the whole run's count over its passes beside it). Returns the
+    launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.obs import Registry
+    from eventgrad_tpu_torch.utils import checkpoint, crash_matrix
+
+    card = nvidia_smi("name,power.limit")
+    per_epoch = DISPATCH_SAMPLES // (RANKS * 32)
+    passes = per_epoch * DISPATCH_EPOCHS
+    log(f"== dispatch: ResNet-18 (bf16 compute) x Ring(8), global batch "
+        f"256, {per_epoch} passes x {DISPATCH_EPOCHS} epochs, K = "
+        f"{DISPATCH_K} ({card})")
+    x, y = synthetic_dataset(DISPATCH_SAMPLES, (32, 32, 3), seed=0)
+    xt, yt = synthetic_dataset(DISPATCH_TEST, (32, 32, 3), seed=1)
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=30,
+                          max_silence=50)
+    root = tempfile.mkdtemp(prefix="eg-dispatch-")
+    totals, logged = {}, {}
+    # the snapshots as they are staged: the serial twin's kept on the
+    # host, each of (b)'s held against it as it is staged
+    staged, mismatched = {}, []
+    real_stage = checkpoint._stage
+
+    def stage(path, tensors, meta):
+        leg = os.path.basename(os.path.dirname(path))
+        host = {k: v.detach().cpu() for k, v in tensors.items()}
+        if leg == "serial":
+            staged[meta["epoch"]] = host
+        else:
+            ref = staged.get(meta["epoch"], {})
+            bad = [k for k in host if k not in ref or not torch.equal(
+                host[k].reshape(-1).view(torch.uint8),
+                ref[k].reshape(-1).view(torch.uint8))]
+            if bad or set(ref) != set(host):
+                mismatched.append((meta["epoch"], bad[:3]))
+        real_stage(path, host, meta)
+
+    def train(leg, n=DISPATCH_SAMPLES, ck=True, registry=None, **kw):
+        return egt.train(
+            egt.ResNet18(dtype=torch.bfloat16), egt.Ring(RANKS), x[:n], y[:n],
+            algo="eventgrad", epochs=DISPATCH_EPOCHS, batch_size=32,
+            learning_rate=0.01, momentum=0.9, event_cfg=cfg,
+            random_sampler=True, seed=0, x_test=xt, y_test=yt,
+            checkpoint_dir=os.path.join(root, leg) if ck else None,
+            save_every=DISPATCH_SAVE_EVERY if ck else 0, registry=registry,
+            device=DEVICE, **kw)
+
+    def run(leg, **kw):
+        reg = Registry()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train(leg, registry=reg, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for k in ("masked_wire", "fused_mix_commit"):
+            if counts[k] != passes:
+                raise SmokeError(f"({leg}) {k} launched {counts[k]} times, "
+                                 f"expected {passes}")
+        misses = reg._gauges.get(("prefetch_misses_total", frozenset()))
+        logged[leg] = {
+            "run_s": run_s,
+            "wall_s_per_epoch": [r["wall_s"] for r in hist],
+            "dispatch_block": [r["dispatch_block"] for r in hist],
+            "dispatch_cold": [r["dispatch_cold"] for r in hist],
+            "prefetch_misses": None if misses is None else misses[0],
+            "test_accuracy": [r.get("test_accuracy") for r in hist]}
+        log(json.dumps({"leg": leg, **logged[leg], "card": card}))
+        return state, hist
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        raise SmokeError("CUBLAS_WORKSPACE_CONFIG unset: the bitwise legs "
+                         "need deterministic cuBLAS")
+    was = torch.are_deterministic_algorithms_enabled()
+    was_bench = torch.backends.cudnn.benchmark
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    checkpoint._stage = stage
+    try:
+        s_a, h_a = run("serial", epochs_per_dispatch=1, pipeline=False,
+                       device_data=False)
+        s_b, h_b = run("pipelined", epochs_per_dispatch=DISPATCH_K,
+                       pipeline=True, device_data=True)
+        s_c, h_c = run("pipelined-prefetch", ck=False,
+                       epochs_per_dispatch=DISPATCH_K, pipeline=True,
+                       device_data=False)
+        blocks = [e // DISPATCH_K for e in range(DISPATCH_EPOCHS)]
+        for leg, h in (("pipelined", h_b), ("pipelined-prefetch", h_c)):
+            if [r["dispatch_block"] for r in h] != blocks or [
+                    r["dispatch_cold"] for r in h] != [True] * DISPATCH_K + [
+                        False] * (DISPATCH_EPOCHS - DISPATCH_K):
+                raise SmokeError(f"({leg}) blocks {logged[leg]}")
+        for leg, s, h in (("pipelined", s_b, h_b),
+                          ("pipelined-prefetch", s_c, h_c)):
+            _tree_bits(s_a, s, f"({leg}) vs serial")
+            _same_records(h_a, h, f"({leg}) vs serial", keys=None,
+                          skip=("wall_s", "dispatch_block", "dispatch_cold"))
+        if sorted(staged) != [2, 4] or mismatched:
+            raise SmokeError(f"staged snapshots {sorted(staged)}, "
+                             f"pipelined ones not bitwise: {mismatched}")
+        if not crash_matrix.final_state_equal(os.path.join(root, "serial"),
+                                              os.path.join(root,
+                                                           "pipelined")):
+            raise SmokeError("the final snapshots on disk differ")
+        del s_a, s_b, s_c
+        staged.clear()
+        torch.cuda.empty_cache()
+        # host syncs per pass: the serial and pipelined configurations,
+        # no saves, profiled at 1 and at 2 passes an epoch
+        lo, hi = DISPATCH_PROFILED_PASSES
+        syncs = {}
+        for leg, kw in (("serial", dict(epochs_per_dispatch=1,
+                                        pipeline=False, device_data=False)),
+                        ("pipelined", dict(epochs_per_dispatch=DISPATCH_K,
+                                           pipeline=True,
+                                           device_data=True))):
+            got = {p: _host_syncs(lambda: train(
+                f"p-{leg}", n=p * RANKS * 32, ck=False, **kw))
+                for p in (lo, hi)}
+            syncs[leg] = {
+                "per_pass": (got[hi] - got[lo]) / ((hi - lo)
+                                                   * DISPATCH_EPOCHS),
+                "whole_run_per_pass": got[hi] / (hi * DISPATCH_EPOCHS),
+                "runs": got}
+        log(json.dumps({"dispatch_vs_serial": {
+            leg: {"run_s": logged[leg]["run_s"],
+                  "wall_s_per_epoch": logged[leg]["wall_s_per_epoch"],
+                  "prefetch_misses": logged[leg]["prefetch_misses"],
+                  "host_syncs": syncs.get(leg)}
+            for leg in logged}, "card": card}))
+    finally:
+        checkpoint._stage = real_stage
+        torch.use_deterministic_algorithms(was)
+        torch.backends.cudnn.benchmark = was_bench
+        shutil.rmtree(root, ignore_errors=True)
     return totals
 
 
@@ -2908,6 +3331,8 @@ def _resume_train(ck, epochs=RESUME_EPOCHS, **kw):
                              (32, 32, 3), seed=0)
     kw.setdefault("algo", "eventgrad")
     kw.setdefault("save_every", 1 if ck is not None else 0)
+    # the serial schedule: synchronous saves, the timings (a)-(c) log
+    kw.setdefault("pipeline", False)
     return egt.train(
         egt.ResNet18(dtype=torch.bfloat16), egt.Ring(RANKS), x, y,
         epochs=epochs, batch_size=RESUME_PER_RANK, learning_rate=0.01,
@@ -3809,6 +4234,15 @@ KERNELS = (
     ("fused_mix_commit_carrier_gated",
      "eventgrad_tpu_torch/csrc/mix_commit_carrier.cu",
      "eventgrad_tpu/ops/arena_update.py:205"),
+    # the gated pitched forms (the bucketed schedule under the fault
+    # clauses), timed over four buckets and counted on the chaos phase's
+    # bucketed legs
+    ("fused_mix_commit_pitched_gated",
+     "eventgrad_tpu_torch/csrc/mix_commit.cu",
+     "eventgrad_tpu/ops/arena_update.py:58"),
+    ("fused_mix_commit_carrier_pitched_gated",
+     "eventgrad_tpu_torch/csrc/mix_commit_carrier.cu",
+     "eventgrad_tpu/ops/arena_update.py:205"),
     ("flash_fwd","eventgrad_tpu_torch/csrc/flash_fwd.cu",
      "eventgrad_tpu/ops/attention.py:128"),
     ("flash_dq", "eventgrad_tpu_torch/csrc/flash_dq.cu",
@@ -3883,8 +4317,8 @@ def main() -> int:
                       phase_main_path_lm, phase_main_path_lm_d128,
                       phase_main_path_lm_d256, phase_realdata,
                       phase_frontier, phase_bucketed_async, phase_chaos,
-                      phase_resume, phase_audit, phase_obs, phase_costmodel,
-                      phase_membership):
+                      phase_dispatch, phase_resume, phase_audit, phase_obs,
+                      phase_costmodel, phase_membership):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

@@ -140,14 +140,18 @@ for _sig in (
         "fused_mix_commit_bucket", _ARENA, "eg_mix_commit_pitched",
         reviewed="csrc/mix_commit.cu pitched form: element (r, j) reads "
         "p/g/t[r, off + j] and each neighbour's [r, j], writes p'/t'[r, "
-        "off + j] and the buffers' [r, j]; no index crosses a row",
+        "off + j] and the buffers' [r, j]; no index crosses a row; the "
+        "gated form's w_rows, gate, poison, quar (the bucketed schedule "
+        "under the fault clauses) are read at row r only, by row r's "
+        "blocks",
         kernel="fused_mix_commit",
     ),
     KernelSig(
         "fused_mix_commit_carrier_bucket", _ARENA,
         "eg_mix_commit_carrier_pitched",
         reviewed="csrc/mix_commit_carrier.cu pitched form: the bucket "
-        "form of kernel 5, row by row as fused_mix_commit_bucket",
+        "form of kernel 5, row by row as fused_mix_commit_bucket; the "
+        "gated form's w_rows and gate are read at row r only",
         kernel="fused_mix_commit_carrier",
     ),
     KernelSig(

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eventgrad_tpu_torch.models.activation import relu
 from eventgrad_tpu_torch.models.common import Classifier, dropout
 from eventgrad_tpu_torch.models.resnet import Dense
 
@@ -90,15 +91,15 @@ class _ConvNet(Classifier):
         drop = self._checked_drop(x, train, drop)
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous()
         x = self.Conv_0(x)
-        x = F.relu(_pool(x)) if self.pool_first else _pool(F.relu(x))
+        x = relu(_pool(x)) if self.pool_first else _pool(relu(x))
         x = dropout(self.Conv_1(x), drop.get("Dropout_0"), RATE)
-        x = F.relu(_pool(x)) if self.pool_first else _pool(F.relu(x))
+        x = relu(_pool(x)) if self.pool_first else _pool(relu(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's NHWC flatten
         last = len(self.dense_names) - 1
         for i, name in enumerate(self.dense_names):
             x = getattr(self, name)(x)
             if i < last:
-                x = F.relu(x)
+                x = relu(x)
                 if i == 0 and self.dense_dropout:
                     x = dropout(x, drop.get("Dropout_1"), RATE)
         return self._out(F.log_softmax(x, dim=-1), train)

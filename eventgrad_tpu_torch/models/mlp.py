@@ -15,8 +15,8 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from eventgrad_tpu_torch.models.activation import relu
 from eventgrad_tpu_torch.models.common import Classifier
 from eventgrad_tpu_torch.models.resnet import Dense
 
@@ -40,7 +40,7 @@ class MLP(Classifier):
     def forward(self, x, batch_stats: Optional[Dict] = None,
                 train: bool = False):
         x = x.reshape(x.shape[0], -1).to(self.dtype)
-        x = self.Dense_1(F.relu(self.Dense_0(x)))
+        x = self.Dense_1(relu(self.Dense_0(x)))
         if self.relu_logits:
-            x = F.relu(x)
+            x = relu(x)
         return self._out(x, train)

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eventgrad_tpu_torch.models.activation import relu
 from eventgrad_tpu_torch.parallel.arena import flax_order
 
 #: flax lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
@@ -153,14 +154,14 @@ class BasicBlock(nn.Module):
 
     def forward(self, x, stats, new_stats, train):
         y = self.Conv_0(x)
-        y = F.relu(self.BatchNorm_0(y, stats, new_stats, train))
+        y = relu(self.BatchNorm_0(y, stats, new_stats, train))
         y = self.BatchNorm_1(self.Conv_1(y), stats, new_stats, train)
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(
                 self.downsample_conv(x), stats, new_stats, train
             )
-        return F.relu(y + residual)
+        return relu(y + residual)
 
 
 class Bottleneck(nn.Module):
@@ -186,15 +187,15 @@ class Bottleneck(nn.Module):
             self.downsample_bn = BatchNorm(cout, **kw)
 
     def forward(self, x, stats, new_stats, train):
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x), stats, new_stats, train))
-        y = F.relu(self.BatchNorm_1(self.Conv_1(y), stats, new_stats, train))
+        y = relu(self.BatchNorm_0(self.Conv_0(x), stats, new_stats, train))
+        y = relu(self.BatchNorm_1(self.Conv_1(y), stats, new_stats, train))
         y = self.BatchNorm_2(self.Conv_2(y), stats, new_stats, train)
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(
                 self.downsample_conv(x), stats, new_stats, train
             )
-        return F.relu(y + residual)
+        return relu(y + residual)
 
 
 class ResNet(nn.Module):
@@ -289,7 +290,7 @@ class ResNet(nn.Module):
         # bare permute leaves
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous()
         x = self.stem_conv(x)
-        x = F.relu(self.stem_bn(x, batch_stats, new_stats, train))
+        x = relu(self.stem_bn(x, batch_stats, new_stats, train))
         for name in self.block_names:
             x = getattr(self, name)(x, batch_stats, new_stats, train)
         x = F.avg_pool2d(x, 4, 4)

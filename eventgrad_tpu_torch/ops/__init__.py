@@ -3,8 +3,10 @@ version. A wrapper takes the plain version for a CPU tensor and, for a
 CUDA tensor, launches its kernel (built from `csrc/` on first use) or
 raises. `launch_counts()` / `reset_launch_counts()` read and clear the
 per-wrapper counters of kernel launches (a gated launch counts in its
-kernel, and again under `<kernel>_gated`; the flash wrappers also count
-by form, `attention.form_counts()`, cleared with the rest)."""
+kernel, and again under `<kernel>_gated`; a gated launch of a pitched
+(bucket) form also under `<kernel>_pitched_gated`; the flash wrappers
+also count by form, `attention.form_counts()`, cleared with the
+rest)."""
 
 from __future__ import annotations
 
@@ -36,14 +38,21 @@ def _wrappers():
 #: the kernels with a gated form (chaos and integrity on the fused tail),
 #: whose gated launches count again under "<name>_gated"
 GATED = ("fused_mix_commit", "fused_mix_sgd", "fused_mix_commit_carrier")
+#: the kernels whose pitched (bucket) form also has a gated form (the
+#: bucketed schedule under the fault clauses), counted again under
+#: "<name>_pitched_gated"
+PITCHED_GATED = ("fused_mix_commit", "fused_mix_commit_carrier")
 
 
 def launch_counts() -> Dict[str, int]:
-    """{kernel: launches}, and {"<kernel>_gated": its gated launches}
-    for the kernels of `GATED`."""
+    """{kernel: launches}, {"<kernel>_gated": its gated launches} for
+    the kernels of `GATED`, and {"<kernel>_pitched_gated": the gated
+    launches of its pitched form} for those of `PITCHED_GATED`."""
     wr = _wrappers()
     out = {name: fn.launches for name, fn in wr.items()}
     out.update({f"{name}_gated": wr[name].gated_launches for name in GATED})
+    out.update({f"{name}_pitched_gated": wr[name].pitched_gated_launches
+                for name in PITCHED_GATED})
     return out
 
 
@@ -55,3 +64,5 @@ def reset_launch_counts() -> None:
             fn.forms = dict.fromkeys(fn.forms, 0)
     for name in GATED:
         wr[name].gated_launches = 0
+    for name in PITCHED_GATED:
+        wr[name].pitched_gated_launches = 0

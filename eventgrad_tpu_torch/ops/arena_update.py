@@ -44,7 +44,10 @@ Both take `off=` and `out=` for one bucket of the bucketed schedule:
 the pitched forms (`eg::fused_mix_commit_bucket`,
 `eg::fused_mix_commit_carrier_bucket`, the same kernels' `_pitched`
 entry points) read the bucket's columns of the `[R, n]` arenas in place
-and write p', t' into the same columns of the output arenas.
+and write p', t' into the same columns of the output arenas. They take
+the same per-row operands (the bucketed schedule under the fault
+clauses): a gated bucket launch counts in its kernel's launches, its
+`gated_launches` and its `pitched_gated_launches`.
 
 The scalars enter as float32 values, as JAX's weakly typed scalars do,
 so the plain versions are bitwise the JAX ones and the kernels bitwise
@@ -290,24 +293,34 @@ def _fused_mix_commit_bucket_op(
     lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
     momentum: float, mix_weight: float, mix_stale: bool, off: int,
     p_out: torch.Tensor, t_out: torch.Tensor,
+    w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+    poison: Optional[torch.Tensor] = None,
+    quar: Optional[torch.Tensor] = None,
 ) -> List[torch.Tensor]:
     _check_commit_bucket("fused_mix_commit_bucket", p, cands, keeps, lasts,
                          g, t, off, p_out, t_out)
+    _check_gates("fused_mix_commit_bucket", p, len(cands), w_rows, gate,
+                 poison, quar)
     cols = cands[0].shape[1]
     view = lambda x: x[:, off:off + cols]
     p_new, t_new, bufs = mix_commit_reference(
         view(p), cands, keeps, lasts, view(g), view(t), lr, momentum,
-        mix_weight, mix_stale)
+        mix_weight, mix_stale, w_rows, gate, poison, quar)
     _commit_into(p_out, t_out, off, p_new, t_new)
     return list(bufs)
 
 
 @_fused_mix_commit_bucket_op.register_kernel("cuda")
 def _fused_mix_commit_bucket_cuda(p, cands, keeps, lasts, g, t, lr, momentum,
-                                  mix_weight, mix_stale, off, p_out, t_out):
+                                  mix_weight, mix_stale, off, p_out, t_out,
+                                  w_rows=None, gate=None, poison=None,
+                                  quar=None):
     device, rows, cols, ld, named = _check_commit_bucket(
         "fused_mix_commit_bucket", p, cands, keeps, lasts, g, t, off, p_out,
         t_out)
+    gated = _check_gates("fused_mix_commit_bucket", p, len(cands), w_rows,
+                         gate, poison, quar)
     nb = len(cands)
     bufs = [torch.empty_like(cands[0]) for _ in range(nb)]
     lib = build.library()
@@ -318,16 +331,21 @@ def _fused_mix_commit_bucket_cuda(p, cands, keeps, lasts, g, t, lr, momentum,
             _ptrs(cands), _ptrs(keeps), _ptrs(lasts),
             p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows, cols,
             ld, int(off), _f32(lr), _f32(momentum), _f32(mix_weight),
-            int(bool(mix_stale)), None, None, None, None,
-            build.aligned(*named.values(), *bufs), build.stream_of(device),
+            int(bool(mix_stale)), _ptr(w_rows), _ptr(gate), _ptr(poison),
+            _ptr(quar), build.aligned(*named.values(), *bufs),
+            build.stream_of(device),
         )
     fused_mix_commit.launches += 1
+    fused_mix_commit.gated_launches += int(gated)
+    fused_mix_commit.pitched_gated_launches += int(gated)
     return bufs
 
 
 @_fused_mix_commit_bucket_op.register_fake
 def _fused_mix_commit_bucket_fake(p, cands, keeps, lasts, g, t, lr, momentum,
-                                  mix_weight, mix_stale, off, p_out, t_out):
+                                  mix_weight, mix_stale, off, p_out, t_out,
+                                  w_rows=None, gate=None, poison=None,
+                                  quar=None):
     return [torch.empty_like(c) for c in cands]
 
 
@@ -364,20 +382,16 @@ def fused_mix_commit(
     arenas, which come back in place of p_new, trace_new.
 
     `w_rows`, `gate`, `poison`, `quar` select the gated form (module
-    docstring); the bucketed schedule under the fault clauses waits
-    (ROADMAP queue 1, item 12), so the pitched form takes none."""
+    docstring), on the whole arena or on a bucket (the bucketed schedule
+    under the fault clauses: the per-row operands are the whole pass's,
+    computed once before the bucket loop)."""
     gates = (w_rows, gate, poison, quar)
     if off is not None:
-        if any(x is not None for x in gates):
-            raise NotImplementedError(
-                "the gated form of a bucket's tail: the bucketed schedule "
-                "under the fault clauses is not ported yet (ROADMAP queue "
-                "1, item 12)")
         p_out, t_out = out
         bufs = _fused_mix_commit_bucket_op(
             p, list(cands), list(keeps), list(lasts), g, t, float(lr),
             float(momentum), float(mix_weight), bool(mix_stale), int(off),
-            p_out, t_out)
+            p_out, t_out, *gates)
         return p_out, t_out, tuple(bufs)
     p_new, t_new, bufs = _fused_mix_commit_op(
         p, list(cands), list(keeps), list(lasts), g, t, float(lr),
@@ -387,6 +401,7 @@ def fused_mix_commit(
 
 fused_mix_commit.launches = 0
 fused_mix_commit.gated_launches = 0
+fused_mix_commit.pitched_gated_launches = 0
 
 
 #: carrier dtype -> the kernel's carrier code
@@ -535,14 +550,19 @@ def _fused_mix_commit_carrier_bucket_op(
     lasts: List[torch.Tensor], g: torch.Tensor, t: torch.Tensor, lr: float,
     momentum: float, mix_weight: float, mix_scales: List[torch.Tensor],
     mix_stale: bool, off: int, p_out: torch.Tensor, t_out: torch.Tensor,
+    w_rows: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
 ) -> List[torch.Tensor]:
     _check_carrier_bucket(p, cands, keeps, lasts, g, t, off, p_out, t_out,
                           mix_scales)
+    _check_gates("fused_mix_commit_carrier_bucket", p, len(cands), w_rows,
+                 gate)
     cols = cands[0].shape[1]
     view = lambda x: x[:, off:off + cols]
     p_new, t_new, bufs = mix_commit_carrier_reference(
         view(p), cands, keeps, lasts, view(g), view(t), lr, momentum,
         mix_weight, mix_scales=mix_scales or None, mix_stale=mix_stale,
+        w_rows=w_rows, gate=gate,
     )
     _commit_into(p_out, t_out, off, p_new, t_new)
     return list(bufs)
@@ -551,9 +571,12 @@ def _fused_mix_commit_carrier_bucket_op(
 @_fused_mix_commit_carrier_bucket_op.register_kernel("cuda")
 def _fused_mix_commit_carrier_bucket_cuda(p, cands, keeps, lasts, g, t, lr,
                                           momentum, mix_weight, mix_scales,
-                                          mix_stale, off, p_out, t_out):
+                                          mix_stale, off, p_out, t_out,
+                                          w_rows=None, gate=None):
     device, rows, cols, ld, named = _check_carrier_bucket(
         p, cands, keeps, lasts, g, t, off, p_out, t_out, mix_scales)
+    gated = _check_gates("fused_mix_commit_carrier_bucket", p, len(cands),
+                         w_rows, gate)
     nb = len(cands)
     bufs = [torch.empty_like(lasts[0]) for _ in range(nb)]
     lib = build.library()
@@ -566,18 +589,21 @@ def _fused_mix_commit_carrier_bucket_cuda(p, cands, keeps, lasts, g, t, lr,
             _ptrs(mix_scales) if mix_scales else None,
             p_out.data_ptr(), t_out.data_ptr(), _ptrs(bufs), nb, rows, cols,
             ld, int(off), _f32(lr), _f32(momentum), _f32(mix_weight),
-            int(bool(mix_stale)), _CARRIERS[lasts[0].dtype], None, None,
-            build.aligned(*named.values(), *bufs),
+            int(bool(mix_stale)), _CARRIERS[lasts[0].dtype], _ptr(w_rows),
+            _ptr(gate), build.aligned(*named.values(), *bufs),
             build.stream_of(device),
         )
     fused_mix_commit_carrier.launches += 1
+    fused_mix_commit_carrier.gated_launches += int(gated)
+    fused_mix_commit_carrier.pitched_gated_launches += int(gated)
     return bufs
 
 
 @_fused_mix_commit_carrier_bucket_op.register_fake
 def _fused_mix_commit_carrier_bucket_fake(p, cands, keeps, lasts, g, t, lr,
                                           momentum, mix_weight, mix_scales,
-                                          mix_stale, off, p_out, t_out):
+                                          mix_stale, off, p_out, t_out,
+                                          w_rows=None, gate=None):
     return [torch.empty_like(x) for x in lasts]
 
 
@@ -610,19 +636,14 @@ def fused_mix_commit_carrier(
     `csrc/mix_commit_carrier.cu` (or an error). With `off` and `out`, the
     pitched form over one bucket (`eg::fused_mix_commit_carrier_bucket`,
     as `fused_mix_commit`). `w_rows` and `gate` select the gated form
-    (module docstring; not on a bucket, ROADMAP queue 1, item 12)."""
+    (module docstring), on the whole arena or on a bucket."""
     if off is not None:
-        if w_rows is not None or gate is not None:
-            raise NotImplementedError(
-                "the gated form of a bucket's tail: the bucketed schedule "
-                "under the fault clauses is not ported yet (ROADMAP queue "
-                "1, item 12)")
         p_out, t_out = out
         bufs = _fused_mix_commit_carrier_bucket_op(
             p, list(cands), list(keeps), list(lasts), g, t, float(lr),
             float(momentum), float(mix_weight),
             [] if mix_scales is None else list(mix_scales), bool(mix_stale),
-            int(off), p_out, t_out)
+            int(off), p_out, t_out, w_rows, gate)
         return p_out, t_out, tuple(bufs)
     p_new, t_new, bufs = _fused_mix_commit_carrier_op(
         p, list(cands), list(keeps), list(lasts), g, t, float(lr),
@@ -634,3 +655,4 @@ def fused_mix_commit_carrier(
 
 fused_mix_commit_carrier.launches = 0
 fused_mix_commit_carrier.gated_launches = 0
+fused_mix_commit_carrier.pitched_gated_launches = 0

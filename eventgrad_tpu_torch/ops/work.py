@@ -11,9 +11,12 @@ element x n, bytes per element x n) over the n elements of the work
 (the `[R, n]` arena, or one bucket's `[R, c]` columns for a pitched
 form). Bytes count each input read once and each output written once;
 the arena operands are float32, the receive buffers of kernel 5 the
-carrier's dtype. The gated forms' per-row operands (`[R]`, `[R, n_nb]`)
-are left out: they are tiny beside the arenas, and the gated forms are
-held to the ungated kernel's bound.
+carrier's dtype. `tail` leaves out the gated forms' per-row operands
+(`[R]`, `[R, n_nb]`); `gated_tail` adds them and the gated element's
+extra operations (a gate select per neighbour; on kernel 1 also the
+poison factor on the update and the trace and the two quarantine
+selects), for the gated forms on a whole arena or on one bucket's
+columns (the bucketed schedule under the fault clauses).
 
 The flash kernels (6-8): `flash(kernel, shape, elem_bytes, causal)` —
 their matrix products, 2·T·T·D FLOPs each per (batch row, head), halved
@@ -63,6 +66,16 @@ _FLASH = {
     "flash_dkv": (4, 6, 2),
 }
 
+#: (extra operations per element, per-row operand bytes per row) of the
+#: gated forms: kernel 1 reads w_rows (f32), gate (one byte an edge),
+#: poison (f32) and quar (one byte); kernel 5 w_rows and gate; kernel 4
+#: w_rows
+_GATED = {
+    "fused_mix_commit": lambda nb: (nb + 4, 4 + nb + 4 + 1),
+    "fused_mix_commit_carrier": lambda nb: (nb, 4 + nb),
+    "fused_mix_sgd": lambda nb: (0, 4),
+}
+
 TAILS = tuple(_TAILS)
 FLASH = tuple(_FLASH)
 
@@ -74,6 +87,16 @@ def tail(kernel: str, n: int, n_nb: int = 2,
     buffer dtype."""
     ops, nbytes = _TAILS[kernel](int(n_nb), carrier)
     return float(ops) * n, float(nbytes) * n
+
+
+def gated_tail(kernel: str, n: int, rows: int, n_nb: int = 2,
+               carrier: Optional[str] = None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one gated kernel call over `n` elements in
+    `rows` rows: `tail`'s work plus the gated element's operations and
+    the per-row operands, read once a call."""
+    flops, nbytes = tail(kernel, n, n_nb, carrier)
+    ops, row_bytes = _GATED[kernel](int(n_nb))
+    return flops + float(ops) * n, nbytes + float(row_bytes) * rows
 
 
 def flash(kernel: str, shape, elem_bytes: int,

@@ -695,6 +695,7 @@ def masked_neighbor_vals_bucket(
     scale_vec: "Optional[torch.Tensor]" = None,
     wire_builder=None,
     carrier: bool = False,
+    deliver=None,
 ):
     """One bucket of the event-triggered masked exchange.
 
@@ -708,7 +709,9 @@ def masked_neighbor_vals_bucket(
     Returns the flat exchange's (candidates, effective bits, raw bits),
     every array bucket-sized, and with `carrier=True` the candidates in
     the wire dtype plus the per-neighbor received `[R, L_b]` scales
-    (int8; None for bf16)."""
+    (int8; None for bf16). `deliver` (bool `[R, n_nb]`, the pass's chaos
+    delivery bits) clears a dropped edge's effective bits in every
+    bucket alike: a drop drops the whole message."""
     _carrier_check(carrier, wire)
     check_wire(wire)
     dev = payload.device
@@ -743,11 +746,19 @@ def masked_neighbor_vals_bucket(
         cands.append(got)
         raws.append(recv_from(fire_vec, topo, nb))
         scls.append(got_s)
+    return _bucket_result(cands, raws, scls, wire, carrier, deliver)
+
+
+def _bucket_result(cands, raws, scls, wire, carrier, deliver):
+    """A bucket exchange's triple (carrier: plus the received scales),
+    the effective bits the raw ones cleared on undelivered edges."""
+    effs = tuple(raws) if deliver is None else tuple(
+        raw & deliver[:, i:i + 1] for i, raw in enumerate(raws))
     if carrier:
-        return tuple(cands), tuple(raws), tuple(raws), (
+        return tuple(cands), effs, tuple(raws), (
             tuple(scls) if wire == "int8" else None
         )
-    return tuple(cands), tuple(raws), tuple(raws)
+    return tuple(cands), effs, tuple(raws)
 
 
 def compact_neighbor_vals_bucket(
@@ -761,6 +772,7 @@ def compact_neighbor_vals_bucket(
     wire=None,
     scale_vec: "Optional[torch.Tensor]" = None,
     carrier: bool = False,
+    deliver=None,
 ):
     """One bucket of the budgeted compact exchange.
 
@@ -771,7 +783,7 @@ def compact_neighbor_vals_bucket(
     offsets stay implicit: the receiver recomputes them from the bucket's
     fire bits, so deferral re-contends within the bucket. Returns the
     flat exchange's triple (carrier: plus the received scales), every
-    array bucket-sized."""
+    array bucket-sized; `deliver` as `masked_neighbor_vals_bucket`."""
     _carrier_check(carrier, wire)
     check_wire(wire)
     capacity = int(capacity)
@@ -806,11 +818,7 @@ def compact_neighbor_vals_bucket(
         cands.append(val)
         raws.append(got_vec)
         scls.append(got_s)
-    if carrier:
-        return tuple(cands), tuple(raws), tuple(raws), (
-            tuple(scls) if wire == "int8" else None
-        )
-    return tuple(cands), tuple(raws), tuple(raws)
+    return _bucket_result(cands, raws, scls, wire, carrier, deliver)
 
 
 def bucket_spec_of(bucket: "arena.BucketSpec") -> "arena.ArenaSpec":

@@ -3,8 +3,11 @@
 Port of `eventgrad_tpu/parallel/events.py` (`EventConfig`, `EventState`
 with f32 or carrier-resident arena buffers, monolithic or per bucket, and
 the bounded-async delivery queues; `propose`, `propose_from_norms`,
-`commit`, the compact wire's `capacity_gate`, and the queue engine
-`async_delivery_plan`, `async_bucket_commit`, `async_delivery_commit`).
+`commit`, the compact wire's `capacity_gate`, the queue engine
+`async_delivery_plan`, `async_bucket_commit`, `async_delivery_commit`;
+and bench.py's op-point helpers `resolve_bench_trigger`,
+`MNIST_FULLSCALE_OP_POINT` and `resolve_bench_trigger_mnist`, as they
+are).
 
   * event condition:  fire_i <- |‖p_i‖₂ − last_sent_norm_i| >= thres_i
                                 OR pass_num < warmup_passes
@@ -51,6 +54,33 @@ class EventConfig:
     warmup_passes: int = 30
     history: int = 2
     max_silence: int = 0
+
+
+def resolve_bench_trigger(environ) -> tuple:
+    """(horizon, max_silence) of the benchmark op-point from the
+    EG_BENCH_HORIZON / EG_BENCH_MAX_SILENCE knobs (default 1.05 and 50).
+    A request with the silence guard off drops the horizon to the
+    neutral 1.0 unless one was pinned: 1.05 without the guard is the
+    combination that collapses seeds."""
+    horizon = float(environ.get("EG_BENCH_HORIZON", "1.05"))
+    max_silence = int(environ.get("EG_BENCH_MAX_SILENCE", "50"))
+    if max_silence == 0 and "EG_BENCH_HORIZON" not in environ:
+        horizon = 1.0
+    return horizon, max_silence
+
+
+#: the full-scale MNIST op-point (n_train, epochs, batch per rank): 1168
+#: passes of CNN-2 at batch 64, lr 0.05, the sequential sampler
+MNIST_FULLSCALE_OP_POINT = (8192, 73, 64)
+
+
+def resolve_bench_trigger_mnist(environ, max_silence: int) -> float:
+    """The MNIST leg's horizon, by the same rule: 1.05 with the silence
+    guard, the neutral 1.0 without it, unless EG_BENCH_HORIZON_MNIST
+    pins one."""
+    return float(environ.get(
+        "EG_BENCH_HORIZON_MNIST", "1.05" if max_silence > 0 else "1.0"
+    ))
 
 
 def _f32(x: float) -> float:

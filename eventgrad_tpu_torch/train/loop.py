@@ -1,15 +1,18 @@
 """Training loop, evaluation and consensus helpers.
 
-Port of `eventgrad_tpu/train/loop.py`: `train` (the per-epoch loop —
-one host step per pass, no K-epoch dispatch blocks and no dispatch
-pipeline yet, so an epoch is a dispatch block; the compact wire's
-warmup-then-rebuild capacity autotune; the bucketed schedule, the
+Port of `eventgrad_tpu/train/loop.py`: `train` (dispatch blocks of K
+epochs, each launching its K x steps passes with no synchronize between
+its epochs, the block prefetcher or the device-resident dataset, and the
+dispatch pipeline: block B's host work after block B+1's launches, the
+eval deferred, the snapshots serialized in the background; the compact
+wire's warmup-then-rebuild capacity autotune; the bucketed schedule, the
 bounded-async staleness D >= 2, the chaos schedule's fault clauses with
 the recovery policies, the integrity engine's sentinel and rollback;
 crash-safe snapshots, resume, graceful preemption and the crash sites;
 the on-device telemetry with the message ledger's audit, and the
 registry's spans and gauges; the elastic membership transitions at
-epoch ends), `evaluate`, `consensus_params` and `rank0_slice`.
+epoch ends), `DeviceEvaluator`, `evaluate`, `consensus_params` and
+`rank0_slice`.
 History records carry the JAX records' keys for the fields the slice
 computes.
 """
@@ -34,6 +37,7 @@ from eventgrad_tpu_torch.chaos import monitor as chaos_monitor
 from eventgrad_tpu_torch.chaos.membership import force_refresh
 from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
 from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
+from eventgrad_tpu_torch.data.prefetch import CudaTransfer, EpochPrefetcher
 from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
 from eventgrad_tpu_torch.obs import OBS_MODES
 from eventgrad_tpu_torch.obs import device as obs_device
@@ -218,37 +222,88 @@ def _resume(found: str, template: TrainState, *, algo: str, staleness: int,
     return state_lib.from_flat(template, flat), int(meta["epoch"])
 
 
-@torch.no_grad()
+class DeviceEvaluator:
+    """The test pass of one model with the test set kept on the device.
+
+    The set is uploaded once, cut to whole batches (unless it is smaller
+    than one batch); `dispatch(params, batch_stats)` launches the pass
+    and returns two device scalars (correct labels, summed NLL), and
+    `result` reads them back as {"accuracy", "loss"}. The loop dispatches
+    the eval at a block's end and reads it a block later when pipelined;
+    serial and pipelined runs share this one implementation, so their
+    numbers agree. `params` is a `[n]` parameter arena (e.g.
+    `consensus_params(state.params)`), `batch_stats` a dict of `[C]`
+    running statistics (empty without BatchNorm); `x` is images with one
+    label each, or integer tokens `[n, T]` with a label per token."""
+
+    def __init__(self, model, x, y, batch_size: int = 1000, device=None):
+        self.device = resolve_device(device)
+        self.model = model
+        self.spec = arena_spec(model)
+        x = _as_input(model, x)
+        y = np.asarray(y, np.int64)
+        self.batch = batch_size if len(x) >= batch_size else len(x)
+        self.n = (len(x) // self.batch) * self.batch
+        # labels scored: samples, or every token of a language model
+        self.n_labels = self.n * int(np.prod(y.shape[1:]))
+        self.x = torch.from_numpy(np.ascontiguousarray(x[:self.n])).to(
+            self.device)
+        self.y = torch.from_numpy(np.ascontiguousarray(y[:self.n])).to(
+            self.device)
+
+    @torch.no_grad()
+    def dispatch(self, params, batch_stats):
+        """Launch the pass; returns (correct, summed NLL) on the device."""
+        pdict = self.spec.unravel(params.to(self.device))
+        stats = {k: v.to(self.device) for k, v in batch_stats.items()}
+        correct = torch.zeros((), dtype=torch.int64, device=self.device)
+        nll = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(0, self.n, self.batch):
+            xb, yb = self.x[i:i + self.batch], self.y[i:i + self.batch]
+            out = torch.func.functional_call(self.model, pdict,
+                                             (xb, stats, False))
+            logp = torch.log_softmax(out.to(torch.float32), dim=-1)
+            nll = nll - torch.gather(logp, -1, yb[..., None]).sum()
+            correct = correct + (out.argmax(-1) == yb).sum()
+        return correct, nll
+
+    def result(self, fut) -> Dict[str, float]:
+        """{"accuracy", "loss"} of a `dispatch`'s scalars (blocking)."""
+        correct, nll = fut
+        return {
+            "accuracy": 100.0 * int(correct) / self.n_labels,
+            "loss": float(nll) / self.n_labels,
+        }
+
+
 def evaluate(model, params, batch_stats, x, y, batch_size: int = 1000,
              device=None) -> Dict[str, float]:
-    """Test pass of one model: `params` is a `[n]` parameter arena (e.g.
-    `consensus_params(state.params)`), `batch_stats` a dict of `[C]`
-    running statistics (empty without BatchNorm). `x` is images with
-    one label each, or integer tokens `[n, T]` with a label per token. Whole batches only, unless the set is smaller
-    than one batch. Returns {"accuracy", "loss"}."""
-    device = resolve_device(device)
-    spec = arena_spec(model)
-    pdict = spec.unravel(params.to(device))
-    stats = {k: v.to(device) for k, v in batch_stats.items()}
-    x = _as_input(model, x)
-    y = np.asarray(y, np.int64)
-    bs = batch_size if len(x) >= batch_size else len(x)
-    n = (len(x) // bs) * bs
-    # labels scored: samples, or every token of a language model
-    n_labels = n * int(np.prod(y.shape[1:]))
-    correct = torch.zeros((), dtype=torch.int64, device=device)
-    nll = torch.zeros((), dtype=torch.float32, device=device)
-    for i in range(0, n, bs):
-        xb = torch.from_numpy(x[i : i + bs]).to(device)
-        yb = torch.from_numpy(y[i : i + bs]).to(device)
-        out = torch.func.functional_call(model, pdict, (xb, stats, False))
-        logp = torch.log_softmax(out.to(torch.float32), dim=-1)
-        nll = nll - torch.gather(logp, -1, yb[..., None]).sum()
-        correct = correct + (out.argmax(-1) == yb).sum()
-    return {
-        "accuracy": 100.0 * int(correct) / n_labels,
-        "loss": float(nll) / n_labels,
-    }
+    """One test pass (`DeviceEvaluator`, dispatched and read at once):
+    `params` a `[n]` parameter arena, `batch_stats` a dict of `[C]`
+    running statistics. Returns {"accuracy", "loss"}."""
+    ev = DeviceEvaluator(model, x, y, batch_size, device=device)
+    return ev.result(ev.dispatch(params, batch_stats))
+
+
+def _host_async(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t` that does not block: on the card a pinned
+    buffer filled by a non-blocking copy (valid once the stream has
+    passed it), on the CPU the tensor itself (CPU work is done when its
+    call returns)."""
+    if t.device.type != "cuda":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An int64 index array on `device`, copied from pinned memory
+    without blocking the host on the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def train(
@@ -287,6 +342,9 @@ def train(
     obs: str = "off",
     registry: Optional[Any] = None,
     membership=None,
+    epochs_per_dispatch: int = 1,
+    pipeline: Optional[bool] = None,
+    device_data: Optional[bool] = None,
     device=None,
 ) -> Tuple[TrainState, List[Dict[str, Any]]]:
     """Run the training job on `device` (None = CUDA, raising without it);
@@ -295,11 +353,49 @@ def train(
     tokens `[n, T]` with next-token labels `[n, T]` (`train_acc` then
     counts tokens).
     Each record carries `loss`, `train_acc`, `sent_bytes_per_step_per_chip`,
-    `steps`, `wall_s` (seconds of device work for the epoch's steps),
+    `steps`, `dispatch_block` (the 0-based dispatch block),
+    `dispatch_cold` (the first block of its size, wire mode and rank
+    count: block 0, a remainder block, the first compact block), `wall_s`
+    (the block's seconds over its epochs: from its first pass to the end
+    of its last, before the riders that read it: the
+    metric readback, the probe, the eval; on the card the device's clock,
+    CUDA events around the passes, so that under the pipeline each
+    block's time is its own),
     `wire`, `resident_dtype` ("f32" | "bf16" | "int8") and `staleness`,
     plus `policy`, `num_events`, `num_deferred`, `msgs_saved_pct` and
-    `fired_frac` for eventgrad and sp_eventgrad, and `test_accuracy` /
-    `test_loss` when a test set is given and `log_every_epoch`.
+    `fired_frac` for eventgrad and sp_eventgrad, and, on the record of a
+    block's last epoch, `test_accuracy` / `test_loss` when a test set is
+    given and `log_every_epoch` (`DeviceEvaluator`, the test set on the
+    device).
+
+    `epochs_per_dispatch=K` runs dispatch blocks of K epochs: the block's
+    passes launch back to back, its metrics are stacked on the device
+    and read back in one copy, then split into per-epoch records. K
+    resolves as the JAX loop's: 1 under membership and with
+    `obs="epoch"`; at most `total_epochs // 2` (two blocks at least); on
+    the host data path at most `EG_HOST_BLOCK_MAX_BYTES` (1.5e9) over
+    twice the dataset's bytes; then the largest divisor of `save_every`
+    not above it, and blocks split at every multiple of `save_every`.
+    `device_data` (None = on for CUDA runs without membership whose
+    data is at most `EG_DEVICE_DATA_MAX_BYTES`, 1.5e9 bytes) uploads the
+    dataset once and gathers each pass's batch on the device from the
+    block's index plan; off, `data/prefetch.EpochPrefetcher` assembles
+    block B+1 (and on the card uploads it, pinned, on a side stream) on
+    a worker thread while block B runs; `True` with membership raises.
+    `pipeline` (None = on without membership and the integrity sentinel;
+    `True` with either raises the JAX loop's cause) runs block B's host
+    work (readback, telemetry flush, records, eval readback) after block
+    B+1's launches: everything it reads (the packed metrics and
+    counters, the consensus-error probe, the eval's two scalars) is
+    enqueued before B+1 launches and copied to pinned host memory
+    without blocking. A block with a due save, and the compact wire's
+    dense autotune, drain at once. A due save's tensors are copied on
+    the device and serialized by `utils/checkpoint.AsyncWriter` behind
+    the next block's compute, and swapped in as soon as it is on disk;
+    the next save, a preemption drain and the end join it. The state
+    and every record
+    value but `wall_s` and `dispatch_*` are bitwise the serial K = 1
+    run's (the block-end riders land on each block's last epoch).
 
     `algo` is one of "allreduce", "dpsgd", "eventgrad", "sp_eventgrad";
     `sparse_cfg` sets sp_eventgrad's top-k percent (default 10%), and
@@ -343,9 +439,9 @@ def train(
 
     `integrity` (an `IntegrityConfig`, spec or dict) runs the integrity
     engine: the step's checksums and quarantine (eventgrad), and the
-    divergence sentinel, which judges each epoch (the port's block) by
-    its mean loss and end-of-epoch consensus error. With `rollback` an
-    in-memory last-known-good snapshot follows every healthy epoch; a
+    divergence sentinel, which judges each block by its mean loss and
+    its end's consensus error. With `rollback` an
+    in-memory last-known-good snapshot follows every healthy block; a
     trip restores it, re-arms every event buffer
     (`membership.force_refresh`), with `escalate` rebuilds the step
     hardened (checksums and quarantine on) and replays from the next
@@ -371,7 +467,7 @@ def train(
     autotune state, as the JAX snapshot holds none: a resumed compact
     run is dense until it re-decides). A drained predecessor's
     PREEMPTED marker is consumed at start. With the integrity rollback
-    on, a healthy epoch where a save is due is also retained in
+    on, a healthy block where a save is due is also retained in
     `<checkpoint_dir>/good` (`RollingRetention`, the newest
     `keep_good`); the rollback itself restores the in-memory copy.
 
@@ -379,15 +475,18 @@ def train(
     flag (`chaos.crashpoint.PreemptGuard`, the previous handlers back on
     exit), and the first `preempt=E@S` notice of the chaos schedule past
     the start epoch arrives in epoch E. Either drains at the end of the
-    epoch (the port's block): a snapshot of it, the PREEMPTED marker,
+    block: a snapshot of it, the PREEMPTED marker,
     then `chaos.GracefulPreemption` (`info`: reason, epoch, snapshot,
     drain_s, marker), for the exit code `exitcodes.PREEMPTED_EXIT`.
     `EG_CRASHPOINT=site[:n]` arms a hard kill at a named seam
-    (`chaos/crashpoint.py`): `loop.block_dispatched` after an epoch's
-    steps ran and before any readback, `loop.block_end` after the
-    epoch's host work and any due save, `integrity.rollback` between a
-    rollback's restore and its replay, and the three sites of
-    `checkpoint.save`; the first record then carries `crashpoint`
+    (`chaos/crashpoint.py`): `loop.block_dispatched` after a block's
+    passes launched and before any readback, `loop.block_end` after the
+    block's host work (drained, or deferred when pipelined) and any due
+    save (committed, or handed to the writer), `integrity.rollback`
+    between a rollback's restore and its replay, `writer.bg_save` on the
+    writer thread, and the three sites of `checkpoint.save` (on the
+    writer thread when pipelined); the
+    first record then carries `crashpoint`
     ({site, hit}). `on_epoch(rec)` is called with each record as it is
     appended.
 
@@ -397,29 +496,30 @@ def train(
     bytes, the integrity and bounded-async counters, and the
     message-lifecycle ledger). The counters are cumulative device tensors
     in `state.telemetry`, part of every snapshot, and are read to the
-    host once per dispatch block, in one copy, after the block's
-    synchronize: no host sync is added to any pass. The port's block is
-    one epoch, so "block" and "epoch" give the same records. Each
-    record then carries `rec["obs"]` (`window_record` of the block, the
+    host once per dispatch block, in one copy: no host sync is added to
+    any pass. "epoch" pins K to 1, so that every epoch ends a block and
+    its flush window. The record of a block's last epoch then carries
+    `rec["obs"]` (`window_record` of the block, the
     first one with `meta`: leaves, edges, silence buckets, ranks,
     neighbours, wire) and, on the gossip algorithms, the block's
     conservation audit `rec["obs"]["ledger_audit"]`
     (`obs.ledger.audit_window`); the consensus error is probed at each
-    epoch end. "off" leaves the run exactly as without telemetry.
+    block end. "off" leaves the run exactly as without telemetry.
 
     `registry` (an `obs.Registry`) records the loop's host spans: `train`
-    (the root), `data`, `dispatch_block` (the epoch's steps and the
-    synchronize after them, with `block_ready` around the synchronize,
-    so its length is device time), `obs_flush`, `eval` and
-    `checkpoint`; and after each epoch the gauges `active_ranks`,
+    (the root), `data`, `dispatch_block` (the block's launches, and in
+    serial mode the synchronize after them), `block_ready` (the wait for
+    the block's readback), `obs_flush`, `eval`, `eval_readback`,
+    `checkpoint` (a serial save) or `ckpt_snapshot` (the device copy of
+    a pipelined one) and `preempt_drain`; and after each block the
+    gauges `active_ranks`, `prefetch_misses_total` (host data path),
     `membership_transitions_total` (with membership),
     `edge_staleness{edge}` and `late_commits_total` (staleness D >= 2),
     `ledger_disposition_total{disposition}`, `ledger_in_flight` and
     `ledger_audit_failures_total` (telemetry on a gossip algorithm), and
     `wire_rejects_total`, `quarantined_steps_total` and
     `integrity_rollbacks_total` (with `integrity`). The loop never closes
-    the registry. `wall_s` stays the seconds from the epoch's first
-    launch to the synchronize after its last pass.
+    the registry.
 
     `membership` (a `chaos.MembershipSchedule`, spec string like
     "leave=1@2,join=1@4" or dict; dpsgd and eventgrad on a single-axis
@@ -627,6 +727,96 @@ def train(
     spec = arena_spec(model)
     eval_on = x_test is not None and log_every_epoch
     history: List[Dict[str, Any]] = []
+
+    # --- the dispatch resolution: device-resident data, pipeline, K ----
+    # membership re-shards the data and reshapes the state between
+    # blocks, so it keeps the host data path, the serial schedule and
+    # one-epoch blocks
+    data_bytes = x.size * 4
+    if device_data is None:
+        device_data = (
+            not memb_on and device.type == "cuda"
+            and data_bytes <= int(os.environ.get(
+                "EG_DEVICE_DATA_MAX_BYTES", str(1_500_000_000))))
+    elif device_data and memb_on:
+        raise ValueError(
+            "device_data requires the single-process, non-hybrid, "
+            "mesh=None path without membership transitions (hybrid/"
+            "multihost runs shard batches on host; membership re-shards "
+            "the resident plan per transition)"
+        )
+    device_data = bool(device_data)
+    if pipeline is None:
+        pipeline_on = not memb_on and not integ_engine_on
+    else:
+        pipeline_on = bool(pipeline)
+        if pipeline_on and memb_on:
+            raise ValueError(
+                "pipeline=True cannot honor membership transitions (they "
+                "re-shape the state between blocks, which needs the "
+                "serial schedule); use pipeline=None/False"
+            )
+        if pipeline_on and integ_engine_on:
+            raise ValueError(
+                "pipeline=True cannot honor the integrity sentinel/"
+                "rollback engine (the verdict on block B gates what "
+                "block B+1 may dispatch); use pipeline=None/False, or "
+                "keep only the in-step defenses (IntegrityConfig("
+                "sentinel=False, rollback=False))"
+            )
+    K = max(1, int(epochs_per_dispatch))
+    if memb_on or obs == "epoch":
+        # every epoch end is a block boundary (a transition's, or the
+        # per-epoch telemetry flush's)
+        K = 1
+    total_epochs = max(0, epochs - start_epoch)
+    # at least two blocks, so a warm block exists beside the cold one
+    K = min(K, total_epochs // 2) if total_epochs >= 2 else 1
+    if not device_data and K > 1:
+        # the host path holds two K-epoch blocks at once (the one running
+        # and the one the prefetcher assembles): cap their bytes
+        K = max(1, min(K, int(os.environ.get(
+            "EG_HOST_BLOCK_MAX_BYTES", str(1_500_000_000)
+        )) // max(1, 2 * data_bytes)))
+    if save_every and K > 1:
+        # blocks split at save points: a divisor of save_every keeps the
+        # block sizes repeating across save segments
+        K = max(d for d in range(1, K + 1) if save_every % d == 0)
+
+    def blocks_from(first: int) -> List[Tuple[int, int]]:
+        """Consecutive (first, last) epoch blocks of up to K epochs, split
+        so that every multiple of `save_every` ends a block."""
+        out, e = [], first
+        while e <= epochs:
+            be = min(e + K - 1, epochs)
+            if save_every:
+                nxt = ((e + save_every - 1) // save_every) * save_every
+                if e <= nxt <= be:
+                    be = nxt
+            out.append((e, be))
+            e = be + 1
+        return out
+
+    blocks = blocks_from(start_epoch + 1)
+    x_dev = y_dev = None
+    prefetcher = transfer = None
+
+    def make_prefetcher():
+        return EpochPrefetcher(x, y, n_ranks, batch_size,
+                               random=random_sampler, seed=seed,
+                               last_epoch=epochs, transfer=transfer)
+
+    if device_data:
+        # the dataset is uploaded once; a block ships only its index plan
+        x_dev = torch.from_numpy(x).to(device)
+        y_dev = torch.from_numpy(y).to(device)
+    else:
+        transfer = CudaTransfer(device) if device.type == "cuda" else None
+        prefetcher = make_prefetcher()
+    evaluator = (DeviceEvaluator(model, x_test, y_test, device=device)
+                 if eval_on else None)
+    writer = (checkpoint.AsyncWriter() if ckpt_path and pipeline_on
+              else None)
     # the compact autotune: sized once, then the step is rebuilt once
     compact_capacity: Optional[int] = None
     compact_done = gossip_wire != "compact" or compact_static
@@ -634,8 +824,8 @@ def train(
     compact_fired_peak, compact_post_steps = 0.0, 0
     warmup_passes = (event_cfg or EventConfig()).warmup_passes
     # the integrity engine (chaos/integrity.py): the sentinel judges each
-    # epoch; the last-known-good starts as the initial state, so a trip
-    # in the first epoch rolls back to the start
+    # block; the last-known-good starts as the initial state, so a trip
+    # in the first block rolls back to the start
     probe_on = chaos_sched is not None or integ_cfg is not None or obs_on
     sentinel = (chaos_integrity.DivergenceSentinel(integ_cfg)
                 if integ_engine_on else None)
@@ -648,9 +838,9 @@ def train(
     integ_totals = {"wire_rejects": 0, "quarantined_steps": 0}
     good = None
     if integ_rollback_on:
-        good = {"state": _clone(state), "epoch": start_epoch,
+        good = {"state": _clone(state), "epoch": start_epoch, "next_bi": 0,
                 "sentinel": sentinel.snapshot(), "obs_prev": obs_prev}
-    # the on-disk retention of healthy epochs at checkpoint cadence
+    # the on-disk retention of healthy blocks at checkpoint cadence
     retention = (checkpoint.RollingRetention(
         os.path.join(checkpoint_dir, "good"), keep=integ_cfg.keep_good)
         if integ_rollback_on and checkpoint_dir else None)
@@ -663,21 +853,15 @@ def train(
         preempt_at = next(((e, s) for e, s in chaos_sched.preempt
                            if e > start_epoch), None)
 
-    def boundary_payload():
-        """The snapshot at the current epoch boundary: one definition
-        for the periodic save and the preemption drain."""
-        return state_lib.payload(state, epoch, algo)
-
-    def flush(blk: int) -> Dict[str, Any]:
-        """The epoch's telemetry window: ONE device-to-host read of the
-        cumulative counters (packed into one buffer), diffed on the host
-        against the previous snapshot, plus the ledger's conservation
-        audit of the window and, on the first flush, the run meta."""
+    def flush(tel_host_buf, tel_like, blk: int) -> Dict[str, Any]:
+        """The block's telemetry window: the one device-to-host read of
+        the cumulative counters (packed into one buffer), diffed on the
+        host against the previous snapshot, plus the ledger's
+        conservation audit of the window and, on the first flush, the run
+        meta."""
         nonlocal obs_prev, obs_meta_pending, ledger_audit_fails
         with _span("obs_flush", cat="obs", block=blk):
-            tel_host = obs_device.unpack(
-                obs_device.pack(state.telemetry).cpu().numpy(),
-                state.telemetry)
+            tel_host = obs_device.unpack(tel_host_buf.numpy(), tel_like)
             obs_rec = obs_device.window_record(tel_host, obs_prev)
             if tel_host.ledger is not None:
                 obs_rec["ledger_audit"] = obs_ledger.audit_window(
@@ -698,18 +882,21 @@ def train(
             obs_meta_pending = False
         return obs_rec
 
-    def gauges(m_e, obs_rec) -> None:
-        """The registry's gauges after an epoch's record."""
+    def gauges(m_last, obs_rec) -> None:
+        """The registry's gauges after a block's records (`m_last`: the
+        metrics of its last epoch)."""
         registry.gauge("active_ranks", n_ranks)
-        if "edge_staleness" in m_e:
-            # the per-edge staleness (max over ranks at the epoch's last
+        if prefetcher is not None:
+            registry.gauge("prefetch_misses_total", float(prefetcher.misses))
+        if "edge_staleness" in m_last:
+            # the per-edge staleness (max over ranks at the block's last
             # pass) and the cumulative late commits
-            es = m_e["edge_staleness"][-1]
+            es = m_last["edge_staleness"][-1]
             for k, nb in enumerate(topo.neighbors):
                 registry.gauge("edge_staleness", float(es[..., k].max()),
                                labels={"edge": nb.name})
             registry.gauge("late_commits_total",
-                           float(m_e["late_commits"][-1].sum()))
+                           float(m_last["late_commits"][-1].sum()))
         if obs_rec is not None and "message_ledger" in obs_rec:
             cum = np.asarray(obs_prev.ledger.counts, np.int64)
             for name, ri in obs_ledger.ROW.items():
@@ -737,50 +924,89 @@ def train(
     ) if memb_on else 0
     # transitions applied at the last boundary, for the next record
     memb_pending: List[Dict[str, Any]] = []
+    # (epochs, wire mode, ranks) of every block dispatched so far: the
+    # first block of each is cold
+    seen_blocks: set = set()
 
-    epoch = start_epoch
-    with _span("train", cat="run", algo=algo, pipelined=False), \
-            crashpoint.PreemptGuard(enabled=ckpt_path is not None) as guard:
-        while epoch < epochs:
-            epoch += 1
-            blk = epoch - start_epoch - 1
-            mode_now = ("compact" if compact_capacity is not None
-                        or compact_static else "dense")
-            pass_base = state.pass_num
-            with _span("data", cat="host", block=blk):
-                idx = epoch_index_plan(
-                    len(x), n_ranks, batch_size, random=random_sampler,
-                    seed=seed, epoch=epoch,
-                )
-                xb = torch.from_numpy(x[idx]).to(device)  # [R, steps, B, ...]
-                yb = torch.from_numpy(y[idx]).to(device)
-                _sync(device)
-            with _span("dispatch_block", cat="device", block=blk, epochs=1,
-                       wire=mode_now, pipelined=False):
-                t0 = time.perf_counter()
-                ms = []
-                for s in range(steps):
-                    state, m = step(state, (xb[:, s], yb[:, s]))
-                    ms.append(m)
-                with _span("block_ready", cat="device", block=blk):
-                    _sync(device)
-                dt = time.perf_counter() - t0
-            # the epoch's steps ran; none of its host work has
-            crashpoint.hit("loop.block_dispatched")
-            obs_rec = flush(blk) if obs_on else None
-            m_e = {
-                k: torch.stack([m[k] for m in ms]).cpu().numpy() for k in ms[0]
-            }
+    def capture(ms, hw) -> None:
+        """Every read of block B's results, enqueued before block B+1
+        launches: the metrics stacked on the device and packed into one
+        buffer, the telemetry packed, the consensus-error probe and the
+        eval's two scalars, each copied to the host without blocking
+        (into pinned memory on the card), then one event the drain waits
+        on. Nothing the drain reads is a tensor a later block writes."""
+        dev = state.params.device
+        keys = list(ms[0])
+        parts = [torch.stack([m[k] for m in ms]) for k in keys]
+        hw["m_layout"] = [(k, p.dtype, tuple(p.shape))
+                          for k, p in zip(keys, parts)]
+        # float64 holds every float32 and int32 metric exactly
+        dev_bufs = {"m": torch.cat([p.to(torch.float64).reshape(-1)
+                                    for p in parts])}
+        if obs_on:
+            dev_bufs["tel"] = obs_device.pack(state.telemetry)
+            hw["tel_like"] = state.telemetry
+        if probe_on:
+            dev_bufs["probe"] = chaos_monitor.consensus_error(state.params)
+        if evaluator is not None:
+            with _span("eval", cat="device", epoch=hw["blk_end"]):
+                c, nll = evaluator.dispatch(consensus_params(state.params),
+                                            rank0_slice(state.batch_stats))
+            dev_bufs["eval_correct"], dev_bufs["eval_nll"] = c, nll
+        hw["host"] = {k: _host_async(v) for k, v in dev_bufs.items()}
+        hw["ready"] = None
+        if dev.type == "cuda":
+            hw["ready"] = torch.cuda.Event()
+            hw["ready"].record()
+
+    def drain(hw) -> Optional[str]:
+        """Block B's host work: the readback, the telemetry flush, the
+        records, the eval result, the registry's gauges, the sentinel's
+        verdict (returned) and the compact autotune. Serial mode runs it
+        right after the block; the pipelined one after block B+1's
+        launches, while the card computes B+1."""
+        nonlocal compact_note, compact_fired_peak
+        nonlocal compact_post_steps, compact_capacity, compact_done, step
+        nonlocal rollback_info, rank_passes
+        blk, blk_start, blk_end = hw["blk_i"], hw["blk_start"], hw["blk_end"]
+        n_e = blk_end - blk_start + 1
+        steps_b, nr_b = hw["steps"], hw["n_ranks"]
+        with _span("block_ready", cat="device", block=blk):
+            dt = hw["clock"]
+            if isinstance(dt, tuple):
+                dt[1].synchronize()
+                dt = dt[0].elapsed_time(dt[1]) / 1e3
+            if hw["ready"] is not None:
+                hw["ready"].synchronize()
+        host = hw["host"]
+        flat_m = host["m"].numpy()
+        m, off = {}, 0
+        for k, dt_k, shape in hw["m_layout"]:
+            size = int(np.prod(shape))
+            m[k] = flat_m[off:off + size].reshape(shape).astype(
+                torch.empty((), dtype=dt_k).numpy().dtype)
+            off += size
+        obs_rec = flush(host["tel"], hw["tel_like"], blk) if obs_on else None
+        m_last = None
+        for j, epoch in enumerate(range(blk_start, blk_end + 1)):
+            m_e = {k: v[j * steps_b:(j + 1) * steps_b] for k, v in m.items()}
+            m_last = m_e
+            total_passes = hw["pass_base"] + (j + 1) * steps_b
             rec = {
                 "epoch": epoch,
                 "algo": algo,
-                "steps": steps,
-                "active_ranks": n_ranks,
-                "wall_s": dt,
+                "steps": steps_b,
+                # the 0-based dispatch block, and whether it was the
+                # first of its size (steady-state step math drops those)
+                "dispatch_block": blk,
+                "dispatch_cold": hw["cold"],
+                "active_ranks": nr_b,
+                "wall_s": dt / n_e,
                 "loss": float(m_e["loss"].mean()),
                 "train_acc": 100.0 * float(m_e["correct"].sum())
-                / (n_ranks * steps * batch_size * labels_per_sample),
-                "sent_bytes_per_step_per_chip": _step_mean(m_e["sent_bytes"]),
+                / (nr_b * steps_b * batch_size * labels_per_sample),
+                "sent_bytes_per_step_per_chip": _step_mean(
+                    m_e["sent_bytes"]),
                 "sent_bytes_wire_real_per_step_per_chip": _step_mean(
                     m_e["sent_bytes_wire_real"]
                 ),
@@ -798,7 +1024,7 @@ def train(
                         float(v) for v in
                         m_e["sent_bytes_wire_real_per_bucket"][-1, 0]]
             if gossip_wire == "compact":
-                rec["gossip_wire"] = mode_now
+                rec["gossip_wire"] = hw["mode"]
                 if compact_capacity is not None:
                     rec["compact_capacity"] = int(compact_capacity)
                 if compact_note is not None:
@@ -813,13 +1039,13 @@ def train(
                     # cumulative RANK-passes: a departed rank takes its
                     # events with it, a newcomer starts at zero
                     rec["msgs_saved_pct"] = msgs_saved_pct(
-                        events_total, rank_passes + steps * n_ranks,
-                        spec.n_leaves, topo.n_neighbors, 1,
+                        events_total, hw["rank_base"] + (j + 1) * steps_b
+                        * nr_b, spec.n_leaves, hw["n_nb"], 1,
                     )
                 else:
                     rec["msgs_saved_pct"] = msgs_saved_pct(
-                        events_total, state.pass_num, spec.n_leaves,
-                        topo.n_neighbors, n_ranks,
+                        events_total, total_passes, spec.n_leaves,
+                        hw["n_nb"], nr_b,
                     )
                 rec["fired_frac"] = float(m_e["fired_frac"].mean())
                 if "edge_staleness" in m_e:
@@ -828,13 +1054,11 @@ def train(
                     rec["edge_staleness_max"] = int(
                         m_e["edge_staleness"][-1].max())
                     rec["late_commits"] = int(m_e["late_commits"][-1].sum())
-            memb_opened = bool(memb_pending)
             if memb_on:
                 if not history:  # the log alone replays the run bitwise
                     rec["membership"] = memb_sched.to_dict()
-                if memb_pending:
-                    rec["membership_transitions"] = memb_pending
-                    memb_pending = []
+                if j == 0 and hw["memb"]:
+                    rec["membership_transitions"] = hw["memb"]
             if crash_armed is not None and not history:
                 rec["crashpoint"] = dict(crash_armed)
             if chaos_sched is not None:
@@ -857,39 +1081,175 @@ def train(
                 if rollback_info is not None:
                     rec["integrity_rollback"] = rollback_info
                     rollback_info = None
-            if obs_rec is not None:
-                rec["obs"] = obs_rec
-            cerr = None
-            if probe_on:
-                # the consensus error ||p_r - mean(p)|| at the epoch's end:
-                # the drift that tells quiet links from a partition
-                cerr = chaos_monitor.consensus_error(state.params).cpu().numpy()
-                rec["consensus_err_max"] = float(cerr.max())
-                rec["consensus_err_mean"] = float(cerr.mean())
-            if eval_on:
-                with _span("eval", cat="device", epoch=epoch):
-                    test = evaluate(
-                        model, consensus_params(state.params),
-                        rank0_slice(state.batch_stats), x_test, y_test,
-                        device=device,
-                    )
-                rec.update({"test_" + k: v for k, v in test.items()})
+            if epoch == blk_end:
+                # the block end's riders: the telemetry window, the
+                # consensus error ||p_r - mean(p)|| (the drift that tells
+                # quiet links from a partition) and the eval
+                if obs_rec is not None:
+                    rec["obs"] = obs_rec
+                if "probe" in host:
+                    cerr = host["probe"].numpy()
+                    rec["consensus_err_max"] = float(cerr.max())
+                    rec["consensus_err_mean"] = float(cerr.mean())
+                if "eval_correct" in host:
+                    with _span("eval_readback", cat="host", epoch=epoch):
+                        test = evaluator.result((host["eval_correct"],
+                                                 host["eval_nll"]))
+                    rec.update({"test_" + k: v for k, v in test.items()})
             history.append(rec)
             if on_epoch is not None:
                 on_epoch(rec)
-            if registry is not None:
-                gauges(m_e, obs_rec)
-            ckpt_due = bool(ckpt_path and (
-                epoch == epochs or (save_every and epoch % save_every == 0)))
-            if sentinel is not None:
-                reason = sentinel.observe(
-                    float(np.asarray(m_e["loss"], np.float64).mean()),
-                    None if cerr is None else float(cerr.max()))
-                if reason is not None:
+        if registry is not None:
+            gauges(m_last, obs_rec)
+        verdict = None
+        if sentinel is not None:
+            # the block's mean loss and its end's consensus error
+            verdict = sentinel.observe(
+                float(np.asarray(m["loss"], np.float64).mean()),
+                float(host["probe"].numpy().max()) if "probe" in host
+                else None)
+        if not compact_done:
+            # the capacity is one static number for every rank: the peak
+            # is over the ranks of the post-warmup steps (pass ==
+            # warmup_passes is already real trigger data)
+            pnums = hw["pass_base"] + 1 + np.arange(n_e * steps_b)
+            keep = pnums >= warmup_passes
+            if hw["memb"]:
+                # a block that opens with a membership force-fire is
+                # transient (the full-fire rewire pass, then the
+                # thresholds re-adapt): sampling it would size the
+                # budget toward the whole model
+                keep[:] = False
+            post = m["fired_elems"][keep]
+            if post.size:
+                compact_fired_peak = max(compact_fired_peak,
+                                         float(post.max()))
+                compact_post_steps += int(post.shape[0])
+            if compact_frac is None:
+                enough = compact_post_steps >= COMPACT_MIN_SAMPLES
+            else:
+                enough = bool(pnums[-1] >= warmup_passes)
+            if enough:
+                n = spec.n_total
+                floor = collectives.compact_capacity_floor(spec.sizes)
+                if bucketed_k > 1 and algo == "eventgrad":
+                    # every bucket must fit its own largest leaf
+                    floor = max(floor, collectives.bucketed_capacity_floor(
+                        spec.buckets(bucketed_k)))
+                autotuned = compact_frac is None
+                if autotuned:
+                    cap = collectives.choose_capacity(
+                        n, compact_fired_peak, floor)
+                    compact_note = {
+                        "compact_autotuned": True,
+                        "compact_fired_peak_elems": compact_fired_peak,
+                    }
+                else:
+                    cap = min(n, max(floor, int(math.ceil(
+                        float(compact_frac) * n))))
+                    compact_note = {"compact_autotuned": False}
+                if autotuned and cap >= n:
+                    # fire rate ~1: the budget would be the whole model
+                    compact_note["compact_skipped"] = (
+                        "observed fire rate needs capacity >= n_params"
+                    )
+                else:
+                    compact_capacity = cap
+                    step = build("compact", cap)
+                compact_done = True
+        return verdict
+
+    pending = None
+    try:
+        with _span("train", cat="run", algo=algo, pipelined=pipeline_on), \
+                crashpoint.PreemptGuard(enabled=ckpt_path is not None) \
+                as guard:
+            bi = 0
+            while bi < len(blocks):
+                blk = bi
+                blk_start, blk_end = blocks[bi]
+                n_e = blk_end - blk_start + 1
+                mode_now = ("compact" if compact_capacity is not None
+                            or compact_static else "dense")
+                # the first block of each (epochs, wire mode, ranks) is
+                # cold (the JAX loop's compile rule)
+                cold = (n_e, mode_now, n_ranks) not in seen_blocks
+                seen_blocks.add((n_e, mode_now, n_ranks))
+                with _span("data", cat="host", block=blk):
+                    if device_data:
+                        idx = np.concatenate([
+                            epoch_index_plan(
+                                len(x), n_ranks, batch_size,
+                                random=random_sampler, seed=seed, epoch=e)
+                            for e in range(blk_start, blk_end + 1)], axis=1)
+                        idx_dev = _upload(idx, device)  # [R, n_e*steps, B]
+                    else:
+                        nxt = blocks[bi + 1] if bi + 1 < len(blocks) else None
+                        xb, yb = prefetcher.get_block(blk_start, blk_end,
+                                                      next_span=nxt)
+                        if transfer is not None:
+                            xb, yb = transfer.consume(xb), transfer.consume(yb)
+                        else:
+                            xb = torch.from_numpy(xb).to(device)
+                            yb = torch.from_numpy(yb).to(device)
+                hw = {"blk_i": blk, "blk_start": blk_start,
+                      "blk_end": blk_end, "cold": cold, "mode": mode_now,
+                      "steps": steps, "n_ranks": n_ranks,
+                      "n_nb": topo.n_neighbors, "pass_base": state.pass_num,
+                      "rank_base": rank_passes, "memb": memb_pending}
+                memb_pending = []
+                # wall_s: the block's first pass to the end of its last,
+                # ahead of capture's riders; on the card the device's
+                # clock, so a pipelined block's time is its own
+                t0 = time.perf_counter()
+                if device.type == "cuda":
+                    clock = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+                    clock[0].record()
+                with _span("dispatch_block", cat="device", block=blk,
+                           epochs=n_e, cold=cold, wire=mode_now,
+                           pipelined=pipeline_on):
+                    ms = []
+                    for s in range(n_e * steps):
+                        if device_data:
+                            ib = idx_dev[:, s]
+                            batch = (x_dev[ib], y_dev[ib])
+                        else:
+                            batch = (xb[:, s], yb[:, s])
+                        state, m = step(state, batch)
+                        ms.append(m)
+                    if device.type == "cuda":
+                        clock[1].record()
+                        hw["clock"] = clock
+                    else:
+                        hw["clock"] = time.perf_counter() - t0
+                    if not pipeline_on:
+                        _sync(device)
+                # the block's passes are launched; none of its host work
+                # has run (pipeline on and off both pass here)
+                crashpoint.hit("loop.block_dispatched")
+                capture(ms, hw)
+                del ms
+                rank_passes += n_e * steps * n_ranks
+                if pending is not None:  # the previous block's host work
+                    drain(pending)
+                    pending = None
+                ckpt_due = bool(ckpt_path and (
+                    blk_end == epochs
+                    or (save_every and blk_end % save_every == 0)))
+                verdict = None
+                if not pipeline_on or ckpt_due or not compact_done:
+                    # serial drain: serial mode, a due save (its block's
+                    # records land before the snapshot), or a compact
+                    # autotune decision that gates the next block
+                    verdict = drain(hw)
+                else:
+                    pending = hw
+                if verdict is not None:
                     if not integ_rollback_on or rollbacks >= integ_cfg.max_rollbacks:
                         raise chaos_integrity.IntegrityEscalation(
-                            f"divergence sentinel tripped ({reason}) at epoch "
-                            f"{epoch} with "
+                            f"divergence sentinel tripped ({verdict}) at epoch "
+                            f"{blk_end} with "
                             + ("rollback disarmed" if not integ_rollback_on
                                else "the rollback budget spent "
                                f"({rollbacks}/{integ_cfg.max_rollbacks})")
@@ -909,119 +1269,119 @@ def train(
                         integ_now = integ_now.hardened()
                         hardened = True
                         step = build(mode_now, compact_capacity)
+                        seen_blocks.clear()
+                    if prefetcher is not None:
+                        # the worker speculates forward; a rewind needs a
+                        # fresh one at the replay's start
+                        prefetcher.close()
+                        prefetcher = make_prefetcher()
                     sentinel.rewind(good["sentinel"])
                     # the telemetry diff base follows the restored counters
                     obs_prev = good["obs_prev"]
-                    rollback_info = {"reason": reason, "tripped_epoch": epoch,
+                    rollback_info = {"reason": verdict,
+                                     "tripped_epoch": blk_end,
                                      "restored_epoch": good["epoch"],
                                      "hardened": hardened}
-                    epoch = good["epoch"]
+                    bi = good["next_bi"]
                     continue
                 if integ_rollback_on:
-                    good = {"state": _clone(state), "epoch": epoch,
+                    good = {"state": _clone(state), "epoch": blk_end,
+                            "next_bi": bi + 1,
                             "sentinel": sentinel.snapshot(),
                             "obs_prev": obs_prev}
                     if retention is not None and ckpt_due:
-                        retention.save_good(epoch, *state_lib.payload(
-                            good["state"], epoch, algo))
-            if not compact_done:
-                # the capacity is one static number for every rank: the peak
-                # is over the ranks of the post-warmup steps (pass ==
-                # warmup_passes is already real trigger data)
-                pnums = pass_base + 1 + np.arange(steps)
-                keep = pnums >= warmup_passes
-                if memb_opened:
-                    # an epoch that opens with a membership force-fire is
-                    # transient (the full-fire rewire pass, then the
-                    # thresholds re-adapt): sampling it would size the
-                    # budget toward the whole model
-                    keep[:] = False
-                post = m_e["fired_elems"][keep]
-                if post.size:
-                    compact_fired_peak = max(compact_fired_peak,
-                                             float(post.max()))
-                    compact_post_steps += int(post.shape[0])
-                if compact_frac is None:
-                    enough = compact_post_steps >= COMPACT_MIN_SAMPLES
-                else:
-                    enough = bool(pnums[-1] >= warmup_passes)
-                if enough:
-                    n = spec.n_total
-                    floor = collectives.compact_capacity_floor(spec.sizes)
-                    if bucketed_k > 1 and algo == "eventgrad":
-                        # every bucket must fit its own largest leaf
-                        floor = max(floor, collectives.bucketed_capacity_floor(
-                            spec.buckets(bucketed_k)))
-                    autotuned = compact_frac is None
-                    if autotuned:
-                        cap = collectives.choose_capacity(
-                            n, compact_fired_peak, floor)
-                        compact_note = {
-                            "compact_autotuned": True,
-                            "compact_fired_peak_elems": compact_fired_peak,
-                        }
+                        retention.save_good(blk_end, *state_lib.payload(
+                            good["state"], blk_end, algo))
+                if memb_engine is not None and memb_engine.events_at(blk_end):
+                    # transitions land after the block's host work and
+                    # before any snapshot, so snapshots are always
+                    # post-transition
+                    for ev in memb_engine.events_at(blk_end):
+                        state, topo, info = memb_engine.apply(state, topo, ev)
+                        memb_pending.append(info)
+                        if registry is not None:
+                            registry.gauge("membership_transitions_total",
+                                           float(len(memb_engine.log)))
+                        if obs_prev is not None:
+                            # the telemetry diff base follows the state's rows
+                            obs_prev = (
+                                chaos_membership.take_rows_host(
+                                    obs_prev, tuple(info["survivors"]))
+                                if ev.kind == "leave" else
+                                chaos_membership.insert_zero_row_host(
+                                    obs_prev, ev.index))
+                    n_ranks = topo.n_ranks
+                    steps = epoch_steps(len(x), n_ranks, batch_size)
+                    if blk_end < epochs:
+                        # a new ring: the step and the data shards are
+                        # rebuilt for it
+                        step = build(
+                            "compact" if compact_capacity is not None
+                            or compact_static else "dense", compact_capacity)
+                        if prefetcher is not None:
+                            prefetcher.close()
+                            prefetcher = make_prefetcher()
+                if ckpt_due:
+                    tensors, meta = state_lib.payload(state, blk_end, algo)
+                    if writer is not None:
+                        # fresh device copies, made before the next block
+                        # launches (a later block may write the state's
+                        # buffers), serialized on the writer thread behind
+                        # the next block's compute
+                        with _span("ckpt_snapshot", cat="host",
+                                   epoch=blk_end):
+                            tensors = {k: v.clone()
+                                       for k, v in tensors.items()}
+                            ready = None
+                            if device.type == "cuda":
+                                ready = torch.cuda.Event()
+                                ready.record()
+                        writer.save(ckpt_path, tensors, meta, ready=ready)
+                        del tensors
                     else:
-                        cap = min(n, max(floor, int(math.ceil(
-                            float(compact_frac) * n))))
-                        compact_note = {"compact_autotuned": False}
-                    if autotuned and cap >= n:
-                        # fire rate ~1: the budget would be the whole model
-                        compact_note["compact_skipped"] = (
-                            "observed fire rate needs capacity >= n_params"
-                        )
-                    else:
-                        compact_capacity = cap
-                        step = build("compact", cap)
-                    compact_done = True
-            rank_passes += steps * n_ranks
-            if memb_engine is not None and memb_engine.events_at(epoch):
-                # transitions land after the epoch's host work and before
-                # any snapshot, so snapshots are always post-transition
-                for ev in memb_engine.events_at(epoch):
-                    state, topo, info = memb_engine.apply(state, topo, ev)
-                    memb_pending.append(info)
-                    if registry is not None:
-                        registry.gauge("membership_transitions_total",
-                                       float(len(memb_engine.log)))
-                    if obs_prev is not None:
-                        # the telemetry diff base follows the state's rows
-                        obs_prev = (
-                            chaos_membership.take_rows_host(
-                                obs_prev, tuple(info["survivors"]))
-                            if ev.kind == "leave" else
-                            chaos_membership.insert_zero_row_host(
-                                obs_prev, ev.index))
-                n_ranks = topo.n_ranks
-                steps = epoch_steps(len(x), n_ranks, batch_size)
-                if epoch < epochs:
-                    # a new ring: the step is rebuilt for it
-                    step = build(
-                        "compact" if compact_capacity is not None
-                        or compact_static else "dense", compact_capacity)
-            if ckpt_due:
-                with _span("checkpoint", cat="host", epoch=epoch):
-                    checkpoint.save(ckpt_path, *boundary_payload())
-            # graceful preemption: a signal since the last boundary, or a
-            # notice scheduled in this epoch, drains here
-            preempt_reason = None
-            if guard.requested is not None:
-                preempt_reason = f"signal:{guard.requested}"
-            elif preempt_at is not None and epoch >= preempt_at[0]:
-                preempt_reason = f"schedule:{preempt_at[0]}@{preempt_at[1]}"
-            if preempt_reason is not None:
-                t_drain = time.perf_counter()
-                if ckpt_path and not ckpt_due:
-                    with _span("checkpoint", cat="host", epoch=epoch):
-                        checkpoint.save(ckpt_path, *boundary_payload())
-                info = {"reason": preempt_reason, "epoch": int(epoch),
-                        "snapshot": bool(ckpt_path),
-                        "drain_s": round(time.perf_counter() - t_drain, 4)}
-                if checkpoint_dir:
-                    info["marker"] = crashpoint.write_marker(checkpoint_dir,
-                                                             info)
-                raise crashpoint.GracefulPreemption(info)
-            # the boundary is processed: records, any due save
-            crashpoint.hit("loop.block_end")
+                        with _span("checkpoint", cat="host", epoch=blk_end):
+                            checkpoint.save(ckpt_path, tensors, meta)
+                # graceful preemption: a signal since the last boundary,
+                # or a notice scheduled in this block, drains here
+                preempt_reason = None
+                if guard.requested is not None:
+                    preempt_reason = f"signal:{guard.requested}"
+                elif preempt_at is not None and blk_end >= preempt_at[0]:
+                    preempt_reason = (
+                        f"schedule:{preempt_at[0]}@{preempt_at[1]}")
+                if preempt_reason is not None:
+                    t_drain = time.perf_counter()
+                    with _span("preempt_drain", cat="host", epoch=blk_end):
+                        if pending is not None:
+                            drain(pending)
+                            pending = None
+                        if writer is not None:
+                            writer.wait()
+                        if ckpt_path and not ckpt_due:
+                            checkpoint.save(ckpt_path, *state_lib.payload(
+                                state, blk_end, algo))
+                    info = {"reason": preempt_reason, "epoch": int(blk_end),
+                            "snapshot": bool(ckpt_path),
+                            "drain_s": round(time.perf_counter() - t_drain,
+                                             4)}
+                    if checkpoint_dir:
+                        info["marker"] = crashpoint.write_marker(
+                            checkpoint_dir, info)
+                    raise crashpoint.GracefulPreemption(info)
+                # the boundary is processed: host work drained or
+                # deferred, any due save committed or on the writer
+                crashpoint.hit("loop.block_end")
+                bi += 1
+            if pending is not None:
+                drain(pending)
+                pending = None
+            if writer is not None:
+                writer.wait()  # the exit barrier; re-raises its error
+    finally:
+        if writer is not None:
+            writer.close(raise_errors=False)
+        if prefetcher is not None:
+            prefetcher.close()
     if memb_pending and history:
         # transitions at the final boundary have no next record to ride
         history[-1].setdefault("membership_transitions", [])

@@ -239,8 +239,12 @@ def make_train_step(
     with any integrity config the metrics add `integrity_wire_reject`
     (`[R, n_nb]`) and `integrity_quarantined` (`[R]`).
 
-    The bucketed schedule under the fault clauses (drop, flaky, delay,
-    die, nanstep, the freeze) waits (ROADMAP queue 1, item 12); it
+    The bucketed schedule runs under the fault clauses (drop, flaky,
+    delay, die, nanstep, the freeze) as the JAX step does: every bucket
+    ships with the pass's delivered bits, the health updates once from
+    every bucket's raw fire bits, and each bucket's tail is the gated
+    pitched form of kernel 1 (or 5 on a carrier) with the pass's gates
+    (`w_rows` 1/(1 + n_alive), the alive gate, the nanstep poison). It
     refuses the integrity riders and `bitflip=` as the JAX step does.
 
     `obs=True` accumulates the telemetry and the message ledger into
@@ -320,14 +324,6 @@ def make_train_step(
                 "bucketed is not combinable with chaos bitflip= faults: "
                 "the corruption transform targets ONE wire buffer per "
                 "edge, which the bucketed schedule splits K ways"
-            )
-        if chaos is not None and (chaos.has_drops or chaos.has_nansteps
-                                  or chaos_policy.freeze_after):
-            raise NotImplementedError(
-                "the bucketed schedule under the fault clauses (drop, "
-                "flaky, delay, die, nanstep, the edge freeze) is not "
-                "ported yet (ROADMAP queue 1, item 12): it needs the "
-                "per-bucket gated tails"
             )
     if chaos is not None:
         chaos_policy.validate_against(
@@ -436,6 +432,10 @@ def make_train_step(
     draws = augment or bool(sites(1))
 
     carrier = carrier_wire is not None
+    # the bucketed schedule under chaos (the JAX step's chaos branch):
+    # every bucket ships first, the health updates once from every
+    # bucket's raw bits, and each bucket's tail takes the pass's gates
+    bucket_chaos = buckets is not None and chaos is not None
     # the in-step integrity riders and the in-transit corruption: the
     # exchange then returns its per-edge verdicts
     bitflips = chaos is not None and chaos.has_bitflips
@@ -466,7 +466,8 @@ def make_train_step(
     def _ship(flat, fire_vec, fire_bs, packed, leaf_id, scale_vec, bi,
               faults=None):
         """One exchange: the whole arena (`bi` None), with the pass's
-        delivered bits and integrity riders (`faults`), or bucket `bi`."""
+        delivered bits and integrity riders (`faults`), or bucket `bi`
+        with the delivered bits alone."""
         if bi is None:
             kw = dict(faults or {}, carrier=carrier)
             if compact_capacity is not None:
@@ -478,16 +479,18 @@ def make_train_step(
                 wire_builder=event_engine.masked_wire, **kw)
         b = buckets[bi]
         sv = None if scale_vec is None else scale_vec[:, b.lo:b.hi]
+        deliver = (faults or {}).get("deliver")
         if caps is not None:
             pk, lid = collectives._compact_pack(
                 flat[:, b.start:b.start + b.size], fire_bs[bi],
                 collectives.bucket_spec_of(b), caps[bi])
             return collectives.compact_neighbor_vals_bucket(
                 pk, lid, fire_bs[bi], topo, b, caps[bi], flat.dtype, wire,
-                scale_vec=sv, carrier=carrier)
+                scale_vec=sv, carrier=carrier, deliver=deliver)
         return collectives.masked_neighbor_vals_bucket(
             flat, fire_bs[bi], topo, b, wire, scale_vec=sv,
-            wire_builder=event_engine.masked_wire, carrier=carrier)
+            wire_builder=event_engine.masked_wire, carrier=carrier,
+            deliver=deliver)
 
     def _tail(flat, g_flat, t_flat, event_state, res, q_plan, out, bi,
               gates=None):
@@ -495,8 +498,9 @@ def make_train_step(
         carrier): the whole arena (`bi` None) or bucket `bi`, whose
         pitched form writes p', t' into the bucket's columns of `out`.
         Under staleness >= 2 the queue's arrival (slot 0) is what
-        commits, and the mix reads the post-arrival buffers. `gates` (the
-        whole arena only) holds the gated form's per-row operands.
+        commits, and the mix reads the post-arrival buffers. `gates`
+        holds the gated form's per-row operands (on a bucket, the whole
+        pass's).
         Returns (p', t', committed buffers, their scales, the queue's new
         slots)."""
         dev = flat.device
@@ -540,8 +544,9 @@ def make_train_step(
                 mix_scales = tuple(sc[:, seg] for sc in src)
             mix_stale = bool(staleness)
         keeps = tuple(e.to(torch.float32)[:, seg] for e in effs)
-        kw = dict(gates or {}) if bi is None else dict(
-            off=buckets[bi].start, out=out)
+        kw = dict(gates or {})
+        if bi is not None:
+            kw.update(off=buckets[bi].start, out=out)
         if carrier:
             p_new, t_new, bufs = fused_mix_commit_carrier(
                 flat, cands, keeps, lasts, g_flat, t_flat, lr, mom,
@@ -584,7 +589,11 @@ def make_train_step(
         the exchange carries the pass's faults (`faults`: the delivered
         bits and integrity riders), its verdicts and the updated health
         gate the tail (the freeze, the poison, the quarantine) and, at
-        D >= 2, fold into the queue's delivered bits. Returns (p', t',
+        D >= 2, fold into the queue's delivered bits. Under chaos the
+        bucketed schedule ships every bucket with the delivered bits
+        first, updates the health once from every bucket's raw bits
+        (concatenated per edge), and then runs each bucket's tail with
+        the gates computed once. Returns (p', t',
         the event state with its buffers, scales and queues committed,
         the raw `[R, L]` fire bits received per neighbor, the edge
         staleness gauge, this pass's late commits and the lags (each None
@@ -604,7 +613,24 @@ def make_train_step(
                 scale_vec = collectives._masked_scales(
                     collectives._leaf_absmax(flat, spec), fire_vec)
         done = []
-        for bi in parts:
+        if bucket_chaos:
+            shipped = []
+            for bi in parts:
+                with _phase(f"exchange.b{bi}"):
+                    shipped.append(_ship(flat, fire_vec, fire_bs, packed,
+                                         leaf_id, scale_vec, bi, faults))
+            health = _health(health, tuple(
+                torch.cat([res[2][i] for res in shipped], dim=-1)
+                for i in range(n_nb)), deliver, None)
+            gates = _gates(health, poison, quar)
+            for bi, res in zip(parts, shipped):
+                with _phase(f"commit_mix.b{bi}"):
+                    p_new, t_new, bufs, scales, pend = _tail(
+                        flat, g_flat, t_flat, event_state, res, q_plan, out,
+                        bi, gates)
+                done.append((res[2], bufs, scales, pend))
+        # without chaos: bucket k's exchange, then its tail
+        for bi in (() if bucket_chaos else parts):
             sfx = "" if bi is None else f".b{bi}"
             gates = None
             with _phase("exchange" + sfx):
@@ -660,8 +686,6 @@ def make_train_step(
                 late_commits=event_state.late_commits + late)
             edge_stale = torch.full((), int(pass_num), dtype=torch.int32,
                                     device=dev) - clock
-        if buckets is not None and health is not None:
-            health = _health(health, raws, deliver, None)
         return (p_new, t_new, event_state, raws, (edge_stale, late, lag_vec),
                 health, oks)
 

@@ -16,10 +16,11 @@ trees; the port keeps its own format. A snapshot is a directory holding
 demotes the old snapshot to ``<path>.prev``, promotes the new one, drops
 ``.prev`` and fsyncs the parent: a kill at any instant leaves ``<path>``
 or ``<path>.prev`` complete, and `latest` finds whichever survived. The
-crash sites ``ckpt.tmp_written``, ``ckpt.mid_swap`` and
-``ckpt.post_promote`` (`chaos/crashpoint.py`) sit at the JAX module's
-instants. `peek` reads a snapshot without a template, falling back
-loudly to ``.prev`` when the primary is unreadable; `restore` grafts its
+crash sites ``ckpt.tmp_written`` (the tmp tree written and fsynced,
+before the swap), ``ckpt.mid_swap`` and ``ckpt.post_promote``
+(`chaos/crashpoint.py`) sit at the JAX module's seams. `peek` reads a
+snapshot without a template, falling back loudly to ``.prev`` when the
+primary is unreadable; `restore` grafts its
 tensors onto a template's flat dict exactly, `restore_with_fill` lets
 missing leaves keep the template's values. `AsyncWriter` serializes on a
 background thread and `RollingRetention` keeps the integrity engine's
@@ -99,12 +100,25 @@ def save(path: str, tensors: Tensors, meta: Dict[str, Any]) -> None:
     at any point leaves `<path>` or `<path>.prev` complete and a host
     crash after the return cannot lose the promoted snapshot."""
     path = os.path.abspath(path)
-    tmp, prev = path + ".tmp", path + ".prev"
-    _write(tmp, tensors, meta)
+    _stage(path, tensors, meta)
+    _promote(path)
+
+
+def _stage(path: str, tensors: Tensors, meta: Dict[str, Any]) -> None:
+    """Write `<path>.tmp` and fsync it: the durability point, the tmp
+    tree's bytes on disk before any rename makes them the snapshot of
+    record."""
+    _write(path + ".tmp", tensors, meta)
+    _fsync_tree(path + ".tmp")
+
+
+def _promote(path: str) -> None:
+    """Swap the staged `<path>.tmp` in as the snapshot of record: demote
+    the old one to `.prev`, promote, drop `.prev`, fsync the parent (the
+    crash sites `ckpt.tmp_written` before the swap, `ckpt.mid_swap` and
+    `ckpt.post_promote` inside it)."""
     crashpoint.hit("ckpt.tmp_written")
-    # the durability point: the tmp tree's bytes are on disk before any
-    # rename makes them the snapshot of record
-    _fsync_tree(tmp)
+    tmp, prev = path + ".tmp", path + ".prev"
     if os.path.exists(path):
         if os.path.exists(prev):
             shutil.rmtree(prev)
@@ -119,6 +133,20 @@ def save(path: str, tensors: Tensors, meta: Dict[str, Any]) -> None:
     _fsync_path(os.path.dirname(path))
 
 
+def _host_copies(tensors: Tensors, ready=None) -> Tensors:
+    """Host copies of `tensors`: with `ready` (a CUDA event recorded
+    after the device tensors were made), copied on a side stream that
+    waits on it, so the copy does not queue behind the device work
+    launched after the event."""
+    if ready is None:
+        return {k: v.detach().cpu() for k, v in tensors.items()}
+    dev = next(v.device for v in tensors.values() if v.is_cuda)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        side.wait_event(ready)
+        return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
 def host_snapshot(tensors: Tensors) -> Tensors:
     """Owned host copies of every tensor (blocking): the eager half of an
     asynchronous save, after which the caller may go on mutating the
@@ -129,44 +157,68 @@ def host_snapshot(tensors: Tensors) -> Tensors:
 class AsyncWriter:
     """One background thread for snapshot serialization.
 
-    `save()` joins any save in flight (two writers must never race the
-    tmp/prev swap), then runs `checkpoint.save` on the thread, after the
-    ``writer.bg_save`` crash site. `wait()` / `close()` join, and an
-    atexit hook joins at interpreter exit. A failed save re-raises at the
-    next barrier. The loop hands it `host_snapshot` copies; the port's
-    loop saves synchronously until the dispatch pipeline lands (ROADMAP
-    queue 1, item 6, part 6e)."""
+    `save()` joins the save in flight (two writers must never race the
+    tmp/prev swap), then runs the next on the thread, as the JAX
+    package's writer does: past the ``writer.bg_save`` crash site it
+    copies the tensors to the host (on a side stream of its own that
+    waits on `ready`, when the loop hands it device copies), writes and
+    fsyncs `<path>.tmp` beside the next blocks' compute, and swaps it in
+    as the snapshot of record at once. `wait()` (the join before the
+    next save, at a preemption drain and at the end of the run) and
+    `close()` are the barriers; an atexit hook closes at interpreter
+    exit. A failed save re-raises at the next barrier. `_staged` is the
+    seam between the fsync and the swap, a no-op here (the crash matrix
+    holds it to the next barrier, `utils/crash_matrix.BarrierWriter`)."""
 
     def __init__(self) -> None:
         self._thread: Optional[threading.Thread] = None
         self._exc: Optional[BaseException] = None
         self._atexit_hook: Optional[Callable[[], None]] = None
 
-    def save(self, path: str, tensors: Tensors,
-             meta: Dict[str, Any]) -> None:
-        """Serialize `tensors` (owned host copies) to `path` on the
-        writer thread; joins the previous save first."""
+    def save(self, path: str, tensors: Tensors, meta: Dict[str, Any],
+             ready=None) -> None:
+        """Stage `tensors` (owned copies, on any device: nothing else may
+        write them) as the snapshot of `path` on the writer thread;
+        joins the previous save first. `ready` is a CUDA event recorded
+        after the device copies were made."""
         self.wait()
         if self._atexit_hook is None:
             self._atexit_hook = lambda: self.close(raise_errors=False)
             atexit.register(self._atexit_hook)
+        path = os.path.abspath(path)
+        started = threading.Event()
 
         def work() -> None:
             try:
                 crashpoint.hit("writer.bg_save")
-                save(path, tensors, meta)
+                started.set()
+                _stage(path, _host_copies(tensors, ready), meta)
+                self._staged()
+                _promote(path)
             except BaseException as e:  # re-raised at the next barrier
                 self._exc = e
+            finally:
+                started.set()
 
         self._thread = threading.Thread(target=work, daemon=True,
                                         name="eg-ckpt-writer")
         self._thread.start()
+        # the thread has passed its crash site before the loop goes on
+        started.wait()
 
-    def wait(self) -> None:
-        """Join the save in flight (if any) and re-raise its error."""
+    def _staged(self) -> None:
+        """On the writer thread, between the fsync of `<path>.tmp` and
+        the swap: nothing."""
+
+    def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def wait(self) -> None:
+        """The barrier: join the save in flight (if any) and re-raise its
+        error."""
+        self._join()
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise RuntimeError("async checkpoint save failed") from exc
@@ -181,9 +233,7 @@ class AsyncWriter:
         if raise_errors:
             self.wait()
             return
-        if self._thread is not None:
-            self._thread.join()
-            self._thread = None
+        self._join()
         if self._exc is not None:
             logging.getLogger(__name__).warning(
                 "async checkpoint save failed during unwind (snapshot on "

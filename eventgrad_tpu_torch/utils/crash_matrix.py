@@ -2,9 +2,13 @@
 resume, compare with the run that never stopped.
 
 The port's counterpart of the JAX package's `tools/crash_matrix.py`
-(reference verdicts in `artifacts/crash_matrix_cpu.json`), for the two
+(reference verdicts in `artifacts/crash_matrix_cpu.json`), for the
 configurations whose durability machinery the port has: `arena_serial`
-(the plain loop: one epoch per block, synchronous saves), `membership`
+(`pipeline=False`: one epoch per block, synchronous saves),
+`arena_pipe` (`pipeline=True`: block B's host work after block B+1's
+launches, the saves on `utils/checkpoint.AsyncWriter`'s thread, where
+the `writer.bg_save` site sits; run on `BarrierWriter`, below),
+`membership`
 (`leave=1@2,join=1@4`: the join at epoch 4 streams its neighbour row
 through `<ck>/bootstrap`, where the `membership.bootstrap` site sits)
 and `integrity` (the sentinel with rollback and escalation, checksums
@@ -37,7 +41,7 @@ trigger at horizon 0.95 with warmup 2, max_silence 8). Each child is
 a process of its own running this module's `--child` entry, which
 calls `train()`; the children are forked from one forkserver that has
 imported torch and the port (`PRELOAD`), so each pays for its run and
-its CUDA start, not for the imports. One child runs the four
+its CUDA start, not for the imports. One child runs the five
 uninterrupted baselines in turn, and the cells run beside it on
 `WORKERS` threads (one a core), each a sequence of children. A cell is
 held to its baseline once both have run.
@@ -55,12 +59,14 @@ import os
 import signal
 import sys
 import tempfile
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from eventgrad_tpu_torch.exitcodes import (
     CRASHPOINT_EXIT, INTEGRITY_ABORT_EXIT, PREEMPTED_EXIT,
 )
+from eventgrad_tpu_torch.utils import checkpoint
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -88,7 +94,9 @@ COMMON_SITES = {
 
 #: config name -> (train() keywords, {site: hit})
 CONFIGS: Dict[str, Tuple[Dict[str, str], Dict[str, int]]] = {
-    "arena_serial": ({}, dict(COMMON_SITES)),
+    "arena_serial": ({"pipeline": False}, dict(COMMON_SITES)),
+    "arena_pipe": ({"pipeline": True},
+                   {**COMMON_SITES, "writer.bg_save": 2}),
     "membership": (
         # leave at 2, join at 4: the join streams a neighbour row through
         # the bootstrap path (<ck>/bootstrap) mid-matrix
@@ -110,6 +118,7 @@ PREEMPT_BASE_CHAOS = "drop=0,seed=7"
 #: the uninterrupted runs: tag -> (config, chaos)
 BASELINES = {
     "arena_serial": ("arena_serial", None),
+    "arena_pipe": ("arena_pipe", None),
     "membership": ("membership", None),
     "integrity": ("integrity", None),
     "preempt": ("arena_serial", PREEMPT_BASE_CHAOS),
@@ -126,8 +135,37 @@ WORKERS = os.cpu_count() or 4
 # --- the child: one train() run ------------------------------------------
 
 
+class BarrierWriter(checkpoint.AsyncWriter):
+    """`AsyncWriter` on the schedule the JAX artifact recorded: a disk
+    slower than the next block, so a save's fsynced `<path>.tmp` is
+    swapped in only at the writer's next barrier (the next save, a
+    preemption drain, the end).
+
+    A real run swaps as soon as the fsync returns, and whether that lands
+    before or after the next block's host work is a race between two
+    threads: a kill at `ckpt.tmp_written` or `ckpt.mid_swap` then
+    recomputes 2 or 4 epochs, at `ckpt.post_promote` or
+    `loop.block_end` 0 or 2. The JAX artifact's cells lie on the slow
+    side (4, 4, 2 and 2);
+    holding the swap to the barrier puts every run there, so each cell
+    is one number."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._barrier = threading.Event()
+
+    def _staged(self) -> None:
+        self._barrier.wait()
+
+    def _join(self) -> None:
+        self._barrier.set()
+        super()._join()
+        self._barrier.clear()
+
+
+
 def _child(args) -> int:
-    """One run of the op-point (`--child CONFIG`), or the four
+    """One run of the op-point (`--child CONFIG`), or the five
     uninterrupted baselines in turn (`--child baselines`, each under
     `<ck>/<tag>--base/`); the exit code tells a preemption and an
     integrity abort apart."""
@@ -174,6 +212,9 @@ def _run(x, y, config: str, ck: str, log_path: str, device: str, *,
     if chaos is not None:
         kw["chaos"] = chaos
     log = open(log_path, "a")
+    # the loop makes its writer as checkpoint.AsyncWriter
+    writer_cls = checkpoint.AsyncWriter
+    checkpoint.AsyncWriter = BarrierWriter
 
     def on_epoch(rec):
         log.write(json.dumps(rec) + "\n")
@@ -203,6 +244,7 @@ def _run(x, y, config: str, ck: str, log_path: str, device: str, *,
     except IntegrityEscalation:
         return INTEGRITY_ABORT_EXIT
     finally:
+        checkpoint.AsyncWriter = writer_cls
         log.close()
     return 0
 
@@ -347,8 +389,6 @@ def lost_epochs(first, resumed) -> int:
 def final_state_equal(ck_ref: str, ck_got: str) -> bool:
     """The two runs' final snapshots (epoch and every tensor) bitwise."""
     import torch
-
-    from eventgrad_tpu_torch.utils import checkpoint
 
     (ta, ma), (tb, mb) = (
         checkpoint.peek(checkpoint.latest(os.path.join(ck, "ckpt")), "cpu")
@@ -520,13 +560,15 @@ PREEMPT_KEYS = ("exit", "marker", "final_state_bitwise", "history_bitwise",
 
 
 def compare(ref: Dict[str, Any], got: Dict[str, Any]) -> List[str]:
-    """Where `got` (this matrix) differs from the JAX artifact `ref` on
-    the configurations the port has: each cell's verdicts, hit and lost
-    epochs, each preemption leg's verdicts and lost blocks. Empty when
-    every verdict agrees."""
+    """Where `got` (a matrix's record) differs from the JAX artifact
+    `ref` on the configurations `got` ran (its `configs`; a live run's
+    are `CONFIGS`): each cell's verdicts, hit and lost epochs, each
+    preemption leg's verdicts and lost blocks. Empty when every verdict
+    agrees."""
     out = []
+    ran = got.get("configs", CONFIGS)
     want = {(c["config"], c["site"]): c for c in ref["cells"]
-            if c["config"] in CONFIGS}
+            if c["config"] in ran}
     have = {(c["config"], c["site"]): c for c in got["cells"]}
     if set(want) != set(have):
         out.append(f"cells differ: {sorted(set(want) ^ set(have))}")

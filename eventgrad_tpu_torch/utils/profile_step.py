@@ -5,7 +5,7 @@
                   transformer-d256}] [--algos ALGO ...]
         [--wire {bf16,int8}] [--staleness D] [--carrier-resident]
         [--compact-frac F] [--bucketed K] [--chaos SPEC]
-        [--integrity SPEC]
+        [--integrity SPEC] [--relu {flax,torch}]
 
 For each leg (EventGraD, then D-PSGD, or the `--algos` named: allreduce,
 dpsgd, eventgrad, sp_eventgrad at top-k 10%) at the flagship op-point —
@@ -45,7 +45,10 @@ inside `step/commit_mix`; `--chaos` takes a fault schedule
 (`seed=5,slow=1@7`, `drop=0.2,seed=0`), and `--integrity` an integrity
 config (`on`: the checksums and the finite checks ride
 `step/exchange`, the quarantine kernel 1's gated form and the tail's
-post-update check). A bucket's spans (`exchange.b<k>`,
+post-update check). `--relu torch` runs the models on torch's own relu
+in place of `models/activation.relu` (flax's derivative, which stops a
+NaN's gradient): what that repair costs a step. A bucket's spans
+(`exchange.b<k>`,
 `commit_mix.b<k>`) count into their phase. It prints one JSON line per
 leg and, last, the card's name and power limit. It needs a CUDA device.
 """
@@ -243,8 +246,14 @@ def main(argv=None) -> int:
     ap.add_argument("--bucketed", type=int, default=None)
     ap.add_argument("--chaos", default=None)
     ap.add_argument("--integrity", default=None)
+    ap.add_argument("--relu", choices=("flax", "torch"), default="flax")
     args = ap.parse_args(argv)
     device = resolve_device(None)
+    if args.relu == "torch":
+        from eventgrad_tpu_torch.models import cnn, mlp, resnet
+
+        for mod in (cnn, mlp, resnet):
+            mod.relu = torch.relu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for algo in args.algos:
@@ -255,6 +264,7 @@ def main(argv=None) -> int:
                           compact_frac=args.compact_frac,
                           bucketed=args.bucketed, chaos=args.chaos,
                           integrity=args.integrity)
+        rec["relu"] = args.relu
         print(json.dumps(rec), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

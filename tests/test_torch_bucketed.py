@@ -27,7 +27,18 @@ package:
     exactly, and the per-bucket bytes sum to the monolithic bytes;
   * the pitched forms of kernels 1, 2, 3 and 5 (here their plain
     versions) are bitwise the contiguous forms' columns;
-  * the bucketed guards raise ValueError as the JAX step's do.
+  * the bucketed guards raise ValueError as the JAX step's do;
+  * the bucketed schedule under the fault clauses (drop, flaky, delay,
+    die, nanstep, the forced sync and the edge freeze; f32, bf16 and int8
+    wires, the int8 carrier, D = 2): K = 2 and 4 bitwise the monolithic
+    step over 8 passes (the state, NaNs by their bits, and every
+    metric); the gated pitched forms of kernels 1 and 5 (their plain
+    versions) bitwise the gated whole-arena forms' columns; and the
+    port's bucketed step under faults against the JAX bucketed step from
+    the carried JAX state, within `tests/test_torch_chaos.py`'s
+    tolerance (parameters rtol=1e-4, atol=1e-5, NaNs equal; silence,
+    sync requests, drops, byte and event counts exact; the receive
+    buffers and scales bitwise).
 
 MLP (hidden 16, 8x8 inputs), Ring(4), 4 samples per rank, float32 on
 both sides.
@@ -40,16 +51,21 @@ import optax
 import pytest
 import torch
 
+from eventgrad_tpu.chaos import monitor as jax_monitor
+from eventgrad_tpu.chaos import policy as jax_policy
+from eventgrad_tpu.chaos.schedule import ChaosSchedule as JaxChaos
 from eventgrad_tpu.data.datasets import synthetic_dataset as jax_synthetic
 from eventgrad_tpu.models import MLP as JaxMLP
 from eventgrad_tpu.parallel import arena as jax_arena
 from eventgrad_tpu.parallel import collectives as jax_coll
 from eventgrad_tpu.parallel.events import EventConfig as JaxEventConfig
-from eventgrad_tpu.parallel.spmd import spmd
+from eventgrad_tpu.parallel.spmd import spmd, stack_for_ranks
 from eventgrad_tpu.parallel.topology import Ring as JaxRing
 from eventgrad_tpu.train.state import init_train_state as jax_init_state
 from eventgrad_tpu.train.steps import make_train_step as jax_make_step
 from eventgrad_tpu_torch import convert
+from eventgrad_tpu_torch.chaos.monitor import PeerHealth
+from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
 from eventgrad_tpu_torch.models import MLP
 from eventgrad_tpu_torch.ops import arena_update, event_engine
 from eventgrad_tpu_torch.parallel import collectives
@@ -395,3 +411,240 @@ def test_bucketed_guards():
     # the JAX loop's demotion to the monolithic tail does not carry over:
     # the fused bucketed step builds
     make_train_step(model, topo, "eventgrad", bucketed=4, **kw)
+
+
+# --- the bucketed schedule under the fault clauses ---------------------------
+
+
+#: (chaos spec, recovery policy, step keywords): drops, a flaky window, a
+#: death early enough to freeze its edges, delay phases, nansteps (not on
+#: a carrier, which refuses them), the forced sync
+FAULT_CASES = {
+    "f32_drop_flaky_die_sync_freeze": (
+        "drop=0.3,seed=2,flaky=3-5@0.9,die=2@2",
+        dict(sync_after=5, freeze_after=6), {}),
+    "f32_delay_nanstep_freeze": (
+        "drop=0.2,seed=4,delay=2,nanstep=1@3",
+        dict(freeze_after=6), {}),
+    "f32_momentum_drop_nanstep": (
+        "drop=0.25,seed=7,nanstep=3@6", None, dict(momentum=0.9)),
+    "bf16_die_nanstep_freeze": (
+        "drop=0.3,seed=5,die=1@3,nanstep=2@5",
+        dict(freeze_after=6), dict(wire="bf16")),
+    "bf16_drop_die_sync_freeze": (
+        "drop=0.3,seed=9,die=1@3", dict(sync_after=5, freeze_after=6),
+        dict(wire="bf16")),
+    "int8_drop_die_sync_freeze": (
+        "drop=0.3,seed=6,die=3@2", dict(sync_after=5, freeze_after=6),
+        dict(wire="int8")),
+    "int8_carrier_drop_die_freeze": (
+        "drop=0.3,seed=8,die=0@3,delay=3", dict(freeze_after=6),
+        dict(wire="int8", carrier=True)),
+    "f32_stale2_drop_die_slow": (
+        "drop=0.3,seed=3,die=2@2,slow=1@3", dict(freeze_after=6),
+        dict(staleness=2)),
+}
+
+
+def _fault_run(K, spec, pol, *, wire=None, carrier=False, staleness=0,
+               momentum=0.0, steps=8):
+    topo, model = Ring(R), _model()
+    cfg = EventConfig(**CFG)
+    state = init_train_state(model, IN_SHAPE, topo, "eventgrad", cfg,
+                             seed=0, momentum=momentum, bucketed=K,
+                             staleness=staleness,
+                             resident_wire=wire if carrier else None,
+                             device="cpu")
+    state = state.replace(chaos=PeerHealth.init(topo, "cpu"))
+    step = make_train_step(
+        model, topo, "eventgrad", cfg, fused_sgd=(LR, momentum), wire=wire,
+        carrier_resident=carrier, staleness=staleness, bucketed=K,
+        chaos=spec, chaos_policy=None if pol is None
+        else RecoveryPolicy(**pol), n_passes=steps)
+    ms = []
+    for x, y in _batches(steps):
+        state, m = step(state, (torch.from_numpy(x),
+                                torch.from_numpy(y).long()))
+        ms.append(m)
+    return state, ms
+
+
+def _flat_pending(pending):
+    return [x for edge in pending for slot in edge for x in
+            (torch.cat(v, dim=-1) if isinstance(v, tuple) else v
+             for v in slot)]
+
+
+@pytest.mark.parametrize("name", sorted(FAULT_CASES))
+def test_bucketed_under_faults_bitwise_matches_monolithic(name):
+    spec, pol, kw = FAULT_CASES[name]
+    s_m, ms_m = _fault_run(None, spec, pol, **kw)
+    for K in (2, 4):
+        s_b, ms_b = _fault_run(K, spec, pol, **kw)
+        w = f"{name} K={K}"
+        _same(s_m.params, s_b.params, f"{w} params")
+        if s_m.trace is not None:
+            _same(s_m.trace, s_b.trace, f"{w} trace")
+        for f in ("thres", "last_sent_norm", "last_sent_iter", "slopes",
+                  "num_events", "num_deferred"):
+            _same(getattr(s_m.event, f), getattr(s_b.event, f), f"{w} {f}")
+        for i, (bm, bb) in enumerate(zip(_flat_bufs(s_m.event.bufs),
+                                         _flat_bufs(s_b.event.bufs))):
+            _same(bm, bb, f"{w} bufs[{i}]")
+        if s_m.event.buf_scales is not None:
+            for sm, sb in zip(s_m.event.buf_scales,
+                              _flat_bufs(s_b.event.buf_scales)):
+                _same(sm, sb, f"{w} scales")
+        if s_m.event.pending is not None:
+            for a, b in zip(_flat_pending(s_m.event.pending),
+                            _flat_pending(s_b.event.pending)):
+                _same(a, b, f"{w} pending")
+        for f in ("silence", "sync_req", "drops"):
+            _same(getattr(s_m.chaos, f), getattr(s_b.chaos, f), f"{w} {f}")
+        for p, (mm, mb) in enumerate(zip(ms_m, ms_b), start=1):
+            for k in mm:
+                _same(mm[k], mb[k], f"{w} pass {p} {k}")
+    # the faults landed: drops were counted, and the freeze or the
+    # nanstep reached the state
+    assert int(s_m.chaos.drops.sum()) > 0
+    if pol and pol.get("freeze_after"):
+        assert int(s_m.chaos.silence.max()) >= pol["freeze_after"]
+    if "nanstep" in spec:
+        assert torch.isnan(s_m.params).any()
+
+
+def test_gated_pitched_forms_are_the_gated_columns():
+    """The gated pitched forms of kernels 1 and 5 (their plain versions)
+    give the gated whole-arena forms' bits on a bucket's columns."""
+    g = torch.Generator().manual_seed(1)
+    n, off, c = 41, 7, 19
+    rn = lambda *s: torch.randn(*s, generator=g)
+    bits = lambda *s: (torch.rand(*s, generator=g) < 0.5).float()
+    cols = lambda x: x[:, off:off + c].contiguous()
+    gate = torch.ones((R, 2), dtype=torch.bool)
+    gate[1, 0] = gate[2, 1] = False
+    gkw = dict(w_rows=collectives.mix_weights(gate), gate=gate)
+    poison = torch.ones(R)
+    poison[3] = float("nan")
+    quar = torch.zeros(R, dtype=torch.bool)
+    quar[0] = True
+    p, gr, t = rn(R, n), rn(R, n), rn(R, n)
+    cands, keeps, lasts = ((rn(R, n), rn(R, n)), (bits(R, n), bits(R, n)),
+                           (rn(R, n), rn(R, n)))
+    for stale in (False, True):
+        kw = dict(gkw, poison=poison, quar=quar)
+        whole = arena_update.fused_mix_commit(p, cands, keeps, lasts, gr, t,
+                                              0.01, 0.9, 1 / 3, stale, **kw)
+        po, to, bufs = arena_update.fused_mix_commit(
+            p, tuple(map(cols, cands)), tuple(map(cols, keeps)),
+            tuple(map(cols, lasts)), gr, t, 0.01, 0.9, 1 / 3, stale,
+            off=off, out=(torch.zeros(R, n), torch.zeros(R, n)), **kw)
+        _same(cols(po), cols(whole[0]), "gated p'")
+        _same(cols(to), cols(whole[1]), "gated t'")
+        for a, b in zip(bufs, whole[2]):
+            _same(a, cols(b), "gated bufs")
+        assert torch.isnan(po[3, off:off + c]).all()
+        q = lambda: torch.randint(-127, 128, (R, n), generator=g,
+                                  dtype=torch.int8)
+        cq, lq, sc = (q(), q()), (q(), q()), (rn(R, n), rn(R, n))
+        whole = arena_update.fused_mix_commit_carrier(
+            p, cq, keeps, lq, gr, t, 0.01, 0.9, 1 / 3, mix_scales=sc,
+            mix_stale=stale, **gkw)
+        po, to, bufs = arena_update.fused_mix_commit_carrier(
+            p, tuple(map(cols, cq)), tuple(map(cols, keeps)),
+            tuple(map(cols, lq)), gr, t, 0.01, 0.9, 1 / 3,
+            mix_scales=tuple(map(cols, sc)), mix_stale=stale, off=off,
+            out=(torch.zeros(R, n), torch.zeros(R, n)), **gkw)
+        _same(cols(po), cols(whole[0]), "gated carrier p'")
+        for a, b in zip(bufs, whole[2]):
+            _same(a, cols(b), "gated carrier bufs")
+    with pytest.raises(ValueError, match="w_rows must be"):
+        arena_update.fused_mix_commit(
+            p, tuple(map(cols, cands)), tuple(map(cols, keeps)),
+            tuple(map(cols, lasts)), gr, t, 0.01, 0.9, 1 / 3, off=off,
+            out=(torch.zeros(R, n), torch.zeros(R, n)),
+            w_rows=torch.ones(R + 1), gate=gate)
+
+
+def _jax_health(js):
+    return PeerHealth(
+        silence=torch.from_numpy(np.array(js.chaos.silence)),
+        sync_req=torch.from_numpy(np.array(js.chaos.sync_req)),
+        drops=torch.from_numpy(np.array(js.chaos.drops)))
+
+
+#: the JAX comparison's cases (one JAX compile each). On the bf16 wire
+#: the nanstep's poison reaches a neighbour in a few positions only, so
+#: that rank's gradient runs through a relu on NaNs (`models/activation`)
+JAX_FAULT_CASES = ("f32_drop_flaky_die_sync_freeze",
+                   "f32_delay_nanstep_freeze", "bf16_die_nanstep_freeze",
+                   "bf16_drop_die_sync_freeze",
+                   "int8_carrier_drop_die_freeze")
+
+
+@pytest.mark.parametrize("name", JAX_FAULT_CASES)
+def test_bucketed_step_under_faults_matches_jax(name):
+    spec, pol, kw = FAULT_CASES[name]
+    wire, carrier = kw.get("wire"), kw.get("carrier", False)
+    K, steps = 2, 8
+    jtopo, topo = JaxRing(R), Ring(R)
+    jmodel, model = JaxMLP(hidden=HIDDEN), _model()
+    aspec = arena_spec(model)
+    tx = optax.sgd(LR)
+    jcfg, cfg = JaxEventConfig(**CFG), EventConfig(**CFG)
+    jstate = jax_init_state(jmodel, IN_SHAPE, tx, jtopo, "eventgrad", jcfg,
+                            seed=0, arena=True, bucketed=K,
+                            resident_wire=wire if carrier else None)
+    jstate = jstate.replace(chaos=stack_for_ranks(
+        jax_monitor.PeerHealth.init(jtopo), jtopo))
+    jstep = jax.jit(spmd(jax_make_step(
+        jmodel, tx, jtopo, "eventgrad", jcfg, arena=True, bucketed=K,
+        wire=wire, carrier_resident=carrier, chaos=JaxChaos.parse(spec),
+        chaos_policy=jax_policy.RecoveryPolicy(**pol)), jtopo))
+    tstep = make_train_step(model, topo, "eventgrad", cfg,
+                            fused_sgd=(LR, 0.0), bucketed=K, wire=wire,
+                            carrier_resident=carrier, chaos=spec,
+                            chaos_policy=RecoveryPolicy(**pol),
+                            n_passes=steps)
+    exact = ("edge_silence", "chaos_drops", "sent_bytes",
+             "sent_bytes_wire_real", "sent_bytes_wire_real_per_bucket",
+             "fired_elems", "num_events", "num_deferred", "fired_frac")
+    for p, (x, y) in enumerate(_batches(steps, seed=2), start=1):
+        js = jax.tree.map(np.asarray, jstate)
+        tp, ts = convert.params_from_jax(js.params, js.batch_stats,
+                                         stacked=True)
+        tstate = TrainState(params=aspec.ravel(tp), trace=None,
+                            batch_stats=ts, pass_num=int(js.pass_num[0]),
+                            event=convert.event_state_from_jax(js.event,
+                                                               aspec),
+                            chaos=_jax_health(js))
+        jstate, jm = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        tstate, tm = tstep(tstate, (torch.from_numpy(x),
+                                    torch.from_numpy(y).long()))
+        js, jm = jax.tree.map(np.asarray, jstate), jax.tree.map(np.asarray,
+                                                                jm)
+        w = f"{name} pass {p}"
+        for k in exact:
+            if k in jm:
+                np.testing.assert_array_equal(tm[k].numpy(), jm[k],
+                                              err_msg=f"{w} {k}")
+        jp, _ = convert.params_from_jax(js.params, stacked=True)
+        np.testing.assert_allclose(tstate.params.numpy(),
+                                   aspec.ravel(jp).numpy(), err_msg=w,
+                                   equal_nan=True, **TOL)
+        jh = _jax_health(js)
+        for f in ("silence", "sync_req", "drops"):
+            _same(getattr(tstate.chaos, f), getattr(jh, f), f"{w} {f}")
+        jev = convert.event_state_from_jax(js.event, aspec)
+        # a poisoned rank's payload is NaN on both sides; the two
+        # frameworks' bf16 casts need not agree on a NaN's sign bit
+        canon = lambda v: torch.where(torch.isnan(v), float("nan"), v)
+        for i, (tb, jb) in enumerate(zip(tstate.event.bufs, jev.bufs)):
+            for b, (u, v) in enumerate(zip(tb, jb)):
+                _same(canon(u), canon(v), f"{w} bufs[{i}][{b}]")
+        if jev.buf_scales is not None:
+            for u, v in zip(tstate.event.buf_scales, jev.buf_scales):
+                for a, b in zip(u, v):
+                    _same(a, b, f"{w} scales")
+    assert int(tstate.chaos.drops.sum()) > 0
+    assert int(tstate.chaos.silence.max()) >= pol["freeze_after"]

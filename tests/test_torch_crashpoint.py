@@ -187,8 +187,10 @@ def test_sigterm_drains_at_the_epoch_end_and_resumes_bitwise(tmp_path):
             os.kill(os.getpid(), signal.SIGTERM)
 
     before = signal.getsignal(signal.SIGTERM)
+    # serial: a pipelined run logs epoch 1 once epoch 2 has launched, and
+    # then drains at epoch 2's end
     with pytest.raises(GracefulPreemption) as ei:
-        _run(ck, on_epoch=deliver)
+        _run(ck, on_epoch=deliver, pipeline=False)
     assert ei.value.info["reason"] == "signal:SIGTERM"
     assert ei.value.info["epoch"] == 1  # no save was due: a forced one
     assert signal.getsignal(signal.SIGTERM) == before
@@ -358,6 +360,9 @@ def test_crash_matrix_artifact_matches_the_jax_artifact():
     assert got["recovery_ok"] and got["device"] == "cpu"
     assert got["op_point"] == dict(crash_matrix.OP, model="mlp",
                                    algo="eventgrad")
+    # the artifact predates the arena_pipe configuration, whose cells
+    # tests/test_torch_dispatch.py runs live against the JAX artifact
+    assert set(got["configs"]) == set(crash_matrix.CONFIGS) - {"arena_pipe"}
     assert {(c["config"], c["site"], c["hit"]) for c in got["cells"]} == {
         (c, s, h) for c, (_, sites) in crash_matrix.CONFIGS.items()
-        for s, h in sites.items()}
+        if c in got["configs"] for s, h in sites.items()}

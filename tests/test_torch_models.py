@@ -11,6 +11,11 @@ on offer. The gradients are held against the flax model run in float64
 Each check runs on the BasicBlock ResNet (`test_<check>`) and on the
 Bottleneck one (`test_bottleneck_<check>`), both at the small geometry
 (one block a stage, plus the reference's extra block; 8 base filters).
+
+`test_relu_derivative_matches_flax` holds the port's relu to flax's
+`nn.relu`, value and gradient, NaN for NaN, on NaNs, zeros, infinities
+and signed values, under `torch.func.vjp` and `vmap` as the step runs
+it, and its forward to torch's relu bit for bit.
 """
 
 import jax
@@ -24,6 +29,7 @@ from eventgrad_tpu.models.resnet import Bottleneck as JaxBottleneck
 from eventgrad_tpu.models.resnet import ResNet as JaxResNet
 from eventgrad_tpu.train.steps import _xent as jax_xent
 from eventgrad_tpu_torch import convert
+from eventgrad_tpu_torch.models.activation import relu
 from eventgrad_tpu_torch.models.resnet import BasicBlock, Bottleneck, ResNet
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.spmd import per_rank
@@ -266,3 +272,32 @@ def test_bottleneck_leaf_order_on_equal_shapes(bottleneck):
             if n.startswith(("Bottleneck_1.BatchNorm_0.",
                              "Bottleneck_1.BatchNorm_1."))]
     assert len({tuple(tp[n].shape) for n in same}) == 1 and len(same) == 4
+
+
+def test_relu_derivative_matches_flax():
+    """flax's relu stops a NaN input's gradient (`select(x > 0, g, 0)`),
+    where torch's own relu passes it on: the port's relu gives flax's
+    values and gradients, NaN for NaN and value for value, per rank under
+    vmap."""
+    import flax.linen as fnn
+
+    x = np.array([[np.nan, -np.nan, 0.0, -0.0, 1.5, -2.0, np.inf, -np.inf],
+                  [3.0, np.nan, -1.0, 0.0, 2.0, np.nan, -0.5, 7.0]],
+                 np.float32)
+    g = np.array([[1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0],
+                  [np.nan, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0]], np.float32)
+    jy, jvjp = jax.vjp(fnn.relu, jnp.asarray(x))
+    (jg,) = jvjp(jnp.asarray(g))
+    tx, tgo = torch.from_numpy(x), torch.from_numpy(g)
+    ty = relu(tx)
+    (tg,) = per_rank(lambda xi, gi: torch.func.vjp(relu, xi)[1](gi))(tx, tgo)
+    for a, b in ((ty.numpy(), np.asarray(jy)), (tg.numpy(), np.asarray(jg))):
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_array_equal(np.nan_to_num(a), np.nan_to_num(b))
+    assert tg[0, 0].item() == 0.0
+    # the forward is torch's relu bit for bit, NaN signs included
+    assert torch.equal(ty.view(torch.int32), torch.relu(tx).view(torch.int32))
+    # torch's own relu passes the NaN input's gradient on
+    t = tx.clone().requires_grad_()
+    torch.relu(t).backward(tgo)
+    assert t.grad[0, 0].item() == g[0, 0]

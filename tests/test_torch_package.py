@@ -174,7 +174,8 @@ def test_train_on_cpu_records():
 def test_refusals_name_their_roadmap_item(tmp_path):
     """Every feature the port refuses raises NotImplementedError naming
     the ROADMAP queue-1 item that ports it; the calls of items 5, 6a, 6b,
-    6d and 10, once refused, now run."""
+    6d, 6e, 10 and 12, once refused or missing, now run; what the JAX
+    step refuses stays refused with its cause."""
     from eventgrad_tpu_torch.analysis import audit
     from eventgrad_tpu_torch.chaos.membership import MembershipSchedule
     from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
@@ -246,16 +247,29 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     _, hist = train_mlp(membership="leave=1@1")
     assert hist[0]["membership"] == MembershipSchedule.parse(
         "leave=1@1").to_dict()
+    # item 6e (K-epoch dispatch blocks, the prefetcher, the device data,
+    # the deferred eval and the background saves) is ported
+    _, hist = egt.train(egt.MLP(input_shape=(8, 8, 1)), egt.Ring(4), x, y,
+                        algo="eventgrad", epochs=4, batch_size=8,
+                        epochs_per_dispatch=2, pipeline=True,
+                        device_data=True, x_test=x, y_test=y, device="cpu")
+    assert [h["dispatch_block"] for h in hist] == [0, 0, 1, 1]
+    assert "test_accuracy" in hist[-1]
+    # item 12 (the bucketed schedule under the fault clauses) is ported:
+    # its call, once refused, now runs; what the JAX step refuses there
+    # stays refused with the JAX cause
+    make_train_step(model, egt.Ring(8), "eventgrad", fused_sgd=(0.1, 0.0),
+                    bucketed=4, chaos="seed=1,drop=0.2")
+    for kw, cause in ((dict(chaos="seed=1,bitflip=0.1"), "bitflip"),
+                      (dict(integrity="on"), "integrity defenses")):
+        with pytest.raises(ValueError, match=rf"bucketed is not combinable"
+                                             rf" with .*{cause}"):
+            make_train_step(model, egt.Ring(8), "eventgrad",
+                            fused_sgd=(0.1, 0.0), bucketed=4, **kw)
     refusals = {
         "item 6": [
             # the file loaders still to port (6f)
             lambda: load_or_synthesize("mnist", "/data", "train"),
-        ],
-        # the bucketed schedule under the fault clauses
-        "item 12": [
-            lambda: make_train_step(model, egt.Ring(8), "eventgrad",
-                                    fused_sgd=(0.1, 0.0), bucketed=4,
-                                    chaos="seed=1,drop=0.2"),
         ],
         "item 7": [
             lambda: egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,

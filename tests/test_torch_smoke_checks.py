@@ -10,6 +10,10 @@ rounded to bfloat16 before `ds k`, as the wgmma form does, it must pass
 both limits with room to spare; with a uniform 3% loss it must pass the
 element-wise limit and fail the norm; with the last query block's rows
 missing one K tile it must fail the norm.
+
+Also `chip_smoke._same_records`, the one record comparator of every
+leg: on named keys, and on every key but a skip set with the block-end
+riders allowed to be absent, a NaN equal to a NaN.
 """
 
 import importlib.util
@@ -89,3 +93,26 @@ def test_a_lost_key_tile_fails_the_norm(d):
     with pytest.raises(smoke.SmokeError, match="relative norm error"):
         smoke.within(got, want, what="dq", rel_norm=smoke.BF16_REL_NORM,
                      **ELEM)
+
+
+def test_same_records_on_named_and_on_all_keys():
+    nan = float("nan")
+    a = [{"epoch": 1, "loss": nan, "wall_s": 1.0, "dispatch_block": 0},
+         {"epoch": 2, "loss": 0.5, "wall_s": 2.0, "dispatch_block": 0,
+          "test_accuracy": 10.0}]
+    b = [{"epoch": 1, "loss": nan, "wall_s": 3.0, "dispatch_block": 0},
+         {"epoch": 2, "loss": 0.5, "wall_s": 4.0, "dispatch_block": 1,
+          "test_accuracy": 10.0}]
+    smoke._same_records(a, b, "named", keys=("loss",))
+    skip = ("wall_s", "dispatch_block")
+    smoke._same_records(a, b, "all", keys=None, skip=skip)
+    # a block-end rider may be absent from the second run's record
+    smoke._same_records(a, [b[0], {k: v for k, v in b[1].items()
+                                   if k != "test_accuracy"}], "rider",
+                        keys=None, skip=skip)
+    with pytest.raises(smoke.SmokeError, match="wall_s"):
+        smoke._same_records(a, b, "timing", keys=None)
+    for k, v in (("loss", 0.25), ("test_accuracy", 11.0), ("extra", 1)):
+        with pytest.raises(smoke.SmokeError, match=k):
+            smoke._same_records(a, [b[0], {**b[1], k: v}], k, keys=None,
+                                skip=skip)

@@ -304,6 +304,8 @@ def test_step_runs_the_kernels_only_on_cuda(eventgrad_run):
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
         "fused_mix_commit_gated": 0, "fused_mix_sgd_gated": 0,
         "fused_mix_commit_carrier_gated": 0,
+        "fused_mix_commit_pitched_gated": 0,
+        "fused_mix_commit_carrier_pitched_gated": 0,
     }
 
 
