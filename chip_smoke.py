@@ -338,7 +338,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    pass after each transition (the run cut at epochs 2 and 4, the
    step rebuilt on the new ring) fires every leaf on every rank, the
    exact forced count 2 x 86 messages a rank;
-16. summary — one JSON line of every kernel's numbers, the card's name and
+16. cli — the port started the way the system starts, on files the
+   phase writes: the native data library built from this checkout under
+   `build/` (`data/native.py`; `available()` and `jpeg_supported()`
+   printed; with libjpeg, 64 JPEGs decoded through the CIFAR-10 JPEG
+   tree loader, else a line saying why that leg did not run); the
+   flagship through `eventgrad_tpu_torch.cli.main` (full-width ResNet-18
+   in float32, Ring(8), global batch 256, lr 0.01 momentum 0.9, horizon
+   1.05, warmup 2, 2 epochs on `--dataset cifar10 --data-dir` five
+   binary batches of 512 records and a test batch: the loaded arrays
+   bitwise the bytes times float32 1/255), EventGraD with max silence
+   50, D-PSGD and EventGraD on the int8 carrier: kernels 1 and 2, 4, 3
+   and 5 launched once a pass, the bytes exact, a record an epoch and a
+   final one; the LM through the CLI (dim 512, 8 heads of 64, 2 layers,
+   T = 1024, 64 sequences a rank, one pass): the flash launches by form
+   and kernels 1 and 2; the supervisor's drills as child processes on
+   the card (the MLP on MNIST idx files the phase writes): a crash under
+   `python -m eventgrad_tpu_torch.supervise` and a hang it must kill,
+   each resumed to a last snapshot bitwise the uninterrupted run's;
+17. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -3363,11 +3381,16 @@ def _tree_bits(a, b, what):
     """Every tensor of two states' flat forms (`train/state.to_flat`:
     parameters, trace, statistics, event state with its buffers, scales
     and queues, peer health, the random stream's bytes) bitwise."""
-    import torch
-
     from eventgrad_tpu_torch.train import state as state_lib
 
-    fa, fb = state_lib.to_flat(a), state_lib.to_flat(b)
+    _flat_bits(state_lib.to_flat(a), state_lib.to_flat(b), what)
+
+
+def _flat_bits(fa, fb, what):
+    """Two flat `{path: tensor}` dicts (a state's `to_flat`, a snapshot's
+    tensors) bitwise, path for path."""
+    import torch
+
     if fa.keys() != fb.keys():
         raise SmokeError(f"{what}: fields differ "
                          f"{sorted(set(fa) ^ set(fb))}")
@@ -4213,6 +4236,388 @@ def phase_membership():
     return totals
 
 
+#: the command-line phase: the CIFAR-10 files it writes (five training
+#: batches of CLI_RECORDS records, a test batch of as many: 10 passes an
+#: epoch at global batch 256 on Ring(8)), the flagship's argv through
+#: `python -m eventgrad_tpu_torch.cli` and its three legs
+CLI_RECORDS = 512
+CLI_FLAGSHIP = ["--model", "resnet18", "--mesh", "ring:8", "--global-batch",
+                "256", "--lr", "0.01", "--momentum", "0.9", "--horizon",
+                "1.05", "--warmup-passes", "2", "--epochs", "2", "--dataset",
+                "cifar10"]
+#: (leg, its flags, the kernels it must launch once a pass); the bound on
+#: silence is an event algorithm's flag (the CLI refuses it for D-PSGD)
+CLI_LEGS = (
+    ("cli-eventgrad", ["--algo", "eventgrad", "--max-silence", "50"],
+     ("masked_wire", "fused_mix_commit")),
+    ("cli-dpsgd", ["--algo", "dpsgd"], ("fused_mix_sgd",)),
+    ("cli-eventgrad-int8-carrier",
+     ["--algo", "eventgrad", "--max-silence", "50", "--wire", "int8",
+      "--carrier-resident"],
+     ("masked_wire_int8", "fused_mix_commit_carrier")),
+)
+#: the LM leg: PR 3's transformer width (dim 512, 8 heads of 64,
+#: T = 1024) at 2 layers, 64 sequences a rank, one pass
+CLI_LM = ["--model", "transformer", "--attn", "flash", "--dim", "512",
+          "--heads", "8", "--layers", "2", "--seq-len", "1024", "--mesh",
+          "ring:8", "--n-synth", "512", "--epochs", "1"]
+#: the supervised drills: the MLP on MNIST idx files the phase writes
+CLI_DRILL = ["--algo", "eventgrad", "--mesh", "ring:4", "--model", "mlp",
+             "--dataset", "mnist", "--epochs", "3", "--batch-size", "8",
+             "--warmup-passes", "2", "--save-every", "1"]
+#: seconds without a heartbeat before the supervisor kills the hang
+#: drill's child (a child's first heartbeat, its log file, comes after its
+#: torch import and CUDA start, which share the host with the phase)
+CLI_HANG_TIMEOUT = 30
+
+
+def _write_cifar_bins(root, x_u8, y, n_files):
+    """CIFAR-10 binary batches of NHWC uint8 images: a label byte and the
+    CHW bytes per record; `n_files` == 1 writes test_batch.bin."""
+    import numpy as np
+
+    per = len(x_u8) // n_files
+    names = (["test_batch.bin"] if n_files == 1 else
+             [f"data_batch_{i}.bin" for i in range(1, n_files + 1)])
+    for i, name in enumerate(names):
+        xs, ys = x_u8[i * per:(i + 1) * per], y[i * per:(i + 1) * per]
+        rec = np.concatenate(
+            [ys.astype(np.uint8)[:, None],
+             xs.transpose(0, 3, 1, 2).reshape(len(xs), -1)], axis=1)
+        (root / name).write_bytes(np.ascontiguousarray(rec).tobytes())
+
+
+def _write_mnist_idx(root, rng, n, prefix):
+    import numpy as np
+
+    imgs = rng.integers(0, 256, (n, 28, 28)).astype(np.uint8)
+    labs = rng.integers(0, 10, n).astype(np.uint8)
+    for arr, kind, magic in ((imgs, "images-idx3", 2051),
+                             (labs, "labels-idx1", 2049)):
+        head = magic.to_bytes(4, "big") + b"".join(
+            d.to_bytes(4, "big") for d in arr.shape)
+        (root / f"{prefix}-{kind}-ubyte").write_bytes(head + arr.tobytes())
+
+
+def _cli_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _run_cli(argv):
+    """`eventgrad_tpu_torch.cli.main(argv)` in this process, its echo of
+    the records kept out of this script's output (they are in the log)."""
+    import contextlib
+    import io
+
+    from eventgrad_tpu_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cli.main(argv)
+
+
+def _final_snapshot(ck):
+    from eventgrad_tpu_torch.utils import checkpoint
+
+    found = checkpoint.latest(str(ck / "ckpt"))
+    if found is None:
+        raise SmokeError(f"no snapshot under {ck}")
+    raw, meta = checkpoint.peek(found, device="cpu")
+    return raw, meta
+
+
+def _same_snapshot(a, b, what):
+    (ra, ma), (rb, mb) = a, b
+    if ma["epoch"] != mb["epoch"]:
+        raise SmokeError(f"{what}: epochs {ma['epoch']} / {mb['epoch']}")
+    _flat_bits(ra, rb, what)
+
+
+def phase_cli():
+    """The port started the way the system starts: the command line and
+    the supervisor, on files written to disk.
+
+    (d) first: the native data library (`data/native.py`) builds from the
+    checkout's source under `build/`; `available()` and
+    `jpeg_supported()` are printed, and with libjpeg 64 JPEGs the phase
+    writes are decoded through `load_cifar10_jpeg_dir` (without it, a line
+    says this leg did not run and why). (c) starts at once beside the
+    rest, as subprocesses on the card: the MLP on MNIST idx files the
+    phase writes, uninterrupted through `python -m
+    eventgrad_tpu_torch.cli`, with `--fault-inject crash:1` under `python
+    -m eventgrad_tpu_torch.supervise --timeout 60 --max-restarts 2`, and
+    with `hang:1` under a supervisor with a CLI_HANG_TIMEOUT timeout that
+    must kill it; each resumed run's last snapshot must be bitwise the
+    uninterrupted one's (CUBLAS_WORKSPACE_CONFIG inherited from `main`),
+    its log epochs 1-3 and a final record. (a) the flagship through
+    `cli.main` in this process: full-width ResNet-18, Ring(8), global
+    batch 256, lr 0.01 momentum 0.9, horizon 1.05, max silence 50, warmup
+    2, 2 epochs on `--dataset cifar10 --data-dir D` (D: five binary
+    batches of CLI_RECORDS records and a test batch, written here; the
+    loaded arrays bitwise the bytes times the reader's float32 1/255),
+    legs EventGraD (kernels 1, 2), D-PSGD (kernel 4) and EventGraD on the
+    int8 carrier (kernels 3, 5): each kernel launched once a pass (the
+    counters zeroed just before each leg and read just after), the bytes
+    exact, one record an epoch and a final one with a test accuracy.
+    (b) the LM through the CLI (PR 3's width at 2 layers, 8 ranks x 64
+    sequences of 1024, one EventGraD pass): the flash kernels' launches
+    by form, forward once per layer per pass and per test pass (the
+    epoch's and the final evaluation), dQ and dK/dV once per layer per
+    pass, all on the float32 D = 64 form, and kernels 1 and 2 once a
+    pass. Returns the launches of each kernel."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.data import native
+    from eventgrad_tpu_torch.data.datasets import (
+        CIFAR10_CLASSES, load_cifar10_jpeg_dir, load_or_synthesize,
+        synthetic_dataset,
+    )
+    from eventgrad_tpu_torch.ops import attention as fa
+    from eventgrad_tpu_torch.ops import flash_plan
+
+    card = nvidia_smi("name,power.limit")
+    root = Path(tempfile.mkdtemp(prefix="eg-cli-"))
+    totals = {}
+    drills = {}
+    try:
+        # (d) the data library, built from this checkout's source
+        t0 = time.perf_counter()
+        ok, jpeg = native.available(), native.jpeg_supported()
+        build_s = time.perf_counter() - t0
+        lib = native.library_path()
+        log(json.dumps({"leg": "cli data library", "available": ok,
+                        "jpeg_supported": jpeg, "library": str(lib),
+                        "load_s": build_s, "card": card}))
+        if not ok:
+            raise SmokeError(f"the native data library did not build: "
+                             f"{native.build_error()}")
+        if HERE / "build" not in lib.parents and not os.environ.get(
+                "EG_TORCH_BUILD_DIR"):
+            raise SmokeError(f"the data library is at {lib}, not under "
+                             f"{HERE / 'build'}")
+
+        # (c) the supervised drills, started now, read at the end
+        mn = root / "mnist"
+        mn.mkdir()
+        rng = np.random.default_rng(0)
+        _write_mnist_idx(mn, rng, 512, "train")
+        _write_mnist_idx(mn, rng, 128, "t10k")
+        env = dict(os.environ, PYTHONPATH=str(HERE))
+        drill = CLI_DRILL + ["--data-dir", str(mn), "--device", DEVICE]
+
+        def launch(tag, pre, extra):
+            d = root / tag
+            d.mkdir()
+            cmd = [sys.executable, "-m", *pre] + drill + [
+                "--checkpoint-dir", str(d / "ck"), "--log-file",
+                str(d / "log.jsonl")] + extra
+            t_start = time.perf_counter()
+            proc = subprocess.Popen(cmd, env=env, cwd=str(HERE),
+                                    stdout=subprocess.DEVNULL,
+                                    stderr=subprocess.PIPE, text=True)
+            box = {"proc": proc, "dir": d}
+
+            def wait():
+                _, box["err"] = proc.communicate(timeout=900)
+                box["wall_s"] = time.perf_counter() - t_start
+
+            box["thread"] = threading.Thread(target=wait, daemon=True)
+            box["thread"].start()
+            drills[tag] = box
+
+        launch("straight", ["eventgrad_tpu_torch.cli"], [])
+        launch("crash", ["eventgrad_tpu_torch.supervise", "--timeout", "60",
+                         "--max-restarts", "2", "--"],
+               ["--fault-inject", "crash:1"])
+        launch("hang", ["eventgrad_tpu_torch.supervise", "--timeout",
+                        str(CLI_HANG_TIMEOUT), "--max-restarts", "1",
+                        "--backoff-base", "0", "--"],
+               ["--fault-inject", "hang:1"])
+
+        if jpeg:
+            jd = root / "jpeg"
+            img_rng = np.random.default_rng(1)
+            for c, cls in enumerate(CIFAR10_CLASSES[:8]):
+                (jd / "train" / cls).mkdir(parents=True)
+                for i in range(8):
+                    native.save_jpeg(
+                        str(jd / "train" / cls / f"{i:04d}.jpg"),
+                        img_rng.integers(0, 256, (32, 32, 3)).astype(
+                            np.uint8), 92)
+            t0 = time.perf_counter()
+            xj, yj = load_cifar10_jpeg_dir(str(jd), "train")
+            dec_s = time.perf_counter() - t0
+            if xj.shape != (64, 32, 32, 3) or yj.tolist() != [
+                    c for c in range(8) for _ in range(8)]:
+                raise SmokeError(f"JPEG tree: {xj.shape}, labels "
+                                 f"{yj.tolist()}")
+            if not (np.isfinite(xj).all() and 0.0 <= xj.min()
+                    and xj.max() <= 1.0):
+                raise SmokeError("JPEG tree: pixels outside [0, 1]")
+            log(json.dumps({"leg": "cli jpeg tree", "images": 64,
+                            "decode_s": dec_s, "card": card}))
+        else:
+            log("cli jpeg tree: NOT RUN — the data library was built "
+                "without libjpeg (<jpeglib.h> not found by the compiler "
+                "on this machine); the JPEG leg needs it")
+
+        # (a) the flagship through the command line, on CIFAR-10 files
+        cf = root / "cifar"
+        cf.mkdir()
+        x, y = synthetic_dataset(5 * CLI_RECORDS, (32, 32, 3), seed=0)
+        xt, yt = synthetic_dataset(CLI_RECORDS, (32, 32, 3), seed=0,
+                                   split="test")
+        to_u8 = lambda a: np.clip(np.rint(a * 48.0 + 128.0), 0,
+                                  255).astype(np.uint8)
+        x_u8, xt_u8 = to_u8(x), to_u8(xt)
+        _write_cifar_bins(cf, x_u8, y, 5)
+        _write_cifar_bins(cf, xt_u8, yt, 1)
+        inv = np.float32(1) / np.float32(255)
+        for split, xs, ys in (("train", x_u8, y), ("test", xt_u8, yt)):
+            got_x, got_y = load_or_synthesize("cifar10", str(cf), split)
+            want_x = xs.astype(np.float32) * inv
+            if (got_x.shape != want_x.shape
+                    or got_x.tobytes() != want_x.tobytes()
+                    or got_y.tolist() != ys.tolist()):
+                raise SmokeError(f"cifar10 {split}: the loaded arrays are "
+                                 "not the bytes written times float32 "
+                                 "1/255")
+        spec_n, leaves = FLAGSHIP_PARAMS, 86
+        # 2 epochs of (5 files x CLI_RECORDS) / 8 ranks / 32 a rank
+        want_passes = 2 * (5 * CLI_RECORDS // RANKS // 32)
+        for leg, extra, must in CLI_LEGS:
+            logf = root / f"{leg}.jsonl"
+            argv = CLI_FLAGSHIP + ["--data-dir", str(cf), "--log-file",
+                                   str(logf), "--device", DEVICE] + extra
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = _run_cli(argv)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            recs = _cli_records(logf)
+            hist = [r for r in recs if "epoch" in r]
+            if rc != 0 or [r.get("epoch") for r in recs] != [1, 2, None] \
+                    or not recs[-1].get("final") \
+                    or not math.isfinite(recs[-1].get("accuracy", math.nan)):
+                raise SmokeError(f"{leg}: rc {rc}, records "
+                                 f"{[r.get('epoch') for r in recs]}, last "
+                                 f"{recs[-1] if recs else None}")
+            passes = sum(r["steps"] for r in hist)
+            if passes != want_passes or any(counts[k] != passes
+                                            for k in must):
+                raise SmokeError(f"{leg}: launches {counts} over {passes} "
+                                 f"passes, expected {must} once a pass")
+            if not all(math.isfinite(r["loss"]) for r in hist):
+                raise SmokeError(f"{leg}: a loss is not finite")
+            rec = {"leg": leg, "card": card, "wall_s": wall,
+                   "passes": passes,
+                   "step_ms": [1e3 * r["wall_s"] / r["steps"] for r in hist],
+                   "loss": [r["loss"] for r in hist],
+                   "test_accuracy": [r.get("test_accuracy") for r in hist],
+                   "final_accuracy": recs[-1]["accuracy"],
+                   "sent_bytes_per_step_per_chip":
+                       hist[-1]["sent_bytes_per_step_per_chip"],
+                   "sent_bytes_wire_real_per_step_per_chip":
+                       hist[-1]["sent_bytes_wire_real_per_step_per_chip"],
+                   "launches": {k: counts[k] for k in must}}
+            if "int8" in leg:
+                if any(r["sent_bytes_wire_real_per_step_per_chip"]
+                       != EVENTGRAD_INT8_WIRE_REAL for r in hist) or any(
+                        r["resident_dtype"] != "int8" for r in hist):
+                    raise SmokeError(f"{leg}: wire-real / resident "
+                                     f"{rec}, expected "
+                                     f"{EVENTGRAD_INT8_WIRE_REAL} on int8")
+                rec["msgs_saved_pct"] = hist[-1]["msgs_saved_pct"]
+            else:
+                _check_dense_bytes(leg, extra[1], hist, spec_n, leaves, rec)
+            log(json.dumps(rec))
+            torch.cuda.empty_cache() if DEVICE == "cuda" else None
+
+        # (b) the LM through the command line
+        logf = root / "cli-lm.jsonl"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = _run_cli(CLI_LM + ["--log-file", str(logf), "--device", DEVICE])
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, forms = ops.launch_counts(), fa.form_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        recs = _cli_records(logf)
+        hist = [r for r in recs if "epoch" in r]
+        from eventgrad_tpu_torch import cli
+
+        lm = cli.build_parser().parse_args(CLI_LM)
+        layers = lm.layers
+        passes = sum(r["steps"] for r in hist)
+        form = flash_plan.flash_form("float32", lm.dim // lm.heads, (), ())
+        # the LM trains EventGraD (the CLI's default algo): kernels 1 and
+        # 2 once a pass beside the flash kernels
+        want = {"flash_fwd": layers * (passes + len(hist) + 1),
+                "flash_dq": layers * passes, "flash_dkv": layers * passes}
+        gossip = {"masked_wire": passes, "fused_mix_commit": passes}
+        if rc != 0 or not recs or not recs[-1].get("final") or passes < 1:
+            raise SmokeError(f"cli-lm: rc {rc}, records {recs}")
+        if any(counts[k] != n or forms[k][form] != n
+               for k, n in want.items()) or any(
+                counts[k] != n for k, n in gossip.items()):
+            raise SmokeError(f"cli-lm: launches {counts} by form {forms}, "
+                             f"expected {want} on {form} and {gossip}")
+        if not all(math.isfinite(r["loss"]) for r in hist):
+            raise SmokeError("cli-lm: a loss is not finite")
+        log(json.dumps({"leg": "cli-lm", "card": card, "wall_s": wall,
+                        "passes": passes, "loss": [r["loss"] for r in hist],
+                        "final_accuracy": recs[-1]["accuracy"],
+                        "launches": {**want, **gossip}, "forms": {
+                            k: forms[k] for k in want}}))
+
+        # (c) read the drills
+        for tag, box in drills.items():
+            box["thread"].join(timeout=900)
+            if box["thread"].is_alive():
+                raise SmokeError(f"drill {tag}: still running")
+            rc = box["proc"].returncode
+            err = box.get("err") or ""
+            if rc != 0:
+                raise SmokeError(f"drill {tag}: exit {rc}\n{err[-3000:]}")
+            epochs = [r.get("epoch") for r in _cli_records(
+                box["dir"] / "log.jsonl")]
+            if epochs != [1, 2, 3, None]:
+                raise SmokeError(f"drill {tag}: log epochs {epochs}")
+            if tag == "crash" and "attempt 1 failed (exit code 13)" \
+                    not in err:
+                raise SmokeError(f"drill crash: no crash seen\n{err[-2000:]}")
+            if tag == "hang" and "no heartbeat on" not in err:
+                raise SmokeError(f"drill hang: no kill seen\n{err[-2000:]}")
+        straight = _final_snapshot(drills["straight"]["dir"] / "ck")
+        for tag in ("crash", "hang"):
+            _same_snapshot(_final_snapshot(drills[tag]["dir"] / "ck"),
+                           straight, f"drill {tag}: the resumed snapshot")
+        log(json.dumps({"leg": "cli supervised drills", "card": card,
+                        "wall_s": {t: b["wall_s"] for t, b in drills.items()},
+                        "hang_timeout_s": CLI_HANG_TIMEOUT,
+                        "resumed_bitwise": True}))
+    finally:
+        for box in drills.values():
+            if box["proc"].poll() is None:
+                box["proc"].kill()
+        shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -4318,7 +4723,7 @@ def main() -> int:
                       phase_main_path_lm_d256, phase_realdata,
                       phase_frontier, phase_bucketed_async, phase_chaos,
                       phase_dispatch, phase_resume, phase_audit, phase_obs,
-                      phase_costmodel, phase_membership):
+                      phase_costmodel, phase_membership, phase_cli):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

@@ -17,10 +17,14 @@ docstrings and comments never match.
     names a live op and launch in its module (stale entries flag). The
     one named exemption is the auditor's seeded unregistered kernel in
     `analysis/audit.py`, honesty-checked: it must still define an
-    unregistered op and launch, and must stay out of the registry.
+    unregistered op and launch, and must stay out of the registry. The
+    host data library's entries (`data/native.py`, `HOST_LIBRARIES`)
+    are no kernels and pass, but a registered kernel's entry there
+    flags, and the file must still call its library.
   * trigger-policy-registered — every trigger-policy name given as a
-    string (`trigger_policy=`, `AuditConfig(policy=...)`) is an entry of
-    `parallel/policy.py` `POLICIES`.
+    string (`trigger_policy=`, `AuditConfig(policy=...)`, the CLI's
+    `--trigger-policy` choices) is an entry of `parallel/policy.py`
+    `POLICIES`, and every entry is among the CLI's choices.
   * carrier-dtype-declared — the receive buffers' resident dtype is
     declared once, by `parallel/arena.py` `alloc_event_bufs`: an ad-hoc
     `.to(...)` inside a `bufs=` / `buf_scales=` keyword flags, and the
@@ -188,6 +192,15 @@ class KernelRegistered(Rule):
             "oracle_unregistered_kernel's seeded eg::leak_kernel "
             "(csrc/audit_leak.cu, launched as eg_leak_x2)",
     }
+    #: the files that call a host library's `eg_` entries, which are not
+    #: kernels (no op, no device work): their entries are exempt, but a
+    #: registered kernel's entry there still flags, and a listed file
+    #: that no longer calls its library flags (the entry has gone stale)
+    HOST_LIBRARIES = {
+        f"{PACKAGE}/data/native.py":
+            "the host data library (native/dataio.cpp: the MNIST/CIFAR "
+            "readers, JPEG codec, shard plan and batch gathers)",
+    }
 
     @staticmethod
     def _op_defs(sf):
@@ -233,8 +246,18 @@ class KernelRegistered(Rule):
                         f"{sig.module}, defined in {sf.rel}"))
                 else:
                     ops_seen.setdefault(sf.rel, set()).add(name)
+            host = sf.rel in self.HOST_LIBRARIES
+            if host and not any(e not in by_entry
+                                for _, e in self._launches(sf)):
+                own.append(self._v(
+                    sf, 1,
+                    "host-library file no longer calls its library's eg_ "
+                    "entries — drop it from KernelRegistered.HOST_LIBRARIES"
+                    f" ({self.HOST_LIBRARIES[sf.rel]})"))
             for line, entry in self._launches(sf):
                 sig = by_entry.get(entry)
+                if sig is None and host:
+                    continue
                 if sig is None:
                     own.append(self._v(
                         sf, line,
@@ -286,36 +309,63 @@ class KernelRegistered(Rule):
 
 
 class TriggerPolicyRegistered(Rule):
-    """Every trigger-policy name given as a string resolves to a
-    `parallel/policy.py` `POLICIES` entry (a typo fails only at run
-    time, deep inside a training run). The port has no CLI yet, so the
-    JAX rule's other direction (every entry reachable from the CLI's
-    choices) waits with it."""
+    """Every trigger-policy name given as a string (`trigger_policy=`,
+    `AuditConfig(policy=...)`, the CLI's `--trigger-policy` choices)
+    resolves to a `parallel/policy.py` `POLICIES` entry (a typo fails
+    only at run time, deep inside a training run); and, the stale
+    direction, every registry entry is among the CLI's choices (a policy
+    the flag cannot name is dead surface)."""
 
     name = "trigger-policy-registered"
+
+    @staticmethod
+    def _sites(sf):
+        """(line, name, is_cli_choice) policy-name string references."""
+        for node in ast.walk(sf.tree):
+            if not isinstance(node, ast.Call):
+                continue
+            fn_name = _call_name(node)
+            for kw in node.keywords:
+                if kw.arg == "trigger_policy" or (
+                        kw.arg == "policy" and fn_name == "AuditConfig"):
+                    s = _const_str(kw.value)
+                    if s is not None:
+                        yield kw.value.lineno, s, False
+                elif (kw.arg == "choices" and fn_name == "add_argument"
+                      and node.args
+                      and _const_str(node.args[0]) == "--trigger-policy"
+                      and isinstance(kw.value, (ast.List, ast.Tuple))):
+                    for el in kw.value.elts:
+                        s = _const_str(el)
+                        if s is not None:
+                            yield el.lineno, s, True
 
     def check(self, files):
         from eventgrad_tpu_torch.parallel import policy as policy_lib
 
         out = []
+        cli_rel, cli_choices = None, set()
         for sf in files:
             if not _in_package(sf):
                 continue
-            for node in ast.walk(sf.tree):
-                if not isinstance(node, ast.Call):
-                    continue
-                fn_name = _call_name(node)
-                for kw in node.keywords:
-                    if not (kw.arg == "trigger_policy" or (
-                            kw.arg == "policy" and fn_name == "AuditConfig")):
-                        continue
-                    s = _const_str(kw.value)
-                    if s is not None and s not in policy_lib.POLICIES:
-                        out.append(self._v(
-                            sf, kw.value.lineno,
-                            f"trigger policy '{s}' is not a registry entry "
-                            "— register it in parallel/policy.py POLICIES "
-                            f"(known: {', '.join(sorted(policy_lib.POLICIES))})"))
+            for line, name, is_choice in self._sites(sf):
+                if is_choice:
+                    cli_rel = sf.rel
+                    cli_choices.add(name)
+                if name not in policy_lib.POLICIES:
+                    out.append(self._v(
+                        sf, line,
+                        f"trigger policy '{name}' is not a registry entry "
+                        "— register it in parallel/policy.py POLICIES "
+                        f"(known: {', '.join(sorted(policy_lib.POLICIES))})"))
+        if cli_rel is not None:
+            for reg in sorted(set(policy_lib.POLICIES) - cli_choices):
+                out.append(Violation(
+                    self.name, cli_rel, 1,
+                    f"registered trigger policy '{reg}' is missing from "
+                    "--trigger-policy choices — a policy the CLI can't "
+                    "name is dead surface; add it to the flag (or drop "
+                    "the registry entry)"))
         return out
 
 
@@ -532,6 +582,12 @@ class WallClockConfined(Rule):
         f"{PACKAGE}/utils/profiling.py":
             "timed_steps: the first call's seconds and, off the card, the "
             "host-clock step times (the JAX helper's fields)",
+        f"{PACKAGE}/supervise.py":
+            "the heartbeat: a child's launch time against the newest mtime "
+            "under its log or checkpoint dir, and the restart window's "
+            "clock",
+        f"{PACKAGE}/utils/soak.py":
+            "the soak's seconds in its record (the JAX artifact's wall_s)",
     }
 
     def _hits(self, sf: SourceFile):

@@ -28,6 +28,12 @@ purpose.
     notice came. A second signal while the drain still runs falls
     through to the previous handler: the way out of a wedged drain.
 
+  * the process faults of `train(fault_inject="crash:N" | "hang:N")` —
+    `inject_fault` exits with `exitcodes.FAULT_INJECT_EXIT` (13, the
+    JAX loop's code) or sleeps without a heartbeat, at the end of epoch
+    N after its snapshot: the drills a supervisor (`supervise.py`)
+    recovers from.
+
 The scheduled twin of the signal is the chaos clause
 ``preempt=EPOCH@STEP`` (`chaos/schedule.py`): a replayable notice that
 arrives in that epoch and drains at its end.
@@ -46,9 +52,10 @@ import json
 import os
 import signal
 import threading
+import time
 from typing import Any, Dict, Optional, Tuple
 
-from eventgrad_tpu_torch.exitcodes import CRASHPOINT_EXIT
+from eventgrad_tpu_torch.exitcodes import CRASHPOINT_EXIT, FAULT_INJECT_EXIT
 
 #: environment variable arming one crashpoint for this process:
 #: ``site`` or ``site:hit_n`` (1-based; default 1 = the first hit)
@@ -198,6 +205,17 @@ def hit(site: str) -> None:
         f"(exit {CRASHPOINT_EXIT})\n".encode(),
     )
     os._exit(CRASHPOINT_EXIT)
+
+
+def inject_fault(mode: str) -> None:
+    """The `fault_inject` drill at its epoch boundary (the loop calls it
+    after that epoch's snapshot): "crash" dies at once through
+    `os._exit(FAULT_INJECT_EXIT)`; "hang" stays alive without progress,
+    so no heartbeat advances and a supervisor's timeout must fire."""
+    if mode == "crash":
+        os._exit(FAULT_INJECT_EXIT)
+    while True:
+        time.sleep(3600)
 
 
 # --- graceful preemption ---------------------------------------------------

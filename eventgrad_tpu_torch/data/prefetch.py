@@ -4,9 +4,13 @@ Port of `eventgrad_tpu/data/prefetch.py` (`EpochPrefetcher`). While the
 device runs dispatch block B, a worker thread assembles block B+1's
 stacked `[n_ranks, K * steps, batch, ...]` arrays: the shard plan comes
 from `data/sharding.epoch_index_plan` (numpy's PCG, the JAX package's
-plan bit for bit) and the gather is numpy indexing (`x[idx]`, which
-releases the GIL for its copy). An optional `transfer` runs on the
-worker too, so the upload of B+1 also overlaps B's compute.
+plan bit for bit) and the gather is the port's native memcpy gather
+(`data/native.gather_rows`, the gather of `native.gather_batches` that
+the JAX prefetcher calls, here in each array's own dtype; ctypes
+releases the GIL for the copy), so the block is bitwise `x[idx]`,
+`y[idx]`; numpy indexing serves where the native
+library is missing. An optional `transfer` runs on the worker too, so
+the upload of B+1 also overlaps B's compute.
 
 On the card `CudaTransfer` is that upload: the worker pins the block
 (a copy from pageable memory with `non_blocking=True` would be a
@@ -30,6 +34,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from eventgrad_tpu_torch.data import native
 from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
 
 _log = logging.getLogger(__name__)
@@ -109,7 +114,8 @@ class EpochPrefetcher:
             len(self.x), self.n_ranks, self.batch,
             random=self.random, seed=self.seed, epoch=epoch,
         )
-        return self.x[idx], self.y[idx]
+        return native.gather_rows(self.x, idx), native.gather_rows(self.y,
+                                                                   idx)
 
     def _assemble_span(self, first: int, last: int):
         """Epochs first..last stacked `[n_ranks, K * steps, B, ...]`, then

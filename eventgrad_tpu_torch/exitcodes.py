@@ -16,6 +16,10 @@ module, because the codes cross processes.
     it is permanent.
   * ``CRASHPOINT_EXIT``      — an armed crash drill fired
     (`chaos/crashpoint.py`'s `os._exit`).
+  * ``FAULT_INJECT_EXIT``    — the `fault_inject="crash:N"` drill
+    (`train(fault_inject=...)`, the CLI's `--fault-inject`) killed the
+    run after epoch N's snapshot; the JAX loop's code, which the
+    supervisor treats as any crash.
   * anything else nonzero    — a crash.
 """
 
@@ -28,6 +32,11 @@ INTEGRITY_ABORT_EXIT = 77
 
 #: an armed crash drill killed the process on purpose
 CRASHPOINT_EXIT = 83
+
+#: the fault_inject="crash:N" drill killed the process on purpose (the
+#: JAX loop spells it by value; kept out of the name table, which is the
+#: JAX module's, so the exit-code lint does not claim every literal 13)
+FAULT_INJECT_EXIT = 13
 
 #: name table for logs
 EXIT_CODE_NAMES = {

@@ -275,12 +275,13 @@ def check_compact(pol: Optional[NormDelta], algo: str) -> None:
 def resolve(name: Optional[str], algo: str) -> NormDelta:
     """The policy instance `algo` runs: the registered `name`, or the
     algo's default when None. Raises ValueError for unknown names, algos
-    without an event trigger and policy/algo mismatches."""
+    without an event trigger and policy/algo mismatches, in the JAX
+    registry's words (the single guard `train` and `cli.py` both call)."""
     if name is None:
         default = DEFAULT_FOR_ALGO.get(algo)
         if default is None:
             raise ValueError(
-                f"algo {algo!r} has no event trigger; trigger policies "
+                f"--algo {algo} has no event trigger; trigger policies "
                 f"apply to {sorted(DEFAULT_FOR_ALGO)}"
             )
         return POLICIES[default]
@@ -288,11 +289,11 @@ def resolve(name: Optional[str], algo: str) -> NormDelta:
     if pol is None:
         raise ValueError(
             f"unknown trigger policy {name!r}; registered: "
-            f"{sorted(POLICIES)}"
+            f"{sorted(POLICIES)} (parallel/policy.py)"
         )
     if algo not in pol.algos:
         raise ValueError(
             f"trigger policy {name!r} drives "
-            f"{'/'.join(pol.algos)}, not algo {algo!r}"
+            f"{'/'.join(pol.algos)}, not --algo {algo}"
         )
     return pol

@@ -7,13 +7,14 @@ leading `[n_ranks]` dimension (row-major over `topo.shape`), the
 neighbor exchange is a `torch.roll` of that dimension
 (`collectives.recv_from`), and the one per-rank computation that needs a
 transform — the model's forward and backward — is batched with
-`torch.func.vmap` (`per_rank`). The device mesh lift (one rank per
-device, NCCL collectives) waits.
+`torch.func.vmap` (`per_rank`). `resolve_backend` reads the JAX
+package's backend names; the device mesh lift (one rank per device,
+NCCL collectives) waits.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -36,3 +37,29 @@ def per_rank(fn: Callable) -> Callable:
     """Lift a per-rank function over the leading rank dimension of every
     argument and output (`torch.func.vmap` over dim 0)."""
     return torch.func.vmap(fn)
+
+
+#: the backend names `train(backend=...)` takes: the JAX loop's ("vmap",
+#: "shard_map", "auto") and the CLI's spellings ("sim", "mesh")
+BACKENDS = ("vmap", "sim", "shard_map", "mesh", "auto")
+
+
+def resolve_backend(backend: Optional[str], topo: Topology) -> None:
+    """Resolve a backend request as the JAX package's `resolve_backend`
+    does, to the lift `train` runs: None, "vmap" and "sim" pin the
+    stacked simulator; "auto" takes a device mesh only where the mesh
+    lift exists and there are as many devices as ranks, else the
+    simulator; the port has no device-mesh lift yet, so "auto" always
+    resolves to the simulator (returns None, the JAX function's answer
+    for it). "shard_map" and "mesh" demand the device mesh and raise,
+    naming ROADMAP queue 1, item 8."""
+    if backend not in (None,) + BACKENDS:
+        raise ValueError(
+            f"backend must be one of {BACKENDS} or None; got {backend!r}")
+    if backend in ("shard_map", "mesh"):
+        raise NotImplementedError(
+            f"backend={backend!r}: the device-mesh lift (one rank per card, "
+            "torch.distributed collectives) is not ported yet (ROADMAP "
+            f"queue 1, item 8); {topo.n_ranks} ranks run on the stacked "
+            "simulator with backend='vmap' or 'auto'")
+    return None

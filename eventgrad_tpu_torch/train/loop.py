@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import math
 import os
 import time
@@ -47,6 +48,7 @@ from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
+from eventgrad_tpu_torch.parallel.spmd import resolve_backend
 from eventgrad_tpu_torch.parallel.topology import Topology
 from eventgrad_tpu_torch.train import state as state_lib
 from eventgrad_tpu_torch.train.state import (
@@ -120,6 +122,10 @@ def _clone(x):
     return x
 
 
+def _clone_carry(carry: Optional[Dict[str, np.ndarray]]):
+    return None if carry is None else {k: v.copy() for k, v in carry.items()}
+
+
 def _known_added(path: str) -> bool:
     """State fields added after a snapshot could have been written, which
     a resume may fill from their initial values (the JAX loop's list)."""
@@ -128,8 +134,107 @@ def _known_added(path: str) -> bool:
             or path.startswith("trace_carry"))
 
 
+def _loss_record(pass_base: int, s_i: int, r: int,
+                 loss_all: np.ndarray) -> Dict[str, Any]:
+    """Per-(pass, rank) loss record: the shared schema of the send
+    trace's train{r}.txt rider and the non-event values{r}.txt stream
+    (the JAX loop's)."""
+    return {
+        "pass": pass_base + s_i + 1,
+        "rank": r,
+        "loss": round(float(loss_all[s_i, r]), 6),
+    }
+
+
+def _write_trace(path: str, m: Dict[str, np.ndarray], pass_base: int,
+                 topo: Topology, names: List[str],
+                 carry: Dict[str, np.ndarray]) -> None:
+    """Append the reference's file_write=1 instrumentation as JSONL, as
+    the JAX loop writes it.
+
+    Send side (send{r}.txt, event.cpp:337-339,385-391): one record per
+    (pass, rank) with the per-leaf norm / thres / fired vectors in leaf
+    order, plus the step's train loss (train{r}.txt). Receive side
+    (recv{r}.txt, event.cpp:418-425,446-461): one record per (pass, rank,
+    neighbour) with the received buffer's norm and a changed bit, derived
+    from the sender's fire bit, with `carry` holding the stale norm
+    between messages (the buffers start as zeros). A header record names
+    the leaves (`names`, flax order, `/`-joined) and the neighbour
+    directions on the first write to an empty file."""
+    n_ranks = topo.n_ranks
+    fired_all = np.asarray(m["trace_fired"])
+    norm_all = np.asarray(m["trace_norm"])
+    thres_all = np.asarray(m["trace_thres"])
+    loss_all = np.asarray(m["loss"])
+    specs = topo.neighbors
+    last = carry["recv_norm"]
+    srcs = [
+        [topo.neighbor_source(r, nb) for r in range(n_ranks)] for nb in specs
+    ]
+    first = not os.path.exists(path) or os.path.getsize(path) == 0
+    with open(path, "a") as tf:
+        if first:
+            tf.write(json.dumps({
+                "trace_params": list(names),
+                "trace_neighbors": [nb.name for nb in specs],
+            }) + "\n")
+        steps = fired_all.shape[0]
+        for s_i in range(steps):
+            for r in range(n_ranks):
+                rec = _loss_record(pass_base, s_i, r, loss_all)
+                rec.update(
+                    norm=[round(float(v), 6) for v in norm_all[s_i, r]],
+                    thres=[round(float(v), 6) for v in thres_all[s_i, r]],
+                    fired=[int(v) for v in fired_all[s_i, r]],
+                )
+                tf.write(json.dumps(rec) + "\n")
+            for k, nb in enumerate(specs):
+                for r in range(n_ranks):
+                    src = srcs[k][r]
+                    ch = fired_all[s_i, src]
+                    last[k, r] = np.where(ch, norm_all[s_i, src], last[k, r])
+                    tf.write(
+                        json.dumps(
+                            {
+                                "pass": pass_base + s_i + 1,
+                                "rank": r,
+                                "recv": nb.name,
+                                "changed": [int(v) for v in ch],
+                                "norm": [round(float(v), 6)
+                                         for v in last[k, r]],
+                            }
+                        )
+                        + "\n"
+                    )
+
+
+def _write_loss_stream(path: str, loss_all: np.ndarray, pass_base: int,
+                       n_ranks: int) -> None:
+    """The non-event algorithms' trace: per-step per-rank loss records,
+    the (epoch, loss) stream cent/decent call values{r}.txt (cent.cpp:124,
+    decent.cpp:166)."""
+    with open(path, "a") as tf:
+        for s_i in range(loss_all.shape[0]):
+            for r in range(n_ranks):
+                tf.write(json.dumps(_loss_record(
+                    pass_base, s_i, r, loss_all)) + "\n")
+
+
+#: why the port refuses the JAX package's tree path (`arena=False`,
+#: the CLI's `--arena off`)
+ARENA_OFF_REFUSAL = (
+    "the JAX package's tree path is not in the port, which runs the flat "
+    "arena only; not queued, by design (ROADMAP queue 1, \"Not queued, by "
+    "design\"); use the arena (None or True, --arena auto or on)")
+
+#: the trace carry's path in a snapshot (the JAX snapshot's
+#: `trace_carry` leaf)
+TRACE_CARRY = "trace_carry/recv_norm"
+
+
 def _resume(found: str, template: TrainState, *, algo: str, staleness: int,
-            resident_wire: Optional[str], bucketed_k: int, device
+            resident_wire: Optional[str], bucketed_k: int, device,
+            trace_carry: Optional[Dict[str, np.ndarray]] = None
             ) -> Tuple[TrainState, int]:
     """(the state restored from the snapshot `found`, its epoch). A
     snapshot of another algorithm or written on another device type
@@ -138,7 +243,9 @@ def _resume(found: str, template: TrainState, *, algo: str, staleness: int,
     dtype and the bucket count K are checkpoint layout. Then the restore
     onto `template`; a snapshot that lacks only known-added fields
     resumes with them at their initial values, loudly. Anything else
-    raises."""
+    raises. A `trace_carry` (a traced run's receive-side carry) is
+    filled in place from the snapshot's, or, where the snapshot has
+    none, stays at zeros, loudly."""
     raw, meta = checkpoint.peek(found, device=device)
     lay = meta["layout"]
     if lay["algo"] != algo:
@@ -211,8 +318,12 @@ def _resume(found: str, template: TrainState, *, algo: str, staleness: int,
             f"{'%d' % snap_k if snap_k > 1 else 'off'} setting, "
             "then re-snapshot to migrate"
         )
-    flat, missing = checkpoint.restore_with_fill(
-        raw, state_lib.to_flat(template))
+    tmpl = state_lib.to_flat(template)
+    if trace_carry is not None:
+        tmpl[TRACE_CARRY] = torch.from_numpy(trace_carry["recv_norm"])
+    flat, missing = checkpoint.restore_with_fill(raw, tmpl)
+    if trace_carry is not None:
+        trace_carry["recv_norm"][...] = flat.pop(TRACE_CARRY).cpu().numpy()
     unknown = [m for m in missing if not _known_added(m)]
     if unknown:
         raise ValueError(f"snapshot lacks leaves {unknown}")
@@ -321,6 +432,9 @@ def train(
     sparse_cfg: Optional[SparseConfig] = None,
     augment: bool = False,
     random_sampler: bool = False,
+    sync_bn: bool = False,
+    mesh=None,
+    backend: Optional[str] = None,
     seed: int = 0,
     x_test: Optional[np.ndarray] = None,
     y_test: Optional[np.ndarray] = None,
@@ -332,12 +446,16 @@ def train(
     gossip_wire: str = "dense",
     compact_frac: Optional[float] = None,
     bucketed: Optional[int] = None,
+    arena: Optional[bool] = None,
     chaos=None,
     chaos_policy: Optional[RecoveryPolicy] = None,
     integrity=None,
     checkpoint_dir: Optional[str] = None,
     save_every: int = 0,
     resume: bool = False,
+    trace_file: Optional[str] = None,
+    fused_update: bool = False,
+    fault_inject: Optional[str] = None,
     on_epoch: Optional[Callable[[Dict[str, Any]], None]] = None,
     obs: str = "off",
     registry: Optional[Any] = None,
@@ -400,6 +518,31 @@ def train(
     `algo` is one of "allreduce", "dpsgd", "eventgrad", "sp_eventgrad";
     `sparse_cfg` sets sp_eventgrad's top-k percent (default 10%), and
     `augment=True` pads, flips and crops every rank's images each step.
+    `sync_bn=True` averages the BatchNorm running statistics over every
+    rank after each update (a model without BatchNorm is unchanged).
+
+    The JAX loop's launcher arguments: `backend` (None, "vmap", "sim",
+    "auto": the stacked simulator; "auto" takes a device mesh only where
+    one exists with a card per rank, which the port has not, so it too
+    resolves to the simulator; "shard_map" / "mesh" and an explicit
+    `mesh` raise, naming ROADMAP queue 1, item 8); `arena` (None or True:
+    the flat arena, the port's only layout, True refused for the algos
+    the JAX arena does not serve as the JAX loop refuses it; False, the
+    JAX tree path, raises: not queued, by design); `fused_update` is
+    accepted and selects nothing: the port's gossip tail is always the
+    fused CUDA kernel (the plain version on CPU tensors).
+    `trace_file` appends the reference's `file_write=1` instrumentation
+    as JSONL: on the event algorithms a header naming the leaves (flax
+    order) and neighbours, then per pass the send-side record of every
+    rank (loss, per-leaf norm, threshold, fire bit) and the receive-side
+    record of every (rank, neighbour) (changed bits, the buffer's norm,
+    carried between messages and saved with each snapshot); on the other
+    algorithms one loss record per (pass, rank). Refused with membership.
+    `fault_inject` ("crash:N" or "hang:N") kills (exit
+    `exitcodes.FAULT_INJECT_EXIT`, 13) or wedges the process at the end
+    of epoch N, after its snapshot, for a supervisor's drills; it pins
+    one-epoch blocks and the serial schedule (`pipeline=True` with it
+    raises). A resumed run past epoch N does not fire it again.
 
     `wire` (None = f32, "bf16", "int8") compresses the gossip exchange;
     `staleness=1` (eventgrad) mixes with the previous step's buffers;
@@ -540,6 +683,22 @@ def train(
     `die=`, staleness D >= 2 and the integrity rollback, as the JAX loop
     refuses them."""
     device = resolve_device(device)
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: the device-mesh lift (one rank per card, "
+            "torch.distributed collectives) is not ported yet (ROADMAP "
+            "queue 1, item 8); pass mesh=None for the stacked simulator")
+    # the JAX loop's backend names; every one the port runs is the
+    # stacked simulator
+    resolve_backend(backend, topo)
+    if arena is False:
+        raise NotImplementedError(f"arena=False: {ARENA_OFF_REFUSAL}")
+    if arena and algo not in ("dpsgd", "eventgrad"):
+        raise ValueError(
+            f"arena=True is a no-op for algo={algo!r} — only "
+            f"{('dpsgd', 'eventgrad')} route through the flat arena; use "
+            "arena=None (auto) or False"
+        )
     if obs not in OBS_MODES:
         raise ValueError(f"obs must be one of {OBS_MODES}, got {obs!r}")
     obs_on = obs != "off"
@@ -610,6 +769,12 @@ def train(
                 "escalate=False"
             )
     integ_now = integ_cfg
+    fault_mode, fault_epoch = None, -1
+    if fault_inject:
+        fault_mode, _, n_fault = fault_inject.partition(":")
+        if fault_mode not in ("crash", "hang") or not n_fault.isdigit():
+            raise ValueError(f"bad fault_inject spec {fault_inject!r}")
+        fault_epoch = int(n_fault)
     bucketed_k = int(bucketed) if bucketed else 1
     x = _as_input(model, x_train)
     y = np.ascontiguousarray(y_train, np.int64)
@@ -644,6 +809,11 @@ def train(
             raise ValueError(
                 "membership transitions handle single-axis gossip rings; "
                 f"got axes {topo.axes}"
+            )
+        if trace_file:
+            raise ValueError(
+                "trace_file carries rank-shaped recv staleness; not "
+                "available under membership transitions"
             )
         if chaos_sched is not None and chaos_sched.death:
             raise ValueError(
@@ -698,7 +868,8 @@ def train(
             augment=augment, gossip_wire=wire_mode,
             compact_capacity=capacity, bucketed=bucketed, chaos=chaos_sched,
             chaos_policy=chaos_policy, integrity=integ_now,
-            n_passes=epochs * steps, obs=obs_on,
+            n_passes=epochs * steps, obs=obs_on, sync_bn=sync_bn,
+            trace=trace_file is not None,
         )
 
     # make_train_step checks the wire/staleness/carrier combination
@@ -716,6 +887,14 @@ def train(
     if chaos_sched is not None:
         state = state.replace(chaos=chaos_monitor.PeerHealth.init(topo,
                                                                   device))
+    spec = arena_spec(model)
+    # the receive-side trace carry (the stale norm each neighbour's buffer
+    # holds between messages), part of a traced run's snapshots so a
+    # resumed trace continues the interrupted one
+    trace_carry = ({"recv_norm": np.zeros((topo.n_neighbors, topo.n_ranks,
+                                           spec.n_leaves))}
+                   if trace_file else None)
+    trace_names = [n.replace(".", "/") for n in spec.names]
     start_epoch = 0
     if ckpt_path and resume:
         found = checkpoint.latest(ckpt_path)
@@ -723,8 +902,7 @@ def train(
             state, start_epoch = _resume(
                 found, state, algo=algo, staleness=staleness,
                 resident_wire=resident_wire, bucketed_k=bucketed_k,
-                device=device)
-    spec = arena_spec(model)
+                device=device, trace_carry=trace_carry)
     eval_on = x_test is not None and log_every_epoch
     history: List[Dict[str, Any]] = []
 
@@ -747,9 +925,16 @@ def train(
         )
     device_data = bool(device_data)
     if pipeline is None:
-        pipeline_on = not memb_on and not integ_engine_on
+        pipeline_on = (not memb_on and not integ_engine_on
+                       and fault_mode is None)
     else:
         pipeline_on = bool(pipeline)
+        if pipeline_on and fault_mode is not None:
+            raise ValueError(
+                "pipeline=True cannot honor fault_inject (the fault must "
+                "land at an exact post-snapshot epoch boundary, which "
+                "needs the serial schedule); use pipeline=None/False"
+            )
         if pipeline_on and memb_on:
             raise ValueError(
                 "pipeline=True cannot honor membership transitions (they "
@@ -765,9 +950,9 @@ def train(
                 "sentinel=False, rollback=False))"
             )
     K = max(1, int(epochs_per_dispatch))
-    if memb_on or obs == "epoch":
-        # every epoch end is a block boundary (a transition's, or the
-        # per-epoch telemetry flush's)
+    if fault_mode is not None or memb_on or obs == "epoch":
+        # every epoch end is a block boundary (the fault's, a
+        # transition's, or the per-epoch telemetry flush's)
         K = 1
     total_epochs = max(0, epochs - start_epoch)
     # at least two blocks, so a warm block exists beside the cold one
@@ -839,7 +1024,8 @@ def train(
     good = None
     if integ_rollback_on:
         good = {"state": _clone(state), "epoch": start_epoch, "next_bi": 0,
-                "sentinel": sentinel.snapshot(), "obs_prev": obs_prev}
+                "sentinel": sentinel.snapshot(), "obs_prev": obs_prev,
+                "carry": _clone_carry(trace_carry)}
     # the on-disk retention of healthy blocks at checkpoint cadence
     retention = (checkpoint.RollingRetention(
         os.path.join(checkpoint_dir, "good"), keep=integ_cfg.keep_good)
@@ -852,6 +1038,16 @@ def train(
     if chaos_sched is not None and chaos_sched.preempt:
         preempt_at = next(((e, s) for e, s in chaos_sched.preempt
                            if e > start_epoch), None)
+
+    def snapshot(epoch: int):
+        """The save payload at a block boundary: the state's
+        (`state_lib.payload`) plus, on a traced run, the trace carry."""
+        tensors, meta = state_lib.payload(state, epoch, algo)
+        if trace_carry is not None:
+            tensors = dict(tensors)
+            tensors[TRACE_CARRY] = torch.from_numpy(
+                trace_carry["recv_norm"].copy())
+        return tensors, meta
 
     def flush(tel_host_buf, tel_like, blk: int) -> Dict[str, Any]:
         """The block's telemetry window: the one device-to-host read of
@@ -1081,6 +1277,12 @@ def train(
                 if rollback_info is not None:
                     rec["integrity_rollback"] = rollback_info
                     rollback_info = None
+            if trace_file and "trace_fired" in m_e:
+                _write_trace(trace_file, m_e, total_passes - steps_b, topo,
+                             trace_names, trace_carry)
+            elif trace_file:
+                _write_loss_stream(trace_file, m_e["loss"],
+                                   total_passes - steps_b, nr_b)
             if epoch == blk_end:
                 # the block end's riders: the telemetry window, the
                 # consensus error ||p_r - mean(p)|| (the drift that tells
@@ -1276,8 +1478,10 @@ def train(
                         prefetcher.close()
                         prefetcher = make_prefetcher()
                     sentinel.rewind(good["sentinel"])
-                    # the telemetry diff base follows the restored counters
+                    # the telemetry diff base and the trace carry follow
+                    # the restored state
                     obs_prev = good["obs_prev"]
+                    trace_carry = _clone_carry(good["carry"])
                     rollback_info = {"reason": verdict,
                                      "tripped_epoch": blk_end,
                                      "restored_epoch": good["epoch"],
@@ -1288,7 +1492,8 @@ def train(
                     good = {"state": _clone(state), "epoch": blk_end,
                             "next_bi": bi + 1,
                             "sentinel": sentinel.snapshot(),
-                            "obs_prev": obs_prev}
+                            "obs_prev": obs_prev,
+                            "carry": _clone_carry(trace_carry)}
                     if retention is not None and ckpt_due:
                         retention.save_good(blk_end, *state_lib.payload(
                             good["state"], blk_end, algo))
@@ -1322,7 +1527,7 @@ def train(
                             prefetcher.close()
                             prefetcher = make_prefetcher()
                 if ckpt_due:
-                    tensors, meta = state_lib.payload(state, blk_end, algo)
+                    tensors, meta = snapshot(blk_end)
                     if writer is not None:
                         # fresh device copies, made before the next block
                         # launches (a later block may write the state's
@@ -1358,8 +1563,7 @@ def train(
                         if writer is not None:
                             writer.wait()
                         if ckpt_path and not ckpt_due:
-                            checkpoint.save(ckpt_path, *state_lib.payload(
-                                state, blk_end, algo))
+                            checkpoint.save(ckpt_path, *snapshot(blk_end))
                     info = {"reason": preempt_reason, "epoch": int(blk_end),
                             "snapshot": bool(ckpt_path),
                             "drain_s": round(time.perf_counter() - t_drain,
@@ -1368,6 +1572,8 @@ def train(
                         info["marker"] = crashpoint.write_marker(
                             checkpoint_dir, info)
                     raise crashpoint.GracefulPreemption(info)
+                if blk_end == fault_epoch:  # the serial schedule under it
+                    crashpoint.inject_fault(fault_mode)
                 # the boundary is processed: host work drained or
                 # deferred, any due save committed or on the writer
                 crashpoint.hit("loop.block_end")

@@ -174,6 +174,7 @@ def make_train_step(
     *,
     fused_sgd: Tuple[float, float],
     trace: bool = False,
+    sync_bn: bool = False,
     trigger_policy: Optional[str] = None,
     wire: Optional[str] = None,
     staleness: int = 0,
@@ -199,7 +200,11 @@ def make_train_step(
     SGD the state was initialized for (momentum 0 carries no trace).
     `trace=True` (eventgrad, sp_eventgrad) adds the per-leaf send-side
     vectors `trace_norm`, `trace_thres`, `trace_fired` ([R, L]) to the
-    metrics.
+    metrics. `sync_bn=True` replaces each BatchNorm running statistic
+    after the update by its mean over every rank
+    (`collectives.allreduce_mean`, the JAX step's pmean), on the
+    monolithic and the bucketed schedule alike; without BatchNorm it
+    changes nothing.
 
     `wire` (None = f32, "bf16", "int8") is the exchange's wire format;
     the accounting charges 2 or 1 B per payload element and, for int8,
@@ -999,6 +1004,10 @@ def make_train_step(
             if mom:
                 new_t = torch.where(params_ok[:, None], new_t, t_flat)
             quar_eff = quar | ~params_ok
+
+        if sync_bn and new_stats:
+            new_stats = {k: collectives.allreduce_mean(v, topo).contiguous()
+                         for k, v in new_stats.items()}
 
         telemetry = state.telemetry
         if obs:

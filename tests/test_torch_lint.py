@@ -89,6 +89,18 @@ SEEDS = {
          "'micro')\n"),
         1,
     ),
+    "trigger-policy-cli": (
+        "trigger-policy-registered", "trigger-policy-registered",
+        ("eventgrad_tpu_torch/seeded_cli.py",
+         "def parser(p):\n"
+         "    p.add_argument('--trigger-policy',\n"
+         "                   choices=['norm_delta', 'topk', 'nope'])\n"),
+        ("eventgrad_tpu/seeded_cli.py",
+         "def parser(p):\n"
+         "    p.add_argument('--trigger-policy',\n"
+         "                   choices=['norm_delta', 'topk', 'nope'])\n"),
+        3,
+    ),
     "carrier-dtype": (
         "carrier-dtype-declared", "carrier-dtype-declared",
         ("eventgrad_tpu_torch/train/seeded.py",
@@ -270,3 +282,25 @@ def test_ledger_helper_must_still_add_the_counters():
                          owner, ("counts = counts + inc", "counts = inc")))
     assert [v.path for v in stale] == [owner]
     assert "no longer adds" in stale[0].message
+
+
+def test_host_library_exemption_stays_honest():
+    """The data library's `eg_` entries pass the kernel rule, but a
+    registered kernel's entry called there flags, and so does the
+    exemption once the file no longer calls its library."""
+    rel = "eventgrad_tpu_torch/data/native.py"
+    rule = RULES["kernel-registered"]
+    assert rule.HOST_LIBRARIES.keys() == {rel}
+    assert lint.run([rule]) == []
+    files = _package_files(rel, ("lib.eg_version.restype",
+                                 "lib.eg_masked_wire.restype"))
+    got = lint.run([rule], files=files)
+    assert [v.message.split(" —")[0] for v in got] == [
+        "kernel launch 'eg_masked_wire' is registered for "
+        "eventgrad_tpu_torch/ops/event_engine.py, launched from "
+        "eventgrad_tpu_torch/data/native.py"]
+    files = [lint.SourceFile(path=sf.path, rel=sf.rel,
+                             text=sf.text.replace("lib.eg_", "lib.dataio_"))
+             if sf.rel == rel else sf for sf in lint.collect_sources()]
+    got = lint.run([rule], files=files)
+    assert len(got) == 1 and "no longer calls its library" in got[0].message

@@ -58,6 +58,14 @@ def test_import_scan_covers_the_cost_model_and_membership():
         assert f"eventgrad_tpu_torch/{rel}" in scanned, rel
 
 
+def test_import_scan_covers_the_cli_supervisor_and_loaders():
+    """The scan reads the command line, the supervisor, the native data
+    library's bindings and the soak."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("cli.py", "supervise.py", "data/native.py", "utils/soak.py"):
+        assert f"eventgrad_tpu_torch/{rel}" in scanned, rel
+
+
 def test_import_scan_covers_the_analysis_subpackage():
     """The scan below reads every module of `eventgrad_tpu_torch/analysis/`
     (the auditor and the lint keep their own copies of what they need
@@ -137,6 +145,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ledger_audit.run(epochs=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         obs_overhead.measure_pair(n_steps=1)
+    from eventgrad_tpu_torch.utils import soak
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        soak.run_soak(None, mode="smoke")
     lm = egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1, max_len=8,
                            attn="flash")
     tokens = np.zeros((16, 8), np.int32)
@@ -173,9 +185,12 @@ def test_train_on_cpu_records():
 
 def test_refusals_name_their_roadmap_item(tmp_path):
     """Every feature the port refuses raises NotImplementedError naming
-    the ROADMAP queue-1 item that ports it; the calls of items 5, 6a, 6b,
-    6d, 6e, 10 and 12, once refused or missing, now run; what the JAX
-    step refuses stays refused with its cause."""
+    the ROADMAP queue-1 item that ports it, and the command line refuses
+    the same with SystemExit before building any data; the calls of items
+    5, 6a, 6b, 6d, 6e, 6f, 10 and 12, once refused or missing, now run;
+    what the JAX step refuses stays refused with its cause; the tree path
+    (`arena=False`, `--arena off`) is refused as not queued, by design."""
+    from eventgrad_tpu_torch import cli
     from eventgrad_tpu_torch.analysis import audit
     from eventgrad_tpu_torch.chaos.membership import MembershipSchedule
     from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
@@ -266,18 +281,36 @@ def test_refusals_name_their_roadmap_item(tmp_path):
                                              rf" with .*{cause}"):
             make_train_step(model, egt.Ring(8), "eventgrad",
                             fused_sgd=(0.1, 0.0), bucketed=4, **kw)
+    # item 6f (the file loaders) is ported: a data_dir, once refused, is
+    # read (here one without files: the synthetic stand-in, as in JAX)
+    x_m, _ = load_or_synthesize("mnist", str(tmp_path / "none"), "train",
+                                n_synth=16)
+    assert x_m.shape == (16, 28, 28, 1)
+    with pytest.raises(NotImplementedError, match="Not queued, by design"):
+        train_mlp(arena=False)
+    with pytest.raises(SystemExit, match="not queued, by design"):
+        cli.main(["--arena", "off", "--device", "cpu"])
+    cli_refusals = {
+        "item 7": [["--mesh", "dp:2,sp:2", "--model", "transformer"],
+                   ["--model", "transformer_pp"],
+                   ["--model", "transformer", "--attn", "ring"]],
+        "item 8": [["--backend", "mesh"],
+                   ["--coordinator", "h:1", "--backend", "mesh"]],
+    }
+    for item, argvs in cli_refusals.items():
+        for argv in argvs:
+            with pytest.raises(SystemExit,
+                               match=rf"ROADMAP queue 1, {item}\b"):
+                cli.main(argv + ["--device", "cpu"])
     refusals = {
-        "item 6": [
-            # the file loaders still to port (6f)
-            lambda: load_or_synthesize("mnist", "/data", "train"),
-        ],
         "item 7": [
             lambda: egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,
                                       max_len=8, attn="ring"),
             lambda: ring_attention(q, q, q, egt.Torus(2, 2)),
         ],
-        # the multi-GPU backend's audit oracle
-        "item 8": [lambda: audit.oracle("mesh_undeclared_offset")],
+        # the multi-GPU backend's audit oracle, and the device mesh
+        "item 8": [lambda: audit.oracle("mesh_undeclared_offset"),
+                   lambda: train_mlp(backend="mesh")],
     }
     for item, calls in refusals.items():
         for call in calls:
