@@ -356,7 +356,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    the card (the MLP on MNIST idx files the phase writes): a crash under
    `python -m eventgrad_tpu_torch.supervise` and a hang it must kill,
    each resumed to a last snapshot bitwise the uninterrupted run's;
-17. summary — one JSON line of every kernel's numbers, the card's name and
+17. hybrid — EventGraD over the hybrid meshes, 8 ranks stacked on the
+   card at the width of the d128 LM legs (d_model 2048, 16 heads of
+   128: Pythia-1.4B's width; 2 layers, T = 1024, vocab 256, float32):
+   `dp:4,sp:2` with ring attention through the flash kernels (forward,
+   dQ and dK/dV launched once a hop, two hops a layer a pass) and its
+   D-PSGD twin (kernel 4); `dp:4,tp:2` `TPTransformerLM` through
+   `cli.main --device cuda`; `dp:4,pp:2` `PPTransformerLM` (4
+   microbatches); `dp:2,ep:4` `MoETransformerLM` (8 experts, top-2,
+   capacity factor 2.0, 2 sequences a rank). Each leg's memory is
+   reckoned and logged before it runs; the ring legs first hold ring
+   attention through the flash kernels against plain attention over
+   the whole sequence, forward and the three gradients, on the card at
+   their own shape (`_hybrid_ring_check`); one pass (the ring leg two,
+   warmup 1, so the second pass's fire bits are the trigger's) is held
+   against the same pass on the CPU (plain versions) from the same
+   state, parameters and each leaf's update, cut to 1 layer (the
+   pipeline leg's 2, one a stage) and one sequence of 32 tokens a data
+   rank (`_reference_steps`); then 2 epochs of 2 passes:
+   the loss falls, every loss and parameter is finite, the bytes and
+   msgs-saved-% are exactly the formula's for the two dp neighbours,
+   the leg's kernels launched; step ms, peak GiB and launches printed;
+18. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
 Each phase's seconds are logged as it ends.
@@ -1635,13 +1656,22 @@ def phase_flash_kernels():
     return recs
 
 
-def _reference_steps(name, model, algo, kw, cfg, batches, tol, topo=None):
+def _reference_steps(name, model, algo, kw, cfg, batches, tol, topo=None,
+                     update_rtol=None):
     """`len(batches)` train steps on the card against the same steps on
     the CPU (plain versions) from one initial state, on `topo` (default
-    Ring(8))."""
+    Ring(8)). Given `update_rtol`, each pass's update p' - p is held
+    leaf by leaf too: |card - CPU| <= update_rtol x the leaf's largest
+    CPU update, plus two ulps of the parameter (p' and p each rounded).
+    Returns {"max_abs_err": the largest |card - CPU| of the parameters,
+    and with `update_rtol` "update_max" (the largest |p' - p| on the
+    CPU), "update_leaf_min" (the smallest leaf's largest |p' - p|) and
+    "update_err_over_limit" (the largest |card - CPU| of an update over
+    its limit; at most 1)}."""
     import numpy as np
     import torch
 
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
     from eventgrad_tpu_torch.parallel.topology import Ring
     from eventgrad_tpu_torch.train.state import init_train_state
     from eventgrad_tpu_torch.train.steps import EVENT_ALGOS, make_train_step
@@ -1655,6 +1685,9 @@ def _reference_steps(name, model, algo, kw, cfg, batches, tol, topo=None):
                               device=d)
           for d in (DEVICE, "cpu")}
     flips = 0
+    upd = {"update_max": 0.0, "update_leaf_min": math.inf,
+           "update_err_over_limit": 0.0}
+    seg = arena_spec(model).seg_expand()
     for i, (xb, yb) in enumerate(batches):
         batch = (torch.from_numpy(xb), torch.from_numpy(yb))
         out = {}
@@ -1677,10 +1710,35 @@ def _reference_steps(name, model, algo, kw, cfg, batches, tol, topo=None):
                                      f"fire bits differ off the threshold")
                 flips += int(diff.sum())
         if flips == 0:
-            np.testing.assert_allclose(
-                st[DEVICE].params.cpu().numpy(), st["cpu"].params.numpy(),
-                err_msg=f"reference {name} pass {i + 1}: params", **tol,
-            )
+            # rank by rank, so the host holds one row's copies at a time
+            for r, want in enumerate(st["cpu"].params):
+                got = st[DEVICE].params[r].cpu()
+                err = (got - want).abs()
+                if bool((err > tol["atol"] + tol["rtol"] * want.abs()).any()):
+                    raise SmokeError(
+                        f"reference {name} pass {i + 1}: rank {r}'s "
+                        f"parameters off by {float(err.max()):.3e}")
+                if update_rtol is None:
+                    continue
+                d_cpu = want - out["cpu"][0].params[r]
+                d_dev = got - out[DEVICE][0].params[r].cpu()
+                scale = torch.zeros(int(seg[-1]) + 1).scatter_reduce_(
+                    0, seg, d_cpu.abs(), "amax")
+                off = (d_dev - d_cpu).abs()
+                limit = (update_rtol * scale[seg]
+                         + 2 * torch.finfo(want.dtype).eps * want.abs())
+                over = float((off / limit.clamp_min(1e-30)).max())
+                if over > 1:
+                    raise SmokeError(
+                        f"reference {name} pass {i + 1}: rank {r}'s "
+                        f"update off by {float(off.max()):.3e} against "
+                        f"its largest {float(d_cpu.abs().max()):.3e}")
+                upd["update_max"] = max(upd["update_max"],
+                                        float(scale.max()))
+                upd["update_leaf_min"] = min(upd["update_leaf_min"],
+                                             float(scale.min()))
+                upd["update_err_over_limit"] = max(
+                    upd["update_err_over_limit"], over)
             if resident:
                 # parameters agree to rounding, so a carrier lane may
                 # sit one quantum over at a rounding boundary
@@ -1694,9 +1752,20 @@ def _reference_steps(name, model, algo, kw, cfg, batches, tol, topo=None):
                         raise SmokeError(f"reference {name} pass "
                                          f"{i + 1}: carriers differ by "
                                          f"{float(dq)} quanta")
-    d = float((st[DEVICE].params.cpu() - st["cpu"].params).abs().max())
+    d = max(float((st[DEVICE].params[r].cpu() - want).abs().max())
+            for r, want in enumerate(st["cpu"].params))
+    res = {"max_abs_err": d}
+    if update_rtol is not None:
+        res.update(upd)
     log(f"reference {name}: {len(batches)} passes, max |card - cpu| params "
-        f"{d:.3e}, fire-bit flips at the threshold: {flips}")
+        f"{d:.3e}, fire-bit flips at the threshold: {flips}"
+        + ("" if update_rtol is None else
+           f"; update: largest {upd['update_max']:.3e}, smallest leaf's "
+           f"largest {upd['update_leaf_min']:.3e}, |card - cpu| at most "
+           f"{upd['update_err_over_limit']:.3f} of its limit ({update_rtol:g}"
+           f" x the leaf's largest + 2 ulps; the parameter atol is "
+           f"{tol['atol']:g})"))
+    return res
 
 
 def phase_reference():
@@ -4618,6 +4687,276 @@ def phase_cli():
     return totals
 
 
+#: the hybrid legs' model: the d128 LM legs' width (Pythia-1.4B's
+#: d_model 2048, 16 heads of 128), 2 layers, T = 1024, vocab 256, float32
+HYBRID_LM = dict(vocab=256, dim=2048, n_heads=16, n_layers=2, max_len=1024)
+#: (leg, mesh, model, algo, sequences a data rank, entry point); the
+#: mesh's dp axis gossips (two neighbours), sp is a replicated aux axis,
+#: tp/pp/ep shard the model
+HYBRID_LEGS = (
+    ("hybrid-ring", "dp:4,sp:2", "ring", "eventgrad", 4, "train"),
+    ("hybrid-ring-dpsgd", "dp:4,sp:2", "ring", "dpsgd", 4, "train"),
+    ("hybrid-tp", "dp:4,tp:2", "tp", "eventgrad", 4, "cli"),
+    ("hybrid-pp", "dp:4,pp:2", "pp", "eventgrad", 4, "train"),
+    ("hybrid-moe", "dp:2,ep:4", "moe", "eventgrad", 2, "train"),
+)
+#: the passes held against the CPU, cut so the CPU's plain versions over
+#: every rank's full-width arena fit the phase (the legs' own passes take
+#: 19 s of it, the CPU passes at full depth took 172 s on the H100's
+#: host): one sequence of this many tokens a data rank (the pipeline leg
+#: one a microbatch), the model at 1 layer (the pipeline leg at 2, one a
+#: stage), the width and the mesh the leg's. The ring legs' flash hops
+#: are held uncut, on the card (`_hybrid_ring_check`)
+HYBRID_REF_TOKENS = 32
+#: the reference's passes, at warmup 1: the main ring leg takes a
+#: second, whose fire bits come from the trigger (a pass costs 17-42 s
+#: of the host's time at full width), the others one; each pass's
+#: update is held leaf by leaf to this share of the leaf's largest
+#: (`_reference_steps`)
+HYBRID_REF_PASSES = {"hybrid-ring": 2}
+HYBRID_UPDATE_RTOL = 1e-3
+#: arena-sized copies alive at an EventGraD step's peak: the state's
+#: parameters, trace and two receive buffers, the gradient, two received
+#: candidates and the tail's three outputs (two new buffers, p', t'),
+#: and two more transients of the hybrid gradient correction
+HYBRID_COPIES = 12
+
+
+def _hybrid_model(kind, topo, n_layers=None):
+    from eventgrad_tpu_torch.models.moe import MoETransformerLM
+    from eventgrad_tpu_torch.models.pp import PPTransformerLM
+    from eventgrad_tpu_torch.models.tp import TPTransformerLM
+    from eventgrad_tpu_torch.models.transformer import TransformerLM
+
+    lm = dict(HYBRID_LM, n_layers=n_layers or HYBRID_LM["n_layers"])
+    if kind == "ring":
+        return TransformerLM(**lm, attn="ring", topo=topo, sp_axis="sp",
+                             use_flash=True)
+    if kind == "tp":
+        return TPTransformerLM(**lm, tp_size=topo.axis_size("tp"))
+    if kind == "pp":
+        return PPTransformerLM(**lm, pp_size=topo.axis_size("pp"),
+                               n_micro=4)
+    return MoETransformerLM(**lm, n_experts=8, ep_size=topo.axis_size("ep"),
+                            n_select=2, capacity_factor=2.0)
+
+
+def _hybrid_ring_check(topo, per_rank):
+    """Ring attention through the flash kernels against plain attention
+    over each dp group's whole sequence, on the card at the ring legs'
+    shape: `[R, per_rank, T / sp, heads, 128]` q, k and v as strided
+    views of one fused projection, causal, each rank's (q_offset,
+    k_offset) from its place on the `sp` axis of the 2-D grid; the
+    output and the three gradients within phase_flash_kernels' float32
+    tolerances. Returns the largest error."""
+    import torch
+
+    from eventgrad_tpu_torch.parallel.ring_attention import (
+        full_attention, ring_attention,
+    )
+
+    n_dp, n_sp = topo.axis_size("dp"), topo.axis_size("sp")
+    h = HYBRID_LM["n_heads"]
+    d = HYBRID_LM["dim"] // h
+    t = HYBRID_LM["max_len"] // n_sp
+    r, b = topo.n_ranks, per_rank
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    qkv = torch.randn((r, b, t, 3 * h, d), generator=gen,
+                      device=DEVICE).requires_grad_()
+    q, k, v = qkv.split(h, dim=3)
+    w = torch.randn((r, b, t, h, d), generator=gen, device=DEVICE)
+
+    def whole(z):
+        # [dp x sp, B, T/sp, H, D] -> [dp x B, T, H, D]: rank (i, j)
+        # holds positions [j T/sp, (j+1) T/sp) of dp group i's sequences
+        z = z.reshape((n_dp, n_sp, b, t) + tuple(z.shape[3:]))
+        return z.transpose(1, 2).reshape((n_dp * b, n_sp * t)
+                                         + tuple(z.shape[4:]))
+
+    t0 = time.perf_counter()
+    got = ring_attention(q, k, v, topo, axis="sp", causal=True,
+                         use_flash=True)
+    g_got = torch.autograd.grad(got, qkv, w)[0]
+    want = full_attention(whole(q), whole(k), whole(v), causal=True)
+    g_want = torch.autograd.grad(want, qkv, whole(w))[0]
+    errs = [within(whole(got), want, 2e-5, 2e-5, "hybrid ring: out")]
+    for i, g in enumerate(("dq", "dk", "dv")):
+        sl = slice(i * h, (i + 1) * h)
+        errs.append(within(g_got[:, :, :, sl], g_want[:, :, :, sl], 5e-5,
+                           5e-4, f"hybrid ring: {g}"))
+    torch.cuda.synchronize()
+    log(f"hybrid ring attention (flash hops) vs full attention on the "
+        f"card: {topo.shape} grid, [{r}, {b}, {t}, {h}, {d}] shards, "
+        f"causal, max_abs_err out {errs[0]:.3e}, dq {errs[1]:.3e}, dk "
+        f"{errs[2]:.3e}, dv {errs[3]:.3e} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    del qkv, got, g_got, want, g_want
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def phase_hybrid():
+    """EventGraD over the hybrid meshes at full width (module docstring,
+    phase 17). Returns the launches of each kernel summed over the legs
+    (the flash kernels under their "_d128" names)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.cli import parse_mesh
+    from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
+    from eventgrad_tpu_torch.data.sharding import expand_to_mesh
+    from eventgrad_tpu_torch.ops import attention as fa
+    from eventgrad_tpu_torch.ops import flash_plan
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+    from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
+
+    steps, epochs = 2, 2
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
+                          max_silence=50)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    seq, vocab = HYBRID_LM["max_len"], HYBRID_LM["vocab"]
+    form = flash_plan.flash_form("float32", 128, (), ())
+    totals = {}
+    for leg, mesh, kind, algo, per_rank, entry in HYBRID_LEGS:
+        topo = parse_mesh(mesh)
+        model = _hybrid_model(kind, topo)
+        spec = arena_spec(model)
+        n, r = spec.n_total, topo.n_ranks
+        n_sp = topo.axis_size("sp") if "sp" in topo.axes else 1
+        copy_gib = 4 * n * r / 2**30
+        log(f"== hybrid {leg}: {type(model).__name__} on {mesh} ({algo}), "
+            f"{n:,} parameters in {spec.n_leaves} leaves a rank; one "
+            f"arena {copy_gib:.2f} GiB, reckoned peak ~{HYBRID_COPIES} "
+            f"arenas = {HYBRID_COPIES * copy_gib:.1f} GiB plus activations "
+            f"({per_rank} sequences of {seq} a data rank, {seq // n_sp} "
+            f"tokens a rank)")
+
+        ring_err = (_hybrid_ring_check(topo, per_rank)
+                    if kind == "ring" else None)
+        # passes held against the CPU from the same state, cut
+        # (HYBRID_REF_TOKENS)
+        n_data, n_ref = topo.n_data_ranks, HYBRID_REF_PASSES.get(leg, 1)
+        ref_b = 4 if kind == "pp" else 1
+        xr, yr = synthetic_lm_dataset(n_data * ref_b * n_ref,
+                                      HYBRID_REF_TOKENS, vocab, seed=5)
+        shard = lambda a: a.reshape((n_data, n_ref, ref_b, -1)).astype(
+            np.int64)
+        xb, yb = expand_to_mesh(shard(xr), shard(yr), topo)
+        t_ref = time.perf_counter()
+        ref = _reference_steps(
+            leg, _hybrid_model(kind, topo, 2 if kind == "pp" else 1), algo,
+            {}, dataclasses.replace(cfg, warmup_passes=1),
+            [(xb[:, i], yb[:, i]) for i in range(n_ref)], tol, topo=topo,
+            update_rtol=HYBRID_UPDATE_RTOL)
+        t_ref = time.perf_counter() - t_ref
+        torch.cuda.empty_cache()
+
+        x, y = synthetic_lm_dataset(n_data * per_rank * steps, seq, vocab,
+                                    seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if entry == "cli":
+            (HERE / "build").mkdir(exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+                path = Path(tmp) / "records.jsonl"
+                argv = ["--algo", algo, "--mesh", mesh, "--model",
+                        "transformer_tp", "--dim", str(HYBRID_LM["dim"]),
+                        "--heads", str(HYBRID_LM["n_heads"]), "--layers",
+                        str(HYBRID_LM["n_layers"]), "--seq-len", str(seq),
+                        "--vocab", str(vocab), "--n-synth",
+                        str(n_data * per_rank * steps), "--epochs",
+                        str(epochs), "--batch-size", str(per_rank), "--lr",
+                        "0.01", "--momentum", "0.9", "--horizon", "1.05",
+                        "--warmup-passes", "2", "--max-silence", "50",
+                        "--random-sampler", "--log-file", str(path),
+                        "--device", DEVICE]
+                if _run_cli(argv) != 0:
+                    raise SmokeError(f"{leg}: cli.main exited non-zero")
+                recs = _cli_records(path)
+            hist, final = recs[:-1], recs[-1]
+            if not (final.get("final") and final.get("consensus_eval")
+                    is False and final["loss"] == hist[-1]["loss"]):
+                raise SmokeError(f"{leg}: final record {final}")
+            passes = hist[-1]["epoch"] * hist[-1]["steps"]
+            params_ok = True
+        else:
+            state, hist = egt.train(
+                model, topo, x, y, algo=algo, epochs=epochs,
+                batch_size=per_rank, learning_rate=0.01, momentum=0.9,
+                event_cfg=cfg, random_sampler=True, seed=0, device=DEVICE)
+            passes = state.pass_num
+            params_ok = bool(torch.isfinite(state.params).all())
+            if tuple(state.params.shape) != (r, n):
+                raise SmokeError(f"{leg}: arena {tuple(state.params.shape)}")
+            del state
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in hist]
+        if passes != steps * epochs or len(hist) != epochs:
+            raise SmokeError(f"{leg}: {passes} passes, {len(hist)} records")
+        if not all(math.isfinite(v) for v in losses) or not params_ok:
+            raise SmokeError(f"{leg}: loss {losses}, params finite "
+                             f"{params_ok}")
+        if not losses[-1] < losses[0]:
+            raise SmokeError(f"{leg}: the loss did not fall: {losses}")
+        must = (("masked_wire", "fused_mix_commit") if algo == "eventgrad"
+                else ("fused_mix_sgd",))
+        if any(counts[k] != passes for k in must):
+            raise SmokeError(f"{leg}: launches {counts}, expected "
+                             f"{passes} of each of {must}")
+        if kind == "ring":
+            # one forward, dQ and dK/dV a hop: n_sp hops a layer a pass
+            want = HYBRID_LM["n_layers"] * n_sp * passes
+            if any(counts[k] != want
+                   for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+                raise SmokeError(f"{leg}: flash launches {counts}, "
+                                 f"expected {want} each")
+            forms = fa.form_counts()
+            for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+                if forms[k][form] != counts[k]:
+                    raise SmokeError(f"{leg}: {k} by form {forms[k]}, "
+                                     f"expected all in {form}")
+        rec = {"leg": leg, "mesh": mesh, "algo": algo, "passes": passes,
+               "loss": losses, "train_acc": hist[-1]["train_acc"],
+               "step_ms": 1e3 * hist[-1]["wall_s"] / hist[-1]["steps"],
+               "first_epoch_step_ms":
+                   1e3 * hist[0]["wall_s"] / hist[0]["steps"],
+               "leg_wall_s": wall, "reference_s": t_ref,
+               "reference_max_abs_err": ref["max_abs_err"],
+               "reference_update": {k: v for k, v in ref.items()
+                                    if k.startswith("update")},
+               "ring_flash_max_abs_err": ring_err, "peak_mem_gib": peak,
+               "sent_bytes_per_step_per_chip":
+                   hist[-1]["sent_bytes_per_step_per_chip"],
+               "sent_bytes_wire_real_per_step_per_chip":
+                   hist[-1]["sent_bytes_wire_real_per_step_per_chip"],
+               "launches": {k: v for k, v in counts.items() if v}}
+        # the dp gossip alone: two neighbours (`_check_dense_bytes`)
+        _check_dense_bytes(leg, algo, hist, n, spec.n_leaves, rec)
+        if algo == "eventgrad":
+            for j, h in enumerate(hist, start=1):
+                want = msgs_saved_pct(h["num_events"], j * steps,
+                                      spec.n_leaves, NB, r)
+                if h["msgs_saved_pct"] != want:
+                    raise SmokeError(f"{leg}: msgs_saved_pct "
+                                     f"{h['msgs_saved_pct']} != {want}")
+        log(json.dumps(rec))
+        for k, v in counts.items():
+            key = k + ("_d128" if k.startswith("flash_") else "")
+            totals[key] = totals.get(key, 0) + v
+        del model
+        torch.cuda.empty_cache()
+    return totals
+
+
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
      "eventgrad_tpu/ops/event_engine.py:118"),
@@ -4723,7 +5062,8 @@ def main() -> int:
                       phase_main_path_lm_d256, phase_realdata,
                       phase_frontier, phase_bucketed_async, phase_chaos,
                       phase_dispatch, phase_resume, phase_audit, phase_obs,
-                      phase_costmodel, phase_membership, phase_cli):
+                      phase_costmodel, phase_membership, phase_cli,
+                      phase_hybrid):
             for k, v in timed(phase).items():
                 launches[k] = launches.get(k, 0) + v
     except Exception:

@@ -8,8 +8,11 @@ numpy only — never JAX, flax, optax or the JAX package.
 
 It trains the four algorithm families of the JAX package (allreduce,
 D-PSGD, EventGraD, sparsified EventGraD) on the MLP, the MNIST CNNs, the
-CIFAR LeNet, the BasicBlock and Bottleneck ResNets and the transformer LM, over rings
-and 2-D tori. The ranks of the simulated topology are a leading
+CIFAR LeNet, the BasicBlock and Bottleneck ResNets and the transformer LM (with
+ring or Ulysses attention inside the model, and its tensor-, pipeline-
+and expert-parallel forms), over rings, 2-D tori and hybrid meshes (a
+gossip axis with sequence-parallel, data-parallel-allreduce, tensor,
+pipeline or expert axes). The ranks of the simulated topology are a leading
 `[R, ...]` dimension on one device (the rank-stacked lift, `parallel/spmd.py`). The flat
 parameter arena (`parallel/arena.py`) holds each rank-stacked quantity
 as one `[R, n]` tensor (f32, or the bf16/int8 wire carrier for

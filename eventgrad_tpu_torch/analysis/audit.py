@@ -537,7 +537,7 @@ def _analyze(cfg, fn, state, batch, model, topo) -> Dict[str, Any]:
     after = _kernel_launches()
     n_params, n_leaves, k_total = _meta(model)
     capacity = resolved_capacity(cfg, model)
-    report = rankflow.analyze(tr.graph, topo.n_ranks)
+    report = rankflow.analyze(tr.graph, topo.n_ranks, grid=topo.shape)
     declared = sorted(nb.offset for nb in topo.neighbors)
     binfo = bucket_info(cfg, model)
     wire = _classify_exchanges(cfg, report, n_params, n_leaves, capacity,

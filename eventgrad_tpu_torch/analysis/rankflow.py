@@ -17,16 +17,24 @@ Every value carries its rank layout:
   * `Single(r)` — the whole value belongs to rank `r` (a piece cut from
     inside one rank's block of a merged dimension);
   * `Iota(dim)` — rank-free, and equal to its own index along `dim` (an
-    `arange(R)`: `vmap`'s indexing rules pair each rank's rows with it).
+    `arange(R)`: `vmap`'s indexing rules pair each rank's rows with it);
+  * `Grid(dim, shape)` — the rank split row-major across the
+    consecutive dimensions `dim .. dim + len(shape) - 1`, which hold the
+    topology's shape (`collectives.recv_from` on a torus reshapes the
+    rank dimension into the `(nx, ny)` grid before it rolls).
 
 Every op has a transfer rule. Pointwise ops broadcast layouts; views and
 reshapes move the rank dimension (or merge and split it); reductions,
 sorts, scans, slices and gathers must stay off it; a convolution must
 keep a merged rank apart by its groups; matrix products must not
 contract it. The one declared cross-rank move is `aten::roll` of the
-pure rank dimension (`collectives.recv_from`): each such roll is an
-`Exchange`, classified by its ring offset, with the lane's elements per
-rank and dtype, which the audit reads as the wire. Kernel ops (`eg::`)
+pure rank dimension (`collectives.recv_from`), or of one dimension of
+the rank grid: each such roll is an `Exchange`, classified by its grid
+axis and its offset along it, with the lane's elements per rank and
+dtype, which the audit reads as the wire. On a grid only reshapes (into
+the grid, within it, and back to the rank dimension), rolls and
+pointwise ops pass; any other op on a grid value — a slice of some grid
+positions, a reduction over a grid dimension — is a violation. Kernel ops (`eg::`)
 pass only with a declared layout (`analysis/kernels.py`). An op with no
 rule is a violation, never a pass.
 
@@ -74,6 +82,12 @@ class Iota:
     dim: int
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    dim: int
+    shape: Tuple[int, ...]
+
+
 class _Taint:
     def __repr__(self):
         return "TAINT"
@@ -84,12 +98,15 @@ TAINT = _Taint()
 
 @dataclasses.dataclass(frozen=True)
 class Exchange:
-    """One lane moved across ranks: a roll of the pure rank dimension."""
+    """One lane moved across ranks: a roll of the pure rank dimension
+    (`axis` None) or of grid dimension `axis` (its offset folded on that
+    axis's size)."""
 
     offset: int
     lane_elems: int
     dtype: str
     node: str
+    axis: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,9 +191,12 @@ def _seq_layout(ranks: Sequence[Tuple[int, int]], n_ranks: int) -> Optional[Rank
 
 class _Flow:
     def __init__(self, gm: torch.fx.GraphModule, n_ranks: int,
-                 stacked: Optional[Sequence[bool]]):
+                 stacked: Optional[Sequence[bool]],
+                 grid: Optional[Sequence[int]] = None):
         self.gm = gm
         self.R = int(n_ranks)
+        self.grid = (tuple(int(g) for g in grid)
+                     if grid is not None and len(grid) > 1 else None)
         self.stacked = stacked
         self.env: Dict[torch.fx.Node, Any] = {}
         self.violations: List[Finding] = []
@@ -305,6 +325,10 @@ class _Flow:
         carried = self.carried(lays)
         if base in _FACTORY:
             return self.factory(node, base)
+        if any(isinstance(x, Grid) for x in carried) and (
+                base not in _GRID_OPS):
+            self.fail(f"aten::{base} on the rank grid (only reshapes, rolls "
+                      "and pointwise ops keep it)")
         if base not in _REASSEMBLE and carried and all(
                 isinstance(x, Single) for x in carried):
             if len(set(carried)) > 1:
@@ -375,12 +399,41 @@ class _Flow:
 
     # -- views -------------------------------------------------------------
 
+    def grid_reshape(self, lay, in_shape, out_shape):
+        """The layout after a reshape of a pure rank dimension or a grid:
+        `Grid` where consecutive output dimensions hold the topology's
+        shape, `Rank` where one holds all R ranks, with the same number
+        of elements before and after the rank digits; None when neither
+        fits."""
+        if isinstance(lay, Grid):
+            d, k = lay.dim, len(lay.shape)
+        else:
+            d, k = lay.dim, 1
+        pre = math.prod(in_shape[:d])
+        post = math.prod(in_shape[d + k:])
+        for e in range(len(out_shape)):
+            if math.prod(out_shape[:e]) != pre:
+                continue
+            if (self.grid is not None
+                    and tuple(out_shape[e:e + len(self.grid)]) == self.grid
+                    and math.prod(out_shape[e + len(self.grid):]) == post):
+                return Grid(e, self.grid)
+            if out_shape[e] == self.R and math.prod(out_shape[e + 1:]) == post:
+                return Rank(e)
+        return None
+
     def reshape_layout(self, lay, in_shape, out_shape):
         """The layout after a view or reshape (row-major order kept):
         the rank is the digit `(f // stride) % R` of the flat index `f`;
-        find the output dimension that holds that whole digit."""
+        find the output dimension that holds that whole digit (or, on a
+        topology with a grid, the consecutive dimensions of the grid)."""
         if lay is None or isinstance(lay, Single):
             return lay
+        if isinstance(lay, Grid):
+            got = self.grid_reshape(lay, in_shape, out_shape)
+            if got is None:
+                self.fail("reshape splits the rank grid across dimensions")
+            return got
         iota = isinstance(lay, Iota)
         inner = 1 if iota else lay.inner
         stride = inner * math.prod(in_shape[lay.dim + 1:])
@@ -397,6 +450,10 @@ class _Flow:
             se *= size
         if iota:
             return None
+        if self.grid is not None and lay.pure:
+            got = self.grid_reshape(lay, in_shape, out_shape)
+            if got is not None:
+                return got
         self.fail("reshape splits the rank axis across dimensions")
 
     def slice_layout(self, lay, dim, start, end, step, size):
@@ -568,6 +625,21 @@ def _r_roll(f, node, a):
     shifts, dims = list(a["shifts"]), list(a["dims"] or [])
     if isinstance(lay, Iota):
         lay = None
+    if isinstance(lay, Grid):
+        if not dims:
+            f.fail("roll of the flattened tensor crosses ranks")
+        nd = _ndim(x)
+        for s, d in zip(shifts, dims):
+            axis = _norm(d, nd) - lay.dim
+            if not 0 <= axis < len(lay.shape):
+                continue
+            n = lay.shape[axis]
+            off = (-int(s)) % n
+            off = off if off <= n // 2 else off - n
+            f.exchanges.append(Exchange(
+                off, math.prod(_shape(x)) // f.R,
+                _dtype_name(_meta(node).dtype), node.name, axis))
+        return lay
     if not isinstance(lay, Rank):
         return lay
     if not dims:
@@ -967,6 +1039,9 @@ empty empty_like
 #: tainted index
 _GATHERS = frozenset(("index_select", "index", "gather"))
 
+#: the ops that keep a rank grid (`Grid`): reshapes, rolls, pointwise
+_GRID_OPS = frozenset(("view", "_unsafe_view", "roll")) | _POINTWISE
+
 #: ops that reassemble per-rank pieces (`Single`) into a rank layout
 _REASSEMBLE = frozenset(("cat", "stack", "_foreach_norm"))
 
@@ -1006,8 +1081,12 @@ def analyze(
     gm: torch.fx.GraphModule,
     n_ranks: int,
     stacked: Optional[Sequence[bool]] = None,
+    grid: Optional[Sequence[int]] = None,
 ) -> RankFlowReport:
     """Run the rank-flow analysis over a traced step. `stacked[i]` says
     whether placeholder `i` holds the ranks on its leading dimension
-    (default: every tensor whose leading dimension is `n_ranks`)."""
-    return _Flow(gm, n_ranks, stacked).run()
+    (default: every tensor whose leading dimension is `n_ranks`).
+    `grid` is the topology's shape: on a topology of two or more axes a
+    reshape of the rank dimension into it is the rank grid, whose rolls
+    are the exchanges by axis."""
+    return _Flow(gm, n_ranks, stacked, grid).run()

@@ -13,18 +13,23 @@ Reference argv semantics (event.cpp:88-100, spevent.cpp:47-60):
 
 plus what MPI provided implicitly:
 
-    mpirun -np N         -> --mesh ring:N | torus:XxY
+    mpirun -np N         -> --mesh ring:N | torus:XxY | dp:N,sp:M ...
                             (the ranks stacked on one device)
+
+A hybrid mesh (`dp:4,sp:2`, `dp:2,tp:2`, `dp:2,pp:2`, `dp:2,ep:2`,
+`dp:2,ddp:2`, ...) gossips along dp, shards the transformers' weights
+along tp, pp or ep (`--model transformer_tp|transformer_pp|
+transformer_moe`), shards each replica's sequence along sp (`--attn
+ring|ulysses`) and forms synchronous allreduce subgroups along ddp; its
+run reports its final train metrics instead of a consensus eval.
 
 One flag is the port's own: `--device {cuda,cpu}` (default cuda, which
 raises when CUDA is absent; the tests pass `--device cpu`).
 
 What the port does not have yet is refused before any data is built, with
-the ROADMAP item that ports it: hybrid meshes (`dp:2,sp:2`, ...),
-`--model transformer_tp|transformer_pp|transformer_moe` and `--attn
-ring|ulysses` (queue 1, item 7); `--backend mesh`, `--coordinator` and
-`EG_COORDINATOR` (item 8); `--arena off`, the JAX package's tree path,
-is not queued, by design. `--backend auto` resolves to the stacked
+the ROADMAP item that ports it: `--backend mesh`, `--coordinator` and
+`EG_COORDINATOR` (queue 1, item 8); `--arena off`, the JAX package's
+tree path, is not queued, by design. `--backend auto` resolves to the stacked
 simulator (the port has no device mesh), as does `sim`. `--fused` is
 accepted with the JAX guards that name it and selects nothing: the
 port's gossip tail is always the fused CUDA kernel.
@@ -37,16 +42,16 @@ Examples:
         --dataset cifar10 --data-dir DIR --model resnet18 --topk-percent 10
     python -m eventgrad_tpu_torch.cli --device cpu --algo eventgrad \\
         --mesh ring:4 --model mlp --epochs 2
+    python -m eventgrad_tpu_torch.cli --device cpu --mesh dp:2,sp:2 \\
+        --model transformer --attn ring --dim 32 --heads 2 --seq-len 16
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import os
 import sys
-from typing import Tuple
 
 import numpy as np
 
@@ -60,7 +65,7 @@ from eventgrad_tpu_torch.models import MODEL_REGISTRY
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
-from eventgrad_tpu_torch.parallel.topology import Ring, Torus
+from eventgrad_tpu_torch.parallel.topology import Ring, Topology, Torus
 from eventgrad_tpu_torch.train.loop import (
     ARENA_OFF_REFUSAL, consensus_params, evaluate, rank0_slice, train,
 )
@@ -79,23 +84,36 @@ LM_MODELS = ("transformer", "transformer_tp", "transformer_pp",
              "transformer_moe")
 
 
-@dataclasses.dataclass(frozen=True)
-class HybridMesh:
-    """A hybrid mesh spec (`dp:4,sp:2`, `dp:2,tp:2`, ...) parsed with the
-    JAX grammar: the axes and their classes, which the guards read. The
-    port's `Topology` has gossip axes only, so `main` refuses it
-    (ROADMAP queue 1, item 7)."""
+def build_lm_model(args, topo: Topology):
+    """Construct the requested transformer over the mesh's parallel axes
+    (the JAX launcher's `build_lm_model`, with its words)."""
+    from eventgrad_tpu_torch.models.moe import MoETransformerLM
+    from eventgrad_tpu_torch.models.pp import PPTransformerLM
+    from eventgrad_tpu_torch.models.tp import TPTransformerLM
+    from eventgrad_tpu_torch.models.transformer import TransformerLM
 
-    axes: Tuple[str, ...]
-    shape: Tuple[int, ...]
-    gossip_axes: Tuple[str, ...]
-    sharded_axes: Tuple[str, ...]
-    data_aux_axes: Tuple[str, ...]
+    def need(axis: str):
+        if axis not in topo.axes:
+            raise SystemExit(
+                f"--model {args.model} needs a {axis!r} axis in --mesh "
+                f"(e.g. --mesh dp:2,{axis}:2); got {topo.axes}"
+            )
+        return topo.axis_size(axis)
 
-    def __post_init__(self):
-        # the JAX Topology's shape check, with its words
-        if any(s < 1 for s in self.shape):
-            raise ValueError(f"invalid topology shape {self.shape}")
+    common = dict(vocab=args.vocab, dim=args.dim, n_heads=args.heads,
+                  n_layers=args.layers, max_len=args.seq_len)
+    if args.model == "transformer":
+        if args.attn in ("ring", "ulysses"):
+            need("sp")
+            return TransformerLM(**common, attn=args.attn, topo=topo,
+                                 sp_axis="sp")
+        return TransformerLM(**common, attn=args.attn)
+    if args.model == "transformer_tp":
+        return TPTransformerLM(**common, axis="tp", tp_size=need("tp"))
+    if args.model == "transformer_pp":
+        return PPTransformerLM(**common, axis="pp", pp_size=need("pp"))
+    return MoETransformerLM(**common, n_experts=args.n_experts, axis="ep",
+                            ep_size=need("ep"))
 
 
 def parse_mesh(spec: str):
@@ -121,7 +139,7 @@ def parse_mesh(spec: str):
                 shape.append(int(n))
             if len(set(axes)) != len(axes):
                 raise ValueError(f"duplicate axis in {spec!r}")
-            return HybridMesh(
+            return Topology(
                 axes=tuple(axes),
                 shape=tuple(shape),
                 gossip_axes=tuple(a for a in axes if a == "dp"),
@@ -134,13 +152,6 @@ def parse_mesh(spec: str):
         f"bad mesh spec {spec!r} (ring:N, torus:XxY, or axis:N[,axis:N...] "
         f"with axes dp/ddp/sp/tp/pp/ep)"
     )
-
-
-def _gossip_axes(topo) -> Tuple[str, ...]:
-    """The mesh's gossip axes: every axis of a ring or torus."""
-    if isinstance(topo, HybridMesh):
-        return topo.gossip_axes
-    return tuple(topo.axes)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -192,8 +203,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="full",
                    help="attention mode for --model transformer; flash = "
                         "the hand-written CUDA kernels; ring/ulysses need "
-                        "an sp axis in --mesh (not ported yet: ROADMAP "
-                        "queue 1, item 7)")
+                        "an sp axis in --mesh (e.g. dp:2,sp:2) and shard "
+                        "each replica's sequence over it")
     p.add_argument("--n-experts", type=int, default=8,
                    help="experts for --model transformer_moe")
     p.add_argument("--epochs", type=int, default=10)          # event.cpp:255
@@ -376,27 +387,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _item_refusals(args, topo, is_lm: bool) -> None:
+def _item_refusals(args) -> None:
     """What the port does not run yet, refused before any data is built,
     naming the ROADMAP item that ports it."""
-    if isinstance(topo, HybridMesh):
-        raise SystemExit(
-            f"--mesh {','.join(f'{a}:{n}' for a, n in zip(topo.axes, topo.shape))}: "
-            "hybrid meshes (aux, sharded and ddp axes beside dp) are not "
-            "ported yet (ROADMAP queue 1, item 7); use ring:N or torus:XxY"
-        )
-    if is_lm and args.model != "transformer":
-        raise SystemExit(
-            f"--model {args.model}: the tensor/pipeline/expert-parallel "
-            "transformers are not ported yet (ROADMAP queue 1, item 7); "
-            "use --model transformer"
-        )
-    if is_lm and args.attn in ("ring", "ulysses"):
-        raise SystemExit(
-            f"--attn {args.attn} needs the hybrid dp x sp topology in the "
-            "train step, which is not ported yet (ROADMAP queue 1, item 7); "
-            "use --attn full or flash"
-        )
     if args.backend == "mesh":
         raise SystemExit(
             "--backend mesh: the device-mesh lift (one rank per card, "
@@ -474,7 +467,7 @@ def _run(args, topo, logger, registry, emit) -> int:
         )
     if is_lm and args.augment:
         raise SystemExit("--augment is an image transform; not for LM")
-    if args.algo != "allreduce" and not _gossip_axes(topo):
+    if args.algo != "allreduce" and not topo.gossip_axes:
         raise SystemExit(
             f"--algo {args.algo} needs a gossip axis (dp) in --mesh; "
             f"{tuple(topo.axes)} has none (did you mean dp instead of ddp?)"
@@ -660,7 +653,7 @@ def _run(args, topo, logger, registry, emit) -> int:
             "--num-classes/--num-filters apply to resnet models only "
             "(the reference's small CNNs have fixed heads)"
         )
-    _item_refusals(args, topo, is_lm)
+    _item_refusals(args)
     # the port's device rule: the card unless --device cpu, and an error
     # (before any data is built) when CUDA is absent
     device = None if args.device == "cuda" else args.device
@@ -696,16 +689,16 @@ def _run(args, topo, logger, registry, emit) -> int:
         xt, yt = load_or_synthesize(dataset, data_dir, "test", n_test,
                                     args.seed)
 
+    # the data-parallel degree is the data axes' extent: gossip ranks
+    # plus any ddp subgroups split the batch; sp/tp/pp/ep ranks replicate
+    # or chunk it instead
+    hybrid = topo.is_hybrid
     batch = args.batch_size
     if args.global_batch:
-        batch = max(1, args.global_batch // topo.n_ranks)
+        batch = max(1, args.global_batch // topo.n_data_ranks)
 
     if is_lm:
-        from eventgrad_tpu_torch.models.transformer import TransformerLM
-
-        model = TransformerLM(vocab=args.vocab, dim=args.dim,
-                              n_heads=args.heads, n_layers=args.layers,
-                              max_len=args.seq_len, attn=args.attn)
+        model = build_lm_model(args, topo)
     else:
         model = build_image_model(args, np.shape(x)[1:])
 
@@ -772,12 +765,22 @@ def _run(args, topo, logger, registry, emit) -> int:
             print(f"integrity abort: {e}", file=sys.stderr, flush=True)
             return INTEGRITY_ABORT_EXIT
 
-        # the consensus model (the mean over the ranks) on rank 0's
-        # BatchNorm statistics, evaluated once
-        cons = consensus_params(state.params)
-        stats0 = rank0_slice(state.batch_stats)
-        final = evaluate(model, cons, stats0, xt, yt, device=device)
-        emit({"final": True, **final})
+        if hybrid:
+            # a consensus average across sp/tp/pp/ep ranks would mix
+            # differently sharded parameters: the final train metrics
+            # instead (no history when resuming a final-epoch snapshot)
+            rec = {"final": True, "consensus_eval": False}
+            if hist:
+                rec.update(loss=hist[-1]["loss"],
+                           train_acc=hist[-1]["train_acc"])
+            emit(rec)
+        else:
+            # the consensus model (the mean over the ranks) on rank 0's
+            # BatchNorm statistics, evaluated once
+            cons = consensus_params(state.params)
+            stats0 = rank0_slice(state.batch_stats)
+            final = evaluate(model, cons, stats0, xt, yt, device=device)
+            emit({"final": True, **final})
     finally:
         # exporters land even on an exception path — a crashed run's
         # spans are exactly the ones worth reading — but they are

@@ -9,6 +9,11 @@ carries a leading rank dimension that is left in place.
 
 The dicts come out in flax leaf order (`parallel/arena.flax_order`),
 the order of the arena segments and of the `[L]` event-state vectors.
+The sharded transformers' trees carry the same way, rank by rank from a
+JAX stacked state (`stacked=True`): the tensor-parallel `tp_kernel`s
+are dense kernels (transposed), the pipeline stages' `tp_l{i}_*` leaves
+and the experts' `[e_local, d, hidden]` `tp_wi` / `tp_wo` keep the JAX
+layout (their models compute `x @ w`).
 
 `arena_from_jax` maps a JAX `[..., n]` arena (flax layout inside each
 leaf) to the port's, `event_state_from_jax` and `sparse_state_from_jax`

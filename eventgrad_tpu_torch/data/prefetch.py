@@ -78,7 +78,9 @@ class EpochPrefetcher:
     dispatch block consumes) and speculates `next_span` instead. With
     `transfer` set, the worker also applies it to each array, so the
     block comes back uploaded. `x` and `y` are taken as given (the loop
-    passes them in the model's input dtype and int64 labels)."""
+    passes them in the model's input dtype and int64 labels). `expand`
+    maps the assembled `(xb, yb)` of the data ranks before the transfer
+    (a hybrid mesh's `data.sharding.expand_to_mesh`)."""
 
     def __init__(
         self,
@@ -91,6 +93,7 @@ class EpochPrefetcher:
         seed: int = 0,
         last_epoch: Optional[int] = None,
         transfer: Optional[Callable[[np.ndarray], object]] = None,
+        expand: Optional[Callable] = None,
     ):
         self.x = np.ascontiguousarray(x)
         self.y = np.ascontiguousarray(y)
@@ -100,6 +103,7 @@ class EpochPrefetcher:
         self.seed = seed
         self.last_epoch = last_epoch  # no speculative assembly past this
         self.transfer = transfer
+        self.expand = expand
         #: speculation misses: a get()/get_block() the pending assembly
         #: did not predict (assembled on the caller's thread instead)
         self.misses = 0
@@ -127,6 +131,8 @@ class EpochPrefetcher:
             xb = np.concatenate([p[0] for p in parts], axis=1)
             yb = np.concatenate([p[1] for p in parts], axis=1)
         del parts
+        if self.expand is not None:
+            xb, yb = self.expand(xb, yb)
         if self.transfer is not None:
             return self.transfer(xb), self.transfer(yb)
         return xb, yb

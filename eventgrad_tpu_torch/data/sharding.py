@@ -1,7 +1,9 @@
 """Distributed data sharding — the reference's samplers as index arrays.
 
 Port of `eventgrad_tpu/data/sharding.py` (`shard_random`,
-`epoch_steps`, `epoch_index_plan`, `batched_epoch`), verbatim in numpy:
+`epoch_steps`, `epoch_index_plan`, `batched_epoch`, and
+`expand_to_mesh`, which lifts the data ranks' batches onto a hybrid
+mesh's full rank set), verbatim in numpy:
 identical batches are what make trajectory parity with the JAX package
 possible. A shard plan is an index array in the stacked layout
 `[n_ranks, steps, batch]`.
@@ -82,3 +84,50 @@ def batched_epoch(
         len(x), n_ranks, batch_size, random=random, seed=seed, epoch=epoch
     )
     return x[idx], y[idx]
+
+
+def expand_to_mesh(
+    xb: np.ndarray, yb: np.ndarray, topo, sp_axis: str = "sp"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Lift data-sharded batches onto a hybrid mesh's full rank set.
+
+    `xb`/`yb` arrive in the stacked layout over the data ranks only
+    (`[n_data, steps, batch, ...]`, each data rank a disjoint shard; the
+    data axes are the gossip axes plus a "ddp" axis if present). Each
+    rank of the full mesh, in the topology's row-major order, takes its
+    data rank's batch: the same batch along tp/pp/ep (the model, not the
+    data, differs there), and along the sequence-parallel axis its own
+    chunk of the trailing token dimension (ring attention's layout).
+    Returns `[topo.n_ranks, steps, batch, ...(chunked)]`."""
+    shape = topo.shape
+    data_idx = [topo.axes.index(a) for a in topo.data_axes]
+    sp_pos = topo.axes.index(sp_axis) if sp_axis in topo.axes else None
+    n_sp = shape[sp_pos] if sp_pos is not None else 1
+    if sp_pos is not None:
+        t_global = xb.shape[-1]
+        if n_sp > 1 and not np.issubdtype(xb.dtype, np.integer):
+            raise ValueError(
+                f"{sp_axis} axis chunks the TRAILING batch dimension (size "
+                f"{t_global}) as a token sequence, but batches are "
+                f"{xb.dtype} — image channels must not be sliced; "
+                f"sequence parallelism requires integer token data"
+            )
+        if t_global % n_sp:
+            raise ValueError(
+                f"sequence length {t_global} not divisible by {sp_axis} size {n_sp}"
+            )
+        t_local = t_global // n_sp
+
+    xs, ys = [], []
+    for r in range(topo.n_ranks):
+        multi = np.unravel_index(r, shape)
+        g = 0
+        for ax in data_idx:
+            g = g * shape[ax] + multi[ax]
+        xr, yr = xb[g], yb[g]
+        if sp_pos is not None:
+            sl = slice(multi[sp_pos] * t_local, (multi[sp_pos] + 1) * t_local)
+            xr, yr = xr[..., sl], yr[..., sl]
+        xs.append(xr)
+        ys.append(yr)
+    return np.stack(xs), np.stack(ys)

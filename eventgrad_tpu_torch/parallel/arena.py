@@ -46,6 +46,12 @@ def flax_order(names: Iterable[str]) -> Tuple[str, ...]:
     return tuple(sorted(names, key=lambda s: tuple(s.split("."))))
 
 
+def is_sharded_leaf(name: str) -> bool:
+    """A leaf sharded over the model's parallel axis: a path component
+    starts with `tp_` (the JAX package's convention, `train/steps.py`)."""
+    return any(part.startswith("tp_") for part in name.split("."))
+
+
 @dataclasses.dataclass(frozen=True)
 class ArenaSpec:
     """Static leaf-major layout of one parameter structure (plain Python,

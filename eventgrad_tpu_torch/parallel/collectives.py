@@ -2,7 +2,11 @@
 int8 wires, masked or compact.
 
 Port of `eventgrad_tpu/parallel/collectives.py`, the subset the port's
-steps run: `allreduce_mean`, `recv_from`, `_wire_concat`, the wire codecs
+steps run: `allreduce_mean`, `recv_from`, the grid collectives the
+hybrid meshes' models and step run along one named axis (`axis_sum`
+for `lax.psum`, `axis_mean` for `lax.pmean`, `axis_all_to_all` for
+`lax.all_to_all`, `axis_index` for `lax.axis_index`; a shift along one
+axis is `recv_from`), `_wire_concat`, the wire codecs
 (`_wire_out`, `_contract_safe`, `_leaf_absmax`, `_masked_scales`,
 `_int8_encode_flat`), `neighbor_vals_flat`, `masked_neighbor_vals_flat`
 and `compact_neighbor_vals_flat` (both with the carrier-resident
@@ -55,15 +59,67 @@ def check_wire(wire) -> None:
         raise ValueError(f"wire must be one of {WIRE_MODES}")
 
 
-def allreduce_mean(x: torch.Tensor, topo: Topology) -> torch.Tensor:
-    """Mean over every rank of the topology: each rank's slice of the
-    `[R, ...]` result holds the mean, taken axis by axis in the
-    topology's axis order as the JAX package's chain of `pmean`s takes
-    it."""
+def allreduce_mean(x: torch.Tensor, topo: Topology, axes=None) -> torch.Tensor:
+    """Mean over every rank of the topology (or over the grid axes named
+    in `axes`): each rank's slice of the `[R, ...]` result holds its
+    group's mean, taken axis by axis in the topology's axis order as the
+    JAX package's chain of `pmean`s takes it."""
     grid = x.reshape(tuple(topo.shape) + tuple(x.shape[1:]))
-    for ax in range(len(topo.shape)):
-        grid = torch.mean(grid, dim=ax, keepdim=True)
-    return grid.reshape((1,) + tuple(x.shape[1:])).expand(x.shape)
+    for ax, name in enumerate(topo.axes):
+        if axes is None or name in axes:
+            grid = torch.mean(grid, dim=ax, keepdim=True)
+    if axes is None:
+        return grid.reshape((1,) + tuple(x.shape[1:])).expand(x.shape)
+    return grid.expand(tuple(topo.shape) + tuple(x.shape[1:])).reshape(
+        x.shape)
+
+
+def _grid(x: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """The `[R, ...]` stack viewed as the topology's grid `[*shape, ...]`
+    (row-major: the rank dimension split across consecutive
+    dimensions)."""
+    return x.reshape(tuple(topo.shape) + tuple(x.shape[1:]))
+
+
+def axis_sum(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
+    """`lax.psum(x, axis)` on the stack: every rank receives the sum of
+    its group along grid axis `axis`. Under autograd the cotangent that
+    reaches a rank's input is the sum of its group's cotangents, the
+    JAX package's transpose of `psum`."""
+    ax = topo.axes.index(axis)
+    grid = _grid(x, topo)
+    return grid.sum(dim=ax, keepdim=True).expand(grid.shape).reshape(x.shape)
+
+
+def axis_mean(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
+    """`lax.pmean(x, axis)` on the stack: the group mean along grid axis
+    `axis`, broadcast back to every member."""
+    return allreduce_mean(x, topo, axes=(axis,))
+
+
+def axis_index(topo: Topology, axis: str, device=None) -> torch.Tensor:
+    """`lax.axis_index(axis)` of every rank: `[R]` int64, each rank's
+    coordinate along grid axis `axis`."""
+    ax = topo.axes.index(axis)
+    grid = torch.arange(topo.shape[ax], device=device).reshape(
+        (1,) * ax + (topo.shape[ax],) + (1,) * (len(topo.shape) - ax - 1))
+    return grid.expand(tuple(topo.shape)).reshape(topo.n_ranks)
+
+
+def axis_all_to_all(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
+    """`lax.all_to_all(x, axis, split_axis=0, concat_axis=0, tiled=True)`
+    on the stack, where each rank's `x[r]` leads with one chunk per
+    member of its group along `axis` (`[R, n, ...]`, n the axis size):
+    member a's chunk s goes to member s, which holds it at position a —
+    the exchange of the grid dimension with the chunk dimension."""
+    ax = topo.axes.index(axis)
+    n = topo.shape[ax]
+    if x.dim() < 2 or x.shape[1] != n:
+        raise ValueError(
+            f"all_to_all along {axis!r} needs [R, {n}, ...] chunks, got "
+            f"{tuple(x.shape)}")
+    grid = _grid(x, topo)
+    return grid.transpose(ax, len(topo.shape)).reshape(x.shape)
 
 
 def recv_from(x: torch.Tensor, topo: Topology, nb: NeighborSpec) -> torch.Tensor:

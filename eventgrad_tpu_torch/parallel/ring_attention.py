@@ -7,30 +7,33 @@ Port of `eventgrad_tpu/parallel/ring_attention.py`: `full_attention`
 
 The JAX package writes the two sequence-parallel functions per rank and
 lifts them over a named axis; here they take **rank-stacked shards**
-`[N, B, T_local, H, D]` holding every rank of a one-axis topology (shard
-r owns positions `[r*T_local, (r+1)*T_local)`), like every other
-rank-stacked quantity of the port:
+`[R, B, T_local, H, D]` holding every rank of the topology, like every
+other rank-stacked quantity of the port, and run along one axis of its
+grid (`axis`, default the first): the rank with index i on that axis
+owns positions `[i*T_local, (i+1)*T_local)` of its group's sequence, so
+on a `dp x sp` mesh each dp replica's sequence is sharded over `sp`.
 
-  * `lax.ppermute` of the K/V blocks is `collectives.recv_from`, a
-    `torch.roll` of the rank dimension;
-  * `lax.axis_index` is `torch.arange(N)`;
-  * `lax.all_to_all` is a reshape and a permute of the stacked dimension.
+  * `lax.ppermute` of the K/V blocks is `collectives.recv_from` along
+    the axis, a `torch.roll` of that grid dimension;
+  * `lax.axis_index` is `collectives.axis_index`;
+  * `lax.all_to_all` is `collectives.axis_all_to_all`.
 
 With `use_flash=True` the ring runs each hop through
 `ops/attention.flash_attention_lse` — the ranks folded into the kernel's
 batch, one (q_offset, k_offset) pair per rank — and merges the hops by
 `logaddexp`, so no `[B, H, T/N, T/N]` score block reaches device memory.
-A multi-axis (`dp x sp`) topology waits.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from eventgrad_tpu_torch.parallel.collectives import recv_from
+from eventgrad_tpu_torch.parallel.collectives import (
+    axis_all_to_all, axis_index, recv_from,
+)
 from eventgrad_tpu_torch.parallel.topology import NeighborSpec, Topology
 
 
@@ -70,21 +73,19 @@ def _causal_bias(q_pos, k_pos):
     return torch.where(mask, zero, -math.inf)
 
 
-def _axis_size(topo: Topology, axis: Optional[str], x: torch.Tensor) -> int:
-    if len(topo.axes) != 1:
-        raise NotImplementedError(
-            "sequence parallelism over one axis of a multi-axis (dp x sp) "
-            "topology is not ported yet (ROADMAP queue 1, item 7); pass "
-            "a one-axis topology"
-        )
-    if axis is not None and axis != topo.axes[0]:
+def _sp_axis(topo: Topology, axis: Optional[str], x: torch.Tensor
+             ) -> Tuple[str, int]:
+    """(the sequence-parallel axis, its size): `axis`, or the first axis
+    of the topology as the JAX functions take it."""
+    axis = axis or topo.axes[0]
+    if axis not in topo.axes:
         raise ValueError(f"axis {axis!r} is not an axis of {topo.axes}")
     if x.dim() != 5 or x.shape[0] != topo.n_ranks:
         raise ValueError(
             f"expected rank-stacked shards [{topo.n_ranks}, B, T_local, H, "
             f"D], got {tuple(x.shape)}"
         )
-    return topo.n_ranks
+    return axis, topo.axis_size(axis)
 
 
 def ring_attention(
@@ -98,28 +99,28 @@ def ring_attention(
 ) -> torch.Tensor:
     """Exact attention over a sequence sharded on a ring axis.
 
-    q/k/v: rank-stacked shards [N, B, T_local, H, D]; the global sequence
-    length is T_local * N. Each rank keeps its Q shard and the (K, V)
-    shards rotate one hop per step. Returns the stacked output shards
-    [N, B, T_local, H, D] (q.dtype).
+    q/k/v: rank-stacked shards [R, B, T_local, H, D]; along `axis` (N
+    ranks) the sequence length is T_local * N. Each rank keeps its Q
+    shard and the (K, V) shards rotate one hop per step along the axis.
+    Returns the stacked output shards [R, B, T_local, H, D] (q.dtype).
 
     use_flash=True computes each hop with the flash-attention kernel (out
     + logsumexp, global-position causal offsets per rank) and folds the
     hops together with the two-way online-softmax merge.
     """
-    n = _axis_size(topo, axis, q)
-    nb = NeighborSpec(topo.axes[0], -1)  # KV block arrives from the left
-    _, b, t_local, h, d = q.shape
+    axis, n = _sp_axis(topo, axis, q)
+    nb = NeighborSpec(axis, -1)  # KV block arrives from the left
+    r, b, t_local, h, d = q.shape
     dev = q.device
-    rank = torch.arange(n, device=dev)
+    rank = axis_index(topo, axis, dev)
     k_cur, v_cur = k, v
 
     if use_flash:
         from eventgrad_tpu_torch.ops.attention import flash_attention_lse
 
-        fold = lambda x: x.reshape((n * b,) + tuple(x.shape[2:]))
-        o = torch.zeros((n, b, t_local, h, d), dtype=torch.float32, device=dev)
-        lse = torch.full((n, b, t_local, h), -math.inf, dtype=torch.float32,
+        fold = lambda x: x.reshape((r * b,) + tuple(x.shape[2:]))
+        o = torch.zeros((r, b, t_local, h, d), dtype=torch.float32, device=dev)
+        lse = torch.full((r, b, t_local, h), -math.inf, dtype=torch.float32,
                          device=dev)
         for step in range(n):
             src = (rank - step) % n
@@ -138,9 +139,9 @@ def ring_attention(
         return o.to(q.dtype)
 
     ct = torch.promote_types(q.dtype, torch.float32)
-    m = torch.full((n, b, h, t_local), -math.inf, dtype=ct, device=dev)
-    l = torch.zeros((n, b, h, t_local), dtype=ct, device=dev)
-    o = torch.zeros((n, b, t_local, h, d), dtype=ct, device=dev)
+    m = torch.full((r, b, h, t_local), -math.inf, dtype=ct, device=dev)
+    l = torch.zeros((r, b, h, t_local), dtype=ct, device=dev)
+    o = torch.zeros((r, b, t_local, h, d), dtype=ct, device=dev)
     pos = torch.arange(t_local, device=dev)
     for step in range(n):
         # after `step` hops the resident KV block originated at rank r-step
@@ -169,36 +170,39 @@ def ulysses_attention(
     causal: bool = False,
     use_flash: bool = False,
 ) -> torch.Tensor:
-    """DeepSpeed-Ulysses-style SP on rank-stacked shards [N, B, T_local,
-    H, D]: all-to-all from sequence-sharded to head-sharded, full local
-    attention, all-to-all back. Requires H % N == 0.
+    """DeepSpeed-Ulysses-style SP on rank-stacked shards [R, B, T_local,
+    H, D] along `axis` (N ranks): all-to-all from sequence-sharded to
+    head-sharded, full local attention, all-to-all back. Requires
+    H % N == 0.
 
     use_flash=True runs the local attention through the flash-attention
     kernel: after the all-to-all each rank holds full-sequence causal
     self-attention over its head shard, which is the kernel's contract."""
-    n = _axis_size(topo, axis, q)
-    _, b, t_local, h, d = q.shape
+    axis, n = _sp_axis(topo, axis, q)
+    r, b, t_local, h, d = q.shape
     if h % n != 0:
         raise ValueError(f"n_heads {h} not divisible by axis size {n}")
     hn, t = h // n, t_local * n
 
     def seq_to_heads(x):
-        # [N, B, T/N, H, D] -> [N, B, T, H/N, D]: head chunk i ships to
-        # rank i, received shards concatenate in rank order along the
-        # sequence
-        x = x.reshape(n, b, t_local, n, hn, d).permute(3, 1, 0, 2, 4, 5)
-        return x.reshape(n, b, t, hn, d)
+        # [R, B, T/N, H, D] -> [R, B, T, H/N, D]: head chunk i ships to
+        # the axis's rank i, received shards concatenate in rank order
+        # along the sequence
+        x = x.reshape(r, b, t_local, n, hn, d).permute(0, 3, 1, 2, 4, 5)
+        x = axis_all_to_all(x, topo, axis)  # [R, N(src), B, T/N, H/N, D]
+        return x.permute(0, 2, 1, 3, 4, 5).reshape(r, b, t, hn, d)
 
     def heads_to_seq(x):
-        # [N, B, T, H/N, D] -> [N, B, T/N, H, D]
-        x = x.reshape(n, b, n, t_local, hn, d).permute(2, 1, 3, 0, 4, 5)
-        return x.reshape(n, b, t_local, h, d)
+        # [R, B, T, H/N, D] -> [R, B, T/N, H, D]
+        x = x.reshape(r, b, n, t_local, hn, d).permute(0, 2, 1, 3, 4, 5)
+        x = axis_all_to_all(x, topo, axis)  # [R, N(src), B, T/N, H/N, D]
+        return x.permute(0, 2, 3, 1, 4, 5).reshape(r, b, t_local, h, d)
 
     qg, kg, vg = seq_to_heads(q), seq_to_heads(k), seq_to_heads(v)
     if use_flash:
         from eventgrad_tpu_torch.ops.attention import flash_attention
 
-        fold = lambda x: x.reshape(n * b, t, hn, d)
+        fold = lambda x: x.reshape(r * b, t, hn, d)
         out = flash_attention(fold(qg), fold(kg), fold(vg), causal=causal)
         return heads_to_seq(out.reshape(qg.shape))
     bias = None

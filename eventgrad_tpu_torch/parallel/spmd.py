@@ -7,7 +7,12 @@ leading `[n_ranks]` dimension (row-major over `topo.shape`), the
 neighbor exchange is a `torch.roll` of that dimension
 (`collectives.recv_from`), and the one per-rank computation that needs a
 transform — the model's forward and backward — is batched with
-`torch.func.vmap` (`per_rank`). `resolve_backend` reads the JAX
+`torch.func.vmap` (`per_rank`). A model that holds a collective (ring
+or Ulysses attention, the tensor-, pipeline- and expert-parallel
+transformers) runs rank-stacked instead: `per_rank` batches its
+per-rank pieces between the collectives, which run on the stack along
+one axis of the topology's grid (`collectives.axis_sum`,
+`axis_all_to_all`, `recv_from`). `resolve_backend` reads the JAX
 package's backend names; the device mesh lift (one rank per device,
 NCCL collectives) waits.
 """
@@ -37,6 +42,14 @@ def per_rank(fn: Callable) -> Callable:
     """Lift a per-rank function over the leading rank dimension of every
     argument and output (`torch.func.vmap` over dim 0)."""
     return torch.func.vmap(fn)
+
+
+def sub_params(params, prefix: str) -> dict:
+    """The entries of a dotted-name parameter dict under `prefix`, the
+    prefix stripped ("Block_0.Dense_0.kernel" -> "Dense_0.kernel" under
+    "Block_0")."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
 
 
 #: the backend names `train(backend=...)` takes: the JAX loop's ("vmap",

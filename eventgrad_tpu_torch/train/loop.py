@@ -39,7 +39,9 @@ from eventgrad_tpu_torch.chaos.membership import force_refresh
 from eventgrad_tpu_torch.chaos.policy import RecoveryPolicy
 from eventgrad_tpu_torch.chaos.schedule import resolve as resolve_chaos
 from eventgrad_tpu_torch.data.prefetch import CudaTransfer, EpochPrefetcher
-from eventgrad_tpu_torch.data.sharding import epoch_index_plan, epoch_steps
+from eventgrad_tpu_torch.data.sharding import (
+    epoch_index_plan, epoch_steps, expand_to_mesh,
+)
 from eventgrad_tpu_torch.obs import OBS_MODES
 from eventgrad_tpu_torch.obs import device as obs_device
 from eventgrad_tpu_torch.obs import ledger as obs_ledger
@@ -470,6 +472,15 @@ def train(
     `x_train` is float images with `y_train` one label each, or integer
     tokens `[n, T]` with next-token labels `[n, T]` (`train_acc` then
     counts tokens).
+    On a hybrid mesh (`topo.is_hybrid`: sp, tp, pp or ep axes beside the
+    data axes) the batches shard over the data ranks and
+    `data.sharding.expand_to_mesh` lifts them onto every rank (an sp rank
+    takes its chunk of the tokens, a tp/pp/ep rank its group's batch),
+    the model's input is one sp chunk, and the run keeps the host data
+    path and skips the per-epoch consensus eval and the consensus-error
+    probe, as the JAX loop does (a consensus average would mix
+    differently sharded parameters). Every rank trains on the flat arena,
+    one row per rank.
     Each record carries `loss`, `train_acc`, `sent_bytes_per_step_per_chip`,
     `steps`, `dispatch_block` (the 0-based dispatch block),
     `dispatch_cold` (the first block of its size, wire mode and rank
@@ -857,7 +868,30 @@ def train(
         memb_engine = chaos_membership.MembershipEngine(
             memb_sched, event_cfg=event_cfg, bootstrap_dir=checkpoint_dir)
     n_ranks = topo.n_ranks
-    steps = epoch_steps(len(x), n_ranks, batch_size)
+    # data shards across the data axes (gossip plus any ddp subgroups);
+    # sp ranks hold sequence chunks and tp/pp/ep ranks the same batch
+    # (`data.sharding.expand_to_mesh`)
+    n_data, hybrid = topo.n_data_ranks, topo.is_hybrid
+    steps = epoch_steps(len(x), n_data, batch_size)
+    input_shape = tuple(x.shape[1:])
+    n_sp = topo.axis_size("sp") if "sp" in topo.axes else 1
+    if n_sp > 1:
+        if not np.issubdtype(x.dtype, np.integer):
+            raise ValueError(
+                "sequence parallelism (sp axis) chunks the TRAILING input "
+                f"dimension (here size {input_shape[-1]} of shape "
+                f"{input_shape}) as a token sequence, but the inputs are "
+                f"{np.asarray(x_train).dtype} — for image data that "
+                "dimension is channels and must not be sliced; use an "
+                "integer token dataset with sp"
+            )
+        if input_shape[-1] % n_sp:
+            raise ValueError(
+                f"sequence length {input_shape[-1]} not divisible by sp={n_sp}"
+            )
+        input_shape = input_shape[:-1] + (input_shape[-1] // n_sp,)
+    # targets a rank scores a sample: an sp rank its chunk of the tokens
+    labels_per_rank = labels_per_sample // n_sp
 
     def build(wire_mode: str, capacity: Optional[int] = None):
         return make_train_step(
@@ -879,7 +913,7 @@ def train(
     step = build("compact" if compact_static else "dense")
     resident_wire = wire if carrier_resident else None
     state = init_train_state(
-        model, x.shape[1:], topo, algo, event_cfg, seed,
+        model, input_shape, topo, algo, event_cfg, seed,
         momentum=momentum, resident_wire=resident_wire,
         bucketed=bucketed_k, staleness=staleness, sparse_cfg=sparse_cfg,
         obs=obs_on, device=device,
@@ -903,7 +937,9 @@ def train(
                 found, state, algo=algo, staleness=staleness,
                 resident_wire=resident_wire, bucketed_k=bucketed_k,
                 device=device, trace_carry=trace_carry)
-    eval_on = x_test is not None and log_every_epoch
+    # a hybrid mesh skips the consensus eval: averaging across its
+    # sp/tp/pp/ep ranks would mix differently sharded parameters
+    eval_on = x_test is not None and log_every_epoch and not hybrid
     history: List[Dict[str, Any]] = []
 
     # --- the dispatch resolution: device-resident data, pipeline, K ----
@@ -913,10 +949,10 @@ def train(
     data_bytes = x.size * 4
     if device_data is None:
         device_data = (
-            not memb_on and device.type == "cuda"
+            not memb_on and not hybrid and device.type == "cuda"
             and data_bytes <= int(os.environ.get(
                 "EG_DEVICE_DATA_MAX_BYTES", str(1_500_000_000))))
-    elif device_data and memb_on:
+    elif device_data and (memb_on or hybrid):
         raise ValueError(
             "device_data requires the single-process, non-hybrid, "
             "mesh=None path without membership transitions (hybrid/"
@@ -987,9 +1023,11 @@ def train(
     prefetcher = transfer = None
 
     def make_prefetcher():
-        return EpochPrefetcher(x, y, n_ranks, batch_size,
-                               random=random_sampler, seed=seed,
-                               last_epoch=epochs, transfer=transfer)
+        return EpochPrefetcher(
+            x, y, n_data, batch_size, random=random_sampler, seed=seed,
+            last_epoch=epochs, transfer=transfer,
+            expand=((lambda xb, yb: expand_to_mesh(xb, yb, topo)) if hybrid
+                    else None))
 
     if device_data:
         # the dataset is uploaded once; a block ships only its index plan
@@ -1011,7 +1049,8 @@ def train(
     # the integrity engine (chaos/integrity.py): the sentinel judges each
     # block; the last-known-good starts as the initial state, so a trip
     # in the first block rolls back to the start
-    probe_on = chaos_sched is not None or integ_cfg is not None or obs_on
+    probe_on = (chaos_sched is not None or integ_cfg is not None
+                or obs_on) and not hybrid
     sentinel = (chaos_integrity.DivergenceSentinel(integ_cfg)
                 if integ_engine_on else None)
     # the telemetry flush: the previous cumulative host snapshot (the diff
@@ -1200,7 +1239,7 @@ def train(
                 "wall_s": dt / n_e,
                 "loss": float(m_e["loss"].mean()),
                 "train_acc": 100.0 * float(m_e["correct"].sum())
-                / (nr_b * steps_b * batch_size * labels_per_sample),
+                / (nr_b * steps_b * batch_size * labels_per_rank),
                 "sent_bytes_per_step_per_chip": _step_mean(
                     m_e["sent_bytes"]),
                 "sent_bytes_wire_real_per_step_per_chip": _step_mean(
@@ -1515,7 +1554,7 @@ def train(
                                 if ev.kind == "leave" else
                                 chaos_membership.insert_zero_row_host(
                                     obs_prev, ev.index))
-                    n_ranks = topo.n_ranks
+                    n_ranks = n_data = topo.n_ranks
                     steps = epoch_steps(len(x), n_ranks, batch_size)
                     if blk_end < epochs:
                         # a new ring: the step and the data shards are

@@ -32,6 +32,7 @@ import torch
 from eventgrad_tpu_torch.chaos.monitor import PeerHealth
 from eventgrad_tpu_torch.obs.device import TelemetryState
 from eventgrad_tpu_torch.parallel.arena import arena_spec
+from eventgrad_tpu_torch.parallel.collectives import axis_index
 from eventgrad_tpu_torch.parallel.events import EventConfig, EventState
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig, SparseState
 from eventgrad_tpu_torch.parallel.spmd import stack_for_ranks
@@ -106,15 +107,31 @@ def init_train_state(
     zeroed telemetry counters (`TelemetryState`, with the message
     ledger's in-flight queues D deep at staleness D >= 2), the state of
     a `make_train_step(..., obs=True)` step. The random stream is seeded
-    from `seed`.
+    from `seed`. A model sharded over an axis of the topology
+    (`shard_axis`: the tensor-, pipeline- and expert-parallel
+    transformers) draws each rank's `tp_` leaves for its index on that
+    axis and every other leaf once, from `seed` alone
+    (`models.transformer.init_lm_shards`), the contract of the JAX
+    package's `init_train_state_spmd`.
     `device=None` means CUDA and raises without it."""
     device = resolve_device(device)
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     model.check_input_shape(input_shape)
     spec = arena_spec(model)
-    params, stats = model.init_variables(seed, device=device)
-    flat = stack_for_ranks(spec.ravel(params), topo)
+    axis = getattr(model, "shard_axis", None)
+    if axis in topo.axes and topo.axis_size(axis) > 1:
+        # sharded leaves distinct per index of the model's axis, every
+        # replicated leaf the same on the whole mesh
+        idx = axis_index(topo, axis).tolist()
+        shards = sorted(set(idx))
+        rows = dict(zip(shards, map(spec.ravel, model.init_shards(
+            seed, shards, device=device))))
+        flat = torch.stack([rows[i] for i in idx])
+        stats = {}
+    else:
+        params, stats = model.init_variables(seed, device=device)
+        flat = stack_for_ranks(spec.ravel(params), topo)
     event = sparse = None
     if algo in EVENT_ALGOS:
         event = EventState.init(spec, topo, event_cfg or EventConfig(),

@@ -74,6 +74,18 @@ edge gates (the freeze; D-PSGD's drops), and on kernel 1 the nanstep
 poison and the quarantine. D-PSGD's gated `buf_sum` adds `p + (b0 + b1)`
 where `mix_weighted` adds `p + b0 + b1`: one rounding apart at most.
 
+A model that holds a collective (`rank_stacked`: ring or Ulysses
+attention, the tensor-, pipeline- and expert-parallel transformers)
+runs its `forward_stacked(params, x, topo)` on every rank at once, and
+the gradient is that of the sum of the R per-rank losses (plus the MoE
+load-balancing losses): through a grid sum each rank's input receives
+its group's summed cotangents, the JAX step's transpose of `psum`. On a
+hybrid mesh the JAX step's corrections follow, for every model: each
+aux axis (sp, ddp) averages the gradients and BatchNorm statistics, and
+each sharded axis (tp, pp, ep) divides the `tp_` leaves' gradients by
+its size and averages every other leaf's. Gossip and allreduce run on
+the gossip axes alone.
+
 The gradient is taken at the pre-mix parameters, the reference's exact
 D-PSGD ordering. The R ranks' forward and backward run batched:
 `torch.func.functional_call` + `torch.func.vmap` +
@@ -119,7 +131,7 @@ from eventgrad_tpu_torch.ops.arena_update import (
 from eventgrad_tpu_torch.ops.fused_update import fused_mix_sgd
 from eventgrad_tpu_torch.parallel import collectives
 from eventgrad_tpu_torch.parallel import policy as policy_lib
-from eventgrad_tpu_torch.parallel.arena import arena_spec
+from eventgrad_tpu_torch.parallel.arena import arena_spec, is_sharded_leaf
 from eventgrad_tpu_torch.parallel.events import (
     EventConfig, _rows, async_bucket_commit, async_delivery_plan,
     capacity_gate,
@@ -164,6 +176,40 @@ def _xent(output: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(output, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
     return -torch.mean(ll)
+
+
+def _xent_per_rank(output: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """`[R]`: `_xent` of each rank of rank-stacked logits `[R, ..., V]`."""
+    logp = torch.log_softmax(output, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    return -torch.mean(ll.flatten(1), dim=1)
+
+
+def check_stacked_model(model, topo: Topology) -> None:
+    """A rank-stacked model fits the topology: its sharded axis is a
+    sharded axis of the topology, of the model's size; a ring or Ulysses
+    model built for a topology steps on that one, and its
+    sequence-parallel axis is an axis of it."""
+    axis = getattr(model, "shard_axis", None)
+    if axis is not None:
+        if axis not in topo.sharded_axes:
+            raise ValueError(
+                f"{type(model).__name__} shards its `tp_` leaves over "
+                f"{axis!r}, which is not a sharded axis of the topology "
+                f"(axes {topo.axes}, sharded {topo.sharded_axes})")
+        if topo.axis_size(axis) != model.shard_size:
+            raise ValueError(
+                f"{type(model).__name__} is built for {axis}="
+                f"{model.shard_size}, the topology has {axis}="
+                f"{topo.axis_size(axis)}")
+        return
+    if getattr(model, "topo", None) not in (None, topo):
+        raise ValueError(
+            f"the model was built for {model.topo}, the step runs {topo}")
+    sp = getattr(model, "sp_axis", None) or topo.axes[0]
+    if sp not in topo.axes:
+        raise ValueError(f"axis {sp!r} is not an axis of {topo.axes}")
 
 
 def make_train_step(
@@ -426,13 +472,60 @@ def make_train_step(
     # an edge)}
     dense_census = {}
 
-    def loss_fn(params, stats, x, y, drop):
-        kw = {"drop": drop} if drop else {}
-        out, new_stats = torch.func.functional_call(
-            model, params, (x, stats, True), kw)
-        return _xent(out, y), (out, new_stats)
+    stacked = bool(getattr(model, "rank_stacked", False))
+    if stacked:
+        check_stacked_model(model, topo)
 
-    grad_fn = per_rank(torch.func.grad_and_value(loss_fn, has_aux=True))
+        def total_loss(params, x, y):
+            # the sum of the R per-rank objectives: under it the
+            # cotangent reaching a rank's input of a grid sum is the sum
+            # of its group's cotangents, the transpose of the JAX psum
+            out, auxes = model.forward_stacked(params, x, topo)
+            loss = _xent_per_rank(out, y)
+            for aux in auxes:
+                loss = loss + aux
+            return loss.sum(), (loss, out)
+
+        grad_total = torch.func.grad(total_loss, has_aux=True)
+
+        def grad_fn(params, stats, x, y, drop):
+            grads, (loss, out) = grad_total(params, x, y)
+            return grads, (loss, (out, stats))
+    else:
+        def loss_fn(params, stats, x, y, drop):
+            kw = {"drop": drop} if drop else {}
+            out, new_stats = torch.func.functional_call(
+                model, params, (x, stats, True), kw)
+            return _xent(out, y), (out, new_stats)
+
+        grad_fn = per_rank(torch.func.grad_and_value(loss_fn, has_aux=True))
+    # the hybrid mesh's gradient corrections (the JAX step's): aux axes
+    # average; on a sharded axis the `tp_` leaves divide by the axis
+    # size and every other leaf averages
+    hybrid_grads = bool(topo.aux_axes or topo.sharded_axes)
+    sharded_cols = {}
+
+    def _sharded_cols(dev):
+        """`[n]` bool: the arena positions of the sharded leaves."""
+        if dev not in sharded_cols:
+            sharded_cols[dev] = torch.tensor(
+                [is_sharded_leaf(nm) for nm in spec.names], device=dev)[
+                    spec.seg_expand(dev)]
+        return sharded_cols[dev]
+
+    def _hybrid_fix(g_flat, new_stats, dev):
+        for ax in topo.aux_axes:
+            g_flat = collectives.axis_mean(g_flat, topo, ax)
+            new_stats = {k: collectives.axis_mean(v, topo, ax)
+                         for k, v in new_stats.items()}
+        for ax in topo.sharded_axes:
+            # one arena-sized temporary: the mean, then the sharded
+            # columns' quotient written over it
+            mean = collectives.axis_mean(g_flat, topo, ax)
+            g_flat = torch.where(_sharded_cols(dev),
+                                 g_flat.div_(topo.axis_size(ax)), mean,
+                                 out=mean)
+        return g_flat, new_stats
     sites = getattr(model, "dropout_sites", lambda b: {})
     draws = augment or bool(sites(1))
 
@@ -790,6 +883,9 @@ def make_train_step(
                 spec.unravel(flat), state.batch_stats, x, y, drop
             )
             g_flat = spec.ravel(grads)
+            del grads
+            if hybrid_grads:
+                g_flat, new_stats = _hybrid_fix(g_flat, new_stats, dev)
         t_flat = state.trace if mom else torch.zeros_like(flat)
 
         event_state, sparse_state = state.event, state.sparse
@@ -865,9 +961,12 @@ def make_train_step(
                 event_state = pol.commit(event_state, prop, fire_vec,
                                          event_cfg, n_nb)
         if algo == "allreduce":
-            # the gradients average over the ranks; the tail is SGD
+            # the gradients average over the gossip ranks (aux and
+            # sharded axes had their corrections above); the tail is SGD
             # through the mix kernel with nothing mixed in
-            g_flat = collectives.allreduce_mean(g_flat, topo).contiguous()
+            g_flat = collectives.allreduce_mean(
+                g_flat, topo, axes=None if topo.gossip_axes == topo.axes
+                else topo.gossip_axes).contiguous()
             with _phase("commit_mix"):
                 p_flat, new_t = fused_mix_sgd(
                     flat, torch.zeros_like(flat), g_flat, t_flat, lr, mom, 1.0

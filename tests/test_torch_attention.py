@@ -256,8 +256,11 @@ def test_sequence_parallel_guards():
         ulysses_attention(qs, qs, qs, Ring(4))
     with pytest.raises(ValueError, match="rank-stacked shards"):
         ring_attention(qs[:2], qs[:2], qs[:2], Ring(4))
-    with pytest.raises(NotImplementedError, match="multi-axis"):
-        ring_attention(qs, qs, qs, Topology(axes=("dp", "sp"), shape=(2, 2)))
+    # a multi-axis topology runs along its named axis (the hybrid tests
+    # hold it against the JAX functions); an axis it lacks is refused
+    with pytest.raises(ValueError, match="is not an axis"):
+        ring_attention(qs, qs, qs, Topology(axes=("dp", "sp"), shape=(2, 2)),
+                       axis="tp")
 
 
 # --------------------------------------------------------------------------

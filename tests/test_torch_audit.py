@@ -288,3 +288,131 @@ def test_rankflow_classifies_rolls_by_offset():
     assert sorted((e.offset, e.lane_elems, e.dtype)
                   for e in rep.exchanges) == [(-1, 5, "float32"),
                                               (1, 5, "float32")]
+
+
+def _jax_torus_exchanges(shape):
+    """The JAX package's rank-flow analysis over its EventGraD step on a
+    torus (the audit's MLP, masked f32 wire, arena), read one named vmap
+    axis at a time: the step lifted by nested `vmap`s over `(nx, ny,
+    ...)` arguments and analysed with that axis as the rank axis, so its
+    ring gathers are that axis's exchanges. Two shims let the JAX
+    auditor run on the installed jax (its rank-flow module reads
+    `jax.core.Literal`, now under `jax.extend.core`, and names nested
+    jits `pjit`, now `jit`): both only rename. Returns (violations,
+    sorted (axis, offset, elements per rank, dtype))."""
+    import jax.extend
+    import optax
+    from eventgrad_tpu.analysis import rankflow as jax_rankflow
+    from eventgrad_tpu.models import MLP as JaxMLP
+    from eventgrad_tpu.parallel.topology import Torus as JaxTorus
+    from eventgrad_tpu.train.state import init_train_state as jax_init
+    from eventgrad_tpu.train.steps import make_train_step as jax_step
+
+    topo = JaxTorus(*shape)
+    model, tx = JaxMLP(**jax_audit.MODEL), optax.sgd(0.05)
+    state = jax_init(model, jax_audit.IN_SHAPE, tx, topo, "eventgrad",
+                     jax_audit.CFG, seed=0, arena=True)
+    step = jax_step(model, tx, topo, "eventgrad", event_cfg=jax_audit.CFG,
+                    arena=True)
+    n = topo.n_ranks
+    x = jnp.zeros((n, jax_audit.PER_RANK) + tuple(jax_audit.IN_SHAPE))
+    y = jnp.zeros((n, jax_audit.PER_RANK), jnp.int32)
+    inner = step
+    for ax in reversed(topo.axes):
+        inner = jax.vmap(inner, axis_name=ax)
+    grid = lambda t: jax.tree.map(
+        lambda a: a.reshape(tuple(shape) + a.shape[1:]), t)
+    closed = jax.make_jaxpr(inner)(grid(state), grid((x, y)))
+    orig_apply, orig_lit = jax_rankflow._Flow._apply, getattr(
+        jax.core, "Literal", None)
+
+    def _apply(self, eqn, abs_in, path):
+        if eqn.primitive.name == "jit":
+            return self.run(eqn.params["jaxpr"], abs_in,
+                            path + (eqn.params.get("name") or "jit",))
+        return orig_apply(self, eqn, abs_in, path)
+
+    jax_rankflow._Flow._apply = _apply
+    jax.core.Literal = jax.extend.core.Literal
+    try:
+        violations, out = [], []
+        for k, _ in enumerate(shape):
+            in_axes = [k if tuple(v.aval.shape)[:len(shape)] == tuple(shape)
+                       else None for v in closed.jaxpr.invars]
+            rep = jax_rankflow.analyze(closed, shape[k], in_axes)
+            violations += [v.reason for v in rep.violations + rep.psums]
+            others = n // shape[k]
+            out += [(k, e.offset, e.lane_elems // others, e.dtype)
+                    for e in rep.exchanges]
+    finally:
+        jax_rankflow._Flow._apply = orig_apply
+        if orig_lit is None:
+            del jax.core.Literal
+        else:
+            jax.core.Literal = orig_lit
+    return violations, sorted(out)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+def test_rankflow_reads_the_torus_step(shape):
+    """The port's EventGraD step on a torus (the audit's MLP) analyses
+    with no violation: `collectives.recv_from` reshapes the rank
+    dimension into the `(nx, ny)` grid, rolls one grid dimension and
+    reshapes back, and each roll is an exchange of its axis. The
+    exchanges — count, axis, offset, elements per rank and dtype — are
+    the JAX rank-flow's over the JAX torus step, and the bytes per
+    neighbour from the traced lanes are the step's own wire-real
+    metric's share, exactly."""
+    from eventgrad_tpu_torch.models import MLP as PortMLP
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+    from eventgrad_tpu_torch.parallel.topology import Torus
+    from eventgrad_tpu_torch.train.state import init_train_state
+    from eventgrad_tpu_torch.train.steps import make_train_step
+
+    topo = Torus(*shape)
+    model = PortMLP(input_shape=audit.IN_SHAPE, **audit.MODEL)
+    state = init_train_state(model, audit.IN_SHAPE, topo, "eventgrad",
+                             audit.CFG, seed=0, device="cpu")
+    step = make_train_step(model, topo, "eventgrad", audit.CFG,
+                           fused_sgd=audit.SGD)
+    n = topo.n_ranks
+    x = torch.zeros((n, audit.PER_RANK) + audit.IN_SHAPE)
+    y = torch.zeros((n, audit.PER_RANK), dtype=torch.long)
+    tr = walker.trace(step, state, (x, y))
+    rep = rankflow.analyze(tr.graph, n, grid=topo.shape)
+    assert [f.reason for f in rep.violations] == []
+    got = sorted((e.axis, e.offset, e.lane_elems, e.dtype)
+                 for e in rep.exchanges)
+    jax_violations, want = _jax_torus_exchanges(shape)
+    assert jax_violations == []
+    assert got == want
+    assert len(got) == 2 * topo.n_neighbors  # payload + fire bits an edge
+    itemsize = {"float32": 4, "bool": 1}
+    total = sum(e[2] * itemsize[e[3]] for e in got)
+    metric = float(tr.out[1]["sent_bytes_wire_real"][0])
+    assert float(np.float32(total)) == metric
+    spec = arena_spec(model)
+    assert total / topo.n_neighbors == 4 * spec.n_total + spec.n_leaves
+
+
+def test_rankflow_grid_moves_stay_violations():
+    """On the rank grid only reshapes, rolls and pointwise ops pass: a
+    slice of some grid positions and a reduction over a grid dimension
+    are cross-rank reads, and so is a reshape that splits the grid."""
+    x = torch.ones((4, 5))
+
+    def analyze(fn):
+        tr = walker.trace(fn, x)
+        return [f.reason for f in rankflow.analyze(
+            tr.graph, 4, grid=(2, 2)).violations]
+
+    assert analyze(lambda x: torch.roll(
+        x.reshape(2, 2, 5) * 2, 1, 1).reshape(4, 5)) == []
+    assert analyze(lambda x: x.reshape(2, 2, 5)[:1].sum()) == [
+        "aten::slice on the rank grid (only reshapes, rolls and pointwise "
+        "ops keep it)"]
+    assert analyze(lambda x: x.reshape(2, 2, 5).sum(dim=0)) == [
+        "aten::sum on the rank grid (only reshapes, rolls and pointwise "
+        "ops keep it)"]
+    assert analyze(lambda x: x.reshape(2, 2, 5).reshape(2, 10)) == [
+        "reshape splits the rank grid across dimensions"]

@@ -8,9 +8,15 @@ package's (`eventgrad_tpu/cli.py`).
   * the guards: a table of argvs that both `main`s refuse before any
     data is built raise `SystemExit` with the same words (no JAX step
     compiles: every guard fires first);
-  * the refusals: hybrid meshes, the tp/pp/moe transformers and ring /
-    Ulysses attention name ROADMAP item 7, the device mesh and the
-    coordinator item 8, `--arena off` the "not queued, by design" entry;
+  * the refusals: the device mesh and the coordinator name ROADMAP item
+    8, `--arena off` the "not queued, by design" entry; the argvs once
+    refused as item 7 (hybrid meshes, the tp/pp/moe transformers, ring /
+    Ulysses attention) train, or are refused with the JAX launcher's
+    words where it refuses them (a model without its axis);
+  * the hybrid meshes end to end on the CPU: each argv the JAX launcher
+    trains (`dp:2,sp:2` ring, `dp:2,tp:2`, `dp:2,pp:2`, `dp:2,ep:2`,
+    `dp:2,ddp:2`) trains here and writes its records, gossip bytes
+    counted on dp alone; with `--device cuda` and no CUDA it raises;
   * end to end on the CPU: `main([... --device cpu ...])` logs epoch
     records value for value those of a direct `train()` call on the same
     data, then a `final` record;
@@ -188,11 +194,19 @@ def test_env_coordinator_guard_matches_jax(monkeypatch):
             main([])
 
 
+#: the small transformer of the end-to-end argvs, and the run's size
+SMALL_LM = ["--dim", "32", "--heads", "2", "--layers", "2", "--seq-len",
+            "16", "--vocab", "32"]
+SMALL_RUN = ["--n-synth", "128", "--epochs", "2", "--batch-size", "4"]
+
+#: the argvs once refused as ROADMAP item 7: the hybrid mesh trains; a
+#: model whose axis the mesh lacks is refused as the JAX launcher refuses
+#: it
 REFUSALS = [
-    (["--mesh", "dp:2,sp:2", "--model", "transformer"], "item 7"),
-    (["--model", "transformer_tp"], "item 7"),
-    (["--model", "transformer_moe"], "item 7"),
-    (["--model", "transformer", "--attn", "ulysses"], "item 7"),
+    (["--mesh", "dp:2,sp:2", "--model", "transformer"], "runs"),
+    (["--model", "transformer_tp"], "jax words"),
+    (["--model", "transformer_moe"], "jax words"),
+    (["--model", "transformer", "--attn", "ulysses"], "jax words"),
     (["--backend", "mesh"], "item 8"),
     (["--coordinator", "h:1", "--backend", "mesh"], "item 8"),
 ]
@@ -201,9 +215,68 @@ REFUSALS = [
 @pytest.mark.parametrize("argv,item", REFUSALS,
                          ids=lambda a: " ".join(a) if isinstance(a, list)
                          else a)
-def test_refusals_name_their_item(argv, item):
-    with pytest.raises(SystemExit, match=rf"ROADMAP queue 1, {item}\b"):
-        cli.main(argv + ["--device", "cpu"])
+def test_refusals_name_their_item(argv, item, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    if item == "runs":
+        assert cli.main(argv + SMALL_LM + SMALL_RUN + ["--device", "cpu"]) == 0
+    elif item == "jax words":
+        with pytest.raises(SystemExit) as want:
+            jax_cli.main(argv + ["--n-synth", "64"])
+        with pytest.raises(SystemExit) as got:
+            cli.main(argv + ["--n-synth", "64", "--device", "cpu"])
+        assert "axis in --mesh" in str(want.value)
+        assert str(got.value) == str(want.value)
+    else:
+        with pytest.raises(SystemExit, match=rf"ROADMAP queue 1, {item}\b"):
+            cli.main(argv + ["--device", "cpu"])
+
+
+#: the hybrid argvs the JAX launcher trains: (argv, gossip neighbours)
+HYBRID_ARGVS = [
+    ["--mesh", "dp:2,sp:2", "--model", "transformer", "--attn", "ring"]
+    + SMALL_LM,
+    ["--mesh", "dp:2,tp:2", "--model", "transformer_tp"] + SMALL_LM,
+    ["--mesh", "dp:2,pp:2", "--model", "transformer_pp"] + SMALL_LM,
+    ["--mesh", "dp:2,ep:2", "--model", "transformer_moe", "--n-experts",
+     "4"] + SMALL_LM,
+    ["--mesh", "dp:2,ddp:2", "--model", "cnn2", "--dataset", "synthetic"],
+]
+
+
+@pytest.mark.parametrize("argv", HYBRID_ARGVS,
+                         ids=lambda a: " ".join(a[:4]))
+def test_hybrid_argv_trains_on_cpu(argv, tmp_path):
+    """Each argv trains on the CPU and writes its records: finite losses,
+    msgs-saved-% in range, the dense wire-real bytes of the dp gossip
+    (two neighbours), then the final record (a hybrid mesh reports its
+    train metrics, `consensus_eval: false`; `dp:2,ddp:2` shards only data
+    and evaluates its consensus model)."""
+    log = tmp_path / "run.jsonl"
+    assert cli.main(argv + SMALL_RUN + ["--device", "cpu", "--log-file",
+                                        str(log)]) == 0
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    epochs, final = recs[:-1], recs[-1]
+    args = cli.build_parser().parse_args(argv)
+    model = (cli.build_lm_model(args, args.mesh)
+             if args.model.startswith("transformer")
+             else cli.build_image_model(args, (28, 28, 1)))
+    spec = arena_spec(model)
+    wire_real = float(np.float32(2) * np.float32(4 * spec.n_total
+                                                 + spec.n_leaves))
+    assert [r["epoch"] for r in epochs] == [1, 2]
+    for r in epochs:
+        assert np.isfinite(r["loss"]) and r["active_ranks"] == 4
+        assert 0.0 <= r["msgs_saved_pct"] < 100.0
+        assert r["n_params"] == spec.n_total
+        assert r["sent_bytes_wire_real_per_step_per_chip"] == wire_real
+    assert final["final"] is True
+    if args.mesh.is_hybrid:
+        assert final["consensus_eval"] is False
+        assert final["loss"] == epochs[-1]["loss"]
+    else:
+        assert "accuracy" in final
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv + SMALL_RUN)
 
 
 def test_arena_off_and_env_coordinator_refusals(monkeypatch):

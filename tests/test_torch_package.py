@@ -187,7 +187,7 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     """Every feature the port refuses raises NotImplementedError naming
     the ROADMAP queue-1 item that ports it, and the command line refuses
     the same with SystemExit before building any data; the calls of items
-    5, 6a, 6b, 6d, 6e, 6f, 10 and 12, once refused or missing, now run;
+    5, 6a, 6b, 6d, 6e, 6f, 7, 10 and 12, once refused or missing, now run;
     what the JAX step refuses stays refused with its cause; the tree path
     (`arena=False`, `--arena off`) is refused as not queued, by design."""
     from eventgrad_tpu_torch import cli
@@ -290,10 +290,29 @@ def test_refusals_name_their_roadmap_item(tmp_path):
         train_mlp(arena=False)
     with pytest.raises(SystemExit, match="not queued, by design"):
         cli.main(["--arena", "off", "--device", "cpu"])
+    # item 7 (hybrid meshes, the sharded transformers, ring and Ulysses
+    # attention inside the model) is ported: its argvs, once refused, now
+    # train, or are refused with the JAX launcher's words where it
+    # refuses them (a model without its axis in the mesh); its calls run
+    small = ["--dim", "8", "--heads", "2", "--layers", "1", "--seq-len",
+             "8", "--vocab", "16", "--n-synth", "64", "--epochs", "1",
+             "--batch-size", "4", "--device", "cpu"]
+    assert cli.main(["--mesh", "dp:2,sp:2", "--model", "transformer"]
+                    + small) == 0
+    for argv, axis in ((["--model", "transformer_pp"], "pp"),
+                       (["--model", "transformer", "--attn", "ring"], "sp")):
+        with pytest.raises(SystemExit, match=(
+                rf"^--model {argv[1]} needs a '{axis}' axis in --mesh "
+                rf"\(e\.g\. --mesh dp:2,{axis}:2\); got \('ring',\)$")):
+            cli.main(argv + small)
+    ring_lm = egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,
+                                max_len=8, attn="ring")
+    assert ring_lm.rank_stacked
+    # no axis named: along the topology's first, as the JAX function
+    torus = egt.Torus(2, 2)
+    assert torch.equal(ring_attention(q, q, q, torus),
+                       ring_attention(q, q, q, torus, axis="x"))
     cli_refusals = {
-        "item 7": [["--mesh", "dp:2,sp:2", "--model", "transformer"],
-                   ["--model", "transformer_pp"],
-                   ["--model", "transformer", "--attn", "ring"]],
         "item 8": [["--backend", "mesh"],
                    ["--coordinator", "h:1", "--backend", "mesh"]],
     }
@@ -303,11 +322,6 @@ def test_refusals_name_their_roadmap_item(tmp_path):
                                match=rf"ROADMAP queue 1, {item}\b"):
                 cli.main(argv + ["--device", "cpu"])
     refusals = {
-        "item 7": [
-            lambda: egt.TransformerLM(vocab=16, dim=8, n_heads=2, n_layers=1,
-                                      max_len=8, attn="ring"),
-            lambda: ring_attention(q, q, q, egt.Torus(2, 2)),
-        ],
         # the multi-GPU backend's audit oracle, and the device mesh
         "item 8": [lambda: audit.oracle("mesh_undeclared_offset"),
                    lambda: train_mlp(backend="mesh")],

@@ -162,9 +162,15 @@ def test_transformer_forward_and_grads_match_flax(attn):
 
 
 def test_sequence_parallel_modes_wait():
+    """Ring and Ulysses attention run rank-stacked inside the train step
+    (tests/test_torch_hybrid.py holds them against the JAX model): the
+    model builds, and its per-rank forward refuses and names the stacked
+    one."""
     for attn in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerLM(attn=attn, **SMALL)
+        model = TransformerLM(attn=attn, **SMALL)
+        assert model.rank_stacked
+        with pytest.raises(ValueError, match="forward_stacked"):
+            model(torch.zeros((1, T), dtype=torch.long))
     with pytest.raises(ValueError, match="unknown attn"):
         TransformerLM(attn="sparse", **SMALL)
     with pytest.raises(ValueError, match="token sequence"):
