@@ -236,7 +236,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    their bits), the peer health and the records are bitwise the
    monolithic twin's (one gated whole-arena launch a pass);
 10. dispatch — the dispatch pipeline on the flagship (EventGraD masked
-   f32, bf16 compute, Ring(8), global batch 256, 4,096 samples: 16
+   f32, bf16 compute, Ring(8), global batch 256, 2,048 samples: 8
    passes an epoch, 4 epochs, a 512-sample test set, deterministic
    algorithms): the serial twin (one epoch a block, the pipeline off,
    the block prefetcher uploading pinned blocks on its own stream) and
@@ -275,8 +275,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    launches, snapshot bytes and save (fsync included) and restore
    seconds beside the card's name and power limit;
 12. audit — the static-analysis path on the card: the audit CLI
-   (`python -m eventgrad_tpu_torch.analysis.audit --device cuda`) over
-   the 31 cells of the JAX auditor's matrix and its 14 oracles,
+   (`python -m eventgrad_tpu_torch.analysis.audit --device cuda`, in a
+   child process beside the flagship op-point's traces here) over
+   the 31 cells of the JAX auditor's matrix and its 15 oracles (the
+   mesh lift's among them, on a one-process mesh),
    plus the lint: every cell clean (rank isolation, the declared ring
    offsets, bytes per neighbour derived from the traced exchange lanes
    == the accounting formula == the step's `sent_bytes_wire_real`,
@@ -307,7 +309,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    form launched; the silence bucket of 0..2^20 on the card against the
    CPU's, equal but at s = 8192 (card 13, CPU 12); (e) the overhead
    (`utils/obs_overhead.measure_pair`): obs off and on in one process,
-   pass by pass on the same batches, 20 timed passes after 3 warm-ups,
+   pass by pass on the same batches, 10 timed passes after 3 warm-ups,
    then two windows of 3 profiled passes each (off, on, on, off): pass
    ms, the paired difference, launches, device-busy ms per window, the
    telemetry span's device ms and host syncs per pass, which must be
@@ -346,12 +348,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    flagship through `eventgrad_tpu_torch.cli.main` (full-width ResNet-18
    in float32, Ring(8), global batch 256, lr 0.01 momentum 0.9, horizon
    1.05, warmup 2, 2 epochs on `--dataset cifar10 --data-dir` five
-   binary batches of 512 records and a test batch: the loaded arrays
+   binary batches of 256 records and a test batch: the loaded arrays
    bitwise the bytes times float32 1/255), EventGraD with max silence
    50, D-PSGD and EventGraD on the int8 carrier: kernels 1 and 2, 4, 3
    and 5 launched once a pass, the bytes exact, a record an epoch and a
    final one; the LM through the CLI (dim 512, 8 heads of 64, 2 layers,
-   T = 1024, 64 sequences a rank, one pass): the flash launches by form
+   T = 1024, 16 sequences a rank, one pass): the flash launches by form
    and kernels 1 and 2; the supervisor's drills as child processes on
    the card (the MLP on MNIST idx files the phase writes): a crash under
    `python -m eventgrad_tpu_torch.supervise` and a hang it must kill,
@@ -377,10 +379,65 @@ Phases, in order; any failure exits non-zero and prints no result:
    the loss falls, every loss and parameter is finite, the bytes and
    msgs-saved-% are exactly the formula's for the two dp neighbours,
    the leg's kernels launched; step ms, peak GiB and launches printed;
-18. summary — one JSON line of every kernel's numbers, the card's name and
+18. mesh — the device-mesh lift (`parallel/spmd.py`,
+   `parallel/multihost.py`), ranks in separate processes on the one
+   card: (a) the ResNet-18 flagship (float32 compute: the CLI has no
+   compute-dtype flag; Ring(8), global batch 256, lr 0.01 momentum 0.9,
+   horizon 1.05, warmup 2, EventGraD with max silence 50 and D-PSGD, 2
+   epochs of 2 passes) as two processes of four rows each, started as
+   the user starts them (`python -m eventgrad_tpu_torch.cli --backend
+   mesh --coordinator 127.0.0.1:<port> --num-processes 2 --process-id
+   p`, what runs after a preamble setting deterministic algorithms,
+   `MESH_CLI`, with TF32 off through NVIDIA_TF32_OVERRIDE=0), over
+   `gloo-host` (pinned host buffers: two processes share the card);
+   held against the simulator of the same argv in this process, under
+   the same switches and the mesh's schedule (`--pipeline off`, host
+   data), one epoch at a time from the same state: epoch 1 from the
+   seed, then epoch 2 resumed (`--resume`) from the simulator's epoch-1
+   snapshot on both sides. Each epoch's record: the first record's
+   transport, events, msgs-saved-% and both byte counts equal, the loss
+   within MESH_LOSS_RTOL; each epoch's snapshot: the parameters within
+   MESH_PARAMS_TOL, the momentum trace within MESH_TRACE_TOL, every
+   integer tensor equal; kernels 1 and 2 (EventGraD) or 4 (D-PSGD)
+   launched once a pass in each process (the final records' summed
+   launches). One epoch from the same state, not the whole run: the
+   ResNet's gradient at these passes moves ~1e3 times as far as its
+   parameters (a 1e-7 perturbation of them moves the trace 6e-3), so
+   the rounding of a four-row stack against an eight-row one grows
+   from 3e-9 of the parameters after one pass to 9e-4 after four,
+   while an exchange with the wrong neighbours moves two passes 3e-4
+   (`PERF.md` §6, the mesh lift); (b) the `sp:2,dp:4` ring-attention LM at the
+   hybrid phase's width, cut to 1 layer (EventGraD, 2 epochs of 2
+   passes; sp outer, so every K/V hop and its gradient cross the
+   process boundary) as two
+   `python -c` children (`mesh_lm_child`, once (a)'s have ended: beside
+   them the card ran out of memory), against its simulator here:
+   events, msgs-saved-% and bytes equal, parameters within
+   MESH_LM_TOL, flash forward, dQ and dK/dV once a hop in each process
+   on the float32 D = 128 form, kernels 1 and 2 once a pass; (c) a
+   one-process NCCL group holding all 8 rows of the MLP
+   (`mesh_nccl_child`, beside (a)): allreduce and EventGraD bitwise the
+   simulator in the same process (every state tensor and record). A
+   child that fails or passes MESH_CHILD_TIMEOUT fails the phase. Each
+   leg prints its transport, step ms, peak GiB a process and launches
+   beside the card's name and power limit; the children's launches go
+   into the summary's counts;
+19. summary — one JSON line of every kernel's numbers, the card's name and
    power limit, and, last, `{"ok": true, "device": {...}}`.
 
-Each phase's seconds are logged as it ends.
+The phases do not run in the order of this list. Phases 1-3 run first,
+alone, so that the kernels' times are the card's own; then the phases
+that hold 25-42 GiB of the card or time the steps their figures divide
+(`HEAVY`: the ResNet-50 and d128/d256 LM legs of phase 5, and phase 14);
+then the rest in three streams at once (`STREAMS`: this process runs
+the first, a child process each other one, `stream_child`), with phase
+17's references on the CPU (`phase_hybrid_reference`) and phase 2's
+cuobjdump counts (`phase_sass`) among them, since their time is the
+host's; last, alone again, the hybrid legs and the mesh (`TAIL`). The
+step times of the streamed phases are taken beside one another. A
+stream that fails fails the run; it is stopped, with every process it
+started, when the run ends. Each phase's seconds are logged as it ends,
+and a child's log follows once its stream has ended.
 
 It needs the repository beside it (it imports the port from its own
 directory) and a CUDA device; it never falls back to the CPU.
@@ -648,7 +705,7 @@ def hmma_counts(lib_path) -> dict:
 
 
 def phase_build():
-    from eventgrad_tpu_torch.ops import build, flash_plan
+    from eventgrad_tpu_torch.ops import build
 
     log("== build")
     path, secs, text = build.build(verbose=True)
@@ -658,7 +715,16 @@ def phase_build():
     build.library()
     log(f"built {path.relative_to(HERE) if HERE in path.parents else path} "
         f"in {secs:.2f} s")
-    counts = hmma_counts(path)
+
+
+def phase_sass():
+    """Each flash instantiation's tensor-core instructions in the built
+    library (module docstring, phase 2): cuobjdump's work is the host's,
+    so it runs beside other phases. Returns no launches."""
+    from eventgrad_tpu_torch.ops import build, flash_plan
+
+    log("== sass: tensor-core instructions of the built library")
+    counts = hmma_counts(build.library_path())
     if counts:
         log(f"tensor-core instructions per flash instantiation: "
             f"{json.dumps(counts)}")
@@ -673,6 +739,7 @@ def phase_build():
             raise SmokeError(f"no tensor-core instructions in {sorted(idle)}")
     else:
         log("cuobjdump not in the toolkit: HMMA / HGMMA counts skipped")
+    return {}
 
 
 def phase_kernels():
@@ -3020,10 +3087,11 @@ def phase_chaos():
     return totals
 
 
-#: the dispatch phase's op-point: the flagship at 16 passes an epoch
-#: (4,096 synthetic CIFAR-shaped samples at global batch 256), 4 epochs,
+#: the dispatch phase's op-point: the flagship at 8 passes an epoch
+#: (2,048 synthetic CIFAR-shaped samples at global batch 256; 16 passes
+#: until the mesh phase took its time), 4 epochs,
 #: a test set of 512 and a snapshot every 2 epochs
-DISPATCH_SAMPLES, DISPATCH_TEST, DISPATCH_EPOCHS = 4096, 512, 4
+DISPATCH_SAMPLES, DISPATCH_TEST, DISPATCH_EPOCHS = 2048, 512, 4
 DISPATCH_K, DISPATCH_SAVE_EVERY = 2, 2
 #: the profiled twins' passes an epoch: host syncs per pass are the
 #: difference of two runs that differ only in their passes an epoch
@@ -3293,10 +3361,10 @@ def _check_audit_cell(rep, what):
                          f"{rep['kernel_launches']}")
 
 
-def phase_audit():
-    """The static-analysis path on the card: the audit CLI over the 31
-    cells and the 14 oracles (`--device cuda`), then the flagship
-    op-point audited. Returns the kernel launches of the phase."""
+def _audit_flagship():
+    """The flagship op-point audited: Ring(8), ResNet-18 in bf16, global
+    batch 256, one step of each FLAGSHIP_AUDIT leg traced, each clean
+    with its exact bytes. Returns the kernel launches."""
     import numpy as np
     import torch
 
@@ -3306,46 +3374,7 @@ def phase_audit():
     from eventgrad_tpu_torch.data.datasets import synthetic_dataset
     from eventgrad_tpu_torch.train.steps import make_train_step
 
-    log("== audit: 31 cells and 14 oracles on the card "
-        "(python -m eventgrad_tpu_torch.analysis.audit --device cuda)")
     ops.reset_launch_counts()
-    audit.leak_kernel.launches = 0
-    out = HERE / "build" / "audit_cuda.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    rc = audit.main(["--device", "cuda", "--out", str(out)])
-    rec = json.loads(out.read_text())
-    log(f"audit CLI: exit {rc}, {rec['n_clean']}/{rec['n_configs']} clean, "
-        f"{rec['n_detected']}/{rec['n_oracles']} oracles, "
-        f"{rec['lint_violations']} lint violations, "
-        f"{time.perf_counter() - t0:.1f} s")
-    for c in rec["configs"]:
-        log(json.dumps({k: c[k] for k in (
-            "name", "wire_bytes_per_neighbor_derived", "wire_metric_total",
-            "kernel_ops", "kernel_launches", "graph_nodes", "wall_s")}))
-        _check_audit_cell(c, c["name"])
-    want = {
-        "event_masked_f32_tree": {"masked_wire": 1, "fused_mix_commit": 1},
-        "xfmr_flash_masked_f32_tree": {"masked_wire": 1,
-                                       "fused_mix_commit": 1,
-                                       "flash_fwd": 1, "flash_dq": 1,
-                                       "flash_dkv": 1},
-    }
-    for name, ops_want in want.items():
-        got = next(c for c in rec["configs"] if c["name"] == name)
-        if got["kernel_ops"] != ops_want:
-            raise SmokeError(f"audit {name}: kernel ops {got['kernel_ops']} "
-                             f"!= {ops_want}")
-    for o in rec["oracles"]:
-        log(json.dumps(o))
-    missed = [o["name"] for o in rec["oracles"] if not o["detected"]]
-    if rc != 0 or missed or rec["n_configs"] != 31 or rec["n_oracles"] != 14:
-        raise SmokeError(f"audit CLI failed: exit {rc}, oracles missed "
-                         f"{missed}")
-    if audit.leak_kernel.launches < 1:
-        raise SmokeError("the unregistered-kernel oracle never launched "
-                         "kernel 9")
-
     log("== audit: the flagship op-point, ResNet-18 (bf16 compute) x "
         "Ring(8), global batch 256")
     topo = egt.Ring(RANKS)
@@ -3390,8 +3419,81 @@ def phase_audit():
         del state, step, model, rep
         torch.cuda.empty_cache()
     log(f"flagship legs audited in {time.perf_counter() - t0:.1f} s")
-    counts = ops.launch_counts()
-    counts["leak_kernel"] = audit.leak_kernel.launches
+    return ops.launch_counts()
+
+
+def audit_child(out, device="cuda"):
+    """The audit CLI on the card (run as `python -c` by `phase_audit`):
+    writes its record to `out` and prints its exit code, the kernels'
+    launches of the run and kernel 9's."""
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.analysis import audit
+
+    rc = audit.main(["--device", device, "--out", str(out)])
+    print(json.dumps({"audit_child": rc, "launches": ops.launch_counts(),
+                      "leak_kernel": audit.leak_kernel.launches}),
+          flush=True)
+
+
+def phase_audit():
+    """The static-analysis path on the card: the audit CLI over the 31
+    cells and the 15 oracles (`--device cuda`, a child process), and
+    beside it the flagship op-point audited here. Returns the kernel
+    launches of the phase."""
+    from eventgrad_tpu_torch import ops
+
+    log("== audit: 31 cells and 15 oracles on the card "
+        "(python -m eventgrad_tpu_torch.analysis.audit --device cuda)")
+    ops.reset_launch_counts()
+    out = HERE / "build" / "audit_cuda.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    child_out = HERE / "build" / "audit_child.out"
+    child = [(_mesh_child(f"import chip_smoke as c; c.audit_child("
+                          f"{str(out)!r}, {DEVICE!r})", child_out),
+              child_out)]
+    try:
+        flagship = _audit_flagship()
+    finally:
+        _finish_children(child, "audit CLI")
+    res = _child_json(child_out, "audit_child")
+    rc = res["audit_child"]
+    rec = json.loads(out.read_text())
+    log(f"audit CLI: exit {rc}, {rec['n_clean']}/{rec['n_configs']} clean, "
+        f"{rec['n_detected']}/{rec['n_oracles']} oracles, "
+        f"{rec['lint_violations']} lint violations, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for c in rec["configs"]:
+        log(json.dumps({k: c[k] for k in (
+            "name", "wire_bytes_per_neighbor_derived", "wire_metric_total",
+            "kernel_ops", "kernel_launches", "graph_nodes", "wall_s")}))
+        _check_audit_cell(c, c["name"])
+    want = {
+        "event_masked_f32_tree": {"masked_wire": 1, "fused_mix_commit": 1},
+        "xfmr_flash_masked_f32_tree": {"masked_wire": 1,
+                                       "fused_mix_commit": 1,
+                                       "flash_fwd": 1, "flash_dq": 1,
+                                       "flash_dkv": 1},
+    }
+    for name, ops_want in want.items():
+        got = next(c for c in rec["configs"] if c["name"] == name)
+        if got["kernel_ops"] != ops_want:
+            raise SmokeError(f"audit {name}: kernel ops {got['kernel_ops']} "
+                             f"!= {ops_want}")
+    for o in rec["oracles"]:
+        log(json.dumps(o))
+    missed = [o["name"] for o in rec["oracles"] if not o["detected"]]
+    if rc != 0 or missed or rec["n_configs"] != 31 or rec["n_oracles"] != 15:
+        raise SmokeError(f"audit CLI failed: exit {rc}, oracles missed "
+                         f"{missed}")
+    if res["leak_kernel"] < 1:
+        raise SmokeError("the unregistered-kernel oracle never launched "
+                         "kernel 9")
+
+    counts = dict(flagship)
+    for k, v in res["launches"].items():
+        counts[k] = counts.get(k, 0) + v
+    counts["leak_kernel"] = res["leak_kernel"]
     return counts
 
 
@@ -3755,7 +3857,7 @@ def phase_resume():
 #: the telemetry phase's legs: 3 passes an epoch, 2 epochs
 OBS_STEPS, OBS_EPOCHS = 3, 2
 #: timed and profiled passes per config of the overhead leg
-OBS_TIMED, OBS_WARMUP, OBS_PROFILED = 20, 3, 3
+OBS_TIMED, OBS_WARMUP, OBS_PROFILED = 10, 3, 3
 
 
 def phase_obs():
@@ -4306,10 +4408,10 @@ def phase_membership():
 
 
 #: the command-line phase: the CIFAR-10 files it writes (five training
-#: batches of CLI_RECORDS records, a test batch of as many: 10 passes an
+#: batches of CLI_RECORDS records, a test batch of as many: 5 passes an
 #: epoch at global batch 256 on Ring(8)), the flagship's argv through
 #: `python -m eventgrad_tpu_torch.cli` and its three legs
-CLI_RECORDS = 512
+CLI_RECORDS = 256
 CLI_FLAGSHIP = ["--model", "resnet18", "--mesh", "ring:8", "--global-batch",
                 "256", "--lr", "0.01", "--momentum", "0.9", "--horizon",
                 "1.05", "--warmup-passes", "2", "--epochs", "2", "--dataset",
@@ -4325,19 +4427,23 @@ CLI_LEGS = (
       "--carrier-resident"],
      ("masked_wire_int8", "fused_mix_commit_carrier")),
 )
-#: the LM leg: PR 3's transformer width (dim 512, 8 heads of 64,
-#: T = 1024) at 2 layers, 64 sequences a rank, one pass
+#: the LM leg: the main path's first transformer width (dim 512, 8
+#: heads of 64, T = 1024) at 2 layers, 16 sequences a rank (64 held ~40
+#: GiB of activations, more than the card spares beside the other
+#: streams), one pass
 CLI_LM = ["--model", "transformer", "--attn", "flash", "--dim", "512",
           "--heads", "8", "--layers", "2", "--seq-len", "1024", "--mesh",
-          "ring:8", "--n-synth", "512", "--epochs", "1"]
+          "ring:8", "--n-synth", "128", "--batch-size", "16",
+          "--epochs", "1"]
 #: the supervised drills: the MLP on MNIST idx files the phase writes
 CLI_DRILL = ["--algo", "eventgrad", "--mesh", "ring:4", "--model", "mlp",
              "--dataset", "mnist", "--epochs", "3", "--batch-size", "8",
              "--warmup-passes", "2", "--save-every", "1"]
 #: seconds without a heartbeat before the supervisor kills the hang
 #: drill's child (a child's first heartbeat, its log file, comes after its
-#: torch import and CUDA start, which share the host with the phase)
-CLI_HANG_TIMEOUT = 30
+#: torch import and CUDA start, which share the host with the phase and
+#: the two other streams of phases: the crash drill's 60)
+CLI_HANG_TIMEOUT = 60
 
 
 def _write_cifar_bins(root, x_u8, y, n_files):
@@ -4795,21 +4901,70 @@ def _hybrid_ring_check(topo, per_rank):
     return max(errs)
 
 
+def phase_hybrid_reference():
+    """The hybrid legs' passes held against the CPU (module docstring,
+    phase 17), in a phase of their own so that they run beside other
+    phases: their time is the host's. Returns no launches (the legs
+    count theirs)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch.cli import parse_mesh
+    from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
+    from eventgrad_tpu_torch.data.sharding import expand_to_mesh
+
+    card = nvidia_smi("name,power.limit")
+    cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=1,
+                          max_silence=50)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    # half the host's cores: the other streams keep the rest busy
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    log("== hybrid references: each leg's passes on the card against the "
+        f"CPU, 1 layer (the pipeline leg 2), {HYBRID_REF_TOKENS} tokens a "
+        "data rank")
+    for leg, mesh, kind, algo, _, _ in HYBRID_LEGS:
+        topo = parse_mesh(mesh)
+        # passes held against the CPU from the same state, cut
+        # (HYBRID_REF_TOKENS)
+        n_data, n_ref = topo.n_data_ranks, HYBRID_REF_PASSES.get(leg, 1)
+        ref_b = 4 if kind == "pp" else 1
+        xr, yr = synthetic_lm_dataset(n_data * ref_b * n_ref,
+                                      HYBRID_REF_TOKENS,
+                                      HYBRID_LM["vocab"], seed=5)
+        shard = lambda a: a.reshape((n_data, n_ref, ref_b, -1)).astype(
+            np.int64)
+        xb, yb = expand_to_mesh(shard(xr), shard(yr), topo)
+        t_ref = time.perf_counter()
+        ref = _reference_steps(
+            leg, _hybrid_model(kind, topo, 2 if kind == "pp" else 1), algo,
+            {}, cfg, [(xb[:, i], yb[:, i]) for i in range(n_ref)], tol,
+            topo=topo, update_rtol=HYBRID_UPDATE_RTOL)
+        log(json.dumps({"leg": f"{leg} reference", "mesh": mesh,
+                        "algo": algo, "passes": n_ref,
+                        "reference_s": time.perf_counter() - t_ref,
+                        "max_abs_err": ref.pop("max_abs_err"),
+                        "update": ref, "card": card}))
+        torch.cuda.empty_cache()
+    torch.set_num_threads(threads)
+    return {}
+
+
 def phase_hybrid():
     """EventGraD over the hybrid meshes at full width (module docstring,
     phase 17). Returns the launches of each kernel summed over the legs
     (the flash kernels under their "_d128" names)."""
-    import dataclasses
     import tempfile
 
-    import numpy as np
     import torch
 
     import eventgrad_tpu_torch as egt
     from eventgrad_tpu_torch import ops
     from eventgrad_tpu_torch.cli import parse_mesh
     from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
-    from eventgrad_tpu_torch.data.sharding import expand_to_mesh
     from eventgrad_tpu_torch.ops import attention as fa
     from eventgrad_tpu_torch.ops import flash_plan
     from eventgrad_tpu_torch.parallel.arena import arena_spec
@@ -4818,7 +4973,6 @@ def phase_hybrid():
     steps, epochs = 2, 2
     cfg = egt.EventConfig(adaptive=True, horizon=1.05, warmup_passes=2,
                           max_silence=50)
-    tol = dict(rtol=1e-4, atol=1e-5)
     seq, vocab = HYBRID_LM["max_len"], HYBRID_LM["vocab"]
     form = flash_plan.flash_form("float32", 128, (), ())
     totals = {}
@@ -4838,24 +4992,7 @@ def phase_hybrid():
 
         ring_err = (_hybrid_ring_check(topo, per_rank)
                     if kind == "ring" else None)
-        # passes held against the CPU from the same state, cut
-        # (HYBRID_REF_TOKENS)
-        n_data, n_ref = topo.n_data_ranks, HYBRID_REF_PASSES.get(leg, 1)
-        ref_b = 4 if kind == "pp" else 1
-        xr, yr = synthetic_lm_dataset(n_data * ref_b * n_ref,
-                                      HYBRID_REF_TOKENS, vocab, seed=5)
-        shard = lambda a: a.reshape((n_data, n_ref, ref_b, -1)).astype(
-            np.int64)
-        xb, yb = expand_to_mesh(shard(xr), shard(yr), topo)
-        t_ref = time.perf_counter()
-        ref = _reference_steps(
-            leg, _hybrid_model(kind, topo, 2 if kind == "pp" else 1), algo,
-            {}, dataclasses.replace(cfg, warmup_passes=1),
-            [(xb[:, i], yb[:, i]) for i in range(n_ref)], tol, topo=topo,
-            update_rtol=HYBRID_UPDATE_RTOL)
-        t_ref = time.perf_counter() - t_ref
-        torch.cuda.empty_cache()
-
+        n_data = topo.n_data_ranks
         x, y = synthetic_lm_dataset(n_data * per_rank * steps, seq, vocab,
                                     seed=0)
         torch.cuda.reset_peak_memory_stats()
@@ -4929,11 +5066,7 @@ def phase_hybrid():
                "step_ms": 1e3 * hist[-1]["wall_s"] / hist[-1]["steps"],
                "first_epoch_step_ms":
                    1e3 * hist[0]["wall_s"] / hist[0]["steps"],
-               "leg_wall_s": wall, "reference_s": t_ref,
-               "reference_max_abs_err": ref["max_abs_err"],
-               "reference_update": {k: v for k, v in ref.items()
-                                    if k.startswith("update")},
-               "ring_flash_max_abs_err": ring_err, "peak_mem_gib": peak,
+               "leg_wall_s": wall, "ring_flash_max_abs_err": ring_err, "peak_mem_gib": peak,
                "sent_bytes_per_step_per_chip":
                    hist[-1]["sent_bytes_per_step_per_chip"],
                "sent_bytes_wire_real_per_step_per_chip":
@@ -4954,6 +5087,519 @@ def phase_hybrid():
             totals[key] = totals.get(key, 0) + v
         del model
         torch.cuda.empty_cache()
+    return totals
+
+
+#: the device-mesh lift's flagship leg (phase 18 (a)): the CLI's argv
+#: of the ResNet-18 op-point at 2 passes an epoch (the CLI builds the
+#: model in float32: it has no compute-dtype flag, nor has the JAX one)
+MESH_FLAGSHIP = ["--mesh", "ring:8", "--model", "resnet18", "--dataset",
+                 "cifar10", "--n-synth", "512", "--global-batch", "256",
+                 "--epochs", "2", "--lr", "0.01", "--momentum", "0.9",
+                 "--horizon", "1.05", "--warmup-passes", "2",
+                 "--random-sampler"]
+
+
+def _mesh_flagship(algo):
+    """The flagship argv of one algorithm (max silence 50 bounds the
+    event trigger; the CLI refuses it for D-PSGD)."""
+    return MESH_FLAGSHIP + ["--algo", algo] + (
+        ["--max-silence", "50"] if algo == "eventgrad" else [])
+MESH_PASSES = 4
+#: leg (a), one epoch (two passes) of the mesh from the simulator's state
+#: against the simulator's (`PERF.md` §6, the mesh lift; the card, at these
+#: shapes): the parameters' relative norm error 9.0e-6 to 1.23e-5 and
+#: largest 4.03e-5, the trace's 2.3e-3 to 3.5e-3 and 4.03e-3, the loss
+#: per pass within 4e-7 of itself; an exchange with the ±2 neighbours in
+#: the second epoch moves the parameters 2.9e-4 (EventGraD) to 4.0e-3
+#: (D-PSGD), the trace 7.1e-2 to 0.59, the loss 1.5e-4 to 1.6e-2
+MESH_PARAMS_TOL = dict(atol=2e-4, rtol=1e-4, rel_norm=5e-5)
+MESH_TRACE_TOL = dict(atol=2e-2, rtol=0.0, rel_norm=1e-2)
+MESH_LOSS_RTOL = 1e-5
+#: the sp:2,dp:4 ring-attention leg (b), at the hybrid phase's width, its
+#: depth cut to 1 of the 2 layers to keep the phase near its budget (at
+#: 2 layers the leg took 56 s of children, 4.8 s a pass, most of it the
+#: sp gradient mean's 1.66 GB a process through pinned host memory)
+MESH_LM_MESH = "sp:2,dp:4"
+MESH_LM_LAYERS = 1
+MESH_LM_TOL = dict(atol=1e-5, rtol=1e-4)
+#: how leg (a)'s children start the command line: what `python -m
+#: eventgrad_tpu_torch.cli ARGS` runs (`runpy`, the module as __main__),
+#: after the deterministic switches this process sets for the simulator
+#: (a launcher's preamble; the CLI has no flag for them)
+MESH_CLI = ("import runpy, sys, torch; "
+            "torch.use_deterministic_algorithms(True, warn_only=True); "
+            "torch.backends.cudnn.benchmark = False; "
+            "sys.argv = ['eventgrad_tpu_torch.cli'] + sys.argv[1:]; "
+            "runpy.run_module('eventgrad_tpu_torch.cli', run_name='__main__',"
+            " alter_sys=True)")
+#: seconds a child of the phase may take before the phase fails
+MESH_CHILD_TIMEOUT = 420
+#: the transports the legs must name: two processes sharing the card
+#: stage through pinned host memory for gloo; one process takes NCCL
+MESH_SHARED, MESH_NCCL = "gloo-host", "nccl"
+
+
+#: leg (a)'s algorithms
+MESH_ALGOS = ("eventgrad", "dpsgd")
+#: leg (a) on the mesh's data path on both sides: the loop's bound on a
+#: device-resident dataset set to 0 bytes keeps the simulator on host
+#: batches, as every multi-process run is
+MESH_HOST_DATA = ("EG_DEVICE_DATA_MAX_BYTES", "0")
+
+
+def _mesh_flagship_stage(root, algo, stage, side, proc=0):
+    """Leg (a)'s argv for epoch `stage` on `side` ("mesh" or "sim"; its
+    snapshots under `root / ck-{side}{stage}-{algo}`): epoch 1 from the
+    seed, epoch 2 resumed from the snapshot there (the simulator's
+    epoch 1, copied in by `phase_mesh`)."""
+    tag = f"{side}{stage}-{algo}"
+    return (_mesh_flagship(algo)
+            + ["--device", DEVICE, "--pipeline", "off",
+               "--checkpoint-dir", str(root / f"ck-{tag}"),
+               "--log-file", str(root / f"{tag}-{proc}.jsonl")]
+            + (["--epochs", "1"] if stage == 1 else ["--resume"]))
+
+
+def _mesh_flagship_procs(root, algo, stage):
+    """Leg (a)'s two CLI processes for epoch `stage`: [(Popen, output
+    path)]."""
+    port, procs = _free_port(), []
+    for p in (0, 1):
+        argv = [sys.executable, "-c", MESH_CLI,
+                *_mesh_flagship_stage(root, algo, stage, "mesh", p),
+                "--backend", "mesh", "--coordinator", f"127.0.0.1:{port}",
+                "--num-processes", "2", "--process-id", str(p)]
+        out = root / f"mesh{stage}-{algo}-{p}.out"
+        with open(out, "w") as fh:
+            procs.append((subprocess.Popen(
+                argv, stdout=fh, stderr=subprocess.STDOUT, cwd=str(HERE),
+                env=dict(_mesh_env(), **dict([MESH_HOST_DATA]))), out))
+    return procs
+
+
+def _mesh_flagship_epoch(root, algo, stage, spec):
+    """Leg (a)'s epoch `stage`: the mesh's record and snapshot against the
+    simulator's (module docstring, phase 18); what was measured."""
+    import torch
+
+    what = f"mesh (a) {algo} epoch {stage}"
+    if (root / f"mesh{stage}-{algo}-1.jsonl").exists():
+        raise SmokeError(f"{what}: process 1 wrote a log")
+    mesh = _cli_records(root / f"mesh{stage}-{algo}-0.jsonl")
+    sim = _cli_records(root / f"sim{stage}-{algo}-0.jsonl")
+    mh, sh = mesh[:-1], sim[:-1]
+    if ([h.get("epoch") for h in mh] != [stage]
+            or [h.get("epoch") for h in sh] != [stage]):
+        raise SmokeError(f"{what}: records {mesh} / {sim}")
+    (a, b), final = (mh[0], sh[0]), mesh[-1]
+    if (a.get("transport") != MESH_SHARED
+            or a.get("mesh_processes") != 2):
+        raise SmokeError(f"{what}: first record {a}")
+    keys = ["sent_bytes_per_step_per_chip",
+            "sent_bytes_wire_real_per_step_per_chip"]
+    if algo == "eventgrad":
+        keys += ["num_events", "msgs_saved_pct"]
+    if any(a[k] != b[k] for k in keys):
+        raise SmokeError(f"{what}: {a} vs {b}")
+    loss_err = abs(a["loss"] - b["loss"])
+    if not loss_err <= MESH_LOSS_RTOL * abs(b["loss"]):
+        raise SmokeError(f"{what}: loss {a['loss']} vs {b['loss']}")
+    launches = final.get("kernel_launches", {})
+    must = (("masked_wire", "fused_mix_commit")
+            if algo == "eventgrad" else ("fused_mix_sgd",))
+    passes = MESH_PASSES // 2
+    if any(launches.get(k) != 2 * passes for k in must):
+        raise SmokeError(f"{what}: launches {launches}, expected "
+                         f"{2 * passes} of {must}")
+    (got, gm), (want, wm) = (_final_snapshot(root / f"ck-{side}{stage}-"
+                                             f"{algo}")
+                             for side in ("mesh", "sim"))
+    if gm["epoch"] != stage or wm["epoch"] != stage:
+        raise SmokeError(f"{what}: snapshots at epochs {gm['epoch']} / "
+                         f"{wm['epoch']}")
+    if got["state/params"].shape != (RANKS, spec.n_total):
+        raise SmokeError(f"{what}: snapshot "
+                         f"{tuple(got['state/params'].shape)}")
+    errs = {}
+    try:
+        for k, tol in (("state/params", MESH_PARAMS_TOL),
+                       ("state/trace", MESH_TRACE_TOL)):
+            g, w = got[k].to(DEVICE), want[k].to(DEVICE)
+            errs[k] = [within(g, w, what=f"{what}: {k}", **tol),
+                       rel_norm_err(g, w)]
+            del g, w
+        for k, w in want.items():
+            if not w.is_floating_point() and not torch.equal(got[k], w):
+                raise SmokeError(f"{what}: {k} differs")
+    except SmokeError:
+        log(json.dumps({"leg": f"mesh-a-{algo}", "epoch": stage,
+                        "snapshot_diff": _snapshot_diffs(got, want, spec)}))
+        raise
+    return {"epoch": stage, "transport": a["transport"],
+            "loss": a["loss"], "sim_loss": b["loss"], "loss_abs_err": loss_err,
+            "params_max_abs_err": errs["state/params"][0],
+            "params_rel_norm_err": errs["state/params"][1],
+            "trace_max_abs_err": errs["state/trace"][0],
+            "trace_rel_norm_err": errs["state/trace"][1],
+            "step_ms": 1e3 * a["wall_s"] / a["steps"],
+            "sim_step_ms": 1e3 * b["wall_s"] / b["steps"],
+            "peak_mem_gib": final.get("peak_mem_gib"),
+            "bytes_wire_real": a[keys[1]],
+            "num_events": a.get("num_events"),
+            "msgs_saved_pct": a.get("msgs_saved_pct"),
+            "launches": launches}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_env():
+    """The children's environment: this checkout on the path, no group
+    variables, and TF32 off in cuBLAS and cuDNN (NVIDIA_TF32_OVERRIDE=0,
+    the counterpart of the toolchain phase's switches in this process:
+    float32 work stays float32 on both sides of a comparison)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(HERE), NVIDIA_TF32_OVERRIDE="0")
+    for k in ("EG_COORDINATOR", "EG_NUM_PROCESSES", "EG_PROCESS_ID"):
+        env.pop(k, None)
+    return env
+
+
+def _mesh_child(code, out):
+    """A child of this phase: `python -c code` from this checkout, its
+    output to the file `out`."""
+    with open(out, "w") as fh:
+        return subprocess.Popen([sys.executable, "-c", code], stdout=fh,
+                                stderr=subprocess.STDOUT, cwd=str(HERE),
+                                env=_mesh_env())
+
+
+def _finish_children(procs, what):
+    """Wait for every child; kill them all if one passes the timeout or
+    fails, and raise."""
+    t_end = time.perf_counter() + MESH_CHILD_TIMEOUT
+    try:
+        for p, out in procs:
+            rc = p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+            if rc != 0:
+                tail = Path(out).read_text()[-3000:]
+                raise SmokeError(f"{what}: a child exited {rc}:\n{tail}")
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"{what}: a child passed {MESH_CHILD_TIMEOUT} s")
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _child_json(out, key):
+    for line in Path(out).read_text().splitlines():
+        if line.startswith("{") and f'"{key}"' in line:
+            return json.loads(line)
+    raise SmokeError(f"no {key} line in {out}")
+
+
+def _snapshot_diffs(got, want, spec):
+    """What differs between two snapshots: each tensor's largest |got -
+    want| (a count of unequal elements for integer tensors), and the five
+    leaves of the parameter arena that differ most, each with its
+    largest |p|."""
+    out = {}
+    for k, b in want.items():
+        a = got[k]
+        if a.shape != b.shape:
+            out[k] = f"shape {tuple(a.shape)} vs {tuple(b.shape)}"
+        elif a.is_floating_point():
+            out[k] = float((a.double() - b.double()).abs().max()) if (
+                a.numel()) else 0.0
+        else:
+            out[k] = int((a != b).sum())
+    d, p = (got["state/params"] - want["state/params"]).abs(), \
+        want["state/params"].abs()
+    leaves, off = [], 0
+    for name, size in zip(spec.names, spec.sizes):
+        leaves.append((float(d[:, off:off + size].max()), name,
+                       float(p[:, off:off + size].max())))
+        off += size
+    return {"tensors": {k: v for k, v in out.items() if v},
+            "leaves": sorted(leaves, reverse=True)[:5]}
+
+
+def _mesh_lm_data(topo):
+    from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
+
+    return synthetic_lm_dataset(topo.n_data_ranks * 4 * 2,
+                                HYBRID_LM["max_len"], HYBRID_LM["vocab"],
+                                seed=0)
+
+
+def _mesh_lm_train(backend, device):
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch.cli import parse_mesh
+
+    topo = parse_mesh(MESH_LM_MESH)
+    x, y = _mesh_lm_data(topo)
+    return egt.train(
+        _hybrid_model("ring", topo, MESH_LM_LAYERS), topo, x, y,
+        algo="eventgrad", epochs=2,
+        batch_size=4, learning_rate=0.01, momentum=0.9,
+        event_cfg=egt.EventConfig(adaptive=True, horizon=1.05,
+                                  warmup_passes=2, max_silence=50),
+        random_sampler=True, seed=0, backend=backend, device=device)
+
+
+def mesh_lm_child(pid, port, out, device="cuda"):
+    """Leg (b)'s process `pid` of 2 (run as `python -c`): the sp:2,dp:4
+    ring-attention LM on the mesh, sp outer, so every K/V hop crosses to
+    the other process; prints its launches, flash forms and peak memory,
+    and the primary saves the gathered parameters to `out`."""
+    import torch
+
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.ops import attention as fa
+    from eventgrad_tpu_torch.parallel import multihost
+
+    multihost.init(f"127.0.0.1:{port}", 2, pid, device=device)
+    try:
+        state, hist = _mesh_lm_train("mesh", device)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        forms = {k: dict(v) for k, v in fa.form_counts().items()}
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else 0.0)
+        params = multihost.to_host(state.params)
+        if multihost.is_primary():
+            torch.save(params.cpu(), out)
+        print(json.dumps({"mesh_lm_child": pid, "launches": counts,
+                          "forms": forms, "peak_mem_gib": peak,
+                          "hist": hist}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def mesh_nccl_child(port, device="cuda"):
+    """Leg (c) (run as `python -c`): a one-process NCCL group holding all
+    8 rows of the MLP on Ring(8), allreduce and EventGraD, each against
+    the simulator in this process, bitwise (every state tensor and
+    record but the timing and the mesh's riders)."""
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.data.datasets import synthetic_dataset
+    from eventgrad_tpu_torch.parallel import multihost
+    from eventgrad_tpu_torch.train import state as state_lib
+
+    multihost.init(f"127.0.0.1:{port}", 1, 0, device=device)
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        x, y = synthetic_dataset(8 * 32 * 2, (28, 28, 1), seed=0)
+        out = {"mesh_nccl_child": 0, "legs": {}}
+        for algo in ("allreduce", "eventgrad"):
+            kw = dict(algo=algo, epochs=2, batch_size=32, learning_rate=0.05,
+                      event_cfg=egt.EventConfig(adaptive=True, horizon=1.05,
+                                                warmup_passes=2),
+                      random_sampler=True, seed=0)
+            ref, ref_hist = egt.train(egt.MLP(), egt.Ring(8), x, y,
+                                      backend="sim", device=device, **kw)
+            ops.reset_launch_counts()
+            got, hist = egt.train(egt.MLP(), egt.Ring(8), x, y,
+                                  backend="mesh", device=device, **kw)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            a, b = state_lib.to_flat(ref), state_lib.to_flat(got)
+            differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+            drop = ("wall_s", "transport", "mesh_processes")
+            records_differ = sorted({
+                k for a, b in zip(ref_hist, hist) for k in set(a) | set(b)
+                if k not in drop and a.get(k) != b.get(k)})
+            out["legs"][algo] = {
+                "transport": hist[0].get("transport"), "differ": differ,
+                "records_differ": records_differ, "launches": counts,
+                "passes": got.pass_num,
+                "num_events": hist[-1].get("num_events")}
+        print(json.dumps(out), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def phase_mesh():
+    """The device-mesh lift on the card (module docstring, phase 18).
+    Returns the children's launches of each kernel."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from eventgrad_tpu_torch.models import ResNet18
+    from eventgrad_tpu_torch.ops import flash_plan
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+
+    card = nvidia_smi("name,power.limit")
+    spec = arena_spec(ResNet18())
+    (HERE / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="eg-mesh-", dir=HERE / "build"))
+    totals = {}
+
+    def add(counts, suffix=""):
+        for k, v in counts.items():
+            key = k + (suffix if k.startswith("flash_") else "")
+            totals[key] = totals.get(key, 0) + v
+
+    torch.cuda.empty_cache()
+    # the simulator's side under the children's switches, on the mesh's
+    # schedule (the serial one, host data)
+    was = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    was_bench = torch.backends.cudnn.benchmark
+    was_data = os.environ.get(MESH_HOST_DATA[0])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    os.environ[MESH_HOST_DATA[0]] = MESH_HOST_DATA[1]
+    try:
+        # (a) epoch 1 of the flagship, two processes on the card through
+        # the CLI, and (c) the one-process NCCL group beside them (with
+        # the simulator in this process: ~40 GiB on the card)
+        t0 = time.perf_counter()
+        stage1 = {algo: _mesh_flagship_procs(root, algo, 1)
+                  for algo in MESH_ALGOS}
+        nccl_out = root / "nccl.out"
+        nccl = [(_mesh_child(
+            f"import chip_smoke as c; c.mesh_nccl_child({_free_port()}, "
+            f"{DEVICE!r})", nccl_out), nccl_out)]
+        # the simulator epoch by epoch, and epoch 2 of the mesh from the
+        # simulator's epoch-1 snapshot once its epoch 1 has ended
+        stage2, t_sim = {}, 0.0
+        torch.cuda.reset_peak_memory_stats()
+        for algo in MESH_ALGOS:
+            t = time.perf_counter()
+            for stage in (1, 2):
+                if stage == 2:
+                    shutil.copytree(root / f"ck-sim1-{algo}",
+                                    root / f"ck-sim2-{algo}")
+                if _run_cli(_mesh_flagship_stage(root, algo, stage, "sim")
+                            + ["--backend", "sim"]) != 0:
+                    raise SmokeError(f"mesh (a) {algo}: the simulator's "
+                                     f"epoch {stage} failed")
+            t_sim += time.perf_counter() - t
+            _finish_children(stage1[algo], f"mesh (a) {algo} epoch 1")
+            shutil.copytree(root / f"ck-sim1-{algo}",
+                            root / f"ck-mesh2-{algo}")
+            stage2[algo] = _mesh_flagship_procs(root, algo, 2)
+        sim_peak = torch.cuda.max_memory_allocated() / 2**30
+        _finish_children([c for v in stage2.values() for c in v] + nccl,
+                         "mesh children")
+        t_children = time.perf_counter() - t0
+        # (b) the sp:2,dp:4 ring-attention LM's two processes once (a)'s
+        # have ended: beside them (2 x 14 GiB more) the card's 80 GB ran
+        # out at (a)'s busiest moment
+        t_lm = time.perf_counter()
+        port = _free_port()
+        lm = [(_mesh_child(f"import chip_smoke as c; c.mesh_lm_child("
+                           f"{p}, {port}, {str(root / 'lm.pt')!r}, "
+                           f"{DEVICE!r})",
+                           root / f"lm-{p}.out"), root / f"lm-{p}.out")
+              for p in (0, 1)]
+        _finish_children(lm, "mesh (b) children")
+        t_lm = time.perf_counter() - t_lm
+
+        # (c): bitwise the simulator in the child, through NCCL
+        nccl = _child_json(nccl_out, "mesh_nccl_child")
+        for algo, leg in nccl["legs"].items():
+            if (leg["transport"] != MESH_NCCL or leg["differ"]
+                    or leg["records_differ"]
+                    or leg["passes"] != MESH_PASSES):
+                raise SmokeError(f"mesh (c) {algo}: {leg}")
+            kernel = "fused_mix_sgd" if algo == "allreduce" else "masked_wire"
+            if leg["launches"].get(kernel) != leg["passes"]:
+                raise SmokeError(f"mesh (c) {algo}: launches "
+                                 f"{leg['launches']}")
+            add(leg["launches"])
+        log(json.dumps({"leg": "mesh-c-nccl", "legs": nccl["legs"],
+                        "card": card}))
+
+        # (a): each epoch against the simulator's from the same state
+        for algo in MESH_ALGOS:
+            rec = {"leg": f"mesh-a-{algo}", "processes": 2, "epochs": [],
+                   "tol": {"params": MESH_PARAMS_TOL,
+                           "trace": MESH_TRACE_TOL,
+                           "loss_rtol": MESH_LOSS_RTOL},
+                   "sim_peak_mem_gib": sim_peak, "children_s": t_children,
+                   "sim_s": t_sim, "concurrent": "every child of (a) "
+                   "and (c), and the simulator", "card": card}
+            for stage in (1, 2):
+                rec["epochs"].append(_mesh_flagship_epoch(root, algo, stage,
+                                                          spec))
+                add(rec["epochs"][-1].pop("launches"))
+            log(json.dumps(rec))
+        torch.cuda.empty_cache()
+
+        # (b): its simulator in this process
+        kids = [_child_json(out, "mesh_lm_child") for _, out in lm]
+        torch.cuda.reset_peak_memory_stats()
+        t_sim = time.perf_counter()
+        state, sim_hist = _mesh_lm_train(None, DEVICE)
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t_sim
+        sim_peak = torch.cuda.max_memory_allocated() / 2**30
+        got = torch.load(root / "lm.pt").to(state.params.device)
+        err = within(got, state.params, what="mesh (b): parameters",
+                     **MESH_LM_TOL)
+        hist = kids[0]["hist"]
+        if hist[0].get("transport") != MESH_SHARED:
+            raise SmokeError(f"mesh (b): first record {hist[0]}")
+        for a, b in zip(hist, sim_hist):
+            for k in ("num_events", "msgs_saved_pct",
+                      "sent_bytes_per_step_per_chip",
+                      "sent_bytes_wire_real_per_step_per_chip"):
+                if a[k] != b[k]:
+                    raise SmokeError(f"mesh (b): {k} {a[k]} != {b[k]}")
+        form = flash_plan.flash_form("float32", 128, (), ())
+        for kid in kids:
+            # each process: one forward, dQ and dK/dV a hop, two hops a
+            # layer, on its four rows
+            want = MESH_LM_LAYERS * 2 * MESH_PASSES
+            for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+                if (kid["launches"].get(k) != want
+                        or kid["forms"][k].get(form) != want):
+                    raise SmokeError(f"mesh (b): {k} launches "
+                                     f"{kid['launches']} forms "
+                                     f"{kid['forms'][k]}, expected {want}")
+            for k in ("masked_wire", "fused_mix_commit"):
+                if kid["launches"].get(k) != MESH_PASSES:
+                    raise SmokeError(f"mesh (b): {k} {kid['launches']}")
+            add(kid["launches"], "_d128")
+        log(json.dumps({
+            "leg": "mesh-b-ring-lm", "mesh": MESH_LM_MESH,
+            "transport": hist[0]["transport"], "processes": 2,
+            "params_max_abs_err": err, "tol": MESH_LM_TOL,
+            "step_ms": 1e3 * hist[-1]["wall_s"] / hist[-1]["steps"],
+            "sim_step_ms": 1e3 * sim_hist[-1]["wall_s"]
+            / sim_hist[-1]["steps"],
+            "peak_mem_gib": [k["peak_mem_gib"] for k in kids],
+            "sim_peak_mem_gib": sim_peak,
+            "num_events": hist[-1]["num_events"],
+            "msgs_saved_pct": hist[-1]["msgs_saved_pct"],
+            "launches": [k["launches"] for k in kids],
+            "children_s": t_lm, "sim_s": t_sim,
+            "concurrent": "its two processes alone", "card": card}))
+        del state, got
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.use_deterministic_algorithms(was, warn_only=was_warn)
+        torch.backends.cudnn.benchmark = was_bench
+        if was_data is None:
+            os.environ.pop(MESH_HOST_DATA[0], None)
+        else:
+            os.environ[MESH_HOST_DATA[0]] = was_data
     return totals
 
 
@@ -5018,11 +5664,125 @@ KERNELS = (
 
 
 def timed(phase):
-    """Run one phase and log its seconds."""
+    """Run one phase and log its seconds; then hand the card back what
+    this process's allocator keeps cached, for the other streams."""
+    import torch
+
     t0 = time.perf_counter()
     out = phase()
     log(f"-- {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     return out
+
+
+#: the phases run alone first, after the kernels' timings: each holds
+#: 25-42 GiB of the card, or times the steps its figures divide
+HEAVY = ("phase_main_path_resnet50", "phase_main_path_lm_d128",
+         "phase_main_path_lm_d256", "phase_costmodel")
+#: then three streams of phases at once on the one card, this process
+#: running the first and a child process (`stream_child`) each other
+#: one. Their time is mostly the host's (Python dispatch, the CPU's plain
+#: versions, child processes that wait): a ResNet-18 pass keeps the card
+#: busy 49 of its 149 ms. The first stream holds at most ~15 GiB of the
+#: card, the second ~20 (the resume legs beside their kill child), the
+#: third ~35 (the hybrid references' 8-rank states at full width, 1
+#: layer), so that the three fit the card's 80 GB together. Their step
+#: times are taken beside one another
+STREAMS = (
+    ("phase_reference", "phase_main_path", "phase_main_path_lm",
+     "phase_realdata", "phase_frontier", "phase_bucketed_async",
+     "phase_chaos", "phase_dispatch"),
+    ("phase_sass", "phase_obs", "phase_audit", "phase_resume"),
+    ("phase_cli", "phase_hybrid_reference", "phase_membership"),
+)
+#: last, alone again: the hybrid legs (72 GiB at the MoE leg) and the
+#: mesh (its children and the simulator at once, ~65 GiB)
+TAIL = ("phase_hybrid", "phase_mesh")
+#: the streams must have ended this many seconds after the start, so
+#: that the tail fits the run's 1,200 s
+STREAM_DEADLINE_S = 1000
+
+
+def stream_child(names):
+    """A stream of phases in a process of its own, started by `main` as
+    `python -c`: TF32 off as phase_toolchain sets it, then each phase in
+    turn; prints the launches they return, summed, as its last line."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    for name in names:
+        # the reference phase counts nothing (None)
+        for k, v in (timed(globals()[name]) or {}).items():
+            launches[k] = launches.get(k, 0) + v
+    print(json.dumps({"stream_child": launches}), flush=True)
+
+
+def _stream_start(i, names):
+    """Stream `i` as a child in a session of its own (so that it can be
+    stopped with every process it starts), its output to a file."""
+    import os
+
+    (HERE / "build").mkdir(exist_ok=True)
+    out = HERE / "build" / f"stream-{i}.out"
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    for k in ("EG_COORDINATOR", "EG_NUM_PROCESSES", "EG_PROCESS_ID"):
+        env.pop(k, None)
+    with open(out, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke as c; c.stream_child({list(names)!r})"],
+            stdout=fh, stderr=subprocess.STDOUT, cwd=str(HERE), env=env,
+            start_new_session=True)
+    return proc, out, names
+
+
+def _stream_failed(stream, rc):
+    proc, out, names = stream
+    return SmokeError(f"the stream of {', '.join(names)} exited {rc}:\n"
+                      f"{Path(out).read_text()[-6000:]}")
+
+
+def _stream_check(streams):
+    """Fail as soon as a stream has failed."""
+    for stream in streams:
+        rc = stream[0].poll()
+        if rc not in (None, 0):
+            raise _stream_failed(stream, rc)
+
+
+def _stream_join(streams, deadline):
+    """Wait for each stream until `deadline` (perf_counter seconds), log
+    its output, and return the launches it counted."""
+    out = []
+    for stream in streams:
+        proc, path, names = stream
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            raise SmokeError(f"the stream of {', '.join(names)} had not "
+                             f"ended {STREAM_DEADLINE_S} s into the run")
+        if rc != 0:
+            raise _stream_failed(stream, rc)
+        log(f"== stream: {', '.join(names)} (a child process)")
+        text = Path(path).read_text()
+        log(text.rstrip("\n"))
+        out.append(_child_json(path, "stream_child")["stream_child"])
+    return out
+
+
+def _stream_stop(streams):
+    """Stop each stream's session: the child and what it started."""
+    import os
+    import signal
+
+    for proc, _, _ in streams:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        proc.wait()
 
 
 def main() -> int:
@@ -5049,27 +5809,36 @@ def main() -> int:
         print("chip_smoke: eventgrad_tpu_torch was imported from outside "
               "this checkout", file=sys.stderr)
         return 2
+    launches, streams = {}, []
+
+    def add(counts):
+        # the reference phase counts nothing (None)
+        for k, v in (counts or {}).items():
+            launches[k] = launches.get(k, 0) + v
+
     try:
         card = timed(phase_toolchain)
         timed(phase_build)
         recs = timed(phase_kernels)
         recs.update(timed(phase_flash_kernels))
         recs.update(timed(phase_leak_kernel))
-        timed(phase_reference)
-        launches = {}
-        for phase in (phase_main_path, phase_main_path_resnet50,
-                      phase_main_path_lm, phase_main_path_lm_d128,
-                      phase_main_path_lm_d256, phase_realdata,
-                      phase_frontier, phase_bucketed_async, phase_chaos,
-                      phase_dispatch, phase_resume, phase_audit, phase_obs,
-                      phase_costmodel, phase_membership, phase_cli,
-                      phase_hybrid):
-            for k, v in timed(phase).items():
-                launches[k] = launches.get(k, 0) + v
+        for name in HEAVY:
+            add(timed(globals()[name]))
+        streams = [_stream_start(i, names)
+                   for i, names in enumerate(STREAMS[1:], start=1)]
+        for name in STREAMS[0]:
+            add(timed(globals()[name]))
+            _stream_check(streams)
+        for counts in _stream_join(streams, t_start + STREAM_DEADLINE_S):
+            add(counts)
+        for name in TAIL:
+            add(timed(globals()[name]))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        _stream_stop(streams)
     kernels = []
     for name, source, replaces in KERNELS:
         r = recs[name]

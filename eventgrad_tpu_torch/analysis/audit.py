@@ -20,8 +20,13 @@ full and flash attention) beside the cheap MLP base:
      to the host); full-model concatenations within the cell's budget;
      wire value lanes at the declared wire dtype.
 
-Every check has a seeded ORACLE violation (`run_oracles`) proving it can
-fire. One of them runs the seeded unregistered kernel, `eg::leak_kernel`
+  4. THE MESH LIFT'S EXCHANGE (`mesh_lift_report`): on a device mesh a
+     shift is a transfer between processes, which no trace of the step
+     shows as a roll; the lift records the offsets it shifted by, and
+     they must be the topology's neighbour offsets.
+
+Every check has a seeded ORACLE violation (`run_oracles`: the 14 of
+`ORACLES` and the mesh lift's `MESH_ORACLES`) proving it can fire. One of them runs the seeded unregistered kernel, `eg::leak_kernel`
 (`csrc/audit_leak.cu`, the port of the JAX auditor's `_leak_kernel`),
 which stays out of the kernel registry on purpose.
 
@@ -67,7 +72,7 @@ from eventgrad_tpu_torch.models import MLP, LeNetCifar, ResNet18
 from eventgrad_tpu_torch.models.transformer import TransformerLM
 from eventgrad_tpu_torch.ops import build as kbuild
 from eventgrad_tpu_torch.ops import launch_counts
-from eventgrad_tpu_torch.parallel import collectives
+from eventgrad_tpu_torch.parallel import collectives, multihost, spmd
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
@@ -344,9 +349,9 @@ def bucket_info(cfg: AuditConfig, model):
     return buckets, caps
 
 
-def build(cfg: AuditConfig, device=None):
+def build(cfg: AuditConfig, device=None, mesh=None):
     """(state, step, topo, model) of one audit cell on `device` (None:
-    CUDA)."""
+    CUDA); with a `mesh` the step and the topology are lifted onto it."""
     device = resolve_device(device)
     topo = Ring(N_RANKS)
     model, in_shape = _model(cfg, device)
@@ -372,9 +377,9 @@ def build(cfg: AuditConfig, device=None):
         staleness=cfg.staleness, trigger_policy=cfg.policy,
         carrier_resident=cfg.carrier, bucketed=cfg.bucketed or None,
         chaos=chaos, integrity=IntegrityConfig() if cfg.integrity else None,
-        obs=cfg.obs,
+        obs=cfg.obs, mesh=mesh,
     )
-    return state, step, topo, model
+    return state, step, spmd.lift(topo, mesh), model
 
 
 def _meta(model) -> Tuple[int, int, int]:
@@ -1045,26 +1050,63 @@ ORACLES = {
     "bucket_undeclared_offset": oracle_bucket_undeclared_offset,
 }
 
-#: the JAX oracles that wait, and what for
-WAITING_ORACLES = {
-    "mesh_undeclared_offset":
-        "the multi-GPU backend (ROADMAP queue 1, item 8)",
+# --- the mesh lift's declared exchange ---------------------------------------
+
+
+def mesh_lift_report(cfg_name: str, wrap=None, device=None) -> Dict[str, Any]:
+    """One step of cell `cfg_name` lifted onto a device mesh
+    (`spmd.build_mesh`: the process group's, or one process holding every
+    rank, where every shift still runs through the lift's `Mesh.shift`),
+    its step wrapped by `wrap(step, topo, model)`. The lift keeps a
+    record of its shifts (`Mesh.exchange_log`), the exchange the mesh
+    step declares; inside the lift a shift is a transfer, not a roll
+    the rank-flow analysis could see, so the record is held to the
+    topology's neighbour offsets directly (the JAX auditor's
+    `shard_lift_report`)."""
+    cfg = config_by_name(cfg_name)
+    device = resolve_device(device)
+    mesh = spmd.build_mesh(Ring(N_RANKS), device)
+    state, step, topo, model = build(cfg, device, mesh=mesh)
+    fn = step if wrap is None else wrap(step, topo, model)
+    fn(multihost.put_stacked(state, mesh),
+       tuple(map(topo.local_rows, _batch(cfg, device))))
+    exchanged = sorted(mesh.exchange_log)
+    declared = sorted((nb.axis, nb.offset) for nb in topo.neighbors)
+    return {"cell": cfg.name, "exchange_offsets": exchanged,
+            "declared_offsets": declared,
+            "offsets_ok": set(exchanged) <= set(declared)}
+
+
+def oracle_mesh_undeclared_offset(device=None) -> Tuple[bool, str]:
+    """An undeclared shift (offset +2) smuggled into the MESH step's
+    metrics: the lift's twin of `oracle_rank_coupling`. Inside the lift
+    a shift is a point-to-point transfer, so the auditor must flag the
+    stray offset in the lift's own record (`mesh_lift_report`)."""
+    def leak(ns, m, batch, topo, model):
+        m["leak"] = collectives.recv_from(
+            m["loss"], topo, NeighborSpec(topo.axes[0], 2))
+
+    rep = mesh_lift_report("event_masked_f32_arena_obs", _with_metric(leak),
+                           device)
+    extra = sorted(o for a, o in set(rep["exchange_offsets"])
+                   - set(rep["declared_offsets"]))
+    return not rep["offsets_ok"], f"undeclared mesh exchange offsets {extra}"
+
+
+#: the oracles of the device-mesh lift (the JAX auditor's MESH_ORACLES)
+MESH_ORACLES = {
+    "mesh_undeclared_offset": oracle_mesh_undeclared_offset,
 }
 
 
 def oracle(name: str):
-    """The oracle function `name` (of `ORACLES`); a JAX oracle that is
-    not ported yet raises, naming what it waits for."""
-    if name in WAITING_ORACLES:
-        raise NotImplementedError(
-            f"oracle {name!r} is not ported yet: it needs "
-            f"{WAITING_ORACLES[name]}")
-    return ORACLES[name]
+    """The oracle function `name` (of `ORACLES` or `MESH_ORACLES`)."""
+    return {**ORACLES, **MESH_ORACLES}[name]
 
 
 def run_oracles(device=None) -> List[Dict[str, Any]]:
     out = []
-    for name in ORACLES:
+    for name in list(ORACLES) + list(MESH_ORACLES):
         detected, reason = oracle(name)(device=device)
         out.append({"name": name, "detected": bool(detected),
                     "reason": reason})
@@ -1106,7 +1148,6 @@ def main(argv=None) -> int:
         "oracles": oracles,
         "n_oracles": len(oracles),
         "n_detected": sum(o["detected"] for o in oracles),
-        "waiting_oracles": WAITING_ORACLES,
         "lint_rules": len(lint.RULES),
         "lint_violations": len(lint_v),
         "wall_s": time.perf_counter() - t0,

@@ -51,8 +51,19 @@ docstrings and comments never match.
     call site; and `ledger_update` must still add to the counters
     itself, or the rule covers nothing.
 
-The shard_map rules of the JAX lint wait for the device-mesh lift
-(ROADMAP queue 1, item 8).
+The port's counterparts of the JAX lint's three shard_map rules read
+the port's test files (`tests/test_torch_*.py`), where the device-mesh
+lift is exercised in `torch.distributed` groups:
+
+  * process-group-marker — a test file that starts a process group
+    (imports `_torch_dist`, the one helper that starts them, or calls
+    `init_process_group`) imports the helper's `requires_gloo` skip
+    marker;
+  * process-group-respell — no test file re-spells that skip (a
+    `skipif` whose condition mentions gloo): `tests/_torch_dist.py`
+    holds the one definition and its one reason string;
+  * process-group-exempt-honest — every file of `DIST_EXEMPT` still
+    exists and still starts a group (the list is empty).
 
 CLI: `python -m eventgrad_tpu_torch.analysis.lint`.
 """
@@ -118,6 +129,8 @@ def collect_sources(root: str = REPO_ROOT,
 
 class Rule:
     name: str = "rule"
+    #: the files `run` gives the rule: the package's, or the port's tests
+    scope: str = "package"
 
     def check(self, files: Sequence[SourceFile]) -> List[Violation]:
         raise NotImplementedError
@@ -745,6 +758,123 @@ class TelemetryCounterLedgered(Rule):
         return out
 
 
+#: the port's test files the process-group rules read
+_PORT_TEST_PREFIX = "tests/test_torch_"
+#: the one helper that starts process groups and owns their skip marker
+DIST_HELPER = "_torch_dist"
+DIST_MARKER = "requires_gloo"
+#: test files exempt from process-group-marker, by base name (none)
+DIST_EXEMPT: frozenset = frozenset()
+
+
+def _is_port_test(sf: SourceFile) -> bool:
+    return sf.rel.startswith(_PORT_TEST_PREFIX) and sf.rel.endswith(".py")
+
+
+def _starts_group(sf: SourceFile) -> bool:
+    """The file imports the group helper or calls init_process_group."""
+    for node in ast.walk(sf.tree):
+        if isinstance(node, ast.ImportFrom) and node.module == DIST_HELPER:
+            return True
+        if isinstance(node, ast.Import) and any(
+                a.name == DIST_HELPER for a in node.names):
+            return True
+        if (isinstance(node, ast.Call)
+                and _call_name(node) == "init_process_group"):
+            return True
+    return False
+
+
+class ProcessGroupMarker(Rule):
+    """A port test that starts a process group takes the shared skip
+    marker (the JAX lint's shard-map-marker)."""
+
+    name = "process-group-marker"
+    scope = "tests"
+
+    def check(self, files):
+        out = []
+        for sf in files:
+            if not _is_port_test(sf) or os.path.basename(sf.rel) in DIST_EXEMPT:
+                continue
+            if not _starts_group(sf):
+                continue
+            if not any(isinstance(n, ast.ImportFrom)
+                       and n.module == DIST_HELPER
+                       and any(a.name == DIST_MARKER for a in n.names)
+                       for n in ast.walk(sf.tree)):
+                out.append(self._v(
+                    sf, 1,
+                    f"{os.path.basename(sf.rel)} starts a process group "
+                    f"without importing the shared `{DIST_MARKER}` marker "
+                    f"from tests/{DIST_HELPER}.py; add `from {DIST_HELPER} "
+                    f"import {DIST_MARKER}` instead of re-spelling the "
+                    "skipif"))
+        return out
+
+
+def _mentions_gloo(node) -> bool:
+    for n in ast.walk(node):
+        text = (n.attr if isinstance(n, ast.Attribute)
+                else n.id if isinstance(n, ast.Name)
+                else n.value if isinstance(n, ast.Constant)
+                and isinstance(n.value, str) else "")
+        if "gloo" in text.lower():
+            return True
+    return False
+
+
+class ProcessGroupRespell(Rule):
+    """No port test re-spells the process-group skip (the JAX lint's
+    shard-map-respell)."""
+
+    name = "process-group-respell"
+    scope = "tests"
+
+    def check(self, files):
+        out = []
+        for sf in files:
+            if not _is_port_test(sf):
+                continue
+            for node in ast.walk(sf.tree):
+                if (isinstance(node, ast.Call)
+                        and _call_name(node) == "skipif"
+                        and any(_mentions_gloo(a) for a in node.args)):
+                    out.append(self._v(
+                        sf, node.lineno,
+                        f"{os.path.basename(sf.rel)} re-spells the process-"
+                        f"group skipif; use `{DIST_MARKER}` from "
+                        f"tests/{DIST_HELPER}.py (single definition, single "
+                        "reason string)"))
+        return out
+
+
+class ProcessGroupExemptHonest(Rule):
+    """The exemption list stays honest: every exempt file still exists
+    and still starts a process group (the JAX lint's
+    shard-map-exempt-honest)."""
+
+    name = "process-group-exempt-honest"
+    scope = "tests"
+    EXEMPT = DIST_EXEMPT
+
+    def check(self, files):
+        out = []
+        by_name = {os.path.basename(sf.rel): sf for sf in files
+                   if _is_port_test(sf)}
+        for name in sorted(self.EXEMPT):
+            sf = by_name.get(name)
+            if sf is None:
+                out.append(Violation(self.name, f"tests/{name}", 1,
+                                     f"exempt file {name} no longer exists"))
+            elif not _starts_group(sf):
+                out.append(self._v(
+                    sf, 1,
+                    f"exempt file {name} no longer starts a process group "
+                    "— drop it from DIST_EXEMPT"))
+        return out
+
+
 RULES: Sequence[Rule] = (
     NoHostSyncInTraced(),
     KernelRegistered(),
@@ -755,6 +885,9 @@ RULES: Sequence[Rule] = (
     CrashpointInstrumented(),
     WallClockConfined(),
     TelemetryCounterLedgered(),
+    ProcessGroupMarker(),
+    ProcessGroupRespell(),
+    ProcessGroupExemptHonest(),
 )
 
 
@@ -763,13 +896,17 @@ def run(
     root: str = REPO_ROOT,
     files: Optional[Sequence[SourceFile]] = None,
 ) -> List[Violation]:
-    """Run every rule over the port's sources (or an injected file set:
-    the tests feed seeded violations through here)."""
+    """Run every rule over the port's sources, the test-scoped rules over
+    the port's test files (or every rule over an injected file set: the
+    tests feed seeded violations through here)."""
+    scoped = {"package": files, "tests": files}
     if files is None:
-        files = collect_sources(root)
+        scoped = {"package": collect_sources(root),
+                  "tests": [sf for sf in collect_sources(root, ("tests",))
+                            if _is_port_test(sf)]}
     out: List[Violation] = []
     for rule in rules if rules is not None else RULES:
-        out.extend(rule.check(files))
+        out.extend(rule.check(scoped[rule.scope]))
     return out
 
 

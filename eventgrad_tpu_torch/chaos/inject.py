@@ -236,8 +236,8 @@ def lag_vector(
     messages exchanged on pass `pass_num`: max(1, the lag= windows
     covering the pass, the slow= clauses naming the edge's source),
     clamped to [1, bound]. `sched=None` is the all-baseline (lag 1)
-    schedule."""
-    _, srcs = rank_and_sources(topo, device)
+    schedule. On a mesh, the rows this process holds."""
+    srcs = topo.local_rows(rank_and_sources(topo, device)[1])
     lag = torch.ones(srcs.shape, dtype=torch.int32, device=srcs.device)
     if sched is not None:
         p = int(pass_num)

@@ -14,7 +14,12 @@ Reference argv semantics (event.cpp:88-100, spevent.cpp:47-60):
 plus what MPI provided implicitly:
 
     mpirun -np N         -> --mesh ring:N | torus:XxY | dp:N,sp:M ...
-                            (the ranks stacked on one device)
+                            (the ranks stacked on one device, or with
+                            --backend mesh spread over W processes of a
+                            torch.distributed group, R / W each)
+    MPI_Init             -> --coordinator host:port --num-processes W
+                            --process-id p (or EG_COORDINATOR /
+                            EG_NUM_PROCESSES / EG_PROCESS_ID)
 
 A hybrid mesh (`dp:4,sp:2`, `dp:2,tp:2`, `dp:2,pp:2`, `dp:2,ep:2`,
 `dp:2,ddp:2`, ...) gossips along dp, shards the transformers' weights
@@ -26,13 +31,21 @@ run reports its final train metrics instead of a consensus eval.
 One flag is the port's own: `--device {cuda,cpu}` (default cuda, which
 raises when CUDA is absent; the tests pass `--device cpu`).
 
-What the port does not have yet is refused before any data is built, with
-the ROADMAP item that ports it: `--backend mesh`, `--coordinator` and
-`EG_COORDINATOR` (queue 1, item 8); `--arena off`, the JAX package's
-tree path, is not queued, by design. `--backend auto` resolves to the stacked
-simulator (the port has no device mesh), as does `sim`. `--fused` is
-accepted with the JAX guards that name it and selects nothing: the
-port's gossip tail is always the fused CUDA kernel.
+`--backend mesh` runs the device-mesh lift (`parallel/spmd.py`): with
+`--coordinator` (or EG_COORDINATOR) the process joins a group of
+`--num-processes` first, under the JAX launcher's guards, and only the
+primary logs, evaluates the gathered consensus model and exports; on the
+card the final record also carries the kernels' launches summed over the
+processes and each process's peak memory. `--backend sim` is the
+stacked simulator; `auto` takes the mesh when a group of several
+processes is joined, else the simulator. What the port does not have yet is refused with the
+ROADMAP item that ports it: on the mesh, once the model is built, the
+tensor-, pipeline- and expert-parallel transformers, `--attn ulysses`
+and `--chaos` (queue 1, item 8b; `train.steps.check_mesh_model`);
+`--arena off`, the JAX package's tree path, is not queued, by design,
+and refused before any data is built. `--fused` is accepted with the JAX
+guards that name it and selects nothing: the port's gossip tail is
+always the fused CUDA kernel.
 
 Examples:
     python -m eventgrad_tpu_torch.cli --algo eventgrad --mesh ring:8 \\
@@ -44,6 +57,8 @@ Examples:
         --mesh ring:4 --model mlp --epochs 2
     python -m eventgrad_tpu_torch.cli --device cpu --mesh dp:2,sp:2 \\
         --model transformer --attn ring --dim 32 --heads 2 --seq-len 16
+    python -m eventgrad_tpu_torch.cli --backend mesh --mesh ring:8 \\
+        --coordinator HOST:PORT --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
@@ -62,6 +77,7 @@ from eventgrad_tpu_torch.data.datasets import (
 )
 from eventgrad_tpu_torch.exitcodes import INTEGRITY_ABORT_EXIT, PREEMPTED_EXIT
 from eventgrad_tpu_torch.models import MODEL_REGISTRY
+from eventgrad_tpu_torch.parallel import multihost
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
@@ -70,6 +86,7 @@ from eventgrad_tpu_torch.train.loop import (
     ARENA_OFF_REFUSAL, consensus_params, evaluate, rank0_slice, train,
 )
 from eventgrad_tpu_torch.train.state import ALGOS
+from eventgrad_tpu_torch.train.steps import check_mesh_model
 from eventgrad_tpu_torch.utils.devices import resolve_device
 from eventgrad_tpu_torch.utils.metrics import JsonlLogger
 
@@ -161,10 +178,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=parse_mesh, default="ring:4",
                    help="ring:N or torus:XxY")
     p.add_argument("--backend", choices=["sim", "mesh", "auto"], default="sim",
-                   help="sim = stack all ranks on one device; mesh = one "
-                        "rank per device (not ported yet: ROADMAP queue 1, "
-                        "item 8); auto = mesh whenever a mesh backend and "
-                        "enough devices exist, else sim (the port: sim)")
+                   help="sim = stack all ranks on one device; mesh = the "
+                        "ranks spread over the processes of a "
+                        "torch.distributed group (R / W rows a process; "
+                        "one process without --coordinator); auto = mesh "
+                        "whenever a group of several processes is joined, "
+                        "else sim")
     p.add_argument("--dataset",
                    choices=["mnist", "cifar10", "digits", "digits32",
                             "synthetic", "synthetic-lm",
@@ -306,8 +325,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-synth", type=int, default=4096)
     p.add_argument("--coordinator", default=None,
                    help="host:port of process 0 — joins a multi-host run "
-                        "(requires --backend mesh; not ported yet: ROADMAP "
-                        "queue 1, item 8)")
+                        "(mpirun's role; requires --backend mesh)")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None,
@@ -389,22 +407,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _item_refusals(args) -> None:
     """What the port does not run yet, refused before any data is built,
-    naming the ROADMAP item that ports it."""
-    if args.backend == "mesh":
-        raise SystemExit(
-            "--backend mesh: the device-mesh lift (one rank per card, "
-            "torch.distributed collectives) is not ported yet (ROADMAP "
-            "queue 1, item 8); use --backend sim or auto"
-        )
+    naming the ROADMAP item that ports it (what the device-mesh lift
+    does not run yet is `train.steps.check_mesh_model`'s, once the model
+    is built)."""
     if args.arena == "off":
         raise SystemExit(f"--arena off: {ARENA_OFF_REFUSAL}")
 
 
-def _coordinator_refusal(what: str) -> SystemExit:
-    return SystemExit(
-        f"{what}: multi-host runs need the device-mesh lift, which is not "
-        "ported yet (ROADMAP queue 1, item 8)"
-    )
+def _card_report(device) -> dict:
+    """On the card, for the final record: the kernels' launches of the run
+    summed over the group's processes, and each process's peak device
+    memory in GiB (a collective: every process calls it). Empty on the
+    CPU, where no kernel launches."""
+    if device is not None:
+        return {}
+    import torch
+
+    from eventgrad_tpu_torch import ops
+
+    mine = ({k: v for k, v in ops.launch_counts().items() if v},
+            torch.cuda.max_memory_allocated() / 2**30)
+    every = multihost.all_gather_object(mine)
+    launches = {}
+    for counts, _ in every:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return {"kernel_launches": launches,
+            "peak_mem_gib": [peak for _, peak in every]}
 
 
 def build_image_model(args, sample_shape):
@@ -426,19 +455,31 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     topo = args.mesh  # argparse already applied parse_mesh (also to the default)
 
+    device = None if args.device == "cuda" else args.device
     if args.coordinator:
         if args.backend != "mesh":
             raise SystemExit("--coordinator requires --backend mesh")
-        raise _coordinator_refusal("--coordinator")
+        multihost.init(args.coordinator, args.num_processes,
+                       args.process_id, device=device)
     elif os.environ.get("EG_COORDINATOR"):
         # the environment twin of the flag (EG_COORDINATOR /
         # EG_NUM_PROCESSES / EG_PROCESS_ID): the same contract, checked
-        # before anything else
+        # before joining the group (an "auto" that quietly fell back to
+        # the simulator would run W independent whole-ring simulations)
         if args.backend != "mesh":
             raise SystemExit("EG_COORDINATOR requires --backend mesh")
-        raise _coordinator_refusal("EG_COORDINATOR")
+        multihost.init_from_env(device=device)
+    try:
+        return _main(args, topo)
+    finally:
+        multihost.shutdown()
 
-    logger = JsonlLogger(args.log_file, echo=True, fsync=args.log_fsync)
+
+def _main(args, topo) -> int:
+    # only the primary logs and exports (every process holds the records)
+    primary = multihost.is_primary()
+    logger = JsonlLogger(args.log_file if primary else None, echo=primary,
+                         fsync=args.log_fsync)
     registry = None
     if args.obs != "off" or args.obs_dir:
         from eventgrad_tpu_torch.obs import Registry
@@ -701,6 +742,12 @@ def _run(args, topo, logger, registry, emit) -> int:
         model = build_lm_model(args, topo)
     else:
         model = build_image_model(args, np.shape(x)[1:])
+    if args.backend == "mesh" or (args.backend == "auto"
+                                  and multihost.is_multiprocess()):
+        try:
+            check_mesh_model(model, chaos_sched)
+        except NotImplementedError as e:
+            raise SystemExit(str(e)) from None
 
     event_cfg = EventConfig(
         adaptive=args.thres_mode == "adaptive",
@@ -765,6 +812,7 @@ def _run(args, topo, logger, registry, emit) -> int:
             print(f"integrity abort: {e}", file=sys.stderr, flush=True)
             return INTEGRITY_ABORT_EXIT
 
+        card = _card_report(device)
         if hybrid:
             # a consensus average across sp/tp/pp/ep ranks would mix
             # differently sharded parameters: the final train metrics
@@ -773,21 +821,26 @@ def _run(args, topo, logger, registry, emit) -> int:
             if hist:
                 rec.update(loss=hist[-1]["loss"],
                            train_acc=hist[-1]["train_acc"])
-            emit(rec)
+            emit({**rec, **card})
         else:
-            # the consensus model (the mean over the ranks) on rank 0's
-            # BatchNorm statistics, evaluated once
-            cons = consensus_params(state.params)
-            stats0 = rank0_slice(state.batch_stats)
-            final = evaluate(model, cons, stats0, xt, yt, device=device)
-            emit({"final": True, **final})
+            # the consensus model (the mean over the ranks, gathered from
+            # every process) on rank 0's BatchNorm statistics, evaluated
+            # once by the primary
+            params = multihost.to_host(state.params)
+            stats = multihost.to_host(state.batch_stats)
+            if multihost.is_primary():
+                final = evaluate(model, consensus_params(params),
+                                 rank0_slice(stats), xt, yt,
+                                 device=params.device)
+                emit({"final": True, **final, **card})
     finally:
         # exporters land even on an exception path — a crashed run's
         # spans are exactly the ones worth reading — but they are
         # best-effort: an unwritable --obs-dir must not mask the real
         # exception
         try:
-            if registry is not None and args.obs_dir:
+            if registry is not None and args.obs_dir and (
+                    multihost.is_primary()):
                 # final-state gauges for the textfile collector
                 if hist:
                     last = hist[-1]

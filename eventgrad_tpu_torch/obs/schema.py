@@ -7,8 +7,11 @@ counterpart of the JAX package's doc-coverage test of
 `docs/OBSERVABILITY.md`). Everything of the port's telemetry (the
 on-device `TelemetryState` accumulators, the per-record `obs` block in
 train() history, the Registry's Prometheus gauges) names its fields from
-the tables below. `MEMBERSHIP_FIELDS` and `PERF_FIELDS` are carried as
-data: their engines (membership, the cost model) are not ported yet.
+the tables below, as do the membership engine's records
+(`MEMBERSHIP_FIELDS`, `chaos/membership.py`) and the cost model's
+(`PERF_FIELDS`, `obs/costmodel.py`). On a device mesh the counters are
+gathered from every process at each block's flush, so the exports and
+the ledger's audit read all R ranks, as on the simulator.
 
 Bump OBS_SCHEMA_VERSION when a field changes meaning or units; adding a
 field is backward compatible (readers must tolerate unknown keys).

@@ -26,7 +26,12 @@ gated forms of kernels 1, 4 and 5 take (`mix_weights`). The tree-path
 port runs the arena and the fused tail kernels only.
 
 Each `[R, ...]` argument holds every rank of the topology; a ppermute of
-the JAX package is a `torch.roll` of the rank dimension. The int8 codec
+the JAX package is a `torch.roll` of the rank dimension. On a topology
+lifted onto a device mesh (`topo.mesh`, `parallel/spmd.py`) each holds
+this process's rows, and `recv_from`, `allreduce_mean` and the grid
+collectives route through the mesh, so every caller here (the masked
+and compact wires, the int8 scales, the checksums, the bucketed and
+bounded-async queues) runs the lift unchanged. The int8 codec
 is bitwise the JAX one: per-leaf absmax scales divided by 127 in IEEE
 float32, truncated to 17 significand bits, then
 `clip(round_half_even(x / s))`.
@@ -41,7 +46,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from eventgrad_tpu_torch.parallel import arena
+from eventgrad_tpu_torch.parallel import arena, spmd
 from eventgrad_tpu_torch.parallel.topology import NeighborSpec, Topology
 
 #: wire modes: None = f32; "bf16" = bfloat16 transfer (2 B/elem);
@@ -59,19 +64,49 @@ def check_wire(wire) -> None:
         raise ValueError(f"wire must be one of {WIRE_MODES}")
 
 
+def fold(grid: torch.Tensor, ax: int) -> torch.Tensor:
+    """The sum over dimension `ax` of a grid, member by member in axis
+    order (((x0 + x1) + x2) + ...), the dimension kept at size 1: the
+    order the device mesh's chain reduction keeps across processes
+    (`spmd.Mesh.fold`), so the lift computes the simulator's bits."""
+    acc = grid.select(ax, 0)
+    for i in range(1, grid.shape[ax]):
+        acc = acc + grid.select(ax, i)
+    return acc.unsqueeze(ax)
+
+
+class _AxisSum(torch.autograd.Function):
+    """The group sum along a grid axis, broadcast back to every member
+    (`fold`); its transpose is the same sum of the cotangents, the JAX
+    package's transpose of `psum`."""
+
+    @staticmethod
+    def forward(x, topo, ax):
+        grid = _grid(x, topo)
+        if grid.shape[ax] == 1:
+            return x.clone()
+        return fold(grid, ax).expand(grid.shape).reshape(x.shape)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.topo, ctx.ax = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AxisSum.apply(g.contiguous(), ctx.topo, ctx.ax), None, None
+
+
 def allreduce_mean(x: torch.Tensor, topo: Topology, axes=None) -> torch.Tensor:
     """Mean over every rank of the topology (or over the grid axes named
     in `axes`): each rank's slice of the `[R, ...]` result holds its
     group's mean, taken axis by axis in the topology's axis order as the
-    JAX package's chain of `pmean`s takes it."""
-    grid = x.reshape(tuple(topo.shape) + tuple(x.shape[1:]))
-    for ax, name in enumerate(topo.axes):
+    JAX package's chain of `pmean`s takes it (each a `fold` divided by
+    the axis size). On a mesh each axis's sum is the mesh's chain
+    reduction (`spmd.fold`), in the same order."""
+    for name in topo.axes:
         if axes is None or name in axes:
-            grid = torch.mean(grid, dim=ax, keepdim=True)
-    if axes is None:
-        return grid.reshape((1,) + tuple(x.shape[1:])).expand(x.shape)
-    return grid.expand(tuple(topo.shape) + tuple(x.shape[1:])).reshape(
-        x.shape)
+            x = axis_sum(x, topo, name) / topo.axis_size(name)
+    return x
 
 
 def _grid(x: torch.Tensor, topo: Topology) -> torch.Tensor:
@@ -83,12 +118,14 @@ def _grid(x: torch.Tensor, topo: Topology) -> torch.Tensor:
 
 def axis_sum(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
     """`lax.psum(x, axis)` on the stack: every rank receives the sum of
-    its group along grid axis `axis`. Under autograd the cotangent that
-    reaches a rank's input is the sum of its group's cotangents, the
-    JAX package's transpose of `psum`."""
+    its group along grid axis `axis`, summed member by member in axis
+    order (`fold`). Under autograd the cotangent that reaches a rank's
+    input is the sum of its group's cotangents, the JAX package's
+    transpose of `psum`. On a mesh: the chain reduction (`spmd.fold`)."""
     ax = topo.axes.index(axis)
-    grid = _grid(x, topo)
-    return grid.sum(dim=ax, keepdim=True).expand(grid.shape).reshape(x.shape)
+    if topo.mesh is not None:
+        return spmd.fold(x, topo, ax)
+    return _AxisSum.apply(x, topo, ax)
 
 
 def axis_mean(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
@@ -99,11 +136,13 @@ def axis_mean(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
 
 def axis_index(topo: Topology, axis: str, device=None) -> torch.Tensor:
     """`lax.axis_index(axis)` of every rank: `[R]` int64, each rank's
-    coordinate along grid axis `axis`."""
+    coordinate along grid axis `axis` (on a mesh, of the rows this
+    process holds)."""
     ax = topo.axes.index(axis)
     grid = torch.arange(topo.shape[ax], device=device).reshape(
         (1,) * ax + (topo.shape[ax],) + (1,) * (len(topo.shape) - ax - 1))
-    return grid.expand(tuple(topo.shape)).reshape(topo.n_ranks)
+    return topo.local_rows(grid.expand(tuple(topo.shape)).reshape(
+        topo.n_ranks))
 
 
 def axis_all_to_all(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
@@ -118,6 +157,8 @@ def axis_all_to_all(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
         raise ValueError(
             f"all_to_all along {axis!r} needs [R, {n}, ...] chunks, got "
             f"{tuple(x.shape)}")
+    if topo.mesh is not None:
+        return spmd.swap(x, topo, ax)
     grid = _grid(x, topo)
     return grid.transpose(ax, len(topo.shape)).reshape(x.shape)
 
@@ -125,7 +166,11 @@ def axis_all_to_all(x: torch.Tensor, topo: Topology, axis: str) -> torch.Tensor:
 def recv_from(x: torch.Tensor, topo: Topology, nb: NeighborSpec) -> torch.Tensor:
     """Each rank receives the slice held by the rank `nb.offset` away along
     `nb.axis` (offset -1 == "from my left neighbor"): out[r] = x[r + offset],
-    i.e. a roll of the rank dimension by -offset."""
+    i.e. a roll of the rank dimension by -offset. On a mesh, the rows
+    whose source another process holds arrive from it by
+    point-to-point (`spmd.hop`)."""
+    if topo.mesh is not None:
+        return spmd.hop(x, topo, nb)
     ax = topo.axes.index(nb.axis)
     grid = x.reshape(tuple(topo.shape) + tuple(x.shape[1:]))
     return torch.roll(grid, shifts=-nb.offset, dims=ax).reshape(x.shape)

@@ -113,10 +113,10 @@ def ownership_vec(
     pass, `(r + pass_num) mod K` over K = n_ranks partitions (clamped to
     the leaf count). The rank r is the row of the rank-stacked layout,
     the row-major ravel of the topology coordinates, as the JAX package
-    numbers ranks."""
+    numbers ranks (on a mesh, the rows this process holds)."""
     masks, ranks = _ownership_constants(spec, topo.n_ranks,
                                         torch.device(device or "cpu"))
-    return masks[(ranks + int(pass_num)) % masks.shape[0]]
+    return masks[(topo.local_rows(ranks) + int(pass_num)) % masks.shape[0]]
 
 
 @functools.lru_cache(maxsize=16)

@@ -18,6 +18,11 @@ on a `dp x sp` mesh each dp replica's sequence is sharded over `sp`.
   * `lax.axis_index` is `collectives.axis_index`;
   * `lax.all_to_all` is `collectives.axis_all_to_all`.
 
+On a topology lifted onto a device mesh the shards are this process's
+rows, and a K/V hop whose source another process holds crosses the
+process boundary (`parallel/spmd.hop`, whose backward sends the
+gradient back along the inverse offset).
+
 With `use_flash=True` the ring runs each hop through
 `ops/attention.flash_attention_lse` — the ranks folded into the kernel's
 batch, one (q_offset, k_offset) pair per rank — and merges the hops by
@@ -80,9 +85,9 @@ def _sp_axis(topo: Topology, axis: Optional[str], x: torch.Tensor
     axis = axis or topo.axes[0]
     if axis not in topo.axes:
         raise ValueError(f"axis {axis!r} is not an axis of {topo.axes}")
-    if x.dim() != 5 or x.shape[0] != topo.n_ranks:
+    if x.dim() != 5 or x.shape[0] != topo.n_local:
         raise ValueError(
-            f"expected rank-stacked shards [{topo.n_ranks}, B, T_local, H, "
+            f"expected rank-stacked shards [{topo.n_local}, B, T_local, H, "
             f"D], got {tuple(x.shape)}"
         )
     return axis, topo.axis_size(axis)

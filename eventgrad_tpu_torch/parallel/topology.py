@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 
@@ -59,6 +59,13 @@ class Topology:
     `data_aux_axes` are aux axes that shard the data (hierarchical data
     parallelism, "ddp"): synchronous allreduce subgroups inside every
     gossip rank.
+
+    `mesh` (a `parallel.spmd.Mesh`, set by `spmd.lift`) places the ranks
+    in the processes of a `torch.distributed` group: each process then
+    holds its contiguous rows `[lo, hi)` of every rank-stacked tensor,
+    and the collectives exchange the rows other processes hold. It is
+    part of equality (a mesh equals only itself), so what is cached on a
+    topology is cached apart for a lifted one.
     """
 
     axes: Tuple[str, ...]
@@ -66,6 +73,7 @@ class Topology:
     gossip_axes: Tuple[str, ...] = None  # type: ignore[assignment]
     sharded_axes: Tuple[str, ...] = ()
     data_aux_axes: Tuple[str, ...] = ()
+    mesh: Any = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         if len(self.axes) != len(self.shape):
@@ -104,6 +112,17 @@ class Topology:
     @property
     def n_ranks(self) -> int:
         return math.prod(self.shape)
+
+    @property
+    def n_local(self) -> int:
+        """Rows of a rank-stacked tensor this process holds: every rank on
+        the simulator, R / W on a mesh of W processes."""
+        return self.n_ranks if self.mesh is None else self.mesh.n_local
+
+    def local_rows(self, x):
+        """This process's rows `[lo, hi)` of a full `[R, ...]` stack (the
+        stack itself on the simulator)."""
+        return x if self.mesh is None else x[self.mesh.lo:self.mesh.hi]
 
     @property
     def n_gossip_ranks(self) -> int:

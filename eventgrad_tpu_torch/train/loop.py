@@ -45,7 +45,7 @@ from eventgrad_tpu_torch.data.sharding import (
 from eventgrad_tpu_torch.obs import OBS_MODES
 from eventgrad_tpu_torch.obs import device as obs_device
 from eventgrad_tpu_torch.obs import ledger as obs_ledger
-from eventgrad_tpu_torch.parallel import collectives
+from eventgrad_tpu_torch.parallel import collectives, multihost, spmd
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.arena import arena_spec
 from eventgrad_tpu_torch.parallel.events import EventConfig
@@ -56,7 +56,7 @@ from eventgrad_tpu_torch.train import state as state_lib
 from eventgrad_tpu_torch.train.state import (
     EVENT_ALGOS, TrainState, init_train_state,
 )
-from eventgrad_tpu_torch.train.steps import make_train_step
+from eventgrad_tpu_torch.train.steps import check_mesh_model, make_train_step
 from eventgrad_tpu_torch.utils import checkpoint
 from eventgrad_tpu_torch.utils.devices import resolve_device
 from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
@@ -532,11 +532,28 @@ def train(
     `sync_bn=True` averages the BatchNorm running statistics over every
     rank after each update (a model without BatchNorm is unchanged).
 
-    The JAX loop's launcher arguments: `backend` (None, "vmap", "sim",
-    "auto": the stacked simulator; "auto" takes a device mesh only where
-    one exists with a card per rank, which the port has not, so it too
-    resolves to the simulator; "shard_map" / "mesh" and an explicit
-    `mesh` raise, naming ROADMAP queue 1, item 8); `arena` (None or True:
+    The JAX loop's launcher arguments: `backend` (None, "vmap", "sim":
+    the stacked simulator; "mesh" / "shard_map": the device-mesh lift,
+    `parallel/spmd.build_mesh` over the initialised process group, or
+    one process holding every rank; "auto": the mesh when a group of
+    more than one process is initialised, else the simulator) and
+    `mesh` (a `spmd.Mesh`; "vmap" beside it raises). On a mesh each
+    process builds the whole initial state (or reads the whole
+    snapshot) and keeps its rows, steps on them with the collectives
+    routed through the group, and gathers the per-rank metrics (and the
+    telemetry, the consensus-error probe's parameters) at each block's
+    readback, so every process holds the simulator's records; the first
+    record names the `transport` and the `mesh_processes`. Only the
+    primary calls `on_epoch`, writes the trace file and the snapshots
+    (gathered, then a barrier); a resume reads the shared snapshot. The
+    returned state is this process's rows (`multihost.to_host` gathers
+    it). A multi-process run skips the per-epoch consensus eval and
+    keeps the serial schedule, as the JAX loop does; refused on a mesh
+    with the JAX loop's words: the integrity sentinel/rollback engine,
+    membership, `pipeline=True` (more than one process) and
+    `device_data=True`; with ROADMAP queue 1, item 8b: the tensor-,
+    pipeline- and expert-parallel models, Ulysses attention and `chaos`.
+    `arena` (None or True:
     the flat arena, the port's only layout, True refused for the algos
     the JAX arena does not serve as the JAX loop refuses it; False, the
     JAX tree path, raises: not queued, by design); `fused_update` is
@@ -694,14 +711,25 @@ def train(
     `die=`, staleness D >= 2 and the integrity rollback, as the JAX loop
     refuses them."""
     device = resolve_device(device)
+    # the backend resolution: an explicit mesh wins; a backend request
+    # with no mesh builds one; "vmap" beside a mesh contradicts it
+    if backend is not None:
+        if mesh is not None and backend in ("vmap", "sim"):
+            raise ValueError(
+                "backend='vmap' contradicts an explicit mesh= argument; "
+                "drop one of them"
+            )
+        if mesh is None:
+            mesh = resolve_backend(backend, topo, device)
+    multi = mesh is not None and mesh.n_procs > 1
+    primary = multihost.is_primary()
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the device-mesh lift (one rank per card, "
-            "torch.distributed collectives) is not ported yet (ROADMAP "
-            "queue 1, item 8); pass mesh=None for the stacked simulator")
-    # the JAX loop's backend names; every one the port runs is the
-    # stacked simulator
-    resolve_backend(backend, topo)
+        # the run's device stays as given: "cuda" is this process's
+        # current card, which `multihost.init` sets for NCCL
+        if mesh.device.type != device.type:
+            raise ValueError(
+                f"the mesh runs on {mesh.device}, the run on {device}")
+        check_mesh_model(model, chaos)
     if arena is False:
         raise NotImplementedError(f"arena=False: {ARENA_OFF_REFUSAL}")
     if arena and algo not in ("dpsgd", "eventgrad"):
@@ -755,7 +783,7 @@ def train(
         raise ValueError("resume=True needs a checkpoint_dir to resume from")
     ckpt_path = (os.path.join(checkpoint_dir, "ckpt") if checkpoint_dir
                  else None)
-    if checkpoint_dir:
+    if checkpoint_dir and primary:
         # a drained predecessor's PREEMPTED marker: this run supersedes it
         crashpoint.consume_marker(checkpoint_dir)
     # the armed crash drill, stamped on the first record
@@ -779,6 +807,14 @@ def train(
                 f"needs algo='eventgrad'; got algo={algo!r} — pass "
                 "escalate=False"
             )
+    if integ_engine_on and mesh is not None:
+        raise ValueError(
+            "the integrity sentinel/rollback engine needs the single-"
+            "process path (a rollback restores host-retained state "
+            "between blocks); in-step defenses alone "
+            "(IntegrityConfig(sentinel=False, rollback=False)) compose "
+            "with any backend"
+        )
     integ_now = integ_cfg
     fault_mode, fault_epoch = None, -1
     if fault_inject:
@@ -820,6 +856,11 @@ def train(
             raise ValueError(
                 "membership transitions handle single-axis gossip rings; "
                 f"got axes {topo.axes}"
+            )
+        if mesh is not None:
+            raise ValueError(
+                "membership needs the single-process vmap path (a "
+                "transition re-shapes the stacked state between blocks)"
             )
         if trace_file:
             raise ValueError(
@@ -893,6 +934,10 @@ def train(
     # targets a rank scores a sample: an sp rank its chunk of the tokens
     labels_per_rank = labels_per_sample // n_sp
 
+    # the step runs on the topology lifted onto the mesh (this process's
+    # rows); the state is built whole and sliced
+    topo_all, topo = topo, spmd.lift(topo, mesh)
+
     def build(wire_mode: str, capacity: Optional[int] = None):
         return make_train_step(
             model, topo, algo, event_cfg,
@@ -913,7 +958,7 @@ def train(
     step = build("compact" if compact_static else "dense")
     resident_wire = wire if carrier_resident else None
     state = init_train_state(
-        model, input_shape, topo, algo, event_cfg, seed,
+        model, input_shape, topo_all, algo, event_cfg, seed,
         momentum=momentum, resident_wire=resident_wire,
         bucketed=bucketed_k, staleness=staleness, sparse_cfg=sparse_cfg,
         obs=obs_on, device=device,
@@ -937,9 +982,13 @@ def train(
                 found, state, algo=algo, staleness=staleness,
                 resident_wire=resident_wire, bucketed_k=bucketed_k,
                 device=device, trace_carry=trace_carry)
+    state = multihost.put_stacked(state, mesh)
     # a hybrid mesh skips the consensus eval: averaging across its
     # sp/tp/pp/ep ranks would mix differently sharded parameters
-    eval_on = x_test is not None and log_every_epoch and not hybrid
+    # a multi-process run evaluates once at the end, on the gathered
+    # parameters (the JAX loop's rule)
+    eval_on = (x_test is not None and log_every_epoch and not hybrid
+               and not multi)
     history: List[Dict[str, Any]] = []
 
     # --- the dispatch resolution: device-resident data, pipeline, K ----
@@ -949,10 +998,11 @@ def train(
     data_bytes = x.size * 4
     if device_data is None:
         device_data = (
-            not memb_on and not hybrid and device.type == "cuda"
+            not memb_on and not hybrid and mesh is None
+            and device.type == "cuda"
             and data_bytes <= int(os.environ.get(
                 "EG_DEVICE_DATA_MAX_BYTES", str(1_500_000_000))))
-    elif device_data and (memb_on or hybrid):
+    elif device_data and (memb_on or hybrid or mesh is not None):
         raise ValueError(
             "device_data requires the single-process, non-hybrid, "
             "mesh=None path without membership transitions (hybrid/"
@@ -962,9 +1012,16 @@ def train(
     device_data = bool(device_data)
     if pipeline is None:
         pipeline_on = (not memb_on and not integ_engine_on
-                       and fault_mode is None)
+                       and fault_mode is None and not multi)
     else:
         pipeline_on = bool(pipeline)
+        if pipeline_on and multi:
+            raise ValueError(
+                "pipeline=True needs the single-process path — multi-"
+                "process runs keep the serial schedule (collective and "
+                "checkpoint ordering is cross-process); use pipeline="
+                "None/False"
+            )
         if pipeline_on and fault_mode is not None:
             raise ValueError(
                 "pipeline=True cannot honor fault_inject (the fault must "
@@ -1022,12 +1079,21 @@ def train(
     x_dev = y_dev = None
     prefetcher = transfer = None
 
+    def expand(xb, yb):
+        """A block's batches on every rank of a hybrid mesh, then this
+        process's rows of them on a device mesh."""
+        if hybrid:
+            xb, yb = expand_to_mesh(xb, yb, topo)
+        if mesh is not None:
+            xb, yb = (np.ascontiguousarray(topo.local_rows(v))
+                      for v in (xb, yb))
+        return xb, yb
+
     def make_prefetcher():
         return EpochPrefetcher(
             x, y, n_data, batch_size, random=random_sampler, seed=seed,
             last_epoch=epochs, transfer=transfer,
-            expand=((lambda xb, yb: expand_to_mesh(xb, yb, topo)) if hybrid
-                    else None))
+            expand=expand if hybrid or mesh is not None else None)
 
     if device_data:
         # the dataset is uploaded once; a block ships only its index plan
@@ -1080,13 +1146,23 @@ def train(
 
     def snapshot(epoch: int):
         """The save payload at a block boundary: the state's
-        (`state_lib.payload`) plus, on a traced run, the trace carry."""
-        tensors, meta = state_lib.payload(state, epoch, algo)
+        (`state_lib.payload`; on a mesh the rows of every process,
+        gathered) plus, on a traced run, the trace carry."""
+        tensors, meta = state_lib.payload(
+            multihost.to_host(state, mesh) if mesh is not None else state,
+            epoch, algo)
         if trace_carry is not None:
             tensors = dict(tensors)
             tensors[TRACE_CARRY] = torch.from_numpy(
                 trace_carry["recv_norm"].copy())
         return tensors, meta
+
+    def save(tensors, meta) -> None:
+        """A serial save: the primary writes the gathered snapshot, and
+        every process waits for it."""
+        if primary:
+            checkpoint.save(ckpt_path, tensors, meta)
+        multihost.barrier("eg-ckpt-promote")
 
     def flush(tel_host_buf, tel_like, blk: int) -> Dict[str, Any]:
         """The block's telemetry window: the one device-to-host read of
@@ -1173,16 +1249,22 @@ def train(
         dev = state.params.device
         keys = list(ms[0])
         parts = [torch.stack([m[k] for m in ms]) for k in keys]
+        if mesh is not None:
+            # every process's rows: the records reduce over all R ranks
+            # in the simulator's order
+            parts = [mesh.gather(p, dim=1) for p in parts]
         hw["m_layout"] = [(k, p.dtype, tuple(p.shape))
                           for k, p in zip(keys, parts)]
         # float64 holds every float32 and int32 metric exactly
         dev_bufs = {"m": torch.cat([p.to(torch.float64).reshape(-1)
                                     for p in parts])}
         if obs_on:
-            dev_bufs["tel"] = obs_device.pack(state.telemetry)
-            hw["tel_like"] = state.telemetry
+            tel = multihost.to_host(state.telemetry, mesh)
+            dev_bufs["tel"] = obs_device.pack(tel)
+            hw["tel_like"] = tel
         if probe_on:
-            dev_bufs["probe"] = chaos_monitor.consensus_error(state.params)
+            dev_bufs["probe"] = chaos_monitor.consensus_error(
+                multihost.to_host(state.params, mesh))
         if evaluator is not None:
             with _span("eval", cat="device", epoch=hw["blk_end"]):
                 c, nll = evaluator.dispatch(consensus_params(state.params),
@@ -1296,6 +1378,10 @@ def train(
                     rec["membership_transitions"] = hw["memb"]
             if crash_armed is not None and not history:
                 rec["crashpoint"] = dict(crash_armed)
+            if mesh is not None and not history:
+                # where the exchange's bytes went
+                rec["transport"] = mesh.transport
+                rec["mesh_processes"] = mesh.n_procs
             if chaos_sched is not None:
                 if not history:
                     rec["chaos"] = chaos_sched.to_dict()
@@ -1316,10 +1402,10 @@ def train(
                 if rollback_info is not None:
                     rec["integrity_rollback"] = rollback_info
                     rollback_info = None
-            if trace_file and "trace_fired" in m_e:
+            if trace_file and primary and "trace_fired" in m_e:
                 _write_trace(trace_file, m_e, total_passes - steps_b, topo,
                              trace_names, trace_carry)
-            elif trace_file:
+            elif trace_file and primary:
                 _write_loss_stream(trace_file, m_e["loss"],
                                    total_passes - steps_b, nr_b)
             if epoch == blk_end:
@@ -1338,7 +1424,7 @@ def train(
                                                  host["eval_nll"]))
                     rec.update({"test_" + k: v for k, v in test.items()})
             history.append(rec)
-            if on_epoch is not None:
+            if on_epoch is not None and primary:
                 on_epoch(rec)
         if registry is not None:
             gauges(m_last, obs_rec)
@@ -1584,7 +1670,7 @@ def train(
                         del tensors
                     else:
                         with _span("checkpoint", cat="host", epoch=blk_end):
-                            checkpoint.save(ckpt_path, tensors, meta)
+                            save(tensors, meta)
                 # graceful preemption: a signal since the last boundary,
                 # or a notice scheduled in this block, drains here
                 preempt_reason = None
@@ -1602,12 +1688,12 @@ def train(
                         if writer is not None:
                             writer.wait()
                         if ckpt_path and not ckpt_due:
-                            checkpoint.save(ckpt_path, *snapshot(blk_end))
+                            save(*snapshot(blk_end))
                     info = {"reason": preempt_reason, "epoch": int(blk_end),
                             "snapshot": bool(ckpt_path),
                             "drain_s": round(time.perf_counter() - t_drain,
                                              4)}
-                    if checkpoint_dir:
+                    if checkpoint_dir and primary:
                         info["marker"] = crashpoint.write_marker(
                             checkpoint_dir, info)
                     raise crashpoint.GracefulPreemption(info)

@@ -137,6 +137,7 @@ from eventgrad_tpu_torch.parallel.events import (
     capacity_gate,
 )
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig, sparse_exchange
+from eventgrad_tpu_torch.parallel import spmd
 from eventgrad_tpu_torch.parallel.spmd import per_rank
 from eventgrad_tpu_torch.parallel.topology import Topology
 from eventgrad_tpu_torch.train.state import ALGOS, EVENT_ALGOS
@@ -204,12 +205,34 @@ def check_stacked_model(model, topo: Topology) -> None:
                 f"{model.shard_size}, the topology has {axis}="
                 f"{topo.axis_size(axis)}")
         return
-    if getattr(model, "topo", None) not in (None, topo):
+    # a model holds the topology it was built for, not its lift
+    if getattr(model, "topo", None) not in (None, spmd.lift(topo, None)):
         raise ValueError(
             f"the model was built for {model.topo}, the step runs {topo}")
     sp = getattr(model, "sp_axis", None) or topo.axes[0]
     if sp not in topo.axes:
         raise ValueError(f"axis {sp!r} is not an axis of {topo.axes}")
+
+
+#: the words of what the device-mesh lift does not run yet
+MESH_8B = ("is not ported to the device-mesh lift yet (ROADMAP queue 1, "
+           "item 8b); it runs on the stacked simulator (backend='vmap', "
+           "--backend sim)")
+
+
+def check_mesh_model(model, chaos=None) -> None:
+    """What the device-mesh lift refuses, naming ROADMAP queue 1, item
+    8b: a model sharded over an axis (the tensor-, pipeline- and
+    expert-parallel transformers), Ulysses attention, and the fault
+    clauses."""
+    axis = getattr(model, "shard_axis", None)
+    if axis is not None:
+        raise NotImplementedError(
+            f"{type(model).__name__} (sharded over {axis!r}) {MESH_8B}")
+    if getattr(model, "attn", None) == "ulysses":
+        raise NotImplementedError(f"Ulysses attention {MESH_8B}")
+    if chaos is not None:
+        raise NotImplementedError(f"chaos= {MESH_8B}")
 
 
 def make_train_step(
@@ -235,6 +258,7 @@ def make_train_step(
     integrity=None,
     n_passes: Optional[int] = None,
     obs: bool = False,
+    mesh=None,
 ) -> Callable:
     """Build the rank-stacked step `step(state, (x, y)) -> (state,
     metrics)`: `x` is `[R, B, H, W, C]` images with `y` int64 `[R, B]`,
@@ -308,9 +332,22 @@ def make_train_step(
     mask, the per-edge census of the neighbour's raw fire bits, the
     delivery bits and the lags. D-PSGD books the dense census (every leaf
     proposes and fires), allreduce only the pass. `EG_LEDGER_LEAK` is
-    read here, when the step is built (`obs.ledger.leak`)."""
+    read here, when the step is built (`obs.ledger.leak`).
+
+    `mesh` (a `parallel.spmd.Mesh`, or a `topo` already lifted onto one)
+    builds the step on this process's rows of every rank-stacked input:
+    the collectives route through the mesh, and the random draws take
+    the full `[R, ...]` lead from the state's generator and keep this
+    process's rows, so every process's generator stays the simulator's.
+    The metrics are this process's rows. Refused on a mesh, naming
+    ROADMAP queue 1, item 8b: the tensor-, pipeline- and
+    expert-parallel models, Ulysses attention and `chaos`."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
+    if mesh is not None:
+        topo = spmd.lift(topo, mesh)
+    if topo.mesh is not None:
+        check_mesh_model(model, chaos)
     staleness = int(staleness)
     if staleness < 0:
         raise ValueError(
@@ -873,10 +910,13 @@ def make_train_step(
                 "(TrainState.rng, set by init_train_state); this state has "
                 "none"
             )
+        # every process draws the full [R, ...] lead and keeps its rows
+        n_all = topo.n_ranks
         if augment:
-            x = pad_flip_crop(x, *draw_pad_flip_crop(x.shape[:2], state.rng,
-                                                     dev))
-        drop = draw_dropout(sites(x.shape[1]), (r,), state.rng, dev)
+            x = pad_flip_crop(x, *map(topo.local_rows, draw_pad_flip_crop(
+                (n_all,) + tuple(x.shape[1:2]), state.rng, dev)))
+        drop = {k: topo.local_rows(v) for k, v in draw_dropout(
+            sites(x.shape[1]), (n_all,), state.rng, dev).items()}
 
         with _phase("grad"):
             grads, (loss, (out, new_stats)) = grad_fn(

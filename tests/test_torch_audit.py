@@ -241,6 +241,22 @@ def test_oracle_detected(name):
         assert "unregistered kernel 'eg::leak_kernel'" in reason
 
 
+def test_mesh_oracle_detected_and_lift_clean():
+    """The device-mesh lift's oracle (the JAX auditor's MESH_ORACLES): an
+    undeclared +2 shift in the mesh step's metrics is detected in the
+    lift's record of its shifts, with the JAX oracle's phrase, while the
+    clean cells' lifted steps shift by the ring's offsets alone. With it
+    the auditor runs 15 oracles."""
+    detected, reason = audit.oracle("mesh_undeclared_offset")(device="cpu")
+    assert detected and "undeclared mesh exchange offsets [2]" in reason
+    for cell in ("event_masked_f32_arena_obs", "event_compact_int8_arena_b4",
+                 "dpsgd_int8_arena"):
+        rep = audit.mesh_lift_report(cell, device="cpu")
+        assert rep["offsets_ok"], rep
+        assert rep["exchange_offsets"] == [("ring", -1), ("ring", 1)]
+    assert len(audit.ORACLES) + len(audit.MESH_ORACLES) == 15
+
+
 def _stacked(fn, *args):
     tr = walker.trace(fn, *args)
     return rankflow.analyze(tr.graph, 4)

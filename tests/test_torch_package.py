@@ -187,7 +187,8 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     """Every feature the port refuses raises NotImplementedError naming
     the ROADMAP queue-1 item that ports it, and the command line refuses
     the same with SystemExit before building any data; the calls of items
-    5, 6a, 6b, 6d, 6e, 6f, 7, 10 and 12, once refused or missing, now run;
+    5, 6a, 6b, 6d, 6e, 6f, 7, 8, 10 and 12, once refused or missing, now
+    run;
     what the JAX step refuses stays refused with its cause; the tree path
     (`arena=False`, `--arena off`) is refused as not queued, by design."""
     from eventgrad_tpu_torch import cli
@@ -196,7 +197,7 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     from eventgrad_tpu_torch.chaos.schedule import ChaosSchedule
     from eventgrad_tpu_torch.data.datasets import load_or_synthesize
     from eventgrad_tpu_torch.ops import attention
-    from eventgrad_tpu_torch.parallel import collectives
+    from eventgrad_tpu_torch.parallel import collectives, spmd
     from eventgrad_tpu_torch.parallel.arena import arena_spec
     from eventgrad_tpu_torch.parallel.ring_attention import ring_attention
     from eventgrad_tpu_torch.parallel.sparsify import (
@@ -312,19 +313,32 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     torus = egt.Torus(2, 2)
     assert torch.equal(ring_attention(q, q, q, torus),
                        ring_attention(q, q, q, torus, axis="x"))
+    # item 8 (the device-mesh lift) is ported: its calls, once refused,
+    # now run; what it does not lift yet names item 8b
+    assert callable(audit.oracle("mesh_undeclared_offset"))
+    _, hist = train_mlp(backend="mesh")
+    assert hist[0]["transport"] == "local"
     cli_refusals = {
-        "item 8": [["--backend", "mesh"],
-                   ["--coordinator", "h:1", "--backend", "mesh"]],
+        "item 8b": [["--backend", "mesh", "--chaos", "drop=0.1"],
+                    ["--backend", "mesh", "--mesh", "dp:2,tp:2", "--model",
+                     "transformer_tp"]],
     }
     for item, argvs in cli_refusals.items():
         for argv in argvs:
             with pytest.raises(SystemExit,
                                match=rf"ROADMAP queue 1, {item}\b"):
                 cli.main(argv + ["--device", "cpu"])
+    mesh4 = spmd.build_mesh(egt.Ring(4), "cpu")
     refusals = {
-        # the multi-GPU backend's audit oracle, and the device mesh
-        "item 8": [lambda: audit.oracle("mesh_undeclared_offset"),
-                   lambda: train_mlp(backend="mesh")],
+        # the fault clauses and Ulysses attention on the device mesh
+        "item 8b": [lambda: train_mlp(backend="mesh",
+                                      chaos="seed=1,drop=0.1"),
+                    lambda: make_train_step(
+                        egt.TransformerLM(vocab=16, dim=8, n_heads=2,
+                                          n_layers=1, max_len=8,
+                                          attn="ulysses"),
+                        egt.Ring(4), "eventgrad", fused_sgd=(0.1, 0.0),
+                        mesh=mesh4)],
     }
     for item, calls in refusals.items():
         for call in calls:
