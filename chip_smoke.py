@@ -417,9 +417,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the float32 D = 128 form, kernels 1 and 2 once a pass; (c) a
    one-process NCCL group holding all 8 rows of the MLP
    (`mesh_nccl_child`, beside (a)): allreduce and EventGraD bitwise the
-   simulator in the same process (every state tensor and record). A
-   child that fails or passes MESH_CHILD_TIMEOUT fails the phase. Each
-   leg prints its transport, step ms, peak GiB a process and launches
+   simulator in the same process (every state tensor and record); (d)
+   leg (a)'s flagship under the fault clauses (MESH_CHAOS: EventGraD
+   under drops, flips in transit and a poisoned rank with the in-step
+   checksums and quarantine and the edge freeze; D-PSGD under drops
+   with the freeze), the simulator's two epochs here while (b)'s
+   processes run, then the mesh's second from the simulator's first,
+   both algorithms' processes at once beside (b)'s simulator here,
+   held as (a)'s epoch is and with the drops, rejections, quarantines
+   and per-edge silence equal, the gated tails (kernel 1's, kernel 4's)
+   once a pass in each process. Then, in a phase of its own
+   (`phase_mesh_hybrid`), (e)-(h): the tensor-parallel transformer
+   through the command line (`tp:2,dp:4`), the pipeline (`pp:2,dp:4`, 2
+   layers, one a stage), the MoE (`ep:4,dp:2`, 2 sequences a data rank)
+   and Ulysses attention through the flash kernels (`sp:2,dp:4`), at the
+   hybrid phase's width cut to MESH_LM_LAYERS, the sharded (or sequence)
+   axis outer so that every one of its collectives crosses the process
+   boundary, 2 epochs of one pass, warmup 1: every leg's simulator here
+   first, then (e)'s two command-line processes, then one pair of
+   processes running (f)-(h) in turn (`mesh_hybrid_child`, each holding
+   its parameter rows against the simulator's), each alone on the
+   card: events, msgs-saved-% and bytes equal, parameters within
+   MESH_LM_TOL, kernels 1 and 2 once a pass in each process, Ulysses'
+   flash forward, dQ and dK/dV once a layer a pass on the float32 D =
+   128 form, and the collectives that crossed the processes exactly the
+   leg's (MESH_HYBRID_CROSSED, from `spmd.Mesh.crossed`: the dp gossip
+   stays inside a process). A child that fails or passes
+   MESH_CHILD_TIMEOUT fails the phase at once. Each leg prints its
+   transport, step ms, peak GiB a process (legs (e)-(h) beside the peak
+   reckoned from their arenas), the bytes that crossed and launches
    beside the card's name and power limit; the children's launches go
    into the summary's counts;
 19. summary — one JSON line of every kernel's numbers, the card's name and
@@ -433,7 +459,8 @@ then the rest in three streams at once (`STREAMS`: this process runs
 the first, a child process each other one, `stream_child`), with phase
 17's references on the CPU (`phase_hybrid_reference`) and phase 2's
 cuobjdump counts (`phase_sass`) among them, since their time is the
-host's; last, alone again, the hybrid legs and the mesh (`TAIL`). The
+host's; last, alone again, the hybrid legs and the mesh's two phases
+(`TAIL`). The
 step times of the streamed phases are taken beside one another. A
 stream that fails fails the run; it is stopped, with every process it
 started, when the run ends. Each phase's seconds are logged as it ends,
@@ -4835,8 +4862,8 @@ def _hybrid_model(kind, topo, n_layers=None):
     from eventgrad_tpu_torch.models.transformer import TransformerLM
 
     lm = dict(HYBRID_LM, n_layers=n_layers or HYBRID_LM["n_layers"])
-    if kind == "ring":
-        return TransformerLM(**lm, attn="ring", topo=topo, sp_axis="sp",
+    if kind in ("ring", "ulysses"):
+        return TransformerLM(**lm, attn=kind, topo=topo, sp_axis="sp",
                              use_flash=True)
     if kind == "tp":
         return TPTransformerLM(**lm, tp_size=topo.axis_size("tp"))
@@ -5142,35 +5169,57 @@ MESH_SHARED, MESH_NCCL = "gloo-host", "nccl"
 
 #: leg (a)'s algorithms
 MESH_ALGOS = ("eventgrad", "dpsgd")
+#: leg (d), the flagship under the fault clauses: each algorithm's argv
+#: beside leg (a)'s. EventGraD: drops, flips in transit and a poisoned
+#: rank at pass 3 (inside the epoch held), under the in-step riders (the
+#: checksums and the quarantine; a mesh refuses the sentinel and its
+#: rollback, as the JAX loop does) and the edge freeze; D-PSGD (the JAX
+#: step refuses it flips and poison): drops and the freeze
+MESH_CHAOS = {
+    "eventgrad": ["--chaos", "drop=0.1,seed=3,bitflip=0.25,nanstep=2@3",
+                  "--integrity",
+                  "checksum=1,quarantine=1,sentinel=0,rollback=0",
+                  "--chaos-freeze-after", "60"],
+    "dpsgd": ["--chaos", "drop=0.1,seed=3", "--chaos-freeze-after", "60"],
+}
+#: leg (d)'s record keys held equal to the simulator's, beside (a)'s
+MESH_CHAOS_KEYS = {
+    "eventgrad": ["chaos_drops", "edge_silence_max", "wire_rejects",
+                  "quarantined_steps"],
+    "dpsgd": ["chaos_drops", "edge_silence_max"],
+}
 #: leg (a) on the mesh's data path on both sides: the loop's bound on a
 #: device-resident dataset set to 0 bytes keeps the simulator on host
 #: batches, as every multi-process run is
 MESH_HOST_DATA = ("EG_DEVICE_DATA_MAX_BYTES", "0")
 
 
-def _mesh_flagship_stage(root, algo, stage, side, proc=0):
-    """Leg (a)'s argv for epoch `stage` on `side` ("mesh" or "sim"; its
-    snapshots under `root / ck-{side}{stage}-{algo}`): epoch 1 from the
-    seed, epoch 2 resumed from the snapshot there (the simulator's
-    epoch 1, copied in by `phase_mesh`)."""
-    tag = f"{side}{stage}-{algo}"
-    return (_mesh_flagship(algo)
+def _mesh_flagship_stage(root, algo, stage, side, proc=0, chaos=False):
+    """Leg (a)'s argv (with `chaos`, leg (d)'s: MESH_CHAOS's fault
+    clauses beside it) for epoch `stage` on `side` ("mesh" or "sim"; its
+    snapshots under `root / ck-{side}{stage}-{algo}`, the algorithm
+    tagged "-chaos" for leg (d)): epoch 1 from the seed, epoch 2 resumed
+    from the snapshot there (the simulator's epoch 1, copied in by the
+    phase)."""
+    tag = f"{side}{stage}-{algo}" + ("-chaos" if chaos else "")
+    return (_mesh_flagship(algo) + (MESH_CHAOS[algo] if chaos else [])
             + ["--device", DEVICE, "--pipeline", "off",
                "--checkpoint-dir", str(root / f"ck-{tag}"),
                "--log-file", str(root / f"{tag}-{proc}.jsonl")]
             + (["--epochs", "1"] if stage == 1 else ["--resume"]))
 
 
-def _mesh_flagship_procs(root, algo, stage):
-    """Leg (a)'s two CLI processes for epoch `stage`: [(Popen, output
-    path)]."""
+def _mesh_flagship_procs(root, algo, stage, chaos=False):
+    """Leg (a)'s (with `chaos`, leg (d)'s) two CLI processes for epoch
+    `stage`: [(Popen, output path)]."""
     port, procs = _free_port(), []
+    tag = algo + ("-chaos" if chaos else "")
     for p in (0, 1):
         argv = [sys.executable, "-c", MESH_CLI,
-                *_mesh_flagship_stage(root, algo, stage, "mesh", p),
+                *_mesh_flagship_stage(root, algo, stage, "mesh", p, chaos),
                 "--backend", "mesh", "--coordinator", f"127.0.0.1:{port}",
                 "--num-processes", "2", "--process-id", str(p)]
-        out = root / f"mesh{stage}-{algo}-{p}.out"
+        out = root / f"mesh{stage}-{tag}-{p}.out"
         with open(out, "w") as fh:
             procs.append((subprocess.Popen(
                 argv, stdout=fh, stderr=subprocess.STDOUT, cwd=str(HERE),
@@ -5178,16 +5227,18 @@ def _mesh_flagship_procs(root, algo, stage):
     return procs
 
 
-def _mesh_flagship_epoch(root, algo, stage, spec):
-    """Leg (a)'s epoch `stage`: the mesh's record and snapshot against the
-    simulator's (module docstring, phase 18); what was measured."""
+def _mesh_flagship_epoch(root, algo, stage, spec, chaos=False):
+    """Leg (a)'s (with `chaos`, leg (d)'s) epoch `stage`: the mesh's
+    record and snapshot against the simulator's (module docstring, phase
+    18); what was measured."""
     import torch
 
-    what = f"mesh (a) {algo} epoch {stage}"
-    if (root / f"mesh{stage}-{algo}-1.jsonl").exists():
+    tag = algo + ("-chaos" if chaos else "")
+    what = f"mesh ({'d' if chaos else 'a'}) {algo} epoch {stage}"
+    if (root / f"mesh{stage}-{tag}-1.jsonl").exists():
         raise SmokeError(f"{what}: process 1 wrote a log")
-    mesh = _cli_records(root / f"mesh{stage}-{algo}-0.jsonl")
-    sim = _cli_records(root / f"sim{stage}-{algo}-0.jsonl")
+    mesh = _cli_records(root / f"mesh{stage}-{tag}-0.jsonl")
+    sim = _cli_records(root / f"sim{stage}-{tag}-0.jsonl")
     mh, sh = mesh[:-1], sim[:-1]
     if ([h.get("epoch") for h in mh] != [stage]
             or [h.get("epoch") for h in sh] != [stage]):
@@ -5200,6 +5251,8 @@ def _mesh_flagship_epoch(root, algo, stage, spec):
             "sent_bytes_wire_real_per_step_per_chip"]
     if algo == "eventgrad":
         keys += ["num_events", "msgs_saved_pct"]
+    if chaos:
+        keys += MESH_CHAOS_KEYS[algo]
     if any(a[k] != b[k] for k in keys):
         raise SmokeError(f"{what}: {a} vs {b}")
     loss_err = abs(a["loss"] - b["loss"])
@@ -5208,12 +5261,17 @@ def _mesh_flagship_epoch(root, algo, stage, spec):
     launches = final.get("kernel_launches", {})
     must = (("masked_wire", "fused_mix_commit")
             if algo == "eventgrad" else ("fused_mix_sgd",))
+    if chaos:
+        # every pass through the gated tail: the quarantine operand rides
+        # every EventGraD pass, the delivery gate every D-PSGD one
+        must += (("fused_mix_commit_gated",) if algo == "eventgrad"
+                 else ("fused_mix_sgd_gated",))
     passes = MESH_PASSES // 2
     if any(launches.get(k) != 2 * passes for k in must):
         raise SmokeError(f"{what}: launches {launches}, expected "
                          f"{2 * passes} of {must}")
     (got, gm), (want, wm) = (_final_snapshot(root / f"ck-{side}{stage}-"
-                                             f"{algo}")
+                                             f"{tag}")
                              for side in ("mesh", "sim"))
     if gm["epoch"] != stage or wm["epoch"] != stage:
         raise SmokeError(f"{what}: snapshots at epochs {gm['epoch']} / "
@@ -5238,6 +5296,7 @@ def _mesh_flagship_epoch(root, algo, stage, spec):
         raise
     return {"epoch": stage, "transport": a["transport"],
             "loss": a["loss"], "sim_loss": b["loss"], "loss_abs_err": loss_err,
+            **({k: a[k] for k in MESH_CHAOS_KEYS[algo]} if chaos else {}),
             "params_max_abs_err": errs["state/params"][0],
             "params_rel_norm_err": errs["state/params"][1],
             "trace_max_abs_err": errs["state/trace"][0],
@@ -5282,17 +5341,23 @@ def _mesh_child(code, out):
 
 
 def _finish_children(procs, what):
-    """Wait for every child; kill them all if one passes the timeout or
-    fails, and raise."""
+    """Wait for every child; kill them all as soon as one fails (its
+    group's peers would wait for it) or one passes the timeout, and
+    raise."""
     t_end = time.perf_counter() + MESH_CHILD_TIMEOUT
     try:
-        for p, out in procs:
-            rc = p.wait(timeout=max(1.0, t_end - time.perf_counter()))
-            if rc != 0:
-                tail = Path(out).read_text()[-3000:]
-                raise SmokeError(f"{what}: a child exited {rc}:\n{tail}")
-    except subprocess.TimeoutExpired:
-        raise SmokeError(f"{what}: a child passed {MESH_CHILD_TIMEOUT} s")
+        while True:
+            rcs = [p.poll() for p, _ in procs]
+            for rc, (_, out) in zip(rcs, procs):
+                if rc not in (None, 0):
+                    tail = Path(out).read_text()[-3000:]
+                    raise SmokeError(f"{what}: a child exited {rc}:\n{tail}")
+            if all(rc == 0 for rc in rcs):
+                return
+            if time.perf_counter() > t_end:
+                raise SmokeError(
+                    f"{what}: a child passed {MESH_CHILD_TIMEOUT} s")
+            time.sleep(0.2)
     finally:
         for p, _ in procs:
             if p.poll() is None:
@@ -5429,10 +5494,36 @@ def mesh_nccl_child(port, device="cuda"):
         multihost.shutdown()
 
 
+def _mesh_switches():
+    """Put this process, the simulator's side, under the mesh children's
+    switches and on the mesh's schedule (the serial one, host data):
+    deterministic algorithms, no cuDNN autotuning, no device-resident
+    dataset. Returns the function that restores what was."""
+    import os
+
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    was_bench = torch.backends.cudnn.benchmark
+    was_data = os.environ.get(MESH_HOST_DATA[0])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    os.environ[MESH_HOST_DATA[0]] = MESH_HOST_DATA[1]
+
+    def restore():
+        torch.use_deterministic_algorithms(was, warn_only=was_warn)
+        torch.backends.cudnn.benchmark = was_bench
+        if was_data is None:
+            os.environ.pop(MESH_HOST_DATA[0], None)
+        else:
+            os.environ[MESH_HOST_DATA[0]] = was_data
+    return restore
+
+
 def phase_mesh():
     """The device-mesh lift on the card (module docstring, phase 18).
     Returns the children's launches of each kernel."""
-    import os
     import shutil
     import tempfile
 
@@ -5454,15 +5545,9 @@ def phase_mesh():
             totals[key] = totals.get(key, 0) + v
 
     torch.cuda.empty_cache()
-    # the simulator's side under the children's switches, on the mesh's
-    # schedule (the serial one, host data)
-    was = torch.are_deterministic_algorithms_enabled()
-    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    was_bench = torch.backends.cudnn.benchmark
-    was_data = os.environ.get(MESH_HOST_DATA[0])
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.benchmark = False
-    os.environ[MESH_HOST_DATA[0]] = MESH_HOST_DATA[1]
+    restore = _mesh_switches()
+    # leg (d)'s processes, started before the checks of (a)-(c)
+    chaos = []
     try:
         # (a) epoch 1 of the flagship, two processes on the card through
         # the CLI, and (c) the one-process NCCL group beside them (with
@@ -5507,8 +5592,16 @@ def phase_mesh():
                            f"{DEVICE!r})",
                            root / f"lm-{p}.out"), root / f"lm-{p}.out")
               for p in (0, 1)]
+        # (d)'s simulator here meanwhile: the flagship's two epochs under
+        # the faults, each algorithm, and the mesh's copies of epoch 1
+        d_sim = _mesh_chaos_sims(root)
         _finish_children(lm, "mesh (b) children")
         t_lm = time.perf_counter() - t_lm
+        # (d): the mesh's epoch 2 under the faults, both algorithms'
+        # processes at once, beside (b)'s simulator here below
+        t_d = time.perf_counter()
+        chaos.extend(c for algo in MESH_ALGOS
+                     for c in _mesh_flagship_procs(root, algo, 2, chaos=True))
 
         # (c): bitwise the simulator in the child, through NCCL
         nccl = _child_json(nccl_out, "mesh_nccl_child")
@@ -5589,19 +5682,404 @@ def phase_mesh():
             "msgs_saved_pct": hist[-1]["msgs_saved_pct"],
             "launches": [k["launches"] for k in kids],
             "children_s": t_lm, "sim_s": t_sim,
-            "concurrent": "its two processes alone", "card": card}))
+            "concurrent": "its two processes, with (d)'s simulator in "
+            "this process; its simulator beside (d)'s processes",
+            "card": card}))
         del state, got
         torch.cuda.empty_cache()
+
+        # (d): epoch 2 under the faults against the simulator's
+        _finish_children(chaos, "mesh (d) children")
+        t_d = time.perf_counter() - t_d
+        for algo in MESH_ALGOS:
+            rec = _mesh_flagship_epoch(root, algo, 2, spec, chaos=True)
+            # the record keeps the launches, summed over the processes
+            add(rec["launches"])
+            log(json.dumps({
+                "leg": f"mesh-d-{algo}-chaos", "processes": 2,
+                "chaos": MESH_CHAOS[algo], "epoch": rec,
+                "tol": {"params": MESH_PARAMS_TOL, "trace": MESH_TRACE_TOL,
+                        "loss_rtol": MESH_LOSS_RTOL},
+                "sim_peak_mem_gib": d_sim[1], "children_s": t_d,
+                "sim_s": d_sim[0], "concurrent": "both algorithms' "
+                "processes, (b)'s simulator in this process; the "
+                "simulator beside (b)'s processes", "card": card}))
     finally:
+        for p, _ in chaos:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(root, ignore_errors=True)
-        torch.use_deterministic_algorithms(was, warn_only=was_warn)
-        torch.backends.cudnn.benchmark = was_bench
-        if was_data is None:
-            os.environ.pop(MESH_HOST_DATA[0], None)
-        else:
-            os.environ[MESH_HOST_DATA[0]] = was_data
+        restore()
     return totals
 
+
+def _mesh_chaos_sims(root):
+    """Leg (d)'s simulator: each algorithm's two epochs under MESH_CHAOS's
+    faults through the command line in this process, epoch 2 resumed from
+    epoch 1's snapshot, which is copied for the mesh's epoch 2 as well.
+    Returns (seconds, peak GiB)."""
+    import shutil
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for algo in MESH_ALGOS:
+        for stage in (1, 2):
+            if stage == 2:
+                shutil.copytree(root / f"ck-sim1-{algo}-chaos",
+                                root / f"ck-sim2-{algo}-chaos")
+            if _run_cli(_mesh_flagship_stage(root, algo, stage, "sim",
+                                             chaos=True)
+                        + ["--backend", "sim"]) != 0:
+                raise SmokeError(f"mesh (d) {algo}: the simulator's epoch "
+                                 f"{stage} failed")
+        shutil.copytree(root / f"ck-sim1-{algo}-chaos",
+                        root / f"ck-mesh2-{algo}-chaos")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, torch.cuda.max_memory_allocated() / 2**30
+
+
+#: legs (e)-(h) of the mesh (phase 18): the sharded transformers and
+#: Ulysses attention at the hybrid phase's width (HYBRID_LM) as two
+#: processes of four rows, the sharded (or sequence) axis outer so that
+#: process p holds index p of it and each of its collectives crosses the
+#: process boundary: (leg, mesh, model kind, sequences a data rank,
+#: entry point). Depth MESH_LM_LAYERS (the pipeline 2, one a stage: the
+#: least two stages hold); the MoE leg 2 sequences a data rank as in the
+#: hybrid phase
+MESH_HYBRID_LEGS = (
+    ("e-tp", "tp:2,dp:4", "tp", 4, "cli"),
+    ("f-pp", "pp:2,dp:4", "pp", 4, "train"),
+    ("g-moe", "ep:4,dp:2", "moe", 2, "train"),
+    ("h-ulysses", "sp:2,dp:4", "ulysses", 4, "train"),
+)
+#: legs (e)-(h): 2 epochs of one pass, warmup 1, so the second pass's
+#: fire bits are the trigger's
+MESH_HYBRID_EPOCHS = 2
+#: the collectives each of legs (e)-(h) must send across the processes
+#: (`spmd.Mesh.crossed`, "collective:axis"); the dp gossip stays inside
+#: a process (each holds whole dp rings)
+MESH_HYBRID_CROSSED = {
+    "tp": {"fold:tp"}, "pp": {"hop:pp", "fold:pp"},
+    "moe": {"swap:ep", "fold:ep"}, "ulysses": {"swap:sp", "fold:sp"},
+}
+
+
+def _mesh_hybrid_layers(kind):
+    return 2 if kind == "pp" else MESH_LM_LAYERS
+
+
+def _mesh_hybrid_args(kind, per_rank):
+    """Legs (e)-(h)'s training options beside the model and data."""
+    import eventgrad_tpu_torch as egt
+
+    return dict(algo="eventgrad", epochs=MESH_HYBRID_EPOCHS,
+                batch_size=per_rank, learning_rate=0.01, momentum=0.9,
+                event_cfg=egt.EventConfig(adaptive=True, horizon=1.05,
+                                          warmup_passes=1, max_silence=50),
+                random_sampler=True, seed=0)
+
+
+def _mesh_hybrid_data(topo, per_rank):
+    from eventgrad_tpu_torch.data.datasets import synthetic_lm_dataset
+
+    return synthetic_lm_dataset(topo.n_data_ranks * per_rank,
+                                HYBRID_LM["max_len"], HYBRID_LM["vocab"],
+                                seed=0)
+
+
+def _mesh_hybrid_cli_argv(mesh, per_rank, root, side, proc=0):
+    """Leg (e)'s argv on `side` ("mesh" or "sim"): the TP transformer
+    through the command line, its snapshot under `root / ck-e-{side}`."""
+    from eventgrad_tpu_torch.cli import parse_mesh
+
+    n = parse_mesh(mesh).n_data_ranks * per_rank
+    return ["--algo", "eventgrad", "--mesh", mesh, "--model",
+            "transformer_tp", "--dim", str(HYBRID_LM["dim"]), "--heads",
+            str(HYBRID_LM["n_heads"]), "--layers", str(MESH_LM_LAYERS),
+            "--seq-len", str(HYBRID_LM["max_len"]), "--vocab",
+            str(HYBRID_LM["vocab"]), "--n-synth", str(n), "--epochs",
+            str(MESH_HYBRID_EPOCHS), "--batch-size", str(per_rank), "--lr",
+            "0.01", "--momentum", "0.9", "--horizon", "1.05",
+            "--warmup-passes", "1", "--max-silence", "50",
+            "--random-sampler", "--pipeline", "off", "--device", DEVICE,
+            "--checkpoint-dir", str(root / f"ck-e-{side}"),
+            "--log-file", str(root / f"e-{side}-{proc}.jsonl")]
+
+
+def mesh_hybrid_child(legs, pid, port, root, device="cuda"):
+    """Legs (f)-(h)'s process `pid` of 2 (run as `python -c`): each leg
+    of `legs` in turn through `train` on the mesh of one two-process
+    group, under the simulator's switches, its parameter rows held
+    against the simulator's (`root / "<leg>-sim.pt"`, written by the
+    phase before this process started) within MESH_LM_TOL; prints one
+    line a leg: its launches, flash forms, peak memory, the bytes its
+    collectives sent across processes, the errors and the records."""
+    import gc
+
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch import ops
+    from eventgrad_tpu_torch.cli import parse_mesh
+    from eventgrad_tpu_torch.ops import attention as fa
+    from eventgrad_tpu_torch.parallel import multihost, spmd
+
+    root = Path(root)
+    multihost.init(f"127.0.0.1:{port}", 2, pid, device=device)
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.benchmark = False
+        for leg in legs:
+            _, mesh_spec, kind, per_rank, _ = next(
+                g for g in MESH_HYBRID_LEGS if g[0] == leg)
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            topo = parse_mesh(mesh_spec)
+            mesh = spmd.build_mesh(topo, device)
+            x, y = _mesh_hybrid_data(topo, per_rank)
+            state, hist = egt.train(
+                _hybrid_model(kind, topo, _mesh_hybrid_layers(kind)), topo,
+                x, y, mesh=mesh, device=device,
+                **_mesh_hybrid_args(kind, per_rank))
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            forms = {k: dict(v) for k, v in fa.form_counts().items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = torch.load(root / f"{leg}-sim.pt", mmap=True)[
+                mesh.lo:mesh.hi].to(device)
+            got = state.params
+            err = within(got, want, what=f"mesh ({leg}) process {pid}: "
+                         "parameters", **MESH_LM_TOL)
+            diff2 = float(((got.double() - want.double()) ** 2).sum())
+            want2 = float((want.double() ** 2).sum())
+            print(json.dumps({
+                "mesh_hybrid_child": pid, "leg": leg, "launches": counts,
+                "forms": forms, "peak_mem_gib": peak,
+                "crossed_bytes": {f"{k}:{a}": v
+                                  for (k, a), v in mesh.crossed.items()},
+                "params_max_abs_err": err, "diff2": diff2, "want2": want2,
+                "hist": hist}), flush=True)
+            del state, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        multihost.shutdown()
+
+
+def _mesh_hybrid_sim(root, leg, mesh_spec, kind, per_rank, entry):
+    """A leg of (e)-(h) on the simulator in this process (the command
+    line's for (e), its snapshot kept for the check; `train` for the
+    others, the parameters saved to `root / "<leg>-sim.pt"` for the
+    leg's processes to read their rows): (records, seconds, peak GiB,
+    the model's arena spec)."""
+    import torch
+
+    import eventgrad_tpu_torch as egt
+    from eventgrad_tpu_torch.cli import parse_mesh
+    from eventgrad_tpu_torch.parallel.arena import arena_spec
+
+    topo = parse_mesh(mesh_spec)
+    layers = _mesh_hybrid_layers(kind)
+    model = _hybrid_model(kind, topo, layers)
+    spec = arena_spec(model)
+    copy_gib = 4 * spec.n_total * (topo.n_ranks // 2) / 2**30
+    log(f"== mesh ({leg[0]}) {leg}: {type(model).__name__} at {layers} "
+        f"layer(s) on {mesh_spec}, two processes of {topo.n_ranks // 2} "
+        f"rows; {spec.n_total:,} parameters a rank; reckoned peak a "
+        f"process ~{HYBRID_COPIES} arenas = {HYBRID_COPIES * copy_gib:.1f} "
+        f"GiB plus activations ({per_rank} sequences of "
+        f"{HYBRID_LM['max_len']} a data rank)")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    if entry == "cli":
+        if _run_cli(_mesh_hybrid_cli_argv(mesh_spec, per_rank, root, "sim")
+                    + ["--backend", "sim"]) != 0:
+            raise SmokeError(f"mesh ({leg}): the simulator's run failed")
+        hist = _cli_records(root / "e-sim-0.jsonl")[:-1]
+    else:
+        x, y = _mesh_hybrid_data(topo, per_rank)
+        state, hist = egt.train(model, topo, x, y, device=DEVICE,
+                                **_mesh_hybrid_args(kind, per_rank))
+        torch.save(state.params.cpu(), root / f"{leg}-sim.pt")
+        del state
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    torch.cuda.empty_cache()
+    return hist, t, peak, spec, HYBRID_COPIES * copy_gib
+
+
+def _mesh_hybrid_check(leg, mesh_spec, kind, per_rank, sim, got, card):
+    """Hold one leg of (e)-(h) against its simulator and log it; `got`
+    is (records, each process's launches, peaks, the bytes that crossed
+    the processes (both processes' sends), the parameters' largest
+    error, their relative norm
+    error, the flash forms of each process or None, the children's
+    seconds). Returns the launches."""
+    from eventgrad_tpu_torch.cli import parse_mesh
+    from eventgrad_tpu_torch.ops import flash_plan
+    from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
+
+    sim_hist, t_sim, sim_peak, spec, reckoned = sim
+    hist, launches, peaks, crossed, err, rel, forms, t_kids = got
+    # t_kids: the children's seconds, None where a pair ran several legs
+    what = f"mesh ({leg})"
+    r = parse_mesh(mesh_spec).n_ranks
+    layers = _mesh_hybrid_layers(kind)
+    if (hist[0].get("transport") != MESH_SHARED
+            or hist[0].get("mesh_processes") != 2):
+        raise SmokeError(f"{what}: first record {hist[0]}")
+    if not len(hist) == len(sim_hist) == MESH_HYBRID_EPOCHS:
+        raise SmokeError(f"{what}: records {hist} / {sim_hist}")
+    for j, (a, b) in enumerate(zip(hist, sim_hist), start=1):
+        for k in ("num_events", "msgs_saved_pct",
+                  "sent_bytes_per_step_per_chip",
+                  "sent_bytes_wire_real_per_step_per_chip"):
+            if a[k] != b[k]:
+                raise SmokeError(f"{what}: epoch {j} {k} {a[k]} != {b[k]}")
+        if a["msgs_saved_pct"] != msgs_saved_pct(a["num_events"], j,
+                                                 spec.n_leaves, NB, r):
+            raise SmokeError(f"{what}: msgs_saved_pct {a}")
+    # each process: kernels 1 and 2 once a pass; Ulysses' flash forward,
+    # dQ and dK/dV once a layer a pass, on the float32 D = 128 form (the
+    # command line's launches come summed over its two processes)
+    passes = MESH_HYBRID_EPOCHS
+    per = passes * (2 if len(launches) == 1 else 1)
+    form = flash_plan.flash_form("float32", 128, (), ())
+    for i, counts in enumerate(launches):
+        for k in ("masked_wire", "fused_mix_commit"):
+            if counts.get(k) != per:
+                raise SmokeError(f"{what}: {k} launches {counts}, "
+                                 f"expected {per}")
+        if kind == "ulysses":
+            for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+                if (counts.get(k) != layers * passes
+                        or forms[i][k].get(form) != layers * passes):
+                    raise SmokeError(f"{what}: {k} launches {counts}, "
+                                     f"forms {forms[i][k]}, expected "
+                                     f"{layers * passes}")
+    if set(crossed) != MESH_HYBRID_CROSSED[kind] or not all(
+            v > 0 for v in crossed.values()):
+        raise SmokeError(f"{what}: crossed {crossed}, expected "
+                         f"{sorted(MESH_HYBRID_CROSSED[kind])}")
+    log(json.dumps({
+        "leg": f"mesh-{leg}", "mesh": mesh_spec, "layers": layers,
+        "sequences_a_data_rank": per_rank, "processes": 2,
+        "transport": hist[0]["transport"], "params_max_abs_err": err,
+        "params_rel_norm_err": rel, "tol": MESH_LM_TOL,
+        "step_ms": 1e3 * hist[-1]["wall_s"] / hist[-1]["steps"],
+        "sim_step_ms": 1e3 * sim_hist[-1]["wall_s"] / sim_hist[-1]["steps"],
+        "peak_mem_gib": peaks, "sim_peak_mem_gib": sim_peak,
+        "reckoned_arenas_gib": reckoned, "crossed_bytes": crossed,
+        "num_events": hist[-1]["num_events"],
+        "msgs_saved_pct": hist[-1]["msgs_saved_pct"],
+        "launches": launches, "children_s": t_kids, "sim_s": t_sim,
+        "concurrent": "its processes alone", "card": card}))
+    totals = {}
+    for counts in launches:
+        for k, v in counts.items():
+            key = k + ("_d128" if k.startswith("flash_") else "")
+            totals[key] = totals.get(key, 0) + v
+    return totals
+
+
+def phase_mesh_hybrid():
+    """The sharded transformers and Ulysses attention on the device-mesh
+    lift (module docstring, phase 18, legs (e)-(h)): every leg's
+    simulator first, then (e)'s two command-line processes, then one
+    pair of processes running (f)-(h) in turn, each alone on the card.
+    Returns the children's launches of each kernel."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    card = nvidia_smi("name,power.limit")
+    (HERE / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="eg-mesh-hybrid-",
+                                 dir=HERE / "build"))
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    legs = {g[0]: g for g in MESH_HYBRID_LEGS}
+    torch.cuda.empty_cache()
+    restore = _mesh_switches()
+    try:
+        sims = {leg: _mesh_hybrid_sim(root, *g) for leg, g in legs.items()}
+        want = _final_snapshot(root / "ck-e-sim")[0]["state/params"]
+        shutil.rmtree(root / "ck-e-sim", ignore_errors=True)
+
+        # (e): the tensor-parallel transformer's two command-line
+        # processes
+        t = time.perf_counter()
+        port, procs = _free_port(), []
+        _, mesh_spec, _, per_rank, _ = legs["e-tp"]
+        for p in (0, 1):
+            out = root / f"e-mesh-{p}.out"
+            argv = [sys.executable, "-c", MESH_CLI,
+                    *_mesh_hybrid_cli_argv(mesh_spec, per_rank, root, "mesh",
+                                           p),
+                    "--backend", "mesh", "--coordinator", f"127.0.0.1:{port}",
+                    "--num-processes", "2", "--process-id", str(p)]
+            with open(out, "w") as fh:
+                procs.append((subprocess.Popen(
+                    argv, stdout=fh, stderr=subprocess.STDOUT, cwd=str(HERE),
+                    env=dict(_mesh_env(), **dict([MESH_HOST_DATA]))), out))
+        _finish_children(procs, "mesh (e-tp) children")
+        t = time.perf_counter() - t
+        if (root / "e-mesh-1.jsonl").exists():
+            raise SmokeError("mesh (e-tp): process 1 wrote a log")
+        recs = _cli_records(root / "e-mesh-0.jsonl")
+        final = recs[-1]
+        got = _final_snapshot(root / "ck-e-mesh")[0]["state/params"]
+        shutil.rmtree(root / "ck-e-mesh", ignore_errors=True)
+        err = within(got.to(DEVICE), want.to(DEVICE),
+                     what="mesh (e-tp): parameters", **MESH_LM_TOL)
+        add(_mesh_hybrid_check(
+            "e-tp", *legs["e-tp"][1:4], sims["e-tp"],
+            (recs[:-1], [final.get("kernel_launches", {})],
+             final.get("peak_mem_gib"), final.get("mesh_crossed_bytes", {}),
+             err, rel_norm_err(got, want), None, t), card))
+        del got, want
+
+        # (f)-(h): one pair of processes, the legs in turn
+        rest = [leg for leg in legs if leg != "e-tp"]
+        t = time.perf_counter()
+        port = _free_port()
+        procs = [(_mesh_child(
+            f"import chip_smoke as c; c.mesh_hybrid_child({rest!r}, {p}, "
+            f"{port}, {str(root)!r}, {DEVICE!r})", root / f"fgh-{p}.out"),
+            root / f"fgh-{p}.out") for p in (0, 1)]
+        _finish_children(procs, "mesh (f)-(h) children")
+        t = time.perf_counter() - t
+        lines = [[json.loads(line) for line in Path(out).read_text()
+                  .splitlines() if line.startswith('{"mesh_hybrid_child"')]
+                 for _, out in procs]
+        for leg in rest:
+            kids = [next(d for d in ls if d["leg"] == leg) for ls in lines]
+            rel = math.sqrt(sum(k["diff2"] for k in kids)
+                            / sum(k["want2"] for k in kids))
+            add(_mesh_hybrid_check(
+                leg, *legs[leg][1:4], sims[leg],
+                (kids[0]["hist"], [k["launches"] for k in kids],
+                 [k["peak_mem_gib"] for k in kids],
+                 {c: sum(k["crossed_bytes"].get(c, 0) for k in kids)
+                  for c in {c for k in kids for c in k["crossed_bytes"]}},
+                 max(k["params_max_abs_err"] for k in kids), rel,
+                 [k["forms"] for k in kids], None), card))
+        log(f"mesh (f)-(h): their pair of processes {t:.1f} s for the "
+            "three legs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        restore()
+    return totals
 
 KERNELS = (
     ("masked_wire", "eventgrad_tpu_torch/csrc/masked_wire.cu",
@@ -5695,9 +6173,10 @@ STREAMS = (
     ("phase_sass", "phase_obs", "phase_audit", "phase_resume"),
     ("phase_cli", "phase_hybrid_reference", "phase_membership"),
 )
-#: last, alone again: the hybrid legs (72 GiB at the MoE leg) and the
-#: mesh (its children and the simulator at once, ~65 GiB)
-TAIL = ("phase_hybrid", "phase_mesh")
+#: last, alone again: the hybrid legs (72 GiB at the MoE leg), the mesh
+#: (its children and the simulator at once, ~65 GiB) and the mesh's
+#: faults and sharded models (each leg's simulator, then its processes)
+TAIL = ("phase_hybrid", "phase_mesh", "phase_mesh_hybrid")
 #: the streams must have ended this many seconds after the start, so
 #: that the tail fits the run's 1,200 s
 STREAM_DEADLINE_S = 1000

@@ -14,8 +14,10 @@ Here the host builds each table once per run, for every pass of the run
 `FaultTables` uploads them once and indexes them by pass on the device:
 a per-pass host copy would be a pageable copy that syncs the stream.
 Every rank of the topology is one row of the rank-stacked tensors, so a
-pass's draws are `[R, n_neighbors]` tables. Passes are 1-based, as in
-the step.
+pass's draws are `[R, n_neighbors]` tables. On a device mesh every
+process draws the tables over all R ranks and reads its own rows, so
+each row is the simulator's (`FaultTables.at`). Passes are 1-based, as
+in the step.
 
 `lag_vector` / `lag_table` (the bounded-async engine's per-edge lags)
 depend on the edge sources alone, no draws.
@@ -192,15 +194,17 @@ class FaultTables:
 
     def at(self, pass_num: int):
         """(deliver `[R, n_nb]`, corrupt `[R, n_nb]` or None, salt `[R,
-        n_nb]` int64 or None, poison `[R]` or None) of a 1-based pass."""
+        n_nb]` int64 or None, poison `[R]` or None) of a 1-based pass;
+        on a topology lifted onto a mesh, this process's rows of the
+        tables drawn over every rank, so each row is the simulator's."""
         p = int(pass_num)
         if p < 1:
             raise ValueError(f"passes are 1-based, got {p}")
         if p > self.n_passes:
             self._build(max(2 * self.n_passes, p))
         i = p - 1
-        pick = lambda t: None if t is None else t[i]
-        return (self.deliver[i], pick(self.corrupt), pick(self.salt),
+        pick = lambda t: None if t is None else self.topo.local_rows(t[i])
+        return (pick(self.deliver), pick(self.corrupt), pick(self.salt),
                 pick(self.poison))
 
 

@@ -3,11 +3,12 @@
 Port of `eventgrad_tpu/chaos/monitor.py` (`PeerHealth`, `update`,
 `sync_requests`, `consensus_error`, `edge_status`, `health_record`).
 The state is rank-stacked: `silence` is `[R, n_neighbors]`, `sync_req`
-and `drops` are `[R]`. With the sender's `max_silence = M > 0` a healthy
-incoming edge is silent at most M passes (plus wire loss), so silence
-far beyond M is evidence of a dead or lossy link; the consensus-error
-probe `||p_r - mean(p)||` is the host-side drift metric of the
-records.
+and `drops` are `[R]` (on a device mesh, this process's rows; the sync
+requests gossip back across processes through `recv_from`). With the
+sender's `max_silence = M > 0` a healthy incoming edge is silent at
+most M passes (plus wire loss), so silence far beyond M is evidence of
+a dead or lossy link; the consensus-error probe `||p_r - mean(p)||` is
+the host-side drift metric of the records.
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ class PeerHealth:
 
     @classmethod
     def init(cls, topo: Topology, device=None) -> "PeerHealth":
-        r = topo.n_ranks
+        """Zero counters for the rows a step on `topo` holds: every rank,
+        or on a topology lifted onto a mesh this process's rows."""
+        r = topo.n_local
         return cls(
             silence=torch.zeros((r, topo.n_neighbors), dtype=torch.int32,
                                 device=device),

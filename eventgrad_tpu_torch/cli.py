@@ -38,14 +38,16 @@ primary logs, evaluates the gathered consensus model and exports; on the
 card the final record also carries the kernels' launches summed over the
 processes and each process's peak memory. `--backend sim` is the
 stacked simulator; `auto` takes the mesh when a group of several
-processes is joined, else the simulator. What the port does not have yet is refused with the
-ROADMAP item that ports it: on the mesh, once the model is built, the
-tensor-, pipeline- and expert-parallel transformers, `--attn ulysses`
-and `--chaos` (queue 1, item 8b; `train.steps.check_mesh_model`);
-`--arena off`, the JAX package's tree path, is not queued, by design,
-and refused before any data is built. `--fused` is accepted with the JAX
-guards that name it and selects nothing: the port's gossip tail is
-always the fused CUDA kernel.
+processes is joined, else the simulator. Every model, `--attn` and
+`--chaos` runs on the mesh as on the simulator (the tensor-, pipeline-
+and expert-parallel transformers and Ulysses attention with their
+collectives across processes); the mesh refuses what the JAX loop
+refuses there, in its words: the integrity sentinel/rollback engine,
+membership and device-resident data. `--arena off`, the JAX package's
+tree path, is not queued, by design, and refused before any data is
+built. `--fused` is accepted with the JAX guards that name it and
+selects nothing: the port's gossip tail is always the fused CUDA
+kernel.
 
 Examples:
     python -m eventgrad_tpu_torch.cli --algo eventgrad --mesh ring:8 \\
@@ -81,12 +83,12 @@ from eventgrad_tpu_torch.parallel import multihost
 from eventgrad_tpu_torch.parallel import policy as policy_lib
 from eventgrad_tpu_torch.parallel.events import EventConfig
 from eventgrad_tpu_torch.parallel.sparsify import SparseConfig
+from eventgrad_tpu_torch.parallel.spmd import resolve_backend
 from eventgrad_tpu_torch.parallel.topology import Ring, Topology, Torus
 from eventgrad_tpu_torch.train.loop import (
     ARENA_OFF_REFUSAL, consensus_params, evaluate, rank0_slice, train,
 )
 from eventgrad_tpu_torch.train.state import ALGOS
-from eventgrad_tpu_torch.train.steps import check_mesh_model
 from eventgrad_tpu_torch.utils.devices import resolve_device
 from eventgrad_tpu_torch.utils.metrics import JsonlLogger
 
@@ -406,34 +408,40 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _item_refusals(args) -> None:
-    """What the port does not run yet, refused before any data is built,
-    naming the ROADMAP item that ports it (what the device-mesh lift
-    does not run yet is `train.steps.check_mesh_model`'s, once the model
-    is built)."""
+    """What the port does not run, refused before any data is built."""
     if args.arena == "off":
         raise SystemExit(f"--arena off: {ARENA_OFF_REFUSAL}")
 
 
-def _card_report(device) -> dict:
+def _card_report(device, mesh=None) -> dict:
     """On the card, for the final record: the kernels' launches of the run
     summed over the group's processes, and each process's peak device
-    memory in GiB (a collective: every process calls it). Empty on the
-    CPU, where no kernel launches."""
+    memory in GiB (a collective: every process calls it); on a mesh also
+    the bytes its collectives sent across processes, summed, by
+    "collective:axis" (`spmd.Mesh.crossed`). Empty on the CPU, where no
+    kernel launches."""
     if device is not None:
         return {}
     import torch
 
     from eventgrad_tpu_torch import ops
 
+    crossed = {} if mesh is None else {
+        f"{kind}:{axis}": v for (kind, axis), v in mesh.crossed.items()}
     mine = ({k: v for k, v in ops.launch_counts().items() if v},
-            torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.max_memory_allocated() / 2**30, crossed)
     every = multihost.all_gather_object(mine)
-    launches = {}
-    for counts, _ in every:
+    launches, sent = {}, {}
+    for counts, _, cross in every:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-    return {"kernel_launches": launches,
-            "peak_mem_gib": [peak for _, peak in every]}
+        for k, v in cross.items():
+            sent[k] = sent.get(k, 0) + v
+    out = {"kernel_launches": launches,
+           "peak_mem_gib": [peak for _, peak, _ in every]}
+    if mesh is not None:
+        out["mesh_crossed_bytes"] = sent
+    return out
 
 
 def build_image_model(args, sample_shape):
@@ -742,12 +750,6 @@ def _run(args, topo, logger, registry, emit) -> int:
         model = build_lm_model(args, topo)
     else:
         model = build_image_model(args, np.shape(x)[1:])
-    if args.backend == "mesh" or (args.backend == "auto"
-                                  and multihost.is_multiprocess()):
-        try:
-            check_mesh_model(model, chaos_sched)
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from None
 
     event_cfg = EventConfig(
         adaptive=args.thres_mode == "adaptive",
@@ -765,6 +767,9 @@ def _run(args, topo, logger, registry, emit) -> int:
     )
     hist = []
     try:
+        # the mesh the run lifts onto (None: the simulator), built here so
+        # that the final record can read what crossed its processes
+        mesh = resolve_backend(args.backend, topo, device)
         try:
             with scope:
                 state, hist = train(
@@ -774,7 +779,7 @@ def _run(args, topo, logger, registry, emit) -> int:
                     event_cfg=event_cfg,
                     sparse_cfg=SparseConfig(args.topk_percent),
                     augment=args.augment, random_sampler=args.random_sampler,
-                    sync_bn=args.sync_bn, backend=args.backend,
+                    sync_bn=args.sync_bn, backend=args.backend, mesh=mesh,
                     seed=args.seed, x_test=xt, y_test=yt,
                     checkpoint_dir=args.checkpoint_dir,
                     save_every=args.save_every,
@@ -812,7 +817,7 @@ def _run(args, topo, logger, registry, emit) -> int:
             print(f"integrity abort: {e}", file=sys.stderr, flush=True)
             return INTEGRITY_ABORT_EXIT
 
-        card = _card_report(device)
+        card = _card_report(device, mesh)
         if hybrid:
             # a consensus average across sp/tp/pp/ep ranks would mix
             # differently sharded parameters: the final train metrics

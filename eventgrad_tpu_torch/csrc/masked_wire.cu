@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel eventgrad_tpu/ops/event_engine.py:_mask_kernel
 // (launched by _masked_wire_pallas with scale_exp=None). The int8
-// variant _mask_quant_kernel is not ported yet.
+// variant, _mask_quant_kernel, is ported in csrc/mask_quant.cu.
 //
 // Bound on the card: bytes. Per element it reads flat and the
 // per-position fire bit (f32) and writes out: 12 B/elem, about 1.67 GB

@@ -95,7 +95,10 @@ class Mesh:
     R / W contiguous rows each, this process's rows `[lo, hi)`, its
     device and the transport. `exchange_log` counts the lift's shifts by
     (axis, offset): the exchange the mesh step declares
-    (`analysis/audit.mesh_lift_report`)."""
+    (`analysis/audit.mesh_lift_report`); `crossed` sums the bytes this
+    process sent to the others by (collective, axis): "hop" for a shift,
+    "fold" for a grid sum (the partial sums and the totals), "swap" for
+    an all-to-all."""
 
     n_ranks: int
     n_procs: int
@@ -104,6 +107,8 @@ class Mesh:
     transport: str
     group: Any = None
     exchange_log: Dict[Tuple[str, int], int] = dataclasses.field(
+        default_factory=dict)
+    crossed: Dict[Tuple[str, str], int] = dataclasses.field(
         default_factory=dict)
     _plans: Dict[Any, Any] = dataclasses.field(default_factory=dict,
                                                repr=False)
@@ -129,6 +134,16 @@ class Mesh:
         if dim:
             return self.gather(x.movedim(dim, 0)).movedim(0, dim)
         return multihost.all_gather_rows(x, self.group, self.transport)
+
+    def _exchange(self, x, sends, recvs, kind: str, axis: str) -> dict:
+        """`multihost.exchange` over the group, its sent bytes booked in
+        `crossed` under (kind, axis)."""
+        if sends:
+            key = (kind, axis)
+            self.crossed[key] = self.crossed.get(key, 0) + sum(
+                t.numel() * t.element_size() for t in sends.values())
+        return multihost.exchange(x, sends, recvs, self.group,
+                                  self.transport)
 
     def plan(self, topo: Topology, nb: NeighborSpec, device):
         """Where each local row of a shift by `nb` comes from: (local
@@ -166,10 +181,10 @@ class Mesh:
         loc_dst, loc_src, recv, send = self.plan(topo, nb, x.device)
         if not recv and not send:
             return x.index_select(0, loc_src)
-        got = multihost.exchange(
+        got = self._exchange(
             x, {q: x.index_select(0, rows) for q, rows in send.items()},
             {q: (len(rows),) + tuple(x.shape[1:]) for q, rows in recv.items()},
-            self.group, self.transport)
+            "hop", nb.axis)
         out = torch.empty_like(x)
         out[loc_dst] = x.index_select(0, loc_src)
         for q, rows in recv.items():
@@ -219,18 +234,18 @@ class Mesh:
             self._plans[key] = (first, rounds, (send, recv), rows)
         return self._plans[key]
 
-    def _move(self, x, acc, send, recv, keep=False):
-        """One batch of point-to-point transfers of the partial sums:
-        `send` {peer: groups} leave `acc` (stay in it with `keep`),
-        `recv` {peer: groups} land in it."""
+    def _move(self, x, acc, send, recv, axis, keep=False):
+        """One batch of point-to-point transfers of the partial sums along
+        `axis`: `send` {peer: groups} leave `acc` (stay in it with
+        `keep`), `recv` {peer: groups} land in it."""
         if not send and not recv:
             return
         take = acc.get if keep else acc.pop
-        got = multihost.exchange(
+        got = self._exchange(
             x, {q: torch.stack([take(g) for g in gs])
                 for q, gs in send.items()},
             {q: (len(gs),) + tuple(x.shape[1:]) for q, gs in recv.items()},
-            self.group, self.transport)
+            "fold", axis)
         for q, gs in recv.items():
             acc.update(zip(gs, got[q]))
 
@@ -239,13 +254,14 @@ class Mesh:
         member in axis order (`collectives.fold`'s order, so its bits):
         every row receives its group's sum."""
         first, rounds, (send, recv), rows = self.fold_plan(topo, ax)
+        axis = topo.axes[ax]
         acc = {g: x[r] for g, r in first}
         for k_send, k_recv, add in rounds:
-            self._move(x, acc, k_send, k_recv)
+            self._move(x, acc, k_send, k_recv, axis)
             for g, r in add:
                 acc[g] = acc[g] + x[r]
         # the totals to the group's other processes
-        self._move(x, acc, send, recv, keep=True)
+        self._move(x, acc, send, recv, axis, keep=True)
         return torch.stack([acc[g] for g in rows])
 
     def swap_plan(self, topo: Topology, ax: int, device):
@@ -292,11 +308,11 @@ class Mesh:
         if loc_dst is not None:
             out[loc_dst] = x[loc_src]
         if recv or send:
-            got = multihost.exchange(
+            got = self._exchange(
                 x, {q: x[pairs] for q, pairs in send.items()},
                 {q: (len(pairs[0]),) + tuple(x.shape[2:])
                  for q, pairs in recv.items()},
-                self.group, self.transport)
+                "swap", topo.axes[ax])
             for q, pairs in recv.items():
                 out[pairs] = got[q]
         return out

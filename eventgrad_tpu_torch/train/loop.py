@@ -56,7 +56,7 @@ from eventgrad_tpu_torch.train import state as state_lib
 from eventgrad_tpu_torch.train.state import (
     EVENT_ALGOS, TrainState, init_train_state,
 )
-from eventgrad_tpu_torch.train.steps import check_mesh_model, make_train_step
+from eventgrad_tpu_torch.train.steps import make_train_step
 from eventgrad_tpu_torch.utils import checkpoint
 from eventgrad_tpu_torch.utils.devices import resolve_device
 from eventgrad_tpu_torch.utils.metrics import msgs_saved_pct
@@ -551,8 +551,11 @@ def train(
     keeps the serial schedule, as the JAX loop does; refused on a mesh
     with the JAX loop's words: the integrity sentinel/rollback engine,
     membership, `pipeline=True` (more than one process) and
-    `device_data=True`; with ROADMAP queue 1, item 8b: the tensor-,
-    pipeline- and expert-parallel models, Ulysses attention and `chaos`.
+    `device_data=True`. Everything else runs on a mesh as on the
+    simulator: the tensor-, pipeline- and expert-parallel models,
+    Ulysses attention, and the fault clauses with the in-step integrity
+    riders and the recovery policy (the health counters and verdicts
+    gathered with the metrics).
     `arena` (None or True:
     the flat arena, the port's only layout, True refused for the algos
     the JAX arena does not serve as the JAX loop refuses it; False, the
@@ -729,7 +732,6 @@ def train(
         if mesh.device.type != device.type:
             raise ValueError(
                 f"the mesh runs on {mesh.device}, the run on {device}")
-        check_mesh_model(model, chaos)
     if arena is False:
         raise NotImplementedError(f"arena=False: {ARENA_OFF_REFUSAL}")
     if arena and algo not in ("dpsgd", "eventgrad"):
@@ -964,7 +966,8 @@ def train(
         obs=obs_on, device=device,
     )
     if chaos_sched is not None:
-        state = state.replace(chaos=chaos_monitor.PeerHealth.init(topo,
+        # every rank's health, sliced with the rest of the state below
+        state = state.replace(chaos=chaos_monitor.PeerHealth.init(topo_all,
                                                                   device))
     spec = arena_spec(model)
     # the receive-side trace carry (the stale norm each neighbour's buffer

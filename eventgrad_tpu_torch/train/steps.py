@@ -214,27 +214,6 @@ def check_stacked_model(model, topo: Topology) -> None:
         raise ValueError(f"axis {sp!r} is not an axis of {topo.axes}")
 
 
-#: the words of what the device-mesh lift does not run yet
-MESH_8B = ("is not ported to the device-mesh lift yet (ROADMAP queue 1, "
-           "item 8b); it runs on the stacked simulator (backend='vmap', "
-           "--backend sim)")
-
-
-def check_mesh_model(model, chaos=None) -> None:
-    """What the device-mesh lift refuses, naming ROADMAP queue 1, item
-    8b: a model sharded over an axis (the tensor-, pipeline- and
-    expert-parallel transformers), Ulysses attention, and the fault
-    clauses."""
-    axis = getattr(model, "shard_axis", None)
-    if axis is not None:
-        raise NotImplementedError(
-            f"{type(model).__name__} (sharded over {axis!r}) {MESH_8B}")
-    if getattr(model, "attn", None) == "ulysses":
-        raise NotImplementedError(f"Ulysses attention {MESH_8B}")
-    if chaos is not None:
-        raise NotImplementedError(f"chaos= {MESH_8B}")
-
-
 def make_train_step(
     model,
     topo: Topology,
@@ -339,15 +318,15 @@ def make_train_step(
     the collectives route through the mesh, and the random draws take
     the full `[R, ...]` lead from the state's generator and keep this
     process's rows, so every process's generator stays the simulator's.
-    The metrics are this process's rows. Refused on a mesh, naming
-    ROADMAP queue 1, item 8b: the tensor-, pipeline- and
-    expert-parallel models, Ulysses attention and `chaos`."""
+    The metrics are this process's rows. Every model and option runs
+    on a mesh: a sharded model's grid sums, stage shifts and
+    all-to-alls cross processes through the mesh, and the fault tables
+    are drawn over every rank and read on this process's rows
+    (`chaos.inject.FaultTables.at`)."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     if mesh is not None:
         topo = spmd.lift(topo, mesh)
-    if topo.mesh is not None:
-        check_mesh_model(model, chaos)
     staleness = int(staleness)
     if staleness < 0:
         raise ValueError(

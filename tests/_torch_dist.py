@@ -57,6 +57,15 @@ def finish(procs, timeout: float = 240.0):
     return outs
 
 
+def stop(procs):
+    """Kill every process of `procs` still running (a fixture's cleanup
+    when its parent side fails before `finish`)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
 def _main(argv):
     import importlib
 

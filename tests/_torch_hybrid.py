@@ -1,5 +1,6 @@
 """What the hybrid-mesh tests of the port share (`test_torch_hybrid.py`,
-`test_torch_tp.py`, `test_torch_pp.py`, `test_torch_moe.py`).
+`test_torch_tp.py`, `test_torch_pp.py`, `test_torch_moe.py`,
+`test_torch_mesh_hybrid.py`).
 
 Both packages start from the same state: the JAX package's
 `init_train_state_spmd` on the JAX topology (its tree path, as its loop
@@ -88,17 +89,51 @@ def flat_of(jparams, spec):
     return spec.ravel(tp)
 
 
-def run_both(jmodel, tmodel, spec_str, algo, batches, input_shape,
-             input_dtype=jnp.int32):
-    """Both packages' steps from the same state over `batches` on the
-    mesh `spec_str`. Returns (arena spec, port topology, [(JAX state,
-    JAX metrics, port state, port metrics) per pass])."""
+def jax_init_jit(jmodel, input_shape, tx, jtopo, algo, seed=0,
+                 input_dtype=jnp.int32):
+    """`init_train_state_spmd`'s per-rank initialization (flax init, the
+    optimizer state, the event state; every rank the same root key, the
+    random streams split from it) compiled as one jit: the JAX function
+    runs it op by op on the CPU, which costs seconds a model here."""
+    from eventgrad_tpu.parallel.events import EventState as JaxEventState
+    from eventgrad_tpu.train.state import TrainState as JaxTrainState
+
+    def per_rank_init(key):
+        variables = jmodel.init(key, jnp.zeros((1,) + tuple(input_shape),
+                                               input_dtype))
+        params = variables["params"]
+        event = (JaxEventState.init(params, jtopo, JaxEventConfig(**CFG))
+                 if algo == "eventgrad" else None)
+        return JaxTrainState(
+            params=params, opt_state=tx.init(params),
+            batch_stats=variables.get("batch_stats", {}),
+            pass_num=jnp.zeros((), jnp.int32), rng=key, event=event)
+
+    @jax.jit
+    def build(root):
+        keys = jnp.broadcast_to(root, (jtopo.n_ranks,) + root.shape)
+        state = spmd(per_rank_init, jtopo)(keys)
+        rngs = jax.random.split(jax.random.fold_in(root, 1), jtopo.n_ranks)
+        return state.replace(rng=rngs)
+
+    return build(jax.random.PRNGKey(seed))
+
+
+def carried_start(jmodel, tmodel, spec_str, algo, input_shape,
+                  input_dtype=jnp.int32, jit=False):
+    """The JAX package's initial state on the mesh `spec_str` and the
+    port's, carried from it with a fresh event state. Returns (JAX
+    state, port state, arena spec). `jit=True` builds the JAX state with
+    `jax_init_jit`."""
     jtopo, topo = mesh(spec_str)
     tx = optax.sgd(LR, momentum=MOM)
-    event = algo == "eventgrad"
-    jstate = jax_init_spmd(jmodel, input_shape, tx, jtopo, algo,
-                           JaxEventConfig(**CFG), seed=0,
-                           input_dtype=input_dtype)
+    if jit:
+        jstate = jax_init_jit(jmodel, input_shape, tx, jtopo, algo,
+                              input_dtype=input_dtype)
+    else:
+        jstate = jax_init_spmd(jmodel, input_shape, tx, jtopo, algo,
+                               JaxEventConfig(**CFG), seed=0,
+                               input_dtype=input_dtype)
     spec = arena_spec(tmodel)
     tp, ts = convert.params_from_jax(np_tree(jstate.params),
                                      np_tree(jstate.batch_stats),
@@ -108,18 +143,53 @@ def run_both(jmodel, tmodel, spec_str, algo, batches, input_shape,
         params=flat, trace=torch.zeros_like(flat), batch_stats=ts,
         pass_num=0,
         event=(EventState.init(spec, topo, EventConfig(**CFG), device="cpu")
-               if event else None))
+               if algo == "eventgrad" else None))
+    return jstate, tstate, spec
+
+
+def port_step(tmodel, topo, algo, mesh=None):
+    """The port's step of these tests (`trace` on for EventGraD), lifted
+    onto `mesh` when one is given."""
+    return make_train_step(tmodel, topo, algo, EventConfig(**CFG),
+                           fused_sgd=(LR, MOM), trace=algo == "eventgrad",
+                           mesh=mesh)
+
+
+def torch_batch(x, y):
+    """A numpy batch as the port's step takes it."""
+    return (torch.from_numpy(np.asarray(x)).to(
+        torch.int64 if x.dtype.kind == "i" else torch.float32),
+        torch.from_numpy(np.asarray(y)).long())
+
+
+def jax_passes(jmodel, jstate, spec_str, algo, batches):
+    """[(JAX state, JAX metrics)] after each batch, from `jstate`."""
+    jtopo, _ = mesh(spec_str)
+    tx = optax.sgd(LR, momentum=MOM)
     jstep = jax.jit(spmd(jax_make_step(
-        jmodel, tx, jtopo, algo, JaxEventConfig(**CFG), trace=event), jtopo))
-    tstep = make_train_step(tmodel, topo, algo, EventConfig(**CFG),
-                            fused_sgd=(LR, MOM), trace=event)
-    passes = []
+        jmodel, tx, jtopo, algo, JaxEventConfig(**CFG),
+        trace=algo == "eventgrad"), jtopo))
+    out = []
     for x, y in batches:
         jstate, jm = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
-        tstate, tm = tstep(tstate, (torch.from_numpy(np.asarray(x)).to(
-            torch.int64 if x.dtype.kind == "i" else torch.float32),
-            torch.from_numpy(np.asarray(y)).long()))
-        passes.append((np_tree(jstate), np_tree(jm), tstate,
+        out.append((np_tree(jstate), np_tree(jm)))
+    return out
+
+
+def run_both(jmodel, tmodel, spec_str, algo, batches, input_shape,
+             input_dtype=jnp.int32):
+    """Both packages' steps from the same state over `batches` on the
+    mesh `spec_str`. Returns (arena spec, port topology, [(JAX state,
+    JAX metrics, port state, port metrics) per pass])."""
+    _, topo = mesh(spec_str)
+    jstate, tstate, spec = carried_start(jmodel, tmodel, spec_str, algo,
+                                         input_shape, input_dtype)
+    tstep = port_step(tmodel, topo, algo)
+    passes = []
+    for (js, jm), (x, y) in zip(
+            jax_passes(jmodel, jstate, spec_str, algo, batches), batches):
+        tstate, tm = tstep(tstate, torch_batch(x, y))
+        passes.append((js, jm, tstate,
                        {k: v.numpy() for k, v in tm.items()}))
     return spec, topo, passes
 

@@ -58,8 +58,8 @@ def _matrix_cases():
                 for d in (0, 1):
                     cases[f"{gw}-{wire or 'f32'}-b{k or 1}-s{d}"] = dict(
                         gossip_wire=gw, wire=wire, bucketed=k, staleness=d)
-    # bounded asynchrony at D = 2 (the baseline lag: the fault clauses
-    # that stretch it are refused on the lift, item 8b)
+    # bounded asynchrony at D = 2 (the baseline lag; the fault clauses
+    # that stretch it are held on the lift by test_torch_mesh_chaos.py)
     for gw, wire in (("dense", None), ("compact", "int8")):
         cases[f"async-{gw}-{wire or 'f32'}-D2"] = dict(
             gossip_wire=gw, wire=wire, staleness=2)

@@ -8,8 +8,9 @@ package's (`eventgrad_tpu/cli.py`).
   * the guards: a table of argvs that both `main`s refuse before any
     data is built raise `SystemExit` with the same words (no JAX step
     compiles: every guard fires first);
-  * the refusals: what the device-mesh lift does not run yet (the
-    fault clauses, the sharded transformers) names ROADMAP item 8b, and
+  * the refusals: the argvs the device-mesh lift once refused as
+    ROADMAP item 8b (the fault clauses, the sharded transformers) run on
+    a one-process mesh with `--backend sim`'s records, and
     EG_COORDINATOR without its companions raises the JAX words; `--arena
     off` the "not queued, by design" entry; the argvs once
     refused as item 7 (hybrid meshes, the tp/pp/moe transformers, ring /
@@ -203,7 +204,8 @@ SMALL_RUN = ["--n-synth", "128", "--epochs", "2", "--batch-size", "4"]
 
 #: the argvs once refused as ROADMAP item 7: the hybrid mesh trains; a
 #: model whose axis the mesh lacks is refused as the JAX launcher refuses
-#: it; what the device mesh does not lift yet names item 8b
+#: it; those once refused on the device mesh as item 8b run there, their
+#: records those of `--backend sim`
 REFUSALS = [
     (["--mesh", "dp:2,sp:2", "--model", "transformer"], "runs"),
     (["--model", "transformer_tp"], "jax words"),
@@ -230,8 +232,17 @@ def test_refusals_name_their_item(argv, item, tmp_path, monkeypatch):
         assert "axis in --mesh" in str(want.value)
         assert str(got.value) == str(want.value)
     else:
-        with pytest.raises(SystemExit, match=rf"ROADMAP queue 1, {item}\b"):
-            cli.main(argv + ["--device", "cpu"])
+        small = SMALL_LM + SMALL_RUN + ["--device", "cpu"]
+        sim = [a if a != "mesh" else "sim" for a in argv]
+        assert cli.main(argv + small + ["--log-file", "mesh.jsonl"]) == 0
+        assert cli.main(sim + small + ["--log-file", "sim.jsonl"]) == 0
+        strip = lambda r: {k: v for k, v in r.items()
+                           if k not in ("wall_s", "ts", "transport",
+                                        "mesh_processes")}
+        got, want = (
+            [strip(json.loads(line)) for line in open(path)]
+            for path in ("mesh.jsonl", "sim.jsonl"))
+        assert len(got) == len(want) == 3 and got == want
 
 
 #: the hybrid argvs the JAX launcher trains: (argv, gossip neighbours)

@@ -313,8 +313,9 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     torus = egt.Torus(2, 2)
     assert torch.equal(ring_attention(q, q, q, torus),
                        ring_attention(q, q, q, torus, axis="x"))
-    # item 8 (the device-mesh lift) is ported: its calls, once refused,
-    # now run; what it does not lift yet names item 8b
+    # item 8 (the device-mesh lift) is ported, and item 8b (the rest of
+    # it: the fault clauses, the sharded transformers, Ulysses attention)
+    # too: their calls, once refused, now run
     assert callable(audit.oracle("mesh_undeclared_offset"))
     _, hist = train_mlp(backend="mesh")
     assert hist[0]["transport"] == "local"
@@ -325,14 +326,12 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     }
     for item, argvs in cli_refusals.items():
         for argv in argvs:
-            with pytest.raises(SystemExit,
-                               match=rf"ROADMAP queue 1, {item}\b"):
-                cli.main(argv + ["--device", "cpu"])
+            assert cli.main(argv + small) == 0, (item, argv)
     mesh4 = spmd.build_mesh(egt.Ring(4), "cpu")
     refusals = {
         # the fault clauses and Ulysses attention on the device mesh
         "item 8b": [lambda: train_mlp(backend="mesh",
-                                      chaos="seed=1,drop=0.1"),
+                                      chaos="seed=1,drop=0.1")[1],
                     lambda: make_train_step(
                         egt.TransformerLM(vocab=16, dim=8, n_heads=2,
                                           n_layers=1, max_len=8,
@@ -341,7 +340,6 @@ def test_refusals_name_their_roadmap_item(tmp_path):
                         mesh=mesh4)],
     }
     for item, calls in refusals.items():
-        for call in calls:
-            with pytest.raises(NotImplementedError,
-                               match=rf"ROADMAP queue 1, {item}\b"):
-                call()
+        hist, step = (call() for call in calls)
+        assert hist[0]["transport"] == "local" and "chaos_drops" in hist[-1]
+        assert callable(step), item

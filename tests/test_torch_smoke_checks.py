@@ -116,3 +116,28 @@ def test_same_records_on_named_and_on_all_keys():
         with pytest.raises(smoke.SmokeError, match=k):
             smoke._same_records(a, [b[0], {**b[1], k: v}], k, keys=None,
                                 skip=skip)
+
+
+def test_finish_children_fails_fast_and_stops_the_rest(tmp_path):
+    """`chip_smoke._finish_children`: a child that exits non-zero fails the
+    wait at once (its group's peers would wait for it until the timeout)
+    and the others are killed; children that all exit 0 pass."""
+    import subprocess
+    import sys
+    import time
+
+    def child(code, name):
+        out = tmp_path / name
+        with open(out, "w") as fh:
+            return subprocess.Popen([sys.executable, "-c", code], stdout=fh,
+                                    stderr=subprocess.STDOUT), out
+
+    sleeper = child("import time; time.sleep(60)", "sleeper.out")
+    failing = child("print('bad'); raise SystemExit(3)", "failing.out")
+    t = time.perf_counter()
+    with pytest.raises(smoke.SmokeError, match="a child exited 3:\nbad"):
+        smoke._finish_children([sleeper, failing], "group")
+    assert time.perf_counter() - t < 30
+    assert sleeper[0].poll() is not None
+    smoke._finish_children([child("pass", f"ok{i}.out") for i in range(2)],
+                           "group")
